@@ -1,0 +1,1 @@
+"""Train of the PyTorch port (see the package docstring)."""

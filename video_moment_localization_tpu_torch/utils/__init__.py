@@ -1,0 +1,1 @@
+"""Utils of the PyTorch port (see the package docstring)."""
