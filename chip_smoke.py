@@ -1,26 +1,43 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Run the PyTorch port's serving and training paths on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py [--seed 0]
 
 Phases (any failed check exits non-zero; no phase's failure is caught):
 
-1. the card's name and power limit; build every kernel of the path from
+1. the card's name and power limit; build every kernel of the paths from
    ``video_moment_localization_tpu_torch/csrc`` with nvcc (one process per
    source, started together) and print the build time;
-2. kernel parity at the full Charades width (config/charadessta.yml), at
-   B=64 and at the serving run's buckets B=16 and B=8: K5 (fused biLSTM)
-   and K4 (fused SMI stack) against their plain PyTorch versions on the
-   card, from seeded numpy inputs;
+2. serving kernel parity at the full Charades width
+   (config/charadessta.yml), at B=64 and at the serving run's buckets B=16
+   and B=8: K5 (fused biLSTM) and K4 (fused SMI stack) against their plain
+   PyTorch versions on the card, from seeded numpy inputs;
 3. the serving path: random seeded weights written as a reference-format
    checkpoint, a synthetic GloVe table, ``MomentLocalizer.from_checkpoint``
    on the card serving 24 requests (a repeated video for the grouped path,
    an out-of-vocabulary word, videos shorter and longer than T); both launch
    counters must rise, and the top-k must equal that of the same localizer
    on the CPU;
-4. times from CUDA events (median after warm-up) at B=16 and B=512 for each
-   kernel, its plain version, its bound and the one PyTorch call that
-   computes the same function where there is one; end-to-end pairs/s.
+4. serving times from CUDA events (median after warm-up) at B=16 and B=512
+   for each kernel, its plain version, its bound and the one PyTorch call
+   that computes the same function where there is one; end-to-end pairs/s;
+5. training kernel parity at the full Charades width, B=64 and B=4, ragged
+   masks: K1 (proposal rows) forward and backward, K2 (SMI layer forward)
+   and K3 (SMI layer backward: all five activation gradients and all 20
+   weight and bias gradients, with and without a dcu cotangent) against
+   their plain versions on the card;
+6. the training path: ``make_train_step`` at B=64, full width and depth, on
+   a seeded synthetic batch (targets from the ported label generators,
+   ragged lengths, one padded sample), 3 Adam steps. Every loss is finite,
+   every parameter's gradient of step 1 is finite and equals that of the
+   plain versions, the launch counters of K1 / K2 / K3 rise by 3 + 3, 9 and
+   9, and the 3 losses equal those of the same steps taken with the plain
+   versions on the card from the same initial weights; then one
+   ``make_eval_step`` (K5 and K4) on the batch;
+7. training times at B=64: each new kernel, its plain version, its bound,
+   the one PyTorch call for K1 (a matmul with the dense averaging matrix),
+   and the whole train step in ms and samples/s.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
@@ -46,9 +63,30 @@ LSTM_SRC = "video_moment_localization_tpu_torch/csrc/lstm.cu"
 STACK_SRC = "video_moment_localization_tpu_torch/csrc/smin_stack.cu"
 LSTM_REPLACES = "video_moment_localization_tpu/ops/lstm_pallas.py:159"
 STACK_REPLACES = "video_moment_localization_tpu/ops/smin_pallas.py:682"
+PROPOSAL_SRC = "video_moment_localization_tpu_torch/csrc/proposal_rows.cu"
+TRAIN_SRC = "video_moment_localization_tpu_torch/csrc/smin_train.cu"
+K1_FWD_REPLACES = "video_moment_localization_tpu/ops/proposal_pallas.py:342"
+K1_BWD_REPLACES = "video_moment_localization_tpu/ops/proposal_pallas.py:398"
+K2_REPLACES = "video_moment_localization_tpu/ops/smin_train_pallas.py:508"
+K3_REPLACES = "video_moment_localization_tpu/ops/smin_train_pallas.py:637"
+SOURCES = ("lstm", "smin_stack", "proposal_rows", "smin_train")
 K5_TOL = dict(rtol=1e-4, atol=2e-5)
 K4_TOL = dict(rtol=2e-4, atol=2e-5)
 SCORE_TOL = 1e-4
+# K1: a mean over at most T/L * L frames and its transpose; summation order.
+K1_TOL = dict(rtol=1e-4, atol=1e-5)
+# K3: the JAX train-kernel tests' gradient rtol; the absolute part is relative
+# to a magnitude, because a weight gradient sums up to B*N*C = 34,816 rows in
+# another order than the plain version: an activation gradient's own largest
+# magnitude, and for the weights the largest over the layer's 20 (a
+# key-projection bias has a structurally zero gradient: only noise is left).
+GRAD_RTOL, GRAD_ATOL_REL = 5e-4, 5e-5
+# Three Adam steps, kernels vs plain versions on the card: Adam's update is
+# about lr * g / (|g| + 1e-8), so rounding noise in near-zero gradients moves
+# those weights by up to 2 * lr between the two runs from step 2 on.
+TRAIN_LOSS_RTOL = 2e-4
+TRAIN_BATCH = 64
+TRAIN_STEPS = 3
 QUERIES = ["person opens the door", "a person sits on the couch",
            "someone takes a xylophone from the shelf", "the person closes a laptop",
            "person pours water into a cup", "a person laughs",
@@ -342,6 +380,313 @@ def phase_times(cfg, gpu, rng):
     return res
 
 
+# ------------------------------------------------------------------------- #
+# Training slice
+# ------------------------------------------------------------------------- #
+def layer_flops(cfg, Nq):
+    """ops/smin_train_pallas.py:489-493 of the JAX package, per element."""
+    L, C, D, dl = cfg.L, cfg.C, cfg.D, cfg.dl
+    N = L * (L + 1) // 2
+    NC = N * C
+    return 2 * (NC * (2 * D * dl + dl * dl + Nq * dl * 2 + 2 * C * dl)
+                + N * (2 * D * D)
+                + L * (D * D + Nq * D * 2 + L * D * 2) + N * L * D * 3)
+
+
+def layer_inputs(cfg, B, rng, device):
+    """(fc, fm, fb, fw, fs, qmask, lmask, vmask) of one SMI layer."""
+    from video_moment_localization_tpu_torch.ops.proposal import proposal_features_packed
+
+    f, fw, fs, qmask, lmask, vmask = stack_inputs(cfg, B, rng, device)
+    fc, fm, fb = proposal_features_packed(f, lmask, cfg.L, cfg.C)
+    return [t.contiguous() for t in (fc, fm, fb, fw * qmask, fs, qmask, lmask, vmask)]
+
+
+def randn_like(t, rng):
+    import torch
+
+    return torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype("float32")).to(t.device)
+
+
+def grad_err(got, want, scale, name):
+    """Max abs error of a gradient held to GRAD_RTOL and GRAD_ATOL_REL * scale."""
+    import torch
+
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite gradient")
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL_REL * scale):
+        fail(f"{name}: kernel disagrees with its plain version: max abs err {err:.3e}, "
+             f"magnitude {scale:.3e} (rtol {GRAD_RTOL}, atol {GRAD_ATOL_REL} of the magnitude)")
+    return err
+
+
+def phase_train_parity(cfg, model, rng, device):
+    """K1 forward / backward, K2 and K3 against their plain versions at B=64
+    and B=4. Returns the largest max abs error of each over the sizes (K3's
+    also relative to the gradient magnitudes it was held to)."""
+    import torch
+
+    from video_moment_localization_tpu_torch.models.smin import block_weights
+    from video_moment_localization_tpu_torch.ops import proposal_cuda, smin_train_cuda
+
+    errs = {"K1f": 0.0, "K1b": 0.0, "K2": 0.0, "K3": 0.0, "K3_rel": 0.0}
+    weights = [w.detach() for w in block_weights(model.smis[1])]
+    for B in (TRAIN_BATCH, 4):
+        f, _, _, _, lmask, _ = stack_inputs(cfg, B, rng, device)
+        got = proposal_cuda.proposal_rows_forward(f, lmask, cfg.L, cfg.C)
+        want = proposal_cuda.proposal_features_packed(f, lmask, cfg.L, cfg.C)
+        torch.cuda.synchronize()
+        e1 = max_err(got, want, K1_TOL, f"K1 proposal_rows_forward B={B}")
+        cots = [randn_like(t, rng) for t in want]
+        dgot = proposal_cuda.proposal_rows_backward(lmask, cfg.T, cfg.L, cfg.C, *cots)
+        dwant = proposal_cuda.proposal_rows_backward_plain(lmask, cfg.T, cfg.L, cfg.C, *cots)
+        torch.cuda.synchronize()
+        e2 = max_err([dgot], [dwant], K1_TOL, f"K1 proposal_rows_backward B={B}")
+        print(f"parity K1 proposal rows B={B}: forward max abs err {e1:.3e}, backward "
+              f"{e2:.3e} (tolerance {K1_TOL})")
+        errs["K1f"], errs["K1b"] = max(errs["K1f"], e1), max(errs["K1b"], e2)
+
+        ins = layer_inputs(cfg, B, rng, device)
+        got = smin_train_cuda.smi_layer_forward(weights, *ins, cfg.L)
+        want = smin_train_cuda.smi_layer_plain(weights, *ins, cfg.L)
+        torch.cuda.synchronize()
+        e = max_err(got, want, K4_TOL, f"K2 smi_layer_forward B={B}")
+        print(f"parity K2 smi_layer_forward B={B}: max abs err {e:.3e} (tolerance {K4_TOL})")
+        errs["K2"] = max(errs["K2"], e)
+
+        dcu, dmu, dbu = [randn_like(t, rng) for t in want]
+        for cot in (dcu, None):
+            got = smin_train_cuda.smi_layer_backward(weights, *ins, cfg.L, cot, dmu, dbu)
+            want = smin_train_cuda.smi_layer_backward_plain(weights, *ins, cfg.L, cot, dmu, dbu)
+            torch.cuda.synchronize()
+            worst = rel = 0.0
+            for g, w, name in zip(got[:5], want[:5], ("dfc", "dfm", "dfb", "dfw", "dfs")):
+                scale = float(w.abs().max())
+                e = grad_err(g, w, scale, f"K3 {name} B={B}")
+                worst, rel = max(worst, e), max(rel, e / scale)
+            scale = max(float(w.abs().max()) for w in want[5])
+            for k, (g, w) in enumerate(zip(got[5], want[5])):
+                e = grad_err(g, w, scale, f"K3 weight gradient {k} B={B}")
+                worst, rel = max(worst, e), max(rel, e / scale)
+            print(f"parity K3 smi_layer_backward B={B} dcu={'yes' if cot is not None else 'none'}: "
+                  f"25 gradients, max abs err {worst:.3e}, {rel:.3e} of the magnitude "
+                  f"(rtol {GRAD_RTOL}, atol {GRAD_ATOL_REL} of the magnitude)")
+            errs["K3"], errs["K3_rel"] = max(errs["K3"], worst), max(errs["K3_rel"], rel)
+    return errs
+
+
+def plain_train_step(cfg, model, optimizer, batch):
+    """One train step with the plain version in place of every kernel: the
+    packed PyTorch pipeline under autograd. Returns the loss tensor."""
+    import torch
+
+    from video_moment_localization_tpu_torch.models import smin
+    from video_moment_localization_tpu_torch.ops.packing import packed_valid_mask
+    from video_moment_localization_tpu_torch.ops.proposal import proposal_features_packed
+    from video_moment_localization_tpu_torch.train.loss import smin_loss
+
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    with torch.enable_grad():
+        f, fs, fw = smin.backbone(model.backbone, cfg, batch["video_features"],
+                                  batch["video_mask"], batch["query_features"],
+                                  batch["query_mask"], fused_lstm=False)
+        lmask = batch["length_mask"]
+        vmask = packed_valid_mask(lmask)
+        fc, fm, fb = proposal_features_packed(f, lmask, cfg.L, cfg.C)
+        for block in model.smis:
+            fc, fm, fb = smin.smi_block_packed(block, fc, fm, fb, fw, fs, batch["query_mask"],
+                                               lmask, vmask, cfg.L)
+        outputs = smin.localization_packed(model.localization, fm, fb, lmask, vmask, cfg.L)
+        loss, _ = smin_loss(outputs, batch)
+        loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+def phase_train(config, seed, rng, device):
+    """3 Adam steps through the kernels at B=64, held to the same steps
+    through the plain versions; then one eval step. Returns the step
+    function, the batch and the launch counts of the 3 steps."""
+    import torch
+
+    from video_moment_localization_tpu_torch.models.smin import SMIN
+    from video_moment_localization_tpu_torch.ops import (
+        lstm_cuda,
+        proposal_cuda,
+        smin_cuda,
+        smin_train_cuda,
+    )
+    from video_moment_localization_tpu_torch.parallel.steps import (
+        build_optimizer,
+        make_eval_step,
+        make_train_step,
+    )
+    from video_moment_localization_tpu_torch.utils.profile_train import synthetic_batch
+
+    cfg = config.model
+    torch.manual_seed(seed + 1)
+    model = SMIN(cfg)
+    plain_model = SMIN(cfg).to(device)
+    plain_model.load_state_dict(model.state_dict())
+    batch = {k: v.to(device) for k, v in synthetic_batch(cfg, TRAIN_BATCH, rng).items()}
+    step = make_train_step(cfg, model, build_optimizer(config, model), device=device)
+
+    counters = {"K1f": proposal_cuda.proposal_rows_forward,
+                "K1b": proposal_cuda.proposal_rows_backward,
+                "K2": smin_train_cuda.smi_layer_forward,
+                "K3": smin_train_cuda.smi_layer_backward}
+    for fn in counters.values():
+        fn.launches = 0
+    plain_opt = build_optimizer(config, plain_model)
+    losses, plain_losses = [], []
+    for k in range(TRAIN_STEPS):
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        losses.append(float(metrics["loss"]))
+        if not (losses[-1] == losses[-1] and abs(losses[-1]) < float("inf")):
+            fail(f"train step {k + 1}: loss {losses[-1]}")
+        plain_losses.append(float(plain_train_step(cfg, plain_model, plain_opt, batch)))
+        if k == 0:
+            if tuple(metrics["counts"].shape) != (2, 4) or metrics["counts"].device.type != "cuda":
+                fail(f"train step 1: counts {tuple(metrics['counts'].shape)} on "
+                     f"{metrics['counts'].device}")
+            # Every parameter's gradient of step 1, held to the plain
+            # versions' relative to the largest gradient magnitude.
+            plain_grads = {n: p.grad for n, p in plain_model.named_parameters()}
+            scale = max(float(g.abs().max()) for g in plain_grads.values())
+            worst = 0.0
+            for name, p in model.named_parameters():
+                if p.grad is None:
+                    fail(f"train step 1: parameter {name} has no gradient")
+                worst = max(worst, grad_err(p.grad, plain_grads[name], scale,
+                                            f"train step 1 gradient of {name}") / scale)
+            print(f"training: step 1, {len(plain_grads)} parameter gradients finite and equal "
+                  f"to the plain versions' within {worst:.3e} of the largest magnitude "
+                  f"{scale:.3e}")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    n_layers = cfg.num_smi_layers
+    want = {"K1f": TRAIN_STEPS, "K1b": TRAIN_STEPS, "K2": TRAIN_STEPS * n_layers,
+            "K3": TRAIN_STEPS * n_layers}
+    print(f"training: {TRAIN_STEPS} steps at B={TRAIN_BATCH}, losses {losses}, launches {launches}")
+    if launches != want:
+        fail(f"kernel launches of {TRAIN_STEPS} train steps: {launches}, expected {want}")
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    print(f"training: plain versions' losses {plain_losses}; max relative difference "
+          f"{worst:.3e} (tolerance {TRAIN_LOSS_RTOL})")
+    if worst > TRAIN_LOSS_RTOL:
+        fail(f"train losses differ from the plain versions' by {worst:.3e} > {TRAIN_LOSS_RTOL}")
+    if not losses[-1] < losses[0]:
+        fail(f"3 steps on one batch did not lower the loss: {losses}")
+
+    k5, k4 = lstm_cuda.bilstm_fused.launches, smin_cuda.smin_stack_fused.launches
+    ev = make_eval_step(cfg, model, device=device)(batch)
+    torch.cuda.synchronize()
+    if (lstm_cuda.bilstm_fused.launches, smin_cuda.smin_stack_fused.launches) != (k5 + 1, k4 + 1):
+        fail("the eval step did not launch K5 and K4 once each")
+    ev_loss = float(ev["loss"])
+    if not abs(ev_loss - losses[-1]) < abs(losses[-1]):
+        fail(f"eval loss {ev_loss} after training against train loss {losses[-1]}")
+    print(f"training: eval step loss {ev_loss:.6f}, counts {ev['counts'].flatten().tolist()}")
+    return step, batch, launches
+
+
+def dense_content_matrix(cfg, device):
+    """Wc (N*C, T): the dense averaging matrix of the packed pairs, n-major."""
+    import numpy as np
+    import torch
+
+    from video_moment_localization_tpu_torch.ops.content_matrix import content_segments
+    from video_moment_localization_tpu_torch.ops.packing import triu_packing
+
+    seg, p = content_segments(cfg.T, cfg.L, cfg.C), triu_packing(cfg.L)
+    wc = np.zeros((p.N, cfg.C, cfg.T), np.float32)
+    for n, (i, j) in enumerate(zip(p.i_idx, p.j_idx)):
+        for c in range(cfg.C):
+            s0, size = seg.starts[i, j, c], seg.sizes[i, j, c]
+            wc[n, c, s0:s0 + size] = seg.weights[i, j, c]
+    return torch.from_numpy(wc.reshape(p.N * cfg.C, cfg.T)).to(device)
+
+
+def phase_train_times(cfg, model, step, batch, rng, device):
+    import numpy as np
+    import torch
+
+    from video_moment_localization_tpu_torch.models.smin import block_weights
+    from video_moment_localization_tpu_torch.ops import proposal_cuda, smin_train_cuda
+    from video_moment_localization_tpu_torch.ops.content_matrix import content_segments
+
+    B, L, C, D, T, Nq = TRAIN_BATCH, cfg.L, cfg.C, cfg.D, cfg.T, cfg.max_query_length
+    N = L * (L + 1) // 2
+    NC = N * C
+    res = {}
+
+    f, _, _, _, lmask, _ = stack_inputs(cfg, B, rng, device)
+    out = proposal_cuda.proposal_features_packed(f, lmask, L, C)
+    cots = [randn_like(t, rng) for t in out]
+    wc = dense_content_matrix(cfg, device)
+    carry_bytes = 4 * B * (NC + N + L) * D
+    k1_bytes = 4 * (f.numel() + B * N) + carry_bytes
+    seg_adds = int(content_segments(T, L, C).sizes[np.triu_indices(L)].sum()) * D + NC * D + T * D
+    b_ms, b_by = bound(B * seg_adds, k1_bytes)
+    res["K1f"] = dict(
+        ms=cuda_ms(lambda: proposal_cuda.proposal_rows_forward(f, lmask, L, C)),
+        plain_ms=cuda_ms(lambda: proposal_cuda.proposal_features_packed(f, lmask, L, C)),
+        library_ms=cuda_ms(lambda: torch.matmul(wc, f)), bound_ms=b_ms, bound_by=b_by)
+    b_ms, b_by = bound(2 * B * seg_adds, k1_bytes)
+    wct = wc.t().contiguous()
+    g = cots[0].reshape(B, NC, D)
+    res["K1b"] = dict(
+        ms=cuda_ms(lambda: proposal_cuda.proposal_rows_backward(lmask, T, L, C, *cots)),
+        plain_ms=cuda_ms(lambda: proposal_cuda.proposal_rows_backward_plain(lmask, T, L, C,
+                                                                            *cots)),
+        library_ms=cuda_ms(lambda: torch.matmul(wct, g)), bound_ms=b_ms, bound_by=b_by)
+
+    weights = [w.detach() for w in block_weights(model.smis[1])]
+    w_bytes = sum(w.numel() * 4 for w in weights)
+    ins = layer_inputs(cfg, B, rng, device)
+    shared_bytes = 4 * sum(t.numel() for t in ins[3:])
+    flops = B * layer_flops(cfg, Nq)
+    b_ms, b_by = bound(flops, 2 * carry_bytes + shared_bytes + w_bytes)
+    res["K2"] = dict(
+        ms=cuda_ms(lambda: smin_train_cuda.smi_layer_forward(weights, *ins, L)),
+        plain_ms=cuda_ms(lambda: smin_train_cuda.smi_layer_plain(weights, *ins, L)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    dcu, dmu, dbu = [randn_like(t, rng) for t in ins[:3]]
+    # In: the carry, its cotangents, the shared inputs, the weights; out: the
+    # carry's, fw's and fs's gradients and the weight gradients.
+    k3_bytes = 4 * carry_bytes + 2 * shared_bytes + 2 * w_bytes
+    b_ms, b_by = bound(3 * flops, k3_bytes)
+    res["K3"] = dict(
+        ms=cuda_ms(lambda: smin_train_cuda.smi_layer_backward(weights, *ins, L, dcu, dmu, dbu),
+                   iters=9),
+        plain_ms=cuda_ms(lambda: smin_train_cuda.smi_layer_backward_plain(
+            weights, *ins, L, dcu, dmu, dbu), iters=9),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    res["K3_no_dcu_ms"] = cuda_ms(
+        lambda: smin_train_cuda.smi_layer_backward(weights, *ins, L, None, dmu, dbu), iters=9)
+    for k in ("K1f", "K1b", "K2", "K3"):
+        r = res[k]
+        print(f"time {k} B={B}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    print(f"time K3 B={B} without dcu (top layer): {res['K3_no_dcu_ms']:.4f} ms")
+
+    walls = []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    res["step_ms"] = statistics.median(walls[2:])
+    res["step_device_ms"] = cuda_ms(lambda: step(batch), warmup=0, iters=9)
+    print(f"time train step B={B}: {res['step_ms']:.4f} ms wall, {res['step_device_ms']:.4f} ms "
+          f"between CUDA events, {B / res['step_ms'] * 1e3:.1f} samples/s; launches per step: "
+          f"K1 1 + 1, K2 {cfg.num_smi_layers}, K3 {cfg.num_smi_layers}")
+    return res
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -371,15 +716,17 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    build(["lstm", "smin_stack"])
-    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, both sources in parallel)")
-    for name in ("lstm", "smin_stack"):
+    build(SOURCES)
+    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, {len(SOURCES)} sources in "
+          f"parallel)")
+    for name in SOURCES:
         with open(os.path.join(BUILD_DIR, f"{name}.log")) as fh:
             for line in fh:
                 if "Used" in line or "spill" in line:
                     print(f"ptxas {name}: {line.strip()}")
 
-    cfg = load_config(os.path.join(REPO, "config", "charadessta.yml")).model
+    config = load_config(os.path.join(REPO, "config", "charadessta.yml"))
+    cfg = config.model
     rng = np.random.default_rng(args.seed)
     torch.manual_seed(args.seed)
     model = SMIN(cfg).to(device).eval()
@@ -388,6 +735,10 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
         gpu, launches = phase_serving(cfg, args.seed, rng, tmp)
     times = phase_times(cfg, gpu, rng)
+
+    train_errs = phase_train_parity(cfg, model, rng, device)
+    step, batch, train_launches = phase_train(config, args.seed, rng, device)
+    train_times = phase_train_times(cfg, model, step, batch, rng, device)
 
     kernels = []
     for key, name, src, rep, err in (
@@ -404,7 +755,25 @@ def main(argv=None) -> int:
             "bound_ms_b512": r512["bound_ms"], "bound_by_b512": r512["bound_by"],
             "library_ms_b512": r512["library_ms"],
         })
+    for key, name, src, rep, err in (
+            ("K1f", "proposal_rows_forward", PROPOSAL_SRC, K1_FWD_REPLACES, train_errs["K1f"]),
+            ("K1b", "proposal_rows_backward", PROPOSAL_SRC, K1_BWD_REPLACES, train_errs["K1b"]),
+            ("K2", "smi_layer_forward", TRAIN_SRC, K2_REPLACES, train_errs["K2"]),
+            ("K3", "smi_layer_backward", TRAIN_SRC, K3_REPLACES, train_errs["K3"])):
+        r = train_times[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": train_launches[key], "max_abs_err": err,
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "batch": TRAIN_BATCH,
+        })
+    kernels[-1]["max_err_of_magnitude"] = train_errs["K3_rel"]
+    kernels[-1]["ms_without_dcu"] = train_times["K3_no_dcu_ms"]
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"train_step": {
+        "batch": TRAIN_BATCH, "ms": train_times["step_ms"],
+        "samples_per_s": TRAIN_BATCH / train_times["step_ms"] * 1e3,
+        "launches_per_step": {k: v // TRAIN_STEPS for k, v in train_launches.items()}}}))
     print(json.dumps({"serving_pairs_per_s_device": {
         str(B): B / times[("e2e", B)] * 1e3 for B in (16, 512)}}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Card tests of the port's kernels: each CUDA kernel against its plain
-PyTorch version on the same card, and the serving path on the card against
-the same localizer on the CPU. They skip where there is no CUDA device.
+PyTorch version on the same card, the serving path on the card against the
+same localizer on the CPU, and a train step on the card against the same
+step on the CPU. They skip where there is no CUDA device.
 
 The file imports neither JAX nor the JAX package, so the card machine runs it
 without them:
@@ -12,21 +13,39 @@ import numpy as np
 import pytest
 import torch
 
-from video_moment_localization_tpu_torch.config import ModelConfig
+from video_moment_localization_tpu_torch.config import Config, ModelConfig
 from video_moment_localization_tpu_torch.data.glove import WordEmbedding
 from video_moment_localization_tpu_torch.inference import MomentLocalizer
 from video_moment_localization_tpu_torch.models.lstm import BiLSTMParams, lstm_layers
-from video_moment_localization_tpu_torch.models.smin import SMIN
-from video_moment_localization_tpu_torch.ops import lstm_cuda, smin_cuda
+from video_moment_localization_tpu_torch.models.smin import SMIN, block_weights
+from video_moment_localization_tpu_torch.ops import (
+    lstm_cuda,
+    proposal_cuda,
+    smin_cuda,
+    smin_train_cuda,
+)
 from video_moment_localization_tpu_torch.ops.packing import packed_valid_mask
+from video_moment_localization_tpu_torch.parallel.steps import build_optimizer, make_train_step
 
 pytestmark = pytest.mark.cuda
 
 LSTM_TOL = dict(rtol=2e-5, atol=2e-5)
 STACK_TOL = dict(rtol=2e-4, atol=2e-5)
+# Gradients: tests/test_smin_train_pallas.py's rtol 5e-4; the absolute part is
+# relative to a magnitude, because a weight gradient sums thousands of rows
+# in another order than the plain version: an activation gradient's own
+# largest magnitude, and for the weights the largest over the layer's 20 (a
+# key-projection bias shifts every logit of a row alike, so its gradient is
+# structurally zero and only rounding noise of the others' size is left).
+GRAD_RTOL, GRAD_ATOL_REL = 5e-4, 5e-5
 CHARADES = ModelConfig()
+
 TINY = ModelConfig(T=16, L=8, C=4, D=64, dl=32, num_smi_layers=3, input_video_dim=12,
                    max_query_length=6, lstm_hidden_size=32)
+# Widths that are no multiple of 4 or of a GEMM tile: the scalar-load path and
+# the ragged tile edges of every operand layout.
+ODD = ModelConfig(T=10, L=5, C=3, D=30, dl=10, num_smi_layers=2, input_video_dim=7,
+                  max_query_length=5, lstm_hidden_size=15)
 
 
 @pytest.fixture
@@ -115,3 +134,120 @@ def test_localizer_on_card_matches_cpu(card, use_nms):
     for g, c in zip(gpu.localize_batch(reqs, top_k=5), cpu.localize_batch(reqs, top_k=5)):
         assert [(m.start, m.end) for m in g] == [(m.start, m.end) for m in c]
         np.testing.assert_allclose([m.score for m in g], [m.score for m in c], atol=1e-5)
+
+
+def _assert_grad_close(got, want, name, scale=None):
+    assert bool(torch.isfinite(got).all()), name
+    scale = float(want.abs().max()) if scale is None else scale
+    torch.testing.assert_close(got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL_REL * scale,
+                               msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("cfg,B", [(TINY, 3), (ODD, 7), (CHARADES, 5)])
+def test_proposal_rows_kernels_match_plain(card, cfg, B):
+    g = torch.Generator().manual_seed(B)
+    f = torch.randn(B, cfg.T, cfg.D, generator=g).to(card)
+    nlen = torch.randint(1, cfg.L + 1, (B,), generator=g)
+    nlen[0] = cfg.L
+    lmask = (torch.arange(cfg.L)[None, :] < nlen[:, None]).float().to(card)
+    before = (proposal_cuda.proposal_rows_forward.launches,
+              proposal_cuda.proposal_rows_backward.launches)
+    f.requires_grad_(True)
+    got = proposal_cuda.proposal_features_rows(f, lmask, cfg.L, cfg.C)
+    cots = [torch.randn(o.shape, generator=g).to(card) for o in got]
+    df = torch.autograd.grad(got, f, cots)[0]
+    want = proposal_cuda.proposal_features_packed(f, lmask, cfg.L, cfg.C)
+    df_want = torch.autograd.grad(want, f, cots)[0]
+    torch.cuda.synchronize()
+    assert (proposal_cuda.proposal_rows_forward.launches,
+            proposal_cuda.proposal_rows_backward.launches) == (before[0] + 1, before[1] + 1)
+    for o, w in zip(got, want):
+        torch.testing.assert_close(o, w, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(df, df_want, rtol=1e-4, atol=1e-4)
+
+
+def _layer_inputs(cfg, B, seed, device):
+    f, fw, fs, qmask, lmask, vmask = _stack_inputs(cfg, B, seed, device)
+    fc, fm, fb = proposal_cuda.proposal_features_packed(f, lmask, cfg.L, cfg.C)
+    return [t.contiguous() for t in (fc, fm, fb, fw, fs, qmask, lmask, vmask)]
+
+
+@pytest.mark.parametrize("cfg,B", [(TINY, 1), (TINY, 9), (ODD, 7), (CHARADES, 5)])
+@pytest.mark.parametrize("has_dcu", [True, False])
+def test_smi_layer_kernels_match_plain(card, cfg, B, has_dcu):
+    torch.manual_seed(B)
+    weights = [w.detach() for w in block_weights(SMIN(cfg).to(card).smis[1])]
+    ins = _layer_inputs(cfg, B, seed=B, device=card)
+    before = (smin_train_cuda.smi_layer_forward.launches,
+              smin_train_cuda.smi_layer_backward.launches)
+    with torch.no_grad():
+        got = smin_train_cuda.smi_layer_forward(weights, *ins, cfg.L)
+        want = smin_train_cuda.smi_layer_plain(weights, *ins, cfg.L)
+    for g_, w_, name in zip(got, want, ("cu", "mu", "bu")):
+        torch.testing.assert_close(g_, w_, **STACK_TOL, msg=lambda m: f"{name}: {m}")
+    gen = torch.Generator().manual_seed(100 + B)
+    dcu, dmu, dbu = [torch.randn(t.shape, generator=gen).to(card) for t in want]
+    if not has_dcu:
+        dcu = None
+    got = smin_train_cuda.smi_layer_backward(weights, *ins, cfg.L, dcu, dmu, dbu)
+    want = smin_train_cuda.smi_layer_backward_plain(weights, *ins, cfg.L, dcu, dmu, dbu)
+    torch.cuda.synchronize()
+    assert (smin_train_cuda.smi_layer_forward.launches,
+            smin_train_cuda.smi_layer_backward.launches) == (before[0] + 1, before[1] + 1)
+    for g_, w_, name in zip(got[:5], want[:5], ("dfc", "dfm", "dfb", "dfw", "dfs")):
+        _assert_grad_close(g_, w_, name)
+    scale = max(float(w_.abs().max()) for w_ in want[5])
+    for k, (g_, w_) in enumerate(zip(got[5], want[5])):
+        _assert_grad_close(g_, w_, f"weight gradient {k}", scale)
+
+
+def test_grad_free_wrappers_refuse_a_graph_on_card(card):
+    model = SMIN(TINY).to(card)                     # parameters require grad
+    ins = _stack_inputs(TINY, 2, seed=0, device=card)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        smin_cuda.smin_stack_fused(model, TINY, *ins)
+    layers = lstm_layers(model.backbone.queryencoder.lstm)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        lstm_cuda.bilstm_fused(torch.randn(2, 3, 300, device=card),
+                               torch.ones(2, 3, device=card), layers)
+
+
+def _train_batch(cfg, B, seed):
+    g = torch.Generator().manual_seed(seed)
+    Nq, L = cfg.max_query_length, cfg.L
+    N = L * (L + 1) // 2
+    qlen = torch.randint(1, Nq + 1, (B,), generator=g)
+    nlen = torch.randint(1, L + 1, (B,), generator=g)
+    lmask = (torch.arange(L)[None, :] < nlen[:, None]).float()
+    sample_mask = torch.ones(B)
+    sample_mask[-1] = 0
+    return {
+        "video_features": torch.randn(B, cfg.T, cfg.input_video_dim, generator=g),
+        "video_mask": torch.ones(B, cfg.T, 1),
+        "query_features": torch.randn(B, Nq, cfg.word_dim, generator=g),
+        "query_mask": (torch.arange(Nq)[None, :] < qlen[:, None]).float()[..., None],
+        "length_mask": lmask,
+        "sm": torch.rand(B, N, generator=g), "ym": (torch.rand(B, N, generator=g) > 0.7).float(),
+        "ss": torch.rand(B, L, generator=g), "ys": (torch.rand(B, L, generator=g) > 0.7).float(),
+        "se": torch.rand(B, L, generator=g), "ye": (torch.rand(B, L, generator=g) > 0.7).float(),
+        "ya": (torch.rand(B, L, generator=g) > 0.5).float(),
+        "sample_mask": sample_mask,
+    }
+
+
+def test_train_steps_on_card_match_cpu(card):
+    """Three Adam steps through K1/K2/K3 on the card against the same steps
+    through the plain versions on the CPU: the losses within 1e-4 relative
+    (fp32 summation order; Adam's normalised update amplifies the noise of
+    near-zero gradients from step 2 on)."""
+    torch.manual_seed(0)
+    ref = SMIN(TINY)
+    models = {"cuda": SMIN(TINY), "cpu": ref}
+    models["cuda"].load_state_dict(ref.state_dict())
+    losses = {}
+    for device, model in models.items():
+        step = make_train_step(TINY, model, build_optimizer(Config(model=TINY), model),
+                               device=device)
+        losses[device] = [float(step(_train_batch(TINY, 6, seed=k))["loss"]) for k in range(3)]
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    assert smin_train_cuda.smi_layer_backward.launches > 0

@@ -16,7 +16,13 @@ import torch
 from video_moment_localization_tpu_torch.config import ModelConfig
 from video_moment_localization_tpu_torch.data.glove import WordEmbedding
 from video_moment_localization_tpu_torch.inference import MomentLocalizer
-from video_moment_localization_tpu_torch.models.smin import SMIN, smin_forward_inference
+from video_moment_localization_tpu_torch.models.smin import (
+    SMIN,
+    smin_forward,
+    smin_forward_inference,
+)
+from video_moment_localization_tpu_torch.ops.cuda_build import refuse_grad
+from video_moment_localization_tpu_torch.parallel.steps import make_eval_step, make_train_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "video_moment_localization_tpu_torch")
@@ -62,6 +68,10 @@ def test_importing_the_port_loads_no_jax():
             "import video_moment_localization_tpu_torch.ops.lstm_cuda\n"
             "import video_moment_localization_tpu_torch.ops.smin_cuda\n"
             "import video_moment_localization_tpu_torch.utils.profile_serving\n"
+            "import video_moment_localization_tpu_torch.utils.profile_train\n"
+            "import video_moment_localization_tpu_torch.parallel.steps\n"
+            "import video_moment_localization_tpu_torch.ops.proposal_cuda\n"
+            "import video_moment_localization_tpu_torch.ops.smin_train_cuda\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'video_moment_localization_tpu')]\n"
             "print(sorted(bad))\n")
@@ -79,6 +89,11 @@ def test_entry_points_default_to_the_card():
         MomentLocalizer(TINY, SMIN(TINY), emb)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MomentLocalizer(TINY, SMIN(TINY), emb, serve_batch=4, device="cuda")
+    model = SMIN(TINY)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(TINY, model, torch.optim.Adam(model.parameters()))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_eval_step(TINY, model)
 
 
 @pytest.mark.parametrize("change", [dict(compute_dtype="bfloat16"), dict(compat_head=True),
@@ -93,6 +108,34 @@ def test_modes_outside_the_slice_raise(change):
             torch.ones(B, 4, 1), torch.ones(B, 4))
     with pytest.raises(NotImplementedError, match="not supported by the PyTorch serving path"):
         smin_forward_inference(SMIN(cfg), cfg, *args)
+
+
+@pytest.mark.parametrize("change", [dict(compute_dtype="bfloat16"), dict(compat_head=True),
+                                    dict(fused_smi_train=False), dict(remat_smi=True),
+                                    dict(packed=False)])
+def test_training_modes_outside_the_slice_raise(change):
+    import dataclasses
+
+    cfg = dataclasses.replace(TINY, **change)
+    B = 2
+    args = (torch.zeros(B, 8, 6), torch.ones(B, 8, 1), torch.zeros(B, 4, 300),
+            torch.ones(B, 4, 1), torch.ones(B, 4))
+    with pytest.raises(NotImplementedError, match="not supported by the PyTorch training path"):
+        smin_forward(SMIN(cfg), cfg, *args)
+    model = SMIN(cfg)
+    with pytest.raises(NotImplementedError, match="not supported by the PyTorch training path"):
+        make_train_step(cfg, model, torch.optim.Adam(model.parameters()), device="cpu")
+
+
+def test_grad_free_wrappers_refuse_to_cut_a_graph():
+    """The predicate behind the K4 / K5 wrappers' refusal on CUDA tensors:
+    grad mode on and any input or weight that requires grad."""
+    plain, leaf = torch.zeros(2), torch.zeros(2, requires_grad=True)
+    refuse_grad("kernel", [plain, plain])
+    with torch.no_grad():
+        refuse_grad("kernel", [plain, leaf])
+    with pytest.raises(RuntimeError, match="kernel has no backward kernel"):
+        refuse_grad("kernel", [plain, leaf])
 
 
 def test_forward_outputs_are_finite_scores():

@@ -1,0 +1,770 @@
+// K2 and K3: one SMI layer of the training path, forward and backward.
+//
+// Replaces ops/smin_train_pallas.py::_layer_fwd_call (`_fwd_kernel`, K2) and
+// ::_layer_bwd_call (`_bwd_kernel`, K3) of the JAX package. K2 maps the
+// carry (fc (B, N, C, D), fm (B, N, D), fb (B, L, D)) and the query features
+// (fw (B, Nq, D), fs (B, D)) to (cu, mu, bu); K3 recomputes the layer from
+// the same inputs and maps the cotangents (dcu or none, dmu, dbu) to dfc,
+// dfm, dfb, dfw, dfs and the fp32 gradients of the layer's 10 weights and
+// 10 biases. Rows are n-major (see smin_units.cuh).
+//
+// What bounds them on the H100: operations. A layer is about 324 MFLOP per
+// element at the Charades shapes and its backward twice that on top of the
+// recompute, all fp32 outside the tensor cores (67 TFLOP/s), against about
+// 3 MB (K2) and 6 MB (K3) of carries moved per element.
+//
+// Design. K2 is `vml::layer_forward`, the layer sequence the serving stack
+// runs. The TPU backward kernel has no hand-written gradient (JAX takes the
+// VJP of the layer body at trace time, in VMEM); here the gradient is
+// derived by hand, unit by unit in reverse, as kernels that each own what
+// they write, so nothing is accumulated with atomics and a run is
+// deterministic:
+//
+//   MomentUnit  mu = (conv_fb(x1) + conv_fc(x2)) * vm + fm, x1[n] = bu[i_n] *
+//     bu[j_n], x2[n] = mean_c cu[n, c]. With dz = dmu * vm: dx1 = dz Wfb,
+//     dx2 = dz Wfc (gemm_nn, the mask as a row scale of A); G[i] = dbu[i] +
+//     sum_{n: i_n = i} dx1[n] bu[j_n] + sum_{n: j_n = i} dx1[n] bu[i_n]
+//     (moment_bwd_kernel gathers per snippet row; the pair (i, i) counts in
+//     both sums); dcut[n, c] = dcu[n, c] + dx2[n] / C (dcu_total_kernel; a
+//     null dcu is the top layer's zero cotangent); dfm = dmu.
+//   ContentUnit  cu = c_out(fcc) * vm + fc + fbar. dfcc = (dcut * vm) Wco.
+//     content_attn_bwd_kernel (one block per (element, pair)) recomputes the
+//     word attention p, f_cq = g and the clip attention P in shared memory
+//     and backpropagates fcc = (P * vm) h, P = softmax(g g^T / sqrt(dl))
+//     (g enters twice), g = h * (a * vm + fsh), a = p fwh, p = softmax of
+//     the -1e9-masked q khat^T / sqrt(dl) (no gradient through a masked
+//     logit): it writes dh (the A and g paths), dq, da, p, ds and the
+//     pair's share of dfsh. dfwh[m] = sum_rows p[r, m] da[r] and dkhat[m] =
+//     sum_rows ds[r, m] q[r] reduce over the element's N * C rows in
+//     content_reduce_kernel (one block per (element, word)), with dfsh. Then
+//     the projections: dh += dq Wcq, masked by vm; dfwh += dkhat Wck, masked
+//     by qmask; dfc = dcut + dh Wch; dfw += dfwh Wwh; dfs += dfsh Wsh.
+//   BoundaryUnit  bu[i] = (A[i] fb) * lm[i] + fb[i] + sum_{j >= i} A[i, j]
+//     fbar[(i, j)], A = softmax_j(fbq fbq^T / sqrt(D), -1e9 on invalid j) *
+//     lm[i], fbq[i] = fb[i] * (a[i] * lm[i] + fs), a = p fw.
+//     boundary_attn_bwd_kernel (one block per snippet row) writes A and the
+//     logit gradients dS; boundary_query_bwd_kernel turns them into dfbq[i] =
+//     sum_j (dS[i, j] + dS[j, i]) fbq[j], the direct part of dfb, da, the
+//     row's share of dfs and the word-logit gradients; boundary_proj_bwd_kernel
+//     reduces dbq, dbk and the value-path share of dfw over rows / words;
+//     then dfb += dbq Wbq, dfw += dbk Wbk.
+//   Gate  fbar = sigmoid(fm * fs) * fm, dfbar[n] = A[i_n, j_n] G[i_n] +
+//     sum_c dcut[n, c]. gate_bwd_kernel (one thread per (element, d)) loops
+//     over the pairs, writes dfm and sums dfs over them.
+//   Weight gradients dW = dY^T X (gemm_tn) reduce over up to B * N * C rows
+//     in split blocks whose partial sums a second kernel adds in a fixed
+//     order; bias gradients are column sums the same way (colsum).
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstdint>
+
+#include "smin_units.cuh"
+
+namespace {
+
+using vml::kNegInf;
+using vml::pair_index;
+using vml::warp_sum;
+
+// grid B * L. G[i] = dbu[i] + sum_{j >= i} dx1[(i, j)] * bu[j]
+//                          + sum_{k <= i} dx1[(k, i)] * bu[k].
+__global__ void moment_bwd_kernel(int L, int D, const float* __restrict__ dbu,
+                                  const float* __restrict__ dx1,
+                                  const float* __restrict__ bu, float* __restrict__ G) {
+    const int N = L * (L + 1) / 2;
+    const int row = blockIdx.x;   // b * L + i
+    const int b = row / L;
+    const int i = row % L;
+    const float* bue = bu + (size_t)b * L * D;
+    const float* dxe = dx1 + (size_t)b * N * D;
+    for (int d = threadIdx.x; d < D; d += blockDim.x) {
+        float acc = dbu[(size_t)row * D + d];
+        for (int j = i; j < L; ++j)
+            acc += dxe[(size_t)pair_index(i, j, L) * D + d] * bue[(size_t)j * D + d];
+        for (int k = 0; k <= i; ++k)
+            acc += dxe[(size_t)pair_index(k, i, L) * D + d] * bue[(size_t)k * D + d];
+        G[(size_t)row * D + d] = acc;
+    }
+}
+
+// dcut[r, d] = dcu[r, d] + dx2[r / C, d] / C over the B * N * C clip rows;
+// dcu may be null (zero).
+__global__ void dcu_total_kernel(size_t total, int C, int D, const float* __restrict__ dcu,
+                                 const float* __restrict__ dx2, float* __restrict__ out) {
+    const float inv_c = 1.f / (float)C;
+    for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total;
+         e += (size_t)gridDim.x * blockDim.x) {
+        const size_t r = e / D;
+        const int d = (int)(e % D);
+        const float v = dx2[(r / C) * D + d] * inv_c;
+        out[e] = dcu ? dcu[e] + v : v;
+    }
+}
+
+size_t content_bwd_smem_bytes(int C, int Nq, int dl) {
+    return sizeof(float) * ((size_t)2 * Nq * dl + (size_t)7 * C * dl + (size_t)2 * C * Nq +
+                            (size_t)2 * C * C);
+}
+
+// One block per (element, pair): the content unit between its projections,
+// recomputed and differentiated. Inputs as content_attn_kernel plus dfcc
+// (B*N*C, dl). Writes dh (the paths through the clip attention and f_cq;
+// the attn_q path is added by the caller's GEMM), dq, da (B*N*C, dl), the
+// word attention p and its logit gradients ds (B*N*C, Nq), and dfsh_part
+// (B*N, dl) = sum_c dg[c] * h[c].
+__global__ void content_attn_bwd_kernel(
+    int N, int C, int Nq, int dl, const float* __restrict__ h, const float* __restrict__ q,
+    const float* __restrict__ khat, const float* __restrict__ fwh,
+    const float* __restrict__ fsh, const float* __restrict__ qmask,
+    const float* __restrict__ vmask, const float* __restrict__ dfcc, float* __restrict__ dh,
+    float* __restrict__ dq, float* __restrict__ da, float* __restrict__ pbuf,
+    float* __restrict__ dsr, float* __restrict__ dfsh_part) {
+    extern __shared__ float smem[];
+    float* ks = smem;                 // (Nq, dl)
+    float* vs = ks + Nq * dl;         // (Nq, dl)
+    float* hs = vs + Nq * dl;         // (C, dl)
+    float* qs = hs + C * dl;          // (C, dl)
+    float* gs = qs + C * dl;          // (C, dl): f_cq
+    float* us = gs + C * dl;          // (C, dl): a * vm + fsh
+    float* os = us + C * dl;          // (C, dl): dfcc
+    float* dgs = os + C * dl;         // (C, dl): d f_cq
+    float* das = dgs + C * dl;        // (C, dl): d a
+    float* ps = das + C * dl;         // (C, Nq): word attention
+    float* dps = ps + C * Nq;         // (C, Nq): its gradient, then d logits
+    float* Ps = dps + C * Nq;         // (C, C): clip attention (unmasked)
+    float* dSs = Ps + C * C;          // (C, C): its gradient, then d logits
+
+    const int pair = blockIdx.x;      // b * N + n
+    const int b = pair / N;
+    const int tid = threadIdx.x;
+    const int lane = tid % 32;
+    const int warp = tid / 32;
+    const int nwarps = blockDim.x / 32;
+    const float inv_sdl = 1.f / sqrtf((float)dl);
+    const float vm = vmask[pair];
+    const size_t row0 = (size_t)pair * C;
+
+    for (int e = tid; e < Nq * dl; e += blockDim.x) {
+        ks[e] = khat[(size_t)b * Nq * dl + e];
+        vs[e] = fwh[(size_t)b * Nq * dl + e];
+    }
+    for (int e = tid; e < C * dl; e += blockDim.x) {
+        hs[e] = h[row0 * dl + e];
+        qs[e] = q[row0 * dl + e];
+        os[e] = dfcc[row0 * dl + e];
+    }
+    __syncthreads();
+
+    // Recompute: word attention p, f_cq, clip attention P.
+    for (int idx = warp; idx < C * Nq; idx += nwarps) {
+        const int c = idx / Nq;
+        const int m = idx % Nq;
+        float s = 0.f;
+        for (int d = lane; d < dl; d += 32) s += qs[c * dl + d] * ks[m * dl + d];
+        s = warp_sum(s);
+        if (lane == 0) ps[idx] = qmask[(size_t)b * Nq + m] > 0.f ? s * inv_sdl : kNegInf;
+    }
+    __syncthreads();
+    if (tid < C) {
+        float* p = ps + tid * Nq;
+        float mx = p[0];
+        for (int m = 1; m < Nq; ++m) mx = fmaxf(mx, p[m]);
+        float sum = 0.f;
+        for (int m = 0; m < Nq; ++m) {
+            p[m] = expf(p[m] - mx);
+            sum += p[m];
+        }
+        for (int m = 0; m < Nq; ++m) p[m] /= sum;
+    }
+    __syncthreads();
+    for (int e = tid; e < C * dl; e += blockDim.x) {
+        const int c = e / dl;
+        const int d = e % dl;
+        float a = 0.f;
+        for (int m = 0; m < Nq; ++m) a += ps[c * Nq + m] * vs[m * dl + d];
+        us[e] = a * vm + fsh[(size_t)b * dl + d];
+        gs[e] = hs[e] * us[e];
+    }
+    __syncthreads();
+    for (int idx = warp; idx < C * C; idx += nwarps) {
+        const int c = idx / C;
+        const int e2 = idx % C;
+        float s = 0.f, t = 0.f;
+        for (int d = lane; d < dl; d += 32) {
+            s += gs[c * dl + d] * gs[e2 * dl + d];
+            t += os[c * dl + d] * hs[e2 * dl + d];   // dA[c, e2] = dfcc[c] . h[e2]
+        }
+        s = warp_sum(s);
+        t = warp_sum(t);
+        if (lane == 0) {
+            Ps[idx] = s * inv_sdl;
+            dSs[idx] = t;
+        }
+    }
+    __syncthreads();
+    if (tid < C) {
+        float* P = Ps + tid * C;
+        float* dS = dSs + tid * C;
+        float mx = P[0];
+        for (int e2 = 1; e2 < C; ++e2) mx = fmaxf(mx, P[e2]);
+        float sum = 0.f;
+        for (int e2 = 0; e2 < C; ++e2) {
+            P[e2] = expf(P[e2] - mx);
+            sum += P[e2];
+        }
+        float dot = 0.f;
+        for (int e2 = 0; e2 < C; ++e2) {
+            P[e2] /= sum;
+            dS[e2] *= vm;                 // dP = dA * vm
+            dot += P[e2] * dS[e2];
+        }
+        for (int e2 = 0; e2 < C; ++e2) dS[e2] = P[e2] * (dS[e2] - dot) * inv_sdl;
+    }
+    __syncthreads();
+
+    for (int e = tid; e < C * dl; e += blockDim.x) {
+        const int c = e / dl;
+        const int d = e % dl;
+        float dh_mix = 0.f, dg = 0.f;
+        for (int c2 = 0; c2 < C; ++c2) {
+            dh_mix += Ps[c2 * C + c] * os[c2 * dl + d];               // A[c2, c] dfcc[c2]
+            dg += (dSs[c * C + c2] + dSs[c2 * C + c]) * gs[c2 * dl + d];
+        }
+        dgs[e] = dg;
+        const float dav = dg * hs[e] * vm;
+        das[e] = dav;
+        dh[row0 * dl + e] = dh_mix * vm + dg * us[e];
+        da[row0 * dl + e] = dav;
+    }
+    __syncthreads();
+    for (int d = tid; d < dl; d += blockDim.x) {
+        float s = 0.f;
+        for (int c = 0; c < C; ++c) s += dgs[c * dl + d] * hs[c * dl + d];
+        dfsh_part[(size_t)pair * dl + d] = s;
+    }
+    for (int idx = warp; idx < C * Nq; idx += nwarps) {
+        const int c = idx / Nq;
+        const int m = idx % Nq;
+        float s = 0.f;
+        for (int d = lane; d < dl; d += 32) s += das[c * dl + d] * vs[m * dl + d];
+        s = warp_sum(s);
+        if (lane == 0) dps[idx] = s;
+    }
+    __syncthreads();
+    if (tid < C) {
+        const float* p = ps + tid * Nq;
+        float* dp = dps + tid * Nq;
+        float dot = 0.f;
+        for (int m = 0; m < Nq; ++m) dot += p[m] * dp[m];
+        for (int m = 0; m < Nq; ++m) {
+            const float ds = qmask[(size_t)b * Nq + m] > 0.f ? p[m] * (dp[m] - dot) * inv_sdl
+                                                            : 0.f;
+            dp[m] = ds;
+            pbuf[(row0 + tid) * Nq + m] = p[m];
+            dsr[(row0 + tid) * Nq + m] = ds;
+        }
+    }
+    __syncthreads();
+    for (int e = tid; e < C * dl; e += blockDim.x) {
+        const int c = e / dl;
+        const int d = e % dl;
+        float s = 0.f;
+        for (int m = 0; m < Nq; ++m) s += dps[c * Nq + m] * ks[m * dl + d];
+        dq[row0 * dl + e] = s;
+    }
+}
+
+// grid B * (Nq + 1): block (b, m < Nq) reduces over the element's NC clip
+// rows dfwh[b, m] = sum_r p[r, m] da[r] and dkhat[b, m] = sum_r ds[r, m]
+// q[r]; block (b, Nq) reduces dfsh[b] = sum_n dfsh_part[b, n].
+__global__ void content_reduce_kernel(int N, int C, int Nq, int dl,
+                                      const float* __restrict__ pbuf,
+                                      const float* __restrict__ dsr,
+                                      const float* __restrict__ da,
+                                      const float* __restrict__ q,
+                                      const float* __restrict__ dfsh_part,
+                                      float* __restrict__ dfwh, float* __restrict__ dkhat,
+                                      float* __restrict__ dfsh) {
+    const int b = blockIdx.x / (Nq + 1);
+    const int m = blockIdx.x % (Nq + 1);
+    const int NC = N * C;
+    for (int d = threadIdx.x; d < dl; d += blockDim.x) {
+        if (m == Nq) {
+            float s = 0.f;
+            for (int n = 0; n < N; ++n) s += dfsh_part[((size_t)b * N + n) * dl + d];
+            dfsh[(size_t)b * dl + d] = s;
+            continue;
+        }
+        float s1 = 0.f, s2 = 0.f;
+        for (int r = 0; r < NC; ++r) {
+            const size_t row = (size_t)b * NC + r;
+            s1 += pbuf[row * Nq + m] * da[row * dl + d];
+            s2 += dsr[row * Nq + m] * q[row * dl + d];
+        }
+        dfwh[((size_t)b * Nq + m) * dl + d] = s1;
+        dkhat[((size_t)b * Nq + m) * dl + d] = s2;
+    }
+}
+
+// grid B * L, one block per snippet row i: recomputes the boundary attention
+// row P[i] and writes A[i, j] = P[i, j] * lm[i] (B, L, L) and the logit
+// gradients dS[i, j] (B, L, L; 0 at a masked key j), from
+//   dA[i, j] = lm[i] * (G[i] . fb[j]) + [j >= i] G[i] . fbar[(i, j)].
+__global__ void boundary_attn_bwd_kernel(int L, int D, const float* __restrict__ fbq,
+                                         const float* __restrict__ fb,
+                                         const float* __restrict__ fbar,
+                                         const float* __restrict__ lmask,
+                                         const float* __restrict__ G, float* __restrict__ Ab,
+                                         float* __restrict__ dSb) {
+    extern __shared__ float smem[];
+    float* P = smem;                  // (L,)
+    float* dA = smem + L;             // (L,)
+    const int row = blockIdx.x;       // b * L + i
+    const int b = row / L;
+    const int i = row % L;
+    const int N = L * (L + 1) / 2;
+    const int tid = threadIdx.x;
+    const int lane = tid % 32;
+    const int warp = tid / 32;
+    const int nwarps = blockDim.x / 32;
+    const float inv_sd = 1.f / sqrtf((float)D);
+    const float* lm = lmask + (size_t)b * L;
+    const float* x = fbq + (size_t)row * D;
+    const float* g = G + (size_t)row * D;
+
+    for (int j = warp; j < L; j += nwarps) {
+        const float* y = fbq + ((size_t)b * L + j) * D;
+        const float* fbj = fb + ((size_t)b * L + j) * D;
+        const float* fbar_ij =
+            j >= i ? fbar + ((size_t)b * N + pair_index(i, j, L)) * D : nullptr;
+        float s = 0.f, t = 0.f, u = 0.f;
+        for (int d = lane; d < D; d += 32) {
+            s += x[d] * y[d];
+            t += g[d] * fbj[d];
+            if (fbar_ij) u += g[d] * fbar_ij[d];
+        }
+        s = warp_sum(s);
+        t = warp_sum(t);
+        u = warp_sum(u);
+        if (lane == 0) {
+            P[j] = lm[j] > 0.f ? s * inv_sd : kNegInf;
+            dA[j] = lm[i] * t + u;
+        }
+    }
+    __syncthreads();
+    if (tid == 0) {
+        float mx = P[0];
+        for (int j = 1; j < L; ++j) mx = fmaxf(mx, P[j]);
+        float sum = 0.f;
+        for (int j = 0; j < L; ++j) {
+            P[j] = expf(P[j] - mx);
+            sum += P[j];
+        }
+        float dot = 0.f;
+        for (int j = 0; j < L; ++j) {
+            P[j] /= sum;
+            dA[j] *= lm[i];              // dP = dA * lm[i]
+            dot += P[j] * dA[j];
+        }
+        for (int j = 0; j < L; ++j) {
+            Ab[(size_t)row * L + j] = P[j] * lm[i];
+            dSb[(size_t)row * L + j] = lm[j] > 0.f ? P[j] * (dA[j] - dot) * inv_sd : 0.f;
+        }
+    }
+}
+
+// grid B * L, one block per snippet row i: dfbq[i] = sum_j (dS[i, j] +
+// dS[j, i]) fbq[j], then through fbq[i] = fb[i] * (a[i] * lm[i] + fs):
+//   dfb[i]   = G[i] + sum_j A[j, i] lm[j] G[j] + dfbq[i] * (a[i] lm[i] + fs)
+//              (the attn_q path is added by the caller's GEMM)
+//   da[i]    = dfbq[i] * fb[i] * lm[i];   dfs_b[i] = dfbq[i] * fb[i]
+// and through the word attention a[i] = p[i] fw: p (B, L, Nq) and the logit
+// gradients ds (B, L, Nq; 0 at a masked word).
+__global__ void boundary_query_bwd_kernel(
+    int L, int Nq, int D, const float* __restrict__ bq, const float* __restrict__ bk,
+    const float* __restrict__ fw, const float* __restrict__ fb, const float* __restrict__ fs,
+    const float* __restrict__ fbq, const float* __restrict__ qmask,
+    const float* __restrict__ lmask, const float* __restrict__ G,
+    const float* __restrict__ Ab, const float* __restrict__ dSb, float* __restrict__ dfb,
+    float* __restrict__ dab, float* __restrict__ dfs_b, float* __restrict__ pb,
+    float* __restrict__ dsb) {
+    extern __shared__ float smem[];
+    float* p = smem;                  // (Nq,)
+    float* dp = p + Nq;               // (Nq,)
+    float* coef = dp + Nq;            // (L,): dS[i, j] + dS[j, i]
+    float* coefA = coef + L;          // (L,): A[j, i] * lm[j]
+    float* darow = coefA + L;         // (D,)
+    const int row = blockIdx.x;       // b * L + i
+    const int b = row / L;
+    const int i = row % L;
+    const int tid = threadIdx.x;
+    const int lane = tid % 32;
+    const int warp = tid / 32;
+    const int nwarps = blockDim.x / 32;
+    const float inv_sd = 1.f / sqrtf((float)D);
+    const float* x = bq + (size_t)row * D;
+    const float* fwe = fw + (size_t)b * Nq * D;
+    const float lm = lmask[row];
+
+    for (int m = warp; m < Nq; m += nwarps) {
+        const float* y = bk + ((size_t)b * Nq + m) * D;
+        float s = 0.f;
+        for (int d = lane; d < D; d += 32) s += x[d] * y[d];
+        s = warp_sum(s);
+        if (lane == 0) p[m] = qmask[(size_t)b * Nq + m] > 0.f ? s * inv_sd : kNegInf;
+    }
+    for (int j = tid; j < L; j += blockDim.x) {
+        coef[j] = dSb[(size_t)row * L + j] + dSb[((size_t)b * L + j) * L + i];
+        coefA[j] = Ab[((size_t)b * L + j) * L + i] * lmask[(size_t)b * L + j];
+    }
+    __syncthreads();
+    if (tid == 0) {
+        float mx = p[0];
+        for (int m = 1; m < Nq; ++m) mx = fmaxf(mx, p[m]);
+        float sum = 0.f;
+        for (int m = 0; m < Nq; ++m) {
+            p[m] = expf(p[m] - mx);
+            sum += p[m];
+        }
+        for (int m = 0; m < Nq; ++m) p[m] /= sum;
+    }
+    __syncthreads();
+    for (int d = tid; d < D; d += blockDim.x) {
+        float dfbq = 0.f, gsum = G[(size_t)row * D + d];
+        for (int j = 0; j < L; ++j) {
+            dfbq += coef[j] * fbq[((size_t)b * L + j) * D + d];
+            gsum += coefA[j] * G[((size_t)b * L + j) * D + d];
+        }
+        float a = 0.f;
+        for (int m = 0; m < Nq; ++m) a += p[m] * fwe[(size_t)m * D + d];
+        const float fbv = fb[(size_t)row * D + d];
+        const float dav = dfbq * fbv * lm;
+        darow[d] = dav;
+        dfb[(size_t)row * D + d] = gsum + dfbq * (a * lm + fs[(size_t)b * D + d]);
+        dab[(size_t)row * D + d] = dav;
+        dfs_b[(size_t)row * D + d] = dfbq * fbv;
+    }
+    __syncthreads();
+    for (int m = warp; m < Nq; m += nwarps) {
+        float s = 0.f;
+        for (int d = lane; d < D; d += 32) s += darow[d] * fwe[(size_t)m * D + d];
+        s = warp_sum(s);
+        if (lane == 0) dp[m] = s;
+    }
+    __syncthreads();
+    if (tid == 0) {
+        float dot = 0.f;
+        for (int m = 0; m < Nq; ++m) dot += p[m] * dp[m];
+        for (int m = 0; m < Nq; ++m) {
+            pb[(size_t)row * Nq + m] = p[m];
+            dsb[(size_t)row * Nq + m] =
+                qmask[(size_t)b * Nq + m] > 0.f ? p[m] * (dp[m] - dot) * inv_sd : 0.f;
+        }
+    }
+}
+
+// grid B * (L + Nq): block (b, i < L) writes dbq[i] = sum_m ds[i, m] bk[m];
+// block (b, L + m) writes dbk[m] = sum_i ds[i, m] bq[i] and the value-path
+// share of dfw[m] = sum_i p[i, m] da[i].
+__global__ void boundary_proj_bwd_kernel(int L, int Nq, int D, const float* __restrict__ dsb,
+                                         const float* __restrict__ pb,
+                                         const float* __restrict__ dab,
+                                         const float* __restrict__ bq,
+                                         const float* __restrict__ bk,
+                                         float* __restrict__ dbq, float* __restrict__ dbk,
+                                         float* __restrict__ dfw) {
+    const int b = blockIdx.x / (L + Nq);
+    const int r = blockIdx.x % (L + Nq);
+    for (int d = threadIdx.x; d < D; d += blockDim.x) {
+        if (r < L) {
+            float s = 0.f;
+            for (int m = 0; m < Nq; ++m)
+                s += dsb[((size_t)b * L + r) * Nq + m] * bk[((size_t)b * Nq + m) * D + d];
+            dbq[((size_t)b * L + r) * D + d] = s;
+        } else {
+            const int m = r - L;
+            float s1 = 0.f, s2 = 0.f;
+            for (int i = 0; i < L; ++i) {
+                const size_t row = (size_t)b * L + i;
+                s1 += dsb[row * Nq + m] * bq[row * D + d];
+                s2 += pb[row * Nq + m] * dab[row * D + d];
+            }
+            dbk[((size_t)b * Nq + m) * D + d] = s1;
+            dfw[((size_t)b * Nq + m) * D + d] = s2;
+        }
+    }
+}
+
+// grid (B, ceil(D / blockDim)), one thread per (element, d) over the pairs:
+//   dfbar[n] = A[i_n, j_n] * G[i_n] + sum_c dcut[n, c]
+//   dfm[n]   = dmu[n] + dfbar[n] * (s + z * s * (1 - s)),  z = fm * fs,
+//                                                          s = sigmoid(z)
+//   dfs      = sum_n dfbar[n] * fm[n]^2 * s * (1 - s) + sum_i dfs_b[i]
+// (the s_hat path of dfs is added by the caller's GEMM).
+__global__ void gate_bwd_kernel(int L, int C, int D, const float* __restrict__ fm,
+                                const float* __restrict__ fs, const float* __restrict__ dmu,
+                                const float* __restrict__ dcut, const float* __restrict__ Ab,
+                                const float* __restrict__ G, const float* __restrict__ dfs_b,
+                                float* __restrict__ dfm, float* __restrict__ dfs) {
+    const int N = L * (L + 1) / 2;
+    const int b = blockIdx.x;
+    const int d = blockIdx.y * blockDim.x + threadIdx.x;
+    if (d >= D) return;
+    const float fsv = fs[(size_t)b * D + d];
+    float acc = 0.f;
+    size_t n = (size_t)b * N;
+    for (int i = 0; i < L; ++i) {
+        const float g = G[((size_t)b * L + i) * D + d];
+        for (int j = i; j < L; ++j, ++n) {
+            float dfbar = Ab[((size_t)b * L + i) * L + j] * g;
+            for (int c = 0; c < C; ++c) dfbar += dcut[(n * C + c) * D + d];
+            const float x = fm[n * D + d];
+            const float z = x * fsv;
+            const float s = vml::sigmoidf_(z);
+            const float t = s * (1.f - s);
+            dfm[n * D + d] = dmu[n * D + d] + dfbar * (s + z * t);
+            acc += dfbar * x * x * t;
+        }
+    }
+    for (int i = 0; i < L; ++i) acc += dfs_b[((size_t)b * L + i) * D + d];
+    dfs[(size_t)b * D + d] = acc;
+}
+
+// The backward's buffers beyond the recomputed layer's own intermediates.
+struct BackwardScratch {
+    float *bu, *dx1, *dx2, *G, *dfcc, *dh, *dq, *da, *pbuf, *dsr, *dfsh_part, *dfwh, *dkhat,
+        *dfsh, *Ab, *dSb, *pb, *dsb, *dab, *dfs_b, *dbq, *dbk, *partial;
+};
+constexpr int kBackwardSlots = 23;
+
+size_t max_partial_floats(int B, int L, int C, int Nq, int D, int dl) {
+    const int N = L * (L + 1) / 2;
+    const int NC = N * C;
+    const int shapes[][3] = {
+        {D, D, B * N}, {D, dl, B * NC}, {dl, dl, B * NC}, {dl, dl, B * Nq}, {dl, D, B * Nq},
+        {dl, D, B}, {dl, D, B * NC}, {D, D, B * L}, {D, D, B * Nq}};
+    size_t most = (size_t)vml::kColsumSplits * (D > dl ? D : dl);
+    for (const auto& s : shapes) {
+        const size_t f = vml::gemm_tn_partial_floats(s[0], s[1], s[2]);
+        if (f > most) most = f;
+    }
+    return most;
+}
+
+// Carves the workspace; returns its size in floats (ws may be null).
+size_t carve(float* ws, int B, int L, int C, int Nq, int D, int dl, bool backward,
+             vml::LayerScratch* s, BackwardScratch* w) {
+    size_t off = vml::carve_layer_scratch(ws, 0, B, L, C, Nq, D, dl, s);
+    if (!backward) return off;
+    const size_t N = (size_t)L * (L + 1) / 2;
+    const size_t NC = N * C;
+    const size_t BL = (size_t)B * L, BQ = (size_t)B * Nq;
+    const size_t sizes[kBackwardSlots] = {
+        BL * D, B * N * D, B * N * D, BL * D,                       // bu, dx1, dx2, G
+        B * NC * dl, B * NC * dl, B * NC * dl, B * NC * dl,         // dfcc, dh, dq, da
+        B * NC * Nq, B * NC * Nq, B * N * dl,                       // pbuf, dsr, dfsh_part
+        BQ * dl, BQ * dl, (size_t)B * dl,                           // dfwh, dkhat, dfsh
+        BL * L, BL * L, BL * Nq, BL * Nq,                           // Ab, dSb, pb, dsb
+        BL * D, BL * D, BL * D, BQ * D,                             // dab, dfs_b, dbq, dbk
+        max_partial_floats(B, L, C, Nq, D, dl),                     // partial
+    };
+    float** slots[kBackwardSlots] = {
+        &w->bu, &w->dx1, &w->dx2, &w->G, &w->dfcc, &w->dh, &w->dq, &w->da, &w->pbuf, &w->dsr,
+        &w->dfsh_part, &w->dfwh, &w->dkhat, &w->dfsh, &w->Ab, &w->dSb, &w->pb, &w->dsb,
+        &w->dab, &w->dfs_b, &w->dbq, &w->dbk, &w->partial};
+    return vml::carve_slots(ws, off, sizes, slots, kBackwardSlots);
+}
+
+size_t boundary_query_bwd_smem_bytes(int L, int Nq, int D) {
+    return sizeof(float) * ((size_t)2 * Nq + (size_t)2 * L + D);
+}
+
+}  // namespace
+
+extern "C" {
+
+size_t vml_smi_layer_workspace_floats(int B, int L, int C, int Nq, int D, int dl,
+                                      int backward) {
+    vml::LayerScratch s;
+    BackwardScratch w;
+    return carve(nullptr, B, L, C, Nq, D, dl, backward != 0, &s, &w);
+}
+
+// Largest dynamic shared memory of the forward and backward kernels, for the
+// wrapper's admission check against the 227 KB a block may have.
+size_t vml_smi_layer_smem_bytes(int L, int C, int Nq, int D, int dl) {
+    size_t most = vml::layer_forward_smem_bytes(L, C, Nq, dl);
+    const size_t others[] = {content_bwd_smem_bytes(C, Nq, dl),
+                             boundary_query_bwd_smem_bytes(L, Nq, D)};
+    for (size_t o : others)
+        if (o > most) most = o;
+    return most;
+}
+
+// K2. layer_w: host array of the layer's 20 device pointers in the order of
+// vml::layer_forward. Returns the first CUDA error of the launches, 0 if none.
+int vml_smi_layer_fwd_f32(void* stream, int B, int L, int C, int Nq, int D, int dl,
+                          const float* fc, const float* fm, const float* fb, const float* fw,
+                          const float* fs, const float* qmask, const float* lmask,
+                          const float* vmask, const float* const* layer_w, float* ws,
+                          float* cu, float* mu, float* bu) {
+    vml::LayerScratch s;
+    BackwardScratch unused;
+    carve(ws, B, L, C, Nq, D, dl, false, &s, &unused);
+    return (int)vml::layer_forward(static_cast<cudaStream_t>(stream), B, L, C, Nq, D, dl, fc,
+                                   fm, fb, fw, fs, qmask, lmask, vmask, layer_w, s, cu, mu,
+                                   bu);
+}
+
+// K3. dcu may be null (the zero cotangent of a top layer). dw: host array of
+// 20 device pointers to the weight-gradient outputs, in layer_w's order.
+// dfc doubles as the recompute's cu buffer before it is written.
+int vml_smi_layer_bwd_f32(void* stream, int B, int L, int C, int Nq, int D, int dl,
+                          const float* fc, const float* fm, const float* fb, const float* fw,
+                          const float* fs, const float* qmask, const float* lmask,
+                          const float* vmask, const float* const* p, const float* dcu,
+                          const float* dmu, const float* dbu, float* ws, float* dfc,
+                          float* dfm, float* dfb, float* dfw, float* dfs, float* const* dw) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int N = L * (L + 1) / 2;
+    const int NC = N * C;
+    vml::LayerScratch s;
+    BackwardScratch w;
+    carve(ws, B, L, C, Nq, D, dl, true, &s, &w);
+    cudaError_t err;
+#define VML_CHECK()                                                     \
+    do {                                                                \
+        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err; \
+    } while (0)
+    const vml::Epilogue none{};
+    vml::Epilogue ep;
+
+    // Recompute the layer; cu goes to dfc (only x2 = mean_c cu is kept).
+    err = vml::layer_forward(st, B, L, C, Nq, D, dl, fc, fm, fb, fw, fs, qmask, lmask, vmask,
+                             p, s, dfc, nullptr, w.bu);
+    if (err != cudaSuccess) return (int)err;
+
+    // MomentUnit.
+    vml::gemm_nn(st, B * N, D, D, dmu, D, vmask, 1, p[16], D, w.dx1, D, none);
+    VML_CHECK();
+    vml::gemm_nn(st, B * N, D, D, dmu, D, vmask, 1, p[18], D, w.dx2, D, none);
+    VML_CHECK();
+    vml::gemm_tn(st, D, D, B * N, dmu, D, vmask, 1, s.x1, D, w.partial, dw[16]);
+    VML_CHECK();
+    vml::gemm_tn(st, D, D, B * N, dmu, D, vmask, 1, s.x2, D, w.partial, dw[18]);
+    VML_CHECK();
+    vml::colsum(st, B * N, D, dmu, D, vmask, 1, w.partial, dw[17]);
+    VML_CHECK();
+    if ((err = cudaMemcpyAsync(dw[19], dw[17], sizeof(float) * D, cudaMemcpyDeviceToDevice,
+                               st)) != cudaSuccess)
+        return (int)err;
+    moment_bwd_kernel<<<B * L, 128, 0, st>>>(L, D, dbu, w.dx1, w.bu, w.G);
+    VML_CHECK();
+    const size_t ncd = (size_t)B * NC * D;
+    const int dcu_blocks = (int)((ncd + 255) / 256 < 8192 ? (ncd + 255) / 256 : 8192);
+    dcu_total_kernel<<<dcu_blocks, 256, 0, st>>>(ncd, C, D, dcu, w.dx2, dfc);
+    VML_CHECK();
+
+    // ContentUnit. dfc holds dcut from here to the last GEMM.
+    vml::gemm_nn(st, B * NC, dl, D, dfc, D, vmask, C, p[6], dl, w.dfcc, dl, none);
+    VML_CHECK();
+    vml::gemm_tn(st, D, dl, B * NC, dfc, D, vmask, C, s.fcc, dl, w.partial, dw[6]);
+    VML_CHECK();
+    vml::colsum(st, B * NC, D, dfc, D, vmask, C, w.partial, dw[7]);
+    VML_CHECK();
+    const size_t csmem = content_bwd_smem_bytes(C, Nq, dl);
+    if ((err = cudaFuncSetAttribute(content_attn_bwd_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)csmem)) != cudaSuccess)
+        return (int)err;
+    content_attn_bwd_kernel<<<B * N, 128, csmem, st>>>(
+        N, C, Nq, dl, s.h, s.q, s.khat, s.fwh, s.fsh, qmask, vmask, w.dfcc, w.dh, w.dq, w.da,
+        w.pbuf, w.dsr, w.dfsh_part);
+    VML_CHECK();
+    content_reduce_kernel<<<B * (Nq + 1), 128, 0, st>>>(N, C, Nq, dl, w.pbuf, w.dsr, w.da, s.q,
+                                                        w.dfsh_part, w.dfwh, w.dkhat, w.dfsh);
+    VML_CHECK();
+    // attn_q: dh = (dq Wcq + dh) * vm, in place.
+    ep = vml::Epilogue();
+    ep.pre = w.dh;
+    ep.ldpre = dl;
+    ep.rmask = vmask;
+    ep.mask_div = C;
+    vml::gemm_nn(st, B * NC, dl, dl, w.dq, dl, nullptr, 1, p[8], dl, w.dh, dl, ep);
+    VML_CHECK();
+    vml::gemm_tn(st, dl, dl, B * NC, w.dq, dl, nullptr, 1, s.h, dl, w.partial, dw[8]);
+    VML_CHECK();
+    vml::colsum(st, B * NC, dl, w.dq, dl, nullptr, 1, w.partial, dw[9]);
+    VML_CHECK();
+    // attn_k: dfwh = (dkhat Wck + dfwh) * qmask, in place.
+    ep = vml::Epilogue();
+    ep.pre = w.dfwh;
+    ep.ldpre = dl;
+    ep.rmask = qmask;
+    vml::gemm_nn(st, B * Nq, dl, dl, w.dkhat, dl, nullptr, 1, p[10], dl, w.dfwh, dl, ep);
+    VML_CHECK();
+    vml::gemm_tn(st, dl, dl, B * Nq, w.dkhat, dl, nullptr, 1, s.fwh, dl, w.partial, dw[10]);
+    VML_CHECK();
+    vml::colsum(st, B * Nq, dl, w.dkhat, dl, nullptr, 1, w.partial, dw[11]);
+    VML_CHECK();
+    // w_hat, s_hat, c_hat weights.
+    vml::gemm_tn(st, dl, D, B * Nq, w.dfwh, dl, nullptr, 1, fw, D, w.partial, dw[2]);
+    VML_CHECK();
+    vml::colsum(st, B * Nq, dl, w.dfwh, dl, nullptr, 1, w.partial, dw[3]);
+    VML_CHECK();
+    vml::gemm_tn(st, dl, D, B, w.dfsh, dl, nullptr, 1, fs, D, w.partial, dw[4]);
+    VML_CHECK();
+    vml::colsum(st, B, dl, w.dfsh, dl, nullptr, 1, w.partial, dw[5]);
+    VML_CHECK();
+    vml::gemm_tn(st, dl, D, B * NC, w.dh, dl, nullptr, 1, fc, D, w.partial, dw[0]);
+    VML_CHECK();
+    vml::colsum(st, B * NC, dl, w.dh, dl, nullptr, 1, w.partial, dw[1]);
+    VML_CHECK();
+
+    // BoundaryUnit.
+    boundary_attn_bwd_kernel<<<B * L, 128, 2 * L * sizeof(float), st>>>(
+        L, D, s.fbq, fb, s.fbar, lmask, w.G, w.Ab, w.dSb);
+    VML_CHECK();
+    boundary_query_bwd_kernel<<<B * L, 128, boundary_query_bwd_smem_bytes(L, Nq, D), st>>>(
+        L, Nq, D, s.bq, s.bk, fw, fb, fs, s.fbq, qmask, lmask, w.G, w.Ab, w.dSb, dfb, w.dab,
+        w.dfs_b, w.pb, w.dsb);
+    VML_CHECK();
+    boundary_proj_bwd_kernel<<<B * (L + Nq), 128, 0, st>>>(L, Nq, D, w.dsb, w.pb, w.dab, s.bq,
+                                                           s.bk, w.dbq, w.dbk, dfw);
+    VML_CHECK();
+    ep = vml::Epilogue();
+    ep.post = dfb;
+    ep.ldpost = D;
+    vml::gemm_nn(st, B * L, D, D, w.dbq, D, nullptr, 1, p[12], D, dfb, D, ep);
+    VML_CHECK();
+    ep.post = dfw;
+    vml::gemm_nn(st, B * Nq, D, D, w.dbk, D, nullptr, 1, p[14], D, dfw, D, ep);
+    VML_CHECK();
+    vml::gemm_nn(st, B * Nq, D, dl, w.dfwh, dl, nullptr, 1, p[2], D, dfw, D, ep);
+    VML_CHECK();
+    vml::gemm_tn(st, D, D, B * L, w.dbq, D, nullptr, 1, fb, D, w.partial, dw[12]);
+    VML_CHECK();
+    vml::colsum(st, B * L, D, w.dbq, D, nullptr, 1, w.partial, dw[13]);
+    VML_CHECK();
+    vml::gemm_tn(st, D, D, B * Nq, w.dbk, D, nullptr, 1, fw, D, w.partial, dw[14]);
+    VML_CHECK();
+    vml::colsum(st, B * Nq, D, w.dbk, D, nullptr, 1, w.partial, dw[15]);
+    VML_CHECK();
+
+    // Gate (reads dcut from dfc), then the s_hat path of dfs.
+    gate_bwd_kernel<<<dim3(B, (D + 127) / 128), 128, 0, st>>>(L, C, D, fm, fs, dmu, dfc, w.Ab,
+                                                              w.G, w.dfs_b, dfm, dfs);
+    VML_CHECK();
+    ep.post = dfs;
+    vml::gemm_nn(st, B, D, dl, w.dfsh, dl, nullptr, 1, p[4], D, dfs, D, ep);
+    VML_CHECK();
+    // dfc = dcut + dh Wch.
+    ep.post = dfc;
+    vml::gemm_nn(st, B * NC, D, dl, w.dh, dl, nullptr, 1, p[0], D, dfc, D, ep);
+    VML_CHECK();
+#undef VML_CHECK
+    return 0;
+}
+
+}  // extern "C"

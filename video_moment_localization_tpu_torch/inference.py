@@ -32,9 +32,13 @@ from video_moment_localization_tpu_torch.data.labels import build_masks
 from video_moment_localization_tpu_torch.data.sampler import sample_fixed_length_features
 from video_moment_localization_tpu_torch.data.tokenizer import get_tokens
 from video_moment_localization_tpu_torch.models.smin import SMIN, smin_forward_inference
+from video_moment_localization_tpu_torch.ops.cuda_build import resolve_device
 from video_moment_localization_tpu_torch.ops.nms import soft_nms_topk
 from video_moment_localization_tpu_torch.ops.packing import triu_packing
-from video_moment_localization_tpu_torch.train.metrics import proposal_scores_packed
+from video_moment_localization_tpu_torch.train.metrics import (
+    proposal_scores_packed,
+    topk_lowest_index_first,
+)
 from video_moment_localization_tpu_torch.utils.checkpoint import checkpoint_paths, load_checkpoint
 
 Request = Tuple[Any, ...]   # (clip_features (nfeats, dv), query, duration_s[, video_key])
@@ -56,32 +60,17 @@ def bucket_sizes(serve_batch: int) -> List[int]:
     return sizes + [serve_batch]
 
 
-def topk_lowest_index_first(score: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k along the last axis, ties to the lower index (as jax.lax.top_k):
-    a stable descending sort keeps equal scores in index order."""
-    vals, idxs = torch.sort(score, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idxs[..., :k]
-
-
 class MomentLocalizer:
     """Batched moment-localization scorer around a SMIN model.
 
     On a CUDA device the constructor turns TF32 off for the process
-    (``torch.backends.cuda.matmul.allow_tf32`` and
-    ``torch.backends.cudnn.allow_tf32``): the serving path is fp32
-    throughout, as the JAX fp32 kernels run at HIGHEST precision."""
+    (`ops.cuda_build.resolve_device`): the serving path is fp32 throughout."""
 
     def __init__(self, model_cfg: ModelConfig, model: SMIN, embedding: WordEmbedding,
                  serve_batch: int = 16, use_nms: bool = False, nms_sigma: float = 0.5,
                  device: str = "cuda"):
         self.cfg = model_cfg
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("MomentLocalizer: no CUDA device; pass device='cpu' "
-                                   "to serve on the CPU")
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        self.device = resolve_device(device, "MomentLocalizer")
         self.model = model.to(self.device).eval()
         self.embedding = embedding
         self.use_nms = use_nms

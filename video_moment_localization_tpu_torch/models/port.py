@@ -8,6 +8,11 @@ with ``strict=True``. Layout conversions:
 * Linear: JAX w (in, out) -> weight (out, in)
 * 1x1 Conv2d / Conv1d: w (in, out) -> weight (out, in, 1, 1) / (out, in, 1)
 * LSTM weights and the positional embedding: as they are
+
+A JAX gradient pytree has the parameters' structure and the conversions are
+linear, so the same function carries gradients across: the tests compare
+``state_dict_from_jax_params(grads)[name]`` with ``parameter.grad`` name by
+name.
 """
 
 from __future__ import annotations

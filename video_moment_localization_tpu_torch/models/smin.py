@@ -13,22 +13,27 @@ JAX function, over the triangular-packed moment layout (N = L(L+1)/2 pairs):
 * 1x1 convolutions are matmuls over the channel axis.
 
 `smin_forward_inference` is the serving forward: the backbone with the fused
-biLSTM (ops/lstm_cuda.py), then the fused SMI stack (ops/smin_cuda.py). Each
-wrapper launches its CUDA kernel on a CUDA tensor and runs its plain version
-on a CPU tensor.
+biLSTM (ops/lstm_cuda.py), then the fused SMI stack (ops/smin_cuda.py).
+`smin_forward` is the differentiable training forward: the backbone with the
+plain biLSTM under autograd (the JAX package's own choice for training: its
+fused biLSTM has no backward), the proposal kernel (ops/proposal_cuda.py),
+the per-layer SMI kernels with their hand-written backward
+(ops/smin_train_cuda.py), and the heads in plain PyTorch. Each wrapper
+launches its CUDA kernel on a CUDA tensor and runs its plain version on a
+CPU tensor.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from video_moment_localization_tpu_torch.config import ModelConfig
-from video_moment_localization_tpu_torch.models.lstm import BiLSTMParams, lstm_layers
+from video_moment_localization_tpu_torch.models.lstm import BiLSTMParams, bilstm, lstm_layers
 from video_moment_localization_tpu_torch.ops import lstm_cuda
 from video_moment_localization_tpu_torch.ops.packing import pair_index, packed_valid_mask
 
@@ -124,6 +129,19 @@ class SMIN(nn.Module):
                                       video_group=video_group)
 
 
+def block_weights(block: SMI) -> List[torch.Tensor]:
+    """The 20 tensors of one SMI block in the order its CUDA entry points
+    read them: weight, bias of c_hat, w_hat, s_hat, c_out, content attn
+    W_q, W_k, boundary attn W_q, W_k, conv_fb, conv_fc."""
+    cu, bu, mu = block.content_unit, block.boundary_unit, block.moment_unit
+    out = []
+    for layer in (cu.linear_c_hat, cu.linear_w_hat, cu.linear_s_hat, cu.linear_c,
+                  cu.attn_layer.W_q, cu.attn_layer.W_k, bu.attn_layer.W_q,
+                  bu.attn_layer.W_k, mu.conv_layer_fb, mu.conv_layer_fc):
+        out += [layer.weight, layer.bias]
+    return out
+
+
 def _linear(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Linear or 1x1 conv over the last axis."""
     w = layer.weight
@@ -140,13 +158,16 @@ def video_encoder(ve: VideoEncoder, video_features, video_mask):
     return x + ve.pe.weight[None] * video_mask
 
 
-def query_encoder(qe: QueryEncoder, query_features, query_mask, hidden_size: int):
+def query_encoder(qe: QueryEncoder, query_features, query_mask, hidden_size: int,
+                  fused_lstm: bool = True):
     """biLSTM sentence/word features (reference models.py:38-64): fs = [last
-    valid forward state, backward state at t=0], fw = per-word outputs,
-    from the fused biLSTM (ops/lstm_cuda.py)."""
+    valid forward state, backward state at t=0], fw = per-word outputs, from
+    the fused biLSTM (ops/lstm_cuda.py), which is grad-free, or with
+    ``fused_lstm=False`` from the plain one (models/lstm.py) under autograd."""
     mask = query_mask[..., 0]                                     # (B, Nq)
     layers = lstm_layers(qe.lstm)
-    fw = lstm_cuda.bilstm_fused(query_features, mask, layers)
+    run = lstm_cuda.bilstm_fused if fused_lstm else bilstm
+    fw = run(query_features, mask, layers)
     lengths = mask.sum(dim=1).long().clamp(min=1)
     f_fwd = fw[torch.arange(fw.shape[0], device=fw.device), lengths - 1, :hidden_size]
     f_bwd = fw[:, 0, hidden_size:]
@@ -154,7 +175,7 @@ def query_encoder(qe: QueryEncoder, query_features, query_mask, hidden_size: int
 
 
 def backbone(bb: Backbone, cfg: ModelConfig, video_features, video_mask,
-             query_features, query_mask, video_group=None):
+             query_features, query_mask, video_group=None, fused_lstm: bool = True):
     """Cross-modal fusion f = fv * fs (reference models.py:66-83).
 
     ``video_group``: optional (vf_g (G, T, dv), vm_g (G, T, 1), vidx (B,)):
@@ -167,7 +188,7 @@ def backbone(bb: Backbone, cfg: ModelConfig, video_features, video_mask,
         vf_g, vm_g, vidx = video_group
         fv = video_encoder(bb.videoencoder, vf_g, vm_g).index_select(0, vidx)
     fs, fw = query_encoder(bb.queryencoder, query_features, query_mask,
-                           cfg.lstm_hidden_size)
+                           cfg.lstm_hidden_size, fused_lstm=fused_lstm)
     return fv * fs[:, None, :], fs, fw
 
 
@@ -205,7 +226,7 @@ def content_unit_packed(cu: ContentUnit, f_c, f_w, f_s, f_m, query_mask, vmask,
     """ContentUnit (reference models.py:228-276) over packed pairs: f_c
     (B, N, C, D), f_m (B, N, D), vmask (B, N). The clip self-attention
     softmax is unmasked; the mask multiplies afterwards."""
-    dl = cu.linear_c_hat.out_features
+    dl = cu.linear_c_hat.weight.shape[0]
     f_c_mask = vmask[..., None, None]
     f_c_hat = _linear(cu.linear_c_hat, f_c) * f_c_mask               # (B, N, C, dl)
     f_w_hat = _linear(cu.linear_w_hat, f_w) * query_mask
@@ -324,3 +345,53 @@ def smin_forward_inference(
                          query_features, query_mask, video_group=video_group)
     vmask = packed_valid_mask(length_mask)
     return smin_stack_fused(model, cfg, f, fw, fs, query_mask, length_mask, vmask)
+
+
+# --------------------------------------------------------------------- #
+# Training forward
+# --------------------------------------------------------------------- #
+def check_training_config(cfg: ModelConfig) -> None:
+    """The training path implements fp32, the packed layout and the
+    per-layer SMI kernels with their own backward; every other mode raises
+    instead of taking another path."""
+    unsupported = []
+    if cfg.compute_dtype != "float32":
+        unsupported.append(f"compute_dtype={cfg.compute_dtype}")
+    if not cfg.packed:
+        unsupported.append("packed=False (dense layout)")
+    if cfg.compat_head:
+        unsupported.append("compat_head=True")
+    if not cfg.fused_smi_train:
+        unsupported.append("fused_smi_train=False")
+    if cfg.remat_smi:
+        unsupported.append("remat_smi=True")
+    if unsupported:
+        raise NotImplementedError(
+            "not supported by the PyTorch training path: " + ", ".join(unsupported))
+
+
+def smin_forward(
+    model: SMIN,
+    cfg: ModelConfig,
+    video_features: torch.Tensor,             # (B, T, dv)
+    video_mask: torch.Tensor,                 # (B, T, 1)
+    query_features: torch.Tensor,             # (B, Nq, word_dim)
+    query_mask: torch.Tensor,                 # (B, Nq, 1)
+    length_mask: torch.Tensor,                # (B, L)
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Differentiable forward -> (pm (B, N), ps, pe, pa (B, L)), fp32 in
+    [0, 1]: plain backbone -> proposal rows (K1) -> SMI layers (K2, backward
+    K3) -> heads."""
+    # Imported here: both modules import this one for their plain versions.
+    from video_moment_localization_tpu_torch.ops.proposal_cuda import proposal_features_rows
+    from video_moment_localization_tpu_torch.ops.smin_train_cuda import smi_stack_layers
+
+    check_training_config(cfg)
+    f, fs, fw = backbone(model.backbone, cfg, video_features, video_mask,
+                         query_features, query_mask, fused_lstm=False)
+    length_mask = length_mask.float()
+    vmask = packed_valid_mask(length_mask)
+    fc, fm, fb = proposal_features_rows(f, length_mask, cfg.L, cfg.C)
+    fm, fb = smi_stack_layers(model.smis, fc, fm, fb, fw, fs, query_mask, length_mask,
+                              vmask, cfg.L)
+    return localization_packed(model.localization, fm, fb, length_mask, vmask, cfg.L)

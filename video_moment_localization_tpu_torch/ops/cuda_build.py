@@ -104,6 +104,37 @@ def check(lib: ctypes.CDLL, fn: str, err: int) -> None:
                            f"({lib.vml_error_string(err).decode()})")
 
 
+def resolve_device(device, who: str):
+    """The device of an entry point, which runs on the card unless the CPU
+    is asked for: raises when ``device`` is CUDA and there is none. On a CUDA
+    device it turns TF32 off for the process
+    (``torch.backends.cuda.matmul.allow_tf32`` and
+    ``torch.backends.cudnn.allow_tf32``): the port is fp32 throughout, as the
+    JAX fp32 kernels run their matmuls at HIGHEST precision."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{who}: no CUDA device; pass device='cpu' to run on the CPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def refuse_grad(fn: str, tensors) -> None:
+    """Raise if a grad-free kernel wrapper is asked to record a graph: grad
+    mode is on and an input or weight requires grad. Without this the
+    wrapper would return a result cut off from the graph, silently."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{fn} has no backward kernel and got tensors that require grad with grad "
+            f"mode on: call it under torch.no_grad() (serving, evaluation), or train "
+            f"through models.smin.smin_forward")
+
+
 def ptr(t) -> ctypes.c_void_p:
     """Device address of a tensor, for a c_void_p argument."""
     return ctypes.c_void_p(t.data_ptr())

@@ -24,6 +24,7 @@ from video_moment_localization_tpu_torch.ops.cuda_build import (
     check,
     load_library,
     ptr,
+    refuse_grad,
     stream_of,
 )
 
@@ -67,15 +68,19 @@ def _check_inputs(x: torch.Tensor, mask: torch.Tensor, layers: Layers) -> int:
     return H
 
 
-@torch.no_grad()
 def bilstm_fused(x: torch.Tensor, mask: torch.Tensor, layers: Layers) -> torch.Tensor:
     """Fused 2-layer biLSTM forward: x (B, S, in), mask (B, S) -> (B, S, 2H).
 
     ``layers`` is `models.lstm.lstm_layers`' view of the weights, in torch's
-    layout (w_ih (4H, in), w_hh (4H, H), gate order i, f, g, o)."""
+    layout (w_ih (4H, in), w_hh (4H, H), gate order i, f, g, o). Grad-free:
+    on CUDA tensors that would record a graph it raises (training runs
+    `models.lstm.bilstm` under autograd)."""
     if x.device.type == "cpu":
-        return bilstm_plain(x, mask, layers)
+        with torch.no_grad():
+            return bilstm_plain(x, mask, layers)
     H = _check_inputs(x, mask, layers)
+    refuse_grad("bilstm_fused", [x] + [w for layer in layers for d in layer.values()
+                                       for w in d.values()])
     lib = _library()
     smem = lib.vml_lstm_layer_smem_bytes(H)
     if smem > MAX_SMEM_BYTES:

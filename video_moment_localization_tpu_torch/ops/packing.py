@@ -59,3 +59,16 @@ def unpack_map(x: torch.Tensor, L: int) -> torch.Tensor:
     dense = x.new_zeros((B, L * L) + tuple(x.shape[2:]))
     dense[:, torch.from_numpy(p.flat_idx.astype(np.int64)).to(x.device)] = x
     return dense.reshape((B, L, L) + tuple(x.shape[2:]))
+
+
+def pack_rows(fc: torch.Tensor) -> torch.Tensor:
+    """(B, N, C, D) packed n-major (the port's layout) -> (B, C*N, D) c-major
+    rows (row c*N + n), the layout of the JAX package's train kernels."""
+    B, N, C, D = fc.shape
+    return fc.permute(0, 2, 1, 3).reshape(B, C * N, D)
+
+
+def unpack_rows(rows: torch.Tensor, N: int, C: int) -> torch.Tensor:
+    """(B, C*N, D) c-major rows -> (B, N, C, D)."""
+    B, _, D = rows.shape
+    return rows.reshape(B, C, N, D).permute(0, 2, 1, 3)

@@ -22,6 +22,7 @@ import torch
 from video_moment_localization_tpu_torch.config import ModelConfig
 from video_moment_localization_tpu_torch.models.smin import (
     SMIN,
+    block_weights,
     localization_packed,
     smi_block_packed,
 )
@@ -30,6 +31,7 @@ from video_moment_localization_tpu_torch.ops.cuda_build import (
     check,
     load_library,
     ptr,
+    refuse_grad,
     stream_of,
 )
 from video_moment_localization_tpu_torch.ops.proposal import proposal_features_packed
@@ -62,14 +64,7 @@ def _library() -> ctypes.CDLL:
 
 def _layer_weights(model: SMIN) -> List[torch.Tensor]:
     """The 20 tensors per layer, in the order vml_smin_stack_f32 reads."""
-    out = []
-    for block in model.smis:
-        cu, bu, mu = block.content_unit, block.boundary_unit, block.moment_unit
-        for layer in (cu.linear_c_hat, cu.linear_w_hat, cu.linear_s_hat, cu.linear_c,
-                      cu.attn_layer.W_q, cu.attn_layer.W_k, bu.attn_layer.W_q,
-                      bu.attn_layer.W_k, mu.conv_layer_fb, mu.conv_layer_fc):
-            out += [layer.weight, layer.bias]
-    return out
+    return [w for block in model.smis for w in block_weights(block)]
 
 
 def _head_weights(model: SMIN) -> List[torch.Tensor]:
@@ -109,17 +104,22 @@ def _check_inputs(model: SMIN, cfg: ModelConfig, tensors) -> None:
                              f"got {w.dtype} on {w.device}")
 
 
-@torch.no_grad()
 def smin_stack_fused(model: SMIN, cfg: ModelConfig, f, fw, fs, query_mask,
                      length_mask, vmask) -> Scores:
     """Proposal pooling + SMI stack + heads. f (B, T, D), fw (B, Nq, D),
     fs (B, D), query_mask (B, Nq, 1), length_mask (B, L), vmask (B, N) ->
-    (pm (B, N), ps, pe, pa (B, L)) in fp32."""
+    (pm (B, N), ps, pe, pa (B, L)) in fp32. Grad-free: on CUDA tensors
+    that would record a graph it raises (the differentiable stack is
+    ops/smin_train_cuda.py)."""
     if f.device.type == "cpu":
-        return smin_stack_plain(model, cfg, f, fw, fs, query_mask, length_mask, vmask)
+        with torch.no_grad():
+            return smin_stack_plain(model, cfg, f, fw, fs, query_mask, length_mask, vmask)
     tensors = {"f": f, "fw": fw, "fs": fs, "query_mask": query_mask,
                "length_mask": length_mask, "vmask": vmask}
     _check_inputs(model, cfg, tensors)
+    layer_w = _layer_weights(model)
+    head_w = _head_weights(model)
+    refuse_grad("smin_stack_fused", [*tensors.values(), *layer_w, *head_w])
     lib = _library()
     B, T, D = f.shape
     L, C, dl, Nq = cfg.L, cfg.C, cfg.dl, fw.shape[1]
@@ -131,8 +131,6 @@ def smin_stack_fused(model: SMIN, cfg: ModelConfig, f, fw, fs, query_mask,
                      device=f.device, dtype=torch.float32)
     pm = torch.empty((B, N), device=f.device, dtype=torch.float32)
     pb = torch.empty((3, B, L), device=f.device, dtype=torch.float32)
-    layer_w = _layer_weights(model)
-    head_w = _head_weights(model)
     with torch.cuda.device(f.device):
         err = lib.vml_smin_stack_f32(
             stream_of(f), B, T, L, C, Nq, D, dl, cfg.num_smi_layers,

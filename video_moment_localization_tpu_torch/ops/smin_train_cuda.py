@@ -1,0 +1,265 @@
+"""K2 and K3: one SMI layer forward and its hand-written backward, and the
+differentiable stack over them (csrc/smin_train.cu).
+
+Counterpart of ``video_moment_localization_tpu/ops/smin_train_pallas.py``:
+`_layer_fwd_call` (K2), `_layer_bwd_call` (K3) and the `smi_stack_layers`
+custom VJP that drives them. The JAX backward kernel differentiates the
+layer body at trace time; here the gradient is derived by hand and written
+as CUDA kernels (the derivation is in csrc/smin_train.cu). As in the JAX
+package the stack saves only the layer-boundary carries (fc_i, fm_i, fb_i):
+the backward kernel recomputes the layer before differentiating it, the top
+layer's fc cotangent is a null pointer, weight gradients are fp32, and dfw /
+dfs accumulate over the layers.
+
+fc is n-major, (B, N, C, D), as everywhere in this package (the JAX kernels'
+c-major rows are a TPU tiling choice).
+
+`smi_layer_forward` / `smi_layer_backward` are the kernel wrappers: on a CPU
+tensor each runs its plain version (`models.smin.smi_block_packed`, and
+``torch.autograd.grad`` through it), on a CUDA tensor it launches its kernel
+or raises. ``.launches`` on each counts the launches (one per layer: the C
+entry point sequences the layer's kernels).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import types
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from video_moment_localization_tpu_torch.models.smin import block_weights, smi_block_packed
+from video_moment_localization_tpu_torch.ops.cuda_build import (
+    MAX_SMEM_BYTES,
+    check,
+    load_library,
+    ptr,
+    stream_of,
+)
+
+WEIGHTS_PER_LAYER = 20
+Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _as_block(weights: Sequence[torch.Tensor]):
+    """The 20 tensors of `block_weights` as the attribute tree that
+    `smi_block_packed` reads."""
+    layers = [types.SimpleNamespace(weight=weights[k], bias=weights[k + 1])
+              for k in range(0, WEIGHTS_PER_LAYER, 2)]
+    c_hat, w_hat, s_hat, c_out, cq, ck, bq, bk, conv_fb, conv_fc = layers
+    ns = types.SimpleNamespace
+    return ns(content_unit=ns(linear_c_hat=c_hat, linear_w_hat=w_hat, linear_s_hat=s_hat,
+                              linear_c=c_out, attn_layer=ns(W_q=cq, W_k=ck)),
+              boundary_unit=ns(attn_layer=ns(W_q=bq, W_k=bk)),
+              moment_unit=ns(conv_layer_fb=conv_fb, conv_layer_fc=conv_fc))
+
+
+def smi_layer_plain(weights, fc, fm, fb, fw, fs, query_mask, length_mask, vmask,
+                    L: int) -> Carry:
+    """The plain version of K2: `smi_block_packed` on the layer's weights."""
+    return smi_block_packed(_as_block(weights), fc, fm, fb, fw, fs, query_mask,
+                            length_mask, vmask, L)
+
+
+def smi_layer_backward_plain(weights, fc, fm, fb, fw, fs, query_mask, length_mask, vmask,
+                             L: int, dcu, dmu, dbu):
+    """The plain version of K3: recompute the layer under autograd and take
+    its VJP. ``dcu=None`` is the zero cotangent. Returns
+    (dfc, dfm, dfb, dfw, dfs, [20 weight gradients])."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (fc, fm, fb, fw, fs, *weights)]
+        cu, mu, bu = smi_layer_plain(leaves[5:], *leaves[:5], query_mask, length_mask,
+                                     vmask, L)
+        outs, cots = [mu, bu], [dmu, dbu]
+        if dcu is not None:
+            outs.append(cu)
+            cots.append(dcu)
+        grads = torch.autograd.grad(outs, leaves, cots)
+    return (*grads[:5], list(grads[5:]))
+
+
+def _library() -> ctypes.CDLL:
+    lib = load_library("smin_train")
+    lib.vml_smi_layer_workspace_floats.argtypes = [ctypes.c_int] * 7
+    lib.vml_smi_layer_workspace_floats.restype = ctypes.c_size_t
+    lib.vml_smi_layer_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.vml_smi_layer_smem_bytes.restype = ctypes.c_size_t
+    pointers = ctypes.POINTER(ctypes.c_void_p)
+    fwd = lib.vml_smi_layer_fwd_f32
+    fwd.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 8
+                    + [pointers] + [ctypes.c_void_p] * 4)
+    fwd.restype = ctypes.c_int
+    bwd = lib.vml_smi_layer_bwd_f32
+    bwd.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 8
+                    + [pointers] + [ctypes.c_void_p] * 9 + [pointers])
+    bwd.restype = ctypes.c_int
+    return lib
+
+
+def _pointer_array(tensors: Sequence[torch.Tensor]):
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def _weight_shapes(D: int, dl: int):
+    return [(dl, D), (dl,)] * 3 + [(D, dl), (D,)] + [(dl, dl), (dl,)] * 2 + [(D, D), (D,)] * 4
+
+
+def _check_inputs(fn: str, weights, fc, fm, fb, fw, fs, query_mask, length_mask, vmask,
+                  L: int, cotangents=()):
+    """Shapes, dtype, device and contiguity of everything the C entry reads.
+    Returns (B, C, Nq, D, dl)."""
+    if fc.device.type != "cuda":
+        raise ValueError(f"{fn} takes CPU or CUDA tensors, got {fc.device}")
+    if fc.dim() != 4 or len(weights) != WEIGHTS_PER_LAYER:
+        raise ValueError(f"{fn}: want fc (B, N, C, D) and {WEIGHTS_PER_LAYER} weight "
+                         f"tensors, got {tuple(fc.shape)} and {len(weights)}")
+    B, N, C, D = fc.shape
+    Nq, dl = fw.shape[1], weights[0].shape[0]
+    if N != L * (L + 1) // 2:
+        raise ValueError(f"{fn}: fc has {N} pairs, L={L} gives {L * (L + 1) // 2}")
+    want = [("fc", fc, (B, N, C, D)), ("fm", fm, (B, N, D)), ("fb", fb, (B, L, D)),
+            ("fw", fw, (B, Nq, D)), ("fs", fs, (B, D)), ("query_mask", query_mask, (B, Nq, 1)),
+            ("length_mask", length_mask, (B, L)), ("vmask", vmask, (B, N))]
+    want += [(f"weight {k}", w, s) for k, (w, s) in
+             enumerate(zip(weights, _weight_shapes(D, dl)))]
+    want += list(cotangents)
+    for name, t, shape in want:
+        t_shape = tuple(t.shape)
+        if name.startswith("weight") and t.dim() == 4:      # 1x1 conv (out, in, 1, 1)
+            t_shape = t_shape[:2]
+        if (t_shape != tuple(shape) or t.dtype != torch.float32 or t.device != fc.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{fn}: {name}: want contiguous float32 {tuple(shape)} on "
+                             f"{fc.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return B, C, Nq, D, dl
+
+
+def _workspace(lib, fc, B, L, C, Nq, D, dl, backward: bool,
+               ws: Optional[torch.Tensor]) -> torch.Tensor:
+    smem = lib.vml_smi_layer_smem_bytes(L, C, Nq, D, dl)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"L={L}, C={C}, Nq={Nq}, dl={dl} need {smem} B of shared memory "
+                         f"per block")
+    floats = lib.vml_smi_layer_workspace_floats(B, L, C, Nq, D, dl, int(backward))
+    if ws is None:
+        return torch.empty(floats, device=fc.device, dtype=torch.float32)
+    if ws.numel() < floats or ws.device != fc.device or ws.dtype != torch.float32:
+        raise ValueError(f"workspace: want {floats} float32 on {fc.device}")
+    return ws
+
+
+def smi_layer_forward(weights, fc, fm, fb, fw, fs, query_mask, length_mask, vmask, L: int,
+                      ws: Optional[torch.Tensor] = None) -> Carry:
+    """One SMI layer: fc (B, N, C, D), fm (B, N, D), fb (B, L, D), fw
+    (B, Nq, D), fs (B, D), query_mask (B, Nq, 1), length_mask (B, L), vmask
+    (B, N) and `block_weights` -> (cu, mu, bu) of the same three shapes.
+    ``ws`` is an optional workspace to reuse over layers."""
+    if fc.device.type == "cpu":
+        return smi_layer_plain(weights, fc, fm, fb, fw, fs, query_mask, length_mask,
+                               vmask, L)
+    B, C, Nq, D, dl = _check_inputs("smi_layer_forward", weights, fc, fm, fb, fw, fs,
+                                    query_mask, length_mask, vmask, L)
+    lib = _library()
+    ws = _workspace(lib, fc, B, L, C, Nq, D, dl, False, ws)
+    cu, mu, bu = torch.empty_like(fc), torch.empty_like(fm), torch.empty_like(fb)
+    with torch.cuda.device(fc.device):
+        err = lib.vml_smi_layer_fwd_f32(
+            stream_of(fc), B, L, C, Nq, D, dl, ptr(fc), ptr(fm), ptr(fb), ptr(fw), ptr(fs),
+            ptr(query_mask), ptr(length_mask), ptr(vmask), _pointer_array(weights),
+            ptr(ws), ptr(cu), ptr(mu), ptr(bu))
+    check(lib, "vml_smi_layer_fwd_f32", err)
+    smi_layer_forward.launches += 1
+    return cu, mu, bu
+
+
+def smi_layer_backward(weights, fc, fm, fb, fw, fs, query_mask, length_mask, vmask, L: int,
+                       dcu: Optional[torch.Tensor], dmu, dbu,
+                       ws: Optional[torch.Tensor] = None):
+    """Recompute one layer from its inputs and backpropagate (dcu, dmu, dbu)
+    through it; ``dcu=None`` is the zero cotangent of a top layer. Returns
+    (dfc, dfm, dfb, dfw, dfs, [20 fp32 weight gradients in `block_weights`
+    order])."""
+    if fc.device.type == "cpu":
+        return smi_layer_backward_plain(weights, fc, fm, fb, fw, fs, query_mask,
+                                        length_mask, vmask, L, dcu, dmu, dbu)
+    cots = [("dmu", dmu, fm.shape), ("dbu", dbu, fb.shape)]
+    if dcu is not None:
+        cots.append(("dcu", dcu, fc.shape))
+    B, C, Nq, D, dl = _check_inputs("smi_layer_backward", weights, fc, fm, fb, fw, fs,
+                                    query_mask, length_mask, vmask, L, cots)
+    lib = _library()
+    ws = _workspace(lib, fc, B, L, C, Nq, D, dl, True, ws)
+    dfc, dfm, dfb = torch.empty_like(fc), torch.empty_like(fm), torch.empty_like(fb)
+    dfw, dfs = torch.empty_like(fw), torch.empty_like(fs)
+    dweights = [torch.empty_like(w) for w in weights]
+    with torch.cuda.device(fc.device):
+        err = lib.vml_smi_layer_bwd_f32(
+            stream_of(fc), B, L, C, Nq, D, dl, ptr(fc), ptr(fm), ptr(fb), ptr(fw), ptr(fs),
+            ptr(query_mask), ptr(length_mask), ptr(vmask), _pointer_array(weights),
+            ptr(dcu) if dcu is not None else None, ptr(dmu), ptr(dbu), ptr(ws),
+            ptr(dfc), ptr(dfm), ptr(dfb), ptr(dfw), ptr(dfs), _pointer_array(dweights))
+    check(lib, "vml_smi_layer_bwd_f32", err)
+    smi_layer_backward.launches += 1
+    return dfc, dfm, dfb, dfw, dfs, dweights
+
+
+smi_layer_forward.launches = 0
+smi_layer_backward.launches = 0
+
+
+class _SMIStack(torch.autograd.Function):
+    """All layers; saves the carries, the shared inputs and the weights."""
+
+    @staticmethod
+    def forward(ctx, L, fc, fm, fb, fw, fs, query_mask, length_mask, vmask, *weights):
+        n_layers = len(weights) // WEIGHTS_PER_LAYER
+        shared = (fw, fs, query_mask, length_mask, vmask)
+        ws = None
+        if fc.device.type == "cuda":
+            ws = _workspace(_library(), fc, fc.shape[0], L, fc.shape[2], fw.shape[1],
+                            fc.shape[3], weights[0].shape[0], False, None)
+        carries = []
+        for k in range(n_layers):
+            carries += [fc, fm, fb]
+            fc, fm, fb = smi_layer_forward(
+                weights[k * WEIGHTS_PER_LAYER:(k + 1) * WEIGHTS_PER_LAYER], fc, fm, fb,
+                *shared, L, ws=ws)
+        ctx.save_for_backward(*carries, *shared, *weights)
+        ctx.L, ctx.n_layers = L, n_layers
+        return fm, fb
+
+    @staticmethod
+    def backward(ctx, dfm, dfb):
+        L, n_layers = ctx.L, ctx.n_layers
+        saved = ctx.saved_tensors
+        carries, shared = saved[:3 * n_layers], saved[3 * n_layers:3 * n_layers + 5]
+        weights = saved[3 * n_layers + 5:]
+        fc0, fw = carries[0], shared[0]
+        ws = None
+        if fc0.device.type == "cuda":
+            ws = _workspace(_library(), fc0, fc0.shape[0], L, fc0.shape[2], fw.shape[1],
+                            fc0.shape[3], weights[0].shape[0], True, None)
+        dfc, dfm, dfb = None, dfm.contiguous(), dfb.contiguous()
+        dfw_acc = dfs_acc = None
+        dweights: List[torch.Tensor] = []
+        for k in reversed(range(n_layers)):
+            dfc, dfm, dfb, dfw, dfs, dw = smi_layer_backward(
+                weights[k * WEIGHTS_PER_LAYER:(k + 1) * WEIGHTS_PER_LAYER],
+                *carries[3 * k:3 * k + 3], *shared, L, dfc, dfm, dfb, ws=ws)
+            dfw_acc = dfw if dfw_acc is None else dfw_acc + dfw
+            dfs_acc = dfs if dfs_acc is None else dfs_acc + dfs
+            dweights = list(dw) + dweights
+        return (None, dfc, dfm, dfb, dfw_acc, dfs_acc, None, None, None, *dweights)
+
+
+def smi_stack_layers(blocks: nn.ModuleList, fc, fm, fb, fw, fs, query_mask, length_mask,
+                     vmask, L: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The differentiable SMI stack: every block of ``blocks`` in turn ->
+    (fm_out (B, N, D), fb_out (B, L, D)), the heads' inputs. The last
+    layer's fc has no consumer and is not returned."""
+    weights = [w for block in blocks for w in block_weights(block)]
+    return _SMIStack.apply(L, fc.contiguous(), fm.contiguous(), fb.contiguous(),
+                           fw.contiguous(), fs.contiguous(), query_mask.contiguous(),
+                           length_mask.contiguous(), vmask.contiguous(), *weights)

@@ -1,0 +1,98 @@
+"""Train and eval steps on one device.
+
+Counterpart of ``video_moment_localization_tpu/parallel/steps.py``
+(`make_train_step`, `make_eval_step`) and of the optimizer of
+``train/trainer.py``: forward, `smin_loss`, backward, one Adam update and
+the on-device R@n,IoU=m counts. A step returns ``{"loss", "counts"}`` as
+device tensors and reads nothing back to the host.
+
+The training forward (`models.smin.smin_forward`) runs the plain biLSTM
+under autograd and the K1 / K2 / K3 kernels; the eval forward
+(`smin_forward_inference`) the fused biLSTM and the fused SMI stack. On a
+CUDA device a kernel launches or raises: there is no fallback to the plain
+versions. The steps run on the card unless ``device="cpu"`` is asked for.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Union
+
+import torch
+
+from video_moment_localization_tpu_torch.config import Config, ModelConfig
+from video_moment_localization_tpu_torch.models.smin import (
+    SMIN,
+    check_serving_config,
+    check_training_config,
+    smin_forward,
+    smin_forward_inference,
+)
+from video_moment_localization_tpu_torch.ops.cuda_build import resolve_device
+from video_moment_localization_tpu_torch.train.loss import smin_loss
+from video_moment_localization_tpu_torch.train.metrics import recall_counts_packed
+
+Batch = Dict[str, torch.Tensor]
+
+_FORWARD_KEYS = ("video_features", "video_mask", "query_features", "query_mask",
+                 "length_mask")
+
+
+def build_optimizer(cfg: Config, model: SMIN) -> torch.optim.Adam:
+    """Adam at ``cfg.lr`` with betas (0.9, 0.999), eps 1e-8 and no weight
+    decay: the update of ``optax.adam(cfg.lr)`` (train/trainer.py:45)."""
+    return torch.optim.Adam(model.parameters(), lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=0.0)
+
+
+def _step_metrics(outputs, loss, batch: Batch, use_nms: bool, nms_sigma: float):
+    pm, ps, pe, _ = outputs
+    counts = recall_counts_packed(pm, ps, pe, batch["length_mask"], batch["sm"],
+                                  batch.get("sample_mask"), use_nms=use_nms,
+                                  nms_sigma=nms_sigma)
+    return {"loss": loss, "counts": counts}
+
+
+def make_train_step(cfg: ModelConfig, model: SMIN, optimizer: torch.optim.Optimizer,
+                    device: Union[str, torch.device] = "cuda"
+                    ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
+    """Returns batch -> metrics; each call updates ``model`` and
+    ``optimizer`` in place. The model is moved to ``device`` here (its
+    parameters stay the objects the optimizer holds)."""
+    check_training_config(cfg)
+    device = resolve_device(device, "make_train_step")
+    model.to(device)
+
+    def train_step(batch: Batch) -> Dict[str, torch.Tensor]:
+        batch = {k: v.to(device) for k, v in batch.items()}
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            outputs = smin_forward(model, cfg, *(batch[k] for k in _FORWARD_KEYS))
+            loss, _ = smin_loss(outputs, batch)
+            loss.backward()
+        optimizer.step()
+        with torch.no_grad():
+            outputs = tuple(o.detach() for o in outputs)
+            return _step_metrics(outputs, loss.detach(), batch, False, 0.0)
+
+    return train_step
+
+
+def make_eval_step(cfg: ModelConfig, model: SMIN, use_nms: bool = False,
+                   nms_sigma: float = 0.5, device: Union[str, torch.device] = "cuda"
+                   ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
+    """Returns batch -> metrics (loss and recall counts), grad-free, through
+    the serving forward."""
+    check_serving_config(cfg)
+    device = resolve_device(device, "make_eval_step")
+    model.to(device)
+
+    @torch.no_grad()
+    def eval_step(batch: Batch) -> Dict[str, torch.Tensor]:
+        batch = {k: v.to(device) for k, v in batch.items()}
+        model.eval()
+        outputs = smin_forward_inference(model, cfg, *(batch[k] for k in _FORWARD_KEYS))
+        loss, _ = smin_loss(outputs, batch)
+        return _step_metrics(outputs, loss, batch, use_nms, nms_sigma)
+
+    return eval_step

@@ -1,17 +1,21 @@
-"""Final proposal scores and metric names of the serving path.
+"""Final proposal scores and R@n, IoU=m recall counts over packed pairs.
 
-Counterpart of the packed scoring in ``video_moment_localization_tpu/
+Counterpart of the packed half of ``video_moment_localization_tpu/
 train/metrics.py`` (reference utils.py:10-31): the final score of pair
-(i, j) is ``pm * sqrt(ps[i]) * sqrt(pe[j])``, masked to valid pairs. The
-recall counts are ported with the training slice.
+(i, j) is ``pm * sqrt(ps[i]) * sqrt(pe[j])``, masked to valid pairs; the
+top-k = max(n) scores (or k soft-NMS selections) gather the ground-truth IoU
+at their indices, and R@n,IoU=m counts the samples where any of the top-n
+gathered IoUs exceeds m. Counts are un-normalized; a padded batch's
+``sample_mask`` weights them.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from video_moment_localization_tpu_torch.ops.nms import soft_nms_topk
 from video_moment_localization_tpu_torch.ops.packing import packed_valid_mask, pair_index
 
 METRIC_NS: Tuple[int, ...] = (1, 5)
@@ -30,3 +34,47 @@ def proposal_scores_packed(pm: torch.Tensor, ps: torch.Tensor, pe: torch.Tensor,
     s_i = torch.sqrt(ps)[:, i_idx]
     e_j = torch.sqrt(pe)[:, j_idx]
     return pm * s_i * e_j * packed_valid_mask(length_mask.float())
+
+
+def topk_lowest_index_first(score: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last axis, ties to the lower index (as jax.lax.top_k):
+    a stable descending sort keeps equal scores in index order."""
+    vals, idxs = torch.sort(score, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idxs[..., :k]
+
+
+def _counts_from_topk(score, sm_flat, sample_mask, n, m, L, use_nms, nms_sigma):
+    """Top-k -> gather GT IoU -> threshold counts, shape (len(n), len(m))."""
+    k = max(n)
+    if use_nms:
+        _, top_idx = soft_nms_topk(score, L, k, nms_sigma)
+    else:
+        _, top_idx = topk_lowest_index_first(score, k)
+    top_ious = sm_flat.gather(1, top_idx)                               # (B, k)
+    if sample_mask is None:
+        sample_mask = score.new_ones(score.shape[0])
+    counts = [torch.stack([((top_ious[:, :n_] > m_).any(dim=1).float() * sample_mask).sum()
+                           for m_ in m]) for n_ in n]
+    return torch.stack(counts)
+
+
+def recall_counts_packed(pm: torch.Tensor, ps: torch.Tensor, pe: torch.Tensor,
+                         length_mask: torch.Tensor, sm: torch.Tensor,
+                         sample_mask: Optional[torch.Tensor] = None,
+                         n: Sequence[int] = METRIC_NS, m: Sequence[float] = METRIC_MS,
+                         use_nms: bool = False, nms_sigma: float = 0.5) -> torch.Tensor:
+    """Un-normalized hit counts (len(n), len(m)) over the packed layout:
+    pm/sm are (B, N); the top-k runs over the N pairs only, so ties select
+    among packed slots (the JAX package's deliberate deviation from the
+    reference's dense top-k, PARITY.md #16)."""
+    L = ps.shape[1]
+    score = proposal_scores_packed(pm, ps, pe, length_mask, L)
+    return _counts_from_topk(score, sm, sample_mask, n, m, L, use_nms, nms_sigma)
+
+
+def counts_to_dict(counts, n=METRIC_NS, m=METRIC_MS) -> Dict[str, float]:
+    out = {}
+    for i, n_ in enumerate(n):
+        for j, m_ in enumerate(m):
+            out[f"R@{n_}, IoU={m_}"] = float(counts[i, j])
+    return out

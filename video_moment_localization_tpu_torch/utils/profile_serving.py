@@ -44,21 +44,27 @@ def profile_forward(loc: MomentLocalizer, B: int, iters: int, rng) -> None:
     for _ in range(3):
         loc._score(vf, vm, qf, qm, lm, 5)
     torch.cuda.synchronize()
+    profile_and_report(lambda: loc._score(vf, vm, qf, qm, lm, 5), f"B={B}", "forward", iters)
+
+
+def profile_and_report(fn, label: str, unit: str, iters: int, top: int = 16) -> None:
+    """Run ``fn`` ``iters`` times under torch.profiler and print the device
+    time per run of each kernel, its share, and the device's busy share."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            loc._score(vf, vm, qf, qm, lm, 5)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(e.key, e.count, e.self_device_time_total / 1e3)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     total = sum(r[2] for r in rows)
-    print(f"B={B}: {iters} forwards, wall {wall_ms / iters:.4f} ms/forward, device "
-          f"{total / iters:.4f} ms/forward, busy share {total / wall_ms:.3f}")
-    for key, count, ms in sorted(rows, key=lambda r: -r[2])[:16]:
-        print(f"  {ms / iters:9.4f} ms  {ms / total:6.1%}  x{count // iters:<3d} {key[:90]}")
+    print(f"{label}: {iters} {unit}s, wall {wall_ms / iters:.4f} ms/{unit}, device "
+          f"{total / iters:.4f} ms/{unit}, busy share {total / wall_ms:.3f}")
+    for key, count, ms in sorted(rows, key=lambda r: -r[2])[:top]:
+        print(f"  {ms / iters:9.4f} ms  {ms / total:6.1%}  x{count // iters:<4d} {key[:90]}")
 
 
 def main(argv=None) -> int:

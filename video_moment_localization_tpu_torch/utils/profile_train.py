@@ -1,0 +1,91 @@
+"""Where a train step's device time goes, kernel by kernel, on a GPU.
+
+    python -m video_moment_localization_tpu_torch.utils.profile_train \
+        [--batch 64] [--iters 5] [--seed 0]
+
+Builds the Charades model (config/charadessta.yml) with random seeded
+weights and a seeded synthetic batch (`synthetic_batch`: random features, GT
+spans through the label generators, ragged lengths, one padded sample), runs
+`parallel.steps.make_train_step` under ``torch.profiler``, and prints the
+device time per step of each kernel, its share, and the device's busy share
+of the window (summed kernel time over wall time). Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+from typing import Dict
+
+import numpy as np
+import torch
+
+from video_moment_localization_tpu_torch.config import ModelConfig, load_config
+from video_moment_localization_tpu_torch.data import labels
+from video_moment_localization_tpu_torch.models.smin import SMIN
+from video_moment_localization_tpu_torch.parallel.steps import build_optimizer, make_train_step
+from video_moment_localization_tpu_torch.utils.profile_serving import profile_and_report
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def synthetic_batch(cfg: ModelConfig, B: int, rng: np.random.Generator) -> Dict[str, torch.Tensor]:
+    """A train batch of B samples on the CPU: random clip and word features,
+    ragged video and query lengths, a random ground-truth span per sample
+    turned into targets by the label generators of data/labels.py (packed
+    IoU map, boundary curves, snippet labels; binary labels at 0.5), and the
+    last sample padded (``sample_mask`` 0)."""
+    T, L, Nq = cfg.T, cfg.L, cfg.max_query_length
+    nfeats = rng.integers(T // 4, T + 1, size=B)
+    nfeats[0] = T
+    qlen = rng.integers(1, Nq + 1, size=B)
+    cols = {k: [] for k in ("video_mask", "length_mask", "sm", "ss", "se", "ya")}
+    for b in range(B):
+        vm, lm, _ = labels.build_masks(int(nfeats[b]), T, L)
+        duration = float(rng.uniform(5.0, 60.0))
+        s = float(rng.uniform(0.0, 0.6 * duration))
+        e = float(rng.uniform(s + 0.1 * duration, duration))
+        ss, se = labels.boundary_penalties(s, e, duration, L)
+        for k, v in (("video_mask", vm), ("length_mask", lm), ("ss", ss), ("se", se),
+                     ("sm", labels.pack_triu(labels.iou_target_map(s, e, duration, L))),
+                     ("ya", labels.snippet_labels(s, e, duration, L))):
+            cols[k].append(v)
+    batch = {k: np.stack(v) for k, v in cols.items()}
+    for score, label in (("sm", "ym"), ("ss", "ys"), ("se", "ye")):
+        batch[label] = (batch[score] > 0.5).astype(np.float32)
+    qmask = (np.arange(Nq)[None, :] < qlen[:, None]).astype(np.float32)[..., None]
+    batch["query_mask"] = qmask
+    batch["video_features"] = (rng.standard_normal((B, T, cfg.input_video_dim))
+                               .astype(np.float32) * batch["video_mask"])
+    batch["query_features"] = rng.standard_normal((B, Nq, cfg.word_dim)).astype(np.float32) * qmask
+    batch["sample_mask"] = np.ones(B, np.float32)
+    batch["sample_mask"][-1] = 0.0
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--batch", type=int, nargs="+", default=[64])
+    parser.add_argument("--iters", type=int, default=5)
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_train: no CUDA device visible", file=sys.stderr)
+        return 1
+    config = load_config(os.path.join(REPO, "config", "charadessta.yml"))
+    rng = np.random.default_rng(args.seed)
+    for B in args.batch:
+        torch.manual_seed(args.seed)
+        model = SMIN(config.model)
+        step = make_train_step(config.model, model, build_optimizer(config, model))
+        batch = {k: v.cuda() for k, v in synthetic_batch(config.model, B, rng).items()}
+        for _ in range(2):
+            step(batch)
+        torch.cuda.synchronize()
+        profile_and_report(lambda: step(batch), f"B={B}", "train step", args.iters, top=24)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
