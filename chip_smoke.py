@@ -34,10 +34,31 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
    plain versions, the launch counters of K1 / K2 / K3 rise by 3 + 3, 9 and
    9, and the 3 losses equal those of the same steps taken with the plain
    versions on the card from the same initial weights; then one
-   ``make_eval_step`` (K5 and K4) on the batch;
+   ``make_eval_step`` (K5 and K4) on the batch, its scores and loss held to
+   the plain versions';
 7. training times at B=64: each new kernel, its plain version, its bound,
    the one PyTorch call for K1 (a matmul with the dense averaging matrix),
-   and the whole train step in ms and samples/s.
+   and the whole train step in ms and samples/s;
+8. kernel parity at the full ActivityNet-Captions width
+   (config/activitynet.yml: T=128, L=64, C=4, D=512, dl=128, Nq=20), at the
+   main path's B=64 (532,480 clip rows) and at B=8 and B=2, ragged masks with
+   one video cut to L/2 and one query of one word: K6 (packed proposal)
+   forward and backward, K7 (content unit + folded conv_fc) forward (cu,
+   convfc) and backward (dfc, dfbar, dfw, dfs and the 14 weight gradients,
+   with and without a dcu cotangent) against their plain versions; K5 and K4
+   against theirs at that width at B=64 and B=8;
+9. the ActivityNet training path: every parameter's gradient of one step at
+   B=8 equal to that of the plain versions (the batch they can hold), then
+   ``make_train_step`` at B=64, full width and depth, 3 Adam steps: every
+   loss finite and falling, the launch counters of K6 / K7 rising by 3 + 3
+   and 9 + 9 and those of K1 / K2 / K3 not at all, the peak device memory;
+   then one ``make_eval_step`` (K5 at Nq=20, K4 at L=64) on that batch, its
+   scores and loss held to the plain versions';
+10. ActivityNet times at B=64: K6 and K7 forward and backward (per layer),
+    their plain versions, bounds, for K6 the one matmul with the dense
+    averaging matrix; K5 and K4 at that width with their plain versions,
+    bounds and for K5 the cuDNN LSTM; the whole step in ms and samples/s,
+    and its device busy share under ``torch.profiler``.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
@@ -69,7 +90,12 @@ K1_FWD_REPLACES = "video_moment_localization_tpu/ops/proposal_pallas.py:342"
 K1_BWD_REPLACES = "video_moment_localization_tpu/ops/proposal_pallas.py:398"
 K2_REPLACES = "video_moment_localization_tpu/ops/smin_train_pallas.py:508"
 K3_REPLACES = "video_moment_localization_tpu/ops/smin_train_pallas.py:637"
-SOURCES = ("lstm", "smin_stack", "proposal_rows", "smin_train")
+CONTENT_SRC = "video_moment_localization_tpu_torch/csrc/content_train.cu"
+K6_FWD_REPLACES = "video_moment_localization_tpu/ops/proposal_pallas.py:173"
+K6_BWD_REPLACES = "video_moment_localization_tpu/ops/proposal_pallas.py:488"
+K7_FWD_REPLACES = "video_moment_localization_tpu/ops/content_train_pallas.py:361"
+K7_BWD_REPLACES = "video_moment_localization_tpu/ops/content_train_pallas.py:402"
+SOURCES = ("lstm", "smin_stack", "proposal_rows", "smin_train", "content_train")
 K5_TOL = dict(rtol=1e-4, atol=2e-5)
 K4_TOL = dict(rtol=2e-4, atol=2e-5)
 SCORE_TOL = 1e-4
@@ -87,6 +113,14 @@ GRAD_RTOL, GRAD_ATOL_REL = 5e-4, 5e-5
 TRAIN_LOSS_RTOL = 2e-4
 TRAIN_BATCH = 64
 TRAIN_STEPS = 3
+# ActivityNet: kernel parity at the main path's batch (a K7 weight gradient
+# sums B*N*C = 532,480 rows there) and at two small ones, all held to the same
+# form of tolerance as K3's; the whole step's gradients at the batch where the
+# plain step's autograd graph over three layers fits beside the kernels' step.
+ANET_PARITY_BATCHES = (TRAIN_BATCH, 8, 2)
+ANET_STEP_PARITY_BATCH = 8
+# An eval step's loss against the plain versions' on the same batch.
+EVAL_LOSS_RTOL = 1e-4
 QUERIES = ["person opens the door", "a person sits on the couch",
            "someone takes a xylophone from the shelf", "the person closes a laptop",
            "person pours water into a cup", "a person laughs",
@@ -141,7 +175,9 @@ def lstm_inputs(cfg, B, rng, device):
     return x, mask.float().to(device), lengths
 
 
-def stack_inputs(cfg, B, rng, device):
+def stack_inputs(cfg, B, rng, device, pin=False):
+    """(f, fw, fs, qmask, lmask, vmask) with random lengths; ``pin`` cuts the
+    second video to L/2 snippets and the second query to one word."""
     import torch
 
     from video_moment_localization_tpu_torch.ops.packing import packed_valid_mask
@@ -154,9 +190,11 @@ def stack_inputs(cfg, B, rng, device):
     fw = t(rng.standard_normal((B, Nq, cfg.D)))
     fs = t(rng.standard_normal((B, cfg.D)))
     qlen = rng.integers(1, Nq + 1, size=B)
-    qmask = (torch.arange(Nq)[None, :] < torch.from_numpy(qlen)[:, None]).float()[..., None]
     nlen = rng.integers(1, cfg.L + 1, size=B)
     nlen[0] = cfg.L
+    if pin:
+        qlen[1], nlen[1] = 1, cfg.L // 2
+    qmask = (torch.arange(Nq)[None, :] < torch.from_numpy(qlen)[:, None]).float()[..., None]
     lmask = (torch.arange(cfg.L)[None, :] < torch.from_numpy(nlen)[:, None]).float()
     qmask, lmask = qmask.to(device), lmask.to(device)
     return f, fw, fs, qmask, lmask, packed_valid_mask(lmask).contiguous()
@@ -306,50 +344,67 @@ def phase_serving(cfg, seed, rng, tmp):
     return gpu, launches
 
 
-def phase_times(cfg, gpu, rng):
+def cudnn_lstm(cfg, model, device):
+    """(x, lengths) -> (B, Nq, D): torch.nn.LSTM with the model's weights on
+    packed sequences, the one PyTorch call that computes K5's function."""
     import torch
     from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
+    ref = torch.nn.LSTM(cfg.word_dim, cfg.lstm_hidden_size, num_layers=2, bidirectional=True,
+                        batch_first=True)
+    ref.load_state_dict(model.backbone.queryencoder.lstm.state_dict())
+    ref = ref.to(device)
+
+    def run(x, lengths):
+        packed = pack_padded_sequence(x, torch.from_numpy(lengths), batch_first=True,
+                                      enforce_sorted=False)
+        return pad_packed_sequence(ref(packed)[0], batch_first=True,
+                                   total_length=cfg.max_query_length)[0]
+
+    return run
+
+
+def serving_kernel_times(cfg, model, B, rng, device, library_lstm, iters=15):
+    """K5 and K4 at batch B: kernel, plain version, bound and, for K5, the
+    cuDNN LSTM. Returns ({"K5": ..., "K4": ...}, the query mask used)."""
     from video_moment_localization_tpu_torch.models.lstm import lstm_layers
     from video_moment_localization_tpu_torch.ops import lstm_cuda, smin_cuda
 
-    model = gpu.model
-    device = gpu.device
     layers = lstm_layers(model.backbone.queryencoder.lstm)
-    ref_lstm = torch.nn.LSTM(cfg.word_dim, cfg.lstm_hidden_size, num_layers=2,
-                             bidirectional=True, batch_first=True)
-    ref_lstm.load_state_dict(model.backbone.queryencoder.lstm.state_dict())
-    ref_lstm = ref_lstm.to(device)
-    stack_w = param_bytes(model.smis) + param_bytes(model.localization)
-    lstm_w = param_bytes(model.backbone.queryencoder.lstm)
     Nq = cfg.max_query_length
     N = cfg.L * (cfg.L + 1) // 2
+    x, mask, lengths = lstm_inputs(cfg, B, rng, device)
+    nbytes = (4 * (x.numel() + mask.numel() + B * Nq * cfg.D)
+              + param_bytes(model.backbone.queryencoder.lstm))
+    b_ms, b_by = bound(B * lstm_flops(cfg), nbytes)
+    res = {"K5": dict(
+        ms=cuda_ms(lambda: lstm_cuda.bilstm_fused(x, mask, layers), iters=iters),
+        plain_ms=cuda_ms(lambda: lstm_cuda.bilstm_plain(x, mask, layers), iters=iters),
+        library_ms=cuda_ms(lambda: library_lstm(x, lengths), iters=iters),
+        bound_ms=b_ms, bound_by=b_by)}
+    ins = stack_inputs(cfg, B, rng, device)
+    nbytes = (4 * sum(t.numel() for t in ins) + param_bytes(model.smis)
+              + param_bytes(model.localization) + 4 * B * (N + 3 * cfg.L))
+    b_ms, b_by = bound(B * stack_flops(cfg, Nq), nbytes)
+    res["K4"] = dict(
+        ms=cuda_ms(lambda: smin_cuda.smin_stack_fused(model, cfg, *ins), iters=iters),
+        plain_ms=cuda_ms(lambda: smin_cuda.smin_stack_plain(model, cfg, *ins), iters=iters),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    return res, mask
+
+
+def phase_times(cfg, gpu, rng):
+    import torch
+
+    model = gpu.model
+    device = gpu.device
+    library_lstm = cudnn_lstm(cfg, model, device)
+    Nq = cfg.max_query_length
     res = {}
     for B in (16, 512):
-        x, mask, lengths = lstm_inputs(cfg, B, rng, device)
-
-        def library_lstm():
-            packed = pack_padded_sequence(x, torch.from_numpy(lengths), batch_first=True,
-                                          enforce_sorted=False)
-            return pad_packed_sequence(ref_lstm(packed)[0], batch_first=True,
-                                       total_length=Nq)[0]
-
-        nbytes = 4 * (x.numel() + mask.numel() + B * Nq * cfg.D) + lstm_w
-        b_ms, b_by = bound(B * lstm_flops(cfg), nbytes)
-        res[("K5", B)] = dict(
-            ms=cuda_ms(lambda: lstm_cuda.bilstm_fused(x, mask, layers)),
-            plain_ms=cuda_ms(lambda: lstm_cuda.bilstm_plain(x, mask, layers)),
-            library_ms=cuda_ms(library_lstm), bound_ms=b_ms, bound_by=b_by)
-
-        ins = stack_inputs(cfg, B, rng, device)
-        nbytes = 4 * sum(t.numel() for t in ins) + stack_w + 4 * B * (N + 3 * cfg.L)
-        b_ms, b_by = bound(B * stack_flops(cfg, Nq), nbytes)
-        res[("K4", B)] = dict(
-            ms=cuda_ms(lambda: smin_cuda.smin_stack_fused(model, cfg, *ins)),
-            plain_ms=cuda_ms(lambda: smin_cuda.smin_stack_plain(model, cfg, *ins)),
-            library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        at_b, mask = serving_kernel_times(cfg, model, B, rng, device, library_lstm)
         for k in ("K5", "K4"):
-            r = res[(k, B)]
+            r = res[(k, B)] = at_b[k]
             print(f"time {k} B={B}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']})")
@@ -393,11 +448,11 @@ def layer_flops(cfg, Nq):
                 + L * (D * D + Nq * D * 2 + L * D * 2) + N * L * D * 3)
 
 
-def layer_inputs(cfg, B, rng, device):
+def layer_inputs(cfg, B, rng, device, pin=False):
     """(fc, fm, fb, fw, fs, qmask, lmask, vmask) of one SMI layer."""
     from video_moment_localization_tpu_torch.ops.proposal import proposal_features_packed
 
-    f, fw, fs, qmask, lmask, vmask = stack_inputs(cfg, B, rng, device)
+    f, fw, fs, qmask, lmask, vmask = stack_inputs(cfg, B, rng, device, pin)
     fc, fm, fb = proposal_features_packed(f, lmask, cfg.L, cfg.C)
     return [t.contiguous() for t in (fc, fm, fb, fw * qmask, fs, qmask, lmask, vmask)]
 
@@ -419,6 +474,21 @@ def grad_err(got, want, scale, name):
         fail(f"{name}: kernel disagrees with its plain version: max abs err {err:.3e}, "
              f"magnitude {scale:.3e} (rtol {GRAD_RTOL}, atol {GRAD_ATOL_REL} of the magnitude)")
     return err
+
+
+def gradient_set_err(got, want, names, label):
+    """Activation gradients held to their own magnitude, weight gradients to
+    the largest of the set. Returns (max abs err, max err of its magnitude)."""
+    worst = rel = 0.0
+    for g, w, name in zip(got[:len(names)], want[:len(names)], names):
+        scale = float(w.abs().max())
+        e = grad_err(g, w, scale, f"{label} {name}")
+        worst, rel = max(worst, e), max(rel, e / scale)
+    scale = max(float(w.abs().max()) for w in want[-1])
+    for k, (g, w) in enumerate(zip(got[-1], want[-1])):
+        e = grad_err(g, w, scale, f"{label} weight gradient {k}")
+        worst, rel = max(worst, e), max(rel, e / scale)
+    return worst, rel
 
 
 def phase_train_parity(cfg, model, rng, device):
@@ -460,15 +530,8 @@ def phase_train_parity(cfg, model, rng, device):
             got = smin_train_cuda.smi_layer_backward(weights, *ins, cfg.L, cot, dmu, dbu)
             want = smin_train_cuda.smi_layer_backward_plain(weights, *ins, cfg.L, cot, dmu, dbu)
             torch.cuda.synchronize()
-            worst = rel = 0.0
-            for g, w, name in zip(got[:5], want[:5], ("dfc", "dfm", "dfb", "dfw", "dfs")):
-                scale = float(w.abs().max())
-                e = grad_err(g, w, scale, f"K3 {name} B={B}")
-                worst, rel = max(worst, e), max(rel, e / scale)
-            scale = max(float(w.abs().max()) for w in want[5])
-            for k, (g, w) in enumerate(zip(got[5], want[5])):
-                e = grad_err(g, w, scale, f"K3 weight gradient {k} B={B}")
-                worst, rel = max(worst, e), max(rel, e / scale)
+            worst, rel = gradient_set_err(got, want, ("dfc", "dfm", "dfb", "dfw", "dfs"),
+                                          f"K3 B={B}")
             print(f"parity K3 smi_layer_backward B={B} dcu={'yes' if cot is not None else 'none'}: "
                   f"25 gradients, max abs err {worst:.3e}, {rel:.3e} of the magnitude "
                   f"(rtol {GRAD_RTOL}, atol {GRAD_ATOL_REL} of the magnitude)")
@@ -505,6 +568,45 @@ def plain_train_step(cfg, model, optimizer, batch):
     return loss.detach()
 
 
+def check_eval_step(cfg, model, batch, device, label):
+    """One eval step on the batch: K5 and K4 launch once each, the scores
+    (pm, ps, pe, pa) of its forward equal those of the plain biLSTM and the
+    plain SMI stack on the same batch, and so does its loss."""
+    import torch
+
+    from video_moment_localization_tpu_torch.models import smin
+    from video_moment_localization_tpu_torch.ops import lstm_cuda, smin_cuda
+    from video_moment_localization_tpu_torch.ops.packing import packed_valid_mask
+    from video_moment_localization_tpu_torch.parallel.steps import make_eval_step
+    from video_moment_localization_tpu_torch.train.loss import smin_loss
+
+    k5, k4 = lstm_cuda.bilstm_fused.launches, smin_cuda.smin_stack_fused.launches
+    ev = make_eval_step(cfg, model, device=device)(batch)
+    torch.cuda.synchronize()
+    if (lstm_cuda.bilstm_fused.launches, smin_cuda.smin_stack_fused.launches) != (k5 + 1, k4 + 1):
+        fail(f"{label}: the eval step did not launch K5 and K4 once each")
+    with torch.no_grad():
+        args = [batch[k] for k in ("video_features", "video_mask", "query_features",
+                                   "query_mask")]
+        lmask = batch["length_mask"].float()
+        got = smin.smin_forward_inference(model, cfg, *args, lmask)
+        f, fs, fw = smin.backbone(model.backbone, cfg, *args, fused_lstm=False)
+        want = smin_cuda.smin_stack_plain(model, cfg, f, fw, fs, batch["query_mask"], lmask,
+                                          packed_valid_mask(lmask))
+        plain_loss = float(smin_loss(want, batch)[0])
+    torch.cuda.synchronize()
+    B = lmask.shape[0]
+    err = max_err(got, want, K4_TOL, f"{label}: eval forward (K5, K4) at B={B}")
+    ev_loss = float(ev["loss"])
+    if not abs(ev_loss - plain_loss) <= EVAL_LOSS_RTOL * abs(plain_loss):
+        fail(f"{label}: eval loss {ev_loss} against the plain versions' {plain_loss} "
+             f"(rtol {EVAL_LOSS_RTOL})")
+    print(f"{label}: eval step at B={B}, scores equal to the plain versions' within {err:.3e} "
+          f"(tolerance {K4_TOL}), loss {ev_loss:.6f} against {plain_loss:.6f} (rtol "
+          f"{EVAL_LOSS_RTOL}), counts {ev['counts'].flatten().tolist()}")
+    return err
+
+
 def phase_train(config, seed, rng, device):
     """3 Adam steps through the kernels at B=64, held to the same steps
     through the plain versions; then one eval step. Returns the step
@@ -512,17 +614,8 @@ def phase_train(config, seed, rng, device):
     import torch
 
     from video_moment_localization_tpu_torch.models.smin import SMIN
-    from video_moment_localization_tpu_torch.ops import (
-        lstm_cuda,
-        proposal_cuda,
-        smin_cuda,
-        smin_train_cuda,
-    )
-    from video_moment_localization_tpu_torch.parallel.steps import (
-        build_optimizer,
-        make_eval_step,
-        make_train_step,
-    )
+    from video_moment_localization_tpu_torch.ops import proposal_cuda, smin_train_cuda
+    from video_moment_localization_tpu_torch.parallel.steps import build_optimizer, make_train_step
     from video_moment_localization_tpu_torch.utils.profile_train import synthetic_batch
 
     cfg = config.model
@@ -580,15 +673,7 @@ def phase_train(config, seed, rng, device):
     if not losses[-1] < losses[0]:
         fail(f"3 steps on one batch did not lower the loss: {losses}")
 
-    k5, k4 = lstm_cuda.bilstm_fused.launches, smin_cuda.smin_stack_fused.launches
-    ev = make_eval_step(cfg, model, device=device)(batch)
-    torch.cuda.synchronize()
-    if (lstm_cuda.bilstm_fused.launches, smin_cuda.smin_stack_fused.launches) != (k5 + 1, k4 + 1):
-        fail("the eval step did not launch K5 and K4 once each")
-    ev_loss = float(ev["loss"])
-    if not abs(ev_loss - losses[-1]) < abs(losses[-1]):
-        fail(f"eval loss {ev_loss} after training against train loss {losses[-1]}")
-    print(f"training: eval step loss {ev_loss:.6f}, counts {ev['counts'].flatten().tolist()}")
+    check_eval_step(cfg, model, batch, device, "training")
     return step, batch, launches
 
 
@@ -609,13 +694,23 @@ def dense_content_matrix(cfg, device):
     return torch.from_numpy(wc.reshape(p.N * cfg.C, cfg.T)).to(device)
 
 
-def phase_train_times(cfg, model, step, batch, rng, device):
+def segment_adds(cfg):
+    """Additions per element and forward of the proposal pooling: the frames
+    of every clip, the clip means into fm, the window means."""
     import numpy as np
+
+    from video_moment_localization_tpu_torch.ops.content_matrix import content_segments
+
+    N = cfg.L * (cfg.L + 1) // 2
+    sizes = content_segments(cfg.T, cfg.L, cfg.C).sizes[np.triu_indices(cfg.L)]
+    return int(sizes.sum()) * cfg.D + N * cfg.C * cfg.D + cfg.T * cfg.D
+
+
+def phase_train_times(cfg, model, step, batch, rng, device):
     import torch
 
     from video_moment_localization_tpu_torch.models.smin import block_weights
     from video_moment_localization_tpu_torch.ops import proposal_cuda, smin_train_cuda
-    from video_moment_localization_tpu_torch.ops.content_matrix import content_segments
 
     B, L, C, D, T, Nq = TRAIN_BATCH, cfg.L, cfg.C, cfg.D, cfg.T, cfg.max_query_length
     N = L * (L + 1) // 2
@@ -628,7 +723,7 @@ def phase_train_times(cfg, model, step, batch, rng, device):
     wc = dense_content_matrix(cfg, device)
     carry_bytes = 4 * B * (NC + N + L) * D
     k1_bytes = 4 * (f.numel() + B * N) + carry_bytes
-    seg_adds = int(content_segments(T, L, C).sizes[np.triu_indices(L)].sum()) * D + NC * D + T * D
+    seg_adds = segment_adds(cfg)
     b_ms, b_by = bound(B * seg_adds, k1_bytes)
     res["K1f"] = dict(
         ms=cuda_ms(lambda: proposal_cuda.proposal_rows_forward(f, lmask, L, C)),
@@ -687,6 +782,292 @@ def phase_train_times(cfg, model, step, batch, rng, device):
     return res
 
 
+# ------------------------------------------------------------------------- #
+# ActivityNet slice: the content-unit train path (K6, K7)
+# ------------------------------------------------------------------------- #
+def content_flops(cfg, Nq):
+    """ops/content_train_pallas.py:337-341 of the JAX package, per element:
+    the content unit over N * C rows and the folded conv_fc."""
+    L, C, D, dl = cfg.L, cfg.C, cfg.D, cfg.dl
+    N = L * (L + 1) // 2
+    return (2 * N * C * (2 * D * dl + dl * dl + 2 * Nq * dl + 2 * C * dl + dl * D)
+            + 2 * N * D * D)
+
+
+def content_inputs(cfg, B, rng, device, pin=False):
+    """(fc, fbar, fw, fs, qmask, vmask) of K7 and the length mask."""
+    from video_moment_localization_tpu_torch.models.smin import moment_gate
+
+    fc, fm, _, fw, fs, qmask, lmask, vmask = layer_inputs(cfg, B, rng, device, pin)
+    return [fc, moment_gate(fm, fs).contiguous(), fw, fs, qmask, vmask], lmask
+
+
+def phase_anet_parity(cfg, model, rng, device):
+    """K6 and K7 forward and backward against their plain versions at the
+    ActivityNet width, at the main path's B=64 and at B=8 and B=2, with
+    pinned ragged cases; K5 and K4 at that width at B=64 and B=8. Returns the
+    largest max abs error of each over the sizes."""
+    import torch
+
+    from video_moment_localization_tpu_torch.models.lstm import lstm_layers
+    from video_moment_localization_tpu_torch.ops import (
+        content_train_cuda,
+        lstm_cuda,
+        proposal_cuda,
+        smin_cuda,
+    )
+
+    errs = {"K6f": 0.0, "K6b": 0.0, "K7f": 0.0, "K7b": 0.0, "K7b_rel": 0.0}
+    weights = [w.detach() for w in content_train_cuda.content_weights(model.smis[1])]
+    for B in ANET_PARITY_BATCHES:
+        f, _, _, _, lmask, _ = stack_inputs(cfg, B, rng, device, pin=True)
+        got = proposal_cuda.proposal_packed_forward(f, lmask, cfg.L, cfg.C)
+        want = proposal_cuda.proposal_features_packed(f, lmask, cfg.L, cfg.C)
+        torch.cuda.synchronize()
+        e1 = max_err(got, want, K1_TOL, f"K6 proposal_packed_forward B={B}")
+        cots = [randn_like(t, rng) for t in want]
+        dgot = proposal_cuda.proposal_packed_backward(lmask, cfg.T, cfg.L, cfg.C, *cots)
+        dwant = proposal_cuda.proposal_rows_backward_plain(lmask, cfg.T, cfg.L, cfg.C, *cots)
+        torch.cuda.synchronize()
+        # A frame gathers up to 1,024 pairs here: its sum is held like the
+        # other gradients, relative to the gradient's magnitude.
+        e2 = grad_err(dgot, dwant, float(dwant.abs().max()), f"K6 proposal_packed_backward B={B}")
+        print(f"parity K6 packed proposal B={B}: forward max abs err {e1:.3e} (tolerance "
+              f"{K1_TOL}), backward {e2:.3e} of magnitude {float(dwant.abs().max()):.3e} "
+              f"(rtol {GRAD_RTOL}, atol {GRAD_ATOL_REL} of the magnitude)")
+        errs["K6f"], errs["K6b"] = max(errs["K6f"], e1), max(errs["K6b"], e2)
+        del got, want, cots, dgot, dwant
+
+        ins, _ = content_inputs(cfg, B, rng, device, pin=True)
+        got = content_train_cuda.content_rows_forward(weights, *ins)
+        want = content_train_cuda.content_rows_plain(weights, *ins)
+        torch.cuda.synchronize()
+        e = max_err(got, want, K4_TOL, f"K7 content_rows_forward B={B}")
+        print(f"parity K7 content_rows_forward B={B}: cu and convfc, max abs err {e:.3e} "
+              f"(tolerance {K4_TOL})")
+        errs["K7f"] = max(errs["K7f"], e)
+        dcu, dconv = [randn_like(t, rng) for t in want]
+        del got, want
+        for cot in (dcu, None):
+            got = content_train_cuda.content_rows_backward(weights, *ins, cot, dconv)
+            want = content_train_cuda.content_rows_backward_plain(weights, *ins, cot, dconv)
+            torch.cuda.synchronize()
+            worst, rel = gradient_set_err(got, want, ("dfc", "dfbar", "dfw", "dfs"),
+                                          f"K7 B={B}")
+            print(f"parity K7 content_rows_backward B={B} dcu={'yes' if cot is not None else 'none'}"
+                  f": 18 gradients, max abs err {worst:.3e}, {rel:.3e} of the magnitude "
+                  f"(rtol {GRAD_RTOL}, atol {GRAD_ATOL_REL} of the magnitude)")
+            errs["K7b"], errs["K7b_rel"] = max(errs["K7b"], worst), max(errs["K7b_rel"], rel)
+            del got, want
+        del ins, dcu, dconv
+        torch.cuda.empty_cache()
+
+    layers = lstm_layers(model.backbone.queryencoder.lstm)
+    errs["K5"] = errs["K4"] = 0.0
+    for B in ANET_PARITY_BATCHES[:2]:
+        x, mask, _ = lstm_inputs(cfg, B, rng, device)
+        e5 = max_err([lstm_cuda.bilstm_fused(x, mask, layers)],
+                     [lstm_cuda.bilstm_plain(x, mask, layers)], K5_TOL, f"K5 at Nq=20 B={B}")
+        ins = stack_inputs(cfg, B, rng, device, pin=True)
+        e4 = max_err(smin_cuda.smin_stack_fused(model, cfg, *ins),
+                     smin_cuda.smin_stack_plain(model, cfg, *ins), K4_TOL, f"K4 at L=64 B={B}")
+        torch.cuda.synchronize()
+        print(f"parity at the ActivityNet width B={B}: K5 (Nq=20) max abs err {e5:.3e} "
+              f"(tolerance {K5_TOL}), K4 (L=64) {e4:.3e} (tolerance {K4_TOL})")
+        errs["K5"], errs["K4"] = max(errs["K5"], e5), max(errs["K4"], e4)
+        del x, mask, ins
+        torch.cuda.empty_cache()
+    return errs
+
+
+def anet_counters():
+    from video_moment_localization_tpu_torch.ops import (
+        content_train_cuda,
+        proposal_cuda,
+        smin_train_cuda,
+    )
+
+    return {"K6f": proposal_cuda.proposal_packed_forward,
+            "K6b": proposal_cuda.proposal_packed_backward,
+            "K7f": content_train_cuda.content_rows_forward,
+            "K7b": content_train_cuda.content_rows_backward,
+            "K1f": proposal_cuda.proposal_rows_forward,
+            "K1b": proposal_cuda.proposal_rows_backward,
+            "K2": smin_train_cuda.smi_layer_forward,
+            "K3": smin_train_cuda.smi_layer_backward}
+
+
+def phase_anet_train(config, seed, rng, device):
+    """Step-1 gradients at B=8 against the plain versions, then 3 Adam steps
+    at B=64 through K6 and K7 and one eval step held to the plain versions.
+    Returns the step function, the B=64 batch, the launch counts of the 3
+    steps, the peak memory and the eval forward's max abs error."""
+    import torch
+
+    from video_moment_localization_tpu_torch.models.smin import SMIN
+    from video_moment_localization_tpu_torch.parallel.steps import build_optimizer, make_train_step
+    from video_moment_localization_tpu_torch.utils.profile_train import synthetic_batch
+
+    cfg = config.model
+    torch.manual_seed(seed + 2)
+    model = SMIN(cfg)
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+
+    # One step at the batch the plain versions can hold: every gradient.
+    B = ANET_STEP_PARITY_BATCH
+    small = {k: v.to(device) for k, v in synthetic_batch(cfg, B, rng).items()}
+    plain_model = SMIN(cfg).to(device)
+    plain_model.load_state_dict(initial)
+    loss = float(make_train_step(cfg, model, build_optimizer(config, model),
+                                 device=device)(small)["loss"])
+    plain_loss = float(plain_train_step(cfg, plain_model, build_optimizer(config, plain_model),
+                                        small))
+    torch.cuda.synchronize()
+    plain_grads = {n: p.grad for n, p in plain_model.named_parameters()}
+    scale = max(float(g.abs().max()) for g in plain_grads.values())
+    worst = 0.0
+    for name, p in model.named_parameters():
+        if p.grad is None:
+            fail(f"ActivityNet step at B={B}: parameter {name} has no gradient")
+        worst = max(worst, grad_err(p.grad, plain_grads[name], scale,
+                                    f"ActivityNet step at B={B}, gradient of {name}") / scale)
+    if abs(loss - plain_loss) > 1e-5 * abs(plain_loss):
+        fail(f"ActivityNet step at B={B}: loss {loss} against the plain versions' {plain_loss}")
+    print(f"ActivityNet training: B={B} step, loss {loss:.6f} (plain versions {plain_loss:.6f}), "
+          f"{len(plain_grads)} parameter gradients finite and equal to the plain versions' "
+          f"within {worst:.3e} of the largest magnitude {scale:.3e}")
+    del plain_model, plain_grads, small
+    torch.cuda.empty_cache()
+
+    # The main path: B=64 from the same initial weights, a fresh optimizer.
+    model.load_state_dict(initial)
+    model.zero_grad(set_to_none=True)
+    step = make_train_step(cfg, model, build_optimizer(config, model), device=device)
+    batch = {k: v.to(device) for k, v in synthetic_batch(cfg, TRAIN_BATCH, rng).items()}
+    counters = anet_counters()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    losses = []
+    for k in range(TRAIN_STEPS):
+        losses.append(float(step(batch)["loss"]))
+        torch.cuda.synchronize()
+        if not (losses[-1] == losses[-1] and abs(losses[-1]) < float("inf")):
+            fail(f"ActivityNet train step {k + 1}: loss {losses[-1]}")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_layers = cfg.num_smi_layers
+    want = {"K6f": TRAIN_STEPS, "K6b": TRAIN_STEPS, "K7f": TRAIN_STEPS * n_layers,
+            "K7b": TRAIN_STEPS * n_layers, "K1f": 0, "K1b": 0, "K2": 0, "K3": 0}
+    print(f"ActivityNet training: {TRAIN_STEPS} steps at B={TRAIN_BATCH}, losses {losses}, "
+          f"launches {launches}, peak device memory {peak:.3f} GiB")
+    if launches != want:
+        fail(f"kernel launches of {TRAIN_STEPS} ActivityNet train steps: {launches}, "
+             f"expected {want}")
+    for name, p in model.named_parameters():
+        if not torch.isfinite(p).all():
+            fail(f"ActivityNet training: parameter {name} is not finite after the steps")
+    if not losses[-1] < losses[0]:
+        fail(f"3 ActivityNet steps on one batch did not lower the loss: {losses}")
+
+    eval_err = check_eval_step(cfg, model, batch, device, "ActivityNet training")
+    torch.cuda.empty_cache()
+    return step, batch, {k: launches[k] for k in ("K6f", "K6b", "K7f", "K7b")}, peak, eval_err
+
+
+def phase_anet_times(cfg, model, step, batch, rng, device):
+    import torch
+
+    from video_moment_localization_tpu_torch.ops import content_train_cuda, proposal_cuda
+    from video_moment_localization_tpu_torch.utils.profile_serving import profile_and_report
+
+    B, L, C, D, T, Nq = TRAIN_BATCH, cfg.L, cfg.C, cfg.D, cfg.T, cfg.max_query_length
+    N = L * (L + 1) // 2
+    NC = N * C
+    res = {}
+
+    # The eval step's kernels at this width (L=64, Nq=20).
+    serving, _ = serving_kernel_times(cfg, model, B, rng, device,
+                                      cudnn_lstm(cfg, model, device), iters=5)
+    for k in ("K5", "K4"):
+        r = res[k] = serving[k]
+        print(f"time {k} ActivityNet B={B}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms, library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
+    torch.cuda.empty_cache()
+
+    f, _, _, _, lmask, _ = stack_inputs(cfg, B, rng, device)
+    cots = [randn_like(t, rng) for t in proposal_cuda.proposal_features_packed(f, lmask, L, C)]
+    wc = dense_content_matrix(cfg, device)
+    carry_bytes = 4 * B * (NC + N + L) * D
+    k6_bytes = 4 * (f.numel() + B * N) + carry_bytes
+    seg_adds = segment_adds(cfg)
+    b_ms, b_by = bound(B * seg_adds, k6_bytes)
+    res["K6f"] = dict(
+        ms=cuda_ms(lambda: proposal_cuda.proposal_packed_forward(f, lmask, L, C), iters=9),
+        plain_ms=cuda_ms(lambda: proposal_cuda.proposal_features_packed(f, lmask, L, C), iters=5),
+        library_ms=cuda_ms(lambda: torch.matmul(wc, f), iters=9), bound_ms=b_ms, bound_by=b_by)
+    b_ms, b_by = bound(2 * B * seg_adds, k6_bytes)
+    wct = wc.t().contiguous()
+    g = cots[0].reshape(B, NC, D)
+    res["K6b"] = dict(
+        ms=cuda_ms(lambda: proposal_cuda.proposal_packed_backward(lmask, T, L, C, *cots), iters=9),
+        plain_ms=cuda_ms(lambda: proposal_cuda.proposal_rows_backward_plain(lmask, T, L, C,
+                                                                            *cots), iters=5),
+        library_ms=cuda_ms(lambda: torch.matmul(wct, g), iters=9), bound_ms=b_ms, bound_by=b_by)
+    del f, cots, g, wc, wct
+
+    weights = [w.detach() for w in content_train_cuda.content_weights(model.smis[1])]
+    w_bytes = sum(w.numel() * 4 for w in weights)
+    ins, _ = content_inputs(cfg, B, rng, device)
+    rows_bytes = 4 * B * (NC + N) * D                  # fc and fbar, or cu and convfc
+    shared_bytes = 4 * sum(t.numel() for t in ins[2:])
+    flops = B * content_flops(cfg, Nq)
+    workspace = content_train_cuda.Workspace()
+    b_ms, b_by = bound(flops, 2 * rows_bytes + shared_bytes + w_bytes)
+    res["K7f"] = dict(
+        ms=cuda_ms(lambda: content_train_cuda.content_rows_forward(weights, *ins, workspace),
+                   iters=9),
+        plain_ms=cuda_ms(lambda: content_train_cuda.content_rows_plain(weights, *ins),
+                         warmup=1, iters=3),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    dcu, dconv = randn_like(ins[0], rng), randn_like(ins[1], rng)
+    # In: the inputs, their cotangents, the weights; out: the gradients of
+    # fc, fbar, fw, fs and of the weights.
+    b_ms, b_by = bound(3 * flops, 4 * rows_bytes + 2 * shared_bytes + 2 * w_bytes)
+    res["K7b"] = dict(
+        ms=cuda_ms(lambda: content_train_cuda.content_rows_backward(weights, *ins, dcu, dconv,
+                                                                    workspace), iters=7),
+        plain_ms=cuda_ms(lambda: content_train_cuda.content_rows_backward_plain(
+            weights, *ins, dcu, dconv), warmup=1, iters=3),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    res["K7b_no_dcu_ms"] = cuda_ms(
+        lambda: content_train_cuda.content_rows_backward(weights, *ins, None, dconv, workspace),
+        iters=7)
+    del ins, dcu, dconv, workspace
+    torch.cuda.empty_cache()
+    for k in ("K6f", "K6b", "K7f", "K7b"):
+        r = res[k]
+        print(f"time {k} ActivityNet B={B}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms, library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
+    print(f"time K7b ActivityNet B={B} without dcu (top layer): {res['K7b_no_dcu_ms']:.4f} ms")
+
+    walls = []
+    for _ in range(9):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    res["step_ms"] = statistics.median(walls[2:])
+    print(f"time ActivityNet train step B={B}: {res['step_ms']:.4f} ms wall, "
+          f"{B / res['step_ms'] * 1e3:.1f} samples/s; launches per step: K6 1 + 1, "
+          f"K7 {cfg.num_smi_layers} + {cfg.num_smi_layers}")
+    profile_and_report(lambda: step(batch), f"ActivityNet B={B}", "train step", 3, top=14)
+    return res
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -739,6 +1120,16 @@ def main(argv=None) -> int:
     train_errs = phase_train_parity(cfg, model, rng, device)
     step, batch, train_launches = phase_train(config, args.seed, rng, device)
     train_times = phase_train_times(cfg, model, step, batch, rng, device)
+    del step, batch, gpu, model
+    torch.cuda.empty_cache()
+
+    anet = load_config(os.path.join(REPO, "config", "activitynet.yml"))
+    torch.manual_seed(args.seed)
+    anet_model = SMIN(anet.model).to(device).eval()
+    anet_errs = phase_anet_parity(anet.model, anet_model, rng, device)
+    anet_step, anet_batch, anet_launches, anet_peak, anet_eval_err = phase_anet_train(
+        anet, args.seed, rng, device)
+    anet_times = phase_anet_times(anet.model, anet_model, anet_step, anet_batch, rng, device)
 
     kernels = []
     for key, name, src, rep, err in (
@@ -769,11 +1160,37 @@ def main(argv=None) -> int:
         })
     kernels[-1]["max_err_of_magnitude"] = train_errs["K3_rel"]
     kernels[-1]["ms_without_dcu"] = train_times["K3_no_dcu_ms"]
+    for key, name, src, rep in (
+            ("K6f", "proposal_packed_forward", PROPOSAL_SRC, K6_FWD_REPLACES),
+            ("K6b", "proposal_packed_backward", PROPOSAL_SRC, K6_BWD_REPLACES),
+            ("K7f", "content_rows_forward", CONTENT_SRC, K7_FWD_REPLACES),
+            ("K7b", "content_rows_backward", CONTENT_SRC, K7_BWD_REPLACES)):
+        r = anet_times[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": anet_launches[key], "max_abs_err": anet_errs[key],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "batch": TRAIN_BATCH,
+            "config": "activitynet",
+        })
+    # K6 is its own Python entry and counters over K1's two C entry points.
+    kernels[-4]["shares_c_entry_with"] = "proposal_rows_forward"
+    kernels[-3]["shares_c_entry_with"] = "proposal_rows_backward"
+    kernels[-1]["max_err_of_magnitude"] = anet_errs["K7b_rel"]
+    kernels[-1]["ms_without_dcu"] = anet_times["K7b_no_dcu_ms"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"train_step": {
         "batch": TRAIN_BATCH, "ms": train_times["step_ms"],
         "samples_per_s": TRAIN_BATCH / train_times["step_ms"] * 1e3,
         "launches_per_step": {k: v // TRAIN_STEPS for k, v in train_launches.items()}}}))
+    print(json.dumps({"activitynet_train_step": {
+        "batch": TRAIN_BATCH, "ms": anet_times["step_ms"],
+        "samples_per_s": TRAIN_BATCH / anet_times["step_ms"] * 1e3,
+        "peak_memory_gib": anet_peak,
+        "launches_per_step": {k: v // TRAIN_STEPS for k, v in anet_launches.items()},
+        "eval_forward_max_abs_err": anet_eval_err,
+        "k4_l64": dict(anet_times["K4"], max_abs_err=anet_errs["K4"]),
+        "k5_nq20": dict(anet_times["K5"], max_abs_err=anet_errs["K5"])}}))
     print(json.dumps({"serving_pairs_per_s_device": {
         str(B): B / times[("e2e", B)] * 1e3 for B in (16, 512)}}))
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,7 @@ from video_moment_localization_tpu_torch.inference import MomentLocalizer
 from video_moment_localization_tpu_torch.models.lstm import BiLSTMParams, lstm_layers
 from video_moment_localization_tpu_torch.models.smin import SMIN, block_weights
 from video_moment_localization_tpu_torch.ops import (
+    content_train_cuda,
     lstm_cuda,
     proposal_cuda,
     smin_cuda,
@@ -39,6 +40,12 @@ STACK_TOL = dict(rtol=2e-4, atol=2e-5)
 # structurally zero and only rounding noise of the others' size is left).
 GRAD_RTOL, GRAD_ATOL_REL = 5e-4, 5e-5
 CHARADES = ModelConfig()
+ACTIVITYNET = ModelConfig(T=128, L=64, C=4, D=512, dl=128, input_video_dim=500,
+                          max_query_length=20, lstm_hidden_size=256, num_smi_layers=3)
+# TACoS at fp32 also takes the content-unit route (K6, K7): two frames per
+# snippet at T=128, four frames at L=32.
+TACOS = ModelConfig(T=128, L=32, C=4, D=512, dl=128, input_video_dim=4096,
+                    max_query_length=14, lstm_hidden_size=256, num_smi_layers=3)
 
 TINY = ModelConfig(T=16, L=8, C=4, D=64, dl=32, num_smi_layers=3, input_video_dim=12,
                    max_query_length=6, lstm_hidden_size=32)
@@ -251,3 +258,119 @@ def test_train_steps_on_card_match_cpu(card):
         losses[device] = [float(step(_train_batch(TINY, 6, seed=k))["loss"]) for k in range(3)]
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
     assert smin_train_cuda.smi_layer_backward.launches > 0
+
+
+@pytest.mark.parametrize("cfg,B", [(TINY, 3), (ODD, 7), (ACTIVITYNET, 2), (TACOS, 2)])
+def test_proposal_packed_kernels_match_plain(card, cfg, B):
+    """K6: its own entry and counters over the pooling and gather kernels."""
+    g = torch.Generator().manual_seed(B)
+    f = torch.randn(B, cfg.T, cfg.D, generator=g).to(card)
+    nlen = torch.randint(1, cfg.L + 1, (B,), generator=g)
+    nlen[0] = cfg.L
+    lmask = (torch.arange(cfg.L)[None, :] < nlen[:, None]).float().to(card)
+    before = (proposal_cuda.proposal_packed_forward.launches,
+              proposal_cuda.proposal_packed_backward.launches,
+              proposal_cuda.proposal_rows_forward.launches)
+    f.requires_grad_(True)
+    got = proposal_cuda.proposal_features_packed_fused(f, lmask, cfg.L, cfg.C)
+    cots = [torch.randn(o.shape, generator=g).to(card) for o in got]
+    df = torch.autograd.grad(got, f, cots)[0]
+    want = proposal_cuda.proposal_features_packed(f, lmask, cfg.L, cfg.C)
+    df_want = torch.autograd.grad(want, f, cots)[0]
+    torch.cuda.synchronize()
+    assert (proposal_cuda.proposal_packed_forward.launches,
+            proposal_cuda.proposal_packed_backward.launches,
+            proposal_cuda.proposal_rows_forward.launches) == (before[0] + 1, before[1] + 1,
+                                                              before[2])
+    for o, w in zip(got, want):
+        torch.testing.assert_close(o, w, rtol=1e-5, atol=1e-5)
+    _assert_grad_close(df, df_want, "df")
+
+
+def _content_inputs(cfg, B, seed, device):
+    fc, fm, _, fw, fs, qmask, _, vmask = _layer_inputs(cfg, B, seed, device)
+    fbar = torch.sigmoid(fm * fs[:, None, :]) * fm
+    return [fc, fbar.contiguous(), fw, fs, qmask, vmask]
+
+
+@pytest.mark.parametrize("cfg,B", [(TINY, 1), (TINY, 9), (ODD, 7), (ACTIVITYNET, 2),
+                                   (TACOS, 2)])
+@pytest.mark.parametrize("has_dcu", [True, False])
+def test_content_rows_kernels_match_plain(card, cfg, B, has_dcu):
+    """K7 forward and backward: cu, convfc, dfc, dfbar, dfw, dfs and the 14
+    weight gradients."""
+    torch.manual_seed(B)
+    block = SMIN(cfg).to(card).smis[1]
+    weights = [w.detach() for w in content_train_cuda.content_weights(block)]
+    ins = _content_inputs(cfg, B, seed=B, device=card)
+    before = (content_train_cuda.content_rows_forward.launches,
+              content_train_cuda.content_rows_backward.launches)
+    with torch.no_grad():
+        got = content_train_cuda.content_rows_forward(weights, *ins)
+        want = content_train_cuda.content_rows_plain(weights, *ins)
+    for g_, w_, name in zip(got, want, ("cu", "convfc")):
+        torch.testing.assert_close(g_, w_, **STACK_TOL, msg=lambda m: f"{name}: {m}")
+    gen = torch.Generator().manual_seed(100 + B)
+    dcu, dconv = [torch.randn(t.shape, generator=gen).to(card) for t in want]
+    if not has_dcu:
+        dcu = None
+    got = content_train_cuda.content_rows_backward(weights, *ins, dcu, dconv)
+    want = content_train_cuda.content_rows_backward_plain(weights, *ins, dcu, dconv)
+    torch.cuda.synchronize()
+    assert (content_train_cuda.content_rows_forward.launches,
+            content_train_cuda.content_rows_backward.launches) == (before[0] + 1, before[1] + 1)
+    for g_, w_, name in zip(got[:4], want[:4], ("dfc", "dfbar", "dfw", "dfs")):
+        _assert_grad_close(g_, w_, name)
+    scale = max(float(w_.abs().max()) for w_ in want[4])
+    for k, (g_, w_) in enumerate(zip(got[4], want[4])):
+        _assert_grad_close(g_, w_, f"weight gradient {k}", scale)
+
+
+ROUTED = ModelConfig(T=32, L=32, C=9, D=64, dl=32, num_smi_layers=2, input_video_dim=12,
+                     max_query_length=6, lstm_hidden_size=32)
+
+
+def test_content_route_train_steps_on_card_match_cpu(card):
+    """Three Adam steps of a config that takes the content-unit route (K6,
+    K7) on the card against the same steps through the plain versions on the
+    CPU, as `test_train_steps_on_card_match_cpu` for the whole-layer route."""
+    torch.manual_seed(0)
+    ref = SMIN(ROUTED)
+    models = {"cuda": SMIN(ROUTED), "cpu": ref}
+    models["cuda"].load_state_dict(ref.state_dict())
+    before = (content_train_cuda.content_rows_backward.launches,
+              proposal_cuda.proposal_packed_backward.launches,
+              smin_train_cuda.smi_layer_backward.launches)
+    losses = {}
+    for device, model in models.items():
+        step = make_train_step(ROUTED, model, build_optimizer(Config(model=ROUTED), model),
+                               device=device)
+        losses[device] = [float(step(_train_batch(ROUTED, 4, seed=k))["loss"]) for k in range(3)]
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    assert (content_train_cuda.content_rows_backward.launches,
+            proposal_cuda.proposal_packed_backward.launches,
+            smin_train_cuda.smi_layer_backward.launches) == (before[0] + 6, before[1] + 3,
+                                                             before[2])
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_serving_kernels_at_the_activitynet_width(card, B):
+    """K5 at Nq=20 and K4 at L=64, the shapes of the ActivityNet eval step."""
+    cfg = ACTIVITYNET
+    torch.manual_seed(B)
+    model = SMIN(cfg).to(card).eval()
+    layers = lstm_layers(model.backbone.queryencoder.lstm)
+    S = cfg.max_query_length
+    x = torch.randn(B, S, cfg.word_dim, device=card)
+    lengths = torch.randint(1, S + 1, (B,))
+    mask = (torch.arange(S)[None, :] < lengths[:, None]).float().to(card)
+    ins = _stack_inputs(cfg, B, seed=B, device=card)
+    with torch.no_grad():
+        torch.testing.assert_close(lstm_cuda.bilstm_fused(x, mask, layers),
+                                   lstm_cuda.bilstm_plain(x, mask, layers), **LSTM_TOL)
+        got = smin_cuda.smin_stack_fused(model, cfg, *ins)
+        want = smin_cuda.smin_stack_plain(model, cfg, *ins)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        assert bool(torch.isfinite(g_).all())
+        torch.testing.assert_close(g_, w_, **STACK_TOL)

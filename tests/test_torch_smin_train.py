@@ -25,11 +25,18 @@ from video_moment_localization_tpu_torch.models.port import state_dict_from_jax_
 from video_moment_localization_tpu_torch.models.smin import block_weights
 from video_moment_localization_tpu_torch.ops import smin_train_cuda
 
-from _torch_train_common import CFG, JCFG, N, make_model
+from _torch_train_common import (
+    ACTS,
+    CFG,
+    JCFG,
+    jax_stack_grads,
+    make_model,
+    readout,
+    torch_stack_grads,
+)
 
 FWD_TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=5e-4, atol=5e-5)
-ACTS = ("fc", "fm", "fb", "fw", "fs")
 
 
 def _inputs(B=4, seed=0, single_word=True):
@@ -111,45 +118,6 @@ def test_one_layer_forward_and_backward_match_jax(layer, has_dcu):
         np.testing.assert_allclose(g.numpy(), sd[name].numpy(), **GRAD_TOL, err_msg=name)
 
 
-def _readout(B, seed):
-    rng = np.random.default_rng(seed)
-    return (rng.standard_normal((B, N, CFG.D)).astype(np.float32),
-            rng.standard_normal((B, CFG.L, CFG.D)).astype(np.float32))
-
-
-def _torch_stack_grads(model, ins, wm, wb):
-    """Outputs and gradients of the masked readout through `smi_stack_layers`."""
-    B = ins["fc"].shape[0]
-    t = _torch_inputs(ins, True)
-    model.zero_grad()
-    fm_o, fb_o = smin_train_cuda.smi_stack_layers(
-        model.smis, t["fc"], t["fm"], t["fb"], t["fw"], t["fs"], t["qmask"], t["lmask"],
-        t["vmask"], CFG.L)
-    s = ((fm_o * torch.from_numpy(wm) * t["vmask"][..., None]).sum()
-         + (fb_o * torch.from_numpy(wb) * t["lmask"][..., None]).sum()) / B
-    s.backward()
-    grads = {k: t[k].grad for k in ACTS}
-    grads.update({n: p.grad for n, p in model.named_parameters() if n.startswith("smis.")})
-    return fm_o.detach(), fb_o.detach(), grads
-
-
-def _jax_stack_grads(stack_fn, params, ins, wm, wb):
-    B = ins["fc"].shape[0]
-    vmask, lmask = jnp.asarray(ins["vmask"]), jnp.asarray(ins["lmask"])
-
-    def scalar(p, fc, fm, fb, fw, fs):
-        fm_o, fb_o = stack_fn(p, fc, fm, fb, fw, fs)
-        s = (jnp.sum(fm_o * wm * vmask[..., None]) + jnp.sum(fb_o * wb * lmask[..., None])) / B
-        return s, (fm_o, fb_o)
-
-    args = (params, *(jnp.asarray(ins[k]) for k in ACTS))
-    (_, outs), g = jax.value_and_grad(scalar, argnums=tuple(range(6)), has_aux=True)(*args)
-    grads = dict(zip(ACTS, (np.asarray(a) for a in g[1:])))
-    grads.update({n: v.numpy() for n, v in state_dict_from_jax_params(
-        jax.tree.map(np.asarray, g[0])).items() if n.startswith("smis.")})
-    return np.asarray(outs[0]), np.asarray(outs[1]), grads
-
-
 def _compare(got, want, ins):
     vm3, lm3 = ins["vmask"][..., None], ins["lmask"][..., None]
     np.testing.assert_allclose(got[0].numpy() * vm3, want[0] * vm3, **FWD_TOL)
@@ -164,7 +132,7 @@ def _compare(got, want, ins):
 def test_stack_outputs_and_all_gradients_match_jax_xla(seed):
     params, model = make_model(7 + seed)
     ins = _inputs(seed=seed)
-    wm, wb = _readout(4, seed)
+    wm, wb = readout(CFG, 4, seed)
 
     def xla_stack(p, fc, fm, fb, fw, fs):
         for layer in p["smi"]:
@@ -172,8 +140,8 @@ def test_stack_outputs_and_all_gradients_match_jax_xla(seed):
                                                 ins["lmask"], ins["vmask"], CFG.L)
         return fm, fb
 
-    _compare(_torch_stack_grads(model, ins, wm, wb),
-             _jax_stack_grads(xla_stack, params, ins, wm, wb), ins)
+    _compare(torch_stack_grads(smin_train_cuda.smi_stack_layers, model, CFG, ins, wm, wb),
+             jax_stack_grads(xla_stack, params, ins, wm, wb), ins)
 
 
 def test_stack_matches_jax_train_kernels_in_interpret_mode():
@@ -183,15 +151,15 @@ def test_stack_matches_jax_train_kernels_in_interpret_mode():
     on the JAX side, not followed by the port)."""
     params, model = make_model(11)
     ins = _inputs(seed=2, single_word=False)
-    wm, wb = _readout(4, 2)
+    wm, wb = readout(CFG, 4, 2)
 
     def kernel_stack(p, fc, fm, fb, fw, fs):
         return smin_smi_stack_train_rows(p, JCFG, j_pack_rows(fc), fm, fb, fw, fs,
                                          jnp.asarray(ins["qmask"]), jnp.asarray(ins["lmask"]),
                                          jnp.asarray(ins["vmask"]), interpret=True)
 
-    _compare(_torch_stack_grads(model, ins, wm, wb),
-             _jax_stack_grads(kernel_stack, params, ins, wm, wb), ins)
+    _compare(torch_stack_grads(smin_train_cuda.smi_stack_layers, model, CFG, ins, wm, wb),
+             jax_stack_grads(kernel_stack, params, ins, wm, wb), ins)
 
 
 def test_stack_saves_only_the_carries_and_inputs():

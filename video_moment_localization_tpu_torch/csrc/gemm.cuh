@@ -1,6 +1,7 @@
 // Tiled fp32 GEMM with a fused epilogue, shared by the biLSTM (lstm.cu), the
-// SMI-stack (smin_stack.cu) and the SMI train-layer (smin_train.cu) kernels,
-// plus the small device helpers they use.
+// SMI-stack (smin_stack.cu), the SMI train-layer (smin_train.cu) and the
+// content-unit train (content_train.cu) kernels, plus the small device helpers
+// they use.
 //
 //   C[r, c] = (sum_k A(r, k) * ascale[.] * B(k, c) + bias[c] + pre[r, c])
 //             * rmask[r / mask_div] + post[r, c] + post2[r / post2_div, c]
@@ -74,8 +75,11 @@ gemm_kernel(int M, int N, int K, int kchunk, const float* __restrict__ A, int ld
     __shared__ __align__(16) float Ws[2][kGemmBK][kGemmBN + 4];
 
     const int tid = threadIdx.x;
-    const int m0 = blockIdx.y * kGemmBM;
-    const int n0 = blockIdx.x * kGemmBN;
+    // Output tiles are numbered along x, column tiles fastest: B * N * C rows
+    // can be more 64-row tiles than the 65,535 that gridDim.y admits.
+    const int col_tiles = (N + kGemmBN - 1) / kGemmBN;
+    const int m0 = (blockIdx.x / col_tiles) * kGemmBM;
+    const int n0 = (blockIdx.x % col_tiles) * kGemmBN;
     const int kbeg = blockIdx.z * kchunk;
     const int kend = min(K, kbeg + kchunk);
     C += (size_t)blockIdx.z * M * ldc;
@@ -208,7 +212,7 @@ template <bool kAT, bool kBN>
 inline void gemm_launch(cudaStream_t stream, int M, int N, int K, int splits, int kchunk,
                         const float* A, int lda, const float* ascale, int adiv,
                         const float* W, int ldw, float* C, int ldc, const Epilogue& ep) {
-    const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM, splits);
+    const dim3 grid(((N + kGemmBN - 1) / kGemmBN) * ((M + kGemmBM - 1) / kGemmBM), 1, splits);
     // The extent along which each operand is read 4 at a time.
     const bool vec = (kAT ? M : K) % 4 == 0 && (kBN ? N : K) % 4 == 0 && lda % 4 == 0 &&
                      ldw % 4 == 0 && aligned16(A) && aligned16(W);

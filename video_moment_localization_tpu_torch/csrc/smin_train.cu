@@ -51,6 +51,8 @@
 //   Gate  fbar = sigmoid(fm * fs) * fm, dfbar[n] = A[i_n, j_n] G[i_n] +
 //     sum_c dcut[n, c]. gate_bwd_kernel (one thread per (element, d)) loops
 //     over the pairs, writes dfm and sums dfs over them.
+//   The ContentUnit's kernels and their sequence are in content_bwd.cuh,
+//   shared with the content-unit backward of content_train.cu.
 //   Weight gradients dW = dY^T X (gemm_tn) reduce over up to B * N * C rows
 //     in split blocks whose partial sums a second kernel adds in a fixed
 //     order; bias gradients are column sums the same way (colsum).
@@ -59,6 +61,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "content_bwd.cuh"
 #include "smin_units.cuh"
 
 namespace {
@@ -85,225 +88,6 @@ __global__ void moment_bwd_kernel(int L, int D, const float* __restrict__ dbu,
         for (int k = 0; k <= i; ++k)
             acc += dxe[(size_t)pair_index(k, i, L) * D + d] * bue[(size_t)k * D + d];
         G[(size_t)row * D + d] = acc;
-    }
-}
-
-// dcut[r, d] = dcu[r, d] + dx2[r / C, d] / C over the B * N * C clip rows;
-// dcu may be null (zero).
-__global__ void dcu_total_kernel(size_t total, int C, int D, const float* __restrict__ dcu,
-                                 const float* __restrict__ dx2, float* __restrict__ out) {
-    const float inv_c = 1.f / (float)C;
-    for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total;
-         e += (size_t)gridDim.x * blockDim.x) {
-        const size_t r = e / D;
-        const int d = (int)(e % D);
-        const float v = dx2[(r / C) * D + d] * inv_c;
-        out[e] = dcu ? dcu[e] + v : v;
-    }
-}
-
-size_t content_bwd_smem_bytes(int C, int Nq, int dl) {
-    return sizeof(float) * ((size_t)2 * Nq * dl + (size_t)7 * C * dl + (size_t)2 * C * Nq +
-                            (size_t)2 * C * C);
-}
-
-// One block per (element, pair): the content unit between its projections,
-// recomputed and differentiated. Inputs as content_attn_kernel plus dfcc
-// (B*N*C, dl). Writes dh (the paths through the clip attention and f_cq;
-// the attn_q path is added by the caller's GEMM), dq, da (B*N*C, dl), the
-// word attention p and its logit gradients ds (B*N*C, Nq), and dfsh_part
-// (B*N, dl) = sum_c dg[c] * h[c].
-__global__ void content_attn_bwd_kernel(
-    int N, int C, int Nq, int dl, const float* __restrict__ h, const float* __restrict__ q,
-    const float* __restrict__ khat, const float* __restrict__ fwh,
-    const float* __restrict__ fsh, const float* __restrict__ qmask,
-    const float* __restrict__ vmask, const float* __restrict__ dfcc, float* __restrict__ dh,
-    float* __restrict__ dq, float* __restrict__ da, float* __restrict__ pbuf,
-    float* __restrict__ dsr, float* __restrict__ dfsh_part) {
-    extern __shared__ float smem[];
-    float* ks = smem;                 // (Nq, dl)
-    float* vs = ks + Nq * dl;         // (Nq, dl)
-    float* hs = vs + Nq * dl;         // (C, dl)
-    float* qs = hs + C * dl;          // (C, dl)
-    float* gs = qs + C * dl;          // (C, dl): f_cq
-    float* us = gs + C * dl;          // (C, dl): a * vm + fsh
-    float* os = us + C * dl;          // (C, dl): dfcc
-    float* dgs = os + C * dl;         // (C, dl): d f_cq
-    float* das = dgs + C * dl;        // (C, dl): d a
-    float* ps = das + C * dl;         // (C, Nq): word attention
-    float* dps = ps + C * Nq;         // (C, Nq): its gradient, then d logits
-    float* Ps = dps + C * Nq;         // (C, C): clip attention (unmasked)
-    float* dSs = Ps + C * C;          // (C, C): its gradient, then d logits
-
-    const int pair = blockIdx.x;      // b * N + n
-    const int b = pair / N;
-    const int tid = threadIdx.x;
-    const int lane = tid % 32;
-    const int warp = tid / 32;
-    const int nwarps = blockDim.x / 32;
-    const float inv_sdl = 1.f / sqrtf((float)dl);
-    const float vm = vmask[pair];
-    const size_t row0 = (size_t)pair * C;
-
-    for (int e = tid; e < Nq * dl; e += blockDim.x) {
-        ks[e] = khat[(size_t)b * Nq * dl + e];
-        vs[e] = fwh[(size_t)b * Nq * dl + e];
-    }
-    for (int e = tid; e < C * dl; e += blockDim.x) {
-        hs[e] = h[row0 * dl + e];
-        qs[e] = q[row0 * dl + e];
-        os[e] = dfcc[row0 * dl + e];
-    }
-    __syncthreads();
-
-    // Recompute: word attention p, f_cq, clip attention P.
-    for (int idx = warp; idx < C * Nq; idx += nwarps) {
-        const int c = idx / Nq;
-        const int m = idx % Nq;
-        float s = 0.f;
-        for (int d = lane; d < dl; d += 32) s += qs[c * dl + d] * ks[m * dl + d];
-        s = warp_sum(s);
-        if (lane == 0) ps[idx] = qmask[(size_t)b * Nq + m] > 0.f ? s * inv_sdl : kNegInf;
-    }
-    __syncthreads();
-    if (tid < C) {
-        float* p = ps + tid * Nq;
-        float mx = p[0];
-        for (int m = 1; m < Nq; ++m) mx = fmaxf(mx, p[m]);
-        float sum = 0.f;
-        for (int m = 0; m < Nq; ++m) {
-            p[m] = expf(p[m] - mx);
-            sum += p[m];
-        }
-        for (int m = 0; m < Nq; ++m) p[m] /= sum;
-    }
-    __syncthreads();
-    for (int e = tid; e < C * dl; e += blockDim.x) {
-        const int c = e / dl;
-        const int d = e % dl;
-        float a = 0.f;
-        for (int m = 0; m < Nq; ++m) a += ps[c * Nq + m] * vs[m * dl + d];
-        us[e] = a * vm + fsh[(size_t)b * dl + d];
-        gs[e] = hs[e] * us[e];
-    }
-    __syncthreads();
-    for (int idx = warp; idx < C * C; idx += nwarps) {
-        const int c = idx / C;
-        const int e2 = idx % C;
-        float s = 0.f, t = 0.f;
-        for (int d = lane; d < dl; d += 32) {
-            s += gs[c * dl + d] * gs[e2 * dl + d];
-            t += os[c * dl + d] * hs[e2 * dl + d];   // dA[c, e2] = dfcc[c] . h[e2]
-        }
-        s = warp_sum(s);
-        t = warp_sum(t);
-        if (lane == 0) {
-            Ps[idx] = s * inv_sdl;
-            dSs[idx] = t;
-        }
-    }
-    __syncthreads();
-    if (tid < C) {
-        float* P = Ps + tid * C;
-        float* dS = dSs + tid * C;
-        float mx = P[0];
-        for (int e2 = 1; e2 < C; ++e2) mx = fmaxf(mx, P[e2]);
-        float sum = 0.f;
-        for (int e2 = 0; e2 < C; ++e2) {
-            P[e2] = expf(P[e2] - mx);
-            sum += P[e2];
-        }
-        float dot = 0.f;
-        for (int e2 = 0; e2 < C; ++e2) {
-            P[e2] /= sum;
-            dS[e2] *= vm;                 // dP = dA * vm
-            dot += P[e2] * dS[e2];
-        }
-        for (int e2 = 0; e2 < C; ++e2) dS[e2] = P[e2] * (dS[e2] - dot) * inv_sdl;
-    }
-    __syncthreads();
-
-    for (int e = tid; e < C * dl; e += blockDim.x) {
-        const int c = e / dl;
-        const int d = e % dl;
-        float dh_mix = 0.f, dg = 0.f;
-        for (int c2 = 0; c2 < C; ++c2) {
-            dh_mix += Ps[c2 * C + c] * os[c2 * dl + d];               // A[c2, c] dfcc[c2]
-            dg += (dSs[c * C + c2] + dSs[c2 * C + c]) * gs[c2 * dl + d];
-        }
-        dgs[e] = dg;
-        const float dav = dg * hs[e] * vm;
-        das[e] = dav;
-        dh[row0 * dl + e] = dh_mix * vm + dg * us[e];
-        da[row0 * dl + e] = dav;
-    }
-    __syncthreads();
-    for (int d = tid; d < dl; d += blockDim.x) {
-        float s = 0.f;
-        for (int c = 0; c < C; ++c) s += dgs[c * dl + d] * hs[c * dl + d];
-        dfsh_part[(size_t)pair * dl + d] = s;
-    }
-    for (int idx = warp; idx < C * Nq; idx += nwarps) {
-        const int c = idx / Nq;
-        const int m = idx % Nq;
-        float s = 0.f;
-        for (int d = lane; d < dl; d += 32) s += das[c * dl + d] * vs[m * dl + d];
-        s = warp_sum(s);
-        if (lane == 0) dps[idx] = s;
-    }
-    __syncthreads();
-    if (tid < C) {
-        const float* p = ps + tid * Nq;
-        float* dp = dps + tid * Nq;
-        float dot = 0.f;
-        for (int m = 0; m < Nq; ++m) dot += p[m] * dp[m];
-        for (int m = 0; m < Nq; ++m) {
-            const float ds = qmask[(size_t)b * Nq + m] > 0.f ? p[m] * (dp[m] - dot) * inv_sdl
-                                                            : 0.f;
-            dp[m] = ds;
-            pbuf[(row0 + tid) * Nq + m] = p[m];
-            dsr[(row0 + tid) * Nq + m] = ds;
-        }
-    }
-    __syncthreads();
-    for (int e = tid; e < C * dl; e += blockDim.x) {
-        const int c = e / dl;
-        const int d = e % dl;
-        float s = 0.f;
-        for (int m = 0; m < Nq; ++m) s += dps[c * Nq + m] * ks[m * dl + d];
-        dq[row0 * dl + e] = s;
-    }
-}
-
-// grid B * (Nq + 1): block (b, m < Nq) reduces over the element's NC clip
-// rows dfwh[b, m] = sum_r p[r, m] da[r] and dkhat[b, m] = sum_r ds[r, m]
-// q[r]; block (b, Nq) reduces dfsh[b] = sum_n dfsh_part[b, n].
-__global__ void content_reduce_kernel(int N, int C, int Nq, int dl,
-                                      const float* __restrict__ pbuf,
-                                      const float* __restrict__ dsr,
-                                      const float* __restrict__ da,
-                                      const float* __restrict__ q,
-                                      const float* __restrict__ dfsh_part,
-                                      float* __restrict__ dfwh, float* __restrict__ dkhat,
-                                      float* __restrict__ dfsh) {
-    const int b = blockIdx.x / (Nq + 1);
-    const int m = blockIdx.x % (Nq + 1);
-    const int NC = N * C;
-    for (int d = threadIdx.x; d < dl; d += blockDim.x) {
-        if (m == Nq) {
-            float s = 0.f;
-            for (int n = 0; n < N; ++n) s += dfsh_part[((size_t)b * N + n) * dl + d];
-            dfsh[(size_t)b * dl + d] = s;
-            continue;
-        }
-        float s1 = 0.f, s2 = 0.f;
-        for (int r = 0; r < NC; ++r) {
-            const size_t row = (size_t)b * NC + r;
-            s1 += pbuf[row * Nq + m] * da[row * dl + d];
-            s2 += dsr[row * Nq + m] * q[row * dl + d];
-        }
-        dfwh[((size_t)b * Nq + m) * dl + d] = s1;
-        dkhat[((size_t)b * Nq + m) * dl + d] = s2;
     }
 }
 
@@ -533,18 +317,15 @@ __global__ void gate_bwd_kernel(int L, int C, int D, const float* __restrict__ f
 
 // The backward's buffers beyond the recomputed layer's own intermediates.
 struct BackwardScratch {
-    float *bu, *dx1, *dx2, *G, *dfcc, *dh, *dq, *da, *pbuf, *dsr, *dfsh_part, *dfwh, *dkhat,
-        *dfsh, *Ab, *dSb, *pb, *dsb, *dab, *dfs_b, *dbq, *dbk, *partial;
+    vml::ContentBackwardScratch c;
+    float *bu, *dx1, *dx2, *G, *Ab, *dSb, *pb, *dsb, *dab, *dfs_b, *dbq, *dbk, *partial;
 };
-constexpr int kBackwardSlots = 23;
+constexpr int kBackwardSlots = 13;
 
 size_t max_partial_floats(int B, int L, int C, int Nq, int D, int dl) {
     const int N = L * (L + 1) / 2;
-    const int NC = N * C;
-    const int shapes[][3] = {
-        {D, D, B * N}, {D, dl, B * NC}, {dl, dl, B * NC}, {dl, dl, B * Nq}, {dl, D, B * Nq},
-        {dl, D, B}, {dl, D, B * NC}, {D, D, B * L}, {D, D, B * Nq}};
-    size_t most = (size_t)vml::kColsumSplits * (D > dl ? D : dl);
+    const int shapes[][3] = {{D, D, B * N}, {D, D, B * L}, {D, D, B * Nq}};
+    size_t most = vml::content_partial_floats(B, N, C, Nq, D, dl);
     for (const auto& s : shapes) {
         const size_t f = vml::gemm_tn_partial_floats(s[0], s[1], s[2]);
         if (f > most) most = f;
@@ -558,20 +339,16 @@ size_t carve(float* ws, int B, int L, int C, int Nq, int D, int dl, bool backwar
     size_t off = vml::carve_layer_scratch(ws, 0, B, L, C, Nq, D, dl, s);
     if (!backward) return off;
     const size_t N = (size_t)L * (L + 1) / 2;
-    const size_t NC = N * C;
     const size_t BL = (size_t)B * L, BQ = (size_t)B * Nq;
+    off = vml::carve_content_backward(ws, off, B, (int)N, C, Nq, dl, &w->c);
     const size_t sizes[kBackwardSlots] = {
         BL * D, B * N * D, B * N * D, BL * D,                       // bu, dx1, dx2, G
-        B * NC * dl, B * NC * dl, B * NC * dl, B * NC * dl,         // dfcc, dh, dq, da
-        B * NC * Nq, B * NC * Nq, B * N * dl,                       // pbuf, dsr, dfsh_part
-        BQ * dl, BQ * dl, (size_t)B * dl,                           // dfwh, dkhat, dfsh
         BL * L, BL * L, BL * Nq, BL * Nq,                           // Ab, dSb, pb, dsb
         BL * D, BL * D, BL * D, BQ * D,                             // dab, dfs_b, dbq, dbk
         max_partial_floats(B, L, C, Nq, D, dl),                     // partial
     };
     float** slots[kBackwardSlots] = {
-        &w->bu, &w->dx1, &w->dx2, &w->G, &w->dfcc, &w->dh, &w->dq, &w->da, &w->pbuf, &w->dsr,
-        &w->dfsh_part, &w->dfwh, &w->dkhat, &w->dfsh, &w->Ab, &w->dSb, &w->pb, &w->dsb,
+        &w->bu, &w->dx1, &w->dx2, &w->G, &w->Ab, &w->dSb, &w->pb, &w->dsb,
         &w->dab, &w->dfs_b, &w->dbq, &w->dbk, &w->partial};
     return vml::carve_slots(ws, off, sizes, slots, kBackwardSlots);
 }
@@ -595,7 +372,7 @@ size_t vml_smi_layer_workspace_floats(int B, int L, int C, int Nq, int D, int dl
 // wrapper's admission check against the 227 KB a block may have.
 size_t vml_smi_layer_smem_bytes(int L, int C, int Nq, int D, int dl) {
     size_t most = vml::layer_forward_smem_bytes(L, C, Nq, dl);
-    const size_t others[] = {content_bwd_smem_bytes(C, Nq, dl),
+    const size_t others[] = {vml::content_bwd_smem_bytes(C, Nq, dl),
                              boundary_query_bwd_smem_bytes(L, Nq, D)};
     for (size_t o : others)
         if (o > most) most = o;
@@ -663,64 +440,13 @@ int vml_smi_layer_bwd_f32(void* stream, int B, int L, int C, int Nq, int D, int 
     VML_CHECK();
     const size_t ncd = (size_t)B * NC * D;
     const int dcu_blocks = (int)((ncd + 255) / 256 < 8192 ? (ncd + 255) / 256 : 8192);
-    dcu_total_kernel<<<dcu_blocks, 256, 0, st>>>(ncd, C, D, dcu, w.dx2, dfc);
+    vml::dcu_total_kernel<<<dcu_blocks, 256, 0, st>>>(ncd, C, D, dcu, w.dx2, dfc);
     VML_CHECK();
 
     // ContentUnit. dfc holds dcut from here to the last GEMM.
-    vml::gemm_nn(st, B * NC, dl, D, dfc, D, vmask, C, p[6], dl, w.dfcc, dl, none);
-    VML_CHECK();
-    vml::gemm_tn(st, D, dl, B * NC, dfc, D, vmask, C, s.fcc, dl, w.partial, dw[6]);
-    VML_CHECK();
-    vml::colsum(st, B * NC, D, dfc, D, vmask, C, w.partial, dw[7]);
-    VML_CHECK();
-    const size_t csmem = content_bwd_smem_bytes(C, Nq, dl);
-    if ((err = cudaFuncSetAttribute(content_attn_bwd_kernel,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)csmem)) != cudaSuccess)
-        return (int)err;
-    content_attn_bwd_kernel<<<B * N, 128, csmem, st>>>(
-        N, C, Nq, dl, s.h, s.q, s.khat, s.fwh, s.fsh, qmask, vmask, w.dfcc, w.dh, w.dq, w.da,
-        w.pbuf, w.dsr, w.dfsh_part);
-    VML_CHECK();
-    content_reduce_kernel<<<B * (Nq + 1), 128, 0, st>>>(N, C, Nq, dl, w.pbuf, w.dsr, w.da, s.q,
-                                                        w.dfsh_part, w.dfwh, w.dkhat, w.dfsh);
-    VML_CHECK();
-    // attn_q: dh = (dq Wcq + dh) * vm, in place.
-    ep = vml::Epilogue();
-    ep.pre = w.dh;
-    ep.ldpre = dl;
-    ep.rmask = vmask;
-    ep.mask_div = C;
-    vml::gemm_nn(st, B * NC, dl, dl, w.dq, dl, nullptr, 1, p[8], dl, w.dh, dl, ep);
-    VML_CHECK();
-    vml::gemm_tn(st, dl, dl, B * NC, w.dq, dl, nullptr, 1, s.h, dl, w.partial, dw[8]);
-    VML_CHECK();
-    vml::colsum(st, B * NC, dl, w.dq, dl, nullptr, 1, w.partial, dw[9]);
-    VML_CHECK();
-    // attn_k: dfwh = (dkhat Wck + dfwh) * qmask, in place.
-    ep = vml::Epilogue();
-    ep.pre = w.dfwh;
-    ep.ldpre = dl;
-    ep.rmask = qmask;
-    vml::gemm_nn(st, B * Nq, dl, dl, w.dkhat, dl, nullptr, 1, p[10], dl, w.dfwh, dl, ep);
-    VML_CHECK();
-    vml::gemm_tn(st, dl, dl, B * Nq, w.dkhat, dl, nullptr, 1, s.fwh, dl, w.partial, dw[10]);
-    VML_CHECK();
-    vml::colsum(st, B * Nq, dl, w.dkhat, dl, nullptr, 1, w.partial, dw[11]);
-    VML_CHECK();
-    // w_hat, s_hat, c_hat weights.
-    vml::gemm_tn(st, dl, D, B * Nq, w.dfwh, dl, nullptr, 1, fw, D, w.partial, dw[2]);
-    VML_CHECK();
-    vml::colsum(st, B * Nq, dl, w.dfwh, dl, nullptr, 1, w.partial, dw[3]);
-    VML_CHECK();
-    vml::gemm_tn(st, dl, D, B, w.dfsh, dl, nullptr, 1, fs, D, w.partial, dw[4]);
-    VML_CHECK();
-    vml::colsum(st, B, dl, w.dfsh, dl, nullptr, 1, w.partial, dw[5]);
-    VML_CHECK();
-    vml::gemm_tn(st, dl, D, B * NC, w.dh, dl, nullptr, 1, fc, D, w.partial, dw[0]);
-    VML_CHECK();
-    vml::colsum(st, B * NC, dl, w.dh, dl, nullptr, 1, w.partial, dw[1]);
-    VML_CHECK();
+    err = vml::content_backward(st, B, N, C, Nq, D, dl, fc, fw, fs, qmask, vmask, p, s, w.c,
+                                w.partial, dfc, dw);
+    if (err != cudaSuccess) return (int)err;
 
     // BoundaryUnit.
     boundary_attn_bwd_kernel<<<B * L, 128, 2 * L * sizeof(float), st>>>(
@@ -741,8 +467,6 @@ int vml_smi_layer_bwd_f32(void* stream, int B, int L, int C, int Nq, int D, int 
     ep.post = dfw;
     vml::gemm_nn(st, B * Nq, D, D, w.dbk, D, nullptr, 1, p[14], D, dfw, D, ep);
     VML_CHECK();
-    vml::gemm_nn(st, B * Nq, D, dl, w.dfwh, dl, nullptr, 1, p[2], D, dfw, D, ep);
-    VML_CHECK();
     vml::gemm_tn(st, D, D, B * L, w.dbq, D, nullptr, 1, fb, D, w.partial, dw[12]);
     VML_CHECK();
     vml::colsum(st, B * L, D, w.dbq, D, nullptr, 1, w.partial, dw[13]);
@@ -752,17 +476,13 @@ int vml_smi_layer_bwd_f32(void* stream, int B, int L, int C, int Nq, int D, int 
     vml::colsum(st, B * Nq, D, w.dbk, D, nullptr, 1, w.partial, dw[15]);
     VML_CHECK();
 
-    // Gate (reads dcut from dfc), then the s_hat path of dfs.
+    // Gate (reads dcut from dfc), then the content unit's shares of dfw and
+    // dfs, and dfc = dcut + dh Wch.
     gate_bwd_kernel<<<dim3(B, (D + 127) / 128), 128, 0, st>>>(L, C, D, fm, fs, dmu, dfc, w.Ab,
                                                               w.G, w.dfs_b, dfm, dfs);
     VML_CHECK();
-    ep.post = dfs;
-    vml::gemm_nn(st, B, D, dl, w.dfsh, dl, nullptr, 1, p[4], D, dfs, D, ep);
-    VML_CHECK();
-    // dfc = dcut + dh Wch.
-    ep.post = dfc;
-    vml::gemm_nn(st, B * NC, D, dl, w.dh, dl, nullptr, 1, p[0], D, dfc, D, ep);
-    VML_CHECK();
+    err = vml::content_input_grads(st, B, N, C, Nq, D, dl, p, w.c, true, dfc, dfw, dfs);
+    if (err != cudaSuccess) return (int)err;
 #undef VML_CHECK
     return 0;
 }

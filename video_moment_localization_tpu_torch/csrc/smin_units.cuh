@@ -1,6 +1,8 @@
-// One SMI layer on the device: the per-unit kernels and the host function
-// that sequences them, shared by the serving stack (smin_stack.cu, K4) and
-// the training layer kernels (smin_train.cu, K2 and the recompute of K3).
+// One SMI layer on the device: the per-unit kernels and the host functions
+// that sequence them, shared by the serving stack (smin_stack.cu, K4), the
+// training layer kernels (smin_train.cu, K2 and the recompute of K3) and the
+// content-unit training kernels (content_train.cu, K7, which runs
+// `content_forward` alone).
 //
 // Because the ~1.1 MB of fp32 state per element does not fit a block's
 // 227 KB of shared memory, a layer is a sequence of kernels on one stream
@@ -254,19 +256,24 @@ static __global__ void boundary_unit_kernel(int L, int D, const float* __restric
 }
 
 // One block per (element, pair): x1 = bu[i_n] * bu[j_n], x2 = mean_c(cu).
+// bu and x1 may be null (L is then unused): only the clip mean is written.
 static __global__ void moment_prologue_kernel(int L, int C, int D, const float* __restrict__ bu,
                                        const float* __restrict__ cu,
                                        float* __restrict__ x1, float* __restrict__ x2) {
-    const int N = L * (L + 1) / 2;
     const int pair = blockIdx.x;
-    const int b = pair / N;
-    int i, j;
-    pair_of(pair % N, L, i, j);
-    const float* bi = bu + ((size_t)b * L + i) * D;
-    const float* bj = bu + ((size_t)b * L + j) * D;
+    const float* bi = nullptr;
+    const float* bj = nullptr;
+    if (bu) {
+        const int N = L * (L + 1) / 2;
+        const int b = pair / N;
+        int i, j;
+        pair_of(pair % N, L, i, j);
+        bi = bu + ((size_t)b * L + i) * D;
+        bj = bu + ((size_t)b * L + j) * D;
+    }
     const float* cp = cu + (size_t)pair * C * D;
     for (int d = threadIdx.x; d < D; d += blockDim.x) {
-        x1[(size_t)pair * D + d] = bi[d] * bj[d];
+        if (bu) x1[(size_t)pair * D + d] = bi[d] * bj[d];
         float s = 0.f;
         for (int c = 0; c < C; ++c) s += cp[(size_t)c * D + d];
         x2[(size_t)pair * D + d] = s / (float)C;
@@ -338,34 +345,19 @@ inline size_t layer_forward_smem_bytes(int L, int C, int Nq, int dl) {
         if (vml_err_ != cudaSuccess) return vml_err_;                       \
     } while (0)
 
-// One SMI layer: (fc, fm, fb) -> (cu, mu, bu), intermediates left in `s`.
-// p: the layer's 20 device pointers in the order
-//   c_hat.w, c_hat.b, w_hat.w, w_hat.b, s_hat.w, s_hat.b, c_out.w, c_out.b,
-//   content attn W_q.w, .b, W_k.w, .b, boundary attn W_q.w, .b, W_k.w, .b,
-//   conv_fb.w, .b, conv_fc.w, .b
-// (torch layouts: Linear (out, in), 1x1 conv (out, in, 1, 1)).
-// mu may be null: the two moment convolutions are then skipped (the
-// backward's recompute needs only their inputs x1, x2).
-// Returns the first CUDA error of the launches.
-inline cudaError_t layer_forward(cudaStream_t st, int B, int L, int C, int Nq, int D, int dl,
-                                 const float* fc, const float* fm, const float* fb,
-                                 const float* fw, const float* fs, const float* qmask,
-                                 const float* lmask, const float* vmask,
-                                 const float* const* p, const LayerScratch& s, float* cu,
-                                 float* mu, float* bu) {
-    const int N = L * (L + 1) / 2;
+// The ContentUnit of a layer over N pairs: (fc, fbar) -> cu = c_out(f_cc_hat)
+// * vmask + fc + fbar, with h, q, fwh, khat, fsh and fcc left in `s`. p: the
+// unit's 12 device pointers, the first 12 of `layer_forward`'s order.
+inline cudaError_t content_forward(cudaStream_t st, int B, int N, int C, int Nq, int D, int dl,
+                                   const float* fc, const float* fbar, const float* fw,
+                                   const float* fs, const float* qmask, const float* vmask,
+                                   const float* const* p, const LayerScratch& s, float* cu) {
     const int NC = N * C;
     const size_t csmem = content_smem_bytes(C, Nq, dl);
     cudaError_t err = cudaFuncSetAttribute(
         content_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)csmem);
     if (err != cudaSuccess) return err;
 
-    const size_t nd = (size_t)B * N * D;
-    const int gate_blocks = (int)((nd + 255) / 256 < 4096 ? (nd + 255) / 256 : 4096);
-    gate_kernel<<<gate_blocks, 256, 0, st>>>(nd, N * D, D, fm, fs, s.fbar);
-    VML_CHECK_LAUNCH();
-
-    // ContentUnit
     Epilogue ep;
     ep.bias = p[1];
     ep.rmask = vmask;
@@ -392,11 +384,38 @@ inline cudaError_t layer_forward(cudaStream_t st, int B, int L, int C, int Nq, i
     ep.mask_div = C;
     ep.post = fc;
     ep.ldpost = D;
-    ep.post2 = s.fbar;
+    ep.post2 = fbar;
     ep.ldpost2 = D;
     ep.post2_div = C;
     gemm_nt(st, B * NC, D, dl, s.fcc, dl, p[6], dl, cu, D, ep);
     VML_CHECK_LAUNCH();
+    return cudaSuccess;
+}
+
+// One SMI layer: (fc, fm, fb) -> (cu, mu, bu), intermediates left in `s`.
+// p: the layer's 20 device pointers in the order
+//   c_hat.w, c_hat.b, w_hat.w, w_hat.b, s_hat.w, s_hat.b, c_out.w, c_out.b,
+//   content attn W_q.w, .b, W_k.w, .b, boundary attn W_q.w, .b, W_k.w, .b,
+//   conv_fb.w, .b, conv_fc.w, .b
+// (torch layouts: Linear (out, in), 1x1 conv (out, in, 1, 1)).
+// mu may be null: the two moment convolutions are then skipped (the
+// backward's recompute needs only their inputs x1, x2).
+// Returns the first CUDA error of the launches.
+inline cudaError_t layer_forward(cudaStream_t st, int B, int L, int C, int Nq, int D, int dl,
+                                 const float* fc, const float* fm, const float* fb,
+                                 const float* fw, const float* fs, const float* qmask,
+                                 const float* lmask, const float* vmask,
+                                 const float* const* p, const LayerScratch& s, float* cu,
+                                 float* mu, float* bu) {
+    const int N = L * (L + 1) / 2;
+    const size_t nd = (size_t)B * N * D;
+    const int gate_blocks = (int)((nd + 255) / 256 < 4096 ? (nd + 255) / 256 : 4096);
+    gate_kernel<<<gate_blocks, 256, 0, st>>>(nd, N * D, D, fm, fs, s.fbar);
+    VML_CHECK_LAUNCH();
+
+    cudaError_t err =
+        content_forward(st, B, N, C, Nq, D, dl, fc, s.fbar, fw, fs, qmask, vmask, p, s, cu);
+    if (err != cudaSuccess) return err;
 
     // BoundaryUnit
     linear(st, B * L, D, D, fb, p[12], p[13], s.bq);
@@ -416,7 +435,7 @@ inline cudaError_t layer_forward(cudaStream_t st, int B, int L, int C, int Nq, i
     if (mu) {
         linear(st, B * N, D, D, s.x1, p[16], p[17], s.tmp);
         VML_CHECK_LAUNCH();
-        ep = Epilogue();
+        Epilogue ep;
         ep.bias = p[19];
         ep.pre = s.tmp;
         ep.ldpre = D;

@@ -16,11 +16,14 @@ JAX function, over the triangular-packed moment layout (N = L(L+1)/2 pairs):
 biLSTM (ops/lstm_cuda.py), then the fused SMI stack (ops/smin_cuda.py).
 `smin_forward` is the differentiable training forward: the backbone with the
 plain biLSTM under autograd (the JAX package's own choice for training: its
-fused biLSTM has no backward), the proposal kernel (ops/proposal_cuda.py),
-the per-layer SMI kernels with their hand-written backward
-(ops/smin_train_cuda.py), and the heads in plain PyTorch. Each wrapper
-launches its CUDA kernel on a CUDA tensor and runs its plain version on a
-CPU tensor.
+fused biLSTM has no backward), then one of the JAX package's two kernel
+routes (`whole_layer_train_admits`): the proposal rows kernel and the
+whole-layer SMI kernels with their hand-written backward
+(ops/proposal_cuda.py, ops/smin_train_cuda.py), or the packed proposal
+kernel and the content-unit kernels (ops/content_train_cuda.py) with the
+boundary and moment units in PyTorch ops; then the heads in plain PyTorch.
+Each wrapper launches its CUDA kernel on a CUDA tensor and runs its plain
+version on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -351,9 +354,9 @@ def smin_forward_inference(
 # Training forward
 # --------------------------------------------------------------------- #
 def check_training_config(cfg: ModelConfig) -> None:
-    """The training path implements fp32, the packed layout and the
-    per-layer SMI kernels with their own backward; every other mode raises
-    instead of taking another path."""
+    """The training path implements fp32, the packed layout and the SMI
+    kernels with their own backward; every other mode raises instead of
+    taking another path."""
     unsupported = []
     if cfg.compute_dtype != "float32":
         unsupported.append(f"compute_dtype={cfg.compute_dtype}")
@@ -370,6 +373,29 @@ def check_training_config(cfg: ModelConfig) -> None:
             "not supported by the PyTorch training path: " + ", ".join(unsupported))
 
 
+_WHOLE_LAYER_MAX_ROWS = 4352            # clip rows N * C of one element
+_WHOLE_LAYER_BUDGET_BYTES = 90_000_000  # against 34 bytes per fc element and byte
+
+
+def whole_layer_train_admits(cfg: ModelConfig) -> bool:
+    """Which of the two training routes a config takes: True for the
+    whole-layer kernels (K1, K2, K3), False for the content-unit kernels
+    (K6, K7).
+
+    This is the JAX package's routing, not a limit of the H100: its own copy
+    of ``ops/smin_train_pallas.py::supports_train`` with the constants that
+    ``ops/limits.py`` resolves to on the TPU the package was tuned on (a row
+    cap of its backward kernel and that kernel's working set against its
+    budget of fast memory). It is kept so that both packages train a given
+    config through the same kernels: Charades passes at fp32; TACoS at fp32
+    (N * C = 2112, over the budget) and ActivityNet (N * C = 8320, over the
+    row cap) do not."""
+    rows = cfg.L * (cfg.L + 1) // 2 * cfg.C
+    itemsize = torch.finfo(getattr(torch, cfg.compute_dtype)).bits // 8
+    return (rows <= _WHOLE_LAYER_MAX_ROWS
+            and 34 * rows * cfg.D * itemsize <= _WHOLE_LAYER_BUDGET_BYTES)
+
+
 def smin_forward(
     model: SMIN,
     cfg: ModelConfig,
@@ -380,10 +406,18 @@ def smin_forward(
     length_mask: torch.Tensor,                # (B, L)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Differentiable forward -> (pm (B, N), ps, pe, pa (B, L)), fp32 in
-    [0, 1]: plain backbone -> proposal rows (K1) -> SMI layers (K2, backward
-    K3) -> heads."""
-    # Imported here: both modules import this one for their plain versions.
-    from video_moment_localization_tpu_torch.ops.proposal_cuda import proposal_features_rows
+    [0, 1]: plain backbone, then proposal rows (K1) -> SMI layers (K2,
+    backward K3) where `whole_layer_train_admits`, else packed proposal (K6)
+    -> content-unit layers (K7) with the boundary and moment units in
+    PyTorch ops; then the heads."""
+    # Imported here: these modules import this one for their plain versions.
+    from video_moment_localization_tpu_torch.ops.content_train_cuda import (
+        smi_stack_content_train,
+    )
+    from video_moment_localization_tpu_torch.ops.proposal_cuda import (
+        proposal_features_packed_fused,
+        proposal_features_rows,
+    )
     from video_moment_localization_tpu_torch.ops.smin_train_cuda import smi_stack_layers
 
     check_training_config(cfg)
@@ -391,7 +425,10 @@ def smin_forward(
                          query_features, query_mask, fused_lstm=False)
     length_mask = length_mask.float()
     vmask = packed_valid_mask(length_mask)
-    fc, fm, fb = proposal_features_rows(f, length_mask, cfg.L, cfg.C)
-    fm, fb = smi_stack_layers(model.smis, fc, fm, fb, fw, fs, query_mask, length_mask,
-                              vmask, cfg.L)
+    if whole_layer_train_admits(cfg):
+        proposal, stack = proposal_features_rows, smi_stack_layers
+    else:
+        proposal, stack = proposal_features_packed_fused, smi_stack_content_train
+    fc, fm, fb = proposal(f, length_mask, cfg.L, cfg.C)
+    fm, fb = stack(model.smis, fc, fm, fb, fw, fs, query_mask, length_mask, vmask, cfg.L)
     return localization_packed(model.localization, fm, fb, length_mask, vmask, cfg.L)

@@ -135,6 +135,28 @@ def refuse_grad(fn: str, tensors) -> None:
             f"through models.smin.smin_forward")
 
 
+def check_tensors(fn: str, device, want) -> None:
+    """Raise unless every (name, tensor, shape) of ``want`` is a contiguous
+    float32 tensor of that shape on ``device``. A 1x1 convolution's weight
+    (out, in, 1, 1) counts as (out, in)."""
+    import torch
+
+    for name, t, shape in want:
+        t_shape = tuple(t.shape)
+        if name.startswith("weight") and t.dim() == 4:
+            t_shape = t_shape[:2]
+        if (t_shape != tuple(shape) or t.dtype != torch.float32 or t.device != device
+                or not t.is_contiguous()):
+            raise ValueError(f"{fn}: {name}: want contiguous float32 {tuple(shape)} on "
+                             f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def pointer_array(tensors):
+    """A host array of the tensors' device addresses, for a ``void**``
+    argument."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
 def ptr(t) -> ctypes.c_void_p:
     """Device address of a tensor, for a c_void_p argument."""
     return ctypes.c_void_p(t.data_ptr())

@@ -1,17 +1,26 @@
-"""K1: packed proposal features for training, forward and backward
+"""K1 and K6: packed proposal features for training, forward and backward
 (csrc/proposal_rows.cu).
 
-Counterpart of ``video_moment_localization_tpu/ops/proposal_pallas.py::
-proposal_features_rows`` and its custom VJP (`_rows_fwd` / `_rows_bwd`):
-from the fused backbone features f (B, T, D) to the clip means fc, their
-mean over clips fm and the snippet window means fb. The JAX kernel emits fc
-in c-major rows (B, C*N, D), a layout chosen for the TPU's tiling; this
-port keeps fc n-major, (B, N, C, D), the layout of every other kernel and
-plain function of the package (`ops.packing.pack_rows` converts).
+Counterparts of two kernels of ``video_moment_localization_tpu/ops/
+proposal_pallas.py``, each with its custom VJP: `proposal_features_rows`
+(K1: `_rows_fwd` / `_rows_bwd`), which feeds the whole-layer train kernels,
+and `proposal_features_packed_pallas` (K6: `_packed_fwd` / `_packed_bwd`),
+which feeds the content-unit train path. Both map the fused backbone
+features f (B, T, D) to the clip means fc, their mean over clips fm and the
+snippet window means fb. The JAX kernels multiply by a dense averaging
+matrix and differ in the layout of fc: K1 emits c-major rows (B, C*N, D) for
+the TPU's tiling, K6 n-major (B, N, C, D). This port keeps fc n-major
+everywhere (`ops.packing.pack_rows` converts), and what both kernels compute
+is a mean over a closed-form run of frames per (pair, clip), so on the card
+K1 and K6 are one pair of C entry points of csrc/proposal_rows.cu (a
+segment-mean forward, a gather backward) behind two Python entries, each
+with its own launch counters.
 
-`proposal_features_rows` is the differentiable entry (an autograd Function
-that saves its inputs). `proposal_rows_forward` / `proposal_rows_backward`
-are the two kernel wrappers: on a CPU tensor each runs its plain version
+`proposal_features_rows` (K1) and `proposal_features_packed_fused` (K6) are
+the differentiable entries (autograd Functions that save their inputs).
+`proposal_rows_forward` / `proposal_rows_backward` and
+`proposal_packed_forward` / `proposal_packed_backward` are the kernel
+wrappers: on a CPU tensor each runs its plain version
 (`ops.proposal.proposal_features_packed`, and autograd through it), on a
 CUDA tensor it launches its kernel or raises. ``.launches`` on each counts
 the launches.
@@ -69,13 +78,9 @@ def proposal_rows_backward_plain(length_mask, T: int, L: int, C: int, dfc, dfm, 
         return torch.autograd.grad(out, f, (dfc, dfm, dfb))[0]
 
 
-def proposal_rows_forward(f: torch.Tensor, length_mask: torch.Tensor, L: int,
-                          C: int) -> Features:
-    """f (B, T, D), length_mask (B, L) -> fc (B, N, C, D) masked by the pair
-    validity, fm (B, N, D) = mean over C, fb (B, L, D) window means."""
-    if f.device.type == "cpu":
-        return proposal_features_packed(f, length_mask, L, C)
-    _check_device("proposal_rows_forward", f)
+def _launch_forward(fn: str, f: torch.Tensor, length_mask: torch.Tensor, L: int,
+                    C: int) -> Features:
+    _check_device(fn, f)
     B, T, D = f.shape
     _check_geometry(T, L, C)
     N = L * (L + 1) // 2
@@ -90,17 +95,12 @@ def proposal_rows_forward(f: torch.Tensor, length_mask: torch.Tensor, L: int,
         err = lib.vml_proposal_rows_fwd_f32(stream_of(f), B, T, L, C, D, ptr(f), ptr(vmask),
                                             ptr(fc), ptr(fm), ptr(fb))
     check(lib, "vml_proposal_rows_fwd_f32", err)
-    proposal_rows_forward.launches += 1
     return fc, fm, fb
 
 
-def proposal_rows_backward(length_mask: torch.Tensor, T: int, L: int, C: int,
-                           dfc: torch.Tensor, dfm: torch.Tensor,
-                           dfb: torch.Tensor) -> torch.Tensor:
-    """Cotangents of (fc, fm, fb) -> df (B, T, D)."""
-    if dfc.device.type == "cpu":
-        return proposal_rows_backward_plain(length_mask, T, L, C, dfc, dfm, dfb)
-    _check_device("proposal_rows_backward", dfc)
+def _launch_backward(fn: str, length_mask: torch.Tensor, T: int, L: int, C: int,
+                     dfc: torch.Tensor, dfm: torch.Tensor, dfb: torch.Tensor) -> torch.Tensor:
+    _check_device(fn, dfc)
     B, N, _, D = dfc.shape
     _check_geometry(T, L, C)
     _check("dfc", dfc, (B, L * (L + 1) // 2, C, D), dfc.device)
@@ -114,32 +114,89 @@ def proposal_rows_backward(length_mask: torch.Tensor, T: int, L: int, C: int,
         err = lib.vml_proposal_rows_bwd_f32(stream_of(dfc), B, T, L, C, D, ptr(vmask),
                                             ptr(dfc), ptr(dfm), ptr(dfb), ptr(df))
     check(lib, "vml_proposal_rows_bwd_f32", err)
-    proposal_rows_backward.launches += 1
     return df
 
 
-proposal_rows_forward.launches = 0
-proposal_rows_backward.launches = 0
+def _forward_wrapper(name: str, doc: str):
+    """A kernel wrapper of the forward entry point with its own counter."""
+    def run(f: torch.Tensor, length_mask: torch.Tensor, L: int, C: int) -> Features:
+        if f.device.type == "cpu":
+            return proposal_features_packed(f, length_mask, L, C)
+        out = _launch_forward(name, f, length_mask, L, C)
+        run.launches += 1
+        return out
+
+    run.__name__ = run.__qualname__ = name
+    run.__doc__ = doc
+    run.launches = 0
+    return run
 
 
-class _ProposalRows(torch.autograd.Function):
+def _backward_wrapper(name: str, doc: str):
+    """A kernel wrapper of the backward entry point with its own counter."""
+    def run(length_mask: torch.Tensor, T: int, L: int, C: int, dfc: torch.Tensor,
+            dfm: torch.Tensor, dfb: torch.Tensor) -> torch.Tensor:
+        if dfc.device.type == "cpu":
+            return proposal_rows_backward_plain(length_mask, T, L, C, dfc, dfm, dfb)
+        df = _launch_backward(name, length_mask, T, L, C, dfc, dfm, dfb)
+        run.launches += 1
+        return df
+
+    run.__name__ = run.__qualname__ = name
+    run.__doc__ = doc
+    run.launches = 0
+    return run
+
+
+proposal_rows_forward = _forward_wrapper(
+    "proposal_rows_forward",
+    """K1 forward. f (B, T, D), length_mask (B, L) -> fc (B, N, C, D) masked
+    by the pair validity, fm (B, N, D) = mean over C, fb (B, L, D) window
+    means.""")
+proposal_rows_backward = _backward_wrapper(
+    "proposal_rows_backward",
+    """K1 backward. (length_mask, T, L, C, dfc, dfm, dfb): cotangents of
+    (fc, fm, fb) -> df (B, T, D).""")
+proposal_packed_forward = _forward_wrapper(
+    "proposal_packed_forward",
+    """K6 forward: the same function and device code as `proposal_rows_forward`
+    (the two JAX kernels differ only in fc's layout, which this port does
+    not carry over), counted on its own.""")
+proposal_packed_backward = _backward_wrapper(
+    "proposal_packed_backward",
+    """K6 backward: cotangents of (fc, fm, fb) -> df (B, T, D), counted on its
+    own.""")
+
+
+class _Proposal(torch.autograd.Function):
+    """Differentiable over one pair of kernel wrappers; saves its inputs."""
+
     @staticmethod
-    def forward(ctx, f, length_mask, L, C):
+    def forward(ctx, f, length_mask, L, C, run_forward, run_backward):
         ctx.save_for_backward(f, length_mask)
         ctx.geometry = (L, C)
-        return proposal_rows_forward(f, length_mask, L, C)
+        ctx.run_backward = run_backward
+        return run_forward(f, length_mask, L, C)
 
     @staticmethod
     def backward(ctx, dfc, dfm, dfb):
         f, length_mask = ctx.saved_tensors
         L, C = ctx.geometry
-        df = proposal_rows_backward(length_mask, f.shape[1], L, C, dfc.contiguous(),
-                                    dfm.contiguous(), dfb.contiguous())
-        return df, None, None, None
+        df = ctx.run_backward(length_mask, f.shape[1], L, C, dfc.contiguous(),
+                              dfm.contiguous(), dfb.contiguous())
+        return df, None, None, None, None, None
 
 
 def proposal_features_rows(f: torch.Tensor, length_mask: torch.Tensor, L: int,
                            C: int) -> Features:
-    """Differentiable (fc (B, N, C, D), fm (B, N, D), fb (B, L, D)) of
+    """K1, differentiable: (fc (B, N, C, D), fm (B, N, D), fb (B, L, D)) of
     f (B, T, D); no gradient flows to ``length_mask``."""
-    return _ProposalRows.apply(f, length_mask, L, C)
+    return _Proposal.apply(f, length_mask, L, C, proposal_rows_forward, proposal_rows_backward)
+
+
+def proposal_features_packed_fused(f: torch.Tensor, length_mask: torch.Tensor, L: int,
+                                   C: int) -> Features:
+    """K6, differentiable: the same three features, for the content-unit
+    train path."""
+    return _Proposal.apply(f, length_mask, L, C, proposal_packed_forward,
+                           proposal_packed_backward)

@@ -30,6 +30,7 @@ from video_moment_localization_tpu_torch.ops.cuda_build import (
     MAX_SMEM_BYTES,
     check,
     load_library,
+    pointer_array,
     ptr,
     refuse_grad,
     stream_of,
@@ -73,10 +74,6 @@ def _head_weights(model: SMIN) -> List[torch.Tensor]:
     for layer in (loc.conv_layer_pm, loc.conv_layer_ps, loc.conv_layer_pe, loc.conv_layer_pa):
         out += [layer.weight, layer.bias]
     return out
-
-
-def _pointer_array(tensors: List[torch.Tensor]):
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
 def _check_inputs(model: SMIN, cfg: ModelConfig, tensors) -> None:
@@ -135,7 +132,7 @@ def smin_stack_fused(model: SMIN, cfg: ModelConfig, f, fw, fs, query_mask,
         err = lib.vml_smin_stack_f32(
             stream_of(f), B, T, L, C, Nq, D, dl, cfg.num_smi_layers,
             ptr(f), ptr(fw), ptr(fs), ptr(query_mask), ptr(length_mask), ptr(vmask),
-            _pointer_array(layer_w), _pointer_array(head_w), ptr(ws), ptr(pm), ptr(pb))
+            pointer_array(layer_w), pointer_array(head_w), ptr(ws), ptr(pm), ptr(pb))
     check(lib, "vml_smin_stack_f32", err)
     smin_stack_fused.launches += 1
     return pm, pb[0], pb[1], pb[2]

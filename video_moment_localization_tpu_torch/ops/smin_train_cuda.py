@@ -34,7 +34,9 @@ from video_moment_localization_tpu_torch.models.smin import block_weights, smi_b
 from video_moment_localization_tpu_torch.ops.cuda_build import (
     MAX_SMEM_BYTES,
     check,
+    check_tensors,
     load_library,
+    pointer_array,
     ptr,
     stream_of,
 )
@@ -98,10 +100,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _pointer_array(tensors: Sequence[torch.Tensor]):
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-
-
 def _weight_shapes(D: int, dl: int):
     return [(dl, D), (dl,)] * 3 + [(D, dl), (D,)] + [(dl, dl), (dl,)] * 2 + [(D, D), (D,)] * 4
 
@@ -124,15 +122,7 @@ def _check_inputs(fn: str, weights, fc, fm, fb, fw, fs, query_mask, length_mask,
             ("length_mask", length_mask, (B, L)), ("vmask", vmask, (B, N))]
     want += [(f"weight {k}", w, s) for k, (w, s) in
              enumerate(zip(weights, _weight_shapes(D, dl)))]
-    want += list(cotangents)
-    for name, t, shape in want:
-        t_shape = tuple(t.shape)
-        if name.startswith("weight") and t.dim() == 4:      # 1x1 conv (out, in, 1, 1)
-            t_shape = t_shape[:2]
-        if (t_shape != tuple(shape) or t.dtype != torch.float32 or t.device != fc.device
-                or not t.is_contiguous()):
-            raise ValueError(f"{fn}: {name}: want contiguous float32 {tuple(shape)} on "
-                             f"{fc.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    check_tensors(fn, fc.device, want + list(cotangents))
     return B, C, Nq, D, dl
 
 
@@ -167,7 +157,7 @@ def smi_layer_forward(weights, fc, fm, fb, fw, fs, query_mask, length_mask, vmas
     with torch.cuda.device(fc.device):
         err = lib.vml_smi_layer_fwd_f32(
             stream_of(fc), B, L, C, Nq, D, dl, ptr(fc), ptr(fm), ptr(fb), ptr(fw), ptr(fs),
-            ptr(query_mask), ptr(length_mask), ptr(vmask), _pointer_array(weights),
+            ptr(query_mask), ptr(length_mask), ptr(vmask), pointer_array(weights),
             ptr(ws), ptr(cu), ptr(mu), ptr(bu))
     check(lib, "vml_smi_layer_fwd_f32", err)
     smi_layer_forward.launches += 1
@@ -197,9 +187,9 @@ def smi_layer_backward(weights, fc, fm, fb, fw, fs, query_mask, length_mask, vma
     with torch.cuda.device(fc.device):
         err = lib.vml_smi_layer_bwd_f32(
             stream_of(fc), B, L, C, Nq, D, dl, ptr(fc), ptr(fm), ptr(fb), ptr(fw), ptr(fs),
-            ptr(query_mask), ptr(length_mask), ptr(vmask), _pointer_array(weights),
+            ptr(query_mask), ptr(length_mask), ptr(vmask), pointer_array(weights),
             ptr(dcu) if dcu is not None else None, ptr(dmu), ptr(dbu), ptr(ws),
-            ptr(dfc), ptr(dfm), ptr(dfb), ptr(dfw), ptr(dfs), _pointer_array(dweights))
+            ptr(dfc), ptr(dfm), ptr(dfb), ptr(dfw), ptr(dfs), pointer_array(dweights))
     check(lib, "vml_smi_layer_bwd_f32", err)
     smi_layer_backward.launches += 1
     return dfc, dfm, dfb, dfw, dfs, dweights

@@ -7,7 +7,8 @@ the on-device R@n,IoU=m counts. A step returns ``{"loss", "counts"}`` as
 device tensors and reads nothing back to the host.
 
 The training forward (`models.smin.smin_forward`) runs the plain biLSTM
-under autograd and the K1 / K2 / K3 kernels; the eval forward
+under autograd and the K1 / K2 / K3 kernels, or K6 / K7 for a config that
+takes the content-unit route; the eval forward
 (`smin_forward_inference`) the fused biLSTM and the fused SMI stack. On a
 CUDA device a kernel launches or raises: there is no fallback to the plain
 versions. The steps run on the card unless ``device="cpu"`` is asked for.

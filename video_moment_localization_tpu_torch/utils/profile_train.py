@@ -1,14 +1,16 @@
 """Where a train step's device time goes, kernel by kernel, on a GPU.
 
     python -m video_moment_localization_tpu_torch.utils.profile_train \
-        [--batch 64] [--iters 5] [--seed 0]
+        [--config config/charadessta.yml] [--batch 64] [--iters 5] [--seed 0]
 
-Builds the Charades model (config/charadessta.yml) with random seeded
-weights and a seeded synthetic batch (`synthetic_batch`: random features, GT
-spans through the label generators, ragged lengths, one padded sample), runs
-`parallel.steps.make_train_step` under ``torch.profiler``, and prints the
-device time per step of each kernel, its share, and the device's busy share
-of the window (summed kernel time over wall time). Needs a CUDA device.
+Builds the model of the config it is given (default: Charades,
+config/charadessta.yml; config/activitynet.yml takes the content-unit route)
+with random seeded weights and a seeded synthetic batch (`synthetic_batch`:
+random features, GT spans through the label generators, ragged lengths, one
+padded sample), runs `parallel.steps.make_train_step` under
+``torch.profiler``, and prints the device time per step of each kernel, its
+share, the device's busy share of the window (summed kernel time over wall
+time) and the peak device memory of a step. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -66,6 +68,7 @@ def synthetic_batch(cfg: ModelConfig, B: int, rng: np.random.Generator) -> Dict[
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--config", default=os.path.join(REPO, "config", "charadessta.yml"))
     parser.add_argument("--batch", type=int, nargs="+", default=[64])
     parser.add_argument("--iters", type=int, default=5)
     parser.add_argument("--seed", type=int, default=0)
@@ -73,16 +76,19 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device visible", file=sys.stderr)
         return 1
-    config = load_config(os.path.join(REPO, "config", "charadessta.yml"))
+    config = load_config(args.config)
     rng = np.random.default_rng(args.seed)
     for B in args.batch:
         torch.manual_seed(args.seed)
         model = SMIN(config.model)
         step = make_train_step(config.model, model, build_optimizer(config, model))
         batch = {k: v.cuda() for k, v in synthetic_batch(config.model, B, rng).items()}
+        torch.cuda.reset_peak_memory_stats()
         for _ in range(2):
             step(batch)
         torch.cuda.synchronize()
+        print(f"{os.path.basename(args.config)} B={B}: peak device memory of a step "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         profile_and_report(lambda: step(batch), f"B={B}", "train step", args.iters, top=24)
     return 0
 
