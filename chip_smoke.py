@@ -58,7 +58,26 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
     their plain versions, bounds, for K6 the one matmul with the dense
     averaging matrix; K5 and K4 at that width with their plain versions,
     bounds and for K5 the cuDNN LSTM; the whole step in ms and samples/s,
-    and its device busy share under ``torch.profiler``.
+    and its device busy share under ``torch.profiler``;
+11. the reference-compat modes' kernels at the full Charades width, B=64
+    and B=4, ragged masks: K8 (dense proposal) forward and backward, K10
+    (fused content unit) forward and backward (16 gradients) against their
+    plain versions; K9 (all layers' forward) bit for bit against one K2
+    launch per layer, carries included, and within K2's tolerance of the
+    plain stack; K8 at the ActivityNet width at B=8;
+12. the modes at B=64, 3 Adam steps each from the same weights, every loss
+    and step-1 gradient held to the plain versions as in phase 6:
+    ``packed: False`` (K8 3 + 3), ``compat_head`` + ``fused_content`` (K6
+    3 + 3, K10 9 + 9), and the default route under
+    VML_SMIN_TRAIN_FUSED_FWD=1 (K9 3, K2 0; its losses equal to the
+    per-layer route's bit for bit), no other counter moving; the dense
+    step-1 loss within 2e-5 of the packed route's; an eval step per mode
+    whose loss and recall counts equal the CPU's; the compat localizer's
+    top-k equal to the CPU's;
+13. times at B=64: K8 forward and backward with the one matmul against the
+    dense averaging matrix, K9 against one K2 per layer, K10 forward and
+    backward, with plain versions and bounds; the dense and compat train
+    steps in ms and samples/s.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
@@ -95,6 +114,11 @@ K6_FWD_REPLACES = "video_moment_localization_tpu/ops/proposal_pallas.py:173"
 K6_BWD_REPLACES = "video_moment_localization_tpu/ops/proposal_pallas.py:488"
 K7_FWD_REPLACES = "video_moment_localization_tpu/ops/content_train_pallas.py:361"
 K7_BWD_REPLACES = "video_moment_localization_tpu/ops/content_train_pallas.py:402"
+K8_FWD_REPLACES = "video_moment_localization_tpu/ops/proposal_pallas.py:63"
+K8_BWD_REPLACES = "video_moment_localization_tpu/ops/proposal_pallas.py:121"
+K9_REPLACES = "video_moment_localization_tpu/ops/smin_train_pallas.py:556"
+K10_FWD_REPLACES = "video_moment_localization_tpu/ops/content_pallas.py:173"
+K10_BWD_REPLACES = "video_moment_localization_tpu/ops/content_pallas.py:274"
 SOURCES = ("lstm", "smin_stack", "proposal_rows", "smin_train", "content_train")
 K5_TOL = dict(rtol=1e-4, atol=2e-5)
 K4_TOL = dict(rtol=2e-4, atol=2e-5)
@@ -121,6 +145,9 @@ ANET_PARITY_BATCHES = (TRAIN_BATCH, 8, 2)
 ANET_STEP_PARITY_BATCH = 8
 # An eval step's loss against the plain versions' on the same batch.
 EVAL_LOSS_RTOL = 1e-4
+# The dense layout's step-1 loss against the packed one's (JAX
+# tests/test_packed.py: the same terms averaged over the same denominators).
+DENSE_PACKED_RTOL = 2e-5
 QUERIES = ["person opens the door", "a person sits on the couch",
            "someone takes a xylophone from the shelf", "the person closes a laptop",
            "person pours water into a cup", "a person laughs",
@@ -417,7 +444,7 @@ def phase_times(cfg, gpu, rng):
                               .astype("float32")).to(device)
         qm = mask[..., None].contiguous()
         lm = torch.ones((B, cfg.L), device=device)
-        fwd_ms = cuda_ms(lambda: gpu._score(vf, vm, qf, qm, lm, 5))
+        fwd_ms = cuda_ms(lambda: gpu._score(vf, vm, qf, qm, lm, None, 5))
         print(f"time serving forward + top-5 B={B}: {fwd_ms:.4f} ms, "
               f"{B / fwd_ms * 1e3:.1f} pairs/s on the device")
         res[("e2e", B)] = fwd_ms
@@ -510,7 +537,7 @@ def phase_train_parity(cfg, model, rng, device):
         e1 = max_err(got, want, K1_TOL, f"K1 proposal_rows_forward B={B}")
         cots = [randn_like(t, rng) for t in want]
         dgot = proposal_cuda.proposal_rows_backward(lmask, cfg.T, cfg.L, cfg.C, *cots)
-        dwant = proposal_cuda.proposal_rows_backward_plain(lmask, cfg.T, cfg.L, cfg.C, *cots)
+        dwant = proposal_cuda.proposal_backward_plain(lmask, cfg.T, cfg.L, cfg.C, *cots)
         torch.cuda.synchronize()
         e2 = max_err([dgot], [dwant], K1_TOL, f"K1 proposal_rows_backward B={B}")
         print(f"parity K1 proposal rows B={B}: forward max abs err {e1:.3e}, backward "
@@ -539,30 +566,45 @@ def phase_train_parity(cfg, model, rng, device):
     return errs
 
 
-def plain_train_step(cfg, model, optimizer, batch):
-    """One train step with the plain version in place of every kernel: the
-    packed PyTorch pipeline under autograd. Returns the loss tensor."""
-    import torch
-
+def plain_forward(cfg, model, batch):
+    """The forward of the config's mode with the plain version in place of
+    every kernel: the pipeline of PyTorch ops under autograd (packed, or
+    dense for ``packed: False``; pm densified under ``compat_head``)."""
     from video_moment_localization_tpu_torch.models import smin
     from video_moment_localization_tpu_torch.ops.packing import packed_valid_mask
-    from video_moment_localization_tpu_torch.ops.proposal import proposal_features_packed
+    from video_moment_localization_tpu_torch.ops.proposal import (
+        proposal_features,
+        proposal_features_packed,
+    )
+
+    f, fs, fw = smin.backbone(model.backbone, cfg, batch["video_features"], batch["video_mask"],
+                              batch["query_features"], batch["query_mask"], fused_lstm=False)
+    qmask, lmask = batch["query_mask"], batch["length_mask"]
+    if not cfg.packed:
+        mm = batch["moment_mask"]
+        fc, fm, fb = proposal_features(f, mm, cfg.L, cfg.C)
+        for block in model.smis:
+            fc, fm, fb = smin.smi_block(block, fc, fm, fb, fw, fs, qmask, lmask, mm)
+        return smin.localization(model.localization, fm, fb, lmask, mm)
+    vmask = packed_valid_mask(lmask)
+    fc, fm, fb = proposal_features_packed(f, lmask, cfg.L, cfg.C)
+    for block in model.smis:
+        fc, fm, fb = smin.smi_block_packed(block, fc, fm, fb, fw, fs, qmask, lmask, vmask, cfg.L)
+    return smin.localization_packed(model.localization, fm, fb, lmask, vmask, cfg.L,
+                                    dense_out=cfg.compat_head)
+
+
+def plain_train_step(cfg, model, optimizer, batch):
+    """One train step with the plain version in place of every kernel
+    (`plain_forward`). Returns the loss tensor."""
+    import torch
+
     from video_moment_localization_tpu_torch.train.loss import smin_loss
 
     model.train()
     optimizer.zero_grad(set_to_none=True)
     with torch.enable_grad():
-        f, fs, fw = smin.backbone(model.backbone, cfg, batch["video_features"],
-                                  batch["video_mask"], batch["query_features"],
-                                  batch["query_mask"], fused_lstm=False)
-        lmask = batch["length_mask"]
-        vmask = packed_valid_mask(lmask)
-        fc, fm, fb = proposal_features_packed(f, lmask, cfg.L, cfg.C)
-        for block in model.smis:
-            fc, fm, fb = smin.smi_block_packed(block, fc, fm, fb, fw, fs, batch["query_mask"],
-                                               lmask, vmask, cfg.L)
-        outputs = smin.localization_packed(model.localization, fm, fb, lmask, vmask, cfg.L)
-        loss, _ = smin_loss(outputs, batch)
+        loss, _ = smin_loss(plain_forward(cfg, model, batch), batch)
         loss.backward()
     optimizer.step()
     return loss.detach()
@@ -607,103 +649,162 @@ def check_eval_step(cfg, model, batch, device, label):
     return err
 
 
-def phase_train(config, seed, rng, device):
-    """3 Adam steps through the kernels at B=64, held to the same steps
-    through the plain versions; then one eval step. Returns the step
-    function, the batch and the launch counts of the 3 steps."""
+def mode_counters():
+    from video_moment_localization_tpu_torch.ops import (
+        content_cuda,
+        content_train_cuda,
+        proposal_cuda,
+        smin_train_cuda,
+    )
+
+    return {"K1f": proposal_cuda.proposal_rows_forward,
+            "K1b": proposal_cuda.proposal_rows_backward,
+            "K2": smin_train_cuda.smi_layer_forward, "K3": smin_train_cuda.smi_layer_backward,
+            "K6f": proposal_cuda.proposal_packed_forward,
+            "K6b": proposal_cuda.proposal_packed_backward,
+            "K7f": content_train_cuda.content_rows_forward,
+            "K7b": content_train_cuda.content_rows_backward,
+            "K8f": proposal_cuda.proposal_dense_forward,
+            "K8b": proposal_cuda.proposal_dense_backward,
+            "K9": smin_train_cuda.smi_stack_forward,
+            "K10f": content_cuda.content_unit_forward,
+            "K10b": content_cuda.content_unit_backward}
+
+
+def train_mode(config, cfg, label, initial, batch, per_step, device):
+    """3 Adam steps of ``cfg``'s mode through the kernels from the weights
+    ``initial``, held to the same steps through the plain versions (losses,
+    and every gradient of step 1); each counter must rise by 3 x its
+    ``per_step`` count and no other. Returns (step, model, losses,
+    launches)."""
     import torch
 
     from video_moment_localization_tpu_torch.models.smin import SMIN
-    from video_moment_localization_tpu_torch.ops import proposal_cuda, smin_train_cuda
     from video_moment_localization_tpu_torch.parallel.steps import build_optimizer, make_train_step
-    from video_moment_localization_tpu_torch.utils.profile_train import synthetic_batch
 
-    cfg = config.model
-    torch.manual_seed(seed + 1)
     model = SMIN(cfg)
-    plain_model = SMIN(cfg).to(device)
-    plain_model.load_state_dict(model.state_dict())
-    batch = {k: v.to(device) for k, v in synthetic_batch(cfg, TRAIN_BATCH, rng).items()}
+    model.load_state_dict(initial)
     step = make_train_step(cfg, model, build_optimizer(config, model), device=device)
-
-    counters = {"K1f": proposal_cuda.proposal_rows_forward,
-                "K1b": proposal_cuda.proposal_rows_backward,
-                "K2": smin_train_cuda.smi_layer_forward,
-                "K3": smin_train_cuda.smi_layer_backward}
+    plain_model = SMIN(cfg).to(device)
+    plain_model.load_state_dict(initial)
+    plain_opt = build_optimizer(config, plain_model)
+    counters = mode_counters()
     for fn in counters.values():
         fn.launches = 0
-    plain_opt = build_optimizer(config, plain_model)
     losses, plain_losses = [], []
     for k in range(TRAIN_STEPS):
         metrics = step(batch)
         torch.cuda.synchronize()
         losses.append(float(metrics["loss"]))
         if not (losses[-1] == losses[-1] and abs(losses[-1]) < float("inf")):
-            fail(f"train step {k + 1}: loss {losses[-1]}")
+            fail(f"{label} train step {k + 1}: loss {losses[-1]}")
+        launches = {key: fn.launches for key, fn in counters.items()}
         plain_losses.append(float(plain_train_step(cfg, plain_model, plain_opt, batch)))
         if k == 0:
             if tuple(metrics["counts"].shape) != (2, 4) or metrics["counts"].device.type != "cuda":
-                fail(f"train step 1: counts {tuple(metrics['counts'].shape)} on "
+                fail(f"{label} step 1: counts {tuple(metrics['counts'].shape)} on "
                      f"{metrics['counts'].device}")
-            # Every parameter's gradient of step 1, held to the plain
-            # versions' relative to the largest gradient magnitude.
             plain_grads = {n: p.grad for n, p in plain_model.named_parameters()}
             scale = max(float(g.abs().max()) for g in plain_grads.values())
             worst = 0.0
             for name, p in model.named_parameters():
                 if p.grad is None:
-                    fail(f"train step 1: parameter {name} has no gradient")
+                    fail(f"{label} step 1: parameter {name} has no gradient")
                 worst = max(worst, grad_err(p.grad, plain_grads[name], scale,
-                                            f"train step 1 gradient of {name}") / scale)
-            print(f"training: step 1, {len(plain_grads)} parameter gradients finite and equal "
+                                            f"{label} step 1 gradient of {name}") / scale)
+            print(f"{label}: step 1, {len(plain_grads)} parameter gradients finite and equal "
                   f"to the plain versions' within {worst:.3e} of the largest magnitude "
                   f"{scale:.3e}")
-    launches = {k: fn.launches for k, fn in counters.items()}
-    n_layers = cfg.num_smi_layers
-    want = {"K1f": TRAIN_STEPS, "K1b": TRAIN_STEPS, "K2": TRAIN_STEPS * n_layers,
-            "K3": TRAIN_STEPS * n_layers}
-    print(f"training: {TRAIN_STEPS} steps at B={TRAIN_BATCH}, losses {losses}, launches {launches}")
+            del plain_grads
+    want = {key: TRAIN_STEPS * per_step.get(key, 0) for key in counters}
+    print(f"{label}: {TRAIN_STEPS} steps at B={TRAIN_BATCH}, losses {losses}, launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
     if launches != want:
-        fail(f"kernel launches of {TRAIN_STEPS} train steps: {launches}, expected {want}")
+        fail(f"{label}: kernel launches of {TRAIN_STEPS} train steps: {launches}, expected {want}")
     worst = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
-    print(f"training: plain versions' losses {plain_losses}; max relative difference "
-          f"{worst:.3e} (tolerance {TRAIN_LOSS_RTOL})")
+    print(f"{label}: plain versions' losses {plain_losses}; max relative difference {worst:.3e} "
+          f"(tolerance {TRAIN_LOSS_RTOL})")
     if worst > TRAIN_LOSS_RTOL:
-        fail(f"train losses differ from the plain versions' by {worst:.3e} > {TRAIN_LOSS_RTOL}")
+        fail(f"{label}: losses differ from the plain versions' by {worst:.3e} > {TRAIN_LOSS_RTOL}")
     if not losses[-1] < losses[0]:
-        fail(f"3 steps on one batch did not lower the loss: {losses}")
+        fail(f"{label}: 3 steps on one batch did not lower the loss: {losses}")
+    del plain_model, plain_opt
+    torch.cuda.empty_cache()
+    return step, model, losses, launches
 
+
+def phase_train(config, seed, rng, device):
+    """3 Adam steps through the kernels at B=64, held to the same steps
+    through the plain versions (`train_mode`); then one eval step. Returns
+    the step function, the batch and the launch counts of the 3 steps."""
+    import torch
+
+    from video_moment_localization_tpu_torch.models.smin import SMIN
+    from video_moment_localization_tpu_torch.utils.profile_train import synthetic_batch
+
+    cfg = config.model
+    n = cfg.num_smi_layers
+    torch.manual_seed(seed + 1)
+    initial = SMIN(cfg).state_dict()
+    batch = {k: v.to(device) for k, v in synthetic_batch(cfg, TRAIN_BATCH, rng).items()}
+    step, model, _, launches = train_mode(config, cfg, "training", initial, batch,
+                                          {"K1f": 1, "K1b": 1, "K2": n, "K3": n}, device)
     check_eval_step(cfg, model, batch, device, "training")
     return step, batch, launches
 
 
-def dense_content_matrix(cfg, device):
-    """Wc (N*C, T): the dense averaging matrix of the packed pairs, n-major."""
+def moment_cells(cfg, dense):
+    """(i, j) of every moment: the packed pairs, or all L * L cells."""
+    import numpy as np
+
+    if dense:
+        return np.repeat(np.arange(cfg.L), cfg.L), np.tile(np.arange(cfg.L), cfg.L)
+    return np.triu_indices(cfg.L)
+
+
+def dense_content_matrix(cfg, device, dense=False):
+    """Wc (P*C, T): the dense averaging matrix of the packed pairs (P = N),
+    or of all L * L cells (``dense``; zero rows below the diagonal),
+    n-major."""
     import numpy as np
     import torch
 
     from video_moment_localization_tpu_torch.ops.content_matrix import content_segments
-    from video_moment_localization_tpu_torch.ops.packing import triu_packing
 
-    seg, p = content_segments(cfg.T, cfg.L, cfg.C), triu_packing(cfg.L)
-    wc = np.zeros((p.N, cfg.C, cfg.T), np.float32)
-    for n, (i, j) in enumerate(zip(p.i_idx, p.j_idx)):
+    seg = content_segments(cfg.T, cfg.L, cfg.C)
+    cells = list(zip(*moment_cells(cfg, dense)))
+    wc = np.zeros((len(cells), cfg.C, cfg.T), np.float32)
+    for n, (i, j) in enumerate(cells):
         for c in range(cfg.C):
             s0, size = seg.starts[i, j, c], seg.sizes[i, j, c]
             wc[n, c, s0:s0 + size] = seg.weights[i, j, c]
-    return torch.from_numpy(wc.reshape(p.N * cfg.C, cfg.T)).to(device)
+    return torch.from_numpy(wc.reshape(len(cells) * cfg.C, cfg.T)).to(device)
 
 
-def segment_adds(cfg):
+def segment_adds(cfg, dense=False):
     """Additions per element and forward of the proposal pooling: the frames
-    of every clip, the clip means into fm, the window means."""
-    import numpy as np
-
+    of every clip, the clip means into fm, the window means (for the packed
+    pairs, or all L * L cells)."""
     from video_moment_localization_tpu_torch.ops.content_matrix import content_segments
 
-    N = cfg.L * (cfg.L + 1) // 2
-    sizes = content_segments(cfg.T, cfg.L, cfg.C).sizes[np.triu_indices(cfg.L)]
-    return int(sizes.sum()) * cfg.D + N * cfg.C * cfg.D + cfg.T * cfg.D
+    i, j = moment_cells(cfg, dense)
+    sizes = content_segments(cfg.T, cfg.L, cfg.C).sizes[i, j]
+    return int(sizes.sum()) * cfg.D + len(i) * cfg.C * cfg.D + cfg.T * cfg.D
+
+
+def step_wall_ms(step, batch, iters=9):
+    """Median wall ms of a train step that ends in a synchronize, after 2
+    warm-ups."""
+    import torch
+
+    walls = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls[2:])
 
 
 def phase_train_times(cfg, model, step, batch, rng, device):
@@ -734,7 +835,7 @@ def phase_train_times(cfg, model, step, batch, rng, device):
     g = cots[0].reshape(B, NC, D)
     res["K1b"] = dict(
         ms=cuda_ms(lambda: proposal_cuda.proposal_rows_backward(lmask, T, L, C, *cots)),
-        plain_ms=cuda_ms(lambda: proposal_cuda.proposal_rows_backward_plain(lmask, T, L, C,
+        plain_ms=cuda_ms(lambda: proposal_cuda.proposal_backward_plain(lmask, T, L, C,
                                                                             *cots)),
         library_ms=cuda_ms(lambda: torch.matmul(wct, g)), bound_ms=b_ms, bound_by=b_by)
 
@@ -767,14 +868,7 @@ def phase_train_times(cfg, model, step, batch, rng, device):
               f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     print(f"time K3 B={B} without dcu (top layer): {res['K3_no_dcu_ms']:.4f} ms")
 
-    walls = []
-    for _ in range(12):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(batch)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    res["step_ms"] = statistics.median(walls[2:])
+    res["step_ms"] = step_wall_ms(step, batch, iters=12)
     res["step_device_ms"] = cuda_ms(lambda: step(batch), warmup=0, iters=9)
     print(f"time train step B={B}: {res['step_ms']:.4f} ms wall, {res['step_device_ms']:.4f} ms "
           f"between CUDA events, {B / res['step_ms'] * 1e3:.1f} samples/s; launches per step: "
@@ -827,7 +921,7 @@ def phase_anet_parity(cfg, model, rng, device):
         e1 = max_err(got, want, K1_TOL, f"K6 proposal_packed_forward B={B}")
         cots = [randn_like(t, rng) for t in want]
         dgot = proposal_cuda.proposal_packed_backward(lmask, cfg.T, cfg.L, cfg.C, *cots)
-        dwant = proposal_cuda.proposal_rows_backward_plain(lmask, cfg.T, cfg.L, cfg.C, *cots)
+        dwant = proposal_cuda.proposal_backward_plain(lmask, cfg.T, cfg.L, cfg.C, *cots)
         torch.cuda.synchronize()
         # A frame gathers up to 1,024 pairs here: its sum is held like the
         # other gradients, relative to the gradient's magnitude.
@@ -880,23 +974,6 @@ def phase_anet_parity(cfg, model, rng, device):
     return errs
 
 
-def anet_counters():
-    from video_moment_localization_tpu_torch.ops import (
-        content_train_cuda,
-        proposal_cuda,
-        smin_train_cuda,
-    )
-
-    return {"K6f": proposal_cuda.proposal_packed_forward,
-            "K6b": proposal_cuda.proposal_packed_backward,
-            "K7f": content_train_cuda.content_rows_forward,
-            "K7b": content_train_cuda.content_rows_backward,
-            "K1f": proposal_cuda.proposal_rows_forward,
-            "K1b": proposal_cuda.proposal_rows_backward,
-            "K2": smin_train_cuda.smi_layer_forward,
-            "K3": smin_train_cuda.smi_layer_backward}
-
-
 def phase_anet_train(config, seed, rng, device):
     """Step-1 gradients at B=8 against the plain versions, then 3 Adam steps
     at B=64 through K6 and K7 and one eval step held to the plain versions.
@@ -944,7 +1021,7 @@ def phase_anet_train(config, seed, rng, device):
     model.zero_grad(set_to_none=True)
     step = make_train_step(cfg, model, build_optimizer(config, model), device=device)
     batch = {k: v.to(device) for k, v in synthetic_batch(cfg, TRAIN_BATCH, rng).items()}
-    counters = anet_counters()
+    counters = mode_counters()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
@@ -957,10 +1034,11 @@ def phase_anet_train(config, seed, rng, device):
     launches = {k: fn.launches for k, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_layers = cfg.num_smi_layers
-    want = {"K6f": TRAIN_STEPS, "K6b": TRAIN_STEPS, "K7f": TRAIN_STEPS * n_layers,
-            "K7b": TRAIN_STEPS * n_layers, "K1f": 0, "K1b": 0, "K2": 0, "K3": 0}
+    want = dict({k: 0 for k in counters}, K6f=TRAIN_STEPS, K6b=TRAIN_STEPS,
+                K7f=TRAIN_STEPS * n_layers, K7b=TRAIN_STEPS * n_layers)
     print(f"ActivityNet training: {TRAIN_STEPS} steps at B={TRAIN_BATCH}, losses {losses}, "
-          f"launches {launches}, peak device memory {peak:.3f} GiB")
+          f"launches { {k: v for k, v in launches.items() if v} }, peak device memory "
+          f"{peak:.3f} GiB")
     if launches != want:
         fail(f"kernel launches of {TRAIN_STEPS} ActivityNet train steps: {launches}, "
              f"expected {want}")
@@ -1012,7 +1090,7 @@ def phase_anet_times(cfg, model, step, batch, rng, device):
     g = cots[0].reshape(B, NC, D)
     res["K6b"] = dict(
         ms=cuda_ms(lambda: proposal_cuda.proposal_packed_backward(lmask, T, L, C, *cots), iters=9),
-        plain_ms=cuda_ms(lambda: proposal_cuda.proposal_rows_backward_plain(lmask, T, L, C,
+        plain_ms=cuda_ms(lambda: proposal_cuda.proposal_backward_plain(lmask, T, L, C,
                                                                             *cots), iters=5),
         library_ms=cuda_ms(lambda: torch.matmul(wct, g), iters=9), bound_ms=b_ms, bound_by=b_by)
     del f, cots, g, wc, wct
@@ -1053,18 +1131,352 @@ def phase_anet_times(cfg, model, step, batch, rng, device):
               f"({r['bound_by']})")
     print(f"time K7b ActivityNet B={B} without dcu (top layer): {res['K7b_no_dcu_ms']:.4f} ms")
 
-    walls = []
-    for _ in range(9):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(batch)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    res["step_ms"] = statistics.median(walls[2:])
+    res["step_ms"] = step_wall_ms(step, batch)
     print(f"time ActivityNet train step B={B}: {res['step_ms']:.4f} ms wall, "
           f"{B / res['step_ms'] * 1e3:.1f} samples/s; launches per step: K6 1 + 1, "
           f"K7 {cfg.num_smi_layers} + {cfg.num_smi_layers}")
     profile_and_report(lambda: step(batch), f"ActivityNet B={B}", "train step", 3, top=14)
+    return res
+
+
+# ------------------------------------------------------------------------- #
+# The reference-compat modes: K8 (dense proposal), K9 (all layers' forward in
+# one launch), K10 (the fused content unit of the packed unit loop)
+# ------------------------------------------------------------------------- #
+def dense_moment_mask(lmask):
+    """(B, L, L) moment_mask of a length mask: the valid pairs (i <= j), as
+    data/labels.py::build_masks makes it."""
+    import torch
+
+    return torch.triu(lmask[:, :, None] * lmask[:, None, :]).contiguous()
+
+
+def unit_flops(cfg, Nq):
+    """ops/content_pallas.py:243-244 of the JAX package, per element: the
+    content unit over N * C rows (K7's without the folded conv_fc). Per row:
+    c_hat D*dl, W_q dl*dl, scores and values 2*Nq*dl, the clip attention
+    2*C*dl, c_out dl*D."""
+    L, C, D, dl = cfg.L, cfg.C, cfg.D, cfg.dl
+    N = L * (L + 1) // 2
+    return 2 * N * C * (2 * D * dl + dl * dl + 2 * Nq * dl + 2 * C * dl)
+
+
+def phase_mode_parity(cfg, model, anet_cfg, rng, device):
+    """K8 forward and backward, K9 and K10 forward and backward against their
+    plain versions at the full Charades width, B=64 and B=4, ragged masks
+    (one video cut to L/2, one query of one word); K9 also bit for bit
+    against one K2 launch per layer; K8 at the ActivityNet width at B=8.
+    Returns the largest max abs error of each over the sizes."""
+    import torch
+
+    from video_moment_localization_tpu_torch.models.smin import block_weights
+    from video_moment_localization_tpu_torch.ops import content_cuda, proposal_cuda, smin_train_cuda
+
+    errs = {k: 0.0 for k in ("K8f", "K8b", "K8b_rel", "K9", "K10f", "K10b", "K10b_rel")}
+    unit_w = [w.detach() for w in content_cuda.unit_weights(model.smis[1].content_unit)]
+    stack_w = [w.detach() for b in model.smis for w in block_weights(b)]
+    n_layers = cfg.num_smi_layers
+
+    def k8(c, B, label):
+        f, _, _, _, lmask, _ = stack_inputs(c, B, rng, device, pin=True)
+        mm = dense_moment_mask(lmask)
+        got = proposal_cuda.proposal_dense_forward(f, mm, c.L, c.C)
+        want = proposal_cuda.proposal_features(f, mm, c.L, c.C)
+        torch.cuda.synchronize()
+        e1 = max_err(got, want, K1_TOL, f"K8 proposal_dense_forward {label} B={B}")
+        below = torch.ones(c.L, c.L, device=device).tril(-1).bool()
+        if bool((got[0][:, below] != 0).any()) or bool((got[1][:, below] != 0).any()):
+            fail(f"K8 {label} B={B}: a cell below the diagonal is not 0")
+        cots = [randn_like(t, rng) for t in want]
+        del got, want
+        dgot = proposal_cuda.proposal_dense_backward(mm, c.T, c.L, c.C, *cots)
+        dwant = proposal_cuda.proposal_backward_plain(mm, c.T, c.L, c.C, *cots)
+        torch.cuda.synchronize()
+        scale = float(dwant.abs().max())
+        e2 = grad_err(dgot, dwant, scale, f"K8 proposal_dense_backward {label} B={B}")
+        print(f"parity K8 dense proposal {label} B={B}: forward max abs err {e1:.3e} (tolerance "
+              f"{K1_TOL}), backward {e2:.3e} of magnitude {scale:.3e} (rtol {GRAD_RTOL}, atol "
+              f"{GRAD_ATOL_REL} of the magnitude)")
+        errs["K8f"], errs["K8b"] = max(errs["K8f"], e1), max(errs["K8b"], e2)
+        errs["K8b_rel"] = max(errs["K8b_rel"], e2 / scale)
+
+    for B in (TRAIN_BATCH, 4):
+        k8(cfg, B, "Charades")
+        ins = layer_inputs(cfg, B, rng, device, pin=True)
+        fm_o, fb_o, carries = smin_train_cuda.smi_stack_forward(stack_w, *ins, cfg.L)
+        carry = tuple(ins[:3])
+        for k in range(n_layers):
+            if not all(torch.equal(a, b) for a, b in zip(carries[k], carry)):
+                fail(f"K9 B={B}: layer {k}'s input carry differs from the K2 launches'")
+            carry = smin_train_cuda.smi_layer_forward(stack_w[20 * k:20 * (k + 1)], *carry,
+                                                      *ins[3:], cfg.L)
+        if not (torch.equal(fm_o, carry[1]) and torch.equal(fb_o, carry[2])):
+            fail(f"K9 B={B}: the outputs differ from {n_layers} K2 launches'")
+        # Each layer against the plain layer on its input carry (the
+        # rounding of three layers compounds past K2's tolerance).
+        outs = list(carries[1:]) + [(fm_o, fb_o)]
+        e = 0.0
+        for k in range(n_layers):
+            want = smin_train_cuda.smi_layer_plain(stack_w[20 * k:20 * (k + 1)], *carries[k],
+                                                   *ins[3:], cfg.L)
+            e = max(e, max_err(outs[k], want[-len(outs[k]):], K4_TOL,
+                               f"K9 smi_stack_forward B={B} layer {k}"))
+        torch.cuda.synchronize()
+        print(f"parity K9 smi_stack_forward B={B}: equal bit for bit to {n_layers} K2 launches "
+              f"(outputs and carries); each layer against the plain layer on its input carry, "
+              f"max abs err {e:.3e} (tolerance {K4_TOL})")
+        errs["K9"] = max(errs["K9"], e)
+        del fm_o, fb_o, carries, carry, outs, want
+
+        fc, fm, _, fw, fs, qmask, _, vmask = ins
+        uins = (fc, fm, fw, fs, qmask, vmask)
+        got = content_cuda.content_unit_forward(unit_w, *uins)
+        want = content_cuda.content_unit_plain(unit_w, *uins)
+        torch.cuda.synchronize()
+        e = max_err([got], [want], K4_TOL, f"K10 content_unit_forward B={B}")
+        dcu = randn_like(got, rng)
+        del got, want
+        got = content_cuda.content_unit_backward(unit_w, *uins, dcu)
+        want = content_cuda.content_unit_backward_plain(unit_w, *uins, dcu)
+        torch.cuda.synchronize()
+        worst, rel = gradient_set_err(got, want, ("dfc", "dfm", "dfw", "dfs"), f"K10 B={B}")
+        print(f"parity K10 content_unit B={B}: forward max abs err {e:.3e} (tolerance {K4_TOL}); "
+              f"backward 16 gradients, max abs err {worst:.3e}, {rel:.3e} of the magnitude "
+              f"(rtol {GRAD_RTOL}, atol {GRAD_ATOL_REL} of the magnitude)")
+        errs["K10f"] = max(errs["K10f"], e)
+        errs["K10b"], errs["K10b_rel"] = max(errs["K10b"], worst), max(errs["K10b_rel"], rel)
+        del got, want, ins, uins, dcu
+        torch.cuda.empty_cache()
+    k8(anet_cfg, 8, "ActivityNet")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def check_mode_eval(cfg, model, batch, label):
+    """One eval step of the mode on the card, its loss and recall counts held
+    to the same eval step on the CPU (the plain versions) on the same batch
+    and weights."""
+    import torch
+
+    from video_moment_localization_tpu_torch.models.smin import SMIN
+    from video_moment_localization_tpu_torch.parallel.steps import make_eval_step
+
+    ev = make_eval_step(cfg, model, device=model.localization.conv_layer_pm.weight.device)(batch)
+    torch.cuda.synchronize()
+    cpu_model = SMIN(cfg)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    ref = make_eval_step(cfg, cpu_model, device="cpu")({k: v.cpu() for k, v in batch.items()})
+    loss, ref_loss = float(ev["loss"]), float(ref["loss"])
+    if abs(loss - ref_loss) > EVAL_LOSS_RTOL * abs(ref_loss):
+        fail(f"{label}: eval loss {loss} on the card, {ref_loss} on the CPU")
+    if not torch.equal(ev["counts"].cpu(), ref["counts"]):
+        fail(f"{label}: eval recall counts {ev['counts'].tolist()} on the card, "
+             f"{ref['counts'].tolist()} on the CPU")
+    print(f"{label}: eval step at B={TRAIN_BATCH}, loss {loss:.6f} (CPU {ref_loss:.6f}, rtol "
+          f"{EVAL_LOSS_RTOL}), recall counts equal to the CPU's: {ev['counts'].flatten().tolist()}")
+
+
+def phase_modes(config, seed, rng, device):
+    """The three modes at the full Charades width, B=64, 3 Adam steps each:
+    ``packed: False`` (K8), ``compat_head`` + ``fused_content`` (K6, K10) and
+    the default route under VML_SMIN_TRAIN_FUSED_FWD=1 (K1, K9, K3), each held
+    to the plain versions; the dense step-1 loss against the packed route's,
+    the K9 route's losses against the per-layer route's bit for bit; an eval
+    step per mode against the CPU; the compat localizer against the CPU's.
+    Returns {mode: (step, model, batch, launches)}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from video_moment_localization_tpu_torch.models.smin import SMIN
+    from video_moment_localization_tpu_torch.utils.profile_train import synthetic_batch
+
+    cfg = config.model
+    n = cfg.num_smi_layers
+    dense_cfg = dataclasses.replace(cfg, packed=False)
+    compat_cfg = dataclasses.replace(cfg, compat_head=True, fused_content=True)
+    # One draw of the batch in both label layouts.
+    draws = int(rng.integers(2**31))
+    packed_batch, dense_batch = (
+        {k: v.to(device) for k, v in synthetic_batch(c, TRAIN_BATCH,
+                                                     np.random.default_rng(draws)).items()}
+        for c in (cfg, dense_cfg))
+    torch.manual_seed(seed + 3)
+    initial = SMIN(cfg).state_dict()
+    out = {}
+    for mode, c, batch, per_step in (
+            ("dense", dense_cfg, dense_batch, {"K8f": 1, "K8b": 1}),
+            ("compat", compat_cfg, dense_batch, {"K6f": 1, "K6b": 1, "K10f": n, "K10b": n})):
+        step, model, losses, launches = train_mode(config, c, mode, initial, batch, per_step,
+                                                   device)
+        check_mode_eval(c, model, batch, mode)
+        out[mode] = (step, model, batch, launches, losses)
+
+    previous = os.environ.get("VML_SMIN_TRAIN_FUSED_FWD")
+    os.environ["VML_SMIN_TRAIN_FUSED_FWD"] = "1"
+    try:
+        step, model, losses, launches = train_mode(
+            config, cfg, "fused_fwd", initial, packed_batch,
+            {"K1f": 1, "K1b": 1, "K9": 1, "K3": n}, device)
+        check_mode_eval(cfg, model, packed_batch, "fused_fwd")
+    finally:
+        if previous is None:
+            del os.environ["VML_SMIN_TRAIN_FUSED_FWD"]
+        else:
+            os.environ["VML_SMIN_TRAIN_FUSED_FWD"] = previous
+    out["fused_fwd"] = (step, model, packed_batch, launches, losses)
+    # The same steps through one K2 per layer: the same bits.
+    _, _, layer_losses, _ = train_mode(config, cfg, "per-layer", initial, packed_batch,
+                                       {"K1f": 1, "K1b": 1, "K2": n, "K3": n}, device)
+    if losses != layer_losses:
+        fail(f"the K9 route's losses {losses} differ from the per-layer route's {layer_losses}")
+    print(f"fused_fwd: losses equal bit for bit to the per-layer route's {layer_losses}")
+    dense_first, packed_first = out["dense"][4][0], layer_losses[0]
+    rel = abs(dense_first - packed_first) / abs(packed_first)
+    print(f"dense: step-1 loss {dense_first} against the packed route's {packed_first}, relative "
+          f"difference {rel:.3e} (tolerance {DENSE_PACKED_RTOL})")
+    if rel > DENSE_PACKED_RTOL:
+        fail(f"the dense step-1 loss differs from the packed one by {rel:.3e}")
+
+    check_compat_localizer(compat_cfg, out["compat"][1], rng)
+    return out
+
+
+def check_compat_localizer(cfg, model, rng):
+    """`MomentLocalizer` in the compat mode on the card serving 24 requests:
+    K6 and K10 launch, and the top-k equals the CPU localizer's."""
+    import torch
+
+    from video_moment_localization_tpu_torch.data.glove import WordEmbedding
+    from video_moment_localization_tpu_torch.inference import MomentLocalizer
+    from video_moment_localization_tpu_torch.models.smin import SMIN
+    from video_moment_localization_tpu_torch.ops import content_cuda, proposal_cuda
+
+    words = sorted({w for q in QUERIES for w in q.split()} - {"xylophone"})
+    emb = WordEmbedding.synthetic(words, dim=cfg.word_dim, seed=1)
+    cpu_model = SMIN(cfg)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    gpu = MomentLocalizer(cfg, model, emb, serve_batch=16)
+    cpu = MomentLocalizer(cfg, cpu_model, emb, serve_batch=16, device="cpu")
+    reqs = requests(cfg, rng)
+    before = (proposal_cuda.proposal_packed_forward.launches,
+              content_cuda.content_unit_forward.launches)
+    out = gpu.localize_batch(reqs, top_k=5)
+    torch.cuda.synchronize()
+    launched = (proposal_cuda.proposal_packed_forward.launches - before[0],
+                content_cuda.content_unit_forward.launches - before[1])
+    if min(launched) < 1:
+        fail(f"compat serving: K6 / K10 launched {launched} times")
+    worst = 0.0
+    for k, (g, c) in enumerate(zip(out, cpu.localize_batch(reqs, top_k=5))):
+        if [(m.start, m.end) for m in g] != [(m.start, m.end) for m in c]:
+            fail(f"compat request {k}: top-k {[(m.start, m.end) for m in g]} on the card, "
+                 f"{[(m.start, m.end) for m in c]} on the CPU")
+        worst = max([worst] + [abs(mg.score - mc.score) for mg, mc in zip(g, c)])
+    if worst > SCORE_TOL:
+        fail(f"compat serving: scores differ from the CPU's by {worst:.3e} > {SCORE_TOL}")
+    print(f"compat serving: {len(reqs)} requests, K6 / K10 launches {launched}, top-k equal to "
+          f"the CPU localizer's, max score diff {worst:.3e} (tolerance {SCORE_TOL})")
+
+
+def phase_mode_times(cfg, model, modes, rng, device):
+    """Times at B=64: K8 forward and backward with the one matmul against
+    the dense Wc (L*L*C, T), K9 against one K2 per layer, K10 forward and
+    backward, each with its plain version and bound; the dense and compat
+    train steps."""
+    import torch
+
+    from video_moment_localization_tpu_torch.models.smin import block_weights
+    from video_moment_localization_tpu_torch.ops import content_cuda, proposal_cuda, smin_train_cuda
+
+    B, L, C, D, T, Nq = TRAIN_BATCH, cfg.L, cfg.C, cfg.D, cfg.T, cfg.max_query_length
+    N = L * (L + 1) // 2
+    n_layers = cfg.num_smi_layers
+    res = {}
+
+    f, _, _, _, lmask, _ = stack_inputs(cfg, B, rng, device)
+    mm = dense_moment_mask(lmask)
+    out = proposal_cuda.proposal_features(f, mm, L, C)
+    cots = [randn_like(t, rng) for t in out]
+    wc = dense_content_matrix(cfg, device, dense=True)
+    k8_bytes = 4 * (f.numel() + mm.numel() + sum(t.numel() for t in out))
+    adds = segment_adds(cfg, dense=True)
+    b_ms, b_by = bound(B * adds, k8_bytes)
+    res["K8f"] = dict(
+        ms=cuda_ms(lambda: proposal_cuda.proposal_dense_forward(f, mm, L, C)),
+        plain_ms=cuda_ms(lambda: proposal_cuda.proposal_features(f, mm, L, C)),
+        library_ms=cuda_ms(lambda: torch.matmul(wc, f)), bound_ms=b_ms, bound_by=b_by)
+    # The backward visits the i <= j cells only: it reads their mask, dfc and
+    # dfm, with dfb, and writes df, as K1's backward does.
+    k8b_bytes = 4 * (f.numel() + B * N + B * (N * C + N + L) * D)
+    b_ms, b_by = bound(2 * B * segment_adds(cfg), k8b_bytes)
+    wct = wc.t().contiguous()
+    g = cots[0].reshape(B, L * L * C, D)
+    res["K8b"] = dict(
+        ms=cuda_ms(lambda: proposal_cuda.proposal_dense_backward(mm, T, L, C, *cots)),
+        plain_ms=cuda_ms(lambda: proposal_cuda.proposal_backward_plain(mm, T, L, C, *cots)),
+        library_ms=cuda_ms(lambda: torch.matmul(wct, g)), bound_ms=b_ms, bound_by=b_by)
+    del f, out, cots, wc, wct, g
+
+    stack_w = [w.detach() for b in model.smis for w in block_weights(b)]
+    w_bytes = sum(w.numel() * 4 for w in stack_w)
+    ins = layer_inputs(cfg, B, rng, device)
+    carry_bytes = 4 * B * (N * C + N + L) * D
+    shared_bytes = 4 * sum(t.numel() for t in ins[3:])
+    # In: the carry, the shared inputs, every layer's weights; out: the inner
+    # layers' carries and the top layer's (cu, mu, bu).
+    b_ms, b_by = bound(n_layers * B * layer_flops(cfg, Nq),
+                       (n_layers + 1) * carry_bytes + shared_bytes + w_bytes)
+
+    def per_layer():
+        carry = tuple(ins[:3])
+        for k in range(n_layers):
+            carry = smin_train_cuda.smi_layer_forward(stack_w[20 * k:20 * (k + 1)], *carry,
+                                                      *ins[3:], L)
+
+    res["K9"] = dict(
+        ms=cuda_ms(lambda: smin_train_cuda.smi_stack_forward(stack_w, *ins, L)),
+        plain_ms=cuda_ms(lambda: smin_train_cuda.smi_stack_plain(stack_w, *ins, L)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    res["K9_per_layer_ms"] = cuda_ms(per_layer)
+
+    unit_w = [w.detach() for w in content_cuda.unit_weights(model.smis[1].content_unit)]
+    uw_bytes = sum(w.numel() * 4 for w in unit_w)
+    fc, fm, _, fw, fs, qmask, _, vmask = ins
+    uins = (fc, fm, fw, fs, qmask, vmask)
+    rows_bytes = 4 * B * N * C * D
+    side_bytes = 4 * sum(t.numel() for t in (fm, fw, fs, qmask, vmask))
+    flops = B * unit_flops(cfg, Nq)
+    workspace = content_cuda.Workspace()
+    b_ms, b_by = bound(flops, 2 * rows_bytes + side_bytes + uw_bytes)
+    res["K10f"] = dict(
+        ms=cuda_ms(lambda: content_cuda.content_unit_forward(unit_w, *uins, workspace)),
+        plain_ms=cuda_ms(lambda: content_cuda.content_unit_plain(unit_w, *uins)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    dcu = randn_like(fc, rng)
+    # In: the inputs, dcu, the weights; out: dfc, dfm, dfw, dfs and the
+    # weight gradients.
+    b_ms, b_by = bound(3 * flops, 3 * rows_bytes + 2 * side_bytes + 2 * uw_bytes)
+    res["K10b"] = dict(
+        ms=cuda_ms(lambda: content_cuda.content_unit_backward(unit_w, *uins, dcu, workspace),
+                   iters=9),
+        plain_ms=cuda_ms(lambda: content_cuda.content_unit_backward_plain(unit_w, *uins, dcu),
+                         iters=9),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    del ins, uins, dcu, workspace
+    torch.cuda.empty_cache()
+    for k in ("K8f", "K8b", "K9", "K10f", "K10b"):
+        r = res[k]
+        print(f"time {k} B={B}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    print(f"time K9 B={B}: {n_layers} K2 launches {res['K9_per_layer_ms']:.4f} ms")
+
+    for mode in ("dense", "compat"):
+        step, _, batch, _, _ = modes[mode]
+        res[f"{mode}_step_ms"] = step_wall_ms(step, batch)
+        print(f"time {mode} train step B={B}: {res[f'{mode}_step_ms']:.4f} ms wall, "
+              f"{B / res[f'{mode}_step_ms'] * 1e3:.1f} samples/s")
     return res
 
 
@@ -1130,6 +1542,14 @@ def main(argv=None) -> int:
     anet_step, anet_batch, anet_launches, anet_peak, anet_eval_err = phase_anet_train(
         anet, args.seed, rng, device)
     anet_times = phase_anet_times(anet.model, anet_model, anet_step, anet_batch, rng, device)
+    del anet_step, anet_batch, anet_model
+    torch.cuda.empty_cache()
+
+    torch.manual_seed(args.seed)
+    model = SMIN(cfg).to(device).eval()
+    mode_errs = phase_mode_parity(cfg, model, anet.model, rng, device)
+    modes = phase_modes(config, args.seed, rng, device)
+    mode_times = phase_mode_times(cfg, model, modes, rng, device)
 
     kernels = []
     for key, name, src, rep, err in (
@@ -1178,11 +1598,28 @@ def main(argv=None) -> int:
     kernels[-3]["shares_c_entry_with"] = "proposal_rows_backward"
     kernels[-1]["max_err_of_magnitude"] = anet_errs["K7b_rel"]
     kernels[-1]["ms_without_dcu"] = anet_times["K7b_no_dcu_ms"]
+    for key, name, src, rep, mode in (
+            ("K8f", "proposal_dense_forward", PROPOSAL_SRC, K8_FWD_REPLACES, "dense"),
+            ("K8b", "proposal_dense_backward", PROPOSAL_SRC, K8_BWD_REPLACES, "dense"),
+            ("K9", "smi_stack_forward", TRAIN_SRC, K9_REPLACES, "fused_fwd"),
+            ("K10f", "content_unit_forward", CONTENT_SRC, K10_FWD_REPLACES, "compat"),
+            ("K10b", "content_unit_backward", CONTENT_SRC, K10_BWD_REPLACES, "compat")):
+        r = mode_times[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": modes[mode][3][key], "max_abs_err": mode_errs[key],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "batch": TRAIN_BATCH,
+            "mode": mode,
+        })
+    kernels[-4]["max_err_of_magnitude"] = mode_errs["K8b_rel"]
+    kernels[-3]["per_layer_k2_ms"] = mode_times["K9_per_layer_ms"]
+    kernels[-1]["max_err_of_magnitude"] = mode_errs["K10b_rel"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"train_step": {
         "batch": TRAIN_BATCH, "ms": train_times["step_ms"],
         "samples_per_s": TRAIN_BATCH / train_times["step_ms"] * 1e3,
-        "launches_per_step": {k: v // TRAIN_STEPS for k, v in train_launches.items()}}}))
+        "launches_per_step": {k: v // TRAIN_STEPS for k, v in train_launches.items() if v}}}))
     print(json.dumps({"activitynet_train_step": {
         "batch": TRAIN_BATCH, "ms": anet_times["step_ms"],
         "samples_per_s": TRAIN_BATCH / anet_times["step_ms"] * 1e3,
@@ -1191,6 +1628,12 @@ def main(argv=None) -> int:
         "eval_forward_max_abs_err": anet_eval_err,
         "k4_l64": dict(anet_times["K4"], max_abs_err=anet_errs["K4"]),
         "k5_nq20": dict(anet_times["K5"], max_abs_err=anet_errs["K5"])}}))
+    print(json.dumps({"mode_train_steps": {
+        mode: {"batch": TRAIN_BATCH, "ms": mode_times[f"{mode}_step_ms"],
+               "samples_per_s": TRAIN_BATCH / mode_times[f"{mode}_step_ms"] * 1e3,
+               "losses": modes[mode][4],
+               "launches_per_step": {k: v // TRAIN_STEPS for k, v in modes[mode][3].items() if v}}
+        for mode in ("dense", "compat")}}))
     print(json.dumps({"serving_pairs_per_s_device": {
         str(B): B / times[("e2e", B)] * 1e3 for B in (16, 512)}}))
     print(json.dumps({"ok": True, "device": {

@@ -31,9 +31,12 @@ def make_model(seed, shape=None):
     return params, model
 
 
-def make_batch(B=4, seed=0, cfg=CFG):
+def make_batch(B=4, seed=0, cfg=CFG, packed_labels=True):
     """Numpy batch: ragged videos and queries, one query with a single valid
-    word, random GT spans, the last sample padded (sample_mask 0)."""
+    word, random GT spans, the last sample padded (sample_mask 0). The IoU
+    map and its labels are packed (B, N), or with ``packed_labels=False``
+    dense (B, L, L) beside the ``moment_mask`` (the dense layout and
+    ``compat_head``); the same draws either way."""
     rng = np.random.default_rng(seed)
     Nq, L, T = cfg.max_query_length, cfg.L, cfg.T
     nfeats = rng.integers(3, T + 1, size=B)
@@ -41,13 +44,16 @@ def make_batch(B=4, seed=0, cfg=CFG):
     qlen = rng.integers(2, Nq + 1, size=B)
     qlen[1 % B] = 1
     batch = {k: [] for k in ("video_mask", "length_mask", "ym", "sm", "ys", "ss", "ye", "se",
-                             "ya")}
+                             "ya", "moment_mask")}
     for b in range(B):
-        vm, lm, _ = labels.build_masks(int(nfeats[b]), T, L)
+        vm, lm, mm = labels.build_masks(int(nfeats[b]), T, L)
         duration = float(rng.uniform(5.0, 40.0))
         s = float(rng.uniform(0.0, 0.6 * duration))
         e = float(rng.uniform(s + 0.1 * duration, duration))
-        sm = labels.pack_triu(labels.iou_target_map(s, e, duration, L))
+        sm = labels.iou_target_map(s, e, duration, L)
+        if packed_labels:
+            sm = labels.pack_triu(sm)
+        batch["moment_mask"].append(mm)
         ss, se = labels.boundary_penalties(s, e, duration, L)
         batch["video_mask"].append(vm)
         batch["length_mask"].append(lm)
@@ -59,6 +65,8 @@ def make_batch(B=4, seed=0, cfg=CFG):
         batch["ye"].append((se > 0.5).astype(np.float32))
         batch["ya"].append(labels.snippet_labels(s, e, duration, L))
     batch = {k: np.stack(v) for k, v in batch.items()}
+    if packed_labels:
+        del batch["moment_mask"]
     batch["video_features"] = (rng.standard_normal((B, T, cfg.input_video_dim))
                                .astype(np.float32) * batch["video_mask"])
     qmask = (np.arange(Nq)[None, :] < qlen[:, None]).astype(np.float32)[..., None]
@@ -122,3 +130,88 @@ def jax_stack_grads(stack_fn, params, ins, wm, wb):
     grads.update({n: v.numpy() for n, v in state_dict_from_jax_params(
         jax.tree.map(np.asarray, g[0])).items() if n.startswith("smis.")})
     return np.asarray(outs[0]), np.asarray(outs[1]), grads
+
+
+# The reference-compat modes: the dense layout, and the packed unit loop with
+# the dense head and the fused content unit.
+MODES = {"dense": dict(packed=False), "compat": dict(compat_head=True, fused_content=True)}
+FORWARD_KEYS = ("video_features", "video_mask", "query_features", "query_mask", "length_mask",
+                "moment_mask")
+# The train kernel tests' gradient tolerance.
+GRAD_TOL = dict(rtol=5e-4, atol=5e-5)
+
+
+def mode_configs(mode, shape=None):
+    """(JAX ModelConfig, port ModelConfig) of ``shape`` (default SHAPE) in a
+    mode of MODES."""
+    kw = dict(SHAPE if shape is None else shape, **MODES[mode])
+    return JaxModelConfig(**kw), ModelConfig(**kw)
+
+
+def assert_loss_and_gradients_match_jax(jcfg, cfg, params, model, batch):
+    """The loss of the port's `smin_forward` + `smin_loss` and every
+    parameter's gradient against jax.value_and_grad of the JAX package's,
+    on one numpy batch."""
+    from video_moment_localization_tpu.models import smin_forward as j_smin_forward
+    from video_moment_localization_tpu.train.loss import smin_loss as j_smin_loss
+    from video_moment_localization_tpu_torch.models.smin import smin_forward
+    from video_moment_localization_tpu_torch.train.loss import smin_loss
+
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+
+    def jloss(p):
+        return j_smin_loss(j_smin_forward(p, jcfg, *(jbatch.get(k) for k in FORWARD_KEYS)),
+                           jbatch)[0]
+
+    want, gwant = jax.jit(jax.value_and_grad(jloss))(params)
+    tb = to_torch(batch)
+    model.zero_grad(set_to_none=True)
+    loss, _ = smin_loss(smin_forward(model, cfg, *(tb.get(k) for k in FORWARD_KEYS)), tb)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(want), rtol=1e-5)
+    sd = state_dict_from_jax_params(jax.tree.map(np.asarray, gwant))
+    named = dict(model.named_parameters())
+    assert set(sd) == set(named)
+    for name, p in named.items():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        np.testing.assert_allclose(p.grad.numpy(), sd[name].numpy(), **GRAD_TOL, err_msg=name)
+
+
+def assert_steps_match_jax(jcfg, cfg, params, model, batches, lr=5e-4):
+    """`make_train_step` on the CPU against the JAX `make_train_step` (optax
+    Adam) over ``batches``: the first loss within 1e-5, the later ones within
+    2e-4 (Adam turns rounding noise in a near-zero gradient into a full
+    +-lr step), the first step's recall counts equal; then `make_eval_step`
+    on the updated weights of each side: loss within 2e-4, counts of the
+    first batch. Returns the port's step metrics."""
+    import optax
+
+    from video_moment_localization_tpu.parallel import steps as jsteps
+    from video_moment_localization_tpu_torch.config import Config
+    from video_moment_localization_tpu_torch.parallel.steps import (
+        build_optimizer,
+        make_eval_step,
+        make_train_step,
+    )
+
+    jopt = optax.adam(lr)
+    jstep = jsteps.make_train_step(jcfg, jopt)
+    jparams = jax.tree.map(jnp.asarray, params)
+    state = jopt.init(jparams)
+    want = []
+    for b in batches:
+        jparams, state, metrics = jstep(jparams, state, {k: jnp.asarray(v) for k, v in b.items()})
+        want.append((float(metrics["loss"]), np.asarray(metrics["counts"])))
+    step = make_train_step(cfg, model, build_optimizer(Config(model=cfg, lr=lr), model),
+                           device="cpu")
+    got = [step(to_torch(b)) for b in batches]
+    np.testing.assert_allclose(float(got[0]["loss"]), want[0][0], rtol=1e-5)
+    np.testing.assert_allclose([float(g["loss"]) for g in got], [w[0] for w in want], rtol=2e-4)
+    np.testing.assert_array_equal(got[0]["counts"].numpy(), want[0][1])
+
+    jeval = jsteps.make_eval_step(jcfg)(jparams, {k: jnp.asarray(v) for k, v in
+                                                  batches[0].items()})
+    teval = make_eval_step(cfg, model, device="cpu")(to_torch(batches[0]))
+    np.testing.assert_allclose(float(teval["loss"]), float(jeval["loss"]), rtol=2e-4)
+    assert teval["counts"].shape == (2, 4)
+    return got

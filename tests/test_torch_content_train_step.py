@@ -50,12 +50,12 @@ def test_shipped_configs_take_the_jax_route(name, whole_layer):
     cfg = load_config(path).model
     assert smin.whole_layer_train_admits(cfg) is whole_layer
     assert smin_train_pallas.supports_train(j_load_config(path).model) is whole_layer
-    smin.check_training_config(cfg)
+    smin.check_config(cfg)
     # The JAX rule admits TACoS at bf16; the port has no bf16 training yet.
     bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
     assert smin.whole_layer_train_admits(bf16) is (name != "activitynet")
     with pytest.raises(NotImplementedError, match="bfloat16"):
-        smin.check_training_config(bf16)
+        smin.check_config(bf16)
 
 
 def test_forward_routes_by_the_rule(monkeypatch):

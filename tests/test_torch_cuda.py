@@ -9,6 +9,8 @@ without them:
     python -m pytest -q --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -19,13 +21,14 @@ from video_moment_localization_tpu_torch.inference import MomentLocalizer
 from video_moment_localization_tpu_torch.models.lstm import BiLSTMParams, lstm_layers
 from video_moment_localization_tpu_torch.models.smin import SMIN, block_weights
 from video_moment_localization_tpu_torch.ops import (
+    content_cuda,
     content_train_cuda,
     lstm_cuda,
     proposal_cuda,
     smin_cuda,
     smin_train_cuda,
 )
-from video_moment_localization_tpu_torch.ops.packing import packed_valid_mask
+from video_moment_localization_tpu_torch.ops.packing import packed_valid_mask, unpack_map
 from video_moment_localization_tpu_torch.parallel.steps import build_optimizer, make_train_step
 
 pytestmark = pytest.mark.cuda
@@ -374,3 +377,198 @@ def test_serving_kernels_at_the_activitynet_width(card, B):
     for g_, w_ in zip(got, want):
         assert bool(torch.isfinite(g_).all())
         torch.testing.assert_close(g_, w_, **STACK_TOL)
+
+
+# --------------------------------------------------------------------------- #
+# The reference-compat modes: K8 (dense proposal), K9 (all layers' forward),
+# K10 (the fused content unit of the packed unit loop).
+# --------------------------------------------------------------------------- #
+def _moment_mask(cfg, B, g):
+    """A moment_mask with fractional values, ones below the diagonal (where
+    the kernel must still write zeros) and one short video."""
+    mm = torch.rand(B, cfg.L, cfg.L, generator=g)
+    mm = torch.where(torch.ones(cfg.L, cfg.L).tril(-1).bool(), torch.ones(()), mm)
+    mm[0, :, cfg.L // 2:] = 0
+    return mm
+
+
+@pytest.mark.parametrize("cfg,B", [(TINY, 3), (ODD, 7), (CHARADES, 5), (ACTIVITYNET, 2)])
+def test_proposal_dense_kernels_match_plain(card, cfg, B):
+    """K8 forward and backward against the plain dense pooling and autograd
+    through it; every output element is written, zeros below the diagonal."""
+    g = torch.Generator().manual_seed(B)
+    f = torch.randn(B, cfg.T, cfg.D, generator=g).to(card).requires_grad_(True)
+    mm = _moment_mask(cfg, B, g).to(card)
+    before = (proposal_cuda.proposal_dense_forward.launches,
+              proposal_cuda.proposal_dense_backward.launches,
+              proposal_cuda.proposal_rows_forward.launches,
+              proposal_cuda.proposal_packed_backward.launches)
+    got = proposal_cuda.proposal_features_dense_fused(f, mm, cfg.L, cfg.C)
+    cots = [torch.randn(o.shape, generator=g).to(card) for o in got]
+    df = torch.autograd.grad(got, f, cots)[0]
+    want = proposal_cuda.proposal_features(f, mm, cfg.L, cfg.C)
+    df_want = torch.autograd.grad(want, f, cots)[0]
+    torch.cuda.synchronize()
+    assert (proposal_cuda.proposal_dense_forward.launches,
+            proposal_cuda.proposal_dense_backward.launches,
+            proposal_cuda.proposal_rows_forward.launches,
+            proposal_cuda.proposal_packed_backward.launches) == (
+                before[0] + 1, before[1] + 1, before[2], before[3])
+    below = torch.ones(cfg.L, cfg.L).tril(-1).bool().to(card)
+    for o, w in zip(got, want):
+        torch.testing.assert_close(o, w, rtol=1e-5, atol=1e-5)
+    assert bool((got[0][:, below] == 0).all()) and bool((got[1][:, below] == 0).all())
+    _assert_grad_close(df, df_want, "df")
+
+
+@pytest.mark.parametrize("cfg,B", [(TINY, 1), (TINY, 9), (ODD, 7), (CHARADES, 5)])
+def test_content_unit_kernels_match_plain(card, cfg, B):
+    """K10 forward and backward: cu, dfc, dfm, dfw, dfs and the 12 weight
+    gradients, against `content_unit_packed` and autograd through it."""
+    torch.manual_seed(B)
+    block = SMIN(cfg).to(card).smis[1]
+    weights = [w.detach() for w in content_cuda.unit_weights(block.content_unit)]
+    fc, fm, _, fw, fs, qmask, _, vmask = _layer_inputs(cfg, B, seed=B, device=card)
+    ins = (fc, fm, fw, fs, qmask, vmask)
+    before = (content_cuda.content_unit_forward.launches,
+              content_cuda.content_unit_backward.launches,
+              content_train_cuda.content_rows_forward.launches)
+    with torch.no_grad():
+        got = content_cuda.content_unit_forward(weights, *ins)
+        want = content_cuda.content_unit_plain(weights, *ins)
+    torch.testing.assert_close(got, want, **STACK_TOL)
+    dcu = torch.randn(fc.shape, generator=torch.Generator().manual_seed(100 + B)).to(card)
+    got = content_cuda.content_unit_backward(weights, *ins, dcu)
+    want = content_cuda.content_unit_backward_plain(weights, *ins, dcu)
+    torch.cuda.synchronize()
+    assert (content_cuda.content_unit_forward.launches,
+            content_cuda.content_unit_backward.launches,
+            content_train_cuda.content_rows_forward.launches) == (before[0] + 1, before[1] + 1,
+                                                                  before[2])
+    for g_, w_, name in zip(got[:4], want[:4], ("dfc", "dfm", "dfw", "dfs")):
+        _assert_grad_close(g_, w_, name)
+    scale = max(float(w_.abs().max()) for w_ in want[4])
+    for k, (g_, w_) in enumerate(zip(got[4], want[4])):
+        _assert_grad_close(g_, w_, f"weight gradient {k}", scale)
+
+
+@pytest.mark.parametrize("cfg,B", [(TINY, 5), (ODD, 3), (CHARADES, 4)])
+def test_stack_forward_kernel_equals_per_layer_kernels(card, cfg, B, monkeypatch):
+    """K9 writes bit for bit what one K2 launch per layer writes, carries
+    included, and each of its layers is within K2's tolerance of the plain
+    layer on that layer's input carry (over three layers the rounding
+    compounds past it); the stack under VML_SMIN_TRAIN_FUSED_FWD=1 launches
+    K9 once and K2 never, and its gradients (K3 on those carries) are the
+    per-layer route's bit for bit."""
+    torch.manual_seed(B)
+    model = SMIN(cfg).to(card)
+    weights = [w.detach() for b in model.smis for w in block_weights(b)]
+    fc, fm, fb, fw, fs, qmask, lmask, vmask = _layer_inputs(cfg, B, seed=B, device=card)
+    shared = (fw, fs, qmask, lmask, vmask)
+    fm_out, fb_out, carries = smin_train_cuda.smi_stack_forward(weights, fc, fm, fb, *shared,
+                                                                cfg.L)
+    carry = (fc, fm, fb)
+    for k in range(cfg.num_smi_layers):
+        for a, b in zip(carries[k], carry):
+            assert torch.equal(a, b)
+        carry = smin_train_cuda.smi_layer_forward(weights[20 * k:20 * (k + 1)], *carry, *shared,
+                                                  cfg.L)
+    assert torch.equal(fm_out, carry[1]) and torch.equal(fb_out, carry[2])
+    outs = [c for c in carries[1:]] + [(None, fm_out, fb_out)]
+    for k in range(cfg.num_smi_layers):
+        want = smin_train_cuda.smi_layer_plain(weights[20 * k:20 * (k + 1)], *carries[k],
+                                               *shared, cfg.L)
+        for g_, w_ in zip(outs[k], want):
+            if g_ is not None:
+                torch.testing.assert_close(g_, w_, **STACK_TOL)
+
+    grads = {}
+    for flag in ("0", "1"):
+        monkeypatch.setenv("VML_SMIN_TRAIN_FUSED_FWD", flag)
+        leaves = [t.clone().requires_grad_(True) for t in (fc, fm, fb, fw, fs)]
+        model.zero_grad(set_to_none=True)
+        before = (smin_train_cuda.smi_stack_forward.launches,
+                  smin_train_cuda.smi_layer_forward.launches)
+        out = smin_train_cuda.smi_stack_layers(model.smis, *leaves, qmask, lmask, vmask, cfg.L)
+        ((out[0] * vmask[..., None]).sum() + (out[1] * lmask[..., None]).sum()).backward()
+        torch.cuda.synchronize()
+        launched = (smin_train_cuda.smi_stack_forward.launches - before[0],
+                    smin_train_cuda.smi_layer_forward.launches - before[1])
+        assert launched == ((1, 0) if flag == "1" else (0, cfg.num_smi_layers))
+        grads[flag] = [t.grad for t in leaves] + [p.grad for p in model.smis.parameters()]
+    for a, b in zip(grads["0"], grads["1"]):
+        assert torch.equal(a, b)
+
+
+def _dense_train_batch(cfg, B, seed):
+    """`_train_batch` with its IoU map and labels dense (B, L, L) beside the
+    moment_mask, as the dense layout and compat_head read them."""
+    batch = _train_batch(cfg, B, seed)
+    for k in ("sm", "ym"):
+        batch[k] = unpack_map(batch[k], cfg.L)
+    batch["moment_mask"] = unpack_map(packed_valid_mask(batch["length_mask"]), cfg.L)
+    return batch
+
+
+def _counters():
+    return {"K1f": proposal_cuda.proposal_rows_forward, "K1b": proposal_cuda.proposal_rows_backward,
+            "K2": smin_train_cuda.smi_layer_forward, "K3": smin_train_cuda.smi_layer_backward,
+            "K6f": proposal_cuda.proposal_packed_forward,
+            "K6b": proposal_cuda.proposal_packed_backward,
+            "K7f": content_train_cuda.content_rows_forward,
+            "K7b": content_train_cuda.content_rows_backward,
+            "K8f": proposal_cuda.proposal_dense_forward,
+            "K8b": proposal_cuda.proposal_dense_backward,
+            "K9": smin_train_cuda.smi_stack_forward,
+            "K10f": content_cuda.content_unit_forward,
+            "K10b": content_cuda.content_unit_backward}
+
+
+@pytest.mark.parametrize("mode", ["dense", "compat", "fused_fwd"])
+def test_mode_train_steps_on_card_match_cpu(card, mode, monkeypatch):
+    """Three Adam steps in each reference-compat mode on the card against the
+    same steps through the plain versions on the CPU, and the kernels each
+    mode launches per step (and no other)."""
+    n = TINY.num_smi_layers
+    cfg, batch, per_step = {
+        "dense": (dataclasses.replace(TINY, packed=False), _dense_train_batch,
+                  {"K8f": 1, "K8b": 1}),
+        "compat": (dataclasses.replace(TINY, compat_head=True, fused_content=True),
+                   _dense_train_batch, {"K6f": 1, "K6b": 1, "K10f": n, "K10b": n}),
+        "fused_fwd": (TINY, _train_batch, {"K1f": 1, "K1b": 1, "K9": 1, "K3": n}),
+    }[mode]
+    if mode == "fused_fwd":
+        monkeypatch.setenv("VML_SMIN_TRAIN_FUSED_FWD", "1")
+    torch.manual_seed(0)
+    ref = SMIN(cfg)
+    models = {"cuda": SMIN(cfg), "cpu": ref}
+    models["cuda"].load_state_dict(ref.state_dict())
+    counters = _counters()
+    before = {k: fn.launches for k, fn in counters.items()}
+    losses = {}
+    for device, model in models.items():
+        step = make_train_step(cfg, model, build_optimizer(Config(model=cfg), model),
+                               device=device)
+        losses[device] = [float(step(batch(cfg, 4, seed=k))["loss"]) for k in range(3)]
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    launched = {k: fn.launches - before[k] for k, fn in counters.items()}
+    assert launched == {k: 3 * per_step.get(k, 0) for k in counters}
+
+
+@pytest.mark.parametrize("mode", ["compat", "dense"])
+def test_mode_localizer_on_card_matches_cpu(card, mode):
+    change = {"compat_head": True} if mode == "compat" else {"packed": False}
+    cfg = dataclasses.replace(TINY, **change)
+    torch.manual_seed(0)
+    model = SMIN(cfg)
+    emb = WordEmbedding.synthetic(["person", "opens", "the", "door", "sits"], dim=300)
+    gpu = MomentLocalizer(cfg, SMIN(cfg), emb, serve_batch=8)
+    gpu.model.load_state_dict(model.state_dict())
+    cpu = MomentLocalizer(cfg, model, emb, serve_batch=8, device="cpu")
+    rng = np.random.default_rng(1)
+    vids = [rng.standard_normal((int(n), 12)).astype(np.float32) for n in (5, 16, 40)]
+    reqs = [(vids[k % 3], ["person opens the door", "the xylophone sits"][k % 2], 9.0)
+            for k in range(11)]
+    for g, c in zip(gpu.localize_batch(reqs, top_k=5), cpu.localize_batch(reqs, top_k=5)):
+        assert [(m.start, m.end) for m in g] == [(m.start, m.end) for m in c]
+        np.testing.assert_allclose([m.score for m in g], [m.score for m in c], atol=1e-5)

@@ -1,7 +1,7 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX package,
-its entry points default to the card and refuse what the slice does not
-implement, its kernel path names no library kernel, and chip_smoke.py fails
-without a card."""
+its entry points default to the card and take every mode of the JAX package
+but bf16, which they refuse, its kernel path names no library kernel, and
+chip_smoke.py fails without a card."""
 
 import os
 import re
@@ -72,6 +72,7 @@ def test_importing_the_port_loads_no_jax():
             "import video_moment_localization_tpu_torch.parallel.steps\n"
             "import video_moment_localization_tpu_torch.ops.proposal_cuda\n"
             "import video_moment_localization_tpu_torch.ops.smin_train_cuda\n"
+            "import video_moment_localization_tpu_torch.ops.content_cuda\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'video_moment_localization_tpu')]\n"
             "print(sorted(bad))\n")
@@ -96,35 +97,58 @@ def test_entry_points_default_to_the_card():
         make_eval_step(TINY, model)
 
 
+def _tiny_args(B=2):
+    """Inputs of a TINY forward, with the dense layout's moment_mask."""
+    lm = torch.ones(B, 4)
+    mm = torch.triu(lm[:, :, None] * lm[:, None, :])
+    return (torch.zeros(B, 8, 6), torch.ones(B, 8, 1), torch.zeros(B, 4, 300),
+            torch.ones(B, 4, 1), lm, mm)
+
+
+def _assert_scores(cfg, outputs, B=2):
+    pm, ps, pe, pa = outputs
+    dense = not cfg.packed or cfg.compat_head
+    assert tuple(pm.shape) == ((B, 4, 4) if dense else (B, 10))
+    for x in (pm, ps, pe, pa):
+        assert torch.isfinite(x).all() and (x >= 0).all() and (x <= 1).all()
+
+
 @pytest.mark.parametrize("change", [dict(compute_dtype="bfloat16"), dict(compat_head=True),
                                     dict(fused_smi=False), dict(fused_lstm=False),
                                     dict(packed=False)])
 def test_modes_outside_the_slice_raise(change):
+    """The slice is every mode of the JAX package's serving forward but bf16:
+    a compute_dtype other than float32 raises (the port has no bf16 yet), and
+    each of the other modes, once outside the slice, runs."""
     import dataclasses
 
     cfg = dataclasses.replace(TINY, **change)
-    B = 2
-    args = (torch.zeros(B, 8, 6), torch.ones(B, 8, 1), torch.zeros(B, 4, 300),
-            torch.ones(B, 4, 1), torch.ones(B, 4))
-    with pytest.raises(NotImplementedError, match="not supported by the PyTorch serving path"):
-        smin_forward_inference(SMIN(cfg), cfg, *args)
+    if cfg.compute_dtype != "float32":
+        with pytest.raises(NotImplementedError, match="not supported by the PyTorch port"):
+            smin_forward_inference(SMIN(cfg), cfg, *_tiny_args())
+        return
+    _assert_scores(cfg, smin_forward_inference(SMIN(cfg), cfg, *_tiny_args()))
 
 
 @pytest.mark.parametrize("change", [dict(compute_dtype="bfloat16"), dict(compat_head=True),
                                     dict(fused_smi_train=False), dict(remat_smi=True),
                                     dict(packed=False)])
 def test_training_modes_outside_the_slice_raise(change):
+    """The slice is every mode of the JAX package's training forward and
+    step but bf16: a compute_dtype other than float32 raises, and each of the
+    other modes, once outside the slice, runs."""
     import dataclasses
 
     cfg = dataclasses.replace(TINY, **change)
-    B = 2
-    args = (torch.zeros(B, 8, 6), torch.ones(B, 8, 1), torch.zeros(B, 4, 300),
-            torch.ones(B, 4, 1), torch.ones(B, 4))
-    with pytest.raises(NotImplementedError, match="not supported by the PyTorch training path"):
-        smin_forward(SMIN(cfg), cfg, *args)
     model = SMIN(cfg)
-    with pytest.raises(NotImplementedError, match="not supported by the PyTorch training path"):
-        make_train_step(cfg, model, torch.optim.Adam(model.parameters()), device="cpu")
+    if cfg.compute_dtype != "float32":
+        with pytest.raises(NotImplementedError, match="not supported by the PyTorch port"):
+            smin_forward(model, cfg, *_tiny_args())
+        with pytest.raises(NotImplementedError, match="not supported by the PyTorch port"):
+            make_train_step(cfg, model, torch.optim.Adam(model.parameters()), device="cpu")
+        return
+    make_train_step(cfg, model, torch.optim.Adam(model.parameters()), device="cpu")
+    _assert_scores(cfg, smin_forward(model, cfg, *_tiny_args()))
 
 
 def test_grad_free_wrappers_refuse_to_cut_a_graph():

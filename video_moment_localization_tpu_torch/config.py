@@ -52,10 +52,10 @@ class ModelConfig:
     max_query_length: int = 13
     lstm_hidden_size: int = 256
     word_dim: int = 300          # GloVe dimensionality
-    # The keys below exist so every config of the JAX package parses; the
-    # serving path of this package implements float32, the packed layout and
-    # both fused kernels only, and raises on anything else
-    # (models/smin.py `check_serving_config`).
+    # The keys below are the JAX package's modes, and the forwards of
+    # models/smin.py take each of its routes; ``use_pallas`` is read by
+    # neither (the port has one kernel per route), and a compute_dtype other
+    # than float32 raises (models/smin.py `check_config`).
     compute_dtype: str = "float32"
     use_pallas: bool = True
     packed: bool = True

@@ -1,7 +1,9 @@
 // K7: the ContentUnit of one SMI layer with the moment unit's conv_fc half
 // folded in, forward and backward, for proposal maps whose whole layer the
 // JAX package does not train in one kernel (ActivityNet: N * C = 8320 clip
-// rows per element).
+// rows per element). K10: the ContentUnit alone with its moment gate, the
+// fused unit of the packed unit loop (`fused_content`), forward and
+// backward; its section is at the end of this file.
 //
 // Replaces ops/content_train_pallas.py::_fwd_call (`_fwd_kernel`) and
 // ::_bwd_vjp (`_bwd_kernel`) of the JAX package, whose body is
@@ -54,6 +56,34 @@ __global__ void clip_sum_kernel(size_t total, int C, int D, const float* __restr
         for (int c = 0; c < C; ++c) s += dcut[(n * C + c) * D + d];
         dfbar[e] = s;
     }
+}
+
+// K10's gate: grid (B, ceil(D / blockDim)), one thread per (element, d)
+// over the pairs, with dfbar[n] = sum_c dcu[n, c] (cu = ... + fbar[n] on
+// every clip row):
+//   dfm[n] = dfbar[n] * (s + z * s * (1 - s)),  z = fm[n] * fs, s = sigmoid(z)
+//   dfs    = sum_n dfbar[n] * fm[n]^2 * s * (1 - s)
+// (the s_hat path of dfs is added by `content_input_grads`).
+__global__ void unit_gate_bwd_kernel(int N, int C, int D, const float* __restrict__ fm,
+                                     const float* __restrict__ fs,
+                                     const float* __restrict__ dcu, float* __restrict__ dfm,
+                                     float* __restrict__ dfs) {
+    const int b = blockIdx.x;
+    const int d = blockIdx.y * blockDim.x + threadIdx.x;
+    if (d >= D) return;
+    const float fsv = fs[(size_t)b * D + d];
+    float acc = 0.f;
+    for (size_t n = (size_t)b * N; n < (size_t)(b + 1) * N; ++n) {
+        float dfbar = 0.f;
+        for (int c = 0; c < C; ++c) dfbar += dcu[(n * C + c) * D + d];
+        const float x = fm[n * D + d];
+        const float z = x * fsv;
+        const float sg = vml::sigmoidf_(z);
+        const float t = sg * (1.f - sg);
+        dfm[n * D + d] = dfbar * (sg + z * t);
+        acc += dfbar * x * x * t;
+    }
+    dfs[(size_t)b * D + d] = acc;
 }
 
 struct Workspace {
@@ -182,6 +212,94 @@ int vml_content_rows_bwd_f32(void* stream, int B, int N, int C, int Nq, int D, i
     err = vml::content_input_grads(st, B, N, C, Nq, D, dl, p, k.w, false, dfc, dfw, dfs);
 #undef VML_CHECK
     return (int)err;
+}
+
+}  // extern "C"
+
+// ------------------------------------------------------------------------
+// K10: the fused ContentUnit of the packed unit loop.
+//
+// Replaces ops/content_pallas.py::_content_unit_fused (`_kernel`) of the JAX
+// package, whose backward is the VJP of the XLA unit
+// (models/smin.py::content_unit_packed). Forward: fc (B, N, C, D), fm
+// (B, N, D), fw, fs, the query mask and the pair mask -> cu = c_out(f_cc_hat)
+// * vmask + fc + fbar, fbar = sigmoid(fm * fs) * fm computed here (the mask
+// multiplies f_cc only: an invalid pair carries fc + fbar, as in the JAX
+// kernel and the XLA unit). Backward: recomputes the unit and maps dcu to
+// dfc, dfm, dfw, dfs and the fp32 gradients of the unit's 12 tensors.
+//
+// What bounds it on the H100: operations, as K7 without its conv_fc GEMM:
+// 2 * N * C * (2 D dl + dl^2 + 2 Nq dl + 2 C dl + dl D) per element, 0.7
+// GFLOP at the Charades shapes (N = 136), fp32 outside the tensor cores,
+// against 2.2 MB of fc, fm and cu per element.
+//
+// Design. The forward is the gate (`vml::gate_kernel`) and
+// `vml::content_forward`, the content section of the layer that K4, K2 and
+// K7 run. The backward is K7's with no conv_fc cotangent, so dcut = dcu;
+// `unit_gate_bwd_kernel` then turns dfbar = sum_c dcu into dfm and the
+// gate's share of dfs. The workspace is K7's, its clip-mean slot holding
+// fbar instead. No atomics: a run is deterministic.
+
+namespace {
+
+// fbar in the x2 slot, then the unit; intermediates left in k.s.
+cudaError_t unit_forward(cudaStream_t st, int B, int N, int C, int Nq, int D, int dl,
+                         const float* fc, const float* fm, const float* fw, const float* fs,
+                         const float* qmask, const float* vmask, const float* const* p,
+                         const Workspace& k, float* cu) {
+    const size_t nd = (size_t)B * N * D;
+    const int gate_blocks = (int)((nd + 255) / 256 < 4096 ? (nd + 255) / 256 : 4096);
+    vml::gate_kernel<<<gate_blocks, 256, 0, st>>>(nd, N * D, D, fm, fs, k.s.x2);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return vml::content_forward(st, B, N, C, Nq, D, dl, fc, k.s.x2, fw, fs, qmask, vmask, p,
+                                k.s, cu);
+}
+
+}  // namespace
+
+extern "C" {
+
+// K10 forward. p: host array of the unit's 12 device pointers in the order
+// of vml::content_forward. ws: vml_content_rows_workspace_floats(..., 0)
+// floats. Returns the first CUDA error of the launches, 0 if none.
+int vml_content_unit_fwd_f32(void* stream, int B, int N, int C, int Nq, int D, int dl,
+                             const float* fc, const float* fm, const float* fw, const float* fs,
+                             const float* qmask, const float* vmask, const float* const* p,
+                             float* ws, float* cu) {
+    Workspace k;
+    carve(ws, B, N, C, Nq, D, dl, false, &k);
+    return (int)unit_forward(static_cast<cudaStream_t>(stream), B, N, C, Nq, D, dl, fc, fm, fw,
+                             fs, qmask, vmask, p, k, cu);
+}
+
+// K10 backward. dw: host array of 12 device pointers to the weight-gradient
+// outputs, in p's order. ws: vml_content_rows_workspace_floats(..., 1)
+// floats. dfc doubles as the recompute's cu buffer before it is written.
+int vml_content_unit_bwd_f32(void* stream, int B, int N, int C, int Nq, int D, int dl,
+                             const float* fc, const float* fm, const float* fw, const float* fs,
+                             const float* qmask, const float* vmask, const float* const* p,
+                             const float* dcu, float* ws, float* dfc, float* dfm, float* dfw,
+                             float* dfs, float* const* dw) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    Workspace k;
+    carve(ws, B, N, C, Nq, D, dl, true, &k);
+    cudaError_t err =
+        unit_forward(st, B, N, C, Nq, D, dl, fc, fm, fw, fs, qmask, vmask, p, k, dfc);
+    if (err != cudaSuccess) return (int)err;
+    // dcut = dcu into dfc; the gate's gradients; then the unit's.
+    err = cudaMemcpyAsync(dfc, dcu, sizeof(float) * B * N * C * D, cudaMemcpyDeviceToDevice,
+                          st);
+    if (err != cudaSuccess) return (int)err;
+    unit_gate_bwd_kernel<<<dim3(B, (D + 127) / 128), 128, 0, st>>>(N, C, D, fm, fs, dcu, dfm,
+                                                                    dfs);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    if ((err = cudaMemsetAsync(dfw, 0, sizeof(float) * B * Nq * D, st)) != cudaSuccess)
+        return (int)err;
+    err = vml::content_backward(st, B, N, C, Nq, D, dl, fc, fw, fs, qmask, vmask, p, k.s, k.w,
+                                k.partial, dfc, dw);
+    if (err != cudaSuccess) return (int)err;
+    return (int)vml::content_input_grads(st, B, N, C, Nq, D, dl, p, k.w, true, dfc, dfw, dfs);
 }
 
 }  // extern "C"

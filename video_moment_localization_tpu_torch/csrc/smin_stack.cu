@@ -120,7 +120,7 @@ int vml_smin_stack_f32(void* stream, int B, int T, int L, int C, int Nq, int D, 
     carve(ws, B, L, C, Nq, D, dl, &w);
     cudaError_t err;
 
-    vml::pool_kernel<<<B * (N + L), 128, 0, st>>>(T, L, C, D, f, vmask, w.fc, w.fm, w.fb);
+    vml::pool_kernel<false><<<B * (N + L), 128, 0, st>>>(T, L, C, D, f, vmask, w.fc, w.fm, w.fb);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
     for (int layer = 0; layer < n_layers; ++layer) {

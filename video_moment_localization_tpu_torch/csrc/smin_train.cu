@@ -1,7 +1,12 @@
-// K2 and K3: one SMI layer of the training path, forward and backward.
+// K2 and K3: one SMI layer of the training path, forward and backward; K9:
+// all layers' forward from one entry point.
 //
-// Replaces ops/smin_train_pallas.py::_layer_fwd_call (`_fwd_kernel`, K2) and
-// ::_layer_bwd_call (`_bwd_kernel`, K3) of the JAX package. K2 maps the
+// Replaces ops/smin_train_pallas.py::_layer_fwd_call (`_fwd_kernel`, K2),
+// ::_layer_bwd_call (`_bwd_kernel`, K3) and ::_stack_fwd_call
+// (`_stack_fwd_kernel`, K9, the forward of `VML_SMIN_TRAIN_FUSED_FWD=1`) of
+// the JAX package. K9 runs K2's device code for every layer in turn, writing
+// each inner layer's carry (its input to the next layer, the carry K3
+// recomputes from) to the caller's stacked buffers. K2 maps the
 // carry (fc (B, N, C, D), fm (B, N, D), fb (B, L, D)) and the query features
 // (fw (B, Nq, D), fs (B, D)) to (cu, mu, bu); K3 recomputes the layer from
 // the same inputs and maps the cotangents (dcu or none, dmu, dbu) to dfc,
@@ -392,6 +397,41 @@ int vml_smi_layer_fwd_f32(void* stream, int B, int L, int C, int Nq, int D, int 
     return (int)vml::layer_forward(static_cast<cudaStream_t>(stream), B, L, C, Nq, D, dl, fc,
                                    fm, fb, fw, fs, qmask, lmask, vmask, layer_w, s, cu, mu,
                                    bu);
+}
+
+// K9. p: host array of n_layers * 20 device pointers, each layer's in the
+// order of vml::layer_forward. carry_fc (n_layers - 1, B, N, C, D),
+// carry_fm (n_layers - 1, B, N, D), carry_fb (n_layers - 1, B, L, D) receive
+// layers 1 .. n_layers - 1's input carries (null when n_layers is 1); cu_last
+// (B, N, C, D) receives the top layer's unused cu; fm_out, fb_out its mu, bu.
+// ws: vml_smi_layer_workspace_floats(..., 0) floats, shared by the layers.
+// Each layer is exactly a K2 launch: the same kernels in the same order.
+int vml_smi_stack_fwd_f32(void* stream, int B, int L, int C, int Nq, int D, int dl,
+                          int n_layers, const float* fc, const float* fm, const float* fb,
+                          const float* fw, const float* fs, const float* qmask,
+                          const float* lmask, const float* vmask, const float* const* p,
+                          float* ws, float* carry_fc, float* carry_fm, float* carry_fb,
+                          float* cu_last, float* fm_out, float* fb_out) {
+    const size_t N = (size_t)L * (L + 1) / 2;
+    const size_t nc = (size_t)B * N * C * D, nm = (size_t)B * N * D, nb = (size_t)B * L * D;
+    vml::LayerScratch s;
+    BackwardScratch unused;
+    carve(ws, B, L, C, Nq, D, dl, false, &s, &unused);
+    for (int k = 0; k < n_layers; ++k) {
+        const bool top = k == n_layers - 1;
+        float* cu = top ? cu_last : carry_fc + k * nc;
+        float* mu = top ? fm_out : carry_fm + k * nm;
+        float* bu = top ? fb_out : carry_fb + k * nb;
+        cudaError_t err = vml::layer_forward(static_cast<cudaStream_t>(stream), B, L, C, Nq, D,
+                                             dl, fc, fm, fb, fw, fs, qmask, lmask, vmask,
+                                             p + (size_t)k * vml::kWeightsPerLayer, s, cu, mu,
+                                             bu);
+        if (err != cudaSuccess) return (int)err;
+        fc = cu;
+        fm = mu;
+        fb = bu;
+    }
+    return 0;
 }
 
 // K3. dcu may be null (the zero cotangent of a top layer). dw: host array of

@@ -10,8 +10,11 @@ Counterpart of ``video_moment_localization_tpu/inference.py``
 
 Host side: fixed-length eval sampling and GloVe query encoding. Device
 side: the serving forward (models/smin.py `smin_forward_inference`, which
-runs the fused biLSTM and SMI-stack kernels on the card), the final
-proposal scores and the top-k (optionally soft-NMS) selection. Requests are
+runs the fused biLSTM and SMI-stack kernels on the card, or the forward of
+the config's mode without a graph), the final proposal scores and the top-k
+(optionally soft-NMS) selection, over the N packed pairs or, in the dense
+and reference-compat modes (``packed: False``, ``compat_head``), over all
+L * L cells with the reference's tie order. Requests are
 padded to a power-of-two ladder of batch buckets (1, 2, 4, ..., serve_batch).
 Repeated videos in a chunk are featurized and encoded once (the grouped
 path). Entry points run on the card unless the caller passes
@@ -36,6 +39,7 @@ from video_moment_localization_tpu_torch.ops.cuda_build import resolve_device
 from video_moment_localization_tpu_torch.ops.nms import soft_nms_topk
 from video_moment_localization_tpu_torch.ops.packing import triu_packing
 from video_moment_localization_tpu_torch.train.metrics import (
+    proposal_scores,
     proposal_scores_packed,
     topk_lowest_index_first,
 )
@@ -77,6 +81,7 @@ class MomentLocalizer:
         self.nms_sigma = nms_sigma
         self.serve_batch = serve_batch
         self.bucket_sizes = bucket_sizes(serve_batch)
+        self.packed = model_cfg.packed and not model_cfg.compat_head   # pm (B, N)
 
     def _bucket_for(self, n: int) -> int:
         for b in self.bucket_sizes:
@@ -108,8 +113,8 @@ class MomentLocalizer:
         cfg = self.cfg
         vf, nfeats, _, _ = sample_fixed_length_features(
             np.asarray(clip_features, np.float32), cfg.T, 0.0, 1.0)
-        video_mask, length_mask, _ = build_masks(nfeats, cfg.T, cfg.L)
-        return vf, video_mask, length_mask
+        video_mask, length_mask, moment_mask = build_masks(nfeats, cfg.T, cfg.L)
+        return vf, video_mask, length_mask, moment_mask
 
     def _prepare_query(self, query: str):
         token_ids, qf = self.embedding.encode(get_tokens(query), self.cfg.max_query_length)
@@ -117,15 +122,19 @@ class MomentLocalizer:
         return qf, qm
 
     @torch.no_grad()
-    def _score(self, vf, vm, qf, qm, lm, k: int, vidx=None):
-        """(values, indices) (B, k) of the top-k packed proposals."""
+    def _score(self, vf, vm, qf, qm, lm, mm, k: int, vidx=None):
+        """(values, indices) (B, k) of the top-k proposals: packed pair
+        indices, or flat indices i * L + j of the dense map."""
         video_group = None if vidx is None else (vf, vm, vidx)
         pm, ps, pe, _ = smin_forward_inference(
             self.model, self.cfg, None if vidx is not None else vf,
-            None if vidx is not None else vm, qf, qm, lm, video_group=video_group)
-        score = proposal_scores_packed(pm, ps, pe, lm, self.cfg.L)
+            None if vidx is not None else vm, qf, qm, lm, mm, video_group=video_group)
+        if self.packed:
+            score = proposal_scores_packed(pm, ps, pe, lm, self.cfg.L)
+        else:
+            score = proposal_scores(pm, ps, pe, mm).reshape(pm.shape[0], -1)
         if self.use_nms:
-            return soft_nms_topk(score, self.cfg.L, k, self.nms_sigma)
+            return soft_nms_topk(score, self.cfg.L, k, self.nms_sigma, packed=self.packed)
         return topk_lowest_index_first(score, k)
 
     def dispatch(self, chunk: Sequence[Request], top_k: int = 5):
@@ -164,16 +173,17 @@ class MomentLocalizer:
         qf = stack([q_cache[row[1]][0] for row in chunk], pad)
         qm = stack([q_cache[row[1]][1] for row in chunk], pad)
         lm = stack([v[2] for v in per_row_v], pad)
+        mm = None if self.packed else stack([v[3] for v in per_row_v], pad)
         if self._bucket_for(len(uniq)) * 2 <= bucket:
             gpad = self._bucket_for(len(uniq)) - len(uniq)
             vf_g = stack([v[0] for v in uniq], gpad)
             vm_g = stack([v[1] for v in uniq], gpad)
             gidx = torch.as_tensor(vidx + [0] * pad, dtype=torch.int64).to(self.device)
-            vals, idxs = self._score(vf_g, vm_g, qf, qm, lm, top_k, gidx)
+            vals, idxs = self._score(vf_g, vm_g, qf, qm, lm, mm, top_k, gidx)
         else:
             vf = stack([v[0] for v in per_row_v], pad)
             vm = stack([v[1] for v in per_row_v], pad)
-            vals, idxs = self._score(vf, vm, qf, qm, lm, top_k)
+            vals, idxs = self._score(vf, vm, qf, qm, lm, mm, top_k)
         return chunk, top_k, vals, idxs
 
     def collect(self, handle) -> List[List[Moment]]:
@@ -188,7 +198,10 @@ class MomentLocalizer:
             moments = []
             for k in range(top_k):
                 flat = int(idxs[b, k])
-                i, j = int(pk.i_idx[flat]), int(pk.j_idx[flat])
+                if self.packed:
+                    i, j = int(pk.i_idx[flat]), int(pk.j_idx[flat])
+                else:
+                    i, j = divmod(flat, L)
                 moments.append(Moment(start=i * duration / L, end=(j + 1) * duration / L,
                                       score=float(vals[b, k])))
             results.append(moments)

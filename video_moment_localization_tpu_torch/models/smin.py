@@ -5,25 +5,40 @@ tree carries the reference's ``state_dict`` key names (reference models.py
 module tree), so a reference checkpoint, or JAX parameters carried across by
 ``models/port.py``, load with ``strict=True``. The modules are
 parameter containers; the math lives in the plain functions below, one per
-JAX function, over the triangular-packed moment layout (N = L(L+1)/2 pairs):
+JAX function, over the triangular-packed moment layout (N = L(L+1)/2 pairs)
+and over the dense L x L layout of ``packed: False``:
 
 * the reference's three masking patterns are kept exactly: a pre-softmax
   -1e9 fill in the word and boundary attentions, and a post-softmax multiply
   in the intra-moment clip attention (SURVEY.md "masking subtleties");
 * 1x1 convolutions are matmuls over the channel axis.
 
-`smin_forward_inference` is the serving forward: the backbone with the fused
-biLSTM (ops/lstm_cuda.py), then the fused SMI stack (ops/smin_cuda.py).
-`smin_forward` is the differentiable training forward: the backbone with the
-plain biLSTM under autograd (the JAX package's own choice for training: its
-fused biLSTM has no backward), then one of the JAX package's two kernel
-routes (`whole_layer_train_admits`): the proposal rows kernel and the
-whole-layer SMI kernels with their hand-written backward
-(ops/proposal_cuda.py, ops/smin_train_cuda.py), or the packed proposal
-kernel and the content-unit kernels (ops/content_train_cuda.py) with the
-boundary and moment units in PyTorch ops; then the heads in plain PyTorch.
-Each wrapper launches its CUDA kernel on a CUDA tensor and runs its plain
-version on a CPU tensor.
+`smin_forward_inference` is the grad-free forward. For the packed layout
+with the fused stack (the default) it runs the backbone with the fused
+biLSTM (ops/lstm_cuda.py; the plain one under ``fused_lstm: False``), then
+the fused SMI stack (ops/smin_cuda.py); every other mode goes through
+`smin_forward` without a graph, as in the JAX package.
+`smin_forward` is the differentiable forward: the backbone with the plain
+biLSTM under autograd (the JAX package's own choice for training: its fused
+biLSTM has no backward), then one of the JAX package's routes:
+
+* packed, ``fused_smi_train`` and not ``compat_head`` (the default): by
+  `whole_layer_train_admits`, the proposal rows kernel and the whole-layer
+  SMI kernels with their hand-written backward (ops/proposal_cuda.py,
+  ops/smin_train_cuda.py; all layers' forward in one launch under
+  ``VML_SMIN_TRAIN_FUSED_FWD=1``), or the packed proposal kernel and the
+  content-unit kernels (ops/content_train_cuda.py) with the boundary and
+  moment units in PyTorch ops;
+* packed otherwise (``compat_head``, or ``fused_smi_train: False``): the
+  packed proposal kernel, then `smi_block_packed` per layer in PyTorch ops
+  under autograd, its content unit the fused kernel of ops/content_cuda.py
+  under ``fused_content``; pm densified to (B, L, L) under ``compat_head``;
+* dense (``packed: False``): the dense proposal kernel, then `smi_block` per
+  layer in PyTorch ops under autograd;
+
+``remat_smi`` recomputes each block of the two loop routes in the backward.
+The heads are plain PyTorch. Each kernel wrapper launches its CUDA kernel on
+a CUDA tensor and runs its plain version on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -33,12 +48,17 @@ from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from video_moment_localization_tpu_torch.config import ModelConfig
 from video_moment_localization_tpu_torch.models.lstm import BiLSTMParams, bilstm, lstm_layers
 from video_moment_localization_tpu_torch.ops import lstm_cuda
-from video_moment_localization_tpu_torch.ops.packing import pair_index, packed_valid_mask
+from video_moment_localization_tpu_torch.ops.packing import (
+    pair_index,
+    packed_valid_mask,
+    unpack_map,
+)
 
 _NEG_INF = -1e9
 
@@ -126,9 +146,9 @@ class SMIN(nn.Module):
         self.localization = Localization(cfg)
 
     def forward(self, video_features, video_mask, query_features, query_mask,
-                length_mask, video_group=None):
+                length_mask, moment_mask=None, video_group=None):
         return smin_forward_inference(self, self.cfg, video_features, video_mask,
-                                      query_features, query_mask, length_mask,
+                                      query_features, query_mask, length_mask, moment_mask,
                                       video_group=video_group)
 
 
@@ -211,8 +231,10 @@ def word_attention(attn: Attention, query, key, value, key_mask):
 
 def moment_gate(f_m, f_s):
     """fbar_m = sigmoid(f_m * f_s) * f_m, shared by the content and boundary
-    units (reference models.py:191-193, 268-269). f_m (B, N, D), f_s (B, D)."""
-    return torch.sigmoid(f_m * f_s[:, None, :]) * f_m
+    units (reference models.py:191-193, 268-269). f_m (B, N, D) packed or
+    (B, L, L, D) dense, f_s (B, D) broadcast over the map axes."""
+    fs = f_s.reshape(f_s.shape[0], *([1] * (f_m.dim() - 2)), f_s.shape[-1])
+    return torch.sigmoid(f_m * fs) * f_m
 
 
 def content_attention_packed(attn: Attention, query3, key, value, key_mask):
@@ -248,12 +270,11 @@ def content_unit_packed(cu: ContentUnit, f_c, f_w, f_s, f_m, query_mask, vmask,
     return f_cc + f_c + fbar[:, :, None, :]
 
 
-def boundary_unit_packed(bu: BoundaryUnit, f_b, f_w, f_s, f_m, query_mask,
-                         length_mask, L: int, fbar=None):
-    """BoundaryUnit (reference models.py:156-196) with the moment->boundary
-    message read from packed f_m: f_bm[i] = sum_{n: i_n = i} A_b[i, j_n]
-    fbar[n]."""
-    B, _, D = f_b.shape
+def _boundary_refine(bu: BoundaryUnit, f_b, f_w, f_s, query_mask, length_mask):
+    """The boundary unit up to its moment message: (A_b (B, L, L), f_bb +
+    f_b) (reference models.py:156-190, with the row-mask / fill /
+    post-multiply ordering of A_b)."""
+    D = f_b.shape[-1]
     f_b_mask = length_mask[..., None]                                 # (B, L, 1)
     f_baq = word_attention(bu.attn_layer, f_b, f_w, f_w, query_mask) * f_b_mask
     f_bq = f_b * (f_baq + f_s[:, None, :])
@@ -261,13 +282,22 @@ def boundary_unit_packed(bu: BoundaryUnit, f_b, f_w, f_s, f_m, query_mask,
     logits = torch.where(length_mask[:, None, :] > 0, logits, _NEG_INF)
     A_b = torch.softmax(logits, dim=-1) * f_b_mask                    # (B, L, L)
     f_bb = torch.einsum("bij,bjd->bid", A_b, f_b) * f_b_mask
+    return A_b, f_bb + f_b
 
+
+def boundary_unit_packed(bu: BoundaryUnit, f_b, f_w, f_s, f_m, query_mask,
+                         length_mask, L: int, fbar=None):
+    """BoundaryUnit (reference models.py:156-196) with the moment->boundary
+    message read from packed f_m: f_bm[i] = sum_{n: i_n = i} A_b[i, j_n]
+    fbar[n]."""
+    B, _, D = f_b.shape
+    A_b, out = _boundary_refine(bu, f_b, f_w, f_s, query_mask, length_mask)
     if fbar is None:
         fbar = moment_gate(f_m, f_s)
     i_idx, j_idx = pair_index(L, f_b.device)
     A_bp = A_b[:, i_idx, j_idx]                                       # (B, N)
     f_bm = f_b.new_zeros((B, L, D)).index_add_(1, i_idx, A_bp[..., None] * fbar)
-    return f_bb + f_b + f_bm
+    return out + f_bm
 
 
 def moment_unit_packed(mu: MomentUnit, f_c, f_m, f_b, vmask, L: int):
@@ -282,23 +312,36 @@ def moment_unit_packed(mu: MomentUnit, f_c, f_m, f_b, vmask, L: int):
 
 
 def smi_block_packed(block: SMI, f_c, f_m, f_b, f_w, f_s, query_mask,
-                     length_mask, vmask, L: int):
+                     length_mask, vmask, L: int, fused_content: bool = False):
     """One interaction block (reference models.py:305-322): the moment unit
-    consumes the updated content/boundary but the previous f_m."""
+    consumes the updated content/boundary but the previous f_m. With
+    ``fused_content`` the content unit is the kernel of ops/content_cuda.py
+    (K10), which computes the gate itself."""
     fbar = moment_gate(f_m, f_s)
-    cu = content_unit_packed(block.content_unit, f_c, f_w, f_s, f_m, query_mask,
-                             vmask, fbar=fbar)
+    if fused_content:
+        # Imported here: ops/content_cuda.py imports this module.
+        from video_moment_localization_tpu_torch.ops.content_cuda import content_unit_fused
+
+        cu = content_unit_fused(block.content_unit, f_c, f_w, f_s, f_m, query_mask, vmask)
+    else:
+        cu = content_unit_packed(block.content_unit, f_c, f_w, f_s, f_m, query_mask,
+                                 vmask, fbar=fbar)
     bu = boundary_unit_packed(block.boundary_unit, f_b, f_w, f_s, f_m, query_mask,
                               length_mask, L, fbar=fbar)
     mu = moment_unit_packed(block.moment_unit, cu, f_m, bu, vmask, L)
     return cu, mu, bu
 
 
-def localization_packed(loc: Localization, f_m, f_b, length_mask, vmask, L: int):
+def localization_packed(loc: Localization, f_m, f_b, length_mask, vmask, L: int,
+                        dense_out: bool = False):
     """Four sigmoid 1x1-conv heads (reference models.py:324-344) in fp32;
-    pm stays packed (B, N)."""
+    pm stays packed (B, N), or with ``dense_out`` (the reference-compat
+    eval mode, ``compat_head``) is densified to (B, L, L), zeros at the
+    invalid pairs."""
     f_m, f_b = f_m.float(), f_b.float()
     p_m = torch.sigmoid(_linear(loc.conv_layer_pm, f_m))[..., 0] * vmask
+    if dense_out:
+        p_m = unpack_map(p_m, L)
     p_s = torch.sigmoid(_linear(loc.conv_layer_ps, f_b))[..., 0] * length_mask
     p_e = torch.sigmoid(_linear(loc.conv_layer_pe, f_b))[..., 0] * length_mask
     p_a = torch.sigmoid(_linear(loc.conv_layer_pa, f_b))[..., 0] * length_mask
@@ -306,71 +349,75 @@ def localization_packed(loc: Localization, f_m, f_b, length_mask, vmask, L: int)
 
 
 # --------------------------------------------------------------------- #
-# Serving forward
+# SMI units over the dense L x L map (packed: False)
 # --------------------------------------------------------------------- #
-def check_serving_config(cfg: ModelConfig) -> None:
-    """The serving path implements fp32, the packed layout and both fused
-    kernels; every other mode raises instead of taking another path."""
-    unsupported = []
+def content_unit(cu: ContentUnit, f_c, f_w, f_s, f_m, query_mask, moment_mask, fbar=None):
+    """ContentUnit (reference models.py:228-276) over the dense map: f_c
+    (B, L, L, C, D), f_m (B, L, L, D), moment_mask (B, L, L). The unit is
+    the same per moment in both layouts, so this is `content_unit_packed`
+    over the L * L cells as pairs, masked by the moment_mask."""
+    B, L = moment_mask.shape[:2]
+
+    def cells(x):
+        return None if x is None else x.reshape(B, L * L, *x.shape[3:])
+
+    out = content_unit_packed(cu, cells(f_c), f_w, f_s, cells(f_m), query_mask,
+                              moment_mask.reshape(B, L * L), fbar=cells(fbar))
+    return out.reshape(f_c.shape)
+
+
+def boundary_unit(bu: BoundaryUnit, f_b, f_w, f_s, f_m, query_mask, length_mask, fbar=None):
+    """BoundaryUnit (reference models.py:156-196) with the moment->boundary
+    message f_bm[i] = sum_j A_b[i, j] fbar[i, j] from the dense f_m."""
+    A_b, out = _boundary_refine(bu, f_b, f_w, f_s, query_mask, length_mask)
+    if fbar is None:
+        fbar = moment_gate(f_m, f_s)                                  # (B, L, L, D)
+    return out + torch.einsum("bij,bijd->bid", A_b, fbar)
+
+
+def moment_unit(mu: MomentUnit, f_c, f_m, f_b, moment_mask):
+    """MomentUnit (reference models.py:278-303) over the dense map: conv of
+    the boundary outer product plus conv of the clip mean, masked, plus the
+    residual."""
+    f_m_mask = moment_mask[..., None]                                 # (B, L, L, 1)
+    outer = f_b[:, :, None, :] * f_b[:, None, :, :]                   # (B, L, L, D)
+    conv_fb = _linear(mu.conv_layer_fb, outer) * f_m_mask
+    conv_fc = _linear(mu.conv_layer_fc, f_c.mean(dim=3)) * f_m_mask
+    return conv_fb + conv_fc + f_m
+
+
+def smi_block(block: SMI, f_c, f_m, f_b, f_w, f_s, query_mask, length_mask, moment_mask):
+    """One interaction block over the dense map (reference models.py:305-322)."""
+    fbar = moment_gate(f_m, f_s)
+    cu = content_unit(block.content_unit, f_c, f_w, f_s, f_m, query_mask, moment_mask,
+                      fbar=fbar)
+    bu = boundary_unit(block.boundary_unit, f_b, f_w, f_s, f_m, query_mask, length_mask,
+                       fbar=fbar)
+    mu = moment_unit(block.moment_unit, cu, f_m, bu, moment_mask)
+    return cu, mu, bu
+
+
+def localization(loc: Localization, f_m, f_b, length_mask, moment_mask):
+    """The four heads over the dense map: pm (B, L, L) masked by the
+    moment_mask, ps / pe / pa (B, L), in fp32."""
+    f_m, f_b = f_m.float(), f_b.float()
+    p_m = torch.sigmoid(_linear(loc.conv_layer_pm, f_m))[..., 0] * moment_mask
+    p_s = torch.sigmoid(_linear(loc.conv_layer_ps, f_b))[..., 0] * length_mask
+    p_e = torch.sigmoid(_linear(loc.conv_layer_pe, f_b))[..., 0] * length_mask
+    p_a = torch.sigmoid(_linear(loc.conv_layer_pa, f_b))[..., 0] * length_mask
+    return p_m, p_s, p_e, p_a
+
+
+# --------------------------------------------------------------------- #
+# Forward passes
+# --------------------------------------------------------------------- #
+def check_config(cfg: ModelConfig) -> None:
+    """Both forwards take every route of the JAX package in fp32; bf16
+    (``compute_dtype``) raises instead of running in fp32."""
     if cfg.compute_dtype != "float32":
-        unsupported.append(f"compute_dtype={cfg.compute_dtype}")
-    if not cfg.packed:
-        unsupported.append("packed=False (dense layout)")
-    if cfg.compat_head:
-        unsupported.append("compat_head=True")
-    if not cfg.fused_smi:
-        unsupported.append("fused_smi=False")
-    if not cfg.fused_lstm:
-        unsupported.append("fused_lstm=False")
-    if unsupported:
         raise NotImplementedError(
-            "not supported by the PyTorch serving path: " + ", ".join(unsupported))
+            f"not supported by the PyTorch port: compute_dtype={cfg.compute_dtype}")
 
-
-@torch.no_grad()
-def smin_forward_inference(
-    model: SMIN,
-    cfg: ModelConfig,
-    video_features: Optional[torch.Tensor],   # (B, T, dv)
-    video_mask: Optional[torch.Tensor],       # (B, T, 1)
-    query_features: torch.Tensor,             # (B, Nq, word_dim)
-    query_mask: torch.Tensor,                 # (B, Nq, 1)
-    length_mask: torch.Tensor,                # (B, L)
-    video_group: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Grad-free forward -> (pm (B, N), ps, pe, pa (B, L)), fp32 in [0, 1].
-    ``video_group`` is that of `backbone`."""
-    # Imported here: ops/smin_cuda.py imports this module for its plain version.
-    from video_moment_localization_tpu_torch.ops.smin_cuda import smin_stack_fused
-
-    check_serving_config(cfg)
-    f, fs, fw = backbone(model.backbone, cfg, video_features, video_mask,
-                         query_features, query_mask, video_group=video_group)
-    vmask = packed_valid_mask(length_mask)
-    return smin_stack_fused(model, cfg, f, fw, fs, query_mask, length_mask, vmask)
-
-
-# --------------------------------------------------------------------- #
-# Training forward
-# --------------------------------------------------------------------- #
-def check_training_config(cfg: ModelConfig) -> None:
-    """The training path implements fp32, the packed layout and the SMI
-    kernels with their own backward; every other mode raises instead of
-    taking another path."""
-    unsupported = []
-    if cfg.compute_dtype != "float32":
-        unsupported.append(f"compute_dtype={cfg.compute_dtype}")
-    if not cfg.packed:
-        unsupported.append("packed=False (dense layout)")
-    if cfg.compat_head:
-        unsupported.append("compat_head=True")
-    if not cfg.fused_smi_train:
-        unsupported.append("fused_smi_train=False")
-    if cfg.remat_smi:
-        unsupported.append("remat_smi=True")
-    if unsupported:
-        raise NotImplementedError(
-            "not supported by the PyTorch training path: " + ", ".join(unsupported))
 
 
 _WHOLE_LAYER_MAX_ROWS = 4352            # clip rows N * C of one element
@@ -378,9 +425,9 @@ _WHOLE_LAYER_BUDGET_BYTES = 90_000_000  # against 34 bytes per fc element and by
 
 
 def whole_layer_train_admits(cfg: ModelConfig) -> bool:
-    """Which of the two training routes a config takes: True for the
-    whole-layer kernels (K1, K2, K3), False for the content-unit kernels
-    (K6, K7).
+    """Which of the two kernel routes of the default training mode a config
+    takes: True for the whole-layer kernels (K1, K2, K3), False for the
+    content-unit kernels (K6, K7).
 
     This is the JAX package's routing, not a limit of the H100: its own copy
     of ``ops/smin_train_pallas.py::supports_train`` with the constants that
@@ -396,39 +443,100 @@ def whole_layer_train_admits(cfg: ModelConfig) -> bool:
             and 34 * rows * cfg.D * itemsize <= _WHOLE_LAYER_BUDGET_BYTES)
 
 
+def _run_blocks(block_fn, blocks, remat: bool, fc, fm, fb, *args):
+    """Every block of ``blocks`` in turn over the carry (fc, fm, fb); with
+    ``remat`` each block is recomputed in the backward instead of keeping
+    its activations (JAX ``jax.checkpoint``)."""
+    for block in blocks:
+        if remat:
+            fc, fm, fb = torch.utils.checkpoint.checkpoint(block_fn, block, fc, fm, fb, *args,
+                                                           use_reentrant=False)
+        else:
+            fc, fm, fb = block_fn(block, fc, fm, fb, *args)
+    return fm, fb
+
+
 def smin_forward(
     model: SMIN,
     cfg: ModelConfig,
-    video_features: torch.Tensor,             # (B, T, dv)
-    video_mask: torch.Tensor,                 # (B, T, 1)
+    video_features: Optional[torch.Tensor],   # (B, T, dv)
+    video_mask: Optional[torch.Tensor],       # (B, T, 1)
     query_features: torch.Tensor,             # (B, Nq, word_dim)
     query_mask: torch.Tensor,                 # (B, Nq, 1)
     length_mask: torch.Tensor,                # (B, L)
+    moment_mask: Optional[torch.Tensor] = None,   # (B, L, L); dense layout only
+    video_group: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Differentiable forward -> (pm (B, N), ps, pe, pa (B, L)), fp32 in
-    [0, 1]: plain backbone, then proposal rows (K1) -> SMI layers (K2,
-    backward K3) where `whole_layer_train_admits`, else packed proposal (K6)
-    -> content-unit layers (K7) with the boundary and moment units in
-    PyTorch ops; then the heads."""
+    """Differentiable forward -> (pm, ps, pe, pa (B, L)), fp32 in [0, 1]. pm
+    is (B, N) packed in the default mode, (B, L, L) under ``compat_head`` or
+    ``packed: False``; ``moment_mask`` is read by the dense layout only.
+    The routes are those of the module docstring; ``video_group`` is that
+    of `backbone`."""
     # Imported here: these modules import this one for their plain versions.
     from video_moment_localization_tpu_torch.ops.content_train_cuda import (
         smi_stack_content_train,
     )
     from video_moment_localization_tpu_torch.ops.proposal_cuda import (
+        proposal_features_dense_fused,
         proposal_features_packed_fused,
         proposal_features_rows,
     )
     from video_moment_localization_tpu_torch.ops.smin_train_cuda import smi_stack_layers
 
-    check_training_config(cfg)
+    check_config(cfg)
     f, fs, fw = backbone(model.backbone, cfg, video_features, video_mask,
-                         query_features, query_mask, fused_lstm=False)
+                         query_features, query_mask, video_group=video_group,
+                         fused_lstm=False)
     length_mask = length_mask.float()
+    if not cfg.packed:
+        moment_mask = moment_mask.float()
+        fc, fm, fb = proposal_features_dense_fused(f, moment_mask, cfg.L, cfg.C)
+        fm, fb = _run_blocks(smi_block, model.smis, cfg.remat_smi, fc, fm, fb, fw, fs,
+                             query_mask, length_mask, moment_mask)
+        return localization(model.localization, fm, fb, length_mask, moment_mask)
+
     vmask = packed_valid_mask(length_mask)
-    if whole_layer_train_admits(cfg):
-        proposal, stack = proposal_features_rows, smi_stack_layers
-    else:
-        proposal, stack = proposal_features_packed_fused, smi_stack_content_train
-    fc, fm, fb = proposal(f, length_mask, cfg.L, cfg.C)
-    fm, fb = stack(model.smis, fc, fm, fb, fw, fs, query_mask, length_mask, vmask, cfg.L)
-    return localization_packed(model.localization, fm, fb, length_mask, vmask, cfg.L)
+    if cfg.fused_smi_train and not cfg.compat_head:
+        if whole_layer_train_admits(cfg):
+            proposal, stack = proposal_features_rows, smi_stack_layers
+        else:
+            proposal, stack = proposal_features_packed_fused, smi_stack_content_train
+        fc, fm, fb = proposal(f, length_mask, cfg.L, cfg.C)
+        fm, fb = stack(model.smis, fc, fm, fb, fw, fs, query_mask, length_mask, vmask, cfg.L)
+        return localization_packed(model.localization, fm, fb, length_mask, vmask, cfg.L)
+
+    fc, fm, fb = proposal_features_packed_fused(f, length_mask, cfg.L, cfg.C)
+    fm, fb = _run_blocks(smi_block_packed, model.smis, cfg.remat_smi, fc, fm, fb, fw, fs,
+                         query_mask, length_mask, vmask, cfg.L, cfg.fused_content)
+    return localization_packed(model.localization, fm, fb, length_mask, vmask, cfg.L,
+                               dense_out=cfg.compat_head)
+
+
+@torch.no_grad()
+def smin_forward_inference(
+    model: SMIN,
+    cfg: ModelConfig,
+    video_features: Optional[torch.Tensor],   # (B, T, dv)
+    video_mask: Optional[torch.Tensor],       # (B, T, 1)
+    query_features: torch.Tensor,             # (B, Nq, word_dim)
+    query_mask: torch.Tensor,                 # (B, Nq, 1)
+    length_mask: torch.Tensor,                # (B, L)
+    moment_mask: Optional[torch.Tensor] = None,   # (B, L, L); dense layout only
+    video_group: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Grad-free forward with the contract of `smin_forward`: the fused
+    biLSTM (or the plain one under ``fused_lstm: False``) and the fused SMI
+    stack for the packed layout with ``fused_smi`` and without
+    ``compat_head``; `smin_forward` without a graph otherwise."""
+    # Imported here: ops/smin_cuda.py imports this module for its plain version.
+    from video_moment_localization_tpu_torch.ops.smin_cuda import smin_stack_fused
+
+    check_config(cfg)
+    if not (cfg.packed and not cfg.compat_head and cfg.fused_smi):
+        return smin_forward(model, cfg, video_features, video_mask, query_features,
+                            query_mask, length_mask, moment_mask, video_group=video_group)
+    f, fs, fw = backbone(model.backbone, cfg, video_features, video_mask,
+                         query_features, query_mask, video_group=video_group,
+                         fused_lstm=cfg.fused_lstm)
+    vmask = packed_valid_mask(length_mask)
+    return smin_stack_fused(model, cfg, f, fw, fs, query_mask, length_mask, vmask)

@@ -1,0 +1,166 @@
+"""K10: the fused ContentUnit of the packed unit loop, forward and
+hand-written backward (csrc/content_train.cu, the K10 section).
+
+Counterpart of ``video_moment_localization_tpu/ops/content_pallas.py``:
+`content_unit_fused` with `_content_unit_fused` (K10) as its forward and the
+VJP of the XLA unit as its backward. It is the content unit of
+`models.smin.smi_block_packed` under ``fused_content``, in the packed loop
+that ``compat_head`` and ``fused_smi_train: False`` take. The output is
+``c_out(f_cc_hat) * vmask + f_c + fbar`` with the moment gate fbar =
+sigmoid(f_m * f_s) * f_m computed inside; the pair mask multiplies f_cc only,
+as in the JAX kernel and the XLA unit, so an invalid pair carries f_c + fbar.
+The backward kernel recomputes the unit from the saved inputs (as the JAX
+VJP does) and computes the same gradients by hand: the content section of
+the K3 / K7 backward with no conv_fc cotangent, then the gate's derivative
+into dfm and dfs. Weight gradients are fp32.
+
+`content_unit_forward` / `content_unit_backward` are the kernel wrappers: on
+a CPU tensor each runs its plain version (`models.smin.content_unit_packed`,
+and ``torch.autograd.grad`` through it), on a CUDA tensor it launches its
+kernel or raises. ``.launches`` on each counts the launches (one per layer:
+the C entry point sequences the unit's kernels).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from video_moment_localization_tpu_torch.models.smin import ContentUnit, content_unit_packed
+from video_moment_localization_tpu_torch.ops.content_train_cuda import (
+    Workspace,
+    as_unit,
+    check_inputs,
+)
+from video_moment_localization_tpu_torch.ops.cuda_build import (
+    check,
+    load_library,
+    pointer_array,
+    ptr,
+    stream_of,
+)
+
+WEIGHTS = 12   # weight and bias of c_hat, w_hat, s_hat, c_out, attn W_q, W_k
+
+
+def unit_weights(unit: ContentUnit):
+    """The 12 tensors the kernel reads: the first 12 of
+    `ops.content_train_cuda.content_weights`."""
+    out = []
+    for layer in (unit.linear_c_hat, unit.linear_w_hat, unit.linear_s_hat, unit.linear_c,
+                  unit.attn_layer.W_q, unit.attn_layer.W_k):
+        out += [layer.weight, layer.bias]
+    return out
+
+
+def content_unit_plain(weights, fc, fm, fw, fs, query_mask, vmask):
+    """The plain version of the forward: cu (B, N, C, D)."""
+    return content_unit_packed(as_unit(weights), fc, fw, fs, fm, query_mask, vmask)
+
+
+def content_unit_backward_plain(weights, fc, fm, fw, fs, query_mask, vmask, dcu):
+    """The plain version of the backward: recompute under autograd and take
+    the VJP. Returns (dfc, dfm, dfw, dfs, [12 weight gradients])."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (fc, fm, fw, fs, *weights)]
+        cu = content_unit_plain(leaves[4:], *leaves[:4], query_mask, vmask)
+        grads = torch.autograd.grad(cu, leaves, dcu)
+    return (*grads[:4], list(grads[4:]))
+
+
+def _library() -> ctypes.CDLL:
+    lib = load_library("content_train")
+    lib.vml_content_rows_workspace_floats.argtypes = [ctypes.c_int] * 7
+    lib.vml_content_rows_workspace_floats.restype = ctypes.c_size_t
+    lib.vml_content_rows_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.vml_content_rows_smem_bytes.restype = ctypes.c_size_t
+    pointers = ctypes.POINTER(ctypes.c_void_p)
+    fwd = lib.vml_content_unit_fwd_f32
+    fwd.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 6
+                    + [pointers] + [ctypes.c_void_p] * 2)
+    fwd.restype = ctypes.c_int
+    bwd = lib.vml_content_unit_bwd_f32
+    bwd.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 6
+                    + [pointers] + [ctypes.c_void_p] * 6 + [pointers])
+    bwd.restype = ctypes.c_int
+    return lib
+
+
+def _check(fn: str, weights, fc, fm, fw, fs, query_mask, vmask, cotangents=()):
+    return check_inputs(fn, weights, fc, fm, fw, fs, query_mask, vmask, cotangents,
+                        n_weights=WEIGHTS, fbar_name="fm")
+
+
+def content_unit_forward(weights, fc, fm, fw, fs, query_mask, vmask,
+                         workspace: Optional[Workspace] = None) -> torch.Tensor:
+    """fc (B, N, C, D), fm (B, N, D), fw (B, Nq, D), fs (B, D), query_mask
+    (B, Nq, 1), vmask (B, N) and `unit_weights` -> cu (B, N, C, D).
+    ``workspace`` is an optional scratch to reuse over layers."""
+    if fc.device.type == "cpu":
+        return content_unit_plain(weights, fc, fm, fw, fs, query_mask, vmask)
+    dims = _check("content_unit_forward", weights, fc, fm, fw, fs, query_mask, vmask)
+    lib = _library()
+    ws = (workspace or Workspace()).get(lib, fc, dims, False)
+    cu = torch.empty_like(fc)
+    with torch.cuda.device(fc.device):
+        err = lib.vml_content_unit_fwd_f32(
+            stream_of(fc), *dims, ptr(fc), ptr(fm), ptr(fw), ptr(fs), ptr(query_mask),
+            ptr(vmask), pointer_array(weights), ptr(ws), ptr(cu))
+    check(lib, "vml_content_unit_fwd_f32", err)
+    content_unit_forward.launches += 1
+    return cu
+
+
+def content_unit_backward(weights, fc, fm, fw, fs, query_mask, vmask, dcu,
+                          workspace: Optional[Workspace] = None):
+    """Recompute the unit from its inputs and backpropagate dcu through it.
+    Returns (dfc, dfm, dfw, dfs, [12 fp32 weight gradients in `unit_weights`
+    order])."""
+    if fc.device.type == "cpu":
+        return content_unit_backward_plain(weights, fc, fm, fw, fs, query_mask, vmask, dcu)
+    dims = _check("content_unit_backward", weights, fc, fm, fw, fs, query_mask, vmask,
+                  [("dcu", dcu, fc.shape)])
+    lib = _library()
+    ws = (workspace or Workspace()).get(lib, fc, dims, True)
+    dfc, dfm = torch.empty_like(fc), torch.empty_like(fm)
+    dfw, dfs = torch.empty_like(fw), torch.empty_like(fs)
+    dweights = [torch.empty_like(w) for w in weights]
+    with torch.cuda.device(fc.device):
+        err = lib.vml_content_unit_bwd_f32(
+            stream_of(fc), *dims, ptr(fc), ptr(fm), ptr(fw), ptr(fs), ptr(query_mask),
+            ptr(vmask), pointer_array(weights), ptr(dcu), ptr(ws), ptr(dfc), ptr(dfm),
+            ptr(dfw), ptr(dfs), pointer_array(dweights))
+    check(lib, "vml_content_unit_bwd_f32", err)
+    content_unit_backward.launches += 1
+    return dfc, dfm, dfw, dfs, dweights
+
+
+content_unit_forward.launches = 0
+content_unit_backward.launches = 0
+
+
+class _ContentUnit(torch.autograd.Function):
+    """Saves its inputs; the backward kernel recomputes the unit."""
+
+    @staticmethod
+    def forward(ctx, fc, fm, fw, fs, query_mask, vmask, *weights):
+        ctx.save_for_backward(fc, fm, fw, fs, query_mask, vmask, *weights)
+        return content_unit_forward(weights, fc, fm, fw, fs, query_mask, vmask)
+
+    @staticmethod
+    def backward(ctx, dcu):
+        fc, fm, fw, fs, query_mask, vmask, *weights = ctx.saved_tensors
+        dfc, dfm, dfw, dfs, dweights = content_unit_backward(
+            weights, fc, fm, fw, fs, query_mask, vmask, dcu.contiguous())
+        return (dfc, dfm, dfw, dfs, None, None, *dweights)
+
+
+def content_unit_fused(unit: ContentUnit, f_c, f_w, f_s, f_m, query_mask, vmask):
+    """Differentiable fused ContentUnit with the contract of
+    `models.smin.content_unit_packed` (the gate computed from f_m inside);
+    no gradient flows to the masks."""
+    return _ContentUnit.apply(f_c.contiguous(), f_m.contiguous(), f_w.contiguous(),
+                              f_s.contiguous(), query_mask.contiguous(), vmask.contiguous(),
+                              *unit_weights(unit))

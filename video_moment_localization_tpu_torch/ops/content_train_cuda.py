@@ -66,15 +66,20 @@ def content_weights(block: SMI) -> List[torch.Tensor]:
     return w[:12] + w[18:20]
 
 
+def as_unit(weights: Sequence[torch.Tensor]):
+    """The content unit's 12 tensors (the first 12 of `content_weights`) as
+    the attribute tree that `content_unit_packed` reads."""
+    ns = types.SimpleNamespace
+    c_hat, w_hat, s_hat, c_out, cq, ck = [
+        ns(weight=weights[k], bias=weights[k + 1]) for k in range(0, 12, 2)]
+    return ns(linear_c_hat=c_hat, linear_w_hat=w_hat, linear_s_hat=s_hat, linear_c=c_out,
+              attn_layer=ns(W_q=cq, W_k=ck))
+
+
 def _as_units(weights: Sequence[torch.Tensor]):
     """The 14 tensors as the attribute trees that `content_unit_packed` and
     `_linear` read: (content unit, conv_fc)."""
-    ns = types.SimpleNamespace
-    c_hat, w_hat, s_hat, c_out, cq, ck, conv_fc = [
-        ns(weight=weights[k], bias=weights[k + 1]) for k in range(0, WEIGHTS, 2)]
-    unit = ns(linear_c_hat=c_hat, linear_w_hat=w_hat, linear_s_hat=s_hat, linear_c=c_out,
-              attn_layer=ns(W_q=cq, W_k=ck))
-    return unit, conv_fc
+    return as_unit(weights), types.SimpleNamespace(weight=weights[12], bias=weights[13])
 
 
 def content_rows_plain(weights, fc, fbar, fw, fs, query_mask, vmask):
@@ -121,17 +126,20 @@ def _weight_shapes(D: int, dl: int):
     return [(dl, D), (dl,)] * 3 + [(D, dl), (D,)] + [(dl, dl), (dl,)] * 2 + [(D, D), (D,)]
 
 
-def _check_inputs(fn: str, weights, fc, fbar, fw, fs, query_mask, vmask, cotangents=()):
-    """Shapes, dtype, device and contiguity of everything the C entry reads.
-    Returns (B, N, C, Nq, D, dl)."""
+def check_inputs(fn: str, weights, fc, fbar, fw, fs, query_mask, vmask, cotangents=(),
+                 n_weights: int = WEIGHTS, fbar_name: str = "fbar"):
+    """Shapes, dtype, device and contiguity of everything the C entry reads:
+    the first ``n_weights`` of `content_weights` (12: the unit alone), and a
+    (B, N, D) ``fbar`` (or, by ``fbar_name``, what takes its place). Returns
+    (B, N, C, Nq, D, dl)."""
     if fc.device.type != "cuda":
         raise ValueError(f"{fn} takes CPU or CUDA tensors, got {fc.device}")
-    if fc.dim() != 4 or len(weights) != WEIGHTS:
-        raise ValueError(f"{fn}: want fc (B, N, C, D) and {WEIGHTS} weight tensors, got "
+    if fc.dim() != 4 or len(weights) != n_weights:
+        raise ValueError(f"{fn}: want fc (B, N, C, D) and {n_weights} weight tensors, got "
                          f"{tuple(fc.shape)} and {len(weights)}")
     B, N, C, D = fc.shape
     Nq, dl = fw.shape[1], weights[0].shape[0]
-    want = [("fc", fc, (B, N, C, D)), ("fbar", fbar, (B, N, D)), ("fw", fw, (B, Nq, D)),
+    want = [("fc", fc, (B, N, C, D)), (fbar_name, fbar, (B, N, D)), ("fw", fw, (B, Nq, D)),
             ("fs", fs, (B, D)), ("query_mask", query_mask, (B, Nq, 1)),
             ("vmask", vmask, (B, N))]
     want += [(f"weight {k}", w, s) for k, (w, s) in
@@ -169,7 +177,7 @@ def content_rows_forward(weights, fc, fbar, fw, fs, query_mask, vmask,
     optional scratch to reuse over layers."""
     if fc.device.type == "cpu":
         return content_rows_plain(weights, fc, fbar, fw, fs, query_mask, vmask)
-    dims = _check_inputs("content_rows_forward", weights, fc, fbar, fw, fs, query_mask, vmask)
+    dims = check_inputs("content_rows_forward", weights, fc, fbar, fw, fs, query_mask, vmask)
     lib = _library()
     ws = (workspace or Workspace()).get(lib, fc, dims, False)
     cu, convfc = torch.empty_like(fc), torch.empty_like(fbar)
@@ -195,7 +203,7 @@ def content_rows_backward(weights, fc, fbar, fw, fs, query_mask, vmask,
     cots = [("dconvfc", dconvfc, fbar.shape)]
     if dcu is not None:
         cots.append(("dcu", dcu, fc.shape))
-    dims = _check_inputs("content_rows_backward", weights, fc, fbar, fw, fs, query_mask,
+    dims = check_inputs("content_rows_backward", weights, fc, fbar, fw, fs, query_mask,
                          vmask, cots)
     lib = _library()
     ws = (workspace or Workspace()).get(lib, fc, dims, True)

@@ -1,9 +1,10 @@
-"""Gaussian soft-NMS over packed proposals.
+"""Gaussian soft-NMS over proposals, packed or dense.
 
-Counterpart of ``video_moment_localization_tpu/ops/nms.py::soft_nms_topk``
-in its packed mode: after each selection, the remaining scores decay by
-exp(-IoU^2 / sigma) against the selected span (hull-union IoU), and the
-selected proposal is removed.
+Counterpart of ``video_moment_localization_tpu/ops/nms.py::soft_nms_topk``:
+after each selection, the remaining scores decay by exp(-IoU^2 / sigma)
+against the selected span (hull-union IoU), and the selected proposal is
+removed. Scores are the N = L(L+1)/2 packed pairs (the default here, the
+port's main path) or the flattened L x L grid (``packed=False``).
 """
 
 from __future__ import annotations
@@ -16,20 +17,26 @@ import torch
 
 
 @lru_cache(maxsize=None)
-def _packed_spans(L: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Normalized [start, end) span of each of the N = L(L+1)/2 pairs."""
-    i, j = np.triu_indices(L)
+def _proposal_spans(L: int, packed: bool) -> Tuple[np.ndarray, np.ndarray]:
+    """Normalized [start, end) span of each score column: the N packed
+    pairs, or the L * L cells of the flattened grid (row i = start)."""
+    if packed:
+        i, j = np.triu_indices(L)
+    else:
+        i, j = np.repeat(np.arange(L), L), np.tile(np.arange(L), L)
     i, j = i.astype(np.float32), j.astype(np.float32)
     return i / L, (j + 1.0) / L
 
 
-def soft_nms_topk(scores: torch.Tensor, L: int, k: int,
-                  sigma: float = 0.5) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Select k proposals per row of packed scores (B, N).
+def soft_nms_topk(scores: torch.Tensor, L: int, k: int, sigma: float = 0.5,
+                  packed: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Select k proposals per row of scores: packed (B, N), or with
+    ``packed=False`` dense-flat (B, L * L).
 
-    Returns (values (B, k), packed indices (B, k)) in selection order; of
-    equal scores the lowest index is selected first."""
-    starts_np, ends_np = _packed_spans(L)
+    Returns (values (B, k), indices (B, k)) in selection order, indices into
+    the given score columns; of equal scores the lowest index is selected
+    first."""
+    starts_np, ends_np = _proposal_spans(L, packed)
     starts = torch.from_numpy(starts_np).to(scores.device)
     ends = torch.from_numpy(ends_np).to(scores.device)
     B = scores.shape[0]

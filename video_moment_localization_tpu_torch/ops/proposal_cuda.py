@@ -1,29 +1,33 @@
-"""K1 and K6: packed proposal features for training, forward and backward
+"""K1, K6 and K8: proposal features for training, forward and backward
 (csrc/proposal_rows.cu).
 
-Counterparts of two kernels of ``video_moment_localization_tpu/ops/
+Counterparts of three kernels of ``video_moment_localization_tpu/ops/
 proposal_pallas.py``, each with its custom VJP: `proposal_features_rows`
 (K1: `_rows_fwd` / `_rows_bwd`), which feeds the whole-layer train kernels,
-and `proposal_features_packed_pallas` (K6: `_packed_fwd` / `_packed_bwd`),
-which feeds the content-unit train path. Both map the fused backbone
+`proposal_features_packed_pallas` (K6: `_packed_fwd` / `_packed_bwd`),
+which feeds the content-unit train path and the packed unit loop, and
+`proposal_features_pallas` (K8: `_fc_fm_pallas`, backward the XLA VJP),
+which feeds the dense layout (``packed: False``). All map the fused backbone
 features f (B, T, D) to the clip means fc, their mean over clips fm and the
 snippet window means fb. The JAX kernels multiply by a dense averaging
-matrix and differ in the layout of fc: K1 emits c-major rows (B, C*N, D) for
-the TPU's tiling, K6 n-major (B, N, C, D). This port keeps fc n-major
-everywhere (`ops.packing.pack_rows` converts), and what both kernels compute
-is a mean over a closed-form run of frames per (pair, clip), so on the card
-K1 and K6 are one pair of C entry points of csrc/proposal_rows.cu (a
-segment-mean forward, a gather backward) behind two Python entries, each
-with its own launch counters.
+matrix; K1 and K6 differ only in the layout of fc (K1 emits c-major rows
+(B, C*N, D) for the TPU's tiling, K6 n-major (B, N, C, D)), K8 writes every
+cell of the L x L map and masks by a given moment_mask. This port keeps fc
+n-major everywhere (`ops.packing.pack_rows` converts), and what the kernels
+compute is a mean over a closed-form run of frames per (moment, clip), so on
+the card they are one segment-mean forward and one gather backward,
+templated on the layout: two C entry points for the packed layout (K1 and
+K6, each with its own launch counters) and two for the dense one (K8).
 
-`proposal_features_rows` (K1) and `proposal_features_packed_fused` (K6) are
-the differentiable entries (autograd Functions that save their inputs).
-`proposal_rows_forward` / `proposal_rows_backward` and
-`proposal_packed_forward` / `proposal_packed_backward` are the kernel
+`proposal_features_rows` (K1), `proposal_features_packed_fused` (K6) and
+`proposal_features_dense_fused` (K8) are the differentiable entries
+(autograd Functions that save their inputs; no gradient flows to a mask).
+`proposal_rows_forward` / `_backward`, `proposal_packed_forward` /
+`_backward` and `proposal_dense_forward` / `_backward` are the kernel
 wrappers: on a CPU tensor each runs its plain version
-(`ops.proposal.proposal_features_packed`, and autograd through it), on a
-CUDA tensor it launches its kernel or raises. ``.launches`` on each counts
-the launches.
+(`ops.proposal.proposal_features_packed` or `ops.proposal.proposal_features`,
+and autograd through it), on a CUDA tensor it launches its kernel or raises.
+``.launches`` on each counts the launches.
 """
 
 from __future__ import annotations
@@ -35,19 +39,21 @@ import torch
 
 from video_moment_localization_tpu_torch.ops.cuda_build import check, load_library, ptr, stream_of
 from video_moment_localization_tpu_torch.ops.packing import packed_valid_mask
-from video_moment_localization_tpu_torch.ops.proposal import proposal_features_packed
+from video_moment_localization_tpu_torch.ops.proposal import (
+    proposal_features,
+    proposal_features_packed,
+)
 
 Features = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def _library() -> ctypes.CDLL:
     lib = load_library("proposal_rows")
-    lib.vml_proposal_rows_fwd_f32.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 5
-                                              + [ctypes.c_void_p] * 5)
-    lib.vml_proposal_rows_fwd_f32.restype = ctypes.c_int
-    lib.vml_proposal_rows_bwd_f32.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 5
-                                              + [ctypes.c_void_p] * 5)
-    lib.vml_proposal_rows_bwd_f32.restype = ctypes.c_int
+    for layout in ("rows", "dense"):
+        for direction in ("fwd", "bwd"):
+            fn = getattr(lib, f"vml_proposal_{layout}_{direction}_f32")
+            fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -68,61 +74,76 @@ def _check_geometry(T: int, L: int, C: int) -> None:
         raise ValueError(f"T ({T}) must be a multiple of L ({L}) and C ({C}) positive")
 
 
-def proposal_rows_backward_plain(length_mask, T: int, L: int, C: int, dfc, dfm, dfb):
-    """The plain backward: the pooling is linear in f, so its transpose is
-    autograd through `proposal_features_packed` at any f."""
+def _plain_forward(dense: bool):
+    return proposal_features if dense else proposal_features_packed
+
+
+def _shapes(B: int, L: int, dense: bool):
+    """(the mask's shape, the leading shape of fc and fm) of a layout."""
+    if dense:
+        return (B, L, L), (B, L, L)
+    return (B, L), (B, L * (L + 1) // 2)
+
+
+def proposal_backward_plain(mask, T: int, L: int, C: int, dfc, dfm, dfb):
+    """The plain backward of either layout (a (B, L, L) ``mask`` is the dense
+    moment_mask, a (B, L) one the length mask): the pooling is linear in f,
+    so its transpose is autograd through the plain forward at any f."""
     B, D = dfc.shape[0], dfc.shape[-1]
     with torch.enable_grad():
         f = torch.zeros((B, T, D), dtype=dfc.dtype, device=dfc.device, requires_grad=True)
-        out = proposal_features_packed(f, length_mask, L, C)
+        out = _plain_forward(mask.dim() == 3)(f, mask, L, C)
         return torch.autograd.grad(out, f, (dfc, dfm, dfb))[0]
 
 
-def _launch_forward(fn: str, f: torch.Tensor, length_mask: torch.Tensor, L: int,
+def _launch_forward(fn: str, dense: bool, f: torch.Tensor, mask: torch.Tensor, L: int,
                     C: int) -> Features:
     _check_device(fn, f)
     B, T, D = f.shape
     _check_geometry(T, L, C)
-    N = L * (L + 1) // 2
+    mask_shape, lead = _shapes(B, L, dense)
     _check("f", f, (B, T, D), f.device)
-    _check("length_mask", length_mask, (B, L), f.device)
-    vmask = packed_valid_mask(length_mask).contiguous()
+    _check("moment_mask" if dense else "length_mask", mask, mask_shape, f.device)
+    mask = mask if dense else packed_valid_mask(mask).contiguous()
     lib = _library()
-    fc = torch.empty((B, N, C, D), device=f.device, dtype=torch.float32)
-    fm = torch.empty((B, N, D), device=f.device, dtype=torch.float32)
+    fc = torch.empty(lead + (C, D), device=f.device, dtype=torch.float32)
+    fm = torch.empty(lead + (D,), device=f.device, dtype=torch.float32)
     fb = torch.empty((B, L, D), device=f.device, dtype=torch.float32)
+    entry = f"vml_proposal_{'dense' if dense else 'rows'}_fwd_f32"
     with torch.cuda.device(f.device):
-        err = lib.vml_proposal_rows_fwd_f32(stream_of(f), B, T, L, C, D, ptr(f), ptr(vmask),
-                                            ptr(fc), ptr(fm), ptr(fb))
-    check(lib, "vml_proposal_rows_fwd_f32", err)
+        err = getattr(lib, entry)(stream_of(f), B, T, L, C, D, ptr(f), ptr(mask), ptr(fc),
+                                  ptr(fm), ptr(fb))
+    check(lib, entry, err)
     return fc, fm, fb
 
 
-def _launch_backward(fn: str, length_mask: torch.Tensor, T: int, L: int, C: int,
+def _launch_backward(fn: str, dense: bool, mask: torch.Tensor, T: int, L: int, C: int,
                      dfc: torch.Tensor, dfm: torch.Tensor, dfb: torch.Tensor) -> torch.Tensor:
     _check_device(fn, dfc)
-    B, N, _, D = dfc.shape
+    B, D = dfc.shape[0], dfc.shape[-1]
     _check_geometry(T, L, C)
-    _check("dfc", dfc, (B, L * (L + 1) // 2, C, D), dfc.device)
-    _check("dfm", dfm, (B, N, D), dfc.device)
+    mask_shape, lead = _shapes(B, L, dense)
+    _check("dfc", dfc, lead + (C, D), dfc.device)
+    _check("dfm", dfm, lead + (D,), dfc.device)
     _check("dfb", dfb, (B, L, D), dfc.device)
-    _check("length_mask", length_mask, (B, L), dfc.device)
-    vmask = packed_valid_mask(length_mask).contiguous()
+    _check("moment_mask" if dense else "length_mask", mask, mask_shape, dfc.device)
+    mask = mask if dense else packed_valid_mask(mask).contiguous()
     lib = _library()
     df = torch.empty((B, T, D), device=dfc.device, dtype=torch.float32)
+    entry = f"vml_proposal_{'dense' if dense else 'rows'}_bwd_f32"
     with torch.cuda.device(dfc.device):
-        err = lib.vml_proposal_rows_bwd_f32(stream_of(dfc), B, T, L, C, D, ptr(vmask),
-                                            ptr(dfc), ptr(dfm), ptr(dfb), ptr(df))
-    check(lib, "vml_proposal_rows_bwd_f32", err)
+        err = getattr(lib, entry)(stream_of(dfc), B, T, L, C, D, ptr(mask), ptr(dfc),
+                                  ptr(dfm), ptr(dfb), ptr(df))
+    check(lib, entry, err)
     return df
 
 
-def _forward_wrapper(name: str, doc: str):
-    """A kernel wrapper of the forward entry point with its own counter."""
-    def run(f: torch.Tensor, length_mask: torch.Tensor, L: int, C: int) -> Features:
+def _forward_wrapper(name: str, dense: bool, doc: str):
+    """A kernel wrapper of a forward entry point with its own counter."""
+    def run(f: torch.Tensor, mask: torch.Tensor, L: int, C: int) -> Features:
         if f.device.type == "cpu":
-            return proposal_features_packed(f, length_mask, L, C)
-        out = _launch_forward(name, f, length_mask, L, C)
+            return _plain_forward(dense)(f, mask, L, C)
+        out = _launch_forward(name, dense, f, mask, L, C)
         run.launches += 1
         return out
 
@@ -132,13 +153,13 @@ def _forward_wrapper(name: str, doc: str):
     return run
 
 
-def _backward_wrapper(name: str, doc: str):
-    """A kernel wrapper of the backward entry point with its own counter."""
-    def run(length_mask: torch.Tensor, T: int, L: int, C: int, dfc: torch.Tensor,
+def _backward_wrapper(name: str, dense: bool, doc: str):
+    """A kernel wrapper of a backward entry point with its own counter."""
+    def run(mask: torch.Tensor, T: int, L: int, C: int, dfc: torch.Tensor,
             dfm: torch.Tensor, dfb: torch.Tensor) -> torch.Tensor:
         if dfc.device.type == "cpu":
-            return proposal_rows_backward_plain(length_mask, T, L, C, dfc, dfm, dfb)
-        df = _launch_backward(name, length_mask, T, L, C, dfc, dfm, dfb)
+            return proposal_backward_plain(mask, T, L, C, dfc, dfm, dfb)
+        df = _launch_backward(name, dense, mask, T, L, C, dfc, dfm, dfb)
         run.launches += 1
         return df
 
@@ -149,40 +170,49 @@ def _backward_wrapper(name: str, doc: str):
 
 
 proposal_rows_forward = _forward_wrapper(
-    "proposal_rows_forward",
+    "proposal_rows_forward", False,
     """K1 forward. f (B, T, D), length_mask (B, L) -> fc (B, N, C, D) masked
     by the pair validity, fm (B, N, D) = mean over C, fb (B, L, D) window
     means.""")
 proposal_rows_backward = _backward_wrapper(
-    "proposal_rows_backward",
+    "proposal_rows_backward", False,
     """K1 backward. (length_mask, T, L, C, dfc, dfm, dfb): cotangents of
     (fc, fm, fb) -> df (B, T, D).""")
 proposal_packed_forward = _forward_wrapper(
-    "proposal_packed_forward",
+    "proposal_packed_forward", False,
     """K6 forward: the same function and device code as `proposal_rows_forward`
     (the two JAX kernels differ only in fc's layout, which this port does
     not carry over), counted on its own.""")
 proposal_packed_backward = _backward_wrapper(
-    "proposal_packed_backward",
+    "proposal_packed_backward", False,
     """K6 backward: cotangents of (fc, fm, fb) -> df (B, T, D), counted on its
     own.""")
+proposal_dense_forward = _forward_wrapper(
+    "proposal_dense_forward", True,
+    """K8 forward. f (B, T, D), moment_mask (B, L, L) -> fc (B, L, L, C, D)
+    masked by the moment_mask's value (0 below the diagonal whatever the
+    mask holds there), fm (B, L, L, D) = mean over C, fb (B, L, D).""")
+proposal_dense_backward = _backward_wrapper(
+    "proposal_dense_backward", True,
+    """K8 backward. (moment_mask, T, L, C, dfc, dfm, dfb): cotangents of the
+    dense (fc, fm, fb) -> df (B, T, D).""")
 
 
 class _Proposal(torch.autograd.Function):
     """Differentiable over one pair of kernel wrappers; saves its inputs."""
 
     @staticmethod
-    def forward(ctx, f, length_mask, L, C, run_forward, run_backward):
-        ctx.save_for_backward(f, length_mask)
+    def forward(ctx, f, mask, L, C, run_forward, run_backward):
+        ctx.save_for_backward(f, mask)
         ctx.geometry = (L, C)
         ctx.run_backward = run_backward
-        return run_forward(f, length_mask, L, C)
+        return run_forward(f, mask, L, C)
 
     @staticmethod
     def backward(ctx, dfc, dfm, dfb):
-        f, length_mask = ctx.saved_tensors
+        f, mask = ctx.saved_tensors
         L, C = ctx.geometry
-        df = ctx.run_backward(length_mask, f.shape[1], L, C, dfc.contiguous(),
+        df = ctx.run_backward(mask, f.shape[1], L, C, dfc.contiguous(),
                               dfm.contiguous(), dfb.contiguous())
         return df, None, None, None, None, None
 
@@ -200,3 +230,12 @@ def proposal_features_packed_fused(f: torch.Tensor, length_mask: torch.Tensor, L
     train path."""
     return _Proposal.apply(f, length_mask, L, C, proposal_packed_forward,
                            proposal_packed_backward)
+
+
+def proposal_features_dense_fused(f: torch.Tensor, moment_mask: torch.Tensor, L: int,
+                                  C: int) -> Features:
+    """K8, differentiable: dense (fc (B, L, L, C, D), fm (B, L, L, D),
+    fb (B, L, D)) of f (B, T, D), for the dense layout (``packed: False``);
+    no gradient flows to ``moment_mask``."""
+    return _Proposal.apply(f, moment_mask.float().contiguous(), L, C, proposal_dense_forward,
+                           proposal_dense_backward)

@@ -1,9 +1,14 @@
-"""K2 and K3: one SMI layer forward and its hand-written backward, and the
-differentiable stack over them (csrc/smin_train.cu).
+"""K2 and K3: one SMI layer forward and its hand-written backward, K9: all
+layers' forward in one launch, and the differentiable stack over them
+(csrc/smin_train.cu).
 
 Counterpart of ``video_moment_localization_tpu/ops/smin_train_pallas.py``:
-`_layer_fwd_call` (K2), `_layer_bwd_call` (K3) and the `smi_stack_layers`
-custom VJP that drives them. The JAX backward kernel differentiates the
+`_layer_fwd_call` (K2), `_layer_bwd_call` (K3), `_stack_fwd_call` (K9) and
+the `smi_stack_layers` custom VJP that drives them. As in the JAX package
+the stack's forward reads ``VML_SMIN_TRAIN_FUSED_FWD`` at each call: "1"
+runs K9 in place of one K2 per layer (the same device code in the same
+order, so the same bits), anything else the per-layer K2s; the backward is
+K3 per layer either way. The JAX backward kernel differentiates the
 layer body at trace time; here the gradient is derived by hand and written
 as CUDA kernels (the derivation is in csrc/smin_train.cu). As in the JAX
 package the stack saves only the layer-boundary carries (fc_i, fm_i, fb_i):
@@ -14,16 +19,18 @@ dfs accumulate over the layers.
 fc is n-major, (B, N, C, D), as everywhere in this package (the JAX kernels'
 c-major rows are a TPU tiling choice).
 
-`smi_layer_forward` / `smi_layer_backward` are the kernel wrappers: on a CPU
-tensor each runs its plain version (`models.smin.smi_block_packed`, and
+`smi_layer_forward` / `smi_layer_backward` / `smi_stack_forward` are the
+kernel wrappers: on a CPU tensor each runs its plain version
+(`models.smin.smi_block_packed`, layer by layer for K9, and
 ``torch.autograd.grad`` through it), on a CUDA tensor it launches its kernel
-or raises. ``.launches`` on each counts the launches (one per layer: the C
-entry point sequences the layer's kernels).
+or raises. ``.launches`` on each counts the launches (one per layer for K2
+and K3, one per stack for K9: the C entry point sequences the kernels).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import types
 from typing import List, Optional, Sequence, Tuple
 
@@ -97,6 +104,10 @@ def _library() -> ctypes.CDLL:
     bwd.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 8
                     + [pointers] + [ctypes.c_void_p] * 9 + [pointers])
     bwd.restype = ctypes.c_int
+    stack = lib.vml_smi_stack_fwd_f32
+    stack.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 8
+                      + [pointers] + [ctypes.c_void_p] * 7)
+    stack.restype = ctypes.c_int
     return lib
 
 
@@ -195,8 +206,56 @@ def smi_layer_backward(weights, fc, fm, fb, fw, fs, query_mask, length_mask, vma
     return dfc, dfm, dfb, dfw, dfs, dweights
 
 
+def smi_stack_plain(weights, fc, fm, fb, fw, fs, query_mask, length_mask, vmask, L: int):
+    """The plain version of K9: `smi_layer_plain` layer by layer. Returns
+    (fm_out, fb_out, [the (fc, fm, fb) input carry of every layer])."""
+    carries = []
+    for k in range(len(weights) // WEIGHTS_PER_LAYER):
+        carries.append((fc, fm, fb))
+        fc, fm, fb = smi_layer_plain(weights[k * WEIGHTS_PER_LAYER:(k + 1) * WEIGHTS_PER_LAYER],
+                                     fc, fm, fb, fw, fs, query_mask, length_mask, vmask, L)
+    return fm, fb, carries
+
+
+def smi_stack_forward(weights, fc, fm, fb, fw, fs, query_mask, length_mask, vmask, L: int):
+    """All layers' forward: ``weights`` holds every layer's 20 tensors in
+    `block_weights` order, one layer after the other. Returns (fm_out
+    (B, N, D), fb_out (B, L, D), [the (fc, fm, fb) input carry of every
+    layer]); on the card the inner layers' carries are views of three
+    buffers that the one launch writes."""
+    if fc.device.type == "cpu":
+        return smi_stack_plain(weights, fc, fm, fb, fw, fs, query_mask, length_mask, vmask, L)
+    n_layers = len(weights) // WEIGHTS_PER_LAYER
+    if n_layers < 1 or len(weights) != n_layers * WEIGHTS_PER_LAYER:
+        raise ValueError(f"smi_stack_forward: want 20 weight tensors per layer, got "
+                         f"{len(weights)}")
+    B, C, Nq, D, dl = _check_inputs("smi_stack_forward", weights[:WEIGHTS_PER_LAYER], fc, fm,
+                                    fb, fw, fs, query_mask, length_mask, vmask, L)
+    check_tensors("smi_stack_forward", fc.device,
+                  [(f"weight {k}", w, shape) for k, (w, shape)
+                   in enumerate(zip(weights, _weight_shapes(D, dl) * n_layers))])
+    lib = _library()
+    ws = _workspace(lib, fc, B, L, C, Nq, D, dl, False, None)
+    inner = n_layers - 1
+    carry_fc = fc.new_empty((inner,) + tuple(fc.shape))
+    carry_fm = fm.new_empty((inner,) + tuple(fm.shape))
+    carry_fb = fb.new_empty((inner,) + tuple(fb.shape))
+    cu_last, fm_out, fb_out = torch.empty_like(fc), torch.empty_like(fm), torch.empty_like(fb)
+    with torch.cuda.device(fc.device):
+        err = lib.vml_smi_stack_fwd_f32(
+            stream_of(fc), B, L, C, Nq, D, dl, n_layers, ptr(fc), ptr(fm), ptr(fb), ptr(fw),
+            ptr(fs), ptr(query_mask), ptr(length_mask), ptr(vmask), pointer_array(weights),
+            ptr(ws), *((ptr(t) if inner else None) for t in (carry_fc, carry_fm, carry_fb)),
+            ptr(cu_last), ptr(fm_out), ptr(fb_out))
+    check(lib, "vml_smi_stack_fwd_f32", err)
+    smi_stack_forward.launches += 1
+    carries = [(fc, fm, fb)] + [(carry_fc[k], carry_fm[k], carry_fb[k]) for k in range(inner)]
+    return fm_out, fb_out, carries
+
+
 smi_layer_forward.launches = 0
 smi_layer_backward.launches = 0
+smi_stack_forward.launches = 0
 
 
 class _SMIStack(torch.autograd.Function):
@@ -206,17 +265,20 @@ class _SMIStack(torch.autograd.Function):
     def forward(ctx, L, fc, fm, fb, fw, fs, query_mask, length_mask, vmask, *weights):
         n_layers = len(weights) // WEIGHTS_PER_LAYER
         shared = (fw, fs, query_mask, length_mask, vmask)
-        ws = None
-        if fc.device.type == "cuda":
-            ws = _workspace(_library(), fc, fc.shape[0], L, fc.shape[2], fw.shape[1],
-                            fc.shape[3], weights[0].shape[0], False, None)
-        carries = []
-        for k in range(n_layers):
-            carries += [fc, fm, fb]
-            fc, fm, fb = smi_layer_forward(
-                weights[k * WEIGHTS_PER_LAYER:(k + 1) * WEIGHTS_PER_LAYER], fc, fm, fb,
-                *shared, L, ws=ws)
-        ctx.save_for_backward(*carries, *shared, *weights)
+        if os.environ.get("VML_SMIN_TRAIN_FUSED_FWD", "0") == "1":
+            fm, fb, carries = smi_stack_forward(weights, fc, fm, fb, *shared, L)
+        else:
+            ws = None
+            if fc.device.type == "cuda":
+                ws = _workspace(_library(), fc, fc.shape[0], L, fc.shape[2], fw.shape[1],
+                                fc.shape[3], weights[0].shape[0], False, None)
+            carries = []
+            for k in range(n_layers):
+                carries.append((fc, fm, fb))
+                fc, fm, fb = smi_layer_forward(
+                    weights[k * WEIGHTS_PER_LAYER:(k + 1) * WEIGHTS_PER_LAYER], fc, fm, fb,
+                    *shared, L, ws=ws)
+        ctx.save_for_backward(*(t for carry in carries for t in carry), *shared, *weights)
         ctx.L, ctx.n_layers = L, n_layers
         return fm, fb
 

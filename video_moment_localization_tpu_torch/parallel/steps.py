@@ -7,11 +7,15 @@ the on-device R@n,IoU=m counts. A step returns ``{"loss", "counts"}`` as
 device tensors and reads nothing back to the host.
 
 The training forward (`models.smin.smin_forward`) runs the plain biLSTM
-under autograd and the K1 / K2 / K3 kernels, or K6 / K7 for a config that
-takes the content-unit route; the eval forward
-(`smin_forward_inference`) the fused biLSTM and the fused SMI stack. On a
-CUDA device a kernel launches or raises: there is no fallback to the plain
-versions. The steps run on the card unless ``device="cpu"`` is asked for.
+under autograd and the kernels of the config's route: K1 / K2 (or K9) / K3,
+K6 / K7, K6 and the packed unit loop (with K10 under ``fused_content``), or
+K8 and the dense loop; the eval forward (`smin_forward_inference`) the fused
+biLSTM and the fused SMI stack, or `smin_forward` without a graph in the
+modes that the fused stack does not serve. A batch for pm (B, L, L) (the
+dense layout and ``compat_head``) carries dense ``sm`` / ``ym`` and a
+``moment_mask``. On a CUDA device a kernel launches or raises: there is no
+fallback to the plain versions. The steps run on the card unless
+``device="cpu"`` is asked for.
 """
 
 from __future__ import annotations
@@ -23,19 +27,20 @@ import torch
 from video_moment_localization_tpu_torch.config import Config, ModelConfig
 from video_moment_localization_tpu_torch.models.smin import (
     SMIN,
-    check_serving_config,
-    check_training_config,
+    check_config,
     smin_forward,
     smin_forward_inference,
 )
 from video_moment_localization_tpu_torch.ops.cuda_build import resolve_device
 from video_moment_localization_tpu_torch.train.loss import smin_loss
-from video_moment_localization_tpu_torch.train.metrics import recall_counts_packed
+from video_moment_localization_tpu_torch.train.metrics import recall_counts, recall_counts_packed
 
 Batch = Dict[str, torch.Tensor]
 
+# A packed batch has no moment_mask: the packed forward derives the pair
+# validity from length_mask.
 _FORWARD_KEYS = ("video_features", "video_mask", "query_features", "query_mask",
-                 "length_mask")
+                 "length_mask", "moment_mask")
 
 
 def build_optimizer(cfg: Config, model: SMIN) -> torch.optim.Adam:
@@ -47,9 +52,13 @@ def build_optimizer(cfg: Config, model: SMIN) -> torch.optim.Adam:
 
 def _step_metrics(outputs, loss, batch: Batch, use_nms: bool, nms_sigma: float):
     pm, ps, pe, _ = outputs
-    counts = recall_counts_packed(pm, ps, pe, batch["length_mask"], batch["sm"],
-                                  batch.get("sample_mask"), use_nms=use_nms,
-                                  nms_sigma=nms_sigma)
+    if pm.dim() == 2:
+        counts = recall_counts_packed(pm, ps, pe, batch["length_mask"], batch["sm"],
+                                      batch.get("sample_mask"), use_nms=use_nms,
+                                      nms_sigma=nms_sigma)
+    else:
+        counts = recall_counts(pm, ps, pe, batch["moment_mask"], batch["sm"],
+                               batch.get("sample_mask"), use_nms=use_nms, nms_sigma=nms_sigma)
     return {"loss": loss, "counts": counts}
 
 
@@ -59,7 +68,7 @@ def make_train_step(cfg: ModelConfig, model: SMIN, optimizer: torch.optim.Optimi
     """Returns batch -> metrics; each call updates ``model`` and
     ``optimizer`` in place. The model is moved to ``device`` here (its
     parameters stay the objects the optimizer holds)."""
-    check_training_config(cfg)
+    check_config(cfg)
     device = resolve_device(device, "make_train_step")
     model.to(device)
 
@@ -68,7 +77,7 @@ def make_train_step(cfg: ModelConfig, model: SMIN, optimizer: torch.optim.Optimi
         model.train()
         optimizer.zero_grad(set_to_none=True)
         with torch.enable_grad():
-            outputs = smin_forward(model, cfg, *(batch[k] for k in _FORWARD_KEYS))
+            outputs = smin_forward(model, cfg, *(batch.get(k) for k in _FORWARD_KEYS))
             loss, _ = smin_loss(outputs, batch)
             loss.backward()
         optimizer.step()
@@ -83,8 +92,8 @@ def make_eval_step(cfg: ModelConfig, model: SMIN, use_nms: bool = False,
                    nms_sigma: float = 0.5, device: Union[str, torch.device] = "cuda"
                    ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
     """Returns batch -> metrics (loss and recall counts), grad-free, through
-    the serving forward."""
-    check_serving_config(cfg)
+    `smin_forward_inference`, which routes as the JAX package's does."""
+    check_config(cfg)
     device = resolve_device(device, "make_eval_step")
     model.to(device)
 
@@ -92,7 +101,7 @@ def make_eval_step(cfg: ModelConfig, model: SMIN, use_nms: bool = False,
     def eval_step(batch: Batch) -> Dict[str, torch.Tensor]:
         batch = {k: v.to(device) for k, v in batch.items()}
         model.eval()
-        outputs = smin_forward_inference(model, cfg, *(batch[k] for k in _FORWARD_KEYS))
+        outputs = smin_forward_inference(model, cfg, *(batch.get(k) for k in _FORWARD_KEYS))
         loss, _ = smin_loss(outputs, batch)
         return _step_metrics(outputs, loss, batch, use_nms, nms_sigma)
 

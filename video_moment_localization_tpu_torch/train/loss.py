@@ -44,13 +44,19 @@ def scaled_bce(p: torch.Tensor, y: torch.Tensor, s: Optional[torch.Tensor],
 
 def smin_loss(outputs: Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
               batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Total SMIN loss over the packed outputs (pm (B, N), ps/pe/pa (B, L)),
-    averaged over valid samples. The pair-validity mask is derived from
-    ``length_mask``. Returns (loss, {"per_sample": (B,), "num_valid": ()})."""
+    """Total SMIN loss, averaged over valid samples. Packed outputs (pm
+    (B, N)) take the pair-validity mask from ``length_mask``; dense ones (pm
+    (B, L, L): ``packed: False`` or ``compat_head``) take
+    ``batch["moment_mask"]``. Returns (loss, {"per_sample": (B,),
+    "num_valid": ()})."""
     pm, ps, pe, pa = outputs
     length_mask = batch["length_mask"].float()
+    if pm.dim() == 2:
+        mask_m = packed_valid_mask(length_mask)
+    else:
+        mask_m = batch["moment_mask"].float()
     per_sample = (
-        scaled_bce(pm, batch["ym"], batch["sm"], packed_valid_mask(length_mask))
+        scaled_bce(pm, batch["ym"], batch["sm"], mask_m)
         + scaled_bce(ps, batch["ys"], batch["ss"], length_mask)
         + scaled_bce(pe, batch["ye"], batch["se"], length_mask)
         + 0.5 * scaled_bce(pa, batch["ya"], None, length_mask)

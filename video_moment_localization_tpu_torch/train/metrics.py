@@ -1,12 +1,16 @@
-"""Final proposal scores and R@n, IoU=m recall counts over packed pairs.
+"""Final proposal scores and R@n, IoU=m recall counts, packed and dense.
 
-Counterpart of the packed half of ``video_moment_localization_tpu/
-train/metrics.py`` (reference utils.py:10-31): the final score of pair
-(i, j) is ``pm * sqrt(ps[i]) * sqrt(pe[j])``, masked to valid pairs; the
-top-k = max(n) scores (or k soft-NMS selections) gather the ground-truth IoU
-at their indices, and R@n,IoU=m counts the samples where any of the top-n
+Counterpart of ``video_moment_localization_tpu/train/metrics.py``
+(reference utils.py:10-31): the final score of moment (i, j) is
+``pm * sqrt(ps[i]) * sqrt(pe[j])``, masked to valid moments; the top-k =
+max(n) scores (or k soft-NMS selections) gather the ground-truth IoU at
+their indices, and R@n,IoU=m counts the samples where any of the top-n
 gathered IoUs exceeds m. Counts are un-normalized; a padded batch's
-``sample_mask`` weights them.
+``sample_mask`` weights them. The packed layout ranks the N valid pairs; the
+dense one (``packed: False`` and ``compat_head``) ranks all L * L cells, as
+the reference does, with its tie behaviour: equal scores go to the lower
+flat index (PARITY.md #16), so a sample with fewer than k positive scores
+selects masked zero-score cells, whose dense ``sm`` entries are real IoUs.
 """
 
 from __future__ import annotations
@@ -36,6 +40,14 @@ def proposal_scores_packed(pm: torch.Tensor, ps: torch.Tensor, pe: torch.Tensor,
     return pm * s_i * e_j * packed_valid_mask(length_mask.float())
 
 
+def proposal_scores(pm: torch.Tensor, ps: torch.Tensor, pe: torch.Tensor,
+                    moment_mask: torch.Tensor) -> torch.Tensor:
+    """(B, L, L) final moment scores over the dense map (reference
+    utils.py:17-19)."""
+    score = pm * torch.sqrt(ps)[:, :, None] * torch.sqrt(pe)[:, None, :]
+    return score * moment_mask
+
+
 def topk_lowest_index_first(score: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k along the last axis, ties to the lower index (as jax.lax.top_k):
     a stable descending sort keeps equal scores in index order."""
@@ -43,11 +55,11 @@ def topk_lowest_index_first(score: torch.Tensor, k: int) -> Tuple[torch.Tensor, 
     return vals[..., :k], idxs[..., :k]
 
 
-def _counts_from_topk(score, sm_flat, sample_mask, n, m, L, use_nms, nms_sigma):
+def _counts_from_topk(score, sm_flat, sample_mask, n, m, L, use_nms, nms_sigma, packed):
     """Top-k -> gather GT IoU -> threshold counts, shape (len(n), len(m))."""
     k = max(n)
     if use_nms:
-        _, top_idx = soft_nms_topk(score, L, k, nms_sigma)
+        _, top_idx = soft_nms_topk(score, L, k, nms_sigma, packed=packed)
     else:
         _, top_idx = topk_lowest_index_first(score, k)
     top_ious = sm_flat.gather(1, top_idx)                               # (B, k)
@@ -69,7 +81,22 @@ def recall_counts_packed(pm: torch.Tensor, ps: torch.Tensor, pe: torch.Tensor,
     reference's dense top-k, PARITY.md #16)."""
     L = ps.shape[1]
     score = proposal_scores_packed(pm, ps, pe, length_mask, L)
-    return _counts_from_topk(score, sm, sample_mask, n, m, L, use_nms, nms_sigma)
+    return _counts_from_topk(score, sm, sample_mask, n, m, L, use_nms, nms_sigma, True)
+
+
+def recall_counts(pm: torch.Tensor, ps: torch.Tensor, pe: torch.Tensor,
+                  moment_mask: torch.Tensor, sm: torch.Tensor,
+                  sample_mask: Optional[torch.Tensor] = None,
+                  n: Sequence[int] = METRIC_NS, m: Sequence[float] = METRIC_MS,
+                  use_nms: bool = False, nms_sigma: float = 0.5) -> torch.Tensor:
+    """Un-normalized hit counts (len(n), len(m)) over the dense layout: pm,
+    sm and moment_mask are (B, L, L); the top-k runs over all L * L cells,
+    ties to the lower flat index, reproducing the reference's tie behaviour
+    bit for bit (PARITY.md #16)."""
+    B, L = pm.shape[:2]
+    score = proposal_scores(pm, ps, pe, moment_mask).reshape(B, -1)
+    return _counts_from_topk(score, sm.reshape(B, -1), sample_mask, n, m, L, use_nms,
+                             nms_sigma, False)
 
 
 def counts_to_dict(counts, n=METRIC_NS, m=METRIC_MS) -> Dict[str, float]:

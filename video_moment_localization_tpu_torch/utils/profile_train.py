@@ -1,13 +1,16 @@
 """Where a train step's device time goes, kernel by kernel, on a GPU.
 
     python -m video_moment_localization_tpu_torch.utils.profile_train \
-        [--config config/charadessta.yml] [--batch 64] [--iters 5] [--seed 0]
+        [--config config/charadessta.yml] [--batch 64] [--iters 5] [--seed 0] \
+        [--packed false] [--compat]
 
 Builds the model of the config it is given (default: Charades,
-config/charadessta.yml; config/activitynet.yml takes the content-unit route)
-with random seeded weights and a seeded synthetic batch (`synthetic_batch`:
-random features, GT spans through the label generators, ragged lengths, one
-padded sample), runs `parallel.steps.make_train_step` under
+config/charadessta.yml; config/activitynet.yml takes the content-unit route;
+``--packed false`` the dense layout, ``--compat`` the reference-compat mode
+``compat_head`` with ``fused_content``) with random seeded weights and a
+seeded synthetic batch (`synthetic_batch`: random features, GT spans through
+the label generators, ragged lengths, one padded sample), runs
+`parallel.steps.make_train_step` under
 ``torch.profiler``, and prints the device time per step of each kernel, its
 share, the device's busy share of the window (summed kernel time over wall
 time) and the peak device memory of a step. Needs a CUDA device.
@@ -16,6 +19,7 @@ time) and the peak device memory of a step. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 from typing import Dict
@@ -35,24 +39,32 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 def synthetic_batch(cfg: ModelConfig, B: int, rng: np.random.Generator) -> Dict[str, torch.Tensor]:
     """A train batch of B samples on the CPU: random clip and word features,
     ragged video and query lengths, a random ground-truth span per sample
-    turned into targets by the label generators of data/labels.py (packed
-    IoU map, boundary curves, snippet labels; binary labels at 0.5), and the
-    last sample padded (``sample_mask`` 0)."""
+    turned into targets by the label generators of data/labels.py (IoU map,
+    boundary curves, snippet labels; binary labels at 0.5), and the last
+    sample padded (``sample_mask`` 0). The IoU map and its labels are packed
+    (B, N) where the forward's pm is (``packed`` and not ``compat_head``,
+    the JAX trainer's ``packed_labels`` rule), else dense (B, L, L) beside
+    the ``moment_mask`` of `labels.build_masks`."""
     T, L, Nq = cfg.T, cfg.L, cfg.max_query_length
+    packed_labels = cfg.packed and not cfg.compat_head
     nfeats = rng.integers(T // 4, T + 1, size=B)
     nfeats[0] = T
     qlen = rng.integers(1, Nq + 1, size=B)
-    cols = {k: [] for k in ("video_mask", "length_mask", "sm", "ss", "se", "ya")}
+    keys = ("video_mask", "length_mask", "sm", "ss", "se", "ya")
+    cols = {k: [] for k in keys + (() if packed_labels else ("moment_mask",))}
     for b in range(B):
-        vm, lm, _ = labels.build_masks(int(nfeats[b]), T, L)
+        vm, lm, mm = labels.build_masks(int(nfeats[b]), T, L)
         duration = float(rng.uniform(5.0, 60.0))
         s = float(rng.uniform(0.0, 0.6 * duration))
         e = float(rng.uniform(s + 0.1 * duration, duration))
         ss, se = labels.boundary_penalties(s, e, duration, L)
+        sm = labels.iou_target_map(s, e, duration, L)
         for k, v in (("video_mask", vm), ("length_mask", lm), ("ss", ss), ("se", se),
-                     ("sm", labels.pack_triu(labels.iou_target_map(s, e, duration, L))),
+                     ("sm", labels.pack_triu(sm) if packed_labels else sm),
                      ("ya", labels.snippet_labels(s, e, duration, L))):
             cols[k].append(v)
+        if not packed_labels:
+            cols["moment_mask"].append(mm)
     batch = {k: np.stack(v) for k, v in cols.items()}
     for score, label in (("sm", "ym"), ("ss", "ys"), ("se", "ye")):
         batch[label] = (batch[score] > 0.5).astype(np.float32)
@@ -72,11 +84,19 @@ def main(argv=None) -> int:
     parser.add_argument("--batch", type=int, nargs="+", default=[64])
     parser.add_argument("--iters", type=int, default=5)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--packed", choices=("true", "false"), default="true",
+                        help="false: the dense layout (packed: False)")
+    parser.add_argument("--compat", action="store_true",
+                        help="the reference-compat mode: compat_head and fused_content")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device visible", file=sys.stderr)
         return 1
     config = load_config(args.config)
+    config.model = dataclasses.replace(
+        config.model, packed=config.model.packed and args.packed == "true",
+        compat_head=config.model.compat_head or args.compat,
+        fused_content=config.model.fused_content or args.compat)
     rng = np.random.default_rng(args.seed)
     for B in args.batch:
         torch.manual_seed(args.seed)
