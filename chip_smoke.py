@@ -23,7 +23,8 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
    for each kernel, its plain version, its bound and the one PyTorch call
    that computes the same function where there is one; end-to-end pairs/s;
 5. training kernel parity at the full Charades width, B=64 and B=4, ragged
-   masks: K1 (proposal rows) forward and backward, K2 (SMI layer forward)
+   masks: K1 (proposal rows) forward and backward (the backward also bit for
+   bit against a second launch), K2 (SMI layer forward)
    and K3 (SMI layer backward: all five activation gradients and all 20
    weight and bias gradients, with and without a dcu cotangent) against
    their plain versions on the card;
@@ -43,7 +44,8 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
    (config/activitynet.yml: T=128, L=64, C=4, D=512, dl=128, Nq=20), at the
    main path's B=64 (532,480 clip rows) and at B=8 and B=2, ragged masks with
    one video cut to L/2 and one query of one word: K6 (packed proposal)
-   forward and backward, K7 (content unit + folded conv_fc) forward (cu,
+   forward and backward (the backward also bit for bit against a second
+   launch), K7 (content unit + folded conv_fc) forward (cu,
    convfc) and backward (dfc, dfbar, dfw, dfs and the 14 weight gradients,
    with and without a dcu cotangent) against their plain versions; K5 and K4
    against theirs at that width at B=64 and B=8;
@@ -60,7 +62,8 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
     bounds and for K5 the cuDNN LSTM; the whole step in ms and samples/s,
     and its device busy share under ``torch.profiler``;
 11. the reference-compat modes' kernels at the full Charades width, B=64
-    and B=4, ragged masks: K8 (dense proposal) forward and backward, K10
+    and B=4, ragged masks: K8 (dense proposal) forward and backward (the
+    backward also bit for bit against a second launch), K10
     (fused content unit) forward and backward (16 gradients) against their
     plain versions; K9 (all layers' forward) bit for bit against one K2
     launch per layer, carries included, and within K2's tolerance of the
@@ -78,6 +81,20 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
     dense averaging matrix, K9 against one K2 per layer, K10 forward and
     backward, with plain versions and bounds; the dense and compat train
     steps in ms and samples/s.
+
+The proposal kernels K1, K6 and K8 (``csrc/proposal.cuh``,
+``csrc/proposal_rows.cu``) are one forward and one backward, templated on the
+layout. The forward gives a block one element and 32 columns, stages f's
+tile once as fp64 prefix sums in shared memory and writes every clip mean as
+a difference of two of them; K4's pooling phase is the same kernel. The
+backward scatters each clip's cotangent, read once, into per-warp difference
+arrays in shared memory and scans them over the frames in a fixed order. Their
+times keep the bounds and library calls of earlier runs: the bytes of the
+inputs and outputs, and one ``torch.matmul`` with the dense averaging matrix
+Wc or its transpose. Phases 7, 10 and 13 also time them and the matmul with
+calls queued back to back (``device_ms``, ``library_device_ms``): the
+device's time per call, without the host time of a wrapper call that a
+single timed call includes while the device waits.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
@@ -180,6 +197,27 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 15) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def cuda_ms_back_to_back(fn, launches: int = 20, reps: int = 5) -> float:
+    """Median milliseconds per call of ``launches`` calls of fn() queued back
+    to back between two CUDA events: the device's time per call, without the
+    host time of a call that `cuda_ms` includes while the device waits."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -465,6 +503,13 @@ def phase_times(cfg, gpu, rng):
 # ------------------------------------------------------------------------- #
 # Training slice
 # ------------------------------------------------------------------------- #
+def print_back_to_back(res, keys, label):
+    for k in keys:
+        r = res[k]
+        print(f"time {k} {label} back to back: kernel {r['device_ms']:.4f} ms, library "
+              f"{r['library_device_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
 def layer_flops(cfg, Nq):
     """ops/smin_train_pallas.py:489-493 of the JAX package, per element."""
     L, C, D, dl = cfg.L, cfg.C, cfg.D, cfg.dl
@@ -501,6 +546,17 @@ def grad_err(got, want, scale, name):
         fail(f"{name}: kernel disagrees with its plain version: max abs err {err:.3e}, "
              f"magnitude {scale:.3e} (rtol {GRAD_RTOL}, atol {GRAD_ATOL_REL} of the magnitude)")
     return err
+
+
+def check_repeatable(first, launch, name):
+    """A second launch of a backward kernel on the same inputs must give
+    the same bits (its sums are taken in one fixed order, without atomics)."""
+    import torch
+
+    again = launch()
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        fail(f"{name}: two launches differ by up to {float((first - again).abs().max()):.3e}")
 
 
 def gradient_set_err(got, want, names, label):
@@ -540,8 +596,10 @@ def phase_train_parity(cfg, model, rng, device):
         dwant = proposal_cuda.proposal_backward_plain(lmask, cfg.T, cfg.L, cfg.C, *cots)
         torch.cuda.synchronize()
         e2 = max_err([dgot], [dwant], K1_TOL, f"K1 proposal_rows_backward B={B}")
+        check_repeatable(dgot, lambda: proposal_cuda.proposal_rows_backward(
+            lmask, cfg.T, cfg.L, cfg.C, *cots), f"K1 proposal_rows_backward B={B}")
         print(f"parity K1 proposal rows B={B}: forward max abs err {e1:.3e}, backward "
-              f"{e2:.3e} (tolerance {K1_TOL})")
+              f"{e2:.3e} (tolerance {K1_TOL}), a second launch equal bit for bit")
         errs["K1f"], errs["K1b"] = max(errs["K1f"], e1), max(errs["K1b"], e2)
 
         ins = layer_inputs(cfg, B, rng, device)
@@ -829,7 +887,9 @@ def phase_train_times(cfg, model, step, batch, rng, device):
     res["K1f"] = dict(
         ms=cuda_ms(lambda: proposal_cuda.proposal_rows_forward(f, lmask, L, C)),
         plain_ms=cuda_ms(lambda: proposal_cuda.proposal_features_packed(f, lmask, L, C)),
-        library_ms=cuda_ms(lambda: torch.matmul(wc, f)), bound_ms=b_ms, bound_by=b_by)
+        library_ms=cuda_ms(lambda: torch.matmul(wc, f)), bound_ms=b_ms, bound_by=b_by,
+        device_ms=cuda_ms_back_to_back(lambda: proposal_cuda.proposal_rows_forward(f, lmask, L, C)),
+        library_device_ms=cuda_ms_back_to_back(lambda: torch.matmul(wc, f)))
     b_ms, b_by = bound(2 * B * seg_adds, k1_bytes)
     wct = wc.t().contiguous()
     g = cots[0].reshape(B, NC, D)
@@ -837,7 +897,10 @@ def phase_train_times(cfg, model, step, batch, rng, device):
         ms=cuda_ms(lambda: proposal_cuda.proposal_rows_backward(lmask, T, L, C, *cots)),
         plain_ms=cuda_ms(lambda: proposal_cuda.proposal_backward_plain(lmask, T, L, C,
                                                                             *cots)),
-        library_ms=cuda_ms(lambda: torch.matmul(wct, g)), bound_ms=b_ms, bound_by=b_by)
+        library_ms=cuda_ms(lambda: torch.matmul(wct, g)), bound_ms=b_ms, bound_by=b_by,
+        device_ms=cuda_ms_back_to_back(
+            lambda: proposal_cuda.proposal_rows_backward(lmask, T, L, C, *cots)),
+        library_device_ms=cuda_ms_back_to_back(lambda: torch.matmul(wct, g)))
 
     weights = [w.detach() for w in block_weights(model.smis[1])]
     w_bytes = sum(w.numel() * 4 for w in weights)
@@ -866,6 +929,7 @@ def phase_train_times(cfg, model, step, batch, rng, device):
         r = res[k]
         print(f"time {k} B={B}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    print_back_to_back(res, ("K1f", "K1b"), f"B={B}")
     print(f"time K3 B={B} without dcu (top layer): {res['K3_no_dcu_ms']:.4f} ms")
 
     res["step_ms"] = step_wall_ms(step, batch, iters=12)
@@ -926,9 +990,12 @@ def phase_anet_parity(cfg, model, rng, device):
         # A frame gathers up to 1,024 pairs here: its sum is held like the
         # other gradients, relative to the gradient's magnitude.
         e2 = grad_err(dgot, dwant, float(dwant.abs().max()), f"K6 proposal_packed_backward B={B}")
+        check_repeatable(dgot, lambda: proposal_cuda.proposal_packed_backward(
+            lmask, cfg.T, cfg.L, cfg.C, *cots), f"K6 proposal_packed_backward B={B}")
         print(f"parity K6 packed proposal B={B}: forward max abs err {e1:.3e} (tolerance "
               f"{K1_TOL}), backward {e2:.3e} of magnitude {float(dwant.abs().max()):.3e} "
-              f"(rtol {GRAD_RTOL}, atol {GRAD_ATOL_REL} of the magnitude)")
+              f"(rtol {GRAD_RTOL}, atol {GRAD_ATOL_REL} of the magnitude), a second launch "
+              f"equal bit for bit")
         errs["K6f"], errs["K6b"] = max(errs["K6f"], e1), max(errs["K6b"], e2)
         del got, want, cots, dgot, dwant
 
@@ -1084,7 +1151,10 @@ def phase_anet_times(cfg, model, step, batch, rng, device):
     res["K6f"] = dict(
         ms=cuda_ms(lambda: proposal_cuda.proposal_packed_forward(f, lmask, L, C), iters=9),
         plain_ms=cuda_ms(lambda: proposal_cuda.proposal_features_packed(f, lmask, L, C), iters=5),
-        library_ms=cuda_ms(lambda: torch.matmul(wc, f), iters=9), bound_ms=b_ms, bound_by=b_by)
+        library_ms=cuda_ms(lambda: torch.matmul(wc, f), iters=9), bound_ms=b_ms, bound_by=b_by,
+        device_ms=cuda_ms_back_to_back(
+            lambda: proposal_cuda.proposal_packed_forward(f, lmask, L, C), launches=5),
+        library_device_ms=cuda_ms_back_to_back(lambda: torch.matmul(wc, f), launches=5))
     b_ms, b_by = bound(2 * B * seg_adds, k6_bytes)
     wct = wc.t().contiguous()
     g = cots[0].reshape(B, NC, D)
@@ -1092,7 +1162,10 @@ def phase_anet_times(cfg, model, step, batch, rng, device):
         ms=cuda_ms(lambda: proposal_cuda.proposal_packed_backward(lmask, T, L, C, *cots), iters=9),
         plain_ms=cuda_ms(lambda: proposal_cuda.proposal_backward_plain(lmask, T, L, C,
                                                                             *cots), iters=5),
-        library_ms=cuda_ms(lambda: torch.matmul(wct, g), iters=9), bound_ms=b_ms, bound_by=b_by)
+        library_ms=cuda_ms(lambda: torch.matmul(wct, g), iters=9), bound_ms=b_ms, bound_by=b_by,
+        device_ms=cuda_ms_back_to_back(
+            lambda: proposal_cuda.proposal_packed_backward(lmask, T, L, C, *cots), launches=5),
+        library_device_ms=cuda_ms_back_to_back(lambda: torch.matmul(wct, g), launches=5))
     del f, cots, g, wc, wct
 
     weights = [w.detach() for w in content_train_cuda.content_weights(model.smis[1])]
@@ -1130,6 +1203,7 @@ def phase_anet_times(cfg, model, step, batch, rng, device):
               f"ms, library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})")
     print(f"time K7b ActivityNet B={B} without dcu (top layer): {res['K7b_no_dcu_ms']:.4f} ms")
+    print_back_to_back(res, ("K6f", "K6b"), f"ActivityNet B={B}")
 
     res["step_ms"] = step_wall_ms(step, batch)
     print(f"time ActivityNet train step B={B}: {res['step_ms']:.4f} ms wall, "
@@ -1194,9 +1268,11 @@ def phase_mode_parity(cfg, model, anet_cfg, rng, device):
         torch.cuda.synchronize()
         scale = float(dwant.abs().max())
         e2 = grad_err(dgot, dwant, scale, f"K8 proposal_dense_backward {label} B={B}")
+        check_repeatable(dgot, lambda: proposal_cuda.proposal_dense_backward(
+            mm, c.T, c.L, c.C, *cots), f"K8 proposal_dense_backward {label} B={B}")
         print(f"parity K8 dense proposal {label} B={B}: forward max abs err {e1:.3e} (tolerance "
               f"{K1_TOL}), backward {e2:.3e} of magnitude {scale:.3e} (rtol {GRAD_RTOL}, atol "
-              f"{GRAD_ATOL_REL} of the magnitude)")
+              f"{GRAD_ATOL_REL} of the magnitude), a second launch equal bit for bit")
         errs["K8f"], errs["K8b"] = max(errs["K8f"], e1), max(errs["K8b"], e2)
         errs["K8b_rel"] = max(errs["K8b_rel"], e2 / scale)
 
@@ -1406,7 +1482,9 @@ def phase_mode_times(cfg, model, modes, rng, device):
     res["K8f"] = dict(
         ms=cuda_ms(lambda: proposal_cuda.proposal_dense_forward(f, mm, L, C)),
         plain_ms=cuda_ms(lambda: proposal_cuda.proposal_features(f, mm, L, C)),
-        library_ms=cuda_ms(lambda: torch.matmul(wc, f)), bound_ms=b_ms, bound_by=b_by)
+        library_ms=cuda_ms(lambda: torch.matmul(wc, f)), bound_ms=b_ms, bound_by=b_by,
+        device_ms=cuda_ms_back_to_back(lambda: proposal_cuda.proposal_dense_forward(f, mm, L, C)),
+        library_device_ms=cuda_ms_back_to_back(lambda: torch.matmul(wc, f)))
     # The backward visits the i <= j cells only: it reads their mask, dfc and
     # dfm, with dfb, and writes df, as K1's backward does.
     k8b_bytes = 4 * (f.numel() + B * N + B * (N * C + N + L) * D)
@@ -1416,7 +1494,10 @@ def phase_mode_times(cfg, model, modes, rng, device):
     res["K8b"] = dict(
         ms=cuda_ms(lambda: proposal_cuda.proposal_dense_backward(mm, T, L, C, *cots)),
         plain_ms=cuda_ms(lambda: proposal_cuda.proposal_backward_plain(mm, T, L, C, *cots)),
-        library_ms=cuda_ms(lambda: torch.matmul(wct, g)), bound_ms=b_ms, bound_by=b_by)
+        library_ms=cuda_ms(lambda: torch.matmul(wct, g)), bound_ms=b_ms, bound_by=b_by,
+        device_ms=cuda_ms_back_to_back(
+            lambda: proposal_cuda.proposal_dense_backward(mm, T, L, C, *cots)),
+        library_device_ms=cuda_ms_back_to_back(lambda: torch.matmul(wct, g)))
     del f, out, cots, wc, wct, g
 
     stack_w = [w.detach() for b in model.smis for w in block_weights(b)]
@@ -1471,6 +1552,7 @@ def phase_mode_times(cfg, model, modes, rng, device):
         print(f"time {k} B={B}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     print(f"time K9 B={B}: {n_layers} K2 launches {res['K9_per_layer_ms']:.4f} ms")
+    print_back_to_back(res, ("K8f", "K8b"), f"B={B}")
 
     for mode in ("dense", "compat"):
         step, _, batch, _, _ = modes[mode]
@@ -1478,6 +1560,11 @@ def phase_mode_times(cfg, model, modes, rng, device):
         print(f"time {mode} train step B={B}: {res[f'{mode}_step_ms']:.4f} ms wall, "
               f"{B / res[f'{mode}_step_ms'] * 1e3:.1f} samples/s")
     return res
+
+
+def back_to_back(r):
+    """The back-to-back device times of a timed row, where it has them."""
+    return {k: r[k] for k in ("device_ms", "library_device_ms") if k in r}
 
 
 def main(argv=None) -> int:
@@ -1578,6 +1665,7 @@ def main(argv=None) -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "batch": TRAIN_BATCH,
         })
+        kernels[-1].update(back_to_back(r))
     kernels[-1]["max_err_of_magnitude"] = train_errs["K3_rel"]
     kernels[-1]["ms_without_dcu"] = train_times["K3_no_dcu_ms"]
     for key, name, src, rep in (
@@ -1593,6 +1681,7 @@ def main(argv=None) -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "batch": TRAIN_BATCH,
             "config": "activitynet",
         })
+        kernels[-1].update(back_to_back(r))
     # K6 is its own Python entry and counters over K1's two C entry points.
     kernels[-4]["shares_c_entry_with"] = "proposal_rows_forward"
     kernels[-3]["shares_c_entry_with"] = "proposal_rows_backward"
@@ -1612,6 +1701,7 @@ def main(argv=None) -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "batch": TRAIN_BATCH,
             "mode": mode,
         })
+        kernels[-1].update(back_to_back(r))
     kernels[-4]["max_err_of_magnitude"] = mode_errs["K8b_rel"]
     kernels[-3]["per_layer_k2_ms"] = mode_times["K9_per_layer_ms"]
     kernels[-1]["max_err_of_magnitude"] = mode_errs["K10b_rel"]

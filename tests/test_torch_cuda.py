@@ -153,7 +153,8 @@ def _assert_grad_close(got, want, name, scale=None):
                                msg=lambda m: f"{name}: {m}")
 
 
-@pytest.mark.parametrize("cfg,B", [(TINY, 3), (ODD, 7), (CHARADES, 5)])
+@pytest.mark.parametrize("cfg,B", [(TINY, 3), (ODD, 7), (CHARADES, 5), (CHARADES, 64),
+                                   (TACOS, 2)])
 def test_proposal_rows_kernels_match_plain(card, cfg, B):
     g = torch.Generator().manual_seed(B)
     f = torch.randn(B, cfg.T, cfg.D, generator=g).to(card)
@@ -263,7 +264,8 @@ def test_train_steps_on_card_match_cpu(card):
     assert smin_train_cuda.smi_layer_backward.launches > 0
 
 
-@pytest.mark.parametrize("cfg,B", [(TINY, 3), (ODD, 7), (ACTIVITYNET, 2), (TACOS, 2)])
+@pytest.mark.parametrize("cfg,B", [(TINY, 3), (ODD, 7), (ACTIVITYNET, 2), (TACOS, 2),
+                                   (CHARADES, 64)])
 def test_proposal_packed_kernels_match_plain(card, cfg, B):
     """K6: its own entry and counters over the pooling and gather kernels."""
     g = torch.Generator().manual_seed(B)
@@ -392,7 +394,8 @@ def _moment_mask(cfg, B, g):
     return mm
 
 
-@pytest.mark.parametrize("cfg,B", [(TINY, 3), (ODD, 7), (CHARADES, 5), (ACTIVITYNET, 2)])
+@pytest.mark.parametrize("cfg,B", [(TINY, 3), (ODD, 7), (CHARADES, 5), (ACTIVITYNET, 2),
+                                   (TACOS, 2), (CHARADES, 64)])
 def test_proposal_dense_kernels_match_plain(card, cfg, B):
     """K8 forward and backward against the plain dense pooling and autograd
     through it; every output element is written, zeros below the diagonal."""
@@ -420,6 +423,97 @@ def test_proposal_dense_kernels_match_plain(card, cfg, B):
     assert bool((got[0][:, below] == 0).all()) and bool((got[1][:, below] == 0).all())
     _assert_grad_close(df, df_want, "df")
 
+
+
+def _proposal_case(cfg, B, dense, seed=0):
+    """(mask, f, cotangents) of one layout: a ragged length mask, or the
+    fractional moment_mask of `_moment_mask`."""
+    g = torch.Generator().manual_seed(seed)
+    f = torch.randn(B, cfg.T, cfg.D, generator=g)
+    if dense:
+        mask = _moment_mask(cfg, B, g)
+        lead = (B, cfg.L, cfg.L)
+    else:
+        nlen = torch.randint(1, cfg.L + 1, (B,), generator=g)
+        mask = (torch.arange(cfg.L)[None, :] < nlen[:, None]).float()
+        lead = (B, cfg.L * (cfg.L + 1) // 2)
+    cots = [torch.randn(lead + (cfg.C, cfg.D), generator=g),
+            torch.randn(lead + (cfg.D,), generator=g), torch.randn(B, cfg.L, cfg.D, generator=g)]
+    return mask, f, cots
+
+
+_PROPOSAL_ENTRIES = {
+    "K1": (False, proposal_cuda.proposal_rows_forward, proposal_cuda.proposal_rows_backward),
+    "K6": (False, proposal_cuda.proposal_packed_forward, proposal_cuda.proposal_packed_backward),
+    "K8": (True, proposal_cuda.proposal_dense_forward, proposal_cuda.proposal_dense_backward),
+}
+
+
+@pytest.mark.parametrize("cfg,B", [(CHARADES, 64), (ACTIVITYNET, 8)])
+@pytest.mark.parametrize("kernel", list(_PROPOSAL_ENTRIES))
+def test_proposal_backward_is_repeatable(card, kernel, cfg, B):
+    """Two launches of a backward give the same bits: a fixed partition of
+    the moments over warps and sums in one fixed order, no atomics."""
+    dense, _, backward = _PROPOSAL_ENTRIES[kernel]
+    mask, _, cots = _proposal_case(cfg, B, dense, seed=B)
+    mask, cots = mask.to(card), [c.to(card) for c in cots]
+    first = backward(mask, cfg.T, cfg.L, cfg.C, *cots)
+    second = backward(mask, cfg.T, cfg.L, cfg.C, *cots)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def _nan_blocks(shapes, device):
+    """Fill blocks of the caching allocator of these shapes with NaN and
+    free them, so that the next allocations of the same sizes get them.
+    Returns their addresses."""
+    torch.cuda.empty_cache()
+    blocks = [torch.full(s, float("nan"), device=device) for s in shapes]
+    ptrs = {b.data_ptr() for b in blocks}
+    del blocks
+    return ptrs
+
+
+@pytest.mark.parametrize("kernel", list(_PROPOSAL_ENTRIES))
+def test_proposal_kernels_write_every_element(card, kernel):
+    """Outputs come from torch.empty: a launch onto NaN-filled memory leaves
+    no NaN (zeros below the diagonal and for missing clips are written)."""
+    cfg, B = CHARADES, 64     # every output over 1 MB: the large pool, exact fits
+    dense, forward, backward = _PROPOSAL_ENTRIES[kernel]
+    mask, f, cots = _proposal_case(cfg, B, dense)
+    mask, f, cots = mask.to(card), f.to(card), [c.to(card) for c in cots]
+    torch.cuda.synchronize()
+    ptrs = _nan_blocks([tuple(c.shape) for c in cots], card)
+    out = forward(f, mask, cfg.L, cfg.C)
+    torch.cuda.synchronize()
+    assert {o.data_ptr() for o in out} <= ptrs
+    assert not any(bool(o.isnan().any()) for o in out)
+    del out
+    ptrs = _nan_blocks([(B, cfg.T, cfg.D)], card)
+    df = backward(mask, cfg.T, cfg.L, cfg.C, *cots)
+    torch.cuda.synchronize()
+    assert df.data_ptr() in ptrs
+    assert not bool(df.isnan().any())
+
+
+def test_proposal_wrappers_refuse_what_the_kernels_do_not_take(card):
+    """The wrapper's shared-memory sizes are the library's, and a T whose
+    tile exceeds a block's shared memory raises before any launch."""
+    lib = proposal_cuda._library()
+    for T, L in ((10, 5), (64, 16), (128, 64), (128, 32), (225, 15), (899, 1), (1792, 16)):
+        for backward in (False, True):
+            assert lib.vml_proposal_smem_bytes(T, L, int(backward)) == \
+                proposal_cuda.proposal_smem_bytes(T, L, backward)
+    T, L, C, D, B = 1792, 16, 4, 32, 2
+    N = L * (L + 1) // 2
+    lmask = torch.ones(B, L, device=card)
+    with pytest.raises(ValueError, match="shared memory"):
+        proposal_cuda.proposal_rows_backward(
+            lmask, T, L, C, torch.zeros(B, N, C, D, device=card),
+            torch.zeros(B, N, D, device=card), torch.zeros(B, L, D, device=card))
+    proposal_cuda.proposal_rows_forward(torch.zeros(B, 256, D, device=card), lmask, L, C)
+    with pytest.raises(ValueError, match="shared memory"):
+        proposal_cuda.proposal_rows_forward(torch.zeros(B, 912, D, device=card), lmask, L, C)
 
 @pytest.mark.parametrize("cfg,B", [(TINY, 1), (TINY, 9), (ODD, 7), (CHARADES, 5)])
 def test_content_unit_kernels_match_plain(card, cfg, B):

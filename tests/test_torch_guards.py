@@ -162,6 +162,32 @@ def test_grad_free_wrappers_refuse_to_cut_a_graph():
         refuse_grad("kernel", [plain, leaf])
 
 
+
+@pytest.mark.parametrize("name", ["proposal_rows", "proposal_packed", "proposal_dense"])
+def test_proposal_wrappers_refuse_a_tile_over_shared_memory(name):
+    """K1 / K6 / K8: a T whose tile exceeds the shared memory of one block
+    (T > 899 forward, T > 1763 backward at L=16) raises ValueError before any launch;
+    a T that fits passes the check (and a meta tensor then meets the device
+    check). No card is needed: the checks come before the device's."""
+    from video_moment_localization_tpu_torch.ops import proposal_cuda
+
+    dense = name == "proposal_dense"
+    forward = getattr(proposal_cuda, f"{name}_forward")
+    backward = getattr(proposal_cuda, f"{name}_backward")
+    L, C, D, B = 16, 4, 8, 2
+    lead = (B, L, L) if dense else (B, L * (L + 1) // 2)
+
+    def meta(*shape):
+        return torch.zeros(*shape, device="meta")
+
+    mask = meta(*((B, L, L) if dense else (B, L)))
+    for T, refused in ((896, False), (912, True)):
+        with pytest.raises(ValueError, match="shared memory" if refused else "CPU or CUDA"):
+            forward(meta(B, T, D), mask, L, C)
+    for T, refused in ((1760, False), (1776, True)):
+        with pytest.raises(ValueError, match="shared memory" if refused else "CPU or CUDA"):
+            backward(mask, T, L, C, meta(*lead, C, D), meta(*lead, D), meta(B, L, D))
+
 def test_forward_outputs_are_finite_scores():
     rng = np.random.default_rng(0)
     B = 3

@@ -69,35 +69,37 @@ def test_packed_forward_and_grad_match_jax(geo, reference):
 
 def _closed_form(T, L, C):
     """The clip geometry as csrc/proposal.cuh::pool_kernel and
-    csrc/proposal_rows.cu::proposal_rows_bwd_kernel compute it per pair:
-    (start, size) of clip c of pair (i, j), size 0 for a clip that does not
-    exist; and, the backward's view, the clip that holds frame t."""
+    csrc/proposal_rows.cu::proposal_bwd_kernel compute it per pair:
+    (start, size, end) of clip c of pair (i, j), size 0 (and start = end = 0)
+    for a clip that does not exist. The backward's difference arrays rely on
+    a moment's clips tiling one run of frames: each clip ends where the next
+    begins."""
     tl = T // L
     starts = np.zeros((L, L, C), np.int32)
     sizes = np.zeros((L, L, C), np.int32)
+    ends = np.zeros((L, L, C), np.int32)
     for i in range(L):
         for j in range(i, L):
             frames = (j - i + 1) * tl
             clip = max(1, frames // C)
-            for c in range(min(C, frames)):
+            valid = min(C, frames)
+            for c in range(valid):
                 starts[i, j, c] = i * tl + c * clip
                 sizes[i, j, c] = clip
-            for t in range(i * tl, (j + 1) * tl):      # the backward's inverse map
-                c = (t - i * tl) // clip
-                if c < min(C, frames):
-                    assert starts[i, j, c] <= t < starts[i, j, c] + clip
-                else:
-                    assert t >= starts[i, j, min(C, frames) - 1] + clip
-    return starts, sizes
+                ends[i, j, c] = i * tl + (c + 1) * clip
+            assert (ends[i, j, :valid - 1] == starts[i, j, 1:valid]).all()
+            assert i * tl <= starts[i, j, 0] and ends[i, j, valid - 1] <= (j + 1) * tl <= T
+    return starts, sizes, ends
 
 
 @pytest.mark.parametrize("T,L,C", [(128, 64, 4), (128, 32, 4), (64, 16, 4), (10, 5, 3)],
                          ids=["activitynet", "tacos", "charades", "odd"])
 def test_kernel_clip_geometry_equals_content_segments(T, L, C):
     seg = content_segments(T, L, C)
-    starts, sizes = _closed_form(T, L, C)
+    starts, sizes, ends = _closed_form(T, L, C)
     np.testing.assert_array_equal(starts, seg.starts)
     np.testing.assert_array_equal(sizes, seg.sizes)
+    np.testing.assert_array_equal(ends, seg.starts + seg.sizes)
     if (T, L, C) == (128, 64, 4):
         assert sizes[5, 5].tolist() == [1, 1, 0, 0]        # a 2-frame pair: 2 clips of 1 frame
         assert sizes[0, 63].tolist() == [32] * 4

@@ -16,8 +16,11 @@
 // VMEM; a block has 227 KB of shared memory, so the megakernel is split into
 // a few kernels that this entry point sequences on one stream, with the
 // intermediates in a device workspace that the wrapper allocates:
-//   pool_kernel (proposal.cuh)     fc (B, N, C, D) segment means masked by
-//                                  vmask, fm = mean over C, fb = window means
+//   pool_kernel (proposal.cuh)     fc (B, N, C, D) clip means masked by
+//                                  the pair validity of lmask (prefix-sum
+//                                  differences of f's tile in shared
+//                                  memory), fm = mean over C, fb = window
+//                                  means
 //   layer_forward (smin_units.cuh) one SMI layer, per layer
 //   heads_kernel                   the four sigmoid heads, one warp per output
 // Rows are n-major: row (b, n, c) of fc/cu is ((b * N) + n) * C + c, the
@@ -120,8 +123,8 @@ int vml_smin_stack_f32(void* stream, int B, int T, int L, int C, int Nq, int D, 
     carve(ws, B, L, C, Nq, D, dl, &w);
     cudaError_t err;
 
-    vml::pool_kernel<false><<<B * (N + L), 128, 0, st>>>(T, L, C, D, f, vmask, w.fc, w.fm, w.fb);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    err = vml::pool_forward<false>(st, B, T, L, C, D, f, lmask, w.fc, w.fm, w.fb);
+    if (err != cudaSuccess) return (int)err;
 
     for (int layer = 0; layer < n_layers; ++layer) {
         err = vml::layer_forward(st, B, L, C, Nq, D, dl, w.fc, w.fm, w.fb, fw, fs, qmask,

@@ -15,9 +15,14 @@ matrix; K1 and K6 differ only in the layout of fc (K1 emits c-major rows
 cell of the L x L map and masks by a given moment_mask. This port keeps fc
 n-major everywhere (`ops.packing.pack_rows` converts), and what the kernels
 compute is a mean over a closed-form run of frames per (moment, clip), so on
-the card they are one segment-mean forward and one gather backward,
-templated on the layout: two C entry points for the packed layout (K1 and
-K6, each with its own launch counters) and two for the dense one (K8).
+the card they are one forward that writes every clip mean from prefix sums
+of f's tile in shared memory, and one backward that scatters each clip's
+cotangent into difference arrays in shared memory and scans them over t,
+both templated on the layout: two C entry points for the packed layout (K1
+and K6, each with its own launch counters) and two for the dense one (K8).
+Both kernels take any D; they refuse a T whose shared-memory tile exceeds
+what a block may have (`check_smem`: T <= 899 forward, T <= 1763 backward
+at L=16).
 
 `proposal_features_rows` (K1), `proposal_features_packed_fused` (K6) and
 `proposal_features_dense_fused` (K8) are the differentiable entries
@@ -33,20 +38,33 @@ and autograd through it), on a CUDA tensor it launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
-from video_moment_localization_tpu_torch.ops.cuda_build import check, load_library, ptr, stream_of
-from video_moment_localization_tpu_torch.ops.packing import packed_valid_mask
+from video_moment_localization_tpu_torch.ops.cuda_build import (
+    MAX_SMEM_BYTES,
+    check,
+    load_library,
+    ptr,
+    stream_of,
+)
 from video_moment_localization_tpu_torch.ops.proposal import (
     proposal_features,
     proposal_features_packed,
 )
 
 Features = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+# A block of either kernel owns one element and 32 columns; the forward's has
+# 8 warps, the backward's up to 16 (csrc/proposal.cuh: kPropCols, kPoolWarps;
+# csrc/proposal_rows.cu: kMaxWarps, scatter_warps). Shared memory of one H100
+# block and SM, and what the SM reserves per block.
+_COLS, _POOL_WARPS, _MAX_SCATTER_WARPS = 32, 8, 16
+_SM_SMEM, _RESERVED = 233472, 1024
 
 
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = load_library("proposal_rows")
     for layout in ("rows", "dense"):
@@ -54,6 +72,8 @@ def _library() -> ctypes.CDLL:
             fn = getattr(lib, f"vml_proposal_{layout}_{direction}_f32")
             fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
             fn.restype = ctypes.c_int
+    lib.vml_proposal_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.vml_proposal_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -72,6 +92,44 @@ def _check_device(fn: str, t: torch.Tensor) -> None:
 def _check_geometry(T: int, L: int, C: int) -> None:
     if T % L != 0 or C < 1:
         raise ValueError(f"T ({T}) must be a multiple of L ({L}) and C ({C}) positive")
+
+
+def _scatter_extra(L: int) -> int:
+    """The backward's shared memory beside its difference arrays: the N pair
+    masks, the L x 32 tile of dfb and the 16 x 32 fp64 run totals."""
+    return (L * (L + 1) // 2 + L * _COLS) * 4 + _MAX_SCATTER_WARPS * _COLS * 8
+
+
+def backward_warps(T: int, L: int) -> int:
+    """Warps of a backward block at T frames and L snippets: two blocks of 8
+    per SM where they fit, else as many T x 32 fp32 difference arrays as fit,
+    up to 16; 0 if none fits (csrc/proposal_rows.cu::scatter_warps)."""
+    per_warp, extra = T * _COLS * 4, _scatter_extra(L)
+    if 2 * (8 * per_warp + extra + _RESERVED) <= _SM_SMEM:
+        return 8
+    if extra + per_warp > MAX_SMEM_BYTES:
+        return 0
+    return min(_MAX_SCATTER_WARPS, (MAX_SMEM_BYTES - extra) // per_warp)
+
+
+def proposal_smem_bytes(T: int, L: int, backward: bool) -> int:
+    """Shared memory per block: the forward's fp64 prefix sums of a
+    (T + 1) x 32 tile and its 8 x 32 fp64 run totals, or the backward's
+    difference arrays (one at least) and `_scatter_extra`
+    (csrc/proposal_rows.cu::vml_proposal_smem_bytes)."""
+    if backward:
+        return max(1, backward_warps(T, L)) * T * _COLS * 4 + _scatter_extra(L)
+    return (T + 1) * _COLS * 8 + _POOL_WARPS * _COLS * 8
+
+
+def check_smem(fn: str, T: int, L: int, backward: bool) -> None:
+    """Raise unless the pooling forward (or the backward) takes T frames at L
+    snippets: its tile must fit the shared memory one block may have."""
+    need = proposal_smem_bytes(T, L, backward)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(f"{fn}: T={T} frames need {need} B of shared memory per block for "
+                         f"the {'backward' if backward else 'forward'} kernel, more than the "
+                         f"{MAX_SMEM_BYTES} B a block may have")
 
 
 def _plain_forward(dense: bool):
@@ -96,45 +154,51 @@ def proposal_backward_plain(mask, T: int, L: int, C: int, dfc, dfm, dfb):
         return torch.autograd.grad(out, f, (dfc, dfm, dfb))[0]
 
 
+def _call(lib: ctypes.CDLL, entry: str, device: torch.device, *args) -> None:
+    """Call a C entry point with ``device`` current, switching only when it
+    is not (a switch costs host time on every call), and raise on the CUDA
+    error it returns."""
+    if device.index == torch.cuda.current_device():
+        err = getattr(lib, entry)(*args)
+    else:
+        with torch.cuda.device(device):
+            err = getattr(lib, entry)(*args)
+    check(lib, entry, err)
+
+
 def _launch_forward(fn: str, dense: bool, f: torch.Tensor, mask: torch.Tensor, L: int,
                     C: int) -> Features:
-    _check_device(fn, f)
     B, T, D = f.shape
     _check_geometry(T, L, C)
+    check_smem(fn, T, L, backward=False)
+    _check_device(fn, f)
     mask_shape, lead = _shapes(B, L, dense)
     _check("f", f, (B, T, D), f.device)
     _check("moment_mask" if dense else "length_mask", mask, mask_shape, f.device)
-    mask = mask if dense else packed_valid_mask(mask).contiguous()
     lib = _library()
     fc = torch.empty(lead + (C, D), device=f.device, dtype=torch.float32)
     fm = torch.empty(lead + (D,), device=f.device, dtype=torch.float32)
     fb = torch.empty((B, L, D), device=f.device, dtype=torch.float32)
-    entry = f"vml_proposal_{'dense' if dense else 'rows'}_fwd_f32"
-    with torch.cuda.device(f.device):
-        err = getattr(lib, entry)(stream_of(f), B, T, L, C, D, ptr(f), ptr(mask), ptr(fc),
-                                  ptr(fm), ptr(fb))
-    check(lib, entry, err)
+    _call(lib, f"vml_proposal_{'dense' if dense else 'rows'}_fwd_f32", f.device,
+          stream_of(f), B, T, L, C, D, ptr(f), ptr(mask), ptr(fc), ptr(fm), ptr(fb))
     return fc, fm, fb
 
 
 def _launch_backward(fn: str, dense: bool, mask: torch.Tensor, T: int, L: int, C: int,
                      dfc: torch.Tensor, dfm: torch.Tensor, dfb: torch.Tensor) -> torch.Tensor:
-    _check_device(fn, dfc)
     B, D = dfc.shape[0], dfc.shape[-1]
     _check_geometry(T, L, C)
+    check_smem(fn, T, L, backward=True)
+    _check_device(fn, dfc)
     mask_shape, lead = _shapes(B, L, dense)
     _check("dfc", dfc, lead + (C, D), dfc.device)
     _check("dfm", dfm, lead + (D,), dfc.device)
     _check("dfb", dfb, (B, L, D), dfc.device)
     _check("moment_mask" if dense else "length_mask", mask, mask_shape, dfc.device)
-    mask = mask if dense else packed_valid_mask(mask).contiguous()
     lib = _library()
     df = torch.empty((B, T, D), device=dfc.device, dtype=torch.float32)
-    entry = f"vml_proposal_{'dense' if dense else 'rows'}_bwd_f32"
-    with torch.cuda.device(dfc.device):
-        err = getattr(lib, entry)(stream_of(dfc), B, T, L, C, D, ptr(mask), ptr(dfc),
-                                  ptr(dfm), ptr(dfb), ptr(df))
-    check(lib, entry, err)
+    _call(lib, f"vml_proposal_{'dense' if dense else 'rows'}_bwd_f32", dfc.device,
+          stream_of(dfc), B, T, L, C, D, ptr(mask), ptr(dfc), ptr(dfm), ptr(dfb), ptr(df))
     return df
 
 

@@ -36,6 +36,7 @@ from video_moment_localization_tpu_torch.ops.cuda_build import (
     stream_of,
 )
 from video_moment_localization_tpu_torch.ops.proposal import proposal_features_packed
+from video_moment_localization_tpu_torch.ops.proposal_cuda import check_smem
 
 Scores = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -124,6 +125,7 @@ def smin_stack_fused(model: SMIN, cfg: ModelConfig, f, fw, fs, query_mask,
     smem = lib.vml_smin_smem_bytes(L, C, Nq, D, dl)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"L={L}, Nq={Nq}, D={D} need {smem} B of shared memory per block")
+    check_smem("smin_stack_fused", T, L, backward=False)   # the pooling phase
     ws = torch.empty(lib.vml_smin_workspace_floats(B, L, C, Nq, D, dl),
                      device=f.device, dtype=torch.float32)
     pm = torch.empty((B, N), device=f.device, dtype=torch.float32)
