@@ -8,10 +8,15 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
 
 1. the card's name and power limit; build every kernel of the paths from
    ``video_moment_localization_tpu_torch/csrc`` with nvcc (one process per
-   source, started together) and print the build time;
+   source, started together) and print the build time; hold the Python
+   mirrors of the shared GEMM's plans (block tile, shared memory, split-K,
+   partial-buffer floats) for every product of K2-K5, K7 and K10 at the three shipped
+   configs and B=1/16/64/512, and of K5's rows per cluster and shared
+   memory, against their C counterparts on the card; print K5's clusters
+   per wave at B=16/64/512;
 2. serving kernel parity at the full Charades width
-   (config/charadessta.yml), at B=64 and at the serving run's buckets B=16
-   and B=8: K5 (fused biLSTM) and K4 (fused SMI stack) against their plain
+   (config/charadessta.yml), at B=512, B=64 and at the serving run's buckets
+   B=16 and B=8: K5 (fused biLSTM) and K4 (fused SMI stack) against their plain
    PyTorch versions on the card, from seeded numpy inputs;
 3. the serving path: random seeded weights written as a reference-format
    checkpoint, a synthetic GloVe table, ``MomentLocalizer.from_checkpoint``
@@ -47,7 +52,8 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
    forward and backward (the backward also bit for bit against a second
    launch), K7 (content unit + folded conv_fc) forward (cu,
    convfc) and backward (dfc, dfbar, dfw, dfs and the 14 weight gradients,
-   with and without a dcu cotangent) against their plain versions; K5 and K4
+   with and without a dcu cotangent; the backward also bit for bit against
+   a second launch) against their plain versions; K5 and K4
    against theirs at that width at B=64 and B=8;
 9. the ActivityNet training path: every parameter's gradient of one step at
    B=8 equal to that of the plain versions (the batch they can hold), then
@@ -80,7 +86,13 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
 13. times at B=64: K8 forward and backward with the one matmul against the
     dense averaging matrix, K9 against one K2 per layer, K10 forward and
     backward, with plain versions and bounds; the dense and compat train
-    steps in ms and samples/s.
+    steps in ms and samples/s;
+14. the shared GEMM (``csrc/gemm.cuh``, through ``csrc/gemm.cu``) alone on
+    the products of K7 (ActivityNet B=64: nt, nn and split-K tn), K4
+    (Charades B=16 and B=512) and K5 (B=16 and B=512, one of its two
+    problems), and K7's c_hat rows at K=64..1024: ms, TFLOP/s and the share
+    of the 67 TFLOP/s fp32 peak, beside ``torch.matmul`` on the same
+    operands with TF32 off.
 
 The proposal kernels K1, K6 and K8 (``csrc/proposal.cuh``,
 ``csrc/proposal_rows.cu``) are one forward and one backward, templated on the
@@ -96,7 +108,8 @@ calls queued back to back (``device_ms``, ``library_device_ms``): the
 device's time per call, without the host time of a wrapper call that a
 single timed call includes while the device waits.
 
-Prints a ``{"kernels": [...]}`` line, then as the last line
+Prints a ``{"kernels": [...]}`` line (K4 and K5 also at the ActivityNet
+width), a ``{"gemm": [...]}`` line and the plans, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is visible or the package is not beside this script.
 """
@@ -136,7 +149,7 @@ K8_BWD_REPLACES = "video_moment_localization_tpu/ops/proposal_pallas.py:121"
 K9_REPLACES = "video_moment_localization_tpu/ops/smin_train_pallas.py:556"
 K10_FWD_REPLACES = "video_moment_localization_tpu/ops/content_pallas.py:173"
 K10_BWD_REPLACES = "video_moment_localization_tpu/ops/content_pallas.py:274"
-SOURCES = ("lstm", "smin_stack", "proposal_rows", "smin_train", "content_train")
+SOURCES = ("lstm", "smin_stack", "proposal_rows", "smin_train", "content_train", "gemm")
 K5_TOL = dict(rtol=1e-4, atol=2e-5)
 K4_TOL = dict(rtol=2e-4, atol=2e-5)
 SCORE_TOL = 1e-4
@@ -303,9 +316,10 @@ def param_bytes(module):
 
 # ------------------------------------------------------------------------- #
 def phase_parity(cfg, model, rng, device):
-    """K5 and K4 against their plain versions at B=64 and at the serving
-    run's buckets (16, and 8: below K5's 16-row cluster block). Returns the
-    largest max abs error of each kernel over the sizes."""
+    """K5 and K4 against their plain versions at the timed B=512 (K5's
+    80-row clusters), at B=64 and at the serving run's buckets (16, and 8:
+    below K5's 16-row cluster block). Returns the largest max abs error of
+    each kernel over the sizes."""
     import torch
 
     from video_moment_localization_tpu_torch.models.lstm import lstm_layers
@@ -313,7 +327,7 @@ def phase_parity(cfg, model, rng, device):
 
     layers = lstm_layers(model.backbone.queryencoder.lstm)
     k5_err = k4_err = 0.0
-    for B in (64, 16, 8):
+    for B in (512, 64, 16, 8):
         x, mask, _ = lstm_inputs(cfg, B, rng, device)
         got = lstm_cuda.bilstm_fused(x, mask, layers)
         want = lstm_cuda.bilstm_plain(x, mask, layers)
@@ -1011,6 +1025,17 @@ def phase_anet_parity(cfg, model, rng, device):
         del got, want
         for cot in (dcu, None):
             got = content_train_cuda.content_rows_backward(weights, *ins, cot, dconv)
+            if cot is not None:
+                again = content_train_cuda.content_rows_backward(weights, *ins, cot, dconv)
+                torch.cuda.synchronize()
+                for k, (a, b) in enumerate(zip(list(got[:4]) + list(got[4]),
+                                               list(again[:4]) + list(again[4]))):
+                    if not torch.equal(a, b):
+                        fail(f"K7 content_rows_backward B={B}: output {k} differs between "
+                             f"two launches by up to {float((a - b).abs().max()):.3e}")
+                print(f"repeatable K7 content_rows_backward B={B}: 18 gradients of a second "
+                      f"launch equal bit for bit")
+                del again
             want = content_train_cuda.content_rows_backward_plain(weights, *ins, cot, dconv)
             torch.cuda.synchronize()
             worst, rel = gradient_set_err(got, want, ("dfc", "dfbar", "dfw", "dfs"),
@@ -1562,6 +1587,100 @@ def phase_mode_times(cfg, model, modes, rng, device):
     return res
 
 
+# ------------------------------------------------------------------------- #
+# The shared GEMM and K5's plan
+# ------------------------------------------------------------------------- #
+PLAN_BATCHES = (1, 16, 64, 512)
+
+
+def phase_plans(configs):
+    """Holds the Python mirrors of the GEMM's and K5's host-side plans
+    against the C code on this card. Returns K5's plan at B=16/64/512."""
+    from video_moment_localization_tpu_torch.ops import gemm_cuda, lstm_cuda
+
+    held = 0
+    for name, cfg in configs:
+        for B in PLAN_BATCHES:
+            for kernel, prod, layout, M, N, K, groups in gemm_cuda.model_gemm_shapes(cfg, B):
+                got = gemm_cuda.card_plan(layout, M, N, K, groups)
+                want = gemm_cuda.plan(layout, M, N, K, groups)
+                if got != want:
+                    fail(f"GEMM plan of {kernel} {prod} ({layout} {M}x{N}x{K}, {name} B={B}): "
+                         f"C {got}, Python mirror {want}")
+                held += 1
+    active = {r: lstm_cuda.card_max_active_clusters(r) for r in lstm_cuda.row_choices(256)}
+    plans = {}
+    for B in PLAN_BATCHES + (17, 520):
+        plan = lstm_cuda.card_plan(B)
+        rows, clusters = lstm_cuda.lstm_plan(B, 256, active.get)
+        smem = lstm_cuda.lstm_smem_bytes(256, rows)
+        if (plan["rows"], plan["clusters"], plan["smem"]) != (rows, clusters, smem):
+            fail(f"K5 plan at B={B}: C {plan}, Python mirror rows {rows}, clusters "
+                 f"{clusters}, smem {smem}")
+        plan["waves"] = -(-plan["clusters"] // plan["max_active_clusters"])
+        plans[B] = plan
+    print(f"plans: {held} GEMM launches of K2-K5, K7, K10 (3 configs, B={PLAN_BATCHES}) and K5 "
+          f"at B={sorted(plans)} equal to their Python mirrors; K5 clusters of 8 CTAs the card "
+          f"holds at once by rows per cluster: {active}")
+    for B in (16, 64, 512):
+        p = plans[B]
+        print(f"K5 plan B={B}: {p['rows']} rows per cluster, {p['clusters']} clusters, "
+              f"{p['max_active_clusters']} at once, {p['waves']} wave(s), {p['smem']} B of "
+              f"shared memory per CTA")
+    return {str(B): plans[B] for B in (16, 64, 512)}
+
+
+def phase_gemm(cfg, anet_cfg, device):
+    """The shared GEMM alone on K7's, K4's and K5's products against
+    torch.matmul with TF32 off, both back to back (the device's time per
+    call). Returns the rows of the {"gemm": [...]} line."""
+    import torch
+
+    from video_moment_localization_tpu_torch.ops import gemm_cuda
+
+    picks = [(anet_cfg, 64, ("K7f", "K7b"), "activitynet")]
+    picks += [(cfg, B, ("K4", "K5"), "charadessta") for B in (16, 512)]
+    shapes = [(c, B, name) + s for c, B, kernels, name in picks
+              for s in gemm_cuda.model_gemm_shapes(c, B) if s[0] in kernels]
+    # K7's c_hat rows at other depths: what a block's fixed prologue and
+    # epilogue cost as its K slices grow from 4 to 64.
+    N7, D7 = 64 * anet_cfg.L * (anet_cfg.L + 1) // 2 * anet_cfg.C, anet_cfg.dl
+    shapes += [(anet_cfg, 64, "activitynet", "K sweep", f"c_hat rows, K={K}", "nt", N7, D7, K, 1)
+               for K in (64, 128, 256, 1024)]
+    seen, rows = set(), []
+    gen = torch.Generator(device=device).manual_seed(0)
+    for _, B, name, kernel, prod, layout, M, N, K, groups in shapes:
+        if (layout, M, N, K) in seen or M * N * K < 1e7:
+            continue
+        seen.add((layout, M, N, K))
+        A = torch.randn((K, M) if layout == "tn" else (M, K), device=device, generator=gen)
+        W = torch.randn((N, K) if layout == "nt" else (K, N), device=device, generator=gen)
+        Wt = W.t() if layout == "nt" else W
+        At = A.t() if layout == "tn" else A
+        out = torch.empty((M, N), device=device)
+        launches = 10 if M * N * K < 2e10 else 4
+        ms = cuda_ms_back_to_back(lambda: gemm_cuda.gemm(layout, A, W, out=out),
+                                  launches=launches, reps=3)
+        lib_ms = cuda_ms_back_to_back(lambda: torch.matmul(At, Wt, out=out),
+                                      launches=launches, reps=3)
+        flops = 2.0 * M * N * K
+        row = dict(kernel=kernel if kernel == "K sweep" else kernel[:2], product=prod,
+                   layout=layout, M=M, N=N, K=K, config=name, batch=B, groups=groups,
+                   tile="x".join(map(str, gemm_cuda.TILES[gemm_cuda.launch_grid(
+                       layout, M, N, K, groups)[0]])),
+                   ms=ms, tflops=flops / ms / 1e9,
+                   peak_share=flops / ms / 1e9 / (PEAK_FP32_FLOPS / 1e12),
+                   matmul_ms=lib_ms, matmul_tflops=flops / lib_ms / 1e9)
+        rows.append(row)
+        print(f"gemm {row['kernel']} {prod} {layout} {M}x{N}x{K} ({name} B={B}, tile "
+              f"{row['tile']}): {ms:.4f} ms, {row['tflops']:.2f} TFLOP/s, "
+              f"{row['peak_share'] * 100:.1f} % of 67; torch.matmul {lib_ms:.4f} ms, "
+              f"{row['matmul_tflops']:.2f} TFLOP/s")
+        del A, W, out
+    torch.cuda.empty_cache()
+    return rows
+
+
 def back_to_back(r):
     """The back-to-back device times of a timed row, where it has them."""
     return {k: r[k] for k in ("device_ms", "library_device_ms") if k in r}
@@ -1607,6 +1726,9 @@ def main(argv=None) -> int:
 
     config = load_config(os.path.join(REPO, "config", "charadessta.yml"))
     cfg = config.model
+    anet = load_config(os.path.join(REPO, "config", "activitynet.yml"))
+    k5_plans = phase_plans([(n, load_config(os.path.join(REPO, "config", f"{n}.yml")).model)
+                            for n in ("charadessta", "activitynet", "tacos")])
     rng = np.random.default_rng(args.seed)
     torch.manual_seed(args.seed)
     model = SMIN(cfg).to(device).eval()
@@ -1622,7 +1744,6 @@ def main(argv=None) -> int:
     del step, batch, gpu, model
     torch.cuda.empty_cache()
 
-    anet = load_config(os.path.join(REPO, "config", "activitynet.yml"))
     torch.manual_seed(args.seed)
     anet_model = SMIN(anet.model).to(device).eval()
     anet_errs = phase_anet_parity(anet.model, anet_model, rng, device)
@@ -1637,6 +1758,9 @@ def main(argv=None) -> int:
     mode_errs = phase_mode_parity(cfg, model, anet.model, rng, device)
     modes = phase_modes(config, args.seed, rng, device)
     mode_times = phase_mode_times(cfg, model, modes, rng, device)
+    del model
+    torch.cuda.empty_cache()
+    gemm_rows = phase_gemm(cfg, anet.model, device)
 
     kernels = []
     for key, name, src, rep, err in (
@@ -1653,6 +1777,13 @@ def main(argv=None) -> int:
             "bound_ms_b512": r512["bound_ms"], "bound_by_b512": r512["bound_by"],
             "library_ms_b512": r512["library_ms"],
         })
+        ra = anet_times[key]
+        kernels[-1].update({
+            "ms_activitynet_b64": ra["ms"], "plain_ms_activitynet_b64": ra["plain_ms"],
+            "bound_ms_activitynet_b64": ra["bound_ms"],
+            "library_ms_activitynet_b64": ra["library_ms"],
+            "max_abs_err_activitynet": anet_errs[key]})
+    kernels[0]["plan"] = k5_plans
     for key, name, src, rep, err in (
             ("K1f", "proposal_rows_forward", PROPOSAL_SRC, K1_FWD_REPLACES, train_errs["K1f"]),
             ("K1b", "proposal_rows_backward", PROPOSAL_SRC, K1_BWD_REPLACES, train_errs["K1b"]),
@@ -1724,6 +1855,7 @@ def main(argv=None) -> int:
                "losses": modes[mode][4],
                "launches_per_step": {k: v // TRAIN_STEPS for k, v in modes[mode][3].items() if v}}
         for mode in ("dense", "compat")}}))
+    print(json.dumps({"gemm": gemm_rows}))
     print(json.dumps({"serving_pairs_per_s_device": {
         str(B): B / times[("e2e", B)] * 1e3 for B in (16, 512)}}))
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,7 @@ from video_moment_localization_tpu_torch.models.smin import SMIN, block_weights
 from video_moment_localization_tpu_torch.ops import (
     content_cuda,
     content_train_cuda,
+    gemm_cuda,
     lstm_cuda,
     proposal_cuda,
     smin_cuda,
@@ -666,3 +667,178 @@ def test_mode_localizer_on_card_matches_cpu(card, mode):
     for g, c in zip(gpu.localize_batch(reqs, top_k=5), cpu.localize_batch(reqs, top_k=5)):
         assert [(m.start, m.end) for m in g] == [(m.start, m.end) for m in c]
         np.testing.assert_allclose([m.score for m in g], [m.score for m in c], atol=1e-5)
+
+
+# ------------------------------------------------------------------------- #
+# The shared GEMM (csrc/gemm.cuh through csrc/gemm.cu) against float64.
+# fp32 products of K terms of unit scale: the error grows as sqrt(K) * 2^-24
+# of the terms' magnitude; 1e-5 relative to sqrt(K) covers it.
+def _gemm_tol(K):
+    return dict(rtol=1e-5, atol=2e-6 * K ** 0.5)
+
+
+# gemm_tn sums each split's kchunk rows in sequence, so the running sum grows
+# to sqrt(kchunk) and rounds at each of its kchunk adds: a random walk of
+# about 2^-24 * kchunk * sqrt(splits) = 2^-24 * sqrt(kchunk * R); 3 of it,
+# past the largest of 65,536 outputs.
+def _tn_tol(M, N, R):
+    kchunk = gemm_cuda.splitk_for(M, N, R)[1]
+    return dict(rtol=1e-5, atol=2e-6 * R ** 0.5 + 3 * 2.0 ** -24 * (kchunk * R) ** 0.5)
+
+
+def _gemm_case(layout, M, N, K, device, seed=0, offset=0):
+    """A, W (each a view `offset` floats into its storage when offset > 0,
+    so not 16-byte aligned), the float64 product, and the row scale."""
+    g = torch.Generator().manual_seed(seed)
+    rows_a, cols_a = (K, M) if layout == "tn" else (M, K)
+    rows_w, cols_w = (N, K) if layout == "nt" else (K, N)
+    A = torch.randn(rows_a * cols_a + offset, generator=g)[offset:].view(rows_a, cols_a)
+    W = torch.randn(rows_w * cols_w + offset, generator=g)[offset:].view(rows_w, cols_w)
+    ascale = (torch.rand(rows_a // 3 + 1, generator=g) > 0.3).float()
+    return A.to(device), W.to(device), ascale.to(device)
+
+
+def _gemm_ref(layout, A, W, ascale=None, adiv=1):
+    A = A.double()
+    if ascale is not None:
+        A = A * ascale.double()[torch.arange(A.shape[0], device=A.device) // adiv][:, None]
+    if layout == "tn":
+        return A.t() @ W.double(), A.sum(0)
+    return (A @ (W.double().t() if layout == "nt" else W.double())), None
+
+
+@pytest.mark.parametrize("layout,tile", [("nt", 0), ("nt", 1), ("nt", 2), ("nt", None),
+                                         ("nn", 0), ("nn", 1), ("nn", 2), ("tn", None)])
+def test_gemm_layouts_and_tiles_match_float64(card, layout, tile):
+    """M, N and K off the tile multiples, every epilogue term, ascale."""
+    M, N, K = 300, 196, 84
+    A, W, ascale = _gemm_case(layout, M, N, K, card)
+    before = gemm_cuda.gemm.launches
+    if layout == "tn":
+        got, cs = gemm_cuda.gemm("tn", A, W, ascale=ascale, adiv=3, bias_sums=True)
+        want, cs_want = _gemm_ref("tn", A, W, ascale, 3)
+        torch.testing.assert_close(cs.double(), cs_want, **_gemm_tol(K))
+    else:
+        g = torch.Generator().manual_seed(1)
+        terms = dict(bias=torch.randn(N, generator=g), pre=torch.randn(M, N, generator=g),
+                     rmask=(torch.rand(M // 4 + 1, generator=g) > 0.5).float(),
+                     post=torch.randn(M, N, generator=g),
+                     post2=torch.randn(M // 5 + 1, N, generator=g))
+        terms = {k: v.to(card) for k, v in terms.items()}
+        sc = ascale if layout == "nn" else None
+        got = gemm_cuda.gemm(layout, A, W, ascale=sc, adiv=3, mask_div=4, post2_div=5,
+                             tile=tile, **terms)
+        want = gemm_cuda.gemm_plain(layout, *(t.double() for t in (A, W)),
+                                    ascale=None if sc is None else sc.double(), adiv=3,
+                                    mask_div=4, post2_div=5,
+                                    **{k: v.double() for k, v in terms.items()})
+    torch.cuda.synchronize()
+    assert gemm_cuda.gemm.launches == before + 1
+    torch.testing.assert_close(got.double(), want, **_gemm_tol(K))
+
+
+@pytest.mark.parametrize("layout", ["nt", "nn", "tn"])
+@pytest.mark.parametrize("M,N,K,offset", [(77, 45, 33, 0), (64, 64, 64, 1), (130, 9, 200, 3)])
+def test_gemm_scalar_path_matches_float64(card, layout, M, N, K, offset):
+    """Extents that are no multiple of 4, or operands off 16-byte alignment."""
+    A, W, ascale = _gemm_case(layout, M, N, K, card, seed=M, offset=offset)
+    sc = None if layout == "nt" else ascale
+    if layout == "tn":
+        got, cs = gemm_cuda.gemm("tn", A, W, ascale=sc, adiv=3, bias_sums=True)
+        want, cs_want = _gemm_ref("tn", A, W, sc, 3)
+        torch.testing.assert_close(cs.double(), cs_want, **_gemm_tol(K))
+    else:
+        got = gemm_cuda.gemm(layout, A, W, ascale=sc, adiv=3)
+        want, _ = _gemm_ref(layout, A, W, sc, 3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.double(), want, **_gemm_tol(K))
+
+
+@pytest.mark.parametrize("alias", ["pre", "post"])
+@pytest.mark.parametrize("M,N", [(256, 128), (75, 30)])
+def test_gemm_output_may_alias_a_residual(card, alias, M, N):
+    K = 64
+    A, W, _ = _gemm_case("nt", M, N, K, card, seed=7)
+    g = torch.Generator().manual_seed(8)
+    res = torch.randn(M, N, generator=g).to(card)
+    mask = (torch.rand(M, generator=g) > 0.5).float().to(card)
+    want, _ = _gemm_ref("nt", A, W)
+    want = (want * mask.double()[:, None] + res.double() if alias == "post"
+            else (want + res.double()) * mask.double()[:, None])
+    buf = res.clone()
+    got = gemm_cuda.gemm("nt", A, W, rmask=mask, out=buf, **{alias: buf})
+    torch.cuda.synchronize()
+    assert got.data_ptr() == buf.data_ptr()
+    torch.testing.assert_close(got.double(), want, **_gemm_tol(K))
+
+
+@pytest.mark.parametrize("R", [1, 17, 1000, 133120, 532480])
+def test_gemm_tn_is_repeatable(card, R):
+    """The split-K weight gradient and its fused bias sums: the same bits on
+    a second launch (fixed split, fixed reduction order, no atomics), and
+    within fp32 rounding of float64, at 1 to 532,480 rows (K7's B=64)."""
+    M, N = 512, 128
+    A, W, ascale = _gemm_case("tn", M, N, R, card, seed=R)
+    first = gemm_cuda.gemm("tn", A, W, ascale=ascale, adiv=3, bias_sums=True)
+    second = gemm_cuda.gemm("tn", A, W, ascale=ascale, adiv=3, bias_sums=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    want, cs_want = _gemm_ref("tn", A, W, ascale, 3)
+    torch.testing.assert_close(first[0].double(), want, **_tn_tol(M, N, R))
+    torch.testing.assert_close(first[1].double(), cs_want, **_tn_tol(M, N, R))
+
+
+@pytest.mark.parametrize("tile", [None, 2])
+def test_gemm_past_the_y_grid_limit(card, tile):
+    """More than 4,194,240 rows (65,535 tiles of 64): tiles are numbered along
+    x, so every row is written (64x64 tiles: 65,551 row tiles)."""
+    M, N, K = 4_194_240 + 1_024, 128, 128
+    A, W, _ = _gemm_case("nt", M, N, K, card, seed=3)
+    bias = torch.randn(N, generator=torch.Generator().manual_seed(4)).to(card)
+    got = gemm_cuda.gemm("nt", A, W, bias=bias, tile=tile)
+    torch.cuda.synchronize()
+    for lo in range(0, M, 1 << 20):          # float64 in slices of 1M rows
+        want = A[lo:lo + (1 << 20)].double() @ W.double().t() + bias.double()
+        torch.testing.assert_close(got[lo:lo + (1 << 20)].double(), want, **_gemm_tol(K))
+
+
+@pytest.mark.parametrize("Nq", [13, 20])
+@pytest.mark.parametrize("B", [1, 16, 17, 64, 512, 520])
+def test_bilstm_kernel_at_every_plan(card, B, Nq):
+    """K5 at batches that take each rows-per-cluster choice and a ragged last
+    cluster, at both query lengths, against its plain version."""
+    torch.manual_seed(B + Nq)
+    layers = lstm_layers(BiLSTMParams(300, 256, 2).to(card))
+    x = torch.randn(B, Nq, 300, device=card)
+    lengths = torch.randint(1, Nq + 1, (B,))
+    lengths[0] = 1
+    lengths[-1] = Nq
+    mask = (torch.arange(Nq)[None, :] < lengths[:, None]).float().to(card)
+    plan = lstm_cuda.card_plan(B)
+    mirror = lstm_cuda.lstm_plan(B, 256, lstm_cuda.card_max_active_clusters)
+    assert (plan["rows"], plan["clusters"]) == mirror
+    assert plan["smem"] == lstm_cuda.lstm_smem_bytes(256, plan["rows"])
+    with torch.no_grad():
+        got = lstm_cuda.bilstm_fused(x, mask, layers)
+        want = lstm_cuda.bilstm_plain(x, mask, layers)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **LSTM_TOL)
+    assert bool((got[mask == 0] == 0).all())
+
+
+def test_content_rows_backward_is_repeatable(card):
+    """K7's backward at the ActivityNet width, B=8: the same bits twice (the
+    weight and bias gradients reduce in split-K partials in a fixed order)."""
+    torch.manual_seed(8)
+    block = SMIN(ACTIVITYNET).to(card).smis[1]
+    weights = [w.detach() for w in content_train_cuda.content_weights(block)]
+    ins = _content_inputs(ACTIVITYNET, 8, seed=8, device=card)
+    with torch.no_grad():
+        cu, conv = content_train_cuda.content_rows_forward(weights, *ins)
+    gen = torch.Generator().manual_seed(9)
+    dcu, dconv = [torch.randn(t.shape, generator=gen).to(card) for t in (cu, conv)]
+    first = content_train_cuda.content_rows_backward(weights, *ins, dcu, dconv)
+    second = content_train_cuda.content_rows_backward(weights, *ins, dcu, dconv)
+    torch.cuda.synchronize()
+    for a, b in zip(list(first[:4]) + list(first[4]), list(second[:4]) + list(second[4])):
+        assert torch.equal(a, b)

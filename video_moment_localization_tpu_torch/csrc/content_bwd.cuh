@@ -258,12 +258,12 @@ inline size_t carve_content_backward(float* ws, size_t off, int B, int N, int C,
 }
 
 // Floats of the partial-sum buffer that `content_backward`'s split
-// reductions (gemm_tn, colsum) need.
+// reductions (gemm_tn with its column sums) need.
 inline size_t content_partial_floats(int B, int N, int C, int Nq, int D, int dl) {
     const int NC = N * C;
     const int shapes[][3] = {{D, dl, B * NC}, {dl, dl, B * NC}, {dl, dl, B * Nq},
                              {dl, D, B * Nq}, {dl, D, B}, {dl, D, B * NC}};
-    size_t most = (size_t)kColsumSplits * (D > dl ? D : dl);
+    size_t most = 0;
     for (const auto& s : shapes) {
         const size_t f = gemm_tn_partial_floats(s[0], s[1], s[2]);
         if (f > most) most = f;
@@ -288,9 +288,7 @@ inline cudaError_t content_backward(cudaStream_t st, int B, int N, int C, int Nq
     Epilogue ep;
     gemm_nn(st, B * NC, dl, D, dcut, D, vmask, C, p[6], dl, w.dfcc, dl, none);
     VML_CHECK_LAUNCH();
-    gemm_tn(st, D, dl, B * NC, dcut, D, vmask, C, s.fcc, dl, partial, dw[6]);
-    VML_CHECK_LAUNCH();
-    colsum(st, B * NC, D, dcut, D, vmask, C, partial, dw[7]);
+    gemm_tn(st, D, dl, B * NC, dcut, D, vmask, C, s.fcc, dl, partial, dw[6], dw[7]);
     VML_CHECK_LAUNCH();
     const size_t csmem = content_bwd_smem_bytes(C, Nq, dl);
     cudaError_t err = cudaFuncSetAttribute(
@@ -310,9 +308,7 @@ inline cudaError_t content_backward(cudaStream_t st, int B, int N, int C, int Nq
     ep.mask_div = C;
     gemm_nn(st, B * NC, dl, dl, w.dq, dl, nullptr, 1, p[8], dl, w.dh, dl, ep);
     VML_CHECK_LAUNCH();
-    gemm_tn(st, dl, dl, B * NC, w.dq, dl, nullptr, 1, s.h, dl, partial, dw[8]);
-    VML_CHECK_LAUNCH();
-    colsum(st, B * NC, dl, w.dq, dl, nullptr, 1, partial, dw[9]);
+    gemm_tn(st, dl, dl, B * NC, w.dq, dl, nullptr, 1, s.h, dl, partial, dw[8], dw[9]);
     VML_CHECK_LAUNCH();
     // attn_k: dfwh = (dkhat Wck + dfwh) * qmask, in place.
     ep = Epilogue();
@@ -321,22 +317,14 @@ inline cudaError_t content_backward(cudaStream_t st, int B, int N, int C, int Nq
     ep.rmask = qmask;
     gemm_nn(st, B * Nq, dl, dl, w.dkhat, dl, nullptr, 1, p[10], dl, w.dfwh, dl, ep);
     VML_CHECK_LAUNCH();
-    gemm_tn(st, dl, dl, B * Nq, w.dkhat, dl, nullptr, 1, s.fwh, dl, partial, dw[10]);
-    VML_CHECK_LAUNCH();
-    colsum(st, B * Nq, dl, w.dkhat, dl, nullptr, 1, partial, dw[11]);
+    gemm_tn(st, dl, dl, B * Nq, w.dkhat, dl, nullptr, 1, s.fwh, dl, partial, dw[10], dw[11]);
     VML_CHECK_LAUNCH();
     // w_hat, s_hat, c_hat weights.
-    gemm_tn(st, dl, D, B * Nq, w.dfwh, dl, nullptr, 1, fw, D, partial, dw[2]);
+    gemm_tn(st, dl, D, B * Nq, w.dfwh, dl, nullptr, 1, fw, D, partial, dw[2], dw[3]);
     VML_CHECK_LAUNCH();
-    colsum(st, B * Nq, dl, w.dfwh, dl, nullptr, 1, partial, dw[3]);
+    gemm_tn(st, dl, D, B, w.dfsh, dl, nullptr, 1, fs, D, partial, dw[4], dw[5]);
     VML_CHECK_LAUNCH();
-    gemm_tn(st, dl, D, B, w.dfsh, dl, nullptr, 1, fs, D, partial, dw[4]);
-    VML_CHECK_LAUNCH();
-    colsum(st, B, dl, w.dfsh, dl, nullptr, 1, partial, dw[5]);
-    VML_CHECK_LAUNCH();
-    gemm_tn(st, dl, D, B * NC, w.dh, dl, nullptr, 1, fc, D, partial, dw[0]);
-    VML_CHECK_LAUNCH();
-    colsum(st, B * NC, dl, w.dh, dl, nullptr, 1, partial, dw[1]);
+    gemm_tn(st, dl, D, B * NC, w.dh, dl, nullptr, 1, fc, D, partial, dw[0], dw[1]);
     VML_CHECK_LAUNCH();
     return cudaSuccess;
 }

@@ -191,9 +191,7 @@ int vml_content_rows_bwd_f32(void* stream, int B, int N, int C, int Nq, int D, i
     // conv_fc: with dz = dconvfc * vm, dx2 = dz Wfc, dWfc = dz^T x2, db = sum dz.
     vml::gemm_nn(st, B * N, D, D, dconvfc, D, vmask, 1, p[12], D, k.dx2, D, vml::Epilogue());
     VML_CHECK();
-    vml::gemm_tn(st, D, D, B * N, dconvfc, D, vmask, 1, k.s.x2, D, k.partial, dw[12]);
-    VML_CHECK();
-    vml::colsum(st, B * N, D, dconvfc, D, vmask, 1, k.partial, dw[13]);
+    vml::gemm_tn(st, D, D, B * N, dconvfc, D, vmask, 1, k.s.x2, D, k.partial, dw[12], dw[13]);
     VML_CHECK();
 
     // dcut = dcu + dx2 / C into dfc, and dfbar = sum_c dcut.

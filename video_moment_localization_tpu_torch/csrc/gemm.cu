@@ -1,0 +1,72 @@
+// The shared fp32 GEMM of gemm.cuh on its own, for the card tests and the
+// GEMM phase of chip_smoke.py (ops/gemm_cuda.py): each layout with every
+// epilogue term, `ascale`, a forced block tile and gemm_tn's fused column
+// sums, plus the host-side plans (tile, split-K) that the Python mirror in
+// ops/gemm_cuda.py is held against. It replaces no TPU kernel: the JAX
+// package's kernels run their products inside each Pallas body, and the
+// port's kernels run them through this header.
+#include <cuda_runtime.h>
+
+#include "gemm.cuh"
+
+extern "C" {
+
+// layout 0: C = ep(A @ W^T), A (M, K), W (N, K); 1: C = ep((A * ascale) @ W),
+// W (K, N); 2: C (M, N) = (A * ascale)^T @ W, A (K, M), W (K, N), through
+// `partial` (vml_gemm_tn_partial_floats floats), bias_out (M,) the column
+// sums of the scaled A when not null; no epilogue. tile: -1 by shape, else a
+// vml::GemmTile (layouts 0 and 1). Returns the launch's CUDA error, 0 if none.
+int vml_gemm_f32(void* stream, int layout, int M, int N, int K, const float* A, int lda,
+                 const float* ascale, int adiv, const float* W, int ldw, float* C, int ldc,
+                 const float* bias, const float* pre, int ldpre, const float* rmask,
+                 int mask_div, const float* post, int ldpost, const float* post2, int ldpost2,
+                 int post2_div, int tile, float* partial, float* bias_out) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    vml::Epilogue ep;
+    ep.bias = bias;
+    ep.pre = pre;
+    ep.ldpre = ldpre;
+    ep.rmask = rmask;
+    ep.mask_div = mask_div;
+    ep.post = post;
+    ep.ldpost = ldpost;
+    ep.post2 = post2;
+    ep.ldpost2 = ldpost2;
+    ep.post2_div = post2_div;
+    if (layout == 0)
+        vml::gemm_nt(st, M, N, K, A, lda, W, ldw, C, ldc, ep, tile);
+    else if (layout == 1)
+        vml::gemm_nn(st, M, N, K, A, lda, ascale, adiv, W, ldw, C, ldc, ep, tile);
+    else
+        vml::gemm_tn(st, M, N, K, A, lda, ascale, adiv, W, ldw, partial, C, bias_out);
+    return (int)cudaGetLastError();
+}
+
+// The block tile gemm_nt / gemm_nn pick for `groups` products of (M, N).
+int vml_gemm_tile_for(int M, int N, int groups) { return vml::gemm_tile_for(M, N, groups); }
+
+// gemm_tn's split of its R rows: *splits blocks along z of *kchunk rows.
+void vml_gemm_splitk(int M, int N, int R, int* splits, int* kchunk) {
+    const vml::SplitK s = vml::splitk_for(M, N, R);
+    *splits = s.splits;
+    *kchunk = s.kchunk;
+}
+
+// Dynamic shared memory of one block of a layout (0 nt, 1 nn, 2 tn) and tile.
+size_t vml_gemm_smem_bytes(int layout, int tile) {
+    using vml::gemm_smem_floats;
+    static const int floats[3][3] = {
+        {gemm_smem_floats<128, 128, false, false>(), gemm_smem_floats<128, 64, false, false>(),
+         gemm_smem_floats<64, 64, false, false>()},
+        {gemm_smem_floats<128, 128, false, true>(), gemm_smem_floats<128, 64, false, true>(),
+         gemm_smem_floats<64, 64, false, true>()},
+        {gemm_smem_floats<128, 128, true, true>(), gemm_smem_floats<128, 64, true, true>(),
+         gemm_smem_floats<64, 64, true, true>()}};
+    return sizeof(float) * floats[layout][tile];
+}
+
+size_t vml_gemm_tn_partial_floats(int M, int N, int R) {
+    return vml::gemm_tn_partial_floats(M, N, R);
+}
+
+}  // extern "C"

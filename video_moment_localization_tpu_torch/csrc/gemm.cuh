@@ -1,7 +1,7 @@
 // Tiled fp32 GEMM with a fused epilogue, shared by the biLSTM (lstm.cu), the
 // SMI-stack (smin_stack.cu), the SMI train-layer (smin_train.cu) and the
 // content-unit train (content_train.cu) kernels, plus the small device helpers
-// they use.
+// they use. gemm.cu exposes it alone for the card tests.
 //
 //   C[r, c] = (sum_k A(r, k) * ascale[.] * B(k, c) + bias[c] + pre[r, c])
 //             * rmask[r / mask_div] + post[r, c] + post2[r / post2_div, c]
@@ -16,23 +16,45 @@
 //            rows: dW = dY^T X. R is up to B*N*C rows into as few as
 //            128 x 128 outputs, so the rows are split over gridDim.z blocks
 //            that write partial sums, and `reduce_partials_kernel` adds the
-//            partials in a fixed order: deterministic, no atomics.
+//            partials in a fixed order: deterministic, no atomics. The same
+//            pass can return the column sums of the scaled A (the bias
+//            gradient sum_r dY[r] of the same projection): the blocks of the
+//            first column tile add their staged A slice per column.
 // `ascale` (optional) scales each stored row of A (row / adiv): the row
 // masks of the backward (dY * vmask) without a masked copy of dY.
 // Every epilogue term is optional (null pointer). The order (mask, then the
 // residuals) is that of the JAX units, e.g. cu = f_cc * mask + f_c + fbar
 // and mu = (conv_fb + conv_fc) * mask + f_m. An output may alias `pre` or
 // `post`: each element is read, then written, by the same thread.
+// gemm_nt2 / gemm_nn2 run two products that share A (one weight, output and
+// epilogue each) as one launch, the problem index along gridDim.y.
 //
-// Bound on the H100: fp32 outside the tensor cores (67 TFLOP/s); at the
-// serving shapes the operands mostly fit the 50 MB L2, so the kernel is
-// bound by its FMA issue rate, shared-memory reads and load latency. Design:
-// 64x64 output tiles, 16-deep K slices double-buffered in shared memory (A
-// and B both stored k-major so the inner loop reads float4 rows), the next
-// slice fetched into registers while the current one is multiplied, a 4x4
-// register micro-tile per thread, guarded loads so M, N and K need not be
-// tile multiples. No TF32 and no wgmma: the results are held to the JAX
-// fp32 kernels, which run their matmuls at HIGHEST precision.
+// Bound on the H100: fp32 outside the tensor cores (67 TFLOP/s); the K7
+// shapes (up to 532,480 x 512 x 512) are far above the bytes line, so the
+// kernel is bound by its FMA issue rate, and shared-memory reads and load
+// latency are what keep it from that rate. Design:
+//   * block tiles of 128x128 (256 threads, an 8x8 micro-tile per thread held
+//     as 2x2 sub-tiles of 4x4 at a stride of 64, so the inner loop's float4
+//     shared reads are conflict-free), or 128x64 / 64x64 where the output
+//     has too few tiles to fill the 132 SMs twice (`gemm_tile_for`);
+//   * 16-deep K slices in a 5-stage ring of 16-byte `cp.async` copies, so
+//     three slices load while one is transposed and one multiplied, and no
+//     load stages through registers; two blocks fit an SM (<= 128
+//     registers, <= 112 KB of dynamic shared memory), so one block's
+//     prologue and epilogue overlap the other's products;
+//   * the inner loop reads both operands k-major (a float4 of 4 rows at one
+//     k), conflict-free: an operand contiguous along its rows lands k-major
+//     as it lies; one contiguous along k lands row-major (16-byte units,
+//     XOR-swizzled, `raw_off`) and is transposed in shared memory into one of
+//     two k-major buffers one slice ahead of its use, with `ascale` applied
+//     on the way;
+//   * a float4 epilogue where the output and its residuals are aligned;
+//   * a scalar path (synchronous guarded loads into the same layout) for
+//     operands that are not 16-byte aligned or whose extents are not
+//     multiples of 4; guarded edges, so M, N and K need not be tile
+//     multiples.
+// No TF32 and no wgmma: the results are held to the JAX fp32 kernels, which
+// run their matmuls at HIGHEST precision.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -54,259 +76,470 @@ struct Epilogue {
     int post2_div = 1;
 };
 
-constexpr int kGemmBM = 64;
-constexpr int kGemmBN = 64;
 constexpr int kGemmBK = 16;
 constexpr int kGemmThreads = 256;
+constexpr int kGemmSMs = 132;            // H100 SXM
+
+// Block tiles, in the order `gemm_tile_for` tries them.
+enum GemmTile { kTile128x128 = 0, kTile128x64 = 1, kTile64x64 = 2 };
+constexpr int kGemmTileM[3] = {128, 128, 64};
+constexpr int kGemmTileN[3] = {128, 64, 64};
+
+inline long long gemm_tiles(int tile, int M, int N) {
+    return (long long)((M + kGemmTileM[tile] - 1) / kGemmTileM[tile]) *
+           ((N + kGemmTileN[tile] - 1) / kGemmTileN[tile]);
+}
+
+// The largest tile that still fills both block slots of every SM; the
+// smallest if none does (a few hundred rows at serving's B=16).
+inline int gemm_tile_for(int M, int N, int groups) {
+    for (int t = kTile128x128; t < kTile64x64; ++t)
+        if (gemm_tiles(t, M, N) * groups >= 2 * kGemmSMs) return t;
+    return kTile64x64;
+}
+
+struct GemmParams {
+    int M, N, K, kchunk;
+    const float* A;
+    int lda;
+    const float* ascale;
+    int adiv;
+    int ldw, ldc;
+    const float* W[2];        // per problem (blockIdx.y)
+    float* C[2];
+    Epilogue ep[2];
+    bool vec_out;             // float4 epilogue
+    float* colsum;            // gemm_tn: (gridDim.z, M) partial column sums of A
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+                 "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// Float offset of element (row r, k) of an operand tile kept as it lies in
+// global memory, contiguous in k: rows of kGemmBK floats in 16-byte units,
+// the unit index XOR-swizzled by (r / 2) % 4, so both the copies (4 units of
+// 2 rows per 8 threads) and the transposing reads (one unit of 8
+// consecutive rows per 8 threads) hit 8 different bank groups.
+__device__ __forceinline__ int raw_off(int r, int k) {
+    return ((((r << 2) | (k >> 2)) ^ ((r >> 1) & 3)) << 2) | (k & 3);
+}
+
+// One operand's tile of R rows (m or n) x kGemmBK, from global to shared.
+// kRowContig: element (row r, k) at P[k * ld + r], stored k-major as it
+// lies; else at P[r * ld + k], stored row-major (`raw_off`). Each thread
+// copies R * kGemmBK / 4 / 256 chunks of 4 floats.
+template <int R, bool kRowContig, bool kVec>
+__device__ __forceinline__ void gemm_load_tile(float* s, const float* __restrict__ P, int ld,
+                                               int rows, int r0, int k0, int kend) {
+    constexpr int kChunks = R * kGemmBK / 4 / kGemmThreads;
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+        const int c = threadIdx.x + j * kGemmThreads;
+        int r, k;
+        float* dst;
+        if (kRowContig) {
+            k = c / (R / 4);
+            r = (c % (R / 4)) * 4;
+            dst = s + k * R + r;
+        } else {
+            r = c / (kGemmBK / 4);
+            k = (c % (kGemmBK / 4)) * 4;
+            dst = s + raw_off(r, k);
+        }
+        const int gr = r0 + r, gk = k0 + k;
+        if (kVec) {
+            const bool ok = gr < rows && gk < kend;
+            const float* src = ok ? (kRowContig ? P + (size_t)gk * ld + gr
+                                                : P + (size_t)gr * ld + gk)
+                                  : P;
+            cp_async16(dst, src, ok);
+        } else {
+            float v[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                if (kRowContig)
+                    v[i] = (gk < kend && gr + i < rows) ? P[(size_t)gk * ld + gr + i] : 0.f;
+                else
+                    v[i] = (gr < rows && gk + i < kend) ? P[(size_t)gr * ld + gk + i] : 0.f;
+            }
+            *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+        }
+    }
+}
+
+// Makes a landed tile ready for the inner loop, which reads every operand
+// k-major: a row-contiguous tile is used in place (scaled in place when
+// `scale` is given: `scale_k`, by the stored row k of A (R, M)); a
+// k-contiguous one is transposed from `raw` into `km` (R floats per k),
+// scaled by its row when `scale` is given. A thread moves one 16-byte unit
+// (4 k) of row r = c % R, so a warp writes 32 consecutive floats per k.
+template <int R, bool kRowContig>
+__device__ __forceinline__ void gemm_prepare(float* raw, float* km,
+                                             const float* __restrict__ scale, int adiv,
+                                             int lim, int row0) {
+    if (kRowContig) {
+        if (!scale) return;
+        constexpr int kChunks = R * kGemmBK / 4 / kGemmThreads;
+#pragma unroll
+        for (int j = 0; j < kChunks; ++j) {
+            const int c = threadIdx.x + j * kGemmThreads;
+            const int k = c / (R / 4);
+            float* at = raw + k * R + (c % (R / 4)) * 4;
+            const int row = row0 + k;
+            const float sc = row < lim ? scale[row / adiv] : 0.f;
+            float4 v = *reinterpret_cast<float4*>(at);
+            v.x *= sc; v.y *= sc; v.z *= sc; v.w *= sc;
+            *reinterpret_cast<float4*>(at) = v;
+        }
+        return;
+    }
+    constexpr int kUnits = R * (kGemmBK / 4) / kGemmThreads;
+#pragma unroll
+    for (int j = 0; j < kUnits; ++j) {
+        const int c = threadIdx.x + j * kGemmThreads;
+        const int r = c % R;
+        const int q = c / R;
+        float4 v = *reinterpret_cast<const float4*>(raw + raw_off(r, 4 * q));
+        if (scale) {
+            const int row = row0 + r;
+            const float sc = row < lim ? scale[row / adiv] : 0.f;
+            v.x *= sc; v.y *= sc; v.z *= sc; v.w *= sc;
+        }
+        km[(4 * q + 0) * R + r] = v.x;
+        km[(4 * q + 1) * R + r] = v.y;
+        km[(4 * q + 2) * R + r] = v.z;
+        km[(4 * q + 3) * R + r] = v.w;
+    }
+}
+
+constexpr int kGemmStages = 5;
+
+// Floats of a block's dynamic shared memory: the ring of kGemmStages slices
+// of both operands, and two k-major slices of each k-contiguous operand.
+template <int BM, int BN, bool kAT, bool kBN>
+constexpr int gemm_smem_floats() {
+    return kGemmStages * (BM + BN) * kGemmBK + 2 * ((kAT ? 0 : BM) + (kBN ? 0 : BN)) * kGemmBK;
+}
 
 // kAT: A is stored (K, M), element (m, k) at A[k * lda + m]; else (M, K).
 // kBN: B is stored (K, N), element (k, n) at W[k * ldw + n]; else (N, K).
 // kVec: every operand's contiguous extent and row stride are multiples of 4
-// and its base is 16-byte aligned, so each thread fetches its share of a
-// K-slice as one float4 per operand.
+// and its base is 16-byte aligned (16-byte asynchronous copies).
 // Block z reduces k in [z * kchunk, min(K, (z + 1) * kchunk)) into
 // C + z * M * ldc (kchunk a multiple of kGemmBK; one block when kchunk >= K).
-template <bool kAT, bool kBN, bool kVec>
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_kernel(int M, int N, int K, int kchunk, const float* __restrict__ A, int lda,
-            const float* __restrict__ ascale, int adiv, const float* __restrict__ W,
-            int ldw, float* C, int ldc, Epilogue ep) {
-    __shared__ __align__(16) float As[2][kGemmBK][kGemmBM + 4];
-    __shared__ __align__(16) float Ws[2][kGemmBK][kGemmBN + 4];
+// Slice kt + 1 is made ready (transposed, scaled) while slice kt is
+// multiplied, and slices up to kt + 4 are in flight: one barrier a slice.
+template <int BM, int BN, bool kAT, bool kBN, bool kVec>
+__global__ void __launch_bounds__(kGemmThreads, 2) gemm_kernel(GemmParams p) {
+    constexpr int S = kGemmStages;
+    constexpr int MI = BM / 16, NI = BN / 16;   // rows / columns of a thread
+    extern __shared__ float4 gemm_smem4[];
+    float* const ringA = reinterpret_cast<float*>(gemm_smem4);   // (S, BM * BK)
+    float* const ringW = ringA + S * BM * kGemmBK;               // (S, BN * BK)
+    float* const kmA = ringW + S * BN * kGemmBK;                 // (2, BK, BM) unless kAT
+    float* const kmW = kmA + (kAT ? 0 : 2 * BM * kGemmBK);       // (2, BK, BN) unless kBN
 
     const int tid = threadIdx.x;
+    const int g = blockIdx.y;                   // the problem of gemm_*2
+    const float* __restrict__ W = p.W[g];
     // Output tiles are numbered along x, column tiles fastest: B * N * C rows
-    // can be more 64-row tiles than the 65,535 that gridDim.y admits.
-    const int col_tiles = (N + kGemmBN - 1) / kGemmBN;
-    const int m0 = (blockIdx.x / col_tiles) * kGemmBM;
-    const int n0 = (blockIdx.x % col_tiles) * kGemmBN;
-    const int kbeg = blockIdx.z * kchunk;
-    const int kend = min(K, kbeg + kchunk);
-    C += (size_t)blockIdx.z * M * ldc;
-    const int tr = tid / 16;   // micro-tile rows tr*4 .. tr*4+3
-    const int tc = tid % 16;   // micro-tile cols tc*4 .. tc*4+3
-    // An operand contiguous in k: this thread fetches 4 consecutive k of one
-    // tile row; contiguous in m / n: 4 consecutive rows at one k.
-    const int lr = tid / 4;         // tile row (k-contiguous operand)
-    const int lk = (tid % 4) * 4;   // first of its 4 k
-    const int tk = tid / 16;        // k of the slice (m- / n-contiguous operand)
-    const int tm = (tid % 16) * 4;  // first of its 4 tile rows
-    float a_reg[4], w_reg[4];
+    // can be more row tiles than the 65,535 that gridDim.y admits.
+    const int col_tiles = (p.N + BN - 1) / BN;
+    const int m0 = (blockIdx.x / col_tiles) * BM;
+    const int n0 = (blockIdx.x % col_tiles) * BN;
+    const int kbeg = blockIdx.z * p.kchunk;
+    const int kend = min(p.K, kbeg + p.kchunk);
+    const int nk = (kend - kbeg + kGemmBK - 1) / kGemmBK;
+    const int tr = tid / 16;   // micro-tile rows x * 64 + tr * 4 + i
+    const int tc = tid % 16;   // micro-tile cols y * 64 + tc * 4 + j
+    const bool colsum = p.colsum && n0 == 0;
+    float cs = 0.f;            // colsum: column m0 + tid of A
 
-    // One operand's 4 values of the K-slice starting at k0. `rows` is the
-    // operand's extent along the tile (M or N), `r0` the tile's first row.
-    auto load = [&](const float* __restrict__ P, int ld, bool kmajor, int rows, int r0,
-                    int k0, float* reg) {
-        if (!kmajor) {
-            const int r = r0 + lr;
-            const int gk = k0 + lk;
-            if (kVec) {
-                const float4 v = (r < rows && gk < kend)
-                    ? *reinterpret_cast<const float4*>(P + (size_t)r * ld + gk)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
-                reg[0] = v.x; reg[1] = v.y; reg[2] = v.z; reg[3] = v.w;
-            } else {
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-                    reg[i] = (r < rows && gk + i < kend) ? P[(size_t)r * ld + gk + i] : 0.f;
-            }
-        } else {
-            const int r = r0 + tm;
-            const int gk = k0 + tk;
-            if (kVec) {
-                const float4 v = (r < rows && gk < kend)
-                    ? *reinterpret_cast<const float4*>(P + (size_t)gk * ld + r)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
-                reg[0] = v.x; reg[1] = v.y; reg[2] = v.z; reg[3] = v.w;
-            } else {
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-                    reg[i] = (r + i < rows && gk < kend) ? P[(size_t)gk * ld + r + i] : 0.f;
-            }
-        }
+    auto load = [&](int kt) {
+        const int s = kt % S;
+        gemm_load_tile<BM, kAT, kVec>(ringA + s * BM * kGemmBK, p.A, p.lda, p.M, m0,
+                                      kbeg + kt * kGemmBK, kend);
+        gemm_load_tile<BN, kBN, kVec>(ringW + s * BN * kGemmBK, W, p.ldw, p.N, n0,
+                                      kbeg + kt * kGemmBK, kend);
     };
-    // Global -> registers: the next K-slice, fetched while the current one
-    // is multiplied out of shared memory.
-    auto fetch = [&](int k0) {
-        load(A, lda, kAT, M, m0, k0, a_reg);
-        load(W, ldw, kBN, N, n0, k0, w_reg);
-        if (ascale) {
-            const int row = kAT ? k0 + tk : m0 + lr;   // the stored row of A
-            const int lim = kAT ? kend : M;
-            const float s = row < lim ? ascale[row / adiv] : 0.f;
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a_reg[i] *= s;
-        }
-    };
-    auto stage = [&](int buf) {   // registers -> shared, k-major
-        if (kAT) {
-            *reinterpret_cast<float4*>(&As[buf][tk][tm]) =
-                make_float4(a_reg[0], a_reg[1], a_reg[2], a_reg[3]);
-        } else {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) As[buf][lk + i][lr] = a_reg[i];
-        }
-        if (kBN) {
-            *reinterpret_cast<float4*>(&Ws[buf][tk][tm]) =
-                make_float4(w_reg[0], w_reg[1], w_reg[2], w_reg[3]);
-        } else {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) Ws[buf][lk + i][lr] = w_reg[i];
-        }
+    auto prepare = [&](int kt) {
+        const int s = kt % S;
+        // ascale's rows: k of A (R, M) for gemm_tn, m of A (M, K) otherwise.
+        gemm_prepare<BM, kAT>(ringA + s * BM * kGemmBK, kmA + (kt & 1) * BM * kGemmBK,
+                              p.ascale, p.adiv, kAT ? kend : p.M,
+                              kAT ? kbeg + kt * kGemmBK : m0);
+        gemm_prepare<BN, kBN>(ringW + s * BN * kGemmBK, kmW + (kt & 1) * BN * kGemmBK,
+                              nullptr, 1, 0, 0);
     };
 
-    float acc[4][4];
+    float acc[MI][NI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+        for (int j = 0; j < NI; ++j) acc[i][j] = 0.f;
 
-    fetch(kbeg);
-    stage(0);
+#pragma unroll
+    for (int s = 0; s < S - 1; ++s) {
+        if (s < nk) load(s);
+        cp_async_commit();
+    }
+    cp_async_wait<S - 2>();
     __syncthreads();
-    int buf = 0;
-    for (int k0 = kbeg; k0 < kend; k0 += kGemmBK) {
-        const bool more = k0 + kGemmBK < kend;
-        if (more) fetch(k0 + kGemmBK);
+    prepare(0);
+    for (int kt = 0; kt < nk; ++kt) {
+        // Slice kt + 1 has landed for every thread; every thread is done with
+        // slice kt - 1, whose ring stage and k-major buffer are reused now.
+        cp_async_wait<S - 3>();
+        __syncthreads();
+        if (kt + S - 1 < nk) load(kt + S - 1);
+        cp_async_commit();
+        if (kt + 1 < nk) prepare(kt + 1);
+        const float* as = kAT ? ringA + (kt % S) * BM * kGemmBK : kmA + (kt & 1) * BM * kGemmBK;
+        const float* ws = kBN ? ringW + (kt % S) * BN * kGemmBK : kmW + (kt & 1) * BN * kGemmBK;
+        if (colsum && tid < BM) {   // gemm_tn: A's scaled slice, k-major
+#pragma unroll
+            for (int kk = 0; kk < kGemmBK; ++kk) cs += as[kk * BM + tid];
+        }
 #pragma unroll
         for (int kk = 0; kk < kGemmBK; ++kk) {
-            const float4 a = *reinterpret_cast<const float4*>(&As[buf][kk][tr * 4]);
-            const float4 b = *reinterpret_cast<const float4*>(&Ws[buf][kk][tc * 4]);
-            const float av[4] = {a.x, a.y, a.z, a.w};
-            const float bv[4] = {b.x, b.y, b.z, b.w};
+            float a[MI], b[NI];
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
+            for (int x = 0; x < MI / 4; ++x) {
+                const float4 v = *reinterpret_cast<const float4*>(as + kk * BM + x * 64 + tr * 4);
+                a[x * 4] = v.x; a[x * 4 + 1] = v.y; a[x * 4 + 2] = v.z; a[x * 4 + 3] = v.w;
+            }
 #pragma unroll
-                for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+            for (int y = 0; y < NI / 4; ++y) {
+                const float4 v = *reinterpret_cast<const float4*>(ws + kk * BN + y * 64 + tc * 4);
+                b[y * 4] = v.x; b[y * 4 + 1] = v.y; b[y * 4 + 2] = v.z; b[y * 4 + 3] = v.w;
+            }
+#pragma unroll
+            for (int i = 0; i < MI; ++i)
+#pragma unroll
+                for (int j = 0; j < NI; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
         }
-        // The other buffer was last read before the previous barrier.
-        if (more) stage(buf ^ 1);
-        __syncthreads();
-        buf ^= 1;
     }
+    cp_async_wait<0>();
+    if (colsum && tid < BM && m0 + tid < p.M)
+        p.colsum[(size_t)blockIdx.z * p.M + m0 + tid] = cs;
 
+    const Epilogue& ep = p.ep[g];
+    float* C = p.C[g] + (size_t)blockIdx.z * p.M * p.ldc;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int r = m0 + tr * 4 + i;
-        if (r >= M) continue;
+    for (int i = 0; i < MI; ++i) {
+        const int r = m0 + (i / 4) * 64 + tr * 4 + i % 4;
+        if (r >= p.M) continue;
+        const float mk = ep.rmask ? ep.rmask[r / ep.mask_div] : 1.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int c = n0 + tc * 4 + j;
-            if (c >= N) continue;
-            float v = acc[i][j];
-            if (ep.bias) v += ep.bias[c];
-            if (ep.pre) v += ep.pre[(size_t)r * ep.ldpre + c];
-            if (ep.rmask) v *= ep.rmask[r / ep.mask_div];
-            if (ep.post) v += ep.post[(size_t)r * ep.ldpost + c];
-            if (ep.post2) v += ep.post2[(size_t)(r / ep.post2_div) * ep.ldpost2 + c];
-            C[(size_t)r * ldc + c] = v;
+        for (int y = 0; y < NI / 4; ++y) {
+            const int c = n0 + y * 64 + tc * 4;
+            if (c >= p.N) continue;
+            float v[4] = {acc[i][y * 4], acc[i][y * 4 + 1], acc[i][y * 4 + 2], acc[i][y * 4 + 3]};
+            if (p.vec_out) {   // N % 4 == 0, so c + 3 < N
+                auto add4 = [&](const float* src) {
+                    const float4 t = *reinterpret_cast<const float4*>(src);
+                    v[0] += t.x; v[1] += t.y; v[2] += t.z; v[3] += t.w;
+                };
+                if (ep.bias) add4(ep.bias + c);
+                if (ep.pre) add4(ep.pre + (size_t)r * ep.ldpre + c);
+                if (ep.rmask)
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) v[j] *= mk;
+                if (ep.post) add4(ep.post + (size_t)r * ep.ldpost + c);
+                if (ep.post2) add4(ep.post2 + (size_t)(r / ep.post2_div) * ep.ldpost2 + c);
+                *reinterpret_cast<float4*>(C + (size_t)r * p.ldc + c) =
+                    make_float4(v[0], v[1], v[2], v[3]);
+            } else {
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    const int cj = c + j;
+                    if (cj >= p.N) continue;
+                    float t = v[j];
+                    if (ep.bias) t += ep.bias[cj];
+                    if (ep.pre) t += ep.pre[(size_t)r * ep.ldpre + cj];
+                    if (ep.rmask) t *= mk;
+                    if (ep.post) t += ep.post[(size_t)r * ep.ldpost + cj];
+                    if (ep.post2) t += ep.post2[(size_t)(r / ep.post2_div) * ep.ldpost2 + cj];
+                    C[(size_t)r * p.ldc + cj] = t;
+                }
+            }
         }
     }
 }
 
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// Launches one layout of gemm_kernel; `splits` blocks along z share the K
-// range in chunks of `kchunk`.
-template <bool kAT, bool kBN>
-inline void gemm_launch(cudaStream_t stream, int M, int N, int K, int splits, int kchunk,
-                        const float* A, int lda, const float* ascale, int adiv,
-                        const float* W, int ldw, float* C, int ldc, const Epilogue& ep) {
-    const dim3 grid(((N + kGemmBN - 1) / kGemmBN) * ((M + kGemmBM - 1) / kGemmBM), 1, splits);
-    // The extent along which each operand is read 4 at a time.
-    const bool vec = (kAT ? M : K) % 4 == 0 && (kBN ? N : K) % 4 == 0 && lda % 4 == 0 &&
-                     ldw % 4 == 0 && aligned16(A) && aligned16(W);
-    if (vec)
-        gemm_kernel<kAT, kBN, true><<<grid, kGemmThreads, 0, stream>>>(
-            M, N, K, kchunk, A, lda, ascale, adiv, W, ldw, C, ldc, ep);
-    else
-        gemm_kernel<kAT, kBN, false><<<grid, kGemmThreads, 0, stream>>>(
-            M, N, K, kchunk, A, lda, ascale, adiv, W, ldw, C, ldc, ep);
+// Whether a (rows, ld) operand or epilogue term takes float4 accesses.
+inline bool vec_ok(const void* p, int ld) { return !p || (aligned16(p) && ld % 4 == 0); }
+
+// Whether this library has raised a kernel instance's shared-memory limit on
+// a device, by [device][layout nt / nn / tn][tile][vec]. A namespace-scope
+// static has internal linkage: each .cu (its own library) keeps its own, as
+// it must, since each has its own copy of the kernels. (A function-local
+// static in an inline function or template would be one object across the
+// libraries of a process.)
+static bool g_gemm_smem_raised[8][3][3][2];
+
+template <int BM, int BN, bool kAT, bool kBN>
+inline void gemm_run(cudaStream_t st, dim3 grid, const GemmParams& p, bool vec) {
+    constexpr size_t smem = sizeof(float) * gemm_smem_floats<BM, BN, kAT, kBN>();
+    constexpr int layout = kAT ? 2 : kBN ? 1 : 0;
+    constexpr int tile = BM == 128 ? (BN == 128 ? kTile128x128 : kTile128x64) : kTile64x64;
+    auto kernel = vec ? gemm_kernel<BM, BN, kAT, kBN, true> : gemm_kernel<BM, BN, kAT, kBN, false>;
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess) return;   // the caller's cudaGetLastError() reports it
+    bool* raised = dev < 8 ? &g_gemm_smem_raised[dev][layout][tile][vec] : nullptr;
+    if (!raised || !*raised) {
+        if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem) != cudaSuccess)
+            return;
+        if (raised) *raised = true;
+    }
+    kernel<<<grid, kGemmThreads, smem, st>>>(p);
 }
 
-// C = epilogue(A @ W^T) on `stream`; W (N, K).
+// Launches one layout of gemm_kernel over `groups` problems (p.W / p.C /
+// p.ep [0 .. groups)) and `splits` blocks along z; tile < 0 picks the tile.
+// gemm_tn runs on 128x128 tiles only (its split-K fills the SMs).
+template <bool kAT, bool kBN>
+inline void gemm_launch(cudaStream_t st, GemmParams p, int groups, int splits, int tile) {
+    if (kAT) tile = kTile128x128;
+    if (tile < 0) tile = gemm_tile_for(p.M, p.N, groups);
+    const dim3 grid((unsigned)gemm_tiles(tile, p.M, p.N), groups, splits);
+    // 16-byte copies: the extent along which each operand is contiguous.
+    bool vec = (kAT ? p.M : p.K) % 4 == 0 && (kBN ? p.N : p.K) % 4 == 0 &&
+                 p.lda % 4 == 0 && p.ldw % 4 == 0 && aligned16(p.A);
+    bool vec_out = p.N % 4 == 0;
+    for (int g = 0; g < groups; ++g) {
+        const Epilogue& e = p.ep[g];
+        vec = vec && aligned16(p.W[g]);
+        vec_out = vec_out && vec_ok(p.C[g], p.ldc) && vec_ok(e.bias, 0) &&
+                  vec_ok(e.pre, e.ldpre) && vec_ok(e.post, e.ldpost) && vec_ok(e.post2, e.ldpost2);
+    }
+    p.vec_out = vec_out;
+    if constexpr (kAT) {
+        gemm_run<128, 128, kAT, kBN>(st, grid, p, vec);
+    } else {
+        switch (tile) {
+            case kTile128x128: gemm_run<128, 128, kAT, kBN>(st, grid, p, vec); break;
+            case kTile128x64: gemm_run<128, 64, kAT, kBN>(st, grid, p, vec); break;
+            default: gemm_run<64, 64, kAT, kBN>(st, grid, p, vec); break;
+        }
+    }
+}
+
+inline GemmParams gemm_params(int M, int N, int K, const float* A, int lda, const float* ascale,
+                              int adiv, int ldw, int ldc) {
+    GemmParams p{};
+    p.M = M; p.N = N; p.K = K; p.kchunk = K;
+    p.A = A; p.lda = lda; p.ascale = ascale; p.adiv = adiv;
+    p.ldw = ldw; p.ldc = ldc;
+    return p;
+}
+
+// C = epilogue(A @ W^T) on `stream`; W (N, K). `tile` < 0: by shape.
 inline void gemm_nt(cudaStream_t stream, int M, int N, int K, const float* A, int lda,
-                    const float* W, int ldw, float* C, int ldc, const Epilogue& ep) {
-    gemm_launch<false, false>(stream, M, N, K, 1, K, A, lda, nullptr, 1, W, ldw, C, ldc, ep);
+                    const float* W, int ldw, float* C, int ldc, const Epilogue& ep,
+                    int tile = -1) {
+    GemmParams p = gemm_params(M, N, K, A, lda, nullptr, 1, ldw, ldc);
+    p.W[0] = W; p.C[0] = C; p.ep[0] = ep;
+    gemm_launch<false, false>(stream, p, 1, 1, tile);
+}
+
+// Two products of one A in one launch: C0 = ep0(A @ W0^T), C1 = ep1(A @ W1^T).
+inline void gemm_nt2(cudaStream_t stream, int M, int N, int K, const float* A, int lda,
+                     const float* W0, const float* W1, int ldw, float* C0, float* C1, int ldc,
+                     const Epilogue& ep0, const Epilogue& ep1) {
+    GemmParams p = gemm_params(M, N, K, A, lda, nullptr, 1, ldw, ldc);
+    p.W[0] = W0; p.W[1] = W1; p.C[0] = C0; p.C[1] = C1; p.ep[0] = ep0; p.ep[1] = ep1;
+    gemm_launch<false, false>(stream, p, 2, 1, -1);
 }
 
 // C = epilogue((A * ascale[row / adiv]) @ W) on `stream`; W (K, N).
 inline void gemm_nn(cudaStream_t stream, int M, int N, int K, const float* A, int lda,
                     const float* ascale, int adiv, const float* W, int ldw, float* C,
-                    int ldc, const Epilogue& ep) {
-    gemm_launch<false, true>(stream, M, N, K, 1, K, A, lda, ascale, adiv, W, ldw, C, ldc, ep);
+                    int ldc, const Epilogue& ep, int tile = -1) {
+    GemmParams p = gemm_params(M, N, K, A, lda, ascale, adiv, ldw, ldc);
+    p.W[0] = W; p.C[0] = C; p.ep[0] = ep;
+    gemm_launch<false, true>(stream, p, 1, 1, tile);
 }
 
-// out[e] = sum_z partial[z * count + e], z ascending.
+// Two products of one scaled A in one launch, as gemm_nt2.
+inline void gemm_nn2(cudaStream_t stream, int M, int N, int K, const float* A, int lda,
+                     const float* ascale, int adiv, const float* W0, const float* W1, int ldw,
+                     float* C0, float* C1, int ldc, const Epilogue& ep0, const Epilogue& ep1) {
+    GemmParams p = gemm_params(M, N, K, A, lda, ascale, adiv, ldw, ldc);
+    p.W[0] = W0; p.W[1] = W1; p.C[0] = C0; p.C[1] = C1; p.ep[0] = ep0; p.ep[1] = ep1;
+    gemm_launch<false, true>(stream, p, 2, 1, -1);
+}
+
+// out[e] = sum_z partial[z * count + e] and bout[m] = sum_z bpartial[z * bcount
+// + m], z ascending (bcount 0: no column sums).
 __global__ void reduce_partials_kernel(int Z, size_t count, const float* __restrict__ partial,
-                                       float* __restrict__ out) {
-    for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < count;
+                                       float* __restrict__ out, size_t bcount,
+                                       const float* __restrict__ bpartial,
+                                       float* __restrict__ bout) {
+    for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < count + bcount;
          e += (size_t)gridDim.x * blockDim.x) {
+        const bool b = e >= count;
+        const size_t i = b ? e - count : e;
+        const size_t n = b ? bcount : count;
+        const float* src = b ? bpartial : partial;
         float s = 0.f;
-        for (int z = 0; z < Z; ++z) s += partial[(size_t)z * count + e];
-        out[e] = s;
+        for (int z = 0; z < Z; ++z) s += src[(size_t)z * n + i];
+        (b ? bout : out)[i] = s;
     }
 }
 
-// How gemm_tn splits its R rows: enough blocks for two waves of the 132
-// SMs, at least 64 rows each.
+// How gemm_tn splits its R rows: as many 128x128 blocks as two blocks on
+// each of the 132 SMs hold at once (one wave, no ragged tail), at least 64
+// rows each.
 struct SplitK {
     int splits, kchunk;
 };
 inline SplitK splitk_for(int M, int N, int R) {
-    const int tiles = ((M + kGemmBM - 1) / kGemmBM) * ((N + kGemmBN - 1) / kGemmBN);
-    int z = (264 + tiles - 1) / tiles;
-    const int zmax = (R + 63) / 64;
+    const long long tiles = gemm_tiles(kTile128x128, M, N);
+    long long z = 2 * kGemmSMs / tiles;
+    const long long zmax = (R + 63) / 64;
     if (z > zmax) z = zmax;
     if (z < 1) z = 1;
-    int kchunk = (R + z - 1) / z;
+    int kchunk = (int)((R + z - 1) / z);
     kchunk = (kchunk + kGemmBK - 1) / kGemmBK * kGemmBK;
     return {(R + kchunk - 1) / kchunk, kchunk};
 }
-// Floats of the partial-sum buffer gemm_tn needs.
+// Floats of the partial-sum buffer gemm_tn needs: the split products and
+// the split column sums.
 inline size_t gemm_tn_partial_floats(int M, int N, int R) {
-    return (size_t)splitk_for(M, N, R).splits * M * N;
+    return (size_t)splitk_for(M, N, R).splits * ((size_t)M * N + M);
 }
 
 // out (M, N) = (A * ascale[row / adiv])^T @ B, A (R, M), B (R, N), reduced
-// over the R rows through `partial`.
+// over the R rows through `partial`; bias_out (M,) (optional) = the column
+// sums of the scaled A, a bias gradient, from the same pass over A.
 inline void gemm_tn(cudaStream_t stream, int M, int N, int R, const float* A, int lda,
                     const float* ascale, int adiv, const float* B, int ldb, float* partial,
-                    float* out) {
+                    float* out, float* bias_out = nullptr) {
     const SplitK s = splitk_for(M, N, R);
-    gemm_launch<true, true>(stream, M, N, R, s.splits, s.kchunk, A, lda, ascale, adiv, B,
-                            ldb, partial, N, Epilogue());
+    GemmParams p = gemm_params(M, N, R, A, lda, ascale, adiv, ldb, N);
+    p.kchunk = s.kchunk;
+    p.W[0] = B;
+    p.C[0] = partial;
     const size_t count = (size_t)M * N;
-    reduce_partials_kernel<<<(int)((count + 255) / 256), 256, 0, stream>>>(s.splits, count,
-                                                                          partial, out);
-}
-
-constexpr int kColsumSplits = 64;
-
-// partial[z, c] = sum over the rows r of chunk z of Y[r, c] * scale[r / div].
-__global__ void colsum_partial_kernel(int R, int N, int chunk, const float* __restrict__ Y,
-                                      int ld, const float* __restrict__ scale, int div,
-                                      float* __restrict__ partial) {
-    const int c = blockIdx.x * blockDim.x + threadIdx.x;
-    if (c >= N) return;
-    const int r0 = blockIdx.y * chunk;
-    const int r1 = min(R, r0 + chunk);
-    float s = 0.f;
-    for (int r = r0; r < r1; ++r)
-        s += Y[(size_t)r * ld + c] * (scale ? scale[r / div] : 1.f);
-    partial[(size_t)blockIdx.y * N + c] = s;
-}
-
-// out (N,) = column sums of Y (R, N) * scale[row / div]: a bias gradient.
-// `partial` holds kColsumSplits * N floats.
-inline void colsum(cudaStream_t stream, int R, int N, const float* Y, int ld,
-                   const float* scale, int div, float* partial, float* out) {
-    const int chunk = (R + kColsumSplits - 1) / kColsumSplits;
-    const int splits = (R + chunk - 1) / chunk;
-    colsum_partial_kernel<<<dim3((N + 127) / 128, splits), 128, 0, stream>>>(
-        R, N, chunk, Y, ld, scale, div, partial);
-    reduce_partials_kernel<<<(N + 255) / 256, 256, 0, stream>>>(splits, (size_t)N, partial,
-                                                                out);
+    p.colsum = bias_out ? partial + (size_t)s.splits * count : nullptr;
+    gemm_launch<true, true>(stream, p, 1, s.splits, kTile128x128);
+    const size_t bcount = bias_out ? (size_t)M : 0;
+    const size_t total = count + bcount;
+    const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
+    reduce_partials_kernel<<<blocks, 256, 0, stream>>>(s.splits, count, partial, out, bcount,
+                                                       p.colsum, bias_out);
 }
 
 // C = A @ W^T + bias, the epilogue of a plain nn.Linear.

@@ -18,16 +18,24 @@
 // over the 227 KB of shared memory of one block: a single block would have
 // to stream it from L2 at every step.
 //
-// Design: a thread-block cluster of 8 CTAs runs one (batch block of kBB
+// Design: a thread-block cluster of 8 CTAs runs one (batch block of RB
 // rows, direction). CTA r owns hidden units [r*H/8, (r+1)*H/8) and keeps
-// their 4 gate rows of W_hh (128 KB at H=256) in its shared memory for the
+// their 4 gate rows of W_hh (129 KB at H=256) in its shared memory for the
 // whole layer, k-major and padded against bank conflicts; W_hh is read from
-// device memory once per launch. Each step a CTA computes its gate
-// pre-activations from its local copy of h, updates c (registers) and h for
-// its units, and stores the new h into every CTA's next-step buffer through
-// distributed shared memory; one cluster barrier per step orders the double
-// buffer. Gates are fp32. The layer-2 input projection is the hand-written
-// GEMM of gemm.cuh.
+// device memory once per launch. One CTA fits an SM, and a cluster needs 8
+// SMs of one GPC, so the card holds about 15 clusters at once: RB is the
+// smallest multiple of 16 rows whose clusters, two directions each, all fit
+// at once (`cudaOccupancyMaxActiveClusters`), up to the 96 rows whose h fits
+// beside W_hh, so B=16 and B=64 run 16 rows per cluster and B=512 runs 80
+// rows in one wave instead of four. Each thread owns one unit and RB*U/256
+// rows and computes all four gates of them in registers (no gate buffer),
+// updates c and h (registers), and stores the new h into every CTA's copy
+// of h through distributed shared memory. Where two copies of h fit (RB <=
+// 48 at H=256) h is double-buffered and one cluster barrier per step orders
+// it; else it is single-buffered and a second barrier separates the step's
+// reads from its writes. Gates are fp32. The layer-2 input
+// projections, forward and backward, are one launch of the hand-written GEMM
+// of gemm.cuh (`gemm_nt2`, the two weights as two problems of one A).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -38,23 +46,49 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kCluster = 8;    // CTAs per (batch block, direction)
-constexpr int kBB = 16;        // batch rows per cluster
 constexpr int kThreads = 256;
-constexpr int kRowsPerItem = 8;   // batch rows of one gate work item
+constexpr int kRowStep = 16;       // batch rows per cluster: a multiple of this
+constexpr int kMaxRows = 96;
+constexpr size_t kMaxSmem = 232448;   // dynamic shared memory of one block
 
-// Shared memory of one CTA: ws (H, R + 1), hbuf (2, kBB, H), gates (R, kBB),
-// with R = 4H / kCluster gate rows.
-size_t layer_smem_bytes(int H) {
-    const size_t R = 4 * (size_t)H / kCluster;
-    return sizeof(float) * ((size_t)H * (R + 1) + 2 * (size_t)kBB * H + R * kBB);
+size_t wslice_bytes(int H) {        // ws (H, R + 1), R = 4H / kCluster gate rows
+    return sizeof(float) * (size_t)H * (4 * (size_t)H / kCluster + 1);
+}
+
+// Whether two copies of h (RB, H) fit beside the W_hh slice.
+bool double_buffered(int H, int RB) {
+    return wslice_bytes(H) + 2 * sizeof(float) * (size_t)RB * H <= kMaxSmem;
+}
+
+// Bytes of one CTA's shared memory: ws, and hbuf (nbuf, RB, H).
+size_t layer_smem_bytes(int H, int RB) {
+    return wslice_bytes(H) + (double_buffered(H, RB) ? 2 : 1) * sizeof(float) * (size_t)RB * H;
+}
+
+// The most rows per cluster: one copy of h beside W_hh, at most kMaxRows.
+int max_rows(int H) {
+    int rb = kMaxRows;
+    while (rb > kRowStep && layer_smem_bytes(H, rb) > kMaxSmem) rb -= kRowStep;
+    return rb;
+}
+
+// Rows of one thread, rounded up to the kernel's template choices.
+int rows_per_thread(int H, int RB) {
+    const int U = H / kCluster;
+    const int G = kThreads / U;                  // row groups
+    const int r = (RB + G - 1) / G;
+    return r <= 2 ? (r <= 1 ? 1 : 2) : r <= 4 ? 4 : r <= 6 ? 6 : r <= 8 ? 8 : r <= 10 ? 10 : 12;
 }
 
 // One layer: xp{f,b} (B, S, 4H) input projections (b_ih included), mask
 // (B, S), w_hh{f,b} (4H, H), b_hh{f,b} (4H,) -> out (B, S, 2H), forward
 // hidden states in [0, H) and backward ones in [H, 2H).
-// grid (kCluster, ceil(B / kBB), 2 directions); H % 32 == 0, H <= 256.
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
-lstm_layer_kernel(int B, int S, int H, const float* __restrict__ xpf,
+// grid (kCluster, ceil(B / RB), 2 directions); H % 32 == 0, H <= 256.
+// Thread tid owns unit u = tid % U of this CTA and rows g + G * i (g = tid /
+// U, G = 256 / U, i < RPT) of the batch block. nbuf: copies of h (1 or 2).
+template <int RPT>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+lstm_layer_kernel(int B, int S, int H, int RB, int nbuf, const float* __restrict__ xpf,
                   const float* __restrict__ xpb, const float* __restrict__ mask,
                   const float* __restrict__ whhf, const float* __restrict__ whhb,
                   const float* __restrict__ bhhf, const float* __restrict__ bhhb,
@@ -65,95 +99,207 @@ lstm_layer_kernel(int B, int S, int H, const float* __restrict__ xpf,
     const int U = H / kCluster;       // hidden units of this CTA
     const int R = 4 * U;              // local row g*U + u = W_hh row g*H + rank*U + u
     const int ldw = R + 1;
+    const bool single = nbuf == 1;
     float* ws = smem;                              // (H, R + 1)
-    float* hbuf = ws + (size_t)H * ldw;            // (2, kBB, H)
-    float* gates = hbuf + 2 * kBB * H;             // (R, kBB)
+    float* hbuf = ws + (size_t)H * ldw;            // (nbuf, RB, H)
     const int dir = blockIdx.z;
-    const int b0 = blockIdx.y * kBB;
+    const int b0 = blockIdx.y * RB;
     const float* xp = dir ? xpb : xpf;
     const float* whh = dir ? whhb : whhf;
     const float* bhh = dir ? bhhb : bhhf;
     const int tid = threadIdx.x;
+    const int G = kThreads / U;
+    const int u = tid % U;
+    const int grp = tid / U;
+    const bool active = grp < G;
+    const int j = rank * U + u;       // this thread's hidden unit
 
     for (int e = tid; e < R * H; e += kThreads) {
         const int lr = e / H;
         const int k = e % H;
         ws[(size_t)k * ldw + lr] = whh[(size_t)((lr / U) * H + rank * U + lr % U) * H + k];
     }
-    for (int e = tid; e < kBB * H; e += kThreads) hbuf[e] = 0.f;
-    float c[2] = {0.f, 0.f};          // cells of this thread's (unit, row) pairs
+    for (int e = tid; e < nbuf * RB * H; e += kThreads) hbuf[e] = 0.f;
+    float bias[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) bias[g] = bhh[g * H + j];
+    int row[RPT];                     // batch row of each of this thread's rows, or -1
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+        const int r = grp + G * i;
+        row[i] = (active && r < RB && b0 + r < B) ? r : -1;
+    }
+    float c[RPT], hp[RPT];            // cell and hidden state of this thread's rows
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) c[i] = hp[i] = 0.f;
     cluster.sync();                   // the cluster's CTAs have started and staged
 
     for (int t = 0; t < S; ++t) {
         const int tt = dir ? S - 1 - t : t;
-        const float* hc = hbuf + (t & 1) * kBB * H;
-        float* hn = hbuf + ((t + 1) & 1) * kBB * H;
+        const float* hc = hbuf + (single ? 0 : (t & 1) * RB * H);
+        float* hn = hbuf + (single ? 0 : ((t + 1) & 1) * RB * H);
 
-        for (int item = tid; item < R * (kBB / kRowsPerItem); item += kThreads) {
-            const int lr = item % R;
-            const int rb = (item / R) * kRowsPerItem;
-            const float* hrow = hc + rb * H;
-            float acc[kRowsPerItem];
+        // This step's inputs, loaded while the gates are summed.
+        float xg[4][RPT], m[RPT];
 #pragma unroll
-            for (int b = 0; b < kRowsPerItem; ++b) acc[b] = 0.f;
+        for (int i = 0; i < RPT; ++i) {
+            m[i] = 0.f;
+#pragma unroll
+            for (int g = 0; g < 4; ++g) xg[g][i] = 0.f;
+            if (row[i] < 0) continue;
+            const size_t at = (size_t)(b0 + row[i]) * S + tt;
+            m[i] = mask[at];
+#pragma unroll
+            for (int g = 0; g < 4; ++g) xg[g][i] = xp[at * (4 * H) + g * H + j];
+        }
+
+        float acc[4][RPT];
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+#pragma unroll
+            for (int i = 0; i < RPT; ++i) acc[g][i] = 0.f;
+        if (active) {
+            const float* hrow[RPT];
+#pragma unroll
+            for (int i = 0; i < RPT; ++i) hrow[i] = hc + min(grp + G * i, RB - 1) * H;
             for (int k = 0; k < H; k += 4) {
-                const float w0 = ws[(size_t)(k + 0) * ldw + lr];
-                const float w1 = ws[(size_t)(k + 1) * ldw + lr];
-                const float w2 = ws[(size_t)(k + 2) * ldw + lr];
-                const float w3 = ws[(size_t)(k + 3) * ldw + lr];
+                float w[4][4];
 #pragma unroll
-                for (int b = 0; b < kRowsPerItem; ++b) {
-                    const float4 h4 = *reinterpret_cast<const float4*>(hrow + b * H + k);
-                    float a = acc[b];
-                    a = fmaf(h4.x, w0, a);
-                    a = fmaf(h4.y, w1, a);
-                    a = fmaf(h4.z, w2, a);
-                    a = fmaf(h4.w, w3, a);
-                    acc[b] = a;
+                for (int q = 0; q < 4; ++q)
+#pragma unroll
+                    for (int g = 0; g < 4; ++g) w[g][q] = ws[(size_t)(k + q) * ldw + g * U + u];
+#pragma unroll
+                for (int i = 0; i < RPT; ++i) {
+                    const float4 h4 = *reinterpret_cast<const float4*>(hrow[i] + k);
+#pragma unroll
+                    for (int g = 0; g < 4; ++g) {
+                        float a = acc[g][i];
+                        a = fmaf(h4.x, w[g][0], a);
+                        a = fmaf(h4.y, w[g][1], a);
+                        a = fmaf(h4.z, w[g][2], a);
+                        a = fmaf(h4.w, w[g][3], a);
+                        acc[g][i] = a;
+                    }
                 }
             }
-#pragma unroll
-            for (int b = 0; b < kRowsPerItem; ++b) gates[lr * kBB + rb + b] = acc[b];
         }
-        __syncthreads();
+        // Single buffer: every CTA has read h before any CTA overwrites it.
+        if (single) cluster.sync();
 
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
-            const int p = tid + q * kThreads;
-            if (p >= U * kBB) break;
-            const int u = p % U;
-            const int b = p / U;
-            const int j = rank * U + u;
-            const int row = b0 + b;
-            float h = 0.f;            // rows past B stay 0
-            if (row < B) {
-                const float m = mask[(size_t)row * S + tt];
-                const float* x = xp + ((size_t)row * S + tt) * (4 * H);
-                const float gi = vml::sigmoidf_(gates[(0 * U + u) * kBB + b] + x[j] + bhh[j]);
-                const float gf = vml::sigmoidf_(gates[(1 * U + u) * kBB + b] + x[H + j] + bhh[H + j]);
-                const float gg = tanhf(gates[(2 * U + u) * kBB + b] + x[2 * H + j] + bhh[2 * H + j]);
-                const float go = vml::sigmoidf_(gates[(3 * U + u) * kBB + b] + x[3 * H + j] + bhh[3 * H + j]);
-                const float c_new = gf * c[q] + gi * gg;
-                const float h_new = go * tanhf(c_new);
-                h = m * h_new + (1.f - m) * hc[b * H + j];
-                c[q] = m * c_new + (1.f - m) * c[q];
-                out[((size_t)row * S + tt) * (2 * H) + dir * H + j] = h * m;
-            }
+        for (int i = 0; i < RPT; ++i) {
+            if (row[i] < 0) continue;     // rows past B keep h = 0
+            const float gi = vml::sigmoidf_(acc[0][i] + xg[0][i] + bias[0]);
+            const float gf = vml::sigmoidf_(acc[1][i] + xg[1][i] + bias[1]);
+            const float gg = tanhf(acc[2][i] + xg[2][i] + bias[2]);
+            const float go = vml::sigmoidf_(acc[3][i] + xg[3][i] + bias[3]);
+            const float c_new = gf * c[i] + gi * gg;
+            const float h_new = go * tanhf(c_new);
+            const float h = m[i] * h_new + (1.f - m[i]) * hp[i];
+            c[i] = m[i] * c_new + (1.f - m[i]) * c[i];
+            hp[i] = h;
+            out[((size_t)(b0 + row[i]) * S + tt) * (2 * H) + dir * H + j] = h * m[i];
 #pragma unroll
-            for (int r = 0; r < kCluster; ++r) cluster.map_shared_rank(hn, r)[b * H + j] = h;
+            for (int r = 0; r < kCluster; ++r) cluster.map_shared_rank(hn, r)[row[i] * H + j] = h;
         }
-        // Orders this step's h stores before the next step's reads, and the
-        // next step's stores after every CTA's reads of this step's buffer.
+        // Orders this step's h stores before the next step's reads (and, when
+        // double-buffered, the next step's stores after this step's reads).
         cluster.sync();
     }
+}
+
+using LayerKernel = void (*)(int, int, int, int, int, const float*, const float*,
+                             const float*, const float*, const float*, const float*,
+                             const float*, float*);
+
+LayerKernel layer_kernel(int H, int RB) {
+    switch (rows_per_thread(H, RB)) {
+        case 1: return lstm_layer_kernel<1>;
+        case 2: return lstm_layer_kernel<2>;
+        case 4: return lstm_layer_kernel<4>;
+        case 6: return lstm_layer_kernel<6>;
+        case 8: return lstm_layer_kernel<8>;
+        case 10: return lstm_layer_kernel<10>;
+        default: return lstm_layer_kernel<12>;
+    }
+}
+
+// Clusters of the layer kernel at RB rows that the card holds at once.
+// Answers are kept per (device, H / 32, RB / 16): a host-side query of this
+// file's own kernels, so this library is the only one that reads them.
+int g_active[16][9][kMaxRows / kRowStep + 1];
+
+cudaError_t max_active_clusters(int H, int RB, int* n) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    int* cached = dev < 16 ? &g_active[dev][H / 32][RB / kRowStep] : nullptr;
+    if (cached && *cached > 0) {
+        *n = *cached;
+        return cudaSuccess;
+    }
+    const LayerKernel fn = layer_kernel(H, RB);
+    const size_t smem = layer_smem_bytes(H, RB);
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kCluster, 1, 2);
+    cfg.blockDim = dim3(kThreads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = kCluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(n, (const void*)fn, &cfg);
+    if (err == cudaSuccess && cached) *cached = *n;
+    return err;
+}
+
+struct Plan {
+    int rows, clusters, max_active;
+};
+
+// The smallest RB (a multiple of kRowStep) whose 2 * ceil(B / RB) clusters
+// the card holds at once; max_rows(H) when none does. The chosen RB's kernel
+// has its shared-memory limit raised: max_active_clusters did so when it
+// first asked about that RB in this process.
+cudaError_t plan_for(int B, int H, Plan* plan) {
+    for (int rb = kRowStep; rb <= max_rows(H); rb += kRowStep) {
+        int n = 0;
+        cudaError_t err = max_active_clusters(H, rb, &n);
+        if (err != cudaSuccess) return err;
+        *plan = {rb, 2 * ((B + rb - 1) / rb), n};
+        if (plan->clusters <= n) break;
+    }
+    return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory of one recurrence CTA, for the wrapper's admission check.
-size_t vml_lstm_layer_smem_bytes(int H) { return layer_smem_bytes(H); }
+// The layer kernel's plan at batch B: rows per cluster, clusters (both
+// directions), clusters the card holds at once at that size, and the shared
+// memory of one CTA, for the wrapper's admission check and its Python mirror
+// (ops/lstm_cuda.py::lstm_plan). Returns a CUDA error, 0 if none.
+int vml_lstm_plan(int B, int H, int* rows, int* clusters, int* max_active, size_t* smem) {
+    Plan plan{};
+    cudaError_t err = plan_for(B, H, &plan);
+    *rows = plan.rows;
+    *clusters = plan.clusters;
+    *max_active = plan.max_active;
+    *smem = layer_smem_bytes(H, plan.rows);
+    return (int)err;
+}
+
+// Clusters of the layer kernel at `rows` rows per cluster that the card
+// holds at once (*n). Returns a CUDA error, 0 if none.
+int vml_lstm_max_active_clusters(int H, int rows, int* n) {
+    return (int)max_active_clusters(H, rows, n);
+}
 
 // Both layers: xp1{f,b} (B, S, 4H) layer-1 input projections with b_ih,
 // mask (B, S) in {0, 1}, per-direction weights in torch's layout. Scratch
@@ -169,21 +315,26 @@ int vml_bilstm2_f32(void* stream, int B, int S, int H,
                     const float* bhh2f, const float* bhh2b,
                     float* h1, float* xp2f, float* xp2b, float* out) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const size_t smem = layer_smem_bytes(H);
-    cudaError_t err = cudaFuncSetAttribute(
-        lstm_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    Plan plan{};
+    cudaError_t err = plan_for(B, H, &plan);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid(kCluster, (B + kBB - 1) / kBB, 2);
+    const int RB = plan.rows;
+    const LayerKernel fn = layer_kernel(H, RB);
+    const size_t smem = layer_smem_bytes(H, RB);
+    const dim3 grid(kCluster, (B + RB - 1) / RB, 2);
 
-    lstm_layer_kernel<<<grid, kThreads, smem, st>>>(B, S, H, xp1f, xp1b, mask, whh1f,
-                                                     whh1b, bhh1f, bhh1b, h1);
+    const int nbuf = double_buffered(H, RB) ? 2 : 1;
+    fn<<<grid, kThreads, smem, st>>>(B, S, H, RB, nbuf, xp1f, xp1b, mask, whh1f, whh1b, bhh1f,
+                                     bhh1b, h1);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    vml::linear(st, B * S, 4 * H, 2 * H, h1, wih2f, bih2f, xp2f);
+    vml::Epilogue epf, epb;
+    epf.bias = bih2f;
+    epb.bias = bih2b;
+    vml::gemm_nt2(st, B * S, 4 * H, 2 * H, h1, 2 * H, wih2f, wih2b, 2 * H, xp2f, xp2b, 4 * H,
+                  epf, epb);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    vml::linear(st, B * S, 4 * H, 2 * H, h1, wih2b, bih2b, xp2b);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    lstm_layer_kernel<<<grid, kThreads, smem, st>>>(B, S, H, xp2f, xp2b, mask, whh2f,
-                                                     whh2b, bhh2f, bhh2b, out);
+    fn<<<grid, kThreads, smem, st>>>(B, S, H, RB, nbuf, xp2f, xp2b, mask, whh2f, whh2b, bhh2f,
+                                     bhh2b, out);
     return (int)cudaGetLastError();
 }
 

@@ -60,7 +60,8 @@
 //   shared with the content-unit backward of content_train.cu.
 //   Weight gradients dW = dY^T X (gemm_tn) reduce over up to B * N * C rows
 //     in split blocks whose partial sums a second kernel adds in a fixed
-//     order; bias gradients are column sums the same way (colsum).
+//     order; bias gradients are the column sums of dY that the same gemm_tn
+//     pass adds up (its blocks of the first column tile).
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -463,15 +464,12 @@ int vml_smi_layer_bwd_f32(void* stream, int B, int L, int C, int Nq, int D, int 
     if (err != cudaSuccess) return (int)err;
 
     // MomentUnit.
-    vml::gemm_nn(st, B * N, D, D, dmu, D, vmask, 1, p[16], D, w.dx1, D, none);
+    vml::gemm_nn2(st, B * N, D, D, dmu, D, vmask, 1, p[16], p[18], D, w.dx1, w.dx2, D, none,
+                  none);
     VML_CHECK();
-    vml::gemm_nn(st, B * N, D, D, dmu, D, vmask, 1, p[18], D, w.dx2, D, none);
-    VML_CHECK();
-    vml::gemm_tn(st, D, D, B * N, dmu, D, vmask, 1, s.x1, D, w.partial, dw[16]);
+    vml::gemm_tn(st, D, D, B * N, dmu, D, vmask, 1, s.x1, D, w.partial, dw[16], dw[17]);
     VML_CHECK();
     vml::gemm_tn(st, D, D, B * N, dmu, D, vmask, 1, s.x2, D, w.partial, dw[18]);
-    VML_CHECK();
-    vml::colsum(st, B * N, D, dmu, D, vmask, 1, w.partial, dw[17]);
     VML_CHECK();
     if ((err = cudaMemcpyAsync(dw[19], dw[17], sizeof(float) * D, cudaMemcpyDeviceToDevice,
                                st)) != cudaSuccess)
@@ -507,13 +505,9 @@ int vml_smi_layer_bwd_f32(void* stream, int B, int L, int C, int Nq, int D, int 
     ep.post = dfw;
     vml::gemm_nn(st, B * Nq, D, D, w.dbk, D, nullptr, 1, p[14], D, dfw, D, ep);
     VML_CHECK();
-    vml::gemm_tn(st, D, D, B * L, w.dbq, D, nullptr, 1, fb, D, w.partial, dw[12]);
+    vml::gemm_tn(st, D, D, B * L, w.dbq, D, nullptr, 1, fb, D, w.partial, dw[12], dw[13]);
     VML_CHECK();
-    vml::colsum(st, B * L, D, w.dbq, D, nullptr, 1, w.partial, dw[13]);
-    VML_CHECK();
-    vml::gemm_tn(st, D, D, B * Nq, w.dbk, D, nullptr, 1, fw, D, w.partial, dw[14]);
-    VML_CHECK();
-    vml::colsum(st, B * Nq, D, w.dbk, D, nullptr, 1, w.partial, dw[15]);
+    vml::gemm_tn(st, D, D, B * Nq, w.dbk, D, nullptr, 1, fw, D, w.partial, dw[14], dw[15]);
     VML_CHECK();
 
     // Gate (reads dcut from dfc), then the content unit's shares of dfw and

@@ -1,0 +1,257 @@
+"""The shared fp32 GEMM of ``csrc/gemm.cuh`` on its own (``csrc/gemm.cu``),
+for the card tests and the GEMM phase of ``chip_smoke.py``, and a Python
+mirror of its host-side plans.
+
+The GEMM is no port of a TPU kernel by itself: K2-K5, K7, K9 and K10 run
+their projections through it inside their C entry points. ``gemm`` calls one
+layout with every epilogue term; on a CPU tensor it runs its plain version
+(``gemm_plain``: ``torch.matmul`` and the epilogue), on a CUDA tensor it
+launches the kernel or raises. ``gemm.launches`` counts the launches.
+
+The mirror (`tile_for`, `splitk_for`, `tn_partial_floats`, `smem_bytes`)
+restates ``gemm.cuh``'s choices, and `model_gemm_shapes` lists the products
+each kernel of the port launches, so the CPU tests can check every shape of
+the shipped configs and ``chip_smoke.py`` can hold the mirror against the C
+plan on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from video_moment_localization_tpu_torch.ops.cuda_build import check, load_library, ptr, stream_of
+
+BK = 16                     # K slice of a stage
+STAGES = 5                  # slices in the ring of asynchronous copies
+SMS = 132                   # H100 SXM
+TILES = ((128, 128), (128, 64), (64, 64))   # csrc/gemm.cuh::GemmTile, in order
+LAYOUTS = {"nt": 0, "nn": 1, "tn": 2}
+
+
+def smem_bytes(tile: int, layout: str) -> int:
+    """Dynamic shared memory of one block (gemm.cuh::gemm_smem_floats): the
+    ring of both operands' slices and two k-major slices of each operand
+    that is contiguous along k (A unless tn, W if nt)."""
+    bm, bn = TILES[tile]
+    transposed = (0 if layout == "tn" else bm) + (bn if layout == "nt" else 0)
+    return 4 * BK * (STAGES * (bm + bn) + 2 * transposed)
+
+
+def tiles(tile: int, M: int, N: int) -> int:
+    bm, bn = TILES[tile]
+    return -(-M // bm) * -(-N // bn)
+
+
+def tile_for(M: int, N: int, groups: int = 1) -> int:
+    """gemm.cuh::gemm_tile_for: the largest tile that fills both block
+    slots of every SM, else the smallest. gemm_tn always takes 128x128."""
+    for t in (0, 1):
+        if tiles(t, M, N) * groups >= 2 * SMS:
+            return t
+    return 2
+
+
+def splitk_for(M: int, N: int, R: int) -> Tuple[int, int]:
+    """gemm.cuh::splitk_for: (splits, rows per split) of gemm_tn's R rows."""
+    z = 2 * SMS // tiles(0, M, N)
+    z = max(1, min(z, -(-R // 64)))
+    kchunk = -(-R // z)
+    kchunk = -(-kchunk // BK) * BK
+    return -(-R // kchunk), kchunk
+
+
+def tn_partial_floats(M: int, N: int, R: int) -> int:
+    """gemm.cuh::gemm_tn_partial_floats: split products and column sums."""
+    return splitk_for(M, N, R)[0] * (M * N + M)
+
+
+def launch_grid(layout: str, M: int, N: int, K: int, groups: int = 1) -> Tuple[int, int, int]:
+    """The (tile, gridDim.x, gridDim.z) of one launch."""
+    if layout == "tn":
+        return 0, tiles(0, M, N), splitk_for(M, N, K)[0]
+    tile = tile_for(M, N, groups)
+    return tile, tiles(tile, M, N), 1
+
+
+def model_gemm_shapes(cfg, B: int) -> List[Tuple[str, str, str, int, int, int, int]]:
+    """Every product the port's kernels launch through gemm.cuh at batch B
+    for the model config ``cfg``: (kernel, product, layout, M, N, K,
+    groups), M, N, K as the C host code passes them (gemm_tn: M, N and the
+    R rows it reduces). K4, K2, K3, K9 and K10 run on the packed map of L
+    snippets; K7 on the same map as the content-unit route (ActivityNet)."""
+    L, C, D, dl, Nq = cfg.L, cfg.C, cfg.D, cfg.dl, cfg.max_query_length
+    H = cfg.lstm_hidden_size
+    N = L * (L + 1) // 2
+    NC = N * C
+
+    def content_fwd(k):
+        return [(k, "c_hat", "nt", B * NC, dl, D, 1), (k, "attn_q", "nt", B * NC, dl, dl, 1),
+                (k, "w_hat", "nt", B * Nq, dl, D, 1), (k, "attn_k", "nt", B * Nq, dl, dl, 1),
+                (k, "s_hat", "nt", B, dl, D, 1), (k, "c_out", "nt", B * NC, D, dl, 1)]
+
+    def layer_fwd(k, moment=True):
+        out = content_fwd(k) + [(k, "bq", "nt", B * L, D, D, 1), (k, "bk", "nt", B * Nq, D, D, 1)]
+        if moment:
+            out += [(k, "conv_fb", "nt", B * N, D, D, 1), (k, "conv_fc", "nt", B * N, D, D, 1)]
+        return out
+
+    def content_bwd(k):
+        return [(k, "dfcc", "nn", B * NC, dl, D, 1), (k, "dW c_out", "tn", D, dl, B * NC, 1),
+                (k, "dh attn_q", "nn", B * NC, dl, dl, 1), (k, "dW attn_q", "tn", dl, dl, B * NC, 1),
+                (k, "dfwh attn_k", "nn", B * Nq, dl, dl, 1), (k, "dW attn_k", "tn", dl, dl, B * Nq, 1),
+                (k, "dW w_hat", "tn", dl, D, B * Nq, 1), (k, "dW s_hat", "tn", dl, D, B, 1),
+                (k, "dW c_hat", "tn", dl, D, B * NC, 1),
+                (k, "dfw", "nn", B * Nq, D, dl, 1), (k, "dfs", "nn", B, D, dl, 1),
+                (k, "dfc", "nn", B * NC, D, dl, 1)]
+
+    shapes = [("K5", "layer-2 projections", "nt", B * Nq, 4 * H, 2 * H, 2)]
+    shapes += layer_fwd("K4")
+    shapes += layer_fwd("K2")
+    shapes += layer_fwd("K3", moment=False) + content_bwd("K3") + [
+        ("K3", "dx1 dx2", "nn", B * N, D, D, 2), ("K3", "dW conv_fb", "tn", D, D, B * N, 1),
+        ("K3", "dW conv_fc", "tn", D, D, B * N, 1), ("K3", "dfb", "nn", B * L, D, D, 1),
+        ("K3", "dfw bk", "nn", B * Nq, D, D, 1), ("K3", "dW bq", "tn", D, D, B * L, 1),
+        ("K3", "dW bk", "tn", D, D, B * Nq, 1)]
+    shapes += content_fwd("K7f") + [("K7f", "conv_fc", "nt", B * N, D, D, 1)]
+    shapes += content_fwd("K7b") + [("K7b", "conv_fc dx2", "nn", B * N, D, D, 1),
+                                     ("K7b", "dW conv_fc", "tn", D, D, B * N, 1)] + content_bwd("K7b")
+    shapes += content_fwd("K10f") + content_fwd("K10b") + content_bwd("K10b")
+    return shapes
+
+
+def gemm_plain(layout: str, A, W, ascale=None, adiv: int = 1, bias=None, pre=None, rmask=None,
+               mask_div: int = 1, post=None, post2=None, post2_div: int = 1,
+               bias_sums: bool = False):
+    """The GEMM's function in torch ops: the product of the (row-scaled) A
+    and W in the layout, then bias, pre, the row mask, post and post2 in
+    that order (layouts nt and nn); gemm_tn returns (C, column sums of the
+    scaled A) with ``bias_sums``."""
+    if ascale is not None:
+        idx = torch.arange(A.shape[0], device=A.device) // adiv
+        A = A * ascale[idx][:, None]
+    if layout == "tn":
+        out = A.t() @ W
+        return (out, A.sum(dim=0)) if bias_sums else out
+    out = A @ (W.t() if layout == "nt" else W)
+    rows = torch.arange(out.shape[0], device=out.device)
+    if bias is not None:
+        out = out + bias
+    if pre is not None:
+        out = out + pre
+    if rmask is not None:
+        out = out * rmask[rows // mask_div][:, None]
+    if post is not None:
+        out = out + post
+    if post2 is not None:
+        out = out + post2[rows // post2_div]
+    return out
+
+
+def _library() -> ctypes.CDLL:
+    lib = load_library("gemm")
+    fn = lib.vml_gemm_f32
+    ints = {1, 2, 3, 4, 6, 8, 10, 12, 15, 17, 19, 21, 22, 23}
+    fn.argtypes = [ctypes.c_int if k in ints else ctypes.c_void_p for k in range(26)]
+    fn.restype = ctypes.c_int
+    lib.vml_gemm_tile_for.argtypes = [ctypes.c_int] * 3
+    lib.vml_gemm_tile_for.restype = ctypes.c_int
+    lib.vml_gemm_splitk.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    lib.vml_gemm_splitk.restype = None
+    lib.vml_gemm_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.vml_gemm_smem_bytes.restype = ctypes.c_size_t
+    lib.vml_gemm_tn_partial_floats.argtypes = [ctypes.c_int] * 3
+    lib.vml_gemm_tn_partial_floats.restype = ctypes.c_size_t
+    return lib
+
+
+def card_plan(layout: str, M: int, N: int, K: int, groups: int = 1) -> Dict[str, int]:
+    """The C host code's plan for one launch, to hold the mirror against."""
+    lib = _library()
+    if layout == "tn":
+        splits, kchunk = ctypes.c_int(), ctypes.c_int()
+        lib.vml_gemm_splitk(M, N, K, ctypes.byref(splits), ctypes.byref(kchunk))
+        return dict(tile=0, smem=lib.vml_gemm_smem_bytes(2, 0), splits=splits.value,
+                    kchunk=kchunk.value, partial_floats=lib.vml_gemm_tn_partial_floats(M, N, K))
+    tile = lib.vml_gemm_tile_for(M, N, groups)
+    return dict(tile=tile, smem=lib.vml_gemm_smem_bytes(LAYOUTS[layout], tile))
+
+
+def plan(layout: str, M: int, N: int, K: int, groups: int = 1) -> Dict[str, int]:
+    """The mirror's plan for one launch, in `card_plan`'s form."""
+    tile = launch_grid(layout, M, N, K, groups)[0]
+    out = dict(tile=tile, smem=smem_bytes(tile, layout))
+    if layout == "tn":
+        splits, kchunk = splitk_for(M, N, K)
+        out.update(splits=splits, kchunk=kchunk, partial_floats=tn_partial_floats(M, N, K))
+    return out
+
+
+def _ld(name: str, t: Optional[torch.Tensor], device) -> int:
+    if t is None:
+        return 0
+    if t.dim() != 2 or t.stride(1) != 1 or t.dtype != torch.float32 or t.device != device:
+        raise ValueError(f"gemm: {name} must be a float32 matrix with unit column stride on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} strides {t.stride()}")
+    return t.stride(0)
+
+
+def gemm(layout: str, A, W, ascale=None, adiv: int = 1, bias=None, pre=None, rmask=None,
+         mask_div: int = 1, post=None, post2=None, post2_div: int = 1, bias_sums: bool = False,
+         tile: Optional[int] = None, out: Optional[torch.Tensor] = None):
+    """One launch of the shared GEMM: layout "nt" (A (M, K), W (N, K)),
+    "nn" (W (K, N)) with the epilogue terms, or "tn" (A (R, M), W (R, N),
+    no epilogue; with ``bias_sums`` also the column sums of the scaled A).
+    Matrices may have any row stride (and any alignment: unaligned operands
+    take the scalar path); ``out`` may be ``pre`` or ``post`` (in place);
+    ``tile`` forces a block tile of nt / nn (an index into TILES)."""
+    if A.device.type == "cpu":
+        return gemm_plain(layout, A, W, ascale, adiv, bias, pre, rmask, mask_div, post, post2,
+                          post2_div, bias_sums)
+    if layout not in LAYOUTS:
+        raise ValueError(f"gemm: layout must be one of {sorted(LAYOUTS)}, got {layout!r}")
+    dev = A.device
+    lda, ldw = _ld("A", A, dev), _ld("W", W, dev)
+    if layout == "tn":
+        R, M = A.shape
+        N, K = W.shape[1], R
+        if W.shape[0] != R or any(t is not None for t in (bias, pre, rmask, post, post2)):
+            raise ValueError("gemm tn: A (R, M), W (R, N), and no epilogue")
+    else:
+        M, K = A.shape
+        N = W.shape[0] if layout == "nt" else W.shape[1]
+        if (W.shape[1] if layout == "nt" else W.shape[0]) != K:
+            raise ValueError(f"gemm {layout}: A {tuple(A.shape)} and W {tuple(W.shape)} differ in K")
+        if layout == "nt" and ascale is not None:
+            raise ValueError("gemm nt takes no ascale")
+    for name, t, shape in (("ascale", ascale, None), ("bias", bias, (N,)), ("rmask", rmask, None)):
+        if t is not None and (t.dim() != 1 or t.dtype != torch.float32 or t.device != dev
+                              or not t.is_contiguous() or (shape and tuple(t.shape) != shape)):
+            raise ValueError(f"gemm: {name} must be a contiguous float32 vector on {dev}")
+    if out is None:
+        out = torch.empty((M, N), device=dev, dtype=torch.float32)
+    ldc = _ld("out", out, dev)
+    if tuple(out.shape) != (M, N) or (layout == "tn" and ldc != N):
+        raise ValueError(f"gemm: out must be ({M}, {N})")
+    lib = _library()
+    partial = colsum = None
+    if layout == "tn":
+        partial = torch.empty(tn_partial_floats(M, N, K), device=dev, dtype=torch.float32)
+        if bias_sums:
+            colsum = torch.empty(M, device=dev, dtype=torch.float32)
+    nul = ctypes.c_void_p(0)
+    p = lambda t: ptr(t) if t is not None else nul   # noqa: E731
+    with torch.cuda.device(dev):
+        err = lib.vml_gemm_f32(
+            stream_of(A), LAYOUTS[layout], M, N, K, ptr(A), lda, p(ascale), adiv, ptr(W), ldw,
+            ptr(out), ldc, p(bias), p(pre), _ld("pre", pre, dev), p(rmask), mask_div, p(post),
+            _ld("post", post, dev), p(post2), _ld("post2", post2, dev), post2_div,
+            -1 if tile is None else tile, p(partial), p(colsum))
+    check(lib, "vml_gemm_f32", err)
+    gemm.launches += 1
+    return (out, colsum) if bias_sums else out
+
+
+gemm.launches = 0

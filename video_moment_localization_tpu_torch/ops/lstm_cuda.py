@@ -13,6 +13,7 @@ kernel or raises. ``bilstm_fused.launches`` counts the launches.
 from __future__ import annotations
 
 import ctypes
+from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,10 +32,56 @@ from video_moment_localization_tpu_torch.ops.cuda_build import (
 _WEIGHTS = ("w_ih", "w_hh", "b_ih", "b_hh")
 
 
+# The recurrence kernel's batch rows per 8-CTA cluster (multiples of
+# ROW_STEP up to MAX_ROWS, csrc/lstm.cu) and its cluster size.
+ROW_STEP = 16
+MAX_ROWS = 96
+CLUSTER = 8
+
+
+def _wslice_bytes(H: int) -> int:
+    return 4 * H * (4 * H // CLUSTER + 1)
+
+
+def lstm_smem_bytes(H: int, rows: int) -> int:
+    """Shared memory of one recurrence CTA (csrc/lstm.cu::layer_smem_bytes):
+    its W_hh slice (H, 4H/8 + 1) and h (rows, H), double-buffered where two
+    copies fit in a block's shared memory."""
+    double = _wslice_bytes(H) + 2 * 4 * rows * H <= MAX_SMEM_BYTES
+    return _wslice_bytes(H) + (2 if double else 1) * 4 * rows * H
+
+
+def max_rows(H: int) -> int:
+    """csrc/lstm.cu::max_rows: the most rows per cluster that fit."""
+    rows = MAX_ROWS
+    while rows > ROW_STEP and lstm_smem_bytes(H, rows) > MAX_SMEM_BYTES:
+        rows -= ROW_STEP
+    return rows
+
+
+def row_choices(H: int) -> Tuple[int, ...]:
+    return tuple(range(ROW_STEP, max_rows(H) + 1, ROW_STEP))
+
+
+def lstm_plan(B: int, H: int, max_active_clusters: Callable[[int], int]) -> Tuple[int, int]:
+    """Mirror of csrc/lstm.cu::plan_for: (rows per cluster, clusters) at
+    batch B, the smallest row choice whose 2 * ceil(B / rows) clusters (two
+    directions) the card holds at once, else the largest;
+    ``max_active_clusters(rows)`` is what ``cudaOccupancyMaxActiveClusters``
+    answers at that choice."""
+    for rows in row_choices(H):
+        clusters = 2 * -(-B // rows)
+        if clusters <= max_active_clusters(rows):
+            break
+    return rows, clusters
+
+
 def _library() -> ctypes.CDLL:
     lib = load_library("lstm")
-    lib.vml_lstm_layer_smem_bytes.argtypes = [ctypes.c_int]
-    lib.vml_lstm_layer_smem_bytes.restype = ctypes.c_size_t
+    lib.vml_lstm_plan.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
+    lib.vml_lstm_plan.restype = ctypes.c_int
+    lib.vml_lstm_max_active_clusters.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.vml_lstm_max_active_clusters.restype = ctypes.c_int
     fn = lib.vml_bilstm2_f32
     fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 19
     fn.restype = ctypes.c_int
@@ -81,10 +128,10 @@ def bilstm_fused(x: torch.Tensor, mask: torch.Tensor, layers: Layers) -> torch.T
     H = _check_inputs(x, mask, layers)
     refuse_grad("bilstm_fused", [x] + [w for layer in layers for d in layer.values()
                                        for w in d.values()])
-    lib = _library()
-    smem = lib.vml_lstm_layer_smem_bytes(H)
+    smem = lstm_smem_bytes(H, ROW_STEP)     # the smallest plan's
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"hidden size {H} needs {smem} B of shared memory per block")
+    lib = _library()
     B, S, _ = x.shape
     p1, p2 = layers
     x = x.contiguous()
@@ -111,3 +158,25 @@ def bilstm_fused(x: torch.Tensor, mask: torch.Tensor, layers: Layers) -> torch.T
 
 
 bilstm_fused.launches = 0
+
+
+def card_plan(B: int, H: int = 256) -> Dict[str, int]:
+    """The plan the kernel takes at batch B on the current card
+    (``vml_lstm_plan``): rows per cluster, clusters, clusters the card holds
+    at once at that choice, and one CTA's shared memory in bytes."""
+    lib = _library()
+    out = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_size_t()]
+    err = lib.vml_lstm_plan(B, H, *[ctypes.byref(v) for v in out])
+    check(lib, "vml_lstm_plan", err)
+    rows, clusters, max_active, smem = (v.value for v in out)
+    return dict(rows=rows, clusters=clusters, max_active_clusters=max_active, smem=smem)
+
+
+def card_max_active_clusters(rows: int, H: int = 256) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the layer kernel at that many
+    rows per cluster on the current card."""
+    lib = _library()
+    n = ctypes.c_int()
+    err = lib.vml_lstm_max_active_clusters(H, rows, ctypes.byref(n))
+    check(lib, "vml_lstm_max_active_clusters", err)
+    return n.value

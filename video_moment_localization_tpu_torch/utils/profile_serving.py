@@ -42,9 +42,9 @@ def profile_forward(loc: MomentLocalizer, B: int, iters: int, rng) -> None:
     qm = (torch.arange(Nq)[None, :] < qlen[:, None]).float()[..., None].to(device)
     lm = torch.ones((B, cfg.L), device=device)
     for _ in range(3):
-        loc._score(vf, vm, qf, qm, lm, 5)
+        loc._score(vf, vm, qf, qm, lm, None, 5)
     torch.cuda.synchronize()
-    profile_and_report(lambda: loc._score(vf, vm, qf, qm, lm, 5), f"B={B}", "forward", iters)
+    profile_and_report(lambda: loc._score(vf, vm, qf, qm, lm, None, 5), f"B={B}", "forward", iters)
 
 
 def profile_and_report(fn, label: str, unit: str, iters: int, top: int = 16) -> None:
