@@ -11,9 +11,11 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
    source, started together) and print the build time; hold the Python
    mirrors of the shared GEMM's plans (block tile, shared memory, split-K,
    partial-buffer floats) for every product of K2-K5, K7 and K10 at the three shipped
-   configs and B=1/16/64/512, and of K5's rows per cluster and shared
-   memory, against their C counterparts on the card; print K5's clusters
-   per wave at B=16/64/512;
+   configs and B=1/16/64/512, of the content-attention pair's tile plan
+   (pairs per pass, passes, blocks per element, shared memory, the
+   backward's partial floats) at every query length of those configs and
+   batches, and of K5's rows per cluster and shared memory, against their C
+   counterparts on the card; print K5's clusters per wave at B=16/64/512;
 2. serving kernel parity at the full Charades width
    (config/charadessta.yml), at B=512, B=64 and at the serving run's buckets
    B=16 and B=8: K5 (fused biLSTM) and K4 (fused SMI stack) against their plain
@@ -31,8 +33,8 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
    masks: K1 (proposal rows) forward and backward (the backward also bit for
    bit against a second launch), K2 (SMI layer forward)
    and K3 (SMI layer backward: all five activation gradients and all 20
-   weight and bias gradients, with and without a dcu cotangent) against
-   their plain versions on the card;
+   weight and bias gradients, with and without a dcu cotangent; also bit for
+   bit against a second launch) against their plain versions on the card;
 6. the training path: ``make_train_step`` at B=64, full width and depth, on
    a seeded synthetic batch (targets from the ported label generators,
    ragged lengths, one padded sample), 3 Adam steps. Every loss is finite,
@@ -92,7 +94,18 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
     (Charades B=16 and B=512) and K5 (B=16 and B=512, one of its two
     problems), and K7's c_hat rows at K=64..1024: ms, TFLOP/s and the share
     of the 67 TFLOP/s fp32 peak, beside ``torch.matmul`` on the same
-    operands with TF32 off.
+    operands with TF32 off;
+15. the content-attention pair alone (``csrc/content_attn.cu``, the device
+    code that K4, K2, K3, K7, K9 and K10 run between the content unit's
+    projections) at Charades B=64 and B=512 and ActivityNet B=64, on the
+    inputs a layer's content unit makes: forward and backward against the
+    plain version, the backward bit for bit
+    against a second launch, times (one call and back to back), the plain
+    version's, the bound (its bytes) and the share of it;
+16. where the redesigned kernels had not been held: K4 at the ActivityNet
+    width at B=512 (4,259,840 clip rows, past 65,535 GEMM row tiles along
+    y) against K4 on slices of 8 of the same batch, and K2 / K3 at L=64 at
+    B=2 and B=8 against their plain versions (K3 also bit for bit).
 
 The proposal kernels K1, K6 and K8 (``csrc/proposal.cuh``,
 ``csrc/proposal_rows.cu``) are one forward and one backward, templated on the
@@ -108,8 +121,14 @@ calls queued back to back (``device_ms``, ``library_device_ms``): the
 device's time per call, without the host time of a wrapper call that a
 single timed call includes while the device waits.
 
+The serving run and the train steps of phases 3, 6, 9 and 12 also count the
+pair's launches by those entry points (the C counters of
+``ops/content_attn_cuda.py::path_launches``) and check them.
+
 Prints a ``{"kernels": [...]}`` line (K4 and K5 also at the ActivityNet
-width), a ``{"gemm": [...]}`` line and the plans, then as the last line
+width; the pair's forward and backward with their launches on the main path
+and their times alone), a ``{"gemm": [...]}`` line and the plans, then as the
+last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is visible or the package is not beside this script.
 """
@@ -149,7 +168,13 @@ K8_BWD_REPLACES = "video_moment_localization_tpu/ops/proposal_pallas.py:121"
 K9_REPLACES = "video_moment_localization_tpu/ops/smin_train_pallas.py:556"
 K10_FWD_REPLACES = "video_moment_localization_tpu/ops/content_pallas.py:173"
 K10_BWD_REPLACES = "video_moment_localization_tpu/ops/content_pallas.py:274"
-SOURCES = ("lstm", "smin_stack", "proposal_rows", "smin_train", "content_train", "gemm")
+PAIR_SRC = "video_moment_localization_tpu_torch/csrc/content_attn.cuh"
+# The content attention inside the JAX layer body (smi_layer_rows, which K4's
+# and K2's Pallas kernels run) and K3's VJP of that body.
+PAIR_FWD_REPLACES = "video_moment_localization_tpu/ops/smin_pallas.py:352"
+PAIR_BWD_REPLACES = K3_REPLACES
+SOURCES = ("lstm", "smin_stack", "proposal_rows", "smin_train", "content_train", "gemm",
+           "content_attn")
 K5_TOL = dict(rtol=1e-4, atol=2e-5)
 K4_TOL = dict(rtol=2e-4, atol=2e-5)
 SCORE_TOL = 1e-4
@@ -186,6 +211,21 @@ QUERIES = ["person opens the door", "a person sits on the couch",
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def reset_pair_counts() -> None:
+    from video_moment_localization_tpu_torch.ops import content_attn_cuda
+
+    content_attn_cuda.reset_path_launches()
+
+
+def pair_counts():
+    """Launches of the content-attention pair's forward and backward by the
+    C entry points of K4, K2, K3, K9, K7 and K10 since the last reset."""
+    from video_moment_localization_tpu_torch.ops import content_attn_cuda
+
+    fwd, bwd = content_attn_cuda.path_launches()
+    return {"CAf": fwd, "CAb": bwd}
 
 
 def card_line() -> str:
@@ -399,10 +439,12 @@ def phase_serving(cfg, seed, rng, tmp):
     reqs = requests(cfg, rng)
     lstm_cuda.bilstm_fused.launches = 0
     smin_cuda.smin_stack_fused.launches = 0
+    reset_pair_counts()
     out = gpu.localize_batch(reqs, top_k=5)
     torch.cuda.synchronize()
     launches = {"K5": lstm_cuda.bilstm_fused.launches,
-                "K4": smin_cuda.smin_stack_fused.launches}
+                "K4": smin_cuda.smin_stack_fused.launches,
+                "CAf": pair_counts()["CAf"]}
     print(f"serving: {len(reqs)} requests, launches {launches}")
     if min(launches.values()) < 1:
         fail(f"a kernel of the path was not launched: {launches}")
@@ -573,6 +615,19 @@ def check_repeatable(first, launch, name):
         fail(f"{name}: two launches differ by up to {float((first - again).abs().max()):.3e}")
 
 
+def check_all_repeatable(first, again, name):
+    """Every output of a backward (its activation gradients, then its list
+    of weight gradients) equal bit for bit to a second launch's."""
+    import torch
+
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip(list(first[:-1]) + list(first[-1]),
+                                   list(again[:-1]) + list(again[-1]))):
+        if not torch.equal(a, b):
+            fail(f"{name}: output {k} differs between two launches by up to "
+                 f"{float((a - b).abs().max()):.3e}")
+
+
 def gradient_set_err(got, want, names, label):
     """Activation gradients held to their own magnitude, weight gradients to
     the largest of the set. Returns (max abs err, max err of its magnitude)."""
@@ -627,6 +682,11 @@ def phase_train_parity(cfg, model, rng, device):
         dcu, dmu, dbu = [randn_like(t, rng) for t in want]
         for cot in (dcu, None):
             got = smin_train_cuda.smi_layer_backward(weights, *ins, cfg.L, cot, dmu, dbu)
+            if cot is not None:
+                check_all_repeatable(got, smin_train_cuda.smi_layer_backward(
+                    weights, *ins, cfg.L, cot, dmu, dbu), f"K3 smi_layer_backward B={B}")
+                print(f"repeatable K3 smi_layer_backward B={B}: 25 gradients of a second "
+                      f"launch equal bit for bit")
             want = smin_train_cuda.smi_layer_backward_plain(weights, *ins, cfg.L, cot, dmu, dbu)
             torch.cuda.synchronize()
             worst, rel = gradient_set_err(got, want, ("dfc", "dfm", "dfb", "dfw", "dfs"),
@@ -763,6 +823,7 @@ def train_mode(config, cfg, label, initial, batch, per_step, device):
     counters = mode_counters()
     for fn in counters.values():
         fn.launches = 0
+    reset_pair_counts()
     losses, plain_losses = [], []
     for k in range(TRAIN_STEPS):
         metrics = step(batch)
@@ -770,7 +831,7 @@ def train_mode(config, cfg, label, initial, batch, per_step, device):
         losses.append(float(metrics["loss"]))
         if not (losses[-1] == losses[-1] and abs(losses[-1]) < float("inf")):
             fail(f"{label} train step {k + 1}: loss {losses[-1]}")
-        launches = {key: fn.launches for key, fn in counters.items()}
+        launches = dict({key: fn.launches for key, fn in counters.items()}, **pair_counts())
         plain_losses.append(float(plain_train_step(cfg, plain_model, plain_opt, batch)))
         if k == 0:
             if tuple(metrics["counts"].shape) != (2, 4) or metrics["counts"].device.type != "cuda":
@@ -788,7 +849,7 @@ def train_mode(config, cfg, label, initial, batch, per_step, device):
                   f"to the plain versions' within {worst:.3e} of the largest magnitude "
                   f"{scale:.3e}")
             del plain_grads
-    want = {key: TRAIN_STEPS * per_step.get(key, 0) for key in counters}
+    want = {key: TRAIN_STEPS * per_step.get(key, 0) for key in launches}
     print(f"{label}: {TRAIN_STEPS} steps at B={TRAIN_BATCH}, losses {losses}, launches "
           f"{ {k: v for k, v in launches.items() if v} }")
     if launches != want:
@@ -819,8 +880,9 @@ def phase_train(config, seed, rng, device):
     torch.manual_seed(seed + 1)
     initial = SMIN(cfg).state_dict()
     batch = {k: v.to(device) for k, v in synthetic_batch(cfg, TRAIN_BATCH, rng).items()}
-    step, model, _, launches = train_mode(config, cfg, "training", initial, batch,
-                                          {"K1f": 1, "K1b": 1, "K2": n, "K3": n}, device)
+    step, model, _, launches = train_mode(
+        config, cfg, "training", initial, batch,
+        {"K1f": 1, "K1b": 1, "K2": n, "K3": n, "CAf": 2 * n, "CAb": n}, device)
     check_eval_step(cfg, model, batch, device, "training")
     return step, batch, launches
 
@@ -1026,16 +1088,10 @@ def phase_anet_parity(cfg, model, rng, device):
         for cot in (dcu, None):
             got = content_train_cuda.content_rows_backward(weights, *ins, cot, dconv)
             if cot is not None:
-                again = content_train_cuda.content_rows_backward(weights, *ins, cot, dconv)
-                torch.cuda.synchronize()
-                for k, (a, b) in enumerate(zip(list(got[:4]) + list(got[4]),
-                                               list(again[:4]) + list(again[4]))):
-                    if not torch.equal(a, b):
-                        fail(f"K7 content_rows_backward B={B}: output {k} differs between "
-                             f"two launches by up to {float((a - b).abs().max()):.3e}")
+                check_all_repeatable(got, content_train_cuda.content_rows_backward(
+                    weights, *ins, cot, dconv), f"K7 content_rows_backward B={B}")
                 print(f"repeatable K7 content_rows_backward B={B}: 18 gradients of a second "
                       f"launch equal bit for bit")
-                del again
             want = content_train_cuda.content_rows_backward_plain(weights, *ins, cot, dconv)
             torch.cuda.synchronize()
             worst, rel = gradient_set_err(got, want, ("dfc", "dfbar", "dfw", "dfs"),
@@ -1117,17 +1173,19 @@ def phase_anet_train(config, seed, rng, device):
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
+    reset_pair_counts()
     losses = []
     for k in range(TRAIN_STEPS):
         losses.append(float(step(batch)["loss"]))
         torch.cuda.synchronize()
         if not (losses[-1] == losses[-1] and abs(losses[-1]) < float("inf")):
             fail(f"ActivityNet train step {k + 1}: loss {losses[-1]}")
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = dict({k: fn.launches for k, fn in counters.items()}, **pair_counts())
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_layers = cfg.num_smi_layers
-    want = dict({k: 0 for k in counters}, K6f=TRAIN_STEPS, K6b=TRAIN_STEPS,
-                K7f=TRAIN_STEPS * n_layers, K7b=TRAIN_STEPS * n_layers)
+    want = dict({k: 0 for k in launches}, K6f=TRAIN_STEPS, K6b=TRAIN_STEPS,
+                K7f=TRAIN_STEPS * n_layers, K7b=TRAIN_STEPS * n_layers,
+                CAf=2 * TRAIN_STEPS * n_layers, CAb=TRAIN_STEPS * n_layers)
     print(f"ActivityNet training: {TRAIN_STEPS} steps at B={TRAIN_BATCH}, losses {losses}, "
           f"launches { {k: v for k, v in launches.items() if v} }, peak device memory "
           f"{peak:.3f} GiB")
@@ -1142,7 +1200,8 @@ def phase_anet_train(config, seed, rng, device):
 
     eval_err = check_eval_step(cfg, model, batch, device, "ActivityNet training")
     torch.cuda.empty_cache()
-    return step, batch, {k: launches[k] for k in ("K6f", "K6b", "K7f", "K7b")}, peak, eval_err
+    return (step, batch, {k: launches[k] for k in ("K6f", "K6b", "K7f", "K7b", "CAf", "CAb")},
+            peak, eval_err)
 
 
 def phase_anet_times(cfg, model, step, batch, rng, device):
@@ -1408,7 +1467,8 @@ def phase_modes(config, seed, rng, device):
     out = {}
     for mode, c, batch, per_step in (
             ("dense", dense_cfg, dense_batch, {"K8f": 1, "K8b": 1}),
-            ("compat", compat_cfg, dense_batch, {"K6f": 1, "K6b": 1, "K10f": n, "K10b": n})):
+            ("compat", compat_cfg, dense_batch,
+             {"K6f": 1, "K6b": 1, "K10f": n, "K10b": n, "CAf": 2 * n, "CAb": n})):
         step, model, losses, launches = train_mode(config, c, mode, initial, batch, per_step,
                                                    device)
         check_mode_eval(c, model, batch, mode)
@@ -1419,7 +1479,7 @@ def phase_modes(config, seed, rng, device):
     try:
         step, model, losses, launches = train_mode(
             config, cfg, "fused_fwd", initial, packed_batch,
-            {"K1f": 1, "K1b": 1, "K9": 1, "K3": n}, device)
+            {"K1f": 1, "K1b": 1, "K9": 1, "K3": n, "CAf": 2 * n, "CAb": n}, device)
         check_mode_eval(cfg, model, packed_batch, "fused_fwd")
     finally:
         if previous is None:
@@ -1429,7 +1489,8 @@ def phase_modes(config, seed, rng, device):
     out["fused_fwd"] = (step, model, packed_batch, launches, losses)
     # The same steps through one K2 per layer: the same bits.
     _, _, layer_losses, _ = train_mode(config, cfg, "per-layer", initial, packed_batch,
-                                       {"K1f": 1, "K1b": 1, "K2": n, "K3": n}, device)
+                                       {"K1f": 1, "K1b": 1, "K2": n, "K3": n, "CAf": 2 * n,
+                                        "CAb": n}, device)
     if losses != layer_losses:
         fail(f"the K9 route's losses {losses} differ from the per-layer route's {layer_losses}")
     print(f"fused_fwd: losses equal bit for bit to the per-layer route's {layer_losses}")
@@ -1594,13 +1655,28 @@ PLAN_BATCHES = (1, 16, 64, 512)
 
 
 def phase_plans(configs):
-    """Holds the Python mirrors of the GEMM's and K5's host-side plans
-    against the C code on this card. Returns K5's plan at B=16/64/512."""
-    from video_moment_localization_tpu_torch.ops import gemm_cuda, lstm_cuda
+    """Holds the Python mirrors of the GEMM's, the content-attention pair's
+    and K5's host-side plans against the C code on this card. Returns K5's
+    plan at B=16/64/512."""
+    from video_moment_localization_tpu_torch.ops import content_attn_cuda, gemm_cuda, lstm_cuda
 
-    held = 0
+    held = pair_held = 0
     for name, cfg in configs:
+        N = cfg.L * (cfg.L + 1) // 2
         for B in PLAN_BATCHES:
+            for Nq in range(1, cfg.max_query_length + 1):
+                for backward in (False, True):
+                    args = (B, N, cfg.C, Nq, cfg.dl, backward)
+                    got = content_attn_cuda.card_plan(*args)
+                    want = content_attn_cuda.plan(*args)
+                    if got != want or not want["smem"]:
+                        fail(f"pair plan {name} B={B} Nq={Nq} backward={backward}: C {got}, "
+                             f"Python mirror {want}")
+                    pair_held += 1
+                got = content_attn_cuda.card_partial_floats(*args[:5])
+                if got != content_attn_cuda.partial_floats(*args[:5]):
+                    fail(f"pair partial floats {name} B={B} Nq={Nq}: C {got}, Python mirror "
+                         f"{content_attn_cuda.partial_floats(*args[:5])}")
             for kernel, prod, layout, M, N, K, groups in gemm_cuda.model_gemm_shapes(cfg, B):
                 got = gemm_cuda.card_plan(layout, M, N, K, groups)
                 want = gemm_cuda.plan(layout, M, N, K, groups)
@@ -1619,9 +1695,18 @@ def phase_plans(configs):
                  f"{clusters}, smem {smem}")
         plan["waves"] = -(-plan["clusters"] // plan["max_active_clusters"])
         plans[B] = plan
-    print(f"plans: {held} GEMM launches of K2-K5, K7, K10 (3 configs, B={PLAN_BATCHES}) and K5 "
-          f"at B={sorted(plans)} equal to their Python mirrors; K5 clusters of 8 CTAs the card "
-          f"holds at once by rows per cluster: {active}")
+    print(f"plans: {held} GEMM launches of K2-K5, K7, K10 (3 configs, B={PLAN_BATCHES}), "
+          f"{pair_held} content-attention pair plans (every Nq, forward and backward, with "
+          f"the backward's partial floats) and K5 at B={sorted(plans)} equal to their Python "
+          f"mirrors; K5 clusters of 8 CTAs the card holds at once by rows per cluster: "
+          f"{active}")
+    for name, cfg in configs:
+        N = cfg.L * (cfg.L + 1) // 2
+        for backward in (False, True):
+            p = content_attn_cuda.plan(64, N, cfg.C, cfg.max_query_length, cfg.dl, backward)
+            print(f"pair plan {name} B=64 {'backward' if backward else 'forward'}: {p['pp']} "
+                  f"pairs per pass, {p['passes']} passes, {p['tiles']} blocks per element, "
+                  f"{p['smem']} B of shared memory")
     for B in (16, 64, 512):
         p = plans[B]
         print(f"K5 plan B={B}: {p['rows']} rows per cluster, {p['clusters']} clusters, "
@@ -1679,6 +1764,154 @@ def phase_gemm(cfg, anet_cfg, device):
         del A, W, out
     torch.cuda.empty_cache()
     return rows
+
+
+# ------------------------------------------------------------------------- #
+# The content-attention pair alone, and the kernels that run it where they
+# had not been held
+# ------------------------------------------------------------------------- #
+PAIR_CELLS = (("charadessta", 64), ("charadessta", 512), ("activitynet", 64))
+
+
+def pair_inputs(cfg, unit, B, rng, device):
+    """(h, q, khat, fwh, fsh, query_mask, vmask) of the pair as the content
+    unit ``unit`` makes them from a layer's seeded inputs (`layer_inputs`,
+    one video cut to L/2 snippets, one query of one word)."""
+    from video_moment_localization_tpu_torch.ops.content_attn_cuda import unit_projections
+
+    fc, _, _, fw, fs, qmask, _, vmask = layer_inputs(cfg, B, rng, device, pin=True)
+    return [*unit_projections(unit, fc, fw, fs, qmask, vmask), qmask, vmask]
+
+
+def pair_bound(cfg, B, backward):
+    """The pair's least time: its bytes (rows of h, q in and fcc out; h, q,
+    dfcc in and dh, dq out backward; the element's khat, fwh, fsh and masks;
+    dfwh, dkhat, dfsh out) against its operations (per clip row: 4 Nq dl +
+    4 C dl forward, 12 Nq dl + 8 C dl backward with the recompute)."""
+    N, C, Nq, dl = cfg.L * (cfg.L + 1) // 2, cfg.C, cfg.max_query_length, cfg.dl
+    rows = B * N * C
+    shared = 4 * B * (2 * Nq * dl + dl + Nq + N)
+    if backward:
+        return bound(rows * (12 * Nq * dl + 8 * C * dl), 4 * 5 * rows * dl + 2 * shared)
+    return bound(rows * (4 * Nq * dl + 4 * C * dl), 4 * 3 * rows * dl + shared)
+
+
+def phase_pair(configs, rng, device):
+    """The pair alone (csrc/content_attn.cu) at Charades B=64 and B=512 and
+    ActivityNet B=64, on the inputs a layer's content unit gives it (the
+    projections of a seeded model): forward and backward against the plain
+    version, the
+    backward bit for bit against a second launch, then times (one call, and
+    back to back), the plain version's, and the bytes bound with its share.
+    Returns {cell: {"f": ..., "b": ...}} and the largest errors."""
+    import torch
+
+    from video_moment_localization_tpu_torch.models.smin import SMIN
+    from video_moment_localization_tpu_torch.ops import content_attn_cuda as ca
+
+    res, errs = {}, {"CAf": 0.0, "CAb": 0.0, "CAb_rel": 0.0}
+    for name, B in PAIR_CELLS:
+        cfg = configs[name]
+        unit = SMIN(cfg).to(device).smis[1].content_unit
+        ins = pair_inputs(cfg, unit, B, rng, device)
+        got = ca.content_attn_forward(*ins)
+        e = max_err([got], [ca.content_attn_plain(*ins)], K4_TOL, f"pair forward {name} B={B}")
+        errs["CAf"] = max(errs["CAf"], e)
+        dfcc = randn_like(got, rng)
+        del got
+        got = ca.content_attn_backward(*ins, dfcc)
+        again = ca.content_attn_backward(*ins, dfcc)
+        torch.cuda.synchronize()
+        for k, (a, b) in enumerate(zip(got, again)):
+            if not torch.equal(a, b):
+                fail(f"pair backward {name} B={B}: output {k} differs between two launches by "
+                     f"up to {float((a - b).abs().max()):.3e}")
+        del again
+        want = ca.content_attn_backward_plain(*ins, dfcc)
+        worst = rel = 0.0
+        for g, w, out in zip(got, want, ("dh", "dq", "dfwh", "dkhat", "dfsh")):
+            scale = float(w.abs().max())
+            err = grad_err(g, w, scale, f"pair backward {name} B={B} {out}")
+            worst, rel = max(worst, err), max(rel, err / scale)
+        errs["CAb"], errs["CAb_rel"] = max(errs["CAb"], worst), max(errs["CAb_rel"], rel)
+        print(f"parity pair {name} B={B}: forward max abs err {e:.3e} (tolerance {K4_TOL}); "
+              f"backward 5 gradients max abs err {worst:.3e}, {rel:.3e} of the magnitude, a "
+              f"second launch equal bit for bit")
+        del got, want
+        torch.cuda.empty_cache()
+        cell = res[f"{name}_b{B}"] = {}
+        for key, fn, plain, backward in (
+                ("f", lambda: ca.content_attn_forward(*ins),
+                 lambda: ca.content_attn_plain(*ins), False),
+                ("b", lambda: ca.content_attn_backward(*ins, dfcc),
+                 lambda: ca.content_attn_backward_plain(*ins, dfcc), True)):
+            b_ms, b_by = pair_bound(cfg, B, backward)
+            r = cell[key] = dict(
+                ms=cuda_ms(fn, iters=9), plain_ms=cuda_ms(plain, warmup=1, iters=3),
+                device_ms=cuda_ms_back_to_back(fn, launches=10, reps=3), library_ms=None,
+                bound_ms=b_ms, bound_by=b_by)
+            r["bound_share"] = b_ms / r["device_ms"]
+            print(f"time pair {'backward' if backward else 'forward'} {name} B={B}: kernel "
+                  f"{r['ms']:.4f} ms, back to back {r['device_ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"{r['bound_share'] * 100:.1f} % of the bound back to back")
+        del ins, dfcc
+        torch.cuda.empty_cache()
+    return res, errs
+
+
+def phase_unheld(anet_cfg, rng, device):
+    """K4 at the ActivityNet width at B=512 (4,259,840 clip rows, past the
+    4,194,240 rows of 65,535 GEMM tiles along y), held to K4 on slices of 8
+    of the same batch; K2 and K3 at L=64 at B=2 and B=8 against their plain
+    versions, K3 also bit for bit against a second launch."""
+    import torch
+
+    from video_moment_localization_tpu_torch.models.smin import SMIN, block_weights
+    from video_moment_localization_tpu_torch.ops import smin_cuda, smin_train_cuda
+
+    cfg = anet_cfg
+    model = SMIN(cfg).to(device).eval()
+    B = 512
+    ins = stack_inputs(cfg, B, rng, device, pin=True)
+    got = smin_cuda.smin_stack_fused(model, cfg, *ins)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    worst = 0.0
+    for lo in range(0, B, 8):
+        want = smin_cuda.smin_stack_fused(model, cfg, *[t[lo:lo + 8].contiguous() for t in ins])
+        worst = max(worst, max_err([g[lo:lo + 8] for g in got], want, K4_TOL,
+                                   f"K4 ActivityNet B={B} rows {lo}-{lo + 7}"))
+    print(f"held K4 ActivityNet B={B} ({B * cfg.L * (cfg.L + 1) // 2 * cfg.C:,} clip rows): "
+          f"equal to K4 on slices of 8 within {worst:.3e} (tolerance {K4_TOL})")
+    del got, ins
+    torch.cuda.empty_cache()
+
+    weights = [w.detach() for w in block_weights(model.smis[1])]
+    errs = {"K4_b512": worst, "K2": 0.0, "K3": 0.0, "K3_rel": 0.0}
+    for B in (2, 8):
+        ins = layer_inputs(cfg, B, rng, device, pin=True)
+        got = smin_train_cuda.smi_layer_forward(weights, *ins, cfg.L)
+        want = smin_train_cuda.smi_layer_plain(weights, *ins, cfg.L)
+        e = max_err(got, want, K4_TOL, f"K2 at L=64 B={B}")
+        dcu, dmu, dbu = [randn_like(t, rng) for t in want]
+        got = smin_train_cuda.smi_layer_backward(weights, *ins, cfg.L, dcu, dmu, dbu)
+        check_all_repeatable(got, smin_train_cuda.smi_layer_backward(
+            weights, *ins, cfg.L, dcu, dmu, dbu), f"K3 at L=64 B={B}")
+        want = smin_train_cuda.smi_layer_backward_plain(weights, *ins, cfg.L, dcu, dmu, dbu)
+        w3, rel = gradient_set_err(got, want, ("dfc", "dfm", "dfb", "dfw", "dfs"),
+                                   f"K3 at L=64 B={B}")
+        print(f"held K2 / K3 at L=64 B={B}: K2 max abs err {e:.3e} (tolerance {K4_TOL}); K3 "
+              f"25 gradients max abs err {w3:.3e}, {rel:.3e} of the magnitude (rtol "
+              f"{GRAD_RTOL}, atol {GRAD_ATOL_REL} of the magnitude), a second launch equal bit "
+              f"for bit")
+        errs["K2"], errs["K3"] = max(errs["K2"], e), max(errs["K3"], w3)
+        errs["K3_rel"] = max(errs["K3_rel"], rel)
+        del ins, got, want
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    return errs
 
 
 def back_to_back(r):
@@ -1761,6 +1994,9 @@ def main(argv=None) -> int:
     del model
     torch.cuda.empty_cache()
     gemm_rows = phase_gemm(cfg, anet.model, device)
+    pair_times, pair_errs = phase_pair({"charadessta": cfg, "activitynet": anet.model}, rng,
+                                       device)
+    unheld_errs = phase_unheld(anet.model, rng, device)
 
     kernels = []
     for key, name, src, rep, err in (
@@ -1799,6 +2035,28 @@ def main(argv=None) -> int:
         kernels[-1].update(back_to_back(r))
     kernels[-1]["max_err_of_magnitude"] = train_errs["K3_rel"]
     kernels[-1]["ms_without_dcu"] = train_times["K3_no_dcu_ms"]
+    kernels[-1]["held_l64"] = {k: unheld_errs[k] for k in ("K2", "K3", "K3_rel")}
+    kernels[1]["max_abs_err_activitynet_b512"] = unheld_errs["K4_b512"]
+    # The content-attention pair, which K4, K2, K3, K7, K9 and K10 run inside
+    # their entry points: launches by those entry points on the main path
+    # (3 train steps; the serving run for the forward), times alone.
+    for key, name, rep in (("CAf", "content_attn_forward", PAIR_FWD_REPLACES),
+                           ("CAb", "content_attn_backward", PAIR_BWD_REPLACES)):
+        cells = {c: r[key[-1]] for c, r in pair_times.items()}
+        main_cell = cells["charadessta_b64"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": PAIR_SRC, "replaces": rep,
+            "launches": train_launches[key], "max_abs_err": pair_errs[key],
+            "ms": main_cell["ms"], "plain_ms": main_cell["plain_ms"],
+            "bound_ms": main_cell["bound_ms"], "bound_by": main_cell["bound_by"],
+            "library_ms": None, "batch": TRAIN_BATCH, "device_ms": main_cell["device_ms"],
+            "bound_share": main_cell["bound_share"],
+            "cells": {c: r for c, r in cells.items() if c != "charadessta_b64"},
+            "inside": ["K4", "K2", "K3", "K7", "K9", "K10"] if key == "CAf"
+            else ["K3", "K7", "K10"],
+        })
+    kernels[-2]["launches_serving"] = launches["CAf"]
+    kernels[-1]["max_err_of_magnitude"] = pair_errs["CAb_rel"]
     for key, name, src, rep in (
             ("K6f", "proposal_packed_forward", PROPOSAL_SRC, K6_FWD_REPLACES),
             ("K6b", "proposal_packed_backward", PROPOSAL_SRC, K6_BWD_REPLACES),

@@ -21,6 +21,7 @@ from video_moment_localization_tpu_torch.inference import MomentLocalizer
 from video_moment_localization_tpu_torch.models.lstm import BiLSTMParams, lstm_layers
 from video_moment_localization_tpu_torch.models.smin import SMIN, block_weights
 from video_moment_localization_tpu_torch.ops import (
+    content_attn_cuda,
     content_cuda,
     content_train_cuda,
     gemm_cuda,
@@ -842,3 +843,151 @@ def test_content_rows_backward_is_repeatable(card):
     torch.cuda.synchronize()
     for a, b in zip(list(first[:4]) + list(first[4]), list(second[:4]) + list(second[4])):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------- #
+# The content-attention pair (csrc/content_attn.cuh) alone, and the kernels
+# that run it at the shapes where they had not been held.
+# --------------------------------------------------------------------------- #
+def _unit_normal_pair_inputs(cfg, B, seed, device):
+    """(h, q, khat, fwh, fsh, query_mask, vmask) of the pair drawn from unit
+    normals: h masked by the pair mask (one video of half the snippets), fwh
+    by the query mask (one query of no valid word where B > 1)."""
+    g = torch.Generator().manual_seed(seed)
+    N, Nq, C, dl = cfg.L * (cfg.L + 1) // 2, cfg.max_query_length, cfg.C, cfg.dl
+    qlen = torch.randint(0, Nq + 1, (B,), generator=g)
+    qlen[0] = Nq
+    if B > 1:
+        qlen[1] = 0
+    nlen = torch.randint(1, cfg.L + 1, (B,), generator=g)
+    nlen[-1] = max(1, cfg.L // 2)
+    qmask = (torch.arange(Nq)[None, :] < qlen[:, None]).float()[..., None]
+    vmask = packed_valid_mask((torch.arange(cfg.L)[None, :] < nlen[:, None]).float())
+    h = torch.randn(B, N, C, dl, generator=g) * vmask[..., None, None]
+    fwh = torch.randn(B, Nq, dl, generator=g) * qmask
+    ins = (h, torch.randn(B, N, C, dl, generator=g), torch.randn(B, Nq, dl, generator=g), fwh,
+           torch.randn(B, dl, generator=g), qmask, vmask)
+    return [t.to(device).contiguous() for t in ins]
+
+
+def _pair_inputs(cfg, B, seed, device):
+    """The pair's inputs as a layer's content unit makes them: the
+    projections of a seeded model's second block applied to the carry of
+    `_layer_inputs` (ragged videos and queries, a query of no valid word)."""
+    torch.manual_seed(seed)
+    unit = SMIN(cfg).to(device).smis[1].content_unit
+    fc, _, _, fw, fs, qmask, _, vmask = _layer_inputs(cfg, B, seed, device)
+    with torch.no_grad():
+        return [*content_attn_cuda.unit_projections(unit, fc, fw, fs, qmask, vmask), qmask, vmask]
+
+
+@pytest.mark.parametrize("cfg,B", [(TINY, 3), (ODD, 7), (ROUTED, 2), (CHARADES, 5),
+                                   (ACTIVITYNET, 2), (TACOS, 2)])
+def test_content_attn_kernels_match_plain(card, cfg, B):
+    """The pair's forward (fcc) and backward (dh, dq, dfwh, dkhat, dfsh)
+    against the plain version on the inputs of the path; ODD takes the
+    scalar copies, ROUTED's C=9 passes whose rows are no multiple of 4."""
+    ins = _pair_inputs(cfg, B, seed=B, device=card)
+    before = (content_attn_cuda.content_attn_forward.launches,
+              content_attn_cuda.content_attn_backward.launches)
+    got = content_attn_cuda.content_attn_forward(*ins)
+    want = content_attn_cuda.content_attn_plain(*ins)
+    torch.testing.assert_close(got, want, **STACK_TOL)
+    dfcc = torch.randn(got.shape, generator=torch.Generator().manual_seed(7)).to(card)
+    got = content_attn_cuda.content_attn_backward(*ins, dfcc)
+    want = content_attn_cuda.content_attn_backward_plain(*ins, dfcc)
+    torch.cuda.synchronize()
+    assert (content_attn_cuda.content_attn_forward.launches,
+            content_attn_cuda.content_attn_backward.launches) == (before[0] + 1, before[1] + 1)
+    for g_, w_, name in zip(got, want, ("dh", "dq", "dfwh", "dkhat", "dfsh")):
+        _assert_grad_close(g_, w_, name)
+
+
+@pytest.mark.parametrize("cfg,B", [(CHARADES, 5), (ACTIVITYNET, 2)])
+def test_content_attn_backward_on_unit_normals_is_as_close_to_float64(card, cfg, B):
+    """On unit-normal inputs the clip softmax saturates and the word
+    gradients cancel, so the plain version in fp32 also lies outside K3's
+    tolerance from float64 there. The kernel stays within 4 times the plain
+    fp32 version's own distance from float64."""
+    ins = _unit_normal_pair_inputs(cfg, B, seed=B, device=card)
+    dfcc = torch.randn(ins[0].shape, generator=torch.Generator().manual_seed(7)).to(card)
+    got = content_attn_cuda.content_attn_backward(*ins, dfcc)
+    plain = content_attn_cuda.content_attn_backward_plain(*ins, dfcc)
+    exact = content_attn_cuda.content_attn_backward_plain(*[t.double() for t in ins],
+                                                          dfcc.double())
+    for g_, p_, e_, name in zip(got, plain, exact, ("dh", "dq", "dfwh", "dkhat", "dfsh")):
+        err = float((g_.double() - e_).abs().max())
+        assert err <= 4 * float((p_.double() - e_).abs().max()), name
+
+
+def test_content_attn_plan_matches_its_mirror(card):
+    for cfg in (CHARADES, ACTIVITYNET, TACOS, TINY, ODD, ROUTED):
+        N = cfg.L * (cfg.L + 1) // 2
+        for B in (1, 16, 64, 512):
+            for backward in (False, True):
+                args = (B, N, cfg.C, cfg.max_query_length, cfg.dl)
+                assert content_attn_cuda.card_plan(*args, backward) == \
+                    content_attn_cuda.plan(*args, backward)
+            assert content_attn_cuda.card_partial_floats(*args) == \
+                content_attn_cuda.partial_floats(*args)
+
+
+@pytest.mark.parametrize("cfg", [CHARADES, ACTIVITYNET])
+def test_content_attn_backward_is_repeatable(card, cfg):
+    """The pair's backward at B=64 twice: the same bits (each tile's sums
+    in row order, the tiles' partials in tile order, no atomics)."""
+    ins = _pair_inputs(cfg, 64, seed=64, device=card)
+    dfcc = torch.randn(ins[0].shape, generator=torch.Generator().manual_seed(3)).to(card)
+    first = content_attn_cuda.content_attn_backward(*ins, dfcc)
+    second = content_attn_cuda.content_attn_backward(*ins, dfcc)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B", [2, 8])
+def test_smi_layer_kernels_at_the_activitynet_width(card, B):
+    """K2 and K3 at L=64 (2,080 pairs, Nq=20) against their plain versions,
+    and K3 twice with the same bits."""
+    cfg = ACTIVITYNET
+    torch.manual_seed(B)
+    weights = [w.detach() for w in block_weights(SMIN(cfg).to(card).smis[1])]
+    ins = _layer_inputs(cfg, B, seed=B, device=card)
+    with torch.no_grad():
+        got = smin_train_cuda.smi_layer_forward(weights, *ins, cfg.L)
+        want = smin_train_cuda.smi_layer_plain(weights, *ins, cfg.L)
+    for g_, w_, name in zip(got, want, ("cu", "mu", "bu")):
+        torch.testing.assert_close(g_, w_, **STACK_TOL, msg=lambda m: f"{name}: {m}")
+    gen = torch.Generator().manual_seed(100 + B)
+    dcu, dmu, dbu = [torch.randn(t.shape, generator=gen).to(card) for t in want]
+    got = smin_train_cuda.smi_layer_backward(weights, *ins, cfg.L, dcu, dmu, dbu)
+    again = smin_train_cuda.smi_layer_backward(weights, *ins, cfg.L, dcu, dmu, dbu)
+    want = smin_train_cuda.smi_layer_backward_plain(weights, *ins, cfg.L, dcu, dmu, dbu)
+    torch.cuda.synchronize()
+    for g_, w_, name in zip(got[:5], want[:5], ("dfc", "dfm", "dfb", "dfw", "dfs")):
+        _assert_grad_close(g_, w_, name)
+    scale = max(float(w_.abs().max()) for w_ in want[5])
+    for k, (g_, w_) in enumerate(zip(got[5], want[5])):
+        _assert_grad_close(g_, w_, f"weight gradient {k}", scale)
+    for a, b in zip(list(got[:5]) + list(got[5]), list(again[:5]) + list(again[5])):
+        assert torch.equal(a, b)
+
+
+def test_smin_stack_past_the_y_grid_limit(card):
+    """K4 at the ActivityNet width at B=512: 4,259,840 clip rows, past the
+    4,194,240 rows of 65,535 GEMM tiles along y (about 37 GB of workspace).
+    Elements are independent, so the batch is held to K4 on slices of 8."""
+    cfg = ACTIVITYNET
+    torch.manual_seed(512)
+    model = SMIN(cfg).to(card).eval()
+    ins = _stack_inputs(cfg, 512, seed=512, device=card)
+    with torch.no_grad():
+        got = smin_cuda.smin_stack_fused(model, cfg, *ins)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        for lo in range(0, 512, 8):
+            want = smin_cuda.smin_stack_fused(model, cfg, *[t[lo:lo + 8].contiguous()
+                                                            for t in ins])
+            for g_, w_ in zip(got, want):
+                assert bool(torch.isfinite(g_[lo:lo + 8]).all())
+                torch.testing.assert_close(g_[lo:lo + 8], w_, **STACK_TOL)

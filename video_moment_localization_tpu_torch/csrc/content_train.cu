@@ -142,8 +142,8 @@ size_t vml_content_rows_workspace_floats(int B, int N, int C, int Nq, int D, int
 // Largest dynamic shared memory of the forward and backward kernels, for the
 // wrapper's admission check against the 227 KB a block may have.
 size_t vml_content_rows_smem_bytes(int C, int Nq, int dl) {
-    const size_t a = vml::content_smem_bytes(C, Nq, dl);
-    const size_t b = vml::content_bwd_smem_bytes(C, Nq, dl);
+    const size_t a = vml::content_attn_smem_bytes(1, C, Nq, dl, false);
+    const size_t b = vml::content_attn_smem_bytes(1, C, Nq, dl, true);
     return a > b ? a : b;
 }
 

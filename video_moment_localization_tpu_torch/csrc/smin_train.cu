@@ -33,15 +33,15 @@
 //     both sums); dcut[n, c] = dcu[n, c] + dx2[n] / C (dcu_total_kernel; a
 //     null dcu is the top layer's zero cotangent); dfm = dmu.
 //   ContentUnit  cu = c_out(fcc) * vm + fc + fbar. dfcc = (dcut * vm) Wco.
-//     content_attn_bwd_kernel (one block per (element, pair)) recomputes the
-//     word attention p, f_cq = g and the clip attention P in shared memory
-//     and backpropagates fcc = (P * vm) h, P = softmax(g g^T / sqrt(dl))
-//     (g enters twice), g = h * (a * vm + fsh), a = p fwh, p = softmax of
-//     the -1e9-masked q khat^T / sqrt(dl) (no gradient through a masked
-//     logit): it writes dh (the A and g paths), dq, da, p, ds and the
-//     pair's share of dfsh. dfwh[m] = sum_rows p[r, m] da[r] and dkhat[m] =
-//     sum_rows ds[r, m] q[r] reduce over the element's N * C rows in
-//     content_reduce_kernel (one block per (element, word)), with dfsh. Then
+//     content_attn_bwd_kernel (content_attn.cuh; a block per tile of an
+//     element's pairs) recomputes the word attention p, f_cq = g and the
+//     clip attention P in shared memory and backpropagates fcc = (P * vm) h,
+//     P = softmax(g g^T / sqrt(dl)) (g enters twice), g = h * (a * vm +
+//     fsh), a = p fwh, p = softmax of the -1e9-masked q khat^T / sqrt(dl) (no
+//     gradient through a masked logit): it writes dh (the A and g paths) and
+//     dq, and sums dfwh[m] = sum_rows p[r, m] da[r], dkhat[m] = sum_rows
+//     ds[r, m] q[r] and dfsh = sum_rows dg[r] h[r] over its tile's rows;
+//     content_partial_reduce_kernel adds the tiles' partials in order. Then
 //     the projections: dh += dq Wcq, masked by vm; dfwh += dkhat Wck, masked
 //     by qmask; dfc = dcut + dh Wch; dfw += dfwh Wwh; dfs += dfsh Wsh.
 //   BoundaryUnit  bu[i] = (A[i] fb) * lm[i] + fb[i] + sum_{j >= i} A[i, j]
@@ -54,8 +54,9 @@
 //     reduces dbq, dbk and the value-path share of dfw over rows / words;
 //     then dfb += dbq Wbq, dfw += dbk Wbk.
 //   Gate  fbar = sigmoid(fm * fs) * fm, dfbar[n] = A[i_n, j_n] G[i_n] +
-//     sum_c dcut[n, c]. gate_bwd_kernel (one thread per (element, d)) loops
-//     over the pairs, writes dfm and sums dfs over them.
+//     sum_c dcut[n, c]. gate_bwd_kernel (a thread per 4 columns of an
+//     element and a split of its pairs) writes dfm and its split's share of
+//     dfs; gate_dfs_kernel adds the splits in order.
 //   The ContentUnit's kernels and their sequence are in content_bwd.cuh,
 //   shared with the content-unit backward of content_train.cu.
 //   Weight gradients dW = dY^T X (gemm_tn) reduce over up to B * N * C rows
@@ -286,47 +287,130 @@ __global__ void boundary_proj_bwd_kernel(int L, int Nq, int D, const float* __re
     }
 }
 
-// grid (B, ceil(D / blockDim)), one thread per (element, d) over the pairs:
+// The gate's backward over an element's pairs, split along the pairs so
+// that the card fills (`gate_bwd_splits`): block (column block, split) of
+// element b gives a thread V consecutive columns d (16-byte loads when V is
+// 4) and the pairs [n_begin, n_end) of its split, in order:
 //   dfbar[n] = A[i_n, j_n] * G[i_n] + sum_c dcut[n, c]
 //   dfm[n]   = dmu[n] + dfbar[n] * (s + z * s * (1 - s)),  z = fm * fs,
 //                                                          s = sigmoid(z)
-//   dfs      = sum_n dfbar[n] * fm[n]^2 * s * (1 - s) + sum_i dfs_b[i]
-// (the s_hat path of dfs is added by the caller's GEMM).
-__global__ void gate_bwd_kernel(int L, int C, int D, const float* __restrict__ fm,
-                                const float* __restrict__ fs, const float* __restrict__ dmu,
-                                const float* __restrict__ dcut, const float* __restrict__ Ab,
-                                const float* __restrict__ G, const float* __restrict__ dfs_b,
-                                float* __restrict__ dfm, float* __restrict__ dfs) {
+// and writes its split's share of dfs, sum_n dfbar[n] * fm[n]^2 * s * (1 -
+// s), to part[split, b]; gate_dfs_kernel adds the splits in order.
+constexpr int kGateThreads = 128;
+constexpr int kGateMaxSplits = 32;
+
+template <int V>
+__device__ __forceinline__ void load_v(const float* __restrict__ p, float (&v)[V]) {
+    if constexpr (V == 4) {
+        const float4 t = *reinterpret_cast<const float4*>(p);
+        v[0] = t.x;
+        v[1] = t.y;
+        v[2] = t.z;
+        v[3] = t.w;
+    } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k) v[k] = p[k];
+    }
+}
+
+template <int V>
+__device__ __forceinline__ void store_v(float* __restrict__ p, const float (&v)[V]) {
+    if constexpr (V == 4) {
+        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k) p[k] = v[k];
+    }
+}
+
+template <int V>
+__global__ void __launch_bounds__(kGateThreads) gate_bwd_kernel(
+    int L, int C, int D, int splits, const float* __restrict__ fm, const float* __restrict__ fs,
+    const float* __restrict__ dmu, const float* __restrict__ dcut, const float* __restrict__ Ab,
+    const float* __restrict__ G, float* __restrict__ dfm, float* __restrict__ part) {
     const int N = L * (L + 1) / 2;
-    const int b = blockIdx.x;
-    const int d = blockIdx.y * blockDim.x + threadIdx.x;
-    if (d >= D) return;
-    const float fsv = fs[(size_t)b * D + d];
-    float acc = 0.f;
-    size_t n = (size_t)b * N;
-    for (int i = 0; i < L; ++i) {
-        const float g = G[((size_t)b * L + i) * D + d];
-        for (int j = i; j < L; ++j, ++n) {
-            float dfbar = Ab[((size_t)b * L + i) * L + j] * g;
-            for (int c = 0; c < C; ++c) dfbar += dcut[(n * C + c) * D + d];
-            const float x = fm[n * D + d];
-            const float z = x * fsv;
-            const float s = vml::sigmoidf_(z);
-            const float t = s * (1.f - s);
-            dfm[n * D + d] = dmu[n * D + d] + dfbar * (s + z * t);
-            acc += dfbar * x * x * t;
+    const int cols = D / V;
+    const int col_blocks = (cols + kGateThreads - 1) / kGateThreads;
+    const int b = blockIdx.y;
+    const int split = blockIdx.x / col_blocks;
+    const int col = (blockIdx.x - split * col_blocks) * kGateThreads + threadIdx.x;
+    if (col >= cols) return;
+    const int d = col * V;
+    const int per = (N + splits - 1) / splits;
+    const int n_begin = split * per;
+    const int n_end = min(N, n_begin + per);
+    float fsv[V], acc[V];
+    load_v<V>(fs + (size_t)b * D + d, fsv);
+#pragma unroll
+    for (int k = 0; k < V; ++k) acc[k] = 0.f;
+    if (n_begin < n_end) {
+        int i, j;
+        vml::pair_of(n_begin, L, i, j);
+        float g[V];
+        load_v<V>(G + ((size_t)b * L + i) * D + d, g);
+        for (int n = n_begin; n < n_end; ++n) {
+            const size_t pn = (size_t)b * N + n;
+            const float a = Ab[((size_t)b * L + i) * L + j];
+            float dfbar[V], x[V], dm[V], out[V];
+#pragma unroll
+            for (int k = 0; k < V; ++k) dfbar[k] = a * g[k];
+            for (int c = 0; c < C; ++c) {
+                float t[V];
+                load_v<V>(dcut + (pn * C + c) * D + d, t);
+#pragma unroll
+                for (int k = 0; k < V; ++k) dfbar[k] += t[k];
+            }
+            load_v<V>(fm + pn * D + d, x);
+            load_v<V>(dmu + pn * D + d, dm);
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+                const float z = x[k] * fsv[k];
+                const float sg = vml::sigmoidf_(z);
+                const float t = sg * (1.f - sg);
+                out[k] = dm[k] + dfbar[k] * (sg + z * t);
+                acc[k] += dfbar[k] * x[k] * x[k] * t;
+            }
+            store_v<V>(dfm + pn * D + d, out);
+            if (++j == L && n + 1 < n_end) {
+                ++i;
+                j = i;
+                load_v<V>(G + ((size_t)b * L + i) * D + d, g);
+            }
         }
     }
-    for (int i = 0; i < L; ++i) acc += dfs_b[((size_t)b * L + i) * D + d];
-    dfs[(size_t)b * D + d] = acc;
+    store_v<V>(part + ((size_t)split * gridDim.y + b) * D + d, acc);
+}
+
+// dfs[b, d] = sum over the splits, in order, of part[split, b, d] + sum_i
+// dfs_b[b, i, d] (the s_hat path of dfs is added by the caller's GEMM).
+__global__ void gate_dfs_kernel(int B, int L, int D, int splits, const float* __restrict__ part,
+                                const float* __restrict__ dfs_b, float* __restrict__ dfs) {
+    const size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+    if (e >= (size_t)B * D) return;
+    const size_t b = e / D;
+    const int d = (int)(e % D);
+    float acc = 0.f;
+    for (int k = 0; k < splits; ++k) acc += part[(size_t)k * B * D + e];
+    for (int i = 0; i < L; ++i) acc += dfs_b[(b * L + i) * D + d];
+    dfs[e] = acc;
+}
+
+// Splits of an element's pairs for gate_bwd_kernel: about four blocks per SM
+// in all, at most kGateMaxSplits, at most N.
+int gate_bwd_splits(int B, int N, int cols) {
+    const long long col_blocks = (cols + kGateThreads - 1) / kGateThreads;
+    long long splits = (4LL * 132 + B * col_blocks - 1) / (B * col_blocks);
+    splits = splits < 1 ? 1 : (splits > kGateMaxSplits ? kGateMaxSplits : splits);
+    return (int)(splits > N ? N : splits);
 }
 
 // The backward's buffers beyond the recomputed layer's own intermediates.
 struct BackwardScratch {
     vml::ContentBackwardScratch c;
-    float *bu, *dx1, *dx2, *G, *Ab, *dSb, *pb, *dsb, *dab, *dfs_b, *dbq, *dbk, *partial;
+    float *bu, *dx1, *dx2, *G, *Ab, *dSb, *pb, *dsb, *dab, *dfs_b, *dbq, *dbk, *gate_part,
+        *partial;
 };
-constexpr int kBackwardSlots = 13;
+constexpr int kBackwardSlots = 14;
 
 size_t max_partial_floats(int B, int L, int C, int Nq, int D, int dl) {
     const int N = L * (L + 1) / 2;
@@ -351,11 +435,12 @@ size_t carve(float* ws, int B, int L, int C, int Nq, int D, int dl, bool backwar
         BL * D, B * N * D, B * N * D, BL * D,                       // bu, dx1, dx2, G
         BL * L, BL * L, BL * Nq, BL * Nq,                           // Ab, dSb, pb, dsb
         BL * D, BL * D, BL * D, BQ * D,                             // dab, dfs_b, dbq, dbk
+        (size_t)kGateMaxSplits * B * D,                             // gate_part
         max_partial_floats(B, L, C, Nq, D, dl),                     // partial
     };
     float** slots[kBackwardSlots] = {
         &w->bu, &w->dx1, &w->dx2, &w->G, &w->Ab, &w->dSb, &w->pb, &w->dsb,
-        &w->dab, &w->dfs_b, &w->dbq, &w->dbk, &w->partial};
+        &w->dab, &w->dfs_b, &w->dbq, &w->dbk, &w->gate_part, &w->partial};
     return vml::carve_slots(ws, off, sizes, slots, kBackwardSlots);
 }
 
@@ -378,7 +463,7 @@ size_t vml_smi_layer_workspace_floats(int B, int L, int C, int Nq, int D, int dl
 // wrapper's admission check against the 227 KB a block may have.
 size_t vml_smi_layer_smem_bytes(int L, int C, int Nq, int D, int dl) {
     size_t most = vml::layer_forward_smem_bytes(L, C, Nq, dl);
-    const size_t others[] = {vml::content_bwd_smem_bytes(C, Nq, dl),
+    const size_t others[] = {vml::content_attn_smem_bytes(L * (L + 1) / 2, C, Nq, dl, true),
                              boundary_query_bwd_smem_bytes(L, Nq, D)};
     for (size_t o : others)
         if (o > most) most = o;
@@ -512,9 +597,24 @@ int vml_smi_layer_bwd_f32(void* stream, int B, int L, int C, int Nq, int D, int 
 
     // Gate (reads dcut from dfc), then the content unit's shares of dfw and
     // dfs, and dfc = dcut + dh Wch.
-    gate_bwd_kernel<<<dim3(B, (D + 127) / 128), 128, 0, st>>>(L, C, D, fm, fs, dmu, dfc, w.Ab,
-                                                              w.G, w.dfs_b, dfm, dfs);
-    VML_CHECK();
+    {
+        const bool vec = D % 4 == 0 && vml::aligned16(fm) && vml::aligned16(fs) &&
+                         vml::aligned16(dmu) && vml::aligned16(dfc) && vml::aligned16(dfm);
+        const int cols = vec ? D / 4 : D;
+        const int splits = gate_bwd_splits(B, N, cols);
+        const dim3 grid(splits * ((cols + kGateThreads - 1) / kGateThreads), B);
+        if (vec)
+            gate_bwd_kernel<4><<<grid, kGateThreads, 0, st>>>(L, C, D, splits, fm, fs, dmu, dfc,
+                                                              w.Ab, w.G, dfm, w.gate_part);
+        else
+            gate_bwd_kernel<1><<<grid, kGateThreads, 0, st>>>(L, C, D, splits, fm, fs, dmu, dfc,
+                                                              w.Ab, w.G, dfm, w.gate_part);
+        VML_CHECK();
+        const size_t bd = (size_t)B * D;
+        gate_dfs_kernel<<<(unsigned)((bd + 255) / 256), 256, 0, st>>>(B, L, D, splits,
+                                                                       w.gate_part, w.dfs_b, dfs);
+        VML_CHECK();
+    }
     err = vml::content_input_grads(st, B, N, C, Nq, D, dl, p, w.c, true, dfc, dfw, dfs);
     if (err != cudaSuccess) return (int)err;
 #undef VML_CHECK

@@ -10,9 +10,10 @@
 //   gate_kernel            fbar = sigmoid(fm * fs) * fm
 //   gemm_nt (gemm.cuh)     every projection, with bias / mask / residual
 //                          epilogues
-//   content_attn_kernel    word attention of each clip row (-1e9 key mask),
-//                          f_cq, the C x C clip attention (softmax unmasked,
-//                          mask after), one block per (element, pair)
+//   content_attn_forward   word attention of each clip row (-1e9 key mask),
+//   (content_attn.cuh)     f_cq, the C x C clip attention (softmax unmasked,
+//                          mask after), a block per tile of an element's
+//                          pairs
 //   boundary_query_kernel  word attention and f_bq of one snippet row
 //   boundary_unit_kernel   A_b, f_bb and the moment message f_bm of one
 //                          snippet row
@@ -26,12 +27,12 @@
 #include <cmath>
 #include <cstdint>
 
+#include "content_attn.cuh"
 #include "gemm.cuh"
 #include "proposal.cuh"
 
 namespace vml {
 
-constexpr float kNegInf = -1e9f;   // the JAX units' mask fill, not -inf
 constexpr int kWeightsPerLayer = 20;
 
 // fbar = sigmoid(fm * fs) * fm over (B, N, D).
@@ -43,109 +44,6 @@ static __global__ void gate_kernel(size_t total, int ND, int D, const float* __r
         const int d = (int)(e % D);
         const float x = fm[e];
         fbar[e] = sigmoidf_(x * fs[(size_t)b * D + d]) * x;
-    }
-}
-
-// One block per (element, pair): the content unit between its projections.
-// h, q (B*N*C, dl) with h already masked by vmask; khat, fwh (B*Nq, dl) with
-// fwh masked by the query mask; fsh (B, dl). Writes f_cc_hat (B*N*C, dl).
-static __global__ void content_attn_kernel(int N, int C, int Nq, int dl,
-                                    const float* __restrict__ h,
-                                    const float* __restrict__ q,
-                                    const float* __restrict__ khat,
-                                    const float* __restrict__ fwh,
-                                    const float* __restrict__ fsh,
-                                    const float* __restrict__ qmask,
-                                    const float* __restrict__ vmask,
-                                    float* __restrict__ out) {
-    extern __shared__ float smem[];
-    float* ks = smem;                 // (Nq, dl)
-    float* vs = ks + Nq * dl;         // (Nq, dl)
-    float* hs = vs + Nq * dl;         // (C, dl)
-    float* qs = hs + C * dl;          // (C, dl)
-    float* gs = qs + C * dl;          // (C, dl): f_cq
-    float* ps = gs + C * dl;          // (C, Nq): word attention
-    float* as = ps + C * Nq;          // (C, C): clip attention
-
-    const int pair = blockIdx.x;      // b * N + n
-    const int b = pair / N;
-    const int tid = threadIdx.x;
-    const int lane = tid % 32;
-    const int warp = tid / 32;
-    const int nwarps = blockDim.x / 32;
-    const float inv_sdl = 1.f / sqrtf((float)dl);
-    const float vm = vmask[pair];
-    const size_t row0 = (size_t)pair * C;
-
-    for (int e = tid; e < Nq * dl; e += blockDim.x) {
-        ks[e] = khat[(size_t)b * Nq * dl + e];
-        vs[e] = fwh[(size_t)b * Nq * dl + e];
-    }
-    for (int e = tid; e < C * dl; e += blockDim.x) {
-        hs[e] = h[row0 * dl + e];
-        qs[e] = q[row0 * dl + e];
-    }
-    __syncthreads();
-
-    for (int idx = warp; idx < C * Nq; idx += nwarps) {
-        const int c = idx / Nq;
-        const int m = idx % Nq;
-        float s = 0.f;
-        for (int d = lane; d < dl; d += 32) s += qs[c * dl + d] * ks[m * dl + d];
-        s = warp_sum(s);
-        if (lane == 0) ps[idx] = qmask[(size_t)b * Nq + m] > 0.f ? s * inv_sdl : kNegInf;
-    }
-    __syncthreads();
-    if (tid < C) {
-        float* p = ps + tid * Nq;
-        float mx = p[0];
-        for (int m = 1; m < Nq; ++m) mx = fmaxf(mx, p[m]);
-        float sum = 0.f;
-        for (int m = 0; m < Nq; ++m) {
-            p[m] = expf(p[m] - mx);
-            sum += p[m];
-        }
-        for (int m = 0; m < Nq; ++m) p[m] /= sum;
-    }
-    __syncthreads();
-
-    for (int e = tid; e < C * dl; e += blockDim.x) {
-        const int c = e / dl;
-        const int d = e % dl;
-        float a = 0.f;
-        for (int m = 0; m < Nq; ++m) a += ps[c * Nq + m] * vs[m * dl + d];
-        gs[e] = hs[e] * (a * vm + fsh[(size_t)b * dl + d]);
-    }
-    __syncthreads();
-
-    for (int idx = warp; idx < C * C; idx += nwarps) {
-        const int c = idx / C;
-        const int e2 = idx % C;
-        float s = 0.f;
-        for (int d = lane; d < dl; d += 32) s += gs[c * dl + d] * gs[e2 * dl + d];
-        s = warp_sum(s);
-        if (lane == 0) as[idx] = s * inv_sdl;
-    }
-    __syncthreads();
-    if (tid < C) {
-        float* a = as + tid * C;
-        float mx = a[0];
-        for (int e2 = 1; e2 < C; ++e2) mx = fmaxf(mx, a[e2]);
-        float sum = 0.f;
-        for (int e2 = 0; e2 < C; ++e2) {
-            a[e2] = expf(a[e2] - mx);
-            sum += a[e2];
-        }
-        for (int e2 = 0; e2 < C; ++e2) a[e2] = a[e2] / sum * vm;
-    }
-    __syncthreads();
-
-    for (int e = tid; e < C * dl; e += blockDim.x) {
-        const int c = e / dl;
-        const int d = e % dl;
-        float a = 0.f;
-        for (int e2 = 0; e2 < C; ++e2) a += as[c * C + e2] * hs[e2 * dl + d];
-        out[row0 * dl + e] = a;
     }
 }
 
@@ -328,13 +226,9 @@ inline size_t carve_layer_scratch(float* ws, size_t off, int B, int L, int C, in
     return carve_slots(ws, off, sizes, slots, kLayerScratchSlots);
 }
 
-inline size_t content_smem_bytes(int C, int Nq, int dl) {
-    return sizeof(float) * ((size_t)2 * Nq * dl + (size_t)3 * C * dl + (size_t)C * Nq + C * C);
-}
-
 // Largest dynamic shared memory of the forward kernels of a layer.
 inline size_t layer_forward_smem_bytes(int L, int C, int Nq, int dl) {
-    const size_t a = content_smem_bytes(C, Nq, dl);
+    const size_t a = content_attn_smem_bytes(L * (L + 1) / 2, C, Nq, dl, false);
     const size_t b = sizeof(float) * (size_t)(Nq > L ? Nq : L);   // boundary kernels
     return a > b ? a : b;
 }
@@ -353,11 +247,6 @@ inline cudaError_t content_forward(cudaStream_t st, int B, int N, int C, int Nq,
                                    const float* fs, const float* qmask, const float* vmask,
                                    const float* const* p, const LayerScratch& s, float* cu) {
     const int NC = N * C;
-    const size_t csmem = content_smem_bytes(C, Nq, dl);
-    cudaError_t err = cudaFuncSetAttribute(
-        content_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)csmem);
-    if (err != cudaSuccess) return err;
-
     Epilogue ep;
     ep.bias = p[1];
     ep.rmask = vmask;
@@ -375,9 +264,9 @@ inline cudaError_t content_forward(cudaStream_t st, int B, int N, int C, int Nq,
     VML_CHECK_LAUNCH();
     linear(st, B, dl, D, fs, p[4], p[5], s.fsh);                       // s_hat
     VML_CHECK_LAUNCH();
-    content_attn_kernel<<<B * N, 128, csmem, st>>>(N, C, Nq, dl, s.h, s.q, s.khat, s.fwh,
-                                                   s.fsh, qmask, vmask, s.fcc);
-    VML_CHECK_LAUNCH();
+    cudaError_t err = content_attn_forward(st, B, N, C, Nq, dl, s.h, s.q, s.khat, s.fwh, s.fsh,
+                                           qmask, vmask, s.fcc);
+    if (err != cudaSuccess) return err;
     ep = Epilogue();     // cu = c_out(f_cc_hat) * vmask + fc + fbar
     ep.bias = p[7];
     ep.rmask = vmask;

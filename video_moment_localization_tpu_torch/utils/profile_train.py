@@ -2,7 +2,7 @@
 
     python -m video_moment_localization_tpu_torch.utils.profile_train \
         [--config config/charadessta.yml] [--batch 64] [--iters 5] [--seed 0] \
-        [--packed false] [--compat]
+        [--packed false] [--compat] [--layer-backward]
 
 Builds the model of the config it is given (default: Charades,
 config/charadessta.yml; config/activitynet.yml takes the content-unit route;
@@ -13,7 +13,11 @@ the label generators, ragged lengths, one padded sample), runs
 `parallel.steps.make_train_step` under
 ``torch.profiler``, and prints the device time per step of each kernel, its
 share, the device's busy share of the window (summed kernel time over wall
-time) and the peak device memory of a step. Needs a CUDA device.
+time) and the peak device memory of a step. ``--layer-backward`` profiles
+the SMI layer backward (K3) alone instead: the three launches of one step's
+backward (the top layer without a dcu cotangent), on the carry that proposal
+pooling makes of random clip features with ragged lengths and on random
+cotangents. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -78,6 +82,47 @@ def synthetic_batch(cfg: ModelConfig, B: int, rng: np.random.Generator) -> Dict[
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
+def layer_backward_inputs(cfg: ModelConfig, B: int, rng: np.random.Generator):
+    """One SMI layer's inputs on the card, (fc, fm, fb, fw, fs, query_mask,
+    length_mask, vmask), and random cotangents (dcu, dmu, dbu)."""
+    from video_moment_localization_tpu_torch.ops.packing import packed_valid_mask
+    from video_moment_localization_tpu_torch.ops.proposal import proposal_features_packed
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
+
+    Nq = cfg.max_query_length
+    qlen = torch.from_numpy(rng.integers(1, Nq + 1, size=B))
+    nlen = torch.from_numpy(rng.integers(1, cfg.L + 1, size=B))
+    nlen[0] = cfg.L
+    qmask = (torch.arange(Nq)[None, :] < qlen[:, None]).float()[..., None].cuda()
+    lmask = (torch.arange(cfg.L)[None, :] < nlen[:, None]).float().cuda()
+    fc, fm, fb = proposal_features_packed(rand(B, cfg.T, cfg.D), lmask, cfg.L, cfg.C)
+    ins = [t.contiguous() for t in (fc, fm, fb, rand(B, Nq, cfg.D) * qmask, rand(B, cfg.D),
+                                     qmask, lmask, packed_valid_mask(lmask))]
+    return ins, [rand(*t.shape) for t in ins[:3]]
+
+
+def profile_layer_backward(model: SMIN, cfg: ModelConfig, B: int, iters: int,
+                           rng: np.random.Generator) -> None:
+    """K3 alone: one step's backward launches, one per layer, top first."""
+    from video_moment_localization_tpu_torch.models.smin import block_weights
+    from video_moment_localization_tpu_torch.ops.smin_train_cuda import smi_layer_backward
+
+    model = model.cuda()
+    ins, (dcu, dmu, dbu) = layer_backward_inputs(cfg, B, rng)
+    layers = [[w.detach() for w in block_weights(block)] for block in model.smis]
+
+    def backward():
+        for k, weights in enumerate(reversed(layers)):
+            smi_layer_backward(weights, *ins, cfg.L, None if k == 0 else dcu, dmu, dbu)
+
+    for _ in range(2):
+        backward()
+    torch.cuda.synchronize()
+    profile_and_report(backward, f"K3 x{len(layers)} B={B}", "backward", iters, top=24)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--config", default=os.path.join(REPO, "config", "charadessta.yml"))
@@ -88,6 +133,8 @@ def main(argv=None) -> int:
                         help="false: the dense layout (packed: False)")
     parser.add_argument("--compat", action="store_true",
                         help="the reference-compat mode: compat_head and fused_content")
+    parser.add_argument("--layer-backward", action="store_true",
+                        help="profile the SMI layer backward (K3) alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device visible", file=sys.stderr)
@@ -101,6 +148,9 @@ def main(argv=None) -> int:
     for B in args.batch:
         torch.manual_seed(args.seed)
         model = SMIN(config.model)
+        if args.layer_backward:
+            profile_layer_backward(model, config.model, B, args.iters, rng)
+            continue
         step = make_train_step(config.model, model, build_optimizer(config, model))
         batch = {k: v.cuda() for k, v in synthetic_batch(config.model, B, rng).items()}
         torch.cuda.reset_peak_memory_stats()
