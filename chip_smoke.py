@@ -9,9 +9,10 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
 1. the card's name and power limit; build every kernel of the paths from
    ``video_moment_localization_tpu_torch/csrc`` with nvcc (one process per
    source, started together) and print the build time; hold the Python
-   mirrors of the shared GEMM's plans (block tile, shared memory, split-K,
-   partial-buffer floats) for every product of K2-K5, K7 and K10 at the three shipped
-   configs and B=1/16/64/512, of the content-attention pair's tile plan
+   mirrors of the shared GEMM's plans (path, block tile, shared memory,
+   split-K, partial-buffer floats) for every product of K2-K5, K7, K9 and
+   K10 at the three shipped configs and B=1/16/64/512, of the
+   content-attention pair's tile plan
    (pairs per pass, passes, blocks per element, shared memory, the
    backward's partial floats) at every query length of those configs and
    batches, and of K5's rows per cluster and shared memory, against their C
@@ -74,8 +75,12 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
     backward also bit for bit against a second launch), K10
     (fused content unit) forward and backward (16 gradients) against their
     plain versions; K9 (all layers' forward) bit for bit against one K2
-    launch per layer, carries included, and within K2's tolerance of the
-    plain stack; K8 at the ActivityNet width at B=8;
+    launch per layer, carries included, and each layer within K2's
+    tolerance of the plain layer on its input carry (`layer_err`: where the
+    fp32 plain layer is itself outside that tolerance of its float64
+    evaluation, at the top layer's moment unit, held to the float64
+    evaluation no worse than the plain layer); K8 at the ActivityNet width
+    at B=8;
 12. the modes at B=64, 3 Adam steps each from the same weights, every loss
     and step-1 gradient held to the plain versions as in phase 6:
     ``packed: False`` (K8 3 + 3), ``compat_head`` + ``fused_content`` (K6
@@ -90,11 +95,13 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
     backward, with plain versions and bounds; the dense and compat train
     steps in ms and samples/s;
 14. the shared GEMM (``csrc/gemm.cuh``, through ``csrc/gemm.cu``) alone on
-    the products of K7 (ActivityNet B=64: nt, nn and split-K tn), K4
-    (Charades B=16 and B=512) and K5 (B=16 and B=512, one of its two
-    problems), and K7's c_hat rows at K=64..1024: ms, TFLOP/s and the share
-    of the 67 TFLOP/s fp32 peak, beside ``torch.matmul`` on the same
-    operands with TF32 off;
+    the products of K7 (ActivityNet B=64: nt, nn and split-K tn), K2, K3 and
+    K10 (Charades B=64), K4 (Charades B=16 and B=512) and K5 (B=16 and
+    B=512, one of its two problems), and K7's c_hat rows at K=64..1024, on
+    both paths: 3xTF32 on the tensor cores (ms, TFLOP/s of fp32 products,
+    share of the 165 TFLOP/s that 495 TFLOP/s of TF32 gives) and fp32 on the
+    CUDA cores (share of 67 TFLOP/s), with the path each product runs on,
+    beside ``torch.matmul`` on the same operands with TF32 off;
 15. the content-attention pair alone (``csrc/content_attn.cu``, the device
     code that K4, K2, K3, K7, K9 and K10 run between the content unit's
     projections) at Charades B=64 and B=512 and ActivityNet B=64, on the
@@ -146,6 +153,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_FLOPS = 67e12      # H100 SXM, fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12     # H100 SXM, TF32 on the tensor cores (dense)
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 
 LSTM_SRC = "video_moment_localization_tpu_torch/csrc/lstm.cu"
@@ -274,10 +282,52 @@ def cuda_ms_back_to_back(fn, launches: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float):
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound(flops: float, nbytes: float, tensor_flops: float = 0.0):
+    """The least time of the work: the larger of its operations' time and
+    its bytes' time. ``tensor_flops`` of the ``flops`` are fp32-accurate
+    products, priced as 3xTF32 on the tensor cores (three TF32 products
+    each, at 495 TFLOP/s); the rest as fp32 on the CUDA cores (67
+    TFLOP/s)."""
+    t_ops = (3 * tensor_flops / PEAK_TF32_FLOPS + (flops - tensor_flops) / PEAK_FP32_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def gemm_flops(cfg, B, kernel, times=1):
+    """Operations of ``kernel``'s products at batch B
+    (ops/gemm_cuda.py::model_gemm_shapes), ``times`` over: K9's and K4's
+    per layer."""
+    from video_moment_localization_tpu_torch.ops import gemm_cuda
+
+    return sum(times * 2.0 * M * N * K * groups
+               for k, _, _, M, N, K, groups in gemm_cuda.model_gemm_shapes(cfg, B) if k == kernel)
+
+
+def both_bounds(flops, nbytes, products, rest):
+    """(bound_ms, bound_by, bound_fp32_ms). The first two count the port's
+    own work: ``products`` (`gemm_flops`) priced as fp32-accurate products
+    at the card's best rate for them, 3xTF32 on the tensor cores, whatever
+    path the port runs them on, and ``rest``, the operations outside
+    products, on the CUDA cores. bound_fp32_ms is the bound of earlier
+    runs: the JAX package's operation count ``flops`` all at 67 TFLOP/s."""
+    b_ms, b_by = bound(products + rest, nbytes, products)
+    return b_ms, b_by, bound(flops, nbytes)[0]
+
+
+def layer_rest(cfg, Nq):
+    """`layer_flops` outside its products, per element: the word and clip
+    attentions of the content unit, the boundary unit's attentions and its
+    moment message (the bk projection it leaves out is a product)."""
+    L, C, D, dl = cfg.L, cfg.C, cfg.D, cfg.dl
+    N = L * (L + 1) // 2
+    return 2 * (N * C * (2 * Nq * dl + 2 * C * dl) + L * (2 * Nq * D + 2 * L * D) + 3 * N * L * D)
+
+
+def unit_rest(cfg, Nq):
+    """`unit_flops` (and `content_flops`) outside their products, per
+    element: the word and clip attentions of the content unit."""
+    N = cfg.L * (cfg.L + 1) // 2
+    return 2 * N * cfg.C * (2 * Nq * cfg.dl + 2 * cfg.C * cfg.dl)
 
 
 # ------------------------------------------------------------------------- #
@@ -328,6 +378,45 @@ def max_err(got, want, tol, name):
         if not torch.allclose(g, w, **tol):
             fail(f"{name}: kernel disagrees with its plain version: max abs err {err:.3e} "
                  f"(tolerance {tol})")
+    return err
+
+
+def layer_err(got, weights, carry, shared, L, name):
+    """One SMI layer's outputs ``got`` (the last len(got) of cu, mu, bu)
+    against the plain layer on the same inputs at K2's tolerance. Where an
+    output of the fp32 plain layer is itself outside that tolerance of the
+    plain layer evaluated in float64 (the moment unit at the top of a
+    stack: x1 = bu[i] bu[j] near 2,500, mu cancelling to near zero at some
+    pairs), the kernel's is held to the float64 evaluation instead: outside
+    the tolerance at no more elements than the fp32 plain layer's, and no
+    farther from it on average. Returns the largest max abs error, each
+    against the reference it was held to."""
+    import torch
+
+    from video_moment_localization_tpu_torch.ops import smin_train_cuda
+
+    n = len(got)
+    want = smin_train_cuda.smi_layer_plain(weights, *carry, *shared, L)[-n:]
+    exact = smin_train_cuda.smi_layer_plain([w.double() for w in weights],
+                                            *(t.double() for t in (*carry, *shared)), L)[-n:]
+    err = 0.0
+    for g, w, x, out in zip(got, want, exact, ("cu", "mu", "bu")[-n:]):
+        if torch.isclose(w.double(), x, **K4_TOL).all():
+            err = max(err, max_err([g], [w], K4_TOL, f"{name} {out}"))
+            continue
+        if not torch.isfinite(g).all():
+            fail(f"{name} {out}: non-finite output")
+        tol = K4_TOL["atol"] + K4_TOL["rtol"] * x.abs()
+        dg, dw = (g.double() - x).abs(), (w.double() - x).abs()
+        ng, nw = int((dg > tol).sum()), int((dw > tol).sum())
+        report = (f"{name} {out} against the plain layer in float64: the fp32 plain layer "
+                  f"outside {K4_TOL} at {nw} elements, max {float(dw.max()):.3e}, mean "
+                  f"{float(dw.mean()):.3e}; the kernel at {ng}, max {float(dg.max()):.3e}, mean "
+                  f"{float(dg.mean()):.3e}")
+        if ng > nw or float(dg.mean()) > float(dw.mean()):
+            fail(f"{report}: the kernel is farther from float64 than the plain layer")
+        print(report)
+        err = max(err, float(dg.max()))
     return err
 
 
@@ -497,20 +586,25 @@ def serving_kernel_times(cfg, model, B, rng, device, library_lstm, iters=15):
     x, mask, lengths = lstm_inputs(cfg, B, rng, device)
     nbytes = (4 * (x.numel() + mask.numel() + B * Nq * cfg.D)
               + param_bytes(model.backbone.queryencoder.lstm))
-    b_ms, b_by = bound(B * lstm_flops(cfg), nbytes)
+    # Every operation is a product: the projections and the recurrence.
+    b_ms, b_by, b32 = both_bounds(B * lstm_flops(cfg), nbytes, B * lstm_flops(cfg), 0.0)
     res = {"K5": dict(
         ms=cuda_ms(lambda: lstm_cuda.bilstm_fused(x, mask, layers), iters=iters),
         plain_ms=cuda_ms(lambda: lstm_cuda.bilstm_plain(x, mask, layers), iters=iters),
         library_ms=cuda_ms(lambda: library_lstm(x, lengths), iters=iters),
-        bound_ms=b_ms, bound_by=b_by)}
+        bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32)}
     ins = stack_inputs(cfg, B, rng, device)
     nbytes = (4 * sum(t.numel() for t in ins) + param_bytes(model.smis)
               + param_bytes(model.localization) + 4 * B * (N + 3 * cfg.L))
-    b_ms, b_by = bound(B * stack_flops(cfg, Nq), nbytes)
+    # Outside the layers' products: their rest, and the pooling and heads.
+    b_ms, b_by, b32 = both_bounds(
+        B * stack_flops(cfg, Nq), nbytes, gemm_flops(cfg, B, "K4", cfg.num_smi_layers),
+        B * (cfg.num_smi_layers * layer_rest(cfg, Nq) + 2 * N * cfg.C * cfg.T * cfg.D
+             + 2 * cfg.L * cfg.T * cfg.D))
     res["K4"] = dict(
         ms=cuda_ms(lambda: smin_cuda.smin_stack_fused(model, cfg, *ins), iters=iters),
         plain_ms=cuda_ms(lambda: smin_cuda.smin_stack_plain(model, cfg, *ins), iters=iters),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32)
     return res, mask
 
 
@@ -983,28 +1077,37 @@ def phase_train_times(cfg, model, step, batch, rng, device):
     ins = layer_inputs(cfg, B, rng, device)
     shared_bytes = 4 * sum(t.numel() for t in ins[3:])
     flops = B * layer_flops(cfg, Nq)
-    b_ms, b_by = bound(flops, 2 * carry_bytes + shared_bytes + w_bytes)
+    rest = B * layer_rest(cfg, Nq)
+    b_ms, b_by, b32 = both_bounds(flops, 2 * carry_bytes + shared_bytes + w_bytes,
+                                  gemm_flops(cfg, B, "K2"), rest)
     res["K2"] = dict(
         ms=cuda_ms(lambda: smin_train_cuda.smi_layer_forward(weights, *ins, L)),
         plain_ms=cuda_ms(lambda: smin_train_cuda.smi_layer_plain(weights, *ins, L)),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32,
+        device_ms=cuda_ms_back_to_back(
+            lambda: smin_train_cuda.smi_layer_forward(weights, *ins, L), launches=10, reps=3))
     dcu, dmu, dbu = [randn_like(t, rng) for t in ins[:3]]
     # In: the carry, its cotangents, the shared inputs, the weights; out: the
     # carry's, fw's and fs's gradients and the weight gradients.
     k3_bytes = 4 * carry_bytes + 2 * shared_bytes + 2 * w_bytes
-    b_ms, b_by = bound(3 * flops, k3_bytes)
+    b_ms, b_by, b32 = both_bounds(3 * flops, k3_bytes, gemm_flops(cfg, B, "K3"), 3 * rest)
     res["K3"] = dict(
         ms=cuda_ms(lambda: smin_train_cuda.smi_layer_backward(weights, *ins, L, dcu, dmu, dbu),
                    iters=9),
         plain_ms=cuda_ms(lambda: smin_train_cuda.smi_layer_backward_plain(
             weights, *ins, L, dcu, dmu, dbu), iters=9),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32,
+        device_ms=cuda_ms_back_to_back(
+            lambda: smin_train_cuda.smi_layer_backward(weights, *ins, L, dcu, dmu, dbu),
+            launches=5, reps=3))
     res["K3_no_dcu_ms"] = cuda_ms(
         lambda: smin_train_cuda.smi_layer_backward(weights, *ins, L, None, dmu, dbu), iters=9)
     for k in ("K1f", "K1b", "K2", "K3"):
         r = res[k]
         print(f"time {k} B={B}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+              f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+              + (f", all-fp32 bound {r['bound_fp32_ms']:.4f} ms, back to back "
+                 f"{r['device_ms']:.4f} ms" if "bound_fp32_ms" in r else ""))
     print_back_to_back(res, ("K1f", "K1b"), f"B={B}")
     print(f"time K3 B={B} without dcu (top layer): {res['K3_no_dcu_ms']:.4f} ms")
 
@@ -1258,24 +1361,27 @@ def phase_anet_times(cfg, model, step, batch, rng, device):
     rows_bytes = 4 * B * (NC + N) * D                  # fc and fbar, or cu and convfc
     shared_bytes = 4 * sum(t.numel() for t in ins[2:])
     flops = B * content_flops(cfg, Nq)
+    rest = B * unit_rest(cfg, Nq)
     workspace = content_train_cuda.Workspace()
-    b_ms, b_by = bound(flops, 2 * rows_bytes + shared_bytes + w_bytes)
+    b_ms, b_by, b32 = both_bounds(flops, 2 * rows_bytes + shared_bytes + w_bytes,
+                                  gemm_flops(cfg, B, "K7f"), rest)
     res["K7f"] = dict(
         ms=cuda_ms(lambda: content_train_cuda.content_rows_forward(weights, *ins, workspace),
                    iters=9),
         plain_ms=cuda_ms(lambda: content_train_cuda.content_rows_plain(weights, *ins),
                          warmup=1, iters=3),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32)
     dcu, dconv = randn_like(ins[0], rng), randn_like(ins[1], rng)
     # In: the inputs, their cotangents, the weights; out: the gradients of
     # fc, fbar, fw, fs and of the weights.
-    b_ms, b_by = bound(3 * flops, 4 * rows_bytes + 2 * shared_bytes + 2 * w_bytes)
+    b_ms, b_by, b32 = both_bounds(3 * flops, 4 * rows_bytes + 2 * shared_bytes + 2 * w_bytes,
+                                  gemm_flops(cfg, B, "K7b"), 3 * rest)
     res["K7b"] = dict(
         ms=cuda_ms(lambda: content_train_cuda.content_rows_backward(weights, *ins, dcu, dconv,
                                                                     workspace), iters=7),
         plain_ms=cuda_ms(lambda: content_train_cuda.content_rows_backward_plain(
             weights, *ins, dcu, dconv), warmup=1, iters=3),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32)
     res["K7b_no_dcu_ms"] = cuda_ms(
         lambda: content_train_cuda.content_rows_backward(weights, *ins, None, dconv, workspace),
         iters=7)
@@ -1377,16 +1483,14 @@ def phase_mode_parity(cfg, model, anet_cfg, rng, device):
         outs = list(carries[1:]) + [(fm_o, fb_o)]
         e = 0.0
         for k in range(n_layers):
-            want = smin_train_cuda.smi_layer_plain(stack_w[20 * k:20 * (k + 1)], *carries[k],
-                                                   *ins[3:], cfg.L)
-            e = max(e, max_err(outs[k], want[-len(outs[k]):], K4_TOL,
-                               f"K9 smi_stack_forward B={B} layer {k}"))
+            e = max(e, layer_err(outs[k], stack_w[20 * k:20 * (k + 1)], carries[k], ins[3:],
+                                 cfg.L, f"K9 smi_stack_forward B={B} layer {k}"))
         torch.cuda.synchronize()
         print(f"parity K9 smi_stack_forward B={B}: equal bit for bit to {n_layers} K2 launches "
               f"(outputs and carries); each layer against the plain layer on its input carry, "
               f"max abs err {e:.3e} (tolerance {K4_TOL})")
         errs["K9"] = max(errs["K9"], e)
-        del fm_o, fb_o, carries, carry, outs, want
+        del fm_o, fb_o, carries, carry, outs
 
         fc, fm, _, fw, fs, qmask, _, vmask = ins
         uins = (fc, fm, fw, fs, qmask, vmask)
@@ -1593,8 +1697,10 @@ def phase_mode_times(cfg, model, modes, rng, device):
     shared_bytes = 4 * sum(t.numel() for t in ins[3:])
     # In: the carry, the shared inputs, every layer's weights; out: the inner
     # layers' carries and the top layer's (cu, mu, bu).
-    b_ms, b_by = bound(n_layers * B * layer_flops(cfg, Nq),
-                       (n_layers + 1) * carry_bytes + shared_bytes + w_bytes)
+    b_ms, b_by, b32 = both_bounds(n_layers * B * layer_flops(cfg, Nq),
+                                  (n_layers + 1) * carry_bytes + shared_bytes + w_bytes,
+                                  gemm_flops(cfg, B, "K9", n_layers),
+                                  n_layers * B * layer_rest(cfg, Nq))
 
     def per_layer():
         carry = tuple(ins[:3])
@@ -1605,7 +1711,9 @@ def phase_mode_times(cfg, model, modes, rng, device):
     res["K9"] = dict(
         ms=cuda_ms(lambda: smin_train_cuda.smi_stack_forward(stack_w, *ins, L)),
         plain_ms=cuda_ms(lambda: smin_train_cuda.smi_stack_plain(stack_w, *ins, L)),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32,
+        device_ms=cuda_ms_back_to_back(
+            lambda: smin_train_cuda.smi_stack_forward(stack_w, *ins, L), launches=5, reps=3))
     res["K9_per_layer_ms"] = cuda_ms(per_layer)
 
     unit_w = [w.detach() for w in content_cuda.unit_weights(model.smis[1].content_unit)]
@@ -1615,22 +1723,30 @@ def phase_mode_times(cfg, model, modes, rng, device):
     rows_bytes = 4 * B * N * C * D
     side_bytes = 4 * sum(t.numel() for t in (fm, fw, fs, qmask, vmask))
     flops = B * unit_flops(cfg, Nq)
+    rest = B * unit_rest(cfg, Nq)
     workspace = content_cuda.Workspace()
-    b_ms, b_by = bound(flops, 2 * rows_bytes + side_bytes + uw_bytes)
+    b_ms, b_by, b32 = both_bounds(flops, 2 * rows_bytes + side_bytes + uw_bytes,
+                                  gemm_flops(cfg, B, "K10f"), rest)
     res["K10f"] = dict(
         ms=cuda_ms(lambda: content_cuda.content_unit_forward(unit_w, *uins, workspace)),
         plain_ms=cuda_ms(lambda: content_cuda.content_unit_plain(unit_w, *uins)),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32,
+        device_ms=cuda_ms_back_to_back(
+            lambda: content_cuda.content_unit_forward(unit_w, *uins, workspace)))
     dcu = randn_like(fc, rng)
     # In: the inputs, dcu, the weights; out: dfc, dfm, dfw, dfs and the
     # weight gradients.
-    b_ms, b_by = bound(3 * flops, 3 * rows_bytes + 2 * side_bytes + 2 * uw_bytes)
+    b_ms, b_by, b32 = both_bounds(3 * flops, 3 * rows_bytes + 2 * side_bytes + 2 * uw_bytes,
+                                  gemm_flops(cfg, B, "K10b"), 3 * rest)
     res["K10b"] = dict(
         ms=cuda_ms(lambda: content_cuda.content_unit_backward(unit_w, *uins, dcu, workspace),
                    iters=9),
         plain_ms=cuda_ms(lambda: content_cuda.content_unit_backward_plain(unit_w, *uins, dcu),
                          iters=9),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32,
+        device_ms=cuda_ms_back_to_back(
+            lambda: content_cuda.content_unit_backward(unit_w, *uins, dcu, workspace),
+            launches=10, reps=3))
     del ins, uins, dcu, workspace
     torch.cuda.empty_cache()
     for k in ("K8f", "K8b", "K9", "K10f", "K10b"):
@@ -1678,8 +1794,8 @@ def phase_plans(configs):
                     fail(f"pair partial floats {name} B={B} Nq={Nq}: C {got}, Python mirror "
                          f"{content_attn_cuda.partial_floats(*args[:5])}")
             for kernel, prod, layout, M, N, K, groups in gemm_cuda.model_gemm_shapes(cfg, B):
-                got = gemm_cuda.card_plan(layout, M, N, K, groups)
-                want = gemm_cuda.plan(layout, M, N, K, groups)
+                got = gemm_cuda.card_plan(layout, M, N, K, groups, prod)
+                want = gemm_cuda.plan(layout, M, N, K, groups, prod)
                 if got != want:
                     fail(f"GEMM plan of {kernel} {prod} ({layout} {M}x{N}x{K}, {name} B={B}): "
                          f"C {got}, Python mirror {want}")
@@ -1695,7 +1811,7 @@ def phase_plans(configs):
                  f"{clusters}, smem {smem}")
         plan["waves"] = -(-plan["clusters"] // plan["max_active_clusters"])
         plans[B] = plan
-    print(f"plans: {held} GEMM launches of K2-K5, K7, K10 (3 configs, B={PLAN_BATCHES}), "
+    print(f"plans: {held} GEMM launches of K2-K5, K7, K9, K10 (3 configs, B={PLAN_BATCHES}), "
           f"{pair_held} content-attention pair plans (every Nq, forward and backward, with "
           f"the backward's partial floats) and K5 at B={sorted(plans)} equal to their Python "
           f"mirrors; K5 clusters of 8 CTAs the card holds at once by rows per cluster: "
@@ -1716,14 +1832,17 @@ def phase_plans(configs):
 
 
 def phase_gemm(cfg, anet_cfg, device):
-    """The shared GEMM alone on K7's, K4's and K5's products against
-    torch.matmul with TF32 off, both back to back (the device's time per
-    call). Returns the rows of the {"gemm": [...]} line."""
+    """The shared GEMM alone on the products of K7 (ActivityNet B=64), K2,
+    K3 and K10 (Charades B=64), K4 and K5 (Charades B=16 and B=512), on
+    both paths (3xTF32 on the tensor cores, fp32 on the CUDA cores) and
+    against torch.matmul with TF32 off, each back to back (the device's time
+    per call). Returns the rows of the {"gemm": [...]} line."""
     import torch
 
     from video_moment_localization_tpu_torch.ops import gemm_cuda
 
     picks = [(anet_cfg, 64, ("K7f", "K7b"), "activitynet")]
+    picks += [(cfg, 64, ("K2", "K3", "K10f", "K10b"), "charadessta")]
     picks += [(cfg, B, ("K4", "K5"), "charadessta") for B in (16, 512)]
     shapes = [(c, B, name) + s for c, B, kernels, name in picks
               for s in gemm_cuda.model_gemm_shapes(c, B) if s[0] in kernels]
@@ -1744,23 +1863,31 @@ def phase_gemm(cfg, anet_cfg, device):
         At = A.t() if layout == "tn" else A
         out = torch.empty((M, N), device=device)
         launches = 10 if M * N * K < 2e10 else 4
-        ms = cuda_ms_back_to_back(lambda: gemm_cuda.gemm(layout, A, W, out=out),
-                                  launches=launches, reps=3)
+        ms = {path: cuda_ms_back_to_back(lambda: gemm_cuda.gemm(layout, A, W, out=out, path=path),
+                                         launches=launches, reps=3)
+              for path in (gemm_cuda.TENSOR, gemm_cuda.CUDA_CORE)}
         lib_ms = cuda_ms_back_to_back(lambda: torch.matmul(At, Wt, out=out),
                                       launches=launches, reps=3)
         flops = 2.0 * M * N * K
+        path = gemm_cuda.site_path(prod, layout, M, N, K, groups)
+        tc, cc = ms[gemm_cuda.TENSOR], ms[gemm_cuda.CUDA_CORE]
         row = dict(kernel=kernel if kernel == "K sweep" else kernel[:2], product=prod,
                    layout=layout, M=M, N=N, K=K, config=name, batch=B, groups=groups,
                    tile="x".join(map(str, gemm_cuda.TILES[gemm_cuda.launch_grid(
                        layout, M, N, K, groups)[0]])),
-                   ms=ms, tflops=flops / ms / 1e9,
-                   peak_share=flops / ms / 1e9 / (PEAK_FP32_FLOPS / 1e12),
+                   path="tensor" if path == gemm_cuda.TENSOR else "cuda_core",
+                   ms=ms[path], tensor_ms=tc, tensor_tflops=flops / tc / 1e9,
+                   tensor_peak_share=flops / tc / 1e9 / (PEAK_TF32_FLOPS / 3e12),
+                   cuda_core_ms=cc, cuda_core_tflops=flops / cc / 1e9,
+                   cuda_core_peak_share=flops / cc / 1e9 / (PEAK_FP32_FLOPS / 1e12),
                    matmul_ms=lib_ms, matmul_tflops=flops / lib_ms / 1e9)
         rows.append(row)
         print(f"gemm {row['kernel']} {prod} {layout} {M}x{N}x{K} ({name} B={B}, tile "
-              f"{row['tile']}): {ms:.4f} ms, {row['tflops']:.2f} TFLOP/s, "
-              f"{row['peak_share'] * 100:.1f} % of 67; torch.matmul {lib_ms:.4f} ms, "
-              f"{row['matmul_tflops']:.2f} TFLOP/s")
+              f"{row['tile']}, runs on {row['path']}): tensor {tc:.4f} ms "
+              f"{row['tensor_tflops']:.2f} TFLOP/s ({row['tensor_peak_share'] * 100:.1f} % of "
+              f"165); CUDA cores {cc:.4f} ms {row['cuda_core_tflops']:.2f} TFLOP/s "
+              f"({row['cuda_core_peak_share'] * 100:.1f} % of 67); torch.matmul {lib_ms:.4f} "
+              f"ms, {row['matmul_tflops']:.2f} TFLOP/s")
         del A, W, out
     torch.cuda.empty_cache()
     return rows
@@ -2012,11 +2139,13 @@ def main(argv=None) -> int:
             "ms_b512": r512["ms"], "plain_ms_b512": r512["plain_ms"],
             "bound_ms_b512": r512["bound_ms"], "bound_by_b512": r512["bound_by"],
             "library_ms_b512": r512["library_ms"],
+            "bound_fp32_ms": r16["bound_fp32_ms"], "bound_fp32_ms_b512": r512["bound_fp32_ms"],
         })
         ra = anet_times[key]
         kernels[-1].update({
             "ms_activitynet_b64": ra["ms"], "plain_ms_activitynet_b64": ra["plain_ms"],
             "bound_ms_activitynet_b64": ra["bound_ms"],
+            "bound_fp32_ms_activitynet_b64": ra["bound_fp32_ms"],
             "library_ms_activitynet_b64": ra["library_ms"],
             "max_abs_err_activitynet": anet_errs[key]})
     kernels[0]["plan"] = k5_plans
@@ -2033,6 +2162,8 @@ def main(argv=None) -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "batch": TRAIN_BATCH,
         })
         kernels[-1].update(back_to_back(r))
+        if "bound_fp32_ms" in r:
+            kernels[-1]["bound_fp32_ms"] = r["bound_fp32_ms"]
     kernels[-1]["max_err_of_magnitude"] = train_errs["K3_rel"]
     kernels[-1]["ms_without_dcu"] = train_times["K3_no_dcu_ms"]
     kernels[-1]["held_l64"] = {k: unheld_errs[k] for k in ("K2", "K3", "K3_rel")}
@@ -2071,6 +2202,8 @@ def main(argv=None) -> int:
             "config": "activitynet",
         })
         kernels[-1].update(back_to_back(r))
+        if "bound_fp32_ms" in r:
+            kernels[-1]["bound_fp32_ms"] = r["bound_fp32_ms"]
     # K6 is its own Python entry and counters over K1's two C entry points.
     kernels[-4]["shares_c_entry_with"] = "proposal_rows_forward"
     kernels[-3]["shares_c_entry_with"] = "proposal_rows_backward"
@@ -2091,6 +2224,8 @@ def main(argv=None) -> int:
             "mode": mode,
         })
         kernels[-1].update(back_to_back(r))
+        if "bound_fp32_ms" in r:
+            kernels[-1]["bound_fp32_ms"] = r["bound_fp32_ms"]
     kernels[-4]["max_err_of_magnitude"] = mode_errs["K8b_rel"]
     kernels[-3]["per_layer_k2_ms"] = mode_times["K9_per_layer_ms"]
     kernels[-1]["max_err_of_magnitude"] = mode_errs["K10b_rel"]

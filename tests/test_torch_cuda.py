@@ -360,6 +360,59 @@ def test_content_route_train_steps_on_card_match_cpu(card):
                                                              before[2])
 
 
+def _plain_packed_loss(cfg, model, batch):
+    """The packed train forward and loss with the plain version in place of
+    every kernel (PyTorch ops under autograd), on the batch's device."""
+    from video_moment_localization_tpu_torch.models import smin
+    from video_moment_localization_tpu_torch.ops.proposal import proposal_features_packed
+    from video_moment_localization_tpu_torch.train.loss import smin_loss
+
+    f, fs, fw = smin.backbone(model.backbone, cfg, batch["video_features"], batch["video_mask"],
+                              batch["query_features"], batch["query_mask"], fused_lstm=False)
+    qmask, lmask = batch["query_mask"], batch["length_mask"]
+    vmask = packed_valid_mask(lmask)
+    fc, fm, fb = proposal_features_packed(f, lmask, cfg.L, cfg.C)
+    for block in model.smis:
+        fc, fm, fb = smin.smi_block_packed(block, fc, fm, fb, fw, fs, qmask, lmask, vmask, cfg.L)
+    out = smin.localization_packed(model.localization, fm, fb, lmask, vmask, cfg.L)
+    return smin_loss(out, batch)[0]
+
+
+def test_tacos_train_step_on_card_matches_plain(card):
+    """One train step at the TACoS width (config/tacos.yml) and B=64 on the
+    card, through the content-unit route (K6, K7, whose products run on the
+    tensor cores), against the same step through the plain versions on the
+    card: the loss within 1e-4 relative and every parameter's step-1
+    gradient at K7's tolerances (rtol 5e-4, atol 5e-5 of the largest
+    gradient magnitude)."""
+    torch.manual_seed(0)
+    model = SMIN(TACOS).to(card)
+    plain = SMIN(TACOS).to(card)
+    plain.load_state_dict(model.state_dict())
+    batch = {k: v.to(card) for k, v in _train_batch(TACOS, 64, seed=0).items()}
+    before = (content_train_cuda.content_rows_forward.launches,
+              content_train_cuda.content_rows_backward.launches,
+              smin_train_cuda.smi_layer_backward.launches)
+    step = make_train_step(TACOS, model, build_optimizer(Config(model=TACOS), model), device=card)
+    loss = float(step(batch)["loss"])
+    torch.cuda.synchronize()
+    n = TACOS.num_smi_layers
+    assert (content_train_cuda.content_rows_forward.launches,
+            content_train_cuda.content_rows_backward.launches,
+            smin_train_cuda.smi_layer_backward.launches) == (before[0] + n, before[1] + n,
+                                                             before[2])
+    plain.train()
+    with torch.enable_grad():
+        plain_loss = _plain_packed_loss(TACOS, plain, batch)
+        plain_loss.backward()
+    np.testing.assert_allclose(loss, float(plain_loss.detach()), rtol=1e-4)
+    want = dict(plain.named_parameters())
+    scale = max(float(p.grad.abs().max()) for p in want.values())
+    for name, p in model.named_parameters():
+        assert p.grad is not None, name
+        _assert_grad_close(p.grad, want[name].grad, name, scale)
+
+
 @pytest.mark.parametrize("B", [1, 8])
 def test_serving_kernels_at_the_activitynet_width(card, B):
     """K5 at Nq=20 and K4 at L=64, the shapes of the ActivityNet eval step."""
@@ -548,14 +601,41 @@ def test_content_unit_kernels_match_plain(card, cfg, B):
         _assert_grad_close(g_, w_, f"weight gradient {k}", scale)
 
 
+def _assert_layer_close(got, weights, carry, shared, L):
+    """One SMI layer's outputs (None where not written) against the plain
+    layer on the same inputs at K2's tolerance. Where an output of the fp32
+    plain layer is itself outside that tolerance of the plain layer
+    evaluated in float64 (the moment unit at the top of a stack: x1 =
+    bu[i] bu[j] near 2,500, mu cancelling to near zero at some pairs), the
+    kernel's is held to the float64 evaluation instead: outside the
+    tolerance at no more elements than the fp32 plain layer's, and no
+    farther from it on average."""
+    want = smin_train_cuda.smi_layer_plain(weights, *carry, *shared, L)
+    exact = smin_train_cuda.smi_layer_plain([w.double() for w in weights],
+                                            *(t.double() for t in (*carry, *shared)), L)
+    for g_, w_, x_, name in zip(got, want, exact, ("cu", "mu", "bu")):
+        if g_ is None:
+            continue
+        if torch.isclose(w_.double(), x_, **STACK_TOL).all():
+            torch.testing.assert_close(g_, w_, **STACK_TOL, msg=lambda m: f"{name}: {m}")
+            continue
+        assert torch.isfinite(g_).all(), name
+        tol = STACK_TOL["atol"] + STACK_TOL["rtol"] * x_.abs()
+        dg, dw = (g_.double() - x_).abs(), (w_.double() - x_).abs()
+        assert int((dg > tol).sum()) <= int((dw > tol).sum()), name
+        assert float(dg.mean()) <= float(dw.mean()), name
+
+
 @pytest.mark.parametrize("cfg,B", [(TINY, 5), (ODD, 3), (CHARADES, 4)])
 def test_stack_forward_kernel_equals_per_layer_kernels(card, cfg, B, monkeypatch):
     """K9 writes bit for bit what one K2 launch per layer writes, carries
     included, and each of its layers is within K2's tolerance of the plain
     layer on that layer's input carry (over three layers the rounding
-    compounds past it); the stack under VML_SMIN_TRAIN_FUSED_FWD=1 launches
-    K9 once and K2 never, and its gradients (K3 on those carries) are the
-    per-layer route's bit for bit."""
+    compounds past it; where the fp32 plain layer is itself outside that
+    tolerance of its float64 evaluation, no worse than it against float64:
+    `_assert_layer_close`); the stack under VML_SMIN_TRAIN_FUSED_FWD=1
+    launches K9 once and K2 never, and its gradients (K3 on those carries)
+    are the per-layer route's bit for bit."""
     torch.manual_seed(B)
     model = SMIN(cfg).to(card)
     weights = [w.detach() for b in model.smis for w in block_weights(b)]
@@ -572,11 +652,7 @@ def test_stack_forward_kernel_equals_per_layer_kernels(card, cfg, B, monkeypatch
     assert torch.equal(fm_out, carry[1]) and torch.equal(fb_out, carry[2])
     outs = [c for c in carries[1:]] + [(None, fm_out, fb_out)]
     for k in range(cfg.num_smi_layers):
-        want = smin_train_cuda.smi_layer_plain(weights[20 * k:20 * (k + 1)], *carries[k],
-                                               *shared, cfg.L)
-        for g_, w_ in zip(outs[k], want):
-            if g_ is not None:
-                torch.testing.assert_close(g_, w_, **STACK_TOL)
+        _assert_layer_close(outs[k], weights[20 * k:20 * (k + 1)], carries[k], shared, cfg.L)
 
     grads = {}
     for flag in ("0", "1"):
@@ -671,9 +747,15 @@ def test_mode_localizer_on_card_matches_cpu(card, mode):
 
 
 # ------------------------------------------------------------------------- #
-# The shared GEMM (csrc/gemm.cuh through csrc/gemm.cu) against float64.
+# The shared GEMM (csrc/gemm.cuh through csrc/gemm.cu) against float64, on
+# both of its paths (PATHS: fp32 on the CUDA cores, 3xTF32 on the tensor
+# cores), with the same tolerances.
 # fp32 products of K terms of unit scale: the error grows as sqrt(K) * 2^-24
-# of the terms' magnitude; 1e-5 relative to sqrt(K) covers it.
+# of the terms' magnitude; 1e-5 relative to sqrt(K) covers it. 3xTF32 drops
+# about 2^-22 of each product's magnitude (tests/test_torch_gemm_tf32x3.py
+# holds a numpy mirror of its split and order to these same tolerances).
+PATHS = [pytest.param(gemm_cuda.CUDA_CORE, id="cuda_core"),
+         pytest.param(gemm_cuda.TENSOR, id="tensor")]
 def _gemm_tol(K):
     return dict(rtol=1e-5, atol=2e-6 * K ** 0.5)
 
@@ -708,15 +790,16 @@ def _gemm_ref(layout, A, W, ascale=None, adiv=1):
     return (A @ (W.double().t() if layout == "nt" else W.double())), None
 
 
+@pytest.mark.parametrize("path", PATHS)
 @pytest.mark.parametrize("layout,tile", [("nt", 0), ("nt", 1), ("nt", 2), ("nt", None),
                                          ("nn", 0), ("nn", 1), ("nn", 2), ("tn", None)])
-def test_gemm_layouts_and_tiles_match_float64(card, layout, tile):
+def test_gemm_layouts_and_tiles_match_float64(card, layout, tile, path):
     """M, N and K off the tile multiples, every epilogue term, ascale."""
     M, N, K = 300, 196, 84
     A, W, ascale = _gemm_case(layout, M, N, K, card)
     before = gemm_cuda.gemm.launches
     if layout == "tn":
-        got, cs = gemm_cuda.gemm("tn", A, W, ascale=ascale, adiv=3, bias_sums=True)
+        got, cs = gemm_cuda.gemm("tn", A, W, ascale=ascale, adiv=3, bias_sums=True, path=path)
         want, cs_want = _gemm_ref("tn", A, W, ascale, 3)
         torch.testing.assert_close(cs.double(), cs_want, **_gemm_tol(K))
     else:
@@ -728,7 +811,7 @@ def test_gemm_layouts_and_tiles_match_float64(card, layout, tile):
         terms = {k: v.to(card) for k, v in terms.items()}
         sc = ascale if layout == "nn" else None
         got = gemm_cuda.gemm(layout, A, W, ascale=sc, adiv=3, mask_div=4, post2_div=5,
-                             tile=tile, **terms)
+                             tile=tile, path=path, **terms)
         want = gemm_cuda.gemm_plain(layout, *(t.double() for t in (A, W)),
                                     ascale=None if sc is None else sc.double(), adiv=3,
                                     mask_div=4, post2_div=5,
@@ -738,26 +821,28 @@ def test_gemm_layouts_and_tiles_match_float64(card, layout, tile):
     torch.testing.assert_close(got.double(), want, **_gemm_tol(K))
 
 
+@pytest.mark.parametrize("path", PATHS)
 @pytest.mark.parametrize("layout", ["nt", "nn", "tn"])
 @pytest.mark.parametrize("M,N,K,offset", [(77, 45, 33, 0), (64, 64, 64, 1), (130, 9, 200, 3)])
-def test_gemm_scalar_path_matches_float64(card, layout, M, N, K, offset):
+def test_gemm_scalar_path_matches_float64(card, layout, M, N, K, offset, path):
     """Extents that are no multiple of 4, or operands off 16-byte alignment."""
     A, W, ascale = _gemm_case(layout, M, N, K, card, seed=M, offset=offset)
     sc = None if layout == "nt" else ascale
     if layout == "tn":
-        got, cs = gemm_cuda.gemm("tn", A, W, ascale=sc, adiv=3, bias_sums=True)
+        got, cs = gemm_cuda.gemm("tn", A, W, ascale=sc, adiv=3, bias_sums=True, path=path)
         want, cs_want = _gemm_ref("tn", A, W, sc, 3)
         torch.testing.assert_close(cs.double(), cs_want, **_gemm_tol(K))
     else:
-        got = gemm_cuda.gemm(layout, A, W, ascale=sc, adiv=3)
+        got = gemm_cuda.gemm(layout, A, W, ascale=sc, adiv=3, path=path)
         want, _ = _gemm_ref(layout, A, W, sc, 3)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.double(), want, **_gemm_tol(K))
 
 
+@pytest.mark.parametrize("path", PATHS)
 @pytest.mark.parametrize("alias", ["pre", "post"])
 @pytest.mark.parametrize("M,N", [(256, 128), (75, 30)])
-def test_gemm_output_may_alias_a_residual(card, alias, M, N):
+def test_gemm_output_may_alias_a_residual(card, alias, M, N, path):
     K = 64
     A, W, _ = _gemm_case("nt", M, N, K, card, seed=7)
     g = torch.Generator().manual_seed(8)
@@ -767,21 +852,22 @@ def test_gemm_output_may_alias_a_residual(card, alias, M, N):
     want = (want * mask.double()[:, None] + res.double() if alias == "post"
             else (want + res.double()) * mask.double()[:, None])
     buf = res.clone()
-    got = gemm_cuda.gemm("nt", A, W, rmask=mask, out=buf, **{alias: buf})
+    got = gemm_cuda.gemm("nt", A, W, rmask=mask, out=buf, path=path, **{alias: buf})
     torch.cuda.synchronize()
     assert got.data_ptr() == buf.data_ptr()
     torch.testing.assert_close(got.double(), want, **_gemm_tol(K))
 
 
+@pytest.mark.parametrize("path", PATHS)
 @pytest.mark.parametrize("R", [1, 17, 1000, 133120, 532480])
-def test_gemm_tn_is_repeatable(card, R):
+def test_gemm_tn_is_repeatable(card, R, path):
     """The split-K weight gradient and its fused bias sums: the same bits on
     a second launch (fixed split, fixed reduction order, no atomics), and
     within fp32 rounding of float64, at 1 to 532,480 rows (K7's B=64)."""
     M, N = 512, 128
     A, W, ascale = _gemm_case("tn", M, N, R, card, seed=R)
-    first = gemm_cuda.gemm("tn", A, W, ascale=ascale, adiv=3, bias_sums=True)
-    second = gemm_cuda.gemm("tn", A, W, ascale=ascale, adiv=3, bias_sums=True)
+    first = gemm_cuda.gemm("tn", A, W, ascale=ascale, adiv=3, bias_sums=True, path=path)
+    second = gemm_cuda.gemm("tn", A, W, ascale=ascale, adiv=3, bias_sums=True, path=path)
     torch.cuda.synchronize()
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
     want, cs_want = _gemm_ref("tn", A, W, ascale, 3)
@@ -789,14 +875,15 @@ def test_gemm_tn_is_repeatable(card, R):
     torch.testing.assert_close(first[1].double(), cs_want, **_tn_tol(M, N, R))
 
 
+@pytest.mark.parametrize("path", PATHS)
 @pytest.mark.parametrize("tile", [None, 2])
-def test_gemm_past_the_y_grid_limit(card, tile):
+def test_gemm_past_the_y_grid_limit(card, tile, path):
     """More than 4,194,240 rows (65,535 tiles of 64): tiles are numbered along
     x, so every row is written (64x64 tiles: 65,551 row tiles)."""
     M, N, K = 4_194_240 + 1_024, 128, 128
     A, W, _ = _gemm_case("nt", M, N, K, card, seed=3)
     bias = torch.randn(N, generator=torch.Generator().manual_seed(4)).to(card)
-    got = gemm_cuda.gemm("nt", A, W, bias=bias, tile=tile)
+    got = gemm_cuda.gemm("nt", A, W, bias=bias, tile=tile, path=path)
     torch.cuda.synchronize()
     for lo in range(0, M, 1 << 20):          # float64 in slices of 1M rows
         want = A[lo:lo + (1 << 20)].double() @ W.double().t() + bias.double()

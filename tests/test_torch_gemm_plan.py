@@ -35,14 +35,30 @@ def _cfg(name):
 def test_every_model_gemm_is_admitted(config, B):
     shapes = gemm_cuda.model_gemm_shapes(_cfg(config), B)
     kernels = {s[0] for s in shapes}
-    assert kernels == {"K2", "K3", "K4", "K5", "K7f", "K7b", "K10f", "K10b"}
+    assert kernels == {"K2", "K3", "K4", "K5", "K7f", "K7b", "K9", "K10f", "K10b"}
     for kernel, name, layout, M, N, K, groups in shapes:
         assert min(M, N, K) >= 1 and groups in (1, 2), (kernel, name)
         tile, grid_x, grid_z = gemm_cuda.launch_grid(layout, M, N, K, groups)
         assert 1 <= grid_x <= MAX_GRID_X and grid_z <= MAX_GRID_YZ, (kernel, name)
-        # Two blocks share an SM's 228 KB (1 KB of it reserved per block).
-        assert 2 * (gemm_cuda.smem_bytes(tile, layout) + 1024) <= 228 * 1024
-        assert gemm_cuda.plan(layout, M, N, K, groups)["tile"] == tile
+        # On its chosen path, the blocks an SM holds share its 228 KB (1 KB
+        # of it reserved per block), and one is within the 227 KB it may have.
+        path = gemm_cuda.site_path(name, layout, M, N, K, groups)
+        assert path in (gemm_cuda.CUDA_CORE, gemm_cuda.TENSOR)
+        if name == gemm_cuda.MOMENT_PRODUCT:
+            assert path == gemm_cuda.TENSOR
+        elif layout == "tn":
+            rows = gemm_cuda.splitk_for(M, N, K)[1]
+            assert path == (gemm_cuda.TENSOR if rows >= gemm_cuda.WG_MIN_ROWS
+                            else gemm_cuda.CUDA_CORE)
+        else:
+            big = M * N * K >= gemm_cuda.TC_MIN_WORK
+            assert path == (gemm_cuda.TENSOR if big else gemm_cuda.CUDA_CORE)
+        per_sm = gemm_cuda.blocks_per_sm(layout, path)
+        assert per_sm * (gemm_cuda.smem_bytes(tile, layout, path) + 1024) <= 228 * 1024
+        assert gemm_cuda.smem_bytes(tile, layout, path) <= MAX_SMEM_BYTES
+        plan = gemm_cuda.plan(layout, M, N, K, groups, name)
+        assert plan["tile"] == tile
+        assert plan["path"] == path
         bm, bn = gemm_cuda.TILES[tile]
         assert grid_x == -(-M // bm) * -(-N // bn)
         if layout == "tn":

@@ -18,9 +18,11 @@
 //
 // What bounds it on the H100: operations. The forward is 4.7 GFLOP per
 // element at the ActivityNet shapes (N = 2080, C = 4, D = 512, dl = 128,
-// Nq = 20), the backward twice that on top of the recompute, all fp32
-// outside the tensor cores (67 TFLOP/s), against 17 MB of fc read and 17 MB
-// of cu written per element.
+// Nq = 20), the backward twice that on top of the recompute, against 17 MB
+// of fc read and 17 MB of cu written per element. The projections, most of
+// the operations, run as 3xTF32 on the tensor cores (gemm.cuh, 165 TFLOP/s
+// of fp32-accurate products); the content-attention pair is bound by its
+// bytes.
 //
 // Design. The forward is `vml::content_forward`, the content section of the
 // layer that K4 and K2 run, then the clip mean and one GEMM whose epilogue
@@ -87,9 +89,9 @@ __global__ void unit_gate_bwd_kernel(int N, int C, int D, const float* __restric
 }
 
 struct Workspace {
-    vml::LayerScratch s;   // h, q, fcc, fwh, khat, fsh, x2 are used
+    vml::LayerScratch s;   // h, q, fcc, fwh, khat, fsh are used
     vml::ContentBackwardScratch w;
-    float *dx2, *partial;
+    float *x2, *dx2, *partial;   // x2: K7's clip mean, K10's fbar
 };
 
 size_t partial_floats(int B, int N, int C, int Nq, int D, int dl) {
@@ -108,7 +110,7 @@ size_t carve(float* ws, int B, int N, int C, int Nq, int D, int dl, bool backwar
                             BQ * dl, BQ * dl, (size_t)B * dl,         // fwh, khat, fsh
                             (size_t)B * N * D};                       // x2
     float** slots[] = {&k->s.h, &k->s.q, &k->s.fcc, &k->s.fwh, &k->s.khat, &k->s.fsh,
-                       &k->s.x2};
+                       &k->x2};
     size_t off = vml::carve_slots(ws, 0, sizes, slots, 7);
     if (!backward) return off;
     off = vml::carve_content_backward(ws, off, B, N, C, Nq, dl, &k->w);
@@ -125,7 +127,7 @@ cudaError_t forward(cudaStream_t st, int B, int N, int C, int Nq, int D, int dl,
     cudaError_t err =
         vml::content_forward(st, B, N, C, Nq, D, dl, fc, fbar, fw, fs, qmask, vmask, p, k.s, cu);
     if (err != cudaSuccess) return err;
-    vml::moment_prologue_kernel<<<B * N, 128, 0, st>>>(0, C, D, nullptr, cu, nullptr, k.s.x2);
+    vml::launch_moment_prologue(st, B * N, 0, C, D, nullptr, cu, nullptr, k.x2, D);
     return cudaGetLastError();
 }
 
@@ -162,7 +164,7 @@ int vml_content_rows_fwd_f32(void* stream, int B, int N, int C, int Nq, int D, i
     vml::Epilogue ep;    // convfc = (conv_fc(x2) + b) * vmask
     ep.bias = p[13];
     ep.rmask = vmask;
-    vml::gemm_nt(st, B * N, D, D, k.s.x2, D, p[12], D, convfc, D, ep);
+    vml::gemm_nt(st, B * N, D, D, k.x2, D, p[12], D, convfc, D, ep);
     return (int)cudaGetLastError();
 }
 
@@ -191,7 +193,7 @@ int vml_content_rows_bwd_f32(void* stream, int B, int N, int C, int Nq, int D, i
     // conv_fc: with dz = dconvfc * vm, dx2 = dz Wfc, dWfc = dz^T x2, db = sum dz.
     vml::gemm_nn(st, B * N, D, D, dconvfc, D, vmask, 1, p[12], D, k.dx2, D, vml::Epilogue());
     VML_CHECK();
-    vml::gemm_tn(st, D, D, B * N, dconvfc, D, vmask, 1, k.s.x2, D, k.partial, dw[12], dw[13]);
+    vml::gemm_tn(st, D, D, B * N, dconvfc, D, vmask, 1, k.x2, D, k.partial, dw[12], dw[13]);
     VML_CHECK();
 
     // dcut = dcu + dx2 / C into dfc, and dfbar = sum_c dcut.
@@ -228,8 +230,11 @@ int vml_content_rows_bwd_f32(void* stream, int B, int N, int C, int Nq, int D, i
 //
 // What bounds it on the H100: operations, as K7 without its conv_fc GEMM:
 // 2 * N * C * (2 D dl + dl^2 + 2 Nq dl + 2 C dl + dl D) per element, 0.7
-// GFLOP at the Charades shapes (N = 136), fp32 outside the tensor cores,
-// against 2.2 MB of fc, fm and cu per element.
+// GFLOP at the Charades shapes (N = 136), against 2.2 MB of fc, fm and cu
+// per element. All but the 2 C dl term are the five projections forward
+// (eleven backward), which run as 3xTF32 on the tensor cores (gemm.cuh, 165
+// TFLOP/s of fp32-accurate products); the gate is a row walk bound by its
+// bytes (smin_units.cuh).
 //
 // Design. The forward is the gate (`vml::gate_kernel`) and
 // `vml::content_forward`, the content section of the layer that K4, K2 and
@@ -245,13 +250,11 @@ cudaError_t unit_forward(cudaStream_t st, int B, int N, int C, int Nq, int D, in
                          const float* fc, const float* fm, const float* fw, const float* fs,
                          const float* qmask, const float* vmask, const float* const* p,
                          const Workspace& k, float* cu) {
-    const size_t nd = (size_t)B * N * D;
-    const int gate_blocks = (int)((nd + 255) / 256 < 4096 ? (nd + 255) / 256 : 4096);
-    vml::gate_kernel<<<gate_blocks, 256, 0, st>>>(nd, N * D, D, fm, fs, k.s.x2);
+    vml::launch_gate(st, B, N, D, fm, fs, k.x2);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    return vml::content_forward(st, B, N, C, Nq, D, dl, fc, k.s.x2, fw, fs, qmask, vmask, p,
-                                k.s, cu);
+    return vml::content_forward(st, B, N, C, Nq, D, dl, fc, k.x2, fw, fs, qmask, vmask, p, k.s,
+                                cu);
 }
 
 }  // namespace

@@ -1,7 +1,8 @@
 // The shared fp32 GEMM of gemm.cuh on its own, for the card tests and the
 // GEMM phase of chip_smoke.py (ops/gemm_cuda.py): each layout with every
-// epilogue term, `ascale`, a forced block tile and gemm_tn's fused column
-// sums, plus the host-side plans (tile, split-K) that the Python mirror in
+// epilogue term, `ascale`, a forced block tile and path (CUDA cores or
+// 3xTF32 tensor cores) and gemm_tn's fused column sums, plus the host-side
+// plans (path, tile, split-K) that the Python mirror in
 // ops/gemm_cuda.py is held against. It replaces no TPU kernel: the JAX
 // package's kernels run their products inside each Pallas body, and the
 // port's kernels run them through this header.
@@ -15,12 +16,13 @@ extern "C" {
 // W (K, N); 2: C (M, N) = (A * ascale)^T @ W, A (K, M), W (K, N), through
 // `partial` (vml_gemm_tn_partial_floats floats), bias_out (M,) the column
 // sums of the scaled A when not null; no epilogue. tile: -1 by shape, else a
-// vml::GemmTile (layouts 0 and 1). Returns the launch's CUDA error, 0 if none.
+// vml::GemmTile (layouts 0 and 1); path: -1 by shape, else a vml::GemmPath.
+// Returns the launch's CUDA error, 0 if none.
 int vml_gemm_f32(void* stream, int layout, int M, int N, int K, const float* A, int lda,
                  const float* ascale, int adiv, const float* W, int ldw, float* C, int ldc,
                  const float* bias, const float* pre, int ldpre, const float* rmask,
                  int mask_div, const float* post, int ldpost, const float* post2, int ldpost2,
-                 int post2_div, int tile, float* partial, float* bias_out) {
+                 int post2_div, int tile, float* partial, float* bias_out, int path) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     vml::Epilogue ep;
     ep.bias = bias;
@@ -34,16 +36,26 @@ int vml_gemm_f32(void* stream, int layout, int M, int N, int K, const float* A, 
     ep.ldpost2 = ldpost2;
     ep.post2_div = post2_div;
     if (layout == 0)
-        vml::gemm_nt(st, M, N, K, A, lda, W, ldw, C, ldc, ep, tile);
+        vml::gemm_nt(st, M, N, K, A, lda, W, ldw, C, ldc, ep, tile, path);
     else if (layout == 1)
-        vml::gemm_nn(st, M, N, K, A, lda, ascale, adiv, W, ldw, C, ldc, ep, tile);
+        vml::gemm_nn(st, M, N, K, A, lda, ascale, adiv, W, ldw, C, ldc, ep, tile, path);
     else
-        vml::gemm_tn(st, M, N, K, A, lda, ascale, adiv, W, ldw, partial, C, bias_out);
+        vml::gemm_tn(st, M, N, K, A, lda, ascale, adiv, W, ldw, partial, C, bias_out, path);
     return (int)cudaGetLastError();
 }
 
 // The block tile gemm_nt / gemm_nn pick for `groups` products of (M, N).
 int vml_gemm_tile_for(int M, int N, int groups) { return vml::gemm_tile_for(M, N, groups); }
+
+// The path (vml::GemmPath) a launch of a layout (0 nt, 1 nn, 2 tn) takes for
+// `groups` products of (M, N, K) (gemm_tn: K the rows it reduces).
+int vml_gemm_path_for(int layout, int M, int N, int K, int groups) {
+    return vml::gemm_path_for(layout, M, N, K, groups);
+}
+
+// The path the moment unit's product takes at every shape (the one call
+// site that fixes its path).
+int vml_gemm_moment_path() { return vml::kMomentProductPath; }
 
 // gemm_tn's split of its R rows: *splits blocks along z of *kchunk rows.
 void vml_gemm_splitk(int M, int N, int R, int* splits, int* kchunk) {
@@ -52,17 +64,18 @@ void vml_gemm_splitk(int M, int N, int R, int* splits, int* kchunk) {
     *kchunk = s.kchunk;
 }
 
-// Dynamic shared memory of one block of a layout (0 nt, 1 nn, 2 tn) and tile.
-size_t vml_gemm_smem_bytes(int layout, int tile) {
-    using vml::gemm_smem_floats;
-    static const int floats[3][3] = {
-        {gemm_smem_floats<128, 128, false, false>(), gemm_smem_floats<128, 64, false, false>(),
-         gemm_smem_floats<64, 64, false, false>()},
-        {gemm_smem_floats<128, 128, false, true>(), gemm_smem_floats<128, 64, false, true>(),
-         gemm_smem_floats<64, 64, false, true>()},
-        {gemm_smem_floats<128, 128, true, true>(), gemm_smem_floats<128, 64, true, true>(),
-         gemm_smem_floats<64, 64, true, true>()}};
-    return sizeof(float) * floats[layout][tile];
+// Dynamic shared memory of one block of a path, layout (0 nt, 1 nn, 2 tn)
+// and tile.
+size_t vml_gemm_smem_bytes(int path, int layout, int tile) {
+    using vml::gemm_smem_bytes;
+    const size_t bytes[3][3] = {
+        {gemm_smem_bytes<128, 128, false, false>(path), gemm_smem_bytes<128, 64, false, false>(path),
+         gemm_smem_bytes<64, 64, false, false>(path)},
+        {gemm_smem_bytes<128, 128, false, true>(path), gemm_smem_bytes<128, 64, false, true>(path),
+         gemm_smem_bytes<64, 64, false, true>(path)},
+        {gemm_smem_bytes<128, 128, true, true>(path), gemm_smem_bytes<128, 64, true, true>(path),
+         gemm_smem_bytes<64, 64, true, true>(path)}};
+    return bytes[layout][tile];
 }
 
 size_t vml_gemm_tn_partial_floats(int M, int N, int R) {

@@ -29,32 +29,82 @@
 // gemm_nt2 / gemm_nn2 run two products that share A (one weight, output and
 // epilogue each) as one launch, the problem index along gridDim.y.
 //
-// Bound on the H100: fp32 outside the tensor cores (67 TFLOP/s); the K7
-// shapes (up to 532,480 x 512 x 512) are far above the bytes line, so the
-// kernel is bound by its FMA issue rate, and shared-memory reads and load
-// latency are what keep it from that rate. Design:
+// Two paths, one plan (tiles, split-K, grid). Bound on the H100: the
+// operations; the K7 shapes (up to 532,480 x 512 x 512) are far above the
+// bytes line on either path.
+//
+// The tensor-core path (`gemm_tc_kernel`; chosen by shape, `gemm_path_for`):
+// 3xTF32. The results are held to the JAX fp32 kernels, which run their
+// matmuls at HIGHEST precision, so a single TF32 product (10 explicit
+// mantissa bits, about 3 decimal digits) is never used. Each operand value
+// x is split into big = rna(x) and small = rna(x - big) (rna: the rounding
+// of cvt.rna.tf32.f32), and a_s b_b + a_b b_s + a_b b_b are added, small
+// terms first; the dropped a_s b_s and the rounding of the small parts are
+// about 2^-22 of |a||b| a product, near the 2^-24 of an fp32 FMA. That is 3
+// TF32 products per fp32 product: 495 / 3 = 165 TFLOP/s of fp32-accurate
+// products, against the 67 TFLOP/s of the CUDA cores. What the design does
+// about what bounds it (measured on the H100, PERF.md §6):
+//   * accuracy: the tensor cores' adder truncates as it aligns its addends,
+//     which biases a long running sum (accumulating there put 1.7e-1 of
+//     error into a 532,480-row reduction that fp32 FMAs keep at 5e-3), so
+//     each k8 step's three products go into a zeroed fragment that an
+//     ordinary FADD adds to the fp32 running sum (the card tests' float64
+//     tolerances hold unchanged; tests/test_torch_gemm_tf32x3.py holds a
+//     numpy mirror of the split and this order to them on the CPU);
+//   * instruction issue: splitting every fragment value in registers, as it
+//     is loaded, spends more issue slots than the mma themselves (each value
+//     reaches 2 to 4 warps); so a slice is split once, in shared memory, one
+//     slice ahead of its use (the landed copy becomes the big parts, the
+//     small parts go beside it), and the loop only loads fragments and
+//     multiplies. rna is done in integer ops (bit for bit the conversion's,
+//     NaN passed through), which issue at four times its rate;
+//   * shared-memory reads (mma.sync): fragments of a k-contiguous tile come
+//     by ldmatrix (four 8 x 4 tf32 matrices a lane group, from rows at the
+//     `raw_off` swizzle, conflict-free); a row-contiguous tile lies k-major
+//     at a stride of R + 8 floats, conflict-free for scalar reads;
+//   * latency (mma.sync): two blocks an SM (<= 128 registers: a warp's 64 x
+//     32 running sums, one m16 row of step sums), each with a ring of 3
+//     stages of both operands' slices twice over (<= 101 KB);
+//   * the instruction: gemm_tn (`gemm_wg_kernel`) takes wgmma (m64n128k8,
+//     both operands from shared memory as core-matrix tiles that the split
+//     writes, one 115 KB block an SM, the split of the next slice under the
+//     current slice's products); its blocks reduce thousands of rows, and
+//     it ran at 1.3 times the mma.sync kernel there. gemm_nt / gemm_nn
+//     (`gemm_tc_kernel`) take mma.sync m16n8k8 (about 320 TFLOP/s of TF32
+//     on this card, measured): with 8 to 32 slices a block, the same wgmma
+//     design ran at 0.7-0.8 times the mma.sync kernel, whose two blocks an
+//     SM hide each other's prologue, barriers and epilogue.
+// The same tiles, grid, epilogue terms, split-K and fixed-order reduction as
+// the CUDA-core path.
+//
+// The CUDA-core path (`gemm_kernel`), for the sites `gemm_path_for` keeps
+// on it: fp32 FMAs, bound by their issue rate (67 TFLOP/s), shared-memory
+// reads and load latency keeping it from that rate. Design, shared by both
+// paths where it says so:
 //   * block tiles of 128x128 (256 threads, an 8x8 micro-tile per thread held
 //     as 2x2 sub-tiles of 4x4 at a stride of 64, so the inner loop's float4
 //     shared reads are conflict-free), or 128x64 / 64x64 where the output
-//     has too few tiles to fill the 132 SMs twice (`gemm_tile_for`);
+//     has too few tiles to fill the 132 SMs twice (`gemm_tile_for`, both);
 //   * 16-deep K slices in a 5-stage ring of 16-byte `cp.async` copies, so
 //     three slices load while one is transposed and one multiplied, and no
 //     load stages through registers; two blocks fit an SM (<= 128
 //     registers, <= 112 KB of dynamic shared memory), so one block's
-//     prologue and epilogue overlap the other's products;
+//     prologue and epilogue overlap the other's products (the tensor path:
+//     the same slices and copies in a 3-stage ring);
 //   * the inner loop reads both operands k-major (a float4 of 4 rows at one
 //     k), conflict-free: an operand contiguous along its rows lands k-major
 //     as it lies; one contiguous along k lands row-major (16-byte units,
 //     XOR-swizzled, `raw_off`) and is transposed in shared memory into one of
 //     two k-major buffers one slice ahead of its use, with `ascale` applied
 //     on the way;
-//   * a float4 epilogue where the output and its residuals are aligned;
+//   * a float4 epilogue where the output and its residuals are aligned
+//     (both: the tensor-core kernels stage their sums through shared memory
+//     first, since their fragments hold column pairs of 8 rows; written from
+//     the fragments, the residual-heavy c_out epilogue ran 1.5 times slower);
 //   * a scalar path (synchronous guarded loads into the same layout) for
 //     operands that are not 16-byte aligned or whose extents are not
 //     multiples of 4; guarded edges, so M, N and K need not be tile
-//     multiples.
-// No TF32 and no wgmma: the results are held to the JAX fp32 kernels, which
-// run their matmuls at HIGHEST precision.
+//     multiples (both).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -134,9 +184,9 @@ __device__ __forceinline__ int raw_off(int r, int k) {
 
 // One operand's tile of R rows (m or n) x kGemmBK, from global to shared.
 // kRowContig: element (row r, k) at P[k * ld + r], stored k-major as it
-// lies; else at P[r * ld + k], stored row-major (`raw_off`). Each thread
-// copies R * kGemmBK / 4 / 256 chunks of 4 floats.
-template <int R, bool kRowContig, bool kVec>
+// lies, KLD floats per k; else at P[r * ld + k], stored row-major
+// (`raw_off`). Each thread copies R * kGemmBK / 4 / 256 chunks of 4 floats.
+template <int R, bool kRowContig, bool kVec, int KLD = R>
 __device__ __forceinline__ void gemm_load_tile(float* s, const float* __restrict__ P, int ld,
                                                int rows, int r0, int k0, int kend) {
     constexpr int kChunks = R * kGemmBK / 4 / kGemmThreads;
@@ -148,7 +198,7 @@ __device__ __forceinline__ void gemm_load_tile(float* s, const float* __restrict
         if (kRowContig) {
             k = c / (R / 4);
             r = (c % (R / 4)) * 4;
-            dst = s + k * R + r;
+            dst = s + k * KLD + r;
         } else {
             r = c / (kGemmBK / 4);
             k = (c % (kGemmBK / 4)) * 4;
@@ -217,6 +267,41 @@ __device__ __forceinline__ void gemm_prepare(float* raw, float* km,
         km[(4 * q + 1) * R + r] = v.y;
         km[(4 * q + 2) * R + r] = v.z;
         km[(4 * q + 3) * R + r] = v.w;
+    }
+}
+
+// Stores outputs (r, c .. c + 3) of a problem with its epilogue: bias, pre,
+// the row mask, post, post2, in that order; c + 3 < N unless !vec_out, when
+// the columns past N are skipped.
+__device__ __forceinline__ void epilogue_store4(const GemmParams& p, const Epilogue& ep,
+                                                float* C, int r, int c, float (&v)[4]) {
+    const float mk = ep.rmask ? ep.rmask[r / ep.mask_div] : 1.f;
+    if (p.vec_out) {   // N % 4 == 0, so c + 3 < N
+        auto add4 = [&](const float* src) {
+            const float4 t = *reinterpret_cast<const float4*>(src);
+            v[0] += t.x; v[1] += t.y; v[2] += t.z; v[3] += t.w;
+        };
+        if (ep.bias) add4(ep.bias + c);
+        if (ep.pre) add4(ep.pre + (size_t)r * ep.ldpre + c);
+        if (ep.rmask)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) v[j] *= mk;
+        if (ep.post) add4(ep.post + (size_t)r * ep.ldpost + c);
+        if (ep.post2) add4(ep.post2 + (size_t)(r / ep.post2_div) * ep.ldpost2 + c);
+        *reinterpret_cast<float4*>(C + (size_t)r * p.ldc + c) = make_float4(v[0], v[1], v[2], v[3]);
+        return;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        const int cj = c + j;
+        if (cj >= p.N) continue;
+        float t = v[j];
+        if (ep.bias) t += ep.bias[cj];
+        if (ep.pre) t += ep.pre[(size_t)r * ep.ldpre + cj];
+        if (ep.rmask) t *= mk;
+        if (ep.post) t += ep.post[(size_t)r * ep.ldpost + cj];
+        if (ep.post2) t += ep.post2[(size_t)(r / ep.post2_div) * ep.ldpost2 + cj];
+        C[(size_t)r * p.ldc + cj] = t;
     }
 }
 
@@ -337,41 +422,473 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_kernel(GemmParams p) {
     for (int i = 0; i < MI; ++i) {
         const int r = m0 + (i / 4) * 64 + tr * 4 + i % 4;
         if (r >= p.M) continue;
-        const float mk = ep.rmask ? ep.rmask[r / ep.mask_div] : 1.f;
 #pragma unroll
         for (int y = 0; y < NI / 4; ++y) {
             const int c = n0 + y * 64 + tc * 4;
             if (c >= p.N) continue;
             float v[4] = {acc[i][y * 4], acc[i][y * 4 + 1], acc[i][y * 4 + 2], acc[i][y * 4 + 3]};
-            if (p.vec_out) {   // N % 4 == 0, so c + 3 < N
-                auto add4 = [&](const float* src) {
-                    const float4 t = *reinterpret_cast<const float4*>(src);
-                    v[0] += t.x; v[1] += t.y; v[2] += t.z; v[3] += t.w;
-                };
-                if (ep.bias) add4(ep.bias + c);
-                if (ep.pre) add4(ep.pre + (size_t)r * ep.ldpre + c);
-                if (ep.rmask)
+            epilogue_store4(p, ep, C, r, c, v);
+        }
+    }
+}
+
+// ---------------------------------------------------------------------
+// The tensor-core path: 3xTF32 on mma.sync m16n8k8 (see the head of the
+// file). Same slices and plan as gemm_kernel, in a ring of kTcStages; a
+// row-contiguous operand lands k-major at a stride of R + kTcPad floats.
+// Each stage holds a slice twice over: the landed copy, which the split
+// overwrites with the big parts, and the small parts beside it.
+constexpr int kTcPad = 8;
+constexpr int kTcStages = 3;
+
+template <int R, bool kRowContig>
+__host__ __device__ constexpr int tc_stage_floats() {
+    return 2 * (kRowContig ? kGemmBK * (R + kTcPad) : R * kGemmBK);
+}
+
+template <int BM, int BN, bool kAT, bool kBN>
+__host__ __device__ constexpr int gemm_tc_smem_floats() {
+    return kTcStages * (tc_stage_floats<BM, kAT>() + tc_stage_floats<BN, kBN>());
+}
+
+// cvt.rna.tf32.f32 (the nearest TF32 value, ties away from zero) in
+// integer ops, bit for bit the same for every float but NaN, which it
+// passes through unchanged: half a TF32 ulp added to the magnitude, the 13
+// low bits cleared.
+__device__ __forceinline__ float rna_tf32(float x) {
+    const uint32_t b = __float_as_uint(x);
+    return x != x ? x : __uint_as_float((b + 0x1000u) & 0xffffe000u);
+}
+
+// c += a b over one k8 step: a the m16 x k8 fragment (rows g, g + 8; k t,
+// t + 4), b the k8 x n8 fragment (k t, t + 4; column g).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 4 tf32 matrices from shared memory (ldmatrix's 8 x 8 b16): lane
+// l gives the address of row l % 8 of matrix l / 8 (16 bytes) and gets
+// element (l / 4, l % 4) of each, the layout of mma's tf32 fragments.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
+    const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(a)
+                 : "memory");
+}
+
+// Splits a landed slice of one operand (R rows x kGemmBK, layout as
+// gemm_load_tile<R, kRowContig, ..., KLD> wrote it) in place: each value x
+// (scaled first by scale[(row0 + r) / adiv], 0 past lim, when scale is
+// given: gemm_nn's A) becomes big = rna(x), and small = rna(x - big) goes to
+// the same offset of `sm`.
+template <int R, bool kRowContig, int KLD>
+__device__ __forceinline__ void tc_split_tile(float* s, float* sm, const float* __restrict__ scale,
+                                              int adiv, int lim, int row0) {
+    constexpr int kChunks = R * kGemmBK / 4 / kGemmThreads;
 #pragma unroll
-                    for (int j = 0; j < 4; ++j) v[j] *= mk;
-                if (ep.post) add4(ep.post + (size_t)r * ep.ldpost + c);
-                if (ep.post2) add4(ep.post2 + (size_t)(r / ep.post2_div) * ep.ldpost2 + c);
-                *reinterpret_cast<float4*>(C + (size_t)r * p.ldc + c) =
-                    make_float4(v[0], v[1], v[2], v[3]);
+    for (int j = 0; j < kChunks; ++j) {
+        const int c = threadIdx.x + j * kGemmThreads;
+        int off, row;
+        if (kRowContig) {
+            const int k = c / (R / 4);
+            off = k * KLD + (c % (R / 4)) * 4;
+            row = row0 + k;
+        } else {
+            const int r = c / (kGemmBK / 4);
+            off = raw_off(r, (c % (kGemmBK / 4)) * 4);
+            row = row0 + r;
+        }
+        float4 v = *reinterpret_cast<const float4*>(s + off);
+        if (scale) {
+            const float sc = row < lim ? scale[row / adiv] : 0.f;
+            v.x *= sc; v.y *= sc; v.z *= sc; v.w *= sc;
+        }
+        const float4 big = make_float4(rna_tf32(v.x), rna_tf32(v.y), rna_tf32(v.z), rna_tf32(v.w));
+        *reinterpret_cast<float4*>(s + off) = big;
+        *reinterpret_cast<float4*>(sm + off) =
+            make_float4(rna_tf32(v.x - big.x), rna_tf32(v.y - big.y), rna_tf32(v.z - big.z),
+                        rna_tf32(v.w - big.w));
+    }
+}
+
+// gemm_nt and gemm_nn (A (M, K) k-contiguous; W (N, K) or (K, N)): kBN,
+// kVec and the grid as gemm_kernel. Warp w owns rows (w / 4) * BM / 2 .. +
+// BM / 2 and columns (w % 4) * BN / 4 .. + BN / 4 of the block tile as MT x
+// NT fragments of m16n8; lane = 4 g + t. Slice kt + 1 is split while slice
+// kt is multiplied; one barrier a slice.
+template <int BM, int BN, bool kAT, bool kBN, bool kVec>
+__global__ void __launch_bounds__(kGemmThreads, 2) gemm_tc_kernel(GemmParams p) {
+    static_assert(!kAT, "gemm_tn takes gemm_wg_kernel");
+    constexpr int S = kTcStages;
+    constexpr int WM = BM / 2, WN = BN / 4;
+    constexpr int MT = WM / 16, NT = WN / 8;
+    constexpr int LW = BN + kTcPad;                       // W's k-major stride (nn)
+    constexpr int SA = tc_stage_floats<BM, false>() / 2;  // one copy of a slice
+    constexpr int SW = tc_stage_floats<BN, kBN>() / 2;
+    static_assert(NT % 2 == 0, "B fragments load two n8 tiles at a time");
+    extern __shared__ float4 gemm_smem4[];
+    float* const ringA = reinterpret_cast<float*>(gemm_smem4);   // (S, 2, SA): big, small
+    float* const ringW = ringA + S * 2 * SA;                     // (S, 2, SW)
+
+    const int tid = threadIdx.x;
+    const int lane = tid % 32, warp = tid / 32;
+    const int g = lane / 4, t = lane % 4;
+    const int wr = (warp / 4) * WM, wc = (warp % 4) * WN;
+    const int prob = blockIdx.y;
+    const float* __restrict__ W = p.W[prob];
+    const int col_tiles = (p.N + BN - 1) / BN;
+    const int m0 = (blockIdx.x / col_tiles) * BM;
+    const int n0 = (blockIdx.x % col_tiles) * BN;
+    const int kbeg = blockIdx.z * p.kchunk;
+    const int kend = min(p.K, kbeg + p.kchunk);
+    const int nk = (kend - kbeg + kGemmBK - 1) / kGemmBK;
+
+    auto load = [&](int kt) {
+        const int s = kt % S;
+        gemm_load_tile<BM, false, kVec>(ringA + s * 2 * SA, p.A, p.lda, p.M, m0,
+                                        kbeg + kt * kGemmBK, kend);
+        gemm_load_tile<BN, kBN, kVec, LW>(ringW + s * 2 * SW, W, p.ldw, p.N, n0,
+                                          kbeg + kt * kGemmBK, kend);
+    };
+    auto prepare = [&](int kt) {
+        float* a = ringA + (kt % S) * 2 * SA;
+        float* w = ringW + (kt % S) * 2 * SW;
+        tc_split_tile<BM, false, BM>(a, a + SA, p.ascale, p.adiv, p.M, m0);
+        tc_split_tile<BN, kBN, LW>(w, w + SW, nullptr, 1, 0, 0);
+    };
+
+    // Fragment addresses. A k-major W: element (r0 + c, k0 + t) at (k0 + t)
+    // * LW + r0 + c, r0 = wc + g. k-contiguous tiles
+    // (`raw_off`, 16-byte units XOR-swizzled by (r / 2) % 4): ldmatrix rows,
+    // lane l giving row q = l % 8 of matrix l / 8; for A matrix (h, u) is rows
+    // 8 h .. 8 h + 7 of a fragment at k unit u (the fragment's a0..a3 are (0,
+    // 0), (1, 0), (0, 1), (1, 1)); for W it is n8 tile 2 jj + h at unit u, in
+    // the order (0, 0), (0, 1), (1, 0), (1, 1) (b0, b1 of two tiles). A row's
+    // swizzle is (q / 2) % 4 for every fragment, so the k8 step's two units
+    // take two per-thread offsets and all else is immediate.
+    const int lq = lane % 8, lm = lane / 8;
+    const int xq = (lq >> 1) & 3;
+    int koA[2], koW[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        koA[h] = 16 * (wr + 8 * (lm & 1) + lq) + 4 * ((2 * h + (lm >> 1)) ^ xq);
+        koW[h] = 16 * (wc + 8 * (lm >> 1) + lq) + 4 * ((2 * h + (lm & 1)) ^ xq);
+    }
+
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+    for (int s = 0; s < S - 1; ++s) {
+        if (s < nk) load(s);
+        cp_async_commit();
+    }
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    prepare(0);
+    for (int kt = 0; kt < nk; ++kt) {
+        // Slice kt + 1 has landed for every thread, slice kt is split, and
+        // every thread is done with slice kt - 1, whose stage is reused now.
+        cp_async_wait<S - 3>();
+        __syncthreads();
+        if (kt + S - 1 < nk) load(kt + S - 1);
+        cp_async_commit();
+        if (kt + 1 < nk) prepare(kt + 1);
+        const float* ab_ = ringA + (kt % S) * 2 * SA;   // big parts; small at + SA
+        const float* wb_ = ringW + (kt % S) * 2 * SW;
+#pragma unroll
+        for (int k8 = 0; k8 < kGemmBK; k8 += 8) {
+            uint32_t bb[NT][2], bs[NT][2];
+            if (kBN) {
+#pragma unroll
+                for (int j = 0; j < NT; ++j)
+#pragma unroll
+                    for (int q = 0; q < 2; ++q) {
+                        const int off = (k8 + 4 * q + t) * LW + wc + g + 8 * j;
+                        bb[j][q] = __float_as_uint(wb_[off]);
+                        bs[j][q] = __float_as_uint(wb_[SW + off]);
+                    }
             } else {
 #pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    const int cj = c + j;
-                    if (cj >= p.N) continue;
-                    float t = v[j];
-                    if (ep.bias) t += ep.bias[cj];
-                    if (ep.pre) t += ep.pre[(size_t)r * ep.ldpre + cj];
-                    if (ep.rmask) t *= mk;
-                    if (ep.post) t += ep.post[(size_t)r * ep.ldpost + cj];
-                    if (ep.post2) t += ep.post2[(size_t)(r / ep.post2_div) * ep.ldpost2 + cj];
-                    C[(size_t)r * p.ldc + cj] = t;
+                for (int jj = 0; jj < NT / 2; ++jj) {
+                    uint32_t r[4];
+                    ldsm_x4(r, wb_ + koW[k8 / 8] + 256 * jj);
+                    bb[2 * jj][0] = r[0]; bb[2 * jj][1] = r[1];
+                    bb[2 * jj + 1][0] = r[2]; bb[2 * jj + 1][1] = r[3];
+                    ldsm_x4(r, wb_ + SW + koW[k8 / 8] + 256 * jj);
+                    bs[2 * jj][0] = r[0]; bs[2 * jj][1] = r[1];
+                    bs[2 * jj + 1][0] = r[2]; bs[2 * jj + 1][1] = r[3];
                 }
             }
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+                uint32_t ab[4], asml[4];
+                ldsm_x4(ab, ab_ + koA[k8 / 8] + 256 * i);
+                ldsm_x4(asml, ab_ + SA + koA[k8 / 8] + 256 * i);
+                // Small terms first (a_s b_b, a_b b_s, then a_b b_b) into a
+                // zeroed fragment that is added to the running sum in fp32:
+                // the tensor cores' own accumulation truncates as it aligns
+                // its addends, and over a long K that error is biased, so the
+                // running sum never passes through it.
+                float step[NT][4];
+#pragma unroll
+                for (int j = 0; j < NT; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) step[j][e] = 0.f;
+#pragma unroll
+                for (int j = 0; j < NT; ++j) mma_tf32(step[j], asml, bb[j][0], bb[j][1]);
+#pragma unroll
+                for (int j = 0; j < NT; ++j) mma_tf32(step[j], ab, bs[j][0], bs[j][1]);
+#pragma unroll
+                for (int j = 0; j < NT; ++j) mma_tf32(step[j], ab, bb[j][0], bb[j][1]);
+#pragma unroll
+                for (int j = 0; j < NT; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) acc[i][j][e] += step[j][e];
+            }
         }
+    }
+    // The epilogue reads and writes whole rows: the block's sums go through
+    // shared memory (the ring is free now; rows BN + 8 floats apart, so the
+    // fragments' column pairs land conflict-free) and come back 4 columns a
+    // thread, a warp along a row, as gemm_kernel's epilogue takes them.
+    cp_async_wait<0>();
+    __syncthreads();
+    constexpr int LT = BN + 8;
+    static_assert(BM * LT <= gemm_tc_smem_floats<BM, BN, kAT, kBN>(), "the tile fits the ring");
+    float* const tile = reinterpret_cast<float*>(gemm_smem4);
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+                *reinterpret_cast<float2*>(tile + (wr + i * 16 + g + 8 * h) * LT + wc + j * 8 + 2 * t) =
+                    make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+    __syncthreads();
+    const Epilogue& ep = p.ep[prob];
+    float* C = p.C[prob];
+    for (int e = tid; e < BM * BN / 4; e += kGemmThreads) {
+        const int rr = e / (BN / 4), cc = (e % (BN / 4)) * 4;
+        const int r = m0 + rr, c = n0 + cc;
+        if (r >= p.M || c >= p.N) continue;
+        const float4 t4 = *reinterpret_cast<const float4*>(tile + rr * LT + cc);
+        float v[4] = {t4.x, t4.y, t4.z, t4.w};
+        epilogue_store4(p, ep, C, r, c, v);
+    }
+}
+
+// ---------------------------------------------------------------------
+// gemm_tn on the tensor cores: 3xTF32 on wgmma (m64n128k8, both operands
+// from shared memory). A warpgroup issues a slice's six products (two k8
+// steps, small terms first) as one group and splits the next slice while
+// they run; the group writes zeroed step sums (scale-d 0 on its first
+// product) that an FADD adds to the fp32 running sum after the wait. The
+// operands are K-major tiles of core matrices (8 rows x 16 bytes, rows 16
+// bytes apart; the 4 units of a row's 16 k adjacent, 128 bytes apart: the
+// descriptor's leading byte offset; row groups 512 bytes apart: its stride
+// byte offset), written by the split from the landed k-major slices.
+constexpr int kWgStages = 3;
+
+__host__ __device__ constexpr int wg_raw_floats() { return kGemmBK * (128 + kTcPad); }
+
+__host__ __device__ constexpr int gemm_wg_smem_floats() {
+    return kWgStages * 2 * wg_raw_floats() + 2 * 2 * 2 * 128 * kGemmBK;
+}
+
+// Float offset of (row r, k unit u) in a core-matrix tile.
+__device__ __forceinline__ int core_off(int r, int u) {
+    return ((((r >> 3) << 2) + u) << 5) + ((r & 7) << 2);
+}
+
+// A shared-memory matrix descriptor of a core-matrix tile, no swizzle:
+// leading byte offset 128 (next unit of k), stride byte offset 512 (next 8
+// rows).
+__device__ __forceinline__ uint64_t wg_desc(const float* p) {
+    const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+    return (uint64_t)((a & 0x3FFFFu) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+           ((uint64_t)(512 >> 4) << 32);
+}
+
+// Orders the compiler's use of registers that an asynchronous wgmma
+// writes: after the wait, no read of them moves above it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
+
+// Splits a landed k-major slice (128 rows x kGemmBK, k at a stride of
+// KLD) into big and small core-matrix tiles; with `scale` (the slice's
+// kGemmBK row scales), each stored row k is scaled first by scale[k].
+template <int KLD>
+__device__ __forceinline__ void wg_split_tile(const float* raw, float* big, float* small,
+                                              const float* scale) {
+    constexpr int kUnits = 128 * (kGemmBK / 4) / kGemmThreads;
+#pragma unroll
+    for (int j = 0; j < kUnits; ++j) {
+        const int c = threadIdx.x + j * kGemmThreads;
+        const int r = c % 128, u = c / 128;
+        float v[4], b[4], sm[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            v[q] = raw[(4 * u + q) * KLD + r];
+            if (scale) v[q] *= scale[4 * u + q];
+            b[q] = rna_tf32(v[q]);
+            sm[q] = rna_tf32(v[q] - b[q]);
+        }
+        const int off = core_off(r, u);
+        *reinterpret_cast<float4*>(big + off) = make_float4(b[0], b[1], b[2], b[3]);
+        *reinterpret_cast<float4*>(small + off) = make_float4(sm[0], sm[1], sm[2], sm[3]);
+    }
+}
+
+// gemm_tn's 128x128 blocks (A (K, M), B (K, N), both k-major as they land;
+// split-K, column sums and grid as gemm_kernel): warpgroup w owns rows 64 w
+// .. 64 w + 63 of the tile; its running sums lie as wgmma's m64n128
+// accumulator (rows 16 (warp % 4) + g and + 8, columns 8 j + 2 t, + 1).
+template <bool kVec>
+__global__ void __launch_bounds__(kGemmThreads, 1) gemm_wg_kernel(GemmParams p) {
+    constexpr int S = kWgStages;
+    constexpr int L = 128 + kTcPad;
+    constexpr int R = wg_raw_floats();
+    constexpr int CT = 128 * kGemmBK;   // one core-matrix tile
+    constexpr int NR = 64;              // running sums a thread
+    extern __shared__ float4 gemm_smem4[];
+    float* const ringA = reinterpret_cast<float*>(gemm_smem4);   // (S, R)
+    float* const ringW = ringA + S * R;                          // (S, R)
+    float* const splitA = ringW + S * R;                         // (2, big | small, CT)
+    float* const splitW = splitA + 4 * CT;                       // (2, big | small, CT)
+    __shared__ float row_scale[S][kGemmBK];   // A's row scales of a ring stage
+
+    const int tid = threadIdx.x;
+    const int lane = tid % 32, warp = tid / 32;
+    const int g = lane / 4, t = lane % 4;
+    const int wg = warp / 4, wi = warp % 4;
+    const float* __restrict__ W = p.W[0];
+    const int col_tiles = (p.N + 127) / 128;
+    const int m0 = (blockIdx.x / col_tiles) * 128;
+    const int n0 = (blockIdx.x % col_tiles) * 128;
+    const int kbeg = blockIdx.z * p.kchunk;
+    const int kend = min(p.K, kbeg + p.kchunk);
+    const int nk = (kend - kbeg + kGemmBK - 1) / kGemmBK;
+    const bool colsum = p.colsum && n0 == 0;
+    float cs = 0.f;
+
+    auto load = [&](int kt) {
+        const int s = kt % S;
+        gemm_load_tile<128, true, kVec, L>(ringA + s * R, p.A, p.lda, p.M, m0,
+                                           kbeg + kt * kGemmBK, kend);
+        gemm_load_tile<128, true, kVec, L>(ringW + s * R, W, p.ldw, p.N, n0,
+                                           kbeg + kt * kGemmBK, kend);
+        if (p.ascale && tid < kGemmBK) {   // one division and load a row
+            const int row = kbeg + kt * kGemmBK + tid;
+            row_scale[s][tid] = row < kend ? p.ascale[row / p.adiv] : 0.f;
+        }
+    };
+    // The split's shared-memory writes are generic-proxy stores that wgmma
+    // reads through the async proxy: each writer fences them before the
+    // barrier that precedes the reads.
+    auto prepare = [&](int kt) {
+        float* a = splitA + (kt & 1) * 2 * CT;
+        float* w = splitW + (kt & 1) * 2 * CT;
+        wg_split_tile<L>(ringA + (kt % S) * R, a, a + CT, p.ascale ? row_scale[kt % S] : nullptr);
+        wg_split_tile<L>(ringW + (kt % S) * R, w, w + CT, nullptr);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    };
+
+    float acc[NR], step[NR];
+#pragma unroll
+    for (int e = 0; e < NR; ++e) acc[e] = step[e] = 0.f;
+
+#pragma unroll
+    for (int s = 0; s < S - 1; ++s) {
+        if (s < nk) load(s);
+        cp_async_commit();
+    }
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    prepare(0);
+    for (int kt = 0; kt < nk; ++kt) {
+        // Slice kt + 1 has landed, slice kt is split, and slice kt - 1's
+        // products are done (each warpgroup waited on them), so its stage
+        // and split tiles are free.
+        cp_async_wait<S - 3>();
+        __syncthreads();
+        if (kt + S - 1 < nk) load(kt + S - 1);
+        cp_async_commit();
+        const float* ab = splitA + (kt & 1) * 2 * CT + core_off(64 * wg, 0);
+        const float* as_ = ab + CT;
+        const float* wb = splitW + (kt & 1) * 2 * CT;
+        const float* ws = wb + CT;
+        fence_regs(step);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int ku = 64 * h;   // two units of k
+            wgmma_tf32_n128(step, wg_desc(as_ + ku), wg_desc(wb + ku), h);
+            wgmma_tf32_n128(step, wg_desc(ab + ku), wg_desc(ws + ku), 1);
+            wgmma_tf32_n128(step, wg_desc(ab + ku), wg_desc(wb + ku), 1);
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        if (kt + 1 < nk) prepare(kt + 1);
+        if (colsum && tid < 128) {   // A's scaled slice, from the landed copy
+            const float* raw = ringA + (kt % S) * R;
+#pragma unroll
+            for (int kk = 0; kk < kGemmBK; ++kk)
+                cs += p.ascale ? raw[kk * L + tid] * row_scale[kt % S][kk] : raw[kk * L + tid];
+        }
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_regs(step);
+#pragma unroll
+        for (int e = 0; e < NR; ++e) acc[e] += step[e];
+    }
+    cp_async_wait<0>();
+    if (colsum && tid < 128 && m0 + tid < p.M)
+        p.colsum[(size_t)blockIdx.z * p.M + m0 + tid] = cs;
+
+    // The partial sums go out in whole rows through shared memory, as
+    // gemm_tc_kernel's.
+    __syncthreads();
+    constexpr int LT = 128 + 8;
+    static_assert(128 * LT <= gemm_wg_smem_floats(), "the tile fits the ring");
+    float* const tile = reinterpret_cast<float*>(gemm_smem4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+            *reinterpret_cast<float2*>(tile + (64 * wg + 16 * wi + g + 8 * h) * LT + 8 * j + 2 * t) =
+                make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    __syncthreads();
+    float* C = p.C[0] + (size_t)blockIdx.z * p.M * p.ldc;
+    for (int e = tid; e < 128 * 32; e += kGemmThreads) {
+        const int rr = e / 32, cc = (e % 32) * 4;
+        const int r = m0 + rr, c = n0 + cc;
+        if (r >= p.M || c >= p.N) continue;
+        const float4 t4 = *reinterpret_cast<const float4*>(tile + rr * LT + cc);
+        float v[4] = {t4.x, t4.y, t4.z, t4.w};
+        epilogue_store4(p, p.ep[0], C, r, c, v);
     }
 }
 
@@ -380,23 +897,87 @@ inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 1
 // Whether a (rows, ld) operand or epilogue term takes float4 accesses.
 inline bool vec_ok(const void* p, int ld) { return !p || (aligned16(p) && ld % 4 == 0); }
 
+// How gemm_tn splits its R rows (on either path): as many 128x128 blocks as
+// two blocks on each of the 132 SMs hold at once (one wave of the CUDA-core
+// kernel, two of the tensor-core one, no ragged tail), at least 64 rows
+// each.
+struct SplitK {
+    int splits, kchunk;
+};
+inline SplitK splitk_for(int M, int N, int R) {
+    const long long tiles = gemm_tiles(kTile128x128, M, N);
+    long long z = 2 * kGemmSMs / tiles;
+    const long long zmax = (R + 63) / 64;
+    if (z > zmax) z = zmax;
+    if (z < 1) z = 1;
+    int kchunk = (int)((R + z - 1) / z);
+    kchunk = (kchunk + kGemmBK - 1) / kGemmBK * kGemmBK;
+    return {(R + kchunk - 1) / kchunk, kchunk};
+}
+
+// The two paths; `gemm_path_for` picks one by layout (0 nt, 1 nn, 2 tn) and
+// shape, statically (the Python mirror in ops/gemm_cuda.py restates the
+// rule), from the two paths' times on the H100 (chip_smoke.py phase 14,
+// PERF.md §6). gemm_nt and gemm_nn take the tensor cores from M N K =
+// 2^29 on (per problem): there the tensor path ran at 0.96-1.23 times the
+// CUDA cores' speed, most products at 1.1-1.2; below (a few hundred to a
+// few thousand rows) at 0.5-1.15 times, within the noise of launches that
+// short. gemm_tn's tensor-core blocks (one an SM) pay their prologue and
+// epilogue over the rows a block reduces: from kWgMinRows rows on they take
+// the tensor cores (528-8,320 rows a block ran at 1.19-1.42 times), below
+// the CUDA cores (64-144 rows at 0.92-1.04 times).
+enum GemmPath { kPathCudaCore = 0, kPathTensor = 1 };
+constexpr int kWgMinRows = 512;
+constexpr long long kTcMinWork = 1LL << 29;
+
+inline int gemm_path_for(int layout, int M, int N, int K, int groups) {
+    (void)groups;
+    if (layout == 2) return splitk_for(M, N, K).kchunk >= kWgMinRows ? kPathTensor : kPathCudaCore;
+    return (long long)M * N * K >= kTcMinWork ? kPathTensor : kPathCudaCore;
+}
+
+// The one call site that fixes its path instead: the moment unit's product
+// over [x1 | x2] (K = 2D, smin_units.cuh::layer_forward) takes the tensor
+// cores at every shape, for accuracy. At the top of an SMI stack x1 = bu[i]
+// bu[j] reaches about 2,500 and mu cancels to near zero at some pairs; there
+// no fp32 evaluation stays within K2's tolerance of float64 (the fp32 plain
+// version misses it at 11 to 1,172 elements of a layer), 3xTF32 comes
+// closest (at 0 to 284), and the CUDA cores' one FMA chain over K = 2D lands
+// farther from float64 than the plain version (PERF.md §6).
+// ops/gemm_cuda.py::SITE_PATHS mirrors it.
+constexpr int kMomentProductPath = kPathTensor;
+
+// Dynamic shared memory of one block of a path, layout and tile.
+template <int BM, int BN, bool kAT, bool kBN>
+constexpr size_t gemm_smem_bytes(int path) {
+    if (path != kPathTensor) return sizeof(float) * gemm_smem_floats<BM, BN, kAT, kBN>();
+    return sizeof(float) * (kAT ? gemm_wg_smem_floats() : gemm_tc_smem_floats<BM, BN, kAT, kBN>());
+}
+
 // Whether this library has raised a kernel instance's shared-memory limit on
-// a device, by [device][layout nt / nn / tn][tile][vec]. A namespace-scope
-// static has internal linkage: each .cu (its own library) keeps its own, as
-// it must, since each has its own copy of the kernels. (A function-local
-// static in an inline function or template would be one object across the
-// libraries of a process.)
-static bool g_gemm_smem_raised[8][3][3][2];
+// a device, by [device][path][layout nt / nn / tn][tile][vec]. A
+// namespace-scope static has internal linkage: each .cu (its own library)
+// keeps its own, as it must, since each has its own copy of the kernels. (A
+// function-local static in an inline function or template would be one
+// object across the libraries of a process.)
+static bool g_gemm_smem_raised[8][2][3][3][2];
 
 template <int BM, int BN, bool kAT, bool kBN>
-inline void gemm_run(cudaStream_t st, dim3 grid, const GemmParams& p, bool vec) {
-    constexpr size_t smem = sizeof(float) * gemm_smem_floats<BM, BN, kAT, kBN>();
+inline void gemm_run(cudaStream_t st, dim3 grid, const GemmParams& p, bool vec, int path) {
+    const size_t smem = gemm_smem_bytes<BM, BN, kAT, kBN>(path);
     constexpr int layout = kAT ? 2 : kBN ? 1 : 0;
     constexpr int tile = BM == 128 ? (BN == 128 ? kTile128x128 : kTile128x64) : kTile64x64;
-    auto kernel = vec ? gemm_kernel<BM, BN, kAT, kBN, true> : gemm_kernel<BM, BN, kAT, kBN, false>;
+    void (*tensor)(GemmParams);
+    if constexpr (kAT)   // gemm_tn: 128x128 tiles only
+        tensor = vec ? gemm_wg_kernel<true> : gemm_wg_kernel<false>;
+    else
+        tensor = vec ? gemm_tc_kernel<BM, BN, kAT, kBN, true> : gemm_tc_kernel<BM, BN, kAT, kBN, false>;
+    auto kernel = path == kPathTensor ? tensor
+                                      : (vec ? gemm_kernel<BM, BN, kAT, kBN, true>
+                                             : gemm_kernel<BM, BN, kAT, kBN, false>);
     int dev = 0;
     if (cudaGetDevice(&dev) != cudaSuccess) return;   // the caller's cudaGetLastError() reports it
-    bool* raised = dev < 8 ? &g_gemm_smem_raised[dev][layout][tile][vec] : nullptr;
+    bool* raised = dev < 8 ? &g_gemm_smem_raised[dev][path][layout][tile][vec] : nullptr;
     if (!raised || !*raised) {
         if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)smem) != cudaSuccess)
@@ -406,13 +987,16 @@ inline void gemm_run(cudaStream_t st, dim3 grid, const GemmParams& p, bool vec) 
     kernel<<<grid, kGemmThreads, smem, st>>>(p);
 }
 
-// Launches one layout of gemm_kernel over `groups` problems (p.W / p.C /
-// p.ep [0 .. groups)) and `splits` blocks along z; tile < 0 picks the tile.
-// gemm_tn runs on 128x128 tiles only (its split-K fills the SMs).
+// Launches one layout over `groups` problems (p.W / p.C / p.ep [0 ..
+// groups)) and `splits` blocks along z; tile < 0 picks the tile, path < 0
+// the path (by shape). gemm_tn runs on 128x128 tiles only (its split-K
+// fills the SMs).
 template <bool kAT, bool kBN>
-inline void gemm_launch(cudaStream_t st, GemmParams p, int groups, int splits, int tile) {
+inline void gemm_launch(cudaStream_t st, GemmParams p, int groups, int splits, int tile,
+                        int path) {
     if (kAT) tile = kTile128x128;
     if (tile < 0) tile = gemm_tile_for(p.M, p.N, groups);
+    if (path < 0) path = gemm_path_for(kAT ? 2 : kBN ? 1 : 0, p.M, p.N, p.K, groups);
     const dim3 grid((unsigned)gemm_tiles(tile, p.M, p.N), groups, splits);
     // 16-byte copies: the extent along which each operand is contiguous.
     bool vec = (kAT ? p.M : p.K) % 4 == 0 && (kBN ? p.N : p.K) % 4 == 0 &&
@@ -426,12 +1010,12 @@ inline void gemm_launch(cudaStream_t st, GemmParams p, int groups, int splits, i
     }
     p.vec_out = vec_out;
     if constexpr (kAT) {
-        gemm_run<128, 128, kAT, kBN>(st, grid, p, vec);
+        gemm_run<128, 128, kAT, kBN>(st, grid, p, vec, path);
     } else {
         switch (tile) {
-            case kTile128x128: gemm_run<128, 128, kAT, kBN>(st, grid, p, vec); break;
-            case kTile128x64: gemm_run<128, 64, kAT, kBN>(st, grid, p, vec); break;
-            default: gemm_run<64, 64, kAT, kBN>(st, grid, p, vec); break;
+            case kTile128x128: gemm_run<128, 128, kAT, kBN>(st, grid, p, vec, path); break;
+            case kTile128x64: gemm_run<128, 64, kAT, kBN>(st, grid, p, vec, path); break;
+            default: gemm_run<64, 64, kAT, kBN>(st, grid, p, vec, path); break;
         }
     }
 }
@@ -445,13 +1029,14 @@ inline GemmParams gemm_params(int M, int N, int K, const float* A, int lda, cons
     return p;
 }
 
-// C = epilogue(A @ W^T) on `stream`; W (N, K). `tile` < 0: by shape.
+// C = epilogue(A @ W^T) on `stream`; W (N, K). `tile`, `path` < 0: by
+// shape (the card tests force them).
 inline void gemm_nt(cudaStream_t stream, int M, int N, int K, const float* A, int lda,
                     const float* W, int ldw, float* C, int ldc, const Epilogue& ep,
-                    int tile = -1) {
+                    int tile = -1, int path = -1) {
     GemmParams p = gemm_params(M, N, K, A, lda, nullptr, 1, ldw, ldc);
     p.W[0] = W; p.C[0] = C; p.ep[0] = ep;
-    gemm_launch<false, false>(stream, p, 1, 1, tile);
+    gemm_launch<false, false>(stream, p, 1, 1, tile, path);
 }
 
 // Two products of one A in one launch: C0 = ep0(A @ W0^T), C1 = ep1(A @ W1^T).
@@ -460,16 +1045,16 @@ inline void gemm_nt2(cudaStream_t stream, int M, int N, int K, const float* A, i
                      const Epilogue& ep0, const Epilogue& ep1) {
     GemmParams p = gemm_params(M, N, K, A, lda, nullptr, 1, ldw, ldc);
     p.W[0] = W0; p.W[1] = W1; p.C[0] = C0; p.C[1] = C1; p.ep[0] = ep0; p.ep[1] = ep1;
-    gemm_launch<false, false>(stream, p, 2, 1, -1);
+    gemm_launch<false, false>(stream, p, 2, 1, -1, -1);
 }
 
 // C = epilogue((A * ascale[row / adiv]) @ W) on `stream`; W (K, N).
 inline void gemm_nn(cudaStream_t stream, int M, int N, int K, const float* A, int lda,
                     const float* ascale, int adiv, const float* W, int ldw, float* C,
-                    int ldc, const Epilogue& ep, int tile = -1) {
+                    int ldc, const Epilogue& ep, int tile = -1, int path = -1) {
     GemmParams p = gemm_params(M, N, K, A, lda, ascale, adiv, ldw, ldc);
     p.W[0] = W; p.C[0] = C; p.ep[0] = ep;
-    gemm_launch<false, true>(stream, p, 1, 1, tile);
+    gemm_launch<false, true>(stream, p, 1, 1, tile, path);
 }
 
 // Two products of one scaled A in one launch, as gemm_nt2.
@@ -478,7 +1063,7 @@ inline void gemm_nn2(cudaStream_t stream, int M, int N, int K, const float* A, i
                      float* C0, float* C1, int ldc, const Epilogue& ep0, const Epilogue& ep1) {
     GemmParams p = gemm_params(M, N, K, A, lda, ascale, adiv, ldw, ldc);
     p.W[0] = W0; p.W[1] = W1; p.C[0] = C0; p.C[1] = C1; p.ep[0] = ep0; p.ep[1] = ep1;
-    gemm_launch<false, true>(stream, p, 2, 1, -1);
+    gemm_launch<false, true>(stream, p, 2, 1, -1, -1);
 }
 
 // out[e] = sum_z partial[z * count + e] and bout[m] = sum_z bpartial[z * bcount
@@ -499,22 +1084,6 @@ __global__ void reduce_partials_kernel(int Z, size_t count, const float* __restr
     }
 }
 
-// How gemm_tn splits its R rows: as many 128x128 blocks as two blocks on
-// each of the 132 SMs hold at once (one wave, no ragged tail), at least 64
-// rows each.
-struct SplitK {
-    int splits, kchunk;
-};
-inline SplitK splitk_for(int M, int N, int R) {
-    const long long tiles = gemm_tiles(kTile128x128, M, N);
-    long long z = 2 * kGemmSMs / tiles;
-    const long long zmax = (R + 63) / 64;
-    if (z > zmax) z = zmax;
-    if (z < 1) z = 1;
-    int kchunk = (int)((R + z - 1) / z);
-    kchunk = (kchunk + kGemmBK - 1) / kGemmBK * kGemmBK;
-    return {(R + kchunk - 1) / kchunk, kchunk};
-}
 // Floats of the partial-sum buffer gemm_tn needs: the split products and
 // the split column sums.
 inline size_t gemm_tn_partial_floats(int M, int N, int R) {
@@ -523,10 +1092,11 @@ inline size_t gemm_tn_partial_floats(int M, int N, int R) {
 
 // out (M, N) = (A * ascale[row / adiv])^T @ B, A (R, M), B (R, N), reduced
 // over the R rows through `partial`; bias_out (M,) (optional) = the column
-// sums of the scaled A, a bias gradient, from the same pass over A.
+// sums of the scaled A, a bias gradient, from the same pass over A. The
+// split, and so `partial`'s size, is the same on both paths.
 inline void gemm_tn(cudaStream_t stream, int M, int N, int R, const float* A, int lda,
                     const float* ascale, int adiv, const float* B, int ldb, float* partial,
-                    float* out, float* bias_out = nullptr) {
+                    float* out, float* bias_out = nullptr, int path = -1) {
     const SplitK s = splitk_for(M, N, R);
     GemmParams p = gemm_params(M, N, R, A, lda, ascale, adiv, ldb, N);
     p.kchunk = s.kchunk;
@@ -534,7 +1104,7 @@ inline void gemm_tn(cudaStream_t stream, int M, int N, int R, const float* A, in
     p.C[0] = partial;
     const size_t count = (size_t)M * N;
     p.colsum = bias_out ? partial + (size_t)s.splits * count : nullptr;
-    gemm_launch<true, true>(stream, p, 1, s.splits, kTile128x128);
+    gemm_launch<true, true>(stream, p, 1, s.splits, kTile128x128, path);
     const size_t bcount = bias_out ? (size_t)M : 0;
     const size_t total = count + bcount;
     const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);

@@ -8,9 +8,10 @@
 //
 // What bounds it on the H100: about 1.01 GFLOP of fp32 work per element at
 // the Charades shapes, most of it in the c_hat / c_out projections over the
-// N*C = 544 clip rows and the two moment convolutions over the N = 136
-// pairs; against 67 TFLOP/s of fp32 outside the tensor cores the operations
-// bound it, not the bytes (about 0.2 MB in and 0.6 KB out per element).
+// N*C = 544 clip rows and the moment convolutions (one product over [x1 |
+// x2]) over the N = 136 pairs, which run as 3xTF32 on the tensor cores (165
+// TFLOP/s of fp32-accurate products, gemm.cuh); the operations bound it, not
+// the bytes (about 0.2 MB in and 0.6 KB out per element).
 //
 // Design: the TPU kernel keeps about 1.1 MB of fp32 state per element in
 // VMEM; a block has 227 KB of shared memory, so the megakernel is split into

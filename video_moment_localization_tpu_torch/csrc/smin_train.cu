@@ -15,8 +15,14 @@
 //
 // What bounds them on the H100: operations. A layer is about 324 MFLOP per
 // element at the Charades shapes and its backward twice that on top of the
-// recompute, all fp32 outside the tensor cores (67 TFLOP/s), against about
-// 3 MB (K2) and 6 MB (K3) of carries moved per element.
+// recompute, against about 3 MB (K2) and 6 MB (K3) of carries moved per
+// element. About 77 % of those operations are the projections, which run
+// on the tensor cores as 3xTF32 (gemm.cuh: fp32-accurate, 165 TFLOP/s of
+// fp32 products); the rest (attention, gate, boundary unit) is fp32 on the
+// CUDA cores (67 TFLOP/s) or bound by its bytes. K2's moment unit is one
+// product over [x1 | x2] (K = 2D, no intermediate written and read back),
+// and its gate and moment prologue walk rows with 16-byte accesses
+// (smin_units.cuh).
 //
 // Design. K2 is `vml::layer_forward`, the layer sequence the serving stack
 // runs. The TPU backward kernel has no hand-written gradient (JAX takes the
@@ -300,30 +306,6 @@ constexpr int kGateThreads = 128;
 constexpr int kGateMaxSplits = 32;
 
 template <int V>
-__device__ __forceinline__ void load_v(const float* __restrict__ p, float (&v)[V]) {
-    if constexpr (V == 4) {
-        const float4 t = *reinterpret_cast<const float4*>(p);
-        v[0] = t.x;
-        v[1] = t.y;
-        v[2] = t.z;
-        v[3] = t.w;
-    } else {
-#pragma unroll
-        for (int k = 0; k < V; ++k) v[k] = p[k];
-    }
-}
-
-template <int V>
-__device__ __forceinline__ void store_v(float* __restrict__ p, const float (&v)[V]) {
-    if constexpr (V == 4) {
-        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-    } else {
-#pragma unroll
-        for (int k = 0; k < V; ++k) p[k] = v[k];
-    }
-}
-
-template <int V>
 __global__ void __launch_bounds__(kGateThreads) gate_bwd_kernel(
     int L, int C, int D, int splits, const float* __restrict__ fm, const float* __restrict__ fs,
     const float* __restrict__ dmu, const float* __restrict__ dcut, const float* __restrict__ Ab,
@@ -340,14 +322,14 @@ __global__ void __launch_bounds__(kGateThreads) gate_bwd_kernel(
     const int n_begin = split * per;
     const int n_end = min(N, n_begin + per);
     float fsv[V], acc[V];
-    load_v<V>(fs + (size_t)b * D + d, fsv);
+    vml::load_vec<V>(fs + (size_t)b * D + d, fsv);
 #pragma unroll
     for (int k = 0; k < V; ++k) acc[k] = 0.f;
     if (n_begin < n_end) {
         int i, j;
         vml::pair_of(n_begin, L, i, j);
         float g[V];
-        load_v<V>(G + ((size_t)b * L + i) * D + d, g);
+        vml::load_vec<V>(G + ((size_t)b * L + i) * D + d, g);
         for (int n = n_begin; n < n_end; ++n) {
             const size_t pn = (size_t)b * N + n;
             const float a = Ab[((size_t)b * L + i) * L + j];
@@ -356,12 +338,12 @@ __global__ void __launch_bounds__(kGateThreads) gate_bwd_kernel(
             for (int k = 0; k < V; ++k) dfbar[k] = a * g[k];
             for (int c = 0; c < C; ++c) {
                 float t[V];
-                load_v<V>(dcut + (pn * C + c) * D + d, t);
+                vml::load_vec<V>(dcut + (pn * C + c) * D + d, t);
 #pragma unroll
                 for (int k = 0; k < V; ++k) dfbar[k] += t[k];
             }
-            load_v<V>(fm + pn * D + d, x);
-            load_v<V>(dmu + pn * D + d, dm);
+            vml::load_vec<V>(fm + pn * D + d, x);
+            vml::load_vec<V>(dmu + pn * D + d, dm);
 #pragma unroll
             for (int k = 0; k < V; ++k) {
                 const float z = x[k] * fsv[k];
@@ -370,15 +352,15 @@ __global__ void __launch_bounds__(kGateThreads) gate_bwd_kernel(
                 out[k] = dm[k] + dfbar[k] * (sg + z * t);
                 acc[k] += dfbar[k] * x[k] * x[k] * t;
             }
-            store_v<V>(dfm + pn * D + d, out);
+            vml::store_vec<V>(dfm + pn * D + d, out);
             if (++j == L && n + 1 < n_end) {
                 ++i;
                 j = i;
-                load_v<V>(G + ((size_t)b * L + i) * D + d, g);
+                vml::load_vec<V>(G + ((size_t)b * L + i) * D + d, g);
             }
         }
     }
-    store_v<V>(part + ((size_t)split * gridDim.y + b) * D + d, acc);
+    vml::store_vec<V>(part + ((size_t)split * gridDim.y + b) * D + d, acc);
 }
 
 // dfs[b, d] = sum over the splits, in order, of part[split, b, d] + sum_i
@@ -552,9 +534,10 @@ int vml_smi_layer_bwd_f32(void* stream, int B, int L, int C, int Nq, int D, int 
     vml::gemm_nn2(st, B * N, D, D, dmu, D, vmask, 1, p[16], p[18], D, w.dx1, w.dx2, D, none,
                   none);
     VML_CHECK();
-    vml::gemm_tn(st, D, D, B * N, dmu, D, vmask, 1, s.x1, D, w.partial, dw[16], dw[17]);
+    // x1 and x2 are the two halves of the forward's [x1 | x2] (B * N, 2D).
+    vml::gemm_tn(st, D, D, B * N, dmu, D, vmask, 1, s.x12, 2 * D, w.partial, dw[16], dw[17]);
     VML_CHECK();
-    vml::gemm_tn(st, D, D, B * N, dmu, D, vmask, 1, s.x2, D, w.partial, dw[18]);
+    vml::gemm_tn(st, D, D, B * N, dmu, D, vmask, 1, s.x12 + D, 2 * D, w.partial, dw[18]);
     VML_CHECK();
     if ((err = cudaMemcpyAsync(dw[19], dw[17], sizeof(float) * D, cudaMemcpyDeviceToDevice,
                                st)) != cudaSuccess)

@@ -7,7 +7,8 @@
 // Because the ~1.1 MB of fp32 state per element does not fit a block's
 // 227 KB of shared memory, a layer is a sequence of kernels on one stream
 // with its intermediates in a device scratch:
-//   gate_kernel            fbar = sigmoid(fm * fs) * fm
+//   gate_kernel            fbar = sigmoid(fm * fs) * fm (rows, 16-byte
+//                          accesses: bound by its bytes)
 //   gemm_nt (gemm.cuh)     every projection, with bias / mask / residual
 //                          epilogues
 //   content_attn_forward   word attention of each clip row (-1e9 key mask),
@@ -17,7 +18,14 @@
 //   boundary_query_kernel  word attention and f_bq of one snippet row
 //   boundary_unit_kernel   A_b, f_bb and the moment message f_bm of one
 //                          snippet row
-//   moment_prologue_kernel outer[n] = bu[i_n] * bu[j_n] and mean_c(cu)
+//   moment_prologue_kernel [x1 | x2]: x1[n] = bu[i_n] * bu[j_n], x2[n] =
+//                          mean_c(cu) (rows, 16-byte accesses: bytes)
+//   moment_weights_kernel  [W_fb | W_fc] and b_fb + b_fc, so the moment
+//                          unit is one product over K = 2D
+// The products (gemm.cuh) bound the layer: at the Charades shapes they are
+// nearly all of its operations. They take the path `gemm_path_for` picks by
+// shape, but for the moment unit's, which takes the 3xTF32 tensor-core path
+// at every shape (kMomentProductPath, gemm.cuh).
 // Rows are n-major: row (b, n, c) of fc/cu is ((b * N) + n) * C + c, the
 // layout of the plain version, models/smin.py::smi_block_packed.
 #pragma once
@@ -26,6 +34,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <initializer_list>
 
 #include "content_attn.cuh"
 #include "gemm.cuh"
@@ -35,16 +44,91 @@ namespace vml {
 
 constexpr int kWeightsPerLayer = 20;
 
-// fbar = sigmoid(fm * fs) * fm over (B, N, D).
-static __global__ void gate_kernel(size_t total, int ND, int D, const float* __restrict__ fm,
-                            const float* __restrict__ fs, float* __restrict__ fbar) {
-    for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total;
-         e += (size_t)gridDim.x * blockDim.x) {
-        const int b = (int)(e / ND);
-        const int d = (int)(e % D);
-        const float x = fm[e];
-        fbar[e] = sigmoidf_(x * fs[(size_t)b * D + d]) * x;
+// The bandwidth kernels of the layer (gate, moment prologue) walk rows of D
+// floats: a thread takes V consecutive columns (16-byte accesses when V is
+// 4), a block of 256 threads takes 256 / (D / V) whole rows at a time (D /
+// V <= 256) or one row in strides of 256, and a row's element index comes
+// from one 32-bit division per row, none per element.
+constexpr int kRowThreads = 256;
+
+struct RowWalk {
+    int rows_per_pass, first_col, col_step;
+};
+__device__ __forceinline__ RowWalk row_walk(int cols) {
+    if (cols < kRowThreads)
+        return {kRowThreads / cols, (int)threadIdx.x % cols, cols};
+    return {1, (int)threadIdx.x, kRowThreads};
+}
+// The grid of a row walk over `rows` rows of `cols` column groups.
+inline int row_walk_blocks(long long rows, int cols) {
+    const long long per = cols < kRowThreads ? kRowThreads / cols : 1;
+    const long long blocks = (rows + per - 1) / per;
+    return (int)(blocks < 8192 ? blocks : 8192);
+}
+// V = 4 when every row of every operand starts 16 bytes aligned.
+inline bool rows_vec4(int D, std::initializer_list<const void*> ptrs) {
+    if (D % 4) return false;
+    for (const void* p : ptrs)
+        if (p && reinterpret_cast<uintptr_t>(p) % 16) return false;
+    return true;
+}
+
+template <int V>
+__device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&v)[V]) {
+    if constexpr (V == 4) {
+        const float4 t = *reinterpret_cast<const float4*>(p);
+        v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k) v[k] = p[k];
     }
+}
+template <int V>
+__device__ __forceinline__ void store_vec(float* __restrict__ p, const float (&v)[V]) {
+    if constexpr (V == 4) {
+        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k) p[k] = v[k];
+    }
+}
+
+// fbar = sigmoid(fm * fs) * fm over the B * N rows of (B, N, D); bound by
+// its bytes (fm read, fbar written).
+template <int V>
+static __global__ void __launch_bounds__(kRowThreads) gate_kernel(int rows, int N, int D,
+                                                                  const float* __restrict__ fm,
+                                                                  const float* __restrict__ fs,
+                                                                  float* __restrict__ fbar) {
+    const int cols = D / V;
+    const RowWalk w = row_walk(cols);
+    const int lr = (int)threadIdx.x / cols;
+    if (lr >= w.rows_per_pass) return;
+    for (int row = blockIdx.x * w.rows_per_pass + lr; row < rows;
+         row += gridDim.x * w.rows_per_pass) {
+        const float* x = fm + (size_t)row * D;
+        const float* s = fs + (size_t)(row / N) * D;
+        float* y = fbar + (size_t)row * D;
+        for (int c = w.first_col; c < cols; c += w.col_step) {
+            float xv[V], sv[V], out[V];
+            load_vec<V>(x + c * V, xv);
+            load_vec<V>(s + c * V, sv);
+#pragma unroll
+            for (int k = 0; k < V; ++k) out[k] = sigmoidf_(xv[k] * sv[k]) * xv[k];
+            store_vec<V>(y + c * V, out);
+        }
+    }
+}
+
+inline void launch_gate(cudaStream_t st, int B, int N, int D, const float* fm, const float* fs,
+                        float* fbar) {
+    const bool v4 = rows_vec4(D, {fm, fs, fbar});
+    const int cols = v4 ? D / 4 : D;
+    const int blocks = row_walk_blocks((long long)B * N, cols);
+    if (v4)
+        gate_kernel<4><<<blocks, kRowThreads, 0, st>>>(B * N, N, D, fm, fs, fbar);
+    else
+        gate_kernel<1><<<blocks, kRowThreads, 0, st>>>(B * N, N, D, fm, fs, fbar);
 }
 
 // The boundary unit between its projections, in two kernels of one block
@@ -153,37 +237,100 @@ static __global__ void boundary_unit_kernel(int L, int D, const float* __restric
     }
 }
 
-// One block per (element, pair): x1 = bu[i_n] * bu[j_n], x2 = mean_c(cu).
-// bu and x1 may be null (L is then unused): only the clip mean is written.
-static __global__ void moment_prologue_kernel(int L, int C, int D, const float* __restrict__ bu,
-                                       const float* __restrict__ cu,
-                                       float* __restrict__ x1, float* __restrict__ x2) {
-    const int pair = blockIdx.x;
-    const float* bi = nullptr;
-    const float* bj = nullptr;
-    if (bu) {
-        const int N = L * (L + 1) / 2;
-        const int b = pair / N;
-        int i, j;
-        pair_of(pair % N, L, i, j);
-        bi = bu + ((size_t)b * L + i) * D;
-        bj = bu + ((size_t)b * L + j) * D;
+// Over the B * N pairs: x1[n] = bu[i_n] * bu[j_n] and x2[n] = mean_c cu[n, c],
+// rows of x1 and x2 ldx floats apart (the layer writes them side by side as
+// [x1 | x2], the moment unit's one operand). bu and x1 may be null (L is
+// then unused): only the clip mean is written. Bound by its bytes (cu read,
+// x1 and x2 written; bu's rows come from L2).
+template <int V>
+static __global__ void __launch_bounds__(kRowThreads) moment_prologue_kernel(
+    int pairs, int L, int C, int D, const float* __restrict__ bu, const float* __restrict__ cu,
+    float* __restrict__ x1, float* __restrict__ x2, int ldx) {
+    const int cols = D / V;
+    const RowWalk w = row_walk(cols);
+    const int lr = (int)threadIdx.x / cols;
+    if (lr >= w.rows_per_pass) return;
+    const int N = L * (L + 1) / 2;
+    for (int pair = blockIdx.x * w.rows_per_pass + lr; pair < pairs;
+         pair += gridDim.x * w.rows_per_pass) {
+        const float* bi = nullptr;
+        const float* bj = nullptr;
+        if (bu) {
+            const int b = pair / N;
+            int i, j;
+            pair_of(pair - b * N, L, i, j);
+            bi = bu + ((size_t)b * L + i) * D;
+            bj = bu + ((size_t)b * L + j) * D;
+        }
+        const float* cp = cu + (size_t)pair * C * D;
+        for (int c = w.first_col; c < cols; c += w.col_step) {
+            const int d = c * V;
+            if (bu) {
+                float u[V], v[V], out[V];
+                load_vec<V>(bi + d, u);
+                load_vec<V>(bj + d, v);
+#pragma unroll
+                for (int k = 0; k < V; ++k) out[k] = u[k] * v[k];
+                store_vec<V>(x1 + (size_t)pair * ldx + d, out);
+            }
+            float sum[V];
+#pragma unroll
+            for (int k = 0; k < V; ++k) sum[k] = 0.f;
+#pragma unroll 4
+            for (int q = 0; q < C; ++q) {
+                float t[V];
+                load_vec<V>(cp + (size_t)q * D + d, t);
+#pragma unroll
+                for (int k = 0; k < V; ++k) sum[k] += t[k];
+            }
+#pragma unroll
+            for (int k = 0; k < V; ++k) sum[k] /= (float)C;
+            store_vec<V>(x2 + (size_t)pair * ldx + d, sum);
+        }
     }
-    const float* cp = cu + (size_t)pair * C * D;
-    for (int d = threadIdx.x; d < D; d += blockDim.x) {
-        if (bu) x1[(size_t)pair * D + d] = bi[d] * bj[d];
-        float s = 0.f;
-        for (int c = 0; c < C; ++c) s += cp[(size_t)c * D + d];
-        x2[(size_t)pair * D + d] = s / (float)C;
+}
+
+inline void launch_moment_prologue(cudaStream_t st, int pairs, int L, int C, int D,
+                                   const float* bu, const float* cu, float* x1, float* x2,
+                                   int ldx) {
+    const bool v4 = ldx % 4 == 0 && rows_vec4(D, {bu, cu, x1, x2});
+    const int cols = v4 ? D / 4 : D;
+    const int blocks = row_walk_blocks(pairs, cols);
+    if (v4)
+        moment_prologue_kernel<4><<<blocks, kRowThreads, 0, st>>>(pairs, L, C, D, bu, cu, x1, x2,
+                                                                   ldx);
+    else
+        moment_prologue_kernel<1><<<blocks, kRowThreads, 0, st>>>(pairs, L, C, D, bu, cu, x1, x2,
+                                                                   ldx);
+}
+
+// The moment unit's weight [W_fb | W_fc] (D, 2D) and bias b_fb + b_fc (D,)
+// into wm (2 D^2 + D floats), from the two 1x1 convolutions' (D, D) weights.
+static __global__ void moment_weights_kernel(int D, const float* __restrict__ wfb,
+                                             const float* __restrict__ bfb,
+                                             const float* __restrict__ wfc,
+                                             const float* __restrict__ bfc,
+                                             float* __restrict__ wm) {
+    const size_t dd = (size_t)D * D;
+    for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < 2 * dd + D;
+         e += (size_t)gridDim.x * blockDim.x) {
+        if (e < 2 * dd) {
+            const size_t o = e / (2 * D);
+            const int k = (int)(e - o * 2 * D);
+            wm[e] = k < D ? wfb[o * D + k] : wfc[o * D + k - D];
+        } else {
+            wm[e] = bfb[e - 2 * dd] + bfc[e - 2 * dd];
+        }
     }
 }
 
 // The intermediates of one layer. K4 and K2 only pass through them; the
-// backward (K3) reads them after the recompute.
+// backward (K3) reads them after the recompute. x12 (B * N, 2D) holds [x1 |
+// x2], the moment unit's operand; wm its weight [W_fb | W_fc] and summed bias.
 struct LayerScratch {
-    float *fbar, *h, *q, *fcc, *fwh, *khat, *fsh, *bq, *bk, *fbq, *x1, *x2, *tmp;
+    float *fbar, *h, *q, *fcc, *fwh, *khat, *fsh, *bq, *bk, *fbq, *x12, *wm;
 };
-constexpr int kLayerScratchSlots = 13;
+constexpr int kLayerScratchSlots = 12;
 
 // Sizes in floats of the LayerScratch slots, in declaration order.
 inline void layer_scratch_sizes(int B, int L, int C, int Nq, int D, int dl, size_t* sizes) {
@@ -195,7 +342,8 @@ inline void layer_scratch_sizes(int B, int L, int C, int Nq, int D, int dl, size
         (size_t)B * Nq * dl, (size_t)B * Nq * dl, (size_t)B * dl,  // fwh, khat, fsh
         (size_t)B * L * D, (size_t)B * Nq * D,  // bq, bk
         (size_t)B * L * D,                      // fbq
-        B * N * D, B * N * D, B * N * D,        // x1, x2, tmp
+        2 * B * N * D,                          // x12
+        2 * (size_t)D * D + D,                  // wm
     };
     for (int k = 0; k < kLayerScratchSlots; ++k) sizes[k] = v[k];
 }
@@ -203,7 +351,7 @@ inline void layer_scratch_sizes(int B, int L, int C, int Nq, int D, int dl, size
 inline float** layer_scratch_slot(LayerScratch* s, int k) {
     float** slots[kLayerScratchSlots] = {&s->fbar, &s->h, &s->q, &s->fcc, &s->fwh,
                                          &s->khat, &s->fsh, &s->bq, &s->bk, &s->fbq,
-                                         &s->x1, &s->x2, &s->tmp};
+                                         &s->x12, &s->wm};
     return slots[k];
 }
 
@@ -287,8 +435,8 @@ inline cudaError_t content_forward(cudaStream_t st, int B, int N, int C, int Nq,
 //   content attn W_q.w, .b, W_k.w, .b, boundary attn W_q.w, .b, W_k.w, .b,
 //   conv_fb.w, .b, conv_fc.w, .b
 // (torch layouts: Linear (out, in), 1x1 conv (out, in, 1, 1)).
-// mu may be null: the two moment convolutions are then skipped (the
-// backward's recompute needs only their inputs x1, x2).
+// mu may be null: the moment product is then skipped (the backward's
+// recompute needs only its operand [x1 | x2]).
 // Returns the first CUDA error of the launches.
 inline cudaError_t layer_forward(cudaStream_t st, int B, int L, int C, int Nq, int D, int dl,
                                  const float* fc, const float* fm, const float* fb,
@@ -297,9 +445,7 @@ inline cudaError_t layer_forward(cudaStream_t st, int B, int L, int C, int Nq, i
                                  const float* const* p, const LayerScratch& s, float* cu,
                                  float* mu, float* bu) {
     const int N = L * (L + 1) / 2;
-    const size_t nd = (size_t)B * N * D;
-    const int gate_blocks = (int)((nd + 255) / 256 < 4096 ? (nd + 255) / 256 : 4096);
-    gate_kernel<<<gate_blocks, 256, 0, st>>>(nd, N * D, D, fm, fs, s.fbar);
+    launch_gate(st, B, N, D, fm, fs, s.fbar);
     VML_CHECK_LAUNCH();
 
     cudaError_t err =
@@ -318,20 +464,20 @@ inline cudaError_t layer_forward(cudaStream_t st, int B, int L, int C, int Nq, i
                                                                 lmask, bu);
     VML_CHECK_LAUNCH();
 
-    // MomentUnit: mu = (conv_fb(outer) + conv_fc(mean_c cu)) * vmask + fm
-    moment_prologue_kernel<<<B * N, 128, 0, st>>>(L, C, D, bu, cu, s.x1, s.x2);
+    // MomentUnit: mu = (conv_fb(outer) + conv_fc(mean_c cu)) * vmask + fm, one
+    // product [x1 | x2] [W_fb | W_fc]^T over K = 2D with b_fb + b_fc.
+    launch_moment_prologue(st, B * N, L, C, D, bu, cu, s.x12, s.x12 + D, 2 * D);
     VML_CHECK_LAUNCH();
     if (mu) {
-        linear(st, B * N, D, D, s.x1, p[16], p[17], s.tmp);
+        moment_weights_kernel<<<(2 * D * D + D + 255) / 256, 256, 0, st>>>(D, p[16], p[17], p[18],
+                                                                            p[19], s.wm);
         VML_CHECK_LAUNCH();
         Epilogue ep;
-        ep.bias = p[19];
-        ep.pre = s.tmp;
-        ep.ldpre = D;
+        ep.bias = s.wm + 2 * (size_t)D * D;
         ep.rmask = vmask;
         ep.post = fm;
         ep.ldpost = D;
-        gemm_nt(st, B * N, D, D, s.x2, D, p[18], D, mu, D, ep);
+        gemm_nt(st, B * N, D, 2 * D, s.x12, 2 * D, s.wm, 2 * D, mu, D, ep, -1, kMomentProductPath);
         VML_CHECK_LAUNCH();
     }
     return cudaSuccess;

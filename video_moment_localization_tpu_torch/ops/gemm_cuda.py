@@ -2,14 +2,21 @@
 for the card tests and the GEMM phase of ``chip_smoke.py``, and a Python
 mirror of its host-side plans.
 
+The GEMM has two paths: 3xTF32 on the tensor cores (fp32-accurate: each
+operand split into two TF32 parts, three products added in fp32) and fp32
+FMAs on the CUDA cores. `path_for` is the static rule that picks one per
+launch by shape, `SITE_PATHS` names the one call site that fixes its path
+instead; ``gemm(..., path=...)`` forces one for the card tests and the
+GEMM phase.
+
 The GEMM is no port of a TPU kernel by itself: K2-K5, K7, K9 and K10 run
 their projections through it inside their C entry points. ``gemm`` calls one
 layout with every epilogue term; on a CPU tensor it runs its plain version
 (``gemm_plain``: ``torch.matmul`` and the epilogue), on a CUDA tensor it
 launches the kernel or raises. ``gemm.launches`` counts the launches.
 
-The mirror (`tile_for`, `splitk_for`, `tn_partial_floats`, `smem_bytes`)
-restates ``gemm.cuh``'s choices, and `model_gemm_shapes` lists the products
+The mirror (`path_for`, `tile_for`, `splitk_for`, `tn_partial_floats`,
+`smem_bytes`) restates ``gemm.cuh``'s choices, and `model_gemm_shapes` lists the products
 each kernel of the port launches, so the CPU tests can check every shape of
 the shipped configs and ``chip_smoke.py`` can hold the mirror against the C
 plan on the card.
@@ -25,19 +32,68 @@ import torch
 from video_moment_localization_tpu_torch.ops.cuda_build import check, load_library, ptr, stream_of
 
 BK = 16                     # K slice of a stage
-STAGES = 5                  # slices in the ring of asynchronous copies
+STAGES = 5                  # slices in the ring of asynchronous copies (CUDA cores)
+TC_STAGES = 3               # the same, tensor cores (each stage holds a slice twice)
+WG_STAGES = 3               # the same, gemm_tn on the tensor cores (wgmma)
 SMS = 132                   # H100 SXM
 TILES = ((128, 128), (128, 64), (64, 64))   # csrc/gemm.cuh::GemmTile, in order
 LAYOUTS = {"nt": 0, "nn": 1, "tn": 2}
+CUDA_CORE, TENSOR = 0, 1    # csrc/gemm.cuh::GemmPath
+PATHS = {"cuda_core": CUDA_CORE, "tensor": TENSOR}
+TC_PAD = 8                  # k-major row padding of the tensor-core path
 
 
-def smem_bytes(tile: int, layout: str) -> int:
-    """Dynamic shared memory of one block (gemm.cuh::gemm_smem_floats): the
-    ring of both operands' slices and two k-major slices of each operand
-    that is contiguous along k (A unless tn, W if nt)."""
+# Call sites that fix their path instead of taking `path_for`'s: the moment
+# unit's product over [x1 | x2] (csrc/smin_units.cuh::layer_forward) takes
+# the tensor cores at every shape, where its rounding lands closest to
+# float64 at the top of an SMI stack (gemm.cuh::kMomentProductPath).
+MOMENT_PRODUCT = "conv_fb + conv_fc"
+SITE_PATHS = {MOMENT_PRODUCT: TENSOR}
+
+
+WG_MIN_ROWS = 512           # gemm.cuh::kWgMinRows
+TC_MIN_WORK = 1 << 29       # gemm.cuh::kTcMinWork
+
+
+def path_for(layout: str, M: int, N: int, K: int, groups: int = 1) -> int:
+    """gemm.cuh::gemm_path_for: gemm_nt and gemm_nn take the tensor cores
+    from M N K = TC_MIN_WORK on; gemm_tn (K: the rows it reduces) when a
+    block reduces at least WG_MIN_ROWS rows; else the CUDA cores."""
+    if layout == "tn":
+        return TENSOR if splitk_for(M, N, K)[1] >= WG_MIN_ROWS else CUDA_CORE
+    return TENSOR if M * N * K >= TC_MIN_WORK else CUDA_CORE
+
+
+def site_path(product: Optional[str], layout: str, M: int, N: int, K: int, groups: int = 1) -> int:
+    """The path a product of `model_gemm_shapes` runs on."""
+    return SITE_PATHS.get(product, path_for(layout, M, N, K, groups))
+
+
+def smem_bytes(tile: int, layout: str, path: int = TENSOR) -> int:
+    """Dynamic shared memory of one block. CUDA cores
+    (gemm.cuh::gemm_smem_floats): the ring of both operands' slices and two
+    k-major slices of each operand that is contiguous along k (A unless tn,
+    W if nt). Tensor cores, nt / nn (gemm_tc_smem_floats): a ring of
+    TC_STAGES, each holding both operands' slices twice (big and small
+    parts), W padded by TC_PAD floats per k when it is contiguous along its
+    rows (nn); tn (gemm_wg_smem_floats) below."""
     bm, bn = TILES[tile]
+    if path == TENSOR and layout == "tn":
+        # gemm_wg_smem_floats: the ring of both k-major slices, and two
+        # big / small pairs of core-matrix tiles of each operand (128x128).
+        return 4 * (WG_STAGES * 2 * BK * (128 + TC_PAD) + 2 * 2 * 2 * 128 * BK)
+    if path == TENSOR:
+        a = bm * BK
+        w = bn * BK if layout == "nt" else BK * (bn + TC_PAD)
+        return 4 * TC_STAGES * 2 * (a + w)
     transposed = (0 if layout == "tn" else bm) + (bn if layout == "nt" else 0)
     return 4 * BK * (STAGES * (bm + bn) + 2 * transposed)
+
+
+def blocks_per_sm(layout: str, path: int) -> int:
+    """Blocks an SM holds (their launch bounds and shared memory): one of
+    gemm_tn's tensor-core kernel, two of every other."""
+    return 1 if (path == TENSOR and layout == "tn") else 2
 
 
 def tiles(tile: int, M: int, N: int) -> int:
@@ -69,7 +125,8 @@ def tn_partial_floats(M: int, N: int, R: int) -> int:
 
 
 def launch_grid(layout: str, M: int, N: int, K: int, groups: int = 1) -> Tuple[int, int, int]:
-    """The (tile, gridDim.x, gridDim.z) of one launch."""
+    """The (tile, gridDim.x, gridDim.z) of one launch (the same on both
+    paths)."""
     if layout == "tn":
         return 0, tiles(0, M, N), splitk_for(M, N, K)[0]
     tile = tile_for(M, N, groups)
@@ -81,7 +138,9 @@ def model_gemm_shapes(cfg, B: int) -> List[Tuple[str, str, str, int, int, int, i
     for the model config ``cfg``: (kernel, product, layout, M, N, K,
     groups), M, N, K as the C host code passes them (gemm_tn: M, N and the
     R rows it reduces). K4, K2, K3, K9 and K10 run on the packed map of L
-    snippets; K7 on the same map as the content-unit route (ActivityNet)."""
+    snippets; K7 on the same map as the content-unit route (ActivityNet).
+    The moment unit is one product over [x1 | x2] (K = 2D) against [W_fb |
+    W_fc]; K9 runs K2's products once per layer."""
     L, C, D, dl, Nq = cfg.L, cfg.C, cfg.D, cfg.dl, cfg.max_query_length
     H = cfg.lstm_hidden_size
     N = L * (L + 1) // 2
@@ -95,7 +154,7 @@ def model_gemm_shapes(cfg, B: int) -> List[Tuple[str, str, str, int, int, int, i
     def layer_fwd(k, moment=True):
         out = content_fwd(k) + [(k, "bq", "nt", B * L, D, D, 1), (k, "bk", "nt", B * Nq, D, D, 1)]
         if moment:
-            out += [(k, "conv_fb", "nt", B * N, D, D, 1), (k, "conv_fc", "nt", B * N, D, D, 1)]
+            out += [(k, "conv_fb + conv_fc", "nt", B * N, D, 2 * D, 1)]
         return out
 
     def content_bwd(k):
@@ -109,7 +168,7 @@ def model_gemm_shapes(cfg, B: int) -> List[Tuple[str, str, str, int, int, int, i
 
     shapes = [("K5", "layer-2 projections", "nt", B * Nq, 4 * H, 2 * H, 2)]
     shapes += layer_fwd("K4")
-    shapes += layer_fwd("K2")
+    shapes += layer_fwd("K2") + layer_fwd("K9")
     shapes += layer_fwd("K3", moment=False) + content_bwd("K3") + [
         ("K3", "dx1 dx2", "nn", B * N, D, D, 2), ("K3", "dW conv_fb", "tn", D, D, B * N, 1),
         ("K3", "dW conv_fc", "tn", D, D, B * N, 1), ("K3", "dfb", "nn", B * L, D, D, 1),
@@ -153,36 +212,47 @@ def gemm_plain(layout: str, A, W, ascale=None, adiv: int = 1, bias=None, pre=Non
 def _library() -> ctypes.CDLL:
     lib = load_library("gemm")
     fn = lib.vml_gemm_f32
-    ints = {1, 2, 3, 4, 6, 8, 10, 12, 15, 17, 19, 21, 22, 23}
-    fn.argtypes = [ctypes.c_int if k in ints else ctypes.c_void_p for k in range(26)]
+    ints = {1, 2, 3, 4, 6, 8, 10, 12, 15, 17, 19, 21, 22, 23, 26}
+    fn.argtypes = [ctypes.c_int if k in ints else ctypes.c_void_p for k in range(27)]
     fn.restype = ctypes.c_int
     lib.vml_gemm_tile_for.argtypes = [ctypes.c_int] * 3
     lib.vml_gemm_tile_for.restype = ctypes.c_int
+    lib.vml_gemm_path_for.argtypes = [ctypes.c_int] * 5
+    lib.vml_gemm_path_for.restype = ctypes.c_int
+    lib.vml_gemm_moment_path.argtypes = []
+    lib.vml_gemm_moment_path.restype = ctypes.c_int
     lib.vml_gemm_splitk.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
     lib.vml_gemm_splitk.restype = None
-    lib.vml_gemm_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.vml_gemm_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.vml_gemm_smem_bytes.restype = ctypes.c_size_t
     lib.vml_gemm_tn_partial_floats.argtypes = [ctypes.c_int] * 3
     lib.vml_gemm_tn_partial_floats.restype = ctypes.c_size_t
     return lib
 
 
-def card_plan(layout: str, M: int, N: int, K: int, groups: int = 1) -> Dict[str, int]:
-    """The C host code's plan for one launch, to hold the mirror against."""
+def card_plan(layout: str, M: int, N: int, K: int, groups: int = 1,
+              product: Optional[str] = None) -> Dict[str, int]:
+    """The C host code's plan for one launch of ``product`` (a name of
+    `model_gemm_shapes`), to hold the mirror against."""
     lib = _library()
+    path = (lib.vml_gemm_moment_path() if product == MOMENT_PRODUCT
+            else lib.vml_gemm_path_for(LAYOUTS[layout], M, N, K, groups))
     if layout == "tn":
         splits, kchunk = ctypes.c_int(), ctypes.c_int()
         lib.vml_gemm_splitk(M, N, K, ctypes.byref(splits), ctypes.byref(kchunk))
-        return dict(tile=0, smem=lib.vml_gemm_smem_bytes(2, 0), splits=splits.value,
-                    kchunk=kchunk.value, partial_floats=lib.vml_gemm_tn_partial_floats(M, N, K))
+        return dict(path=path, tile=0, smem=lib.vml_gemm_smem_bytes(path, 2, 0),
+                    splits=splits.value, kchunk=kchunk.value,
+                    partial_floats=lib.vml_gemm_tn_partial_floats(M, N, K))
     tile = lib.vml_gemm_tile_for(M, N, groups)
-    return dict(tile=tile, smem=lib.vml_gemm_smem_bytes(LAYOUTS[layout], tile))
+    return dict(path=path, tile=tile, smem=lib.vml_gemm_smem_bytes(path, LAYOUTS[layout], tile))
 
 
-def plan(layout: str, M: int, N: int, K: int, groups: int = 1) -> Dict[str, int]:
+def plan(layout: str, M: int, N: int, K: int, groups: int = 1,
+         product: Optional[str] = None) -> Dict[str, int]:
     """The mirror's plan for one launch, in `card_plan`'s form."""
     tile = launch_grid(layout, M, N, K, groups)[0]
-    out = dict(tile=tile, smem=smem_bytes(tile, layout))
+    path = site_path(product, layout, M, N, K, groups)
+    out = dict(path=path, tile=tile, smem=smem_bytes(tile, layout, path))
     if layout == "tn":
         splits, kchunk = splitk_for(M, N, K)
         out.update(splits=splits, kchunk=kchunk, partial_floats=tn_partial_floats(M, N, K))
@@ -200,18 +270,22 @@ def _ld(name: str, t: Optional[torch.Tensor], device) -> int:
 
 def gemm(layout: str, A, W, ascale=None, adiv: int = 1, bias=None, pre=None, rmask=None,
          mask_div: int = 1, post=None, post2=None, post2_div: int = 1, bias_sums: bool = False,
-         tile: Optional[int] = None, out: Optional[torch.Tensor] = None):
+         tile: Optional[int] = None, out: Optional[torch.Tensor] = None,
+         path: Optional[int] = None):
     """One launch of the shared GEMM: layout "nt" (A (M, K), W (N, K)),
     "nn" (W (K, N)) with the epilogue terms, or "tn" (A (R, M), W (R, N),
     no epilogue; with ``bias_sums`` also the column sums of the scaled A).
     Matrices may have any row stride (and any alignment: unaligned operands
     take the scalar path); ``out`` may be ``pre`` or ``post`` (in place);
-    ``tile`` forces a block tile of nt / nn (an index into TILES)."""
+    ``tile`` forces a block tile of nt / nn (an index into TILES), ``path``
+    the path (CUDA_CORE or TENSOR; by `path_for` when None)."""
     if A.device.type == "cpu":
         return gemm_plain(layout, A, W, ascale, adiv, bias, pre, rmask, mask_div, post, post2,
                           post2_div, bias_sums)
     if layout not in LAYOUTS:
         raise ValueError(f"gemm: layout must be one of {sorted(LAYOUTS)}, got {layout!r}")
+    if path not in (None, CUDA_CORE, TENSOR):
+        raise ValueError(f"gemm: path must be None, CUDA_CORE or TENSOR, got {path!r}")
     dev = A.device
     lda, ldw = _ld("A", A, dev), _ld("W", W, dev)
     if layout == "tn":
@@ -248,7 +322,7 @@ def gemm(layout: str, A, W, ascale=None, adiv: int = 1, bias=None, pre=None, rma
             stream_of(A), LAYOUTS[layout], M, N, K, ptr(A), lda, p(ascale), adiv, ptr(W), ldw,
             ptr(out), ldc, p(bias), p(pre), _ld("pre", pre, dev), p(rmask), mask_div, p(post),
             _ld("post", post, dev), p(post2), _ld("post2", post2, dev), post2_div,
-            -1 if tile is None else tile, p(partial), p(colsum))
+            -1 if tile is None else tile, p(partial), p(colsum), -1 if path is None else path)
     check(lib, "vml_gemm_f32", err)
     gemm.launches += 1
     return (out, colsum) if bias_sums else out

@@ -2,7 +2,7 @@
 
     python -m video_moment_localization_tpu_torch.utils.profile_train \
         [--config config/charadessta.yml] [--batch 64] [--iters 5] [--seed 0] \
-        [--packed false] [--compat] [--layer-backward]
+        [--packed false] [--compat] [--layer-forward | --layer-backward]
 
 Builds the model of the config it is given (default: Charades,
 config/charadessta.yml; config/activitynet.yml takes the content-unit route;
@@ -13,11 +13,12 @@ the label generators, ragged lengths, one padded sample), runs
 `parallel.steps.make_train_step` under
 ``torch.profiler``, and prints the device time per step of each kernel, its
 share, the device's busy share of the window (summed kernel time over wall
-time) and the peak device memory of a step. ``--layer-backward`` profiles
-the SMI layer backward (K3) alone instead: the three launches of one step's
-backward (the top layer without a dcu cotangent), on the carry that proposal
-pooling makes of random clip features with ragged lengths and on random
-cotangents. Needs a CUDA device.
+time) and the peak device memory of a step. ``--layer-forward`` profiles
+the SMI layer forward (K2) alone instead: the three launches of one step's
+forward; ``--layer-backward`` the SMI layer backward (K3) alone: the three
+launches of one step's backward (the top layer without a dcu cotangent).
+Both run on the carry that proposal pooling makes of random clip features
+with ragged lengths, the backward on random cotangents. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -123,6 +124,27 @@ def profile_layer_backward(model: SMIN, cfg: ModelConfig, B: int, iters: int,
     profile_and_report(backward, f"K3 x{len(layers)} B={B}", "backward", iters, top=24)
 
 
+def profile_layer_forward(model: SMIN, cfg: ModelConfig, B: int, iters: int,
+                          rng: np.random.Generator) -> None:
+    """K2 alone: one step's forward launches, one per layer."""
+    from video_moment_localization_tpu_torch.models.smin import block_weights
+    from video_moment_localization_tpu_torch.ops.smin_train_cuda import smi_layer_forward
+
+    model = model.cuda()
+    ins, _ = layer_backward_inputs(cfg, B, rng)
+    layers = [[w.detach() for w in block_weights(block)] for block in model.smis]
+
+    def forward():
+        with torch.no_grad():
+            for weights in layers:
+                smi_layer_forward(weights, *ins, cfg.L)
+
+    for _ in range(2):
+        forward()
+    torch.cuda.synchronize()
+    profile_and_report(forward, f"K2 x{len(layers)} B={B}", "forward", iters, top=24)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--config", default=os.path.join(REPO, "config", "charadessta.yml"))
@@ -133,6 +155,8 @@ def main(argv=None) -> int:
                         help="false: the dense layout (packed: False)")
     parser.add_argument("--compat", action="store_true",
                         help="the reference-compat mode: compat_head and fused_content")
+    parser.add_argument("--layer-forward", action="store_true",
+                        help="profile the SMI layer forward (K2) alone")
     parser.add_argument("--layer-backward", action="store_true",
                         help="profile the SMI layer backward (K3) alone")
     args = parser.parse_args(argv)
@@ -148,6 +172,9 @@ def main(argv=None) -> int:
     for B in args.batch:
         torch.manual_seed(args.seed)
         model = SMIN(config.model)
+        if args.layer_forward:
+            profile_layer_forward(model, config.model, B, args.iters, rng)
+            continue
         if args.layer_backward:
             profile_layer_backward(model, config.model, B, args.iters, rng)
             continue
