@@ -112,7 +112,23 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
 16. where the redesigned kernels had not been held: K4 at the ActivityNet
     width at B=512 (4,259,840 clip rows, past 65,535 GEMM row tiles along
     y) against K4 on slices of 8 of the same batch, and K2 / K3 at L=64 at
-    B=2 and B=8 against their plain versions (K3 also bit for bit).
+    B=2 and B=8 against their plain versions (K3 also bit for bit);
+17. training from feature files through the port's CLI
+    (``python -m video_moment_localization_tpu_torch.main``, in this process)
+    at the full Charades width, B=64: a Charades-style directory written by
+    ``data/synthetic.py`` (dv=1024, 128 train and 32 test videos of 2
+    queries: 4 steps and one eval batch an epoch); the host path the labels
+    and sampler take (native or NumPy); the loader alone in batches/s; 2
+    epochs, whose kernel launches (K1 / K2 / K3 per train step, K5 / K4 per
+    eval step, counted from 0 around the run) and stats are checked; a
+    second directory trained 1 epoch and resumed to 2, whose stats must equal
+    the uninterrupted run's bit for bit; ``--test`` and ``--test --nms``
+    printing the 8 metrics; epoch 1 of the same Trainer on the CPU (the
+    plain versions) from the same initial weights, its train and eval loss
+    within 2e-4 of the card's; the device's busy share over a train epoch
+    under ``torch.profiler``; the trainer's samples/s per epoch, beside the
+    same steps on an epoch's batches loaded beforehand; the peak device
+    memory.
 
 The proposal kernels K1, K6 and K8 (``csrc/proposal.cuh``,
 ``csrc/proposal_rows.cu``) are one forward and one backward, templated on the
@@ -134,8 +150,8 @@ pair's launches by those entry points (the C counters of
 
 Prints a ``{"kernels": [...]}`` line (K4 and K5 also at the ActivityNet
 width; the pair's forward and backward with their launches on the main path
-and their times alone), a ``{"gemm": [...]}`` line and the plans, then as the
-last line
+and their times alone), a ``{"gemm": [...]}`` line, the plans and a
+``{"files_training": {...}}`` line (phase 17), then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is visible or the package is not beside this script.
 """
@@ -2041,6 +2057,229 @@ def phase_unheld(anet_cfg, rng, device):
     return errs
 
 
+# Phase 17: a Charades-style directory of feature files at the full width,
+# 128 + 32 videos with 2 queries each: 256 train samples (4 steps at B=64)
+# and 64 test samples (one eval batch).
+FILES_VIDEOS = {"train": 128, "test": 32}
+FILES_QUERIES = 2
+FILES_EPOCHS = 2
+FILES_LOADER_EPOCHS = 5
+# The card's epoch-1 train loss (kernels) against the same Trainer on the CPU
+# (plain versions) from the same initial weights: 4 Adam steps, as phase 6's
+# three held to the plain versions.
+FILES_CPU_LOSS_RTOL = TRAIN_LOSS_RTOL
+
+
+def run_cli(args):
+    """The port's CLI in this process; returns its stdout, which it also
+    prints."""
+    import contextlib
+    import io
+
+    from video_moment_localization_tpu_torch.main import main as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli([*args, "--device", "cuda"])
+    print(buf.getvalue(), end="")
+    return buf.getvalue()
+
+
+def files_config(root, data, resume):
+    """config/charadessta.yml with its data in ``data`` and its checkpoints in
+    ``root``, written as ``root/charades_files.yml`` (the experiment name)."""
+    import yaml
+
+    with open(os.path.join(REPO, "config", "charadessta.yml")) as fh:
+        raw = yaml.safe_load(fh)
+    raw.update(data_dir=data, checkpoint_path=os.path.join(root, "ckpt"),
+               resume_training=resume)
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "charades_files.yml")
+    with open(path, "w") as fh:
+        yaml.safe_dump(raw, fh)
+    return path
+
+
+def read_stats(cfg_path):
+    from video_moment_localization_tpu_torch.config import load_config
+    from video_moment_localization_tpu_torch.utils.checkpoint import checkpoint_paths
+
+    cfg = load_config(cfg_path)
+    with open(checkpoint_paths(cfg.checkpoint_path, cfg.experiment)[1]) as fh:
+        return json.load(fh)
+
+
+def metric_lines(out, label):
+    """The 8 metric lines of a --test run, each a share in [0, 1]."""
+    names = [f"R@{n}, IoU={m}" for n in (1, 5) for m in (0.1, 0.3, 0.5, 0.7)]
+    got = dict(line.rsplit(" - ", 1) for line in out.splitlines()
+               if line.split(" - ")[0] in names)
+    if sorted(got) != sorted(names) or not all(0.0 <= float(v) <= 1.0 for v in got.values()):
+        fail(f"{label}: metric lines {got}")
+    return {k: float(v) for k, v in got.items()}
+
+
+def phase_files(config, seed, device, tmp):
+    """Training from feature files through the port's CLI at the full
+    Charades width: the loader alone, 2 epochs, a resumed run equal to the
+    uninterrupted one bit for bit, --test with and without --nms, the card's
+    epoch-1 loss against the CPU's, and the device's busy share over an
+    epoch."""
+    import torch
+
+    from video_moment_localization_tpu_torch.config import load_config
+    from video_moment_localization_tpu_torch.data import native
+    from video_moment_localization_tpu_torch.data.pipeline import BatchLoader
+    from video_moment_localization_tpu_torch.data.synthetic import write_charades_style_dir
+    from video_moment_localization_tpu_torch.ops import lstm_cuda, smin_cuda
+    from video_moment_localization_tpu_torch.train.trainer import Trainer, build_datasets
+    from video_moment_localization_tpu_torch.utils.checkpoint import (
+        checkpoint_paths,
+        load_checkpoint,
+    )
+    from video_moment_localization_tpu_torch.utils.profile_serving import profile_and_report
+
+    cfg = config.model
+    n = cfg.num_smi_layers
+    t0 = time.perf_counter()
+    data = write_charades_style_dir(os.path.join(tmp, "charades"), queries_per_video=FILES_QUERIES,
+                                    input_video_dim=cfg.input_video_dim, seed=seed,
+                                    signal_strength=1.0, videos_per_split=FILES_VIDEOS)
+    whole = files_config(os.path.join(tmp, "whole"), data, resume=False)
+    fcfg = load_config(whole)
+    B = fcfg.batch_size
+    train_ds, eval_ds = build_datasets(fcfg)
+    steps, evals = -(-len(train_ds) // B), -(-len(eval_ds) // B)
+    print(f"files: {len(train_ds)} train and {len(eval_ds)} test samples written in "
+          f"{time.perf_counter() - t0:.2f} s; host label and sampler path: {native.backend()}")
+
+    def loaders(c, train, evald):
+        return (BatchLoader(train, c.batch_size, shuffle=True, num_workers=c.num_workers,
+                            seed=c.seed),
+                BatchLoader(evald, c.batch_size, shuffle=False, num_workers=c.num_workers,
+                            seed=c.seed))
+
+    loader, _ = loaders(fcfg, train_ds, eval_ds)
+    sum(1 for _ in loader.epoch(0))   # learns the feature width: the buffered path from here
+    t0 = time.perf_counter()
+    batches = sum(1 for e in range(1, FILES_LOADER_EPOCHS + 1) for _ in loader.epoch(e))
+    loader_bps = batches / (time.perf_counter() - t0)
+    print(f"files: loader alone, B={B}, {fcfg.num_workers} workers: {batches} batches, "
+          f"{loader_bps:.2f} batches/s ({loader_bps * B:.1f} samples/s)")
+
+    counters = dict(mode_counters(), K5=lstm_cuda.bilstm_fused, K4=smin_cuda.smin_stack_fused)
+    for fn in counters.values():
+        fn.launches = 0
+    reset_pair_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = run_cli(["--config_path", whole, "--num_epochs", str(FILES_EPOCHS)])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict({k: fn.launches for k, fn in counters.items()}, **pair_counts())
+    train_steps, eval_steps = FILES_EPOCHS * steps, FILES_EPOCHS * evals
+    want = {"K1f": train_steps, "K1b": train_steps, "K2": n * train_steps,
+            "K3": n * train_steps, "CAb": n * train_steps, "K5": eval_steps, "K4": eval_steps}
+    others = {k: v for k, v in launches.items() if k not in want and k != "CAf" and v}
+    print(f"files: {FILES_EPOCHS} epochs through the CLI, launches "
+          f"{ {k: v for k, v in launches.items() if v} }, peak device memory {peak:.3f} GiB")
+    if (any(launches[k] != v for k, v in want.items()) or others
+            or launches["CAf"] < 2 * n * train_steps):
+        fail(f"files: kernel launches {launches}, expected {want} and CAf >= "
+             f"{2 * n * train_steps}")
+    stats = read_stats(whole)
+    sps = [float(line.split(" - ")[1].split()[0]) for line in out.splitlines()
+           if line.startswith("throughput - ")]
+    if stats["epoch"] != [1, 2] or len(sps) != FILES_EPOCHS or not all(
+            v == v and abs(v) < float("inf") for v in stats["train_loss"] + stats["eval_loss"]):
+        fail(f"files: stats {stats}")
+
+    # Resume: epoch 1 in a second directory, then a run that loads its
+    # checkpoint and trains epoch 2.
+    cut = files_config(os.path.join(tmp, "cut"), data, resume=True)
+    run_cli(["--config_path", cut, "--num_epochs", "1"])
+    cut_cfg = load_config(cut)
+    card_epoch1 = load_checkpoint(checkpoint_paths(cut_cfg.checkpoint_path,
+                                                   cut_cfg.experiment)[0])["model"]
+
+    # Epoch 1 of the same Trainer on the CPU, from the same seeded initial
+    # weights: its train and eval losses, and its weights after the epoch.
+    cpu_path = files_config(os.path.join(tmp, "cpu"), data, resume=False)
+    cpu_cfg = load_config(cpu_path, num_epochs_override=1)
+    card = Trainer(fcfg, device=device)
+    t0 = time.perf_counter()
+    cpu = Trainer(cpu_cfg, device="cpu")
+    card_init = card.model.state_dict()
+    for name, p in cpu.model.state_dict().items():
+        if not torch.equal(p, card_init[name].cpu()):
+            fail(f"files: initial weight {name} differs between the card's and the CPU's Trainer")
+    cpu.fit(*loaders(cpu_cfg, *build_datasets(cpu_cfg)))
+    cpu_stats = read_stats(cpu_path)
+    weight_diff = max(float((p - card_epoch1[name]).abs().max())
+                      for name, p in cpu.model.state_dict().items())
+    for key in ("train_loss", "eval_loss"):
+        rel = abs(stats[key][0] - cpu_stats[key][0]) / abs(cpu_stats[key][0])
+        print(f"files: epoch-1 {key} {stats[key][0]!r} on the card, {cpu_stats[key][0]!r} on the "
+              f"CPU: relative difference {rel:.3e} (tolerance {FILES_CPU_LOSS_RTOL})")
+        if rel > FILES_CPU_LOSS_RTOL:
+            fail(f"files: epoch-1 {key} differs from the CPU's by {rel:.3e}")
+    print(f"files: CPU epoch {time.perf_counter() - t0:.1f} s; weights after epoch 1 differ from "
+          f"the card's by at most {weight_diff:.3e} (lr {fcfg.lr}, {steps} Adam steps)")
+    del cpu
+
+    out_resumed = run_cli(["--config_path", cut, "--num_epochs", str(FILES_EPOCHS)])
+    if "Training Epoch - 2" not in out_resumed or "Training Epoch - 1" in out_resumed:
+        fail("files: the resumed run did not start at epoch 2")
+    resumed = read_stats(cut)
+    if resumed != stats:
+        diff = {k: (stats.get(k), resumed.get(k)) for k in set(stats) | set(resumed)
+                if stats.get(k) != resumed.get(k)}
+        fail(f"files: the resumed run's stats differ from the uninterrupted run's: {diff}")
+    print(f"files: resumed at epoch 2, stats equal to the uninterrupted run's bit for bit "
+          f"(train losses {stats['train_loss']}, eval losses {stats['eval_loss']})")
+    metrics = {}
+    for flags in ([], ["--nms"]):
+        label = "files --test" + "".join(" " + f for f in flags)
+        metrics[label] = metric_lines(run_cli(["--config_path", whole, "--test", *flags]), label)
+
+    # The device's busy share over a train epoch from files (after a warm
+    # one), then unprofiled epochs, then the same steps on an epoch's host
+    # batches collected beforehand (no loader thread running beside them).
+    train_loader, _ = loaders(fcfg, train_ds, eval_ds)
+    card._run_epoch(train_loader, 1, True)
+    busy = profile_and_report(lambda: card._run_epoch(train_loader, 2, True),
+                              f"files: Charades train epoch from files, B={B}", "epoch", 1,
+                              top=12)
+    epoch_sps = []
+    for epoch in range(3, 6):
+        card.timer.reset()
+        card._run_epoch(train_loader, epoch, True)
+        epoch_sps.append(card.timer.throughput)
+    host_sps = []
+    for epoch in range(6, 8):
+        host = list(train_loader.epoch(epoch))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in host:
+            card.train_step(card._to_device(b))
+        torch.cuda.synchronize()
+        host_sps.append(sum(float(b["sample_mask"].sum()) for b in host)
+                        / (time.perf_counter() - t0))
+    print(f"files: trainer epochs 3-5 unprofiled: {epoch_sps} samples/s; the same steps on an "
+          f"epoch's batches loaded beforehand: {host_sps} samples/s")
+    result = {"batch": B, "train_samples": len(train_ds), "test_samples": len(eval_ds),
+              "native": native.backend(), "loader_batches_per_s": loader_bps,
+              "cli_samples_per_s": sps, "trainer_samples_per_s": epoch_sps,
+              "steps_on_loaded_batches_samples_per_s": host_sps,
+              "device_busy_share": busy, "peak_memory_gib": peak,
+              "train_loss": stats["train_loss"], "eval_loss": stats["eval_loss"],
+              "cpu_epoch1": {k: cpu_stats[k][0] for k in ("train_loss", "eval_loss")},
+              "cpu_weight_max_abs_diff": weight_diff, "launches": launches, "test": metrics}
+    del card
+    torch.cuda.empty_cache()
+    return result
+
+
 def back_to_back(r):
     """The back-to-back device times of a timed row, where it has them."""
     return {k: r[k] for k in ("device_ms", "library_device_ms") if k in r}
@@ -2124,6 +2363,8 @@ def main(argv=None) -> int:
     pair_times, pair_errs = phase_pair({"charadessta": cfg, "activitynet": anet.model}, rng,
                                        device)
     unheld_errs = phase_unheld(anet.model, rng, device)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-files-") as tmp:
+        files = phase_files(config, args.seed, device, tmp)
 
     kernels = []
     for key, name, src, rep, err in (
@@ -2249,6 +2490,7 @@ def main(argv=None) -> int:
                "launches_per_step": {k: v // TRAIN_STEPS for k, v in modes[mode][3].items() if v}}
         for mode in ("dense", "compat")}}))
     print(json.dumps({"gemm": gemm_rows}))
+    print(json.dumps({"files_training": files}))
     print(json.dumps({"serving_pairs_per_s_device": {
         str(B): B / times[("e2e", B)] * 1e3 for B in (16, 512)}}))
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,50 @@ JCFG, CFG = JaxModelConfig(**SHAPE), ModelConfig(**SHAPE)
 N = CFG.L * (CFG.L + 1) // 2
 
 
+def load_jax_native(timeout=120.0):
+    """Load the JAX package's native library, retrying while another test
+    worker builds it: that binding compiles in place, so a process that
+    loads the file mid-build fails and would take the NumPy path for the
+    rest of its life, and its batches would no longer equal the port's
+    native ones bit for bit."""
+    import time
+
+    from video_moment_localization_tpu.data import native as jn
+
+    deadline = time.time() + timeout
+    while jn.get_lib() is None:
+        if time.time() > deadline:
+            raise RuntimeError("the JAX package's native library did not load")
+        jn._tried = False
+        time.sleep(0.5)
+
+
+# The config of the trainer and CLI tests: tests/test_cli.py's TINY_CFG with a
+# batch of 3, so that the fixtures' splits end in a padded batch.
+TINY_CFG = """
+model:              "SMIN"
+checkpoint_path:    "{ckpt}"
+resume_training:    {resume}
+T:                  16
+L:                  8
+C:                  4
+d:                  32
+input_video_dim:    32
+dl:                 8
+max_query_length:   6
+lstm_hidden_size:   16
+num_smi_layers:     2
+dataset:            "charadessta"
+data_dir:           "{data}"
+batch_size:         3
+num_workers:        2
+seed:               43
+optimizer:          "Adam"
+lr:                 0.001
+num_epochs:         2
+"""
+
+
 def make_model(seed, shape=None):
     """(JAX params as numpy, the port's model with the same weights), at
     ``shape`` (keyword arguments of both packages' ModelConfig; default SHAPE)."""

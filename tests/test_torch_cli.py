@@ -1,0 +1,135 @@
+"""The PyTorch port's CLI (``python -m video_moment_localization_tpu_torch.main``)
+end to end on the CPU, in process, as tests/test_cli.py drives the JAX CLI:
+train -> stats and checkpoint -> resume -> --test -> --test --nms, the
+missing-checkpoint error, GloVe from $GLOVE_PATH, --best, --compat_metrics,
+--debug_nans, --profile_dir, the card as the default device, and the
+refusal of the flags whose paths the port does not have yet."""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+from _torch_train_common import TINY_CFG
+from video_moment_localization_tpu_torch.data.synthetic import write_charades_style_dir
+from video_moment_localization_tpu_torch.main import main
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def workdir(tmp_path_factory):
+    """A Charades-style data directory whose GloVe file lives outside it, so
+    the datasets find it only through $GLOVE_PATH."""
+    root = tmp_path_factory.mktemp("torch_cli")
+    write_charades_style_dir(str(root / "data"), num_videos=4, queries_per_video=2)
+    shutil.move(str(root / "data" / "glove"), str(root / "glove"))
+    return root
+
+
+@pytest.fixture
+def env(workdir, monkeypatch):
+    monkeypatch.setenv("GLOVE_PATH", str(workdir / "glove" / "glove.6B.300d.txt"))
+    monkeypatch.chdir(workdir)
+    return workdir
+
+
+def write_cfg(workdir, resume=False, name="tiny", ckpt="ckpt"):
+    path = workdir / f"{name}.yml"
+    path.write_text(TINY_CFG.format(ckpt=str(workdir / ckpt), data=str(workdir / "data"),
+                                    resume=str(resume)))
+    return str(path)
+
+
+def run(capsys, *args):
+    capsys.readouterr()
+    main([*args, "--device", "cpu"])
+    return capsys.readouterr().out
+
+
+def test_train_then_resume_then_test(env, capsys):
+    cfg = write_cfg(env)
+    out = run(capsys, "--config_path", cfg, "--num_epochs", "2")
+    assert "Training Epoch - 1" in out and "Training Epoch - 2" in out
+    assert "Training Loss -" in out
+    assert "train_R@1, IoU=0.5 -" in out and "eval_R@5, IoU=0.7 -" in out
+
+    stats_path = env / "ckpt/tiny_stats.json"
+    stats = json.loads(stats_path.read_text())
+    assert stats["epoch"] == [1, 2]
+    assert len(stats["train_loss"]) == 2 and len(stats["eval_R@1, IoU=0.3"]) == 2
+    assert os.path.exists(env / "ckpt/tiny_model.ckpt")
+
+    # resume: continue to epoch 3, stats truncated/extended correctly
+    cfg_resume = write_cfg(env, resume=True)
+    out = run(capsys, "--config_path", cfg_resume, "--num_epochs", "3")
+    assert "Training Epoch - 3" in out
+    assert "Training Epoch - 2" not in out   # starts after the checkpoint
+    stats = json.loads(stats_path.read_text())
+    assert stats["epoch"] == [1, 2, 3]
+
+    # test mode loads the checkpoint and prints the 8 metrics
+    out = run(capsys, "--config_path", cfg_resume, "--test")
+    lines = out.splitlines()
+    assert [line.split(" - ")[0] for line in lines[:8]] == [
+        f"R@{n}, IoU={m}" for n in (1, 5) for m in (0.1, 0.3, 0.5, 0.7)]
+    assert lines[8].startswith("throughput - ") and len(lines) == 9
+    # soft-NMS eval mode also runs
+    out = run(capsys, "--config_path", cfg_resume, "--test", "--nms")
+    assert "R@5, IoU=0.7 - " in out
+    # the reference-compat eval: dense labels and score map
+    out = run(capsys, "--config_path", cfg_resume, "--test", "--compat_metrics")
+    assert "R@1, IoU=0.1 - " in out
+
+
+def test_missing_checkpoint_raises(env, capsys):
+    cfg = write_cfg(env, name="tiny2", ckpt="ckpt_missing")
+    with pytest.raises(FileNotFoundError, match="No saved model at"):
+        run(capsys, "--config_path", cfg, "--test")
+    with pytest.raises(FileNotFoundError, match="No saved model at .*_model_best.ckpt"):
+        run(capsys, "--config_path", cfg, "--test", "--best")
+
+
+def test_save_best_then_test_best(env, capsys):
+    cfg = write_cfg(env, name="tiny3", ckpt="ckpt_best")
+    out = run(capsys, "--config_path", cfg, "--num_epochs", "1", "--save_best",
+              "R@5, IoU=0.1")
+    assert "new best eval_R@5, IoU=0.1 - " in out
+    assert os.path.exists(env / "ckpt_best/tiny3_model_best.ckpt")
+    out = run(capsys, "--config_path", cfg, "--test", "--best")
+    assert "R@5, IoU=0.1 - " in out
+
+
+def test_debug_nans_and_profile_dir(env, capsys):
+    cfg = write_cfg(env, name="tiny4", ckpt="ckpt_prof")
+    out = run(capsys, "--config_path", cfg, "--num_epochs", "1", "--debug_nans",
+              "--profile_dir", str(env / "prof"))
+    assert "Training Epoch - 1" in out
+    with open(env / "prof" / "trace.json") as fh:
+        assert json.load(fh)["traceEvents"]
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--num_devices", "2"], "Data parallelism"),
+    (["--distributed"], "Data parallelism"),
+    (["--seq_devices", "2"], "Sequence and 2-D parallelism"),
+    (["--compute_dtype", "bfloat16"], "bf16"),
+])
+def test_refuses_unported_flags(env, capsys, flags, item):
+    cfg = write_cfg(env, name="tiny5", ckpt="ckpt_refused")
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 '{item}'"):
+        run(capsys, "--config_path", cfg, *flags)
+    assert not os.path.exists(env / "ckpt_refused")
+
+
+def test_runs_on_the_card_by_default(env):
+    cfg = write_cfg(env, name="tiny6", ckpt="ckpt_card")
+    out = subprocess.run([sys.executable, "-m", "video_moment_localization_tpu_torch.main",
+                          "--config_path", cfg, "--num_epochs", "1"], cwd=str(env),
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0
+    assert "Trainer: no CUDA device; pass device='cpu'" in out.stderr

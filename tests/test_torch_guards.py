@@ -74,6 +74,8 @@ def test_importing_the_port_loads_no_jax():
             "import video_moment_localization_tpu_torch.ops.smin_train_cuda\n"
             "import video_moment_localization_tpu_torch.ops.content_cuda\n"
             "import video_moment_localization_tpu_torch.ops.gemm_cuda\n"
+            "import video_moment_localization_tpu_torch.main\n"
+            "import video_moment_localization_tpu_torch.data.synthetic\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'video_moment_localization_tpu')]\n"
             "print(sorted(bad))\n")

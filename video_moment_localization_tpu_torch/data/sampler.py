@@ -1,25 +1,66 @@
-"""Fixed-length temporal sampling of raw clip features, evaluation mode.
+"""Fixed-length temporal sampling of raw clip features.
 
-Counterpart of the numpy path of ``video_moment_localization_tpu/data/
-sampler.py`` (reference dataset.py:40-74) at offset 0, the only mode serving
-uses: stride = nfeats/T when the video is longer than T clips, else 1.0;
-frame indices are ``round(arange(0, nfeats - 0.5, stride))`` with numpy's
-round-half-to-even, truncated to T; the normalized span is mapped to
-sampled-frame indices by a linear scan; shorter videos are zero-padded to T.
+Counterpart of ``video_moment_localization_tpu/data/sampler.py``
+(reference dataset.py:40-74):
+
+* stride = nfeats/T when the video is longer than T clips, else 1.0;
+* training adds a random integer start offset ``spos`` drawn uniformly from
+  [0, stride - 0.5] (with the reference's "integral endpoint shrinks by 1"
+  quirk, dataset.py:46-49); evaluation and serving use offset 0, the
+  default;
+* frame indices are ``round(arange(spos, nfeats - 0.5, stride))`` with
+  numpy's round-half-to-even, truncated to T on the rare over-long case;
+* the normalized ground-truth span is mapped to sampled-frame indices by a
+  linear scan over consecutive frame-index pairs (dataset.py:60-65);
+* shorter videos are zero-padded up to T.
+
+The index math runs in the native library (``data/native.py``) when it is
+built, else in numpy; both give the same indices. Training jitter is drawn
+from an explicit ``np.random.Generator`` so that it is reproducible and
+resumable (the reference used the unseeded global numpy RNG).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
+from video_moment_localization_tpu_torch.data import native
+
+
+def jitter_offset(nfeats: int, T: int, rng: Optional[np.random.Generator]) -> int:
+    """The training start offset ``spos``: uniform over [0, stride - 0.5],
+    the endpoint shrunk by 1 when it is integral so that the last sampled
+    index cannot run past the video."""
+    stride = 1.0 if nfeats <= T else nfeats * 1.0 / T
+    random_end = -0.5 + stride
+    if random_end == np.floor(random_end):
+        random_end -= 1.0
+    high = int(random_end + 1.0)  # numpy randint truncates float highs
+    if rng is None:
+        return int(np.random.randint(0, high))
+    return int(rng.integers(0, high))
+
 
 def sample_frame_indices(nfeats: int, T: int, start_pos_n: float = 0.0,
-                         end_pos_n: float = 1.0) -> Tuple[np.ndarray, int, int, int]:
-    """Returns (frame_idx, nfeats_clamped, start_index, end_index)."""
+                         end_pos_n: float = 1.0, train: bool = False,
+                         rng: Optional[np.random.Generator] = None
+                         ) -> Tuple[np.ndarray, int, int, int]:
+    """Index half of the sampler: which raw frames to keep.
+
+    Returns (frame_idx, nfeats_clamped, start_index, end_index). Keeping the
+    index math apart from the gather lets dataset readers fetch only the
+    sampled rows from disk.
+    """
+    spos = jitter_offset(nfeats, T, rng) if train else 0
+    got = native.sample_indices(nfeats, T, spos, float(start_pos_n), float(end_pos_n))
+    if got is not None:
+        frame_idx, start_index, end_index = got
+        return frame_idx, min(nfeats, T), start_index, end_index
+
     stride = 1.0 if nfeats <= T else nfeats * 1.0 / T
-    frame_idx = np.round(np.arange(0, nfeats - 0.5, stride)).astype(int)
+    frame_idx = np.round(np.arange(spos, nfeats - 0.5, stride)).astype(int)
     start_pos = float(nfeats - 1.0) * float(start_pos_n)
     end_pos = float(nfeats - 1.0) * float(end_pos_n)
 
@@ -40,13 +81,15 @@ def sample_frame_indices(nfeats: int, T: int, start_pos_n: float = 0.0,
 
 
 def sample_fixed_length_features(feat: np.ndarray, T: int, start_pos_n: float = 0.0,
-                                 end_pos_n: float = 1.0) -> Tuple[np.ndarray, int, int, int]:
+                                 end_pos_n: float = 1.0, train: bool = False,
+                                 rng: Optional[np.random.Generator] = None
+                                 ) -> Tuple[np.ndarray, int, int, int]:
     """Sample raw features (nfeats, dv) to a fixed-length (T, dv) array.
 
     Returns (features (T, dv) float32, nfeats_clamped, start_index, end_index).
     """
     frame_idx, nfeats_clamped, start_index, end_index = sample_frame_indices(
-        feat.shape[0], T, start_pos_n, end_pos_n)
+        feat.shape[0], T, start_pos_n, end_pos_n, train, rng)
     out = np.zeros((T, feat.shape[1]), dtype=np.float32)
     out[:nfeats_clamped, :] = feat[frame_idx, :]
     return out, nfeats_clamped, start_index, end_index

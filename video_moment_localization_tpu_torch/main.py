@@ -1,0 +1,111 @@
+"""Command line of the PyTorch port: train, resume and test on feature files.
+
+    python -m video_moment_localization_tpu_torch.main \
+        --config_path config/charadessta.yml [--num_epochs N] [--test [--best]] \
+        [--nms] [--save_best 'R@1, IoU=0.5'] [--compat_metrics] \
+        [--profile_dir DIR] [--debug_nans] [--device cuda|cpu]
+
+The flags of the JAX package's ``main.py``, with the same names and meanings
+(reference main.py:13-28, 278-313), and the same stdout lines. ``--device``
+picks the device (default: the card). ``--num_devices`` above 1,
+``--seq_devices`` above 1, ``--distributed`` and ``--compute_dtype bfloat16``
+are refused with the ROADMAP.md item that brings them. ``--debug_nans`` reads
+each step's loss back and checks every gradient, failing at the first
+non-finite value. GloVe is found as the JAX CLI finds it: the data
+directory's ``glove/glove.6B.300d.txt``, ``$GLOVE_PATH``, then the default
+locations.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import Optional, Sequence
+
+from video_moment_localization_tpu_torch.config import load_config
+from video_moment_localization_tpu_torch.data.pipeline import BatchLoader
+from video_moment_localization_tpu_torch.train.trainer import (
+    Trainer,
+    build_datasets,
+    refuse_unported,
+)
+
+
+def get_parameters(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config_path", default="config/charadessta.yml",
+                        help="Path to config file.")
+    parser.add_argument("--num_epochs", default=0, type=int,
+                        help="Number of epochs to override value in the config.")
+    parser.add_argument("--test", default=False, action="store_true",
+                        help="Test the saved model for this config.")
+    parser.add_argument("--nms", default=False, action="store_true",
+                        help="Use soft-NMS proposal selection at eval.")
+    parser.add_argument("--num_devices", default=None, type=int,
+                        help="Total device count (the port trains on one).")
+    parser.add_argument("--seq_devices", default=None, type=int,
+                        help="Sequence-parallel width (the port has none yet).")
+    parser.add_argument("--compute_dtype", default=None, choices=["float32", "bfloat16"],
+                        help="Activation compute dtype (the port trains in float32).")
+    parser.add_argument("--profile_dir", default=None,
+                        help="Write a torch.profiler Chrome trace of training to this "
+                             "directory.")
+    parser.add_argument("--debug_nans", default=False, action="store_true",
+                        help="Fail fast on a non-finite loss or gradient.")
+    parser.add_argument("--save_best", default=None,
+                        help="Track the best checkpoint by this eval metric "
+                             "(e.g. 'R@1, IoU=0.5'); saves {experiment}_model_best.ckpt.")
+    parser.add_argument("--best", default=False, action="store_true",
+                        help="With --test: load the best checkpoint instead of the last one.")
+    parser.add_argument("--compat_metrics", default=False, action="store_true",
+                        help="Reference-compat eval: dense (L, L) score map and labels, "
+                             "bit-reproducing the reference's top-k tie quirk "
+                             "(PARITY.md #16).")
+    parser.add_argument("--distributed", default=False, action="store_true",
+                        help="Multi-process training (the port has none yet).")
+    parser.add_argument("--device", default="cuda",
+                        help="Device to train and test on (default: cuda).")
+    return parser.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    args = get_parameters(argv)
+    cfg = load_config(args.config_path, num_epochs_override=args.num_epochs)
+    # Flags only override when explicitly provided (YAML values otherwise).
+    if args.nms:
+        cfg.nms = True
+    if args.num_devices is not None:
+        cfg.num_devices = args.num_devices
+    if args.seq_devices is not None:
+        cfg.seq_devices = args.seq_devices
+    if args.save_best is not None:
+        cfg.save_best = args.save_best
+    if args.profile_dir is not None:
+        cfg.profile_dir = args.profile_dir
+    if args.compute_dtype:
+        cfg.model = dataclasses.replace(cfg.model, compute_dtype=args.compute_dtype)
+    if args.compat_metrics:
+        cfg.model = dataclasses.replace(cfg.model, compat_head=True)
+    refuse_unported(cfg, distributed=args.distributed)
+
+    trainer = Trainer(cfg, device=args.device, debug_nans=args.debug_nans)
+    if not args.test:
+        train_ds, eval_ds = build_datasets(cfg)
+        train_loader = BatchLoader(train_ds, cfg.batch_size, shuffle=True,
+                                   num_workers=cfg.num_workers, seed=cfg.seed)
+        eval_loader = BatchLoader(eval_ds, cfg.batch_size, shuffle=False,
+                                  num_workers=cfg.num_workers, seed=cfg.seed)
+        trainer.fit(train_loader, eval_loader)
+    else:
+        test_ds = build_datasets(cfg, test_only=True)
+        test_loader = BatchLoader(test_ds, cfg.batch_size, shuffle=False,
+                                  num_workers=cfg.num_workers, seed=cfg.seed)
+        trainer.load_for_test(use_best=args.best)
+        metrics = trainer.evaluate(test_loader)
+        for k, v in metrics.items():
+            print(f"{k} - {v}")
+        print(f"throughput - {trainer.timer.throughput:.1f} query-video pairs/s")
+
+
+if __name__ == "__main__":
+    main()

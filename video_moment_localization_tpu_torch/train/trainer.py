@@ -1,0 +1,294 @@
+"""Training/eval/test orchestration on one device.
+
+Counterpart of ``video_moment_localization_tpu/train/trainer.py``, with the
+public behaviour of the reference orchestration (reference
+main.py:135-276): per-epoch stdout lines, a cumulative
+``{experiment}_stats.json`` rewritten every epoch with
+epoch/train_loss/eval_loss/train_<metric>/eval_<metric> arrays, a single
+overwritten checkpoint per experiment, and resume-at-epoch+1 semantics.
+Charades-STA evaluates on its test split (it has no val split, reference
+main.py:45-47).
+
+The steps are the port's own (`parallel.steps`): one train step (forward,
+loss, backward, Adam) and one eval step (forward, loss, recall counts), on
+the card unless the CPU is asked for. Batches come from the host loader as
+NumPy arrays; the trainer copies each through pinned memory with a
+non-blocking transfer on the main thread, dispatches the steps with no host
+read per step, and reads the losses and counts back once per epoch.
+
+Not in this module yet: the JAX trainer's device mesh, multi-process and 2-D
+(data x sequence) paths, its automatic SMI rematerialization, and bf16. A
+config that asks for them is refused with the ROADMAP.md item that brings
+them.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import math
+import os
+from collections import defaultdict
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from video_moment_localization_tpu_torch.config import Config
+from video_moment_localization_tpu_torch.data.datasets import get_dataset_class
+from video_moment_localization_tpu_torch.data.glove import WordEmbedding
+from video_moment_localization_tpu_torch.data.pipeline import BatchLoader
+from video_moment_localization_tpu_torch.models.smin import SMIN
+from video_moment_localization_tpu_torch.ops.cuda_build import resolve_device
+from video_moment_localization_tpu_torch.parallel.steps import (
+    build_optimizer,
+    make_eval_step,
+    make_train_step,
+)
+from video_moment_localization_tpu_torch.train.metrics import counts_to_dict, metric_names
+from video_moment_localization_tpu_torch.utils.checkpoint import (
+    checkpoint_paths,
+    load_checkpoint,
+    save_checkpoint,
+)
+from video_moment_localization_tpu_torch.utils.profiling import StepTimer, trace_context
+
+# Steps dispatched between two waits for the device: bounds the batches in
+# flight without giving up the overlap of host and device work.
+DRAIN_EVERY = 16
+
+
+def refuse_unported(cfg: Config, distributed: bool = False) -> None:
+    """Raise NotImplementedError for a setting whose path the port does not
+    have yet, naming the ROADMAP.md item that brings it, instead of running
+    something else."""
+    if distributed or (cfg.num_devices is not None and cfg.num_devices != 1):
+        what = "--distributed" if distributed else f"num_devices={cfg.num_devices}"
+        raise NotImplementedError(
+            f"{what}: the PyTorch port trains on one device; data parallelism is "
+            f"ROADMAP.md §1 'Data parallelism'")
+    if cfg.seq_devices > 1:
+        raise NotImplementedError(
+            f"seq_devices={cfg.seq_devices}: sequence and 2-D parallelism are not in the "
+            f"PyTorch port yet (ROADMAP.md §1 'Sequence and 2-D parallelism')")
+    if cfg.model.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={cfg.model.compute_dtype}: the PyTorch port trains in float32; "
+            f"bf16 is ROADMAP.md §1 'bf16'")
+
+
+def build_datasets(cfg: Config, embedding: Optional[WordEmbedding] = None,
+                   test_only: bool = False):
+    """Split factories (reference main.py:43-55)."""
+    cls = get_dataset_class(cfg.dataset)
+    glove = os.path.join(cfg.data_dir, "glove/glove.6B.300d.txt")
+    emb = embedding or WordEmbedding.load(glove if os.path.exists(glove) else None)
+    m = cfg.model
+    kw = dict(data_dir=cfg.data_dir, T=m.T, L=m.L,
+              max_query_length=m.max_query_length, embedding=emb)
+    # Packed models consume packed (N,) sm/ym and no dense moment_mask;
+    # the compat_head eval mode keeps the dense reference-quirk pipeline.
+    packed_labels = m.packed and not m.compat_head
+    if test_only:
+        test = cls(split="test", **kw)
+        test.packed_labels = packed_labels
+        return test
+    train = cls(split="train", **kw)
+    eval_split = "test" if cfg.dataset == "charadessta" else "val"
+    evald = cls(split=eval_split, **kw)
+    train.packed_labels = evald.packed_labels = packed_labels
+    return train, evald
+
+
+class Trainer:
+    """Owns the model, the optimizer, the steps and the epoch loop.
+
+    ``state_dict``: initial weights (a SMIN state_dict) in place of the
+    seeded initialization, for example a JAX parameter tree carried across
+    by ``models.port.state_dict_from_jax_params``. ``debug_nans``: read each
+    step's loss back and check every gradient, raising at the first
+    non-finite value with its epoch and step.
+    """
+
+    def __init__(self, cfg: Config, device="cuda",
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None, debug_nans: bool = False):
+        refuse_unported(cfg)
+        self.cfg = cfg
+        self.debug_nans = debug_nans
+        self.device = resolve_device(device, "Trainer")
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(cfg.seed)
+            self.model = SMIN(cfg.model)
+        if state_dict is not None:
+            self.model.load_state_dict(state_dict, strict=True)
+        self.optimizer = build_optimizer(cfg, self.model)
+        self.train_step = make_train_step(cfg.model, self.model, self.optimizer, self.device)
+        self.eval_step = make_eval_step(cfg.model, self.model, device=self.device)
+        self.test_step = make_eval_step(cfg.model, self.model, use_nms=cfg.nms,
+                                        nms_sigma=cfg.nms_sigma, device=self.device)
+        self.model_path, self.stats_path = checkpoint_paths(cfg.checkpoint_path,
+                                                            cfg.experiment)
+        self.best_model_path = self.model_path.replace("_model.ckpt", "_model_best.ckpt")
+        if cfg.save_best is not None and cfg.save_best not in metric_names():
+            raise ValueError(f"save_best metric {cfg.save_best!r} unknown; choose "
+                             f"from {metric_names()}")
+        self.timer = StepTimer()
+
+    # ------------------------------------------------------------------ #
+    def _to_device(self, batch) -> Dict[str, torch.Tensor]:
+        """The batch's arrays as tensors on the device: through pinned host
+        memory and a non-blocking copy on the card. Called on the main
+        thread only; the loader's threads touch no device."""
+        out = {}
+        for k, v in batch.items():
+            if isinstance(v, np.ndarray):
+                t = torch.from_numpy(v)
+                if self.device.type == "cuda":
+                    t = t.pin_memory().to(self.device, non_blocking=True)
+                out[k] = t
+        return out
+
+    def _check_finite(self, m, epoch: int, step: int, train: bool) -> None:
+        """--debug_nans: one host read of the loss and, after a train step,
+        one of a finiteness flag over every gradient."""
+        loss = float(m["loss"])
+        what = None if math.isfinite(loss) else f"loss {loss}"
+        if what is None and train:
+            flags = [torch.isfinite(p.grad).all() for p in self.model.parameters()
+                     if p.grad is not None]
+            if not bool(torch.stack(flags).all()):
+                bad = [n for n, p in self.model.named_parameters()
+                       if p.grad is not None and not bool(torch.isfinite(p.grad).all())]
+                what = f"gradient of {', '.join(bad)}"
+        if what is not None:
+            raise FloatingPointError(f"non-finite {what} at epoch {epoch}, "
+                                     f"{'train' if train else 'eval'} step {step}")
+
+    def _run_epoch(self, loader: BatchLoader, epoch: int, train: bool,
+                   step_fn=None) -> Tuple[float, Dict[str, float]]:
+        """One pass over a loader; returns (avg loss, normalized metrics).
+
+        Steps are dispatched back to back with no host read (the valid-sample
+        counts come from the host-side batch), with a wait for the device
+        every DRAIN_EVERY steps; the losses and counts are read back once at
+        the end."""
+        step_fn = step_fn or (self.train_step if train else self.eval_step)
+        per_step, n_valid = [], []
+        self.timer.start()
+        # closing(): a step that raises stops the loader's producer thread at
+        # once, not when the traceback that holds the generator is freed.
+        with contextlib.closing(loader.epoch(epoch)) as batches:
+            for i, batch in enumerate(batches):
+                m = step_fn(self._to_device(batch))
+                per_step.append(m)
+                n_valid.append(float(batch["sample_mask"].sum()))
+                if self.debug_nans:
+                    self._check_finite(m, epoch, i + 1, train)
+                if (i + 1) % DRAIN_EVERY == 0 and self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+        loss_sum, counts_sum, num = 0.0, None, 0.0
+        if per_step:
+            losses = torch.stack([m["loss"] for m in per_step]).cpu().tolist()
+            counts = torch.stack([m["counts"] for m in per_step]).cpu().numpy()
+            for loss, c, n in zip(losses, counts, n_valid):
+                loss_sum += loss * n
+                counts_sum = c if counts_sum is None else counts_sum + c
+                num += n
+        self.timer.stop(int(num))
+        metrics = counts_to_dict(counts_sum / max(num, 1.0)) if counts_sum is not None else {}
+        return loss_sum / max(num, 1.0), metrics
+
+    # ------------------------------------------------------------------ #
+    def _existing_stats(self, start_epoch: int) -> Dict[str, list]:
+        """Truncate a prior stats file to completed epochs on resume
+        (reference main.py:220-229)."""
+        stats = defaultdict(list)
+        if self.cfg.resume_training and os.path.exists(self.stats_path):
+            done = start_epoch - 1
+            # With eval_every > 1 the eval arrays are shorter: one entry per
+            # evaluated epoch (multiples of eval_every, plus the final epoch).
+            evals_done = done // self.cfg.eval_every
+            if done == self.cfg.num_epochs and done % self.cfg.eval_every:
+                evals_done += 1
+            with open(self.stats_path) as f:
+                for key, val in json.load(f).items():
+                    keep = evals_done if key.startswith("eval") else done
+                    stats[key] = val[:keep]
+        return stats
+
+    def maybe_resume(self) -> int:
+        """Load the checkpoint if resume_training is set; return the start
+        epoch (the checkpoint's epoch + 1, else 1)."""
+        if not self.cfg.resume_training:
+            return 1
+        ckpt = load_checkpoint(self.model_path)
+        if ckpt is None:
+            return 1
+        self.model.load_state_dict(ckpt["model"], strict=True)
+        self.optimizer.load_state_dict(ckpt["optimizer"])
+        return ckpt["epoch"] + 1
+
+    def load_for_test(self, use_best: bool = False) -> None:
+        path = self.best_model_path if use_best else self.model_path
+        ckpt = load_checkpoint(path)
+        if ckpt is None:
+            raise FileNotFoundError(f"No saved model at {path}!")
+        self.model.load_state_dict(ckpt["model"], strict=True)
+
+    # ------------------------------------------------------------------ #
+    def fit(self, train_loader: BatchLoader, eval_loader: BatchLoader) -> None:
+        start_epoch = self.maybe_resume()
+        stats = self._existing_stats(start_epoch)
+        best_key = f"eval_{self.cfg.save_best}" if self.cfg.save_best else None
+        best = max(stats[best_key], default=-float("inf")) if best_key else None
+
+        with trace_context(self.cfg.profile_dir):
+            for epoch in range(start_epoch, self.cfg.num_epochs + 1):
+                print(f"Training Epoch - {epoch}")
+                self.timer.reset()
+                train_loss, train_metrics = self._run_epoch(train_loader, epoch, True)
+                train_tput = self.timer.throughput
+                # eval_every=1 is the reference cadence; last epoch always evals.
+                do_eval = epoch % self.cfg.eval_every == 0 or epoch == self.cfg.num_epochs
+                if do_eval:
+                    eval_loss, eval_metrics = self._run_epoch(eval_loader, epoch, False)
+                    print(f"Training Loss - {train_loss:.4f}, Eval Loss - {eval_loss:.4f}")
+                else:
+                    eval_loss, eval_metrics = None, {}
+                    print(f"Training Loss - {train_loss:.4f}")
+                for k, v in train_metrics.items():
+                    print(f"train_{k} - {v}")
+                for k, v in eval_metrics.items():
+                    print(f"eval_{k} - {v}")
+                print(f"throughput - {train_tput:.1f} query-video pairs/s (train)")
+
+                stats["epoch"].append(epoch)
+                stats["train_loss"].append(train_loss)
+                if do_eval:
+                    stats["eval_loss"].append(eval_loss)
+                    if self.cfg.eval_every != 1:
+                        # extra alignment key (absent at the reference cadence,
+                        # keeping the default stats schema identical)
+                        stats["eval_epoch"].append(epoch)
+                for k, v in train_metrics.items():
+                    stats[f"train_{k}"].append(v)
+                for k, v in eval_metrics.items():
+                    stats[f"eval_{k}"].append(v)
+
+                os.makedirs(os.path.dirname(self.stats_path) or ".", exist_ok=True)
+                with open(self.stats_path, "w") as f:
+                    json.dump(stats, f)
+                save_checkpoint(self.model_path, epoch, self.model, self.optimizer)
+                if best_key is not None and self.cfg.save_best in eval_metrics:
+                    current = eval_metrics[self.cfg.save_best]
+                    if current > best:
+                        best = current
+                        save_checkpoint(self.best_model_path, epoch, self.model,
+                                        self.optimizer)
+                        print(f"new best {best_key} - {best} (epoch {epoch})")
+
+    def evaluate(self, loader: BatchLoader) -> Dict[str, float]:
+        """Metrics-only pass over a test loader (reference main.py:193-211)."""
+        self.timer.reset()
+        _, metrics = self._run_epoch(loader, 0, False, step_fn=self.test_step)
+        return metrics

@@ -47,9 +47,10 @@ def profile_forward(loc: MomentLocalizer, B: int, iters: int, rng) -> None:
     profile_and_report(lambda: loc._score(vf, vm, qf, qm, lm, None, 5), f"B={B}", "forward", iters)
 
 
-def profile_and_report(fn, label: str, unit: str, iters: int, top: int = 16) -> None:
+def profile_and_report(fn, label: str, unit: str, iters: int, top: int = 16) -> float:
     """Run ``fn`` ``iters`` times under torch.profiler and print the device
-    time per run of each kernel, its share, and the device's busy share."""
+    time per run of each kernel, its share, and the device's busy share;
+    returns the busy share."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -65,6 +66,7 @@ def profile_and_report(fn, label: str, unit: str, iters: int, top: int = 16) -> 
           f"{total / iters:.4f} ms/{unit}, busy share {total / wall_ms:.3f}")
     for key, count, ms in sorted(rows, key=lambda r: -r[2])[:top]:
         print(f"  {ms / iters:9.4f} ms  {ms / total:6.1%}  x{count // iters:<4d} {key[:90]}")
+    return total / wall_ms
 
 
 def main(argv=None) -> int:
