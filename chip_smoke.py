@@ -16,7 +16,10 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
    (pairs per pass, passes, blocks per element, shared memory, the
    backward's partial floats) at every query length of those configs and
    batches, and of K5's rows per cluster and shared memory, against their C
-   counterparts on the card; print K5's clusters per wave at B=16/64/512;
+   counterparts on the card, each also at bf16 (the GEMM's bf16 path on
+   every product of K4-bf16 and K5-bf16, the pair's plan at 2-byte rows,
+   K5-bf16's rows per cluster); print K5's clusters per wave at
+   B=16/64/512 at both types;
 2. serving kernel parity at the full Charades width
    (config/charadessta.yml), at B=512, B=64 and at the serving run's buckets
    B=16 and B=8: K5 (fused biLSTM) and K4 (fused SMI stack) against their plain
@@ -128,7 +131,30 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
     within 2e-4 of the card's; the device's busy share over a train epoch
     under ``torch.profiler``; the trainer's samples/s per epoch, beside the
     same steps on an epoch's batches loaded beforehand; the peak device
-    memory.
+    memory;
+18. asynchronous serving (``AsyncLocalizer``) from phase 3's checkpoint at
+    the full Charades width, serve_batch 64, max_wait_ms 2, max_in_flight
+    2: open-loop Poisson arrivals of 4,000 requests at 25 %, 50 % and 90 %
+    of phase 4's with-host localize_batch throughput, drawn from 64 videos
+    of 8-200 clips x 8 queries with ``video_key`` set (the grouped path),
+    then 200 closed-loop single requests; p50 / p99 / mean / max latency,
+    throughput, mean batch, queue depth and errors of each; every answer
+    equal to localize_batch's on the same requests, no error but the one
+    malformed request planted in the 50 % run (its own future only),
+    close() with 300 requests queued resolving them all, and K4, K5 and
+    the pair launched;
+19. bf16 serving: K5-bf16 and K4-bf16 against their plain bf16 versions at
+    B=16, 64 and 512 and K4-bf16 at the ActivityNet width (L=64, B=64);
+    ``MomentLocalizer`` at bf16 on phase 3's 24 requests (the bf16 launch
+    counters from 0 around it), its top-5 scores held to the fp32
+    localizer's by the JAX package's bf16 criterion; times (one call and
+    back to back), plain times, bounds (bf16 products at 989 TFLOP/s, the
+    rest at 67, bf16 elements at 2 bytes) and cuDNN's bf16 ``nn.LSTM`` as
+    K5-bf16's library time; device pairs/s at B=16 and 512 at both types,
+    and the serving forward's MFU (utils/flops.py): fp32 against 67 TFLOP/s
+    with the share of 3xTF32's 165 beside it, bf16 against 989.
+
+Each phase prints its seconds.
 
 The proposal kernels K1, K6 and K8 (``csrc/proposal.cuh``,
 ``csrc/proposal_rows.cu``) are one forward and one backward, templated on the
@@ -150,8 +176,10 @@ pair's launches by those entry points (the C counters of
 
 Prints a ``{"kernels": [...]}`` line (K4 and K5 also at the ActivityNet
 width; the pair's forward and backward with their launches on the main path
-and their times alone), a ``{"gemm": [...]}`` line, the plans and a
-``{"files_training": {...}}`` line (phase 17), then as the last line
+and their times alone; K5-bf16 and K4-bf16), a ``{"gemm": [...]}`` line, the
+plans, a ``{"files_training": {...}}`` line (phase 17), ``{"async_serving":
+{...}}`` (phase 18) and ``{"bf16_serving": {...}}`` (phase 19), then as the
+last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is visible or the package is not beside this script.
 """
@@ -337,6 +365,19 @@ def layer_rest(cfg, Nq):
     L, C, D, dl = cfg.L, cfg.C, cfg.D, cfg.dl
     N = L * (L + 1) // 2
     return 2 * (N * C * (2 * Nq * dl + 2 * C * dl) + L * (2 * Nq * D + 2 * L * D) + 3 * N * L * D)
+
+
+def pool_rest(cfg):
+    """K4's operations per element outside its layers: the port's proposal
+    pooling (proposal.cuh::pool_kernel: the prefix sums over T, a difference
+    and a scale per window mean, a difference, a scale and a mask per clip
+    mean, the clip means' sum and scale into fm) and the four heads' dot
+    products (smin_stack.cu::heads_kernel). The JAX package's count prices
+    the pooling as dense products over T, which the prefix sums do not
+    need."""
+    L, C, D, T = cfg.L, cfg.C, cfg.D, cfg.T
+    N = L * (L + 1) // 2
+    return D * (T + 2 * L + 3 * N * C + N * (C + 1)) + 2 * D * (N + 3 * L)
 
 
 def unit_rest(cfg, Nq):
@@ -567,7 +608,7 @@ def phase_serving(cfg, seed, rng, tmp):
         fail(f"scores differ from the CPU's by {worst:.3e} > {SCORE_TOL}")
     print(f"serving: top-k equal to the CPU localizer's; max score diff {worst:.3e} "
           f"(tolerance {SCORE_TOL})")
-    return gpu, launches
+    return gpu, launches, dict(cfg_path=cfg_path, glove=glove, requests=reqs, top5=out)
 
 
 def cudnn_lstm(cfg, model, device):
@@ -615,8 +656,7 @@ def serving_kernel_times(cfg, model, B, rng, device, library_lstm, iters=15):
     # Outside the layers' products: their rest, and the pooling and heads.
     b_ms, b_by, b32 = both_bounds(
         B * stack_flops(cfg, Nq), nbytes, gemm_flops(cfg, B, "K4", cfg.num_smi_layers),
-        B * (cfg.num_smi_layers * layer_rest(cfg, Nq) + 2 * N * cfg.C * cfg.T * cfg.D
-             + 2 * cfg.L * cfg.T * cfg.D))
+        B * (cfg.num_smi_layers * layer_rest(cfg, Nq) + pool_rest(cfg)))
     res["K4"] = dict(
         ms=cuda_ms(lambda: smin_cuda.smin_stack_fused(model, cfg, *ins), iters=iters),
         plain_ms=cuda_ms(lambda: smin_cuda.smin_stack_plain(model, cfg, *ins), iters=iters),
@@ -663,6 +703,7 @@ def phase_times(cfg, gpu, rng):
     wall = time.perf_counter() - t0
     print(f"time localize_batch 512 requests, serve_batch 16: {wall:.4f} s, "
           f"{len(reqs) / wall:.1f} pairs/s with host featurization")
+    res["with_host_pairs_per_s"] = len(reqs) / wall
     return res
 
 
@@ -1790,9 +1831,11 @@ def phase_plans(configs):
     """Holds the Python mirrors of the GEMM's, the content-attention pair's
     and K5's host-side plans against the C code on this card. Returns K5's
     plan at B=16/64/512."""
+    import torch
+
     from video_moment_localization_tpu_torch.ops import content_attn_cuda, gemm_cuda, lstm_cuda
 
-    held = pair_held = 0
+    held = pair_held = held_bf16 = pair_held_bf16 = 0
     for name, cfg in configs:
         N = cfg.L * (cfg.L + 1) // 2
         for B in PLAN_BATCHES:
@@ -1816,6 +1859,25 @@ def phase_plans(configs):
                     fail(f"GEMM plan of {kernel} {prod} ({layout} {M}x{N}x{K}, {name} B={B}): "
                          f"C {got}, Python mirror {want}")
                 held += 1
+            # The bf16 variants of K4 and K5: the GEMM's bf16 path and the
+            # pair's plan at 2-byte rows.
+            for kernel, prod, layout, M, N, K, groups in gemm_cuda.model_gemm_shapes_bf16(cfg, B):
+                got = gemm_cuda.card_plan(layout, M, N, K, groups, prod, dtype=torch.bfloat16)
+                want = gemm_cuda.plan(layout, M, N, K, groups, prod, dtype=torch.bfloat16)
+                if got != want or want["path"] != gemm_cuda.BF16:
+                    fail(f"bf16 GEMM plan of {kernel} {prod} ({M}x{N}x{K}, {name} B={B}): "
+                         f"C {got}, Python mirror {want}")
+                held_bf16 += 1
+            pairs = cfg.L * (cfg.L + 1) // 2
+            for Nq in range(1, cfg.max_query_length + 1):
+                for backward in (False, True):
+                    args = (B, pairs, cfg.C, Nq, cfg.dl, backward)
+                    got = content_attn_cuda.card_plan(*args, itemsize=2)
+                    want = content_attn_cuda.plan(*args, itemsize=2)
+                    if got != want or bool(want["smem"]) == backward:
+                        fail(f"bf16 pair plan {name} B={B} Nq={Nq} backward={backward}: C "
+                             f"{got}, Python mirror {want}")
+                    pair_held_bf16 += 1
     active = {r: lstm_cuda.card_max_active_clusters(r) for r in lstm_cuda.row_choices(256)}
     plans = {}
     for B in PLAN_BATCHES + (17, 520):
@@ -1827,11 +1889,27 @@ def phase_plans(configs):
                  f"{clusters}, smem {smem}")
         plan["waves"] = -(-plan["clusters"] // plan["max_active_clusters"])
         plans[B] = plan
+    active16 = {r: lstm_cuda.card_max_active_clusters(r, itemsize=2)
+                for r in lstm_cuda.row_choices(256, itemsize=2)}
+    plans16 = {}
+    for B in PLAN_BATCHES + (17, 520):
+        plan = lstm_cuda.card_plan(B, itemsize=2)
+        rows, clusters = lstm_cuda.lstm_plan(B, 256, active16.get, itemsize=2)
+        smem = lstm_cuda.lstm_smem_bytes(256, rows, itemsize=2)
+        if (plan["rows"], plan["clusters"], plan["smem"]) != (rows, clusters, smem):
+            fail(f"K5 bf16 plan at B={B}: C {plan}, Python mirror rows {rows}, clusters "
+                 f"{clusters}, smem {smem}")
+        plan["waves"] = -(-plan["clusters"] // plan["max_active_clusters"])
+        plans16[B] = plan
     print(f"plans: {held} GEMM launches of K2-K5, K7, K9, K10 (3 configs, B={PLAN_BATCHES}), "
           f"{pair_held} content-attention pair plans (every Nq, forward and backward, with "
           f"the backward's partial floats) and K5 at B={sorted(plans)} equal to their Python "
           f"mirrors; K5 clusters of 8 CTAs the card holds at once by rows per cluster: "
           f"{active}")
+    print(f"plans bf16: {held_bf16} GEMM launches of K4-bf16 and K5-bf16 (bf16 path), "
+          f"{pair_held_bf16} content-attention pair plans at 2-byte rows (forward as fp32's, no "
+          f"backward) and K5-bf16 at B={sorted(plans16)} equal to their Python mirrors; K5-bf16 "
+          f"clusters the card holds at once by rows per cluster: {active16}")
     for name, cfg in configs:
         N = cfg.L * (cfg.L + 1) // 2
         for backward in (False, True):
@@ -1840,11 +1918,12 @@ def phase_plans(configs):
                   f"pairs per pass, {p['passes']} passes, {p['tiles']} blocks per element, "
                   f"{p['smem']} B of shared memory")
     for B in (16, 64, 512):
-        p = plans[B]
-        print(f"K5 plan B={B}: {p['rows']} rows per cluster, {p['clusters']} clusters, "
-              f"{p['max_active_clusters']} at once, {p['waves']} wave(s), {p['smem']} B of "
-              f"shared memory per CTA")
-    return {str(B): plans[B] for B in (16, 64, 512)}
+        for label, p in (("K5", plans[B]), ("K5-bf16", plans16[B])):
+            print(f"{label} plan B={B}: {p['rows']} rows per cluster, {p['clusters']} clusters, "
+                  f"{p['max_active_clusters']} at once, {p['waves']} wave(s), {p['smem']} B of "
+                  f"shared memory per CTA")
+    return ({str(B): plans[B] for B in (16, 64, 512)},
+            {str(B): plans16[B] for B in (16, 64, 512)})
 
 
 def phase_gemm(cfg, anet_cfg, device):
@@ -2280,6 +2359,366 @@ def phase_files(config, seed, device, tmp):
     return result
 
 
+# ------------------------------------------------------------------------- #
+# Asynchronous serving and bf16 serving
+# ------------------------------------------------------------------------- #
+ASYNC_REQUESTS = 4000
+ASYNC_SHARES = (0.25, 0.5, 0.9)
+ASYNC_SINGLES = 200
+ASYNC_KEYS = ("p50_ms", "p99_ms", "mean_ms", "max_ms", "throughput_rps", "mean_batch",
+              "max_queue_depth", "errors")
+PEAK_BF16_FLOPS = 989e12     # H100 SXM, dense bf16 on the tensor cores
+# bf16 kernels against their plain bf16 versions on the card, on the inputs
+# the main path gives them (`backbone_inputs`). K4: the JAX package's bf16
+# criterion (tests/test_smin_pallas.py::test_fused_stack_bf16_close) cut
+# tenfold; phase 19 also prints how far each of the two lies from the fp32
+# kernel. K5: tests/test_lstm_pallas.py's bf16 rtol = atol = 0.05 cut
+# fivefold. The bf16 localizer's scores against the fp32 localizer's: the
+# JAX criterion.
+K4_BF16_CARD = dict(mean=1e-3, p98=5e-3, max=3e-2)
+K4_BF16_JAX = dict(mean=1e-2, p98=5e-2, max=3e-1)
+K5_BF16_TOL = dict(rtol=1e-2, atol=1e-2)
+
+
+def bf16_criterion(got, want, bounds, name):
+    """Per output: mean, 98th percentile and max of |got - want| within
+    ``bounds``. Returns the largest max abs error."""
+    import torch
+
+    worst = 0.0
+    for g, w in zip(got, want):
+        if not torch.isfinite(g.float()).all():
+            fail(f"{name}: non-finite output")
+        d = (g.float() - w.float()).abs().flatten()
+        stats = dict(mean=float(d.mean()), max=float(d.max()),
+                     p98=float(torch.quantile(d[:: max(1, d.numel() // 1_000_000)], 0.98)))
+        if any(stats[k] > bounds[k] for k in bounds):
+            fail(f"{name}: kernel disagrees with its plain version: {stats} (bounds {bounds})")
+        worst = max(worst, stats["max"])
+    return worst
+
+
+def async_run(loc, reqs, rate, rng, plant=None):
+    """Open-loop Poisson arrivals of ``reqs`` at ``rate`` requests/s into a
+    fresh AsyncLocalizer (serve_batch of ``loc``, max_wait_ms 2,
+    max_in_flight 2); ``plant``: the index before which one malformed
+    request is submitted. Returns (answers, the stats snapshot, the
+    malformed request's future)."""
+    import numpy as np
+
+    from video_moment_localization_tpu_torch.inference import AsyncLocalizer
+
+    arrivals = np.cumsum(rng.exponential(1.0 / rate, size=len(reqs)))
+    server = AsyncLocalizer(loc, top_k=5, max_wait_ms=2.0, max_in_flight=2)
+    futures, bad = [], None
+    t0 = time.perf_counter()
+    for i, (req, at) in enumerate(zip(reqs, arrivals)):
+        delay = t0 + at - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        if i == plant:
+            bad = server.submit(np.zeros((3,), np.float32), QUERIES[0], 1.0)
+        futures.append(server.submit(req[0], req[1], req[2], video_key=req[3]))
+    answers = [f.result(timeout=600) for f in futures]
+    server.close()
+    return answers, server.stats.snapshot(), bad
+
+
+def check_answers(got, want, label):
+    worst = 0.0
+    for k, (g, w) in enumerate(zip(got, want)):
+        if [(m.start, m.end) for m in g] != [(m.start, m.end) for m in w]:
+            fail(f"{label} request {k}: moments {[(m.start, m.end) for m in g]}, "
+                 f"localize_batch {[(m.start, m.end) for m in w]}")
+        worst = max([worst] + [abs(a.score - b.score) for a, b in zip(g, w)])
+    if worst > SCORE_TOL:
+        fail(f"{label}: scores differ from localize_batch's by {worst:.3e} > {SCORE_TOL}")
+    return worst
+
+
+def phase_async(cfg, serving, with_host_rps, rng):
+    """Phase 18: `AsyncLocalizer` over phase 3's checkpoint at the full
+    Charades width (serve_batch 64, max_wait_ms 2, max_in_flight 2): open-loop
+    Poisson arrivals of 4,000 requests at 25 %, 50 % and 90 % of phase 4's
+    with-host localize_batch throughput, drawn from 64 videos of 8-200 clips
+    x 8 queries with video_key set; then 200 closed-loop single requests.
+    Every answer must equal localize_batch's on the same requests, errors
+    must be 0 (1 in the 50 % run, where one malformed request is planted
+    and fails its own future only), close() with work queued must resolve
+    it all, and K4, K5 and the pair must be launched."""
+    import torch
+
+    from video_moment_localization_tpu_torch.inference import AsyncLocalizer, MomentLocalizer
+    from video_moment_localization_tpu_torch.ops import lstm_cuda, smin_cuda
+
+    loc = MomentLocalizer.from_checkpoint(serving["cfg_path"], glove_path=serving["glove"],
+                                          serve_batch=64)
+    videos = [rng.standard_normal((int(n), cfg.input_video_dim)).astype("float32")
+              for n in rng.integers(8, 201, size=64)]
+
+    def draw(n):
+        keys, qs = rng.integers(0, len(videos), size=n), rng.integers(0, len(QUERIES), size=n)
+        return [(videos[k], QUERIES[q], videos[k].shape[0] / 2.0, int(k))
+                for k, q in zip(keys, qs)]
+
+    for b in loc.bucket_sizes:                 # every bucket once, before the clock
+        loc.localize_batch(draw(b), top_k=5)
+    torch.cuda.synchronize()
+    lstm_cuda.bilstm_fused.launches = smin_cuda.smin_stack_fused.launches = 0
+    reset_pair_counts()
+    runs = {}
+    for share in ASYNC_SHARES:
+        reqs = draw(ASYNC_REQUESTS)
+        plant = ASYNC_REQUESTS // 2 if share == 0.5 else None
+        rate = share * with_host_rps
+        answers, snap, bad = async_run(loc, reqs, rate, rng, plant)
+        want_errors = 1 if plant is not None else 0
+        if snap["errors"] != want_errors:
+            fail(f"async {share:.0%}: {snap['errors']} errors, want {want_errors}")
+        if bad is not None:
+            if not isinstance(bad.exception(timeout=60), ValueError):
+                fail(f"async {share:.0%}: the malformed request did not fail with ValueError")
+        worst = check_answers(answers, loc.localize_batch(reqs, top_k=5), f"async {share:.0%}")
+        runs[f"{int(share * 100)}%"] = dict({k: snap.get(k) for k in ASYNC_KEYS},
+                                            offered_rps=rate, max_score_diff=worst)
+        print(f"async {share:.0%} of {with_host_rps:.1f} requests/s ({rate:.1f}/s offered, "
+              f"{ASYNC_REQUESTS} requests): " + ", ".join(
+                  f"{k} {snap.get(k, float('nan')):.3f}" for k in ASYNC_KEYS)
+              + f"; answers equal localize_batch's (max score diff {worst:.3e})")
+    singles = draw(ASYNC_SINGLES)
+    with AsyncLocalizer(loc, top_k=5, max_wait_ms=2.0, max_in_flight=2) as server:
+        answers = [server.submit(r[0], r[1], r[2], video_key=r[3]).result(timeout=60)
+                   for r in singles]
+    snap = server.stats.snapshot()
+    worst = check_answers(answers, loc.localize_batch(singles, top_k=5), "async singles")
+    if snap["errors"] != 0:
+        fail(f"async singles: {snap['errors']} errors")
+    runs["closed_loop_single"] = dict({k: snap.get(k) for k in ASYNC_KEYS}, max_score_diff=worst)
+    print(f"async closed-loop single requests ({ASYNC_SINGLES}): " + ", ".join(
+        f"{k} {snap.get(k, float('nan')):.3f}" for k in ASYNC_KEYS))
+    burst = draw(300)
+    server = AsyncLocalizer(loc, top_k=5, max_wait_ms=2.0, max_in_flight=2)
+    futures = [server.submit(r[0], r[1], r[2], video_key=r[3]) for r in burst]
+    server.close()                             # straight away, with work queued
+    if not all(f.done() and f.exception() is None for f in futures):
+        fail("async close(): a queued request was not resolved")
+    check_answers([f.result() for f in futures], loc.localize_batch(burst, top_k=5),
+                  "async close")
+    torch.cuda.synchronize()
+    launches = {"K5": lstm_cuda.bilstm_fused.launches, "K4": smin_cuda.smin_stack_fused.launches,
+                "CAf": pair_counts()["CAf"]}
+    if min(launches.values()) < 1:
+        fail(f"async: a kernel of the path was not launched: {launches}")
+    print(f"async: close() with {len(burst)} requests queued resolved them all; launches "
+          f"{launches}")
+    runs["launches"] = launches
+    runs["with_host_pairs_per_s"] = with_host_rps
+    return runs
+
+
+def cudnn_lstm_bf16(cfg, model, device):
+    """K5-bf16's library call: torch.nn.LSTM in bf16 (cuDNN) with the
+    model's weights on packed sequences."""
+    import torch
+    from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+
+    ref = torch.nn.LSTM(cfg.word_dim, cfg.lstm_hidden_size, num_layers=2, bidirectional=True,
+                        batch_first=True)
+    ref.load_state_dict(model.backbone.queryencoder.lstm.state_dict())
+    ref = ref.to(device=device, dtype=torch.bfloat16)
+
+    def run(x, lengths):
+        packed = pack_padded_sequence(x, torch.from_numpy(lengths), batch_first=True,
+                                      enforce_sorted=False)
+        return pad_packed_sequence(ref(packed)[0], batch_first=True,
+                                   total_length=cfg.max_query_length)[0]
+
+    return run
+
+
+def backbone_inputs(cfg16, model, B, rng, device):
+    """(f, fw, fs, qmask, lmask, vmask) as the main path gives them to
+    K4-bf16: the bf16 backbone (K5-bf16 in it) on unit-normal clip
+    features and word vectors (the serving run's synthetic GloVe table is
+    unit normal), ragged videos and queries. Unit-normal f, fw, fs drive
+    the three layers' softmaxes far past anything the backbone makes, where
+    bf16 and fp32 part by up to 0.36 in a score, the plain version and the
+    kernel alike."""
+    import torch
+
+    from video_moment_localization_tpu_torch.models.smin import backbone
+    from video_moment_localization_tpu_torch.ops.packing import packed_valid_mask
+
+    x, qmask, _ = lstm_inputs(cfg16, B, rng, device)
+    vf = torch.from_numpy(rng.standard_normal((B, cfg16.T, cfg16.input_video_dim))
+                          .astype("float32")).to(device)
+    nlen = rng.integers(1, cfg16.L + 1, size=B)
+    nlen[0] = cfg16.L
+    lmask = (torch.arange(cfg16.L)[None, :] < torch.from_numpy(nlen)[:, None]).float().to(device)
+    vmask = lmask.repeat_interleave(cfg16.T // cfg16.L, dim=1)[..., None].contiguous()
+    qm = qmask[..., None].contiguous()
+    f, fs, fw = backbone(model.backbone, cfg16, vf.bfloat16(), vmask, x.bfloat16(), qm)
+    return (f.contiguous(), fw.contiguous(), fs.contiguous(), qm, lmask,
+            packed_valid_mask(lmask).contiguous())
+
+
+def bound_bf16(flops, nbytes, products):
+    """The least time of bf16 work: ``products``, the operations of its
+    contractions of bf16 operands, at 989 TFLOP/s of dense bf16, the rest of
+    its ``flops`` at 67 TFLOP/s, against its bytes."""
+    t_ops = (products / PEAK_BF16_FLOPS + (flops - products) / PEAK_FP32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bf16_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_bf16(cfg, anet_cfg, serving, fp32_e2e, rng, device):
+    """Phase 19: bf16 serving. K5-bf16 and K4-bf16 against their plain bf16
+    versions at the Charades width (B=16, 64, 512) and K4-bf16 at the
+    ActivityNet width (L=64, B=64); `MomentLocalizer` at bf16 on phase 3's
+    24 requests (the launch counts), its scores held to the fp32
+    localizer's; times (one call and back to back), bounds and cuDNN's bf16
+    LSTM; device pairs/s at B=512 and the serving forward's MFU."""
+    import dataclasses
+
+    import torch
+
+    from video_moment_localization_tpu_torch.inference import MomentLocalizer
+    from video_moment_localization_tpu_torch.models.lstm import bilstm_bf16, lstm_layers
+    from video_moment_localization_tpu_torch.models.smin import SMIN, cast_weights, smin_stack_bf16
+    from video_moment_localization_tpu_torch.ops import lstm_cuda, smin_cuda
+    from video_moment_localization_tpu_torch.utils.flops import smin_forward_flops
+
+    bf = torch.bfloat16
+    loc32 = MomentLocalizer.from_checkpoint(serving["cfg_path"], glove_path=serving["glove"],
+                                            serve_batch=16)
+    cfg16 = dataclasses.replace(loc32.cfg, compute_dtype="bfloat16")
+    loc16 = MomentLocalizer(cfg16, loc32.model, loc32.embedding, serve_batch=16)
+    model = loc16.model
+    lstm = model.backbone.queryencoder.lstm
+    layers = lstm_layers(lstm, cast_weights(lstm, bf))
+    reqs = serving["requests"]
+    loc16.localize_batch(reqs[:2], top_k=5)            # the weights' cast, once
+    lstm_cuda.bilstm_fused.launches_bf16 = smin_cuda.smin_stack_fused.launches_bf16 = 0
+    reset_pair_counts()
+    out16 = loc16.localize_batch(reqs, top_k=5)
+    torch.cuda.synchronize()
+    launches = {"K5": lstm_cuda.bilstm_fused.launches_bf16,
+                "K4": smin_cuda.smin_stack_fused.launches_bf16, "CAf": pair_counts()["CAf"]}
+    if min(launches.values()) < 1:
+        fail(f"bf16 serving: a kernel of the path was not launched: {launches}")
+    out32 = loc32.localize_batch(reqs, top_k=5)
+    score_err = bf16_criterion([torch.tensor([[m.score for m in r] for r in out16])],
+                               [torch.tensor([[m.score for m in r] for r in out32])],
+                               K4_BF16_JAX, "bf16 localizer scores against fp32")
+    same = sum([(m.start, m.end) for m in a] == [(m.start, m.end) for m in b]
+               for a, b in zip(out16, out32))
+    print(f"bf16 serving: {len(reqs)} requests, launches {launches}; top-5 scores within "
+          f"{K4_BF16_JAX} of the fp32 localizer's (max {score_err:.3e}), the same moments for "
+          f"{same} of {len(reqs)}")
+
+    errs = {"K5": 0.0, "K4": 0.0}
+    for B in (512, 64, 16):
+        x, mask, _ = lstm_inputs(cfg, B, rng, device)
+        got = lstm_cuda.bilstm_fused(x.to(bf), mask, layers)
+        want = bilstm_bf16(x.to(bf), mask, layers)
+        torch.cuda.synchronize()
+        if bool((got[mask == 0] != 0).any()):
+            fail("K5-bf16: output at a padded step is not 0")
+        if not torch.allclose(got.float(), want.float(), **K5_BF16_TOL):
+            fail(f"K5-bf16 B={B}: kernel disagrees with its plain version: max abs err "
+                 f"{float((got.float() - want.float()).abs().max()):.3e} ({K5_BF16_TOL})")
+        err = float((got.float() - want.float()).abs().max())
+        errs["K5"] = max(errs["K5"], err)
+        print(f"parity K5-bf16 B={B}: max abs err {err:.3e} (tolerance {K5_BF16_TOL})")
+        ins = backbone_inputs(cfg16, model, B, rng, device)
+        got = smin_cuda.smin_stack_fused(model, cfg16, *ins)
+        want = smin_stack_bf16(model, cfg16, *ins)
+        err = bf16_criterion(got, want, K4_BF16_CARD, f"K4-bf16 B={B}")
+        errs["K4"] = max(errs["K4"], err)
+        ref = smin_cuda.smin_stack_fused(model, cfg, *(t.float() for t in ins[:3]), *ins[3:])
+        dist = [max(float((x - r).abs().max()) for x, r in zip(out, ref)) for out in (got, want)]
+        print(f"parity K4-bf16 B={B}: max abs err {err:.3e} (bounds {K4_BF16_CARD}); from the "
+              f"fp32 kernel on the same inputs: kernel {dist[0]:.3e}, plain {dist[1]:.3e}")
+    anet16 = dataclasses.replace(anet_cfg, compute_dtype="bfloat16")
+    torch.manual_seed(1)
+    anet_model = SMIN(anet16).to(device).eval()
+    ins = backbone_inputs(anet16, anet_model, 64, rng, device)
+    errs["K4_activitynet_b64"] = bf16_criterion(
+        smin_cuda.smin_stack_fused(anet_model, anet16, *ins),
+        smin_stack_bf16(anet_model, anet16, *ins), K4_BF16_CARD, "K4-bf16 ActivityNet B=64")
+    print(f"parity K4-bf16 ActivityNet B=64: max abs err {errs['K4_activitynet_b64']:.3e} "
+          f"(bounds {K4_BF16_CARD})")
+
+    library_lstm = cudnn_lstm_bf16(cfg, model, device)
+    Nq, N = cfg.max_query_length, cfg.L * (cfg.L + 1) // 2
+    times = {}
+    for B in (16, 512):
+        x, mask, lengths = lstm_inputs(cfg, B, rng, device)
+        x = x.to(bf)
+        w_bytes = sum(w.numel() * w.element_size() for d in layers for p in d.values()
+                      for w in p.values())
+        b_ms, b_by = bound_bf16(B * lstm_flops(cfg), bf16_bytes(x, mask) + 2 * B * Nq * cfg.D
+                                + w_bytes, B * lstm_flops(cfg))
+        times[("K5", B)] = dict(
+            ms=cuda_ms(lambda: lstm_cuda.bilstm_fused(x, mask, layers)),
+            device_ms=cuda_ms_back_to_back(lambda: lstm_cuda.bilstm_fused(x, mask, layers)),
+            plain_ms=cuda_ms(lambda: bilstm_bf16(x, mask, layers)),
+            library_ms=cuda_ms(lambda: library_lstm(x, lengths)),
+            bound_ms=b_ms, bound_by=b_by)
+        ins = backbone_inputs(cfg16, model, B, rng, device)
+        w_bytes = sum(2 * w.numel() if w.dim() > 1 else 4 * w.numel()
+                      for w in model.smis.parameters()) + param_bytes(model.localization)
+        # The port's own work: every contraction of the layers takes bf16
+        # operands (the products and their rest); the pooling and heads fp32.
+        products = (gemm_flops(cfg, B, "K4", cfg.num_smi_layers)
+                    + B * cfg.num_smi_layers * layer_rest(cfg, Nq))
+        b_ms, b_by = bound_bf16(products + B * pool_rest(cfg),
+                                bf16_bytes(*ins) + w_bytes + 4 * B * (N + 3 * cfg.L), products)
+        times[("K4", B)] = dict(
+            ms=cuda_ms(lambda: smin_cuda.smin_stack_fused(model, cfg16, *ins)),
+            device_ms=cuda_ms_back_to_back(
+                lambda: smin_cuda.smin_stack_fused(model, cfg16, *ins), launches=10, reps=3),
+            plain_ms=cuda_ms(lambda: smin_stack_bf16(model, cfg16, *ins), iters=5),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        for k in ("K5", "K4"):
+            r = times[(k, B)]
+            print(f"time {k}-bf16 B={B}: kernel {r['ms']:.4f} ms (back to back "
+                  f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library "
+                  f"{r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+    e2e = {}
+    for B in (16, 512):
+        vf = torch.from_numpy(rng.standard_normal((B, cfg.T, cfg.input_video_dim))
+                              .astype("float32")).to(device)
+        vmask = torch.ones((B, cfg.T, 1), device=device)
+        qf = torch.from_numpy(rng.standard_normal((B, Nq, cfg.word_dim))
+                              .astype("float32")).to(device)
+        _, mask, _ = lstm_inputs(cfg, B, rng, device)
+        lmask = torch.ones((B, cfg.L), device=device)
+        e2e[B] = cuda_ms(lambda: loc16._score(vf, vmask, qf, mask[..., None].contiguous(),
+                                              lmask, None, 5))
+    mfu = {}
+    for B in (16, 512):
+        flops = smin_forward_flops(cfg, B)
+        t32, t16 = fp32_e2e[B] / 1e3, e2e[B] / 1e3
+        mfu[str(B)] = dict(
+            flops=flops, fp32_ms=fp32_e2e[B], bf16_ms=e2e[B],
+            fp32_of_67=flops / t32 / PEAK_FP32_FLOPS,
+            fp32_of_165=flops / t32 / (PEAK_TF32_FLOPS / 3),
+            bf16_of_989=flops / t16 / PEAK_BF16_FLOPS)
+        print(f"serving forward + top-5 B={B}: fp32 {fp32_e2e[B]:.4f} ms "
+              f"({B / fp32_e2e[B] * 1e3:.1f} pairs/s), bf16 {e2e[B]:.4f} ms "
+              f"({B / e2e[B] * 1e3:.1f} pairs/s) on the device; {flops / 1e9:.2f} GFLOP; MFU fp32 "
+              f"{mfu[str(B)]['fp32_of_67']:.4f} of 67 TFLOP/s ({mfu[str(B)]['fp32_of_165']:.4f} of "
+              f"165 TFLOP/s of 3xTF32), bf16 {mfu[str(B)]['bf16_of_989']:.4f} of 989 TFLOP/s")
+    return dict(launches=launches, errs=errs, score_err=score_err, times=times,
+                pairs_per_s={str(B): B / e2e[B] * 1e3 for B in e2e}, mfu=mfu)
+
+
 def back_to_back(r):
     """The back-to-back device times of a timed row, where it has them."""
     return {k: r[k] for k in ("device_ms", "library_device_ms") if k in r}
@@ -2323,48 +2762,81 @@ def main(argv=None) -> int:
                 if "Used" in line or "spill" in line:
                     print(f"ptxas {name}: {line.strip()}")
 
+    clock = [time.perf_counter()]
+
+    def lap(phase):
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
     config = load_config(os.path.join(REPO, "config", "charadessta.yml"))
     cfg = config.model
     anet = load_config(os.path.join(REPO, "config", "activitynet.yml"))
-    k5_plans = phase_plans([(n, load_config(os.path.join(REPO, "config", f"{n}.yml")).model)
-                            for n in ("charadessta", "activitynet", "tacos")])
+    k5_plans, k5_plans16 = phase_plans(
+        [(n, load_config(os.path.join(REPO, "config", f"{n}.yml")).model)
+         for n in ("charadessta", "activitynet", "tacos")])
+    lap(1)
     rng = np.random.default_rng(args.seed)
     torch.manual_seed(args.seed)
     model = SMIN(cfg).to(device).eval()
     k5_err, k4_err = phase_parity(cfg, model, rng, device)
+    lap(2)
 
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
-        gpu, launches = phase_serving(cfg, args.seed, rng, tmp)
+    # Phase 3's checkpoint, GloVe file and requests serve phases 18 and 19 too.
+    serve_tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-")
+    gpu, launches, serving = phase_serving(cfg, args.seed, rng, serve_tmp.name)
+    lap(3)
     times = phase_times(cfg, gpu, rng)
+    lap(4)
 
     train_errs = phase_train_parity(cfg, model, rng, device)
+    lap(5)
     step, batch, train_launches = phase_train(config, args.seed, rng, device)
+    lap(6)
     train_times = phase_train_times(cfg, model, step, batch, rng, device)
+    lap(7)
     del step, batch, gpu, model
     torch.cuda.empty_cache()
 
     torch.manual_seed(args.seed)
     anet_model = SMIN(anet.model).to(device).eval()
     anet_errs = phase_anet_parity(anet.model, anet_model, rng, device)
+    lap(8)
     anet_step, anet_batch, anet_launches, anet_peak, anet_eval_err = phase_anet_train(
         anet, args.seed, rng, device)
+    lap(9)
     anet_times = phase_anet_times(anet.model, anet_model, anet_step, anet_batch, rng, device)
+    lap(10)
     del anet_step, anet_batch, anet_model
     torch.cuda.empty_cache()
 
     torch.manual_seed(args.seed)
     model = SMIN(cfg).to(device).eval()
     mode_errs = phase_mode_parity(cfg, model, anet.model, rng, device)
+    lap(11)
     modes = phase_modes(config, args.seed, rng, device)
+    lap(12)
     mode_times = phase_mode_times(cfg, model, modes, rng, device)
+    lap(13)
     del model
     torch.cuda.empty_cache()
     gemm_rows = phase_gemm(cfg, anet.model, device)
+    lap(14)
     pair_times, pair_errs = phase_pair({"charadessta": cfg, "activitynet": anet.model}, rng,
                                        device)
+    lap(15)
     unheld_errs = phase_unheld(anet.model, rng, device)
+    lap(16)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-files-") as tmp:
         files = phase_files(config, args.seed, device, tmp)
+    lap(17)
+    torch.cuda.empty_cache()
+    async_runs = phase_async(cfg, serving, times["with_host_pairs_per_s"], rng)
+    lap(18)
+    bf16 = phase_bf16(cfg, anet.model, serving, {B: times[("e2e", B)] for B in (16, 512)}, rng,
+                      device)
+    lap(19)
+    serve_tmp.cleanup()
 
     kernels = []
     for key, name, src, rep, err in (
@@ -2470,6 +2942,24 @@ def main(argv=None) -> int:
     kernels[-4]["max_err_of_magnitude"] = mode_errs["K8b_rel"]
     kernels[-3]["per_layer_k2_ms"] = mode_times["K9_per_layer_ms"]
     kernels[-1]["max_err_of_magnitude"] = mode_errs["K10b_rel"]
+    # The bf16 variants of K5 and K4 (phase 19): launches on the bf16
+    # localizer's run, times at B=16 (and B=512) against their plain bf16
+    # versions, bounds with bf16 products at 989 TFLOP/s.
+    for key, name, src, rep in (("K5", "bilstm_fused_bf16", LSTM_SRC, LSTM_REPLACES),
+                                ("K4", "smin_stack_fused_bf16", STACK_SRC, STACK_REPLACES)):
+        r16, r512 = bf16["times"][(key, 16)], bf16["times"][(key, 512)]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": bf16["launches"][key], "max_abs_err": bf16["errs"][key],
+            "ms": r16["ms"], "plain_ms": r16["plain_ms"], "bound_ms": r16["bound_ms"],
+            "bound_by": r16["bound_by"], "library_ms": r16["library_ms"], "batch": 16,
+            "dtype": "bfloat16", "device_ms": r16["device_ms"],
+            "ms_b512": r512["ms"], "device_ms_b512": r512["device_ms"],
+            "plain_ms_b512": r512["plain_ms"], "bound_ms_b512": r512["bound_ms"],
+            "bound_by_b512": r512["bound_by"], "library_ms_b512": r512["library_ms"],
+        })
+    kernels[-2]["plan"] = k5_plans16
+    kernels[-1]["max_abs_err_activitynet_b64"] = bf16["errs"]["K4_activitynet_b64"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"train_step": {
         "batch": TRAIN_BATCH, "ms": train_times["step_ms"],
@@ -2493,6 +2983,10 @@ def main(argv=None) -> int:
     print(json.dumps({"files_training": files}))
     print(json.dumps({"serving_pairs_per_s_device": {
         str(B): B / times[("e2e", B)] * 1e3 for B in (16, 512)}}))
+    print(json.dumps({"async_serving": async_runs}))
+    print(json.dumps({"bf16_serving": {
+        "pairs_per_s_device": bf16["pairs_per_s"], "mfu": bf16["mfu"],
+        "score_err_vs_fp32": bf16["score_err"], "launches": bf16["launches"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

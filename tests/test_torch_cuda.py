@@ -1,7 +1,9 @@
 """Card tests of the port's kernels: each CUDA kernel against its plain
-PyTorch version on the same card, the serving path on the card against the
-same localizer on the CPU, and a train step on the card against the same
-step on the CPU. They skip where there is no CUDA device.
+PyTorch version on the same card (the bf16 variants of K5, K4, the GEMM and
+the content-attention pair's forward too), the serving path on the card
+against the same localizer on the CPU, an AsyncLocalizer burst against
+localize_batch, and a train step on the card against the same step on the
+CPU. They skip where there is no CUDA device.
 
 The file imports neither JAX nor the JAX package, so the card machine runs it
 without them:
@@ -1078,3 +1080,152 @@ def test_smin_stack_past_the_y_grid_limit(card):
             for g_, w_ in zip(got, want):
                 assert bool(torch.isfinite(g_[lo:lo + 8]).all())
                 torch.testing.assert_close(g_[lo:lo + 8], w_, **STACK_TOL)
+
+
+# ------------------------------------------------------------------------- #
+# bf16 serving: the bf16 variants of K5 and K4, their GEMM path and pair, and
+# the asynchronous front end on the card.
+# ------------------------------------------------------------------------- #
+# K4-bf16 against its plain bf16 version: the JAX package's bf16 criterion
+# (tests/test_smin_pallas.py::test_fused_stack_bf16_close) cut tenfold, on
+# inputs of half the unit normal's scale; on unit-normal f, fw, fs, which
+# drive three layers' softmaxes so far that bf16 and fp32 part by up to 0.36
+# in a score (for the plain version and the kernel alike), the JAX
+# criterion itself, so that the saturated regime stays covered;
+# K5-bf16: tests/test_lstm_pallas.py's bf16 0.05 cut fivefold.
+K4_BF16 = dict(mean=1e-3, p98=5e-3, max=3e-2)
+K4_BF16_JAX = dict(mean=1e-2, p98=5e-2, max=0.3)
+K5_BF16_TOL = dict(rtol=1e-2, atol=1e-2)
+
+
+def _bf16_close(got, want, bounds, name):
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g.float()).all()), name
+        d = (g.float() - w.float()).abs().flatten()
+        assert float(d.mean()) < bounds["mean"], (name, float(d.mean()))
+        p98 = float(torch.quantile(d, 0.98))
+        assert p98 < bounds["p98"], (name, p98)
+        assert float(d.max()) < bounds["max"], (name, float(d.max()))
+
+
+@pytest.mark.parametrize("kernel,name,layout,M,N,K,groups",
+                         gemm_cuda.model_gemm_shapes_bf16(CHARADES, 2)
+                         + [("odd", "scalar path", "nt", 77, 45, 30, 1)])
+def test_gemm_bf16_matches_float64(card, kernel, name, layout, M, N, K, groups):
+    """The bf16 path on its products (Charades, B=2) and an unaligned one,
+    every epilogue term, against float64 of the same bf16 values: within
+    fp32 rounding of the sum of |a||w| (fp32 output), and within one bf16
+    rounding of it (bf16 output)."""
+    g = torch.Generator().manual_seed(M + N + K)
+    A = torch.randn(M, K, generator=g).bfloat16().to(card)
+    W = torch.randn(N, K, generator=g).bfloat16().to(card)
+    bias = torch.randn(N, generator=g).to(card)
+    rmask = (torch.rand(M, generator=g) > 0.2).float().to(card)
+    post = torch.randn(M, N, generator=g).bfloat16().to(card)
+    post2 = torch.randn(-(-M // 4), N, generator=g).bfloat16().to(card)
+    rows = torch.arange(M, device=card) // 4
+    want = ((A.double() @ W.double().t() + bias.double()) * rmask.double()[:, None]
+            + post.double() + post2.double()[rows])
+    scale = A.double().abs() @ W.double().abs().t() + 1.0
+    got = gemm_cuda.gemm_bf16(A, W, bias=bias, rmask=rmask, post=post, post2=post2,
+                              post2_div=4, out_dtype=torch.float32)
+    assert float(((got.double() - want).abs() / scale).max()) < 1e-6
+    got16 = gemm_cuda.gemm_bf16(A, W, bias=bias, rmask=rmask, post=post, post2=post2,
+                                post2_div=4)
+    assert got16.dtype == torch.bfloat16
+    assert bool(((got16.double() - want).abs() <= 2.0 ** -8 * want.abs() + 1e-6 * scale).all())
+
+
+def test_content_attn_bf16_forward_matches_plain(card):
+    """The pair's bf16 forward against its plain bf16 version (the fp32 pair
+    on the bf16 values, rounded once): equal but for a rare last-bit flip
+    of the bf16 rounding."""
+    B = 64
+    N = CHARADES.L * (CHARADES.L + 1) // 2
+    h, q, khat, fwh, fsh, qm, vm = _pair_inputs(CHARADES, B, seed=3, device=card)
+    h, q, khat, fwh = (t.bfloat16() for t in (h, q, khat, fwh))
+    before = content_attn_cuda.content_attn_forward.launches
+    got = content_attn_cuda.content_attn_forward(h, q, khat, fwh, fsh, qm, vm)
+    want = content_attn_cuda.content_attn_plain_bf16(h, q, khat, fwh, fsh, qm, vm)
+    torch.cuda.synchronize()
+    assert content_attn_cuda.content_attn_forward.launches == before + 1
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (B, N, CHARADES.C, CHARADES.dl)
+    assert bool(((got.float() - want.float()).abs() <= 2.0 ** -7 * want.float().abs()
+                 + 1e-6).all())
+
+
+@pytest.mark.parametrize("B", [1, 16, 512])
+def test_bilstm_bf16_kernel_matches_plain(card, B):
+    from video_moment_localization_tpu_torch.models.lstm import bilstm_bf16
+    from video_moment_localization_tpu_torch.models.smin import cast_weights
+
+    torch.manual_seed(B)
+    lstm = BiLSTMParams(300, 256, 2).to(card)
+    layers = lstm_layers(lstm, cast_weights(lstm, torch.bfloat16))
+    x = (torch.randn(B, 13, 300, device=card) * 0.5).bfloat16()
+    lengths = torch.randint(1, 14, (B,))
+    lengths[0] = 1
+    mask = (torch.arange(13)[None, :] < lengths[:, None]).float().to(card)
+    before = lstm_cuda.bilstm_fused.launches_bf16
+    with torch.no_grad():
+        got = lstm_cuda.bilstm_fused(x, mask, layers)
+        want = bilstm_bf16(x, mask, layers)
+    torch.cuda.synchronize()
+    assert lstm_cuda.bilstm_fused.launches_bf16 == before + 1
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **K5_BF16_TOL)
+    assert bool((got[mask == 0] == 0).all())
+    with pytest.raises(ValueError, match="bfloat16"):      # fp32 weights: no cast
+        lstm_cuda.bilstm_fused(x, mask, lstm_layers(lstm))
+
+
+@pytest.mark.parametrize("cfg,B,scale", [
+    (CHARADES, 1, 0.5), (CHARADES, 16, 0.5), (CHARADES, 512, 0.5), (TINY, 9, 0.5),
+    (ODD, 5, 0.5), (ACTIVITYNET, 2, 0.5),
+    (CHARADES, 16, 1.0), (CHARADES, 512, 1.0), (TINY, 9, 1.0), (ACTIVITYNET, 2, 1.0)])
+def test_smin_stack_bf16_kernel_matches_plain(card, cfg, B, scale):
+    """Half-scale inputs at the tight bounds, unit-normal ones (saturated
+    softmaxes) at the JAX criterion."""
+    from video_moment_localization_tpu_torch.models.smin import smin_stack_bf16
+
+    cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    torch.manual_seed(B)
+    model = SMIN(cfg).to(card).eval()
+    ins = _stack_inputs(cfg, B, seed=B, device=card)
+    ins[:3] = [(t * scale).bfloat16() for t in ins[:3]]
+    before = smin_cuda.smin_stack_fused.launches_bf16
+    with torch.no_grad():
+        got = smin_cuda.smin_stack_fused(model, cfg, *ins)
+        want = smin_stack_bf16(model, cfg, *ins)
+    torch.cuda.synchronize()
+    assert smin_cuda.smin_stack_fused.launches_bf16 == before + 1
+    assert all(g.dtype == torch.float32 for g in got)
+    _bf16_close(got, want, K4_BF16 if scale < 1 else K4_BF16_JAX, f"K4-bf16 {B} x{scale}")
+
+
+def test_async_burst_on_card_equals_localize_batch(card):
+    """A burst through AsyncLocalizer on the card (pinned copies, the
+    handle's event) answers as localize_batch; a malformed request fails its
+    own future only."""
+    from video_moment_localization_tpu_torch.inference import AsyncLocalizer
+
+    torch.manual_seed(0)
+    emb = WordEmbedding.synthetic(["person", "opens", "the", "door", "sits"], dim=300)
+    loc = MomentLocalizer(TINY, SMIN(TINY), emb, serve_batch=8)
+    rng = np.random.default_rng(0)
+    videos = [rng.standard_normal((int(n), TINY.input_video_dim)).astype(np.float32)
+              for n in rng.integers(4, 40, size=5)]
+    reqs = [(videos[k % 5], "person opens the door" if k % 2 else "person sits", 9.0, k % 5)
+            for k in range(60)]
+    want = loc.localize_batch(reqs, top_k=3)
+    with AsyncLocalizer(loc, top_k=3, max_wait_ms=2.0, max_in_flight=2) as server:
+        futures = [server.submit(r[0], r[1], r[2], video_key=r[3]) for r in reqs[:30]]
+        bad = server.submit(np.zeros(3, np.float32), "person", 1.0)
+        futures += [server.submit(r[0], r[1], r[2], video_key=r[3]) for r in reqs[30:]]
+        got = [f.result(timeout=300) for f in futures]
+        with pytest.raises(ValueError):
+            bad.result(timeout=60)
+    for g, w in zip(got, want):
+        assert [(m.start, m.end) for m in g] == [(m.start, m.end) for m in w]
+        np.testing.assert_allclose([m.score for m in g], [m.score for m in w], atol=1e-5)
+    assert server.stats.snapshot()["errors"] == 1

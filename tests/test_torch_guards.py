@@ -1,7 +1,8 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX package,
 its entry points default to the card and take every mode of the JAX package
-but bf16, which they refuse, its kernel path names no library kernel, and
-chip_smoke.py fails without a card."""
+in fp32 and bf16 serving on the default route, refusing bf16 elsewhere, its
+kernel path names no library kernel, and chip_smoke.py fails without a
+card."""
 
 import os
 import re
@@ -120,17 +121,24 @@ def _assert_scores(cfg, outputs, B=2):
                                     dict(fused_smi=False), dict(fused_lstm=False),
                                     dict(packed=False)])
 def test_modes_outside_the_slice_raise(change):
-    """The slice is every mode of the JAX package's serving forward but bf16:
-    a compute_dtype other than float32 raises (the port has no bf16 yet), and
-    each of the other modes, once outside the slice, runs."""
+    """The slice is every mode of the JAX package's serving forward in fp32,
+    and bf16 on the default route: each of the other modes runs, bf16 runs
+    on the default route (fp32 scores), and bf16 on the routes it does not
+    serve (compat_head, fused_smi: False, packed: False) raises."""
     import dataclasses
 
     cfg = dataclasses.replace(TINY, **change)
-    if cfg.compute_dtype != "float32":
-        with pytest.raises(NotImplementedError, match="not supported by the PyTorch port"):
-            smin_forward_inference(SMIN(cfg), cfg, *_tiny_args())
-        return
     _assert_scores(cfg, smin_forward_inference(SMIN(cfg), cfg, *_tiny_args()))
+    if cfg.compute_dtype == "bfloat16":
+        assert all(o.dtype == torch.float32 for o in
+                   smin_forward_inference(SMIN(cfg), cfg, *_tiny_args()))
+        for other in (dict(compat_head=True), dict(fused_smi=False), dict(packed=False)):
+            bad = dataclasses.replace(cfg, **other)
+            with pytest.raises(NotImplementedError, match="not supported by the PyTorch port"):
+                smin_forward_inference(SMIN(bad), bad, *_tiny_args())
+            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+                MomentLocalizer(bad, SMIN(bad), WordEmbedding.synthetic(["a"], dim=300),
+                                device="cpu")
 
 
 @pytest.mark.parametrize("change", [dict(compute_dtype="bfloat16"), dict(compat_head=True),

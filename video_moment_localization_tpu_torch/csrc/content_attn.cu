@@ -1,6 +1,7 @@
 // The content-attention pair of content_attn.cuh on its own, for the card
 // tests and the timing phase of chip_smoke.py (ops/content_attn_cuda.py):
-// the forward and the backward between the content unit's projections, and
+// the forward (fp32 and bf16) and the backward between the content unit's
+// projections, and
 // the tile plan that the Python mirror in ops/content_attn_cuda.py is held
 // against. K4, K2, K3, K7, K9 and K10 run the same device code inside their
 // own entry points.
@@ -20,6 +21,16 @@ int vml_content_attn_fwd_f32(void* stream, int B, int N, int C, int Nq, int dl, 
                                           q, khat, fwh, fsh, qmask, vmask, fcc);
 }
 
+// The forward's bf16 variant: h, q, khat, fwh and fcc bf16; fsh and the
+// masks fp32.
+int vml_content_attn_fwd_bf16(void* stream, int B, int N, int C, int Nq, int dl,
+                              const vml::bf16* h, const vml::bf16* q, const vml::bf16* khat,
+                              const vml::bf16* fwh, const float* fsh, const float* qmask,
+                              const float* vmask, vml::bf16* fcc) {
+    return (int)vml::content_attn_forward(static_cast<cudaStream_t>(stream), B, N, C, Nq, dl, h,
+                                          q, khat, fwh, fsh, qmask, vmask, fcc);
+}
+
 // The backward from dfcc: dh, dq (B*N*C, dl), dfwh, dkhat (B*Nq, dl) and
 // dfsh (B, dl), through `part` (vml_content_attn_partial_floats floats).
 int vml_content_attn_bwd_f32(void* stream, int B, int N, int C, int Nq, int dl, const float* h,
@@ -32,11 +43,13 @@ int vml_content_attn_bwd_f32(void* stream, int B, int N, int C, int Nq, int dl, 
                                            part, dfwh, dkhat, dfsh);
 }
 
-// The tile plan: out = (pairs per pass, passes per block, blocks per
-// element), *smem = a block's dynamic shared memory (0: shape not taken).
-void vml_content_attn_plan(int B, int N, int C, int Nq, int dl, int backward, int* out,
-                           size_t* smem) {
-    const vml::ContentAttnPlan p = vml::content_attn_plan(B, N, C, Nq, dl, backward != 0);
+// The tile plan at an element size (4 fp32, 2 bf16): out = (pairs per
+// pass, passes per block, blocks per element), *smem = a block's dynamic
+// shared memory (0: shape not taken).
+void vml_content_attn_plan(int B, int N, int C, int Nq, int dl, int backward, int esize,
+                           int* out, size_t* smem) {
+    const vml::ContentAttnPlan p =
+        vml::content_attn_plan_for(B, N, C, Nq, dl, backward != 0, esize);
     out[0] = p.pp;
     out[1] = p.passes;
     out[2] = p.tiles;

@@ -51,7 +51,10 @@
 // `content_partial_reduce_kernel` adds an element's partials in tile order.
 // No atomics anywhere: a run is bit for bit repeatable. Widths that are no
 // multiple of 4 (or unaligned pointers) take the same kernels with scalar
-// copies (kVec false).
+// copies (kVec false). The forward has a bf16 variant for K4 at bf16
+// (`content_attn_forward` on bf16 rows: bf16 rows in and out, converted to fp32 as
+// they are staged, so its plan and arithmetic are the fp32 forward's); the
+// backward is fp32 only (training is fp32).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -150,6 +153,15 @@ inline ContentAttnPlan content_attn_plan(int B, int N, int C, int Nq, int dl, bo
     return p;
 }
 
+// The plan at an element size of the rows in device memory (4: fp32, 2:
+// bf16). The bf16 rows are staged in fp32, so the bf16 forward's plan is the
+// fp32 forward's; there is no bf16 backward (all 0).
+inline ContentAttnPlan content_attn_plan_for(int B, int N, int C, int Nq, int dl, bool backward,
+                                             int esize) {
+    if (esize == 2 && backward) return ContentAttnPlan{0, 0, 0, 0};
+    return content_attn_plan(B, N, C, Nq, dl, backward);
+}
+
 // A block's dynamic shared memory for the admission checks of the entry
 // points, past the 227 KB a block may have when the plan does not take the
 // shape.
@@ -176,6 +188,15 @@ struct CaArgs {
     const float* qmask;
     const float* vmask;
     float* out;           // forward: fcc
+    // The forward's bf16 variant (K4 at bf16): h, q, khat, fwh and fcc in
+    // bf16 (fsh and the masks stay fp32); the rows are converted to fp32 as
+    // they are staged, so shared memory and the arithmetic are the fp32
+    // forward's.
+    const bf16* h16;
+    const bf16* q16;
+    const bf16* khat16;
+    const bf16* fwh16;
+    bf16* out16;
     const float* dfcc;    // backward
     float* dh;
     float* dq;
@@ -206,6 +227,48 @@ __device__ __forceinline__ void ca_stage_rows(float* dst, const float* __restric
     }
 }
 
+// ca_stage_rows for bf16 rows: converted to fp32 as they land (8-byte loads
+// of 4 values when kVec, synchronous: cp.async cannot convert).
+template <bool kVec>
+__device__ __forceinline__ void ca_stage_rows_bf16(float* dst, const bf16* __restrict__ src,
+                                                   int rows, int rows_pad, int dl, int dl4,
+                                                   int DS) {
+    const int total = rows_pad * dl4;
+    for (int e = threadIdx.x; e < total; e += kCaThreads) {
+        const int r = e / dl4;
+        const int c4 = e - r * dl4;
+        float* d = dst + r * DS + c4 * 4;
+        if constexpr (kVec) {
+            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (r < rows) {
+                const uint2 u = *reinterpret_cast<const uint2*>(src + (size_t)r * dl + c4 * 4);
+                const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+                const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+                v = make_float4(a.x, a.y, b.x, b.y);
+            }
+            *reinterpret_cast<float4*>(d) = v;
+        } else {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                const int col = c4 * 4 + k;
+                d[k] = (r < rows && col < dl) ? __bfloat162float(src[(size_t)r * dl + col]) : 0.f;
+            }
+        }
+    }
+}
+
+// Stages rows of an activation of the forward, fp32 or (kBf16) bf16, from
+// element offset `off`.
+template <bool kVec, bool kBf16>
+__device__ __forceinline__ void ca_stage_act(float* dst, const float* src32, const bf16* src16,
+                                             size_t off, int rows, int rows_pad, int dl,
+                                             int dl4, int DS) {
+    if constexpr (kBf16)
+        ca_stage_rows_bf16<kVec>(dst, src16 + off, rows, rows_pad, dl, dl4, DS);
+    else
+        ca_stage_rows<kVec>(dst, src32 + off, rows, rows_pad, dl, dl4, DS);
+}
+
 __device__ __forceinline__ float4 ld4(const float* p) {
     return *reinterpret_cast<const float4*>(p);
 }
@@ -233,6 +296,34 @@ __device__ __forceinline__ void ca_store(float* __restrict__ row, int c4, int dl
         for (int k = 0; k < 4; ++k)
             if (c4 * 4 + k < dl) row[c4 * 4 + k] = a[k];
     }
+}
+
+// ca_store for a bf16 output row: 4 values rounded once, an 8-byte store
+// when kVec.
+template <bool kVec>
+__device__ __forceinline__ void ca_store_bf16(bf16* __restrict__ row, int c4, int dl, float4 v) {
+    if constexpr (kVec) {
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+        uint2 u;
+        u.x = *reinterpret_cast<const unsigned*>(&lo);
+        u.y = *reinterpret_cast<const unsigned*>(&hi);
+        *reinterpret_cast<uint2*>(row + c4 * 4) = u;
+    } else {
+        const float a[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+            if (c4 * 4 + k < dl) row[c4 * 4 + k] = __float2bfloat16(a[k]);
+    }
+}
+
+// Writes one chunk of the forward's output row starting at element `off`.
+template <bool kVec, bool kBf16>
+__device__ __forceinline__ void ca_store_out(const CaArgs& a, size_t off, int c4, float4 v) {
+    if constexpr (kBf16)
+        ca_store_bf16<kVec>(a.out16 + off, c4, a.dl, v);
+    else
+        ca_store<kVec>(a.out + off, c4, a.dl, v);
 }
 
 // The word phases' layout: a product X K^T over the pass's rows (X: q, or
@@ -446,11 +537,12 @@ __device__ __forceinline__ void ca_pair_softmax(const float (&gram)[10], float i
 
 // Loads the element's keys, values, fsh and query mask into shared memory
 // (cp.async when kVec; the caller commits and waits with the first pass).
-template <bool kVec>
+template <bool kVec, bool kBf16 = false>
 __device__ __forceinline__ void ca_stage_element(const CaArgs& a, const CaShape& s, int b,
                                                  float* Ks, float* Vs, float* fshs, float* qms) {
-    ca_stage_rows<kVec>(Ks, a.khat + (size_t)b * a.Nq * a.dl, a.Nq, s.NQ4, a.dl, s.dl4, s.DS);
-    ca_stage_rows<kVec>(Vs, a.fwh + (size_t)b * a.Nq * a.dl, a.Nq, s.NQ4, a.dl, s.dl4, s.DS);
+    const size_t off = (size_t)b * a.Nq * a.dl;
+    ca_stage_act<kVec, kBf16>(Ks, a.khat, a.khat16, off, a.Nq, s.NQ4, a.dl, s.dl4, s.DS);
+    ca_stage_act<kVec, kBf16>(Vs, a.fwh, a.fwh16, off, a.Nq, s.NQ4, a.dl, s.dl4, s.DS);
     ca_stage_rows<kVec>(fshs, a.fsh + (size_t)b * a.dl, 1, 1, a.dl, s.dl4, s.DS);
     for (int m = threadIdx.x; m < s.NQ4; m += kCaThreads)
         qms[m] = m < a.Nq ? a.qmask[(size_t)b * a.Nq + m] : 0.f;
@@ -462,8 +554,9 @@ __device__ __forceinline__ void ca_wait_all() {
     __syncthreads();
 }
 
-// The forward. Grid: B * tiles blocks of kCaThreads.
-template <bool kVec>
+// The forward. Grid: B * tiles blocks of kCaThreads. kBf16: the bf16
+// variant (CaArgs' h16, q16, khat16, fwh16, out16).
+template <bool kVec, bool kBf16 = false>
 __global__ void __launch_bounds__(kCaThreads, 2) content_attn_fwd_kernel(CaArgs a) {
     extern __shared__ __align__(16) float smem[];
     const CaShape s = ca_shape(a.pp, a.C, a.Nq, a.dl);
@@ -488,13 +581,13 @@ __global__ void __launch_bounds__(kCaThreads, 2) content_attn_fwd_kernel(CaArgs 
     const int dgi = threadIdx.x - rg * DG;
     const int r0 = rg * 4;
 
-    ca_stage_element<kVec>(a, s, b, Ks, Vs, fshs, qms);
+    ca_stage_element<kVec, kBf16>(a, s, b, Ks, Vs, fshs, qms);
     for (int n0 = n_begin; n0 < n_end; n0 += a.pp) {
         const int npair = min(a.pp, n_end - n0);
         const int rows = npair * C;
         const size_t row0 = ((size_t)b * a.N + n0) * C;
-        ca_stage_rows<kVec>(Qs, a.q + row0 * a.dl, rows, s.RP, a.dl, s.dl4, s.DS);
-        ca_stage_rows<kVec>(Hs, a.h + row0 * a.dl, rows, s.RP, a.dl, s.dl4, s.DS);
+        ca_stage_act<kVec, kBf16>(Qs, a.q, a.q16, row0 * a.dl, rows, s.RP, a.dl, s.dl4, s.DS);
+        ca_stage_act<kVec, kBf16>(Hs, a.h, a.h16, row0 * a.dl, rows, s.RP, a.dl, s.dl4, s.DS);
         for (int j = threadIdx.x; j < s.PP4; j += kCaThreads)
             vms[j] = j < npair ? a.vmask[(size_t)b * a.N + n0 + j] : 0.f;
         ca_wait_all();
@@ -544,7 +637,7 @@ __global__ void __launch_bounds__(kCaThreads, 2) content_attn_fwd_kernel(CaArgs 
                     float4 o = f4(0.f);
 #pragma unroll
                     for (int e = 0; e < 4; ++e) fma4(o, P[c][e] * vm, hv[e]);
-                    ca_store<kVec>(a.out + (row0 + r0 + c) * a.dl, c4, a.dl, o);
+                    ca_store_out<kVec, kBf16>(a, (row0 + r0 + c) * a.dl, c4, o);
                 }
             }
             __syncthreads();
@@ -610,7 +703,7 @@ __global__ void __launch_bounds__(kCaThreads, 2) content_attn_fwd_kernel(CaArgs 
                 for (int c4 = dgi; c4 < s.dl4; c4 += DG) {
                     float4 o = f4(0.f);
                     for (int e = 0; e < C; ++e) fma4(o, l[e], ld4(Hs + (base + e) * s.DS + c4 * 4));
-                    ca_store<kVec>(a.out + (row0 + r) * a.dl, c4, a.dl, o);
+                    ca_store_out<kVec, kBf16>(a, (row0 + r) * a.dl, c4, o);
                 }
             }
         }
@@ -991,6 +1084,38 @@ inline cudaError_t content_attn_forward(cudaStream_t st, int B, int N, int C, in
     const bool vec = dl % 4 == 0 && aligned16(h) && aligned16(q) && aligned16(khat) &&
                      aligned16(fwh) && aligned16(fsh) && aligned16(fcc);
     auto kernel = vec ? content_attn_fwd_kernel<true> : content_attn_fwd_kernel<false>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<(unsigned)((long long)B * p.tiles), kCaThreads, p.smem, st>>>(a);
+    ++g_content_attn_launches[0];
+    return cudaGetLastError();
+}
+
+inline bool aligned8(const void* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; }
+
+// The forward's bf16 variant: h, q (B*N*C, dl), khat, fwh (B*Nq, dl) and
+// fcc in bf16; fsh (B, dl) and the masks fp32. Same plan and shared memory
+// as the fp32 forward (the rows are staged in fp32). Returns the launch's
+// CUDA error.
+inline cudaError_t content_attn_forward(cudaStream_t st, int B, int N, int C, int Nq, int dl,
+                                        const bf16* h, const bf16* q, const bf16* khat,
+                                        const bf16* fwh, const float* fsh, const float* qmask,
+                                        const float* vmask, bf16* fcc) {
+    const ContentAttnPlan p = content_attn_plan(B, N, C, Nq, dl, false);
+    if (!p.smem) return cudaErrorInvalidValue;
+    CaArgs a = ca_args(p, N, C, Nq, dl);
+    a.h16 = h;
+    a.q16 = q;
+    a.khat16 = khat;
+    a.fwh16 = fwh;
+    a.fsh = fsh;
+    a.qmask = qmask;
+    a.vmask = vmask;
+    a.out16 = fcc;
+    const bool vec = dl % 4 == 0 && aligned8(h) && aligned8(q) && aligned8(khat) &&
+                     aligned8(fwh) && aligned16(fsh) && aligned8(fcc);
+    auto kernel = vec ? content_attn_fwd_kernel<true, true> : content_attn_fwd_kernel<false, true>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
     if (err != cudaSuccess) return err;

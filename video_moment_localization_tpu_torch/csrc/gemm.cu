@@ -1,9 +1,10 @@
-// The shared fp32 GEMM of gemm.cuh on its own, for the card tests and the
-// GEMM phase of chip_smoke.py (ops/gemm_cuda.py): each layout with every
+// The shared GEMM of gemm.cuh on its own, for the card tests and the GEMM
+// phase of chip_smoke.py (ops/gemm_cuda.py): each fp32 layout with every
 // epilogue term, `ascale`, a forced block tile and path (CUDA cores or
-// 3xTF32 tensor cores) and gemm_tn's fused column sums, plus the host-side
-// plans (path, tile, split-K) that the Python mirror in
-// ops/gemm_cuda.py is held against. It replaces no TPU kernel: the JAX
+// 3xTF32 tensor cores) and gemm_tn's fused column sums; the bf16 path's nt
+// product with its epilogue; plus the host-side plans (path, tile, split-K,
+// shared memory) that the Python mirror in ops/gemm_cuda.py is held
+// against. It replaces no TPU kernel: the JAX
 // package's kernels run their products inside each Pallas body, and the
 // port's kernels run them through this header.
 #include <cuda_runtime.h>
@@ -68,6 +69,7 @@ void vml_gemm_splitk(int M, int N, int R, int* splits, int* kchunk) {
 // and tile.
 size_t vml_gemm_smem_bytes(int path, int layout, int tile) {
     using vml::gemm_smem_bytes;
+    if (path == vml::kPathBf16) return layout == 0 ? vml::gemm_bf16_smem_bytes_for(tile) : 0;
     const size_t bytes[3][3] = {
         {gemm_smem_bytes<128, 128, false, false>(path), gemm_smem_bytes<128, 64, false, false>(path),
          gemm_smem_bytes<64, 64, false, false>(path)},
@@ -76,6 +78,30 @@ size_t vml_gemm_smem_bytes(int path, int layout, int tile) {
         {gemm_smem_bytes<128, 128, true, true>(path), gemm_smem_bytes<128, 64, true, true>(path),
          gemm_smem_bytes<64, 64, true, true>(path)}};
     return bytes[layout][tile];
+}
+
+// The path of a bf16 product of a layout (-1: no bf16 kernel for it).
+int vml_gemm_path_for_bf16(int layout) { return vml::gemm_path_for_bf16(layout); }
+
+// C = ep(A @ W^T) with A (M, K), W (N, K) bf16, bias and rmask fp32, post
+// and post2 bf16; C bf16, or fp32 when out_f32. tile: -1 by shape, else a
+// vml::GemmTile. Returns the launch's CUDA error, 0 if none.
+int vml_gemm_bf16(void* stream, int M, int N, int K, const vml::bf16* A, int lda,
+                  const vml::bf16* W, int ldw, void* C, int ldc, int out_f32, const float* bias,
+                  const float* rmask, int mask_div, const vml::bf16* post, int ldpost,
+                  const vml::bf16* post2, int ldpost2, int post2_div, int tile) {
+    vml::EpilogueBf16 ep;
+    ep.bias = bias;
+    ep.rmask = rmask;
+    ep.mask_div = mask_div;
+    ep.post = post;
+    ep.ldpost = ldpost;
+    ep.post2 = post2;
+    ep.ldpost2 = ldpost2;
+    ep.post2_div = post2_div;
+    vml::gemm_nt_bf16(static_cast<cudaStream_t>(stream), M, N, K, A, lda, W, ldw, C, ldc,
+                      out_f32 != 0, ep, tile);
+    return (int)cudaGetLastError();
 }
 
 size_t vml_gemm_tn_partial_floats(int M, int N, int R) {

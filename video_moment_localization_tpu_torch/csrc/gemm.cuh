@@ -110,6 +110,9 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
+
+#include "bf16.cuh"
 
 namespace vml {
 
@@ -1126,6 +1129,278 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
     return v;
+}
+
+// ------------------------------------------------------------------------
+// The bf16 path: C = epilogue(A W^T) with A (M, K) and W (N, K) in bf16,
+// products of bf16 operands added in fp32 (mma.sync m16n8k16, bf16 -> fp32),
+// the epilogue in fp32 and the result stored in bf16 or fp32. It serves the
+// bf16 variants of K4 and K5 (serving only, so gemm_nt alone), the
+// counterpart of the JAX kernels' single-pass bf16 products with fp32
+// accumulation (preferred_element_type=f32). Bound on the H100: the
+// operations at 989 TFLOP/s of dense bf16 for the large products; a simple
+// kernel, not yet near that rate:
+//   * block tiles and grid as the fp32 path (`gemm_tile_for`: 128x128,
+//     128x64 or 64x64, the problem index along gridDim.y), 256 threads as
+//     8 warps of 64x32, 32x32 or 32x16 outputs;
+//   * 32-deep K slices in a 4-stage ring of 16-byte cp.async copies, rows of
+//     40 bf16 in shared memory (80 bytes: ldmatrix's 8 row addresses fall
+//     on 8 distinct groups of 4 banks);
+//   * fragments by ldmatrix (x4 for A's 16 x 16, x4 for two n8 tiles of W:
+//     W's rows are n, contiguous in k, which is the col layout mma wants);
+//   * the epilogue from the fragments: bias, the row mask and the two bf16
+//     residuals in fp32, one rounding to the output type;
+//   * operands that are not 16-byte aligned or whose K or leading
+//     dimensions are no multiple of 8 take synchronous guarded loads.
+struct EpilogueBf16 {
+    const float* bias = nullptr;   // (N,)
+    const float* rmask = nullptr;  // (M / mask_div,)
+    int mask_div = 1;
+    const bf16* post = nullptr;    // (M, ldpost), added after the mask
+    int ldpost = 0;
+    const bf16* post2 = nullptr;   // (M / post2_div, ldpost2), after the mask
+    int ldpost2 = 0;
+    int post2_div = 1;
+};
+
+constexpr int kBfBK = 32;             // K of a stage
+constexpr int kBfLd = kBfBK + 8;      // bf16 per shared row
+constexpr int kBfStages = 4;
+constexpr int kPathBf16 = 2;          // ops/gemm_cuda.py::BF16
+
+struct GemmBf16Params {
+    int M, N, K;
+    const bf16* A;
+    int lda, ldw, ldc;
+    const bf16* W[2];
+    void* C[2];               // bf16 or, when out_f32, float
+    EpilogueBf16 ep[2];
+    bool out_f32;
+};
+
+template <int BM, int BN>
+constexpr size_t gemm_bf16_smem_bytes() {
+    return sizeof(bf16) * (size_t)kBfStages * (BM + BN) * kBfLd;
+}
+
+inline size_t gemm_bf16_smem_bytes_for(int tile) {
+    return tile == kTile128x128 ? gemm_bf16_smem_bytes<128, 128>()
+           : tile == kTile128x64 ? gemm_bf16_smem_bytes<128, 64>()
+                                 : gemm_bf16_smem_bytes<64, 64>();
+}
+
+__device__ __forceinline__ void cp_async16_any(void* dst, const void* src, bool valid) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+                 "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(s));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One operand's R x kBfBK slice into shared rows of kBfLd (row r at s + r *
+// kBfLd), rows from r0 on (of `rows`), k from k0 on (of K).
+template <int R, bool kVec>
+__device__ __forceinline__ void gemm_bf16_load(bf16* s, const bf16* __restrict__ P, int ld,
+                                               int rows, int r0, int k0, int K) {
+    constexpr int kChunks = R * (kBfBK / 8);     // 16-byte chunks of the slice
+    for (int c = threadIdx.x; c < kChunks; c += kGemmThreads) {
+        const int r = c / (kBfBK / 8);
+        const int kc = (c % (kBfBK / 8)) * 8;
+        const int gr = r0 + r, gk = k0 + kc;
+        bf16* dst = s + r * kBfLd + kc;
+        if constexpr (kVec) {
+            const bool ok = gr < rows && gk < K;
+            cp_async16_any(dst, ok ? P + (size_t)gr * ld + gk : P, ok);
+        } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+                dst[e] = (gr < rows && gk + e < K) ? P[(size_t)gr * ld + gk + e]
+                                                   : __float2bfloat16(0.f);
+        }
+    }
+}
+
+template <int BM, int BN, bool kVec>
+__global__ void __launch_bounds__(kGemmThreads, 2) gemm_bf16_kernel(GemmBf16Params p) {
+    extern __shared__ __align__(16) unsigned char gemm_bf16_smem[];
+    constexpr int WARPS_M = BN == 128 ? 2 : (BM == 128 ? 4 : 2);
+    constexpr int WARPS_N = 8 / WARPS_M;
+    constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
+    constexpr int MT = WM / 16, NT = WN / 8;
+    static_assert(NT % 2 == 0, "two n8 tiles per ldmatrix");
+    bf16* As = reinterpret_cast<bf16*>(gemm_bf16_smem);
+    bf16* Ws = As + (size_t)kBfStages * BM * kBfLd;
+
+    const int g = blockIdx.y;
+    const bf16* __restrict__ W = p.W[g];
+    const int tiles_n = (p.N + BN - 1) / BN;
+    const int m0 = (int)(blockIdx.x / tiles_n) * BM;
+    const int n0 = (int)(blockIdx.x % tiles_n) * BN;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int wm0 = (warp / WARPS_N) * WM, wn0 = (warp % WARPS_N) * WN;
+
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+    const int ktiles = (p.K + kBfBK - 1) / kBfBK;
+#pragma unroll
+    for (int st = 0; st < kBfStages - 1; ++st) {
+        if (st < ktiles) {
+            gemm_bf16_load<BM, kVec>(As + st * BM * kBfLd, p.A, p.lda, p.M, m0, st * kBfBK, p.K);
+            gemm_bf16_load<BN, kVec>(Ws + st * BN * kBfLd, W, p.ldw, p.N, n0, st * kBfBK, p.K);
+        }
+        cp_async_commit();
+    }
+    for (int kt = 0; kt < ktiles; ++kt) {
+        cp_async_wait<kBfStages - 2>();
+        __syncthreads();
+        const int nk = kt + kBfStages - 1;
+        if (nk < ktiles) {
+            const int st = nk % kBfStages;
+            gemm_bf16_load<BM, kVec>(As + st * BM * kBfLd, p.A, p.lda, p.M, m0, nk * kBfBK, p.K);
+            gemm_bf16_load<BN, kVec>(Ws + st * BN * kBfLd, W, p.ldw, p.N, n0, nk * kBfBK, p.K);
+        }
+        cp_async_commit();
+        const bf16* a_s = As + (kt % kBfStages) * BM * kBfLd;
+        const bf16* w_s = Ws + (kt % kBfStages) * BN * kBfLd;
+#pragma unroll
+        for (int kk = 0; kk < kBfBK; kk += 16) {
+            unsigned af[MT][4];
+#pragma unroll
+            for (int i = 0; i < MT; ++i)
+                ldmatrix_x4(af[i], a_s + (wm0 + i * 16 + lane % 16) * kBfLd + kk + (lane / 16) * 8);
+#pragma unroll
+            for (int j = 0; j < NT; j += 2) {
+                unsigned bfr[4];
+                ldmatrix_x4(bfr, w_s + (wn0 + j * 8 + lane % 8 + (lane / 16) * 8) * kBfLd + kk +
+                                     ((lane / 8) % 2) * 8);
+#pragma unroll
+                for (int i = 0; i < MT; ++i) {
+                    mma_bf16(acc[i][j], af[i], bfr[0], bfr[1]);
+                    mma_bf16(acc[i][j + 1], af[i], bfr[2], bfr[3]);
+                }
+            }
+        }
+    }
+    cp_async_wait<0>();
+
+    const EpilogueBf16& ep = p.ep[g];
+    const int gq = lane / 4, tq = lane % 4;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const int r = m0 + wm0 + i * 16 + gq + half * 8;
+            if (r >= p.M) continue;
+            const float mask = ep.rmask ? ep.rmask[r / ep.mask_div] : 1.f;
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int c = n0 + wn0 + j * 8 + tq * 2 + e;
+                    if (c >= p.N) continue;
+                    float v = acc[i][j][half * 2 + e];
+                    if (ep.bias) v += ep.bias[c];
+                    v *= mask;
+                    if (ep.post) v += to_f(ep.post[(size_t)r * ep.ldpost + c]);
+                    if (ep.post2) v += to_f(ep.post2[(size_t)(r / ep.post2_div) * ep.ldpost2 + c]);
+                    if (p.out_f32)
+                        static_cast<float*>(p.C[g])[(size_t)r * p.ldc + c] = v;
+                    else
+                        static_cast<bf16*>(p.C[g])[(size_t)r * p.ldc + c] = __float2bfloat16(v);
+                }
+            }
+        }
+    }
+}
+
+// Whether this library has raised a bf16 kernel instance's shared-memory
+// limit on a device, by [device][tile][vec] (internal linkage: one per
+// library, as g_gemm_smem_raised).
+static bool g_gemm_bf16_smem_raised[8][3][2];
+
+template <int BM, int BN>
+inline void gemm_bf16_run(cudaStream_t st, dim3 grid, const GemmBf16Params& p, bool vec) {
+    constexpr int tile = BM == 128 ? (BN == 128 ? kTile128x128 : kTile128x64) : kTile64x64;
+    const size_t smem = gemm_bf16_smem_bytes<BM, BN>();
+    auto kernel = vec ? gemm_bf16_kernel<BM, BN, true> : gemm_bf16_kernel<BM, BN, false>;
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess) return;   // the caller's cudaGetLastError() reports it
+    bool* raised = dev < 8 ? &g_gemm_bf16_smem_raised[dev][tile][vec] : nullptr;
+    if (!raised || !*raised) {
+        if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem) != cudaSuccess)
+            return;
+        if (raised) *raised = true;
+    }
+    kernel<<<grid, kGemmThreads, smem, st>>>(p);
+}
+
+// The path a bf16 product takes: the bf16 tensor-core kernel, layout nt
+// only (0); -1 for the layouts it has no kernel for.
+inline int gemm_path_for_bf16(int layout) { return layout == 0 ? kPathBf16 : -1; }
+
+inline void gemm_bf16_launch(cudaStream_t st, GemmBf16Params p, int groups, int tile) {
+    if (tile < 0) tile = gemm_tile_for(p.M, p.N, groups);
+    const dim3 grid((unsigned)gemm_tiles(tile, p.M, p.N), groups, 1);
+    bool vec = p.K % 8 == 0 && p.lda % 8 == 0 && p.ldw % 8 == 0 && aligned16(p.A);
+    for (int g = 0; g < groups; ++g) vec = vec && aligned16(p.W[g]);
+    switch (tile) {
+        case kTile128x128: gemm_bf16_run<128, 128>(st, grid, p, vec); break;
+        case kTile128x64: gemm_bf16_run<128, 64>(st, grid, p, vec); break;
+        default: gemm_bf16_run<64, 64>(st, grid, p, vec); break;
+    }
+}
+
+// C = epilogue(A @ W^T) on `stream`, A (M, K) and W (N, K) bf16; C bf16, or
+// fp32 when out_f32. `tile` < 0: by shape.
+inline void gemm_nt_bf16(cudaStream_t stream, int M, int N, int K, const bf16* A, int lda,
+                         const bf16* W, int ldw, void* C, int ldc, bool out_f32,
+                         const EpilogueBf16& ep, int tile = -1) {
+    GemmBf16Params p{};
+    p.M = M; p.N = N; p.K = K; p.A = A; p.lda = lda; p.ldw = ldw; p.ldc = ldc;
+    p.W[0] = W; p.C[0] = C; p.ep[0] = ep; p.out_f32 = out_f32;
+    gemm_bf16_launch(stream, p, 1, tile);
+}
+
+// Two products of one A in one launch (as gemm_nt2), bf16 outputs.
+inline void gemm_nt2_bf16(cudaStream_t stream, int M, int N, int K, const bf16* A, int lda,
+                          const bf16* W0, const bf16* W1, int ldw, bf16* C0, bf16* C1, int ldc,
+                          const EpilogueBf16& ep0, const EpilogueBf16& ep1) {
+    GemmBf16Params p{};
+    p.M = M; p.N = N; p.K = K; p.A = A; p.lda = lda; p.ldw = ldw; p.ldc = ldc;
+    p.W[0] = W0; p.W[1] = W1; p.C[0] = C0; p.C[1] = C1; p.ep[0] = ep0; p.ep[1] = ep1;
+    p.out_f32 = false;
+    gemm_bf16_launch(stream, p, 2, -1);
+}
+
+// C = A @ W^T + bias in bf16 operands (a plain nn.Linear), C bf16 or fp32
+// (TC).
+template <typename TC>
+inline void linear(cudaStream_t stream, int M, int N, int K, const bf16* A, const bf16* W,
+                   const float* bias, TC* C) {
+    EpilogueBf16 ep;
+    ep.bias = bias;
+    gemm_nt_bf16(stream, M, N, K, A, K, W, K, C, N, std::is_same<TC, float>::value, ep);
 }
 
 }  // namespace vml

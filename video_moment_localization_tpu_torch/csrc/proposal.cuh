@@ -16,6 +16,8 @@
 
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
+
 namespace vml {
 
 // Both proposal kernels give a block one element and kPropCols columns, one
@@ -110,11 +112,14 @@ __host__ __device__ inline size_t pool_smem_bytes(int T) {
 // written once; the splits (only where element x tile blocks are too few
 // to fill the card) each read the f tile again, which is small beside the
 // rows they write.
-template <bool Dense>
+// TI / TO: the element types of f and of fc, fm, fb (float, or bf16 for
+// K4's bf16 variant: the prefix sums and means stay fp64 / fp32, each output
+// is rounded to bf16 once).
+template <bool Dense, typename TI = float, typename TO = float>
 __global__ void __launch_bounds__(kPoolWarps * 32)
-pool_kernel(int T, int L, int C, int D, int splits, const float* __restrict__ f,
-            const float* __restrict__ mask, float* __restrict__ fc, float* __restrict__ fm,
-            float* __restrict__ fb) {
+pool_kernel(int T, int L, int C, int D, int splits, const TI* __restrict__ f,
+            const float* __restrict__ mask, TO* __restrict__ fc, TO* __restrict__ fm,
+            TO* __restrict__ fb) {
     extern __shared__ double prefix[];            // [T + 1][kPropCols]
     __shared__ double run_total[kPoolWarps][kPropCols];   // kRunTotalBytes
     const int P = Dense ? L * L : L * (L + 1) / 2;
@@ -126,12 +131,12 @@ pool_kernel(int T, int L, int C, int D, int splits, const float* __restrict__ f,
     const int d = tile * kPropCols + lane;
     const bool live = d < D;
     const int tl = T / L;
-    const float* fe = f + (size_t)b * T * D;
+    const TI* fe = f + (size_t)b * T * D;
 
     // Stage the tile, every load independent of the others.
 #pragma unroll 4
     for (int t = warp; t < T; t += kPoolWarps)
-        prefix[(t + 1) * kPropCols + lane] = live ? (double)fe[(size_t)t * D + d] : 0.0;
+        prefix[(t + 1) * kPropCols + lane] = live ? (double)to_f(fe[(size_t)t * D + d]) : 0.0;
     if (warp == 0) prefix[lane] = 0.0;
     __syncthreads();
     const int run = (T + kPoolWarps - 1) / kPoolWarps;
@@ -152,7 +157,7 @@ pool_kernel(int T, int L, int C, int D, int splits, const float* __restrict__ f,
         for (int l = warp; l < L; l += kPoolWarps) {
             const double s = prefix[(l + 1) * tl * kPropCols + lane] -
                              prefix[l * tl * kPropCols + lane];
-            if (live) fb[((size_t)b * L + l) * D + d] = (float)(s / (double)tl);
+            if (live) fb[((size_t)b * L + l) * D + d] = from_f<TO>((float)(s / (double)tl));
         }
     }
 
@@ -176,13 +181,13 @@ pool_kernel(int T, int L, int C, int D, int splits, const float* __restrict__ f,
                 if (c < valid)
                     v = (float)((prefix[(s + clip) * kPropCols + lane] -
                                  prefix[s * kPropCols + lane]) * w) * vm;
-                if (live) fc[(pr * C + c) * D + d] = v;
+                if (live) fc[(pr * C + c) * D + d] = from_f<TO>(v);
                 msum += v;
             }
         } else if (live) {
-            for (int c = 0; c < C; ++c) fc[(pr * C + c) * D + d] = 0.f;
+            for (int c = 0; c < C; ++c) fc[(pr * C + c) * D + d] = from_f<TO>(0.f);
         }
-        if (live) fm[pr * D + d] = msum / (float)C;
+        if (live) fm[pr * D + d] = from_f<TO>(msum / (float)C);
         if (n + kPoolWarps < n_end) advance_moment<Dense>(kPoolWarps, L, i, j);
     }
 }
@@ -201,18 +206,20 @@ inline cudaError_t prepare_launch(const void* kernel, size_t smem, int* sms) {
 // Launches pool_kernel on B elements; returns the first CUDA error. Splits
 // the moments over up to 8 blocks per (element, tile) where fewer than four
 // blocks per SM would run otherwise (serving at B=16).
-template <bool Dense>
-cudaError_t pool_forward(cudaStream_t st, int B, int T, int L, int C, int D, const float* f,
-                         const float* mask, float* fc, float* fm, float* fb) {
+template <bool Dense, typename TI = float, typename TO = float>
+cudaError_t pool_forward(cudaStream_t st, int B, int T, int L, int C, int D, const TI* f,
+                         const float* mask, TO* fc, TO* fm, TO* fb) {
     int sms = 0;
-    cudaError_t err = prepare_launch((const void*)pool_kernel<Dense>, pool_smem_bytes(T), &sms);
+    cudaError_t err = prepare_launch((const void*)pool_kernel<Dense, TI, TO>, pool_smem_bytes(T),
+                                     &sms);
     if (err != cudaSuccess) return err;
     const int P = Dense ? L * L : L * (L + 1) / 2;
     const long long blocks = (long long)B * ((D + kPropCols - 1) / kPropCols);
     long long splits = (4LL * sms + blocks - 1) / blocks;
     splits = splits < 1 ? 1 : (splits > 8 ? 8 : splits);
     splits = splits > P ? P : splits;
-    pool_kernel<Dense><<<(unsigned)(blocks * splits), kPoolWarps * 32, pool_smem_bytes(T), st>>>(
+    pool_kernel<Dense, TI, TO><<<(unsigned)(blocks * splits), kPoolWarps * 32, pool_smem_bytes(T),
+                                 st>>>(
         T, L, C, D, (int)splits, f, mask, fc, fm, fb);
     return cudaGetLastError();
 }

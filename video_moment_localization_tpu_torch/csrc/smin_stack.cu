@@ -26,6 +26,14 @@
 //   heads_kernel                   the four sigmoid heads, one warp per output
 // Rows are n-major: row (b, n, c) of fc/cu is ((b * N) + n) * C + c, the
 // layout of the plain version in ops/smin_cuda.py.
+//
+// The bf16 variant (`vml_smin_stack_bf16`; the JAX kernel at bf16, its
+// production dtype): the same kernels at bf16 activations with fp32
+// arithmetic inside and one rounding per stored value, products on
+// gemm.cuh's bf16 path (bf16 operands, fp32 sums; 989 TFLOP/s of dense
+// bf16 bound them), f_s_hat, the biases and the heads fp32, pm and pb fp32.
+// Its weights come cast to bf16 once per model (models/smin.py
+// `cast_weights`); its plain version is models/smin.py::smin_stack_bf16.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -36,8 +44,10 @@
 namespace {
 
 // One warp per output: pm (B*N) from fm, then ps, pe, pa (3, B*L) from fb.
-__global__ void heads_kernel(int BN, int BL, int D, const float* __restrict__ fm,
-                             const float* __restrict__ fb,
+// T: the element type of fm and fb; the heads' weights and sums are fp32.
+template <typename T>
+__global__ void heads_kernel(int BN, int BL, int D, const T* __restrict__ fm,
+                             const T* __restrict__ fb,
                              const float* __restrict__ vmask,
                              const float* __restrict__ lmask,
                              const float* w_pm, const float* b_pm,
@@ -48,7 +58,7 @@ __global__ void heads_kernel(int BN, int BL, int D, const float* __restrict__ fm
     const int lane = threadIdx.x % 32;
     const int r = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
     if (r >= BN + 3 * BL) return;
-    const float* x;
+    const T* x;
     const float* w;
     float bias, mask;
     float* dst;
@@ -68,36 +78,84 @@ __global__ void heads_kernel(int BN, int BL, int D, const float* __restrict__ fm
         dst = pb + (size_t)head * BL + q;
     }
     float s = 0.f;
-    for (int d = lane; d < D; d += 32) s += x[d] * w[d];
+    for (int d = lane; d < D; d += 32) s += vml::to_f(x[d]) * w[d];
     s = vml::warp_sum(s);
     if (lane == 0) *dst = vml::sigmoidf_(s + bias) * mask;
 }
 
+// The workspace: fc, cu, fm, mu, fb, bu and the layer's scratch, in the
+// element type E (fp32, or bf16 for the bf16 variant).
+template <typename E>
 struct Workspace {
-    float *fc, *cu, *fm, *mu, *fb, *bu;
-    vml::LayerScratch s;
+    E *fc, *cu, *fm, *mu, *fb, *bu;
+    vml::LayerScratchT<E> s;
 };
 
-// Carves the workspace; returns its size in floats (ws may be null).
-size_t carve(float* ws, int B, int L, int C, int Nq, int D, int dl, Workspace* w) {
+// Carves the workspace; returns its size in bytes (ws may be null).
+template <typename E>
+size_t carve(unsigned char* ws, int B, int L, int C, int Nq, int D, int dl, Workspace<E>* w) {
     const size_t N = (size_t)L * (L + 1) / 2;
     const size_t NC = N * C;
+    const size_t e = sizeof(E);
     const size_t sizes[] = {
-        B * NC * D, B * NC * D,                 // fc, cu
-        B * N * D, B * N * D,                   // fm, mu
-        (size_t)B * L * D, (size_t)B * L * D,   // fb, bu
+        e * B * NC * D, e * B * NC * D,         // fc, cu
+        e * B * N * D, e * B * N * D,           // fm, mu
+        e * B * L * D, e * B * L * D,           // fb, bu
     };
-    float** slots[] = {&w->fc, &w->cu, &w->fm, &w->mu, &w->fb, &w->bu};
-    const size_t off = vml::carve_slots(ws, 0, sizes, slots, 6);
+    void* slots[6];
+    const size_t off = vml::carve_bytes(ws, 0, sizes, slots, 6);
+    E** dst[6] = {&w->fc, &w->cu, &w->fm, &w->mu, &w->fb, &w->bu};
+    for (int k = 0; k < 6; ++k) *dst[k] = static_cast<E*>(slots[k]);
     return vml::carve_layer_scratch(ws, off, B, L, C, Nq, D, dl, &w->s);
+}
+
+// The stack in the element type E of f, fw, fs and the layers' matrices
+// (P: the pointer type of layer_w's entries); the masks, biases, heads and
+// outputs fp32.
+template <typename E, typename P>
+int stack_forward(void* stream, int B, int T, int L, int C, int Nq, int D, int dl, int n_layers,
+                  const E* f, const E* fw, const E* fs, const float* qmask, const float* lmask,
+                  const float* vmask, const P* const* layer_w, const float* const* head_w,
+                  unsigned char* ws, float* pm, float* pb) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int N = L * (L + 1) / 2;
+    Workspace<E> w;
+    carve(ws, B, L, C, Nq, D, dl, &w);
+    cudaError_t err;
+
+    err = vml::pool_forward<false, E, E>(st, B, T, L, C, D, f, lmask, w.fc, w.fm, w.fb);
+    if (err != cudaSuccess) return (int)err;
+
+    for (int layer = 0; layer < n_layers; ++layer) {
+        err = vml::layer_forward(st, B, L, C, Nq, D, dl, w.fc, w.fm, w.fb, fw, fs, qmask, lmask,
+                                 vmask, layer_w + (size_t)layer * vml::kWeightsPerLayer, w.s,
+                                 w.cu, w.mu, w.bu);
+        if (err != cudaSuccess) return (int)err;
+        E* t;
+        t = w.fc; w.fc = w.cu; w.cu = t;
+        t = w.fm; w.fm = w.mu; w.mu = t;
+        t = w.fb; w.fb = w.bu; w.bu = t;
+    }
+
+    const int outputs = B * N + 3 * B * L;
+    heads_kernel<E><<<(outputs * 32 + 255) / 256, 256, 0, st>>>(
+        B * N, B * L, D, w.fm, w.fb, vmask, lmask, head_w[0], head_w[1], head_w[2],
+        head_w[3], head_w[4], head_w[5], head_w[6], head_w[7], pm, pb);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-size_t vml_smin_workspace_floats(int B, int L, int C, int Nq, int D, int dl) {
-    Workspace w;
+// Bytes of the workspace of vml_smin_stack_f32 (bf16 0) or
+// vml_smin_stack_bf16 (bf16 1).
+size_t vml_smin_workspace_bytes(int B, int L, int C, int Nq, int D, int dl, int bf16) {
+    if (bf16) {
+        Workspace<vml::bf16> w;
+        return carve(nullptr, B, L, C, Nq, D, dl, &w);
+    }
+    Workspace<float> w;
     return carve(nullptr, B, L, C, Nq, D, dl, &w);
 }
 
@@ -111,40 +169,29 @@ size_t vml_smin_smem_bytes(int L, int C, int Nq, int D, int dl) {
 // layer_w: host array of n_layers * 20 device pointers, per layer in the
 // order of vml::layer_forward. head_w: host array of 8 device pointers:
 // pm.w, pm.b, ps.w, ps.b, pe.w, pe.b, pa.w, pa.b. Outputs pm (B, N) and pb
-// (3, B, L) = ps, pe, pa. Returns the first CUDA error of the launches, 0 if
-// none.
+// (3, B, L) = ps, pe, pa. ws: vml_smin_workspace_bytes(..., 0) bytes.
+// Returns the first CUDA error of the launches, 0 if none.
 int vml_smin_stack_f32(void* stream, int B, int T, int L, int C, int Nq, int D, int dl,
                        int n_layers, const float* f, const float* fw, const float* fs,
                        const float* qmask, const float* lmask, const float* vmask,
                        const float* const* layer_w, const float* const* head_w,
-                       float* ws, float* pm, float* pb) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int N = L * (L + 1) / 2;
-    Workspace w;
-    carve(ws, B, L, C, Nq, D, dl, &w);
-    cudaError_t err;
+                       unsigned char* ws, float* pm, float* pb) {
+    return stack_forward(stream, B, T, L, C, Nq, D, dl, n_layers, f, fw, fs, qmask, lmask, vmask,
+                         layer_w, head_w, ws, pm, pb);
+}
 
-    err = vml::pool_forward<false>(st, B, T, L, C, D, f, lmask, w.fc, w.fm, w.fb);
-    if (err != cudaSuccess) return (int)err;
-
-    for (int layer = 0; layer < n_layers; ++layer) {
-        err = vml::layer_forward(st, B, L, C, Nq, D, dl, w.fc, w.fm, w.fb, fw, fs, qmask,
-                                 lmask, vmask,
-                                 layer_w + (size_t)layer * vml::kWeightsPerLayer, w.s, w.cu,
-                                 w.mu, w.bu);
-        if (err != cudaSuccess) return (int)err;
-        float* t;
-        t = w.fc; w.fc = w.cu; w.cu = t;
-        t = w.fm; w.fm = w.mu; w.mu = t;
-        t = w.fb; w.fb = w.bu; w.bu = t;
-    }
-
-    const int outputs = B * N + 3 * B * L;
-    heads_kernel<<<(outputs * 32 + 255) / 256, 256, 0, st>>>(
-        B * N, B * L, D, w.fm, w.fb, vmask, lmask, head_w[0], head_w[1], head_w[2],
-        head_w[3], head_w[4], head_w[5], head_w[6], head_w[7], pm, pb);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    return 0;
+// K4's bf16 variant: f (B, T, D), fw (B, Nq, D), fs (B, D) bf16, the masks
+// fp32; layer_w as the fp32 entry's, the weights bf16 and the biases fp32;
+// head_w the 8 fp32 head pointers. Outputs pm (B, N) and pb (3, B, L) fp32,
+// as the fp32 entry. ws: vml_smin_workspace_bytes(..., 1) bytes. Returns the
+// first CUDA error of the launches, 0 if none.
+int vml_smin_stack_bf16(void* stream, int B, int T, int L, int C, int Nq, int D, int dl,
+                        int n_layers, const vml::bf16* f, const vml::bf16* fw,
+                        const vml::bf16* fs, const float* qmask, const float* lmask,
+                        const float* vmask, const void* const* layer_w,
+                        const float* const* head_w, unsigned char* ws, float* pm, float* pb) {
+    return stack_forward(stream, B, T, L, C, Nq, D, dl, n_layers, f, fw, fs, qmask, lmask, vmask,
+                         layer_w, head_w, ws, pm, pb);
 }
 
 }  // extern "C"

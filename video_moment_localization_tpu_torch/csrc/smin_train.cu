@@ -527,7 +527,7 @@ int vml_smi_layer_bwd_f32(void* stream, int B, int L, int C, int Nq, int D, int 
 
     // Recompute the layer; cu goes to dfc (only x2 = mean_c cu is kept).
     err = vml::layer_forward(st, B, L, C, Nq, D, dl, fc, fm, fb, fw, fs, qmask, lmask, vmask,
-                             p, s, dfc, nullptr, w.bu);
+                             p, s, dfc, static_cast<float*>(nullptr), w.bu);
     if (err != cudaSuccess) return (int)err;
 
     // MomentUnit.

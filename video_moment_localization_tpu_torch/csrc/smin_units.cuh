@@ -35,6 +35,7 @@
 #include <cmath>
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
 
 #include "content_attn.cuh"
 #include "gemm.cuh"
@@ -65,11 +66,12 @@ inline int row_walk_blocks(long long rows, int cols) {
     const long long blocks = (rows + per - 1) / per;
     return (int)(blocks < 8192 ? blocks : 8192);
 }
-// V = 4 when every row of every operand starts 16 bytes aligned.
-inline bool rows_vec4(int D, std::initializer_list<const void*> ptrs) {
+// V = 4 when every row of every operand starts aligned to 4 elements
+// (`align` bytes: 16 for fp32, 8 for bf16).
+inline bool rows_vec4(int D, std::initializer_list<const void*> ptrs, int align = 16) {
     if (D % 4) return false;
     for (const void* p : ptrs)
-        if (p && reinterpret_cast<uintptr_t>(p) % 16) return false;
+        if (p && reinterpret_cast<uintptr_t>(p) % align) return false;
     return true;
 }
 
@@ -92,23 +94,51 @@ __device__ __forceinline__ void store_vec(float* __restrict__ p, const float (&v
         for (int k = 0; k < V; ++k) p[k] = v[k];
     }
 }
+// The same for bf16 rows (8-byte accesses when V is 4), converted to and
+// from fp32.
+template <int V>
+__device__ __forceinline__ void load_vec(const bf16* __restrict__ p, float (&v)[V]) {
+    if constexpr (V == 4) {
+        const uint2 u = *reinterpret_cast<const uint2*>(p);
+        const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+        const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+        v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+    } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k) v[k] = __bfloat162float(p[k]);
+    }
+}
+template <int V>
+__device__ __forceinline__ void store_vec(bf16* __restrict__ p, const float (&v)[V]) {
+    if constexpr (V == 4) {
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+        uint2 u;
+        u.x = *reinterpret_cast<const unsigned*>(&lo);
+        u.y = *reinterpret_cast<const unsigned*>(&hi);
+        *reinterpret_cast<uint2*>(p) = u;
+    } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k) p[k] = __float2bfloat16(v[k]);
+    }
+}
 
 // fbar = sigmoid(fm * fs) * fm over the B * N rows of (B, N, D); bound by
-// its bytes (fm read, fbar written).
-template <int V>
+// its bytes (fm read, fbar written). T: the rows' element type (fp32 math).
+template <int V, typename T = float>
 static __global__ void __launch_bounds__(kRowThreads) gate_kernel(int rows, int N, int D,
-                                                                  const float* __restrict__ fm,
-                                                                  const float* __restrict__ fs,
-                                                                  float* __restrict__ fbar) {
+                                                                  const T* __restrict__ fm,
+                                                                  const T* __restrict__ fs,
+                                                                  T* __restrict__ fbar) {
     const int cols = D / V;
     const RowWalk w = row_walk(cols);
     const int lr = (int)threadIdx.x / cols;
     if (lr >= w.rows_per_pass) return;
     for (int row = blockIdx.x * w.rows_per_pass + lr; row < rows;
          row += gridDim.x * w.rows_per_pass) {
-        const float* x = fm + (size_t)row * D;
-        const float* s = fs + (size_t)(row / N) * D;
-        float* y = fbar + (size_t)row * D;
+        const T* x = fm + (size_t)row * D;
+        const T* s = fs + (size_t)(row / N) * D;
+        T* y = fbar + (size_t)row * D;
         for (int c = w.first_col; c < cols; c += w.col_step) {
             float xv[V], sv[V], out[V];
             load_vec<V>(x + c * V, xv);
@@ -120,15 +150,16 @@ static __global__ void __launch_bounds__(kRowThreads) gate_kernel(int rows, int 
     }
 }
 
-inline void launch_gate(cudaStream_t st, int B, int N, int D, const float* fm, const float* fs,
-                        float* fbar) {
-    const bool v4 = rows_vec4(D, {fm, fs, fbar});
+template <typename T>
+inline void launch_gate(cudaStream_t st, int B, int N, int D, const T* fm, const T* fs,
+                          T* fbar) {
+    const bool v4 = rows_vec4(D, {fm, fs, fbar}, 4 * (int)sizeof(T));
     const int cols = v4 ? D / 4 : D;
     const int blocks = row_walk_blocks((long long)B * N, cols);
     if (v4)
-        gate_kernel<4><<<blocks, kRowThreads, 0, st>>>(B * N, N, D, fm, fs, fbar);
+        gate_kernel<4, T><<<blocks, kRowThreads, 0, st>>>(B * N, N, D, fm, fs, fbar);
     else
-        gate_kernel<1><<<blocks, kRowThreads, 0, st>>>(B * N, N, D, fm, fs, fbar);
+        gate_kernel<1, T><<<blocks, kRowThreads, 0, st>>>(B * N, N, D, fm, fs, fbar);
 }
 
 // The boundary unit between its projections, in two kernels of one block
@@ -137,14 +168,16 @@ inline void launch_gate(cudaStream_t st, int B, int N, int D, const float* fm, c
 //
 // boundary_query_kernel: word attention of row i (-1e9 key mask), then
 // f_bq[i] = fb[i] * (f_baq[i] * lmask[i] + fs).
-static __global__ void boundary_query_kernel(int L, int Nq, int D, const float* __restrict__ bq,
-                                      const float* __restrict__ bk,
-                                      const float* __restrict__ fw,
-                                      const float* __restrict__ fb,
-                                      const float* __restrict__ fs,
+// T: the element type of bq, bk, fw, fb, fs and fbq (fp32 math).
+template <typename T = float>
+static __global__ void boundary_query_kernel(int L, int Nq, int D, const T* __restrict__ bq,
+                                      const T* __restrict__ bk,
+                                      const T* __restrict__ fw,
+                                      const T* __restrict__ fb,
+                                      const T* __restrict__ fs,
                                       const float* __restrict__ qmask,
                                       const float* __restrict__ lmask,
-                                      float* __restrict__ fbq) {
+                                      T* __restrict__ fbq) {
     extern __shared__ float smem[];
     float* p = smem;                  // (Nq,): word attention of row i
     const int row = blockIdx.x;       // b * L + i
@@ -154,12 +187,12 @@ static __global__ void boundary_query_kernel(int L, int Nq, int D, const float* 
     const int warp = tid / 32;
     const int nwarps = blockDim.x / 32;
     const float inv_sd = 1.f / sqrtf((float)D);
-    const float* x = bq + (size_t)row * D;
+    const T* x = bq + (size_t)row * D;
 
     for (int m = warp; m < Nq; m += nwarps) {
-        const float* y = bk + ((size_t)b * Nq + m) * D;
+        const T* y = bk + ((size_t)b * Nq + m) * D;
         float s = 0.f;
-        for (int d = lane; d < D; d += 32) s += x[d] * y[d];
+        for (int d = lane; d < D; d += 32) s += to_f(x[d]) * to_f(y[d]);
         s = warp_sum(s);
         if (lane == 0) p[m] = qmask[(size_t)b * Nq + m] > 0.f ? s * inv_sd : kNegInf;
     }
@@ -176,11 +209,12 @@ static __global__ void boundary_query_kernel(int L, int Nq, int D, const float* 
     }
     __syncthreads();
     const float lm = lmask[row];
-    const float* fwe = fw + (size_t)b * Nq * D;
+    const T* fwe = fw + (size_t)b * Nq * D;
     for (int d = tid; d < D; d += blockDim.x) {
         float a = 0.f;
-        for (int m = 0; m < Nq; ++m) a += p[m] * fwe[(size_t)m * D + d];
-        fbq[(size_t)row * D + d] = fb[(size_t)row * D + d] * (a * lm + fs[(size_t)b * D + d]);
+        for (int m = 0; m < Nq; ++m) a += p[m] * to_f(fwe[(size_t)m * D + d]);
+        fbq[(size_t)row * D + d] = from_f<T>(to_f(fb[(size_t)row * D + d]) *
+                                             (a * lm + to_f(fs[(size_t)b * D + d])));
     }
 }
 
@@ -188,11 +222,13 @@ static __global__ void boundary_query_kernel(int L, int Nq, int D, const float* 
 // on invalid j) * lmask[i], then bu[i] = f_bb[i] + fb[i] + f_bm[i] with
 // f_bb[i] = (A_b[i] @ fb) * lmask[i] and f_bm[i] = sum over pairs n = (i, j)
 // of A_b[i, j] * fbar[n].
-static __global__ void boundary_unit_kernel(int L, int D, const float* __restrict__ fbq,
-                                     const float* __restrict__ fb,
-                                     const float* __restrict__ fbar,
+// T: the element type of fbq, fb, fbar and bu (fp32 math).
+template <typename T = float>
+static __global__ void boundary_unit_kernel(int L, int D, const T* __restrict__ fbq,
+                                     const T* __restrict__ fb,
+                                     const T* __restrict__ fbar,
                                      const float* __restrict__ lmask,
-                                     float* __restrict__ bu) {
+                                     T* __restrict__ bu) {
     extern __shared__ float smem[];
     float* a = smem;                  // (L,): A_b row i
     const int row = blockIdx.x;       // b * L + i
@@ -205,12 +241,12 @@ static __global__ void boundary_unit_kernel(int L, int D, const float* __restric
     const int nwarps = blockDim.x / 32;
     const float inv_sd = 1.f / sqrtf((float)D);
     const float* lm = lmask + (size_t)b * L;
-    const float* x = fbq + (size_t)row * D;
+    const T* x = fbq + (size_t)row * D;
 
     for (int j = warp; j < L; j += nwarps) {
-        const float* y = fbq + ((size_t)b * L + j) * D;
+        const T* y = fbq + ((size_t)b * L + j) * D;
         float s = 0.f;
-        for (int d = lane; d < D; d += 32) s += x[d] * y[d];
+        for (int d = lane; d < D; d += 32) s += to_f(x[d]) * to_f(y[d]);
         s = warp_sum(s);
         if (lane == 0) a[j] = lm[j] > 0.f ? s * inv_sd : kNegInf;
     }
@@ -226,14 +262,14 @@ static __global__ void boundary_unit_kernel(int L, int D, const float* __restric
         for (int j = 0; j < L; ++j) a[j] = a[j] / sum * lm[i];
     }
     __syncthreads();
-    const float* fbe = fb + (size_t)b * L * D;
-    const float* fbar_i = fbar + ((size_t)b * N + pair_index(i, i, L)) * D;
+    const T* fbe = fb + (size_t)b * L * D;
+    const T* fbar_i = fbar + ((size_t)b * N + pair_index(i, i, L)) * D;
     for (int d = tid; d < D; d += blockDim.x) {
         float bb = 0.f;
-        for (int j = 0; j < L; ++j) bb += a[j] * fbe[(size_t)j * D + d];
+        for (int j = 0; j < L; ++j) bb += a[j] * to_f(fbe[(size_t)j * D + d]);
         float bm = 0.f;
-        for (int j = i; j < L; ++j) bm += a[j] * fbar_i[(size_t)(j - i) * D + d];
-        bu[(size_t)row * D + d] = bb * lm[i] + fbe[(size_t)i * D + d] + bm;
+        for (int j = i; j < L; ++j) bm += a[j] * to_f(fbar_i[(size_t)(j - i) * D + d]);
+        bu[(size_t)row * D + d] = from_f<T>(bb * lm[i] + to_f(fbe[(size_t)i * D + d]) + bm);
     }
 }
 
@@ -242,10 +278,10 @@ static __global__ void boundary_unit_kernel(int L, int D, const float* __restric
 // [x1 | x2], the moment unit's one operand). bu and x1 may be null (L is
 // then unused): only the clip mean is written. Bound by its bytes (cu read,
 // x1 and x2 written; bu's rows come from L2).
-template <int V>
+template <int V, typename T = float>
 static __global__ void __launch_bounds__(kRowThreads) moment_prologue_kernel(
-    int pairs, int L, int C, int D, const float* __restrict__ bu, const float* __restrict__ cu,
-    float* __restrict__ x1, float* __restrict__ x2, int ldx) {
+    int pairs, int L, int C, int D, const T* __restrict__ bu, const T* __restrict__ cu,
+    T* __restrict__ x1, T* __restrict__ x2, int ldx) {
     const int cols = D / V;
     const RowWalk w = row_walk(cols);
     const int lr = (int)threadIdx.x / cols;
@@ -253,8 +289,8 @@ static __global__ void __launch_bounds__(kRowThreads) moment_prologue_kernel(
     const int N = L * (L + 1) / 2;
     for (int pair = blockIdx.x * w.rows_per_pass + lr; pair < pairs;
          pair += gridDim.x * w.rows_per_pass) {
-        const float* bi = nullptr;
-        const float* bj = nullptr;
+        const T* bi = nullptr;
+        const T* bj = nullptr;
         if (bu) {
             const int b = pair / N;
             int i, j;
@@ -262,7 +298,7 @@ static __global__ void __launch_bounds__(kRowThreads) moment_prologue_kernel(
             bi = bu + ((size_t)b * L + i) * D;
             bj = bu + ((size_t)b * L + j) * D;
         }
-        const float* cp = cu + (size_t)pair * C * D;
+        const T* cp = cu + (size_t)pair * C * D;
         for (int c = w.first_col; c < cols; c += w.col_step) {
             const int d = c * V;
             if (bu) {
@@ -290,27 +326,29 @@ static __global__ void __launch_bounds__(kRowThreads) moment_prologue_kernel(
     }
 }
 
+template <typename T>
 inline void launch_moment_prologue(cudaStream_t st, int pairs, int L, int C, int D,
-                                   const float* bu, const float* cu, float* x1, float* x2,
-                                   int ldx) {
-    const bool v4 = ldx % 4 == 0 && rows_vec4(D, {bu, cu, x1, x2});
+                                     const T* bu, const T* cu, T* x1, T* x2, int ldx) {
+    const bool v4 = ldx % 4 == 0 && rows_vec4(D, {bu, cu, x1, x2}, 4 * (int)sizeof(T));
     const int cols = v4 ? D / 4 : D;
     const int blocks = row_walk_blocks(pairs, cols);
     if (v4)
-        moment_prologue_kernel<4><<<blocks, kRowThreads, 0, st>>>(pairs, L, C, D, bu, cu, x1, x2,
-                                                                   ldx);
+        moment_prologue_kernel<4, T><<<blocks, kRowThreads, 0, st>>>(pairs, L, C, D, bu, cu, x1,
+                                                                      x2, ldx);
     else
-        moment_prologue_kernel<1><<<blocks, kRowThreads, 0, st>>>(pairs, L, C, D, bu, cu, x1, x2,
-                                                                   ldx);
+        moment_prologue_kernel<1, T><<<blocks, kRowThreads, 0, st>>>(pairs, L, C, D, bu, cu, x1,
+                                                                      x2, ldx);
 }
 
-// The moment unit's weight [W_fb | W_fc] (D, 2D) and bias b_fb + b_fc (D,)
-// into wm (2 D^2 + D floats), from the two 1x1 convolutions' (D, D) weights.
-static __global__ void moment_weights_kernel(int D, const float* __restrict__ wfb,
+// The moment unit's weight [W_fb | W_fc] (D, 2D) into wm (2 D^2 values of
+// T) and its bias b_fb + b_fc (D floats) into wb, from the two 1x1
+// convolutions' (D, D) weights (T) and biases (fp32).
+template <typename T = float>
+static __global__ void moment_weights_kernel(int D, const T* __restrict__ wfb,
                                              const float* __restrict__ bfb,
-                                             const float* __restrict__ wfc,
+                                             const T* __restrict__ wfc,
                                              const float* __restrict__ bfc,
-                                             float* __restrict__ wm) {
+                                             T* __restrict__ wm, float* __restrict__ wb) {
     const size_t dd = (size_t)D * D;
     for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < 2 * dd + D;
          e += (size_t)gridDim.x * blockDim.x) {
@@ -319,41 +357,22 @@ static __global__ void moment_weights_kernel(int D, const float* __restrict__ wf
             const int k = (int)(e - o * 2 * D);
             wm[e] = k < D ? wfb[o * D + k] : wfc[o * D + k - D];
         } else {
-            wm[e] = bfb[e - 2 * dd] + bfc[e - 2 * dd];
+            wb[e - 2 * dd] = bfb[e - 2 * dd] + bfc[e - 2 * dd];
         }
     }
 }
 
-// The intermediates of one layer. K4 and K2 only pass through them; the
-// backward (K3) reads them after the recompute. x12 (B * N, 2D) holds [x1 |
-// x2], the moment unit's operand; wm its weight [W_fb | W_fc] and summed bias.
-struct LayerScratch {
-    float *fbar, *h, *q, *fcc, *fwh, *khat, *fsh, *bq, *bk, *fbq, *x12, *wm;
+// The intermediates of one layer, in the layer's element type T (fp32, or
+// bf16 for K4's bf16 variant); f_s_hat and the moment unit's bias stay fp32
+// at either type. K4 and K2 only pass through them; the backward (K3) reads
+// them after the recompute. x12 (B * N, 2D) holds [x1 | x2], the moment
+// unit's operand; wm its weight [W_fb | W_fc] and wb its bias b_fb + b_fc.
+template <typename T>
+struct LayerScratchT {
+    T *fbar, *h, *q, *fcc, *fwh, *khat, *bq, *bk, *fbq, *x12, *wm;
+    float *fsh, *wb;
 };
-constexpr int kLayerScratchSlots = 12;
-
-// Sizes in floats of the LayerScratch slots, in declaration order.
-inline void layer_scratch_sizes(int B, int L, int C, int Nq, int D, int dl, size_t* sizes) {
-    const size_t N = (size_t)L * (L + 1) / 2;
-    const size_t NC = N * C;
-    const size_t v[kLayerScratchSlots] = {
-        B * N * D,                              // fbar
-        B * NC * dl, B * NC * dl, B * NC * dl,  // h, q, fcc
-        (size_t)B * Nq * dl, (size_t)B * Nq * dl, (size_t)B * dl,  // fwh, khat, fsh
-        (size_t)B * L * D, (size_t)B * Nq * D,  // bq, bk
-        (size_t)B * L * D,                      // fbq
-        2 * B * N * D,                          // x12
-        2 * (size_t)D * D + D,                  // wm
-    };
-    for (int k = 0; k < kLayerScratchSlots; ++k) sizes[k] = v[k];
-}
-
-inline float** layer_scratch_slot(LayerScratch* s, int k) {
-    float** slots[kLayerScratchSlots] = {&s->fbar, &s->h, &s->q, &s->fcc, &s->fwh,
-                                         &s->khat, &s->fsh, &s->bq, &s->bk, &s->fbq,
-                                         &s->x12, &s->wm};
-    return slots[k];
-}
+using LayerScratch = LayerScratchT<float>;
 
 // Carves slots of the given sizes out of `ws` (null: only measure), each
 // 16-byte aligned; returns the floats used from `off` on.
@@ -365,13 +384,48 @@ inline size_t carve_slots(float* ws, size_t off, const size_t* sizes, float*** s
     return off;
 }
 
+// As carve_slots, in bytes: returns the bytes used from `off` on.
+inline size_t carve_bytes(unsigned char* ws, size_t off, const size_t* sizes, void** slots,
+                          int n) {
+    for (int k = 0; k < n; ++k) {
+        slots[k] = ws ? ws + off : nullptr;
+        off += (sizes[k] + 15) / 16 * 16;
+    }
+    return off;
+}
+
+// Carves the layer's scratch out of `ws` from byte `off` on (null: only
+// measure); returns the bytes used from `off` on.
+template <typename T>
+inline size_t carve_layer_scratch(unsigned char* ws, size_t off, int B, int L, int C, int Nq,
+                                  int D, int dl, LayerScratchT<T>* s) {
+    const size_t N = (size_t)L * (L + 1) / 2;
+    const size_t NC = N * C;
+    const size_t t = sizeof(T), f4 = sizeof(float);
+    const size_t sizes[13] = {
+        t * B * N * D,                                    // fbar
+        t * B * NC * dl, t * B * NC * dl, t * B * NC * dl,   // h, q, fcc
+        t * B * Nq * dl, t * B * Nq * dl,                 // fwh, khat
+        t * B * L * D, t * B * Nq * D, t * B * L * D,     // bq, bk, fbq
+        t * 2 * B * N * D, t * 2 * (size_t)D * D,         // x12, wm
+        f4 * B * dl, f4 * D,                              // fsh, wb
+    };
+    void* slots[13];
+    off = carve_bytes(ws, off, sizes, slots, 13);
+    T** typed[11] = {&s->fbar, &s->h, &s->q, &s->fcc, &s->fwh, &s->khat,
+                     &s->bq, &s->bk, &s->fbq, &s->x12, &s->wm};
+    for (int k = 0; k < 11; ++k) *typed[k] = static_cast<T*>(slots[k]);
+    s->fsh = static_cast<float*>(slots[11]);
+    s->wb = static_cast<float*>(slots[12]);
+    return off;
+}
+
+// The fp32 layer's scratch in a float workspace, from float `off` on;
+// returns the floats used from `off` on.
 inline size_t carve_layer_scratch(float* ws, size_t off, int B, int L, int C, int Nq, int D,
                                   int dl, LayerScratch* s) {
-    size_t sizes[kLayerScratchSlots];
-    float** slots[kLayerScratchSlots];
-    layer_scratch_sizes(B, L, C, Nq, D, dl, sizes);
-    for (int k = 0; k < kLayerScratchSlots; ++k) slots[k] = layer_scratch_slot(s, k);
-    return carve_slots(ws, off, sizes, slots, kLayerScratchSlots);
+    return carve_layer_scratch<float>(reinterpret_cast<unsigned char*>(ws), off * sizeof(float),
+                                      B, L, C, Nq, D, dl, s) / sizeof(float);
 }
 
 // Largest dynamic shared memory of the forward kernels of a layer.
@@ -379,6 +433,27 @@ inline size_t layer_forward_smem_bytes(int L, int C, int Nq, int dl) {
     const size_t a = content_attn_smem_bytes(L * (L + 1) / 2, C, Nq, dl, false);
     const size_t b = sizeof(float) * (size_t)(Nq > L ? Nq : L);   // boundary kernels
     return a > b ? a : b;
+}
+
+// The layer's products by element type: fp32 operands on gemm.cuh's fp32
+// paths (`path` < 0: by shape), bf16 operands on its bf16 path (bf16
+// operands, fp32 sums; it has one path, so `path` is the fp32 product's
+// only), the output fp32 or bf16. EpilogueOf<T>: the epilogue of the
+// operands' type.
+template <typename T>
+using EpilogueOf =
+    typename std::conditional<std::is_same<T, float>::value, Epilogue, EpilogueBf16>::type;
+
+inline void product(cudaStream_t st, int M, int N, int K, const float* A, int lda,
+                    const float* W, int ldw, float* C, int ldc, const Epilogue& ep,
+                    int path = -1) {
+    gemm_nt(st, M, N, K, A, lda, W, ldw, C, ldc, ep, -1, path);
+}
+
+template <typename TC>
+inline void product(cudaStream_t st, int M, int N, int K, const bf16* A, int lda, const bf16* W,
+                    int ldw, TC* C, int ldc, const EpilogueBf16& ep, int /*path*/ = -1) {
+    gemm_nt_bf16(st, M, N, K, A, lda, W, ldw, C, ldc, std::is_same<TC, float>::value, ep);
 }
 
 #define VML_CHECK_LAUNCH()                                                  \
@@ -389,34 +464,38 @@ inline size_t layer_forward_smem_bytes(int L, int C, int Nq, int dl) {
 
 // The ContentUnit of a layer over N pairs: (fc, fbar) -> cu = c_out(f_cc_hat)
 // * vmask + fc + fbar, with h, q, fwh, khat, fsh and fcc left in `s`. p: the
-// unit's 12 device pointers, the first 12 of `layer_forward`'s order.
+// unit's 12 device pointers, the first 12 of `layer_forward`'s order (the
+// matrices of type T, the biases fp32).
+template <typename T, typename P>
 inline cudaError_t content_forward(cudaStream_t st, int B, int N, int C, int Nq, int D, int dl,
-                                   const float* fc, const float* fbar, const float* fw,
-                                   const float* fs, const float* qmask, const float* vmask,
-                                   const float* const* p, const LayerScratch& s, float* cu) {
+                                   const T* fc, const T* fbar, const T* fw, const T* fs,
+                                   const float* qmask, const float* vmask, const P* const* p,
+                                   const LayerScratchT<T>& s, T* cu) {
     const int NC = N * C;
-    Epilogue ep;
-    ep.bias = p[1];
+    auto W = [p](int k) { return static_cast<const T*>(p[k]); };
+    auto bias = [p](int k) { return static_cast<const float*>(p[k]); };
+    EpilogueOf<T> ep;
+    ep.bias = bias(1);
     ep.rmask = vmask;
     ep.mask_div = C;
-    gemm_nt(st, B * NC, dl, D, fc, D, p[0], D, s.h, dl, ep);          // c_hat * vmask
+    product(st, B * NC, dl, D, fc, D, W(0), D, s.h, dl, ep);          // c_hat * vmask
     VML_CHECK_LAUNCH();
-    linear(st, B * NC, dl, dl, s.h, p[8], p[9], s.q);                  // attn_q
+    linear(st, B * NC, dl, dl, s.h, W(8), bias(9), s.q);                // attn_q
     VML_CHECK_LAUNCH();
-    ep = Epilogue();
-    ep.bias = p[3];
+    ep = EpilogueOf<T>();
+    ep.bias = bias(3);
     ep.rmask = qmask;
-    gemm_nt(st, B * Nq, dl, D, fw, D, p[2], D, s.fwh, dl, ep);        // w_hat * qmask
+    product(st, B * Nq, dl, D, fw, D, W(2), D, s.fwh, dl, ep);        // w_hat * qmask
     VML_CHECK_LAUNCH();
-    linear(st, B * Nq, dl, dl, s.fwh, p[10], p[11], s.khat);           // attn_k
+    linear(st, B * Nq, dl, dl, s.fwh, W(10), bias(11), s.khat);         // attn_k
     VML_CHECK_LAUNCH();
-    linear(st, B, dl, D, fs, p[4], p[5], s.fsh);                       // s_hat
+    linear(st, B, dl, D, fs, W(4), bias(5), s.fsh);                     // s_hat, fp32
     VML_CHECK_LAUNCH();
     cudaError_t err = content_attn_forward(st, B, N, C, Nq, dl, s.h, s.q, s.khat, s.fwh, s.fsh,
                                            qmask, vmask, s.fcc);
     if (err != cudaSuccess) return err;
-    ep = Epilogue();     // cu = c_out(f_cc_hat) * vmask + fc + fbar
-    ep.bias = p[7];
+    ep = EpilogueOf<T>();     // cu = c_out(f_cc_hat) * vmask + fc + fbar
+    ep.bias = bias(7);
     ep.rmask = vmask;
     ep.mask_div = C;
     ep.post = fc;
@@ -424,27 +503,34 @@ inline cudaError_t content_forward(cudaStream_t st, int B, int N, int C, int Nq,
     ep.post2 = fbar;
     ep.ldpost2 = D;
     ep.post2_div = C;
-    gemm_nt(st, B * NC, D, dl, s.fcc, dl, p[6], dl, cu, D, ep);
+    product(st, B * NC, D, dl, s.fcc, dl, W(6), dl, cu, D, ep);
     VML_CHECK_LAUNCH();
     return cudaSuccess;
 }
 
-// One SMI layer: (fc, fm, fb) -> (cu, mu, bu), intermediates left in `s`.
+// One SMI layer: (fc, fm, fb) -> (cu, mu, bu), intermediates left in `s`,
+// in the element type T: fp32 (K4, K2, K9, K3's recompute) or bf16 (K4's
+// bf16 variant, serving only; its plain version is
+// models/smin.py::smi_block_packed_bf16): activations of type T, fp32
+// arithmetic inside every kernel, one rounding per stored value.
 // p: the layer's 20 device pointers in the order
 //   c_hat.w, c_hat.b, w_hat.w, w_hat.b, s_hat.w, s_hat.b, c_out.w, c_out.b,
 //   content attn W_q.w, .b, W_k.w, .b, boundary attn W_q.w, .b, W_k.w, .b,
 //   conv_fb.w, .b, conv_fc.w, .b
-// (torch layouts: Linear (out, in), 1x1 conv (out, in, 1, 1)).
+// (torch layouts: Linear (out, in), 1x1 conv (out, in, 1, 1)); the matrices
+// of type T, the biases fp32.
 // mu may be null: the moment product is then skipped (the backward's
 // recompute needs only its operand [x1 | x2]).
 // Returns the first CUDA error of the launches.
+template <typename T, typename P>
 inline cudaError_t layer_forward(cudaStream_t st, int B, int L, int C, int Nq, int D, int dl,
-                                 const float* fc, const float* fm, const float* fb,
-                                 const float* fw, const float* fs, const float* qmask,
-                                 const float* lmask, const float* vmask,
-                                 const float* const* p, const LayerScratch& s, float* cu,
-                                 float* mu, float* bu) {
+                                 const T* fc, const T* fm, const T* fb, const T* fw,
+                                 const T* fs, const float* qmask, const float* lmask,
+                                 const float* vmask, const P* const* p,
+                                 const LayerScratchT<T>& s, T* cu, T* mu, T* bu) {
     const int N = L * (L + 1) / 2;
+    auto W = [p](int k) { return static_cast<const T*>(p[k]); };
+    auto bias = [p](int k) { return static_cast<const float*>(p[k]); };
     launch_gate(st, B, N, D, fm, fs, s.fbar);
     VML_CHECK_LAUNCH();
 
@@ -453,31 +539,31 @@ inline cudaError_t layer_forward(cudaStream_t st, int B, int L, int C, int Nq, i
     if (err != cudaSuccess) return err;
 
     // BoundaryUnit
-    linear(st, B * L, D, D, fb, p[12], p[13], s.bq);
+    linear(st, B * L, D, D, fb, W(12), bias(13), s.bq);
     VML_CHECK_LAUNCH();
-    linear(st, B * Nq, D, D, fw, p[14], p[15], s.bk);
+    linear(st, B * Nq, D, D, fw, W(14), bias(15), s.bk);
     VML_CHECK_LAUNCH();
-    boundary_query_kernel<<<B * L, 128, Nq * sizeof(float), st>>>(
+    boundary_query_kernel<T><<<B * L, 128, Nq * sizeof(float), st>>>(
         L, Nq, D, s.bq, s.bk, fw, fb, fs, qmask, lmask, s.fbq);
     VML_CHECK_LAUNCH();
-    boundary_unit_kernel<<<B * L, 128, L * sizeof(float), st>>>(L, D, s.fbq, fb, s.fbar,
-                                                                lmask, bu);
+    boundary_unit_kernel<T><<<B * L, 128, L * sizeof(float), st>>>(L, D, s.fbq, fb, s.fbar,
+                                                                   lmask, bu);
     VML_CHECK_LAUNCH();
 
     // MomentUnit: mu = (conv_fb(outer) + conv_fc(mean_c cu)) * vmask + fm, one
     // product [x1 | x2] [W_fb | W_fc]^T over K = 2D with b_fb + b_fc.
-    launch_moment_prologue(st, B * N, L, C, D, bu, cu, s.x12, s.x12 + D, 2 * D);
+    launch_moment_prologue<T>(st, B * N, L, C, D, bu, cu, s.x12, s.x12 + D, 2 * D);
     VML_CHECK_LAUNCH();
     if (mu) {
-        moment_weights_kernel<<<(2 * D * D + D + 255) / 256, 256, 0, st>>>(D, p[16], p[17], p[18],
-                                                                            p[19], s.wm);
+        moment_weights_kernel<T><<<(2 * D * D + D + 255) / 256, 256, 0, st>>>(
+            D, W(16), bias(17), W(18), bias(19), s.wm, s.wb);
         VML_CHECK_LAUNCH();
-        Epilogue ep;
-        ep.bias = s.wm + 2 * (size_t)D * D;
+        EpilogueOf<T> ep;
+        ep.bias = s.wb;
         ep.rmask = vmask;
         ep.post = fm;
         ep.ldpost = D;
-        gemm_nt(st, B * N, D, 2 * D, s.x12, 2 * D, s.wm, 2 * D, mu, D, ep, -1, kMomentProductPath);
+        product(st, B * N, D, 2 * D, s.x12, 2 * D, s.wm, 2 * D, mu, D, ep, kMomentProductPath);
         VML_CHECK_LAUNCH();
     }
     return cudaSuccess;

@@ -19,12 +19,26 @@ padded to a power-of-two ladder of batch buckets (1, 2, 4, ..., serve_batch).
 Repeated videos in a chunk are featurized and encoded once (the grouped
 path). Entry points run on the card unless the caller passes
 ``device="cpu"``.
+
+``compute_dtype: bfloat16`` serves the default route (packed, ``fused_smi``,
+not ``compat_head``) with bf16 activations and the bf16 variants of the
+biLSTM and SMI-stack kernels; scores stay fp32 (models/smin.py
+`check_serving_config`).
+
+`AsyncLocalizer` wraps a localizer with a dynamic micro-batching queue:
+`submit()` returns a future at once; a batcher thread coalesces whatever
+requests arrive within ``max_wait_ms`` (up to ``serve_batch``) into one
+device call, and a completer thread resolves the futures.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Sequence, Tuple
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +48,11 @@ from video_moment_localization_tpu_torch.data.glove import WordEmbedding
 from video_moment_localization_tpu_torch.data.labels import build_masks
 from video_moment_localization_tpu_torch.data.sampler import sample_fixed_length_features
 from video_moment_localization_tpu_torch.data.tokenizer import get_tokens
-from video_moment_localization_tpu_torch.models.smin import SMIN, smin_forward_inference
+from video_moment_localization_tpu_torch.models.smin import (
+    SMIN,
+    check_serving_config,
+    smin_forward_inference,
+)
 from video_moment_localization_tpu_torch.ops.cuda_build import resolve_device
 from video_moment_localization_tpu_torch.ops.nms import soft_nms_topk
 from video_moment_localization_tpu_torch.ops.packing import triu_packing
@@ -68,7 +86,15 @@ class MomentLocalizer:
     """Batched moment-localization scorer around a SMIN model.
 
     On a CUDA device the constructor turns TF32 off for the process
-    (`ops.cuda_build.resolve_device`): the serving path is fp32 throughout."""
+    (`ops.cuda_build.resolve_device`): the fp32 serving path is fp32
+    throughout, and bf16 (``compute_dtype``) runs its products as bf16
+    products with fp32 sums in its own kernels.
+
+    On a CUDA device `dispatch` stages each chunk's inputs in pinned host
+    memory and copies them without blocking, and enqueues the copy of its
+    top-k back to pinned host memory behind an event that `collect` waits
+    on: neither waits for the whole stream, so chunks dispatched by one
+    thread overlap the answers collected by another (`AsyncLocalizer`)."""
 
     def __init__(self, model_cfg: ModelConfig, model: SMIN, embedding: WordEmbedding,
                  serve_batch: int = 16, use_nms: bool = False, nms_sigma: float = 0.5,
@@ -82,6 +108,8 @@ class MomentLocalizer:
         self.serve_batch = serve_batch
         self.bucket_sizes = bucket_sizes(serve_batch)
         self.packed = model_cfg.packed and not model_cfg.compat_head   # pm (B, N)
+        check_serving_config(model_cfg)
+        self._pinned = self.device.type == "cuda"
 
     def _bucket_for(self, n: int) -> int:
         for b in self.bucket_sizes:
@@ -109,6 +137,20 @@ class MomentLocalizer:
                    nms_sigma=cfg.nms_sigma, device=device)
 
     # ------------------------------------------------------------------ #
+    def check_request(self, row: Request) -> None:
+        """Raise ValueError for a malformed request: clip features that are
+        not a (nfeats >= 1, input_video_dim) array of finite numbers, a
+        query that is not a string, a duration that is not a number."""
+        f = np.asarray(row[0])
+        dv = self.cfg.input_video_dim
+        if f.ndim != 2 or f.shape[0] < 1 or f.shape[1] != dv:
+            raise ValueError(f"clip features must be (nfeats >= 1, {dv}), got {f.shape}")
+        if not np.issubdtype(f.dtype, np.number) or not np.isfinite(f).all():
+            raise ValueError("clip features must be finite numbers")
+        if not isinstance(row[1], str):
+            raise ValueError(f"query must be a string, got {type(row[1]).__name__}")
+        float(row[2])
+
     def _prepare_video(self, clip_features: np.ndarray):
         cfg = self.cfg
         vf, nfeats, _, _ = sample_fixed_length_features(
@@ -141,8 +183,10 @@ class MomentLocalizer:
         """Prepare and enqueue ONE chunk (<= serve_batch) on the device.
 
         Returns a handle for :meth:`collect`. Kernels run asynchronously:
-        this blocks only for host featurization and the copies to the
-        device. Rows that carry a 4th element ``video_key`` share one
+        this blocks only for host featurization (on a CUDA device the
+        copies from pinned memory do not block, and the top-k comes back
+        through a pinned copy behind an event that `collect` waits on).
+        Rows that carry a 4th element ``video_key`` share one
         featurization and one device encode per key; without it the key is
         the array's identity. When the unique videos fit a bucket at most
         half the pair bucket, the chunk takes the grouped-video path."""
@@ -167,7 +211,7 @@ class MomentLocalizer:
             arr = np.stack(rows)
             if npad:
                 arr = np.concatenate([arr, np.zeros((npad,) + arr.shape[1:], arr.dtype)])
-            return torch.from_numpy(arr).to(self.device)
+            return self._to_device(torch.from_numpy(arr))
 
         per_row_v = [vid_rows[k][1] for k in vkeys]
         qf = stack([q_cache[row[1]][0] for row in chunk], pad)
@@ -178,18 +222,43 @@ class MomentLocalizer:
             gpad = self._bucket_for(len(uniq)) - len(uniq)
             vf_g = stack([v[0] for v in uniq], gpad)
             vm_g = stack([v[1] for v in uniq], gpad)
-            gidx = torch.as_tensor(vidx + [0] * pad, dtype=torch.int64).to(self.device)
+            gidx = self._to_device(torch.as_tensor(vidx + [0] * pad, dtype=torch.int64))
             vals, idxs = self._score(vf_g, vm_g, qf, qm, lm, mm, top_k, gidx)
         else:
             vf = stack([v[0] for v in per_row_v], pad)
             vm = stack([v[1] for v in per_row_v], pad)
             vals, idxs = self._score(vf, vm, qf, qm, lm, mm, top_k)
-        return chunk, top_k, vals, idxs
+        done = None
+        if self._pinned:
+            vals, idxs = self._to_host(vals), self._to_host(idxs)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        return chunk, top_k, vals, idxs, done
+
+    def _to_device(self, t: torch.Tensor) -> torch.Tensor:
+        """A host tensor on the device; on a CUDA device through pinned
+        memory without blocking (the caching host allocator keeps the pinned
+        block until the copy has ended)."""
+        if not self._pinned:
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    @staticmethod
+    def _to_host(t: torch.Tensor) -> torch.Tensor:
+        """An enqueued, non-blocking copy of a device tensor into pinned
+        host memory; valid once the handle's event has completed."""
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        return host
 
     def collect(self, handle) -> List[List[Moment]]:
-        """Wait for a :meth:`dispatch` handle and build the Moment lists."""
-        chunk, top_k, vals, idxs = handle
-        vals, idxs = vals.cpu().numpy(), idxs.cpu().numpy()
+        """Wait for a :meth:`dispatch` handle and build the Moment lists: on
+        a CUDA device it waits on the handle's own event, not on the stream,
+        so chunks dispatched after this one keep running."""
+        chunk, top_k, vals, idxs, done = handle
+        if done is not None:
+            done.synchronize()
+        vals, idxs = vals.numpy(), idxs.numpy()
         L = self.cfg.L
         pk = triu_packing(L)
         results: List[List[Moment]] = []
@@ -230,3 +299,228 @@ class MomentLocalizer:
                  top_k: int = 5) -> List[Moment]:
         """Single-request convenience wrapper."""
         return self.localize_batch([(clip_features, query, duration)], top_k)[0]
+
+
+@dataclasses.dataclass
+class _Pending:
+    request: Request
+    future: "Future[List[Moment]]"
+    t_submit: float = 0.0
+
+
+class ServingStats:
+    """Lock-guarded latency and queue observability of the async path.
+
+    Latencies are submit-to-result wall times over a sliding window of the
+    most recent ``window`` requests; percentiles are computed on demand."""
+
+    def __init__(self, window: int = 8192):
+        self._lock = threading.Lock()
+        self._window = window
+        self._latencies: List[float] = []
+        self._count = 0
+        self._errors = 0
+        self._batches = 0
+        self._batch_sizes = 0
+        self._max_queue_depth = 0
+        self._t0 = time.monotonic()
+
+    def record_queue_depth(self, depth: int) -> None:
+        with self._lock:
+            if depth > self._max_queue_depth:
+                self._max_queue_depth = depth
+
+    def record_batch(self, size: int) -> None:
+        with self._lock:
+            self._batches += 1
+            self._batch_sizes += size
+
+    def record_done(self, latency_s: float, error: bool = False) -> None:
+        with self._lock:
+            self._count += 1
+            if error:
+                self._errors += 1
+            self._latencies.append(latency_s)
+            if len(self._latencies) > self._window:
+                del self._latencies[: -self._window]
+
+    def snapshot(self) -> Dict[str, float]:
+        """{count, errors, throughput_rps, mean_batch, max_queue_depth} over
+        the server's lifetime, and {p50_ms, p99_ms, mean_ms, max_ms} over
+        the sliding window once a request has completed."""
+        with self._lock:
+            lat = np.asarray(self._latencies, np.float64)
+            count, errors = self._count, self._errors
+            batches, sizes = self._batches, self._batch_sizes
+            depth = self._max_queue_depth
+            elapsed = max(time.monotonic() - self._t0, 1e-9)
+        out = {
+            "count": float(count),
+            "errors": float(errors),
+            "throughput_rps": count / elapsed,
+            "mean_batch": sizes / batches if batches else 0.0,
+            "max_queue_depth": float(depth),
+        }
+        if lat.size:
+            out.update(
+                p50_ms=float(np.percentile(lat, 50) * 1e3),
+                p99_ms=float(np.percentile(lat, 99) * 1e3),
+                mean_ms=float(lat.mean() * 1e3),
+                max_ms=float(lat.max() * 1e3),
+            )
+        return out
+
+
+class AsyncLocalizer:
+    """Dynamic micro-batching front end for a MomentLocalizer.
+
+    `submit()` enqueues one request and returns a Future. Two threads drain
+    the queue:
+
+    * the **batcher** coalesces whatever requests arrive within
+      ``max_wait_ms`` (up to the localizer's serve_batch) into one group,
+      featurizes it and dispatches its device call
+      (`MomentLocalizer.dispatch`, which launches every kernel on this
+      thread's current stream and returns at once), then starts on the next
+      group;
+    * the **completer** waits on the dispatched handles in FIFO order
+      (`MomentLocalizer.collect`: the handle's own event) and resolves the
+      futures.
+
+    Up to ``max_in_flight`` groups sit on the device while the batcher
+    featurizes the next one. A malformed request
+    (`MomentLocalizer.check_request`) fails its own future and is left out
+    of its group. A group whose dispatch or collect fails (a kernel fault
+    surfaces at the event) sets that exception on each of its futures; each
+    failed future counts as an error. The server keeps serving, and nothing
+    is retried on another device or path. ``top_k`` is
+    fixed per server. ``stats.snapshot()`` gives p50 / p99 / mean latency,
+    throughput, mean batch size and the high-water queue depth.
+
+    Use as a context manager, or call `close()` to drain and stop.
+    """
+
+    def __init__(self, localizer: MomentLocalizer, top_k: int = 5,
+                 max_wait_ms: float = 2.0, max_in_flight: int = 2):
+        self.localizer = localizer
+        self.top_k = top_k
+        self.max_wait_s = max_wait_ms / 1e3
+        self.stats = ServingStats()
+        self._queue: "queue.Queue[Optional[_Pending]]" = queue.Queue()
+        # Dispatched, uncollected groups; bounded, so the batcher waits when
+        # the device falls behind.
+        self._inflight: "queue.Queue[Optional[Tuple[List[_Pending], Any]]]" = (
+            queue.Queue(maxsize=max(1, max_in_flight)))
+        self._closed = False
+        # Guards the closed check and the enqueue, so a submit racing close()
+        # cannot land behind the shutdown sentinel (its future would never
+        # resolve).
+        self._lock = threading.Lock()
+        self._batcher = threading.Thread(target=self._run_batcher, daemon=True)
+        self._completer = threading.Thread(target=self._run_completer, daemon=True)
+        self._batcher.start()
+        self._completer.start()
+
+    def submit(self, clip_features: np.ndarray, query: str, duration: float,
+               video_key: Any = None) -> "Future[List[Moment]]":
+        """Enqueue one request. Requests that carry the same ``video_key``
+        share one featurization and encode within a group (the grouped
+        path of `MomentLocalizer.dispatch`)."""
+        request = (clip_features, query, duration)
+        if video_key is not None:
+            request += (video_key,)
+        p = _Pending(request, Future(), time.monotonic())
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("AsyncLocalizer is closed")
+            self._queue.put(p)
+            self.stats.record_queue_depth(self._queue.qsize())
+        return p.future
+
+    def localize(self, clip_features: np.ndarray, query: str,
+                 duration: float) -> List[Moment]:
+        """Synchronous convenience wrapper around submit()."""
+        return self.submit(clip_features, query, duration).result()
+
+    def close(self) -> None:
+        """Drain outstanding requests and stop both threads."""
+        with self._lock:
+            already = self._closed
+            if not already:
+                self._closed = True
+                self._queue.put(None)
+        if not already:
+            self._batcher.join()
+            self._completer.join()
+
+    def __enter__(self) -> "AsyncLocalizer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def _fail(self, group: List[_Pending], exc: BaseException) -> None:
+        now = time.monotonic()
+        for p in group:
+            if not p.future.done():
+                p.future.set_exception(exc)
+                self.stats.record_done(now - p.t_submit, error=True)
+
+    def _well_formed(self, group: List[_Pending]) -> List[_Pending]:
+        """The group without its malformed requests, whose futures fail."""
+        kept = []
+        for p in group:
+            try:
+                self.localizer.check_request(p.request)
+            except (ValueError, TypeError, IndexError) as e:
+                self._fail([p], e)
+                continue
+            kept.append(p)
+        return kept
+
+    def _run_batcher(self) -> None:
+        done = False
+        while not done:
+            head = self._queue.get()
+            if head is None:
+                break
+            group = [head]
+            deadline = time.monotonic() + self.max_wait_s
+            while len(group) < self.localizer.serve_batch:
+                timeout = deadline - time.monotonic()
+                try:
+                    nxt = (self._queue.get_nowait() if timeout <= 0
+                           else self._queue.get(timeout=timeout))
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    done = True
+                    break
+                group.append(nxt)
+            group = self._well_formed(group)
+            if not group:
+                continue
+            self.stats.record_batch(len(group))
+            try:
+                handle = self.localizer.dispatch([p.request for p in group], self.top_k)
+            except Exception as e:   # featurization or launch error: this group only
+                self._fail(group, e)
+                continue
+            self._inflight.put((group, handle))   # blocks at max_in_flight
+        self._inflight.put(None)                  # completer shutdown sentinel
+
+    def _run_completer(self) -> None:
+        while True:
+            item = self._inflight.get()
+            if item is None:
+                return
+            group, handle = item
+            try:
+                results = self.localizer.collect(handle)
+            except Exception as e:   # a device fault reaches every caller of the group
+                self._fail(group, e)
+                continue
+            now = time.monotonic()
+            for p, r in zip(group, results):
+                p.future.set_result(r)
+                self.stats.record_done(now - p.t_submit)

@@ -18,9 +18,10 @@ output).
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 Layers = List[Dict[str, Dict[str, torch.Tensor]]]
@@ -47,15 +48,18 @@ class BiLSTMParams(nn.Module):
                     self.register_parameter(f"{name}_l{k}{suffix}", param)
 
 
-def lstm_layers(lstm: BiLSTMParams) -> Layers:
+def lstm_layers(lstm: BiLSTMParams, tensors: Optional[Dict[str, torch.Tensor]] = None) -> Layers:
     """The per-layer {fwd|bwd: {w_ih, w_hh, b_ih, b_hh}} view of the
-    parameters (the module is only a parameter container)."""
+    parameters (the module is only a parameter container), or of
+    ``tensors``, a {parameter name: tensor} map of the same names (the bf16
+    cast of serving, models/smin.py::cast_weights)."""
     layers = []
     for k in range(lstm.num_layers):
         directions = {}
         for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
             directions[direction] = {
-                name: getattr(lstm, f"{pname}_l{k}{suffix}")
+                name: (tensors[f"{pname}_l{k}{suffix}"] if tensors is not None
+                       else getattr(lstm, f"{pname}_l{k}{suffix}"))
                 for name, pname in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
                                     ("b_ih", "bias_ih"), ("b_hh", "bias_hh"))
             }
@@ -88,8 +92,61 @@ def _lstm_direction(x: torch.Tensor, mask: torch.Tensor, p: Dict[str, torch.Tens
     return torch.stack(ys, dim=1)
 
 
+def _lstm_direction_bf16(xp: torch.Tensor, mask: torch.Tensor, w_hh: torch.Tensor,
+                         b_hh: torch.Tensor) -> torch.Tensor:
+    """One direction at bf16 from its input projection xp (B, S, 4H) bf16
+    (b_ih included): gates in fp32 as xp + h W_hh^T + b_hh, the product over
+    h rounded to bf16 and W_hh in bf16 with fp32 sums, (h, c) carried in
+    fp32, outputs h * m stored in bf16 -> (B, S, H)."""
+    B, S, _ = xp.shape
+    H = w_hh.shape[1]
+    w = w_hh.to(torch.bfloat16).float().t()
+    h = xp.new_zeros((B, H), dtype=torch.float32)
+    c = torch.zeros_like(h)
+    ys = []
+    for t in range(S):
+        m = mask[:, t : t + 1]
+        gates = h.to(torch.bfloat16).float() @ w + xp[:, t].float() + b_hh.float()
+        h, c = lstm_step(gates, m, h, c)
+        ys.append((h * m).to(torch.bfloat16))
+    return torch.stack(ys, dim=1)
+
+
+def bilstm_bf16(x: torch.Tensor, mask: torch.Tensor, layers: Layers) -> torch.Tensor:
+    """The 2-layer biLSTM at bf16: x (B, S, in) bf16 -> (B, S, 2H) bf16,
+    with the arithmetic of the JAX package's fused bf16 biLSTM
+    (ops/lstm_pallas.py: bf16 operands and stored activations, fp32 gates),
+    which the bf16 variant of K5 (ops/lstm_cuda.py) follows: layer 1's input
+    projection is the library's bf16 product with the bf16 b_ih, layer 2's
+    bf16 products of h1 and W_ih with fp32 sums and the fp32 b_ih, rounded
+    to bf16; b_hh is added to the gates in fp32. Matrices may come as fp32
+    or already cast: they are rounded to bf16 here either way."""
+    bf = torch.bfloat16
+    mask = mask.to(torch.float32)
+    h = x
+    for k, p in enumerate(layers):
+        outs = []
+        for direction in ("fwd", "bwd"):
+            d = p[direction]
+            w_ih = d["w_ih"].to(bf)
+            if k == 0:
+                xp = F.linear(h, w_ih, d["b_ih"].to(bf))
+            else:
+                xp = (h.float() @ w_ih.float().t() + d["b_ih"].float()).to(bf)
+            if direction == "fwd":
+                outs.append(_lstm_direction_bf16(xp, mask, d["w_hh"], d["b_hh"]))
+            else:
+                outs.append(_lstm_direction_bf16(xp.flip(1), mask.flip(1), d["w_hh"],
+                                                 d["b_hh"]).flip(1))
+        h = torch.cat(outs, dim=-1)
+    return h
+
+
 def bilstm(x: torch.Tensor, mask: torch.Tensor, layers: Layers) -> torch.Tensor:
-    """Multi-layer biLSTM: (B, S, in), mask (B, S) -> (B, S, 2H)."""
+    """Multi-layer biLSTM: (B, S, in), mask (B, S) -> (B, S, 2H). A bf16 x
+    takes `bilstm_bf16` (grad-free serving only)."""
+    if x.dtype == torch.bfloat16:
+        return bilstm_bf16(x, mask, layers)
     h = x
     mask = mask.to(x.dtype)
     for p in layers:

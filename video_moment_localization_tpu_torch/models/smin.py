@@ -59,6 +59,7 @@ from video_moment_localization_tpu_torch.ops.packing import (
     packed_valid_mask,
     unpack_map,
 )
+from video_moment_localization_tpu_torch.ops.proposal import proposal_features_packed
 
 _NEG_INF = -1e9
 
@@ -176,9 +177,17 @@ def _linear(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------- #
 def video_encoder(ve: VideoEncoder, video_features, video_mask):
     """Masked linear projection + learned positional embedding (reference
-    models.py:7-36): (B, T, dv), (B, T, 1) -> (B, T, D)."""
-    x = _linear(ve.ve, video_features) * video_mask
-    return x + ve.pe.weight[None] * video_mask
+    models.py:7-36): (B, T, dv), (B, T, 1) -> (B, T, D), in the dtype of
+    ``video_features``. At bf16 the weights are cast as the JAX package casts
+    them (`cast_weights`) and the product is the library's bf16 one."""
+    if video_features.dtype == torch.float32:
+        x = _linear(ve.ve, video_features) * video_mask
+        return x + ve.pe.weight[None] * video_mask
+    dtype = video_features.dtype
+    w = cast_weights(ve, dtype)
+    mask = video_mask.to(dtype)
+    x = F.linear(video_features, w["ve.weight"], ve.ve.bias.to(dtype)) * mask
+    return x + w["pe.weight"][None] * mask
 
 
 def query_encoder(qe: QueryEncoder, query_features, query_mask, hidden_size: int,
@@ -186,9 +195,12 @@ def query_encoder(qe: QueryEncoder, query_features, query_mask, hidden_size: int
     """biLSTM sentence/word features (reference models.py:38-64): fs = [last
     valid forward state, backward state at t=0], fw = per-word outputs, from
     the fused biLSTM (ops/lstm_cuda.py), which is grad-free, or with
-    ``fused_lstm=False`` from the plain one (models/lstm.py) under autograd."""
+    ``fused_lstm=False`` from the plain one (models/lstm.py) under autograd.
+    At bf16 both take the weights' bf16 cast (`cast_weights`) and return
+    bf16 features."""
     mask = query_mask[..., 0]                                     # (B, Nq)
-    layers = lstm_layers(qe.lstm)
+    layers = lstm_layers(qe.lstm, cast_weights(qe.lstm, query_features.dtype)
+                         if query_features.dtype != torch.float32 else None)
     run = lstm_cuda.bilstm_fused if fused_lstm else bilstm
     fw = run(query_features, mask, layers)
     lengths = mask.sum(dim=1).long().clamp(min=1)
@@ -349,6 +361,97 @@ def localization_packed(loc: Localization, f_m, f_b, length_mask, vmask, L: int,
 
 
 # --------------------------------------------------------------------- #
+# The serving stack at bf16 (the plain version of K4's bf16 variant)
+# --------------------------------------------------------------------- #
+def _mm16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w^T, w (N, K) or a 1x1 conv's (N, K, 1, 1), with bf16
+    operands and fp32 sums: both are rounded to bf16 (a no-op on bf16
+    tensors), and the product of two bf16 values is exact in fp32."""
+    w = w.reshape(w.shape[0], w.shape[1]).to(torch.bfloat16).float()
+    return x.to(torch.bfloat16).float() @ w.t()
+
+
+def smi_block_packed_bf16(block: SMI, fc, fm, fb, fw, fs, query_mask, length_mask, vmask,
+                          L: int):
+    """One SMI layer of the serving stack at bf16: fc (B, N, C, D), fm
+    (B, N, D), fb (B, L, D), fw (B, Nq, D), fs (B, D) bf16 -> (cu, mu, bu)
+    bf16. The function of `smi_block_packed`, with the arithmetic of the
+    JAX serving kernel at bf16 (ops/smin_pallas.py::smi_layer_rows): every
+    product takes bf16 operands (the block's weights cast once,
+    `cast_weights`) with fp32 sums, biases, gates, softmaxes and the other
+    elementwise work are fp32, and every activation the layer keeps is
+    stored in bf16 (fbar, h, q, fwh, khat, f_cc_hat, cu, bq, bk, f_bq, bu,
+    the moment operands and mu; f_s_hat stays fp32). The kernel's order of
+    operations is kept, so that K4's bf16 variant can be held to it."""
+    # Imported here: the ops modules import this one.
+    from video_moment_localization_tpu_torch.ops.content_attn_cuda import content_attn_plain_bf16
+
+    bf = torch.bfloat16
+    w = cast_weights(block, bf)
+
+    def proj(x, name):
+        return _mm16(x, w[f"{name}.weight"]) + w[f"{name}.bias"]
+
+    B, N, C, D = fc.shape
+    vm = vmask.float()
+    qm = query_mask.float()                                         # (B, Nq, 1)
+    lm = length_mask.float()
+    fs32, fb32, fw32 = fs.float(), fb.float(), fw.float()
+    fbar = (torch.sigmoid(fm.float() * fs32[:, None]) * fm.float()).to(bf)
+
+    # ContentUnit
+    h = (proj(fc, "content_unit.linear_c_hat") * vm[..., None, None]).to(bf)
+    q = proj(h, "content_unit.attn_layer.W_q").to(bf)
+    fwh = (proj(fw, "content_unit.linear_w_hat") * qm).to(bf)
+    khat = proj(fwh, "content_unit.attn_layer.W_k").to(bf)
+    fsh = proj(fs, "content_unit.linear_s_hat")                     # fp32 (B, dl)
+    fcc = content_attn_plain_bf16(h, q, khat, fwh, fsh, qm, vm)
+    cu = (proj(fcc, "content_unit.linear_c") * vm[..., None, None] + fc.float()
+          + fbar.float()[:, :, None]).to(bf)
+
+    # BoundaryUnit
+    bq = proj(fb, "boundary_unit.attn_layer.W_q").to(bf)
+    bk = proj(fw, "boundary_unit.attn_layer.W_k").to(bf)
+    wl = torch.einsum("bid,bmd->bim", bq.float(), bk.float()) / math.sqrt(D)
+    wl = torch.where(qm[..., 0][:, None, :] > 0, wl, _NEG_INF)
+    f_baq = torch.einsum("bim,bmd->bid", torch.softmax(wl, dim=-1), fw32)
+    fbq = (fb32 * (f_baq * lm[..., None] + fs32[:, None])).to(bf)
+    al = torch.einsum("bid,bjd->bij", fbq.float(), fbq.float()) / math.sqrt(D)
+    al = torch.where(lm[:, None, :] > 0, al, _NEG_INF)
+    A_b = torch.softmax(al, dim=-1) * lm[..., None]
+    i_idx, j_idx = pair_index(L, fb.device)
+    f_bm = fb32.new_zeros((B, L, D)).index_add_(
+        1, i_idx, A_b[:, i_idx, j_idx][..., None] * fbar.float())
+    bu = (torch.einsum("bij,bjd->bid", A_b, fb32) * lm[..., None] + fb32 + f_bm).to(bf)
+
+    # MomentUnit: one product of [x1 | x2] with [W_fb | W_fc], bias b_fb + b_fc
+    x1 = (bu.float()[:, i_idx] * bu.float()[:, j_idx]).to(bf)
+    x2 = cu.float().mean(dim=2).to(bf)
+    wm = torch.cat([w["moment_unit.conv_layer_fb.weight"].reshape(D, D),
+                    w["moment_unit.conv_layer_fc.weight"].reshape(D, D)], dim=1)
+    bias = w["moment_unit.conv_layer_fb.bias"] + w["moment_unit.conv_layer_fc.bias"]
+    mu = ((_mm16(torch.cat([x1, x2], dim=-1), wm) + bias) * vm[..., None]
+          + fm.float()).to(bf)
+    return cu, mu, bu
+
+
+def smin_stack_bf16(model: SMIN, cfg: ModelConfig, f, fw, fs, query_mask, length_mask,
+                    vmask):
+    """The serving stack at bf16 from the backbone outputs f (B, T, D), fw,
+    fs (bf16): the proposal pooling in fp32 (prefix sums) stored in bf16,
+    `smi_block_packed_bf16` per layer, and the fp32 heads -> (pm (B, N),
+    ps, pe, pa (B, L)) fp32."""
+    bf = torch.bfloat16
+    length_mask = length_mask.float()
+    fc, fm, fb = (x.to(bf) for x in proposal_features_packed(f.float(), length_mask, cfg.L,
+                                                             cfg.C))
+    for block in model.smis:
+        fc, fm, fb = smi_block_packed_bf16(block, fc, fm, fb, fw, fs, query_mask, length_mask,
+                                           vmask, cfg.L)
+    return localization_packed(model.localization, fm, fb, length_mask, vmask.float(), cfg.L)
+
+
+# --------------------------------------------------------------------- #
 # SMI units over the dense L x L map (packed: False)
 # --------------------------------------------------------------------- #
 def content_unit(cu: ContentUnit, f_c, f_w, f_s, f_m, query_mask, moment_mask, fbar=None):
@@ -411,12 +514,59 @@ def localization(loc: Localization, f_m, f_b, length_mask, moment_mask):
 # --------------------------------------------------------------------- #
 # Forward passes
 # --------------------------------------------------------------------- #
+_BF16_ITEM = "ROADMAP.md §1 'bf16'"
+
+
 def check_config(cfg: ModelConfig) -> None:
-    """Both forwards take every route of the JAX package in fp32; bf16
-    (``compute_dtype``) raises instead of running in fp32."""
+    """The differentiable forward and the train and eval steps take every
+    route of the JAX package in fp32; a ``compute_dtype`` other than
+    float32 raises (bf16 training and evaluation are still to port) instead
+    of running in fp32."""
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
-            f"not supported by the PyTorch port: compute_dtype={cfg.compute_dtype}")
+            f"compute_dtype={cfg.compute_dtype} is not supported by the PyTorch port for "
+            f"training or evaluation yet: bf16 training and the eval step are {_BF16_ITEM}")
+
+
+def serves_default_route(cfg: ModelConfig) -> bool:
+    """Whether the grad-free forward takes the fused default route: the
+    packed layout with the fused SMI stack, without ``compat_head``."""
+    return cfg.packed and not cfg.compat_head and cfg.fused_smi
+
+
+def check_serving_config(cfg: ModelConfig) -> None:
+    """The grad-free forward (serving): every route in fp32, and bf16 on
+    the default route only (`serves_default_route`, ``fused_lstm`` either
+    way); bf16 on ``packed: False``, ``compat_head`` or ``fused_smi:
+    False`` raises."""
+    if cfg.compute_dtype == "float32":
+        return
+    if cfg.compute_dtype != "bfloat16":
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype} is not supported by the PyTorch port")
+    if not serves_default_route(cfg):
+        raise NotImplementedError(
+            f"compute_dtype=bfloat16 serves the default route only (packed, fused_smi, "
+            f"not compat_head); packed={cfg.packed}, compat_head={cfg.compat_head}, "
+            f"fused_smi={cfg.fused_smi} at bf16 is not supported by the PyTorch port "
+            f"yet: {_BF16_ITEM}")
+
+
+def cast_weights(module: nn.Module, dtype: torch.dtype) -> dict:
+    """The module's parameters for a bf16 serving path, by name: matrices
+    (2-D and up) cast to ``dtype``, vectors (biases) as they are, in fp32.
+    The cast is made once and kept on the module until a parameter changes
+    (its version counter or storage: an optimizer step, a load, a move)."""
+    cache = module.__dict__.setdefault("_cast_weights", {})
+    params = list(module.named_parameters())
+    key = tuple((p._version, p.data_ptr()) for _, p in params)
+    hit = cache.get(dtype)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    with torch.no_grad():
+        out = {n: p.detach().to(dtype) if p.dim() >= 2 else p.detach() for n, p in params}
+    cache[dtype] = (key, out)
+    return out
 
 
 
@@ -527,16 +677,29 @@ def smin_forward_inference(
     """Grad-free forward with the contract of `smin_forward`: the fused
     biLSTM (or the plain one under ``fused_lstm: False``) and the fused SMI
     stack for the packed layout with ``fused_smi`` and without
-    ``compat_head``; `smin_forward` without a graph otherwise."""
+    ``compat_head``; `smin_forward` without a graph otherwise.
+
+    ``compute_dtype: bfloat16`` (the default route only,
+    `check_serving_config`) follows the JAX package's bf16 serving: the
+    parameters stay fp32 and are cast to bf16 where its kernels cast them,
+    activations are stored in bf16, products take bf16 operands with fp32
+    sums, gates, softmaxes and other elementwise work run in fp32, the
+    proposal pooling's prefix sums stay fp32, and the heads and scores are
+    fp32."""
     # Imported here: ops/smin_cuda.py imports this module for its plain version.
     from video_moment_localization_tpu_torch.ops.smin_cuda import smin_stack_fused
 
-    check_config(cfg)
-    if not (cfg.packed and not cfg.compat_head and cfg.fused_smi):
+    check_serving_config(cfg)
+    if not serves_default_route(cfg):
         return smin_forward(model, cfg, video_features, video_mask, query_features,
                             query_mask, length_mask, moment_mask, video_group=video_group)
+    dtype = getattr(torch, cfg.compute_dtype)
+    if video_group is None:
+        video_features = video_features.to(dtype)
+    else:
+        video_group = (video_group[0].to(dtype),) + tuple(video_group[1:])
     f, fs, fw = backbone(model.backbone, cfg, video_features, video_mask,
-                         query_features, query_mask, video_group=video_group,
+                         query_features.to(dtype), query_mask, video_group=video_group,
                          fused_lstm=cfg.fused_lstm)
     vmask = packed_valid_mask(length_mask)
     return smin_stack_fused(model, cfg, f, fw, fs, query_mask, length_mask, vmask)

@@ -17,6 +17,13 @@ The mirror (`plan`, `smem_floats`, `partial_floats`, `tile_bounds`) restates
 ``content_attn.cuh``'s choices, so the CPU tests can check every shipped
 config and ``chip_smoke.py`` can hold the mirror against the C plan on the
 card.
+
+The forward has a bf16 variant (K4 at bf16): h, q, khat, fwh and fcc bf16,
+fsh and the masks fp32 (`content_attn_forward` on bf16 tensors; its plain
+version is `content_attn_plain_bf16`). It converts the rows to fp32 as it
+stages them, so its shared memory, plan and arithmetic are the fp32
+forward's: `plan` at ``itemsize=2`` is the fp32 plan forward, and none
+backward (there is no bf16 backward).
 """
 
 from __future__ import annotations
@@ -73,12 +80,16 @@ def chunk_threads(RP: int) -> int:
     return THREADS // (RP // 4)
 
 
-def plan(B: int, N: int, C: int, Nq: int, dl: int, backward: bool) -> Dict[str, int]:
-    """content_attn.cuh::content_attn_plan: pairs per pass ``pp``, passes per
-    block, blocks (tiles) per element and a block's shared memory in bytes
-    (all 0: the shape is not taken)."""
+def plan(B: int, N: int, C: int, Nq: int, dl: int, backward: bool,
+         itemsize: int = 4) -> Dict[str, int]:
+    """content_attn.cuh::content_attn_plan_for: pairs per pass ``pp``, passes
+    per block, blocks (tiles) per element and a block's shared memory in
+    bytes (all 0: the shape is not taken), for rows of ``itemsize`` bytes in
+    device memory (the bf16 rows are staged in fp32)."""
     none = dict(pp=0, passes=0, tiles=0, smem=0)
     if B < 1 or N < 1 or C < 1 or C > ROWS or Nq < 1 or Nq > 32 or dl < 1:
+        return none
+    if itemsize == 2 and backward:
         return none
     pp = ROWS // C
 
@@ -136,6 +147,14 @@ def content_attn_plain(h, q, khat, fwh, fsh, query_mask, vmask):
     return torch.einsum("bnce,bned->bncd", A, h)
 
 
+def content_attn_plain_bf16(h, q, khat, fwh, fsh, query_mask, vmask):
+    """The plain version of the bf16 forward: `content_attn_plain` on the
+    bf16 rows' values in fp32, rounded once to bf16 (the pair of
+    models/smin.py::smi_block_packed_bf16)."""
+    return content_attn_plain(h.float(), q.float(), khat.float(), fwh.float(), fsh.float(),
+                              query_mask, vmask).to(torch.bfloat16)
+
+
 def unit_projections(unit, fc, fw, fs, query_mask, vmask):
     """The pair's inputs as a content unit makes them from its own inputs:
     (h, q, khat, fwh, fsh) = (c_hat(fc) * vmask, attn_q(h), attn_k(fwh),
@@ -161,25 +180,28 @@ def content_attn_backward_plain(h, q, khat, fwh, fsh, query_mask, vmask, dfcc):
 
 def _library() -> ctypes.CDLL:
     lib = load_library("content_attn")
-    fwd = lib.vml_content_attn_fwd_f32
-    fwd.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8
-    fwd.restype = ctypes.c_int
+    for name in ("vml_content_attn_fwd_f32", "vml_content_attn_fwd_bf16"):
+        fwd = getattr(lib, name)
+        fwd.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8
+        fwd.restype = ctypes.c_int
     bwd = lib.vml_content_attn_bwd_f32
     bwd.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 14
     bwd.restype = ctypes.c_int
-    lib.vml_content_attn_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    lib.vml_content_attn_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
     lib.vml_content_attn_plan.restype = None
     lib.vml_content_attn_partial_floats.argtypes = [ctypes.c_int] * 5
     lib.vml_content_attn_partial_floats.restype = ctypes.c_size_t
     return lib
 
 
-def card_plan(B: int, N: int, C: int, Nq: int, dl: int, backward: bool) -> Dict[str, int]:
+def card_plan(B: int, N: int, C: int, Nq: int, dl: int, backward: bool,
+              itemsize: int = 4) -> Dict[str, int]:
     """The C host code's plan, in `plan`'s form."""
     lib = _library()
     out = (ctypes.c_int * 3)()
     smem = ctypes.c_size_t()
-    lib.vml_content_attn_plan(B, N, C, Nq, dl, int(backward), out, ctypes.byref(smem))
+    lib.vml_content_attn_plan(B, N, C, Nq, dl, int(backward), itemsize, out,
+                              ctypes.byref(smem))
     return dict(pp=out[0], passes=out[1], tiles=out[2], smem=smem.value)
 
 
@@ -195,27 +217,39 @@ def _check(fn: str, backward: bool, h, q, khat, fwh, fsh, query_mask, vmask, ext
                          f"{tuple(h.shape)} and {tuple(khat.shape)}")
     B, N, C, dl = h.shape
     Nq = khat.shape[1]
-    check_tensors(fn, h.device, [("h", h, (B, N, C, dl)), ("q", q, (B, N, C, dl)),
-                                 ("khat", khat, (B, Nq, dl)), ("fwh", fwh, (B, Nq, dl)),
-                                 ("fsh", fsh, (B, dl)), ("query_mask", query_mask, (B, Nq, 1)),
-                                 ("vmask", vmask, (B, N))] + list(extra))
+    rows = [("h", h, (B, N, C, dl)), ("q", q, (B, N, C, dl)), ("khat", khat, (B, Nq, dl)),
+            ("fwh", fwh, (B, Nq, dl))]
+    if h.dtype == torch.bfloat16 and not backward:
+        for name, t, want in rows:
+            if (tuple(t.shape) != want or t.dtype != torch.bfloat16 or t.device != h.device
+                    or not t.is_contiguous()):
+                raise ValueError(f"{fn}: {name}: want contiguous bfloat16 {want} on "
+                                 f"{h.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+        rows = []
+    check_tensors(fn, h.device, rows + [("fsh", fsh, (B, dl)),
+                                        ("query_mask", query_mask, (B, Nq, 1)),
+                                        ("vmask", vmask, (B, N))] + list(extra))
     if not plan(B, N, C, Nq, dl, backward)["smem"]:
         raise ValueError(f"{fn}: C={C}, Nq={Nq}, dl={dl} are not taken by the kernel's plan")
     return B, N, C, Nq, dl
 
 
 def content_attn_forward(h, q, khat, fwh, fsh, query_mask, vmask):
-    """fcc (B, N, C, dl) of the pair (see `content_attn_plain`)."""
+    """fcc (B, N, C, dl) of the pair (see `content_attn_plain`), in the
+    type of h, q, khat and fwh: fp32, or bf16 (the bf16 variant; fsh and
+    the masks fp32)."""
+    bf16 = h.dtype == torch.bfloat16
     if h.device.type == "cpu":
-        return content_attn_plain(h, q, khat, fwh, fsh, query_mask, vmask)
+        plain = content_attn_plain_bf16 if bf16 else content_attn_plain
+        return plain(h, q, khat, fwh, fsh, query_mask, vmask)
     dims = _check("content_attn_forward", False, h, q, khat, fwh, fsh, query_mask, vmask)
     lib = _library()
     out = torch.empty_like(h)
+    entry = "vml_content_attn_fwd_bf16" if bf16 else "vml_content_attn_fwd_f32"
     with torch.cuda.device(h.device):
-        err = lib.vml_content_attn_fwd_f32(stream_of(h), *dims, ptr(h), ptr(q), ptr(khat),
-                                           ptr(fwh), ptr(fsh), ptr(query_mask), ptr(vmask),
-                                           ptr(out))
-    check(lib, "vml_content_attn_fwd_f32", err)
+        err = getattr(lib, entry)(stream_of(h), *dims, ptr(h), ptr(q), ptr(khat), ptr(fwh),
+                                  ptr(fsh), ptr(query_mask), ptr(vmask), ptr(out))
+    check(lib, entry, err)
     content_attn_forward.launches += 1
     return out
 

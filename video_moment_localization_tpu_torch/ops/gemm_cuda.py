@@ -1,4 +1,4 @@
-"""The shared fp32 GEMM of ``csrc/gemm.cuh`` on its own (``csrc/gemm.cu``),
+"""The shared GEMM of ``csrc/gemm.cuh`` on its own (``csrc/gemm.cu``),
 for the card tests and the GEMM phase of ``chip_smoke.py``, and a Python
 mirror of its host-side plans.
 
@@ -20,6 +20,12 @@ The mirror (`path_for`, `tile_for`, `splitk_for`, `tn_partial_floats`,
 each kernel of the port launches, so the CPU tests can check every shape of
 the shipped configs and ``chip_smoke.py`` can hold the mirror against the C
 plan on the card.
+
+A third path, BF16, serves the bf16 variants of K4 and K5 (serving, layout
+nt only): bf16 operands, fp32 sums (``mma.sync`` m16n8k16), the epilogue in
+fp32 with bf16 residuals, a bf16 or fp32 result. ``gemm_bf16`` calls it
+alone (its plain version ``gemm_bf16_plain`` multiplies the bf16 values in
+fp32), and `model_gemm_shapes_bf16` lists its products.
 """
 
 from __future__ import annotations
@@ -39,8 +45,12 @@ SMS = 132                   # H100 SXM
 TILES = ((128, 128), (128, 64), (64, 64))   # csrc/gemm.cuh::GemmTile, in order
 LAYOUTS = {"nt": 0, "nn": 1, "tn": 2}
 CUDA_CORE, TENSOR = 0, 1    # csrc/gemm.cuh::GemmPath
+BF16 = 2                    # csrc/gemm.cuh::kPathBf16
 PATHS = {"cuda_core": CUDA_CORE, "tensor": TENSOR}
 TC_PAD = 8                  # k-major row padding of the tensor-core path
+BF16_BK = 32                # K slice of a stage of the bf16 path
+BF16_LD = BF16_BK + 8       # bf16 per shared row
+BF16_STAGES = 4
 
 
 # Call sites that fix their path instead of taking `path_for`'s: the moment
@@ -55,10 +65,17 @@ WG_MIN_ROWS = 512           # gemm.cuh::kWgMinRows
 TC_MIN_WORK = 1 << 29       # gemm.cuh::kTcMinWork
 
 
-def path_for(layout: str, M: int, N: int, K: int, groups: int = 1) -> int:
+def path_for(layout: str, M: int, N: int, K: int, groups: int = 1,
+             dtype: torch.dtype = torch.float32) -> int:
     """gemm.cuh::gemm_path_for: gemm_nt and gemm_nn take the tensor cores
     from M N K = TC_MIN_WORK on; gemm_tn (K: the rows it reduces) when a
-    block reduces at least WG_MIN_ROWS rows; else the CUDA cores."""
+    block reduces at least WG_MIN_ROWS rows; else the CUDA cores. A bf16
+    product (gemm_path_for_bf16) takes the BF16 path, which has layout nt
+    only."""
+    if dtype == torch.bfloat16:
+        if layout != "nt":
+            raise ValueError(f"the bf16 GEMM has layout nt only, not {layout!r}")
+        return BF16
     if layout == "tn":
         return TENSOR if splitk_for(M, N, K)[1] >= WG_MIN_ROWS else CUDA_CORE
     return TENSOR if M * N * K >= TC_MIN_WORK else CUDA_CORE
@@ -78,6 +95,10 @@ def smem_bytes(tile: int, layout: str, path: int = TENSOR) -> int:
     parts), W padded by TC_PAD floats per k when it is contiguous along its
     rows (nn); tn (gemm_wg_smem_floats) below."""
     bm, bn = TILES[tile]
+    if path == BF16:
+        # gemm_bf16_smem_bytes: a ring of both operands' slices, rows of
+        # BF16_LD bf16.
+        return 2 * BF16_STAGES * (bm + bn) * BF16_LD
     if path == TENSOR and layout == "tn":
         # gemm_wg_smem_floats: the ring of both k-major slices, and two
         # big / small pairs of core-matrix tiles of each operand (128x128).
@@ -131,6 +152,23 @@ def launch_grid(layout: str, M: int, N: int, K: int, groups: int = 1) -> Tuple[i
         return 0, tiles(0, M, N), splitk_for(M, N, K)[0]
     tile = tile_for(M, N, groups)
     return tile, tiles(tile, M, N), 1
+
+
+def model_gemm_shapes_bf16(cfg, B: int) -> List[Tuple[str, str, str, int, int, int, int]]:
+    """The products of the bf16 variants of K4 (one layer's, per layer) and
+    K5 (the layer-2 projections) at batch B, in `model_gemm_shapes`' form;
+    s_hat has an fp32 output, the rest bf16."""
+    L, C, D, dl, Nq = cfg.L, cfg.C, cfg.D, cfg.dl, cfg.max_query_length
+    H = cfg.lstm_hidden_size
+    N = L * (L + 1) // 2
+    NC = N * C
+    k = "K4-bf16"
+    return [("K5-bf16", "layer-2 projections", "nt", B * Nq, 4 * H, 2 * H, 2),
+            (k, "c_hat", "nt", B * NC, dl, D, 1), (k, "attn_q", "nt", B * NC, dl, dl, 1),
+            (k, "w_hat", "nt", B * Nq, dl, D, 1), (k, "attn_k", "nt", B * Nq, dl, dl, 1),
+            (k, "s_hat", "nt", B, dl, D, 1), (k, "c_out", "nt", B * NC, D, dl, 1),
+            (k, "bq", "nt", B * L, D, D, 1), (k, "bk", "nt", B * Nq, D, D, 1),
+            (k, "conv_fb + conv_fc", "nt", B * N, D, 2 * D, 1)]
 
 
 def model_gemm_shapes(cfg, B: int) -> List[Tuple[str, str, str, int, int, int, int]]:
@@ -227,14 +265,27 @@ def _library() -> ctypes.CDLL:
     lib.vml_gemm_smem_bytes.restype = ctypes.c_size_t
     lib.vml_gemm_tn_partial_floats.argtypes = [ctypes.c_int] * 3
     lib.vml_gemm_tn_partial_floats.restype = ctypes.c_size_t
+    lib.vml_gemm_path_for_bf16.argtypes = [ctypes.c_int]
+    lib.vml_gemm_path_for_bf16.restype = ctypes.c_int
+    fn = lib.vml_gemm_bf16
+    ints = {1, 2, 3, 5, 7, 9, 10, 13, 15, 17, 18, 19}
+    fn.argtypes = [ctypes.c_int if k in ints else ctypes.c_void_p for k in range(20)]
+    fn.restype = ctypes.c_int
     return lib
 
 
 def card_plan(layout: str, M: int, N: int, K: int, groups: int = 1,
-              product: Optional[str] = None) -> Dict[str, int]:
+              product: Optional[str] = None,
+              dtype: torch.dtype = torch.float32) -> Dict[str, int]:
     """The C host code's plan for one launch of ``product`` (a name of
-    `model_gemm_shapes`), to hold the mirror against."""
+    `model_gemm_shapes`, or at bf16 of `model_gemm_shapes_bf16`), to hold
+    the mirror against."""
     lib = _library()
+    if dtype == torch.bfloat16:
+        path = lib.vml_gemm_path_for_bf16(LAYOUTS[layout])
+        tile = lib.vml_gemm_tile_for(M, N, groups)
+        return dict(path=path, tile=tile,
+                    smem=lib.vml_gemm_smem_bytes(path, LAYOUTS[layout], tile))
     path = (lib.vml_gemm_moment_path() if product == MOMENT_PRODUCT
             else lib.vml_gemm_path_for(LAYOUTS[layout], M, N, K, groups))
     if layout == "tn":
@@ -248,9 +299,12 @@ def card_plan(layout: str, M: int, N: int, K: int, groups: int = 1,
 
 
 def plan(layout: str, M: int, N: int, K: int, groups: int = 1,
-         product: Optional[str] = None) -> Dict[str, int]:
+         product: Optional[str] = None, dtype: torch.dtype = torch.float32) -> Dict[str, int]:
     """The mirror's plan for one launch, in `card_plan`'s form."""
     tile = launch_grid(layout, M, N, K, groups)[0]
+    if dtype == torch.bfloat16:
+        path = path_for(layout, M, N, K, groups, dtype)
+        return dict(path=path, tile=tile, smem=smem_bytes(tile, layout, path))
     path = site_path(product, layout, M, N, K, groups)
     out = dict(path=path, tile=tile, smem=smem_bytes(tile, layout, path))
     if layout == "tn":
@@ -329,3 +383,75 @@ def gemm(layout: str, A, W, ascale=None, adiv: int = 1, bias=None, pre=None, rma
 
 
 gemm.launches = 0
+
+
+def gemm_bf16_plain(A, W, bias=None, rmask=None, mask_div: int = 1, post=None, post2=None,
+                    post2_div: int = 1, out_dtype: torch.dtype = torch.bfloat16):
+    """The bf16 path's function in torch ops: A (M, K) @ W (N, K)^T with
+    bf16 operands and fp32 sums (the bf16 values multiplied in fp32), then
+    bias, the row mask, post and post2 in fp32, rounded once to
+    ``out_dtype``."""
+    out = A.to(torch.bfloat16).float() @ W.to(torch.bfloat16).float().t()
+    rows = torch.arange(out.shape[0], device=out.device)
+    if bias is not None:
+        out = out + bias
+    if rmask is not None:
+        out = out * rmask[rows // mask_div][:, None]
+    if post is not None:
+        out = out + post.float()
+    if post2 is not None:
+        out = out + post2.float()[rows // post2_div]
+    return out.to(out_dtype)
+
+
+def _ld16(name: str, t: Optional[torch.Tensor], device) -> int:
+    if t is None:
+        return 0
+    if t.dim() != 2 or t.stride(1) != 1 or t.dtype != torch.bfloat16 or t.device != device:
+        raise ValueError(f"gemm_bf16: {name} must be a bfloat16 matrix with unit column stride "
+                         f"on {device}, got {t.dtype} {tuple(t.shape)} strides {t.stride()}")
+    return t.stride(0)
+
+
+def gemm_bf16(A, W, bias=None, rmask=None, mask_div: int = 1, post=None, post2=None,
+              post2_div: int = 1, out_dtype: torch.dtype = torch.bfloat16,
+              tile: Optional[int] = None, out: Optional[torch.Tensor] = None):
+    """One launch of the bf16 path: A (M, K), W (N, K) bf16 (any row
+    stride), bias (N,) and rmask fp32, post / post2 bf16 -> (M, N) in
+    ``out_dtype`` (bf16 or fp32). A CPU tensor runs `gemm_bf16_plain`; a
+    CUDA tensor launches the kernel or raises (other types raise: nothing
+    is cast)."""
+    if A.device.type == "cpu":
+        return gemm_bf16_plain(A, W, bias, rmask, mask_div, post, post2, post2_div, out_dtype)
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"gemm_bf16: out_dtype must be bfloat16 or float32, got {out_dtype}")
+    dev = A.device
+    lda, ldw = _ld16("A", A, dev), _ld16("W", W, dev)
+    M, K = A.shape
+    N = W.shape[0]
+    if W.shape[1] != K:
+        raise ValueError(f"gemm_bf16: A {tuple(A.shape)} and W {tuple(W.shape)} differ in K")
+    for name, t, shape in (("bias", bias, (N,)), ("rmask", rmask, None)):
+        if t is not None and (t.dim() != 1 or t.dtype != torch.float32 or t.device != dev
+                              or not t.is_contiguous() or (shape and tuple(t.shape) != shape)):
+            raise ValueError(f"gemm_bf16: {name} must be a contiguous float32 vector on {dev}")
+    if out is None:
+        out = torch.empty((M, N), device=dev, dtype=out_dtype)
+    if (tuple(out.shape) != (M, N) or out.dtype != out_dtype or out.stride(1) != 1
+            or out.device != dev):
+        raise ValueError(f"gemm_bf16: out must be ({M}, {N}) {out_dtype} on {dev}")
+    lib = _library()
+    nul = ctypes.c_void_p(0)
+    p = lambda t: ptr(t) if t is not None else nul   # noqa: E731
+    with torch.cuda.device(dev):
+        err = lib.vml_gemm_bf16(
+            stream_of(A), M, N, K, ptr(A), lda, ptr(W), ldw, ptr(out), out.stride(0),
+            int(out_dtype == torch.float32), p(bias), p(rmask), mask_div, p(post),
+            _ld16("post", post, dev), p(post2), _ld16("post2", post2, dev), post2_div,
+            -1 if tile is None else tile)
+    check(lib, "vml_gemm_bf16", err)
+    gemm_bf16.launches += 1
+    return out
+
+
+gemm_bf16.launches = 0

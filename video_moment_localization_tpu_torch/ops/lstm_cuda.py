@@ -7,7 +7,14 @@ recurrence of both layers and directions and the layer-2 input projection.
 
 On a CPU tensor the wrapper runs the plain version, ``models/lstm.py::
 bilstm`` (imported here as `bilstm_plain`); on a CUDA tensor it launches the
-kernel or raises. ``bilstm_fused.launches`` counts the launches.
+kernel or raises. ``bilstm_fused.launches`` counts the fp32 variant's
+launches, ``bilstm_fused.launches_bf16`` the bf16 variant's.
+
+The kernel has an fp32 and a bf16 variant, chosen by ``x.dtype``. At bf16
+(the JAX kernel at bf16) x, the weight matrices and the output are bf16 and
+the biases fp32 (models/smin.py::cast_weights casts them once); gates and
+sums are fp32, and the plain version is ``models/lstm.py::bilstm_bf16``.
+Any other mix of types raises: the wrapper casts nothing.
 """
 
 from __future__ import annotations
@@ -39,37 +46,42 @@ MAX_ROWS = 96
 CLUSTER = 8
 
 
-def _wslice_bytes(H: int) -> int:
-    return 4 * H * (4 * H // CLUSTER + 1)
+def _wslice_bytes(H: int, itemsize: int = 4) -> int:
+    """csrc/lstm.cu::wslice_bytes: the W_hh slice (H, 4H/8 + pad), padded by
+    one fp32 or two bf16 elements a row."""
+    return itemsize * H * (4 * H // CLUSTER + (1 if itemsize == 4 else 2))
 
 
-def lstm_smem_bytes(H: int, rows: int) -> int:
-    """Shared memory of one recurrence CTA (csrc/lstm.cu::layer_smem_bytes):
-    its W_hh slice (H, 4H/8 + 1) and h (rows, H), double-buffered where two
-    copies fit in a block's shared memory."""
-    double = _wslice_bytes(H) + 2 * 4 * rows * H <= MAX_SMEM_BYTES
-    return _wslice_bytes(H) + (2 if double else 1) * 4 * rows * H
+def lstm_smem_bytes(H: int, rows: int, itemsize: int = 4) -> int:
+    """Shared memory of one recurrence CTA (csrc/lstm.cu::layer_smem_bytes)
+    at an element size (4 fp32, 2 bf16): its W_hh slice and h (rows, H),
+    double-buffered where two copies fit in a block's shared memory."""
+    double = _wslice_bytes(H, itemsize) + 2 * itemsize * rows * H <= MAX_SMEM_BYTES
+    return _wslice_bytes(H, itemsize) + (2 if double else 1) * itemsize * rows * H
 
 
-def max_rows(H: int) -> int:
+def max_rows(H: int, itemsize: int = 4) -> int:
     """csrc/lstm.cu::max_rows: the most rows per cluster that fit."""
     rows = MAX_ROWS
-    while rows > ROW_STEP and lstm_smem_bytes(H, rows) > MAX_SMEM_BYTES:
+    while rows > ROW_STEP and lstm_smem_bytes(H, rows, itemsize) > MAX_SMEM_BYTES:
         rows -= ROW_STEP
     return rows
 
 
-def row_choices(H: int) -> Tuple[int, ...]:
-    return tuple(range(ROW_STEP, max_rows(H) + 1, ROW_STEP))
+def row_choices(H: int, itemsize: int = 4) -> Tuple[int, ...]:
+    return tuple(range(ROW_STEP, max_rows(H, itemsize) + 1, ROW_STEP))
 
 
-def lstm_plan(B: int, H: int, max_active_clusters: Callable[[int], int]) -> Tuple[int, int]:
+def lstm_plan(B: int, H: int, max_active_clusters: Callable[[int], int],
+              itemsize: int = 4) -> Tuple[int, int]:
     """Mirror of csrc/lstm.cu::plan_for: (rows per cluster, clusters) at
     batch B, the smallest row choice whose 2 * ceil(B / rows) clusters (two
     directions) the card holds at once, else the largest;
     ``max_active_clusters(rows)`` is what ``cudaOccupancyMaxActiveClusters``
-    answers at that choice."""
-    for rows in row_choices(H):
+    answers at that choice and element size (at bf16 a CTA needs less than
+    half the fp32 shared memory, so the card may hold two an SM and answer
+    more)."""
+    for rows in row_choices(H, itemsize):
         clusters = 2 * -(-B // rows)
         if clusters <= max_active_clusters(rows):
             break
@@ -78,21 +90,26 @@ def lstm_plan(B: int, H: int, max_active_clusters: Callable[[int], int]) -> Tupl
 
 def _library() -> ctypes.CDLL:
     lib = load_library("lstm")
-    lib.vml_lstm_plan.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
+    lib.vml_lstm_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
     lib.vml_lstm_plan.restype = ctypes.c_int
-    lib.vml_lstm_max_active_clusters.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.vml_lstm_max_active_clusters.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.vml_lstm_max_active_clusters.restype = ctypes.c_int
-    fn = lib.vml_bilstm2_f32
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 19
-    fn.restype = ctypes.c_int
+    for name in ("vml_bilstm2_f32", "vml_bilstm2_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 19
+        fn.restype = ctypes.c_int
     return lib
 
 
 def _check_inputs(x: torch.Tensor, mask: torch.Tensor, layers: Layers) -> int:
+    """The hidden size, once every tensor has the shape, device and type
+    the variant of ``x.dtype`` takes: fp32 throughout, or at bf16 bf16
+    matrices and fp32 biases."""
     if x.device.type != "cuda":
         raise ValueError(f"bilstm_fused takes CPU or CUDA tensors, got {x.device}")
-    if x.dtype != torch.float32 or x.dim() != 3:
-        raise ValueError(f"x must be float32 (B, S, in), got {x.dtype} {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 3:
+        raise ValueError(f"x must be float32 or bfloat16 (B, S, in), got {x.dtype} "
+                         f"{tuple(x.shape)}")
     if mask.shape != x.shape[:2] or mask.device != x.device:
         raise ValueError(f"mask must be (B, S) on {x.device}, got {tuple(mask.shape)}")
     if len(layers) != 2:
@@ -106,10 +123,11 @@ def _check_inputs(x: torch.Tensor, mask: torch.Tensor, layers: Layers) -> int:
         for direction in ("fwd", "bwd"):
             for name in _WEIGHTS:
                 w = layer[direction][name]
-                if (tuple(w.shape) != shapes[name] or w.dtype != torch.float32
+                dtype = x.dtype if name.startswith("w") else torch.float32
+                if (tuple(w.shape) != shapes[name] or w.dtype != dtype
                         or w.device != x.device or not w.is_contiguous()):
                     raise ValueError(
-                        f"layer {k} {direction} {name}: want contiguous float32 "
+                        f"layer {k} {direction} {name}: want contiguous {dtype} "
                         f"{shapes[name]} on {x.device}, got {w.dtype} "
                         f"{tuple(w.shape)} on {w.device}")
     return H
@@ -128,7 +146,8 @@ def bilstm_fused(x: torch.Tensor, mask: torch.Tensor, layers: Layers) -> torch.T
     H = _check_inputs(x, mask, layers)
     refuse_grad("bilstm_fused", [x] + [w for layer in layers for d in layer.values()
                                        for w in d.values()])
-    smem = lstm_smem_bytes(H, ROW_STEP)     # the smallest plan's
+    itemsize = x.element_size()
+    smem = lstm_smem_bytes(H, ROW_STEP, itemsize)     # the smallest plan's
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"hidden size {H} needs {smem} B of shared memory per block")
     lib = _library()
@@ -136,14 +155,19 @@ def bilstm_fused(x: torch.Tensor, mask: torch.Tensor, layers: Layers) -> torch.T
     p1, p2 = layers
     x = x.contiguous()
     maskf = mask.to(torch.float32).contiguous()
-    xp1f = F.linear(x, p1["fwd"]["w_ih"], p1["fwd"]["b_ih"])
-    xp1b = F.linear(x, p1["bwd"]["w_ih"], p1["bwd"]["b_ih"])
-    h1 = torch.empty((B, S, 2 * H), device=x.device, dtype=torch.float32)
-    xp2f = torch.empty((B, S, 4 * H), device=x.device, dtype=torch.float32)
+    bf16 = x.dtype == torch.bfloat16
+    # The layer-1 input projection (outside the TPU kernel too): the
+    # library's product, at bf16 with the bias rounded to bf16 as the
+    # plain version does.
+    xp1f = F.linear(x, p1["fwd"]["w_ih"], p1["fwd"]["b_ih"].to(x.dtype))
+    xp1b = F.linear(x, p1["bwd"]["w_ih"], p1["bwd"]["b_ih"].to(x.dtype))
+    h1 = torch.empty((B, S, 2 * H), device=x.device, dtype=x.dtype)
+    xp2f = torch.empty((B, S, 4 * H), device=x.device, dtype=x.dtype)
     xp2b = torch.empty_like(xp2f)
     out = torch.empty_like(h1)
+    entry = "vml_bilstm2_bf16" if bf16 else "vml_bilstm2_f32"
     with torch.cuda.device(x.device):
-        err = lib.vml_bilstm2_f32(
+        err = getattr(lib, entry)(
             stream_of(x), B, S, H, ptr(xp1f), ptr(xp1b), ptr(maskf),
             ptr(p1["fwd"]["w_hh"]), ptr(p1["bwd"]["w_hh"]),
             ptr(p1["fwd"]["b_hh"]), ptr(p1["bwd"]["b_hh"]),
@@ -152,31 +176,36 @@ def bilstm_fused(x: torch.Tensor, mask: torch.Tensor, layers: Layers) -> torch.T
             ptr(p2["fwd"]["w_hh"]), ptr(p2["bwd"]["w_hh"]),
             ptr(p2["fwd"]["b_hh"]), ptr(p2["bwd"]["b_hh"]),
             ptr(h1), ptr(xp2f), ptr(xp2b), ptr(out))
-    check(lib, "vml_bilstm2_f32", err)
-    bilstm_fused.launches += 1
+    check(lib, entry, err)
+    if bf16:
+        bilstm_fused.launches_bf16 += 1
+    else:
+        bilstm_fused.launches += 1
     return out
 
 
-bilstm_fused.launches = 0
+bilstm_fused.launches = 0          # the fp32 variant's launches
+bilstm_fused.launches_bf16 = 0     # the bf16 variant's
 
 
-def card_plan(B: int, H: int = 256) -> Dict[str, int]:
-    """The plan the kernel takes at batch B on the current card
-    (``vml_lstm_plan``): rows per cluster, clusters, clusters the card holds
-    at once at that choice, and one CTA's shared memory in bytes."""
+def card_plan(B: int, H: int = 256, itemsize: int = 4) -> Dict[str, int]:
+    """The plan the kernel takes at batch B and element size (4 fp32, 2
+    bf16) on the current card (``vml_lstm_plan``): rows per cluster,
+    clusters, clusters the card holds at once at that choice, and one CTA's
+    shared memory in bytes."""
     lib = _library()
     out = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_size_t()]
-    err = lib.vml_lstm_plan(B, H, *[ctypes.byref(v) for v in out])
+    err = lib.vml_lstm_plan(B, H, itemsize, *[ctypes.byref(v) for v in out])
     check(lib, "vml_lstm_plan", err)
     rows, clusters, max_active, smem = (v.value for v in out)
     return dict(rows=rows, clusters=clusters, max_active_clusters=max_active, smem=smem)
 
 
-def card_max_active_clusters(rows: int, H: int = 256) -> int:
+def card_max_active_clusters(rows: int, H: int = 256, itemsize: int = 4) -> int:
     """``cudaOccupancyMaxActiveClusters`` of the layer kernel at that many
-    rows per cluster on the current card."""
+    rows per cluster and element size on the current card."""
     lib = _library()
     n = ctypes.c_int()
-    err = lib.vml_lstm_max_active_clusters(H, rows, ctypes.byref(n))
+    err = lib.vml_lstm_max_active_clusters(H, rows, itemsize, ctypes.byref(n))
     check(lib, "vml_lstm_max_active_clusters", err)
     return n.value

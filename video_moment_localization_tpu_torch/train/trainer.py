@@ -74,7 +74,7 @@ def refuse_unported(cfg: Config, distributed: bool = False) -> None:
     if cfg.model.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype={cfg.model.compute_dtype}: the PyTorch port trains in float32; "
-            f"bf16 is ROADMAP.md §1 'bf16'")
+            f"bf16 training is ROADMAP.md §1 'bf16'")
 
 
 def build_datasets(cfg: Config, embedding: Optional[WordEmbedding] = None,

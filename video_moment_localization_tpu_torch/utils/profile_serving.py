@@ -1,19 +1,22 @@
 """Where the serving forward's device time goes, kernel by kernel, on a GPU.
 
     python -m video_moment_localization_tpu_torch.utils.profile_serving \
-        [--batch 16 512] [--iters 10] [--seed 0]
+        [--batch 16 512] [--iters 10] [--seed 0] [--compute_dtype bfloat16]
 
 Builds the Charades model (config/charadessta.yml) with random seeded
 weights, runs the device part of `MomentLocalizer` (the serving forward,
 the final scores and the top-5) on seeded random inputs under
 ``torch.profiler``, and prints for each batch size the device time per
 forward of each kernel, its share, and the device's busy share of the
-window (summed kernel time over wall time). Needs a CUDA device.
+window (summed kernel time over wall time). ``--compute_dtype bfloat16``
+profiles bf16 serving (the bf16 variants of K5 and K4). Needs a CUDA
+device.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -74,11 +77,13 @@ def main(argv=None) -> int:
     parser.add_argument("--batch", type=int, nargs="+", default=[16, 512])
     parser.add_argument("--iters", type=int, default=10)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA device visible", file=sys.stderr)
         return 1
     cfg = load_config(os.path.join(REPO, "config", "charadessta.yml")).model
+    cfg = dataclasses.replace(cfg, compute_dtype=args.compute_dtype)
     torch.manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
     emb = WordEmbedding.synthetic(["unused"], dim=cfg.word_dim, seed=args.seed)
