@@ -2,8 +2,9 @@
 end to end on the CPU, in process, as tests/test_cli.py drives the JAX CLI:
 train -> stats and checkpoint -> resume -> --test -> --test --nms, the
 missing-checkpoint error, GloVe from $GLOVE_PATH, --best, --compat_metrics,
---debug_nans, --profile_dir, the card as the default device, and the
-refusal of the flags whose paths the port does not have yet."""
+--debug_nans, --profile_dir, training and --test at bf16, the card as the
+default device, and the refusal of the flags whose paths the port does not
+have yet."""
 
 import json
 import os
@@ -116,13 +117,26 @@ def test_debug_nans_and_profile_dir(env, capsys):
     (["--num_devices", "2"], "Data parallelism"),
     (["--distributed"], "Data parallelism"),
     (["--seq_devices", "2"], "Sequence and 2-D parallelism"),
-    (["--compute_dtype", "bfloat16"], "bf16"),
+    (["--compute_dtype", "bfloat16", "--compat_metrics"], "bf16"),
 ])
 def test_refuses_unported_flags(env, capsys, flags, item):
     cfg = write_cfg(env, name="tiny5", ckpt="ckpt_refused")
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 '{item}'"):
         run(capsys, "--config_path", cfg, *flags)
     assert not os.path.exists(env / "ckpt_refused")
+
+
+def test_trains_and_tests_at_bf16(env, capsys):
+    """``--compute_dtype bfloat16`` on the tiny config (the whole-layer
+    route): an epoch of training, then ``--test`` printing the 8 metrics."""
+    cfg = write_cfg(env, name="tiny7", ckpt="ckpt_bf16")
+    out = run(capsys, "--config_path", cfg, "--num_epochs", "1", "--compute_dtype", "bfloat16")
+    assert "Training Epoch - 1" in out and "Training Loss -" in out
+    assert os.path.exists(env / "ckpt_bf16/tiny7_model.ckpt")
+    out = run(capsys, "--config_path", cfg, "--test", "--compute_dtype", "bfloat16")
+    lines = out.splitlines()
+    assert [line.split(" - ")[0] for line in lines[:8]] == [
+        f"R@{n}, IoU={m}" for n in (1, 5) for m in (0.1, 0.3, 0.5, 0.7)]
 
 
 def test_runs_on_the_card_by_default(env):

@@ -146,20 +146,26 @@ def test_modes_outside_the_slice_raise(change):
                                     dict(packed=False)])
 def test_training_modes_outside_the_slice_raise(change):
     """The slice is every mode of the JAX package's training forward and
-    step but bf16: a compute_dtype other than float32 raises, and each of the
-    other modes, once outside the slice, runs."""
+    step in fp32, and bf16 on the whole-layer route: each mode runs (TINY at
+    bf16 takes the whole-layer route, fp32 scores), and bf16 on the other
+    training routes (compat_head, fused_smi_train: False, packed: False)
+    raises, naming its ROADMAP item."""
     import dataclasses
 
     cfg = dataclasses.replace(TINY, **change)
     model = SMIN(cfg)
-    if cfg.compute_dtype != "float32":
-        with pytest.raises(NotImplementedError, match="not supported by the PyTorch port"):
-            smin_forward(model, cfg, *_tiny_args())
-        with pytest.raises(NotImplementedError, match="not supported by the PyTorch port"):
-            make_train_step(cfg, model, torch.optim.Adam(model.parameters()), device="cpu")
-        return
     make_train_step(cfg, model, torch.optim.Adam(model.parameters()), device="cpu")
-    _assert_scores(cfg, smin_forward(model, cfg, *_tiny_args()))
+    outputs = smin_forward(model, cfg, *_tiny_args())
+    _assert_scores(cfg, outputs)
+    if cfg.compute_dtype == "bfloat16":
+        assert all(o.dtype == torch.float32 for o in outputs)
+        for other in (dict(compat_head=True), dict(fused_smi_train=False), dict(packed=False)):
+            bad = dataclasses.replace(cfg, **other)
+            with pytest.raises(NotImplementedError, match="ROADMAP.md §1 'bf16'"):
+                smin_forward(SMIN(bad), bad, *_tiny_args())
+            with pytest.raises(NotImplementedError, match="not supported by the PyTorch port"):
+                make_train_step(bad, SMIN(bad), torch.optim.Adam(model.parameters()),
+                                device="cpu")
 
 
 def test_grad_free_wrappers_refuse_to_cut_a_graph():

@@ -222,11 +222,36 @@ def test_step_error_stops_the_loader_thread(data_dir):
 @pytest.mark.parametrize("change,item", [
     (dict(num_devices=2), "Data parallelism"),
     (dict(seq_devices=2), "Sequence and 2-D parallelism"),
-    (dict(model=dict(compute_dtype="bfloat16")), "bf16"),
+    (dict(model=dict(compute_dtype="bfloat16", packed=False)), "bf16"),
 ])
 def test_refuses_unported_settings(data_dir, change, item):
+    """bf16 off the whole-layer route (here the dense layout) is refused for
+    training and for ``--test`` alike."""
     cfg = load_config(write_cfg(data_dir, "refuse"))
     if "model" in change:
         change = dict(model=dataclasses.replace(cfg.model, **change["model"]))
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 '{item}'"):
         Trainer(dataclasses.replace(cfg, **change), device="cpu")
+    if "model" in change:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 '{item}'"):
+            Trainer(dataclasses.replace(cfg, **change), device="cpu", test_only=True)
+
+
+def test_trains_and_tests_at_bf16_on_the_tiny_config(data_dir, capsys):
+    """The tiny config at compute_dtype bfloat16 takes the whole-layer route:
+    `fit` runs two epochs with finite losses, and a test-only Trainer loads
+    its checkpoint and evaluates; an fp32 parameter set throughout."""
+    trainer, stats = run_port(write_cfg(data_dir, "bf16fit", compute_dtype="bfloat16"))
+    assert trainer.cfg.model.compute_dtype == "bfloat16"
+    assert stats["epoch"] == [1, 2] and np.isfinite(stats["train_loss"]).all()
+    assert all(p.dtype == torch.float32 for p in trainer.model.parameters())
+    cfg = load_config(write_cfg(data_dir, "bf16fit", compute_dtype="bfloat16"))
+    tester = Trainer(cfg, device="cpu", test_only=True)
+    assert tester.train_step is None
+    with pytest.raises(RuntimeError, match="test_only"):
+        tester.fit(*loaders(build_datasets, BatchLoader, cfg))
+    tester.load_for_test()
+    test = BatchLoader(build_datasets(cfg, test_only=True), cfg.batch_size, shuffle=False,
+                       num_workers=cfg.num_workers, seed=cfg.seed)
+    metrics = tester.evaluate(test)
+    assert len(metrics) == 8 and all(0.0 <= v <= 1.0 for v in metrics.values())

@@ -43,13 +43,12 @@ int vml_content_attn_bwd_f32(void* stream, int B, int N, int C, int Nq, int dl, 
                                            part, dfwh, dkhat, dfsh);
 }
 
-// The tile plan at an element size (4 fp32, 2 bf16): out = (pairs per
-// pass, passes per block, blocks per element), *smem = a block's dynamic
-// shared memory (0: shape not taken).
-void vml_content_attn_plan(int B, int N, int C, int Nq, int dl, int backward, int esize,
-                           int* out, size_t* smem) {
-    const vml::ContentAttnPlan p =
-        vml::content_attn_plan_for(B, N, C, Nq, dl, backward != 0, esize);
+// The tile plan (the same for bf16 rows, which are staged in fp32): out =
+// (pairs per pass, passes per block, blocks per element), *smem = a block's
+// dynamic shared memory (0: shape not taken).
+void vml_content_attn_plan(int B, int N, int C, int Nq, int dl, int backward, int* out,
+                           size_t* smem) {
+    const vml::ContentAttnPlan p = vml::content_attn_plan(B, N, C, Nq, dl, backward != 0);
     out[0] = p.pp;
     out[1] = p.passes;
     out[2] = p.tiles;

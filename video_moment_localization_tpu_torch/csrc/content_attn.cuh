@@ -51,10 +51,13 @@
 // `content_partial_reduce_kernel` adds an element's partials in tile order.
 // No atomics anywhere: a run is bit for bit repeatable. Widths that are no
 // multiple of 4 (or unaligned pointers) take the same kernels with scalar
-// copies (kVec false). The forward has a bf16 variant for K4 at bf16
-// (`content_attn_forward` on bf16 rows: bf16 rows in and out, converted to fp32 as
-// they are staged, so its plan and arithmetic are the fp32 forward's); the
-// backward is fp32 only (training is fp32).
+// copies (kVec false). Both have a bf16 variant (`content_attn_forward` and
+// `content_attn_backward` on bf16 rows; K4-bf16 and K2-bf16 run the forward,
+// K3-bf16 both): the bf16 rows are converted to fp32 as they are staged, so
+// the plan, the shared memory and the arithmetic are the fp32 kernels'. The
+// forward writes fcc in bf16; the backward writes dq and dkhat (the operands
+// of K3-bf16's next products) and dfsh in bf16, and dh and dfwh in fp32,
+// since the layer's projections add to them before they are rounded.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -153,15 +156,6 @@ inline ContentAttnPlan content_attn_plan(int B, int N, int C, int Nq, int dl, bo
     return p;
 }
 
-// The plan at an element size of the rows in device memory (4: fp32, 2:
-// bf16). The bf16 rows are staged in fp32, so the bf16 forward's plan is the
-// fp32 forward's; there is no bf16 backward (all 0).
-inline ContentAttnPlan content_attn_plan_for(int B, int N, int C, int Nq, int dl, bool backward,
-                                             int esize) {
-    if (esize == 2 && backward) return ContentAttnPlan{0, 0, 0, 0};
-    return content_attn_plan(B, N, C, Nq, dl, backward);
-}
-
 // A block's dynamic shared memory for the admission checks of the entry
 // points, past the 227 KB a block may have when the plan does not take the
 // shape.
@@ -198,9 +192,13 @@ struct CaArgs {
     const bf16* fwh16;
     bf16* out16;
     const float* dfcc;    // backward
-    float* dh;
+    float* dh;            // fp32 at either type
     float* dq;
     float* part;          // (B * tiles, 2 * Nq * dl + dl)
+    // The backward's bf16 variant (K3-bf16): dfcc and dq in bf16, besides
+    // the forward's bf16 rows.
+    const bf16* dfcc16;
+    bf16* dq16;
 };
 
 // Copies `rows` rows of dl floats (source stride dl) into shared rows of
@@ -712,8 +710,10 @@ __global__ void __launch_bounds__(kCaThreads, 2) content_attn_fwd_kernel(CaArgs 
 }
 
 // The backward. Grid: B * tiles blocks of kCaThreads; writes dh, dq and the
-// block's partial sums part[b * tiles + tile] = (dfwh, dkhat, dfsh).
-template <bool kVec>
+// block's partial sums part[b * tiles + tile] = (dfwh, dkhat, dfsh). kBf16:
+// the bf16 variant (CaArgs' h16, q16, khat16, fwh16, dfcc16 and dq16; dh
+// fp32).
+template <bool kVec, bool kBf16 = false>
 __global__ void __launch_bounds__(kCaThreads, 1) content_attn_bwd_kernel(CaArgs a) {
     extern __shared__ __align__(16) float smem[];
     const CaShape s = ca_shape(a.pp, a.C, a.Nq, a.dl);
@@ -749,14 +749,15 @@ __global__ void __launch_bounds__(kCaThreads, 1) content_attn_bwd_kernel(CaArgs 
 
     for (int e = threadIdx.x; e < 2 * s.NQ4 * dlp; e += kCaThreads) Fw[e] = 0.f;
     float4 fsh_acc[2] = {f4(0.f), f4(0.f)};
-    ca_stage_element<kVec>(a, s, b, Ks, Vs, fshs, qms);
+    ca_stage_element<kVec, kBf16>(a, s, b, Ks, Vs, fshs, qms);
     for (int n0 = n_begin; n0 < n_end; n0 += a.pp) {
         const int npair = min(a.pp, n_end - n0);
         const int rows = npair * C;
         const size_t row0 = ((size_t)b * a.N + n0) * C;
-        ca_stage_rows<kVec>(Qs, a.q + row0 * a.dl, rows, s.RP, a.dl, s.dl4, s.DS);
-        ca_stage_rows<kVec>(Hs, a.h + row0 * a.dl, rows, s.RP, a.dl, s.dl4, s.DS);
-        ca_stage_rows<kVec>(Os, a.dfcc + row0 * a.dl, rows, s.RP, a.dl, s.dl4, s.DS);
+        ca_stage_act<kVec, kBf16>(Qs, a.q, a.q16, row0 * a.dl, rows, s.RP, a.dl, s.dl4, s.DS);
+        ca_stage_act<kVec, kBf16>(Hs, a.h, a.h16, row0 * a.dl, rows, s.RP, a.dl, s.dl4, s.DS);
+        ca_stage_act<kVec, kBf16>(Os, a.dfcc, a.dfcc16, row0 * a.dl, rows, s.RP, a.dl, s.dl4,
+                                  s.DS);
         for (int j = threadIdx.x; j < s.PP4; j += kCaThreads)
             vms[j] = j < npair ? a.vmask[(size_t)b * a.N + n0 + j] : 0.f;
         ca_wait_all();
@@ -965,7 +966,10 @@ __global__ void __launch_bounds__(kCaThreads, 1) content_attn_bwd_kernel(CaArgs 
 #pragma unroll
                 for (int j = 0; j < 2; ++j) {
                     const int c4 = dgi + DG * j;
-                    if (c4 < s.dl4)
+                    if (c4 >= s.dl4) continue;
+                    if constexpr (kBf16)
+                        ca_store_bf16<kVec>(a.dq16 + (row0 + r0 + i) * a.dl, c4, a.dl, acc[i][j]);
+                    else
                         ca_store<kVec>(a.dq + (row0 + r0 + i) * a.dl, c4, a.dl, acc[i][j]);
                 }
             }
@@ -1029,12 +1033,14 @@ __global__ void __launch_bounds__(kCaThreads, 1) content_attn_bwd_kernel(CaArgs 
 }
 
 // Adds the partials of an element's tiles in tile order: grid (ceil(PF /
-// 256), B), PF = 2 * Nq * dl + dl floats per tile.
+// 256), B), PF = 2 * Nq * dl + dl floats per tile; dkhat and dfsh rounded
+// once to TK (fp32, or bf16 for the bf16 variant), dfwh fp32.
+template <typename TK = float>
 static __global__ void content_partial_reduce_kernel(int tiles, int Nq, int dl,
                                                      const float* __restrict__ part,
                                                      float* __restrict__ dfwh,
-                                                     float* __restrict__ dkhat,
-                                                     float* __restrict__ dfsh) {
+                                                     TK* __restrict__ dkhat,
+                                                     TK* __restrict__ dfsh) {
     const int PF = 2 * Nq * dl + dl;
     const int e = blockIdx.x * blockDim.x + threadIdx.x;
     const int b = blockIdx.y;
@@ -1046,9 +1052,9 @@ static __global__ void content_partial_reduce_kernel(int tiles, int Nq, int dl,
     if (e < QD)
         dfwh[(size_t)b * QD + e] = t;
     else if (e < 2 * QD)
-        dkhat[(size_t)b * QD + e - QD] = t;
+        dkhat[(size_t)b * QD + e - QD] = from_f<TK>(t);
     else
-        dfsh[(size_t)b * dl + e - 2 * QD] = t;
+        dfsh[(size_t)b * dl + e - 2 * QD] = from_f<TK>(t);
 }
 
 inline CaArgs ca_args(const ContentAttnPlan& p, int N, int C, int Nq, int dl) {
@@ -1159,6 +1165,46 @@ inline cudaError_t content_attn_backward(cudaStream_t st, int B, int N, int C, i
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     const int PF = 2 * Nq * dl + dl;
     content_partial_reduce_kernel<<<dim3((PF + 255) / 256, B), 256, 0, st>>>(
+        p.tiles, Nq, dl, part, dfwh, dkhat, dfsh);
+    return cudaGetLastError();
+}
+
+// The backward's bf16 variant: h, q, dfcc (B*N*C, dl), khat, fwh (B*Nq, dl)
+// bf16 and fsh fp32 in; dh (B*N*C, dl) and dfwh (B*Nq, dl) fp32 out, dq,
+// dkhat and dfsh rounded once to bf16. Same plan and shared memory as the
+// fp32 backward (the rows are staged in fp32). Returns the first CUDA error.
+inline cudaError_t content_attn_backward(cudaStream_t st, int B, int N, int C, int Nq, int dl,
+                                         const bf16* h, const bf16* q, const bf16* khat,
+                                         const bf16* fwh, const float* fsh,
+                                         const float* qmask, const float* vmask,
+                                         const bf16* dfcc, float* dh, bf16* dq, float* part,
+                                         float* dfwh, bf16* dkhat, bf16* dfsh) {
+    const ContentAttnPlan p = content_attn_plan(B, N, C, Nq, dl, true);
+    if (!p.smem) return cudaErrorInvalidValue;
+    CaArgs a = ca_args(p, N, C, Nq, dl);
+    a.h16 = h;
+    a.q16 = q;
+    a.khat16 = khat;
+    a.fwh16 = fwh;
+    a.fsh = fsh;
+    a.qmask = qmask;
+    a.vmask = vmask;
+    a.dfcc16 = dfcc;
+    a.dh = dh;
+    a.dq16 = dq;
+    a.part = part;
+    const bool vec = dl % 4 == 0 && aligned8(h) && aligned8(q) && aligned8(khat) &&
+                     aligned8(fwh) && aligned16(fsh) && aligned8(dfcc) && aligned16(dh) &&
+                     aligned8(dq);
+    auto kernel = vec ? content_attn_bwd_kernel<true, true> : content_attn_bwd_kernel<false, true>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<(unsigned)((long long)B * p.tiles), kCaThreads, p.smem, st>>>(a);
+    ++g_content_attn_launches[1];
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const int PF = 2 * Nq * dl + dl;
+    content_partial_reduce_kernel<bf16><<<dim3((PF + 255) / 256, B), 256, 0, st>>>(
         p.tiles, Nq, dl, part, dfwh, dkhat, dfsh);
     return cudaGetLastError();
 }

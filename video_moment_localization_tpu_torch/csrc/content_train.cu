@@ -209,7 +209,8 @@ int vml_content_rows_bwd_f32(void* stream, int B, int N, int C, int Nq, int D, i
     err = vml::content_backward(st, B, N, C, Nq, D, dl, fc, fw, fs, qmask, vmask, p, k.s, k.w,
                                 k.partial, dfc, dw);
     if (err != cudaSuccess) return (int)err;
-    err = vml::content_input_grads(st, B, N, C, Nq, D, dl, p, k.w, false, dfc, dfw, dfs);
+    err = vml::content_input_grads(st, B, N, C, Nq, D, dl, p, k.w, nullptr, nullptr, dfc, dfw,
+                                   dfs);
 #undef VML_CHECK
     return (int)err;
 }
@@ -300,7 +301,8 @@ int vml_content_unit_bwd_f32(void* stream, int B, int N, int C, int Nq, int D, i
     err = vml::content_backward(st, B, N, C, Nq, D, dl, fc, fw, fs, qmask, vmask, p, k.s, k.w,
                                 k.partial, dfc, dw);
     if (err != cudaSuccess) return (int)err;
-    return (int)vml::content_input_grads(st, B, N, C, Nq, D, dl, p, k.w, true, dfc, dfw, dfs);
+    return (int)vml::content_input_grads(st, B, N, C, Nq, D, dl, p, k.w, dfw, dfs, dfc, dfw,
+                                         dfs);
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
 // The shared GEMM of gemm.cuh on its own, for the card tests and the GEMM
 // phase of chip_smoke.py (ops/gemm_cuda.py): each fp32 layout with every
 // epilogue term, `ascale`, a forced block tile and path (CUDA cores or
-// 3xTF32 tensor cores) and gemm_tn's fused column sums; the bf16 path's nt
-// product with its epilogue; plus the host-side plans (path, tile, split-K,
+// 3xTF32 tensor cores) and gemm_tn's fused column sums; the bf16 path's
+// three layouts with their epilogues; plus the host-side plans (path, tile, split-K,
 // shared memory) that the Python mirror in ops/gemm_cuda.py is held
 // against. It replaces no TPU kernel: the JAX
 // package's kernels run their products inside each Pallas body, and the
@@ -69,7 +69,7 @@ void vml_gemm_splitk(int M, int N, int R, int* splits, int* kchunk) {
 // and tile.
 size_t vml_gemm_smem_bytes(int path, int layout, int tile) {
     using vml::gemm_smem_bytes;
-    if (path == vml::kPathBf16) return layout == 0 ? vml::gemm_bf16_smem_bytes_for(tile) : 0;
+    if (path == vml::kPathBf16) return vml::gemm_bf16_smem_bytes_for(layout, tile);
     const size_t bytes[3][3] = {
         {gemm_smem_bytes<128, 128, false, false>(path), gemm_smem_bytes<128, 64, false, false>(path),
          gemm_smem_bytes<64, 64, false, false>(path)},
@@ -80,7 +80,7 @@ size_t vml_gemm_smem_bytes(int path, int layout, int tile) {
     return bytes[layout][tile];
 }
 
-// The path of a bf16 product of a layout (-1: no bf16 kernel for it).
+// The path of a bf16 product of a layout (0 nt, 1 nn, 2 tn).
 int vml_gemm_path_for_bf16(int layout) { return vml::gemm_path_for_bf16(layout); }
 
 // C = ep(A @ W^T) with A (M, K), W (N, K) bf16, bias and rmask fp32, post
@@ -101,6 +101,35 @@ int vml_gemm_bf16(void* stream, int M, int N, int K, const vml::bf16* A, int lda
     ep.post2_div = post2_div;
     vml::gemm_nt_bf16(static_cast<cudaStream_t>(stream), M, N, K, A, lda, W, ldw, C, ldc,
                       out_f32 != 0, ep, tile);
+    return (int)cudaGetLastError();
+}
+
+// The bf16 path's nn and tn layouts: layout 1: C = ep(A @ W), A (M, K), W
+// (K, N), with the bias, pre (fp32), rmask and post32 (fp32) terms of the
+// epilogue, C bf16 or fp32 (out_f32); layout 2: C (M, N) fp32 = (A *
+// ascale)^T @ W, A (K, M), W (K, N), through `partial`
+// (vml_gemm_tn_partial_floats floats), bias_out (M,) the column sums of the
+// scaled A when not null. Returns the launch's CUDA error, 0 if none.
+int vml_gemm_bf16_layout(void* stream, int layout, int M, int N, int K, const vml::bf16* A,
+                         int lda, const float* ascale, int adiv, const vml::bf16* W, int ldw,
+                         void* C, int ldc, int out_f32, const float* bias, const float* pre,
+                         int ldpre, const float* rmask, int mask_div, const float* post32,
+                         int ldpost32, float* partial, float* bias_out) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (layout == 1) {
+        vml::EpilogueBf16 ep;
+        ep.bias = bias;
+        ep.pre = pre;
+        ep.ldpre = ldpre;
+        ep.rmask = rmask;
+        ep.mask_div = mask_div;
+        ep.post32 = post32;
+        ep.ldpost32 = ldpost32;
+        vml::gemm_nn_bf16(st, M, N, K, A, lda, W, ldw, C, ldc, out_f32 != 0, ep);
+    } else {
+        vml::gemm_tn_bf16(st, M, N, K, A, lda, ascale, adiv, W, ldw, partial,
+                          static_cast<float*>(C), bias_out);
+    }
     return (int)cudaGetLastError();
 }
 

@@ -1132,61 +1132,103 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ------------------------------------------------------------------------
-// The bf16 path: C = epilogue(A W^T) with A (M, K) and W (N, K) in bf16,
-// products of bf16 operands added in fp32 (mma.sync m16n8k16, bf16 -> fp32),
-// the epilogue in fp32 and the result stored in bf16 or fp32. It serves the
-// bf16 variants of K4 and K5 (serving only, so gemm_nt alone), the
-// counterpart of the JAX kernels' single-pass bf16 products with fp32
-// accumulation (preferred_element_type=f32). Bound on the H100: the
-// operations at 989 TFLOP/s of dense bf16 for the large products; a simple
-// kernel, not yet near that rate:
+// The bf16 path: C = epilogue(op(A) op(W)) with A and W in bf16, products of
+// bf16 operands added in fp32 (mma.sync m16n8k16, bf16 -> fp32), the
+// epilogue in fp32 and the result stored in bf16 or fp32; the counterpart of
+// the JAX kernels' single-pass bf16 products with fp32 accumulation
+// (preferred_element_type=f32). The three layouts of the fp32 path:
+//   gemm_nt_bf16  C = A W^T, A (M, K), W (N, K): the forward projections of
+//                 the bf16 variants of K4, K5 and K2;
+//   gemm_nn_bf16  C = A W, W (K, N): dX = dY W of K3-bf16;
+//   gemm_tn_bf16  C = (A * ascale)^T B, A (R, M), B (R, N), reduced over R
+//                 in split blocks whose fp32 partial sums
+//                 `reduce_partials_kernel` adds in a fixed order (no
+//                 atomics), with the column sums of the scaled A from the
+//                 same pass: the weight and bias gradients of K3-bf16, fp32.
+// Bound on the H100: the operations at 989 TFLOP/s of dense bf16 for the
+// large products; a simple kernel, not yet near that rate:
 //   * block tiles and grid as the fp32 path (`gemm_tile_for`: 128x128,
-//     128x64 or 64x64, the problem index along gridDim.y), 256 threads as
-//     8 warps of 64x32, 32x32 or 32x16 outputs;
-//   * 32-deep K slices in a 4-stage ring of 16-byte cp.async copies, rows of
-//     40 bf16 in shared memory (80 bytes: ldmatrix's 8 row addresses fall
-//     on 8 distinct groups of 4 banks);
-//   * fragments by ldmatrix (x4 for A's 16 x 16, x4 for two n8 tiles of W:
-//     W's rows are n, contiguous in k, which is the col layout mma wants);
-//   * the epilogue from the fragments: bias, the row mask and the two bf16
-//     residuals in fp32, one rounding to the output type;
-//   * operands that are not 16-byte aligned or whose K or leading
-//     dimensions are no multiple of 8 take synchronous guarded loads.
+//     128x64 or 64x64, the problem index along gridDim.y; gemm_tn 128x128
+//     with `splitk_for`'s split along gridDim.z), 256 threads as 8 warps of
+//     64x32, 32x32 or 32x16 outputs;
+//   * 32-deep K slices in a 4-stage ring of 16-byte cp.async copies. An
+//     operand contiguous along k lands as rows of 40 bf16 (80 bytes:
+//     ldmatrix's 8 row addresses fall on 8 distinct groups of 4 banks); one
+//     contiguous along its rows (A of gemm_tn, W of gemm_nn and gemm_tn)
+//     lands k-major as it lies, 32 rows of R + 8 bf16 (272 or 144 bytes:
+//     the same 8 distinct groups);
+//   * fragments by ldmatrix (x4 for A's 16 x 16, x4 for two n8 tiles of W),
+//     with .trans for a k-major tile: ldmatrix.trans hands each lane the
+//     elements of the transposed 8 x 8 matrix, which is the fragment mma
+//     wants, so no operand is transposed in memory;
+//   * gemm_tn's row scale (the backward's row masks) is applied to the
+//     landed A slice in shared memory, and the blocks of the first column
+//     tile add that scaled slice per column, in order (the bias gradient);
+//   * the epilogue from the fragments: bias, pre (fp32), the row mask and
+//     the residuals (bf16 post and post2, fp32 post32) in fp32, one rounding
+//     to the output type;
+//   * operands that are not 16-byte aligned or whose contiguous extents or
+//     leading dimensions are no multiple of 8 take synchronous guarded loads.
 struct EpilogueBf16 {
     const float* bias = nullptr;   // (N,)
+    const float* pre = nullptr;    // (M, ldpre) fp32, added before the mask
+    int ldpre = 0;
     const float* rmask = nullptr;  // (M / mask_div,)
     int mask_div = 1;
     const bf16* post = nullptr;    // (M, ldpost), added after the mask
     int ldpost = 0;
+    const float* post32 = nullptr; // (M, ldpost32) fp32, added after the mask
+    int ldpost32 = 0;
     const bf16* post2 = nullptr;   // (M / post2_div, ldpost2), after the mask
     int ldpost2 = 0;
     int post2_div = 1;
 };
 
 constexpr int kBfBK = 32;             // K of a stage
-constexpr int kBfLd = kBfBK + 8;      // bf16 per shared row
+constexpr int kBfLd = kBfBK + 8;      // bf16 per shared row of a k-contiguous tile
+constexpr int kBfPad = 8;             // bf16 past R per shared row of a k-major tile
 constexpr int kBfStages = 4;
 constexpr int kPathBf16 = 2;          // ops/gemm_cuda.py::BF16
 
 struct GemmBf16Params {
-    int M, N, K;
+    int M, N, K, kchunk;
     const bf16* A;
     int lda, ldw, ldc;
+    const float* ascale;      // gemm_tn: scale of A's stored row r (r / adiv)
+    int adiv;
     const bf16* W[2];
-    void* C[2];               // bf16 or, when out_f32, float
+    void* C[2];               // bf16 or, when out_f32, float (gemm_tn: the partials)
     EpilogueBf16 ep[2];
     bool out_f32;
+    float* colsum;            // gemm_tn: (gridDim.z, M) partial column sums of the scaled A
 };
 
-template <int BM, int BN>
-constexpr size_t gemm_bf16_smem_bytes() {
-    return sizeof(bf16) * (size_t)kBfStages * (BM + BN) * kBfLd;
+// bf16 elements of one operand's slice of R rows (m or n): k-major (kKM,
+// kBfBK rows of R + kBfPad) or k-contiguous (R rows of kBfLd).
+template <int R, bool kKM>
+__host__ __device__ constexpr int gemm_bf16_tile_elems() {
+    return kKM ? kBfBK * (R + kBfPad) : R * kBfLd;
 }
 
-inline size_t gemm_bf16_smem_bytes_for(int tile) {
-    return tile == kTile128x128 ? gemm_bf16_smem_bytes<128, 128>()
-           : tile == kTile128x64 ? gemm_bf16_smem_bytes<128, 64>()
-                                 : gemm_bf16_smem_bytes<64, 64>();
+template <int BM, int BN, bool kAT, bool kBN>
+constexpr size_t gemm_bf16_smem_bytes() {
+    return sizeof(bf16) * (size_t)kBfStages *
+           (gemm_bf16_tile_elems<BM, kAT>() + gemm_bf16_tile_elems<BN, kBN>());
+}
+
+// By layout (0 nt, 1 nn, 2 tn) and tile.
+inline size_t gemm_bf16_smem_bytes_for(int layout, int tile) {
+    switch (layout * 3 + tile) {
+        case 0: return gemm_bf16_smem_bytes<128, 128, false, false>();
+        case 1: return gemm_bf16_smem_bytes<128, 64, false, false>();
+        case 2: return gemm_bf16_smem_bytes<64, 64, false, false>();
+        case 3: return gemm_bf16_smem_bytes<128, 128, false, true>();
+        case 4: return gemm_bf16_smem_bytes<128, 64, false, true>();
+        case 5: return gemm_bf16_smem_bytes<64, 64, false, true>();
+        case 6: return gemm_bf16_smem_bytes<128, 128, true, true>();
+        case 7: return gemm_bf16_smem_bytes<128, 64, true, true>();
+        default: return gemm_bf16_smem_bytes<64, 64, true, true>();
+    }
 }
 
 __device__ __forceinline__ void cp_async16_any(void* dst, const void* src, bool valid) {
@@ -1202,6 +1244,13 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
                  : "r"(s));
 }
 
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(s));
+}
+
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
                                          unsigned b1) {
     asm volatile(
@@ -1211,39 +1260,59 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One operand's R x kBfBK slice into shared rows of kBfLd (row r at s + r *
-// kBfLd), rows from r0 on (of `rows`), k from k0 on (of K).
-template <int R, bool kVec>
+// One operand's slice of R rows from r0 on (of `rows`) and kBfBK k from k0 on
+// (k below kend), into shared memory. kKM: element (k, r) at P[k * ld + r],
+// stored k-major (row k at s + k * (R + kBfPad)); else at P[r * ld + k],
+// stored k-contiguous (row r at s + r * kBfLd). kVec: 16-byte copies of 8
+// elements along the contiguous extent, which then is a multiple of 8 (a
+// copy is wholly inside or outside it).
+template <int R, bool kKM, bool kVec>
 __device__ __forceinline__ void gemm_bf16_load(bf16* s, const bf16* __restrict__ P, int ld,
-                                               int rows, int r0, int k0, int K) {
+                                               int rows, int r0, int k0, int kend) {
     constexpr int kChunks = R * (kBfBK / 8);     // 16-byte chunks of the slice
     for (int c = threadIdx.x; c < kChunks; c += kGemmThreads) {
-        const int r = c / (kBfBK / 8);
-        const int kc = (c % (kBfBK / 8)) * 8;
-        const int gr = r0 + r, gk = k0 + kc;
-        bf16* dst = s + r * kBfLd + kc;
+        int r, k;
+        bf16* dst;
+        if constexpr (kKM) {
+            k = c / (R / 8);
+            r = (c % (R / 8)) * 8;
+            dst = s + k * (R + kBfPad) + r;
+        } else {
+            r = c / (kBfBK / 8);
+            k = (c % (kBfBK / 8)) * 8;
+            dst = s + r * kBfLd + k;
+        }
+        const int gr = r0 + r, gk = k0 + k;
         if constexpr (kVec) {
-            const bool ok = gr < rows && gk < K;
-            cp_async16_any(dst, ok ? P + (size_t)gr * ld + gk : P, ok);
+            const bool ok = gr < rows && gk < kend;
+            const bf16* src = ok ? (kKM ? P + (size_t)gk * ld + gr : P + (size_t)gr * ld + gk) : P;
+            cp_async16_any(dst, src, ok);
         } else {
 #pragma unroll
-            for (int e = 0; e < 8; ++e)
-                dst[e] = (gr < rows && gk + e < K) ? P[(size_t)gr * ld + gk + e]
-                                                   : __float2bfloat16(0.f);
+            for (int e = 0; e < 8; ++e) {
+                const int er = kKM ? gr + e : gr, ek = kKM ? gk : gk + e;
+                dst[e] = (er < rows && ek < kend) ? P[(size_t)(kKM ? ek : er) * ld + (kKM ? er : ek)]
+                                                  : __float2bfloat16(0.f);
+            }
         }
     }
 }
 
-template <int BM, int BN, bool kVec>
+// kAT: A stored (K, M) (gemm_tn); kBN: W stored (K, N) (gemm_nn, gemm_tn);
+// else (M, K) and (N, K). Block z reduces k in [z * kchunk, min(K, (z + 1)
+// * kchunk)) into C + z * M * ldc (one block when kchunk >= K).
+template <int BM, int BN, bool kAT, bool kBN, bool kVec>
 __global__ void __launch_bounds__(kGemmThreads, 2) gemm_bf16_kernel(GemmBf16Params p) {
     extern __shared__ __align__(16) unsigned char gemm_bf16_smem[];
     constexpr int WARPS_M = BN == 128 ? 2 : (BM == 128 ? 4 : 2);
     constexpr int WARPS_N = 8 / WARPS_M;
     constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
     constexpr int MT = WM / 16, NT = WN / 8;
+    constexpr int AE = gemm_bf16_tile_elems<BM, kAT>(), WE = gemm_bf16_tile_elems<BN, kBN>();
+    constexpr int ALD = BM + kBfPad, WLD = BN + kBfPad;   // k-major row strides
     static_assert(NT % 2 == 0, "two n8 tiles per ldmatrix");
     bf16* As = reinterpret_cast<bf16*>(gemm_bf16_smem);
-    bf16* Ws = As + (size_t)kBfStages * BM * kBfLd;
+    bf16* Ws = As + (size_t)kBfStages * AE;
 
     const int g = blockIdx.y;
     const bf16* __restrict__ W = p.W[g];
@@ -1252,6 +1321,9 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_bf16_kernel(GemmBf16Para
     const int n0 = (int)(blockIdx.x % tiles_n) * BN;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int wm0 = (warp / WARPS_N) * WM, wn0 = (warp % WARPS_N) * WN;
+    const int kbeg = blockIdx.z * p.kchunk;
+    const int kend = min(p.K, kbeg + p.kchunk);
+    const bool colsum = kAT && p.colsum && n0 == 0;
 
     float acc[MT][NT][4];
 #pragma unroll
@@ -1260,39 +1332,61 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_bf16_kernel(GemmBf16Para
         for (int j = 0; j < NT; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    float csum = 0.f;
 
-    const int ktiles = (p.K + kBfBK - 1) / kBfBK;
+    auto load = [&](int st, int k0) {
+        gemm_bf16_load<BM, kAT, kVec>(As + st * AE, p.A, p.lda, p.M, m0, k0, kend);
+        gemm_bf16_load<BN, kBN, kVec>(Ws + st * WE, W, p.ldw, p.N, n0, k0, kend);
+    };
+    const int ktiles = (kend - kbeg + kBfBK - 1) / kBfBK;
 #pragma unroll
     for (int st = 0; st < kBfStages - 1; ++st) {
-        if (st < ktiles) {
-            gemm_bf16_load<BM, kVec>(As + st * BM * kBfLd, p.A, p.lda, p.M, m0, st * kBfBK, p.K);
-            gemm_bf16_load<BN, kVec>(Ws + st * BN * kBfLd, W, p.ldw, p.N, n0, st * kBfBK, p.K);
-        }
+        if (st < ktiles) load(st, kbeg + st * kBfBK);
         cp_async_commit();
     }
     for (int kt = 0; kt < ktiles; ++kt) {
         cp_async_wait<kBfStages - 2>();
         __syncthreads();
         const int nk = kt + kBfStages - 1;
-        if (nk < ktiles) {
-            const int st = nk % kBfStages;
-            gemm_bf16_load<BM, kVec>(As + st * BM * kBfLd, p.A, p.lda, p.M, m0, nk * kBfBK, p.K);
-            gemm_bf16_load<BN, kVec>(Ws + st * BN * kBfLd, W, p.ldw, p.N, n0, nk * kBfBK, p.K);
-        }
+        if (nk < ktiles) load(nk % kBfStages, kbeg + nk * kBfBK);
         cp_async_commit();
-        const bf16* a_s = As + (kt % kBfStages) * BM * kBfLd;
-        const bf16* w_s = Ws + (kt % kBfStages) * BN * kBfLd;
+        bf16* a_s = As + (kt % kBfStages) * AE;
+        const bf16* w_s = Ws + (kt % kBfStages) * WE;
+        if constexpr (kAT) {
+            const int k0 = kbeg + kt * kBfBK;
+            if (p.ascale) {   // the row scale of the landed slice, in place
+                for (int e = threadIdx.x; e < kBfBK * BM; e += kGemmThreads) {
+                    const int k = e / BM, m = e % BM;
+                    const float sc = k0 + k < kend ? p.ascale[(k0 + k) / p.adiv] : 0.f;
+                    bf16* at = a_s + k * ALD + m;
+                    *at = __float2bfloat16(__bfloat162float(*at) * sc);
+                }
+                __syncthreads();
+            }
+            if (colsum && threadIdx.x < BM)
+                for (int k = 0; k < kBfBK; ++k) csum += __bfloat162float(a_s[k * ALD + threadIdx.x]);
+        }
 #pragma unroll
         for (int kk = 0; kk < kBfBK; kk += 16) {
             unsigned af[MT][4];
 #pragma unroll
-            for (int i = 0; i < MT; ++i)
-                ldmatrix_x4(af[i], a_s + (wm0 + i * 16 + lane % 16) * kBfLd + kk + (lane / 16) * 8);
+            for (int i = 0; i < MT; ++i) {
+                if constexpr (kAT)
+                    ldmatrix_x4_trans(af[i], a_s + (kk + lane % 8 + (lane / 16) * 8) * ALD + wm0 +
+                                                 i * 16 + ((lane / 8) % 2) * 8);
+                else
+                    ldmatrix_x4(af[i], a_s + (wm0 + i * 16 + lane % 16) * kBfLd + kk +
+                                           (lane / 16) * 8);
+            }
 #pragma unroll
             for (int j = 0; j < NT; j += 2) {
                 unsigned bfr[4];
-                ldmatrix_x4(bfr, w_s + (wn0 + j * 8 + lane % 8 + (lane / 16) * 8) * kBfLd + kk +
-                                     ((lane / 8) % 2) * 8);
+                if constexpr (kBN)
+                    ldmatrix_x4_trans(bfr, w_s + (kk + lane % 8 + ((lane / 8) % 2) * 8) * WLD + wn0 +
+                                               j * 8 + (lane / 16) * 8);
+                else
+                    ldmatrix_x4(bfr, w_s + (wn0 + j * 8 + lane % 8 + (lane / 16) * 8) * kBfLd + kk +
+                                         ((lane / 8) % 2) * 8);
 #pragma unroll
                 for (int i = 0; i < MT; ++i) {
                     mma_bf16(acc[i][j], af[i], bfr[0], bfr[1]);
@@ -1302,9 +1396,12 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_bf16_kernel(GemmBf16Para
         }
     }
     cp_async_wait<0>();
+    if (colsum && threadIdx.x < BM && m0 + (int)threadIdx.x < p.M)
+        p.colsum[(size_t)blockIdx.z * p.M + m0 + threadIdx.x] = csum;
 
     const EpilogueBf16& ep = p.ep[g];
     const int gq = lane / 4, tq = lane % 4;
+    const size_t zoff = (size_t)blockIdx.z * p.M * p.ldc;
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
 #pragma unroll
@@ -1320,13 +1417,16 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_bf16_kernel(GemmBf16Para
                     if (c >= p.N) continue;
                     float v = acc[i][j][half * 2 + e];
                     if (ep.bias) v += ep.bias[c];
+                    if (ep.pre) v += ep.pre[(size_t)r * ep.ldpre + c];
                     v *= mask;
                     if (ep.post) v += to_f(ep.post[(size_t)r * ep.ldpost + c]);
+                    if (ep.post32) v += ep.post32[(size_t)r * ep.ldpost32 + c];
                     if (ep.post2) v += to_f(ep.post2[(size_t)(r / ep.post2_div) * ep.ldpost2 + c]);
+                    const size_t o = zoff + (size_t)r * p.ldc + c;
                     if (p.out_f32)
-                        static_cast<float*>(p.C[g])[(size_t)r * p.ldc + c] = v;
+                        static_cast<float*>(p.C[g])[o] = v;
                     else
-                        static_cast<bf16*>(p.C[g])[(size_t)r * p.ldc + c] = __float2bfloat16(v);
+                        static_cast<bf16*>(p.C[g])[o] = __float2bfloat16(v);
                 }
             }
         }
@@ -1334,18 +1434,20 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_bf16_kernel(GemmBf16Para
 }
 
 // Whether this library has raised a bf16 kernel instance's shared-memory
-// limit on a device, by [device][tile][vec] (internal linkage: one per
-// library, as g_gemm_smem_raised).
-static bool g_gemm_bf16_smem_raised[8][3][2];
+// limit on a device, by [device][layout][tile][vec] (internal linkage: one
+// per library, as g_gemm_smem_raised).
+static bool g_gemm_bf16_smem_raised[8][3][3][2];
 
-template <int BM, int BN>
+template <int BM, int BN, bool kAT, bool kBN>
 inline void gemm_bf16_run(cudaStream_t st, dim3 grid, const GemmBf16Params& p, bool vec) {
     constexpr int tile = BM == 128 ? (BN == 128 ? kTile128x128 : kTile128x64) : kTile64x64;
-    const size_t smem = gemm_bf16_smem_bytes<BM, BN>();
-    auto kernel = vec ? gemm_bf16_kernel<BM, BN, true> : gemm_bf16_kernel<BM, BN, false>;
+    constexpr int layout = kAT ? 2 : kBN ? 1 : 0;
+    const size_t smem = gemm_bf16_smem_bytes<BM, BN, kAT, kBN>();
+    auto kernel = vec ? gemm_bf16_kernel<BM, BN, kAT, kBN, true>
+                      : gemm_bf16_kernel<BM, BN, kAT, kBN, false>;
     int dev = 0;
     if (cudaGetDevice(&dev) != cudaSuccess) return;   // the caller's cudaGetLastError() reports it
-    bool* raised = dev < 8 ? &g_gemm_bf16_smem_raised[dev][tile][vec] : nullptr;
+    bool* raised = dev < 8 ? &g_gemm_bf16_smem_raised[dev][layout][tile][vec] : nullptr;
     if (!raised || !*raised) {
         if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)smem) != cudaSuccess)
@@ -1355,20 +1457,40 @@ inline void gemm_bf16_run(cudaStream_t st, dim3 grid, const GemmBf16Params& p, b
     kernel<<<grid, kGemmThreads, smem, st>>>(p);
 }
 
-// The path a bf16 product takes: the bf16 tensor-core kernel, layout nt
-// only (0); -1 for the layouts it has no kernel for.
-inline int gemm_path_for_bf16(int layout) { return layout == 0 ? kPathBf16 : -1; }
+// The path a bf16 product of any layout (0 nt, 1 nn, 2 tn) takes: the bf16
+// tensor-core kernel.
+inline int gemm_path_for_bf16(int layout) { return layout >= 0 && layout <= 2 ? kPathBf16 : -1; }
 
-inline void gemm_bf16_launch(cudaStream_t st, GemmBf16Params p, int groups, int tile) {
+// Launches one layout over `groups` problems and `splits` blocks along z;
+// tile < 0 picks the tile (gemm_tn: 128x128).
+template <bool kAT, bool kBN>
+inline void gemm_bf16_launch(cudaStream_t st, GemmBf16Params p, int groups, int splits,
+                             int tile) {
+    if (kAT) tile = kTile128x128;
     if (tile < 0) tile = gemm_tile_for(p.M, p.N, groups);
-    const dim3 grid((unsigned)gemm_tiles(tile, p.M, p.N), groups, 1);
-    bool vec = p.K % 8 == 0 && p.lda % 8 == 0 && p.ldw % 8 == 0 && aligned16(p.A);
+    const dim3 grid((unsigned)gemm_tiles(tile, p.M, p.N), groups, splits);
+    // 16-byte copies: the extent along which each operand is contiguous.
+    bool vec = (kAT ? p.M : p.K) % 8 == 0 && (kBN ? p.N : p.K) % 8 == 0 && p.lda % 8 == 0 &&
+               p.ldw % 8 == 0 && aligned16(p.A);
     for (int g = 0; g < groups; ++g) vec = vec && aligned16(p.W[g]);
-    switch (tile) {
-        case kTile128x128: gemm_bf16_run<128, 128>(st, grid, p, vec); break;
-        case kTile128x64: gemm_bf16_run<128, 64>(st, grid, p, vec); break;
-        default: gemm_bf16_run<64, 64>(st, grid, p, vec); break;
+    if constexpr (kAT) {
+        gemm_bf16_run<128, 128, kAT, kBN>(st, grid, p, vec);
+    } else {
+        switch (tile) {
+            case kTile128x128: gemm_bf16_run<128, 128, kAT, kBN>(st, grid, p, vec); break;
+            case kTile128x64: gemm_bf16_run<128, 64, kAT, kBN>(st, grid, p, vec); break;
+            default: gemm_bf16_run<64, 64, kAT, kBN>(st, grid, p, vec); break;
+        }
     }
+}
+
+inline GemmBf16Params gemm_bf16_params(int M, int N, int K, const bf16* A, int lda, int ldw,
+                                       int ldc, bool out_f32) {
+    GemmBf16Params p{};
+    p.M = M; p.N = N; p.K = K; p.kchunk = K;
+    p.A = A; p.lda = lda; p.ldw = ldw; p.ldc = ldc; p.adiv = 1;
+    p.out_f32 = out_f32;
+    return p;
 }
 
 // C = epilogue(A @ W^T) on `stream`, A (M, K) and W (N, K) bf16; C bf16, or
@@ -1376,21 +1498,62 @@ inline void gemm_bf16_launch(cudaStream_t st, GemmBf16Params p, int groups, int 
 inline void gemm_nt_bf16(cudaStream_t stream, int M, int N, int K, const bf16* A, int lda,
                          const bf16* W, int ldw, void* C, int ldc, bool out_f32,
                          const EpilogueBf16& ep, int tile = -1) {
-    GemmBf16Params p{};
-    p.M = M; p.N = N; p.K = K; p.A = A; p.lda = lda; p.ldw = ldw; p.ldc = ldc;
-    p.W[0] = W; p.C[0] = C; p.ep[0] = ep; p.out_f32 = out_f32;
-    gemm_bf16_launch(stream, p, 1, tile);
+    GemmBf16Params p = gemm_bf16_params(M, N, K, A, lda, ldw, ldc, out_f32);
+    p.W[0] = W; p.C[0] = C; p.ep[0] = ep;
+    gemm_bf16_launch<false, false>(stream, p, 1, 1, tile);
 }
 
 // Two products of one A in one launch (as gemm_nt2), bf16 outputs.
 inline void gemm_nt2_bf16(cudaStream_t stream, int M, int N, int K, const bf16* A, int lda,
                           const bf16* W0, const bf16* W1, int ldw, bf16* C0, bf16* C1, int ldc,
                           const EpilogueBf16& ep0, const EpilogueBf16& ep1) {
-    GemmBf16Params p{};
-    p.M = M; p.N = N; p.K = K; p.A = A; p.lda = lda; p.ldw = ldw; p.ldc = ldc;
+    GemmBf16Params p = gemm_bf16_params(M, N, K, A, lda, ldw, ldc, false);
     p.W[0] = W0; p.W[1] = W1; p.C[0] = C0; p.C[1] = C1; p.ep[0] = ep0; p.ep[1] = ep1;
-    p.out_f32 = false;
-    gemm_bf16_launch(stream, p, 2, -1);
+    gemm_bf16_launch<false, false>(stream, p, 2, 1, -1);
+}
+
+// C = epilogue(A @ W) on `stream`, A (M, K) and W (K, N) bf16; C bf16, or
+// fp32 when out_f32. (A row mask of dY is the epilogue's rmask: with a 0 / 1
+// mask (A * m) W and (A W) * m are the same numbers.)
+inline void gemm_nn_bf16(cudaStream_t stream, int M, int N, int K, const bf16* A, int lda,
+                         const bf16* W, int ldw, void* C, int ldc, bool out_f32,
+                         const EpilogueBf16& ep, int tile = -1) {
+    GemmBf16Params p = gemm_bf16_params(M, N, K, A, lda, ldw, ldc, out_f32);
+    p.W[0] = W; p.C[0] = C; p.ep[0] = ep;
+    gemm_bf16_launch<false, true>(stream, p, 1, 1, tile);
+}
+
+// Two products of one A in one launch, as gemm_nn2.
+inline void gemm_nn2_bf16(cudaStream_t stream, int M, int N, int K, const bf16* A, int lda,
+                          const bf16* W0, const bf16* W1, int ldw, void* C0, void* C1, int ldc,
+                          bool out_f32, const EpilogueBf16& ep0, const EpilogueBf16& ep1) {
+    GemmBf16Params p = gemm_bf16_params(M, N, K, A, lda, ldw, ldc, out_f32);
+    p.W[0] = W0; p.W[1] = W1; p.C[0] = C0; p.C[1] = C1; p.ep[0] = ep0; p.ep[1] = ep1;
+    gemm_bf16_launch<false, true>(stream, p, 2, 1, -1);
+}
+
+// out (M, N) fp32 = (A * ascale[row / adiv])^T @ B, A (R, M), B (R, N) bf16,
+// reduced over the R rows through `partial` (gemm_tn_partial_floats(M, N, R)
+// floats: the split of the fp32 gemm_tn); bias_out (M,) (optional) = the
+// column sums of the scaled A from the same pass.
+inline void gemm_tn_bf16(cudaStream_t stream, int M, int N, int R, const bf16* A, int lda,
+                         const float* ascale, int adiv, const bf16* B, int ldb, float* partial,
+                         float* out, float* bias_out = nullptr) {
+    const SplitK s = splitk_for(M, N, R);
+    GemmBf16Params p = gemm_bf16_params(M, N, R, A, lda, ldb, N, true);
+    p.kchunk = s.kchunk;
+    p.ascale = ascale;
+    p.adiv = adiv;
+    p.W[0] = B;
+    p.C[0] = partial;
+    const size_t count = (size_t)M * N;
+    p.colsum = bias_out ? partial + (size_t)s.splits * count : nullptr;
+    gemm_bf16_launch<true, true>(stream, p, 1, s.splits, kTile128x128);
+    const size_t bcount = bias_out ? (size_t)M : 0;
+    const size_t total = count + bcount;
+    const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
+    reduce_partials_kernel<<<blocks, 256, 0, stream>>>(s.splits, count, partial, out, bcount,
+                                                       p.colsum, bias_out);
 }
 
 // C = A @ W^T + bias in bf16 operands (a plain nn.Linear), C bf16 or fp32

@@ -43,6 +43,12 @@
 // 1.4 MB per element at the Charades shapes (T=64, L=16, C=4, D=512); K8
 // writes 2.6 MB (the L * L cells); each backward reads the cotangents of the
 // N = L(L+1)/2 cells i <= j once and writes 131 KB.
+//
+// K1-bf16 (the training path at bf16) is the same two kernels on bf16 f,
+// fc, fm, fb and cotangents: the prefix sums, difference arrays and scans
+// stay fp32 / fp64, and each output is rounded once to bf16 (the JAX kernel
+// rounds its averaging matrix and its store; its backward accumulates df in
+// fp32). It moves half the bytes of K1.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -107,11 +113,14 @@ __device__ __forceinline__ double frame_sum(const float* diff, int W, int T, int
 // over their staged masks, and fills each group with its next kGroup moments
 // whose mask is not 0; a moment's boundaries are distinct frames, so its
 // slots are read together and then written together.
-template <bool Dense>
+// T_: the element type of the cotangents and df (fp32, or bf16 for K1-bf16:
+// read as fp32, the scatter and scan in fp32 / fp64 as at fp32, df rounded
+// once to bf16).
+template <bool Dense, typename T_ = float>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 proposal_bwd_kernel(int T, int L, int C, int D, const float* __restrict__ mask,
-                    const float* __restrict__ dfc, const float* __restrict__ dfm,
-                    const float* __restrict__ dfb, float* __restrict__ df) {
+                    const T_* __restrict__ dfc, const T_* __restrict__ dfm,
+                    const T_* __restrict__ dfb, T_* __restrict__ df) {
     constexpr int COLS = vml::kPropCols;
     extern __shared__ float smem[];
     __shared__ double run_total[kMaxWarps][COLS];
@@ -129,13 +138,13 @@ proposal_bwd_kernel(int T, int L, int C, int D, const float* __restrict__ mask,
     const bool live = d < D;
     const int tl = T / L;
     const float inv_c = 1.f / (float)C;
-    const float* dfc_b = dfc + (size_t)b * P * C * D + d;
-    const float* dfm_b = dfm + (size_t)b * P * D + d;
+    const T_* dfc_b = dfc + (size_t)b * P * C * D + d;
+    const T_* dfm_b = dfm + (size_t)b * P * D + d;
 
     float* mine = diff + (size_t)warp * T * COLS;
     for (int t = 0; t < T; ++t) mine[t * COLS + lane] = 0.f;
     for (int l = warp; l < L; l += W)
-        dfb_s[l * COLS + lane] = live ? dfb[((size_t)b * L + l) * D + d] : 0.f;
+        dfb_s[l * COLS + lane] = live ? vml::to_f(dfb[((size_t)b * L + l) * D + d]) : 0.f;
     {
         int q = threadIdx.x, i = 0, j = 0;
         if (q < N) vml::pair_of(q, L, i, j);
@@ -185,7 +194,7 @@ proposal_bwd_kernel(int T, int L, int C, int D, const float* __restrict__ mask,
         if (!any) break;
 #pragma unroll
         for (int k = 0; k < kGroup; ++k)
-            if (live && valid[k] > 0) gm[k] = dfm_b[(size_t)n[k] * D] * inv_c;
+            if (live && valid[k] > 0) gm[k] = vml::to_f(dfm_b[(size_t)n[k] * D]) * inv_c;
         for (int c0 = 0; c0 <= C; c0 += kSlots) {
             float v[kGroup][kSlots];
 #pragma unroll
@@ -193,7 +202,7 @@ proposal_bwd_kernel(int T, int L, int C, int D, const float* __restrict__ mask,
 #pragma unroll
                 for (int s = 0; s < kSlots; ++s)
                     v[k][s] = (live && c0 + s < valid[k])
-                                  ? dfc_b[((size_t)n[k] * C + c0 + s) * D] : 0.f;
+                                  ? vml::to_f(dfc_b[((size_t)n[k] * C + c0 + s) * D]) : 0.f;
 #pragma unroll
             for (int k = 0; k < kGroup; ++k) {
                 if (valid[k] == 0) continue;
@@ -235,31 +244,31 @@ proposal_bwd_kernel(int T, int L, int C, int D, const float* __restrict__ mask,
     for (int t = t0; t < t1; ++t) {
         acc += frame_sum(diff, W, T, t, lane);
         if (live)
-            df[((size_t)b * T + t) * D + d] =
-                (float)(acc + (double)dfb_s[(t / tl) * COLS + lane] / (double)tl);
+            df[((size_t)b * T + t) * D + d] = vml::from_f<T_>(
+                (float)(acc + (double)dfb_s[(t / tl) * COLS + lane] / (double)tl));
     }
 }
 
-template <bool Dense>
-int forward(void* stream, int B, int T, int L, int C, int D, const float* f, const float* mask,
-            float* fc, float* fm, float* fb) {
-    return (int)vml::pool_forward<Dense>(static_cast<cudaStream_t>(stream), B, T, L, C, D, f,
-                                         mask, fc, fm, fb);
+template <bool Dense, typename T_ = float>
+int forward(void* stream, int B, int T, int L, int C, int D, const T_* f, const float* mask,
+            T_* fc, T_* fm, T_* fb) {
+    return (int)vml::pool_forward<Dense, T_, T_>(static_cast<cudaStream_t>(stream), B, T, L, C,
+                                                 D, f, mask, fc, fm, fb);
 }
 
-template <bool Dense>
+template <bool Dense, typename T_ = float>
 int backward(void* stream, int B, int T, int L, int C, int D, const float* mask,
-             const float* dfc, const float* dfm, const float* dfb, float* df) {
+             const T_* dfc, const T_* dfm, const T_* dfb, T_* df) {
     const int warps = scatter_warps(T, L);
     if (warps == 0) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(proposal_bwd_kernel<Dense>,
+    cudaError_t err = cudaFuncSetAttribute(proposal_bwd_kernel<Dense, T_>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)scatter_smem_bytes(T, L));
     if (err != cudaSuccess) return (int)err;
     const long long blocks = (long long)B * ((D + vml::kPropCols - 1) / vml::kPropCols);
-    proposal_bwd_kernel<Dense><<<(unsigned)blocks, warps * 32, scatter_smem_bytes(T, L),
-                                 static_cast<cudaStream_t>(stream)>>>(T, L, C, D, mask, dfc,
-                                                                      dfm, dfb, df);
+    proposal_bwd_kernel<Dense, T_><<<(unsigned)blocks, warps * 32, scatter_smem_bytes(T, L),
+                                     static_cast<cudaStream_t>(stream)>>>(T, L, C, D, mask, dfc,
+                                                                          dfm, dfb, df);
     return (int)cudaGetLastError();
 }
 
@@ -289,6 +298,21 @@ int vml_proposal_rows_fwd_f32(void* stream, int B, int T, int L, int C, int D,
 int vml_proposal_rows_bwd_f32(void* stream, int B, int T, int L, int C, int D,
                               const float* length_mask, const float* dfc, const float* dfm,
                               const float* dfb, float* df) {
+    return backward<false>(stream, B, T, L, C, D, length_mask, dfc, dfm, dfb, df);
+}
+
+// K1-bf16: K1 on bf16 f, fc, fm and fb (fp64 prefix sums as at fp32, each
+// output rounded once to bf16).
+int vml_proposal_rows_fwd_bf16(void* stream, int B, int T, int L, int C, int D,
+                               const vml::bf16* f, const float* length_mask, vml::bf16* fc,
+                               vml::bf16* fm, vml::bf16* fb) {
+    return forward<false>(stream, B, T, L, C, D, f, length_mask, fc, fm, fb);
+}
+
+// K1-bf16 backward: bf16 cotangents, df (B, T, D) rounded once to bf16.
+int vml_proposal_rows_bwd_bf16(void* stream, int B, int T, int L, int C, int D,
+                               const float* length_mask, const vml::bf16* dfc,
+                               const vml::bf16* dfm, const vml::bf16* dfb, vml::bf16* df) {
     return backward<false>(stream, B, T, L, C, D, length_mask, dfc, dfm, dfb, df);
 }
 

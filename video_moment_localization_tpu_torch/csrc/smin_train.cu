@@ -33,7 +33,7 @@
 //
 //   MomentUnit  mu = (conv_fb(x1) + conv_fc(x2)) * vm + fm, x1[n] = bu[i_n] *
 //     bu[j_n], x2[n] = mean_c cu[n, c]. With dz = dmu * vm: dx1 = dz Wfb,
-//     dx2 = dz Wfc (gemm_nn, the mask as a row scale of A); G[i] = dbu[i] +
+//     dx2 = dz Wfc (one nn product, the mask on its rows); G[i] = dbu[i] +
 //     sum_{n: i_n = i} dx1[n] bu[j_n] + sum_{n: j_n = i} dx1[n] bu[i_n]
 //     (moment_bwd_kernel gathers per snippet row; the pair (i, i) counts in
 //     both sums); dcut[n, c] = dcu[n, c] + dx2[n] / C (dcu_total_kernel; a
@@ -69,37 +69,72 @@
 //     in split blocks whose partial sums a second kernel adds in a fixed
 //     order; bias gradients are the column sums of dY that the same gemm_tn
 //     pass adds up (its blocks of the first column tile).
+//
+// The bf16 variants (K2-bf16, K3-bf16: the training path at bf16, the JAX
+// layer kernels at their production dtype) run the same sequences on bf16
+// activations and cotangents: K2-bf16 is `layer_forward<bf16>`, K4-bf16's
+// layer; K3-bf16 recomputes the layer as K2-bf16 does, then the kernels
+// above, templated on the element type (fp32 arithmetic inside), with the
+// products on gemm.cuh's bf16 path (its nn and tn layouts: bf16 operands,
+// fp32 sums, the weight gradients fp32). Its plain version is autograd
+// through models/smin.py::smi_layer_bf16, and it rounds where that rounds:
+// the gradient of each stored bf16 value is the fp32 sum over its uses,
+// rounded once to bf16 where it is stored or before it is used (dx1 and dx2,
+// dcut, dfcc, dq, dkhat and dfsh, dfbq, dbq and dbk, dfbar); a sum that later
+// terms add to stays fp32 until its last product rounds it (dh, dfwh and
+// the inputs' dfb, dfw, dfs); for cu and bu, which are outputs as well,
+// the outer cotangent is added to the rounded inner gradient and the sum
+// rounded again, as autograd adds them. The dtype does not change what
+// bounds them: operations, now of bf16 products at 989 TFLOP/s.
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "content_bwd.cuh"
 #include "smin_units.cuh"
 
 namespace {
 
+using vml::bf16;
+using vml::from_f;
 using vml::kNegInf;
 using vml::pair_index;
+using vml::to_f;
 using vml::warp_sum;
+
+// A gradient of a stored value rounded as it is stored: to bf16 and back for
+// the bf16 variant, nothing at fp32.
+template <typename T>
+__device__ __forceinline__ float stored(float x) {
+    return to_f(from_f<T>(x));
+}
 
 // grid B * L. G[i] = dbu[i] + sum_{j >= i} dx1[(i, j)] * bu[j]
 //                          + sum_{k <= i} dx1[(k, i)] * bu[k].
-__global__ void moment_bwd_kernel(int L, int D, const float* __restrict__ dbu,
-                                  const float* __restrict__ dx1,
-                                  const float* __restrict__ bu, float* __restrict__ G) {
+// T: the type of dbu, dx1 and bu; G is fp32. At bf16 the sums over the
+// pairs (bu's gradient inside the layer) are rounded to bf16 before dbu
+// (its gradient from outside) is added, and G is rounded again: bu is a
+// stored bf16 value that its layer also reads.
+template <typename T>
+__global__ void moment_bwd_kernel(int L, int D, const T* __restrict__ dbu,
+                                  const T* __restrict__ dx1,
+                                  const T* __restrict__ bu, float* __restrict__ G) {
+    constexpr bool f32 = std::is_same<T, float>::value;
     const int N = L * (L + 1) / 2;
     const int row = blockIdx.x;   // b * L + i
     const int b = row / L;
     const int i = row % L;
-    const float* bue = bu + (size_t)b * L * D;
-    const float* dxe = dx1 + (size_t)b * N * D;
+    const T* bue = bu + (size_t)b * L * D;
+    const T* dxe = dx1 + (size_t)b * N * D;
     for (int d = threadIdx.x; d < D; d += blockDim.x) {
-        float acc = dbu[(size_t)row * D + d];
+        float acc = f32 ? to_f(dbu[(size_t)row * D + d]) : 0.f;
         for (int j = i; j < L; ++j)
-            acc += dxe[(size_t)pair_index(i, j, L) * D + d] * bue[(size_t)j * D + d];
+            acc += to_f(dxe[(size_t)pair_index(i, j, L) * D + d]) * to_f(bue[(size_t)j * D + d]);
         for (int k = 0; k <= i; ++k)
-            acc += dxe[(size_t)pair_index(k, i, L) * D + d] * bue[(size_t)k * D + d];
+            acc += to_f(dxe[(size_t)pair_index(k, i, L) * D + d]) * to_f(bue[(size_t)k * D + d]);
+        if (!f32) acc = stored<T>(to_f(dbu[(size_t)row * D + d]) + stored<T>(acc));
         G[(size_t)row * D + d] = acc;
     }
 }
@@ -108,9 +143,11 @@ __global__ void moment_bwd_kernel(int L, int D, const float* __restrict__ dbu,
 // row P[i] and writes A[i, j] = P[i, j] * lm[i] (B, L, L) and the logit
 // gradients dS[i, j] (B, L, L; 0 at a masked key j), from
 //   dA[i, j] = lm[i] * (G[i] . fb[j]) + [j >= i] G[i] . fbar[(i, j)].
-__global__ void boundary_attn_bwd_kernel(int L, int D, const float* __restrict__ fbq,
-                                         const float* __restrict__ fb,
-                                         const float* __restrict__ fbar,
+// T: the type of fbq, fb and fbar.
+template <typename T>
+__global__ void boundary_attn_bwd_kernel(int L, int D, const T* __restrict__ fbq,
+                                         const T* __restrict__ fb,
+                                         const T* __restrict__ fbar,
                                          const float* __restrict__ lmask,
                                          const float* __restrict__ G, float* __restrict__ Ab,
                                          float* __restrict__ dSb) {
@@ -127,19 +164,18 @@ __global__ void boundary_attn_bwd_kernel(int L, int D, const float* __restrict__
     const int nwarps = blockDim.x / 32;
     const float inv_sd = 1.f / sqrtf((float)D);
     const float* lm = lmask + (size_t)b * L;
-    const float* x = fbq + (size_t)row * D;
+    const T* x = fbq + (size_t)row * D;
     const float* g = G + (size_t)row * D;
 
     for (int j = warp; j < L; j += nwarps) {
-        const float* y = fbq + ((size_t)b * L + j) * D;
-        const float* fbj = fb + ((size_t)b * L + j) * D;
-        const float* fbar_ij =
-            j >= i ? fbar + ((size_t)b * N + pair_index(i, j, L)) * D : nullptr;
+        const T* y = fbq + ((size_t)b * L + j) * D;
+        const T* fbj = fb + ((size_t)b * L + j) * D;
+        const T* fbar_ij = j >= i ? fbar + ((size_t)b * N + pair_index(i, j, L)) * D : nullptr;
         float s = 0.f, t = 0.f, u = 0.f;
         for (int d = lane; d < D; d += 32) {
-            s += x[d] * y[d];
-            t += g[d] * fbj[d];
-            if (fbar_ij) u += g[d] * fbar_ij[d];
+            s += to_f(x[d]) * to_f(y[d]);
+            t += g[d] * to_f(fbj[d]);
+            if (fbar_ij) u += g[d] * to_f(fbar_ij[d]);
         }
         s = warp_sum(s);
         t = warp_sum(t);
@@ -177,11 +213,14 @@ __global__ void boundary_attn_bwd_kernel(int L, int D, const float* __restrict__
 //              (the attn_q path is added by the caller's GEMM)
 //   da[i]    = dfbq[i] * fb[i] * lm[i];   dfs_b[i] = dfbq[i] * fb[i]
 // and through the word attention a[i] = p[i] fw: p (B, L, Nq) and the logit
-// gradients ds (B, L, Nq; 0 at a masked word).
+// gradients ds (B, L, Nq; 0 at a masked word). T: the type of bq, bk, fw,
+// fb, fs and fbq; at bf16 dfbq (the gradient of the stored fbq) is rounded
+// to bf16 before it is used. dfb, da, dfs_b are fp32 at either type.
+template <typename T>
 __global__ void boundary_query_bwd_kernel(
-    int L, int Nq, int D, const float* __restrict__ bq, const float* __restrict__ bk,
-    const float* __restrict__ fw, const float* __restrict__ fb, const float* __restrict__ fs,
-    const float* __restrict__ fbq, const float* __restrict__ qmask,
+    int L, int Nq, int D, const T* __restrict__ bq, const T* __restrict__ bk,
+    const T* __restrict__ fw, const T* __restrict__ fb, const T* __restrict__ fs,
+    const T* __restrict__ fbq, const float* __restrict__ qmask,
     const float* __restrict__ lmask, const float* __restrict__ G,
     const float* __restrict__ Ab, const float* __restrict__ dSb, float* __restrict__ dfb,
     float* __restrict__ dab, float* __restrict__ dfs_b, float* __restrict__ pb,
@@ -200,14 +239,14 @@ __global__ void boundary_query_bwd_kernel(
     const int warp = tid / 32;
     const int nwarps = blockDim.x / 32;
     const float inv_sd = 1.f / sqrtf((float)D);
-    const float* x = bq + (size_t)row * D;
-    const float* fwe = fw + (size_t)b * Nq * D;
+    const T* x = bq + (size_t)row * D;
+    const T* fwe = fw + (size_t)b * Nq * D;
     const float lm = lmask[row];
 
     for (int m = warp; m < Nq; m += nwarps) {
-        const float* y = bk + ((size_t)b * Nq + m) * D;
+        const T* y = bk + ((size_t)b * Nq + m) * D;
         float s = 0.f;
-        for (int d = lane; d < D; d += 32) s += x[d] * y[d];
+        for (int d = lane; d < D; d += 32) s += to_f(x[d]) * to_f(y[d]);
         s = warp_sum(s);
         if (lane == 0) p[m] = qmask[(size_t)b * Nq + m] > 0.f ? s * inv_sd : kNegInf;
     }
@@ -230,22 +269,23 @@ __global__ void boundary_query_bwd_kernel(
     for (int d = tid; d < D; d += blockDim.x) {
         float dfbq = 0.f, gsum = G[(size_t)row * D + d];
         for (int j = 0; j < L; ++j) {
-            dfbq += coef[j] * fbq[((size_t)b * L + j) * D + d];
+            dfbq += coef[j] * to_f(fbq[((size_t)b * L + j) * D + d]);
             gsum += coefA[j] * G[((size_t)b * L + j) * D + d];
         }
+        dfbq = stored<T>(dfbq);
         float a = 0.f;
-        for (int m = 0; m < Nq; ++m) a += p[m] * fwe[(size_t)m * D + d];
-        const float fbv = fb[(size_t)row * D + d];
+        for (int m = 0; m < Nq; ++m) a += p[m] * to_f(fwe[(size_t)m * D + d]);
+        const float fbv = to_f(fb[(size_t)row * D + d]);
         const float dav = dfbq * fbv * lm;
         darow[d] = dav;
-        dfb[(size_t)row * D + d] = gsum + dfbq * (a * lm + fs[(size_t)b * D + d]);
+        dfb[(size_t)row * D + d] = gsum + dfbq * (a * lm + to_f(fs[(size_t)b * D + d]));
         dab[(size_t)row * D + d] = dav;
         dfs_b[(size_t)row * D + d] = dfbq * fbv;
     }
     __syncthreads();
     for (int m = warp; m < Nq; m += nwarps) {
         float s = 0.f;
-        for (int d = lane; d < D; d += 32) s += darow[d] * fwe[(size_t)m * D + d];
+        for (int d = lane; d < D; d += 32) s += darow[d] * to_f(fwe[(size_t)m * D + d]);
         s = warp_sum(s);
         if (lane == 0) dp[m] = s;
     }
@@ -263,13 +303,15 @@ __global__ void boundary_query_bwd_kernel(
 
 // grid B * (L + Nq): block (b, i < L) writes dbq[i] = sum_m ds[i, m] bk[m];
 // block (b, L + m) writes dbk[m] = sum_i ds[i, m] bq[i] and the value-path
-// share of dfw[m] = sum_i p[i, m] da[i].
+// share of dfw[m] = sum_i p[i, m] da[i]. T: the type of bq, bk, dbq and dbk
+// (the operands of the next products; dfw is fp32).
+template <typename T>
 __global__ void boundary_proj_bwd_kernel(int L, int Nq, int D, const float* __restrict__ dsb,
                                          const float* __restrict__ pb,
                                          const float* __restrict__ dab,
-                                         const float* __restrict__ bq,
-                                         const float* __restrict__ bk,
-                                         float* __restrict__ dbq, float* __restrict__ dbk,
+                                         const T* __restrict__ bq,
+                                         const T* __restrict__ bk,
+                                         T* __restrict__ dbq, T* __restrict__ dbk,
                                          float* __restrict__ dfw) {
     const int b = blockIdx.x / (L + Nq);
     const int r = blockIdx.x % (L + Nq);
@@ -277,17 +319,17 @@ __global__ void boundary_proj_bwd_kernel(int L, int Nq, int D, const float* __re
         if (r < L) {
             float s = 0.f;
             for (int m = 0; m < Nq; ++m)
-                s += dsb[((size_t)b * L + r) * Nq + m] * bk[((size_t)b * Nq + m) * D + d];
-            dbq[((size_t)b * L + r) * D + d] = s;
+                s += dsb[((size_t)b * L + r) * Nq + m] * to_f(bk[((size_t)b * Nq + m) * D + d]);
+            dbq[((size_t)b * L + r) * D + d] = from_f<T>(s);
         } else {
             const int m = r - L;
             float s1 = 0.f, s2 = 0.f;
             for (int i = 0; i < L; ++i) {
                 const size_t row = (size_t)b * L + i;
-                s1 += dsb[row * Nq + m] * bq[row * D + d];
+                s1 += dsb[row * Nq + m] * to_f(bq[row * D + d]);
                 s2 += pb[row * Nq + m] * dab[row * D + d];
             }
-            dbk[((size_t)b * Nq + m) * D + d] = s1;
+            dbk[((size_t)b * Nq + m) * D + d] = from_f<T>(s1);
             dfw[((size_t)b * Nq + m) * D + d] = s2;
         }
     }
@@ -301,15 +343,17 @@ __global__ void boundary_proj_bwd_kernel(int L, int Nq, int D, const float* __re
 //   dfm[n]   = dmu[n] + dfbar[n] * (s + z * s * (1 - s)),  z = fm * fs,
 //                                                          s = sigmoid(z)
 // and writes its split's share of dfs, sum_n dfbar[n] * fm[n]^2 * s * (1 -
-// s), to part[split, b]; gate_dfs_kernel adds the splits in order.
+// s), to part[split, b]; gate_dfs_kernel adds the splits in order. T: the
+// type of fm, fs, dmu, dcut and dfm; at bf16 dfbar (the gradient of the
+// stored fbar) is rounded to bf16 before it is used.
 constexpr int kGateThreads = 128;
 constexpr int kGateMaxSplits = 32;
 
-template <int V>
+template <int V, typename T>
 __global__ void __launch_bounds__(kGateThreads) gate_bwd_kernel(
-    int L, int C, int D, int splits, const float* __restrict__ fm, const float* __restrict__ fs,
-    const float* __restrict__ dmu, const float* __restrict__ dcut, const float* __restrict__ Ab,
-    const float* __restrict__ G, float* __restrict__ dfm, float* __restrict__ part) {
+    int L, int C, int D, int splits, const T* __restrict__ fm, const T* __restrict__ fs,
+    const T* __restrict__ dmu, const T* __restrict__ dcut, const float* __restrict__ Ab,
+    const float* __restrict__ G, T* __restrict__ dfm, float* __restrict__ part) {
     const int N = L * (L + 1) / 2;
     const int cols = D / V;
     const int col_blocks = (cols + kGateThreads - 1) / kGateThreads;
@@ -346,6 +390,7 @@ __global__ void __launch_bounds__(kGateThreads) gate_bwd_kernel(
             vml::load_vec<V>(dmu + pn * D + d, dm);
 #pragma unroll
             for (int k = 0; k < V; ++k) {
+                dfbar[k] = stored<T>(dfbar[k]);
                 const float z = x[k] * fsv[k];
                 const float sg = vml::sigmoidf_(z);
                 const float t = sg * (1.f - sg);
@@ -386,13 +431,20 @@ int gate_bwd_splits(int B, int N, int cols) {
     return (int)(splits > N ? N : splits);
 }
 
-// The backward's buffers beyond the recomputed layer's own intermediates.
-struct BackwardScratch {
-    vml::ContentBackwardScratch c;
-    float *bu, *dx1, *dx2, *G, *Ab, *dSb, *pb, *dsb, *dab, *dfs_b, *dbq, *dbk, *gate_part,
-        *partial;
+// The backward's buffers beyond the recomputed layer's own intermediates,
+// in the layer's element type T where they are stored activations'
+// gradients that the next products read (bu, dx1, dx2, dbq, dbk), fp32 where
+// they are sums that later terms add to (G and the boundary unit's softmax
+// terms). At bf16, dfb32, dfw32 and dfs32 hold dfb, dfw and dfs in fp32
+// until their last product's epilogue rounds them once; at fp32 they are
+// not carved (`vml::f32_sum`: the gradients sum in place).
+template <typename T>
+struct BackwardScratchT {
+    vml::ContentBackwardScratchT<T> c;
+    T *bu, *dx1, *dx2, *dbq, *dbk;
+    float *G, *Ab, *dSb, *pb, *dsb, *dab, *dfs_b, *gate_part, *partial, *dfb32, *dfw32, *dfs32;
 };
-constexpr int kBackwardSlots = 14;
+constexpr int kBackwardSlots = 17;
 
 size_t max_partial_floats(int B, int L, int C, int Nq, int D, int dl) {
     const int N = L * (L + 1) / 2;
@@ -405,29 +457,146 @@ size_t max_partial_floats(int B, int L, int C, int Nq, int D, int dl) {
     return most;
 }
 
-// Carves the workspace; returns its size in floats (ws may be null).
-size_t carve(float* ws, int B, int L, int C, int Nq, int D, int dl, bool backward,
-             vml::LayerScratch* s, BackwardScratch* w) {
-    size_t off = vml::carve_layer_scratch(ws, 0, B, L, C, Nq, D, dl, s);
+// Carves the layer's scratch and (backward) these buffers out of the byte
+// workspace `ws` (null: only measure); returns its size in bytes.
+template <typename T>
+size_t carve(unsigned char* ws, int B, int L, int C, int Nq, int D, int dl, bool backward,
+             vml::LayerScratchT<T>* s, BackwardScratchT<T>* w) {
+    size_t off = vml::carve_layer_scratch<T>(ws, 0, B, L, C, Nq, D, dl, s);
     if (!backward) return off;
+    constexpr bool f32 = std::is_same<T, float>::value;
     const size_t N = (size_t)L * (L + 1) / 2;
     const size_t BL = (size_t)B * L, BQ = (size_t)B * Nq;
-    off = vml::carve_content_backward(ws, off, B, (int)N, C, Nq, dl, &w->c);
+    const size_t t = sizeof(T), f = sizeof(float);
+    off = vml::carve_content_backward<T>(ws, off, B, (int)N, C, Nq, dl, &w->c);
     const size_t sizes[kBackwardSlots] = {
-        BL * D, B * N * D, B * N * D, BL * D,                       // bu, dx1, dx2, G
-        BL * L, BL * L, BL * Nq, BL * Nq,                           // Ab, dSb, pb, dsb
-        BL * D, BL * D, BL * D, BQ * D,                             // dab, dfs_b, dbq, dbk
-        (size_t)kGateMaxSplits * B * D,                             // gate_part
-        max_partial_floats(B, L, C, Nq, D, dl),                     // partial
+        t * BL * D, t * B * N * D, t * B * N * D, t * BL * D, t * BQ * D,   // bu dx1 dx2 dbq dbk
+        f * BL * D, f * BL * L, f * BL * L, f * BL * Nq, f * BL * Nq,       // G Ab dSb pb dsb
+        f * BL * D, f * BL * D,                                             // dab dfs_b
+        f * kGateMaxSplits * B * D,                                         // gate_part
+        f * max_partial_floats(B, L, C, Nq, D, dl),                         // partial
+        f32 ? 0 : f * BL * D, f32 ? 0 : f * BQ * D, f32 ? 0 : f * B * D,    // dfb32 dfw32 dfs32
     };
-    float** slots[kBackwardSlots] = {
-        &w->bu, &w->dx1, &w->dx2, &w->G, &w->Ab, &w->dSb, &w->pb, &w->dsb,
-        &w->dab, &w->dfs_b, &w->dbq, &w->dbk, &w->gate_part, &w->partial};
-    return vml::carve_slots(ws, off, sizes, slots, kBackwardSlots);
+    void* slots[kBackwardSlots];
+    off = vml::carve_bytes(ws, off, sizes, slots, kBackwardSlots);
+    T** typed[5] = {&w->bu, &w->dx1, &w->dx2, &w->dbq, &w->dbk};
+    for (int k = 0; k < 5; ++k) *typed[k] = static_cast<T*>(slots[k]);
+    float** full[12] = {&w->G, &w->Ab, &w->dSb, &w->pb, &w->dsb, &w->dab, &w->dfs_b,
+                        &w->gate_part, &w->partial, &w->dfb32, &w->dfw32, &w->dfs32};
+    for (int k = 0; k < 12; ++k) *full[k] = static_cast<float*>(slots[5 + k]);
+    return off;
 }
 
 size_t boundary_query_bwd_smem_bytes(int L, int Nq, int D) {
     return sizeof(float) * ((size_t)2 * Nq + (size_t)2 * L + D);
+}
+
+// K3 in the layer's element type T (fp32, or bf16 for K3-bf16): recompute
+// the layer as K2 computes it, then the backward sequence above with
+// gemm.cuh's products of T (fp32 sums at either type); the gradient of
+// every stored value of type T rounded to T once, as it is stored, before it
+// is used; the 20 weight gradients fp32 (dw), reduced over the rows in a
+// fixed order. dcu may be null (the zero cotangent of a top layer). p: the
+// layer's 20 device pointers in vml::layer_forward's order (matrices of
+// type T, biases fp32). dfc doubles as the recompute's cu buffer before it
+// is written. Returns the first CUDA error of the launches, 0 if none.
+template <typename T, typename P>
+int layer_backward(cudaStream_t st, int B, int L, int C, int Nq, int D, int dl, const T* fc,
+                   const T* fm, const T* fb, const T* fw, const T* fs, const float* qmask,
+                   const float* lmask, const float* vmask, const P* const* p, const T* dcu,
+                   const T* dmu, const T* dbu, unsigned char* ws, T* dfc, T* dfm, T* dfb,
+                   T* dfw, T* dfs, float* const* dw) {
+    const int N = L * (L + 1) / 2;
+    const int NC = N * C;
+    vml::LayerScratchT<T> s;
+    BackwardScratchT<T> w;
+    carve(ws, B, L, C, Nq, D, dl, true, &s, &w);
+    auto W = [p](int k) { return static_cast<const T*>(p[k]); };
+    float* dfb32 = vml::f32_sum(dfb, w.dfb32);
+    float* dfw32 = vml::f32_sum(dfw, w.dfw32);
+    float* dfs32 = vml::f32_sum(dfs, w.dfs32);
+    cudaError_t err;
+#define VML_CHECK()                                                     \
+    do {                                                                \
+        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err; \
+    } while (0)
+    vml::EpilogueOf<T> ep;
+
+    // Recompute the layer; cu goes to dfc (only x2 = mean_c cu is kept).
+    err = vml::layer_forward(st, B, L, C, Nq, D, dl, fc, fm, fb, fw, fs, qmask, lmask, vmask, p,
+                             s, dfc, static_cast<T*>(nullptr), w.bu);
+    if (err != cudaSuccess) return (int)err;
+
+    // MomentUnit: [dx1 | dx2] = (dmu [W_fb | W_fc]) * vm.
+    ep.rmask = vmask;
+    vml::product_nn2(st, B * N, D, D, dmu, D, W(16), W(18), D, w.dx1, w.dx2, D, ep);
+    VML_CHECK();
+    // x1 and x2 are the two halves of the forward's [x1 | x2] (B * N, 2D).
+    vml::product_tn(st, D, D, B * N, dmu, D, vmask, 1, s.x12, 2 * D, w.partial, dw[16], dw[17]);
+    VML_CHECK();
+    vml::product_tn(st, D, D, B * N, dmu, D, vmask, 1, s.x12 + D, 2 * D, w.partial, dw[18]);
+    VML_CHECK();
+    if ((err = cudaMemcpyAsync(dw[19], dw[17], sizeof(float) * D, cudaMemcpyDeviceToDevice,
+                               st)) != cudaSuccess)
+        return (int)err;
+    moment_bwd_kernel<T><<<B * L, 128, 0, st>>>(L, D, dbu, w.dx1, w.bu, w.G);
+    VML_CHECK();
+    const size_t ncd = (size_t)B * NC * D;
+    const int dcu_blocks = (int)((ncd + 255) / 256 < 8192 ? (ncd + 255) / 256 : 8192);
+    vml::dcu_total_kernel<T><<<dcu_blocks, 256, 0, st>>>(ncd, C, D, dcu, w.dx2, dfc);
+    VML_CHECK();
+
+    // ContentUnit. dfc holds dcut from here to the last product.
+    err = vml::content_backward(st, B, N, C, Nq, D, dl, fc, fw, fs, qmask, vmask, p, s, w.c,
+                                w.partial, dfc, dw);
+    if (err != cudaSuccess) return (int)err;
+
+    // BoundaryUnit: dfb32 and dfw32 gather their shares in fp32.
+    boundary_attn_bwd_kernel<T><<<B * L, 128, 2 * L * sizeof(float), st>>>(
+        L, D, s.fbq, fb, s.fbar, lmask, w.G, w.Ab, w.dSb);
+    VML_CHECK();
+    boundary_query_bwd_kernel<T><<<B * L, 128, boundary_query_bwd_smem_bytes(L, Nq, D), st>>>(
+        L, Nq, D, s.bq, s.bk, fw, fb, fs, s.fbq, qmask, lmask, w.G, w.Ab, w.dSb, dfb32, w.dab,
+        w.dfs_b, w.pb, w.dsb);
+    VML_CHECK();
+    boundary_proj_bwd_kernel<T><<<B * (L + Nq), 128, 0, st>>>(
+        L, Nq, D, w.dsb, w.pb, w.dab, s.bq, s.bk, w.dbq, w.dbk, dfw32);
+    VML_CHECK();
+    ep = vml::EpilogueOf<T>();
+    vml::add_f32(ep, dfb32, D);
+    vml::product_nn(st, B * L, D, D, w.dbq, D, W(12), D, dfb, D, ep);
+    VML_CHECK();
+    vml::add_f32(ep, dfw32, D);
+    vml::product_nn(st, B * Nq, D, D, w.dbk, D, W(14), D, dfw32, D, ep);
+    VML_CHECK();
+    vml::product_tn(st, D, D, B * L, w.dbq, D, nullptr, 1, fb, D, w.partial, dw[12], dw[13]);
+    VML_CHECK();
+    vml::product_tn(st, D, D, B * Nq, w.dbk, D, nullptr, 1, fw, D, w.partial, dw[14], dw[15]);
+    VML_CHECK();
+
+    // Gate (reads dcut from dfc), then the content unit's shares of dfw and
+    // dfs, and dfc = dcut + dh_t Wch.
+    {
+        const bool vec = vml::rows_vec4(D, {fm, fs, dmu, dfc, dfm}, 4 * sizeof(T));
+        const int cols = vec ? D / 4 : D;
+        const int splits = gate_bwd_splits(B, N, cols);
+        const dim3 grid(splits * ((cols + kGateThreads - 1) / kGateThreads), B);
+        if (vec)
+            gate_bwd_kernel<4, T><<<grid, kGateThreads, 0, st>>>(
+                L, C, D, splits, fm, fs, dmu, dfc, w.Ab, w.G, dfm, w.gate_part);
+        else
+            gate_bwd_kernel<1, T><<<grid, kGateThreads, 0, st>>>(
+                L, C, D, splits, fm, fs, dmu, dfc, w.Ab, w.G, dfm, w.gate_part);
+        VML_CHECK();
+        const size_t bd = (size_t)B * D;
+        gate_dfs_kernel<<<(unsigned)((bd + 255) / 256), 256, 0, st>>>(B, L, D, splits,
+                                                                       w.gate_part, w.dfs_b,
+                                                                       dfs32);
+        VML_CHECK();
+    }
+    err = vml::content_input_grads(st, B, N, C, Nq, D, dl, p, w.c, dfw32, dfs32, dfc, dfw, dfs);
+#undef VML_CHECK
+    return (int)err;
 }
 
 }  // namespace
@@ -437,8 +606,8 @@ extern "C" {
 size_t vml_smi_layer_workspace_floats(int B, int L, int C, int Nq, int D, int dl,
                                       int backward) {
     vml::LayerScratch s;
-    BackwardScratch w;
-    return carve(nullptr, B, L, C, Nq, D, dl, backward != 0, &s, &w);
+    BackwardScratchT<float> w;
+    return carve<float>(nullptr, B, L, C, Nq, D, dl, backward != 0, &s, &w) / sizeof(float);
 }
 
 // Largest dynamic shared memory of the forward and backward kernels, for the
@@ -460,8 +629,8 @@ int vml_smi_layer_fwd_f32(void* stream, int B, int L, int C, int Nq, int D, int 
                           const float* vmask, const float* const* layer_w, float* ws,
                           float* cu, float* mu, float* bu) {
     vml::LayerScratch s;
-    BackwardScratch unused;
-    carve(ws, B, L, C, Nq, D, dl, false, &s, &unused);
+    BackwardScratchT<float> unused;
+    carve(reinterpret_cast<unsigned char*>(ws), B, L, C, Nq, D, dl, false, &s, &unused);
     return (int)vml::layer_forward(static_cast<cudaStream_t>(stream), B, L, C, Nq, D, dl, fc,
                                    fm, fb, fw, fs, qmask, lmask, vmask, layer_w, s, cu, mu,
                                    bu);
@@ -483,8 +652,8 @@ int vml_smi_stack_fwd_f32(void* stream, int B, int L, int C, int Nq, int D, int 
     const size_t N = (size_t)L * (L + 1) / 2;
     const size_t nc = (size_t)B * N * C * D, nm = (size_t)B * N * D, nb = (size_t)B * L * D;
     vml::LayerScratch s;
-    BackwardScratch unused;
-    carve(ws, B, L, C, Nq, D, dl, false, &s, &unused);
+    BackwardScratchT<float> unused;
+    carve(reinterpret_cast<unsigned char*>(ws), B, L, C, Nq, D, dl, false, &s, &unused);
     for (int k = 0; k < n_layers; ++k) {
         const bool top = k == n_layers - 1;
         float* cu = top ? cu_last : carry_fc + k * nc;
@@ -511,97 +680,55 @@ int vml_smi_layer_bwd_f32(void* stream, int B, int L, int C, int Nq, int D, int 
                           const float* vmask, const float* const* p, const float* dcu,
                           const float* dmu, const float* dbu, float* ws, float* dfc,
                           float* dfm, float* dfb, float* dfw, float* dfs, float* const* dw) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int N = L * (L + 1) / 2;
-    const int NC = N * C;
-    vml::LayerScratch s;
-    BackwardScratch w;
-    carve(ws, B, L, C, Nq, D, dl, true, &s, &w);
-    cudaError_t err;
-#define VML_CHECK()                                                     \
-    do {                                                                \
-        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err; \
-    } while (0)
-    const vml::Epilogue none{};
-    vml::Epilogue ep;
+    return layer_backward(static_cast<cudaStream_t>(stream), B, L, C, Nq, D, dl, fc, fm, fb, fw,
+                          fs, qmask, lmask, vmask, p, dcu, dmu, dbu,
+                          reinterpret_cast<unsigned char*>(ws), dfc, dfm, dfb, dfw, dfs, dw);
+}
 
-    // Recompute the layer; cu goes to dfc (only x2 = mean_c cu is kept).
-    err = vml::layer_forward(st, B, L, C, Nq, D, dl, fc, fm, fb, fw, fs, qmask, lmask, vmask,
-                             p, s, dfc, static_cast<float*>(nullptr), w.bu);
-    if (err != cudaSuccess) return (int)err;
+// Bytes of the workspace of vml_smi_layer_fwd_bf16 (backward 0) or
+// vml_smi_layer_bwd_bf16 (backward 1).
+size_t vml_smi_layer_workspace_bytes_bf16(int B, int L, int C, int Nq, int D, int dl,
+                                          int backward) {
+    vml::LayerScratchT<bf16> s;
+    BackwardScratchT<bf16> w;
+    return carve<bf16>(nullptr, B, L, C, Nq, D, dl, backward != 0, &s, &w);
+}
 
-    // MomentUnit.
-    vml::gemm_nn2(st, B * N, D, D, dmu, D, vmask, 1, p[16], p[18], D, w.dx1, w.dx2, D, none,
-                  none);
-    VML_CHECK();
-    // x1 and x2 are the two halves of the forward's [x1 | x2] (B * N, 2D).
-    vml::gemm_tn(st, D, D, B * N, dmu, D, vmask, 1, s.x12, 2 * D, w.partial, dw[16], dw[17]);
-    VML_CHECK();
-    vml::gemm_tn(st, D, D, B * N, dmu, D, vmask, 1, s.x12 + D, 2 * D, w.partial, dw[18]);
-    VML_CHECK();
-    if ((err = cudaMemcpyAsync(dw[19], dw[17], sizeof(float) * D, cudaMemcpyDeviceToDevice,
-                               st)) != cudaSuccess)
-        return (int)err;
-    moment_bwd_kernel<<<B * L, 128, 0, st>>>(L, D, dbu, w.dx1, w.bu, w.G);
-    VML_CHECK();
-    const size_t ncd = (size_t)B * NC * D;
-    const int dcu_blocks = (int)((ncd + 255) / 256 < 8192 ? (ncd + 255) / 256 : 8192);
-    vml::dcu_total_kernel<<<dcu_blocks, 256, 0, st>>>(ncd, C, D, dcu, w.dx2, dfc);
-    VML_CHECK();
+// K2-bf16: K2 on bf16 activations (fc, fm, fb, fw, fs and the outputs cu,
+// mu, bu), the layer's matrices bf16 and its biases fp32 in layer_w, the
+// masks fp32: `vml::layer_forward<bf16>`, the layer sequence of K4-bf16
+// (bf16 products with fp32 sums on gemm.cuh's bf16 path, fp32 arithmetic
+// inside every other kernel, one rounding per stored value). ws:
+// vml_smi_layer_workspace_bytes_bf16(..., 0) bytes.
+int vml_smi_layer_fwd_bf16(void* stream, int B, int L, int C, int Nq, int D, int dl,
+                           const bf16* fc, const bf16* fm, const bf16* fb, const bf16* fw,
+                           const bf16* fs, const float* qmask, const float* lmask,
+                           const float* vmask, const void* const* layer_w, void* ws, bf16* cu,
+                           bf16* mu, bf16* bu) {
+    vml::LayerScratchT<bf16> s;
+    BackwardScratchT<bf16> unused;
+    carve(static_cast<unsigned char*>(ws), B, L, C, Nq, D, dl, false, &s, &unused);
+    return (int)vml::layer_forward(static_cast<cudaStream_t>(stream), B, L, C, Nq, D, dl, fc,
+                                   fm, fb, fw, fs, qmask, lmask, vmask, layer_w, s, cu, mu, bu);
+}
 
-    // ContentUnit. dfc holds dcut from here to the last GEMM.
-    err = vml::content_backward(st, B, N, C, Nq, D, dl, fc, fw, fs, qmask, vmask, p, s, w.c,
-                                w.partial, dfc, dw);
-    if (err != cudaSuccess) return (int)err;
-
-    // BoundaryUnit.
-    boundary_attn_bwd_kernel<<<B * L, 128, 2 * L * sizeof(float), st>>>(
-        L, D, s.fbq, fb, s.fbar, lmask, w.G, w.Ab, w.dSb);
-    VML_CHECK();
-    boundary_query_bwd_kernel<<<B * L, 128, boundary_query_bwd_smem_bytes(L, Nq, D), st>>>(
-        L, Nq, D, s.bq, s.bk, fw, fb, fs, s.fbq, qmask, lmask, w.G, w.Ab, w.dSb, dfb, w.dab,
-        w.dfs_b, w.pb, w.dsb);
-    VML_CHECK();
-    boundary_proj_bwd_kernel<<<B * (L + Nq), 128, 0, st>>>(L, Nq, D, w.dsb, w.pb, w.dab, s.bq,
-                                                           s.bk, w.dbq, w.dbk, dfw);
-    VML_CHECK();
-    ep = vml::Epilogue();
-    ep.post = dfb;
-    ep.ldpost = D;
-    vml::gemm_nn(st, B * L, D, D, w.dbq, D, nullptr, 1, p[12], D, dfb, D, ep);
-    VML_CHECK();
-    ep.post = dfw;
-    vml::gemm_nn(st, B * Nq, D, D, w.dbk, D, nullptr, 1, p[14], D, dfw, D, ep);
-    VML_CHECK();
-    vml::gemm_tn(st, D, D, B * L, w.dbq, D, nullptr, 1, fb, D, w.partial, dw[12], dw[13]);
-    VML_CHECK();
-    vml::gemm_tn(st, D, D, B * Nq, w.dbk, D, nullptr, 1, fw, D, w.partial, dw[14], dw[15]);
-    VML_CHECK();
-
-    // Gate (reads dcut from dfc), then the content unit's shares of dfw and
-    // dfs, and dfc = dcut + dh Wch.
-    {
-        const bool vec = D % 4 == 0 && vml::aligned16(fm) && vml::aligned16(fs) &&
-                         vml::aligned16(dmu) && vml::aligned16(dfc) && vml::aligned16(dfm);
-        const int cols = vec ? D / 4 : D;
-        const int splits = gate_bwd_splits(B, N, cols);
-        const dim3 grid(splits * ((cols + kGateThreads - 1) / kGateThreads), B);
-        if (vec)
-            gate_bwd_kernel<4><<<grid, kGateThreads, 0, st>>>(L, C, D, splits, fm, fs, dmu, dfc,
-                                                              w.Ab, w.G, dfm, w.gate_part);
-        else
-            gate_bwd_kernel<1><<<grid, kGateThreads, 0, st>>>(L, C, D, splits, fm, fs, dmu, dfc,
-                                                              w.Ab, w.G, dfm, w.gate_part);
-        VML_CHECK();
-        const size_t bd = (size_t)B * D;
-        gate_dfs_kernel<<<(unsigned)((bd + 255) / 256), 256, 0, st>>>(B, L, D, splits,
-                                                                       w.gate_part, w.dfs_b, dfs);
-        VML_CHECK();
-    }
-    err = vml::content_input_grads(st, B, N, C, Nq, D, dl, p, w.c, true, dfc, dfw, dfs);
-    if (err != cudaSuccess) return (int)err;
-#undef VML_CHECK
-    return 0;
+// K3-bf16: recompute the layer exactly as K2-bf16 does, then K3's sequence
+// on bf16 activations and cotangents (dcu may be null; dmu, dbu bf16) with
+// gemm.cuh's bf16 products: dfc, dfm, dfb, dfw, dfs bf16, each rounded once
+// from fp32 sums; the gradient of every stored bf16 value of the layer
+// rounded to bf16 once, as it is stored, before it is used; the 20 weight
+// gradients fp32 (dw), reduced over the rows in fp32 in a fixed order. ws:
+// vml_smi_layer_workspace_bytes_bf16(..., 1) bytes. dfc doubles as the
+// recompute's cu buffer before it is written.
+int vml_smi_layer_bwd_bf16(void* stream, int B, int L, int C, int Nq, int D, int dl,
+                           const bf16* fc, const bf16* fm, const bf16* fb, const bf16* fw,
+                           const bf16* fs, const float* qmask, const float* lmask,
+                           const float* vmask, const void* const* p, const bf16* dcu,
+                           const bf16* dmu, const bf16* dbu, void* ws, bf16* dfc, bf16* dfm,
+                           bf16* dfb, bf16* dfw, bf16* dfs, float* const* dw) {
+    return layer_backward(static_cast<cudaStream_t>(stream), B, L, C, Nq, D, dl, fc, fm, fb, fw,
+                          fs, qmask, lmask, vmask, p, dcu, dmu, dbu,
+                          static_cast<unsigned char*>(ws), dfc, dfm, dfb, dfw, dfs, dw);
 }
 
 }  // extern "C"

@@ -363,7 +363,8 @@ static __global__ void moment_weights_kernel(int D, const T* __restrict__ wfb,
 }
 
 // The intermediates of one layer, in the layer's element type T (fp32, or
-// bf16 for K4's bf16 variant); f_s_hat and the moment unit's bias stay fp32
+// bf16 for the bf16 variants of K4, K2 and K3); f_s_hat and the moment
+// unit's bias stay fp32
 // at either type. K4 and K2 only pass through them; the backward (K3) reads
 // them after the recompute. x12 (B * N, 2D) holds [x1 | x2], the moment
 // unit's operand; wm its weight [W_fb | W_fc] and wb its bias b_fb + b_fc.
@@ -456,6 +457,63 @@ inline void product(cudaStream_t st, int M, int N, int K, const bf16* A, int lda
     gemm_nt_bf16(st, M, N, K, A, lda, W, ldw, C, ldc, std::is_same<TC, float>::value, ep);
 }
 
+// The backward's products by element type, as `product` is the forward's:
+// product_nn C = A W (A (M, K), W (K, N)); product_nn2 one A against W0 and
+// W1 with one epilogue; product_tn out (M, N) = (A * ascale[row / adiv])^T B
+// (A (R, M), B (R, N)) reduced over R through `partial` in a fixed order,
+// bias_out the column sums of the scaled A (gemm_tn, gemm_tn_bf16).
+inline void product_nn(cudaStream_t st, int M, int N, int K, const float* A, int lda,
+                       const float* W, int ldw, float* C, int ldc, const Epilogue& ep) {
+    gemm_nn(st, M, N, K, A, lda, nullptr, 1, W, ldw, C, ldc, ep);
+}
+
+template <typename TC>
+inline void product_nn(cudaStream_t st, int M, int N, int K, const bf16* A, int lda,
+                       const bf16* W, int ldw, TC* C, int ldc, const EpilogueBf16& ep) {
+    gemm_nn_bf16(st, M, N, K, A, lda, W, ldw, C, ldc, std::is_same<TC, float>::value, ep);
+}
+
+inline void product_nn2(cudaStream_t st, int M, int N, int K, const float* A, int lda,
+                        const float* W0, const float* W1, int ldw, float* C0, float* C1, int ldc,
+                        const Epilogue& ep) {
+    gemm_nn2(st, M, N, K, A, lda, nullptr, 1, W0, W1, ldw, C0, C1, ldc, ep, ep);
+}
+
+inline void product_nn2(cudaStream_t st, int M, int N, int K, const bf16* A, int lda,
+                        const bf16* W0, const bf16* W1, int ldw, bf16* C0, bf16* C1, int ldc,
+                        const EpilogueBf16& ep) {
+    gemm_nn2_bf16(st, M, N, K, A, lda, W0, W1, ldw, C0, C1, ldc, false, ep, ep);
+}
+
+inline void product_tn(cudaStream_t st, int M, int N, int R, const float* A, int lda,
+                       const float* ascale, int adiv, const float* B, int ldb, float* partial,
+                       float* out, float* bias_out = nullptr) {
+    gemm_tn(st, M, N, R, A, lda, ascale, adiv, B, ldb, partial, out, bias_out);
+}
+
+inline void product_tn(cudaStream_t st, int M, int N, int R, const bf16* A, int lda,
+                       const float* ascale, int adiv, const bf16* B, int ldb, float* partial,
+                       float* out, float* bias_out = nullptr) {
+    gemm_tn_bf16(st, M, N, R, A, lda, ascale, adiv, B, ldb, partial, out, bias_out);
+}
+
+// Adds the fp32 rows `acc` (M, ld) after the mask, or nothing when it is
+// null: Epilogue's post, EpilogueBf16's post32.
+inline void add_f32(Epilogue& ep, const float* acc, int ld) {
+    ep.post = acc;
+    ep.ldpost = ld;
+}
+
+inline void add_f32(EpilogueBf16& ep, const float* acc, int ld) {
+    ep.post32 = acc;
+    ep.ldpost32 = ld;
+}
+
+// Where a gradient of element type T gathers its fp32 shares before its
+// last product: at fp32 the gradient itself, at bf16 the fp32 `scratch`.
+inline float* f32_sum(float* grad, float* /*scratch*/) { return grad; }
+inline float* f32_sum(bf16* /*grad*/, float* scratch) { return scratch; }
+
 #define VML_CHECK_LAUNCH()                                                  \
     do {                                                                    \
         cudaError_t vml_err_ = cudaGetLastError();                          \
@@ -509,9 +567,9 @@ inline cudaError_t content_forward(cudaStream_t st, int B, int N, int C, int Nq,
 }
 
 // One SMI layer: (fc, fm, fb) -> (cu, mu, bu), intermediates left in `s`,
-// in the element type T: fp32 (K4, K2, K9, K3's recompute) or bf16 (K4's
-// bf16 variant, serving only; its plain version is
-// models/smin.py::smi_block_packed_bf16): activations of type T, fp32
+// in the element type T: fp32 (K4, K2, K9, K3's recompute) or bf16 (the
+// bf16 variants of K4, K2 and K3's recompute; its plain version is
+// models/smin.py::smi_layer_bf16): activations of type T, fp32
 // arithmetic inside every kernel, one rounding per stored value.
 // p: the layer's 20 device pointers in the order
 //   c_hat.w, c_hat.b, w_hat.w, w_hat.b, s_hat.w, s_hat.b, c_out.w, c_out.b,

@@ -78,16 +78,19 @@ def lstm_step(gates: torch.Tensor, m: torch.Tensor, h: torch.Tensor, c: torch.Te
 
 
 def _lstm_direction(x: torch.Tensor, mask: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """One direction over (B, S, in) with validity mask (B, S) -> (B, S, H)."""
+    """One direction over (B, S, in) with validity mask (B, S) -> (B, S, H),
+    in x's dtype: the weights and the summed bias are cast to it (no-ops in
+    fp32), as the JAX scan casts them (`_lstm_scan`)."""
     B, S, _ = x.shape
     H = p["w_hh"].shape[1]
-    x_proj = x @ p["w_ih"].t() + (p["b_ih"] + p["b_hh"])          # (B, S, 4H)
+    w_ih, w_hh = p["w_ih"].to(x.dtype), p["w_hh"].to(x.dtype)
+    x_proj = x @ w_ih.t() + (p["b_ih"] + p["b_hh"]).to(x.dtype)    # (B, S, 4H)
     h = x.new_zeros((B, H))
     c = x.new_zeros((B, H))
     ys = []
     for t in range(S):
         m = mask[:, t : t + 1]
-        h, c = lstm_step(x_proj[:, t] + h @ p["w_hh"].t(), m, h, c)
+        h, c = lstm_step(x_proj[:, t] + h @ w_hh.t(), m, h, c)
         ys.append(h * m)
     return torch.stack(ys, dim=1)
 
@@ -143,10 +146,12 @@ def bilstm_bf16(x: torch.Tensor, mask: torch.Tensor, layers: Layers) -> torch.Te
 
 
 def bilstm(x: torch.Tensor, mask: torch.Tensor, layers: Layers) -> torch.Tensor:
-    """Multi-layer biLSTM: (B, S, in), mask (B, S) -> (B, S, 2H). A bf16 x
-    takes `bilstm_bf16` (grad-free serving only)."""
-    if x.dtype == torch.bfloat16:
-        return bilstm_bf16(x, mask, layers)
+    """Multi-layer biLSTM under autograd: (B, S, in), mask (B, S) -> (B, S,
+    2H), the recurrence in x's dtype: the plain biLSTM of both packages,
+    in training and (``fused_lstm: False``) serving alike. At bf16 it is
+    the JAX XLA scan's (models/lstm.py `_lstm_scan`: the matrices and b_ih +
+    b_hh cast to bf16, gates, cell and state in bf16), not the serving
+    kernel's, whose gates are fp32 (`bilstm_bf16`)."""
     h = x
     mask = mask.to(x.dtype)
     for p in layers:

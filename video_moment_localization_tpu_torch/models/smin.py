@@ -36,7 +36,12 @@ biLSTM has no backward), then one of the JAX package's routes:
 * dense (``packed: False``): the dense proposal kernel, then `smi_block` per
   layer in PyTorch ops under autograd;
 
-``remat_smi`` recomputes each block of the two loop routes in the backward.
+``compute_dtype: bfloat16`` trains on the first route alone where
+`whole_layer_train_admits` takes it (Charades, TACoS: `check_config`),
+through the bf16 variants of the proposal rows and whole-layer kernels, as
+the JAX package does on the TPU; the parameters stay fp32, with
+differentiable bf16 casts (`module_weights`). ``remat_smi`` recomputes each
+block of the two loop routes in the backward.
 The heads are plain PyTorch. Each kernel wrapper launches its CUDA kernel on
 a CUDA tensor and runs its plain version on a CPU tensor.
 """
@@ -52,7 +57,11 @@ import torch.utils.checkpoint
 from torch import nn
 
 from video_moment_localization_tpu_torch.config import ModelConfig
-from video_moment_localization_tpu_torch.models.lstm import BiLSTMParams, bilstm, lstm_layers
+from video_moment_localization_tpu_torch.models.lstm import (
+    BiLSTMParams,
+    bilstm,
+    lstm_layers,
+)
 from video_moment_localization_tpu_torch.ops import lstm_cuda
 from video_moment_localization_tpu_torch.ops.packing import (
     pair_index,
@@ -153,17 +162,24 @@ class SMIN(nn.Module):
                                       video_group=video_group)
 
 
+# The 20 parameters of one SMI block by name, in the order its CUDA entry
+# points read them (`block_weights`).
+BLOCK_WEIGHT_NAMES = tuple(
+    f"{layer}.{kind}" for layer in (
+        "content_unit.linear_c_hat", "content_unit.linear_w_hat", "content_unit.linear_s_hat",
+        "content_unit.linear_c", "content_unit.attn_layer.W_q", "content_unit.attn_layer.W_k",
+        "boundary_unit.attn_layer.W_q", "boundary_unit.attn_layer.W_k",
+        "moment_unit.conv_layer_fb", "moment_unit.conv_layer_fc")
+    for kind in ("weight", "bias"))
+
+
 def block_weights(block: SMI) -> List[torch.Tensor]:
     """The 20 tensors of one SMI block in the order its CUDA entry points
     read them: weight, bias of c_hat, w_hat, s_hat, c_out, content attn
-    W_q, W_k, boundary attn W_q, W_k, conv_fb, conv_fc."""
-    cu, bu, mu = block.content_unit, block.boundary_unit, block.moment_unit
-    out = []
-    for layer in (cu.linear_c_hat, cu.linear_w_hat, cu.linear_s_hat, cu.linear_c,
-                  cu.attn_layer.W_q, cu.attn_layer.W_k, bu.attn_layer.W_q,
-                  bu.attn_layer.W_k, mu.conv_layer_fb, mu.conv_layer_fc):
-        out += [layer.weight, layer.bias]
-    return out
+    W_q, W_k, boundary attn W_q, W_k, conv_fb, conv_fc
+    (`BLOCK_WEIGHT_NAMES`)."""
+    params = dict(block.named_parameters())
+    return [params[name] for name in BLOCK_WEIGHT_NAMES]
 
 
 def _linear(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -179,14 +195,14 @@ def video_encoder(ve: VideoEncoder, video_features, video_mask):
     """Masked linear projection + learned positional embedding (reference
     models.py:7-36): (B, T, dv), (B, T, 1) -> (B, T, D), in the dtype of
     ``video_features``. At bf16 the weights are cast as the JAX package casts
-    them (`cast_weights`) and the product is the library's bf16 one."""
+    them (`module_weights`) and the product is the library's bf16 one."""
     if video_features.dtype == torch.float32:
         x = _linear(ve.ve, video_features) * video_mask
         return x + ve.pe.weight[None] * video_mask
     dtype = video_features.dtype
-    w = cast_weights(ve, dtype)
+    w = module_weights(ve, dtype)
     mask = video_mask.to(dtype)
-    x = F.linear(video_features, w["ve.weight"], ve.ve.bias.to(dtype)) * mask
+    x = F.linear(video_features, w["ve.weight"], w["ve.bias"].to(dtype)) * mask
     return x + w["pe.weight"][None] * mask
 
 
@@ -195,11 +211,11 @@ def query_encoder(qe: QueryEncoder, query_features, query_mask, hidden_size: int
     """biLSTM sentence/word features (reference models.py:38-64): fs = [last
     valid forward state, backward state at t=0], fw = per-word outputs, from
     the fused biLSTM (ops/lstm_cuda.py), which is grad-free, or with
-    ``fused_lstm=False`` from the plain one (models/lstm.py) under autograd.
-    At bf16 both take the weights' bf16 cast (`cast_weights`) and return
-    bf16 features."""
+    ``fused_lstm=False`` from the plain one under autograd (models/lstm.py
+    `bilstm`), as the JAX package runs its scan. At bf16 they take the
+    weights' bf16 cast (`module_weights`) and return bf16 features."""
     mask = query_mask[..., 0]                                     # (B, Nq)
-    layers = lstm_layers(qe.lstm, cast_weights(qe.lstm, query_features.dtype)
+    layers = lstm_layers(qe.lstm, module_weights(qe.lstm, query_features.dtype)
                          if query_features.dtype != torch.float32 else None)
     run = lstm_cuda.bilstm_fused if fused_lstm else bilstm
     fw = run(query_features, mask, layers)
@@ -361,33 +377,64 @@ def localization_packed(loc: Localization, f_m, f_b, length_mask, vmask, L: int,
 
 
 # --------------------------------------------------------------------- #
-# The serving stack at bf16 (the plain version of K4's bf16 variant)
+# The SMI layer at bf16 (the plain version of the bf16 variants of K4, K2
+# and, by autograd, K3)
 # --------------------------------------------------------------------- #
+def _r16(x: torch.Tensor) -> torch.Tensor:
+    """x's values rounded to bf16, in fp32. A bf16 tensor is converted (its
+    gradient is rounded to bf16 there, where the stored value is read); an
+    fp32 one is rounded with the gradient passed through unchanged, so a
+    weight's gradient stays fp32 and an activation converted once stays
+    rounded once."""
+    if x.dtype == torch.bfloat16:
+        return x.float()
+    r = x.to(torch.bfloat16).float()
+    return x + (r - x).detach() if x.requires_grad else r
+
+
+class _Grad16(torch.autograd.Function):
+    """Identity forward; the gradient rounded to bf16 (an fp32 value whose
+    gradient the kernels store in bf16)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(g.dtype)
+
+
 def _mm16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., K) @ w^T, w (N, K) or a 1x1 conv's (N, K, 1, 1), with bf16
-    operands and fp32 sums: both are rounded to bf16 (a no-op on bf16
-    tensors), and the product of two bf16 values is exact in fp32."""
-    w = w.reshape(w.shape[0], w.shape[1]).to(torch.bfloat16).float()
-    return x.to(torch.bfloat16).float() @ w.t()
+    operands and fp32 sums: both are rounded to bf16 (`_r16`), and the
+    product of two bf16 values is exact in fp32."""
+    return _r16(x) @ _r16(w.reshape(w.shape[0], w.shape[1])).t()
 
 
-def smi_block_packed_bf16(block: SMI, fc, fm, fb, fw, fs, query_mask, length_mask, vmask,
-                          L: int):
-    """One SMI layer of the serving stack at bf16: fc (B, N, C, D), fm
-    (B, N, D), fb (B, L, D), fw (B, Nq, D), fs (B, D) bf16 -> (cu, mu, bu)
-    bf16. The function of `smi_block_packed`, with the arithmetic of the
-    JAX serving kernel at bf16 (ops/smin_pallas.py::smi_layer_rows): every
-    product takes bf16 operands (the block's weights cast once,
-    `cast_weights`) with fp32 sums, biases, gates, softmaxes and the other
-    elementwise work are fp32, and every activation the layer keeps is
-    stored in bf16 (fbar, h, q, fwh, khat, f_cc_hat, cu, bq, bk, f_bq, bu,
-    the moment operands and mu; f_s_hat stays fp32). The kernel's order of
-    operations is kept, so that K4's bf16 variant can be held to it."""
+def smi_layer_bf16(w, fc, fm, fb, fw, fs, query_mask, length_mask, vmask, L: int):
+    """One SMI layer at bf16: fc (B, N, C, D), fm (B, N, D), fb (B, L, D),
+    fw (B, Nq, D), fs (B, D) bf16 -> (cu, mu, bu) bf16; ``w`` the layer's
+    parameters by `BLOCK_WEIGHT_NAMES` (matrices bf16 or fp32, rounded to
+    bf16 either way; biases fp32). The function of `smi_block_packed`, with
+    the arithmetic of the JAX layer kernels at bf16
+    (ops/smin_pallas.py::smi_layer_rows): every product takes bf16 operands
+    with fp32 sums, biases, gates, softmaxes and the other elementwise work
+    are fp32, and every activation the layer keeps is stored in bf16 (fbar,
+    h, q, fwh, khat, f_cc_hat, cu, bq, bk, f_bq, bu, the moment operands and
+    mu; f_s_hat stays fp32). The kernels' order of operations is kept, so
+    that K4's and K2's bf16 variants can be held to it.
+
+    Under autograd it is the plain version of K3-bf16: each bf16 value is
+    read back once (one `.float()`), so its gradient, the fp32 sum over its
+    uses, is rounded to bf16 once there, as the kernel stores it; f_s_hat's
+    gradient is stored in bf16 too (`_Grad16`); a value that is also an
+    output of the layer (cu, bu) gets the outer cotangent added to that
+    rounded gradient in bf16."""
     # Imported here: the ops modules import this one.
     from video_moment_localization_tpu_torch.ops.content_attn_cuda import content_attn_plain_bf16
 
     bf = torch.bfloat16
-    w = cast_weights(block, bf)
 
     def proj(x, name):
         return _mm16(x, w[f"{name}.weight"]) + w[f"{name}.bias"]
@@ -396,43 +443,53 @@ def smi_block_packed_bf16(block: SMI, fc, fm, fb, fw, fs, query_mask, length_mas
     vm = vmask.float()
     qm = query_mask.float()                                         # (B, Nq, 1)
     lm = length_mask.float()
-    fs32, fb32, fw32 = fs.float(), fb.float(), fw.float()
-    fbar = (torch.sigmoid(fm.float() * fs32[:, None]) * fm.float()).to(bf)
+    fc32, fm32, fb32, fw32, fs32 = (t.float() for t in (fc, fm, fb, fw, fs))
+    fbar = (torch.sigmoid(fm32 * fs32[:, None]) * fm32).to(bf)
+    fbar32 = fbar.float()
 
     # ContentUnit
-    h = (proj(fc, "content_unit.linear_c_hat") * vm[..., None, None]).to(bf)
-    q = proj(h, "content_unit.attn_layer.W_q").to(bf)
-    fwh = (proj(fw, "content_unit.linear_w_hat") * qm).to(bf)
-    khat = proj(fwh, "content_unit.attn_layer.W_k").to(bf)
-    fsh = proj(fs, "content_unit.linear_s_hat")                     # fp32 (B, dl)
-    fcc = content_attn_plain_bf16(h, q, khat, fwh, fsh, qm, vm)
-    cu = (proj(fcc, "content_unit.linear_c") * vm[..., None, None] + fc.float()
-          + fbar.float()[:, :, None]).to(bf)
+    h32 = (proj(fc32, "content_unit.linear_c_hat") * vm[..., None, None]).to(bf).float()
+    q = proj(h32, "content_unit.attn_layer.W_q").to(bf)
+    fwh32 = (proj(fw32, "content_unit.linear_w_hat") * qm).to(bf).float()
+    khat = proj(fwh32, "content_unit.attn_layer.W_k").to(bf)
+    fsh = _Grad16.apply(proj(fs32, "content_unit.linear_s_hat"))   # fp32 (B, dl)
+    fcc = content_attn_plain_bf16(h32, q, khat, fwh32, fsh, qm, vm)
+    cu = (proj(fcc.float(), "content_unit.linear_c") * vm[..., None, None] + fc32
+          + fbar32[:, :, None]).to(bf)
 
     # BoundaryUnit
-    bq = proj(fb, "boundary_unit.attn_layer.W_q").to(bf)
-    bk = proj(fw, "boundary_unit.attn_layer.W_k").to(bf)
+    bq = proj(fb32, "boundary_unit.attn_layer.W_q").to(bf)
+    bk = proj(fw32, "boundary_unit.attn_layer.W_k").to(bf)
     wl = torch.einsum("bid,bmd->bim", bq.float(), bk.float()) / math.sqrt(D)
     wl = torch.where(qm[..., 0][:, None, :] > 0, wl, _NEG_INF)
     f_baq = torch.einsum("bim,bmd->bid", torch.softmax(wl, dim=-1), fw32)
-    fbq = (fb32 * (f_baq * lm[..., None] + fs32[:, None])).to(bf)
-    al = torch.einsum("bid,bjd->bij", fbq.float(), fbq.float()) / math.sqrt(D)
+    fbq32 = (fb32 * (f_baq * lm[..., None] + fs32[:, None])).to(bf).float()
+    al = torch.einsum("bid,bjd->bij", fbq32, fbq32) / math.sqrt(D)
     al = torch.where(lm[:, None, :] > 0, al, _NEG_INF)
     A_b = torch.softmax(al, dim=-1) * lm[..., None]
     i_idx, j_idx = pair_index(L, fb.device)
     f_bm = fb32.new_zeros((B, L, D)).index_add_(
-        1, i_idx, A_b[:, i_idx, j_idx][..., None] * fbar.float())
+        1, i_idx, A_b[:, i_idx, j_idx][..., None] * fbar32)
     bu = (torch.einsum("bij,bjd->bid", A_b, fb32) * lm[..., None] + fb32 + f_bm).to(bf)
 
     # MomentUnit: one product of [x1 | x2] with [W_fb | W_fc], bias b_fb + b_fc
-    x1 = (bu.float()[:, i_idx] * bu.float()[:, j_idx]).to(bf)
+    bu32 = bu.float()
+    x1 = (bu32[:, i_idx] * bu32[:, j_idx]).to(bf)
     x2 = cu.float().mean(dim=2).to(bf)
     wm = torch.cat([w["moment_unit.conv_layer_fb.weight"].reshape(D, D),
                     w["moment_unit.conv_layer_fc.weight"].reshape(D, D)], dim=1)
     bias = w["moment_unit.conv_layer_fb.bias"] + w["moment_unit.conv_layer_fc.bias"]
-    mu = ((_mm16(torch.cat([x1, x2], dim=-1), wm) + bias) * vm[..., None]
-          + fm.float()).to(bf)
+    mu = ((_mm16(torch.cat([x1, x2], dim=-1).float(), wm) + bias) * vm[..., None]
+          + fm32).to(bf)
     return cu, mu, bu
+
+
+def smi_block_packed_bf16(block: SMI, fc, fm, fb, fw, fs, query_mask, length_mask, vmask,
+                          L: int):
+    """One SMI layer of the serving stack at bf16: `smi_layer_bf16` on the
+    block's weights cast once (`cast_weights`)."""
+    return smi_layer_bf16(cast_weights(block, torch.bfloat16), fc, fm, fb, fw, fs, query_mask,
+                          length_mask, vmask, L)
 
 
 def smin_stack_bf16(model: SMIN, cfg: ModelConfig, f, fw, fs, query_mask, length_mask,
@@ -517,15 +574,32 @@ def localization(loc: Localization, f_m, f_b, length_mask, moment_mask):
 _BF16_ITEM = "ROADMAP.md §1 'bf16'"
 
 
+def trains_whole_layer_route(cfg: ModelConfig) -> bool:
+    """Whether the differentiable forward takes the whole-layer kernels
+    (K1, K2, K3): the default training route (packed, ``fused_smi_train``,
+    not ``compat_head``) at a geometry `whole_layer_train_admits`."""
+    return (cfg.packed and cfg.fused_smi_train and not cfg.compat_head
+            and whole_layer_train_admits(cfg))
+
+
 def check_config(cfg: ModelConfig) -> None:
-    """The differentiable forward and the train and eval steps take every
-    route of the JAX package in fp32; a ``compute_dtype`` other than
-    float32 raises (bf16 training and evaluation are still to port) instead
-    of running in fp32."""
-    if cfg.compute_dtype != "float32":
+    """The differentiable forward and the train step take every route of
+    the JAX package in fp32, and bf16 on the whole-layer route
+    (`trains_whole_layer_route`: Charades, and TACoS, which takes that route
+    at bf16 as in JAX). bf16 on any other route, and any other
+    ``compute_dtype``, raises instead of running in fp32."""
+    if cfg.compute_dtype == "float32":
+        return
+    if cfg.compute_dtype != "bfloat16":
         raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype} is not supported by the PyTorch port for "
-            f"training or evaluation yet: bf16 training and the eval step are {_BF16_ITEM}")
+            f"compute_dtype={cfg.compute_dtype} is not supported by the PyTorch port")
+    if not trains_whole_layer_route(cfg):
+        raise NotImplementedError(
+            f"compute_dtype=bfloat16 trains on the whole-layer route only (packed, "
+            f"fused_smi_train, not compat_head, N*C={cfg.L * (cfg.L + 1) // 2 * cfg.C} within "
+            f"whole_layer_train_admits); packed={cfg.packed}, "
+            f"fused_smi_train={cfg.fused_smi_train}, compat_head={cfg.compat_head} at this "
+            f"geometry is not supported by the PyTorch port yet: {_BF16_ITEM}")
 
 
 def serves_default_route(cfg: ModelConfig) -> bool:
@@ -556,7 +630,9 @@ def cast_weights(module: nn.Module, dtype: torch.dtype) -> dict:
     """The module's parameters for a bf16 serving path, by name: matrices
     (2-D and up) cast to ``dtype``, vectors (biases) as they are, in fp32.
     The cast is made once and kept on the module until a parameter changes
-    (its version counter or storage: an optimizer step, a load, a move)."""
+    (its version counter or storage: an optimizer step, a load, a move).
+    Grad-free: the tensors are detached (`module_weights` casts for
+    training)."""
     cache = module.__dict__.setdefault("_cast_weights", {})
     params = list(module.named_parameters())
     key = tuple((p._version, p.data_ptr()) for _, p in params)
@@ -568,6 +644,18 @@ def cast_weights(module: nn.Module, dtype: torch.dtype) -> dict:
     cache[dtype] = (key, out)
     return out
 
+
+
+def module_weights(module: nn.Module, dtype: torch.dtype) -> dict:
+    """The module's parameters at ``dtype`` as `cast_weights` gives them
+    (matrices cast, biases fp32), by name; when grad mode is on and a
+    parameter requires grad, a differentiable cast made anew (its gradient
+    reaches the fp32 parameter, as JAX's astype's does), else the kept
+    grad-free cast."""
+    params = list(module.named_parameters())
+    if not (torch.is_grad_enabled() and any(p.requires_grad for _, p in params)):
+        return cast_weights(module, dtype)
+    return {n: p.to(dtype) if p.dim() >= 2 else p for n, p in params}
 
 
 _WHOLE_LAYER_MAX_ROWS = 4352            # clip rows N * C of one element
@@ -584,9 +672,9 @@ def whole_layer_train_admits(cfg: ModelConfig) -> bool:
     ``ops/limits.py`` resolves to on the TPU the package was tuned on (a row
     cap of its backward kernel and that kernel's working set against its
     budget of fast memory). It is kept so that both packages train a given
-    config through the same kernels: Charades passes at fp32; TACoS at fp32
-    (N * C = 2112, over the budget) and ActivityNet (N * C = 8320, over the
-    row cap) do not."""
+    config through the same kernels: Charades passes at fp32 and bf16, TACoS
+    (N * C = 2112) at bf16 but not at fp32 (over the budget), ActivityNet
+    (N * C = 8320, over the row cap) at neither."""
     rows = cfg.L * (cfg.L + 1) // 2 * cfg.C
     itemsize = torch.finfo(getattr(torch, cfg.compute_dtype)).bits // 8
     return (rows <= _WHOLE_LAYER_MAX_ROWS
@@ -621,7 +709,12 @@ def smin_forward(
     is (B, N) packed in the default mode, (B, L, L) under ``compat_head`` or
     ``packed: False``; ``moment_mask`` is read by the dense layout only.
     The routes are those of the module docstring; ``video_group`` is that
-    of `backbone`."""
+    of `backbone`. ``compute_dtype: bfloat16`` (the whole-layer route,
+    `check_config`) follows the JAX package's bf16 training: the inputs cast
+    to bf16, the parameters fp32 with differentiable bf16 casts where the
+    JAX code casts them (`module_weights`; the layer kernels' own casts in
+    ops/smin_train_cuda.py), bf16 activations through K1, K2 and K3 at
+    bf16, and the heads and the loss in fp32."""
     # Imported here: these modules import this one for their plain versions.
     from video_moment_localization_tpu_torch.ops.content_train_cuda import (
         smi_stack_content_train,
@@ -634,8 +727,13 @@ def smin_forward(
     from video_moment_localization_tpu_torch.ops.smin_train_cuda import smi_stack_layers
 
     check_config(cfg)
+    dtype = getattr(torch, cfg.compute_dtype)
+    if video_group is not None:
+        video_group = (video_group[0].to(dtype),) + tuple(video_group[1:])
+    elif video_features is not None:
+        video_features = video_features.to(dtype)
     f, fs, fw = backbone(model.backbone, cfg, video_features, video_mask,
-                         query_features, query_mask, video_group=video_group,
+                         query_features.to(dtype), query_mask, video_group=video_group,
                          fused_lstm=False)
     length_mask = length_mask.float()
     if not cfg.packed:

@@ -18,12 +18,13 @@ The mirror (`plan`, `smem_floats`, `partial_floats`, `tile_bounds`) restates
 config and ``chip_smoke.py`` can hold the mirror against the C plan on the
 card.
 
-The forward has a bf16 variant (K4 at bf16): h, q, khat, fwh and fcc bf16,
-fsh and the masks fp32 (`content_attn_forward` on bf16 tensors; its plain
-version is `content_attn_plain_bf16`). It converts the rows to fp32 as it
-stages them, so its shared memory, plan and arithmetic are the fp32
-forward's: `plan` at ``itemsize=2`` is the fp32 plan forward, and none
-backward (there is no bf16 backward).
+The forward has a bf16 variant (K4, K2 at bf16): h, q, khat, fwh and fcc
+bf16, fsh and the masks fp32 (`content_attn_forward` on bf16 tensors; its
+plain version is `content_attn_plain_bf16`). The backward has one inside
+K3-bf16 (csrc/content_attn.cuh: dq, dkhat and dfsh bf16, dh and dfwh fp32),
+which this module does not call alone. Both convert the rows to fp32 as
+they stage them, so their shared memory, plans and arithmetic are the fp32
+kernels': `plan` is the plan of either type.
 """
 
 from __future__ import annotations
@@ -80,16 +81,13 @@ def chunk_threads(RP: int) -> int:
     return THREADS // (RP // 4)
 
 
-def plan(B: int, N: int, C: int, Nq: int, dl: int, backward: bool,
-         itemsize: int = 4) -> Dict[str, int]:
-    """content_attn.cuh::content_attn_plan_for: pairs per pass ``pp``, passes
+def plan(B: int, N: int, C: int, Nq: int, dl: int, backward: bool) -> Dict[str, int]:
+    """content_attn.cuh::content_attn_plan: pairs per pass ``pp``, passes
     per block, blocks (tiles) per element and a block's shared memory in
-    bytes (all 0: the shape is not taken), for rows of ``itemsize`` bytes in
-    device memory (the bf16 rows are staged in fp32)."""
+    bytes (all 0: the shape is not taken), for fp32 or bf16 rows (the bf16
+    rows are staged in fp32)."""
     none = dict(pp=0, passes=0, tiles=0, smem=0)
     if B < 1 or N < 1 or C < 1 or C > ROWS or Nq < 1 or Nq > 32 or dl < 1:
-        return none
-    if itemsize == 2 and backward:
         return none
     pp = ROWS // C
 
@@ -187,21 +185,19 @@ def _library() -> ctypes.CDLL:
     bwd = lib.vml_content_attn_bwd_f32
     bwd.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 14
     bwd.restype = ctypes.c_int
-    lib.vml_content_attn_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+    lib.vml_content_attn_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
     lib.vml_content_attn_plan.restype = None
     lib.vml_content_attn_partial_floats.argtypes = [ctypes.c_int] * 5
     lib.vml_content_attn_partial_floats.restype = ctypes.c_size_t
     return lib
 
 
-def card_plan(B: int, N: int, C: int, Nq: int, dl: int, backward: bool,
-              itemsize: int = 4) -> Dict[str, int]:
+def card_plan(B: int, N: int, C: int, Nq: int, dl: int, backward: bool) -> Dict[str, int]:
     """The C host code's plan, in `plan`'s form."""
     lib = _library()
     out = (ctypes.c_int * 3)()
     smem = ctypes.c_size_t()
-    lib.vml_content_attn_plan(B, N, C, Nq, dl, int(backward), itemsize, out,
-                              ctypes.byref(smem))
+    lib.vml_content_attn_plan(B, N, C, Nq, dl, int(backward), out, ctypes.byref(smem))
     return dict(pp=out[0], passes=out[1], tiles=out[2], smem=smem.value)
 
 

@@ -21,11 +21,13 @@ each kernel of the port launches, so the CPU tests can check every shape of
 the shipped configs and ``chip_smoke.py`` can hold the mirror against the C
 plan on the card.
 
-A third path, BF16, serves the bf16 variants of K4 and K5 (serving, layout
-nt only): bf16 operands, fp32 sums (``mma.sync`` m16n8k16), the epilogue in
-fp32 with bf16 residuals, a bf16 or fp32 result. ``gemm_bf16`` calls it
-alone (its plain version ``gemm_bf16_plain`` multiplies the bf16 values in
-fp32), and `model_gemm_shapes_bf16` lists its products.
+A third path, BF16, serves the bf16 variants of K4, K5, K2 and K3 in all
+three layouts: bf16 operands, fp32 sums (``mma.sync`` m16n8k16; a k-major
+operand's fragments by ``ldmatrix.trans``), the epilogue in fp32 with bf16
+or fp32 residuals, a bf16 or fp32 result; gemm_tn's split and fixed-order
+reduction are the fp32 path's. ``gemm_bf16`` calls its nt layout alone and
+``gemm_bf16_layout`` its nn and tn layouts (their plain versions multiply
+the bf16 values in fp32), and `model_gemm_shapes_bf16` lists its products.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ BF16 = 2                    # csrc/gemm.cuh::kPathBf16
 PATHS = {"cuda_core": CUDA_CORE, "tensor": TENSOR}
 TC_PAD = 8                  # k-major row padding of the tensor-core path
 BF16_BK = 32                # K slice of a stage of the bf16 path
-BF16_LD = BF16_BK + 8       # bf16 per shared row
+BF16_LD = BF16_BK + 8       # bf16 per shared row of a k-contiguous slice
+BF16_PAD = 8                # bf16 past R per shared row of a k-major slice
 BF16_STAGES = 4
 
 
@@ -70,11 +73,10 @@ def path_for(layout: str, M: int, N: int, K: int, groups: int = 1,
     """gemm.cuh::gemm_path_for: gemm_nt and gemm_nn take the tensor cores
     from M N K = TC_MIN_WORK on; gemm_tn (K: the rows it reduces) when a
     block reduces at least WG_MIN_ROWS rows; else the CUDA cores. A bf16
-    product (gemm_path_for_bf16) takes the BF16 path, which has layout nt
-    only."""
+    product of any layout (gemm_path_for_bf16) takes the BF16 path."""
     if dtype == torch.bfloat16:
-        if layout != "nt":
-            raise ValueError(f"the bf16 GEMM has layout nt only, not {layout!r}")
+        if layout not in LAYOUTS:
+            raise ValueError(f"unknown layout {layout!r}")
         return BF16
     if layout == "tn":
         return TENSOR if splitk_for(M, N, K)[1] >= WG_MIN_ROWS else CUDA_CORE
@@ -97,8 +99,11 @@ def smem_bytes(tile: int, layout: str, path: int = TENSOR) -> int:
     bm, bn = TILES[tile]
     if path == BF16:
         # gemm_bf16_smem_bytes: a ring of both operands' slices, rows of
-        # BF16_LD bf16.
-        return 2 * BF16_STAGES * (bm + bn) * BF16_LD
+        # BF16_LD bf16 where an operand is contiguous along k, else BF16_BK
+        # rows of its R + BF16_PAD (A of tn, W of nn and tn).
+        a = BF16_BK * (bm + BF16_PAD) if layout == "tn" else bm * BF16_LD
+        w = BF16_BK * (bn + BF16_PAD) if layout != "nt" else bn * BF16_LD
+        return 2 * BF16_STAGES * (a + w)
     if path == TENSOR and layout == "tn":
         # gemm_wg_smem_floats: the ring of both k-major slices, and two
         # big / small pairs of core-matrix tiles of each operand (128x128).
@@ -155,9 +160,10 @@ def launch_grid(layout: str, M: int, N: int, K: int, groups: int = 1) -> Tuple[i
 
 
 def model_gemm_shapes_bf16(cfg, B: int) -> List[Tuple[str, str, str, int, int, int, int]]:
-    """The products of the bf16 variants of K4 (one layer's, per layer) and
-    K5 (the layer-2 projections) at batch B, in `model_gemm_shapes`' form;
-    s_hat has an fp32 output, the rest bf16."""
+    """The products of the bf16 variants of K4 (one layer's, per layer), K5
+    (the layer-2 projections), K2 and K3 (those of K2 and K3) at batch B, in
+    `model_gemm_shapes`' form; s_hat and the weight gradients have fp32
+    outputs, the rest bf16 or fp32 as their use wants."""
     L, C, D, dl, Nq = cfg.L, cfg.C, cfg.D, cfg.dl, cfg.max_query_length
     H = cfg.lstm_hidden_size
     N = L * (L + 1) // 2
@@ -168,7 +174,8 @@ def model_gemm_shapes_bf16(cfg, B: int) -> List[Tuple[str, str, str, int, int, i
             (k, "w_hat", "nt", B * Nq, dl, D, 1), (k, "attn_k", "nt", B * Nq, dl, dl, 1),
             (k, "s_hat", "nt", B, dl, D, 1), (k, "c_out", "nt", B * NC, D, dl, 1),
             (k, "bq", "nt", B * L, D, D, 1), (k, "bk", "nt", B * Nq, D, D, 1),
-            (k, "conv_fb + conv_fc", "nt", B * N, D, 2 * D, 1)]
+            (k, "conv_fb + conv_fc", "nt", B * N, D, 2 * D, 1)] + [
+        (f"{s[0]}-bf16",) + s[1:] for s in model_gemm_shapes(cfg, B) if s[0] in ("K2", "K3")]
 
 
 def model_gemm_shapes(cfg, B: int) -> List[Tuple[str, str, str, int, int, int, int]]:
@@ -271,6 +278,10 @@ def _library() -> ctypes.CDLL:
     ints = {1, 2, 3, 5, 7, 9, 10, 13, 15, 17, 18, 19}
     fn.argtypes = [ctypes.c_int if k in ints else ctypes.c_void_p for k in range(20)]
     fn.restype = ctypes.c_int
+    fn = lib.vml_gemm_bf16_layout
+    ints = {1, 2, 3, 4, 6, 8, 10, 12, 13, 16, 18, 20}
+    fn.argtypes = [ctypes.c_int if k in ints else ctypes.c_void_p for k in range(23)]
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -283,7 +294,7 @@ def card_plan(layout: str, M: int, N: int, K: int, groups: int = 1,
     lib = _library()
     if dtype == torch.bfloat16:
         path = lib.vml_gemm_path_for_bf16(LAYOUTS[layout])
-        tile = lib.vml_gemm_tile_for(M, N, groups)
+        tile = 0 if layout == "tn" else lib.vml_gemm_tile_for(M, N, groups)
         return dict(path=path, tile=tile,
                     smem=lib.vml_gemm_smem_bytes(path, LAYOUTS[layout], tile))
     path = (lib.vml_gemm_moment_path() if product == MOMENT_PRODUCT
@@ -455,3 +466,84 @@ def gemm_bf16(A, W, bias=None, rmask=None, mask_div: int = 1, post=None, post2=N
 
 
 gemm_bf16.launches = 0
+
+
+def gemm_bf16_layout_plain(layout: str, A, W, ascale=None, adiv: int = 1, bias=None, pre=None,
+                           rmask=None, mask_div: int = 1, post32=None,
+                           out_dtype: torch.dtype = torch.bfloat16, bias_sums: bool = False):
+    """The bf16 path's nn and tn layouts in torch ops: the bf16 values of
+    the (row-scaled) operands multiplied in fp32; nn then bias, pre, the row
+    mask and post32 in fp32, rounded once to ``out_dtype``; tn fp32, with
+    the column sums of the scaled A when ``bias_sums``."""
+    A = A.to(torch.bfloat16).float()
+    if ascale is not None:
+        A = (A * ascale[torch.arange(A.shape[0], device=A.device) // adiv][:, None]).to(
+            torch.bfloat16).float()
+    W = W.to(torch.bfloat16).float()
+    if layout == "tn":
+        out = A.t() @ W
+        return (out, A.sum(dim=0)) if bias_sums else out
+    out = A @ W
+    rows = torch.arange(out.shape[0], device=out.device)
+    if bias is not None:
+        out = out + bias
+    if pre is not None:
+        out = out + pre
+    if rmask is not None:
+        out = out * rmask[rows // mask_div][:, None]
+    if post32 is not None:
+        out = out + post32
+    return out.to(out_dtype)
+
+
+def gemm_bf16_layout(layout: str, A, W, ascale=None, adiv: int = 1, bias=None, pre=None,
+                     rmask=None, mask_div: int = 1, post32=None,
+                     out_dtype: torch.dtype = torch.bfloat16, bias_sums: bool = False):
+    """One launch of the bf16 path's nn (C = A W, A (M, K), W (K, N)) or tn
+    (C = (A * ascale)^T W, A (R, M), W (R, N), fp32, with the column sums of
+    the scaled A when ``bias_sums``) layout: A and W contiguous bf16; bias,
+    pre, rmask, post32 and ascale fp32. A CPU tensor runs
+    `gemm_bf16_layout_plain`; a CUDA tensor launches the kernel or
+    raises."""
+    if A.device.type == "cpu":
+        return gemm_bf16_layout_plain(layout, A, W, ascale, adiv, bias, pre, rmask, mask_div,
+                                      post32, out_dtype, bias_sums)
+    if layout not in ("nn", "tn"):
+        raise ValueError(f"gemm_bf16_layout: layout nn or tn, not {layout!r} (nt: gemm_bf16)")
+    dev = A.device
+    for name, t in (("A", A), ("W", W)):
+        if t.dim() != 2 or t.dtype != torch.bfloat16 or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"gemm_bf16_layout: {name} must be a contiguous bfloat16 matrix "
+                             f"on {dev}")
+    for name, t in (("ascale", ascale), ("bias", bias), ("pre", pre), ("rmask", rmask),
+                    ("post32", post32)):
+        if t is not None and (t.dtype != torch.float32 or t.device != dev
+                              or not t.is_contiguous()):
+            raise ValueError(f"gemm_bf16_layout: {name} must be contiguous float32 on {dev}")
+    if A.shape[0] != W.shape[0] if layout == "tn" else A.shape[1] != W.shape[0]:
+        raise ValueError(f"gemm_bf16_layout: A {tuple(A.shape)} and W {tuple(W.shape)} "
+                         f"do not meet in layout {layout}")
+    lib = _library()
+    nul = ctypes.c_void_p(0)
+    p = lambda t: ptr(t) if t is not None else nul   # noqa: E731
+    N = W.shape[1]
+    if layout == "tn":
+        R, M = A.shape
+        K, out_dtype = R, torch.float32
+        partial = torch.empty(tn_partial_floats(M, N, R), device=dev, dtype=torch.float32)
+        colsum = torch.empty(M, device=dev, dtype=torch.float32) if bias_sums else None
+    else:
+        M, K = A.shape
+        partial = colsum = None
+    out = torch.empty((M, N), device=dev, dtype=out_dtype)
+    with torch.cuda.device(dev):
+        err = lib.vml_gemm_bf16_layout(
+            stream_of(A), LAYOUTS[layout], M, N, K, ptr(A), A.shape[1], p(ascale), adiv, ptr(W),
+            N, ptr(out), N, int(out_dtype == torch.float32), p(bias), p(pre), N, p(rmask),
+            mask_div, p(post32), N, p(partial), p(colsum))
+    check(lib, "vml_gemm_bf16_layout", err)
+    gemm_bf16_layout.launches += 1
+    return (out, colsum) if bias_sums else out
+
+
+gemm_bf16_layout.launches = 0

@@ -6,9 +6,10 @@ here, outside the kernel, as it does in the JAX wrapper; the kernel runs the
 recurrence of both layers and directions and the layer-2 input projection.
 
 On a CPU tensor the wrapper runs the plain version, ``models/lstm.py::
-bilstm`` (imported here as `bilstm_plain`); on a CUDA tensor it launches the
-kernel or raises. ``bilstm_fused.launches`` counts the fp32 variant's
-launches, ``bilstm_fused.launches_bf16`` the bf16 variant's.
+bilstm`` (imported here as `bilstm_plain`) at fp32 and ``bilstm_bf16`` at
+bf16; on a CUDA tensor it launches the kernel or raises.
+``bilstm_fused.launches`` counts the fp32 variant's launches,
+``bilstm_fused.launches_bf16`` the bf16 variant's.
 
 The kernel has an fp32 and a bf16 variant, chosen by ``x.dtype``. At bf16
 (the JAX kernel at bf16) x, the weight matrices and the output are bf16 and
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 
 from video_moment_localization_tpu_torch.models.lstm import Layers
 from video_moment_localization_tpu_torch.models.lstm import bilstm as bilstm_plain
+from video_moment_localization_tpu_torch.models.lstm import bilstm_bf16
 from video_moment_localization_tpu_torch.ops.cuda_build import (
     MAX_SMEM_BYTES,
     check,
@@ -142,7 +144,8 @@ def bilstm_fused(x: torch.Tensor, mask: torch.Tensor, layers: Layers) -> torch.T
     `models.lstm.bilstm` under autograd)."""
     if x.device.type == "cpu":
         with torch.no_grad():
-            return bilstm_plain(x, mask, layers)
+            plain = bilstm_bf16 if x.dtype == torch.bfloat16 else bilstm_plain
+            return plain(x, mask, layers)
     H = _check_inputs(x, mask, layers)
     refuse_grad("bilstm_fused", [x] + [w for layer in layers for d in layer.values()
                                        for w in d.values()])

@@ -33,6 +33,13 @@ wrappers: on a CPU tensor each runs its plain version
 (`ops.proposal.proposal_features_packed` or `ops.proposal.proposal_features`,
 and autograd through it), on a CUDA tensor it launches its kernel or raises.
 ``.launches`` on each counts the launches.
+
+K1 has a bf16 variant (K1-bf16, the training path at bf16), taken on a
+bf16 f or bf16 cotangents: the same kernels reading and writing bf16, with
+fp32 / fp64 sums inside and one rounding per stored value; its plain
+versions are the fp32 ones on the bf16 values, rounded once
+(`proposal_rows_forward_plain_bf16`, `proposal_rows_backward_plain_bf16`).
+``.launches_bf16`` counts its launches. K6 and K8 take float32 only.
 """
 
 from __future__ import annotations
@@ -67,21 +74,31 @@ _SM_SMEM, _RESERVED = 233472, 1024
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = load_library("proposal_rows")
-    for layout in ("rows", "dense"):
-        for direction in ("fwd", "bwd"):
-            fn = getattr(lib, f"vml_proposal_{layout}_{direction}_f32")
-            fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
-            fn.restype = ctypes.c_int
+    for name in ("rows_fwd_f32", "rows_bwd_f32", "dense_fwd_f32", "dense_bwd_f32",
+                 "rows_fwd_bf16", "rows_bwd_bf16"):
+        fn = getattr(lib, f"vml_proposal_{name}")
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
+        fn.restype = ctypes.c_int
     lib.vml_proposal_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.vml_proposal_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
-    if (tuple(t.shape) != tuple(shape) or t.dtype != torch.float32 or t.device != device
+def _check(name: str, t: torch.Tensor, shape, device, dtype=torch.float32) -> None:
+    if (tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != device
             or not t.is_contiguous()):
-        raise ValueError(f"{name}: want contiguous float32 {tuple(shape)} on {device}, "
+        raise ValueError(f"{name}: want contiguous {dtype} {tuple(shape)} on {device}, "
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _kernel_dtype(fn: str, dtype: torch.dtype) -> str:
+    """The C entry's suffix for the activations' dtype: bf16 for K1 only."""
+    if dtype == torch.float32:
+        return "f32"
+    if dtype == torch.bfloat16 and fn.startswith("proposal_rows"):
+        return "bf16"
+    raise ValueError(f"{fn}: the kernel takes float32{' or bfloat16' if 'rows' in fn else ''}, "
+                     f"got {dtype}")
 
 
 def _check_device(fn: str, t: torch.Tensor) -> None:
@@ -143,6 +160,20 @@ def _shapes(B: int, L: int, dense: bool):
     return (B, L), (B, L * (L + 1) // 2)
 
 
+def proposal_rows_forward_plain_bf16(f, length_mask, L: int, C: int) -> Features:
+    """The plain version of K1-bf16's forward: the fp32 pooling of f's bf16
+    values (fp32 prefix sums), each output rounded once to bf16."""
+    return tuple(x.to(torch.bfloat16)
+                 for x in proposal_features_packed(f.float(), length_mask, L, C))
+
+
+def proposal_rows_backward_plain_bf16(length_mask, T: int, L: int, C: int, dfc, dfm, dfb):
+    """The plain version of K1-bf16's backward: the fp32 transpose of the
+    bf16 cotangents' values, df rounded once to bf16."""
+    return proposal_backward_plain(length_mask, T, L, C, dfc.float(), dfm.float(),
+                                   dfb.float()).to(torch.bfloat16)
+
+
 def proposal_backward_plain(mask, T: int, L: int, C: int, dfc, dfm, dfb):
     """The plain backward of either layout (a (B, L, L) ``mask`` is the dense
     moment_mask, a (B, L) one the length mask): the pooling is linear in f,
@@ -173,13 +204,14 @@ def _launch_forward(fn: str, dense: bool, f: torch.Tensor, mask: torch.Tensor, L
     check_smem(fn, T, L, backward=False)
     _check_device(fn, f)
     mask_shape, lead = _shapes(B, L, dense)
-    _check("f", f, (B, T, D), f.device)
+    suffix = _kernel_dtype(fn, f.dtype)
+    _check("f", f, (B, T, D), f.device, f.dtype)
     _check("moment_mask" if dense else "length_mask", mask, mask_shape, f.device)
     lib = _library()
-    fc = torch.empty(lead + (C, D), device=f.device, dtype=torch.float32)
-    fm = torch.empty(lead + (D,), device=f.device, dtype=torch.float32)
-    fb = torch.empty((B, L, D), device=f.device, dtype=torch.float32)
-    _call(lib, f"vml_proposal_{'dense' if dense else 'rows'}_fwd_f32", f.device,
+    fc = torch.empty(lead + (C, D), device=f.device, dtype=f.dtype)
+    fm = torch.empty(lead + (D,), device=f.device, dtype=f.dtype)
+    fb = torch.empty((B, L, D), device=f.device, dtype=f.dtype)
+    _call(lib, f"vml_proposal_{'dense' if dense else 'rows'}_fwd_{suffix}", f.device,
           stream_of(f), B, T, L, C, D, ptr(f), ptr(mask), ptr(fc), ptr(fm), ptr(fb))
     return fc, fm, fb
 
@@ -191,13 +223,14 @@ def _launch_backward(fn: str, dense: bool, mask: torch.Tensor, T: int, L: int, C
     check_smem(fn, T, L, backward=True)
     _check_device(fn, dfc)
     mask_shape, lead = _shapes(B, L, dense)
-    _check("dfc", dfc, lead + (C, D), dfc.device)
-    _check("dfm", dfm, lead + (D,), dfc.device)
-    _check("dfb", dfb, (B, L, D), dfc.device)
+    suffix = _kernel_dtype(fn, dfc.dtype)
+    _check("dfc", dfc, lead + (C, D), dfc.device, dfc.dtype)
+    _check("dfm", dfm, lead + (D,), dfc.device, dfc.dtype)
+    _check("dfb", dfb, (B, L, D), dfc.device, dfc.dtype)
     _check("moment_mask" if dense else "length_mask", mask, mask_shape, dfc.device)
     lib = _library()
-    df = torch.empty((B, T, D), device=dfc.device, dtype=torch.float32)
-    _call(lib, f"vml_proposal_{'dense' if dense else 'rows'}_bwd_f32", dfc.device,
+    df = torch.empty((B, T, D), device=dfc.device, dtype=dfc.dtype)
+    _call(lib, f"vml_proposal_{'dense' if dense else 'rows'}_bwd_{suffix}", dfc.device,
           stream_of(dfc), B, T, L, C, D, ptr(mask), ptr(dfc), ptr(dfm), ptr(dfb), ptr(df))
     return df
 
@@ -205,15 +238,22 @@ def _launch_backward(fn: str, dense: bool, mask: torch.Tensor, T: int, L: int, C
 def _forward_wrapper(name: str, dense: bool, doc: str):
     """A kernel wrapper of a forward entry point with its own counter."""
     def run(f: torch.Tensor, mask: torch.Tensor, L: int, C: int) -> Features:
+        bf16 = f.dtype == torch.bfloat16
         if f.device.type == "cpu":
+            if bf16:
+                _kernel_dtype(name, f.dtype)
+                return proposal_rows_forward_plain_bf16(f, mask, L, C)
             return _plain_forward(dense)(f, mask, L, C)
         out = _launch_forward(name, dense, f, mask, L, C)
-        run.launches += 1
+        if bf16:
+            run.launches_bf16 += 1
+        else:
+            run.launches += 1
         return out
 
     run.__name__ = run.__qualname__ = name
     run.__doc__ = doc
-    run.launches = 0
+    run.launches = run.launches_bf16 = 0
     return run
 
 
@@ -221,15 +261,22 @@ def _backward_wrapper(name: str, dense: bool, doc: str):
     """A kernel wrapper of a backward entry point with its own counter."""
     def run(mask: torch.Tensor, T: int, L: int, C: int, dfc: torch.Tensor,
             dfm: torch.Tensor, dfb: torch.Tensor) -> torch.Tensor:
+        bf16 = dfc.dtype == torch.bfloat16
         if dfc.device.type == "cpu":
+            if bf16:
+                _kernel_dtype(name, dfc.dtype)
+                return proposal_rows_backward_plain_bf16(mask, T, L, C, dfc, dfm, dfb)
             return proposal_backward_plain(mask, T, L, C, dfc, dfm, dfb)
         df = _launch_backward(name, dense, mask, T, L, C, dfc, dfm, dfb)
-        run.launches += 1
+        if bf16:
+            run.launches_bf16 += 1
+        else:
+            run.launches += 1
         return df
 
     run.__name__ = run.__qualname__ = name
     run.__doc__ = doc
-    run.launches = 0
+    run.launches = run.launches_bf16 = 0
     return run
 
 
@@ -237,11 +284,12 @@ proposal_rows_forward = _forward_wrapper(
     "proposal_rows_forward", False,
     """K1 forward. f (B, T, D), length_mask (B, L) -> fc (B, N, C, D) masked
     by the pair validity, fm (B, N, D) = mean over C, fb (B, L, D) window
-    means.""")
+    means; f and the outputs fp32, or bf16 (K1-bf16).""")
 proposal_rows_backward = _backward_wrapper(
     "proposal_rows_backward", False,
     """K1 backward. (length_mask, T, L, C, dfc, dfm, dfb): cotangents of
-    (fc, fm, fb) -> df (B, T, D).""")
+    (fc, fm, fb) -> df (B, T, D), in the cotangents' type (fp32, or bf16:
+    K1-bf16).""")
 proposal_packed_forward = _forward_wrapper(
     "proposal_packed_forward", False,
     """K6 forward: the same function and device code as `proposal_rows_forward`
@@ -276,8 +324,8 @@ class _Proposal(torch.autograd.Function):
     def backward(ctx, dfc, dfm, dfb):
         f, mask = ctx.saved_tensors
         L, C = ctx.geometry
-        df = ctx.run_backward(mask, f.shape[1], L, C, dfc.contiguous(),
-                              dfm.contiguous(), dfb.contiguous())
+        df = ctx.run_backward(mask, f.shape[1], L, C, *(g.to(f.dtype).contiguous()
+                                                        for g in (dfc, dfm, dfb)))
         return df, None, None, None, None, None
 
 

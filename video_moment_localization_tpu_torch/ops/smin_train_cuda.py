@@ -25,6 +25,14 @@ kernel wrappers: on a CPU tensor each runs its plain version
 ``torch.autograd.grad`` through it), on a CUDA tensor it launches its kernel
 or raises. ``.launches`` on each counts the launches (one per layer for K2
 and K3, one per stack for K9: the C entry point sequences the kernels).
+
+K2 and K3 have bf16 variants (`vml_smi_layer_fwd_bf16` / `_bwd_bf16`),
+taken when the carry is bf16: activations and cotangents bf16, the masks
+fp32, the layer's matrices bf16 and its biases fp32 (the stack casts the
+fp32 parameters once per forward, as the JAX package's `_wlayer` does), the
+20 weight gradients fp32. Their plain versions are
+`models.smin.smi_layer_bf16` and autograd through it. ``.launches_bf16``
+counts them. K9 has no bf16 variant: a bf16 CUDA carry raises there.
 """
 
 from __future__ import annotations
@@ -37,7 +45,12 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from video_moment_localization_tpu_torch.models.smin import block_weights, smi_block_packed
+from video_moment_localization_tpu_torch.models.smin import (
+    BLOCK_WEIGHT_NAMES,
+    block_weights,
+    smi_block_packed,
+    smi_layer_bf16,
+)
 from video_moment_localization_tpu_torch.ops.cuda_build import (
     MAX_SMEM_BYTES,
     check,
@@ -67,18 +80,26 @@ def _as_block(weights: Sequence[torch.Tensor]):
 
 def smi_layer_plain(weights, fc, fm, fb, fw, fs, query_mask, length_mask, vmask,
                     L: int) -> Carry:
-    """The plain version of K2: `smi_block_packed` on the layer's weights."""
+    """The plain version of K2: `smi_block_packed` on the layer's weights;
+    of K2-bf16 on a bf16 carry: `smi_layer_bf16`."""
+    if fc.dtype == torch.bfloat16:
+        return smi_layer_bf16(dict(zip(BLOCK_WEIGHT_NAMES, weights)), fc, fm, fb, fw, fs,
+                              query_mask, length_mask, vmask, L)
     return smi_block_packed(_as_block(weights), fc, fm, fb, fw, fs, query_mask,
                             length_mask, vmask, L)
 
 
 def smi_layer_backward_plain(weights, fc, fm, fb, fw, fs, query_mask, length_mask, vmask,
                              L: int, dcu, dmu, dbu):
-    """The plain version of K3: recompute the layer under autograd and take
-    its VJP. ``dcu=None`` is the zero cotangent. Returns
-    (dfc, dfm, dfb, dfw, dfs, [20 weight gradients])."""
+    """The plain version of K3 (and of K3-bf16 on a bf16 carry): recompute
+    the layer under autograd and take its VJP. ``dcu=None`` is the zero
+    cotangent. Returns (dfc, dfm, dfb, dfw, dfs, [20 weight gradients]);
+    the weight gradients are fp32 at either type (the bf16 layer's weights
+    enter as fp32 leaves, rounded to bf16 with the gradient passed
+    through)."""
     with torch.enable_grad():
-        leaves = [t.detach().requires_grad_(True) for t in (fc, fm, fb, fw, fs, *weights)]
+        leaves = [t.detach().requires_grad_(True) for t in (fc, fm, fb, fw, fs)]
+        leaves += [w.detach().float().requires_grad_(True) for w in weights]
         cu, mu, bu = smi_layer_plain(leaves[5:], *leaves[:5], query_mask, length_mask,
                                      vmask, L)
         outs, cots = [mu, bu], [dmu, dbu]
@@ -108,6 +129,12 @@ def _library() -> ctypes.CDLL:
     stack.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 8
                       + [pointers] + [ctypes.c_void_p] * 7)
     stack.restype = ctypes.c_int
+    lib.vml_smi_layer_workspace_bytes_bf16.argtypes = [ctypes.c_int] * 7
+    lib.vml_smi_layer_workspace_bytes_bf16.restype = ctypes.c_size_t
+    lib.vml_smi_layer_fwd_bf16.argtypes = fwd.argtypes
+    lib.vml_smi_layer_fwd_bf16.restype = ctypes.c_int
+    lib.vml_smi_layer_bwd_bf16.argtypes = bwd.argtypes
+    lib.vml_smi_layer_bwd_bf16.restype = ctypes.c_int
     return lib
 
 
@@ -115,10 +142,26 @@ def _weight_shapes(D: int, dl: int):
     return [(dl, D), (dl,)] * 3 + [(D, dl), (D,)] + [(dl, dl), (dl,)] * 2 + [(D, D), (D,)] * 4
 
 
+def _check_bf16(fn: str, device, want) -> None:
+    """`check_tensors` for the bf16 variants: activations and cotangents
+    bf16, the layer's matrices bf16 and its biases and the masks fp32."""
+    for name, t, shape in want:
+        t_shape = tuple(t.shape)
+        if name.startswith("weight") and t.dim() == 4:
+            t_shape = t_shape[:2]
+        fp32 = name.endswith("mask") or (name.startswith("weight") and len(shape) == 1)
+        dtype = torch.float32 if fp32 else torch.bfloat16
+        if (t_shape != tuple(shape) or t.dtype != dtype or t.device != device
+                or not t.is_contiguous()):
+            raise ValueError(f"{fn}: {name}: want contiguous {dtype} {tuple(shape)} on "
+                             f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
 def _check_inputs(fn: str, weights, fc, fm, fb, fw, fs, query_mask, length_mask, vmask,
                   L: int, cotangents=()):
-    """Shapes, dtype, device and contiguity of everything the C entry reads.
-    Returns (B, C, Nq, D, dl)."""
+    """Shapes, dtype, device and contiguity of everything the C entry reads
+    (fp32, or the bf16 variant's types when fc is bf16). Returns (B, C, Nq,
+    D, dl)."""
     if fc.device.type != "cuda":
         raise ValueError(f"{fn} takes CPU or CUDA tensors, got {fc.device}")
     if fc.dim() != 4 or len(weights) != WEIGHTS_PER_LAYER:
@@ -133,21 +176,32 @@ def _check_inputs(fn: str, weights, fc, fm, fb, fw, fs, query_mask, length_mask,
             ("length_mask", length_mask, (B, L)), ("vmask", vmask, (B, N))]
     want += [(f"weight {k}", w, s) for k, (w, s) in
              enumerate(zip(weights, _weight_shapes(D, dl)))]
-    check_tensors(fn, fc.device, want + list(cotangents))
+    if fc.dtype == torch.bfloat16:
+        _check_bf16(fn, fc.device, want + list(cotangents))
+    else:
+        check_tensors(fn, fc.device, want + list(cotangents))
     return B, C, Nq, D, dl
 
 
 def _workspace(lib, fc, B, L, C, Nq, D, dl, backward: bool,
                ws: Optional[torch.Tensor]) -> torch.Tensor:
+    """The workspace of a layer launch: float32 elements for the fp32
+    entries, bytes (uint8) for the bf16 ones; ``ws`` is checked and reused
+    when given."""
     smem = lib.vml_smi_layer_smem_bytes(L, C, Nq, D, dl)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"L={L}, C={C}, Nq={Nq}, dl={dl} need {smem} B of shared memory "
                          f"per block")
-    floats = lib.vml_smi_layer_workspace_floats(B, L, C, Nq, D, dl, int(backward))
+    if fc.dtype == torch.bfloat16:
+        n = lib.vml_smi_layer_workspace_bytes_bf16(B, L, C, Nq, D, dl, int(backward))
+        dtype = torch.uint8
+    else:
+        n = lib.vml_smi_layer_workspace_floats(B, L, C, Nq, D, dl, int(backward))
+        dtype = torch.float32
     if ws is None:
-        return torch.empty(floats, device=fc.device, dtype=torch.float32)
-    if ws.numel() < floats or ws.device != fc.device or ws.dtype != torch.float32:
-        raise ValueError(f"workspace: want {floats} float32 on {fc.device}")
+        return torch.empty(n, device=fc.device, dtype=dtype)
+    if ws.numel() < n or ws.device != fc.device or ws.dtype != dtype:
+        raise ValueError(f"workspace: want {n} {dtype} on {fc.device}")
     return ws
 
 
@@ -165,13 +219,18 @@ def smi_layer_forward(weights, fc, fm, fb, fw, fs, query_mask, length_mask, vmas
     lib = _library()
     ws = _workspace(lib, fc, B, L, C, Nq, D, dl, False, ws)
     cu, mu, bu = torch.empty_like(fc), torch.empty_like(fm), torch.empty_like(fb)
+    bf16 = fc.dtype == torch.bfloat16
+    entry = "vml_smi_layer_fwd_bf16" if bf16 else "vml_smi_layer_fwd_f32"
     with torch.cuda.device(fc.device):
-        err = lib.vml_smi_layer_fwd_f32(
+        err = getattr(lib, entry)(
             stream_of(fc), B, L, C, Nq, D, dl, ptr(fc), ptr(fm), ptr(fb), ptr(fw), ptr(fs),
             ptr(query_mask), ptr(length_mask), ptr(vmask), pointer_array(weights),
             ptr(ws), ptr(cu), ptr(mu), ptr(bu))
-    check(lib, "vml_smi_layer_fwd_f32", err)
-    smi_layer_forward.launches += 1
+    check(lib, entry, err)
+    if bf16:
+        smi_layer_forward.launches_bf16 += 1
+    else:
+        smi_layer_forward.launches += 1
     return cu, mu, bu
 
 
@@ -194,15 +253,20 @@ def smi_layer_backward(weights, fc, fm, fb, fw, fs, query_mask, length_mask, vma
     ws = _workspace(lib, fc, B, L, C, Nq, D, dl, True, ws)
     dfc, dfm, dfb = torch.empty_like(fc), torch.empty_like(fm), torch.empty_like(fb)
     dfw, dfs = torch.empty_like(fw), torch.empty_like(fs)
-    dweights = [torch.empty_like(w) for w in weights]
+    dweights = [torch.empty_like(w, dtype=torch.float32) for w in weights]
+    bf16 = fc.dtype == torch.bfloat16
+    entry = "vml_smi_layer_bwd_bf16" if bf16 else "vml_smi_layer_bwd_f32"
     with torch.cuda.device(fc.device):
-        err = lib.vml_smi_layer_bwd_f32(
+        err = getattr(lib, entry)(
             stream_of(fc), B, L, C, Nq, D, dl, ptr(fc), ptr(fm), ptr(fb), ptr(fw), ptr(fs),
             ptr(query_mask), ptr(length_mask), ptr(vmask), pointer_array(weights),
             ptr(dcu) if dcu is not None else None, ptr(dmu), ptr(dbu), ptr(ws),
             ptr(dfc), ptr(dfm), ptr(dfb), ptr(dfw), ptr(dfs), pointer_array(dweights))
-    check(lib, "vml_smi_layer_bwd_f32", err)
-    smi_layer_backward.launches += 1
+    check(lib, entry, err)
+    if bf16:
+        smi_layer_backward.launches_bf16 += 1
+    else:
+        smi_layer_backward.launches += 1
     return dfc, dfm, dfb, dfw, dfs, dweights
 
 
@@ -229,6 +293,9 @@ def smi_stack_forward(weights, fc, fm, fb, fw, fs, query_mask, length_mask, vmas
     if n_layers < 1 or len(weights) != n_layers * WEIGHTS_PER_LAYER:
         raise ValueError(f"smi_stack_forward: want 20 weight tensors per layer, got "
                          f"{len(weights)}")
+    if fc.dtype != torch.float32:
+        raise ValueError(f"smi_stack_forward: K9 takes float32 only, got {fc.dtype} "
+                         f"(bf16 is ROADMAP.md §1 'bf16')")
     B, C, Nq, D, dl = _check_inputs("smi_stack_forward", weights[:WEIGHTS_PER_LAYER], fc, fm,
                                     fb, fw, fs, query_mask, length_mask, vmask, L)
     check_tensors("smi_stack_forward", fc.device,
@@ -255,16 +322,29 @@ def smi_stack_forward(weights, fc, fm, fb, fw, fs, query_mask, length_mask, vmas
 
 smi_layer_forward.launches = 0
 smi_layer_backward.launches = 0
+smi_layer_forward.launches_bf16 = 0     # the bf16 variants' launches
+smi_layer_backward.launches_bf16 = 0
 smi_stack_forward.launches = 0
 
 
+def layer_weights_for(weights: Sequence[torch.Tensor], dtype: torch.dtype) -> List[torch.Tensor]:
+    """The layers' weights as the kernels of ``dtype`` read them: as they
+    are at fp32; at bf16 the matrices cast to bf16 and the biases fp32 (the
+    JAX package's `_wlayer`), detached."""
+    if dtype == torch.float32:
+        return list(weights)
+    return [w.detach().to(dtype) if w.dim() >= 2 else w.detach() for w in weights]
+
+
 class _SMIStack(torch.autograd.Function):
-    """All layers; saves the carries, the shared inputs and the weights."""
+    """All layers; saves the carries, the shared inputs and the weights (at
+    bf16 their bf16 cast, which the forward and backward kernels read)."""
 
     @staticmethod
     def forward(ctx, L, fc, fm, fb, fw, fs, query_mask, length_mask, vmask, *weights):
         n_layers = len(weights) // WEIGHTS_PER_LAYER
         shared = (fw, fs, query_mask, length_mask, vmask)
+        weights = layer_weights_for(weights, fc.dtype)
         if os.environ.get("VML_SMIN_TRAIN_FUSED_FWD", "0") == "1":
             fm, fb, carries = smi_stack_forward(weights, fc, fm, fb, *shared, L)
         else:
@@ -293,7 +373,9 @@ class _SMIStack(torch.autograd.Function):
         if fc0.device.type == "cuda":
             ws = _workspace(_library(), fc0, fc0.shape[0], L, fc0.shape[2], fw.shape[1],
                             fc0.shape[3], weights[0].shape[0], True, None)
-        dfc, dfm, dfb = None, dfm.contiguous(), dfb.contiguous()
+        # The cotangents in the carry's type, as the JAX package's backward
+        # casts them (`_stack_bwd_impl`).
+        dfc, dfm, dfb = None, dfm.to(fc0.dtype).contiguous(), dfb.to(fc0.dtype).contiguous()
         dfw_acc = dfs_acc = None
         dweights: List[torch.Tensor] = []
         for k in reversed(range(n_layers)):

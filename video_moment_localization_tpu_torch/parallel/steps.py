@@ -7,7 +7,8 @@ the on-device R@n,IoU=m counts. A step returns ``{"loss", "counts"}`` as
 device tensors and reads nothing back to the host.
 
 The training forward (`models.smin.smin_forward`) runs the plain biLSTM
-under autograd and the kernels of the config's route: K1 / K2 (or K9) / K3,
+under autograd and the kernels of the config's route (at bf16 the
+whole-layer route only, through K1, K2 and K3 at bf16): K1 / K2 (or K9) / K3,
 K6 / K7, K6 and the packed unit loop (with K10 under ``fused_content``), or
 K8 and the dense loop; the eval forward (`smin_forward_inference`) the fused
 biLSTM and the fused SMI stack, or `smin_forward` without a graph in the
@@ -28,6 +29,7 @@ from video_moment_localization_tpu_torch.config import Config, ModelConfig
 from video_moment_localization_tpu_torch.models.smin import (
     SMIN,
     check_config,
+    check_serving_config,
     smin_forward,
     smin_forward_inference,
 )
@@ -67,7 +69,8 @@ def make_train_step(cfg: ModelConfig, model: SMIN, optimizer: torch.optim.Optimi
                     ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
     """Returns batch -> metrics; each call updates ``model`` and
     ``optimizer`` in place. The model is moved to ``device`` here (its
-    parameters stay the objects the optimizer holds)."""
+    parameters stay the objects the optimizer holds, fp32 at either compute
+    dtype: Adam updates them, as optax does the JAX package's)."""
     check_config(cfg)
     device = resolve_device(device, "make_train_step")
     model.to(device)
@@ -92,8 +95,10 @@ def make_eval_step(cfg: ModelConfig, model: SMIN, use_nms: bool = False,
                    nms_sigma: float = 0.5, device: Union[str, torch.device] = "cuda"
                    ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
     """Returns batch -> metrics (loss and recall counts), grad-free, through
-    `smin_forward_inference`, which routes as the JAX package's does."""
-    check_config(cfg)
+    `smin_forward_inference`, which routes as the JAX package's does: it
+    takes what the serving forward takes (`check_serving_config`: every
+    route in fp32, bf16 on the default route)."""
+    check_serving_config(cfg)
     device = resolve_device(device, "make_eval_step")
     model.to(device)
 

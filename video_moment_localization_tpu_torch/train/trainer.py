@@ -38,7 +38,11 @@ from video_moment_localization_tpu_torch.config import Config
 from video_moment_localization_tpu_torch.data.datasets import get_dataset_class
 from video_moment_localization_tpu_torch.data.glove import WordEmbedding
 from video_moment_localization_tpu_torch.data.pipeline import BatchLoader
-from video_moment_localization_tpu_torch.models.smin import SMIN
+from video_moment_localization_tpu_torch.models.smin import (
+    SMIN,
+    check_config,
+    check_serving_config,
+)
 from video_moment_localization_tpu_torch.ops.cuda_build import resolve_device
 from video_moment_localization_tpu_torch.parallel.steps import (
     build_optimizer,
@@ -58,10 +62,12 @@ from video_moment_localization_tpu_torch.utils.profiling import StepTimer, trace
 DRAIN_EVERY = 16
 
 
-def refuse_unported(cfg: Config, distributed: bool = False) -> None:
+def refuse_unported(cfg: Config, distributed: bool = False, test_only: bool = False) -> None:
     """Raise NotImplementedError for a setting whose path the port does not
     have yet, naming the ROADMAP.md item that brings it, instead of running
-    something else."""
+    something else. The model's compute dtype and route: what the train step
+    takes (`check_config`), or with ``test_only`` (``--test``) what the eval
+    step takes (`check_serving_config`)."""
     if distributed or (cfg.num_devices is not None and cfg.num_devices != 1):
         what = "--distributed" if distributed else f"num_devices={cfg.num_devices}"
         raise NotImplementedError(
@@ -71,10 +77,7 @@ def refuse_unported(cfg: Config, distributed: bool = False) -> None:
         raise NotImplementedError(
             f"seq_devices={cfg.seq_devices}: sequence and 2-D parallelism are not in the "
             f"PyTorch port yet (ROADMAP.md §1 'Sequence and 2-D parallelism')")
-    if cfg.model.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.model.compute_dtype}: the PyTorch port trains in float32; "
-            f"bf16 training is ROADMAP.md §1 'bf16'")
+    (check_serving_config if test_only else check_config)(cfg.model)
 
 
 def build_datasets(cfg: Config, embedding: Optional[WordEmbedding] = None,
@@ -107,12 +110,15 @@ class Trainer:
     seeded initialization, for example a JAX parameter tree carried across
     by ``models.port.state_dict_from_jax_params``. ``debug_nans``: read each
     step's loss back and check every gradient, raising at the first
-    non-finite value with its epoch and step.
+    non-finite value with its epoch and step. ``test_only``: a Trainer for
+    ``--test`` (`load_for_test`, `evaluate`) with no train step, which
+    admits what the eval step takes (`refuse_unported`).
     """
 
     def __init__(self, cfg: Config, device="cuda",
-                 state_dict: Optional[Dict[str, torch.Tensor]] = None, debug_nans: bool = False):
-        refuse_unported(cfg)
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None, debug_nans: bool = False,
+                 test_only: bool = False):
+        refuse_unported(cfg, test_only=test_only)
         self.cfg = cfg
         self.debug_nans = debug_nans
         self.device = resolve_device(device, "Trainer")
@@ -122,7 +128,8 @@ class Trainer:
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
         self.optimizer = build_optimizer(cfg, self.model)
-        self.train_step = make_train_step(cfg.model, self.model, self.optimizer, self.device)
+        self.train_step = (None if test_only else
+                           make_train_step(cfg.model, self.model, self.optimizer, self.device))
         self.eval_step = make_eval_step(cfg.model, self.model, device=self.device)
         self.test_step = make_eval_step(cfg.model, self.model, use_nms=cfg.nms,
                                         nms_sigma=cfg.nms_sigma, device=self.device)
@@ -237,6 +244,8 @@ class Trainer:
 
     # ------------------------------------------------------------------ #
     def fit(self, train_loader: BatchLoader, eval_loader: BatchLoader) -> None:
+        if self.train_step is None:
+            raise RuntimeError("this Trainer was built with test_only=True: it evaluates only")
         start_epoch = self.maybe_resume()
         stats = self._existing_stats(start_epoch)
         best_key = f"eval_{self.cfg.save_best}" if self.cfg.save_best else None

@@ -2,12 +2,14 @@
 
     python -m video_moment_localization_tpu_torch.utils.profile_train \
         [--config config/charadessta.yml] [--batch 64] [--iters 5] [--seed 0] \
-        [--packed false] [--compat] [--layer-forward | --layer-backward]
+        [--packed false] [--compat] [--compute_dtype bfloat16] \
+        [--layer-forward | --layer-backward]
 
 Builds the model of the config it is given (default: Charades,
 config/charadessta.yml; config/activitynet.yml takes the content-unit route;
 ``--packed false`` the dense layout, ``--compat`` the reference-compat mode
-``compat_head`` with ``fused_content``) with random seeded weights and a
+``compat_head`` with ``fused_content``, ``--compute_dtype bfloat16`` the
+bf16 step and the bf16 layer kernels) with random seeded weights and a
 seeded synthetic batch (`synthetic_batch`: random features, GT spans through
 the label generators, ragged lengths, one padded sample), runs
 `parallel.steps.make_train_step` under
@@ -85,7 +87,8 @@ def synthetic_batch(cfg: ModelConfig, B: int, rng: np.random.Generator) -> Dict[
 
 def layer_backward_inputs(cfg: ModelConfig, B: int, rng: np.random.Generator):
     """One SMI layer's inputs on the card, (fc, fm, fb, fw, fs, query_mask,
-    length_mask, vmask), and random cotangents (dcu, dmu, dbu)."""
+    length_mask, vmask), and random cotangents (dcu, dmu, dbu), the
+    activations and cotangents in the config's compute dtype."""
     from video_moment_localization_tpu_torch.ops.packing import packed_valid_mask
     from video_moment_localization_tpu_torch.ops.proposal import proposal_features_packed
 
@@ -101,18 +104,24 @@ def layer_backward_inputs(cfg: ModelConfig, B: int, rng: np.random.Generator):
     fc, fm, fb = proposal_features_packed(rand(B, cfg.T, cfg.D), lmask, cfg.L, cfg.C)
     ins = [t.contiguous() for t in (fc, fm, fb, rand(B, Nq, cfg.D) * qmask, rand(B, cfg.D),
                                      qmask, lmask, packed_valid_mask(lmask))]
-    return ins, [rand(*t.shape) for t in ins[:3]]
+    dtype = getattr(torch, cfg.compute_dtype)
+    ins[:5] = [t.to(dtype) for t in ins[:5]]
+    return ins, [rand(*t.shape).to(dtype) for t in ins[:3]]
 
 
 def profile_layer_backward(model: SMIN, cfg: ModelConfig, B: int, iters: int,
                            rng: np.random.Generator) -> None:
     """K3 alone: one step's backward launches, one per layer, top first."""
     from video_moment_localization_tpu_torch.models.smin import block_weights
-    from video_moment_localization_tpu_torch.ops.smin_train_cuda import smi_layer_backward
+    from video_moment_localization_tpu_torch.ops.smin_train_cuda import (
+        layer_weights_for,
+        smi_layer_backward,
+    )
 
     model = model.cuda()
     ins, (dcu, dmu, dbu) = layer_backward_inputs(cfg, B, rng)
-    layers = [[w.detach() for w in block_weights(block)] for block in model.smis]
+    layers = [layer_weights_for([w.detach() for w in block_weights(block)],
+                                getattr(torch, cfg.compute_dtype)) for block in model.smis]
 
     def backward():
         for k, weights in enumerate(reversed(layers)):
@@ -128,11 +137,15 @@ def profile_layer_forward(model: SMIN, cfg: ModelConfig, B: int, iters: int,
                           rng: np.random.Generator) -> None:
     """K2 alone: one step's forward launches, one per layer."""
     from video_moment_localization_tpu_torch.models.smin import block_weights
-    from video_moment_localization_tpu_torch.ops.smin_train_cuda import smi_layer_forward
+    from video_moment_localization_tpu_torch.ops.smin_train_cuda import (
+        layer_weights_for,
+        smi_layer_forward,
+    )
 
     model = model.cuda()
     ins, _ = layer_backward_inputs(cfg, B, rng)
-    layers = [[w.detach() for w in block_weights(block)] for block in model.smis]
+    layers = [layer_weights_for([w.detach() for w in block_weights(block)],
+                                getattr(torch, cfg.compute_dtype)) for block in model.smis]
 
     def forward():
         with torch.no_grad():
@@ -155,6 +168,7 @@ def main(argv=None) -> int:
                         help="false: the dense layout (packed: False)")
     parser.add_argument("--compat", action="store_true",
                         help="the reference-compat mode: compat_head and fused_content")
+    parser.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
     parser.add_argument("--layer-forward", action="store_true",
                         help="profile the SMI layer forward (K2) alone")
     parser.add_argument("--layer-backward", action="store_true",
@@ -167,7 +181,8 @@ def main(argv=None) -> int:
     config.model = dataclasses.replace(
         config.model, packed=config.model.packed and args.packed == "true",
         compat_head=config.model.compat_head or args.compat,
-        fused_content=config.model.fused_content or args.compat)
+        fused_content=config.model.fused_content or args.compat,
+        compute_dtype=args.compute_dtype)
     rng = np.random.default_rng(args.seed)
     for B in args.batch:
         torch.manual_seed(args.seed)
@@ -184,8 +199,8 @@ def main(argv=None) -> int:
         for _ in range(2):
             step(batch)
         torch.cuda.synchronize()
-        print(f"{os.path.basename(args.config)} B={B}: peak device memory of a step "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        print(f"{os.path.basename(args.config)} {args.compute_dtype} B={B}: peak device memory "
+              f"of a step {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         profile_and_report(lambda: step(batch), f"B={B}", "train step", args.iters, top=24)
     return 0
 
