@@ -175,7 +175,26 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
     beside ``torch.matmul``; the bf16 and the fp32 train step in ms; bf16
     training from feature files: one epoch of the CLI at ``--compute_dtype
     bfloat16`` on the Charades config and ``--test`` at bf16, and one epoch
-    of `Trainer.fit` at the TACoS model's widths (`bf16_files`).
+    of `Trainer.fit` at the TACoS model's widths (`bf16_files`);
+21. bf16 on the content-unit route and the packed unit loop: K6-bf16
+    (forward and backward, within one bf16 rounding of its plain version's
+    fp32 value, the backward on top of K6's fp32 backward tolerance) and
+    K7-bf16 at the full ActivityNet width, B=64, and K10-bf16 at the Charades
+    width, B=64, against their plain bf16 versions on the bf16 backbone's
+    outputs (`K23_BF16_CARD`; the backward twice bit for bit); 3 Adam steps
+    of the ActivityNet bf16 step at B=64 and one ``compat_head`` +
+    ``fused_content`` bf16 step at Charades B=64, each held to the same
+    steps through the plain bf16 versions on the card (`train_bf16`: the
+    same ``smin_forward`` with the kernels' entries swapped for their plain
+    versions, `plain_bf16_kernels`; the bf16 counters from 0 around the
+    steps: K6-bf16 1 + 1 per step, K7-bf16 or K10-bf16 3 + 3); the
+    ActivityNet bf16 eval step; ``fused_smi: False`` serving at bf16 on both
+    configs (K6-bf16 -> K7-bf16, K1-bf16 -> K2-bf16, without a graph); times
+    of the new kernels (one call, back to back), their plain versions,
+    bounds and for K6 one bf16 ``torch.matmul`` with Wc; the ActivityNet
+    bf16 step in ms and under the profiler; the route fork: the three-layer
+    stack of one ActivityNet B=64 step, forward and backward, through
+    K1 -> K2 / K3 and through K6 -> K7, at fp32 and bf16 (`route_fork_ms`).
 
 Each phase prints its seconds.
 
@@ -199,10 +218,11 @@ pair's launches by those entry points (the C counters of
 
 Prints a ``{"kernels": [...]}`` line (K4 and K5 also at the ActivityNet
 width; the pair's forward and backward with their launches on the main path
-and their times alone; K5-bf16 and K4-bf16; K1-bf16, K2-bf16 and K3-bf16), a
-``{"gemm": [...]}`` line, the plans, a ``{"files_training": {...}}`` line
-(phase 17), ``{"async_serving": {...}}`` (phase 18), ``{"bf16_serving":
-{...}}`` (phase 19) and ``{"bf16_training": {...}}`` (phase 20), then as the
+and their times alone; K5-bf16 and K4-bf16; K1-bf16, K2-bf16 and K3-bf16;
+K6-bf16, K7-bf16 and K10-bf16), a ``{"gemm": [...]}`` line, the plans, a
+``{"files_training": {...}}`` line (phase 17), ``{"async_serving": {...}}``
+(phase 18), ``{"bf16_serving": {...}}`` (phase 19), ``{"bf16_training":
+{...}}`` (phase 20) and ``{"bf16_content": {...}}`` (phase 21), then as the
 last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is visible or the package is not beside this script.
@@ -1480,9 +1500,11 @@ def phase_anet_times(cfg, model, step, batch, rng, device):
                          warmup=1, iters=3),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32)
     dcu, dconv = randn_like(ins[0], rng), randn_like(ins[1], rng)
-    # In: the inputs, their cotangents, the weights; out: the gradients of
-    # fc, fbar, fw, fs and of the weights.
-    b_ms, b_by, b32 = both_bounds(3 * flops, 4 * rows_bytes + 2 * shared_bytes + 2 * w_bytes,
+    # In: fc and fbar, their cotangents dcu and dconvfc, the shared inputs,
+    # the weights; out: the gradients of fc, fbar, fw, fs and of the
+    # weights. Three carries of rows: the recomputed cu the port keeps in
+    # dfc is its own, not the function's.
+    b_ms, b_by, b32 = both_bounds(3 * flops, 3 * rows_bytes + 2 * shared_bytes + 2 * w_bytes,
                                   gemm_flops(cfg, B, "K7b"), 3 * rest)
     res["K7b"] = dict(
         ms=cuda_ms(lambda: content_train_cuda.content_rows_backward(weights, *ins, dcu, dconv,
@@ -2807,68 +2829,90 @@ def bulk_rel(got, want, bounds, name, scale=None):
     return stats
 
 
-def within_one_rounding(got, ref, name):
+def within_one_rounding(got, ref, name, tol=K1_TOL):
     """A bf16 output against its plain version's fp32 value: |diff| <=
-    (2^-8 + K1_TOL's rtol) |ref| + K1_TOL's atol everywhere. Returns the max
-    abs error."""
+    (2^-8 + tol's rtol) |ref| + tol's atol everywhere (``tol``: the fp32
+    kernel's own tolerance against that value). Returns the max abs error."""
     import torch
 
     d = (got.float() - ref).abs()
-    bound = (K1_BF16_REL + K1_TOL["rtol"]) * ref.abs() + K1_TOL["atol"]
+    bound = (K1_BF16_REL + tol["rtol"]) * ref.abs() + tol["atol"]
     if not torch.isfinite(got.float()).all() or bool((d > bound).any()):
+        k = int(torch.argmax(d - bound))
         fail(f"{name}: kernel farther than one bf16 rounding from its plain version "
-             f"(max abs err {float(d.max()):.3e})")
+             f"(max abs err {float(d.max()):.3e}; worst {float(got.flatten()[k])} against "
+             f"{float(ref.flatten()[k])}, bound {float(bound.flatten()[k]):.3e})")
     return float(d.max())
 
 
-def bf16_counters():
-    from video_moment_localization_tpu_torch.ops import proposal_cuda, smin_train_cuda
-
-    return {"K1f": proposal_cuda.proposal_rows_forward, "K1b": proposal_cuda.proposal_rows_backward,
-            "K2": smin_train_cuda.smi_layer_forward, "K3": smin_train_cuda.smi_layer_backward}
-
-
 def bf16_launches():
-    """The bf16 variants' launch counts, the fp32 kernels' (which must stay
-    0) and the pair's."""
-    out = {f"{k}-bf16": fn.launches_bf16 for k, fn in bf16_counters().items()}
-    out.update({k: fn.launches for k, fn in mode_counters().items()})
+    """Every train kernel's launches since `reset_bf16_launches`: the bf16
+    variants as "Kx-bf16", the fp32 kernels (which must stay 0 at bf16)
+    under their own names, and the pair's."""
+    out = {}
+    for k, fn in mode_counters().items():
+        out[k] = fn.launches
+        if hasattr(fn, "launches_bf16"):
+            out[f"{k}-bf16"] = fn.launches_bf16
     out.update(pair_counts())
     return out
 
 
 def reset_bf16_launches():
-    for fn in list(bf16_counters().values()) + list(mode_counters().values()):
+    for fn in mode_counters().values():
         fn.launches = 0
         if hasattr(fn, "launches_bf16"):
             fn.launches_bf16 = 0
     reset_pair_counts()
 
 
-def plain_forward_bf16(cfg, model, batch):
-    """The bf16 training forward with the plain bf16 versions in place of
-    K1-bf16, K2-bf16 and K3-bf16, under autograd: the backbone at bf16, the
-    pooling in fp32 rounded once (K1-bf16's plain version), then
-    `smi_layer_bf16` per layer on the fp32 parameters (its autograd is
-    K3-bf16's plain version), then the fp32 heads."""
-    import torch
-
+def plain_stack_bf16(blocks, fc, fm, fb, fw, fs, qmask, lmask, vmask, L):
+    """The whole-layer stack through the plain bf16 layer (K2-bf16's plain
+    version, K3-bf16's under autograd)."""
     from video_moment_localization_tpu_torch.models import smin
-    from video_moment_localization_tpu_torch.ops.packing import packed_valid_mask
-    from video_moment_localization_tpu_torch.ops.proposal import proposal_features_packed
 
-    bf = torch.bfloat16
-    f, fs, fw = smin.backbone(model.backbone, cfg, batch["video_features"].to(bf),
-                              batch["video_mask"], batch["query_features"].to(bf),
-                              batch["query_mask"], fused_lstm=False)
-    lmask = batch["length_mask"].float()
-    vmask = packed_valid_mask(lmask)
-    fc, fm, fb = (x.to(bf) for x in proposal_features_packed(f.float(), lmask, cfg.L, cfg.C))
-    for block in model.smis:
-        fc, fm, fb = smin.smi_layer_bf16(dict(zip(smin.BLOCK_WEIGHT_NAMES, smin.block_weights(block))),
-                                         fc, fm, fb, fw, fs, batch["query_mask"], lmask, vmask,
-                                         cfg.L)
-    return smin.localization_packed(model.localization, fm, fb, lmask, vmask, cfg.L)
+    for block in blocks:
+        fc, fm, fb = smin.smi_layer_bf16(dict(zip(smin.BLOCK_WEIGHT_NAMES,
+                                                  smin.block_weights(block))),
+                                         fc, fm, fb, fw, fs, qmask, lmask, vmask, L)
+    return fm, fb
+
+
+class plain_bf16_kernels:
+    """Within it, the differentiable entries of K6-bf16, K7-bf16, K10-bf16
+    and of K1-bf16 / K2-bf16 / K3-bf16 are their plain bf16 versions under
+    autograd, so the same forward and step run through the plain versions on
+    the card."""
+
+    def __enter__(self):
+        from video_moment_localization_tpu_torch.ops import (
+            content_cuda,
+            content_train_cuda,
+            proposal_cuda,
+            smin_train_cuda,
+        )
+
+        self.saved = [(proposal_cuda, "proposal_features_packed_fused"),
+                      (proposal_cuda, "proposal_features_rows"),
+                      (smin_train_cuda, "smi_stack_layers"),
+                      (content_train_cuda, "content_rows_train"),
+                      (content_cuda, "content_unit_fused")]
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.saved]
+        proposal_cuda.proposal_features_packed_fused = (
+            lambda f, lm, L, C: proposal_cuda.proposal_rows_forward_plain_bf16(f, lm, L, C))
+        proposal_cuda.proposal_features_rows = proposal_cuda.proposal_features_packed_fused
+        smin_train_cuda.smi_stack_layers = plain_stack_bf16
+        content_train_cuda.content_rows_train = (
+            lambda w, fc, fbar, fw, fs, qm, vm, ws=None:
+            content_train_cuda.content_rows_plain_bf16(w, fc, fbar, fw, fs, qm, vm))
+        content_cuda.content_unit_fused = (
+            lambda unit, fc, fw, fs, fm, qm, vm: content_cuda.content_unit_plain_bf16(
+                content_cuda.unit_weights(unit), fc, fm, fw, fs, qm, vm))
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
 
 
 def grads_by_module(model):
@@ -2882,21 +2926,22 @@ def grads_by_module(model):
     return grads, {n: scales[".".join(n.split(".")[:2])] for n in grads}
 
 
-def train_bf16(config16, label, initial, batch, device, steps=TRAIN_STEPS):
-    """``steps`` Adam steps of the bf16 train step through the kernels from
+def train_bf16(config16, label, initial, batch, per_step, device, steps=TRAIN_STEPS):
+    """``steps`` Adam steps of a bf16 train step through the kernels from
     ``initial``, held to the same steps through the plain bf16 versions on
-    the card: every loss (rtol BF16_LOSS_RTOL), and the gradients of step 1
-    (K23_BF16_CARD against each module's largest); every bf16 counter rises
-    by steps x its count per step and no fp32 kernel launches. Returns
-    (step, model, losses, launches)."""
+    the card (`plain_bf16_kernels`): every loss (BF16_LOSS_RTOL), and the
+    gradients of step 1 (K23_BF16_CARD against each module's largest); the
+    counters (from 0 around the steps) rise by steps x ``per_step`` and no
+    other moves. Returns (step, model, losses, launches, errors)."""
     import torch
 
-    from video_moment_localization_tpu_torch.models.smin import SMIN
+    from video_moment_localization_tpu_torch.models.smin import SMIN, smin_forward
     from video_moment_localization_tpu_torch.parallel.steps import build_optimizer, make_train_step
     from video_moment_localization_tpu_torch.train.loss import smin_loss
 
     cfg16 = config16.model
-    n = cfg16.num_smi_layers
+    keys = ("video_features", "video_mask", "query_features", "query_mask", "length_mask",
+            "moment_mask")
     model = SMIN(cfg16)
     model.load_state_dict(initial)
     step = make_train_step(cfg16, model, build_optimizer(config16, model), device=device)
@@ -2906,17 +2951,19 @@ def train_bf16(config16, label, initial, batch, device, steps=TRAIN_STEPS):
     reset_bf16_launches()
     losses, plain_losses, worst = [], [], 0.0
     for k in range(steps):
-        metrics = step(batch)
+        losses.append(float(step(batch)["loss"]))
         torch.cuda.synchronize()
-        losses.append(float(metrics["loss"]))
         if not abs(losses[-1]) < float("inf"):
             fail(f"{label} step {k + 1}: loss {losses[-1]}")
         launches = bf16_launches()
         plain_model.train()
         plain_opt.zero_grad(set_to_none=True)
-        with torch.enable_grad():
-            loss, _ = smin_loss(plain_forward_bf16(cfg16, plain_model, batch), batch)
+        with torch.enable_grad(), plain_bf16_kernels():
+            loss, _ = smin_loss(smin_forward(plain_model, cfg16, *(batch.get(n) for n in keys)),
+                                batch)
             loss.backward()
+        if bf16_launches() != launches:
+            fail(f"{label}: the plain versions' step launched a kernel")
         if k == 0:
             got, _ = grads_by_module(model)
             want, scales = grads_by_module(plain_model)
@@ -2928,9 +2975,7 @@ def train_bf16(config16, label, initial, batch, device, steps=TRAIN_STEPS):
                 worst = max(worst, s["max"])
         plain_opt.step()
         plain_losses.append(float(loss.detach()))
-    want = {"K1f-bf16": steps, "K1b-bf16": steps, "K2-bf16": steps * n, "K3-bf16": steps * n,
-            "CAf": 2 * n * steps, "CAb": n * steps}
-    want = {k: want.get(k, 0) for k in launches}
+    want = {k: steps * per_step.get(k, 0) for k in launches}
     print(f"{label}: {steps} steps at B={batch['length_mask'].shape[0]}, losses {losses}, "
           f"launches { {k: v for k, v in launches.items() if v} }; step-1 gradients within "
           f"{worst:.3e} (max) of each module's largest of the plain bf16 versions'")
@@ -3183,8 +3228,10 @@ def phase_bf16_train(config, seed, rng, device):
     torch.manual_seed(seed + 21)
     initial = SMIN(cfg16).state_dict()
     batch = {k: v.to(device) for k, v in synthetic_batch(cfg16, TRAIN_BATCH, rng).items()}
+    n = cfg16.num_smi_layers
+    per_step = {"K1f-bf16": 1, "K1b-bf16": 1, "K2-bf16": n, "K3-bf16": n, "CAf": 2 * n, "CAb": n}
     step16, model16, losses, launches, step_err = train_bf16(config16, "bf16 training", initial,
-                                                            batch, device)
+                                                            batch, per_step, device)
     eval_err = check_eval_step_bf16(cfg16, model16, batch, device)
 
     # One TACoS step (T=128, L=32, Nq=14) at its batch on the whole-layer route.
@@ -3194,7 +3241,7 @@ def phase_bf16_train(config, seed, rng, device):
     tbatch = {k: v.to(device) for k, v in synthetic_batch(tacos16.model, tacos16.batch_size,
                                                            rng).items()}
     _, _, tlosses, tlaunches, tacos_err = train_bf16(tacos16, "bf16 training TACoS", tinitial,
-                                                     tbatch, device, steps=1)
+                                                     tbatch, per_step, device, steps=1)
     del tbatch
     with tempfile.TemporaryDirectory(prefix="chip-smoke-bf16-") as tmp:
         files = bf16_files(seed, tmp)
@@ -3297,6 +3344,379 @@ def phase_bf16_train(config, seed, rng, device):
     return dict(errs=errs, stats=stats, launches=launches, losses=losses, times=res,
                 gemm=gemm_rows, eval_err=eval_err, step_err=step_err, tacos_losses=tlosses,
                 tacos_launches=tlaunches, tacos_err=tacos_err, files=files)
+
+
+# ------------------------------------------------------------------------- #
+# bf16 on the content-unit route and in the packed unit loop (K6-bf16,
+# K7-bf16, K10-bf16), and the route fork's timings
+# ------------------------------------------------------------------------- #
+# K6-bf16 is K1-bf16's device code: within one bf16 rounding of its plain
+# version's fp32 value (`within_one_rounding`). K7-bf16 and K10-bf16 against
+# their plain bf16 versions (which round where the kernels round) by phase
+# 20's `K23_BF16_CARD`; the steps through `train_bf16`.
+def serve_content16(cfg16, model, batch, per_call, label):
+    """The grad-free forward of ``cfg16`` (``fused_smi: False``: the
+    training route's forward kernels without a graph) on the batch: the
+    counters rise by ``per_call`` and no other moves; the scores held to the
+    same forward through the plain bf16 versions (phase 19's K4-bf16 bounds)."""
+    import torch
+
+    from video_moment_localization_tpu_torch.models.smin import smin_forward_inference
+
+    keys = ("video_features", "video_mask", "query_features", "query_mask", "length_mask")
+    reset_bf16_launches()
+    got = smin_forward_inference(model, cfg16, *(batch[k] for k in keys))
+    torch.cuda.synchronize()
+    counts = bf16_launches()
+    launches = {k: v for k, v in counts.items() if v and not k.startswith("CA")}
+    with plain_bf16_kernels():
+        want = smin_forward_inference(model, cfg16, *(batch[k] for k in keys))
+    torch.cuda.synchronize()
+    if bf16_launches() != counts:
+        fail(f"{label}: the plain versions' forward launched a kernel")
+    if launches != per_call:
+        fail(f"{label}: launches {launches}, expected {per_call}")
+    err = bf16_criterion(got, want, K4_BF16_CARD, label)
+    print(f"{label}: launches {launches}, scores within {err:.3e} of the plain bf16 versions' "
+          f"(bounds {K4_BF16_CARD})")
+    return err, launches
+
+
+def route_fork_ms(cfg, model, f, fw, fs, qmask, lmask, dtype):
+    """One ActivityNet step's three-layer stack, forward and backward (a
+    masked readout of fm and fb), on the whole-layer route (K1 -> K2 / K3)
+    and on the content-unit route (K6 -> K7) at ``dtype``, called directly:
+    median CUDA-event ms of each."""
+    import torch
+
+    from video_moment_localization_tpu_torch.ops import content_train_cuda, proposal_cuda
+    from video_moment_localization_tpu_torch.ops.packing import packed_valid_mask
+    from video_moment_localization_tpu_torch.ops.smin_train_cuda import smi_stack_layers
+
+    L, C = cfg.L, cfg.C
+    vmask = packed_valid_mask(lmask).contiguous()
+    routes = {"whole_layer": (proposal_cuda.proposal_features_rows, smi_stack_layers),
+              "content_unit": (proposal_cuda.proposal_features_packed_fused,
+                               content_train_cuda.smi_stack_content_train)}
+    ins = [t.to(dtype).detach() for t in (f, fw, fs)]
+    wm = torch.randn(fs.shape[0], L * (L + 1) // 2, cfg.D, device=f.device)
+    wb = torch.randn(fs.shape[0], L, cfg.D, device=f.device)
+    out = {}
+    for name, (proposal, stack) in routes.items():
+        def run():
+            with torch.enable_grad():
+                f_, fw_, fs_ = (t.requires_grad_(True) for t in ins)
+                fc, fm, fb = proposal(f_, lmask, L, C)
+                fm, fb = stack(model.smis, fc, fm, fb, fw_, fs_, qmask, lmask, vmask, L)
+                s = (fm.float() * wm).sum() + (fb.float() * wb).sum()
+                torch.autograd.grad(s, [f_, fw_, fs_] + list(model.smis.parameters()))
+        out[name] = cuda_ms(run, warmup=2, iters=5)
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_bf16_content(anet, config, seed, rng, device):
+    """Phase 21: bf16 on the content-unit route and in the packed unit loop.
+    K6-bf16, K7-bf16 (ActivityNet, B=64) and K10-bf16 (Charades, B=64)
+    against their plain bf16 versions on the bf16 backbone's outputs, twice
+    bit for bit; 3 Adam steps of the ActivityNet bf16 step at B=64 held to
+    the same steps through the plain bf16 versions, and its bf16 eval step;
+    one compat_head + fused_content bf16 step at Charades B=64 the same way;
+    ``fused_smi: False`` bf16 serving on both configs; times, plain times,
+    library times and bounds of the new kernels; the bf16 and fp32 steps;
+    the route fork: K1 -> K2 / K3 against K6 -> K7 at ActivityNet B=64, at
+    fp32 and bf16."""
+    import dataclasses
+
+    import torch
+
+    from video_moment_localization_tpu_torch.models.smin import SMIN, backbone
+    from video_moment_localization_tpu_torch.ops import (
+        content_cuda,
+        content_train_cuda,
+        proposal_cuda,
+        smin_train_cuda,
+    )
+    from video_moment_localization_tpu_torch.ops.packing import packed_valid_mask
+    from video_moment_localization_tpu_torch.ops.proposal import proposal_features_packed
+    from video_moment_localization_tpu_torch.utils.profile_serving import profile_and_report
+    from video_moment_localization_tpu_torch.utils.profile_train import synthetic_batch
+
+    bf = torch.bfloat16
+    B = TRAIN_BATCH
+    a16 = dataclasses.replace(anet.model, compute_dtype="bfloat16")
+    anet16 = dataclasses.replace(anet, model=a16)
+    c16 = dataclasses.replace(config.model, compute_dtype="bfloat16", compat_head=True,
+                              fused_content=True)
+    compat16 = dataclasses.replace(config, model=c16)
+    errs = {"K6f": 0.0, "K6b": 0.0, "K7f": 0.0, "K7b": 0.0, "K7_rel": 0.0, "K10f": 0.0,
+            "K10b": 0.0, "K10_rel": 0.0}
+    stats = {}
+
+    def hold(tag, key, got, want, outs):
+        for g, w, out in zip(got, want, outs):
+            if g.dtype != bf:
+                fail(f"{key}-bf16 {tag} {out}: {g.dtype}, not bf16")
+            stats[f"{key} {tag} {out}"] = bulk_rel(g, w, K23_BF16_CARD, f"{key}-bf16 {tag} {out}")
+            errs[key] = max(errs[key], float((g.float() - w.float()).abs().max()))
+
+    def hold_weights(tag, key, got, want):
+        scale = max(float(w.abs().max()) for w in want)
+        for k, (g, w) in enumerate(zip(got, want)):
+            if g.dtype != torch.float32:
+                fail(f"{key}-bf16 {tag}: weight gradient {k} is {g.dtype}")
+            s = bulk_rel(g, w, K23_BF16_CARD, f"{key}-bf16 {tag} weight gradient {k}", scale)
+            errs[f"{key}_rel"] = max(errs[f"{key}_rel"], s["max"])
+
+    # Parity on the bf16 backbone's outputs: ActivityNet B=64 (K6, K7) and
+    # Charades B=64 (K10).
+    torch.manual_seed(seed + 30)
+    amodel = SMIN(a16).to(device).eval()
+    abatch = {k: v.to(device) for k, v in synthetic_batch(a16, B, rng).items()}
+    with torch.no_grad():
+        f, fs, fw = backbone(amodel.backbone, a16, abatch["video_features"].to(bf),
+                             abatch["video_mask"], abatch["query_features"].to(bf),
+                             abatch["query_mask"], fused_lstm=False)
+    f, fs, fw = f.contiguous(), fs.contiguous(), fw.contiguous()
+    lmask, qmask = abatch["length_mask"].float(), abatch["query_mask"]
+    vmask = packed_valid_mask(lmask).contiguous()
+    L, C, T, D, Nq = a16.L, a16.C, a16.T, a16.D, a16.max_query_length
+    N = L * (L + 1) // 2
+    NC = N * C
+    tag = f"ActivityNet B={B}"
+    k6 = proposal_cuda.proposal_packed_forward(f, lmask, L, C)
+    check_all_repeatable((*k6, []), (*proposal_cuda.proposal_packed_forward(f, lmask, L, C), []),
+                         f"K6-bf16 forward {tag}")
+    ref = proposal_features_packed(f.float(), lmask, L, C)
+    errs["K6f"] = max(within_one_rounding(g, r, f"K6-bf16 forward {tag}")
+                      for g, r in zip(k6, ref))
+    k6_cots = [randn_like(t, rng).to(bf) for t in ref]
+    dgot = proposal_cuda.proposal_packed_backward(lmask, T, L, C, *k6_cots)
+    dref = proposal_cuda.proposal_backward_plain(lmask, T, L, C, *(c.float() for c in k6_cots))
+    # On top of K6's fp32 backward tolerance (phase 8's `grad_err`): at this
+    # width a frame's df sums thousands of clip cotangents, whose fp32 sums
+    # in two orders part by more than K1_TOL's atol where they cancel.
+    errs["K6b"] = within_one_rounding(
+        dgot, dref, f"K6-bf16 backward {tag}",
+        dict(rtol=GRAD_RTOL, atol=GRAD_ATOL_REL * float(dref.abs().max())))
+    check_repeatable(dgot, lambda: proposal_cuda.proposal_packed_backward(
+        lmask, T, L, C, *k6_cots), f"K6-bf16 backward {tag}")
+    print(f"parity K6-bf16 {tag}: forward max abs err {errs['K6f']:.3e}, backward "
+          f"{errs['K6b']:.3e} (within one bf16 rounding of the plain version's fp32 value, "
+          f"on top of K6's fp32 tolerance; df's largest magnitude "
+          f"{float(dref.abs().max()):.3e}), a second forward and backward equal bit for bit")
+    del ref, dref, dgot
+    fc, fm, fb = k6
+    fbar = (torch.sigmoid(fm * fs[:, None]) * fm).contiguous()      # the stack's bf16 gate
+    k7_w = smin_train_cuda.layer_weights_for(
+        [w.detach() for w in content_train_cuda.content_weights(amodel.smis[1])], bf)
+    k7_ins = [fc, fbar, fw, fs, qmask, vmask]
+    got = content_train_cuda.content_rows_forward(k7_w, *k7_ins)
+    check_all_repeatable((*got, []), (*content_train_cuda.content_rows_forward(k7_w, *k7_ins), []),
+                         f"K7-bf16 forward {tag}")
+    hold(tag, "K7f", got, content_train_cuda.content_rows_plain(k7_w, *k7_ins), ("cu", "convfc"))
+    dcu, dconv = randn_like(fc, rng).to(bf), randn_like(fbar, rng).to(bf)
+    for cot in (dcu, None):
+        a = content_train_cuda.content_rows_backward(k7_w, *k7_ins, cot, dconv)
+        if cot is not None:
+            check_all_repeatable(a, content_train_cuda.content_rows_backward(
+                k7_w, *k7_ins, cot, dconv), f"K7-bf16 {tag}")
+        p = content_train_cuda.content_rows_backward_plain(k7_w, *k7_ins, cot, dconv)
+        hold(f"{tag}{'' if cot is not None else ' top'}", "K7b", a[:4], p[:4],
+             ("dfc", "dfbar", "dfw", "dfs"))
+        hold_weights(tag, "K7", a[4], p[4])
+        del a, p
+        torch.cuda.empty_cache()
+    print(f"parity K7-bf16 {tag}: cu, convfc, dfc, dfbar, dfw, dfs (with and without dcu) "
+          f"within {K23_BF16_CARD} of the mean |reference|, worst max "
+          f"{max(v['max'] for k, v in stats.items() if k.startswith('K7')):.3e}; 14 fp32 weight "
+          f"gradients within {errs['K7_rel']:.3e} of the largest; a second forward and "
+          f"backward equal bit for bit")
+    anet_parity_ins = (f, lmask, k6_cots, k7_w, k7_ins, dcu, dconv)
+
+    torch.manual_seed(seed + 31)
+    cmodel = SMIN(c16).to(device).eval()
+    cbatch = {k: v.to(device) for k, v in synthetic_batch(c16, B, rng).items()}
+    with torch.no_grad():
+        cf, cfs, cfw = backbone(cmodel.backbone, c16, cbatch["video_features"].to(bf),
+                                cbatch["video_mask"], cbatch["query_features"].to(bf),
+                                cbatch["query_mask"], fused_lstm=False)
+    clm, cqm = cbatch["length_mask"].float(), cbatch["query_mask"]
+    cfc, cfm, _ = proposal_cuda.proposal_packed_forward(cf.contiguous(), clm, c16.L, c16.C)
+    k10_w = smin_train_cuda.layer_weights_for(
+        [w.detach() for w in content_cuda.unit_weights(cmodel.smis[1].content_unit)], bf)
+    k10_ins = [cfc, cfm, cfw.contiguous(), cfs.contiguous(), cqm, packed_valid_mask(clm).contiguous()]
+    ctag = f"Charades B={B}"
+    got = content_cuda.content_unit_forward(k10_w, *k10_ins)
+    check_repeatable(got, lambda: content_cuda.content_unit_forward(k10_w, *k10_ins),
+                     f"K10-bf16 forward {ctag}")
+    hold(ctag, "K10f", [got], [content_cuda.content_unit_plain(k10_w, *k10_ins)], ("cu",))
+    k10_dcu = randn_like(cfc, rng).to(bf)
+    a = content_cuda.content_unit_backward(k10_w, *k10_ins, k10_dcu)
+    check_all_repeatable(a, content_cuda.content_unit_backward(k10_w, *k10_ins, k10_dcu),
+                         f"K10-bf16 {ctag}")
+    p = content_cuda.content_unit_backward_plain(k10_w, *k10_ins, k10_dcu)
+    hold(ctag, "K10b", a[:4], p[:4], ("dfc", "dfm", "dfw", "dfs"))
+    hold_weights(ctag, "K10", a[4], p[4])
+    print(f"parity K10-bf16 {ctag}: cu, dfc, dfm, dfw, dfs within {K23_BF16_CARD} of the mean "
+          f"|reference|, worst max {max(v['max'] for k, v in stats.items() if k.startswith('K10')):.3e}; "
+          f"12 fp32 weight gradients within {errs['K10_rel']:.3e} of the largest; a second "
+          f"forward and backward equal bit for bit")
+    del a, p, amodel, cmodel
+    torch.cuda.empty_cache()
+
+    # The main path: 3 ActivityNet bf16 steps at B=64, its eval step; one
+    # compat bf16 step at Charades B=64.
+    n = a16.num_smi_layers
+    torch.manual_seed(seed + 32)
+    ainitial = SMIN(a16).state_dict()
+    astep, amodel16, alosses, alaunches, aerr = train_bf16(
+        anet16, "ActivityNet bf16 training", ainitial, abatch,
+        {"K6f-bf16": 1, "K6b-bf16": 1, "K7f-bf16": n, "K7b-bf16": n, "CAf": 2 * n, "CAb": n},
+        device)
+    aeval_err = check_eval_step_bf16(a16, amodel16, abatch, device)
+    torch.manual_seed(seed + 33)
+    cinitial = SMIN(c16).state_dict()
+    _, cmodel16, closses, claunches, cerr = train_bf16(
+        compat16, "compat bf16 training", cinitial, cbatch,
+        {"K6f-bf16": 1, "K6b-bf16": 1, "K10f-bf16": n, "K10b-bf16": n, "CAf": 2 * n,
+         "CAb": n},
+        device, steps=1)
+
+    # fused_smi: False serving at bf16: ActivityNet through K6-bf16 -> K7-bf16,
+    # Charades through K1-bf16 -> K2-bf16 (smin_forward without a graph).
+    serve = {}
+    amodel16.eval()
+    serve["activitynet"] = serve_content16(
+        dataclasses.replace(a16, fused_smi=False), amodel16, abatch,
+        {"K6f-bf16": 1, "K7f-bf16": n}, f"fused_smi: False bf16 serving ActivityNet B={B}")
+    torch.manual_seed(seed + 34)
+    cs16 = dataclasses.replace(config.model, compute_dtype="bfloat16", fused_smi=False)
+    smodel = SMIN(cs16).to(device).eval()
+    sbatch = {k: v.to(device) for k, v in synthetic_batch(cs16, B, rng).items()}
+    serve["charadessta"] = serve_content16(cs16, smodel, sbatch, {"K1f-bf16": 1, "K2-bf16": n},
+                                           f"fused_smi: False bf16 serving Charades B={B}")
+    del smodel, sbatch, cmodel16, cbatch
+    torch.cuda.empty_cache()
+
+    # Times at B=64: K6-bf16 and K7-bf16 at ActivityNet, K10-bf16 at Charades.
+    f, lmask, k6_cots, k7_w, k7_ins, dcu, dconv = anet_parity_ins
+    res = {}
+    wc = dense_content_matrix(a16, device).to(bf)
+    carry16 = 2 * B * (NC + N + L) * D
+    seg_adds = segment_adds(a16)
+    k6_bytes = bf16_bytes(f) + 4 * B * L + carry16
+    b_ms, b_by = bound_bf16(B * seg_adds, k6_bytes, 0)
+    res["K6f"] = dict(
+        ms=cuda_ms(lambda: proposal_cuda.proposal_packed_forward(f, lmask, L, C), iters=9),
+        device_ms=cuda_ms_back_to_back(
+            lambda: proposal_cuda.proposal_packed_forward(f, lmask, L, C), launches=5),
+        plain_ms=cuda_ms(lambda: proposal_cuda.proposal_rows_forward_plain_bf16(f, lmask, L, C),
+                         iters=5),
+        library_ms=cuda_ms(lambda: torch.matmul(wc, f), iters=9), bound_ms=b_ms, bound_by=b_by)
+    wct = wc.t().contiguous()
+    g = k6_cots[0].reshape(B, NC, D)
+    b_ms, b_by = bound_bf16(2 * B * seg_adds, k6_bytes, 0)
+    res["K6b"] = dict(
+        ms=cuda_ms(lambda: proposal_cuda.proposal_packed_backward(lmask, T, L, C, *k6_cots),
+                   iters=9),
+        device_ms=cuda_ms_back_to_back(
+            lambda: proposal_cuda.proposal_packed_backward(lmask, T, L, C, *k6_cots), launches=5),
+        plain_ms=cuda_ms(lambda: proposal_cuda.proposal_rows_backward_plain_bf16(
+            lmask, T, L, C, *k6_cots), iters=5),
+        library_ms=cuda_ms(lambda: torch.matmul(wct, g), iters=9), bound_ms=b_ms, bound_by=b_by)
+    del wc, wct, g
+    # K7-bf16: the content unit's contractions and the folded conv_fc, all
+    # of bf16 operands; in fc and fbar (or cu and convfc out), the shared
+    # inputs and the weights; the backward three times the operations (the
+    # recompute), its cotangents in and the fp32 weight gradients out.
+    w_bytes = bf16_bytes(*k7_w)
+    rows_bytes = 2 * B * (NC + N) * D
+    shared_bytes = bf16_bytes(*k7_ins[2:])
+    contractions = gemm_flops(a16, B, "K7f") + B * unit_rest(a16, Nq)
+    workspace = content_train_cuda.Workspace()
+    b_ms, b_by = bound_bf16(contractions, 2 * rows_bytes + shared_bytes + w_bytes, contractions)
+    res["K7f"] = dict(
+        ms=cuda_ms(lambda: content_train_cuda.content_rows_forward(k7_w, *k7_ins, workspace),
+                   iters=9),
+        device_ms=cuda_ms_back_to_back(
+            lambda: content_train_cuda.content_rows_forward(k7_w, *k7_ins, workspace),
+            launches=5, reps=3),
+        plain_ms=cuda_ms(lambda: content_train_cuda.content_rows_plain(k7_w, *k7_ins),
+                         warmup=1, iters=3),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    contractions = gemm_flops(a16, B, "K7b") + 3 * B * unit_rest(a16, Nq)
+    # Three carries of rows (fc and fbar, dcu and dconvfc in; dfc and dfbar
+    # out), as K7b's fp32 bound counts them.
+    b_ms, b_by = bound_bf16(contractions, 3 * rows_bytes + 2 * shared_bytes + w_bytes
+                            + sum(4 * w.numel() for w in k7_w), contractions)
+    res["K7b"] = dict(
+        ms=cuda_ms(lambda: content_train_cuda.content_rows_backward(k7_w, *k7_ins, dcu, dconv,
+                                                                    workspace), iters=7),
+        device_ms=cuda_ms_back_to_back(
+            lambda: content_train_cuda.content_rows_backward(k7_w, *k7_ins, dcu, dconv,
+                                                             workspace), launches=3, reps=3),
+        plain_ms=cuda_ms(lambda: content_train_cuda.content_rows_backward_plain(
+            k7_w, *k7_ins, dcu, dconv), warmup=1, iters=3),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    del workspace
+    torch.cuda.empty_cache()
+    uw_bytes = bf16_bytes(*k10_w)
+    cN = c16.L * (c16.L + 1) // 2
+    urows = 2 * B * cN * c16.C * c16.D
+    side_bytes = bf16_bytes(*k10_ins[1:])
+    contractions = gemm_flops(c16, B, "K10f") + B * unit_rest(c16, c16.max_query_length)
+    workspace = content_cuda.Workspace()
+    b_ms, b_by = bound_bf16(contractions, 2 * urows + side_bytes + uw_bytes, contractions)
+    res["K10f"] = dict(
+        ms=cuda_ms(lambda: content_cuda.content_unit_forward(k10_w, *k10_ins, workspace)),
+        device_ms=cuda_ms_back_to_back(
+            lambda: content_cuda.content_unit_forward(k10_w, *k10_ins, workspace)),
+        plain_ms=cuda_ms(lambda: content_cuda.content_unit_plain(k10_w, *k10_ins)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    contractions = gemm_flops(c16, B, "K10b") + 3 * B * unit_rest(c16, c16.max_query_length)
+    b_ms, b_by = bound_bf16(contractions, 3 * urows + 2 * side_bytes + uw_bytes
+                            + sum(4 * w.numel() for w in k10_w), contractions)
+    res["K10b"] = dict(
+        ms=cuda_ms(lambda: content_cuda.content_unit_backward(k10_w, *k10_ins, k10_dcu,
+                                                              workspace), iters=9),
+        device_ms=cuda_ms_back_to_back(
+            lambda: content_cuda.content_unit_backward(k10_w, *k10_ins, k10_dcu, workspace),
+            launches=10, reps=3),
+        plain_ms=cuda_ms(lambda: content_cuda.content_unit_backward_plain(
+            k10_w, *k10_ins, k10_dcu), iters=5),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    del workspace, k10_ins, k10_dcu
+    for k in ("K6f", "K6b", "K7f", "K7b", "K10f", "K10b"):
+        r = res[k]
+        print(f"time {k}-bf16 B={B}: kernel {r['ms']:.4f} ms (back to back "
+              f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library {r['library_ms']} "
+              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+    # The ActivityNet bf16 step: wall time, and its device time and busy
+    # share under the profiler.
+    res["step_ms"] = step_wall_ms(astep, abatch)
+    print(f"time ActivityNet bf16 train step B={B}: {res['step_ms']:.4f} ms wall, "
+          f"{B / res['step_ms'] * 1e3:.1f} samples/s")
+    profile_and_report(lambda: astep(abatch), f"ActivityNet bf16 B={B}", "train step", 3, top=14)
+    del astep, amodel16, abatch, k7_ins, dcu, dconv
+    torch.cuda.empty_cache()
+
+    # The route fork: the three-layer stack of one ActivityNet B=64 step,
+    # forward and backward, on both training routes at both types.
+    torch.manual_seed(seed + 35)
+    fmodel = SMIN(anet.model).to(device)
+    fork = {}
+    for dtype in (torch.float32, bf):
+        fork[str(dtype).split(".")[-1]] = route_fork_ms(anet.model, fmodel, f.float(),
+                                                        fw.float(), fs.float(), qmask, lmask,
+                                                        dtype)
+    print(f"route fork, ActivityNet B={B}, three layers forward and backward (ms): {fork}")
+    del fmodel, f
+    torch.cuda.empty_cache()
+    return dict(errs=errs, stats=stats, times=res, fork=fork, serve=serve,
+                launches=alaunches, compat_launches=claunches, losses=alosses,
+                compat_losses=closses, step_err=aerr, compat_err=cerr, eval_err=aeval_err)
 
 
 def back_to_back(r):
@@ -3419,6 +3839,8 @@ def main(argv=None) -> int:
     serve_tmp.cleanup()
     bf16_train = phase_bf16_train(config, args.seed, rng, device)
     lap(20)
+    bf16_content = phase_bf16_content(anet, config, args.seed, rng, device)
+    lap(21)
 
     kernels = []
     for key, name, src, rep, err in (
@@ -3560,6 +3982,33 @@ def main(argv=None) -> int:
             "dtype": "bfloat16", "device_ms": r["device_ms"],
         })
     kernels[-1]["max_err_of_largest_weight_gradient"] = bf16_train["errs"]["K3_rel"]
+    # The bf16 variants of K6, K7 (phase 21: launches on the 3 ActivityNet
+    # bf16 steps, times at ActivityNet B=64) and K10 (launches on the compat
+    # bf16 step, times at Charades B=64).
+    bc = bf16_content
+    for key, name, src, rep, launches, config_name in (
+            ("K6f", "proposal_packed_forward_bf16", PROPOSAL_SRC, K6_FWD_REPLACES,
+             bc["launches"]["K6f-bf16"], "activitynet"),
+            ("K6b", "proposal_packed_backward_bf16", PROPOSAL_SRC, K6_BWD_REPLACES,
+             bc["launches"]["K6b-bf16"], "activitynet"),
+            ("K7f", "content_rows_forward_bf16", CONTENT_SRC, K7_FWD_REPLACES,
+             bc["launches"]["K7f-bf16"], "activitynet"),
+            ("K7b", "content_rows_backward_bf16", CONTENT_SRC, K7_BWD_REPLACES,
+             bc["launches"]["K7b-bf16"], "activitynet"),
+            ("K10f", "content_unit_forward_bf16", CONTENT_SRC, K10_FWD_REPLACES,
+             bc["compat_launches"]["K10f-bf16"], "charadessta compat"),
+            ("K10b", "content_unit_backward_bf16", CONTENT_SRC, K10_BWD_REPLACES,
+             bc["compat_launches"]["K10b-bf16"], "charadessta compat")):
+        r = bc["times"][key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches, "max_abs_err": bc["errs"][key],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "batch": TRAIN_BATCH,
+            "dtype": "bfloat16", "device_ms": r["device_ms"], "config": config_name,
+        })
+    kernels[-3]["max_err_of_largest_weight_gradient"] = bc["errs"]["K7_rel"]
+    kernels[-1]["max_err_of_largest_weight_gradient"] = bc["errs"]["K10_rel"]
     kernels[1]["plain_repeatable"] = plain_repeats["K4"]
     kernels[0]["plain_repeatable"] = plain_repeats["K5"]
     print(json.dumps({"kernels": kernels}))
@@ -3601,6 +4050,18 @@ def main(argv=None) -> int:
                       "against_plain": bf16_train["tacos_err"]},
         "files": bf16_train["files"],
         "parity": bf16_train["stats"], "gemm_bf16": bf16_train["gemm"]}}))
+    t = bf16_content["times"]
+    print(json.dumps({"bf16_content": {
+        "batch": TRAIN_BATCH, "activitynet_losses": bf16_content["losses"],
+        "activitynet_step_ms": t["step_ms"], "activitynet_fp32_step_ms": anet_times["step_ms"],
+        "launches": {k: v for k, v in bf16_content["launches"].items() if v},
+        "against_plain": bf16_content["step_err"], "eval_score_err": bf16_content["eval_err"],
+        "compat": {"losses": bf16_content["compat_losses"],
+                   "launches": {k: v for k, v in bf16_content["compat_launches"].items() if v},
+                   "against_plain": bf16_content["compat_err"]},
+        "fused_smi_false_serving": {k: {"score_err": e, "launches": n}
+                                    for k, (e, n) in bf16_content["serve"].items()},
+        "route_fork_ms": bf16_content["fork"], "parity": bf16_content["stats"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -50,16 +50,13 @@ def test_shipped_configs_take_the_jax_route(name, whole_layer):
     cfg = load_config(path).model
     assert smin.whole_layer_train_admits(cfg) is whole_layer
     assert smin_train_pallas.supports_train(j_load_config(path).model) is whole_layer
-    smin.check_config(cfg)
+    smin.check_dtype(cfg)
     # The JAX rule admits TACoS at bf16, and so the port trains it there on
-    # the whole-layer route; ActivityNet at bf16 is still to port.
+    # the whole-layer route; ActivityNet trains at bf16 on the content-unit
+    # route (K6-bf16, K7-bf16).
     bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
     assert smin.whole_layer_train_admits(bf16) is (name != "activitynet")
-    if name == "activitynet":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 'bf16'"):
-            smin.check_config(bf16)
-    else:
-        smin.check_config(bf16)
+    smin.check_dtype(bf16)
 
 
 def test_forward_routes_by_the_rule(monkeypatch):

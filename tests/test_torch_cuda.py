@@ -1,6 +1,7 @@
 """Card tests of the port's kernels: each CUDA kernel against its plain
 PyTorch version on the same card (the bf16 variants of K5, K4, K1, K2, K3,
-the GEMM's three layouts and the content-attention pair's forward too), K4
+K6, K7, K10, the GEMM's three layouts and the content-attention pair's
+forward too), K4
 and K5 at both types launched twice bit for bit, the serving path on the
 card against the same localizer on the CPU, an AsyncLocalizer burst against
 localize_batch, and train steps (fp32 and bf16) on the card against the same
@@ -1295,8 +1296,9 @@ def test_proposal_rows_bf16_kernels_match_plain(card, cfg, B):
         assert x.dtype == torch.bfloat16
         assert bool(((x.float() - r).abs() <= (2.0 ** -8 + 1e-4) * r.abs() + 1e-5).all())
     assert torch.equal(df, again)
-    with pytest.raises(ValueError, match="float32"):          # K6 takes fp32 only
-        proposal_cuda.proposal_packed_forward(f, lmask, cfg.L, cfg.C)
+    mm = unpack_map(packed_valid_mask(lmask), cfg.L).contiguous()
+    with pytest.raises(ValueError, match="float32"):          # K8 takes fp32 only
+        proposal_cuda.proposal_dense_forward(f, mm, cfg.L, cfg.C)
 
 
 # K2-bf16 and K3-bf16 against their plain bf16 versions: the bulk criterion
@@ -1406,3 +1408,343 @@ def test_bf16_train_step_on_card_matches_plain(card):
             assert after == (before[0] + 2, before[1] + 2 * cfg.num_smi_layers)
     assert np.isfinite(losses["cpu"]).all()
     np.testing.assert_allclose(losses[str(card)], losses["cpu"], rtol=2e-3)
+
+
+# --------------------------------------------------------------------------- #
+# bf16 on the content-unit route and in the packed unit loop: K6-bf16,
+# K7-bf16, K10-bf16 against their plain bf16 versions (K23_BF16's criterion),
+# bit for bit over two launches, and the bf16 steps of their routes.
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("cfg,B", [(TINY, 3), (ODD, 7), (ACTIVITYNET, 2), (ACTIVITYNET, 64)])
+def test_proposal_packed_bf16_kernels_match_plain(card, cfg, B):
+    """K6-bf16 (K1-bf16's entries under K6's counters), twice bit for bit,
+    within one bf16 rounding of its plain version's fp32 value on top of K6's fp32
+    tolerance: the forward's (rtol 1e-4, atol 1e-5), the backward's
+    (`_assert_grad_close`: rtol 5e-4, atol 5e-5 of df's largest magnitude;
+    at the ActivityNet width a frame's df sums thousands of clip cotangents,
+    whose fp32 sums in two orders part by more than 1e-5 where they cancel);
+    the backward twice bit for bit."""
+    g = torch.Generator().manual_seed(B)
+    f = torch.randn(B, cfg.T, cfg.D, generator=g).bfloat16().to(card)
+    nlen = torch.randint(1, cfg.L + 1, (B,), generator=g)
+    nlen[0] = cfg.L
+    lmask = (torch.arange(cfg.L)[None, :] < nlen[:, None]).float().to(card)
+    counters = (proposal_cuda.proposal_packed_forward, proposal_cuda.proposal_packed_backward,
+                proposal_cuda.proposal_rows_forward, proposal_cuda.proposal_rows_backward)
+    before = [(c.launches, c.launches_bf16) for c in counters]
+    got = proposal_cuda.proposal_packed_forward(f, lmask, cfg.L, cfg.C)
+    fwd_again = proposal_cuda.proposal_packed_forward(f, lmask, cfg.L, cfg.C)
+    ref = proposal_cuda.proposal_features_packed(f.float(), lmask, cfg.L, cfg.C)
+    cots = [torch.randn(tuple(r.shape), generator=g).bfloat16().to(card) for r in ref]
+    df = proposal_cuda.proposal_packed_backward(lmask, cfg.T, cfg.L, cfg.C, *cots)
+    again = proposal_cuda.proposal_packed_backward(lmask, cfg.T, cfg.L, cfg.C, *cots)
+    dref = proposal_cuda.proposal_backward_plain(lmask, cfg.T, cfg.L, cfg.C,
+                                                 *(c.float() for c in cots))
+    torch.cuda.synchronize()
+    after = [(c.launches, c.launches_bf16) for c in counters]
+    assert after == [(before[0][0], before[0][1] + 2), (before[1][0], before[1][1] + 2),
+                     before[2], before[3]]
+    assert all(torch.equal(x, y) for x, y in zip(got, fwd_again))
+    for x, r in zip(got, ref):
+        assert x.dtype == torch.bfloat16
+        assert bool(((x.float() - r).abs() <= (2.0 ** -8 + 1e-4) * r.abs() + 1e-5).all())
+    assert df.dtype == torch.bfloat16
+    atol = GRAD_ATOL_REL * float(dref.abs().max())
+    assert bool(((df.float() - dref).abs() <= (2.0 ** -8 + GRAD_RTOL) * dref.abs() + atol).all())
+    assert torch.equal(df, again)
+
+
+def _bulk_rel_bf16(got, want, name, scale=None):
+    """`_bulk_rel`, or where the reference is all zeros (dfw of an element
+    whose query has no valid word) the same zeros."""
+    if scale is None and not bool(want.any()):
+        assert torch.equal(got.float(), want.float()), name
+        return
+    _bulk_rel(got, want, name, scale)
+
+
+def _content_inputs_bf16(cfg, B, seed, device):
+    """`_content_inputs` in bf16, fbar the bf16 stack's gate."""
+    from video_moment_localization_tpu_torch.models.smin import moment_gate
+
+    fc, fm, _, fw, fs, qmask, _, vmask = _layer_inputs(cfg, B, seed, device)
+    fc, fm, fw, fs = (t.bfloat16() for t in (fc, fm, fw, fs))
+    return [fc, moment_gate(fm, fs).contiguous(), fw, fs, qmask, vmask]
+
+
+def _k7_bf16_dfsh(workspace, B, N, C, Nq, D, dl):
+    """K7-bf16's stored dfsh (B, dl), the gradient of f_s_hat that its dfs
+    is the product of, read from the backward's workspace at the offset
+    where csrc/content_train.cu::carve puts it (each slot 16-byte aligned):
+    h, q, fcc, fwh, khat, fsh (fp32), x2, then dfcc, dq, dkhat."""
+    rows, bq = B * N * C, B * Nq
+    sizes = [2 * rows * dl] * 3 + [2 * bq * dl] * 2 + [4 * B * dl, 2 * B * N * D] \
+        + [2 * rows * dl] * 2 + [2 * bq * dl]
+    off = sum((n + 15) // 16 * 16 for n in sizes)
+    return workspace._buffers[True][off:off + 2 * B * dl].view(torch.bfloat16).view(B, dl)
+
+
+def _ulp16(x):
+    """One bf16 unit in the last place at x's magnitude (fp32)."""
+    e = torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def _dfs_from_dfsh(name, dfs, dfsh, wsh):
+    """dfs is dfsh @ Wsh (dl -> D) summed in fp32 and rounded once: within
+    half a bf16 unit (and fp32 sum slack) of the float64 product."""
+    want = dfsh.double() @ wsh.double()
+    d = (dfs.double() - want).abs()
+    slack = 0.5 * _ulp16(want).double() + 1e-5 * (dfsh.double().abs() @ wsh.double().abs())
+    assert bool((d <= slack).all()), (name, float((d - slack).max()))
+
+
+def _rel_stats(got, want, scale):
+    """(mean, 98th percentile, max) of |got - want| over ``scale``."""
+    d = (got.double() - want).abs().flatten()
+    return (float(d.mean()) / scale, float(torch.quantile(d, 0.98)) / scale,
+            float(d.max()) / scale)
+
+
+def _dfs_witness(cfg, B, weights, ins, dcu, dconv, workspace, dfs):
+    """The witness for K7-bf16's dfs: the kernel's dfs follows from its own
+    stored dfsh (float64 recompute), the plain version's from its own (the
+    gradient that `models.smin._Grad16` rounds, caught by a hook); both held
+    against the float64 gradient of the same function on the same bf16
+    inputs and weights (dfsh's recovered from it through Wsh). Returns the
+    readings and the plain version's gradients."""
+    from video_moment_localization_tpu_torch.models import smin
+
+    N = cfg.L * (cfg.L + 1) // 2
+    wsh = weights[4].float()
+    dfsh_k = _k7_bf16_dfsh(workspace, B, N, cfg.C, cfg.max_query_length, cfg.D, cfg.dl)
+    _dfs_from_dfsh("kernel dfs", dfs, dfsh_k, wsh)
+    caught, grad16 = {}, smin._Grad16
+
+    class Caught:
+        @staticmethod
+        def apply(x):
+            x.register_hook(lambda g: caught.__setitem__("dfsh", g))
+            return grad16.apply(x)
+
+    smin._Grad16 = Caught
+    try:
+        p = content_train_cuda.content_rows_backward_plain(weights, *ins, dcu, dconv)
+    finally:
+        smin._Grad16 = grad16
+    dfsh_p = caught["dfsh"]
+    _dfs_from_dfsh("plain dfs", p[3], dfsh_p, wsh)
+    with torch.enable_grad():
+        leaves = [t.detach().double().requires_grad_(True) for t in ins[:4]]
+        cu, convfc = content_train_cuda.content_rows_plain(
+            [w.double() for w in weights], *leaves, *(t.double() for t in ins[4:]))
+        outs, cots = [convfc], [dconv.double()]
+        if dcu is not None:
+            outs.append(cu)
+            cots.append(dcu.double())
+        dfs64 = torch.autograd.grad(outs, leaves[3], cots)[0]
+    w64 = wsh.double()
+    dfsh64 = dfs64 @ w64.t() @ torch.linalg.inv(w64 @ w64.t())
+    d = (dfs.float() - p[3].float()).abs()
+    k = int(torch.argmax(d))
+    s_dfs, s_dfsh = float(dfs64.abs().mean()), float(dfsh64.abs().mean())
+    readings = dict(
+        dfs_kernel_vs_plain=_rel_stats(dfs, p[3].double(), float(p[3].float().abs().mean())),
+        dfs_worst=(k // cfg.D, k % cfg.D), dfs_differing=int((d > 0).sum()),
+        dfs_elements=d.numel(),
+        dfs_kernel_vs_f64=_rel_stats(dfs, dfs64, s_dfs),
+        dfs_plain_vs_f64=_rel_stats(p[3], dfs64, s_dfs),
+        dfsh_differing=int((dfsh_k.float() != dfsh_p).sum()), dfsh_elements=dfsh_p.numel(),
+        dfsh_kernel_vs_f64=_rel_stats(dfsh_k, dfsh64, s_dfsh),
+        dfsh_plain_vs_f64=_rel_stats(dfsh_p, dfsh64, s_dfsh))
+    print(f"K7-bf16 dfs witness, {cfg.L=} {B=} dcu={dcu is not None}: {readings}")
+    return readings, p
+
+
+def _content_rows_bf16_case(cfg, B, has_dcu):
+    torch.manual_seed(B)
+    block = SMIN(cfg).to("cuda").smis[1]
+    weights = smin_train_cuda.layer_weights_for(
+        [w.detach() for w in content_train_cuda.content_weights(block)], torch.bfloat16)
+    ins = _content_inputs_bf16(cfg, B, seed=B, device="cuda")
+    fwd, bwd = content_train_cuda.content_rows_forward, content_train_cuda.content_rows_backward
+    before = (fwd.launches, bwd.launches, fwd.launches_bf16, bwd.launches_bf16)
+    with torch.no_grad():
+        got = fwd(weights, *ins)
+        again = fwd(weights, *ins)
+        want = content_train_cuda.content_rows_plain(weights, *ins)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    for g_, w_, name in zip(got, want, ("cu", "convfc")):
+        assert g_.dtype == torch.bfloat16
+        _bulk_rel_bf16(g_, w_, name)
+    gen = torch.Generator().manual_seed(100 + B)
+    dcu, dconv = [torch.randn(tuple(t.shape), generator=gen).bfloat16().to("cuda") for t in want]
+    if not has_dcu:
+        dcu = None
+    workspace = content_train_cuda.Workspace()
+    a = bwd(weights, *ins, dcu, dconv, workspace)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches, fwd.launches_bf16, bwd.launches_bf16) == (
+        before[0], before[1], before[2] + 2, before[3] + 1)
+    readings, p = _dfs_witness(cfg, B, weights, ins, dcu, dconv, workspace, a[3])
+    b = bwd(weights, *ins, dcu, dconv)
+    torch.cuda.synchronize()
+    assert bwd.launches_bf16 == before[3] + 2
+    for x, y in zip(list(a[:4]) + a[4], list(b[:4]) + b[4]):
+        assert torch.equal(x, y)
+    for g_, w_, name in zip(a[:3], p[:3], ("dfc", "dfbar", "dfw")):
+        assert g_.dtype == torch.bfloat16
+        _bulk_rel_bf16(g_, w_, name)
+    # dfs = dfsh Wsh: a one-unit flip of one of a row's dl stored dfsh values
+    # moves the whole row of D, and one bf16 unit at dfs's typical magnitude
+    # is about 1e-2 of its mean (ActivityNet B=2 on an H100: 10 of 256 dfsh
+    # flips move 194 of 1024 dfs values, p98 1.03e-2). So dfs meets the bulk criterion's
+    # mean and max against the plain version, and in mean, p98 and max lies
+    # no farther from the float64 gradient than 1.5 times the plain
+    # version's distance (PERF.md §6).
+    assert a[3].dtype == torch.bfloat16
+    mean, _, most = _rel_stats(a[3], p[3].double(), float(p[3].float().abs().mean()))
+    assert mean < K23_BF16["mean"] and most < K23_BF16["max"], ("dfs", readings)
+    assert all(k <= 1.5 * q for k, q in zip(readings["dfs_kernel_vs_f64"],
+                                            readings["dfs_plain_vs_f64"])), ("dfs", readings)
+    scale = max(float(w_.abs().max()) for w_ in p[4])
+    for k, (g_, w_) in enumerate(zip(a[4], p[4])):
+        assert g_.dtype == torch.float32
+        _bulk_rel(g_, w_, f"weight gradient {k}", scale)
+
+
+@pytest.mark.parametrize("cfg,B", [(TINY, 1), (TINY, 9), (ODD, 7), (ACTIVITYNET, 2)])
+@pytest.mark.parametrize("has_dcu", [True, False])
+def test_content_rows_bf16_kernels_match_plain(card, cfg, B, has_dcu):
+    """K7-bf16 forward and backward against its plain bf16 version: cu,
+    convfc, dfc, dfbar, dfw, dfs (with its witness, `_dfs_witness`) and the
+    14 fp32 weight gradients; each twice bit for bit."""
+    _content_rows_bf16_case(cfg, B, has_dcu)
+
+
+def test_content_rows_bf16_at_the_activitynet_batch(card):
+    """K7-bf16 at the ActivityNet width and batch (B=64: 532,480 clip rows
+    in each weight gradient's split reduction), as
+    `test_content_rows_bf16_kernels_match_plain`."""
+    _content_rows_bf16_case(ACTIVITYNET, 64, True)
+
+
+@pytest.mark.parametrize("cfg,B", [(TINY, 1), (TINY, 9), (ODD, 7), (CHARADES, 5),
+                                   (CHARADES, 64)])
+def test_content_unit_bf16_kernels_match_plain(card, cfg, B):
+    """K10-bf16 forward and backward against its plain bf16 version (the
+    residual added in bf16): cu, dfc, dfm, dfw, dfs and the 12 fp32 weight
+    gradients; each twice bit for bit."""
+    torch.manual_seed(B)
+    block = SMIN(cfg).to(card).smis[1]
+    weights = smin_train_cuda.layer_weights_for(
+        [w.detach() for w in content_cuda.unit_weights(block.content_unit)], torch.bfloat16)
+    fc, fm, _, fw, fs, qmask, _, vmask = _layer_inputs(cfg, B, seed=B, device=card)
+    ins = [t.bfloat16() for t in (fc, fm, fw, fs)] + [qmask, vmask]
+    fwd, bwd = content_cuda.content_unit_forward, content_cuda.content_unit_backward
+    before = (fwd.launches, bwd.launches, fwd.launches_bf16, bwd.launches_bf16)
+    with torch.no_grad():
+        got = fwd(weights, *ins)
+        again = fwd(weights, *ins)
+        want = content_cuda.content_unit_plain(weights, *ins)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    _bulk_rel_bf16(got, want, "cu")
+    dcu = torch.randn(tuple(fc.shape), generator=torch.Generator().manual_seed(100 + B))
+    dcu = dcu.bfloat16().to(card)
+    a = bwd(weights, *ins, dcu)
+    b = bwd(weights, *ins, dcu)
+    p = content_cuda.content_unit_backward_plain(weights, *ins, dcu)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches, fwd.launches_bf16, bwd.launches_bf16) == (
+        before[0], before[1], before[2] + 2, before[3] + 2)
+    for x, y in zip(list(a[:4]) + a[4], list(b[:4]) + b[4]):
+        assert torch.equal(x, y)
+    for g_, w_, name in zip(a[:4], p[:4], ("dfc", "dfm", "dfw", "dfs")):
+        assert g_.dtype == torch.bfloat16
+        _bulk_rel_bf16(g_, w_, name)
+    scale = max(float(w_.abs().max()) for w_ in p[4])
+    for k, (g_, w_) in enumerate(zip(a[4], p[4])):
+        assert g_.dtype == torch.float32
+        _bulk_rel(g_, w_, f"weight gradient {k}", scale)
+
+
+def test_bf16_wrappers_launch_their_kernel_or_raise(card, monkeypatch):
+    """A bf16 CUDA tensor given to K6, K7 or K10 launches the bf16 kernel
+    (its bf16 counter moves, the fp32 one does not, no plain version runs)
+    or raises (fp16, fp32 weights with bf16 activations): no fallback."""
+    def refuse(*args, **kw):
+        raise AssertionError("a plain version ran on the card")
+
+    for module, name in ((proposal_cuda, "proposal_rows_forward_plain_bf16"),
+                         (proposal_cuda, "proposal_features_packed"),
+                         (content_train_cuda, "content_rows_plain_bf16"),
+                         (content_train_cuda, "content_rows_plain"),
+                         (content_cuda, "content_unit_plain_bf16"),
+                         (content_cuda, "content_unit_plain")):
+        monkeypatch.setattr(module, name, refuse)
+    cfg = TINY
+    block = SMIN(cfg).to(card).smis[0]
+    f = torch.randn(2, cfg.T, cfg.D, device=card).bfloat16()
+    lmask = torch.ones(2, cfg.L, device=card)
+    counters = (proposal_cuda.proposal_packed_forward, content_train_cuda.content_rows_forward,
+                content_cuda.content_unit_forward)
+    before = [(c.launches, c.launches_bf16) for c in counters]
+    fc, fm, fb = proposal_cuda.proposal_packed_forward(f, lmask, cfg.L, cfg.C)
+    fw = torch.randn(2, cfg.max_query_length, cfg.D, device=card).bfloat16()
+    fs = torch.randn(2, cfg.D, device=card).bfloat16()
+    qmask = torch.ones(2, cfg.max_query_length, 1, device=card)
+    vmask = packed_valid_mask(lmask).contiguous()
+    rows_w = smin_train_cuda.layer_weights_for(
+        [w.detach() for w in content_train_cuda.content_weights(block)], torch.bfloat16)
+    cu, conv = content_train_cuda.content_rows_forward(rows_w, fc, fm, fw, fs, qmask, vmask)
+    unit_w = rows_w[:12]
+    cu10 = content_cuda.content_unit_forward(unit_w, fc, fm, fw, fs, qmask, vmask)
+    torch.cuda.synchronize()
+    assert [(c.launches, c.launches_bf16) for c in counters] == [(n, k + 1) for n, k in before]
+    assert all(x.dtype == torch.bfloat16 for x in (fc, fm, fb, cu, conv, cu10))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        proposal_cuda.proposal_packed_forward(f.half(), lmask, cfg.L, cfg.C)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        content_train_cuda.content_rows_forward(rows_w, fc.half(), fm, fw, fs, qmask, vmask)
+    fp32_w = [w.detach() for w in content_train_cuda.content_weights(block)]
+    with pytest.raises(ValueError, match="bfloat16"):
+        content_train_cuda.content_rows_forward(fp32_w, fc, fm, fw, fs, qmask, vmask)
+    with pytest.raises(ValueError, match="bfloat16"):
+        content_cuda.content_unit_forward(fp32_w[:12], fc, fm, fw, fs, qmask, vmask)
+
+
+@pytest.mark.parametrize("mode", ["content", "compat", "loop"])
+def test_bf16_content_routes_train_on_card_match_cpu(card, mode):
+    """Two bf16 Adam steps on each route of this slice on the card against
+    the same steps through the plain bf16 versions on the CPU: finite losses
+    within 2e-3, and the bf16 kernels each route launches per step (and no
+    other): the content-unit route (ROUTED: K6-bf16 1 + 1, K7-bf16 per
+    layer), compat_head + fused_content (K6-bf16, K10-bf16 per layer) and
+    fused_smi_train: False (K6-bf16; the loop's units in PyTorch ops)."""
+    n = 2
+    cfg, batch, per_step = {
+        "content": (dataclasses.replace(ROUTED, compute_dtype="bfloat16"), _train_batch,
+                    {"K6f": 1, "K6b": 1, "K7f": n, "K7b": n}),
+        "compat": (dataclasses.replace(TINY, num_smi_layers=n, compat_head=True,
+                                       fused_content=True, compute_dtype="bfloat16"),
+                   _dense_train_batch, {"K6f": 1, "K6b": 1, "K10f": n, "K10b": n}),
+        "loop": (dataclasses.replace(TINY, num_smi_layers=n, fused_smi_train=False,
+                                     compute_dtype="bfloat16"), _train_batch,
+                 {"K6f": 1, "K6b": 1}),
+    }[mode]
+    torch.manual_seed(0)
+    ref = SMIN(cfg)
+    models = {"cuda": SMIN(cfg), "cpu": ref}
+    models["cuda"].load_state_dict(ref.state_dict())
+    counters = _counters()
+    before = {k: (fn.launches, getattr(fn, "launches_bf16", 0)) for k, fn in counters.items()}
+    losses = {}
+    for device, model in models.items():
+        step = make_train_step(cfg, model, build_optimizer(Config(model=cfg), model),
+                               device=device)
+        losses[device] = [float(step(batch(cfg, 4, seed=k))["loss"]) for k in range(2)]
+    assert np.isfinite(losses["cpu"]).all()
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=2e-3)
+    launched = {k: (fn.launches - before[k][0], getattr(fn, "launches_bf16", 0) - before[k][1])
+                for k, fn in counters.items()}
+    assert launched == {k: (0, 2 * per_step.get(k, 0)) for k in counters}

@@ -302,22 +302,16 @@ def test_remat_gives_the_same_gradients(mode):
     ("fused_content", True), ("fused_smi", False), ("fused_smi_train", False),
     ("fused_lstm", False), ("remat_smi", True), ("use_pallas", False)])
 def test_config_checks_refuse_bf16_alone(field, value):
-    """fp32 takes every mode; bf16 is taken by the training check on the
-    whole-layer route only (packed, fused_smi_train, not compat_head, at a
-    geometry the rule admits, as SHAPE's) and refused with its ROADMAP item
-    on the other training routes, and served by the serving check on the
-    default route only (packed, fused_smi, not compat_head)."""
+    """fp32 takes every mode; bf16 is taken by the training and serving
+    checks on every route of the packed layout (the whole-layer and
+    content-unit kernels, the unit loop of compat_head and fused_smi_train:
+    False, serving through smin_forward under compat_head and fused_smi:
+    False) and refused with its ROADMAP item under packed: False alone."""
     cfg = dataclasses.replace(ModelConfig(**SHAPE), **{field: value})
-    smin.check_config(cfg)
-    smin.check_serving_config(cfg)
+    smin.check_dtype(cfg)
     bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
-    if field in ("packed", "compat_head", "fused_smi_train"):
+    if field == "packed":
         with pytest.raises(NotImplementedError, match="ROADMAP.md §1 'bf16'"):
-            smin.check_config(bf16)
+            smin.check_dtype(bf16)
     else:
-        smin.check_config(bf16)
-    if field in ("packed", "compat_head", "fused_smi"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            smin.check_serving_config(bf16)
-    else:
-        smin.check_serving_config(bf16)
+        smin.check_dtype(bf16)

@@ -122,9 +122,9 @@ def _assert_scores(cfg, outputs, B=2):
                                     dict(packed=False)])
 def test_modes_outside_the_slice_raise(change):
     """The slice is every mode of the JAX package's serving forward in fp32,
-    and bf16 on the default route: each of the other modes runs, bf16 runs
-    on the default route (fp32 scores), and bf16 on the routes it does not
-    serve (compat_head, fused_smi: False, packed: False) raises."""
+    and bf16 on the packed layout: each of the other modes runs, bf16 runs
+    on the default route and, through smin_forward, under compat_head and
+    fused_smi: False (fp32 scores), and bf16 under packed: False raises."""
     import dataclasses
 
     cfg = dataclasses.replace(TINY, **change)
@@ -132,13 +132,19 @@ def test_modes_outside_the_slice_raise(change):
     if cfg.compute_dtype == "bfloat16":
         assert all(o.dtype == torch.float32 for o in
                    smin_forward_inference(SMIN(cfg), cfg, *_tiny_args()))
-        for other in (dict(compat_head=True), dict(fused_smi=False), dict(packed=False)):
-            bad = dataclasses.replace(cfg, **other)
-            with pytest.raises(NotImplementedError, match="not supported by the PyTorch port"):
-                smin_forward_inference(SMIN(bad), bad, *_tiny_args())
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                MomentLocalizer(bad, SMIN(bad), WordEmbedding.synthetic(["a"], dim=300),
-                                device="cpu")
+        for other in (dict(compat_head=True), dict(fused_smi=False)):
+            served = dataclasses.replace(cfg, **other)
+            outputs = smin_forward_inference(SMIN(served), served, *_tiny_args())
+            _assert_scores(served, outputs)
+            assert all(o.dtype == torch.float32 for o in outputs)
+            MomentLocalizer(served, SMIN(served), WordEmbedding.synthetic(["a"], dim=300),
+                            device="cpu")
+        bad = dataclasses.replace(cfg, packed=False)
+        with pytest.raises(NotImplementedError, match="not supported by the PyTorch port"):
+            smin_forward_inference(SMIN(bad), bad, *_tiny_args())
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            MomentLocalizer(bad, SMIN(bad), WordEmbedding.synthetic(["a"], dim=300),
+                            device="cpu")
 
 
 @pytest.mark.parametrize("change", [dict(compute_dtype="bfloat16"), dict(compat_head=True),
@@ -146,10 +152,10 @@ def test_modes_outside_the_slice_raise(change):
                                     dict(packed=False)])
 def test_training_modes_outside_the_slice_raise(change):
     """The slice is every mode of the JAX package's training forward and
-    step in fp32, and bf16 on the whole-layer route: each mode runs (TINY at
-    bf16 takes the whole-layer route, fp32 scores), and bf16 on the other
-    training routes (compat_head, fused_smi_train: False, packed: False)
-    raises, naming its ROADMAP item."""
+    step in fp32, and bf16 on every packed route: each mode runs (TINY at
+    bf16 takes the whole-layer route, fp32 scores), bf16 under compat_head
+    and fused_smi_train: False runs the unit loop (fp32 scores), and bf16
+    under packed: False raises, naming its ROADMAP item."""
     import dataclasses
 
     cfg = dataclasses.replace(TINY, **change)
@@ -159,13 +165,19 @@ def test_training_modes_outside_the_slice_raise(change):
     _assert_scores(cfg, outputs)
     if cfg.compute_dtype == "bfloat16":
         assert all(o.dtype == torch.float32 for o in outputs)
-        for other in (dict(compat_head=True), dict(fused_smi_train=False), dict(packed=False)):
-            bad = dataclasses.replace(cfg, **other)
-            with pytest.raises(NotImplementedError, match="ROADMAP.md §1 'bf16'"):
-                smin_forward(SMIN(bad), bad, *_tiny_args())
-            with pytest.raises(NotImplementedError, match="not supported by the PyTorch port"):
-                make_train_step(bad, SMIN(bad), torch.optim.Adam(model.parameters()),
-                                device="cpu")
+        for other in (dict(compat_head=True), dict(fused_smi_train=False)):
+            loop = dataclasses.replace(cfg, **other)
+            make_train_step(loop, SMIN(loop), torch.optim.Adam(model.parameters()),
+                            device="cpu")
+            loop_out = smin_forward(SMIN(loop), loop, *_tiny_args())
+            _assert_scores(loop, loop_out)
+            assert all(o.dtype == torch.float32 for o in loop_out)
+        bad = dataclasses.replace(cfg, packed=False)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 'bf16'"):
+            smin_forward(SMIN(bad), bad, *_tiny_args())
+        with pytest.raises(NotImplementedError, match="not supported by the PyTorch port"):
+            make_train_step(bad, SMIN(bad), torch.optim.Adam(model.parameters()),
+                            device="cpu")
 
 
 def test_grad_free_wrappers_refuse_to_cut_a_graph():

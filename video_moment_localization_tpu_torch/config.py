@@ -54,9 +54,9 @@ class ModelConfig:
     word_dim: int = 300          # GloVe dimensionality
     # The keys below are the JAX package's modes, and the forwards of
     # models/smin.py take each of its routes; ``use_pallas`` is read by
-    # neither (the port has one kernel per route), and bfloat16 serves the
-    # default route only (models/smin.py `check_serving_config`; training
-    # and evaluation raise, `check_config`).
+    # neither (the port has one kernel per route), and bfloat16 runs on
+    # every route of the packed layout (models/smin.py `check_dtype`;
+    # ``packed: False`` raises).
     compute_dtype: str = "float32"
     use_pallas: bool = True
     packed: bool = True

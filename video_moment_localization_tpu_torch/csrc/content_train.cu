@@ -37,61 +37,89 @@
 // unmasked). dfw / dfs reduce over the element's pairs and the weight
 // gradients over all rows in kernels that own what they write: no atomics,
 // a run is deterministic.
+//
+// The bf16 variant (K7-bf16, the JAX kernel at bf16: ActivityNet's bf16
+// training) runs the same sequences on bf16 activations and cotangents, as
+// K2-bf16 and K3-bf16 run the layer: `content_forward<bf16>` (bf16 products
+// with fp32 sums, fp32 arithmetic inside every other kernel, one rounding per
+// stored value: h, q, fwh, khat, f_cc_hat, cu), the clip mean of the stored
+// cu rounded once, conv_fc on gemm.cuh's bf16 path with its fp32 bias; the
+// backward rounds each stored value's gradient once where the plain version
+// (autograd through ops/content_train_cuda.py::content_rows_plain_bf16)
+// rounds it: dx2, dcut, dfbar, then `content_backward<bf16>` /
+// `content_input_grads<bf16>` as in K3-bf16. Weight matrices are bf16,
+// biases and the 14 weight gradients fp32. The JAX kernel sums cu and
+// takes the clip mean in fp32 and keeps h in fp32 through the clip
+// attention; the port keeps the layer's (K2-bf16's) rounding, which differs
+// from it by a bf16 rounding of those values.
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "content_bwd.cuh"
 #include "smin_units.cuh"
 
 namespace {
 
-// dfbar[n, d] = sum_c dcut[n, c, d] over the B * N pairs.
-__global__ void clip_sum_kernel(size_t total, int C, int D, const float* __restrict__ dcut,
-                                float* __restrict__ dfbar) {
+using vml::bf16;
+
+// dfbar[n, d] = sum_c dcut[n, c, d] over the B * N pairs, in fp32, rounded
+// once to T (fbar is a stored value of T).
+template <typename T>
+__global__ void clip_sum_kernel(size_t total, int C, int D, const T* __restrict__ dcut,
+                                T* __restrict__ dfbar) {
     for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total;
          e += (size_t)gridDim.x * blockDim.x) {
         const size_t n = e / D;
         const int d = (int)(e % D);
         float s = 0.f;
-        for (int c = 0; c < C; ++c) s += dcut[(n * C + c) * D + d];
-        dfbar[e] = s;
+        for (int c = 0; c < C; ++c) s += vml::to_f(dcut[(n * C + c) * D + d]);
+        dfbar[e] = vml::from_f<T>(s);
     }
 }
 
 // K10's gate: grid (B, ceil(D / blockDim)), one thread per (element, d)
 // over the pairs, with dfbar[n] = sum_c dcu[n, c] (cu = ... + fbar[n] on
-// every clip row):
+// every clip row), rounded to T as fbar is stored:
 //   dfm[n] = dfbar[n] * (s + z * s * (1 - s)),  z = fm[n] * fs, s = sigmoid(z)
-//   dfs    = sum_n dfbar[n] * fm[n]^2 * s * (1 - s)
+//   dfs    = sum_n dfbar[n] * fm[n]^2 * s * (1 - s)   (fp32)
 // (the s_hat path of dfs is added by `content_input_grads`).
-__global__ void unit_gate_bwd_kernel(int N, int C, int D, const float* __restrict__ fm,
-                                     const float* __restrict__ fs,
-                                     const float* __restrict__ dcu, float* __restrict__ dfm,
-                                     float* __restrict__ dfs) {
+template <typename T>
+__global__ void unit_gate_bwd_kernel(int N, int C, int D, const T* __restrict__ fm,
+                                     const T* __restrict__ fs, const T* __restrict__ dcu,
+                                     T* __restrict__ dfm, float* __restrict__ dfs) {
     const int b = blockIdx.x;
     const int d = blockIdx.y * blockDim.x + threadIdx.x;
     if (d >= D) return;
-    const float fsv = fs[(size_t)b * D + d];
+    const float fsv = vml::to_f(fs[(size_t)b * D + d]);
     float acc = 0.f;
     for (size_t n = (size_t)b * N; n < (size_t)(b + 1) * N; ++n) {
         float dfbar = 0.f;
-        for (int c = 0; c < C; ++c) dfbar += dcu[(n * C + c) * D + d];
-        const float x = fm[n * D + d];
+        for (int c = 0; c < C; ++c) dfbar += vml::to_f(dcu[(n * C + c) * D + d]);
+        dfbar = vml::to_f(vml::from_f<T>(dfbar));
+        const float x = vml::to_f(fm[n * D + d]);
         const float z = x * fsv;
         const float sg = vml::sigmoidf_(z);
         const float t = sg * (1.f - sg);
-        dfm[n * D + d] = dfbar * (sg + z * t);
+        dfm[n * D + d] = vml::from_f<T>(dfbar * (sg + z * t));
         acc += dfbar * x * x * t;
     }
     dfs[(size_t)b * D + d] = acc;
 }
 
+// The scratch of K7 and K10 in the element type T: the content section of
+// the layer's (h, q, fcc, fwh, khat of T, fsh fp32), x2 (K7's clip mean,
+// K10's fbar) and dx2 of T, the backward's content buffers, the split
+// reductions' partials and, at bf16, K10's fp32 sum of dfs (at fp32 dfs
+// sums in place: `vml::f32_sum`).
+template <typename T>
 struct Workspace {
-    vml::LayerScratch s;   // h, q, fcc, fwh, khat, fsh are used
-    vml::ContentBackwardScratch w;
-    float *x2, *dx2, *partial;   // x2: K7's clip mean, K10's fbar
+    vml::LayerScratchT<T> s;   // h, q, fcc, fwh, khat, fsh are used
+    vml::ContentBackwardScratchT<T> w;
+    T *x2, *dx2;
+    float *partial, *dfs32;
 };
 
 size_t partial_floats(int B, int N, int C, int Nq, int D, int dl) {
@@ -100,85 +128,73 @@ size_t partial_floats(int B, int N, int C, int Nq, int D, int dl) {
     return a > b ? a : b;
 }
 
-// Carves the workspace; returns its size in floats (ws may be null).
-size_t carve(float* ws, int B, int N, int C, int Nq, int D, int dl, bool backward,
-             Workspace* k) {
-    *k = Workspace{};
+// Carves the byte workspace `ws` (null: only measure); returns its size in
+// bytes.
+template <typename T>
+size_t carve(unsigned char* ws, int B, int N, int C, int Nq, int D, int dl, bool backward,
+             Workspace<T>* k) {
+    *k = Workspace<T>{};
+    constexpr bool f32 = std::is_same<T, float>::value;
     const size_t rows = (size_t)B * N * C;
     const size_t BQ = (size_t)B * Nq;
-    const size_t sizes[] = {rows * dl, rows * dl, rows * dl,          // h, q, fcc
-                            BQ * dl, BQ * dl, (size_t)B * dl,         // fwh, khat, fsh
-                            (size_t)B * N * D};                       // x2
-    float** slots[] = {&k->s.h, &k->s.q, &k->s.fcc, &k->s.fwh, &k->s.khat, &k->s.fsh,
-                       &k->x2};
-    size_t off = vml::carve_slots(ws, 0, sizes, slots, 7);
+    const size_t t = sizeof(T), f = sizeof(float);
+    const size_t sizes[7] = {t * rows * dl, t * rows * dl, t * rows * dl,   // h, q, fcc
+                             t * BQ * dl, t * BQ * dl, f * B * dl,          // fwh, khat, fsh
+                             t * B * N * D};                                // x2
+    void* slots[7];
+    size_t off = vml::carve_bytes(ws, 0, sizes, slots, 7);
+    T** typed[6] = {&k->s.h, &k->s.q, &k->s.fcc, &k->s.fwh, &k->s.khat, &k->x2};
+    const int at[6] = {0, 1, 2, 3, 4, 6};
+    for (int i = 0; i < 6; ++i) *typed[i] = static_cast<T*>(slots[at[i]]);
+    k->s.fsh = static_cast<float*>(slots[5]);
     if (!backward) return off;
-    off = vml::carve_content_backward(ws, off, B, N, C, Nq, dl, &k->w);
-    const size_t more[] = {(size_t)B * N * D, partial_floats(B, N, C, Nq, D, dl)};
-    float** more_slots[] = {&k->dx2, &k->partial};
-    return vml::carve_slots(ws, off, more, more_slots, 2);
+    off = vml::carve_content_backward<T>(ws, off, B, N, C, Nq, dl, &k->w);
+    const size_t more[3] = {t * B * N * D, f * partial_floats(B, N, C, Nq, D, dl),
+                            f32 ? 0 : f * B * D};   // dx2, partial, dfs32
+    void* more_slots[3];
+    off = vml::carve_bytes(ws, off, more, more_slots, 3);
+    k->dx2 = static_cast<T*>(more_slots[0]);
+    k->partial = static_cast<float*>(more_slots[1]);
+    k->dfs32 = static_cast<float*>(more_slots[2]);
+    return off;
 }
 
-// cu and x2 = mean_c(cu) from the inputs; intermediates left in k.s.
-cudaError_t forward(cudaStream_t st, int B, int N, int C, int Nq, int D, int dl,
-                    const float* fc, const float* fbar, const float* fw, const float* fs,
-                    const float* qmask, const float* vmask, const float* const* p,
-                    const Workspace& k, float* cu) {
+// cu and x2 = mean_c(cu) (of the stored cu, rounded once to T) from the
+// inputs; intermediates left in k.s.
+template <typename T, typename P>
+cudaError_t forward(cudaStream_t st, int B, int N, int C, int Nq, int D, int dl, const T* fc,
+                    const T* fbar, const T* fw, const T* fs, const float* qmask,
+                    const float* vmask, const P* const* p, const Workspace<T>& k, T* cu) {
     cudaError_t err =
         vml::content_forward(st, B, N, C, Nq, D, dl, fc, fbar, fw, fs, qmask, vmask, p, k.s, cu);
     if (err != cudaSuccess) return err;
-    vml::launch_moment_prologue<float>(st, B * N, 0, C, D, nullptr, cu, nullptr, k.x2, D);
+    vml::launch_moment_prologue<T>(st, B * N, 0, C, D, nullptr, cu, nullptr, k.x2, D);
     return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-size_t vml_content_rows_workspace_floats(int B, int N, int C, int Nq, int D, int dl,
-                                         int backward) {
-    Workspace k;
-    return carve(nullptr, B, N, C, Nq, D, dl, backward != 0, &k);
-}
-
-// Largest dynamic shared memory of the forward and backward kernels, for the
-// wrapper's admission check against the 227 KB a block may have.
-size_t vml_content_rows_smem_bytes(int C, int Nq, int dl) {
-    const size_t a = vml::content_attn_smem_bytes(1, C, Nq, dl, false);
-    const size_t b = vml::content_attn_smem_bytes(1, C, Nq, dl, true);
-    return a > b ? a : b;
-}
-
-// K7 forward. p: host array of 14 device pointers: the content unit's 12 in
-// the order of vml::content_forward, then conv_fc's weight (D, D) and bias.
-// Returns the first CUDA error of the launches, 0 if none.
-int vml_content_rows_fwd_f32(void* stream, int B, int N, int C, int Nq, int D, int dl,
-                             const float* fc, const float* fbar, const float* fw,
-                             const float* fs, const float* qmask, const float* vmask,
-                             const float* const* p, float* ws, float* cu, float* convfc) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    Workspace k;
+// K7 forward at T: cu, then convfc = (conv_fc(x2) + b) * vmask.
+template <typename T, typename P>
+int rows_forward(cudaStream_t st, int B, int N, int C, int Nq, int D, int dl, const T* fc,
+                 const T* fbar, const T* fw, const T* fs, const float* qmask,
+                 const float* vmask, const P* const* p, unsigned char* ws, T* cu, T* convfc) {
+    Workspace<T> k;
     carve(ws, B, N, C, Nq, D, dl, false, &k);
     cudaError_t err = forward(st, B, N, C, Nq, D, dl, fc, fbar, fw, fs, qmask, vmask, p, k, cu);
     if (err != cudaSuccess) return (int)err;
-    vml::Epilogue ep;    // convfc = (conv_fc(x2) + b) * vmask
-    ep.bias = p[13];
+    vml::EpilogueOf<T> ep;
+    ep.bias = static_cast<const float*>(p[13]);
     ep.rmask = vmask;
-    vml::gemm_nt(st, B * N, D, D, k.x2, D, p[12], D, convfc, D, ep);
+    vml::product(st, B * N, D, D, k.x2, D, static_cast<const T*>(p[12]), D, convfc, D, ep);
     return (int)cudaGetLastError();
 }
 
-// K7 backward. dcu may be null (the zero cotangent of a top layer's cu). dw:
-// host array of 14 device pointers to the weight-gradient outputs, in p's
-// order. dfc doubles as the recompute's cu buffer before it is written.
-int vml_content_rows_bwd_f32(void* stream, int B, int N, int C, int Nq, int D, int dl,
-                             const float* fc, const float* fbar, const float* fw,
-                             const float* fs, const float* qmask, const float* vmask,
-                             const float* const* p, const float* dcu, const float* dconvfc,
-                             float* ws, float* dfc, float* dfbar, float* dfw, float* dfs,
-                             float* const* dw) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    Workspace k;
+// K7 backward at T (see the file's head; dcu may be null).
+template <typename T, typename P>
+int rows_backward(cudaStream_t st, int B, int N, int C, int Nq, int D, int dl, const T* fc,
+                  const T* fbar, const T* fw, const T* fs, const float* qmask,
+                  const float* vmask, const P* const* p, const T* dcu, const T* dconvfc,
+                  unsigned char* ws, T* dfc, T* dfbar, T* dfw, T* dfs, float* const* dw) {
+    Workspace<T> k;
     carve(ws, B, N, C, Nq, D, dl, true, &k);
     cudaError_t err;
 #define VML_CHECK()                                                     \
@@ -191,28 +207,104 @@ int vml_content_rows_bwd_f32(void* stream, int B, int N, int C, int Nq, int D, i
     if (err != cudaSuccess) return (int)err;
 
     // conv_fc: with dz = dconvfc * vm, dx2 = dz Wfc, dWfc = dz^T x2, db = sum dz.
-    vml::gemm_nn(st, B * N, D, D, dconvfc, D, vmask, 1, p[12], D, k.dx2, D, vml::Epilogue());
+    vml::EpilogueOf<T> ep;
+    ep.rmask = vmask;
+    vml::product_nn(st, B * N, D, D, dconvfc, D, static_cast<const T*>(p[12]), D, k.dx2, D, ep);
     VML_CHECK();
-    vml::gemm_tn(st, D, D, B * N, dconvfc, D, vmask, 1, k.x2, D, k.partial, dw[12], dw[13]);
+    vml::product_tn(st, D, D, B * N, dconvfc, D, vmask, 1, k.x2, D, k.partial, dw[12], dw[13]);
     VML_CHECK();
 
     // dcut = dcu + dx2 / C into dfc, and dfbar = sum_c dcut.
     const size_t ncd = (size_t)B * N * C * D;
     const int dcu_blocks = (int)((ncd + 255) / 256 < 8192 ? (ncd + 255) / 256 : 8192);
-    vml::dcu_total_kernel<<<dcu_blocks, 256, 0, st>>>(ncd, C, D, dcu, k.dx2, dfc);
+    vml::dcu_total_kernel<T><<<dcu_blocks, 256, 0, st>>>(ncd, C, D, dcu, k.dx2, dfc);
     VML_CHECK();
     const size_t nd = (size_t)B * N * D;
     const int sum_blocks = (int)((nd + 255) / 256 < 8192 ? (nd + 255) / 256 : 8192);
-    clip_sum_kernel<<<sum_blocks, 256, 0, st>>>(nd, C, D, dfc, dfbar);
+    clip_sum_kernel<T><<<sum_blocks, 256, 0, st>>>(nd, C, D, dfc, dfbar);
     VML_CHECK();
+#undef VML_CHECK
 
     err = vml::content_backward(st, B, N, C, Nq, D, dl, fc, fw, fs, qmask, vmask, p, k.s, k.w,
                                 k.partial, dfc, dw);
     if (err != cudaSuccess) return (int)err;
-    err = vml::content_input_grads(st, B, N, C, Nq, D, dl, p, k.w, nullptr, nullptr, dfc, dfw,
-                                   dfs);
-#undef VML_CHECK
-    return (int)err;
+    return (int)vml::content_input_grads(st, B, N, C, Nq, D, dl, p, k.w, nullptr, nullptr, dfc,
+                                         dfw, dfs);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of the workspace of K7's and K10's forward (backward 0) or backward
+// (backward 1) entries, fp32 (bf16 0) or bf16 (bf16 1).
+size_t vml_content_rows_workspace_bytes(int B, int N, int C, int Nq, int D, int dl,
+                                        int backward, int bf16_) {
+    if (bf16_) {
+        Workspace<bf16> k;
+        return carve<bf16>(nullptr, B, N, C, Nq, D, dl, backward != 0, &k);
+    }
+    Workspace<float> k;
+    return carve<float>(nullptr, B, N, C, Nq, D, dl, backward != 0, &k);
+}
+
+// Largest dynamic shared memory of the forward and backward kernels, for the
+// wrapper's admission check against the 227 KB a block may have (the same at
+// either type: the pair stages bf16 rows in fp32).
+size_t vml_content_rows_smem_bytes(int C, int Nq, int dl) {
+    const size_t a = vml::content_attn_smem_bytes(1, C, Nq, dl, false);
+    const size_t b = vml::content_attn_smem_bytes(1, C, Nq, dl, true);
+    return a > b ? a : b;
+}
+
+// K7 forward. p: host array of 14 device pointers: the content unit's 12 in
+// the order of vml::content_forward, then conv_fc's weight (D, D) and bias.
+// ws: vml_content_rows_workspace_bytes(..., 0, 0) bytes. Returns the first
+// CUDA error of the launches, 0 if none.
+int vml_content_rows_fwd_f32(void* stream, int B, int N, int C, int Nq, int D, int dl,
+                             const float* fc, const float* fbar, const float* fw,
+                             const float* fs, const float* qmask, const float* vmask,
+                             const float* const* p, void* ws, float* cu, float* convfc) {
+    return rows_forward(static_cast<cudaStream_t>(stream), B, N, C, Nq, D, dl, fc, fbar, fw, fs,
+                        qmask, vmask, p, static_cast<unsigned char*>(ws), cu, convfc);
+}
+
+// K7 backward. dcu may be null (the zero cotangent of a top layer's cu). dw:
+// host array of 14 device pointers to the weight-gradient outputs, in p's
+// order. dfc doubles as the recompute's cu buffer before it is written.
+int vml_content_rows_bwd_f32(void* stream, int B, int N, int C, int Nq, int D, int dl,
+                             const float* fc, const float* fbar, const float* fw,
+                             const float* fs, const float* qmask, const float* vmask,
+                             const float* const* p, const float* dcu, const float* dconvfc,
+                             void* ws, float* dfc, float* dfbar, float* dfw, float* dfs,
+                             float* const* dw) {
+    return rows_backward(static_cast<cudaStream_t>(stream), B, N, C, Nq, D, dl, fc, fbar, fw, fs,
+                         qmask, vmask, p, dcu, dconvfc, static_cast<unsigned char*>(ws), dfc,
+                         dfbar, dfw, dfs, dw);
+}
+
+// K7-bf16 forward: K7 on bf16 activations (fc, fbar, fw, fs, cu, convfc),
+// the matrices bf16 and the biases fp32 in p, the masks fp32. ws:
+// vml_content_rows_workspace_bytes(..., 0, 1) bytes.
+int vml_content_rows_fwd_bf16(void* stream, int B, int N, int C, int Nq, int D, int dl,
+                              const bf16* fc, const bf16* fbar, const bf16* fw, const bf16* fs,
+                              const float* qmask, const float* vmask, const void* const* p,
+                              void* ws, bf16* cu, bf16* convfc) {
+    return rows_forward(static_cast<cudaStream_t>(stream), B, N, C, Nq, D, dl, fc, fbar, fw, fs,
+                        qmask, vmask, p, static_cast<unsigned char*>(ws), cu, convfc);
+}
+
+// K7-bf16 backward: bf16 cotangents (dcu may be null) and input gradients,
+// each rounded once; the 14 weight gradients fp32 (dw). ws:
+// vml_content_rows_workspace_bytes(..., 1, 1) bytes.
+int vml_content_rows_bwd_bf16(void* stream, int B, int N, int C, int Nq, int D, int dl,
+                              const bf16* fc, const bf16* fbar, const bf16* fw, const bf16* fs,
+                              const float* qmask, const float* vmask, const void* const* p,
+                              const bf16* dcu, const bf16* dconvfc, void* ws, bf16* dfc,
+                              bf16* dfbar, bf16* dfw, bf16* dfs, float* const* dw) {
+    return rows_backward(static_cast<cudaStream_t>(stream), B, N, C, Nq, D, dl, fc, fbar, fw, fs,
+                         qmask, vmask, p, dcu, dconvfc, static_cast<unsigned char*>(ws), dfc,
+                         dfbar, dfw, dfs, dw);
 }
 
 }  // extern "C"
@@ -243,19 +335,53 @@ int vml_content_rows_bwd_f32(void* stream, int B, int N, int C, int Nq, int D, i
 // `unit_gate_bwd_kernel` then turns dfbar = sum_c dcu into dfm and the
 // gate's share of dfs. The workspace is K7's, its clip-mean slot holding
 // fbar instead. No atomics: a run is deterministic.
+//
+// The bf16 variant (K10-bf16, the JAX kernel at bf16) runs it on bf16
+// activations as K7-bf16 runs K7, with the JAX fused unit's residual: f_cc
+// rounded to bf16, then + fc and + fbar (the gate computed in fp32 and
+// stored in bf16) added in bf16, each sum rounded (`residual_in_t`, the
+// GEMM epilogue's round_each). The backward is K7-bf16's content section
+// with dcut = dcu, then the gate's, dfbar rounded to bf16 as fbar is
+// stored; its plain version is autograd through ops/content_cuda.py::
+// content_unit_plain_bf16, which rounds where the kernel rounds.
 
 namespace {
 
-// fbar in the x2 slot, then the unit; intermediates left in k.s.
+// fbar in the x2 slot, then the unit with its residual added in T;
+// intermediates left in k.s.
+template <typename T, typename P>
 cudaError_t unit_forward(cudaStream_t st, int B, int N, int C, int Nq, int D, int dl,
-                         const float* fc, const float* fm, const float* fw, const float* fs,
-                         const float* qmask, const float* vmask, const float* const* p,
-                         const Workspace& k, float* cu) {
+                         const T* fc, const T* fm, const T* fw, const T* fs, const float* qmask,
+                         const float* vmask, const P* const* p, const Workspace<T>& k, T* cu) {
     vml::launch_gate(st, B, N, D, fm, fs, k.x2);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     return vml::content_forward(st, B, N, C, Nq, D, dl, fc, k.x2, fw, fs, qmask, vmask, p, k.s,
-                                cu);
+                                cu, true);
+}
+
+template <typename T, typename P>
+int unit_backward(cudaStream_t st, int B, int N, int C, int Nq, int D, int dl, const T* fc,
+                  const T* fm, const T* fw, const T* fs, const float* qmask, const float* vmask,
+                  const P* const* p, const T* dcu, unsigned char* ws, T* dfc, T* dfm, T* dfw,
+                  T* dfs, float* const* dw) {
+    Workspace<T> k;
+    carve(ws, B, N, C, Nq, D, dl, true, &k);
+    cudaError_t err = unit_forward(st, B, N, C, Nq, D, dl, fc, fm, fw, fs, qmask, vmask, p, k, dfc);
+    if (err != cudaSuccess) return (int)err;
+    // dcut = dcu into dfc; the gate's gradients (its share of dfs in fp32);
+    // then the unit's.
+    err = cudaMemcpyAsync(dfc, dcu, sizeof(T) * B * N * C * D, cudaMemcpyDeviceToDevice, st);
+    if (err != cudaSuccess) return (int)err;
+    float* dfs32 = vml::f32_sum(dfs, k.dfs32);
+    unit_gate_bwd_kernel<T><<<dim3(B, (D + 127) / 128), 128, 0, st>>>(N, C, D, fm, fs, dcu, dfm,
+                                                                       dfs32);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    err = vml::content_backward(st, B, N, C, Nq, D, dl, fc, fw, fs, qmask, vmask, p, k.s, k.w,
+                                k.partial, dfc, dw);
+    if (err != cudaSuccess) return (int)err;
+    return (int)vml::content_input_grads(st, B, N, C, Nq, D, dl, p, k.w, nullptr, dfs32, dfc,
+                                         dfw, dfs);
 }
 
 }  // namespace
@@ -263,46 +389,55 @@ cudaError_t unit_forward(cudaStream_t st, int B, int N, int C, int Nq, int D, in
 extern "C" {
 
 // K10 forward. p: host array of the unit's 12 device pointers in the order
-// of vml::content_forward. ws: vml_content_rows_workspace_floats(..., 0)
-// floats. Returns the first CUDA error of the launches, 0 if none.
+// of vml::content_forward. ws: vml_content_rows_workspace_bytes(..., 0, 0)
+// bytes. Returns the first CUDA error of the launches, 0 if none.
 int vml_content_unit_fwd_f32(void* stream, int B, int N, int C, int Nq, int D, int dl,
                              const float* fc, const float* fm, const float* fw, const float* fs,
                              const float* qmask, const float* vmask, const float* const* p,
-                             float* ws, float* cu) {
-    Workspace k;
-    carve(ws, B, N, C, Nq, D, dl, false, &k);
+                             void* ws, float* cu) {
+    Workspace<float> k;
+    carve(static_cast<unsigned char*>(ws), B, N, C, Nq, D, dl, false, &k);
     return (int)unit_forward(static_cast<cudaStream_t>(stream), B, N, C, Nq, D, dl, fc, fm, fw,
                              fs, qmask, vmask, p, k, cu);
 }
 
 // K10 backward. dw: host array of 12 device pointers to the weight-gradient
-// outputs, in p's order. ws: vml_content_rows_workspace_floats(..., 1)
-// floats. dfc doubles as the recompute's cu buffer before it is written.
+// outputs, in p's order. ws: vml_content_rows_workspace_bytes(..., 1, 0)
+// bytes. dfc doubles as the recompute's cu buffer before it is written.
 int vml_content_unit_bwd_f32(void* stream, int B, int N, int C, int Nq, int D, int dl,
                              const float* fc, const float* fm, const float* fw, const float* fs,
                              const float* qmask, const float* vmask, const float* const* p,
-                             const float* dcu, float* ws, float* dfc, float* dfm, float* dfw,
+                             const float* dcu, void* ws, float* dfc, float* dfm, float* dfw,
                              float* dfs, float* const* dw) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    Workspace k;
-    carve(ws, B, N, C, Nq, D, dl, true, &k);
-    cudaError_t err =
-        unit_forward(st, B, N, C, Nq, D, dl, fc, fm, fw, fs, qmask, vmask, p, k, dfc);
-    if (err != cudaSuccess) return (int)err;
-    // dcut = dcu into dfc; the gate's gradients; then the unit's.
-    err = cudaMemcpyAsync(dfc, dcu, sizeof(float) * B * N * C * D, cudaMemcpyDeviceToDevice,
-                          st);
-    if (err != cudaSuccess) return (int)err;
-    unit_gate_bwd_kernel<<<dim3(B, (D + 127) / 128), 128, 0, st>>>(N, C, D, fm, fs, dcu, dfm,
-                                                                    dfs);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    if ((err = cudaMemsetAsync(dfw, 0, sizeof(float) * B * Nq * D, st)) != cudaSuccess)
-        return (int)err;
-    err = vml::content_backward(st, B, N, C, Nq, D, dl, fc, fw, fs, qmask, vmask, p, k.s, k.w,
-                                k.partial, dfc, dw);
-    if (err != cudaSuccess) return (int)err;
-    return (int)vml::content_input_grads(st, B, N, C, Nq, D, dl, p, k.w, dfw, dfs, dfc, dfw,
-                                         dfs);
+    return unit_backward(static_cast<cudaStream_t>(stream), B, N, C, Nq, D, dl, fc, fm, fw, fs,
+                         qmask, vmask, p, dcu, static_cast<unsigned char*>(ws), dfc, dfm, dfw,
+                         dfs, dw);
+}
+
+// K10-bf16 forward: K10 on bf16 activations, the matrices bf16 and the
+// biases fp32 in p, the masks fp32. ws: vml_content_rows_workspace_bytes(...,
+// 0, 1) bytes.
+int vml_content_unit_fwd_bf16(void* stream, int B, int N, int C, int Nq, int D, int dl,
+                              const bf16* fc, const bf16* fm, const bf16* fw, const bf16* fs,
+                              const float* qmask, const float* vmask, const void* const* p,
+                              void* ws, bf16* cu) {
+    Workspace<bf16> k;
+    carve(static_cast<unsigned char*>(ws), B, N, C, Nq, D, dl, false, &k);
+    return (int)unit_forward(static_cast<cudaStream_t>(stream), B, N, C, Nq, D, dl, fc, fm, fw,
+                             fs, qmask, vmask, p, k, cu);
+}
+
+// K10-bf16 backward: bf16 dcu and input gradients, each rounded once; the 12
+// weight gradients fp32 (dw). ws: vml_content_rows_workspace_bytes(..., 1, 1)
+// bytes.
+int vml_content_unit_bwd_bf16(void* stream, int B, int N, int C, int Nq, int D, int dl,
+                              const bf16* fc, const bf16* fm, const bf16* fw, const bf16* fs,
+                              const float* qmask, const float* vmask, const void* const* p,
+                              const bf16* dcu, void* ws, bf16* dfc, bf16* dfm, bf16* dfw,
+                              bf16* dfs, float* const* dw) {
+    return unit_backward(static_cast<cudaStream_t>(stream), B, N, C, Nq, D, dl, fc, fm, fw, fs,
+                         qmask, vmask, p, dcu, static_cast<unsigned char*>(ws), dfc, dfm, dfw,
+                         dfs, dw);
 }
 
 }  // extern "C"

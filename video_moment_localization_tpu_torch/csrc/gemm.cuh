@@ -1166,7 +1166,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 //     tile add that scaled slice per column, in order (the bias gradient);
 //   * the epilogue from the fragments: bias, pre (fp32), the row mask and
 //     the residuals (bf16 post and post2, fp32 post32) in fp32, one rounding
-//     to the output type;
+//     to the output type (with `round_each`, a rounding after the mask and
+//     after post too: residuals added in bf16);
 //   * operands that are not 16-byte aligned or whose contiguous extents or
 //     leading dimensions are no multiple of 8 take synchronous guarded loads.
 struct EpilogueBf16 {
@@ -1182,6 +1183,8 @@ struct EpilogueBf16 {
     const bf16* post2 = nullptr;   // (M / post2_div, ldpost2), after the mask
     int ldpost2 = 0;
     int post2_div = 1;
+    bool round_each = false;       // round to bf16 after the mask and after post:
+                                   // the residuals added in bf16 (K10-bf16)
 };
 
 constexpr int kBfBK = 32;             // K of a stage
@@ -1419,7 +1422,9 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_bf16_kernel(GemmBf16Para
                     if (ep.bias) v += ep.bias[c];
                     if (ep.pre) v += ep.pre[(size_t)r * ep.ldpre + c];
                     v *= mask;
+                    if (ep.round_each) v = to_f(__float2bfloat16(v));
                     if (ep.post) v += to_f(ep.post[(size_t)r * ep.ldpost + c]);
+                    if (ep.round_each) v = to_f(__float2bfloat16(v));
                     if (ep.post32) v += ep.post32[(size_t)r * ep.ldpost32 + c];
                     if (ep.post2) v += to_f(ep.post2[(size_t)(r / ep.post2_div) * ep.ldpost2 + c]);
                     const size_t o = zoff + (size_t)r * p.ldc + c;

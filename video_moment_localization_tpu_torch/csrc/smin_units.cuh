@@ -509,6 +509,12 @@ inline void add_f32(EpilogueBf16& ep, const float* acc, int ld) {
     ep.ldpost32 = ld;
 }
 
+// Adds an epilogue's residuals in the output's type, rounding after the
+// mask and after each residual (EpilogueBf16's round_each): at fp32 the one
+// sum it already is.
+inline void round_residuals(Epilogue& /*ep*/) {}
+inline void round_residuals(EpilogueBf16& ep) { ep.round_each = true; }
+
 // Where a gradient of element type T gathers its fp32 shares before its
 // last product: at fp32 the gradient itself, at bf16 the fp32 `scratch`.
 inline float* f32_sum(float* grad, float* /*scratch*/) { return grad; }
@@ -523,12 +529,15 @@ inline float* f32_sum(bf16* /*grad*/, float* scratch) { return scratch; }
 // The ContentUnit of a layer over N pairs: (fc, fbar) -> cu = c_out(f_cc_hat)
 // * vmask + fc + fbar, with h, q, fwh, khat, fsh and fcc left in `s`. p: the
 // unit's 12 device pointers, the first 12 of `layer_forward`'s order (the
-// matrices of type T, the biases fp32).
+// matrices of type T, the biases fp32). The residual sum is fp32, rounded
+// once to T; with `residual_in_t` (K10) it is added in T, each term rounded,
+// as the JAX package's fused unit adds it.
 template <typename T, typename P>
 inline cudaError_t content_forward(cudaStream_t st, int B, int N, int C, int Nq, int D, int dl,
                                    const T* fc, const T* fbar, const T* fw, const T* fs,
                                    const float* qmask, const float* vmask, const P* const* p,
-                                   const LayerScratchT<T>& s, T* cu) {
+                                   const LayerScratchT<T>& s, T* cu,
+                                   bool residual_in_t = false) {
     const int NC = N * C;
     auto W = [p](int k) { return static_cast<const T*>(p[k]); };
     auto bias = [p](int k) { return static_cast<const float*>(p[k]); };
@@ -561,6 +570,7 @@ inline cudaError_t content_forward(cudaStream_t st, int B, int N, int C, int Nq,
     ep.post2 = fbar;
     ep.ldpost2 = D;
     ep.post2_div = C;
+    if (residual_in_t) round_residuals(ep);
     product(st, B * NC, D, dl, s.fcc, dl, W(6), dl, cu, D, ep);
     VML_CHECK_LAUNCH();
     return cudaSuccess;

@@ -20,10 +20,13 @@ Repeated videos in a chunk are featurized and encoded once (the grouped
 path). Entry points run on the card unless the caller passes
 ``device="cpu"``.
 
-``compute_dtype: bfloat16`` serves the default route (packed, ``fused_smi``,
-not ``compat_head``) with bf16 activations and the bf16 variants of the
-biLSTM and SMI-stack kernels; scores stay fp32 (models/smin.py
-`check_serving_config`).
+``compute_dtype: bfloat16`` serves the packed layout with bf16 activations:
+the default route (packed, ``fused_smi``, not ``compat_head``) through the
+bf16 variants of the biLSTM and SMI-stack kernels, ``compat_head`` and
+``fused_smi: False`` through `smin_forward` without a graph (the bf16
+variants of K6 and K10, or of the training route's forward kernels); scores
+stay fp32 (models/smin.py `check_dtype`; ``packed: False`` at bf16
+is refused).
 
 `AsyncLocalizer` wraps a localizer with a dynamic micro-batching queue:
 `submit()` returns a future at once; a batcher thread coalesces whatever
@@ -50,7 +53,7 @@ from video_moment_localization_tpu_torch.data.sampler import sample_fixed_length
 from video_moment_localization_tpu_torch.data.tokenizer import get_tokens
 from video_moment_localization_tpu_torch.models.smin import (
     SMIN,
-    check_serving_config,
+    check_dtype,
     smin_forward_inference,
 )
 from video_moment_localization_tpu_torch.ops.cuda_build import resolve_device
@@ -108,7 +111,7 @@ class MomentLocalizer:
         self.serve_batch = serve_batch
         self.bucket_sizes = bucket_sizes(serve_batch)
         self.packed = model_cfg.packed and not model_cfg.compat_head   # pm (B, N)
-        check_serving_config(model_cfg)
+        check_dtype(model_cfg)
         self._pinned = self.device.type == "cuda"
 
     def _bucket_for(self, n: int) -> int:

@@ -8,10 +8,11 @@
 The flags of the JAX package's ``main.py``, with the same names and meanings
 (reference main.py:13-28, 278-313), and the same stdout lines. ``--device``
 picks the device (default: the card). ``--compute_dtype bfloat16`` trains
-where the train step takes it (the whole-layer route: Charades, TACoS) and
-tests where the eval step does (the default serving route);
-``--num_devices`` above 1, ``--seq_devices`` above 1, ``--distributed`` and
-bf16 elsewhere are refused with the ROADMAP.md item that brings them. ``--debug_nans`` reads
+and tests on every route of the packed layout (the whole-layer route:
+Charades, TACoS; the content-unit route: ActivityNet; the unit loop of
+``--compat_metrics`` and ``fused_smi_train: False``); ``--num_devices`` above
+1, ``--seq_devices`` above 1, ``--distributed`` and bf16 on ``packed: False``
+are refused with the ROADMAP.md item that brings them. ``--debug_nans`` reads
 each step's loss back and checks every gradient, failing at the first
 non-finite value. GloVe is found as the JAX CLI finds it: the data
 directory's ``glove/glove.6B.300d.txt``, ``$GLOVE_PATH``, then the default
@@ -88,7 +89,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         cfg.model = dataclasses.replace(cfg.model, compute_dtype=args.compute_dtype)
     if args.compat_metrics:
         cfg.model = dataclasses.replace(cfg.model, compat_head=True)
-    refuse_unported(cfg, distributed=args.distributed, test_only=args.test)
+    refuse_unported(cfg, distributed=args.distributed)
 
     trainer = Trainer(cfg, device=args.device, debug_nans=args.debug_nans, test_only=args.test)
     if not args.test:

@@ -36,12 +36,14 @@ biLSTM has no backward), then one of the JAX package's routes:
 * dense (``packed: False``): the dense proposal kernel, then `smi_block` per
   layer in PyTorch ops under autograd;
 
-``compute_dtype: bfloat16`` trains on the first route alone where
-`whole_layer_train_admits` takes it (Charades, TACoS: `check_config`),
-through the bf16 variants of the proposal rows and whole-layer kernels, as
-the JAX package does on the TPU; the parameters stay fp32, with
-differentiable bf16 casts (`module_weights`). ``remat_smi`` recomputes each
-block of the two loop routes in the backward.
+``compute_dtype: bfloat16`` takes every route of the packed layout
+(`check_dtype`), through the bf16 variants of its kernels (K1, K2, K3 on
+the whole-layer route; K6, K7 on the content-unit route; K6 and, under
+``fused_content``, K10 in the loop), as the JAX package does on the TPU; the
+loop's other units run in bf16 with the JAX package's XLA arithmetic (every
+op in bf16, `_linear` casting weight and bias). The parameters stay fp32,
+with differentiable bf16 casts (`module_weights`). ``remat_smi`` recomputes
+each block of the two loop routes in the backward.
 The heads are plain PyTorch. Each kernel wrapper launches its CUDA kernel on
 a CUDA tensor and runs its plain version on a CPU tensor.
 """
@@ -183,9 +185,16 @@ def block_weights(block: SMI) -> List[torch.Tensor]:
 
 
 def _linear(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """Linear or 1x1 conv over the last axis."""
+    """Linear or 1x1 conv over the last axis. On activations of another
+    dtype than the weight's (bf16) it is the JAX package's `_linear`: weight
+    and bias cast to that dtype (`module_weights`), the bias added to the
+    rounded product and rounded again."""
     w = layer.weight
-    return F.linear(x, w.reshape(w.shape[0], w.shape[1]), layer.bias)
+    if x.dtype == w.dtype:
+        return F.linear(x, w.reshape(w.shape[0], w.shape[1]), layer.bias)
+    cast = module_weights(layer, x.dtype)
+    w = cast["weight"]
+    return F.linear(x, w.reshape(w.shape[0], w.shape[1])) + cast["bias"].to(x.dtype)
 
 
 # --------------------------------------------------------------------- #
@@ -278,11 +287,12 @@ def content_unit_packed(cu: ContentUnit, f_c, f_w, f_s, f_m, query_mask, vmask,
                         fbar=None):
     """ContentUnit (reference models.py:228-276) over packed pairs: f_c
     (B, N, C, D), f_m (B, N, D), vmask (B, N). The clip self-attention
-    softmax is unmasked; the mask multiplies afterwards."""
+    softmax is unmasked; the mask multiplies afterwards. Every op runs in
+    f_c's dtype, the masks cast to it, as the JAX unit runs at bf16."""
     dl = cu.linear_c_hat.weight.shape[0]
-    f_c_mask = vmask[..., None, None]
+    f_c_mask = vmask[..., None, None].to(f_c.dtype)
     f_c_hat = _linear(cu.linear_c_hat, f_c) * f_c_mask               # (B, N, C, dl)
-    f_w_hat = _linear(cu.linear_w_hat, f_w) * query_mask
+    f_w_hat = _linear(cu.linear_w_hat, f_w) * query_mask.to(f_c.dtype)
     f_s_hat = _linear(cu.linear_s_hat, f_s)
 
     f_caq = content_attention_packed(cu.attn_layer, f_c_hat, f_w_hat, f_w_hat,
@@ -303,7 +313,7 @@ def _boundary_refine(bu: BoundaryUnit, f_b, f_w, f_s, query_mask, length_mask):
     f_b) (reference models.py:156-190, with the row-mask / fill /
     post-multiply ordering of A_b)."""
     D = f_b.shape[-1]
-    f_b_mask = length_mask[..., None]                                 # (B, L, 1)
+    f_b_mask = length_mask[..., None].to(f_b.dtype)                   # (B, L, 1)
     f_baq = word_attention(bu.attn_layer, f_b, f_w, f_w, query_mask) * f_b_mask
     f_bq = f_b * (f_baq + f_s[:, None, :])
     logits = torch.einsum("bid,bjd->bij", f_bq, f_bq) / math.sqrt(D)
@@ -317,14 +327,16 @@ def boundary_unit_packed(bu: BoundaryUnit, f_b, f_w, f_s, f_m, query_mask,
                          length_mask, L: int, fbar=None):
     """BoundaryUnit (reference models.py:156-196) with the moment->boundary
     message read from packed f_m: f_bm[i] = sum_{n: i_n = i} A_b[i, j_n]
-    fbar[n]."""
+    fbar[n], summed in fp32 and rounded once to f_b's dtype (the JAX
+    package's one-hot product, `rowsum_packed`)."""
     B, _, D = f_b.shape
     A_b, out = _boundary_refine(bu, f_b, f_w, f_s, query_mask, length_mask)
     if fbar is None:
         fbar = moment_gate(f_m, f_s)
     i_idx, j_idx = pair_index(L, f_b.device)
     A_bp = A_b[:, i_idx, j_idx]                                       # (B, N)
-    f_bm = f_b.new_zeros((B, L, D)).index_add_(1, i_idx, A_bp[..., None] * fbar)
+    msg = (A_bp[..., None] * fbar).float()
+    f_bm = msg.new_zeros((B, L, D)).index_add_(1, i_idx, msg).to(f_b.dtype)
     return out + f_bm
 
 
@@ -332,7 +344,7 @@ def moment_unit_packed(mu: MomentUnit, f_c, f_m, f_b, vmask, L: int):
     """MomentUnit (reference models.py:278-303): conv of the boundary outer
     product plus conv of the clip mean, masked, plus the residual."""
     i_idx, j_idx = pair_index(L, f_b.device)
-    f_m_mask = vmask[..., None]
+    f_m_mask = vmask[..., None].to(f_m.dtype)
     outer = f_b[:, i_idx] * f_b[:, j_idx]                             # (B, N, D)
     conv_fb = _linear(mu.conv_layer_fb, outer) * f_m_mask
     conv_fc = _linear(mu.conv_layer_fc, f_c.mean(dim=2)) * f_m_mask
@@ -412,6 +424,40 @@ def _mm16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _r16(x) @ _r16(w.reshape(w.shape[0], w.shape[1])).t()
 
 
+def gate_bf16(fm32: torch.Tensor, fs32: torch.Tensor) -> torch.Tensor:
+    """The moment gate of the bf16 kernels: fbar = sigmoid(fm * fs) * fm in
+    fp32 from fm (B, N, D) and fs (B, D) read back in fp32, stored in bf16."""
+    return (torch.sigmoid(fm32 * fs32[:, None]) * fm32).to(torch.bfloat16)
+
+
+def content_bf16(w, fc32, fw32, fs32, qm, vm) -> torch.Tensor:
+    """The ContentUnit of the bf16 kernels up to its residual: f_cc =
+    c_out(f_cc_hat) * vmask (B, N, C, D) in fp32, from the unit's inputs fc,
+    fw, fs read back in fp32 (each once, so that autograd rounds each input's
+    gradient once), the query mask qm (B, Nq, 1) and the pair mask vm (B, N)
+    in fp32; ``w`` the unit's parameters by `BLOCK_WEIGHT_NAMES` (matrices
+    rounded to bf16, biases fp32). Products take bf16 operands with fp32
+    sums; h, q, fwh, khat and f_cc_hat are stored in bf16, f_s_hat stays
+    fp32 with its gradient stored in bf16 (`_Grad16`). K4, K2 and K7 (at
+    bf16) add fc + fbar to it in fp32 and round once; K10 adds them in bf16
+    as the JAX fused unit does."""
+    # Imported here: the ops modules import this one.
+    from video_moment_localization_tpu_torch.ops.content_attn_cuda import content_attn_plain_bf16
+
+    bf = torch.bfloat16
+
+    def proj(x, name):
+        return _mm16(x, w[f"content_unit.{name}.weight"]) + w[f"content_unit.{name}.bias"]
+
+    h32 = (proj(fc32, "linear_c_hat") * vm[..., None, None]).to(bf).float()
+    q = proj(h32, "attn_layer.W_q").to(bf)
+    fwh32 = (proj(fw32, "linear_w_hat") * qm).to(bf).float()
+    khat = proj(fwh32, "attn_layer.W_k").to(bf)
+    fsh = _Grad16.apply(proj(fs32, "linear_s_hat"))                # fp32 (B, dl)
+    fcc = content_attn_plain_bf16(h32, q, khat, fwh32, fsh, qm, vm)
+    return proj(fcc.float(), "linear_c") * vm[..., None, None]
+
+
 def smi_layer_bf16(w, fc, fm, fb, fw, fs, query_mask, length_mask, vmask, L: int):
     """One SMI layer at bf16: fc (B, N, C, D), fm (B, N, D), fb (B, L, D),
     fw (B, Nq, D), fs (B, D) bf16 -> (cu, mu, bu) bf16; ``w`` the layer's
@@ -431,9 +477,6 @@ def smi_layer_bf16(w, fc, fm, fb, fw, fs, query_mask, length_mask, vmask, L: int
     gradient is stored in bf16 too (`_Grad16`); a value that is also an
     output of the layer (cu, bu) gets the outer cotangent added to that
     rounded gradient in bf16."""
-    # Imported here: the ops modules import this one.
-    from video_moment_localization_tpu_torch.ops.content_attn_cuda import content_attn_plain_bf16
-
     bf = torch.bfloat16
 
     def proj(x, name):
@@ -444,18 +487,11 @@ def smi_layer_bf16(w, fc, fm, fb, fw, fs, query_mask, length_mask, vmask, L: int
     qm = query_mask.float()                                         # (B, Nq, 1)
     lm = length_mask.float()
     fc32, fm32, fb32, fw32, fs32 = (t.float() for t in (fc, fm, fb, fw, fs))
-    fbar = (torch.sigmoid(fm32 * fs32[:, None]) * fm32).to(bf)
+    fbar = gate_bf16(fm32, fs32)
     fbar32 = fbar.float()
 
     # ContentUnit
-    h32 = (proj(fc32, "content_unit.linear_c_hat") * vm[..., None, None]).to(bf).float()
-    q = proj(h32, "content_unit.attn_layer.W_q").to(bf)
-    fwh32 = (proj(fw32, "content_unit.linear_w_hat") * qm).to(bf).float()
-    khat = proj(fwh32, "content_unit.attn_layer.W_k").to(bf)
-    fsh = _Grad16.apply(proj(fs32, "content_unit.linear_s_hat"))   # fp32 (B, dl)
-    fcc = content_attn_plain_bf16(h32, q, khat, fwh32, fsh, qm, vm)
-    cu = (proj(fcc.float(), "content_unit.linear_c") * vm[..., None, None] + fc32
-          + fbar32[:, :, None]).to(bf)
+    cu = (content_bf16(w, fc32, fw32, fs32, qm, vm) + fc32 + fbar32[:, :, None]).to(bf)
 
     # BoundaryUnit
     bq = proj(fb32, "boundary_unit.attn_layer.W_q").to(bf)
@@ -574,56 +610,32 @@ def localization(loc: Localization, f_m, f_b, length_mask, moment_mask):
 _BF16_ITEM = "ROADMAP.md §1 'bf16'"
 
 
-def trains_whole_layer_route(cfg: ModelConfig) -> bool:
-    """Whether the differentiable forward takes the whole-layer kernels
-    (K1, K2, K3): the default training route (packed, ``fused_smi_train``,
-    not ``compat_head``) at a geometry `whole_layer_train_admits`."""
-    return (cfg.packed and cfg.fused_smi_train and not cfg.compat_head
-            and whole_layer_train_admits(cfg))
-
-
-def check_config(cfg: ModelConfig) -> None:
-    """The differentiable forward and the train step take every route of
-    the JAX package in fp32, and bf16 on the whole-layer route
-    (`trains_whole_layer_route`: Charades, and TACoS, which takes that route
-    at bf16 as in JAX). bf16 on any other route, and any other
-    ``compute_dtype``, raises instead of running in fp32."""
+def check_dtype(cfg: ModelConfig) -> None:
+    """The check of every entry point (the differentiable forward, the
+    train and eval steps, serving): fp32 on every route of the JAX package;
+    bf16 on every route of the packed layout, through the bf16 variants of
+    K1-K3 (the whole-layer route), K6 and K7 (the content-unit route), K6
+    and K10 (``compat_head`` + ``fused_content``), the unit loop at bf16
+    (``compat_head``, ``fused_smi_train: False``) and, grad-free, K5 and K4
+    (the default serving route). ``packed: False`` at bf16 (K8 and the dense
+    blocks) and any other ``compute_dtype`` raise instead of running in
+    fp32."""
     if cfg.compute_dtype == "float32":
         return
     if cfg.compute_dtype != "bfloat16":
         raise NotImplementedError(
             f"compute_dtype={cfg.compute_dtype} is not supported by the PyTorch port")
-    if not trains_whole_layer_route(cfg):
+    if not cfg.packed:
         raise NotImplementedError(
-            f"compute_dtype=bfloat16 trains on the whole-layer route only (packed, "
-            f"fused_smi_train, not compat_head, N*C={cfg.L * (cfg.L + 1) // 2 * cfg.C} within "
-            f"whole_layer_train_admits); packed={cfg.packed}, "
-            f"fused_smi_train={cfg.fused_smi_train}, compat_head={cfg.compat_head} at this "
-            f"geometry is not supported by the PyTorch port yet: {_BF16_ITEM}")
+            f"compute_dtype=bfloat16 runs on the packed layout only; packed=False (the dense "
+            f"proposal K8 and the dense blocks) at bf16 is not supported by the PyTorch port "
+            f"yet: {_BF16_ITEM}")
 
 
 def serves_default_route(cfg: ModelConfig) -> bool:
     """Whether the grad-free forward takes the fused default route: the
     packed layout with the fused SMI stack, without ``compat_head``."""
     return cfg.packed and not cfg.compat_head and cfg.fused_smi
-
-
-def check_serving_config(cfg: ModelConfig) -> None:
-    """The grad-free forward (serving): every route in fp32, and bf16 on
-    the default route only (`serves_default_route`, ``fused_lstm`` either
-    way); bf16 on ``packed: False``, ``compat_head`` or ``fused_smi:
-    False`` raises."""
-    if cfg.compute_dtype == "float32":
-        return
-    if cfg.compute_dtype != "bfloat16":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype} is not supported by the PyTorch port")
-    if not serves_default_route(cfg):
-        raise NotImplementedError(
-            f"compute_dtype=bfloat16 serves the default route only (packed, fused_smi, "
-            f"not compat_head); packed={cfg.packed}, compat_head={cfg.compat_head}, "
-            f"fused_smi={cfg.fused_smi} at bf16 is not supported by the PyTorch port "
-            f"yet: {_BF16_ITEM}")
 
 
 def cast_weights(module: nn.Module, dtype: torch.dtype) -> dict:
@@ -709,12 +721,13 @@ def smin_forward(
     is (B, N) packed in the default mode, (B, L, L) under ``compat_head`` or
     ``packed: False``; ``moment_mask`` is read by the dense layout only.
     The routes are those of the module docstring; ``video_group`` is that
-    of `backbone`. ``compute_dtype: bfloat16`` (the whole-layer route,
-    `check_config`) follows the JAX package's bf16 training: the inputs cast
+    of `backbone`. ``compute_dtype: bfloat16`` (the packed layout,
+    `check_dtype`) follows the JAX package's bf16 training: the inputs cast
     to bf16, the parameters fp32 with differentiable bf16 casts where the
-    JAX code casts them (`module_weights`; the layer kernels' own casts in
-    ops/smin_train_cuda.py), bf16 activations through K1, K2 and K3 at
-    bf16, and the heads and the loss in fp32."""
+    JAX code casts them (`module_weights`; the kernels' own casts in
+    ops/smin_train_cuda.py and ops/content_train_cuda.py), bf16 activations
+    through the route's kernels at bf16 and the loop's units in bf16, and
+    the heads and the loss in fp32."""
     # Imported here: these modules import this one for their plain versions.
     from video_moment_localization_tpu_torch.ops.content_train_cuda import (
         smi_stack_content_train,
@@ -726,7 +739,7 @@ def smin_forward(
     )
     from video_moment_localization_tpu_torch.ops.smin_train_cuda import smi_stack_layers
 
-    check_config(cfg)
+    check_dtype(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
     if video_group is not None:
         video_group = (video_group[0].to(dtype),) + tuple(video_group[1:])
@@ -777,8 +790,8 @@ def smin_forward_inference(
     stack for the packed layout with ``fused_smi`` and without
     ``compat_head``; `smin_forward` without a graph otherwise.
 
-    ``compute_dtype: bfloat16`` (the default route only,
-    `check_serving_config`) follows the JAX package's bf16 serving: the
+    ``compute_dtype: bfloat16`` (`check_dtype`; the other packed
+    routes through `smin_forward`) follows the JAX package's bf16 serving: the
     parameters stay fp32 and are cast to bf16 where its kernels cast them,
     activations are stored in bf16, products take bf16 operands with fp32
     sums, gates, softmaxes and other elementwise work run in fp32, the
@@ -787,7 +800,7 @@ def smin_forward_inference(
     # Imported here: ops/smin_cuda.py imports this module for its plain version.
     from video_moment_localization_tpu_torch.ops.smin_cuda import smin_stack_fused
 
-    check_serving_config(cfg)
+    check_dtype(cfg)
     if not serves_default_route(cfg):
         return smin_forward(model, cfg, video_features, video_mask, query_features,
                             query_mask, length_mask, moment_mask, video_group=video_group)

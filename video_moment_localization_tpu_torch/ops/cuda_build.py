@@ -135,19 +135,26 @@ def refuse_grad(fn: str, tensors) -> None:
             f"through models.smin.smin_forward")
 
 
-def check_tensors(fn: str, device, want) -> None:
+def check_tensors(fn: str, device, want, dtype=None) -> None:
     """Raise unless every (name, tensor, shape) of ``want`` is a contiguous
-    float32 tensor of that shape on ``device``. A 1x1 convolution's weight
-    (out, in, 1, 1) counts as (out, in)."""
+    tensor of that shape on ``device``: float32, or with ``dtype`` bfloat16
+    (a kernel's bf16 variant) bf16 but for the masks (names ending in
+    "mask") and the biases (weights of one dimension), which stay float32. A
+    1x1 convolution's weight (out, in, 1, 1) counts as (out, in)."""
     import torch
 
+    if dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"{fn}: the kernel takes float32 or bfloat16, got {dtype}")
     for name, t, shape in want:
         t_shape = tuple(t.shape)
         if name.startswith("weight") and t.dim() == 4:
             t_shape = t_shape[:2]
-        if (t_shape != tuple(shape) or t.dtype != torch.float32 or t.device != device
+        fp32 = (dtype in (None, torch.float32) or name.endswith("mask")
+                or (name.startswith("weight") and len(shape) == 1))
+        want_dtype = torch.float32 if fp32 else dtype
+        if (t_shape != tuple(shape) or t.dtype != want_dtype or t.device != device
                 or not t.is_contiguous()):
-            raise ValueError(f"{fn}: {name}: want contiguous float32 {tuple(shape)} on "
+            raise ValueError(f"{fn}: {name}: want contiguous {want_dtype} {tuple(shape)} on "
                              f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 

@@ -34,12 +34,13 @@ wrappers: on a CPU tensor each runs its plain version
 and autograd through it), on a CUDA tensor it launches its kernel or raises.
 ``.launches`` on each counts the launches.
 
-K1 has a bf16 variant (K1-bf16, the training path at bf16), taken on a
-bf16 f or bf16 cotangents: the same kernels reading and writing bf16, with
-fp32 / fp64 sums inside and one rounding per stored value; its plain
-versions are the fp32 ones on the bf16 values, rounded once
+K1 and K6 have bf16 variants (K1-bf16 and K6-bf16, the training paths at
+bf16), taken on a bf16 f or bf16 cotangents: the same kernels reading and
+writing bf16 (K6-bf16 launches K1-bf16's two C entry points), with fp32 /
+fp64 sums inside and one rounding per stored value; their plain versions
+are the fp32 ones on the bf16 values, rounded once
 (`proposal_rows_forward_plain_bf16`, `proposal_rows_backward_plain_bf16`).
-``.launches_bf16`` counts its launches. K6 and K8 take float32 only.
+``.launches_bf16`` counts their launches. K8 takes float32 only.
 """
 
 from __future__ import annotations
@@ -92,12 +93,14 @@ def _check(name: str, t: torch.Tensor, shape, device, dtype=torch.float32) -> No
 
 
 def _kernel_dtype(fn: str, dtype: torch.dtype) -> str:
-    """The C entry's suffix for the activations' dtype: bf16 for K1 only."""
+    """The C entry's suffix for the activations' dtype: bf16 for the packed
+    layout's K1 and K6 only."""
+    packed = not fn.startswith("proposal_dense")
     if dtype == torch.float32:
         return "f32"
-    if dtype == torch.bfloat16 and fn.startswith("proposal_rows"):
+    if dtype == torch.bfloat16 and packed:
         return "bf16"
-    raise ValueError(f"{fn}: the kernel takes float32{' or bfloat16' if 'rows' in fn else ''}, "
+    raise ValueError(f"{fn}: the kernel takes float32{' or bfloat16' if packed else ''}, "
                      f"got {dtype}")
 
 
@@ -294,11 +297,11 @@ proposal_packed_forward = _forward_wrapper(
     "proposal_packed_forward", False,
     """K6 forward: the same function and device code as `proposal_rows_forward`
     (the two JAX kernels differ only in fc's layout, which this port does
-    not carry over), counted on its own.""")
+    not carry over), fp32 or bf16 (K6-bf16), counted on its own.""")
 proposal_packed_backward = _backward_wrapper(
     "proposal_packed_backward", False,
-    """K6 backward: cotangents of (fc, fm, fb) -> df (B, T, D), counted on its
-    own.""")
+    """K6 backward: cotangents of (fc, fm, fb) -> df (B, T, D), fp32 or bf16
+    (K6-bf16), counted on its own.""")
 proposal_dense_forward = _forward_wrapper(
     "proposal_dense_forward", True,
     """K8 forward. f (B, T, D), moment_mask (B, L, L) -> fc (B, L, L, C, D)

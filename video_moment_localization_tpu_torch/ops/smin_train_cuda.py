@@ -32,7 +32,8 @@ fp32, the layer's matrices bf16 and its biases fp32 (the stack casts the
 fp32 parameters once per forward, as the JAX package's `_wlayer` does), the
 20 weight gradients fp32. Their plain versions are
 `models.smin.smi_layer_bf16` and autograd through it. ``.launches_bf16``
-counts them. K9 has no bf16 variant: a bf16 CUDA carry raises there.
+counts them. K9 has no bf16 variant: the stack refuses a bf16 carry under
+``VML_SMIN_TRAIN_FUSED_FWD=1``, and K9's wrapper a bf16 CUDA carry.
 """
 
 from __future__ import annotations
@@ -142,21 +143,6 @@ def _weight_shapes(D: int, dl: int):
     return [(dl, D), (dl,)] * 3 + [(D, dl), (D,)] + [(dl, dl), (dl,)] * 2 + [(D, D), (D,)] * 4
 
 
-def _check_bf16(fn: str, device, want) -> None:
-    """`check_tensors` for the bf16 variants: activations and cotangents
-    bf16, the layer's matrices bf16 and its biases and the masks fp32."""
-    for name, t, shape in want:
-        t_shape = tuple(t.shape)
-        if name.startswith("weight") and t.dim() == 4:
-            t_shape = t_shape[:2]
-        fp32 = name.endswith("mask") or (name.startswith("weight") and len(shape) == 1)
-        dtype = torch.float32 if fp32 else torch.bfloat16
-        if (t_shape != tuple(shape) or t.dtype != dtype or t.device != device
-                or not t.is_contiguous()):
-            raise ValueError(f"{fn}: {name}: want contiguous {dtype} {tuple(shape)} on "
-                             f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-
-
 def _check_inputs(fn: str, weights, fc, fm, fb, fw, fs, query_mask, length_mask, vmask,
                   L: int, cotangents=()):
     """Shapes, dtype, device and contiguity of everything the C entry reads
@@ -176,10 +162,7 @@ def _check_inputs(fn: str, weights, fc, fm, fb, fw, fs, query_mask, length_mask,
             ("length_mask", length_mask, (B, L)), ("vmask", vmask, (B, N))]
     want += [(f"weight {k}", w, s) for k, (w, s) in
              enumerate(zip(weights, _weight_shapes(D, dl)))]
-    if fc.dtype == torch.bfloat16:
-        _check_bf16(fn, fc.device, want + list(cotangents))
-    else:
-        check_tensors(fn, fc.device, want + list(cotangents))
+    check_tensors(fn, fc.device, want + list(cotangents), fc.dtype)
     return B, C, Nq, D, dl
 
 
@@ -346,6 +329,10 @@ class _SMIStack(torch.autograd.Function):
         shared = (fw, fs, query_mask, length_mask, vmask)
         weights = layer_weights_for(weights, fc.dtype)
         if os.environ.get("VML_SMIN_TRAIN_FUSED_FWD", "0") == "1":
+            if fc.dtype != torch.float32:
+                raise NotImplementedError(
+                    f"VML_SMIN_TRAIN_FUSED_FWD=1 (K9) at {fc.dtype} is not supported by the "
+                    f"PyTorch port yet: ROADMAP.md §1 'bf16'")
             fm, fb, carries = smi_stack_forward(weights, fc, fm, fb, *shared, L)
         else:
             ws = None

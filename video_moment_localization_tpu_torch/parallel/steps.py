@@ -7,10 +7,10 @@ the on-device R@n,IoU=m counts. A step returns ``{"loss", "counts"}`` as
 device tensors and reads nothing back to the host.
 
 The training forward (`models.smin.smin_forward`) runs the plain biLSTM
-under autograd and the kernels of the config's route (at bf16 the
-whole-layer route only, through K1, K2 and K3 at bf16): K1 / K2 (or K9) / K3,
+under autograd and the kernels of the config's route: K1 / K2 (or K9) / K3,
 K6 / K7, K6 and the packed unit loop (with K10 under ``fused_content``), or
-K8 and the dense loop; the eval forward (`smin_forward_inference`) the fused
+K8 and the dense loop; at bf16 the packed routes through the bf16 variants
+of K1, K2, K3, K6, K7 and K10 (`check_dtype`); the eval forward (`smin_forward_inference`) the fused
 biLSTM and the fused SMI stack, or `smin_forward` without a graph in the
 modes that the fused stack does not serve. A batch for pm (B, L, L) (the
 dense layout and ``compat_head``) carries dense ``sm`` / ``ym`` and a
@@ -28,8 +28,7 @@ import torch
 from video_moment_localization_tpu_torch.config import Config, ModelConfig
 from video_moment_localization_tpu_torch.models.smin import (
     SMIN,
-    check_config,
-    check_serving_config,
+    check_dtype,
     smin_forward,
     smin_forward_inference,
 )
@@ -71,7 +70,7 @@ def make_train_step(cfg: ModelConfig, model: SMIN, optimizer: torch.optim.Optimi
     ``optimizer`` in place. The model is moved to ``device`` here (its
     parameters stay the objects the optimizer holds, fp32 at either compute
     dtype: Adam updates them, as optax does the JAX package's)."""
-    check_config(cfg)
+    check_dtype(cfg)
     device = resolve_device(device, "make_train_step")
     model.to(device)
 
@@ -96,9 +95,9 @@ def make_eval_step(cfg: ModelConfig, model: SMIN, use_nms: bool = False,
                    ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
     """Returns batch -> metrics (loss and recall counts), grad-free, through
     `smin_forward_inference`, which routes as the JAX package's does: it
-    takes what the serving forward takes (`check_serving_config`: every
-    route in fp32, bf16 on the default route)."""
-    check_serving_config(cfg)
+    takes what the serving forward takes (`check_dtype`: every route in
+    fp32, bf16 on the packed layout's)."""
+    check_dtype(cfg)
     device = resolve_device(device, "make_eval_step")
     model.to(device)
 

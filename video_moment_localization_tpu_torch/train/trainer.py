@@ -17,9 +17,9 @@ non-blocking transfer on the main thread, dispatches the steps with no host
 read per step, and reads the losses and counts back once per epoch.
 
 Not in this module yet: the JAX trainer's device mesh, multi-process and 2-D
-(data x sequence) paths, its automatic SMI rematerialization, and bf16. A
-config that asks for them is refused with the ROADMAP.md item that brings
-them.
+(data x sequence) paths, its automatic SMI rematerialization, and bf16 on
+the dense layout (``packed: False``). A config that asks for them is refused
+with the ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -40,8 +40,7 @@ from video_moment_localization_tpu_torch.data.glove import WordEmbedding
 from video_moment_localization_tpu_torch.data.pipeline import BatchLoader
 from video_moment_localization_tpu_torch.models.smin import (
     SMIN,
-    check_config,
-    check_serving_config,
+    check_dtype,
 )
 from video_moment_localization_tpu_torch.ops.cuda_build import resolve_device
 from video_moment_localization_tpu_torch.parallel.steps import (
@@ -62,12 +61,11 @@ from video_moment_localization_tpu_torch.utils.profiling import StepTimer, trace
 DRAIN_EVERY = 16
 
 
-def refuse_unported(cfg: Config, distributed: bool = False, test_only: bool = False) -> None:
+def refuse_unported(cfg: Config, distributed: bool = False) -> None:
     """Raise NotImplementedError for a setting whose path the port does not
     have yet, naming the ROADMAP.md item that brings it, instead of running
-    something else. The model's compute dtype and route: what the train step
-    takes (`check_config`), or with ``test_only`` (``--test``) what the eval
-    step takes (`check_serving_config`)."""
+    something else. The model's compute dtype and route: what the train and
+    eval steps take (`check_dtype`)."""
     if distributed or (cfg.num_devices is not None and cfg.num_devices != 1):
         what = "--distributed" if distributed else f"num_devices={cfg.num_devices}"
         raise NotImplementedError(
@@ -77,7 +75,7 @@ def refuse_unported(cfg: Config, distributed: bool = False, test_only: bool = Fa
         raise NotImplementedError(
             f"seq_devices={cfg.seq_devices}: sequence and 2-D parallelism are not in the "
             f"PyTorch port yet (ROADMAP.md §1 'Sequence and 2-D parallelism')")
-    (check_serving_config if test_only else check_config)(cfg.model)
+    check_dtype(cfg.model)
 
 
 def build_datasets(cfg: Config, embedding: Optional[WordEmbedding] = None,
@@ -111,14 +109,13 @@ class Trainer:
     by ``models.port.state_dict_from_jax_params``. ``debug_nans``: read each
     step's loss back and check every gradient, raising at the first
     non-finite value with its epoch and step. ``test_only``: a Trainer for
-    ``--test`` (`load_for_test`, `evaluate`) with no train step, which
-    admits what the eval step takes (`refuse_unported`).
+    ``--test`` (`load_for_test`, `evaluate`) with no train step.
     """
 
     def __init__(self, cfg: Config, device="cuda",
                  state_dict: Optional[Dict[str, torch.Tensor]] = None, debug_nans: bool = False,
                  test_only: bool = False):
-        refuse_unported(cfg, test_only=test_only)
+        refuse_unported(cfg)
         self.cfg = cfg
         self.debug_nans = debug_nans
         self.device = resolve_device(device, "Trainer")
