@@ -194,7 +194,24 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
     bounds and for K6 one bf16 ``torch.matmul`` with Wc; the ActivityNet
     bf16 step in ms and under the profiler; the route fork: the three-layer
     stack of one ActivityNet B=64 step, forward and backward, through
-    K1 -> K2 / K3 and through K6 -> K7, at fp32 and bf16 (`route_fork_ms`).
+    K1 -> K2 / K3 and through K6 -> K7, at fp32 and bf16 (`route_fork_ms`);
+22. bf16 on the dense layout and under the all-layers train forward: K8 and
+    K8-bf16 forward and backward at ActivityNet B=64 (a dense fc of 2^29
+    elements, past 2^31 bytes at either type) and at Charades B=64 on the
+    backbone's outputs, against their plain versions' fp32 values (K8 at
+    K1_TOL and K8's backward tolerance, K8-bf16 within one bf16 rounding on
+    top of them; forward and backward twice bit for bit); K9-bf16 bit for
+    bit three K2-bf16 launches, carries included; 3 Adam steps of the dense
+    step at bf16, Charades B=64, held to the same steps through the plain
+    bf16 versions (`train_bf16`: K8-bf16 1 + 1 per step), its eval step, and
+    ``MomentLocalizer`` with ``packed: False`` at bf16 (top-k and dense
+    soft-NMS) against the fp32 localizer on the same weights; 3 bf16 steps
+    under VML_SMIN_TRAIN_FUSED_FWD=1 (K9-bf16 1 per step, no K2-bf16) equal
+    to the per-layer route's bit for bit; the dense ActivityNet step at B=64
+    at fp32 and bf16 (ms, peak memory); times of K8 and K8-bf16 (and a
+    ``torch.matmul`` with the dense Wc at their type) and K9-bf16 (beside
+    three K2-bf16 launches), plain versions and bounds; the dense Charades
+    step at both types in ms and under the profiler.
 
 Each phase prints its seconds.
 
@@ -217,13 +234,14 @@ pair's launches by those entry points (the C counters of
 ``ops/content_attn_cuda.py::path_launches``) and check them.
 
 Prints a ``{"kernels": [...]}`` line (K4 and K5 also at the ActivityNet
-width; the pair's forward and backward with their launches on the main path
-and their times alone; K5-bf16 and K4-bf16; K1-bf16, K2-bf16 and K3-bf16;
-K6-bf16, K7-bf16 and K10-bf16), a ``{"gemm": [...]}`` line, the plans, a
-``{"files_training": {...}}`` line (phase 17), ``{"async_serving": {...}}``
-(phase 18), ``{"bf16_serving": {...}}`` (phase 19), ``{"bf16_training":
-{...}}`` (phase 20) and ``{"bf16_content": {...}}`` (phase 21), then as the
-last line
+width, K8 at the ActivityNet batch; the pair's forward and backward with
+their launches on the main path and their times alone; K5-bf16 and K4-bf16;
+K1-bf16, K2-bf16 and K3-bf16; K6-bf16, K7-bf16 and K10-bf16; K8-bf16 and
+K9-bf16), a ``{"gemm": [...]}`` line, the plans, a ``{"files_training":
+{...}}`` line (phase 17), ``{"async_serving": {...}}`` (phase 18),
+``{"bf16_serving": {...}}`` (phase 19), ``{"bf16_training": {...}}`` (phase
+20), ``{"bf16_content": {...}}`` (phase 21) and ``{"bf16_dense": {...}}``
+(phase 22), then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is visible or the package is not beside this script.
 """
@@ -2879,10 +2897,10 @@ def plain_stack_bf16(blocks, fc, fm, fb, fw, fs, qmask, lmask, vmask, L):
 
 
 class plain_bf16_kernels:
-    """Within it, the differentiable entries of K6-bf16, K7-bf16, K10-bf16
-    and of K1-bf16 / K2-bf16 / K3-bf16 are their plain bf16 versions under
-    autograd, so the same forward and step run through the plain versions on
-    the card."""
+    """Within it, the differentiable entries of K6-bf16, K7-bf16, K8-bf16,
+    K10-bf16 and of K1-bf16 / K2-bf16 (or K9-bf16) / K3-bf16 are their plain
+    bf16 versions under autograd, so the same forward and step run through
+    the plain versions on the card."""
 
     def __enter__(self):
         from video_moment_localization_tpu_torch.ops import (
@@ -2894,6 +2912,7 @@ class plain_bf16_kernels:
 
         self.saved = [(proposal_cuda, "proposal_features_packed_fused"),
                       (proposal_cuda, "proposal_features_rows"),
+                      (proposal_cuda, "proposal_features_dense_fused"),
                       (smin_train_cuda, "smi_stack_layers"),
                       (content_train_cuda, "content_rows_train"),
                       (content_cuda, "content_unit_fused")]
@@ -2901,6 +2920,8 @@ class plain_bf16_kernels:
         proposal_cuda.proposal_features_packed_fused = (
             lambda f, lm, L, C: proposal_cuda.proposal_rows_forward_plain_bf16(f, lm, L, C))
         proposal_cuda.proposal_features_rows = proposal_cuda.proposal_features_packed_fused
+        proposal_cuda.proposal_features_dense_fused = (
+            lambda f, mm, L, C: proposal_cuda.proposal_rows_forward_plain_bf16(f, mm.float(), L, C))
         smin_train_cuda.smi_stack_layers = plain_stack_bf16
         content_train_cuda.content_rows_train = (
             lambda w, fc, fbar, fw, fs, qm, vm, ws=None:
@@ -3719,6 +3740,436 @@ def phase_bf16_content(anet, config, seed, rng, device):
                 compat_losses=closses, step_err=aerr, compat_err=cerr, eval_err=aeval_err)
 
 
+# ------------------------------------------------------------------------- #
+# bf16 on the dense layout and under the all-layers train forward (K8-bf16,
+# K9-bf16), and K8 at the ActivityNet batch
+# ------------------------------------------------------------------------- #
+# K8-bf16 is K1-bf16's device code on the dense layout: within one bf16
+# rounding of its plain version's fp32 value on top of K8's fp32 tolerance
+# (forward K1_TOL, backward K8's fp32 backward tolerance, as K6-bf16's).
+# K9-bf16 equals one K2-bf16 launch per layer bit for bit. The dense bf16
+# localizer's top-5 scores against the fp32 localizer's: the JAX package's
+# bf16 forward criterion, atol 2e-2 (tests/test_dtype_remat.py), for top-k;
+# after soft-NMS, whose decays follow the moments picked (a near tie picked
+# the other way moves the later scores), the JAX criterion of phase 19.
+DENSE_SCORE_ATOL = 2e-2
+
+
+def backbone_f(cfg, model, batch, dtype):
+    """(f, fs, fw) of the training backbone (the plain biLSTM) at ``dtype``
+    on a synthetic batch, grad-free, contiguous."""
+    import torch
+
+    from video_moment_localization_tpu_torch.models.smin import backbone
+
+    with torch.no_grad():
+        out = backbone(model.backbone, cfg, batch["video_features"].to(dtype),
+                       batch["video_mask"], batch["query_features"].to(dtype),
+                       batch["query_mask"], fused_lstm=False)
+    return tuple(t.contiguous() for t in out)
+
+
+def check_k8(cfg, f, mm, seed, tag, errs):
+    """K8 (fp32 f) or K8-bf16 (bf16 f), forward and backward, against the
+    plain version's fp32 value on the same card: K8 at K1_TOL and
+    `grad_err`, K8-bf16 within one bf16 rounding on top of them; zeros below
+    the diagonal; forward and backward twice bit for bit. The cotangents
+    are drawn on the card from ``seed`` (at the ActivityNet batch dfc holds
+    2^29 elements). Returns them, for the times."""
+    import torch
+
+    from video_moment_localization_tpu_torch.ops import proposal_cuda
+
+    bf = f.dtype == torch.bfloat16
+    key = "K8-bf16" if bf else "K8"
+    L, C, T = cfg.L, cfg.C, cfg.T
+    got = proposal_cuda.proposal_dense_forward(f, mm, L, C)
+    check_all_repeatable((*got, []), (*proposal_cuda.proposal_dense_forward(f, mm, L, C), []),
+                         f"{key} forward {tag}")
+    ref = proposal_cuda.proposal_features(f.float(), mm, L, C)
+    below = torch.ones(L, L, device=f.device).tril(-1).bool()
+    if bool((got[0][:, below] != 0).any()) or bool((got[1][:, below] != 0).any()):
+        fail(f"{key} {tag}: a cell below the diagonal is not 0")
+    if bf:
+        e1 = max(within_one_rounding(g, r, f"{key} forward {tag}") for g, r in zip(got, ref))
+    else:
+        e1 = max_err(got, ref, K1_TOL, f"{key} forward {tag}")
+    gen = torch.Generator(device=f.device).manual_seed(seed)
+    cots = [torch.randn(r.shape, generator=gen, device=f.device).to(f.dtype) for r in ref]
+    del got, ref
+    torch.cuda.empty_cache()
+    dgot = proposal_cuda.proposal_dense_backward(mm, T, L, C, *cots)
+    dref = proposal_cuda.proposal_backward_plain(mm, T, L, C, *(c.float() for c in cots))
+    scale = float(dref.abs().max())
+    if bf:
+        e2 = within_one_rounding(dgot, dref, f"{key} backward {tag}",
+                                 dict(rtol=GRAD_RTOL, atol=GRAD_ATOL_REL * scale))
+    else:
+        e2 = grad_err(dgot, dref, scale, f"{key} backward {tag}")
+    check_repeatable(dgot, lambda: proposal_cuda.proposal_dense_backward(mm, T, L, C, *cots),
+                     f"{key} backward {tag}")
+    print(f"parity {key} {tag}: forward max abs err {e1:.3e}, backward {e2:.3e} of magnitude "
+          f"{scale:.3e} ({'one bf16 rounding on top of ' if bf else ''}K8's fp32 tolerances), a "
+          f"second forward and backward equal bit for bit")
+    errs[f"{key} fwd {tag}"], errs[f"{key} bwd {tag}"] = e1, e2
+    del dgot, dref
+    torch.cuda.empty_cache()
+    return cots
+
+
+def k8_times(cfg, f, mm, cots, B, reps=5):
+    """Times of K8 (or K8-bf16 on bf16 f) forward and backward at the
+    inputs: one call and back to back, the plain version, the bytes bound
+    (inputs read once, outputs written once, at the elements' width; the
+    backward reads the mask and the cotangents of the N cells i <= j), and
+    one ``torch.matmul`` with the dense Wc (or its transpose) at f's type."""
+    import torch
+
+    from video_moment_localization_tpu_torch.ops import proposal_cuda
+
+    L, C, D, T = cfg.L, cfg.C, cfg.D, cfg.T
+    N = L * (L + 1) // 2
+    e = f.element_size()
+    bf = f.dtype == torch.bfloat16
+    plain_fwd = (proposal_cuda.proposal_rows_forward_plain_bf16 if bf
+                 else proposal_cuda.proposal_features)
+    plain_bwd = (proposal_cuda.proposal_rows_backward_plain_bf16 if bf
+                 else proposal_cuda.proposal_backward_plain)
+    wc = dense_content_matrix(cfg, f.device, dense=True).to(f.dtype)
+    fwd_bytes = e * (f.numel() + B * L * L * (C + 1) * D + B * L * D) + 4 * mm.numel()
+    b_ms, b_by = (bound_bf16(B * segment_adds(cfg, dense=True), fwd_bytes, 0) if bf
+                  else bound(B * segment_adds(cfg, dense=True), fwd_bytes))
+    res = {"fwd": dict(
+        ms=cuda_ms(lambda: proposal_cuda.proposal_dense_forward(f, mm, L, C), iters=9),
+        device_ms=cuda_ms_back_to_back(
+            lambda: proposal_cuda.proposal_dense_forward(f, mm, L, C), launches=reps),
+        plain_ms=cuda_ms(lambda: plain_fwd(f, mm, L, C), iters=5),
+        library_ms=cuda_ms(lambda: torch.matmul(wc, f), iters=9),
+        bound_ms=b_ms, bound_by=b_by)}
+    torch.cuda.empty_cache()
+    wct = wc.t().contiguous()
+    g = cots[0].reshape(B, L * L * C, D)
+    bwd_bytes = e * (f.numel() + B * (N * C + N + L) * D) + 4 * B * N
+    b_ms, b_by = (bound_bf16(2 * B * segment_adds(cfg), bwd_bytes, 0) if bf
+                  else bound(2 * B * segment_adds(cfg), bwd_bytes))
+    res["bwd"] = dict(
+        ms=cuda_ms(lambda: proposal_cuda.proposal_dense_backward(mm, T, L, C, *cots), iters=9),
+        device_ms=cuda_ms_back_to_back(
+            lambda: proposal_cuda.proposal_dense_backward(mm, T, L, C, *cots), launches=reps),
+        plain_ms=cuda_ms(lambda: plain_bwd(mm, T, L, C, *cots), iters=5),
+        library_ms=cuda_ms(lambda: torch.matmul(wct, g), iters=9),
+        bound_ms=b_ms, bound_by=b_by)
+    del wc, wct, g
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_dense_eval16(cfg16, model, batch, per_call, label):
+    """The dense bf16 eval step and grad-free forward on the batch: the
+    counters rise by ``per_call`` for each and no other moves; the scores
+    and the loss held to the same forward through the plain bf16 versions
+    (phase 19's K4-bf16 bounds, EVAL_LOSS_RTOL x 10)."""
+    import torch
+
+    from video_moment_localization_tpu_torch.models.smin import smin_forward_inference
+    from video_moment_localization_tpu_torch.parallel.steps import make_eval_step
+    from video_moment_localization_tpu_torch.train.loss import smin_loss
+
+    keys = ("video_features", "video_mask", "query_features", "query_mask", "length_mask",
+            "moment_mask")
+    reset_bf16_launches()
+    ev = make_eval_step(cfg16, model, device=batch["length_mask"].device)(batch)
+    got = smin_forward_inference(model, cfg16, *(batch[k] for k in keys))
+    torch.cuda.synchronize()
+    counts = bf16_launches()
+    launches = {k: v for k, v in counts.items() if v}
+    if launches != {k: 2 * v for k, v in per_call.items()}:
+        fail(f"{label}: launches {launches}, expected twice {per_call}")
+    with plain_bf16_kernels(), torch.no_grad():
+        want = smin_forward_inference(model, cfg16, *(batch[k] for k in keys))
+        plain_loss = float(smin_loss(want, batch)[0])
+    torch.cuda.synchronize()
+    if bf16_launches() != counts:
+        fail(f"{label}: the plain versions' forward launched a kernel")
+    err = bf16_criterion(got, want, K4_BF16_CARD, label)
+    ev_loss = float(ev["loss"])
+    if not abs(ev_loss - plain_loss) <= 10 * EVAL_LOSS_RTOL * abs(plain_loss):
+        fail(f"{label}: eval loss {ev_loss} against the plain versions' {plain_loss}")
+    print(f"{label}: launches {launches} (eval step and forward), scores within {err:.3e} of the "
+          f"plain bf16 versions' (bounds {K4_BF16_CARD}), loss {ev_loss:.6f} against "
+          f"{plain_loss:.6f}, counts {ev['counts'].flatten().tolist()}")
+    return err
+
+
+def check_dense_localizer16(cfg, model, rng):
+    """`MomentLocalizer` with ``packed: False`` at bf16 on the card serving
+    24 requests with top-k and with dense soft-NMS, beside the fp32
+    localizer on the same weights: K8-bf16 launches, and the k-th of each
+    request's top-5 scores within DENSE_SCORE_ATOL of the fp32 localizer's
+    (top-k) or within the JAX bf16 criterion (soft-NMS). Returns the max abs
+    score differences."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from video_moment_localization_tpu_torch.data.glove import WordEmbedding
+    from video_moment_localization_tpu_torch.inference import MomentLocalizer
+    from video_moment_localization_tpu_torch.ops import proposal_cuda
+
+    cfg32 = dataclasses.replace(cfg, packed=False, compute_dtype="float32")
+    cfg16 = dataclasses.replace(cfg32, compute_dtype="bfloat16")
+    words = sorted({w for q in QUERIES for w in q.split()} - {"xylophone"})
+    emb = WordEmbedding.synthetic(words, dim=cfg.word_dim, seed=1)
+    reqs = requests(cfg, rng)
+    out = {}
+    for nms in (False, True):
+        scores = {}
+        for name, c in (("fp32", cfg32), ("bf16", cfg16)):
+            loc = MomentLocalizer(c, model, emb, serve_batch=16, use_nms=nms)
+            before = (proposal_cuda.proposal_dense_forward.launches,
+                      proposal_cuda.proposal_dense_forward.launches_bf16)
+            answers = loc.localize_batch(reqs, top_k=5)
+            torch.cuda.synchronize()
+            moved = (proposal_cuda.proposal_dense_forward.launches - before[0],
+                     proposal_cuda.proposal_dense_forward.launches_bf16 - before[1])
+            if moved != ((2, 0) if name == "fp32" else (0, 2)):
+                fail(f"dense {name} serving: K8 / K8-bf16 launched {moved} times, expected 2")
+            scores[name] = np.array([[m.score for m in r] for r in answers], np.float32)
+        d = np.abs(scores["bf16"] - scores["fp32"])
+        label = f"dense bf16 serving ({'soft-NMS' if nms else 'top-k'})"
+        if not np.isfinite(scores["bf16"]).all() or scores["bf16"].shape != (len(reqs), 5):
+            fail(f"{label}: scores of shape {scores['bf16'].shape}, not all finite or not "
+                 f"five a request")
+        if nms:
+            bf16_criterion([torch.from_numpy(scores["bf16"])], [torch.from_numpy(scores["fp32"])],
+                           K4_BF16_JAX, label)
+        elif float(d.max()) > DENSE_SCORE_ATOL:
+            fail(f"{label}: top-5 scores differ from the fp32 localizer's by {float(d.max()):.3e}")
+        print(f"{label}: {len(reqs)} requests, K8-bf16 2 launches; top-5 scores within "
+              f"{float(d.max()):.3e} of the fp32 localizer's (max; mean {float(d.mean()):.3e}; "
+              f"bound {K4_BF16_JAX if nms else DENSE_SCORE_ATOL})")
+        out["nms" if nms else "topk"] = float(d.max())
+    return out
+
+
+def dense_anet_step(anet, dtype, seed, rng, device):
+    """The dense ActivityNet train step (``packed: False``, B=64, full width
+    and depth) at ``dtype``: 2 warm-up steps, then the median wall ms of 5,
+    every loss finite, K8 (or K8-bf16) 1 + 1 launches a step and no other
+    train kernel, and the peak device memory over the steps."""
+    import dataclasses
+
+    import torch
+
+    from video_moment_localization_tpu_torch.models.smin import SMIN
+    from video_moment_localization_tpu_torch.parallel.steps import build_optimizer, make_train_step
+    from video_moment_localization_tpu_torch.utils.profile_train import synthetic_batch
+
+    c = dataclasses.replace(anet.model, packed=False, compute_dtype=dtype)
+    torch.manual_seed(seed + 40)
+    model = SMIN(c)
+    step = make_train_step(c, model, build_optimizer(dataclasses.replace(anet, model=c), model),
+                           device=device)
+    batch = {k: v.to(device) for k, v in synthetic_batch(c, TRAIN_BATCH, rng).items()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_bf16_launches()
+    losses = []
+    for _ in range(2):
+        losses.append(float(step(batch)["loss"]))
+    launches = {k: v for k, v in bf16_launches().items() if v}
+    suffix = "-bf16" if dtype == "bfloat16" else ""
+    if launches != {f"K8f{suffix}": 2, f"K8b{suffix}": 2}:
+        fail(f"dense ActivityNet {dtype}: launches of 2 steps {launches}")
+    ms = step_wall_ms(step, batch, iters=7)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses.append(float(step(batch)["loss"]))
+    if not all(abs(x) < float("inf") for x in losses):
+        fail(f"dense ActivityNet {dtype}: losses {losses}")
+    print(f"dense ActivityNet {dtype} train step B={TRAIN_BATCH} (remat_smi {c.remat_smi}): "
+          f"{ms:.4f} ms wall, {TRAIN_BATCH / ms * 1e3:.1f} samples/s, peak {peak:.3f} GiB, "
+          f"losses {losses}")
+    del step, model, batch
+    torch.cuda.empty_cache()
+    return dict(ms=ms, samples_per_s=TRAIN_BATCH / ms * 1e3, peak_memory_gib=peak,
+                remat_smi=c.remat_smi, losses=losses)
+
+
+def phase_bf16_dense(anet, config, seed, rng, device):
+    """Phase 22: bf16 on the dense layout and under the all-layers train
+    forward. K8 and K8-bf16 against their plain versions on the backbone's
+    outputs at ActivityNet B=64 and Charades B=64; K9-bf16 bit for bit three
+    K2-bf16 launches; 3 dense bf16 Adam steps at Charades B=64 held to the
+    same steps through the plain bf16 versions, the dense bf16 eval step and
+    the dense bf16 localizer (top-k and soft-NMS) against the fp32 one; 3
+    bf16 steps under VML_SMIN_TRAIN_FUSED_FWD=1 equal to the per-layer
+    route's bit for bit; the dense ActivityNet step at fp32 and bf16; times
+    of K8-bf16 and K9-bf16 (and K8 at ActivityNet B=64), their plain
+    versions, bounds and library calls; the dense Charades step at both
+    types."""
+    import dataclasses
+
+    import torch
+
+    from video_moment_localization_tpu_torch.models.smin import SMIN, block_weights
+    from video_moment_localization_tpu_torch.ops import smin_train_cuda
+    from video_moment_localization_tpu_torch.parallel.steps import build_optimizer, make_train_step
+    from video_moment_localization_tpu_torch.utils.profile_serving import profile_and_report
+    from video_moment_localization_tpu_torch.utils.profile_train import synthetic_batch
+
+    bf = torch.bfloat16
+    B = TRAIN_BATCH
+    cfg = config.model
+    d16 = dataclasses.replace(cfg, packed=False, compute_dtype="bfloat16")
+    dense16 = dataclasses.replace(config, model=d16)
+    n = cfg.num_smi_layers
+    errs, times = {}, {}
+
+    # K8 and K8-bf16 on the backbone's outputs: ActivityNet B=64 (fc of 2^29
+    # elements), then Charades B=64.
+    for name, mcfg in (("ActivityNet", anet.model), ("Charades", cfg)):
+        torch.manual_seed(seed + 41)
+        mdl = SMIN(mcfg).to(device).eval()
+        batch = {k: v.to(device) for k, v in synthetic_batch(
+            dataclasses.replace(mcfg, packed=False), B, rng).items()}
+        mm = batch["moment_mask"].float().contiguous()
+        for dtype in (torch.float32, bf):
+            f = backbone_f(mcfg, mdl, batch, dtype)[0]
+            tag = f"{name} B={B}"
+            cots = check_k8(mcfg, f, mm, seed + 45, tag, errs)
+            times[("K8-bf16" if dtype == bf else "K8", name)] = k8_times(mcfg, f, mm, cots, B)
+            del f, cots
+            torch.cuda.empty_cache()
+        del mdl, batch
+    for (key, name), r in times.items():
+        for way in ("fwd", "bwd"):
+            t = r[way]
+            print(f"time {key} {way} {name} B={B}: kernel {t['ms']:.4f} ms (back to back "
+                  f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, matmul "
+                  f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+
+    # K9-bf16 against three K2-bf16 launches at Charades B=64, and its times.
+    torch.manual_seed(seed + 42)
+    model = SMIN(cfg).to(device).eval()
+    weights = smin_train_cuda.layer_weights_for(
+        [w.detach() for b in model.smis for w in block_weights(b)], bf)
+    ins = layer_inputs(cfg, B, rng, device, pin=True)
+    ins[:5] = [t.to(bf).contiguous() for t in ins[:5]]
+    fm_o, fb_o, carries = smin_train_cuda.smi_stack_forward(weights, *ins, cfg.L)
+    carry = tuple(ins[:3])
+    for k in range(n):
+        if not all(torch.equal(a, b) for a, b in zip(carries[k], carry)):
+            fail(f"K9-bf16 B={B}: layer {k}'s input carry differs from the K2-bf16 launches'")
+        carry = smin_train_cuda.smi_layer_forward(weights[20 * k:20 * (k + 1)], *carry, *ins[3:],
+                                                  cfg.L)
+    if not (torch.equal(fm_o, carry[1]) and torch.equal(fb_o, carry[2])):
+        fail(f"K9-bf16 B={B}: the outputs differ from {n} K2-bf16 launches'")
+    plain = smin_train_cuda.smi_stack_plain(weights, *ins, cfg.L)
+    k9_stats = {out: bulk_rel(g, w, K23_BF16_CARD, f"K9-bf16 B={B} {out}")
+                for g, w, out in zip((fm_o, fb_o), plain[:2], ("mu", "bu"))}
+    errs["K9-bf16"] = max(float((g.float() - w.float()).abs().max())
+                          for g, w in zip((fm_o, fb_o), plain[:2]))
+    print(f"parity K9-bf16 B={B}: equal bit for bit to {n} K2-bf16 launches (outputs and "
+          f"carries); the top layer against the plain bf16 stack {k9_stats} of the mean "
+          f"|reference| (bounds {K23_BF16_CARD})")
+    del fm_o, fb_o, carries, carry, plain
+    N = cfg.L * (cfg.L + 1) // 2
+    carry16 = 2 * B * (N * cfg.C + N + cfg.L) * cfg.D
+    contractions = gemm_flops(cfg, B, "K2") + B * layer_rest(cfg, cfg.max_query_length)
+    k2_ms, k2_by = bound_bf16(contractions, 2 * carry16 + bf16_bytes(*ins[3:])
+                              + bf16_bytes(*weights[:20]), contractions)
+
+    def per_layer():
+        c = tuple(ins[:3])
+        for k in range(n):
+            c = smin_train_cuda.smi_layer_forward(weights[20 * k:20 * (k + 1)], *c, *ins[3:],
+                                                  cfg.L)
+
+    times["K9-bf16"] = dict(
+        ms=cuda_ms(lambda: smin_train_cuda.smi_stack_forward(weights, *ins, cfg.L)),
+        device_ms=cuda_ms_back_to_back(
+            lambda: smin_train_cuda.smi_stack_forward(weights, *ins, cfg.L), launches=5, reps=3),
+        plain_ms=cuda_ms(lambda: smin_train_cuda.smi_stack_plain(weights, *ins, cfg.L), iters=5),
+        library_ms=None, bound_ms=n * k2_ms, bound_by=k2_by,
+        per_layer_k2_ms=cuda_ms(per_layer),
+        per_layer_k2_device_ms=cuda_ms_back_to_back(per_layer, launches=5, reps=3))
+    r = times["K9-bf16"]
+    print(f"time K9-bf16 B={B}: kernel {r['ms']:.4f} ms (back to back {r['device_ms']:.4f}), "
+          f"{n} K2-bf16 launches {r['per_layer_k2_ms']:.4f} (back to back "
+          f"{r['per_layer_k2_device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {n} x K2-bf16's)")
+    del model, weights, ins
+    torch.cuda.empty_cache()
+
+    # The dense bf16 train step at Charades B=64 against the plain bf16
+    # versions, its eval step, the dense bf16 localizer.
+    torch.manual_seed(seed + 43)
+    initial = SMIN(d16).state_dict()
+    batch = {k: v.to(device) for k, v in synthetic_batch(d16, B, rng).items()}
+    step16, model16, losses, launches, step_err = train_bf16(
+        dense16, "dense bf16 training", initial, batch, {"K8f-bf16": 1, "K8b-bf16": 1}, device)
+    model16.eval()
+    eval_err = check_dense_eval16(d16, model16, batch, {"K8f-bf16": 1},
+                                  f"dense bf16 eval step B={B}")
+    serve_err = check_dense_localizer16(cfg, model16, rng)
+
+    # The dense step at both types: wall ms and the bf16 step's device time
+    # and busy share under the profiler.
+    d32 = dataclasses.replace(d16, compute_dtype="float32")
+    model32 = SMIN(d32)
+    model32.load_state_dict(initial)
+    step32 = make_train_step(d32, model32, build_optimizer(dataclasses.replace(config, model=d32),
+                                                            model32), device=device)
+    dense_ms = {"bf16": step_wall_ms(step16, batch), "fp32": step_wall_ms(step32, batch)}
+    print(f"time dense train step B={B}: bf16 {dense_ms['bf16']:.4f} ms wall "
+          f"({B / dense_ms['bf16'] * 1e3:.1f} samples/s), fp32 {dense_ms['fp32']:.4f} ms "
+          f"({B / dense_ms['fp32'] * 1e3:.1f} samples/s)")
+    busy = {"bf16": profile_and_report(lambda: step16(batch), f"dense bf16 B={B}", "train step",
+                                       3, top=10),
+            "fp32": profile_and_report(lambda: step32(batch), f"dense fp32 B={B}", "train step",
+                                       3, top=10)}
+    del step16, model16, step32, model32, batch
+    torch.cuda.empty_cache()
+
+    # VML_SMIN_TRAIN_FUSED_FWD=1 at bf16: 3 steps through K9-bf16, equal to
+    # the per-layer route's bit for bit.
+    c16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    packed16 = dataclasses.replace(config, model=c16)
+    torch.manual_seed(seed + 44)
+    initial = SMIN(c16).state_dict()
+    batch = {k: v.to(device) for k, v in synthetic_batch(c16, B, rng).items()}
+    previous = os.environ.get("VML_SMIN_TRAIN_FUSED_FWD")
+    os.environ["VML_SMIN_TRAIN_FUSED_FWD"] = "1"
+    try:
+        _, _, fused_losses, fused_launches, fused_err = train_bf16(
+            packed16, "fused_fwd bf16 training", initial, batch,
+            {"K1f-bf16": 1, "K1b-bf16": 1, "K9-bf16": 1, "K3-bf16": n, "CAf": 2 * n, "CAb": n},
+            device)
+    finally:
+        if previous is None:
+            del os.environ["VML_SMIN_TRAIN_FUSED_FWD"]
+        else:
+            os.environ["VML_SMIN_TRAIN_FUSED_FWD"] = previous
+    _, _, layer_losses, _, _ = train_bf16(
+        packed16, "per-layer bf16 training", initial, batch,
+        {"K1f-bf16": 1, "K1b-bf16": 1, "K2-bf16": n, "K3-bf16": n, "CAf": 2 * n, "CAb": n},
+        device)
+    if fused_losses != layer_losses:
+        fail(f"the K9-bf16 route's losses {fused_losses} differ from the per-layer route's "
+             f"{layer_losses}")
+    print(f"fused_fwd bf16: losses equal bit for bit to the per-layer route's {layer_losses}")
+    del batch
+    torch.cuda.empty_cache()
+
+    # The dense ActivityNet step at both types.
+    anet_steps = {d: dense_anet_step(anet, d, seed, rng, device) for d in ("bfloat16", "float32")}
+    return dict(errs=errs, times=times, k9_stats=k9_stats, losses=losses, launches=launches,
+                step_err=step_err, eval_err=eval_err, serve_err=serve_err, dense_ms=dense_ms,
+                busy=busy, fused_losses=fused_losses, fused_launches=fused_launches,
+                fused_err=fused_err, anet_steps=anet_steps)
+
+
 def back_to_back(r):
     """The back-to-back device times of a timed row, where it has them."""
     return {k: r[k] for k in ("device_ms", "library_device_ms") if k in r}
@@ -3841,6 +4292,8 @@ def main(argv=None) -> int:
     lap(20)
     bf16_content = phase_bf16_content(anet, config, args.seed, rng, device)
     lap(21)
+    bf16_dense = phase_bf16_dense(anet, config, args.seed, rng, device)
+    lap(22)
 
     kernels = []
     for key, name, src, rep, err in (
@@ -3944,6 +4397,12 @@ def main(argv=None) -> int:
         if "bound_fp32_ms" in r:
             kernels[-1]["bound_fp32_ms"] = r["bound_fp32_ms"]
     kernels[-4]["max_err_of_magnitude"] = mode_errs["K8b_rel"]
+    # K8 at the ActivityNet batch (phase 22, on the backbone's outputs).
+    for row, way in ((kernels[-5], "fwd"), (kernels[-4], "bwd")):
+        r = bf16_dense["times"][("K8", "ActivityNet")][way]
+        row.update({f"{k}_activitynet_b64": r[k] for k in
+                    ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+        row["max_abs_err_activitynet_b64"] = bf16_dense["errs"][f"K8 {way} ActivityNet B=64"]
     kernels[-3]["per_layer_k2_ms"] = mode_times["K9_per_layer_ms"]
     kernels[-1]["max_err_of_magnitude"] = mode_errs["K10b_rel"]
     # The bf16 variants of K5 and K4 (phase 19): launches on the bf16
@@ -4009,6 +4468,33 @@ def main(argv=None) -> int:
         })
     kernels[-3]["max_err_of_largest_weight_gradient"] = bc["errs"]["K7_rel"]
     kernels[-1]["max_err_of_largest_weight_gradient"] = bc["errs"]["K10_rel"]
+    # The bf16 variants of K8 (phase 22: launches on the 3 dense bf16 steps,
+    # times at Charades B=64 and ActivityNet B=64) and K9 (launches on the 3
+    # bf16 steps under VML_SMIN_TRAIN_FUSED_FWD=1, times at Charades B=64).
+    bd = bf16_dense
+    for way, name, rep in (("fwd", "proposal_dense_forward_bf16", K8_FWD_REPLACES),
+                           ("bwd", "proposal_dense_backward_bf16", K8_BWD_REPLACES)):
+        r = bd["times"][("K8-bf16", "Charades")][way]
+        ra = bd["times"][("K8-bf16", "ActivityNet")][way]
+        kernels.append({
+            "name": name, "route": "cuda", "source": PROPOSAL_SRC, "replaces": rep,
+            "launches": bd["launches"][f"K8{way[0]}-bf16"],
+            "max_abs_err": bd["errs"][f"K8-bf16 {way} Charades B=64"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "batch": TRAIN_BATCH,
+            "dtype": "bfloat16", "device_ms": r["device_ms"], "mode": "dense",
+            **{f"{k}_activitynet_b64": ra[k] for k in
+               ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            "max_abs_err_activitynet_b64": bd["errs"][f"K8-bf16 {way} ActivityNet B=64"]})
+    r = bd["times"]["K9-bf16"]
+    kernels.append({
+        "name": "smi_stack_forward_bf16", "route": "cuda", "source": TRAIN_SRC,
+        "replaces": K9_REPLACES, "launches": bd["fused_launches"]["K9-bf16"],
+        "max_abs_err": bd["errs"]["K9-bf16"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+        "batch": TRAIN_BATCH, "dtype": "bfloat16", "device_ms": r["device_ms"],
+        "mode": "fused_fwd", "per_layer_k2_ms": r["per_layer_k2_ms"],
+        "per_layer_k2_device_ms": r["per_layer_k2_device_ms"]})
     kernels[1]["plain_repeatable"] = plain_repeats["K4"]
     kernels[0]["plain_repeatable"] = plain_repeats["K5"]
     print(json.dumps({"kernels": kernels}))
@@ -4062,6 +4548,19 @@ def main(argv=None) -> int:
         "fused_smi_false_serving": {k: {"score_err": e, "launches": n}
                                     for k, (e, n) in bf16_content["serve"].items()},
         "route_fork_ms": bf16_content["fork"], "parity": bf16_content["stats"]}}))
+    print(json.dumps({"bf16_dense": {
+        "batch": TRAIN_BATCH, "dense_losses": bd["losses"],
+        "dense_launches": {k: v for k, v in bd["launches"].items() if v},
+        "against_plain": bd["step_err"], "eval_score_err": bd["eval_err"],
+        "serving_score_err_vs_fp32": bd["serve_err"],
+        "dense_step_ms": bd["dense_ms"],
+        "dense_samples_per_s": {k: TRAIN_BATCH / v * 1e3 for k, v in bd["dense_ms"].items()},
+        "dense_busy_share": bd["busy"],
+        "activitynet_dense_step": bd["anet_steps"],
+        "fused_fwd": {"losses": bd["fused_losses"], "equal_to_per_layer": True,
+                      "launches": {k: v for k, v in bd["fused_launches"].items() if v},
+                      "against_plain": bd["fused_err"]},
+        "k9_parity": bd["k9_stats"], "errs": bd["errs"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -57,6 +57,7 @@ from video_moment_localization_tpu_torch.models.port import state_dict_from_jax_
 from video_moment_localization_tpu_torch.ops import content_cuda, proposal_cuda
 from video_moment_localization_tpu_torch.ops import content_train_cuda as ctc
 from video_moment_localization_tpu_torch.ops.packing import pack_rows
+from video_moment_localization_tpu_torch.ops import smin_train_cuda
 from video_moment_localization_tpu_torch.ops.smin_train_cuda import layer_weights_for
 from video_moment_localization_tpu_torch.parallel.steps import make_eval_step
 
@@ -220,8 +221,11 @@ def test_k6_bf16_plain_rounds_the_fp32_pooling_once():
     df = proposal_cuda.proposal_packed_backward(lmask, 16, 8, 4, *cots)
     dwant = proposal_cuda.proposal_backward_plain(lmask, 16, 8, 4, *(c.float() for c in cots))
     assert df.dtype == BF and torch.equal(df, dwant.to(BF))
-    with pytest.raises(ValueError, match="float32"):      # K8 stays fp32
-        proposal_cuda.proposal_dense_forward(f, torch.ones(2, 8, 8), 8, 4)
+    # K8-bf16's plain version is the dense pooling, rounded once the same way.
+    mm = torch.triu(lmask[:, :, None] * lmask[:, None, :])
+    dense = proposal_cuda.proposal_dense_forward(f, mm, 8, 4)
+    for g, w in zip(dense, proposal_cuda.proposal_features(f.float(), mm, 8, 4)):
+        assert g.dtype == BF and torch.equal(g, w.to(BF))
 
 
 # --------------------------------------------------------------------------- #
@@ -580,19 +584,28 @@ def test_bf16_eval_step_off_the_default_route_matches_jax(change):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-2)
 
 
-def test_k9_and_the_dense_layout_still_refuse_bf16(monkeypatch):
-    """The next slice: K9 (``VML_SMIN_TRAIN_FUSED_FWD=1``) and the dense
-    layout (K8 and the dense blocks) at bf16 raise, naming their ROADMAP
-    item, where fp32 runs."""
+def test_k9_and_the_dense_layout_run_at_bf16(monkeypatch):
+    """K9 (``VML_SMIN_TRAIN_FUSED_FWD=1``) and the dense layout (K8 and the
+    dense blocks) run at bf16: the forward under the variable gives the
+    per-layer route's scores bit for bit (the plain K9-bf16 is K2-bf16 per
+    layer), the dense one fp32 scores with pm (B, L, L), and neither runs a
+    kernel here."""
     cfg = ModelConfig(**STEP_SHAPE, compute_dtype="bfloat16")
     _, tmodel = make_model(3, STEP_SHAPE)
     tb = to_torch(make_batch(B=2, seed=0, cfg=cfg))
     args = [tb[k] for k in FORWARD_KEYS]
+    before = (proposal_cuda.proposal_dense_forward.launches_bf16,
+              smin_train_cuda.smi_stack_forward.launches_bf16)
+    per_layer = smin.smin_forward(tmodel, cfg, *args)
     monkeypatch.setenv("VML_SMIN_TRAIN_FUSED_FWD", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 'bf16'"):
-        smin.smin_forward(tmodel, cfg, *args)
-    smin.smin_forward(tmodel, dataclasses.replace(cfg, compute_dtype="float32"), *args)
+    fused = smin.smin_forward(tmodel, cfg, *args)
+    assert all(torch.equal(a, b) for a, b in zip(per_layer, fused))
     monkeypatch.delenv("VML_SMIN_TRAIN_FUSED_FWD")
     dense = dataclasses.replace(cfg, packed=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 'bf16'"):
-        smin.smin_forward(tmodel, dense, *args)
+    lm = tb["length_mask"]
+    mm = torch.triu(lm[:, :, None] * lm[:, None, :])
+    out = smin.smin_forward(tmodel, dense, *args, mm)
+    assert tuple(out[0].shape) == (2, cfg.L, cfg.L)
+    assert all(o.dtype == torch.float32 and torch.isfinite(o).all() for o in out)
+    assert (proposal_cuda.proposal_dense_forward.launches_bf16,
+            smin_train_cuda.smi_stack_forward.launches_bf16) == before   # CPU: plain

@@ -76,7 +76,6 @@ BF = torch.bfloat16
 K1_TOL = dict(rtol=1e-2, atol=1e-3)
 BULK = dict(mean=0.02, p98=0.1, max=0.5)
 FORWARD_KEYS = ("video_features", "video_mask", "query_features", "query_mask", "length_mask")
-ROADMAP_BF16 = "ROADMAP.md §1 'bf16'"
 
 
 def bulk_distance(got, want, scale):
@@ -453,20 +452,18 @@ def test_whole_layer_configs_train_at_bf16(name):
 @pytest.mark.parametrize("change", [dict(config="activitynet"), dict(packed=False),
                                     dict(compat_head=True), dict(fused_smi_train=False)],
                          ids=["activitynet", "packed_false", "compat_head", "fused_smi_train"])
-def test_other_bf16_training_routes_raise(change):
+def test_other_bf16_training_routes_are_admitted(change):
     """The other training routes at bf16: the content-unit route
     (ActivityNet) and the unit loop (compat_head, fused_smi_train: False)
-    train and serve at bf16 since K6-bf16, K7-bf16 and K10-bf16; packed:
-    False (K8 and the dense blocks) still raises, naming its ROADMAP item."""
+    since K6-bf16, K7-bf16 and K10-bf16, and packed: False since K8-bf16 and
+    the dense blocks in bf16; any other compute_dtype still raises."""
     change = dict(change)
     name = change.pop("config", "charadessta")
     cfg = dataclasses.replace(load_config(os.path.join(REPO, "config", f"{name}.yml")).model,
                               compute_dtype="bfloat16", **change)
-    if cfg.packed:
-        check_dtype(cfg)
-        return
-    with pytest.raises(NotImplementedError, match=ROADMAP_BF16):
-        check_dtype(cfg)
+    check_dtype(cfg)
+    with pytest.raises(NotImplementedError, match="compute_dtype=float16"):
+        check_dtype(dataclasses.replace(cfg, compute_dtype="float16"))
 
 
 def test_tacos_trains_the_whole_layer_route_at_bf16_only():

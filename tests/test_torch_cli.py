@@ -122,13 +122,24 @@ def test_debug_nans_and_profile_dir(env, capsys):
 def test_refuses_unported_flags(env, capsys, flags, item):
     cfg = write_cfg(env, name="tiny5", ckpt="ckpt_refused")
     if item == "bf16":
-        # bf16 with --compat_metrics (compat_head: the unit loop) trains;
-        # the dense layout at bf16 is what is still refused.
+        # bf16 runs on every route: with --compat_metrics (compat_head: the
+        # packed unit loop), and on the dense layout (packed: False: K8 and
+        # the dense blocks), which trains an epoch and tests; only
+        # parallelism is still refused.
         out = run(capsys, "--config_path", write_cfg(env, name="tiny5c", ckpt="ckpt_bf16_compat"),
                   "--num_epochs", "1", *flags)
         assert "Training Epoch - 1" in out
-        with open(cfg, "a") as fh:
+        dense = write_cfg(env, name="tiny5d", ckpt="ckpt_bf16_dense")
+        with open(dense, "a") as fh:
             fh.write("packed:             False\n")
+        dense_flags = ["--compute_dtype", "bfloat16"]
+        out = run(capsys, "--config_path", dense, "--num_epochs", "1", *dense_flags)
+        assert "Training Epoch - 1" in out and "Training Loss -" in out
+        assert os.path.exists(env / "ckpt_bf16_dense/tiny5d_model.ckpt")
+        lines = run(capsys, "--config_path", dense, "--test", *dense_flags).splitlines()
+        assert [line.split(" - ")[0] for line in lines[:8]] == [
+            f"R@{n}, IoU={m}" for n in (1, 5) for m in (0.1, 0.3, 0.5, 0.7)]
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 '{item}'"):
         run(capsys, "--config_path", cfg, *flags)
     assert not os.path.exists(env / "ckpt_refused")

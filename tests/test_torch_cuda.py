@@ -1,7 +1,7 @@
 """Card tests of the port's kernels: each CUDA kernel against its plain
 PyTorch version on the same card (the bf16 variants of K5, K4, K1, K2, K3,
-K6, K7, K10, the GEMM's three layouts and the content-attention pair's
-forward too), K4
+K6, K7, K8, K9, K10, the GEMM's three layouts and the content-attention
+pair's forward too), K4
 and K5 at both types launched twice bit for bit, the serving path on the
 card against the same localizer on the CPU, an AsyncLocalizer burst against
 localize_batch, and train steps (fp32 and bf16) on the card against the same
@@ -1297,8 +1297,8 @@ def test_proposal_rows_bf16_kernels_match_plain(card, cfg, B):
         assert bool(((x.float() - r).abs() <= (2.0 ** -8 + 1e-4) * r.abs() + 1e-5).all())
     assert torch.equal(df, again)
     mm = unpack_map(packed_valid_mask(lmask), cfg.L).contiguous()
-    with pytest.raises(ValueError, match="float32"):          # K8 takes fp32 only
-        proposal_cuda.proposal_dense_forward(f, mm, cfg.L, cfg.C)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        proposal_cuda.proposal_dense_forward(f.half(), mm, cfg.L, cfg.C)
 
 
 # K2-bf16 and K3-bf16 against their plain bf16 versions: the bulk criterion
@@ -1748,3 +1748,209 @@ def test_bf16_content_routes_train_on_card_match_cpu(card, mode):
     launched = {k: (fn.launches - before[k][0], getattr(fn, "launches_bf16", 0) - before[k][1])
                 for k, fn in counters.items()}
     assert launched == {k: (0, 2 * per_step.get(k, 0)) for k in counters}
+
+
+# --------------------------------------------------------------------------- #
+# bf16 on the dense layout and under the all-layers train forward: K8-bf16
+# and K9-bf16 against their plain bf16 versions, the dense bf16 step, and K8
+# at both types at the ActivityNet batch (a dense fc of 2^29 elements).
+# --------------------------------------------------------------------------- #
+def _k8_case(cfg, B, dtype, seed, device):
+    """K8 (fp32 or bf16) against its plain version's fp32 value: the
+    forward within K8's tolerance (rtol 1e-5 and atol 1e-5 at fp32; at bf16
+    one bf16 rounding, 2^-8 of the value, on top of rtol 1e-4, atol 1e-5),
+    the backward within `_assert_grad_close`'s (one bf16 rounding on top at
+    bf16); the forward and backward twice bit for bit; zeros below the
+    diagonal; the counters of the dtype move, no other."""
+    g = torch.Generator().manual_seed(seed)
+    f = torch.randn(B, cfg.T, cfg.D, generator=g).to(dtype).to(device)
+    mm = _moment_mask(cfg, B, g).to(f.device)
+    fwd, bwd = proposal_cuda.proposal_dense_forward, proposal_cuda.proposal_dense_backward
+    before = [(c.launches, c.launches_bf16) for c in (fwd, bwd)]
+    got = fwd(f, mm, cfg.L, cfg.C)
+    again = fwd(f, mm, cfg.L, cfg.C)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    del again
+    ref = proposal_cuda.proposal_features(f.float(), mm, cfg.L, cfg.C)
+    below = torch.ones(cfg.L, cfg.L, device=f.device).tril(-1).bool()
+    assert bool((got[0][:, below] == 0).all()) and bool((got[1][:, below] == 0).all())
+    rel, atol = (1e-5, 1e-5) if dtype == torch.float32 else (2.0 ** -8 + 1e-4, 1e-5)
+    for x, r in zip(got, ref):
+        assert x.dtype == dtype
+        assert bool(((x.float() - r).abs() <= rel * r.abs() + atol).all())
+    cots = [torch.randn(tuple(r.shape), generator=g).to(dtype).to(f.device) for r in ref]
+    del got, ref
+    df = bwd(mm, cfg.T, cfg.L, cfg.C, *cots)
+    assert torch.equal(df, bwd(mm, cfg.T, cfg.L, cfg.C, *cots))
+    dref = proposal_cuda.proposal_backward_plain(mm, cfg.T, cfg.L, cfg.C,
+                                                 *(c.float() for c in cots))
+    torch.cuda.synchronize()
+    bf = dtype == torch.bfloat16
+    assert [(c.launches, c.launches_bf16) for c in (fwd, bwd)] == [
+        (n + 2 * (not bf), k + 2 * bf) for n, k in before]
+    assert df.dtype == dtype
+    atol = GRAD_ATOL_REL * float(dref.abs().max())
+    slack = GRAD_RTOL + (2.0 ** -8 if bf else 0.0)
+    assert bool(((df.float() - dref).abs() <= slack * dref.abs() + atol).all())
+
+
+@pytest.mark.parametrize("cfg,B", [(TINY, 3), (ODD, 7), (CHARADES, 5), (CHARADES, 64),
+                                   (ACTIVITYNET, 2)])
+def test_proposal_dense_bf16_kernels_match_plain(card, cfg, B):
+    _k8_case(cfg, B, torch.bfloat16, B, card)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_proposal_dense_kernels_at_the_activitynet_batch(card, dtype):
+    """K8 and K8-bf16 at ActivityNet B=64: fc (64, 64, 64, 4, 512) holds 2^29
+    elements, 2.1 GB at fp32, past 2^31 bytes."""
+    _k8_case(ACTIVITYNET, 64, dtype, 64, card)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("cfg,B", [(TINY, 5), (ODD, 3), (CHARADES, 4)])
+def test_stack_forward_bf16_equals_per_layer_bf16_kernels(card, cfg, B, monkeypatch):
+    """K9-bf16 writes bit for bit what one K2-bf16 launch per layer writes,
+    carries included; the bf16 stack under VML_SMIN_TRAIN_FUSED_FWD=1
+    launches K9-bf16 once and K2-bf16 never, and its gradients are the
+    per-layer route's bit for bit."""
+    torch.manual_seed(B)
+    model = SMIN(cfg).to(card)
+    weights = smin_train_cuda.layer_weights_for(
+        [w.detach() for b in model.smis for w in block_weights(b)], torch.bfloat16)
+    ins = _layer_inputs(cfg, B, seed=B, device=card)
+    fc, fm, fb, fw, fs = (t.bfloat16().contiguous() for t in ins[:5])
+    qmask, lmask, vmask = ins[5:]
+    shared = (fw, fs, qmask, lmask, vmask)
+    before = (smin_train_cuda.smi_stack_forward.launches,
+              smin_train_cuda.smi_stack_forward.launches_bf16)
+    fm_out, fb_out, carries = smin_train_cuda.smi_stack_forward(weights, fc, fm, fb, *shared,
+                                                                cfg.L)
+    assert (smin_train_cuda.smi_stack_forward.launches,
+            smin_train_cuda.smi_stack_forward.launches_bf16) == (before[0], before[1] + 1)
+    carry = (fc, fm, fb)
+    for k in range(cfg.num_smi_layers):
+        for a, b in zip(carries[k], carry):
+            assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+        carry = smin_train_cuda.smi_layer_forward(weights[20 * k:20 * (k + 1)], *carry, *shared,
+                                                  cfg.L)
+    assert torch.equal(fm_out, carry[1]) and torch.equal(fb_out, carry[2])
+    plain_fm, plain_fb, _ = smin_train_cuda.smi_stack_plain(weights, fc, fm, fb, *shared, cfg.L)
+    _bulk_rel(fm_out, plain_fm, "fm_out")
+    _bulk_rel(fb_out, plain_fb, "fb_out")
+
+    grads = {}
+    for flag in ("0", "1"):
+        monkeypatch.setenv("VML_SMIN_TRAIN_FUSED_FWD", flag)
+        leaves = [t.clone().requires_grad_(True) for t in (fc, fm, fb, fw, fs)]
+        model.zero_grad(set_to_none=True)
+        counts = (smin_train_cuda.smi_stack_forward.launches_bf16,
+                  smin_train_cuda.smi_layer_forward.launches_bf16)
+        out = smin_train_cuda.smi_stack_layers(model.smis, *leaves, qmask, lmask, vmask, cfg.L)
+        ((out[0].float() * vmask[..., None]).sum()
+         + (out[1].float() * lmask[..., None]).sum()).backward()
+        torch.cuda.synchronize()
+        launched = (smin_train_cuda.smi_stack_forward.launches_bf16 - counts[0],
+                    smin_train_cuda.smi_layer_forward.launches_bf16 - counts[1])
+        assert launched == ((1, 0) if flag == "1" else (0, cfg.num_smi_layers))
+        grads[flag] = [t.grad for t in leaves] + [p.grad for p in model.smis.parameters()]
+    for a, b in zip(grads["0"], grads["1"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["dense", "fused_fwd"])
+def test_bf16_dense_and_fused_fwd_steps_on_card_match_cpu(card, mode, monkeypatch):
+    """Two bf16 Adam steps on the card against the same steps through the
+    plain bf16 versions on the CPU: finite losses within 2e-3, and the bf16
+    kernels each route launches per step (and no other): packed: False
+    (K8-bf16 1 + 1; the dense blocks in PyTorch ops) and the whole-layer
+    route under VML_SMIN_TRAIN_FUSED_FWD=1 (K1-bf16 1 + 1, K9-bf16 1, K3-bf16
+    per layer)."""
+    n = TINY.num_smi_layers
+    cfg, batch, per_step = {
+        "dense": (dataclasses.replace(TINY, packed=False, compute_dtype="bfloat16"),
+                  _dense_train_batch, {"K8f": 1, "K8b": 1}),
+        "fused_fwd": (dataclasses.replace(TINY, compute_dtype="bfloat16"), _train_batch,
+                      {"K1f": 1, "K1b": 1, "K9": 1, "K3": n}),
+    }[mode]
+    if mode == "fused_fwd":
+        monkeypatch.setenv("VML_SMIN_TRAIN_FUSED_FWD", "1")
+    torch.manual_seed(0)
+    ref = SMIN(cfg)
+    models = {"cuda": SMIN(cfg), "cpu": ref}
+    models["cuda"].load_state_dict(ref.state_dict())
+    counters = _counters()
+    before = {k: (fn.launches, getattr(fn, "launches_bf16", 0)) for k, fn in counters.items()}
+    losses = {}
+    for device, model in models.items():
+        step = make_train_step(cfg, model, build_optimizer(Config(model=cfg), model),
+                               device=device)
+        losses[device] = [float(step(batch(cfg, 4, seed=k))["loss"]) for k in range(2)]
+    assert np.isfinite(losses["cpu"]).all()
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=2e-3)
+    launched = {k: (fn.launches - before[k][0], getattr(fn, "launches_bf16", 0) - before[k][1])
+                for k, fn in counters.items()}
+    assert launched == {k: (0, 2 * per_step.get(k, 0)) for k in counters}
+
+
+@pytest.mark.parametrize("use_nms", [False, True])
+def test_dense_bf16_localizer_on_card_tracks_fp32(card, use_nms):
+    """MomentLocalizer with packed: False at bf16 on the card, with top-k or
+    dense soft-NMS: K8-bf16 launches, and the k-th of the top-5 scores lies
+    within the JAX package's bf16 criterion of the fp32 localizer's on the
+    card: atol 2e-2 for top-k (tests/test_dtype_remat.py); after soft-NMS,
+    whose decays follow the moments picked, a near tie picked the other way
+    moves the later scores, so there the mean |diff| < 1e-2 and the max <
+    0.3 (tests/test_smin_pallas.py::test_fused_stack_bf16_close)."""
+    torch.manual_seed(0)
+    cfg32 = dataclasses.replace(TINY, packed=False)
+    cfg16 = dataclasses.replace(cfg32, compute_dtype="bfloat16")
+    model = SMIN(cfg32)
+    emb = WordEmbedding.synthetic(["person", "opens", "the", "door", "sits"], dim=300)
+    locs = {}
+    for name, cfg in (("fp32", cfg32), ("bf16", cfg16)):
+        locs[name] = MomentLocalizer(cfg, SMIN(cfg), emb, serve_batch=8, use_nms=use_nms)
+        locs[name].model.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(1)
+    vids = [rng.standard_normal((int(n), 12)).astype(np.float32) for n in (5, 16, 40)]
+    reqs = [(vids[k % 3], ["person opens the door", "the xylophone sits"][k % 2], 9.0)
+            for k in range(11)]
+    before = proposal_cuda.proposal_dense_forward.launches_bf16
+    got = locs["bf16"].localize_batch(reqs, top_k=5)
+    assert proposal_cuda.proposal_dense_forward.launches_bf16 > before
+    want = locs["fp32"].localize_batch(reqs, top_k=5)
+    g = np.array([[m.score for m in r] for r in got])
+    w = np.array([[m.score for m in r] for r in want])
+    assert g.shape == w.shape == (len(reqs), 5) and np.isfinite(g).all()
+    if use_nms:
+        assert np.abs(g - w).mean() < 1e-2 and np.abs(g - w).max() < 0.3
+    else:
+        np.testing.assert_allclose(g, w, atol=2e-2)
+
+
+def test_profiled_device_time_counts_no_annotation_span(card):
+    """Under torch.profiler an Adam step puts its ``Optimizer.step#...``
+    range on the device timeline as a user annotation that spans its
+    kernels; the report's rows (`utils/profile_serving.py::device_rows`)
+    leave it out, so the device total is the kernels' own time, no more than
+    the wall time of the window."""
+    import time
+
+    from video_moment_localization_tpu_torch.utils.profile_serving import device_rows
+
+    p = torch.nn.Parameter(torch.randn(1 << 20, device=card))
+    opt = torch.optim.Adam([p])
+    p.grad = torch.randn_like(p)
+    opt.step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            opt.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    rows = device_rows(events)
+    assert rows and not any(k.startswith("Optimizer.step") for k, _, _ in rows)
+    assert sum(ms for _, _, ms in rows) <= wall_ms

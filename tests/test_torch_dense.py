@@ -14,7 +14,8 @@ from shared weights and numpy inputs on the CPU:
 * the loss and every gradient, three Adam steps and an eval step vs
   jax.value_and_grad / the JAX steps; the dense step-1 loss equal to the
   packed one (JAX tests/test_packed.py); ``remat_smi`` gradients equal to
-  the plain ones; and the config checks, which refuse bf16 alone.
+  the plain ones; and the config checks, which take fp32 and bf16 in every
+  mode and refuse any other compute_dtype.
 """
 
 import dataclasses
@@ -301,17 +302,12 @@ def test_remat_gives_the_same_gradients(mode):
     ("compute_dtype", "bfloat16"), ("packed", False), ("compat_head", True),
     ("fused_content", True), ("fused_smi", False), ("fused_smi_train", False),
     ("fused_lstm", False), ("remat_smi", True), ("use_pallas", False)])
-def test_config_checks_refuse_bf16_alone(field, value):
-    """fp32 takes every mode; bf16 is taken by the training and serving
-    checks on every route of the packed layout (the whole-layer and
-    content-unit kernels, the unit loop of compat_head and fused_smi_train:
-    False, serving through smin_forward under compat_head and fused_smi:
-    False) and refused with its ROADMAP item under packed: False alone."""
+def test_config_checks_admit_bf16_and_refuse_other_dtypes(field, value):
+    """fp32 and bf16 are taken by the training and serving checks in every
+    mode (packed: False through K8-bf16 and the dense blocks in bf16); any
+    other compute_dtype raises."""
     cfg = dataclasses.replace(ModelConfig(**SHAPE), **{field: value})
     smin.check_dtype(cfg)
-    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
-    if field == "packed":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 'bf16'"):
-            smin.check_dtype(bf16)
-    else:
-        smin.check_dtype(bf16)
+    smin.check_dtype(dataclasses.replace(cfg, compute_dtype="bfloat16"))
+    with pytest.raises(NotImplementedError, match="compute_dtype=float16"):
+        smin.check_dtype(dataclasses.replace(cfg, compute_dtype="float16"))

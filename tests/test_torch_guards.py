@@ -1,8 +1,7 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX package,
 its entry points default to the card and take every mode of the JAX package
-in fp32 and bf16 serving on the default route, refusing bf16 elsewhere, its
-kernel path names no library kernel, and chip_smoke.py fails without a
-card."""
+in fp32 and bf16, refusing any other compute_dtype, its kernel path names no
+library kernel, and chip_smoke.py fails without a card."""
 
 import os
 import re
@@ -121,10 +120,10 @@ def _assert_scores(cfg, outputs, B=2):
                                     dict(fused_smi=False), dict(fused_lstm=False),
                                     dict(packed=False)])
 def test_modes_outside_the_slice_raise(change):
-    """The slice is every mode of the JAX package's serving forward in fp32,
-    and bf16 on the packed layout: each of the other modes runs, bf16 runs
-    on the default route and, through smin_forward, under compat_head and
-    fused_smi: False (fp32 scores), and bf16 under packed: False raises."""
+    """The slice is every mode of the JAX package's serving forward in fp32
+    and bf16: each of the other modes runs, bf16 runs on the default route
+    and, through smin_forward, under compat_head, fused_smi: False and
+    packed: False (fp32 scores); any other compute_dtype raises."""
     import dataclasses
 
     cfg = dataclasses.replace(TINY, **change)
@@ -132,17 +131,17 @@ def test_modes_outside_the_slice_raise(change):
     if cfg.compute_dtype == "bfloat16":
         assert all(o.dtype == torch.float32 for o in
                    smin_forward_inference(SMIN(cfg), cfg, *_tiny_args()))
-        for other in (dict(compat_head=True), dict(fused_smi=False)):
+        for other in (dict(compat_head=True), dict(fused_smi=False), dict(packed=False)):
             served = dataclasses.replace(cfg, **other)
             outputs = smin_forward_inference(SMIN(served), served, *_tiny_args())
             _assert_scores(served, outputs)
             assert all(o.dtype == torch.float32 for o in outputs)
             MomentLocalizer(served, SMIN(served), WordEmbedding.synthetic(["a"], dim=300),
                             device="cpu")
-        bad = dataclasses.replace(cfg, packed=False)
+        bad = dataclasses.replace(cfg, compute_dtype="float16")
         with pytest.raises(NotImplementedError, match="not supported by the PyTorch port"):
             smin_forward_inference(SMIN(bad), bad, *_tiny_args())
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(NotImplementedError, match="compute_dtype=float16"):
             MomentLocalizer(bad, SMIN(bad), WordEmbedding.synthetic(["a"], dim=300),
                             device="cpu")
 
@@ -152,10 +151,10 @@ def test_modes_outside_the_slice_raise(change):
                                     dict(packed=False)])
 def test_training_modes_outside_the_slice_raise(change):
     """The slice is every mode of the JAX package's training forward and
-    step in fp32, and bf16 on every packed route: each mode runs (TINY at
-    bf16 takes the whole-layer route, fp32 scores), bf16 under compat_head
-    and fused_smi_train: False runs the unit loop (fp32 scores), and bf16
-    under packed: False raises, naming its ROADMAP item."""
+    step in fp32 and bf16: each mode runs (TINY at bf16 takes the
+    whole-layer route, fp32 scores), bf16 under compat_head and
+    fused_smi_train: False runs the packed unit loop and under packed: False
+    the dense one (fp32 scores); any other compute_dtype raises."""
     import dataclasses
 
     cfg = dataclasses.replace(TINY, **change)
@@ -165,15 +164,16 @@ def test_training_modes_outside_the_slice_raise(change):
     _assert_scores(cfg, outputs)
     if cfg.compute_dtype == "bfloat16":
         assert all(o.dtype == torch.float32 for o in outputs)
-        for other in (dict(compat_head=True), dict(fused_smi_train=False)):
+        for other in (dict(compat_head=True), dict(fused_smi_train=False),
+                      dict(packed=False)):
             loop = dataclasses.replace(cfg, **other)
             make_train_step(loop, SMIN(loop), torch.optim.Adam(model.parameters()),
                             device="cpu")
             loop_out = smin_forward(SMIN(loop), loop, *_tiny_args())
             _assert_scores(loop, loop_out)
             assert all(o.dtype == torch.float32 for o in loop_out)
-        bad = dataclasses.replace(cfg, packed=False)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 'bf16'"):
+        bad = dataclasses.replace(cfg, compute_dtype="float16")
+        with pytest.raises(NotImplementedError, match="compute_dtype=float16"):
             smin_forward(SMIN(bad), bad, *_tiny_args())
         with pytest.raises(NotImplementedError, match="not supported by the PyTorch port"):
             make_train_step(bad, SMIN(bad), torch.optim.Adam(model.parameters()),

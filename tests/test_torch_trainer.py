@@ -225,16 +225,22 @@ def test_step_error_stops_the_loader_thread(data_dir):
     (dict(model=dict(compute_dtype="bfloat16", packed=False)), "bf16"),
 ])
 def test_refuses_unported_settings(data_dir, change, item):
-    """bf16 off the whole-layer route (here the dense layout) is refused for
-    training and for ``--test`` alike."""
+    """Parallelism is refused, naming its ROADMAP item. bf16 runs on every
+    route, the dense layout included: a Trainer builds there for training
+    and for ``--test`` alike, and any other compute_dtype is refused for
+    both."""
     cfg = load_config(write_cfg(data_dir, "refuse"))
-    if "model" in change:
-        change = dict(model=dataclasses.replace(cfg.model, **change["model"]))
+    if item == "bf16":
+        model = dataclasses.replace(cfg.model, **change["model"])
+        for test_only in (False, True):
+            Trainer(dataclasses.replace(cfg, model=model), device="cpu", test_only=test_only)
+            with pytest.raises(NotImplementedError, match="compute_dtype=float16"):
+                Trainer(dataclasses.replace(
+                    cfg, model=dataclasses.replace(model, compute_dtype="float16")),
+                    device="cpu", test_only=test_only)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 '{item}'"):
         Trainer(dataclasses.replace(cfg, **change), device="cpu")
-    if "model" in change:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 '{item}'"):
-            Trainer(dataclasses.replace(cfg, **change), device="cpu", test_only=True)
 
 
 def test_trains_and_tests_at_bf16_on_the_tiny_config(data_dir, capsys):

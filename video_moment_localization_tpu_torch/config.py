@@ -55,8 +55,7 @@ class ModelConfig:
     # The keys below are the JAX package's modes, and the forwards of
     # models/smin.py take each of its routes; ``use_pallas`` is read by
     # neither (the port has one kernel per route), and bfloat16 runs on
-    # every route of the packed layout (models/smin.py `check_dtype`;
-    # ``packed: False`` raises).
+    # every route (models/smin.py `check_dtype`).
     compute_dtype: str = "float32"
     use_pallas: bool = True
     packed: bool = True

@@ -44,11 +44,13 @@
 // writes 2.6 MB (the L * L cells); each backward reads the cotangents of the
 // N = L(L+1)/2 cells i <= j once and writes 131 KB.
 //
-// K1-bf16 (the training path at bf16) is the same two kernels on bf16 f,
-// fc, fm, fb and cotangents: the prefix sums, difference arrays and scans
-// stay fp32 / fp64, and each output is rounded once to bf16 (the JAX kernel
-// rounds its averaging matrix and its store; its backward accumulates df in
-// fp32). It moves half the bytes of K1.
+// K1-bf16 and K8-bf16 (the training paths at bf16) are the same two
+// kernels on bf16 f, fc, fm, fb and cotangents: the prefix sums, difference
+// arrays and scans stay fp32 / fp64, and each output is rounded once to bf16
+// (the JAX kernels sum in fp32 and round their store; K1's backward
+// accumulates df in fp32, K8's is the XLA VJP of the fp32 prefix sums). They
+// move half the bytes of K1 and K8. At ActivityNet B=64 the dense fc of K8
+// holds 2^29 elements (2.1 GB at fp32): every offset into it is 64-bit.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -113,9 +115,9 @@ __device__ __forceinline__ double frame_sum(const float* diff, int W, int T, int
 // over their staged masks, and fills each group with its next kGroup moments
 // whose mask is not 0; a moment's boundaries are distinct frames, so its
 // slots are read together and then written together.
-// T_: the element type of the cotangents and df (fp32, or bf16 for K1-bf16:
-// read as fp32, the scatter and scan in fp32 / fp64 as at fp32, df rounded
-// once to bf16).
+// T_: the element type of the cotangents and df (fp32, or bf16 for K1-bf16
+// and K8-bf16: read as fp32, the scatter and scan in fp32 / fp64 as at fp32,
+// df rounded once to bf16).
 template <bool Dense, typename T_ = float>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 proposal_bwd_kernel(int T, int L, int C, int D, const float* __restrict__ mask,
@@ -329,6 +331,21 @@ int vml_proposal_dense_fwd_f32(void* stream, int B, int T, int L, int C, int D,
 int vml_proposal_dense_bwd_f32(void* stream, int B, int T, int L, int C, int D,
                                const float* moment_mask, const float* dfc, const float* dfm,
                                const float* dfb, float* df) {
+    return backward<true>(stream, B, T, L, C, D, moment_mask, dfc, dfm, dfb, df);
+}
+
+// K8-bf16: K8 on bf16 f, fc, fm and fb (fp64 prefix sums as at fp32, each
+// output rounded once to bf16); the moment_mask stays fp32.
+int vml_proposal_dense_fwd_bf16(void* stream, int B, int T, int L, int C, int D,
+                                const vml::bf16* f, const float* moment_mask, vml::bf16* fc,
+                                vml::bf16* fm, vml::bf16* fb) {
+    return forward<true>(stream, B, T, L, C, D, f, moment_mask, fc, fm, fb);
+}
+
+// K8-bf16 backward: bf16 cotangents, df (B, T, D) rounded once to bf16.
+int vml_proposal_dense_bwd_bf16(void* stream, int B, int T, int L, int C, int D,
+                                const float* moment_mask, const vml::bf16* dfc,
+                                const vml::bf16* dfm, const vml::bf16* dfb, vml::bf16* df) {
     return backward<true>(stream, B, T, L, C, D, moment_mask, dfc, dfm, dfb, df);
 }
 

@@ -70,13 +70,14 @@
 //     order; bias gradients are the column sums of dY that the same gemm_tn
 //     pass adds up (its blocks of the first column tile).
 //
-// The bf16 variants (K2-bf16, K3-bf16: the training path at bf16, the JAX
-// layer kernels at their production dtype) run the same sequences on bf16
-// activations and cotangents: K2-bf16 is `layer_forward<bf16>`, K4-bf16's
-// layer; K3-bf16 recomputes the layer as K2-bf16 does, then the kernels
-// above, templated on the element type (fp32 arithmetic inside), with the
-// products on gemm.cuh's bf16 path (its nn and tn layouts: bf16 operands,
-// fp32 sums, the weight gradients fp32). Its plain version is autograd
+// The bf16 variants (K2-bf16, K3-bf16, K9-bf16: the training path at bf16,
+// the JAX layer kernels at their production dtype) run the same sequences
+// on bf16 activations and cotangents: K2-bf16 is `layer_forward<bf16>`,
+// K4-bf16's layer, and K9-bf16 runs it per layer as K9 runs K2's; K3-bf16
+// recomputes the layer as K2-bf16 does, then the kernels above, templated
+// on the element type (fp32 arithmetic inside), with the products on
+// gemm.cuh's bf16 path (its nn and tn layouts: bf16 operands, fp32 sums,
+// the weight gradients fp32). Its plain version is autograd
 // through models/smin.py::smi_layer_bf16, and it rounds where that rounds:
 // the gradient of each stored bf16 value is the fp32 sum over its uses,
 // rounded once to bf16 where it is stored or before it is used (dx1 and dx2,
@@ -599,6 +600,36 @@ int layer_backward(cudaStream_t st, int B, int L, int C, int Nq, int D, int dl, 
     return (int)err;
 }
 
+// K9's layer loop at either element type: layer k reads the carry that
+// layer k - 1 wrote (into carry_* for the inner layers) and writes its own,
+// all through one workspace carved once, exactly as one K2 launch per layer.
+template <typename T, typename P>
+int stack_forward(cudaStream_t st, int B, int L, int C, int Nq, int D, int dl, int n_layers,
+                  const T* fc, const T* fm, const T* fb, const T* fw, const T* fs,
+                  const float* qmask, const float* lmask, const float* vmask, const P* const* p,
+                  unsigned char* ws, T* carry_fc, T* carry_fm, T* carry_fb, T* cu_last,
+                  T* fm_out, T* fb_out) {
+    const size_t N = (size_t)L * (L + 1) / 2;
+    const size_t nc = (size_t)B * N * C * D, nm = (size_t)B * N * D, nb = (size_t)B * L * D;
+    vml::LayerScratchT<T> s;
+    BackwardScratchT<T> unused;
+    carve(ws, B, L, C, Nq, D, dl, false, &s, &unused);
+    for (int k = 0; k < n_layers; ++k) {
+        const bool top = k == n_layers - 1;
+        T* cu = top ? cu_last : carry_fc + k * nc;
+        T* mu = top ? fm_out : carry_fm + k * nm;
+        T* bu = top ? fb_out : carry_fb + k * nb;
+        cudaError_t err = vml::layer_forward(st, B, L, C, Nq, D, dl, fc, fm, fb, fw, fs, qmask,
+                                             lmask, vmask, p + (size_t)k * vml::kWeightsPerLayer,
+                                             s, cu, mu, bu);
+        if (err != cudaSuccess) return (int)err;
+        fc = cu;
+        fm = mu;
+        fb = bu;
+    }
+    return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -649,26 +680,10 @@ int vml_smi_stack_fwd_f32(void* stream, int B, int L, int C, int Nq, int D, int 
                           const float* lmask, const float* vmask, const float* const* p,
                           float* ws, float* carry_fc, float* carry_fm, float* carry_fb,
                           float* cu_last, float* fm_out, float* fb_out) {
-    const size_t N = (size_t)L * (L + 1) / 2;
-    const size_t nc = (size_t)B * N * C * D, nm = (size_t)B * N * D, nb = (size_t)B * L * D;
-    vml::LayerScratch s;
-    BackwardScratchT<float> unused;
-    carve(reinterpret_cast<unsigned char*>(ws), B, L, C, Nq, D, dl, false, &s, &unused);
-    for (int k = 0; k < n_layers; ++k) {
-        const bool top = k == n_layers - 1;
-        float* cu = top ? cu_last : carry_fc + k * nc;
-        float* mu = top ? fm_out : carry_fm + k * nm;
-        float* bu = top ? fb_out : carry_fb + k * nb;
-        cudaError_t err = vml::layer_forward(static_cast<cudaStream_t>(stream), B, L, C, Nq, D,
-                                             dl, fc, fm, fb, fw, fs, qmask, lmask, vmask,
-                                             p + (size_t)k * vml::kWeightsPerLayer, s, cu, mu,
-                                             bu);
-        if (err != cudaSuccess) return (int)err;
-        fc = cu;
-        fm = mu;
-        fb = bu;
-    }
-    return 0;
+    return stack_forward(static_cast<cudaStream_t>(stream), B, L, C, Nq, D, dl, n_layers, fc,
+                         fm, fb, fw, fs, qmask, lmask, vmask, p,
+                         reinterpret_cast<unsigned char*>(ws), carry_fc, carry_fm, carry_fb,
+                         cu_last, fm_out, fb_out);
 }
 
 // K3. dcu may be null (the zero cotangent of a top layer). dw: host array of
@@ -710,6 +725,21 @@ int vml_smi_layer_fwd_bf16(void* stream, int B, int L, int C, int Nq, int D, int
     carve(static_cast<unsigned char*>(ws), B, L, C, Nq, D, dl, false, &s, &unused);
     return (int)vml::layer_forward(static_cast<cudaStream_t>(stream), B, L, C, Nq, D, dl, fc,
                                    fm, fb, fw, fs, qmask, lmask, vmask, layer_w, s, cu, mu, bu);
+}
+
+// K9-bf16: K9 on bf16 carries and activations, the layers' matrices bf16
+// and their biases fp32 in p, the masks fp32: each layer is exactly a
+// K2-bf16 launch. ws: vml_smi_layer_workspace_bytes_bf16(..., 0) bytes.
+int vml_smi_stack_fwd_bf16(void* stream, int B, int L, int C, int Nq, int D, int dl,
+                           int n_layers, const bf16* fc, const bf16* fm, const bf16* fb,
+                           const bf16* fw, const bf16* fs, const float* qmask,
+                           const float* lmask, const float* vmask, const void* const* p,
+                           void* ws, bf16* carry_fc, bf16* carry_fm, bf16* carry_fb,
+                           bf16* cu_last, bf16* fm_out, bf16* fb_out) {
+    return stack_forward(static_cast<cudaStream_t>(stream), B, L, C, Nq, D, dl, n_layers, fc,
+                         fm, fb, fw, fs, qmask, lmask, vmask, p,
+                         static_cast<unsigned char*>(ws), carry_fc, carry_fm, carry_fb,
+                         cu_last, fm_out, fb_out);
 }
 
 // K3-bf16: recompute the layer exactly as K2-bf16 does, then K3's sequence

@@ -20,13 +20,13 @@ Repeated videos in a chunk are featurized and encoded once (the grouped
 path). Entry points run on the card unless the caller passes
 ``device="cpu"``.
 
-``compute_dtype: bfloat16`` serves the packed layout with bf16 activations:
-the default route (packed, ``fused_smi``, not ``compat_head``) through the
-bf16 variants of the biLSTM and SMI-stack kernels, ``compat_head`` and
-``fused_smi: False`` through `smin_forward` without a graph (the bf16
-variants of K6 and K10, or of the training route's forward kernels); scores
-stay fp32 (models/smin.py `check_dtype`; ``packed: False`` at bf16
-is refused).
+``compute_dtype: bfloat16`` serves every route with bf16 activations: the
+default route (packed, ``fused_smi``, not ``compat_head``) through the bf16
+variants of the biLSTM and SMI-stack kernels, ``compat_head``, ``fused_smi:
+False`` and ``packed: False`` through `smin_forward` without a graph (the
+bf16 variants of K6 and K10, of the training route's forward kernels, or of
+K8 with the dense blocks in bf16, ranked by dense soft-NMS or top-k); scores
+stay fp32 (models/smin.py `check_dtype`).
 
 `AsyncLocalizer` wraps a localizer with a dynamic micro-batching queue:
 `submit()` returns a future at once; a batcher thread coalesces whatever

@@ -8,10 +8,10 @@
 The flags of the JAX package's ``main.py``, with the same names and meanings
 (reference main.py:13-28, 278-313), and the same stdout lines. ``--device``
 picks the device (default: the card). ``--compute_dtype bfloat16`` trains
-and tests on every route of the packed layout (the whole-layer route:
-Charades, TACoS; the content-unit route: ActivityNet; the unit loop of
-``--compat_metrics`` and ``fused_smi_train: False``); ``--num_devices`` above
-1, ``--seq_devices`` above 1, ``--distributed`` and bf16 on ``packed: False``
+and tests on every route (the whole-layer route: Charades, TACoS; the
+content-unit route: ActivityNet; the unit loop of ``--compat_metrics`` and
+``fused_smi_train: False``; the dense layout of ``packed: False``);
+``--num_devices`` above 1, ``--seq_devices`` above 1 and ``--distributed``
 are refused with the ROADMAP.md item that brings them. ``--debug_nans`` reads
 each step's loss back and checks every gradient, failing at the first
 non-finite value. GloVe is found as the JAX CLI finds it: the data

@@ -36,14 +36,16 @@ biLSTM has no backward), then one of the JAX package's routes:
 * dense (``packed: False``): the dense proposal kernel, then `smi_block` per
   layer in PyTorch ops under autograd;
 
-``compute_dtype: bfloat16`` takes every route of the packed layout
-(`check_dtype`), through the bf16 variants of its kernels (K1, K2, K3 on
-the whole-layer route; K6, K7 on the content-unit route; K6 and, under
-``fused_content``, K10 in the loop), as the JAX package does on the TPU; the
-loop's other units run in bf16 with the JAX package's XLA arithmetic (every
-op in bf16, `_linear` casting weight and bias). The parameters stay fp32,
-with differentiable bf16 casts (`module_weights`). ``remat_smi`` recomputes
-each block of the two loop routes in the backward.
+``compute_dtype: bfloat16`` takes every route (`check_dtype`), through the
+bf16 variants of its kernels (K1, K2, K3 on the whole-layer route, K9 in
+place of the per-layer K2s under ``VML_SMIN_TRAIN_FUSED_FWD=1``; K6, K7 on
+the content-unit route; K6 and, under ``fused_content``, K10 in the packed
+loop; K8 on the dense layout), as the JAX package does on the TPU; the
+loops' other units run in bf16 with the JAX package's XLA arithmetic (every
+op in bf16, masks cast to the activations' dtype, `_linear` casting weight
+and bias). The parameters stay fp32, with differentiable bf16 casts
+(`module_weights`). ``remat_smi`` recomputes each block of the two loop
+routes in the backward.
 The heads are plain PyTorch. Each kernel wrapper launches its CUDA kernel on
 a CUDA tensor and runs its plain version on a CPU tensor.
 """
@@ -564,18 +566,20 @@ def content_unit(cu: ContentUnit, f_c, f_w, f_s, f_m, query_mask, moment_mask, f
 
 def boundary_unit(bu: BoundaryUnit, f_b, f_w, f_s, f_m, query_mask, length_mask, fbar=None):
     """BoundaryUnit (reference models.py:156-196) with the moment->boundary
-    message f_bm[i] = sum_j A_b[i, j] fbar[i, j] from the dense f_m."""
+    message f_bm[i] = sum_j A_b[i, j] fbar[i, j] from the dense f_m, summed
+    in fp32 and rounded once to f_b's dtype (XLA's dot at bf16, as
+    `boundary_unit_packed` sums its message)."""
     A_b, out = _boundary_refine(bu, f_b, f_w, f_s, query_mask, length_mask)
     if fbar is None:
         fbar = moment_gate(f_m, f_s)                                  # (B, L, L, D)
-    return out + torch.einsum("bij,bijd->bid", A_b, fbar)
+    return out + torch.einsum("bij,bijd->bid", A_b.float(), fbar.float()).to(f_b.dtype)
 
 
 def moment_unit(mu: MomentUnit, f_c, f_m, f_b, moment_mask):
     """MomentUnit (reference models.py:278-303) over the dense map: conv of
     the boundary outer product plus conv of the clip mean, masked, plus the
-    residual."""
-    f_m_mask = moment_mask[..., None]                                 # (B, L, L, 1)
+    residual; the mask cast to f_m's dtype, as the JAX unit casts it."""
+    f_m_mask = moment_mask[..., None].to(f_m.dtype)                   # (B, L, L, 1)
     outer = f_b[:, :, None, :] * f_b[:, None, :, :]                   # (B, L, L, D)
     conv_fb = _linear(mu.conv_layer_fb, outer) * f_m_mask
     conv_fc = _linear(mu.conv_layer_fc, f_c.mean(dim=3)) * f_m_mask
@@ -607,29 +611,18 @@ def localization(loc: Localization, f_m, f_b, length_mask, moment_mask):
 # --------------------------------------------------------------------- #
 # Forward passes
 # --------------------------------------------------------------------- #
-_BF16_ITEM = "ROADMAP.md §1 'bf16'"
-
-
 def check_dtype(cfg: ModelConfig) -> None:
     """The check of every entry point (the differentiable forward, the
-    train and eval steps, serving): fp32 on every route of the JAX package;
-    bf16 on every route of the packed layout, through the bf16 variants of
-    K1-K3 (the whole-layer route), K6 and K7 (the content-unit route), K6
-    and K10 (``compat_head`` + ``fused_content``), the unit loop at bf16
-    (``compat_head``, ``fused_smi_train: False``) and, grad-free, K5 and K4
-    (the default serving route). ``packed: False`` at bf16 (K8 and the dense
-    blocks) and any other ``compute_dtype`` raise instead of running in
-    fp32."""
-    if cfg.compute_dtype == "float32":
-        return
-    if cfg.compute_dtype != "bfloat16":
+    train and eval steps, serving): fp32 and bf16 on every route of the JAX
+    package, bf16 through the bf16 variants of K1-K3 and K9 (the whole-layer
+    route), K6 and K7 (the content-unit route), K6 and K10 (``compat_head``
+    + ``fused_content``), K8 (``packed: False``), the unit loops at bf16
+    (``compat_head``, ``fused_smi_train: False``, the dense blocks) and,
+    grad-free, K5 and K4 (the default serving route). Any other
+    ``compute_dtype`` raises instead of running in fp32."""
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
             f"compute_dtype={cfg.compute_dtype} is not supported by the PyTorch port")
-    if not cfg.packed:
-        raise NotImplementedError(
-            f"compute_dtype=bfloat16 runs on the packed layout only; packed=False (the dense "
-            f"proposal K8 and the dense blocks) at bf16 is not supported by the PyTorch port "
-            f"yet: {_BF16_ITEM}")
 
 
 def serves_default_route(cfg: ModelConfig) -> bool:
@@ -721,12 +714,12 @@ def smin_forward(
     is (B, N) packed in the default mode, (B, L, L) under ``compat_head`` or
     ``packed: False``; ``moment_mask`` is read by the dense layout only.
     The routes are those of the module docstring; ``video_group`` is that
-    of `backbone`. ``compute_dtype: bfloat16`` (the packed layout,
+    of `backbone`. ``compute_dtype: bfloat16`` (every route,
     `check_dtype`) follows the JAX package's bf16 training: the inputs cast
     to bf16, the parameters fp32 with differentiable bf16 casts where the
     JAX code casts them (`module_weights`; the kernels' own casts in
     ops/smin_train_cuda.py and ops/content_train_cuda.py), bf16 activations
-    through the route's kernels at bf16 and the loop's units in bf16, and
+    through the route's kernels at bf16 and the loops' units in bf16, and
     the heads and the loss in fp32."""
     # Imported here: these modules import this one for their plain versions.
     from video_moment_localization_tpu_torch.ops.content_train_cuda import (
@@ -790,13 +783,13 @@ def smin_forward_inference(
     stack for the packed layout with ``fused_smi`` and without
     ``compat_head``; `smin_forward` without a graph otherwise.
 
-    ``compute_dtype: bfloat16`` (`check_dtype`; the other packed
-    routes through `smin_forward`) follows the JAX package's bf16 serving: the
-    parameters stay fp32 and are cast to bf16 where its kernels cast them,
-    activations are stored in bf16, products take bf16 operands with fp32
-    sums, gates, softmaxes and other elementwise work run in fp32, the
-    proposal pooling's prefix sums stay fp32, and the heads and scores are
-    fp32."""
+    ``compute_dtype: bfloat16`` (`check_dtype`; the other routes, the dense
+    layout among them, through `smin_forward`) follows the JAX package's
+    bf16 serving: the parameters stay fp32 and are cast to bf16 where its
+    kernels cast them, activations are stored in bf16, products take bf16
+    operands with fp32 sums, gates, softmaxes and other elementwise work run
+    in fp32, the proposal pooling's prefix sums stay fp32, and the heads and
+    scores are fp32."""
     # Imported here: ops/smin_cuda.py imports this module for its plain version.
     from video_moment_localization_tpu_torch.ops.smin_cuda import smin_stack_fused
 

@@ -34,13 +34,20 @@ wrappers: on a CPU tensor each runs its plain version
 and autograd through it), on a CUDA tensor it launches its kernel or raises.
 ``.launches`` on each counts the launches.
 
-K1 and K6 have bf16 variants (K1-bf16 and K6-bf16, the training paths at
-bf16), taken on a bf16 f or bf16 cotangents: the same kernels reading and
-writing bf16 (K6-bf16 launches K1-bf16's two C entry points), with fp32 /
-fp64 sums inside and one rounding per stored value; their plain versions
-are the fp32 ones on the bf16 values, rounded once
-(`proposal_rows_forward_plain_bf16`, `proposal_rows_backward_plain_bf16`).
-``.launches_bf16`` counts their launches. K8 takes float32 only.
+All three have bf16 variants (K1-bf16, K6-bf16 and K8-bf16, the training
+paths at bf16), taken on a bf16 f or bf16 cotangents: the same kernels
+reading and writing bf16 (K6-bf16 launches K1-bf16's two C entry points),
+with fp32 / fp64 sums inside and one rounding per stored value; the masks
+stay fp32. Their plain versions are the fp32 ones of the layout on the bf16
+values, rounded once (`proposal_rows_forward_plain_bf16`,
+`proposal_rows_backward_plain_bf16`, which take either layout by the mask's
+rank). This follows the JAX kernels as their tests run them (interpret
+mode): pooled in fp32, fc, fm and fb each rounded once, and the backward
+(K8's the XLA VJP of the fp32 prefix sums) the fp32 transpose of the bf16
+cotangents' values, df rounded once. On the TPU, K8 at bf16 multiplies at
+``Precision.DEFAULT``, which would also round its averaging matrix Wc's
+weights (1 / clip length) to bf16; interpret mode on the CPU does not, and
+neither does this port. ``.launches_bf16`` counts their launches.
 """
 
 from __future__ import annotations
@@ -76,7 +83,7 @@ _SM_SMEM, _RESERVED = 233472, 1024
 def _library() -> ctypes.CDLL:
     lib = load_library("proposal_rows")
     for name in ("rows_fwd_f32", "rows_bwd_f32", "dense_fwd_f32", "dense_bwd_f32",
-                 "rows_fwd_bf16", "rows_bwd_bf16"):
+                 "rows_fwd_bf16", "rows_bwd_bf16", "dense_fwd_bf16", "dense_bwd_bf16"):
         fn = getattr(lib, f"vml_proposal_{name}")
         fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
         fn.restype = ctypes.c_int
@@ -93,15 +100,12 @@ def _check(name: str, t: torch.Tensor, shape, device, dtype=torch.float32) -> No
 
 
 def _kernel_dtype(fn: str, dtype: torch.dtype) -> str:
-    """The C entry's suffix for the activations' dtype: bf16 for the packed
-    layout's K1 and K6 only."""
-    packed = not fn.startswith("proposal_dense")
+    """The C entry's suffix for the activations' dtype."""
     if dtype == torch.float32:
         return "f32"
-    if dtype == torch.bfloat16 and packed:
+    if dtype == torch.bfloat16:
         return "bf16"
-    raise ValueError(f"{fn}: the kernel takes float32{' or bfloat16' if packed else ''}, "
-                     f"got {dtype}")
+    raise ValueError(f"{fn}: the kernel takes float32 or bfloat16, got {dtype}")
 
 
 def _check_device(fn: str, t: torch.Tensor) -> None:
@@ -163,17 +167,19 @@ def _shapes(B: int, L: int, dense: bool):
     return (B, L), (B, L * (L + 1) // 2)
 
 
-def proposal_rows_forward_plain_bf16(f, length_mask, L: int, C: int) -> Features:
-    """The plain version of K1-bf16's forward: the fp32 pooling of f's bf16
-    values (fp32 prefix sums), each output rounded once to bf16."""
+def proposal_rows_forward_plain_bf16(f, mask, L: int, C: int) -> Features:
+    """The plain version of K1-bf16's, K6-bf16's and (a (B, L, L) ``mask``,
+    the moment_mask) K8-bf16's forward: the fp32 pooling of the layout on
+    f's bf16 values (fp32 prefix sums), each output rounded once to bf16."""
     return tuple(x.to(torch.bfloat16)
-                 for x in proposal_features_packed(f.float(), length_mask, L, C))
+                 for x in _plain_forward(mask.dim() == 3)(f.float(), mask, L, C))
 
 
-def proposal_rows_backward_plain_bf16(length_mask, T: int, L: int, C: int, dfc, dfm, dfb):
-    """The plain version of K1-bf16's backward: the fp32 transpose of the
-    bf16 cotangents' values, df rounded once to bf16."""
-    return proposal_backward_plain(length_mask, T, L, C, dfc.float(), dfm.float(),
+def proposal_rows_backward_plain_bf16(mask, T: int, L: int, C: int, dfc, dfm, dfb):
+    """The plain version of the bf16 backwards of either layout (by the
+    mask's rank): the fp32 transpose of the bf16 cotangents' values, df
+    rounded once to bf16."""
+    return proposal_backward_plain(mask, T, L, C, dfc.float(), dfm.float(),
                                    dfb.float()).to(torch.bfloat16)
 
 
@@ -244,7 +250,6 @@ def _forward_wrapper(name: str, dense: bool, doc: str):
         bf16 = f.dtype == torch.bfloat16
         if f.device.type == "cpu":
             if bf16:
-                _kernel_dtype(name, f.dtype)
                 return proposal_rows_forward_plain_bf16(f, mask, L, C)
             return _plain_forward(dense)(f, mask, L, C)
         out = _launch_forward(name, dense, f, mask, L, C)
@@ -267,7 +272,6 @@ def _backward_wrapper(name: str, dense: bool, doc: str):
         bf16 = dfc.dtype == torch.bfloat16
         if dfc.device.type == "cpu":
             if bf16:
-                _kernel_dtype(name, dfc.dtype)
                 return proposal_rows_backward_plain_bf16(mask, T, L, C, dfc, dfm, dfb)
             return proposal_backward_plain(mask, T, L, C, dfc, dfm, dfb)
         df = _launch_backward(name, dense, mask, T, L, C, dfc, dfm, dfb)
@@ -304,13 +308,15 @@ proposal_packed_backward = _backward_wrapper(
     (K6-bf16), counted on its own.""")
 proposal_dense_forward = _forward_wrapper(
     "proposal_dense_forward", True,
-    """K8 forward. f (B, T, D), moment_mask (B, L, L) -> fc (B, L, L, C, D)
+    """K8 forward. f (B, T, D), moment_mask (B, L, L) fp32 -> fc (B, L, L, C, D)
     masked by the moment_mask's value (0 below the diagonal whatever the
-    mask holds there), fm (B, L, L, D) = mean over C, fb (B, L, D).""")
+    mask holds there), fm (B, L, L, D) = mean over C, fb (B, L, D); f and
+    the outputs fp32, or bf16 (K8-bf16).""")
 proposal_dense_backward = _backward_wrapper(
     "proposal_dense_backward", True,
     """K8 backward. (moment_mask, T, L, C, dfc, dfm, dfb): cotangents of the
-    dense (fc, fm, fb) -> df (B, T, D).""")
+    dense (fc, fm, fb) -> df (B, T, D), in the cotangents' type (fp32, or
+    bf16: K8-bf16).""")
 
 
 class _Proposal(torch.autograd.Function):

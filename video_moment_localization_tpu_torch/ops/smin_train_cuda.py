@@ -26,14 +26,15 @@ kernel wrappers: on a CPU tensor each runs its plain version
 or raises. ``.launches`` on each counts the launches (one per layer for K2
 and K3, one per stack for K9: the C entry point sequences the kernels).
 
-K2 and K3 have bf16 variants (`vml_smi_layer_fwd_bf16` / `_bwd_bf16`),
-taken when the carry is bf16: activations and cotangents bf16, the masks
-fp32, the layer's matrices bf16 and its biases fp32 (the stack casts the
-fp32 parameters once per forward, as the JAX package's `_wlayer` does), the
-20 weight gradients fp32. Their plain versions are
-`models.smin.smi_layer_bf16` and autograd through it. ``.launches_bf16``
-counts them. K9 has no bf16 variant: the stack refuses a bf16 carry under
-``VML_SMIN_TRAIN_FUSED_FWD=1``, and K9's wrapper a bf16 CUDA carry.
+K2, K3 and K9 have bf16 variants (`vml_smi_layer_fwd_bf16` / `_bwd_bf16`,
+`vml_smi_stack_fwd_bf16`), taken when the carry is bf16: activations and
+cotangents bf16, the masks fp32, the layer's matrices bf16 and its biases
+fp32 (the stack casts the fp32 parameters once per forward, as the JAX
+package's `_wlayer` does), the 20 weight gradients fp32. K9-bf16 runs
+K2-bf16's device code per layer, so its outputs and carries are those of
+one K2-bf16 launch per layer bit for bit. Their plain versions are
+`models.smin.smi_layer_bf16` (per layer for K9-bf16) and autograd through
+it. ``.launches_bf16`` counts them.
 """
 
 from __future__ import annotations
@@ -130,6 +131,8 @@ def _library() -> ctypes.CDLL:
     stack.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 8
                       + [pointers] + [ctypes.c_void_p] * 7)
     stack.restype = ctypes.c_int
+    lib.vml_smi_stack_fwd_bf16.argtypes = stack.argtypes
+    lib.vml_smi_stack_fwd_bf16.restype = ctypes.c_int
     lib.vml_smi_layer_workspace_bytes_bf16.argtypes = [ctypes.c_int] * 7
     lib.vml_smi_layer_workspace_bytes_bf16.restype = ctypes.c_size_t
     lib.vml_smi_layer_fwd_bf16.argtypes = fwd.argtypes
@@ -254,7 +257,8 @@ def smi_layer_backward(weights, fc, fm, fb, fw, fs, query_mask, length_mask, vma
 
 
 def smi_stack_plain(weights, fc, fm, fb, fw, fs, query_mask, length_mask, vmask, L: int):
-    """The plain version of K9: `smi_layer_plain` layer by layer. Returns
+    """The plain version of K9 (of K9-bf16 on a bf16 carry): `smi_layer_plain`
+    layer by layer. Returns
     (fm_out, fb_out, [the (fc, fm, fb) input carry of every layer])."""
     carries = []
     for k in range(len(weights) // WEIGHTS_PER_LAYER):
@@ -269,21 +273,19 @@ def smi_stack_forward(weights, fc, fm, fb, fw, fs, query_mask, length_mask, vmas
     `block_weights` order, one layer after the other. Returns (fm_out
     (B, N, D), fb_out (B, L, D), [the (fc, fm, fb) input carry of every
     layer]); on the card the inner layers' carries are views of three
-    buffers that the one launch writes."""
+    buffers that the one launch writes. A bf16 carry takes K9-bf16, with
+    the weights as `layer_weights_for` casts them."""
     if fc.device.type == "cpu":
         return smi_stack_plain(weights, fc, fm, fb, fw, fs, query_mask, length_mask, vmask, L)
     n_layers = len(weights) // WEIGHTS_PER_LAYER
     if n_layers < 1 or len(weights) != n_layers * WEIGHTS_PER_LAYER:
         raise ValueError(f"smi_stack_forward: want 20 weight tensors per layer, got "
                          f"{len(weights)}")
-    if fc.dtype != torch.float32:
-        raise ValueError(f"smi_stack_forward: K9 takes float32 only, got {fc.dtype} "
-                         f"(bf16 is ROADMAP.md §1 'bf16')")
     B, C, Nq, D, dl = _check_inputs("smi_stack_forward", weights[:WEIGHTS_PER_LAYER], fc, fm,
                                     fb, fw, fs, query_mask, length_mask, vmask, L)
     check_tensors("smi_stack_forward", fc.device,
                   [(f"weight {k}", w, shape) for k, (w, shape)
-                   in enumerate(zip(weights, _weight_shapes(D, dl) * n_layers))])
+                   in enumerate(zip(weights, _weight_shapes(D, dl) * n_layers))], fc.dtype)
     lib = _library()
     ws = _workspace(lib, fc, B, L, C, Nq, D, dl, False, None)
     inner = n_layers - 1
@@ -291,14 +293,19 @@ def smi_stack_forward(weights, fc, fm, fb, fw, fs, query_mask, length_mask, vmas
     carry_fm = fm.new_empty((inner,) + tuple(fm.shape))
     carry_fb = fb.new_empty((inner,) + tuple(fb.shape))
     cu_last, fm_out, fb_out = torch.empty_like(fc), torch.empty_like(fm), torch.empty_like(fb)
+    bf16 = fc.dtype == torch.bfloat16
+    entry = "vml_smi_stack_fwd_bf16" if bf16 else "vml_smi_stack_fwd_f32"
     with torch.cuda.device(fc.device):
-        err = lib.vml_smi_stack_fwd_f32(
+        err = getattr(lib, entry)(
             stream_of(fc), B, L, C, Nq, D, dl, n_layers, ptr(fc), ptr(fm), ptr(fb), ptr(fw),
             ptr(fs), ptr(query_mask), ptr(length_mask), ptr(vmask), pointer_array(weights),
             ptr(ws), *((ptr(t) if inner else None) for t in (carry_fc, carry_fm, carry_fb)),
             ptr(cu_last), ptr(fm_out), ptr(fb_out))
-    check(lib, "vml_smi_stack_fwd_f32", err)
-    smi_stack_forward.launches += 1
+    check(lib, entry, err)
+    if bf16:
+        smi_stack_forward.launches_bf16 += 1
+    else:
+        smi_stack_forward.launches += 1
     carries = [(fc, fm, fb)] + [(carry_fc[k], carry_fm[k], carry_fb[k]) for k in range(inner)]
     return fm_out, fb_out, carries
 
@@ -308,6 +315,7 @@ smi_layer_backward.launches = 0
 smi_layer_forward.launches_bf16 = 0     # the bf16 variants' launches
 smi_layer_backward.launches_bf16 = 0
 smi_stack_forward.launches = 0
+smi_stack_forward.launches_bf16 = 0
 
 
 def layer_weights_for(weights: Sequence[torch.Tensor], dtype: torch.dtype) -> List[torch.Tensor]:
@@ -329,10 +337,6 @@ class _SMIStack(torch.autograd.Function):
         shared = (fw, fs, query_mask, length_mask, vmask)
         weights = layer_weights_for(weights, fc.dtype)
         if os.environ.get("VML_SMIN_TRAIN_FUSED_FWD", "0") == "1":
-            if fc.dtype != torch.float32:
-                raise NotImplementedError(
-                    f"VML_SMIN_TRAIN_FUSED_FWD=1 (K9) at {fc.dtype} is not supported by the "
-                    f"PyTorch port yet: ROADMAP.md §1 'bf16'")
             fm, fb, carries = smi_stack_forward(weights, fc, fm, fb, *shared, L)
         else:
             ws = None

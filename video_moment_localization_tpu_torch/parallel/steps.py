@@ -9,8 +9,9 @@ device tensors and reads nothing back to the host.
 The training forward (`models.smin.smin_forward`) runs the plain biLSTM
 under autograd and the kernels of the config's route: K1 / K2 (or K9) / K3,
 K6 / K7, K6 and the packed unit loop (with K10 under ``fused_content``), or
-K8 and the dense loop; at bf16 the packed routes through the bf16 variants
-of K1, K2, K3, K6, K7 and K10 (`check_dtype`); the eval forward (`smin_forward_inference`) the fused
+K8 and the dense loop; at bf16 every route through the bf16 variants of
+K1, K2 (or K9), K3, K6, K7, K8 and K10 (`check_dtype`); the eval forward
+(`smin_forward_inference`) the fused
 biLSTM and the fused SMI stack, or `smin_forward` without a graph in the
 modes that the fused stack does not serve. A batch for pm (B, L, L) (the
 dense layout and ``compat_head``) carries dense ``sm`` / ``ym`` and a
@@ -96,7 +97,7 @@ def make_eval_step(cfg: ModelConfig, model: SMIN, use_nms: bool = False,
     """Returns batch -> metrics (loss and recall counts), grad-free, through
     `smin_forward_inference`, which routes as the JAX package's does: it
     takes what the serving forward takes (`check_dtype`: every route in
-    fp32, bf16 on the packed layout's)."""
+    fp32 and bf16)."""
     check_dtype(cfg)
     device = resolve_device(device, "make_eval_step")
     model.to(device)

@@ -17,9 +17,9 @@ non-blocking transfer on the main thread, dispatches the steps with no host
 read per step, and reads the losses and counts back once per epoch.
 
 Not in this module yet: the JAX trainer's device mesh, multi-process and 2-D
-(data x sequence) paths, its automatic SMI rematerialization, and bf16 on
-the dense layout (``packed: False``). A config that asks for them is refused
-with the ROADMAP.md item that brings them.
+(data x sequence) paths and its automatic SMI rematerialization. A config
+that asks for the first two is refused with the ROADMAP.md item that brings
+them.
 """
 
 from __future__ import annotations

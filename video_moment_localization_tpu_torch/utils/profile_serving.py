@@ -50,6 +50,18 @@ def profile_forward(loc: MomentLocalizer, B: int, iters: int, rng) -> None:
     profile_and_report(lambda: loc._score(vf, vm, qf, qm, lm, None, 5), f"B={B}", "forward", iters)
 
 
+def device_rows(events):
+    """(name, count, ms) of each kind of work that ran on the device, from
+    ``key_averages()``. A user annotation on the device's timeline (the
+    span that ``torch.optim``'s ``Optimizer.step#...`` range covers there)
+    is no work of its own: the kernels inside it have rows of their own,
+    and the span also holds the gaps between them, so it is left out, as
+    torch.profiler's own table leaves it out of its device total."""
+    return [(e.key, e.count, e.self_device_time_total / 1e3) for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def profile_and_report(fn, label: str, unit: str, iters: int, top: int = 16) -> float:
     """Run ``fn`` ``iters`` times under torch.profiler and print the device
     time per run of each kernel, its share, and the device's busy share;
@@ -61,9 +73,7 @@ def profile_and_report(fn, label: str, unit: str, iters: int, top: int = 16) -> 
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    rows = device_rows(prof.key_averages())
     total = sum(r[2] for r in rows)
     print(f"{label}: {iters} {unit}s, wall {wall_ms / iters:.4f} ms/{unit}, device "
           f"{total / iters:.4f} ms/{unit}, busy share {total / wall_ms:.3f}")

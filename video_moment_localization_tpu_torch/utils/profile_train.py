@@ -9,8 +9,7 @@ Builds the model of the config it is given (default: Charades,
 config/charadessta.yml; config/activitynet.yml takes the content-unit route;
 ``--packed false`` the dense layout, ``--compat`` the reference-compat mode
 ``compat_head`` with ``fused_content``, ``--compute_dtype bfloat16`` the
-bf16 step of any of these routes but the dense layout, and the bf16 layer
-kernels) with random seeded weights and a
+bf16 step of any of these routes, and the bf16 layer kernels) with random seeded weights and a
 seeded synthetic batch (`synthetic_batch`: random features, GT spans through
 the label generators, ragged lengths, one padded sample), runs
 `parallel.steps.make_train_step` under
