@@ -19,8 +19,9 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
    counterparts on the card, each also at bf16 (the GEMM's bf16 path on
    every product of K4-bf16, K5-bf16, K2-bf16 and K3-bf16 in its three
    layouts, K5-bf16's rows per cluster; the pair's plans are those of fp32
-   rows at either type); print K5's clusters per wave at
-   B=16/64/512 at both types;
+   rows at either type), and the proposal kernels' launch plans at both
+   types (``ops/proposal_cuda.py::plan`` against ``vml_proposal_plan``);
+   print K5's clusters per wave at B=16/64/512 at both types;
 2. serving kernel parity at the full Charades width
    (config/charadessta.yml), at B=512, B=64 and at the serving run's buckets
    B=16 and B=8: K5 (fused biLSTM) and K4 (fused SMI stack) against their plain
@@ -216,18 +217,22 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
 Each phase prints its seconds.
 
 The proposal kernels K1, K6 and K8 (``csrc/proposal.cuh``,
-``csrc/proposal_rows.cu``) are one forward and one backward, templated on the
-layout. The forward gives a block one element and 32 columns, stages f's
-tile once as fp64 prefix sums in shared memory and writes every clip mean as
-a difference of two of them; K4's pooling phase is the same kernel. The
-backward scatters each clip's cotangent, read once, into per-warp difference
-arrays in shared memory and scans them over the frames in a fixed order. Their
-times keep the bounds and library calls of earlier runs: the bytes of the
-inputs and outputs, and one ``torch.matmul`` with the dense averaging matrix
-Wc or its transpose. Phases 7, 10 and 13 also time them and the matmul with
-calls queued back to back (``device_ms``, ``library_device_ms``): the
-device's time per call, without the host time of a wrapper call that a
-single timed call includes while the device waits.
+``csrc/proposal_rows.cu``) are one forward and one backward a type, templated
+on the layout. The fp32 forward gives a block one element and 32 columns,
+stages f's tile once as fp64 prefix sums in shared memory and writes every
+clip mean as a difference of two of them; the bf16 forward gives a lane four
+columns (256-byte warp stores) and keeps fp32 prefix sums; K4's pooling
+phase is the same kernels. The backward scatters each clip's cotangent, read
+once, into per-warp difference arrays in shared memory and scans them over
+the frames in a fixed order; at bf16 a lane owns two columns (128-byte warp
+loads) and a warp loads the rows of four moments at once. Their times keep
+the bounds and library calls of earlier runs: the bytes of the inputs and
+outputs, and one ``torch.matmul`` with the dense averaging matrix Wc or its
+transpose. Phases 7, 10, 13 and 20-22 also time them and the matmul with
+calls queued back to back (``device_ms``, ``library_device_ms``; phases 4
+and 19 K5 and cuDNN's LSTM too): the device's time per call, without the
+host time of a wrapper call that a single timed call includes while the
+device waits.
 
 The serving run and the train steps of phases 3, 6, 9 and 12 also count the
 pair's launches by those entry points (the C counters of
@@ -735,8 +740,10 @@ def serving_kernel_times(cfg, model, B, rng, device, library_lstm, iters=15):
     b_ms, b_by, b32 = both_bounds(B * lstm_flops(cfg), nbytes, B * lstm_flops(cfg), 0.0)
     res = {"K5": dict(
         ms=cuda_ms(lambda: lstm_cuda.bilstm_fused(x, mask, layers), iters=iters),
+        device_ms=cuda_ms_back_to_back(lambda: lstm_cuda.bilstm_fused(x, mask, layers)),
         plain_ms=cuda_ms(lambda: lstm_cuda.bilstm_plain(x, mask, layers), iters=iters),
         library_ms=cuda_ms(lambda: library_lstm(x, lengths), iters=iters),
+        library_device_ms=cuda_ms_back_to_back(lambda: library_lstm(x, lengths)),
         bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32)}
     ins = stack_inputs(cfg, B, rng, device)
     nbytes = (4 * sum(t.numel() for t in ins) + param_bytes(model.smis)
@@ -766,7 +773,7 @@ def phase_times(cfg, gpu, rng):
             r = res[(k, B)] = at_b[k]
             print(f"time {k} B={B}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms "
-                  f"({r['bound_by']})")
+                  f"({r['bound_by']}){b2b_note(r)}")
 
         # End to end on the device: the serving forward, scores and top-k.
         vf = torch.from_numpy(rng.standard_normal((B, cfg.T, cfg.input_video_dim))
@@ -1135,6 +1142,30 @@ def moment_cells(cfg, dense):
     return np.triu_indices(cfg.L)
 
 
+def proposal_bwd_work(cfg, mask, elem_bytes):
+    """(additions, bytes) a proposal backward (K1, K6, K8 or their bf16
+    variants) needs on these inputs: it reads the cotangent rows (C dfc and
+    one dfm) of the unmasked moments only, the pairs i <= j whose mask is not
+    0 (a (B, L) length mask's pair validity, or a (B, L, L) moment_mask on
+    and above the diagonal), the pair masks and dfb, and writes df; it adds
+    the frames of each of their clips and their clip means into fm, and the
+    window means, twice (scatter and scan)."""
+    import numpy as np
+
+    from video_moment_localization_tpu_torch.ops.content_matrix import content_segments
+    from video_moment_localization_tpu_torch.ops.packing import packed_valid_mask
+
+    B, L, C, D, T = mask.shape[0], cfg.L, cfg.C, cfg.D, cfg.T
+    i, j = np.triu_indices(L)
+    on = (packed_valid_mask(mask) if mask.dim() == 2 else mask[:, i, j]) != 0
+    frames = content_segments(T, L, C).sizes[i, j].sum(axis=-1)
+    per_moment = int((on.sum(dim=0).cpu().numpy() * (frames + C)).sum())
+    moments = int(on.sum())
+    adds = 2 * (per_moment + B * T) * D
+    nbytes = elem_bytes * (B * T * D + moments * (C + 1) * D + B * L * D) + 4 * B * len(i)
+    return adds, nbytes
+
+
 def dense_content_matrix(cfg, device, dense=False):
     """Wc (P*C, T): the dense averaging matrix of the packed pairs (P = N),
     or of all L * L cells (``dense``; zero rows below the diagonal),
@@ -1205,7 +1236,7 @@ def phase_train_times(cfg, model, step, batch, rng, device):
         library_ms=cuda_ms(lambda: torch.matmul(wc, f)), bound_ms=b_ms, bound_by=b_by,
         device_ms=cuda_ms_back_to_back(lambda: proposal_cuda.proposal_rows_forward(f, lmask, L, C)),
         library_device_ms=cuda_ms_back_to_back(lambda: torch.matmul(wc, f)))
-    b_ms, b_by = bound(2 * B * seg_adds, k1_bytes)
+    b_ms, b_by = bound(*proposal_bwd_work(cfg, lmask, 4))
     wct = wc.t().contiguous()
     g = cots[0].reshape(B, NC, D)
     res["K1b"] = dict(
@@ -1488,7 +1519,7 @@ def phase_anet_times(cfg, model, step, batch, rng, device):
         device_ms=cuda_ms_back_to_back(
             lambda: proposal_cuda.proposal_packed_forward(f, lmask, L, C), launches=5),
         library_device_ms=cuda_ms_back_to_back(lambda: torch.matmul(wc, f), launches=5))
-    b_ms, b_by = bound(2 * B * seg_adds, k6_bytes)
+    b_ms, b_by = bound(*proposal_bwd_work(cfg, lmask, 4))
     wct = wc.t().contiguous()
     g = cots[0].reshape(B, NC, D)
     res["K6b"] = dict(
@@ -1823,10 +1854,9 @@ def phase_mode_times(cfg, model, modes, rng, device):
         library_ms=cuda_ms(lambda: torch.matmul(wc, f)), bound_ms=b_ms, bound_by=b_by,
         device_ms=cuda_ms_back_to_back(lambda: proposal_cuda.proposal_dense_forward(f, mm, L, C)),
         library_device_ms=cuda_ms_back_to_back(lambda: torch.matmul(wc, f)))
-    # The backward visits the i <= j cells only: it reads their mask, dfc and
-    # dfm, with dfb, and writes df, as K1's backward does.
-    k8b_bytes = 4 * (f.numel() + B * N + B * (N * C + N + L) * D)
-    b_ms, b_by = bound(2 * B * segment_adds(cfg), k8b_bytes)
+    # The backward visits the i <= j cells only: it reads the mask of those,
+    # dfc and dfm of the unmasked ones, with dfb, and writes df, as K1's does.
+    b_ms, b_by = bound(*proposal_bwd_work(cfg, mm, 4))
     wct = wc.t().contiguous()
     g = cots[0].reshape(B, L * L * C, D)
     res["K8b"] = dict(
@@ -1983,6 +2013,29 @@ def phase_plans(configs):
                  f"{clusters}, smem {smem}")
         plan["waves"] = -(-plan["clusters"] // plan["max_active_clusters"])
         plans16[B] = plan
+    # The proposal kernels' plans (K1, K6, K8 and their bf16 variants) at
+    # the configs' maps, the card tests' narrow ones and the admission edges.
+    from video_moment_localization_tpu_torch.ops import proposal_cuda
+
+    proposal_held = 0
+    for T, L, C in sorted({(c.T, c.L, c.C) for _, c in configs}
+                          | {(16, 8, 4), (10, 5, 3), (445, 5, 4), (837, 16, 4), (838, 16, 4),
+                             (880, 4, 4)}):
+        for dtype in (torch.float32, torch.bfloat16):
+            for backward in (False, True):
+                got = proposal_cuda.library_plan(T, L, C, backward, dtype)
+                want = proposal_cuda.plan(T, L, C, backward, dtype)
+                if got != want:
+                    fail(f"proposal plan T={T} L={L} C={C} {dtype} backward={backward}: C "
+                         f"{got}, Python mirror {want}")
+                proposal_held += 1
+    for _, c in configs:
+        p = proposal_cuda.plan(c.T, c.L, c.C, True, torch.bfloat16)
+        print(f"proposal bf16 backward plan T={c.T} L={c.L}: {p['warps']} warps (a producer), "
+              f"{p['slots']} ring slots, {p['blocks_per_sm']} block(s) an SM, {p['smem']} B of "
+              f"shared memory")
+    print(f"plans: {proposal_held} proposal kernel plans (fp32 and bf16, forward and backward) "
+          f"equal to their Python mirror")
     print(f"plans: {held} GEMM launches of K2-K5, K7, K9, K10 (3 configs, B={PLAN_BATCHES}), "
           f"{pair_held} content-attention pair plans (every Nq, forward and backward, with "
           f"the backward's partial floats) and K5 at B={sorted(plans)} equal to their Python "
@@ -2753,6 +2806,7 @@ def phase_bf16(cfg, anet_cfg, serving, fp32_e2e, rng, device):
             device_ms=cuda_ms_back_to_back(lambda: lstm_cuda.bilstm_fused(x, mask, layers)),
             plain_ms=cuda_ms(lambda: bilstm_bf16(x, mask, layers)),
             library_ms=cuda_ms(lambda: library_lstm(x, lengths)),
+            library_device_ms=cuda_ms_back_to_back(lambda: library_lstm(x, lengths)),
             bound_ms=b_ms, bound_by=b_by)
         ins = backbone_inputs(cfg16, model, B, rng, device)
         w_bytes = sum(2 * w.numel() if w.dim() > 1 else 4 * w.numel()
@@ -2773,7 +2827,8 @@ def phase_bf16(cfg, anet_cfg, serving, fp32_e2e, rng, device):
             r = times[(k, B)]
             print(f"time {k}-bf16 B={B}: kernel {r['ms']:.4f} ms (back to back "
                   f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library "
-                  f"{r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+                  f"{r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                  f"{b2b_note(r)}")
 
     e2e = {}
     for B in (16, 512):
@@ -3280,17 +3335,21 @@ def phase_bf16_train(config, seed, rng, device):
         ms=cuda_ms(lambda: proposal_cuda.proposal_rows_forward(f, lmask, L, C)),
         device_ms=cuda_ms_back_to_back(lambda: proposal_cuda.proposal_rows_forward(f, lmask, L, C)),
         plain_ms=cuda_ms(lambda: proposal_cuda.proposal_rows_forward_plain_bf16(f, lmask, L, C)),
-        library_ms=cuda_ms(lambda: torch.matmul(wc, f)), bound_ms=b_ms, bound_by=b_by)
+        library_ms=cuda_ms(lambda: torch.matmul(wc, f)),
+        library_device_ms=cuda_ms_back_to_back(lambda: torch.matmul(wc, f)),
+        bound_ms=b_ms, bound_by=b_by)
     wct = wc.t().contiguous()
     g = cots[0].reshape(B, N * C, D)
-    b_ms, b_by = bound_bf16(2 * B * seg_adds, k1_bytes, 0)
+    b_ms, b_by = bound_bf16(*proposal_bwd_work(cfg16, lmask, 2), 0)
     res["K1b"] = dict(
         ms=cuda_ms(lambda: proposal_cuda.proposal_rows_backward(lmask, T, L, C, *cots)),
         device_ms=cuda_ms_back_to_back(
             lambda: proposal_cuda.proposal_rows_backward(lmask, T, L, C, *cots)),
         plain_ms=cuda_ms(lambda: proposal_cuda.proposal_rows_backward_plain_bf16(
             lmask, T, L, C, *cots)),
-        library_ms=cuda_ms(lambda: torch.matmul(wct, g)), bound_ms=b_ms, bound_by=b_by)
+        library_ms=cuda_ms(lambda: torch.matmul(wct, g)),
+        library_device_ms=cuda_ms_back_to_back(lambda: torch.matmul(wct, g)),
+        bound_ms=b_ms, bound_by=b_by)
     w_bytes = bf16_bytes(*weights)
     shared16 = bf16_bytes(*ins[3:])
     contractions = gemm_flops(cfg16, B, "K2") + B * layer_rest(cfg16, Nq)
@@ -3322,7 +3381,7 @@ def phase_bf16_train(config, seed, rng, device):
         r = res[k]
         print(f"time {k}-bf16 B={B}: kernel {r['ms']:.4f} ms (back to back "
               f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library {r['library_ms']} "
-              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}){b2b_note(r)}")
 
     # The GEMM's bf16 nn and tn layouts on K3's largest products.
     gemm_rows = []
@@ -3634,10 +3693,12 @@ def phase_bf16_content(anet, config, seed, rng, device):
             lambda: proposal_cuda.proposal_packed_forward(f, lmask, L, C), launches=5),
         plain_ms=cuda_ms(lambda: proposal_cuda.proposal_rows_forward_plain_bf16(f, lmask, L, C),
                          iters=5),
-        library_ms=cuda_ms(lambda: torch.matmul(wc, f), iters=9), bound_ms=b_ms, bound_by=b_by)
+        library_ms=cuda_ms(lambda: torch.matmul(wc, f), iters=9),
+        library_device_ms=cuda_ms_back_to_back(lambda: torch.matmul(wc, f), launches=5),
+        bound_ms=b_ms, bound_by=b_by)
     wct = wc.t().contiguous()
     g = k6_cots[0].reshape(B, NC, D)
-    b_ms, b_by = bound_bf16(2 * B * seg_adds, k6_bytes, 0)
+    b_ms, b_by = bound_bf16(*proposal_bwd_work(a16, lmask, 2), 0)
     res["K6b"] = dict(
         ms=cuda_ms(lambda: proposal_cuda.proposal_packed_backward(lmask, T, L, C, *k6_cots),
                    iters=9),
@@ -3645,7 +3706,9 @@ def phase_bf16_content(anet, config, seed, rng, device):
             lambda: proposal_cuda.proposal_packed_backward(lmask, T, L, C, *k6_cots), launches=5),
         plain_ms=cuda_ms(lambda: proposal_cuda.proposal_rows_backward_plain_bf16(
             lmask, T, L, C, *k6_cots), iters=5),
-        library_ms=cuda_ms(lambda: torch.matmul(wct, g), iters=9), bound_ms=b_ms, bound_by=b_by)
+        library_ms=cuda_ms(lambda: torch.matmul(wct, g), iters=9),
+        library_device_ms=cuda_ms_back_to_back(lambda: torch.matmul(wct, g), launches=5),
+        bound_ms=b_ms, bound_by=b_by)
     del wc, wct, g
     # K7-bf16: the content unit's contractions and the folded conv_fc, all
     # of bf16 operands; in fc and fbar (or cu and convfc out), the shared
@@ -3712,7 +3775,7 @@ def phase_bf16_content(anet, config, seed, rng, device):
         r = res[k]
         print(f"time {k}-bf16 B={B}: kernel {r['ms']:.4f} ms (back to back "
               f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library {r['library_ms']} "
-              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}){b2b_note(r)}")
 
     # The ActivityNet bf16 step: wall time, and its device time and busy
     # share under the profiler.
@@ -3821,14 +3884,13 @@ def k8_times(cfg, f, mm, cots, B, reps=5):
     """Times of K8 (or K8-bf16 on bf16 f) forward and backward at the
     inputs: one call and back to back, the plain version, the bytes bound
     (inputs read once, outputs written once, at the elements' width; the
-    backward reads the mask and the cotangents of the N cells i <= j), and
+    backward's `proposal_bwd_work`: the cotangents of the unmasked cells), and
     one ``torch.matmul`` with the dense Wc (or its transpose) at f's type."""
     import torch
 
     from video_moment_localization_tpu_torch.ops import proposal_cuda
 
     L, C, D, T = cfg.L, cfg.C, cfg.D, cfg.T
-    N = L * (L + 1) // 2
     e = f.element_size()
     bf = f.dtype == torch.bfloat16
     plain_fwd = (proposal_cuda.proposal_rows_forward_plain_bf16 if bf
@@ -3845,19 +3907,20 @@ def k8_times(cfg, f, mm, cots, B, reps=5):
             lambda: proposal_cuda.proposal_dense_forward(f, mm, L, C), launches=reps),
         plain_ms=cuda_ms(lambda: plain_fwd(f, mm, L, C), iters=5),
         library_ms=cuda_ms(lambda: torch.matmul(wc, f), iters=9),
+        library_device_ms=cuda_ms_back_to_back(lambda: torch.matmul(wc, f), launches=reps),
         bound_ms=b_ms, bound_by=b_by)}
     torch.cuda.empty_cache()
     wct = wc.t().contiguous()
     g = cots[0].reshape(B, L * L * C, D)
-    bwd_bytes = e * (f.numel() + B * (N * C + N + L) * D) + 4 * B * N
-    b_ms, b_by = (bound_bf16(2 * B * segment_adds(cfg), bwd_bytes, 0) if bf
-                  else bound(2 * B * segment_adds(cfg), bwd_bytes))
+    work = proposal_bwd_work(cfg, mm, e)
+    b_ms, b_by = bound_bf16(*work, 0) if bf else bound(*work)
     res["bwd"] = dict(
         ms=cuda_ms(lambda: proposal_cuda.proposal_dense_backward(mm, T, L, C, *cots), iters=9),
         device_ms=cuda_ms_back_to_back(
             lambda: proposal_cuda.proposal_dense_backward(mm, T, L, C, *cots), launches=reps),
         plain_ms=cuda_ms(lambda: plain_bwd(mm, T, L, C, *cots), iters=5),
         library_ms=cuda_ms(lambda: torch.matmul(wct, g), iters=9),
+        library_device_ms=cuda_ms_back_to_back(lambda: torch.matmul(wct, g), launches=reps),
         bound_ms=b_ms, bound_by=b_by)
     del wc, wct, g
     torch.cuda.empty_cache()
@@ -4047,7 +4110,8 @@ def phase_bf16_dense(anet, config, seed, rng, device):
             t = r[way]
             print(f"time {key} {way} {name} B={B}: kernel {t['ms']:.4f} ms (back to back "
                   f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, matmul "
-                  f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+                  f"{t['library_ms']:.4f} ms (back to back {t['library_device_ms']:.4f}), bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
 
     # K9-bf16 against three K2-bf16 launches at Charades B=64, and its times.
     torch.manual_seed(seed + 42)
@@ -4173,6 +4237,13 @@ def phase_bf16_dense(anet, config, seed, rng, device):
 def back_to_back(r):
     """The back-to-back device times of a timed row, where it has them."""
     return {k: r[k] for k in ("device_ms", "library_device_ms") if k in r}
+
+
+def b2b_note(r):
+    """The library call's back-to-back time of a timed row, for its line."""
+    if r.get("library_device_ms") is None:
+        return ""
+    return f", library back to back {r['library_device_ms']:.4f} ms"
 
 
 def main(argv=None) -> int:
@@ -4310,6 +4381,7 @@ def main(argv=None) -> int:
             "bound_ms_b512": r512["bound_ms"], "bound_by_b512": r512["bound_by"],
             "library_ms_b512": r512["library_ms"],
             "bound_fp32_ms": r16["bound_fp32_ms"], "bound_fp32_ms_b512": r512["bound_fp32_ms"],
+            **back_to_back(r16), **{f"{k}_b512": v for k, v in back_to_back(r512).items()},
         })
         ra = anet_times[key]
         kernels[-1].update({
@@ -4401,7 +4473,8 @@ def main(argv=None) -> int:
     for row, way in ((kernels[-5], "fwd"), (kernels[-4], "bwd")):
         r = bf16_dense["times"][("K8", "ActivityNet")][way]
         row.update({f"{k}_activitynet_b64": r[k] for k in
-                    ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+                    ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms",
+                     "bound_by")})
         row["max_abs_err_activitynet_b64"] = bf16_dense["errs"][f"K8 {way} ActivityNet B=64"]
     kernels[-3]["per_layer_k2_ms"] = mode_times["K9_per_layer_ms"]
     kernels[-1]["max_err_of_magnitude"] = mode_errs["K10b_rel"]
@@ -4416,8 +4489,8 @@ def main(argv=None) -> int:
             "launches": bf16["launches"][key], "max_abs_err": bf16["errs"][key],
             "ms": r16["ms"], "plain_ms": r16["plain_ms"], "bound_ms": r16["bound_ms"],
             "bound_by": r16["bound_by"], "library_ms": r16["library_ms"], "batch": 16,
-            "dtype": "bfloat16", "device_ms": r16["device_ms"],
-            "ms_b512": r512["ms"], "device_ms_b512": r512["device_ms"],
+            "dtype": "bfloat16", **back_to_back(r16),
+            "ms_b512": r512["ms"], **{f"{k}_b512": v for k, v in back_to_back(r512).items()},
             "plain_ms_b512": r512["plain_ms"], "bound_ms_b512": r512["bound_ms"],
             "bound_by_b512": r512["bound_by"], "library_ms_b512": r512["library_ms"],
         })
@@ -4438,7 +4511,7 @@ def main(argv=None) -> int:
             "max_abs_err": bf16_train["errs"][key],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "batch": TRAIN_BATCH,
-            "dtype": "bfloat16", "device_ms": r["device_ms"],
+            "dtype": "bfloat16", **back_to_back(r),
         })
     kernels[-1]["max_err_of_largest_weight_gradient"] = bf16_train["errs"]["K3_rel"]
     # The bf16 variants of K6, K7 (phase 21: launches on the 3 ActivityNet
@@ -4464,7 +4537,7 @@ def main(argv=None) -> int:
             "launches": launches, "max_abs_err": bc["errs"][key],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "batch": TRAIN_BATCH,
-            "dtype": "bfloat16", "device_ms": r["device_ms"], "config": config_name,
+            "dtype": "bfloat16", **back_to_back(r), "config": config_name,
         })
     kernels[-3]["max_err_of_largest_weight_gradient"] = bc["errs"]["K7_rel"]
     kernels[-1]["max_err_of_largest_weight_gradient"] = bc["errs"]["K10_rel"]
@@ -4482,9 +4555,10 @@ def main(argv=None) -> int:
             "max_abs_err": bd["errs"][f"K8-bf16 {way} Charades B=64"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "batch": TRAIN_BATCH,
-            "dtype": "bfloat16", "device_ms": r["device_ms"], "mode": "dense",
+            "dtype": "bfloat16", **back_to_back(r), "mode": "dense",
             **{f"{k}_activitynet_b64": ra[k] for k in
-               ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+               ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms",
+                "bound_by")},
             "max_abs_err_activitynet_b64": bd["errs"][f"K8-bf16 {way} ActivityNet B=64"]})
     r = bd["times"]["K9-bf16"]
     kernels.append({

@@ -14,6 +14,7 @@ without them:
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -508,47 +509,50 @@ _PROPOSAL_ENTRIES = {
 }
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("cfg,B", [(CHARADES, 64), (ACTIVITYNET, 8)])
 @pytest.mark.parametrize("kernel", list(_PROPOSAL_ENTRIES))
-def test_proposal_backward_is_repeatable(card, kernel, cfg, B):
+def test_proposal_backward_is_repeatable(card, kernel, cfg, B, dtype):
     """Two launches of a backward give the same bits: a fixed partition of
-    the moments over warps and sums in one fixed order, no atomics."""
+    the moments over warps and sums in one fixed order, no atomics (at bf16
+    whatever order the TMA copies of the ring land in)."""
     dense, _, backward = _PROPOSAL_ENTRIES[kernel]
     mask, _, cots = _proposal_case(cfg, B, dense, seed=B)
-    mask, cots = mask.to(card), [c.to(card) for c in cots]
+    mask, cots = mask.to(card), [c.to(dtype).to(card) for c in cots]
     first = backward(mask, cfg.T, cfg.L, cfg.C, *cots)
     second = backward(mask, cfg.T, cfg.L, cfg.C, *cots)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
 
 
-def _nan_blocks(shapes, device):
+def _nan_blocks(shapes, device, dtype=torch.float32):
     """Fill blocks of the caching allocator of these shapes with NaN and
     free them, so that the next allocations of the same sizes get them.
     Returns their addresses."""
     torch.cuda.empty_cache()
-    blocks = [torch.full(s, float("nan"), device=device) for s in shapes]
+    blocks = [torch.full(s, float("nan"), device=device, dtype=dtype) for s in shapes]
     ptrs = {b.data_ptr() for b in blocks}
     del blocks
     return ptrs
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("kernel", list(_PROPOSAL_ENTRIES))
-def test_proposal_kernels_write_every_element(card, kernel):
+def test_proposal_kernels_write_every_element(card, kernel, dtype):
     """Outputs come from torch.empty: a launch onto NaN-filled memory leaves
     no NaN (zeros below the diagonal and for missing clips are written)."""
     cfg, B = CHARADES, 64     # every output over 1 MB: the large pool, exact fits
     dense, forward, backward = _PROPOSAL_ENTRIES[kernel]
     mask, f, cots = _proposal_case(cfg, B, dense)
-    mask, f, cots = mask.to(card), f.to(card), [c.to(card) for c in cots]
+    mask, f, cots = mask.to(card), f.to(dtype).to(card), [c.to(dtype).to(card) for c in cots]
     torch.cuda.synchronize()
-    ptrs = _nan_blocks([tuple(c.shape) for c in cots], card)
+    ptrs = _nan_blocks([tuple(c.shape) for c in cots], card, dtype)
     out = forward(f, mask, cfg.L, cfg.C)
     torch.cuda.synchronize()
     assert {o.data_ptr() for o in out} <= ptrs
     assert not any(bool(o.isnan().any()) for o in out)
     del out
-    ptrs = _nan_blocks([(B, cfg.T, cfg.D)], card)
+    ptrs = _nan_blocks([(B, cfg.T, cfg.D)], card, dtype)
     df = backward(mask, cfg.T, cfg.L, cfg.C, *cots)
     torch.cuda.synchronize()
     assert df.data_ptr() in ptrs
@@ -573,6 +577,33 @@ def test_proposal_wrappers_refuse_what_the_kernels_do_not_take(card):
     proposal_cuda.proposal_rows_forward(torch.zeros(B, 256, D, device=card), lmask, L, C)
     with pytest.raises(ValueError, match="shared memory"):
         proposal_cuda.proposal_rows_forward(torch.zeros(B, 912, D, device=card), lmask, L, C)
+    # bf16: T <= 445 forward, T <= 837 backward at L=16, C=4.
+    bf = torch.bfloat16
+    proposal_cuda.proposal_rows_forward(torch.zeros(B, 432, D, device=card, dtype=bf), lmask, L, C)
+    with pytest.raises(ValueError, match="shared memory"):
+        proposal_cuda.proposal_rows_forward(torch.zeros(B, 448, D, device=card, dtype=bf), lmask,
+                                            L, C)
+    cots = [torch.zeros(B, N, C, D, device=card, dtype=bf), torch.zeros(B, N, D, device=card,
+                                                                         dtype=bf),
+            torch.zeros(B, L, D, device=card, dtype=bf)]
+    proposal_cuda.proposal_rows_backward(lmask, 832, L, C, *cots)
+    with pytest.raises(ValueError, match="shared memory"):
+        proposal_cuda.proposal_rows_backward(lmask, 848, L, C, *cots)
+    torch.cuda.synchronize()
+
+
+def test_proposal_plan_matches_the_library(card):
+    """The wrapper's mirror of the launch plans (`proposal_cuda.plan`: warps
+    and columns a block, the bf16 backward's blocks an SM and ring slots,
+    shared memory) equals the library's own (``vml_proposal_plan``), at the
+    shipped maps, the narrow ones and the admission edges, both dtypes."""
+    for T, L in ((64, 16), (128, 64), (128, 32), (16, 8), (10, 5), (32, 32), (445, 5),
+                 (837, 16), (838, 16), (880, 4), (1763, 16)):
+        for C in (3, 4, 8):
+            for dtype in (torch.float32, torch.bfloat16):
+                for backward in (False, True):
+                    assert proposal_cuda.library_plan(T, L, C, backward, dtype) == \
+                        proposal_cuda.plan(T, L, C, backward, dtype), (T, L, C, dtype, backward)
 
 @pytest.mark.parametrize("cfg,B", [(TINY, 1), (TINY, 9), (ODD, 7), (CHARADES, 5)])
 def test_content_unit_kernels_match_plain(card, cfg, B):
@@ -1452,6 +1483,92 @@ def test_proposal_packed_bf16_kernels_match_plain(card, cfg, B):
     atol = GRAD_ATOL_REL * float(dref.abs().max())
     assert bool(((df.float() - dref).abs() <= (2.0 ** -8 + GRAD_RTOL) * dref.abs() + atol).all())
     assert torch.equal(df, again)
+
+
+def _bf16_layout_case(dense, T, L, C, D, B, seed):
+    """bf16 f, a ragged mask of the layout and bf16 cotangents, on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    f = torch.randn(B, T, D, generator=g).bfloat16()
+    if dense:
+        mask = _moment_mask(SimpleNamespace(L=L), B, g)
+        lead = (B, L, L)
+    else:
+        nlen = torch.randint(1, L + 1, (B,), generator=g)
+        nlen[0] = L
+        mask = (torch.arange(L)[None, :] < nlen[:, None]).float()
+        lead = (B, L * (L + 1) // 2)
+    cots = [torch.randn(lead + (C, D), generator=g).bfloat16(),
+            torch.randn(lead + (D,), generator=g).bfloat16(),
+            torch.randn(B, L, D, generator=g).bfloat16()]
+    return f, mask, cots
+
+
+def _hold_bf16_layout(dense, f, mask, cots, L, C, fwd_out, df):
+    """A bf16 forward and backward of the layout within one bf16 rounding of
+    the plain version's fp32 value on top of the fp32 tolerances."""
+    T = f.shape[1]
+    plain = proposal_cuda.proposal_features if dense else proposal_cuda.proposal_features_packed
+    for x, r in zip(fwd_out, plain(f.float(), mask, L, C)):
+        assert x.dtype == torch.bfloat16
+        assert bool(((x.float() - r).abs() <= (2.0 ** -8 + 1e-4) * r.abs() + 1e-5).all())
+    dref = proposal_cuda.proposal_backward_plain(mask, T, L, C, *(c.float() for c in cots))
+    atol = GRAD_ATOL_REL * float(dref.abs().max())
+    assert bool(((df.float() - dref).abs() <= (2.0 ** -8 + GRAD_RTOL) * dref.abs() + atol).all())
+
+
+@pytest.mark.parametrize("D", [30, 100, 520])
+@pytest.mark.parametrize("kernel", ["K6", "K8"])
+def test_proposal_bf16_kernels_at_ragged_widths(card, kernel, D):
+    """K6-bf16 and K8-bf16 where D is no multiple of the 64 columns of a
+    block: D=30 and D=100 (no multiple of 8 either: the scalar path, rows not
+    16-byte aligned) and D=520 (the vector path with a last tile of 8
+    columns); against the plain version, twice bit for bit."""
+    dense, forward, backward = _PROPOSAL_ENTRIES[kernel]
+    T, L, C, B = 32, 8, 4, 5
+    f, mask, cots = _bf16_layout_case(dense, T, L, C, D, B, seed=D)
+    f, mask, cots = f.to(card), mask.to(card), [c.to(card) for c in cots]
+    assert proposal_cuda.vector_path(D, [f, *cots]) == (D == 520)
+    before = (forward.launches_bf16, backward.launches_bf16)
+    out = forward(f, mask, L, C)
+    again = forward(f, mask, L, C)
+    df = backward(mask, T, L, C, *cots)
+    torch.cuda.synchronize()
+    assert (forward.launches_bf16, backward.launches_bf16) == (before[0] + 2, before[1] + 1)
+    assert all(torch.equal(x, y) for x, y in zip(out, again))
+    assert torch.equal(df, backward(mask, T, L, C, *cots))
+    _hold_bf16_layout(dense, f, mask, cots, L, C, out, df)
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data pointer sits 2 bytes past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 2
+    return view
+
+
+@pytest.mark.parametrize("kernel", ["K6", "K8"])
+def test_proposal_bf16_misaligned_views_run_the_scalar_path(card, kernel):
+    """Contiguous views whose data pointers break the vector path's 16-byte
+    alignment (D=512) run the scalar path of the same kernels, launched and
+    counted (no plain fallback), and give the vector path's bits."""
+    dense, forward, backward = _PROPOSAL_ENTRIES[kernel]
+    T, L, C, D, B = 32, 8, 4, 512, 3
+    f, mask, cots = _bf16_layout_case(dense, T, L, C, D, B, seed=7)
+    f, mask, cots = f.to(card), mask.to(card), [c.to(card) for c in cots]
+    fv, cv = _misaligned(f), [_misaligned(c) for c in cots]
+    assert proposal_cuda.vector_path(D, [f, *cots])
+    assert not proposal_cuda.vector_path(D, [fv]) and not proposal_cuda.vector_path(D, cv)
+    before = (forward.launches_bf16, backward.launches_bf16)
+    out, out_v = forward(f, mask, L, C), forward(fv, mask, L, C)
+    df, df_v = backward(mask, T, L, C, *cots), backward(mask, T, L, C, *cv)
+    torch.cuda.synchronize()
+    assert (forward.launches_bf16, backward.launches_bf16) == (before[0] + 2, before[1] + 2)
+    assert all(torch.equal(x, y) for x, y in zip(out, out_v))
+    assert torch.equal(df, df_v)
+    _hold_bf16_layout(dense, fv, mask, cv, L, C, out_v, df_v)
 
 
 def _bulk_rel_bf16(got, want, name, scale=None):

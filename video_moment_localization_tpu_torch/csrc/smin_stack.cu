@@ -123,7 +123,7 @@ int stack_forward(void* stream, int B, int T, int L, int C, int Nq, int D, int d
     carve(ws, B, L, C, Nq, D, dl, &w);
     cudaError_t err;
 
-    err = vml::pool_forward<false, E, E>(st, B, T, L, C, D, f, lmask, w.fc, w.fm, w.fb);
+    err = vml::pool_forward<false, E>(st, B, T, L, C, D, f, lmask, w.fc, w.fm, w.fb);
     if (err != cudaSuccess) return (int)err;
 
     for (int layer = 0; layer < n_layers; ++layer) {

@@ -22,7 +22,7 @@ both templated on the layout: two C entry points for the packed layout (K1
 and K6, each with its own launch counters) and two for the dense one (K8).
 Both kernels take any D; they refuse a T whose shared-memory tile exceeds
 what a block may have (`check_smem`: T <= 899 forward, T <= 1763 backward
-at L=16).
+at L=16 at fp32).
 
 `proposal_features_rows` (K1), `proposal_features_packed_fused` (K6) and
 `proposal_features_dense_fused` (K8) are the differentiable entries
@@ -35,19 +35,32 @@ and autograd through it), on a CUDA tensor it launches its kernel or raises.
 ``.launches`` on each counts the launches.
 
 All three have bf16 variants (K1-bf16, K6-bf16 and K8-bf16, the training
-paths at bf16), taken on a bf16 f or bf16 cotangents: the same kernels
-reading and writing bf16 (K6-bf16 launches K1-bf16's two C entry points),
-with fp32 / fp64 sums inside and one rounding per stored value; the masks
-stay fp32. Their plain versions are the fp32 ones of the layout on the bf16
-values, rounded once (`proposal_rows_forward_plain_bf16`,
-`proposal_rows_backward_plain_bf16`, which take either layout by the mask's
-rank). This follows the JAX kernels as their tests run them (interpret
-mode): pooled in fp32, fc, fm and fb each rounded once, and the backward
-(K8's the XLA VJP of the fp32 prefix sums) the fp32 transpose of the bf16
-cotangents' values, df rounded once. On the TPU, K8 at bf16 multiplies at
-``Precision.DEFAULT``, which would also round its averaging matrix Wc's
-weights (1 / clip length) to bf16; interpret mode on the CPU does not, and
-neither does this port. ``.launches_bf16`` counts their launches.
+paths at bf16), taken on a bf16 f or bf16 cotangents (K6-bf16 launches
+K1-bf16's two C entry points), with fp32 / fp64 sums inside and one rounding
+per stored value; the masks stay fp32. They run kernels of their own,
+designed for 2-byte elements: the forward (`pool_kernel_bf16`) gives a lane
+four adjacent columns, so every warp store is one 256-byte row segment, with
+fp32 prefix sums of the block's 128 columns (the plain version's type); the
+backward (`proposal_bwd_bf16_kernel`) gives a lane two, so every row it reads
+is a 128-byte segment: a producer warp streams the unmasked moments' rows,
+in chunks of up to 8 adjacent moments, into a ring in shared memory by TMA
+copies completed on mbarriers, and consumer warps, each with its own T x 64
+fp32 difference array, scatter them. `plan` mirrors both launch plans (the
+library's own: ``vml_proposal_plan``); at L=16 and C=4 they take T <= 445
+forward and T <= 837 backward (`check_smem`). Their vector path (and the
+backward's TMA path) needs D % 8 == 0 and 16-byte aligned data pointers
+(`vector_path`); any other D or pointer takes the scalar path inside the
+same kernels. Their plain
+versions are the fp32 ones of the layout on the bf16 values, rounded once
+(`proposal_rows_forward_plain_bf16`, `proposal_rows_backward_plain_bf16`,
+which take either layout by the mask's rank). This follows the JAX kernels as
+their tests run them (interpret mode): pooled in fp32, fc, fm and fb each
+rounded once, and the backward (K8's the XLA VJP of the fp32 prefix sums) the
+fp32 transpose of the bf16 cotangents' values, df rounded once. On the TPU,
+K8 at bf16 multiplies at ``Precision.DEFAULT``, which would also round its
+averaging matrix Wc's weights (1 / clip length) to bf16; interpret mode on
+the CPU does not, and neither does this port. ``.launches_bf16`` counts their
+launches.
 """
 
 from __future__ import annotations
@@ -71,12 +84,22 @@ from video_moment_localization_tpu_torch.ops.proposal import (
 )
 
 Features = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
-# A block of either kernel owns one element and 32 columns; the forward's has
-# 8 warps, the backward's up to 16 (csrc/proposal.cuh: kPropCols, kPoolWarps;
-# csrc/proposal_rows.cu: kMaxWarps, scatter_warps). Shared memory of one H100
-# block and SM, and what the SM reserves per block.
+# A fp32 block of either kernel owns one element and 32 columns; the
+# forward's has 8 warps, the backward's up to 16 (csrc/proposal.cuh:
+# kPropCols, kPoolWarps; csrc/proposal_rows.cu: kMaxWarps, scatter_warps).
+# Shared memory of one H100 block and SM, and what the SM reserves per block.
 _COLS, _POOL_WARPS, _MAX_SCATTER_WARPS = 32, 8, 16
 _SM_SMEM, _RESERVED = 233472, 1024
+# The bf16 kernels: a forward of 8 warps (kPool16Warps), four columns a
+# lane (kPoolCPL) and 8 x 32 16-byte run totals; a backward of 64 columns a
+# block (kPairCols, 128-byte rows), 8 x 32 double2 run totals
+# (kMaxPairWarps, kRunTotalPairBytes), up to 4 consumer warps
+# (kPairConsumers), chunks of 8 moments (kBoxMoments) and a ring of up to 32
+# slots (kMaxSlots), 2 a consumer at least (kMinSlots).
+_POOL16_WARPS, _POOL_CPL = 8, 4
+_PAIR_COLS, _MAX_PAIR_WARPS, _ROW = 64, 8, 128
+_RUN_TOTAL16, _RUN_TOTAL_PAIR = _POOL16_WARPS * 32 * 16, _MAX_PAIR_WARPS * 32 * 16
+_PAIR_CONSUMERS, _BOX_MOMENTS, _MAX_SLOTS, _MIN_SLOTS = 4, 8, 32, 2
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,6 +112,8 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.vml_proposal_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.vml_proposal_smem_bytes.restype = ctypes.c_size_t
+    lib.vml_proposal_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+    lib.vml_proposal_plan.restype = None
     return lib
 
 
@@ -119,15 +144,15 @@ def _check_geometry(T: int, L: int, C: int) -> None:
 
 
 def _scatter_extra(L: int) -> int:
-    """The backward's shared memory beside its difference arrays: the N pair
-    masks, the L x 32 tile of dfb and the 16 x 32 fp64 run totals."""
+    """The fp32 backward's shared memory beside its difference arrays: the N
+    pair masks, the L x 32 tile of dfb and the 16 x 32 fp64 run totals."""
     return (L * (L + 1) // 2 + L * _COLS) * 4 + _MAX_SCATTER_WARPS * _COLS * 8
 
 
 def backward_warps(T: int, L: int) -> int:
-    """Warps of a backward block at T frames and L snippets: two blocks of 8
-    per SM where they fit, else as many T x 32 fp32 difference arrays as fit,
-    up to 16; 0 if none fits (csrc/proposal_rows.cu::scatter_warps)."""
+    """Warps of a fp32 backward block at T frames and L snippets: two blocks
+    of 8 per SM where they fit, else as many T x 32 fp32 difference arrays as
+    fit, up to 16; 0 if none fits (csrc/proposal_rows.cu::scatter_warps)."""
     per_warp, extra = T * _COLS * 4, _scatter_extra(L)
     if 2 * (8 * per_warp + extra + _RESERVED) <= _SM_SMEM:
         return 8
@@ -137,7 +162,7 @@ def backward_warps(T: int, L: int) -> int:
 
 
 def proposal_smem_bytes(T: int, L: int, backward: bool) -> int:
-    """Shared memory per block: the forward's fp64 prefix sums of a
+    """Shared memory per fp32 block: the forward's fp64 prefix sums of a
     (T + 1) x 32 tile and its 8 x 32 fp64 run totals, or the backward's
     difference arrays (one at least) and `_scatter_extra`
     (csrc/proposal_rows.cu::vml_proposal_smem_bytes)."""
@@ -146,14 +171,93 @@ def proposal_smem_bytes(T: int, L: int, backward: bool) -> int:
     return (T + 1) * _COLS * 8 + _POOL_WARPS * _COLS * 8
 
 
-def check_smem(fn: str, T: int, L: int, backward: bool) -> None:
-    """Raise unless the pooling forward (or the backward) takes T frames at L
-    snippets: its tile must fit the shared memory one block may have."""
-    need = proposal_smem_bytes(T, L, backward)
-    if need > MAX_SMEM_BYTES:
+def _slot_bytes(C: int) -> int:
+    """One slot of the bf16 backward's ring: the dfc and dfm boxes (C + 1
+    rows of 128 bytes a moment) of a chunk of 8 moments."""
+    return _BOX_MOMENTS * (C + 1) * _ROW
+
+
+def _pair_fixed_bytes(L: int) -> int:
+    """The bf16 backward's shared memory beside its ring and difference
+    arrays: the ring's alignment (128 bytes), the list of unmasked moments (a
+    word and mask / clip length each of the N pairs at most), the clip
+    geometry by moment length (L int2), the L x 64 bf16 dfb tile and the
+    chunk starts (N + 1 16-bit)."""
+    N = L * (L + 1) // 2
+    return 128 + N * 8 + L * 8 + L * _ROW + (N + 1) * 2
+
+
+def pair_plan(T: int, L: int, C: int) -> Tuple[int, int, int, int]:
+    """(consumer warps, ring slots, blocks an SM, dynamic shared memory) of
+    the bf16 backward (csrc/proposal_rows.cu::pair_plan): two blocks an SM
+    where half of it holds 4 T x 64 fp32 difference arrays (a consumer warp
+    each) and 2 slots for each, else one block with as many consumers as fit
+    so, up to 4; the ring takes the rest, up to 32 slots, a multiple of the
+    consumers. (0, 0, 0, 0) where not even one consumer fits."""
+    per_warp, per_slot, fixed = T * _PAIR_COLS * 4, _slot_bytes(C) + 16, _pair_fixed_bytes(L)
+    half = _SM_SMEM // 2 - _RESERVED - _RUN_TOTAL_PAIR
+    whole = MAX_SMEM_BYTES - _RUN_TOTAL_PAIR
+    for blocks, room in ((2, half), (1, whole)):
+        if room < fixed:
+            continue
+        warps = min(_PAIR_CONSUMERS, (room - fixed) // (per_warp + _MIN_SLOTS * per_slot))
+        if warps == 0 or (blocks == 2 and warps < _PAIR_CONSUMERS):
+            continue
+        slots = min(_MAX_SLOTS, (room - fixed - warps * per_warp) // per_slot)
+        slots -= slots % warps
+        return warps, slots, blocks, fixed + warps * per_warp + slots * per_slot
+    return 0, 0, 0, 0
+
+
+def plan(T: int, L: int, C: int, backward: bool, dtype=torch.float32) -> dict:
+    """The launch plan of the forward or the backward at ``dtype``
+    (csrc/proposal_rows.cu::vml_proposal_plan): warps and columns a block,
+    blocks an SM and ring slots (the bf16 backward; 0 otherwise), shared
+    memory a block, dynamic and static (0 where no plan fits)."""
+    if dtype == torch.float32:
+        warps = backward_warps(T, L) if backward else _POOL_WARPS
+        smem = proposal_smem_bytes(T, L, backward) if warps else 0
+        return dict(warps=warps, cols=_COLS, blocks_per_sm=0, smem=smem, slots=0)
+    if not backward:
+        return dict(warps=_POOL16_WARPS, cols=32 * _POOL_CPL, blocks_per_sm=0,
+                    smem=(T + 1) * 32 * _POOL_CPL * 4 + _RUN_TOTAL16, slots=0)
+    consumers, slots, blocks, smem = pair_plan(T, L, C)
+    return dict(warps=consumers + 1 if consumers else 0, cols=_PAIR_COLS, blocks_per_sm=blocks,
+                smem=smem + _RUN_TOTAL_PAIR if consumers else 0, slots=slots)
+
+
+def library_plan(T: int, L: int, C: int, backward: bool, dtype=torch.float32) -> dict:
+    """`plan` as the library computes it (``vml_proposal_plan``), on the card."""
+    out = (ctypes.c_longlong * 5)()
+    _library().vml_proposal_plan(T, L, C, int(backward), int(dtype == torch.bfloat16), out)
+    return dict(zip(("warps", "cols", "blocks_per_sm", "smem", "slots"), list(out)))
+
+
+def vector_path(D: int, tensors) -> bool:
+    """Whether the bf16 kernels take their vector path on these tensors (bf16x2
+    accesses, and the backward's TMA copies): D a multiple of 8 and every
+    data pointer 16-byte aligned (csrc/proposal.cuh::pair_vector); else their
+    scalar path."""
+    return D % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def check_smem(fn: str, T: int, L: int, C: int, backward: bool, dtype=torch.float32) -> None:
+    """Raise unless the pooling forward (or the backward) at ``dtype`` takes
+    T frames at L snippets and C clips: its tile (or the backward's difference
+    arrays, and the bf16 backward's ring) must fit the shared memory one
+    block may have."""
+    if dtype == torch.bfloat16 and backward:
+        fits = pair_plan(T, L, C)[0] > 0
+        need = (_pair_fixed_bytes(L) + T * _PAIR_COLS * 4 + _MIN_SLOTS * (_slot_bytes(C) + 16)
+                + _RUN_TOTAL_PAIR)
+    else:
+        need = plan(T, L, C, backward, dtype)["smem"] if dtype == torch.bfloat16 \
+            else proposal_smem_bytes(T, L, backward)
+        fits = need <= MAX_SMEM_BYTES
+    if not fits:
         raise ValueError(f"{fn}: T={T} frames need {need} B of shared memory per block for "
-                         f"the {'backward' if backward else 'forward'} kernel, more than the "
-                         f"{MAX_SMEM_BYTES} B a block may have")
+                         f"the {'backward' if backward else 'forward'} kernel at {dtype}, more "
+                         f"than the {MAX_SMEM_BYTES} B a block may have")
 
 
 def _plain_forward(dense: bool):
@@ -210,7 +314,7 @@ def _launch_forward(fn: str, dense: bool, f: torch.Tensor, mask: torch.Tensor, L
                     C: int) -> Features:
     B, T, D = f.shape
     _check_geometry(T, L, C)
-    check_smem(fn, T, L, backward=False)
+    check_smem(fn, T, L, C, False, f.dtype)
     _check_device(fn, f)
     mask_shape, lead = _shapes(B, L, dense)
     suffix = _kernel_dtype(fn, f.dtype)
@@ -229,7 +333,7 @@ def _launch_backward(fn: str, dense: bool, mask: torch.Tensor, T: int, L: int, C
                      dfc: torch.Tensor, dfm: torch.Tensor, dfb: torch.Tensor) -> torch.Tensor:
     B, D = dfc.shape[0], dfc.shape[-1]
     _check_geometry(T, L, C)
-    check_smem(fn, T, L, backward=True)
+    check_smem(fn, T, L, C, True, dfc.dtype)
     _check_device(fn, dfc)
     mask_shape, lead = _shapes(B, L, dense)
     suffix = _kernel_dtype(fn, dfc.dtype)

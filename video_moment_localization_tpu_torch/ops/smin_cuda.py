@@ -152,7 +152,7 @@ def smin_stack_fused(model: SMIN, cfg: ModelConfig, f, fw, fs, query_mask,
     smem = lib.vml_smin_smem_bytes(L, C, Nq, D, dl)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"L={L}, Nq={Nq}, D={D} need {smem} B of shared memory per block")
-    check_smem("smin_stack_fused", T, L, backward=False)   # the pooling phase
+    check_smem("smin_stack_fused", T, L, C, False, f.dtype)   # the pooling phase
     ws = torch.empty(lib.vml_smin_workspace_bytes(B, L, C, Nq, D, dl, int(bf16)),
                      device=f.device, dtype=torch.uint8)
     pm = torch.empty((B, N), device=f.device, dtype=torch.float32)
