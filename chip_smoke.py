@@ -16,9 +16,10 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
    (pairs per pass, passes, blocks per element, shared memory, the
    backward's partial floats) at every query length of those configs and
    batches, and of K5's rows per cluster and shared memory, against their C
-   counterparts on the card, each also at bf16 (the GEMM's bf16 path on
-   every product of K4-bf16, K5-bf16, K2-bf16 and K3-bf16 in its three
-   layouts, K5-bf16's rows per cluster; the pair's plans are those of fp32
+   counterparts on the card, each also at bf16 (the GEMM's bf16 plan, which
+   kernel and its tiles, blocks and slices, on every product of K2-K5, K7,
+   K9 and K10 at bf16 in its three layouts, with operands TMA can read and
+   cannot; K5-bf16's rows per cluster; the pair's plans are those of fp32
    rows at either type), and the proposal kernels' launch plans at both
    types (``ops/proposal_cuda.py::plan`` against ``vml_proposal_plan``);
    print K5's clusters per wave at B=16/64/512 at both types;
@@ -109,7 +110,11 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
     both paths: 3xTF32 on the tensor cores (ms, TFLOP/s of fp32 products,
     share of the 165 TFLOP/s that 495 TFLOP/s of TF32 gives) and fp32 on the
     CUDA cores (share of 67 TFLOP/s), with the path each product runs on,
-    beside ``torch.matmul`` on the same operands with TF32 off;
+    beside ``torch.matmul`` on the same operands with TF32 off; then every
+    bf16 product of K7-bf16 (ActivityNet B=64) and K4-bf16 (Charades B=512
+    and B=16) on its epilogue, on both bf16 kernels (wgmma and mma.sync,
+    the first held to the second), beside bf16 ``torch.matmul``, against its
+    bound (``utils/bench_gemm_bf16.py``);
 15. the content-attention pair alone (``csrc/content_attn.cu``, the device
     code that K4, K2, K3, K7, K9 and K10 run between the content unit's
     projections) at Charades B=64 and B=512 and ActivityNet B=64, on the
@@ -1980,16 +1985,20 @@ def phase_plans(configs):
                     fail(f"GEMM plan of {kernel} {prod} ({layout} {M}x{N}x{K}, {name} B={B}): "
                          f"C {got}, Python mirror {want}")
                 held += 1
-            # The bf16 variants of K4, K5, K2 and K3: the GEMM's bf16 path
-            # (the pair's plans are those of fp32 rows: it stages bf16 rows
-            # in fp32).
+            # The bf16 variants of K2-K5, K7, K9 and K10: the GEMM's bf16
+            # path, the wgmma kernel where TMA can read the operands (the
+            # model's always can), the mma.sync kernel where it cannot (the
+            # pair's plans are those of fp32 rows: it stages bf16 rows in
+            # fp32).
             for kernel, prod, layout, M, N, K, groups in gemm_cuda.model_gemm_shapes_bf16(cfg, B):
-                got = gemm_cuda.card_plan(layout, M, N, K, groups, prod, dtype=torch.bfloat16)
-                want = gemm_cuda.plan(layout, M, N, K, groups, prod, dtype=torch.bfloat16)
-                if got != want or want["path"] != gemm_cuda.BF16:
-                    fail(f"bf16 GEMM plan of {kernel} {prod} ({M}x{N}x{K}, {name} B={B}): "
-                         f"C {got}, Python mirror {want}")
-                held_bf16 += 1
+                for tma_ok, path in ((True, gemm_cuda.BF16_WG), (False, gemm_cuda.BF16)):
+                    got = gemm_cuda.card_plan(layout, M, N, K, groups, prod, torch.bfloat16,
+                                              tma_ok)
+                    want = gemm_cuda.plan(layout, M, N, K, groups, prod, torch.bfloat16, tma_ok)
+                    if got != want or want["path"] != path:
+                        fail(f"bf16 GEMM plan of {kernel} {prod} ({M}x{N}x{K}, {name} B={B}, "
+                             f"TMA-readable {tma_ok}): C {got}, Python mirror {want}")
+                    held_bf16 += 1
     active = {r: lstm_cuda.card_max_active_clusters(r) for r in lstm_cuda.row_choices(256)}
     plans = {}
     for B in PLAN_BATCHES + (17, 520):
@@ -2041,8 +2050,9 @@ def phase_plans(configs):
           f"the backward's partial floats) and K5 at B={sorted(plans)} equal to their Python "
           f"mirrors; K5 clusters of 8 CTAs the card holds at once by rows per cluster: "
           f"{active}")
-    print(f"plans bf16: {held_bf16} GEMM launches of K4-bf16, K5-bf16, K2-bf16 and K3-bf16 "
-          f"(bf16 path, layouts nt / nn / tn) and K5-bf16 at B={sorted(plans16)} equal to their "
+    print(f"plans bf16: {held_bf16} GEMM launches of K2-K5, K7, K9, K10 at bf16 (layouts nt / "
+          f"nn / tn, the wgmma kernel and, for operands TMA cannot read, the mma.sync one) and "
+          f"K5-bf16 at B={sorted(plans16)} equal to their "
           f"Python mirrors; K5-bf16 clusters the card holds at once by rows per cluster: "
           f"{active16}")
     for name, cfg in configs:
@@ -4343,6 +4353,12 @@ def main(argv=None) -> int:
     del model
     torch.cuda.empty_cache()
     gemm_rows = phase_gemm(cfg, anet.model, device)
+    # The bf16 products of K7-bf16 (ActivityNet B=64) and K4-bf16 (Charades
+    # B=512 and B=16) on their epilogues, on both bf16 kernels, beside bf16
+    # torch.matmul, each against its bound (utils/bench_gemm_bf16.py).
+    from video_moment_localization_tpu_torch.utils import bench_gemm_bf16
+
+    gemm_bf16_rows = bench_gemm_bf16.run(launches=10, seed=args.seed, quick=False)
     lap(14)
     pair_times, pair_errs = phase_pair({"charadessta": cfg, "activitynet": anet.model}, rng,
                                        device)
@@ -4591,6 +4607,7 @@ def main(argv=None) -> int:
                "launches_per_step": {k: v // TRAIN_STEPS for k, v in modes[mode][3].items() if v}}
         for mode in ("dense", "compat")}}))
     print(json.dumps({"gemm": gemm_rows}))
+    print(json.dumps({"gemm_bf16": gemm_bf16_rows}))
     print(json.dumps({"files_training": files}))
     print(json.dumps({"serving_pairs_per_s_device": {
         str(B): B / times[("e2e", B)] * 1e3 for B in (16, 512)}}))

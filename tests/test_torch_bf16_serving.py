@@ -261,16 +261,21 @@ def test_content_attn_plain_bf16_is_the_fp32_pair_rounded():
 
 @pytest.mark.parametrize("B", [1, 16, 64, 512])
 def test_bf16_plans(B):
-    """The bf16 plans of the mirrors: every bf16 product of K4, K5, K2 and
-    K3 takes the bf16 path with the fp32 tile rule (gemm_tn: 128x128) and
-    fits two blocks an SM, in all three layouts; K5's rows per cluster at
-    bf16 fit a block, with less shared memory per CTA than at fp32 (the
-    pair's plans are those of fp32 rows: it stages bf16 rows in fp32)."""
+    """The bf16 plans of the mirrors: every bf16 product of K4, K5, K2, K3,
+    K7, K9 and K10 takes the wgmma kernel (one block an SM) where TMA can
+    read its operands and the mma.sync kernel with the fp32 tile rule
+    (gemm_tn: 128x128, two blocks an SM) where it cannot, in all three
+    layouts; K5's rows per cluster at bf16 fit a block, with less shared
+    memory per CTA than at fp32 (the pair's plans are those of fp32 rows: it
+    stages bf16 rows in fp32)."""
     charades = ModelConfig()
     layouts = set()
     for kernel, name, layout, M, N, K, groups in gemm_cuda.model_gemm_shapes_bf16(charades, B):
-        p = gemm_cuda.plan(layout, M, N, K, groups, name, dtype=torch.bfloat16)
         tile = 0 if layout == "tn" else gemm_cuda.tile_for(M, N, groups)
+        p = gemm_cuda.plan(layout, M, N, K, groups, name, dtype=torch.bfloat16)
+        assert p["path"] == gemm_cuda.BF16_WG and p["tile"] == tile
+        assert p["smem"] + 1024 <= 228 * 1024
+        p = gemm_cuda.plan(layout, M, N, K, groups, name, dtype=torch.bfloat16, tma_ok=False)
         assert p["path"] == gemm_cuda.BF16 and p["tile"] == tile
         assert 2 * (p["smem"] + 1024) <= 228 * 1024
         layouts.add(layout)

@@ -1419,6 +1419,262 @@ def test_gemm_bf16_nn_tn_match_float64(card, layout, M, N, K):
         assert torch.equal(got, again)
 
 
+# ------------------------------------------------------------------------- #
+# The bf16 GEMM's two kernels, each forced (BF16: mma.sync; BF16_WG: wgmma
+# fed by TMA, which the plan gives every product whose operands TMA can
+# read), against float64 of the same bf16 values and against the plain
+# version, and the plan that picks one held to its Python mirror.
+BF16_PATHS = [pytest.param(gemm_cuda.BF16, id="mma_sync"),
+              pytest.param(gemm_cuda.BF16_WG, id="wgmma")]
+BF16_TERMS = ("bias", "pre", "rmask", "post", "post32", "post2")
+
+
+def _bf16_case(layout, M, N, K, device, seed, terms=BF16_TERMS, offset=0):
+    """A, W (views `offset` elements into their storage) and the epilogue
+    terms named in `terms` (the row mask every 4 rows, post2 every 3)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def mat(r, c):
+        return torch.randn(r * c + offset, generator=g).bfloat16().to(device)[offset:].view(r, c)
+
+    A = mat(K, M) if layout == "tn" else mat(M, K)
+    W = mat(N, K) if layout == "nt" else mat(K, N)
+    t = {}
+    if "bias" in terms:
+        t["bias"] = torch.randn(N, generator=g).to(device)
+    if "pre" in terms:
+        t["pre"] = torch.randn(M, N, generator=g).to(device)
+    if "rmask" in terms:
+        t["rmask"] = (torch.rand(-(-M // 4), generator=g) > 0.3).float().to(device)
+        t["mask_div"] = 4
+    if "post" in terms:
+        t["post"] = torch.randn(M, N, generator=g).bfloat16().to(device)
+    if "post32" in terms:
+        t["post32"] = torch.randn(M, N, generator=g).to(device)
+    if "post2" in terms:
+        t["post2"] = torch.randn(-(-M // 3), N, generator=g).bfloat16().to(device)
+        t["post2_div"] = 3
+    return A, W, t
+
+
+def _bf16_want(layout, A, W, t, bias_key="bias"):
+    """float64 of the product and its epilogue, unrounded; the sum of the
+    terms' magnitudes; and the two values a ``round_each`` epilogue rounds
+    on its way (after the mask, after post)."""
+    Wd = W.double().t() if layout == "nt" else W.double()
+    rows = torch.arange(A.shape[0], device=A.device)
+    want = A.double() @ Wd
+    scale = A.double().abs() @ Wd.abs() + 1.0
+    for key in (bias_key, "pre"):
+        if t.get(key) is not None:
+            want = want + t[key].double()
+            scale = scale + t[key].double().abs()
+    if "rmask" in t:
+        want = want * t["rmask"].double()[rows // t["mask_div"]][:, None]
+    x1 = want
+    if "post" in t:
+        want = want + t["post"].double()
+        scale = scale + t["post"].double().abs()
+    x2 = want
+    if "post32" in t:
+        want = want + t["post32"].double()
+        scale = scale + t["post32"].double().abs()
+    if "post2" in t:
+        want = want + t["post2"].double()[rows // t["post2_div"]]
+        scale = scale + t["post2"].double()[rows // t["post2_div"]].abs()
+    return want, scale, x1, x2
+
+
+def _bf16_hold(got, want, scale, name, x1=None, x2=None):
+    """fp32 output: within fp32 rounding of the terms' magnitudes; bf16:
+    within one bf16 rounding of the value on top (and of each value a
+    ``round_each`` epilogue rounds, x1 and x2)."""
+    d = (got.double() - want).abs()
+    if got.dtype == torch.float32:
+        assert float((d / scale).max()) < 1e-6, name
+        return
+    bound = 2.0 ** -8 * want.abs() + 1e-6 * scale
+    if x1 is not None:
+        bound = bound + 2.0 ** -8 * (x1.abs() + x2.abs())
+    assert bool((d <= bound).all()), (name, float((d - bound).max()))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("terms", [(t,) for t in BF16_TERMS] + [BF16_TERMS],
+                         ids=list(BF16_TERMS) + ["all"])
+@pytest.mark.parametrize("layout", ["nt", "nn"])
+@pytest.mark.parametrize("path", BF16_PATHS)
+def test_gemm_bf16_kernels_hold_every_term_to_float64(card, path, layout, terms, out_dtype):
+    """Each epilogue term alone and all together, on both kernels, M and N
+    off the tile multiples, against float64 of the bf16 values."""
+    M, N, K = 1000, 200, 128
+    A, W, t = _bf16_case(layout, M, N, K, card, seed=len(terms), terms=terms)
+    before = gemm_cuda.gemm_bf16_general.launches
+    got = gemm_cuda.gemm_bf16_general(layout, A, W, out_dtype=out_dtype, path=path, **t)
+    torch.cuda.synchronize()
+    assert gemm_cuda.gemm_bf16_general.launches == before + 1
+    assert got.dtype == out_dtype
+    want, scale, _, _ = _bf16_want(layout, A, W, t)
+    _bf16_hold(got, want, scale, f"{layout} {terms}")
+
+
+@pytest.mark.parametrize("K", [128, 512])
+@pytest.mark.parametrize("layout", ["nt", "nn"])
+@pytest.mark.parametrize("path", BF16_PATHS)
+def test_gemm_bf16_round_each_matches_float64_and_plain(card, path, layout, K):
+    """``round_each`` (K10's residuals added in bf16) with every term:
+    against float64 within a bf16 rounding at each of its three rounding
+    points, and against the plain version (the same roundings after fp32
+    sums in another order) within one bf16 unit of a rounding flip."""
+    M, N = 777, 256
+    A, W, t = _bf16_case(layout, M, N, K, card, seed=K + 1)
+    got = gemm_cuda.gemm_bf16_general(layout, A, W, round_each=True, path=path, **t)
+    plain = gemm_cuda.gemm_bf16_general_plain(layout, A, W, round_each=True, **t)
+    torch.cuda.synchronize()
+    want, scale, x1, x2 = _bf16_want(layout, A, W, t)
+    _bf16_hold(got, want, scale, f"{layout} round_each", x1, x2)
+    d = (got.double() - plain.double()).abs()
+    assert bool((d <= 2.0 ** -7 * (x1.abs() + x2.abs() + want.abs()) + 1e-6 * scale).all())
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("layout", ["nt", "nn"])
+@pytest.mark.parametrize("path", BF16_PATHS)
+def test_gemm_bf16_two_problems_match_float64(card, path, layout, out_dtype):
+    """gemm_nt2_bf16 / gemm_nn2_bf16: two products of one A, each with its
+    own bias and output, in one launch (nt2 writes bf16)."""
+    if layout == "nt" and out_dtype == torch.float32:
+        pytest.skip("gemm_nt2_bf16 writes bf16 only")
+    M, N, K = 700, 256, 512
+    A, W, t = _bf16_case(layout, M, N, K, card, seed=5, terms=("bias", "rmask", "post"))
+    g = torch.Generator().manual_seed(6)
+    W1 = (torch.randn(W.shape, generator=g) * 0.5).bfloat16().to(card)
+    bias1 = torch.randn(N, generator=g).to(card)
+    got0, got1 = gemm_cuda.gemm_bf16_general(layout, A, W, W1=W1, bias1=bias1,
+                                             out_dtype=out_dtype, path=path, **t)
+    torch.cuda.synchronize()
+    want0, scale0, _, _ = _bf16_want(layout, A, W, t)
+    want1, scale1, _, _ = _bf16_want(layout, A, W1, dict(t, bias1=bias1), bias_key="bias1")
+    _bf16_hold(got0, want0, scale0, "problem 0")
+    _bf16_hold(got1, want1, scale1, "problem 1")
+
+
+@pytest.mark.parametrize("layout", ["nt", "nn", "tn"])
+@pytest.mark.parametrize("M,N,K,offset", [(77, 45, 30, 0), (300, 128, 128, 1),
+                                          (256, 136, 512, 0), (1000, 128, 128, 0)])
+def test_gemm_bf16_plan_sends_what_tma_cannot_read_to_mma_sync(card, layout, M, N, K, offset):
+    """Odd leading dimensions and views 2 bytes off take the mma.sync
+    kernel by the static plan (the wgmma kernel, forced, refuses them:
+    no fallback from a failed launch); aligned operands the wgmma kernel.
+    Both held to float64."""
+    A, W, t = _bf16_case(layout, M, N, K, card, seed=M + K, offset=offset,
+                         terms=() if layout == "tn" else ("bias", "rmask", "post"))
+    tma_ok = offset == 0 and A.stride(0) % 8 == 0 and W.stride(0) % 8 == 0
+    assert gemm_cuda.path_for(layout, M, N, K, dtype=torch.bfloat16, tma_ok=tma_ok) == (
+        gemm_cuda.BF16_WG if tma_ok else gemm_cuda.BF16)
+    if layout == "tn":
+        sc = (torch.rand(K, generator=torch.Generator().manual_seed(1)) > 0.3).float().to(card)
+        got, cols = gemm_cuda.gemm_bf16_general("tn", A, W, ascale=sc, bias_sums=True)
+        As = A.double() * sc.double()[:, None]
+        want = As.t() @ W.double()
+        assert float(((got.double() - want).abs() / (As.abs().t() @ W.double().abs() + 1e-30))
+                     .max()) < 1e-6
+        assert float((cols.double() - As.sum(0)).abs().max()) <= 1e-6 * float(
+            As.abs().sum(0).max())
+    else:
+        got = gemm_cuda.gemm_bf16_general(layout, A, W, **t)
+        want, scale, _, _ = _bf16_want(layout, A, W, t)
+        _bf16_hold(got, want, scale, f"{layout} {M}x{N}x{K}+{offset}")
+    torch.cuda.synchronize()
+    if not tma_ok:
+        with pytest.raises(RuntimeError):
+            gemm_cuda.gemm_bf16_general(layout, A, W, path=gemm_cuda.BF16_WG)
+            torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("path", BF16_PATHS)
+def test_gemm_bf16_past_the_y_grid_limit(card, path):
+    """More than 4,194,240 rows (65,535 tiles of 64): every row written, on
+    both kernels (the wgmma kernel's persistent blocks walk 32,776 row
+    tiles)."""
+    M, N, K = 4_194_240 + 1_024, 128, 128
+    A, W, t = _bf16_case("nt", M, N, K, card, seed=3, terms=("bias",))
+    got = gemm_cuda.gemm_bf16_general("nt", A, W, out_dtype=torch.float32, path=path, **t)
+    torch.cuda.synchronize()
+    for lo in range(0, M, 1 << 20):
+        sl = slice(lo, lo + (1 << 20))
+        want, scale, _, _ = _bf16_want("nt", A[sl], W, t)
+        _bf16_hold(got[sl], want, scale, f"rows {lo}+")
+
+
+@pytest.mark.parametrize("R", [64, 1000, 133120, 532480])
+def test_gemm_bf16_tn_wgmma_is_repeatable_and_no_worse(card, R):
+    """gemm_tn_bf16 on the wgmma kernel at 64 to 532,480 rows (K7-bf16's
+    weight gradients at ActivityNet B=64), row scale and column sums: the
+    same bits on a second launch; its products no farther from float64
+    than the mma.sync kernel's (the same rows into one accumulator of the
+    tensor cores' truncating adds, splitk_for's split) plus fp32 rounding
+    of the sums' magnitudes, and its column sums (fp32 chains of every
+    eighth row of a split) within the fp32 GEMM's split-K tolerance of
+    float64."""
+    M, N = 512, 128
+    A, W, _ = _bf16_case("tn", M, N, R, card, seed=R, terms=())
+    sc = (torch.rand(R, generator=torch.Generator().manual_seed(2)) > 0.3).float().to(card)
+    runs = {path: gemm_cuda.gemm_bf16_general("tn", A, W, ascale=sc, bias_sums=True, path=path)
+            for path in (gemm_cuda.BF16_WG, gemm_cuda.BF16)}
+    again = gemm_cuda.gemm_bf16_general("tn", A, W, ascale=sc, bias_sums=True,
+                                        path=gemm_cuda.BF16_WG)
+    torch.cuda.synchronize()
+    wg, mma = runs[gemm_cuda.BF16_WG], runs[gemm_cuda.BF16]
+    assert torch.equal(wg[0], again[0]) and torch.equal(wg[1], again[1])
+    As = A.double() * sc.double()[:, None]
+    torch.testing.assert_close(wg[1].double(), As.sum(0), **_tn_tol(M, N, R))
+    torch.testing.assert_close(mma[1].double(), As.sum(0), **_tn_tol(M, N, R))
+    want = As.t() @ W.double()
+    mag = As.abs().t() @ W.double().abs()
+    err_wg = float((wg[0].double() - want).abs().max())
+    err_mma = float((mma[0].double() - want).abs().max())
+    print(f"tn R={R}: max |err| wgmma {err_wg:.4e}, mma.sync {err_mma:.4e}, "
+          f"of max |sum| {float(want.abs().max()):.4e}")
+    assert err_wg <= 1.5 * err_mma + 2e-6 * float(mag.max())
+
+
+@pytest.mark.parametrize("path", BF16_PATHS)
+def test_gemm_bf16_two_launches_bit_for_bit(card, path):
+    """Every term and ``round_each``: two launches give the same bits (a
+    fixed order of additions per output, whichever block takes its
+    tile)."""
+    M, N, K = 133120, 512, 128
+    A, W, t = _bf16_case("nt", M, N, K, card, seed=11)
+    first = gemm_cuda.gemm_bf16_general("nt", A, W, path=path, round_each=True, **t)
+    second = gemm_cuda.gemm_bf16_general("nt", A, W, path=path, round_each=True, **t)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_gemm_bf16_plan_matches_the_c_plan(card):
+    """The Python mirror of the bf16 plan (kernel, tile, shared memory; the
+    wgmma kernel's tiles, blocks, slices, stages, threads) equals the C
+    host code's, at every bf16 product of the three configs, with and
+    without operands TMA can read."""
+    import os
+
+    from video_moment_localization_tpu_torch.config import load_config
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    held = 0
+    for name in ("charadessta", "activitynet", "tacos"):
+        cfg = load_config(os.path.join(repo, "config", f"{name}.yml")).model
+        for B in (1, 16, 64, 512):
+            for kernel, prod, layout, M, N, K, groups in gemm_cuda.model_gemm_shapes_bf16(cfg, B):
+                for tma_ok in (True, False):
+                    got = gemm_cuda.card_plan(layout, M, N, K, groups, prod, torch.bfloat16,
+                                              tma_ok)
+                    want = gemm_cuda.plan(layout, M, N, K, groups, prod, torch.bfloat16, tma_ok)
+                    assert got == want, (name, B, kernel, prod, tma_ok)
+                    held += 1
+    assert held > 1000
+
+
 def test_bf16_train_step_on_card_matches_plain(card):
     """Two bf16 Adam steps at the Charades width on the card through K1-bf16,
     K2-bf16 and K3-bf16: finite losses within 2e-3 of the same steps on the

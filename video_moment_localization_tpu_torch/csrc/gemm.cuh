@@ -1,7 +1,8 @@
 // Tiled fp32 GEMM with a fused epilogue, shared by the biLSTM (lstm.cu), the
 // SMI-stack (smin_stack.cu), the SMI train-layer (smin_train.cu) and the
 // content-unit train (content_train.cu) kernels, plus the small device helpers
-// they use. gemm.cu exposes it alone for the card tests.
+// they use, and its bf16 path (below: a wgmma / TMA kernel and an mma.sync
+// one). gemm.cu exposes it alone for the card tests.
 //
 //   C[r, c] = (sum_k A(r, k) * ascale[.] * B(k, c) + bias[c] + pre[r, c])
 //             * rmask[r / mask_div] + post[r, c] + post2[r / post2_div, c]
@@ -113,6 +114,7 @@
 #include <type_traits>
 
 #include "bf16.cuh"
+#include "tma.cuh"
 
 namespace vml {
 
@@ -1145,8 +1147,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 //                 `reduce_partials_kernel` adds in a fixed order (no
 //                 atomics), with the column sums of the scaled A from the
 //                 same pass: the weight and bias gradients of K3-bf16, fp32.
-// Bound on the H100: the operations at 989 TFLOP/s of dense bf16 for the
-// large products; a simple kernel, not yet near that rate:
+// Two kernels, chosen statically by `gemm_path_for_bf16` from layout,
+// shape and alignment: the wgmma / TMA kernel below (`gemm_bf16_wg_kernel`)
+// for every product whose operands TMA can read, and `gemm_bf16_kernel`
+// (mma.sync) for the rest: operands off 16-byte alignment or with leading
+// dimensions no multiple of 8 (the card tests' odd widths and shifted
+// views). The mma.sync kernel:
 //   * block tiles and grid as the fp32 path (`gemm_tile_for`: 128x128,
 //     128x64 or 64x64, the problem index along gridDim.y; gemm_tn 128x128
 //     with `splitk_for`'s split along gridDim.z), 256 threads as 8 warps of
@@ -1462,15 +1468,714 @@ inline void gemm_bf16_run(cudaStream_t st, dim3 grid, const GemmBf16Params& p, b
     kernel<<<grid, kGemmThreads, smem, st>>>(p);
 }
 
-// The path a bf16 product of any layout (0 nt, 1 nn, 2 tn) takes: the bf16
-// tensor-core kernel.
-inline int gemm_path_for_bf16(int layout) { return layout >= 0 && layout <= 2 ? kPathBf16 : -1; }
+// ---------------------------------------------------------------------
+// The bf16 path on Hopper's own units (`gemm_bf16_wg_kernel`): the same
+// function as gemm_bf16_kernel in all three layouts, both problems of
+// gemm_nt2_bf16 / gemm_nn2_bf16 and gemm_tn_bf16's splits, for every
+// product whose operands TMA can read (`gemm_path_for_bf16`). Bound on the
+// H100 (PERF.md §6): the bytes. These products have K and N of 128 to 512,
+// about 100 operations a byte or fewer against the 295 at which the tensor
+// cores would be the limit, so each product's time is its operands read
+// once and its output and residuals moved once. What the design does:
+//   * loads: a producer warp keeps TMA copies of both operands in flight
+//     into a ring of slices (128-byte swizzle), on full and empty mbarriers
+//     (tma.cuh); an operand contiguous along k lands as one box of 64 k (a
+//     128-byte row) by its rows, one contiguous along its rows (A of tn, W
+//     of nn and tn) as boxes of 64 columns by the slice's k rows, and wgmma
+//     reads it that way (its transpose bits: 16-bit operands may be M- or
+//     N-major), so nothing is transposed in shared memory;
+//   * products: the consumer warpgroups issue wgmma m64n128k16 (bf16 ->
+//     fp32) from shared memory, adding into the running sums in order of k;
+//   * nt / nn (short K, residual-heavy epilogues): a tile is 64 x 128 and a
+//     consumer warpgroup takes every other tile of its block (ping-pong),
+//     so that one warpgroup's epilogue runs under the other's products and
+//     the ring streams on; 64-deep slices in a ring of 5;
+//   * tn (K of thousands of rows, an epilogue of fp32 partial sums): both
+//     consumer warpgroups share a 128 x 128 tile (B read once for 128 rows)
+//     and the slices are 128 deep (16 KB boxes), in a ring of 2;
+//   * persistence: one block an SM walks the output tiles in a fixed order
+//     (column tiles fastest, then the problem, then the row tiles, then
+//     gemm_tn's splits), so that the ring loads the next tile's slices while
+//     this tile's epilogue runs; the order of additions of every output is
+//     fixed by the plan, not by which block takes the tile;
+//   * the epilogue: the running sums are staged in shared memory (a
+//     warpgroup's 64 x 128 fp32, in 128-byte-swizzled boxes); 16 threads a
+//     row, 8 columns a thread, apply the epilogue with 16-byte loads of
+//     every residual issued for eight rows (four with fp32 residuals)
+//     before any is used, and write the result tile back (fp32 in place,
+//     bf16 into a tile of its own), which one thread stores by TMA; the
+//     kernel is compiled for three kinds of epilogue (`WgEpi`), so that a
+//     launch carries only its own terms' loads and arithmetic; the
+//     arithmetic and roundings are gemm_bf16_kernel's, term for term;
+//   * gemm_tn keeps splitk_for's split (the same rows into one accumulator
+//     as the mma.sync kernel, so no longer a chain through the tensor cores'
+//     truncating adder) and the fixed-order `reduce_partials_kernel`; a
+//     split is a 3-D view (split, row, column) of A and B whose rows past
+//     kchunk read as 0, the last split its own map, so no box reaches into
+//     the next split's rows; the row scale is applied to the landed A slice
+//     by the consumers (fence.proxy.async before wgmma reads it) and the
+//     first column tile's consumers add the scaled slice per column (the
+//     bias gradient) in eight chains of every eighth row, summed in a fixed
+//     tree (one chain of 128 adds a slice held those blocks back).
+constexpr int kWgBfTile = 128;               // columns of an output tile (and rows of tn's)
+constexpr int kWgBfThreads = 384;            // a producer warpgroup, two consumer warpgroups
+constexpr int kPathBf16Wg = 3;               // ops/gemm_cuda.py::BF16_WG
 
-// Launches one layout over `groups` problems and `splits` blocks along z;
-// tile < 0 picks the tile (gemm_tn: 128x128).
+// The shape of the wgmma kernel's work by layout (kAT: gemm_tn).
+template <bool kAT>
+struct WgBf {
+    static constexpr int kRows = kAT ? 128 : 64;   // rows of an output tile
+    static constexpr int kBK = kAT ? 128 : 64;     // K of a slice
+    static constexpr int kStages = kAT ? 2 : 5;
+    static constexpr int kABytes = kRows * kBK * 2;
+    static constexpr int kBBytes = kWgBfTile * kBK * 2;
+    static constexpr int kStageBytes = kABytes + kBBytes;
+    static constexpr int kBoxBytes = 64 * kBK * 2;         // an M- / N-major box of 64 columns
+    static constexpr int kArrivals = kAT ? 8 : 4;          // consumer warps a slice
+    // 1024 bytes of alignment slack, the ring, each consumer warpgroup's
+    // staged fp32 tile and bf16 output tile (64 x 128), the mbarriers.
+    static constexpr size_t kSmem = 1024 + (size_t)kStages * kStageBytes +
+                                    2 * 64 * kWgBfTile * (sizeof(float) + sizeof(bf16)) +
+                                    2 * kStages * sizeof(uint64_t);
+    static_assert(kSmem <= 232448, "one block an SM within 227 KB");
+};
+
+// Dynamic shared memory of the wgmma kernel by layout (0 nt, 1 nn, 2 tn).
+constexpr size_t gemm_bf16_wg_smem_bytes(int layout) {
+    return layout == 2 ? WgBf<true>::kSmem : WgBf<false>::kSmem;
+}
+
+struct GemmBf16WgParams {
+    // nt / nn: A, W of problem 0, W of problem 1, -, C of problem 0, C of
+    // problem 1; tn: A and B of the splits before the last (3-D), A and B of
+    // the last split, the partial sums (3-D). The C maps where vec_out.
+    CUtensorMap map[6];
+    int M, N, K, kchunk, splits, groups;
+    int tiles_n, tiles_m, tiles;
+    int ldc;
+    const float* ascale;
+    int adiv;
+    void* C[2];
+    EpilogueBf16 ep[2];
+    bool out_f32, vec_out;
+    float* colsum;
+};
+
+// A wgmma shared-memory descriptor of a 128-byte-swizzled tile: leading byte
+// offset `lbo` (MN-major: the next 64 columns), stride byte offset 1024 (the
+// next 8 rows of 128 bytes).
+__device__ __forceinline__ uint64_t wg_bf16_desc(const void* p, uint32_t lbo) {
+    const uint32_t a = smem_addr(p);
+    return (uint64_t)((a & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+           ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// Byte offset, in a warpgroup's staged tile, of the 16-byte unit holding
+// fp32 element (row, col) (col a multiple of 4): boxes of 32 columns by 64
+// rows of 128 bytes, units XOR-swizzled by the row (TMA's 128-byte swizzle).
+__device__ __forceinline__ int wg_staged_off(int row, int col) {
+    return (col >> 5) * 8192 + row * 128 + ((((col & 31) >> 2) ^ (row & 7)) << 4);
+}
+
+// The same for the bf16 output tile's element (row, col), col a multiple of
+// 8: boxes of 64 columns by 64 rows.
+__device__ __forceinline__ int wg_out16_off(int row, int col) {
+    return (col >> 6) * 8192 + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4);
+}
+
+__device__ __forceinline__ void wg_bar(int id) {
+    asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// A handoff between the two consumer warpgroups on named barrier `id`: one
+// arrives, the other waits for its arrival.
+__device__ __forceinline__ void wg_bar256(int id) {
+    asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void wg_arrive256(int id) {
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// d (m64 x n128, fp32) += A (64 x 16) B (16 x 128) from shared memory; kTA /
+// kTB: the operand is M- / N-major (wgmma's transpose bits).
+template <bool kTA, bool kTB>
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                                int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_n128<false, false>(float (&d)[64], uint64_t da,
+                                                                   uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16_n128<false, true>(float (&d)[64], uint64_t da,
+                                                                   uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16_n128<true, false>(float (&d)[64], uint64_t da,
+                                                                   uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16_n128<true, true>(float (&d)[64], uint64_t da,
+                                                                   uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Eight bf16 values of a 16-byte word to fp32.
+__device__ __forceinline__ void unpack8(uint4 w, float (&v)[8]) {
+    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[i]));
+        v[2 * i] = f.x;
+        v[2 * i + 1] = f.y;
+    }
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
+    uint32_t u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+        u[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    return make_uint4(u[0], u[1], u[2], u[3]);
+}
+
+__device__ __forceinline__ void load8f(const float* p, float (&v)[8]) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = *reinterpret_cast<const float4*>(p + 4);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// The kinds of epilogue the wgmma kernel is compiled for, by the terms a
+// launch has (`wg_epilogue_kind`): each instance carries only their loads,
+// registers and arithmetic. (One generic epilogue spent most of its
+// instructions on the addresses and predicates of absent terms, at the
+// register cap: PERF.md §6.)
+enum WgEpi {
+    kEpiPlain = 0,   // bias and the row mask (every layout; tn has none)
+    kEpiBf16 = 1,    // + the bf16 residuals post and post2, round_each
+    kEpiAny = 2,     // + the fp32 residuals pre and post32
+};
+
+// The epilogue of one output value, gemm_bf16_kernel's terms in its order
+// with its roundings (a term is added only where it is given).
+template <int kEpi>
+__device__ __forceinline__ float wg_bf16_term(float v, float bias, float pre, float mask,
+                                              float post, float post32, float post2,
+                                              const EpilogueBf16& ep) {
+    if (ep.bias) v += bias;
+    if (kEpi >= kEpiAny && ep.pre) v += pre;
+    v *= mask;
+    if (kEpi >= kEpiBf16 && ep.round_each) v = to_f(__float2bfloat16(v));
+    if (kEpi >= kEpiBf16 && ep.post) v += post;
+    if (kEpi >= kEpiBf16 && ep.round_each) v = to_f(__float2bfloat16(v));
+    if (kEpi >= kEpiAny && ep.post32) v += post32;
+    if (kEpi >= kEpiBf16 && ep.post2) v += post2;
+    return v;
+}
+
+// r / div, by a shift where div is a power of two (shift >= 0).
+__device__ __forceinline__ int row_div(int r, int div, int shift) {
+    return shift >= 0 ? r >> shift : r / div;
+}
+__device__ __forceinline__ int div_shift(int div) {
+    return div > 0 && (div & (div - 1)) == 0 ? __ffs(div) - 1 : -1;
+}
+
+// kAT: A stored (K, M) (gemm_tn); kBN: W stored (K, N) (gemm_nn, gemm_tn);
+// else (M, K) and (N, K). kEpi: the WgEpi the launch's epilogue needs.
+template <bool kAT, bool kBN, int kEpi>
+__global__ void __launch_bounds__(kWgBfThreads, 1)
+    gemm_bf16_wg_kernel(const __grid_constant__ GemmBf16WgParams p) {
+    using S = WgBf<kAT>;
+    extern __shared__ unsigned char gemm_wg_smem_raw[];
+    unsigned char* const ring = reinterpret_cast<unsigned char*>(   // 1024-aligned boxes
+        (reinterpret_cast<uintptr_t>(gemm_wg_smem_raw) + 1023) & ~(uintptr_t)1023);
+    float* const staged = reinterpret_cast<float*>(ring + S::kStages * S::kStageBytes);
+    bf16* const out16s = reinterpret_cast<bf16*>(staged + 2 * 64 * kWgBfTile);
+    uint64_t* const full = reinterpret_cast<uint64_t*>(out16s + 2 * 64 * kWgBfTile);
+    uint64_t* const empty = full + S::kStages;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < S::kStages; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], S::kArrivals);   // one arrival a consumer warp
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    // Tile t: column tile fastest, then the problem (nt / nn) or the row
+    // tile (tn), then the row tile (nt / nn) or the split (tn).
+    auto decode = [&](int t, int& g, int& z, int& m0, int& n0) {
+        n0 = (t % p.tiles_n) * kWgBfTile;
+        t /= p.tiles_n;
+        if (kAT) {
+            g = 0;
+            m0 = (t % p.tiles_m) * S::kRows;
+            z = t / p.tiles_m;
+        } else {
+            g = t % p.groups;
+            m0 = (t / p.groups) * S::kRows;
+            z = 0;
+        }
+    };
+    auto slices = [&](int z) {
+        const int kbeg = z * p.kchunk;
+        const int kend = min(p.K, kbeg + p.kchunk);
+        return (kend - kbeg + S::kBK - 1) / S::kBK;
+    };
+
+    if (threadIdx.x < 128) {   // the producer warpgroup: one thread issues
+        if (threadIdx.x != 0) return;
+        int it = 0;
+        for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+            int g, z, m0, n0;
+            decode(t, g, z, m0, n0);
+            const int nk = slices(z);
+            // tn: the split's own view, at split index zc of it.
+            const bool last = kAT && z == p.splits - 1;
+            const CUtensorMap* mapA = kAT ? &p.map[last ? 2 : 0] : &p.map[0];
+            const CUtensorMap* mapB = kAT ? &p.map[last ? 3 : 1] : &p.map[1 + g];
+            const int zc = kAT && !last ? z : 0;
+            for (int s = 0; s < nk; ++s, ++it) {
+                const int st = it % S::kStages, use = it / S::kStages;
+                if (use > 0) mbar_wait_sleep(&empty[st], (use - 1) & 1);
+                unsigned char* a = ring + st * S::kStageBytes;
+                unsigned char* b = a + S::kABytes;
+                mbar_expect(&full[st], S::kStageBytes);
+                const int k0 = s * S::kBK;
+                if (kAT) {
+                    tma_box3(a, mapA, m0, k0, zc, &full[st]);
+                    tma_box3(a + S::kBoxBytes, mapA, m0 + 64, k0, zc, &full[st]);
+                } else {
+                    tma_box3(a, mapA, k0, m0, 0, &full[st]);
+                }
+                if (kBN) {
+                    tma_box3(b, mapB, n0, k0, zc, &full[st]);
+                    tma_box3(b + S::kBoxBytes, mapB, n0 + 64, k0, zc, &full[st]);
+                } else {
+                    tma_box3(b, mapB, k0, n0, 0, &full[st]);
+                }
+            }
+        }
+        return;
+    }
+
+    // The consumers. tn: warpgroup wg owns rows 64 wg .. 64 wg + 63 of every
+    // tile; nt / nn: warpgroup wg owns the block's tiles i with i % 2 == wg.
+    const int wg = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int gq = lane / 4, tq = lane % 4;
+    float* const tile = staged + wg * 64 * kWgBfTile;   // 32 KB, 1024-aligned
+    bf16* const out16 = out16s + wg * 64 * kWgBfTile;   // 16 KB, 1024-aligned
+    // Byte offsets of this warpgroup's A rows and of a k16 step.
+    constexpr uint32_t kLboA = kAT ? S::kBoxBytes : 16, kLboB = kBN ? S::kBoxBytes : 16;
+    constexpr int kStepA = kAT ? 16 * 128 : 32, kStepB = kBN ? 16 * 128 : 32;
+    const int offA = kAT ? wg * S::kBoxBytes : 0;
+    const float* const ascale = p.ascale;
+    const int adiv = p.adiv;
+    int it = 0;   // the ring's slice count, as the producer's
+    int i = 0;
+    for (int t = blockIdx.x; t < p.tiles; t += gridDim.x, ++i) {
+        int g, z, m0, n0;
+        decode(t, g, z, m0, n0);
+        const int nk = slices(z);
+        if (!kAT && (i & 1) != wg) {   // the other warpgroup's tile
+            it += nk;
+            continue;
+        }
+        // nt / nn: the mainloops run in tile order, one warpgroup after the
+        // other (each waits for the other's mainloop of the previous tile),
+        // so that no warpgroup waits on a stage two fills ahead of the ring
+        // (whose parity would read as the fill before); the epilogues overlap.
+        if (!kAT && i > 0) wg_bar256(3 + wg);
+        const int r0 = m0 + (kAT ? 64 * wg : 0);   // this warpgroup's first row
+        const int kbeg = z * p.kchunk;
+        const int kend = min(p.K, kbeg + p.kchunk);
+        const bool colsum = kAT && p.colsum && n0 == 0;
+        // colsum: column r0 + tid of the scaled A (tid < 64), rows k = j mod 8
+        // of every slice in cs[j], added in order of k; cs[0..7] are summed
+        // in a fixed tree at the tile's end.
+        float cs[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        float acc[64];
+#pragma unroll
+        for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+        for (int s = 0; s < nk; ++s, ++it) {
+            const int st = it % S::kStages;
+            // tn: the row scales of this thread's units of the slice, read
+            // before the wait for the slice.
+            constexpr int kUnits = kAT ? S::kBK * 8 / 128 : 1;
+            float sc[kUnits];
+            if (kAT && ascale) {
+#pragma unroll
+                for (int j = 0; j < kUnits; ++j) {
+                    const int row = kbeg + s * S::kBK + (tid + 128 * j) / 8;
+                    sc[j] = row < kend ? ascale[row / adiv] : 0.f;
+                }
+            }
+            mbar_wait_sleep(&full[st], (it / S::kStages) & 1);
+            unsigned char* a = ring + st * S::kStageBytes + offA;
+            const unsigned char* b = ring + st * S::kStageBytes + S::kABytes;
+            if (kAT && ascale) {
+                // The row scale of the landed slice, in place: k rows of 128
+                // bytes (the swizzle permutes 16-byte units within a row, so
+                // a unit's 8 values share their row k), rounded to bf16.
+#pragma unroll
+                for (int j = 0; j < kUnits; ++j) {
+                    uint4* u = reinterpret_cast<uint4*>(a) + tid + 128 * j;
+                    float v[8];
+                    unpack8(*u, v);
+#pragma unroll
+                    for (int e = 0; e < 8; ++e) v[e] *= sc[j];
+                    *u = pack8(v);
+                }
+                asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+                wg_bar(1 + wg);
+            }
+            fence_regs(acc);
+            asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+            for (int kk = 0; kk < S::kBK / 16; ++kk)
+                wgmma_bf16_n128<kAT, kBN>(acc, wg_bf16_desc(a + kk * kStepA, kLboA),
+                                          wg_bf16_desc(b + kk * kStepB, kLboB), 1);
+            asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+            if (colsum && tid < 64) {
+                // Column tid of this warpgroup's 64: unit (tid / 8) ^ (k % 8)
+                // of row k holds it (128-byte swizzle).
+#pragma unroll 4
+                for (int k0 = 0; k0 < S::kBK; k0 += 8)
+#pragma unroll
+                    for (int j = 0; j < 8; ++j)
+                        cs[j] += __bfloat162float(*reinterpret_cast<const bf16*>(
+                            a + (k0 + j) * 128 + (((tid >> 3) ^ j) << 4) + (tid & 7) * 2));
+            }
+            asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+            fence_regs(acc);
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&empty[st]);
+        }
+        if (!kAT && t + (int)gridDim.x < p.tiles) wg_arrive256(4 - wg);   // the next tile's turn
+        if (colsum && tid < 64 && r0 + tid < p.M)
+            p.colsum[(size_t)z * p.M + r0 + tid] =
+                ((cs[0] + cs[1]) + (cs[2] + cs[3])) + ((cs[4] + cs[5]) + (cs[6] + cs[7]));
+
+        // The staged tile and the bf16 output tile are read by the previous
+        // tile's TMA stores until those have read them.
+        if (tid == 0) tma_store_wait_read<0>();
+        wg_bar(1 + wg);
+        // The running sums (wgmma's m64n128 layout: rows 16 warp + gq and + 8,
+        // columns 8 j + 2 tq and + 1) into the staged tile: four boxes of 32
+        // columns x 64 rows of 128 bytes, 16-byte units XOR-swizzled by the
+        // row (`wg_staged_off`), the layout of a 128-byte-swizzled TMA box.
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+                const int row = 16 * warp + gq + 8 * h, col = 8 * j + 2 * tq;
+                *reinterpret_cast<float2*>(reinterpret_cast<unsigned char*>(tile) +
+                                           wg_staged_off(row, col) + (col & 2) * 4) =
+                    make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+            }
+        wg_bar(1 + wg);
+
+        // Rows rq + 8 q of the warpgroup's 64, columns cc .. cc + 7, with the
+        // problem's epilogue and the shape in registers.
+        const EpilogueBf16 ep = p.ep[g];
+        const int M = p.M, N = p.N, ldc = p.ldc;
+        const bool out_f32 = p.out_f32;
+        const int cc = (tid % 16) * 8, rq = tid / 16;
+        const int c = n0 + cc;
+        unsigned char* const st8 = reinterpret_cast<unsigned char*>(tile);
+        const int msh = div_shift(ep.mask_div), p2sh = div_shift(ep.post2_div);
+        if (p.vec_out) {   // N % 8 == 0: a thread's 8 columns are all in or all out
+            float bias[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+            if (ep.bias && c < N) load8f(ep.bias + c, bias);
+            // Every residual of kB rows is loaded before any is used.
+            constexpr int kB = kEpi == kEpiAny ? 4 : 8;
+            constexpr int kB16 = kEpi >= kEpiBf16 ? kB : 1, kB32 = kEpi >= kEpiAny ? kB : 1;
+#pragma unroll
+            for (int q0 = 0; q0 < 8; q0 += kB) {
+                float pre[kB32][8] = {}, p32[kB32][8] = {}, mk[kB];
+                uint4 post[kB16], post2[kB16];
+#pragma unroll
+                for (int q = 0; q < kB; ++q) {
+                    const int r = r0 + rq + 8 * (q0 + q);
+                    const bool ok = r < M && c < N;
+                    mk[q] = ok && ep.rmask ? ep.rmask[row_div(r, ep.mask_div, msh)] : 1.f;
+                    if constexpr (kEpi >= kEpiBf16) {
+                        post[q] = post2[q] = make_uint4(0u, 0u, 0u, 0u);
+                        if (ok && ep.post)
+                            post[q] = *reinterpret_cast<const uint4*>(
+                                ep.post + (size_t)r * ep.ldpost + c);
+                        if (ok && ep.post2)
+                            post2[q] = *reinterpret_cast<const uint4*>(
+                                ep.post2 + (size_t)row_div(r, ep.post2_div, p2sh) * ep.ldpost2 +
+                                c);
+                    }
+                    if constexpr (kEpi >= kEpiAny) {
+                        if (ok && ep.pre) load8f(ep.pre + (size_t)r * ep.ldpre + c, pre[q]);
+                        if (ok && ep.post32)
+                            load8f(ep.post32 + (size_t)r * ep.ldpost32 + c, p32[q]);
+                    }
+                }
+#pragma unroll
+                for (int q = 0; q < kB; ++q) {
+                    const int rr = rq + 8 * (q0 + q);
+                    float4* at0 = reinterpret_cast<float4*>(st8 + wg_staged_off(rr, cc));
+                    float4* at1 = reinterpret_cast<float4*>(st8 + wg_staged_off(rr, cc + 4));
+                    const float4 a0 = *at0, a1 = *at1;
+                    float v[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+                    float po[8] = {}, p2[8] = {};
+                    if constexpr (kEpi >= kEpiBf16) {
+                        unpack8(post[q], po);
+                        unpack8(post2[q], p2);
+                    }
+#pragma unroll
+                    for (int e = 0; e < 8; ++e)
+                        v[e] = wg_bf16_term<kEpi>(v[e], bias[e], pre[q % kB32][e], mk[q], po[e],
+                                                  p32[q % kB32][e], p2[e], ep);
+                    // The output tile for the TMA store: fp32 in place of the
+                    // staged sums, bf16 into its own swizzled tile.
+                    if (out_f32) {
+                        *at0 = make_float4(v[0], v[1], v[2], v[3]);
+                        *at1 = make_float4(v[4], v[5], v[6], v[7]);
+                    } else {
+                        *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(out16) +
+                                                  wg_out16_off(rr, cc)) = pack8(v);
+                    }
+                }
+            }
+            // Each writer fences its generic-proxy writes for the TMA unit's
+            // reads; then one thread stores the warpgroup's 64 rows.
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            wg_bar(1 + wg);
+            if (tid == 0) {
+                const CUtensorMap* mapC = &p.map[kAT ? 4 : 4 + g];
+                if (out_f32) {
+#pragma unroll
+                    for (int b4 = 0; b4 < 4; ++b4)
+                        tma_store3(mapC, st8 + b4 * 8192, n0 + 32 * b4, r0, z);
+                } else {
+#pragma unroll
+                    for (int b2 = 0; b2 < 2; ++b2)
+                        tma_store3(mapC, reinterpret_cast<unsigned char*>(out16) + b2 * 8192,
+                                   n0 + 64 * b2, r0, z);
+                }
+                tma_store_commit();
+            }
+        } else {
+            const size_t zoff = (size_t)z * M * ldc;
+            for (int q = 0; q < 8; ++q) {
+                const int rr = rq + 8 * q, r = r0 + rr;
+                if (r >= M) continue;
+                const float mk = ep.rmask ? ep.rmask[r / ep.mask_div] : 1.f;
+                for (int e = 0; e < 8; ++e) {
+                    const int ce = c + e;
+                    if (ce >= N) continue;
+                    const float v = wg_bf16_term<kEpiAny>(
+                        *reinterpret_cast<const float*>(st8 + wg_staged_off(rr, cc + e) +
+                                                        (e & 3) * 4),
+                        ep.bias ? ep.bias[ce] : 0.f,
+                        ep.pre ? ep.pre[(size_t)r * ep.ldpre + ce] : 0.f, mk,
+                        ep.post ? to_f(ep.post[(size_t)r * ep.ldpost + ce]) : 0.f,
+                        ep.post32 ? ep.post32[(size_t)r * ep.ldpost32 + ce] : 0.f,
+                        ep.post2 ? to_f(ep.post2[(size_t)(r / ep.post2_div) * ep.ldpost2 + ce])
+                                 : 0.f,
+                        ep);
+                    const size_t o = zoff + (size_t)r * ldc + ce;
+                    if (out_f32)
+                        static_cast<float*>(p.C[g])[o] = v;
+                    else
+                        static_cast<bf16*>(p.C[g])[o] = __float2bfloat16(v);
+                }
+            }
+        }
+    }
+    if (tid == 0) tma_store_wait<0>();   // the shared memory outlives the stores
+}
+
+// Whether this library has raised the wgmma kernel's shared-memory limit on
+// a device, by [device][layout][WgEpi] (internal linkage, as
+// g_gemm_smem_raised).
+static bool g_gemm_bf16_wg_smem_raised[8][3][3];
+
+// The WgEpi of a launch's epilogues.
+inline int wg_epilogue_kind(const EpilogueBf16* ep, int groups) {
+    int kind = kEpiPlain;
+    for (int g = 0; g < groups; ++g) {
+        if (ep[g].pre || ep[g].post32) return kEpiAny;
+        if (ep[g].post || ep[g].post2 || ep[g].round_each) kind = kEpiBf16;
+    }
+    return kind;
+}
+
+// Whether TMA can read both operands of a launch: 16-byte-aligned bases and
+// row strides that are multiples of 8 bf16 (16 bytes).
+inline bool gemm_bf16_tma_ok(const GemmBf16Params& p, int groups) {
+    bool ok = aligned16(p.A) && p.lda % 8 == 0 && p.ldw % 8 == 0;
+    for (int g = 0; g < groups; ++g) ok = ok && aligned16(p.W[g]);
+    return ok;
+}
+
+// The bf16 path of a product, by layout (0 nt, 1 nn, 2 tn) and whether TMA
+// can read its operands: the wgmma kernel, or the mma.sync one
+// (ops/gemm_cuda.py::path_for mirrors it). No shape keeps the mma.sync
+// kernel: with every product on the wgmma kernel the bf16 serving
+// forward's device time fell at B=16 as at B=512 (PERF.md §5).
+inline int gemm_path_for_bf16(int layout, bool tma_ok) {
+    if (layout < 0 || layout > 2) return -1;
+    return tma_ok ? kPathBf16Wg : kPathBf16;
+}
+
+// The wgmma kernel's output tiles of a layout (0 nt, 1 nn, 2 tn), and its
+// persistent grid: one block an SM, or one a tile where there are fewer.
+inline long long gemm_bf16_wg_tiles(int layout, int M, int N, int groups, int splits) {
+    const int rows = layout == 2 ? WgBf<true>::kRows : WgBf<false>::kRows;
+    return (long long)((M + rows - 1) / rows) * ((N + kWgBfTile - 1) / kWgBfTile) * groups *
+           splits;
+}
+inline int gemm_bf16_wg_blocks(long long tiles) {
+    return (int)(tiles < kGemmSMs ? tiles : kGemmSMs);
+}
+
+// The 3-D tensor map of a bf16 operand: `cols` contiguous, `rows` rows
+// `ld` apart, `depth` blocks of them `rows * ld` apart; boxes of 64 columns
+// by box_rows rows, 128-byte swizzle.
+inline cudaError_t wg_operand_map(CUtensorMap* map, const bf16* base, long long cols,
+                                  long long rows, long long depth, int ld, int box_rows) {
+    const uint64_t dims[3] = {(uint64_t)cols, (uint64_t)rows, (uint64_t)depth};
+    const uint64_t strides[2] = {(uint64_t)ld * 2, (uint64_t)rows * ld * 2};
+    const uint32_t box[3] = {64, (uint32_t)box_rows, 1};
+    return bf16_map(map, base, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
 template <bool kAT, bool kBN>
-inline void gemm_bf16_launch(cudaStream_t st, GemmBf16Params p, int groups, int splits,
-                             int tile) {
+inline void gemm_bf16_wg_run(cudaStream_t st, const GemmBf16Params& q, int groups, int splits) {
+    using S = WgBf<kAT>;
+    constexpr int layout = kAT ? 2 : kBN ? 1 : 0;
+    GemmBf16WgParams p{};
+    p.M = q.M; p.N = q.N; p.K = q.K; p.kchunk = q.kchunk; p.splits = splits; p.groups = groups;
+    p.tiles_n = (q.N + kWgBfTile - 1) / kWgBfTile;
+    p.tiles_m = (q.M + S::kRows - 1) / S::kRows;
+    p.tiles = (int)gemm_bf16_wg_tiles(layout, q.M, q.N, groups, splits);
+    p.ldc = q.ldc; p.ascale = q.ascale; p.adiv = q.adiv; p.out_f32 = q.out_f32;
+    p.colsum = q.colsum;
+    // 16-byte epilogue rows: the output and every residual aligned, N and
+    // every leading dimension a multiple of 8.
+    auto vec = [](const void* ptr, int ld) { return !ptr || (aligned16(ptr) && ld % 8 == 0); };
+    bool vec_out = q.N % 8 == 0;
+    for (int g = 0; g < groups; ++g) {
+        const EpilogueBf16& e = q.ep[g];
+        p.C[g] = q.C[g];
+        p.ep[g] = e;
+        vec_out = vec_out && vec(q.C[g], q.ldc) && vec(e.bias, 0) && vec(e.pre, e.ldpre) &&
+                  vec(e.post, e.ldpost) && vec(e.post32, e.ldpost32) && vec(e.post2, e.ldpost2);
+    }
+    p.vec_out = vec_out;
+    cudaError_t err = cudaSuccess;
+    if (kAT) {   // A (R, M), B (R, N): the splits before the last, then the last
+        const long long done = (long long)(splits - 1) * q.kchunk;
+        if (splits > 1) {
+            err = wg_operand_map(&p.map[0], q.A, q.M, q.kchunk, splits - 1, q.lda, S::kBK);
+            if (err == cudaSuccess)
+                err = wg_operand_map(&p.map[1], q.W[0], q.N, q.kchunk, splits - 1, q.ldw,
+                                     S::kBK);
+        }
+        if (err == cudaSuccess)
+            err = wg_operand_map(&p.map[2], q.A + done * q.lda, q.M, q.K - done, 1, q.lda,
+                                 S::kBK);
+        if (err == cudaSuccess)
+            err = wg_operand_map(&p.map[3], q.W[0] + done * q.ldw, q.N, q.K - done, 1, q.ldw,
+                                 S::kBK);
+    } else {
+        err = wg_operand_map(&p.map[0], q.A, q.K, q.M, 1, q.lda, S::kRows);
+        for (int g = 0; g < groups && err == cudaSuccess; ++g)
+            err = kBN ? wg_operand_map(&p.map[1 + g], q.W[g], q.N, q.K, 1, q.ldw, S::kBK)
+                      : wg_operand_map(&p.map[1 + g], q.W[g], q.K, q.N, 1, q.ldw, kWgBfTile);
+    }
+    // The outputs, stored by TMA from 128-byte-swizzled tiles of 64 rows by
+    // 64 bf16 or 32 fp32 columns (tn: the splits' partial sums, 3-D).
+    const int esize = q.out_f32 ? 4 : 2;
+    for (int g = 0; g < (kAT ? 1 : groups) && err == cudaSuccess && vec_out; ++g) {
+        const uint64_t dims[3] = {(uint64_t)q.N, (uint64_t)q.M, (uint64_t)splits};
+        const uint64_t strides[2] = {(uint64_t)q.ldc * esize, (uint64_t)q.M * q.ldc * esize};
+        const uint32_t box[3] = {q.out_f32 ? 32u : 64u, 64u, 1u};
+        err = bf16_map(&p.map[4 + g], q.C[g], 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B,
+                       q.out_f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+    }
+    // gemm_tn writes partial sums: no epilogue terms.
+    const int kind = kAT ? kEpiPlain : wg_epilogue_kind(q.ep, groups);
+    auto kernel = gemm_bf16_wg_kernel<kAT, kBN, kEpiPlain>;
+    if constexpr (!kAT) {
+        if (kind == kEpiBf16) kernel = gemm_bf16_wg_kernel<kAT, kBN, kEpiBf16>;
+        if (kind == kEpiAny) kernel = gemm_bf16_wg_kernel<kAT, kBN, kEpiAny>;
+    }
+    const size_t smem = S::kSmem;
+    if (err != cudaSuccess) {
+        // A launch of no blocks, so that the caller's cudaGetLastError()
+        // reports the refused tensor map.
+        kernel<<<0, kWgBfThreads, smem, st>>>(p);
+        return;
+    }
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess) return;   // the caller's cudaGetLastError() reports it
+    bool* raised = dev < 8 ? &g_gemm_bf16_wg_smem_raised[dev][layout][kind] : nullptr;
+    if (!raised || !*raised) {
+        if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem) != cudaSuccess)
+            return;
+        if (raised) *raised = true;
+    }
+    kernel<<<gemm_bf16_wg_blocks(p.tiles), kWgBfThreads, smem, st>>>(p);
+}
+
+// Launches one layout over `groups` problems and `splits` splits of K (the
+// rows gemm_tn reduces) on the path the plan gives (`path` < 0) or on a
+// forced one (kPathBf16 or kPathBf16Wg; the wgmma kernel refuses operands
+// TMA cannot read); tile < 0 picks the mma.sync kernel's tile (gemm_tn:
+// 128x128).
+template <bool kAT, bool kBN>
+inline void gemm_bf16_launch(cudaStream_t st, GemmBf16Params p, int groups, int splits, int tile,
+                             int path = -1) {
+    constexpr int layout = kAT ? 2 : kBN ? 1 : 0;
+    const bool tma_ok = gemm_bf16_tma_ok(p, groups);
+    if (path < 0) path = gemm_path_for_bf16(layout, tma_ok);
+    if (path == kPathBf16Wg) {
+        if (!tma_ok) {   // a launch of no blocks: cudaGetLastError() reports it
+            gemm_bf16_wg_kernel<kAT, kBN, kEpiPlain><<<0, kWgBfThreads, 0, st>>>(
+                GemmBf16WgParams{});
+            return;
+        }
+        gemm_bf16_wg_run<kAT, kBN>(st, p, groups, splits);
+        return;
+    }
     if (kAT) tile = kTile128x128;
     if (tile < 0) tile = gemm_tile_for(p.M, p.N, groups);
     const dim3 grid((unsigned)gemm_tiles(tile, p.M, p.N), groups, splits);
@@ -1499,22 +2204,23 @@ inline GemmBf16Params gemm_bf16_params(int M, int N, int K, const bf16* A, int l
 }
 
 // C = epilogue(A @ W^T) on `stream`, A (M, K) and W (N, K) bf16; C bf16, or
-// fp32 when out_f32. `tile` < 0: by shape.
+// fp32 when out_f32. `tile` < 0: by shape (the mma.sync kernel's); `path`
+// < 0: by the plan, else forced (the card tests).
 inline void gemm_nt_bf16(cudaStream_t stream, int M, int N, int K, const bf16* A, int lda,
                          const bf16* W, int ldw, void* C, int ldc, bool out_f32,
-                         const EpilogueBf16& ep, int tile = -1) {
+                         const EpilogueBf16& ep, int tile = -1, int path = -1) {
     GemmBf16Params p = gemm_bf16_params(M, N, K, A, lda, ldw, ldc, out_f32);
     p.W[0] = W; p.C[0] = C; p.ep[0] = ep;
-    gemm_bf16_launch<false, false>(stream, p, 1, 1, tile);
+    gemm_bf16_launch<false, false>(stream, p, 1, 1, tile, path);
 }
 
 // Two products of one A in one launch (as gemm_nt2), bf16 outputs.
 inline void gemm_nt2_bf16(cudaStream_t stream, int M, int N, int K, const bf16* A, int lda,
                           const bf16* W0, const bf16* W1, int ldw, bf16* C0, bf16* C1, int ldc,
-                          const EpilogueBf16& ep0, const EpilogueBf16& ep1) {
+                          const EpilogueBf16& ep0, const EpilogueBf16& ep1, int path = -1) {
     GemmBf16Params p = gemm_bf16_params(M, N, K, A, lda, ldw, ldc, false);
     p.W[0] = W0; p.W[1] = W1; p.C[0] = C0; p.C[1] = C1; p.ep[0] = ep0; p.ep[1] = ep1;
-    gemm_bf16_launch<false, false>(stream, p, 2, 1, -1);
+    gemm_bf16_launch<false, false>(stream, p, 2, 1, -1, path);
 }
 
 // C = epilogue(A @ W) on `stream`, A (M, K) and W (K, N) bf16; C bf16, or
@@ -1522,19 +2228,20 @@ inline void gemm_nt2_bf16(cudaStream_t stream, int M, int N, int K, const bf16* 
 // mask (A * m) W and (A W) * m are the same numbers.)
 inline void gemm_nn_bf16(cudaStream_t stream, int M, int N, int K, const bf16* A, int lda,
                          const bf16* W, int ldw, void* C, int ldc, bool out_f32,
-                         const EpilogueBf16& ep, int tile = -1) {
+                         const EpilogueBf16& ep, int tile = -1, int path = -1) {
     GemmBf16Params p = gemm_bf16_params(M, N, K, A, lda, ldw, ldc, out_f32);
     p.W[0] = W; p.C[0] = C; p.ep[0] = ep;
-    gemm_bf16_launch<false, true>(stream, p, 1, 1, tile);
+    gemm_bf16_launch<false, true>(stream, p, 1, 1, tile, path);
 }
 
 // Two products of one A in one launch, as gemm_nn2.
 inline void gemm_nn2_bf16(cudaStream_t stream, int M, int N, int K, const bf16* A, int lda,
                           const bf16* W0, const bf16* W1, int ldw, void* C0, void* C1, int ldc,
-                          bool out_f32, const EpilogueBf16& ep0, const EpilogueBf16& ep1) {
+                          bool out_f32, const EpilogueBf16& ep0, const EpilogueBf16& ep1,
+                          int path = -1) {
     GemmBf16Params p = gemm_bf16_params(M, N, K, A, lda, ldw, ldc, out_f32);
     p.W[0] = W0; p.W[1] = W1; p.C[0] = C0; p.C[1] = C1; p.ep[0] = ep0; p.ep[1] = ep1;
-    gemm_bf16_launch<false, true>(stream, p, 2, 1, -1);
+    gemm_bf16_launch<false, true>(stream, p, 2, 1, -1, path);
 }
 
 // out (M, N) fp32 = (A * ascale[row / adiv])^T @ B, A (R, M), B (R, N) bf16,
@@ -1543,7 +2250,7 @@ inline void gemm_nn2_bf16(cudaStream_t stream, int M, int N, int K, const bf16* 
 // column sums of the scaled A from the same pass.
 inline void gemm_tn_bf16(cudaStream_t stream, int M, int N, int R, const bf16* A, int lda,
                          const float* ascale, int adiv, const bf16* B, int ldb, float* partial,
-                         float* out, float* bias_out = nullptr) {
+                         float* out, float* bias_out = nullptr, int path = -1) {
     const SplitK s = splitk_for(M, N, R);
     GemmBf16Params p = gemm_bf16_params(M, N, R, A, lda, ldb, N, true);
     p.kchunk = s.kchunk;
@@ -1553,7 +2260,7 @@ inline void gemm_tn_bf16(cudaStream_t stream, int M, int N, int R, const bf16* A
     p.C[0] = partial;
     const size_t count = (size_t)M * N;
     p.colsum = bias_out ? partial + (size_t)s.splits * count : nullptr;
-    gemm_bf16_launch<true, true>(stream, p, 1, s.splits, kTile128x128);
+    gemm_bf16_launch<true, true>(stream, p, 1, s.splits, kTile128x128, path);
     const size_t bcount = bias_out ? (size_t)M : 0;
     const size_t total = count + bcount;
     const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);

@@ -365,46 +365,13 @@ __device__ __forceinline__ double2 frame_sum2(const float* diff, int W, int T, i
     return s;
 }
 
-// The mbarrier and TMA operations of the ring (PTX).
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-                 : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-                 "r"(bytes)
-                 : "memory");
-}
-// Waits until the phase of parity ``parity`` of the barrier has completed,
-// spinning on test_wait (which never suspends the thread, so that the lanes
-// of the producer whose slots are free go on issuing).
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-    const uint32_t a = smem_addr(bar);
-    uint32_t done = 0;
-    do {
-        asm volatile(
-            "{\n .reg .pred p;\n mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            " selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done)
-            : "r"(a), "r"(parity)
-            : "memory");
-    } while (!done);
-}
-// One box of a 2-D tensor map, at column x and row y, into shared memory.
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, int x, int y,
-                                        uint64_t* bar) {
-    asm volatile(
-        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_addr(bar))
-        : "memory");
-}
+// The mbarrier and TMA operations of the ring (tma.cuh, shared with the
+// bf16 GEMM's wgmma path).
+using vml::mbar_arrive;
+using vml::mbar_expect;
+using vml::mbar_init;
+using vml::mbar_wait;
+using vml::tma_box;
 
 // The moment index of a list word.
 template <bool Dense>
@@ -705,45 +672,14 @@ proposal_bwd_bf16_kernel(int T, int L, int C, int D, int slots, int tma, int vec
     }
 }
 
-// cuTensorMapEncodeTiled, found through the runtime's entry-point query (the
-// library links no libcuda); null where it is missing.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-EncodeTiled encode_tiled() {
-    static const EncodeTiled fn = [] {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-        const cudaError_t err = cudaGetDriverEntryPointByVersion(
-            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-        const cudaError_t err =
-            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-        return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-                   ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-    }();
-    return fn;
-}
-
 // The tensor map of a bf16 (rows, D) matrix read in boxes of ``box_rows``
 // rows by 64 columns (columns past D read as 0).
 cudaError_t row_map(CUtensorMap* map, const vml::bf16* base, long long rows, int D,
                     int box_rows) {
-    const EncodeTiled encode = encode_tiled();
-    if (encode == nullptr) return cudaErrorNotSupported;
-    const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
-    const cuuint64_t strides[1] = {(cuuint64_t)D * sizeof(vml::bf16)};
-    const cuuint32_t box[2] = {(cuuint32_t)vml::kPairCols, (cuuint32_t)box_rows};
-    const cuuint32_t steps[2] = {1, 1};
-    const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                              const_cast<vml::bf16*>(base), dims, strides, box, steps,
-                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+    const uint64_t dims[2] = {(uint64_t)D, (uint64_t)rows};
+    const uint64_t strides[1] = {(uint64_t)D * sizeof(vml::bf16)};
+    const uint32_t box[2] = {(uint32_t)vml::kPairCols, (uint32_t)box_rows};
+    return vml::bf16_map(map, base, 2, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 template <bool Dense, typename E>

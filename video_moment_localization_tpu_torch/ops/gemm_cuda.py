@@ -21,13 +21,20 @@ each kernel of the port launches, so the CPU tests can check every shape of
 the shipped configs and ``chip_smoke.py`` can hold the mirror against the C
 plan on the card.
 
-A third path, BF16, serves the bf16 variants of K4, K5, K2 and K3 in all
-three layouts: bf16 operands, fp32 sums (``mma.sync`` m16n8k16; a k-major
-operand's fragments by ``ldmatrix.trans``), the epilogue in fp32 with bf16
-or fp32 residuals, a bf16 or fp32 result; gemm_tn's split and fixed-order
-reduction are the fp32 path's. ``gemm_bf16`` calls its nt layout alone and
-``gemm_bf16_layout`` its nn and tn layouts (their plain versions multiply
-the bf16 values in fp32), and `model_gemm_shapes_bf16` lists its products.
+The bf16 products (the bf16 variants of K2-K5, K7, K9 and K10, all three
+layouts): bf16 operands, fp32 sums, the epilogue in fp32 with bf16 or fp32
+residuals, a bf16 or fp32 result; gemm_tn's split and fixed-order reduction
+are the fp32 path's. Two kernels, chosen statically by layout, shape and
+alignment (`path_for` at bf16): BF16_WG, a persistent wgmma kernel fed by
+TMA with a producer warp and an epilogue staged through shared memory, for
+every product whose operands TMA can read; BF16, the ``mma.sync`` m16n8k16
+kernel, for operands off 16-byte alignment or with leading dimensions no
+multiple of 8. ``gemm_bf16_general`` launches any form of it (``gemm_bf16``
+its nt layout, ``gemm_bf16_layout`` its nn and tn ones; the plain version
+`gemm_bf16_general_plain` multiplies the bf16 values in fp32);
+`model_gemm_shapes_bf16` lists the products and `epilogue_bf16` their
+epilogue terms and output type; `wg_bf16_plan` and `wg_bf16_tile` restate
+the wgmma kernel's plan and order of tiles.
 """
 
 from __future__ import annotations
@@ -47,13 +54,19 @@ SMS = 132                   # H100 SXM
 TILES = ((128, 128), (128, 64), (64, 64))   # csrc/gemm.cuh::GemmTile, in order
 LAYOUTS = {"nt": 0, "nn": 1, "tn": 2}
 CUDA_CORE, TENSOR = 0, 1    # csrc/gemm.cuh::GemmPath
-BF16 = 2                    # csrc/gemm.cuh::kPathBf16
+BF16 = 2                    # csrc/gemm.cuh::kPathBf16 (mma.sync)
+BF16_WG = 3                 # csrc/gemm.cuh::kPathBf16Wg (wgmma, TMA)
 PATHS = {"cuda_core": CUDA_CORE, "tensor": TENSOR}
 TC_PAD = 8                  # k-major row padding of the tensor-core path
 BF16_BK = 32                # K slice of a stage of the bf16 path
 BF16_LD = BF16_BK + 8       # bf16 per shared row of a k-contiguous slice
 BF16_PAD = 8                # bf16 past R per shared row of a k-major slice
 BF16_STAGES = 4
+WG_BF16_TILE = 128          # gemm.cuh::kWgBfTile: columns of the wgmma kernel's output tile
+WG_BF16_THREADS = 384       # kWgBfThreads: a producer and two consumer warpgroups
+# gemm.cuh::WgBf by layout: (rows of a tile, K of a slice, stages of the ring);
+# nt / nn one consumer warpgroup a tile in turns, tn both on one tile.
+WG_BF16_SHAPE = {"nt": (64, 64, 5), "nn": (64, 64, 5), "tn": (128, 128, 2)}
 
 
 # Call sites that fix their path instead of taking `path_for`'s: the moment
@@ -69,15 +82,18 @@ TC_MIN_WORK = 1 << 29       # gemm.cuh::kTcMinWork
 
 
 def path_for(layout: str, M: int, N: int, K: int, groups: int = 1,
-             dtype: torch.dtype = torch.float32) -> int:
+             dtype: torch.dtype = torch.float32, tma_ok: bool = True) -> int:
     """gemm.cuh::gemm_path_for: gemm_nt and gemm_nn take the tensor cores
     from M N K = TC_MIN_WORK on; gemm_tn (K: the rows it reduces) when a
     block reduces at least WG_MIN_ROWS rows; else the CUDA cores. A bf16
-    product of any layout (gemm_path_for_bf16) takes the BF16 path."""
+    product of any shape (gemm_path_for_bf16) takes the wgmma kernel
+    BF16_WG where TMA can read its operands (``tma_ok``: 16-byte-aligned
+    bases, leading dimensions multiples of 8), else the mma.sync kernel
+    BF16."""
     if dtype == torch.bfloat16:
         if layout not in LAYOUTS:
             raise ValueError(f"unknown layout {layout!r}")
-        return BF16
+        return BF16_WG if tma_ok else BF16
     if layout == "tn":
         return TENSOR if splitk_for(M, N, K)[1] >= WG_MIN_ROWS else CUDA_CORE
     return TENSOR if M * N * K >= TC_MIN_WORK else CUDA_CORE
@@ -97,6 +113,14 @@ def smem_bytes(tile: int, layout: str, path: int = TENSOR) -> int:
     parts), W padded by TC_PAD floats per k when it is contiguous along its
     rows (nn); tn (gemm_wg_smem_floats) below."""
     bm, bn = TILES[tile]
+    if path == BF16_WG:
+        # gemm_bf16_wg_smem_bytes: 1024 bytes of alignment slack, the ring of
+        # both operands' slices (rows x K and 128 x K bf16), each of two
+        # warpgroups' staged 64 x 128 tile (fp32) and bf16 output tile, a
+        # full and an empty mbarrier a stage.
+        rows, bk, stages = WG_BF16_SHAPE[layout]
+        return (1024 + stages * (rows + WG_BF16_TILE) * bk * 2 + 2 * 64 * WG_BF16_TILE * 6
+                + 2 * stages * 8)
     if path == BF16:
         # gemm_bf16_smem_bytes: a ring of both operands' slices, rows of
         # BF16_LD bf16 where an operand is contiguous along k, else BF16_BK
@@ -118,8 +142,9 @@ def smem_bytes(tile: int, layout: str, path: int = TENSOR) -> int:
 
 def blocks_per_sm(layout: str, path: int) -> int:
     """Blocks an SM holds (their launch bounds and shared memory): one of
-    gemm_tn's tensor-core kernel, two of every other."""
-    return 1 if (path == TENSOR and layout == "tn") else 2
+    gemm_tn's tensor-core kernel and of the bf16 wgmma kernel, two of every
+    other."""
+    return 1 if (path == TENSOR and layout == "tn") or path == BF16_WG else 2
 
 
 def tiles(tile: int, M: int, N: int) -> int:
@@ -159,11 +184,49 @@ def launch_grid(layout: str, M: int, N: int, K: int, groups: int = 1) -> Tuple[i
     return tile, tiles(tile, M, N), 1
 
 
+def wg_bf16_split(layout: str, M: int, N: int, K: int) -> Tuple[int, int]:
+    """(splits, rows a split) of the wgmma kernel's K: gemm_tn's splitk_for
+    split of its R rows, one split of K otherwise."""
+    return splitk_for(M, N, K) if layout == "tn" else (1, K)
+
+
+def wg_bf16_plan(layout: str, M: int, N: int, K: int, groups: int = 1) -> Dict[str, int]:
+    """gemm.cuh's plan of one launch of the wgmma kernel
+    (vml_gemm_bf16_wg_plan): its output tiles (rows x 128, of every problem
+    and split), its persistent blocks (one an SM, at most one a tile), the
+    slices of a tile's K (of the first split), the ring's stages, the
+    block's threads and the rows of a tile."""
+    splits, kchunk = wg_bf16_split(layout, M, N, K)
+    rows, bk, stages = WG_BF16_SHAPE[layout]
+    tiles = -(-M // rows) * -(-N // WG_BF16_TILE) * groups * splits
+    return dict(tiles=tiles, blocks=min(tiles, SMS), slices=-(-min(kchunk, K) // bk),
+                stages=stages, threads=WG_BF16_THREADS, rows=rows)
+
+
+def wg_bf16_tile(layout: str, M: int, N: int, K: int, groups: int, t: int):
+    """gemm_bf16_wg_kernel's tile ``t``: (problem, split, first row, first
+    column, first and end k). Column tiles fastest, then the problem (nt /
+    nn) or the row tile (tn), then the row tile (nt / nn) or the split (tn);
+    block b takes tiles b, b + blocks, b + 2 blocks, ... (nt / nn: its
+    consumer warpgroups take them in turns)."""
+    splits, kchunk = wg_bf16_split(layout, M, N, K)
+    rows = WG_BF16_SHAPE[layout][0]
+    tn_, tm_ = -(-N // WG_BF16_TILE), -(-M // rows)
+    n0 = (t % tn_) * WG_BF16_TILE
+    t //= tn_
+    if layout == "tn":
+        g, m0, z = 0, (t % tm_) * rows, t // tm_
+    else:
+        g, m0, z = t % groups, (t // groups) * rows, 0
+    return g, z, m0, n0, z * kchunk, min(K, (z + 1) * kchunk)
+
+
 def model_gemm_shapes_bf16(cfg, B: int) -> List[Tuple[str, str, str, int, int, int, int]]:
     """The products of the bf16 variants of K4 (one layer's, per layer), K5
-    (the layer-2 projections), K2 and K3 (those of K2 and K3) at batch B, in
-    `model_gemm_shapes`' form; s_hat and the weight gradients have fp32
-    outputs, the rest bf16 or fp32 as their use wants."""
+    (the layer-2 projections), K2, K3, K7 (forward and backward), K9 and K10
+    (forward and backward) at batch B, in `model_gemm_shapes`' form (the
+    fp32 kernels' products at bf16); `epilogue_bf16` gives each one's
+    epilogue terms and output type."""
     L, C, D, dl, Nq = cfg.L, cfg.C, cfg.D, cfg.dl, cfg.max_query_length
     H = cfg.lstm_hidden_size
     N = L * (L + 1) // 2
@@ -175,7 +238,51 @@ def model_gemm_shapes_bf16(cfg, B: int) -> List[Tuple[str, str, str, int, int, i
             (k, "s_hat", "nt", B, dl, D, 1), (k, "c_out", "nt", B * NC, D, dl, 1),
             (k, "bq", "nt", B * L, D, D, 1), (k, "bk", "nt", B * Nq, D, D, 1),
             (k, "conv_fb + conv_fc", "nt", B * N, D, 2 * D, 1)] + [
-        (f"{s[0]}-bf16",) + s[1:] for s in model_gemm_shapes(cfg, B) if s[0] in ("K2", "K3")]
+        (f"{s[0]}-bf16",) + s[1:] for s in model_gemm_shapes(cfg, B)
+        if s[0] in ("K2", "K3", "K7f", "K7b", "K9", "K10f", "K10b")]
+
+
+# The epilogue of each bf16 product (csrc/smin_units.cuh, content_bwd.cuh,
+# content_train.cu, smin_train.cu, lstm.cu): its terms, by name (rmask and
+# post2 with their divisor, "/C" for the clip rows' C) and its output type.
+# gemm_tn's products write fp32 partial sums (the fixed-order reduction
+# adds them), with the column sums of the scaled A ("colsum") where the bias
+# gradient is taken and the row scale ("ascale") where the backward masks.
+_EPILOGUES_BF16 = {
+    "layer-2 projections": (("bias",), "bf16"),
+    "c_hat": (("bias", "rmask/C"), "bf16"), "attn_q": (("bias",), "bf16"),
+    "w_hat": (("bias", "rmask"), "bf16"), "attn_k": (("bias",), "bf16"),
+    "s_hat": (("bias",), "fp32"),
+    "c_out": (("bias", "rmask/C", "post", "post2/C"), "bf16"),
+    "bq": (("bias",), "bf16"), "bk": (("bias",), "bf16"),
+    "conv_fb + conv_fc": (("bias", "rmask", "post"), "bf16"),
+    "conv_fc": (("bias", "rmask"), "bf16"),
+    "dfcc": (("rmask/C",), "bf16"), "dW c_out": (("ascale/C", "colsum"), "fp32"),
+    "dh attn_q": (("pre", "rmask/C"), "bf16"), "dW attn_q": (("colsum",), "fp32"),
+    "dfwh attn_k": (("pre", "rmask"), "bf16"), "dW attn_k": (("colsum",), "fp32"),
+    "dW w_hat": (("colsum",), "fp32"), "dW s_hat": (("colsum",), "fp32"),
+    "dW c_hat": (("colsum",), "fp32"),
+    "dfw": (("post32",), "bf16"), "dfs": (("post32",), "bf16"), "dfc": (("post",), "bf16"),
+    "dx1 dx2": (("rmask",), "bf16"), "dW conv_fb": (("ascale", "colsum"), "fp32"),
+    "dW conv_fc": (("ascale", "colsum"), "fp32"), "conv_fc dx2": (("rmask",), "bf16"),
+    "dfb": (("post32",), "bf16"), "dfw bk": (("post32",), "fp32"),
+    "dW bq": (("colsum",), "fp32"), "dW bk": (("colsum",), "fp32"),
+}
+
+
+def epilogue_bf16(kernel: str, product: str) -> Tuple[Tuple[str, ...], str]:
+    """(epilogue terms, output type) of a product of `model_gemm_shapes_bf16`:
+    K10's c_out adds its residuals in bf16 ("round_each"); K7 and K10 take
+    no other units' shares into dfw / dfs (K3 does: "post32"); K3's dW
+    conv_fc has no bias."""
+    terms, out = _EPILOGUES_BF16[product]
+    if kernel.startswith("K10") and product == "c_out":
+        terms += ("round_each",)
+    if not kernel.startswith("K3") and product in ("dfw", "dfs"):
+        terms = ()
+    if kernel.startswith("K3") and product == "dW conv_fc":
+        terms = ("ascale",)
+    return terms, out
 
 
 def model_gemm_shapes(cfg, B: int) -> List[Tuple[str, str, str, int, int, int, int]]:
@@ -272,31 +379,41 @@ def _library() -> ctypes.CDLL:
     lib.vml_gemm_smem_bytes.restype = ctypes.c_size_t
     lib.vml_gemm_tn_partial_floats.argtypes = [ctypes.c_int] * 3
     lib.vml_gemm_tn_partial_floats.restype = ctypes.c_size_t
-    lib.vml_gemm_path_for_bf16.argtypes = [ctypes.c_int]
+    lib.vml_gemm_path_for_bf16.argtypes = [ctypes.c_int] * 2
     lib.vml_gemm_path_for_bf16.restype = ctypes.c_int
-    fn = lib.vml_gemm_bf16
-    ints = {1, 2, 3, 5, 7, 9, 10, 13, 15, 17, 18, 19}
-    fn.argtypes = [ctypes.c_int if k in ints else ctypes.c_void_p for k in range(20)]
-    fn.restype = ctypes.c_int
-    fn = lib.vml_gemm_bf16_layout
-    ints = {1, 2, 3, 4, 6, 8, 10, 12, 13, 16, 18, 20}
-    fn.argtypes = [ctypes.c_int if k in ints else ctypes.c_void_p for k in range(23)]
+    lib.vml_gemm_bf16_wg_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.vml_gemm_bf16_wg_plan.restype = None
+    fn = lib.vml_gemm_bf16_general
+    ints = {1, 2, 3, 4, 6, 8, 11, 14, 15, 19, 21, 23, 25, 27, 28, 29, 32}
+    fn.argtypes = [ctypes.c_int if k in ints else ctypes.c_void_p for k in range(33)]
     fn.restype = ctypes.c_int
     return lib
 
 
 def card_plan(layout: str, M: int, N: int, K: int, groups: int = 1,
               product: Optional[str] = None,
-              dtype: torch.dtype = torch.float32) -> Dict[str, int]:
+              dtype: torch.dtype = torch.float32, tma_ok: bool = True) -> Dict[str, int]:
     """The C host code's plan for one launch of ``product`` (a name of
-    `model_gemm_shapes`, or at bf16 of `model_gemm_shapes_bf16`), to hold
-    the mirror against."""
+    `model_gemm_shapes`, or at bf16 of `model_gemm_shapes_bf16`, whose
+    operands TMA can read or, ``tma_ok`` False, cannot), to hold the mirror
+    against."""
     lib = _library()
     if dtype == torch.bfloat16:
-        path = lib.vml_gemm_path_for_bf16(LAYOUTS[layout])
+        path = lib.vml_gemm_path_for_bf16(LAYOUTS[layout], int(tma_ok))
         tile = 0 if layout == "tn" else lib.vml_gemm_tile_for(M, N, groups)
-        return dict(path=path, tile=tile,
-                    smem=lib.vml_gemm_smem_bytes(path, LAYOUTS[layout], tile))
+        out = dict(path=path, tile=tile, smem=lib.vml_gemm_smem_bytes(path, LAYOUTS[layout], tile))
+        if path == BF16_WG:
+            splits, kchunk = ctypes.c_int(1), ctypes.c_int(K)
+            if layout == "tn":
+                lib.vml_gemm_splitk(M, N, K, ctypes.byref(splits), ctypes.byref(kchunk))
+            vals = (ctypes.c_longlong * 7)()
+            lib.vml_gemm_bf16_wg_plan(LAYOUTS[layout], M, N, K, groups, splits.value,
+                                      kchunk.value, vals)
+            out.update(zip(("smem_wg", "tiles", "blocks", "slices", "stages", "threads", "rows"),
+                           vals))
+            if out.pop("smem_wg") != out["smem"]:
+                raise RuntimeError("vml_gemm_bf16_wg_plan and vml_gemm_smem_bytes differ")
+        return out
     path = (lib.vml_gemm_moment_path() if product == MOMENT_PRODUCT
             else lib.vml_gemm_path_for(LAYOUTS[layout], M, N, K, groups))
     if layout == "tn":
@@ -310,12 +427,16 @@ def card_plan(layout: str, M: int, N: int, K: int, groups: int = 1,
 
 
 def plan(layout: str, M: int, N: int, K: int, groups: int = 1,
-         product: Optional[str] = None, dtype: torch.dtype = torch.float32) -> Dict[str, int]:
+         product: Optional[str] = None, dtype: torch.dtype = torch.float32,
+         tma_ok: bool = True) -> Dict[str, int]:
     """The mirror's plan for one launch, in `card_plan`'s form."""
     tile = launch_grid(layout, M, N, K, groups)[0]
     if dtype == torch.bfloat16:
-        path = path_for(layout, M, N, K, groups, dtype)
-        return dict(path=path, tile=tile, smem=smem_bytes(tile, layout, path))
+        path = path_for(layout, M, N, K, groups, dtype, tma_ok)
+        out = dict(path=path, tile=tile, smem=smem_bytes(tile, layout, path))
+        if path == BF16_WG:
+            out.update(wg_bf16_plan(layout, M, N, K, groups))
+        return out
     path = site_path(product, layout, M, N, K, groups)
     out = dict(path=path, tile=tile, smem=smem_bytes(tile, layout, path))
     if layout == "tn":
@@ -396,23 +517,67 @@ def gemm(layout: str, A, W, ascale=None, adiv: int = 1, bias=None, pre=None, rma
 gemm.launches = 0
 
 
+def gemm_bf16_general_plain(layout: str, A, W, W1=None, ascale=None, adiv: int = 1, bias=None,
+                            bias1=None, pre=None, rmask=None, mask_div: int = 1, post=None,
+                            post32=None, post2=None, post2_div: int = 1, round_each: bool = False,
+                            out_dtype: torch.dtype = torch.bfloat16, bias_sums: bool = False):
+    """The bf16 path's function in torch ops: the bf16 values multiplied in
+    fp32. tn: the row-scaled A rounded to bf16 first, (A * ascale)^T W in
+    fp32, with the column sums of the scaled A when ``bias_sums``. nt / nn:
+    then bias, pre, the row mask, a bf16 rounding with ``round_each``, post,
+    another, post32 and post2 in fp32, rounded once to ``out_dtype``; with
+    W1 the second problem's output too (its own bias1, the other terms
+    shared)."""
+    A = A.to(torch.bfloat16).float()
+    if layout == "tn":
+        if ascale is not None:
+            A = (A * ascale[torch.arange(A.shape[0], device=A.device) // adiv][:, None]).to(
+                torch.bfloat16).float()
+        out = A.t() @ W.to(torch.bfloat16).float()
+        return (out, A.sum(dim=0)) if bias_sums else out
+    rows = torch.arange(A.shape[0], device=A.device)
+
+    def one(Wg, b):
+        Wg = Wg.to(torch.bfloat16).float()
+        out = A @ (Wg.t() if layout == "nt" else Wg)
+        if b is not None:
+            out = out + b
+        if pre is not None:
+            out = out + pre
+        if rmask is not None:
+            out = out * rmask[rows // mask_div][:, None]
+        if round_each:
+            out = out.to(torch.bfloat16).float()
+        if post is not None:
+            out = out + post.float()
+        if round_each:
+            out = out.to(torch.bfloat16).float()
+        if post32 is not None:
+            out = out + post32
+        if post2 is not None:
+            out = out + post2.float()[rows // post2_div]
+        return out.to(out_dtype)
+
+    return one(W, bias) if W1 is None else (one(W, bias), one(W1, bias1))
+
+
 def gemm_bf16_plain(A, W, bias=None, rmask=None, mask_div: int = 1, post=None, post2=None,
                     post2_div: int = 1, out_dtype: torch.dtype = torch.bfloat16):
-    """The bf16 path's function in torch ops: A (M, K) @ W (N, K)^T with
-    bf16 operands and fp32 sums (the bf16 values multiplied in fp32), then
-    bias, the row mask, post and post2 in fp32, rounded once to
-    ``out_dtype``."""
-    out = A.to(torch.bfloat16).float() @ W.to(torch.bfloat16).float().t()
-    rows = torch.arange(out.shape[0], device=out.device)
-    if bias is not None:
-        out = out + bias
-    if rmask is not None:
-        out = out * rmask[rows // mask_div][:, None]
-    if post is not None:
-        out = out + post.float()
-    if post2 is not None:
-        out = out + post2.float()[rows // post2_div]
-    return out.to(out_dtype)
+    """`gemm_bf16`'s plain version: A (M, K) @ W (N, K)^T, then bias, the
+    row mask, post and post2 (`gemm_bf16_general_plain`'s nt layout)."""
+    return gemm_bf16_general_plain("nt", A, W, bias=bias, rmask=rmask, mask_div=mask_div,
+                                   post=post, post2=post2, post2_div=post2_div,
+                                   out_dtype=out_dtype)
+
+
+def gemm_bf16_layout_plain(layout: str, A, W, ascale=None, adiv: int = 1, bias=None, pre=None,
+                           rmask=None, mask_div: int = 1, post32=None,
+                           out_dtype: torch.dtype = torch.bfloat16, bias_sums: bool = False):
+    """`gemm_bf16_layout`'s plain version (`gemm_bf16_general_plain`'s nn
+    and tn layouts)."""
+    return gemm_bf16_general_plain(layout, A, W, ascale=ascale, adiv=adiv, bias=bias, pre=pre,
+                                   rmask=rmask, mask_div=mask_div, post32=post32,
+                                   out_dtype=out_dtype, bias_sums=bias_sums)
 
 
 def _ld16(name: str, t: Optional[torch.Tensor], device) -> int:
@@ -424,126 +589,109 @@ def _ld16(name: str, t: Optional[torch.Tensor], device) -> int:
     return t.stride(0)
 
 
-def gemm_bf16(A, W, bias=None, rmask=None, mask_div: int = 1, post=None, post2=None,
-              post2_div: int = 1, out_dtype: torch.dtype = torch.bfloat16,
-              tile: Optional[int] = None, out: Optional[torch.Tensor] = None):
-    """One launch of the bf16 path: A (M, K), W (N, K) bf16 (any row
-    stride), bias (N,) and rmask fp32, post / post2 bf16 -> (M, N) in
-    ``out_dtype`` (bf16 or fp32). A CPU tensor runs `gemm_bf16_plain`; a
-    CUDA tensor launches the kernel or raises (other types raise: nothing
-    is cast)."""
+def _bf16_path(name: str, path: Optional[int]) -> int:
+    if path not in (None, BF16, BF16_WG):
+        raise ValueError(f"{name}: path must be None, BF16 or BF16_WG, got {path!r}")
+    return -1 if path is None else path
+
+
+def gemm_bf16_general(layout: str, A, W, W1=None, ascale=None, adiv: int = 1, bias=None,
+                      bias1=None, pre=None, rmask=None, mask_div: int = 1, post=None, post32=None,
+                      post2=None, post2_div: int = 1, round_each: bool = False,
+                      out_dtype: torch.dtype = torch.bfloat16, bias_sums: bool = False,
+                      path: Optional[int] = None):
+    """One launch of any form of a bf16 product: layout "nt" (A (M, K), W
+    (N, K)) or "nn" (W (K, N)), over two problems sharing A when W1 is
+    given (nt: bf16 outputs), with every epilogue term (bias, bias1, rmask
+    and ascale fp32 vectors; pre, post32 fp32 and post, post2 bf16 matrices;
+    ``round_each``), or "tn" (A (R, M), W (R, N) -> (M, N) fp32, with the
+    column sums of the scaled A when ``bias_sums``). Matrices may have any
+    row stride and alignment: TMA reads 16-byte-aligned ones with row
+    strides of multiples of 8, and the plan sends the rest to the mma.sync
+    kernel; ``path`` forces a kernel (BF16: mma.sync; BF16_WG: wgmma, which
+    refuses operands TMA cannot read). A CPU tensor runs
+    `gemm_bf16_general_plain`; a CUDA tensor launches the kernel or raises
+    (nothing is cast)."""
     if A.device.type == "cpu":
-        return gemm_bf16_plain(A, W, bias, rmask, mask_div, post, post2, post2_div, out_dtype)
+        return gemm_bf16_general_plain(layout, A, W, W1, ascale, adiv, bias, bias1, pre, rmask,
+                                       mask_div, post, post32, post2, post2_div, round_each,
+                                       out_dtype, bias_sums)
+    if layout not in LAYOUTS:
+        raise ValueError(f"gemm_bf16: unknown layout {layout!r}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"gemm_bf16: out_dtype must be bfloat16 or float32, got {out_dtype}")
+    if layout == "nt" and W1 is not None and out_dtype != torch.bfloat16:
+        raise ValueError("gemm_bf16: nt over two problems writes bf16")
+    cpath = _bf16_path("gemm_bf16", path)
     dev = A.device
     lda, ldw = _ld16("A", A, dev), _ld16("W", W, dev)
-    M, K = A.shape
-    N = W.shape[0]
-    if W.shape[1] != K:
-        raise ValueError(f"gemm_bf16: A {tuple(A.shape)} and W {tuple(W.shape)} differ in K")
-    for name, t, shape in (("bias", bias, (N,)), ("rmask", rmask, None)):
+    if W1 is not None and (W1.shape != W.shape or _ld16("W1", W1, dev) != ldw):
+        raise ValueError("gemm_bf16: W1 must have W's shape and row stride")
+    if layout == "tn":
+        (R, M), N = A.shape, W.shape[1]
+        K, out_dtype = R, torch.float32
+        inner = W.shape[0]
+    else:
+        M, K = A.shape
+        N, inner = (W.shape[0], W.shape[1]) if layout == "nt" else (W.shape[1], W.shape[0])
+    if inner != K:
+        raise ValueError(f"gemm_bf16 {layout}: A {tuple(A.shape)} and W {tuple(W.shape)} do "
+                         f"not meet")
+    for name, t, n in (("ascale", ascale, None), ("bias", bias, N), ("bias1", bias1, N),
+                       ("rmask", rmask, None)):
         if t is not None and (t.dim() != 1 or t.dtype != torch.float32 or t.device != dev
-                              or not t.is_contiguous() or (shape and tuple(t.shape) != shape)):
+                              or not t.is_contiguous() or (n and t.shape[0] != n)):
             raise ValueError(f"gemm_bf16: {name} must be a contiguous float32 vector on {dev}")
-    if out is None:
-        out = torch.empty((M, N), device=dev, dtype=out_dtype)
-    if (tuple(out.shape) != (M, N) or out.dtype != out_dtype or out.stride(1) != 1
-            or out.device != dev):
-        raise ValueError(f"gemm_bf16: out must be ({M}, {N}) {out_dtype} on {dev}")
+    for name, t, rows in (("pre", pre, M), ("post", post, M), ("post32", post32, M),
+                          ("post2", post2, -(-M // post2_div))):
+        if t is not None and tuple(t.shape) != (rows, N):
+            raise ValueError(f"gemm_bf16: {name} must be ({rows}, {N}), got {tuple(t.shape)}")
+    outs = [torch.empty((M, N), device=dev, dtype=out_dtype) for _ in range(1 if W1 is None else 2)]
+    partial = colsum = None
+    if layout == "tn":
+        partial = torch.empty(tn_partial_floats(M, N, K), device=dev, dtype=torch.float32)
+        colsum = torch.empty(M, device=dev, dtype=torch.float32) if bias_sums else None
     lib = _library()
     nul = ctypes.c_void_p(0)
     p = lambda t: ptr(t) if t is not None else nul   # noqa: E731
     with torch.cuda.device(dev):
-        err = lib.vml_gemm_bf16(
-            stream_of(A), M, N, K, ptr(A), lda, ptr(W), ldw, ptr(out), out.stride(0),
-            int(out_dtype == torch.float32), p(bias), p(rmask), mask_div, p(post),
-            _ld16("post", post, dev), p(post2), _ld16("post2", post2, dev), post2_div,
-            -1 if tile is None else tile)
-    check(lib, "vml_gemm_bf16", err)
-    gemm_bf16.launches += 1
-    return out
-
-
-gemm_bf16.launches = 0
-
-
-def gemm_bf16_layout_plain(layout: str, A, W, ascale=None, adiv: int = 1, bias=None, pre=None,
-                           rmask=None, mask_div: int = 1, post32=None,
-                           out_dtype: torch.dtype = torch.bfloat16, bias_sums: bool = False):
-    """The bf16 path's nn and tn layouts in torch ops: the bf16 values of
-    the (row-scaled) operands multiplied in fp32; nn then bias, pre, the row
-    mask and post32 in fp32, rounded once to ``out_dtype``; tn fp32, with
-    the column sums of the scaled A when ``bias_sums``."""
-    A = A.to(torch.bfloat16).float()
-    if ascale is not None:
-        A = (A * ascale[torch.arange(A.shape[0], device=A.device) // adiv][:, None]).to(
-            torch.bfloat16).float()
-    W = W.to(torch.bfloat16).float()
+        err = lib.vml_gemm_bf16_general(
+            stream_of(A), LAYOUTS[layout], M, N, K, ptr(A), lda, p(ascale), adiv, ptr(W),
+            p(W1), ldw, ptr(outs[0]), p(outs[1] if W1 is not None else None), N,
+            int(out_dtype == torch.float32), p(bias), p(bias1), p(pre), _ld("pre", pre, dev),
+            p(rmask), mask_div, p(post), _ld16("post", post, dev), p(post32),
+            _ld("post32", post32, dev), p(post2), _ld16("post2", post2, dev), post2_div,
+            int(round_each), p(partial), p(colsum), cpath)
+    check(lib, "vml_gemm_bf16_general", err)
+    gemm_bf16_general.launches += 1
     if layout == "tn":
-        out = A.t() @ W
-        return (out, A.sum(dim=0)) if bias_sums else out
-    out = A @ W
-    rows = torch.arange(out.shape[0], device=out.device)
-    if bias is not None:
-        out = out + bias
-    if pre is not None:
-        out = out + pre
-    if rmask is not None:
-        out = out * rmask[rows // mask_div][:, None]
-    if post32 is not None:
-        out = out + post32
-    return out.to(out_dtype)
+        return (outs[0], colsum) if bias_sums else outs[0]
+    return outs[0] if W1 is None else tuple(outs)
+
+
+gemm_bf16_general.launches = 0
+
+
+def gemm_bf16(A, W, bias=None, rmask=None, mask_div: int = 1, post=None, post2=None,
+              post2_div: int = 1, out_dtype: torch.dtype = torch.bfloat16,
+              path: Optional[int] = None):
+    """The bf16 path's nt layout: A (M, K), W (N, K) bf16, bias (N,) and
+    rmask fp32, post / post2 bf16 -> (M, N) in ``out_dtype``
+    (`gemm_bf16_general`)."""
+    return gemm_bf16_general("nt", A, W, bias=bias, rmask=rmask, mask_div=mask_div, post=post,
+                             post2=post2, post2_div=post2_div, out_dtype=out_dtype, path=path)
 
 
 def gemm_bf16_layout(layout: str, A, W, ascale=None, adiv: int = 1, bias=None, pre=None,
                      rmask=None, mask_div: int = 1, post32=None,
-                     out_dtype: torch.dtype = torch.bfloat16, bias_sums: bool = False):
-    """One launch of the bf16 path's nn (C = A W, A (M, K), W (K, N)) or tn
-    (C = (A * ascale)^T W, A (R, M), W (R, N), fp32, with the column sums of
-    the scaled A when ``bias_sums``) layout: A and W contiguous bf16; bias,
-    pre, rmask, post32 and ascale fp32. A CPU tensor runs
-    `gemm_bf16_layout_plain`; a CUDA tensor launches the kernel or
-    raises."""
-    if A.device.type == "cpu":
-        return gemm_bf16_layout_plain(layout, A, W, ascale, adiv, bias, pre, rmask, mask_div,
-                                      post32, out_dtype, bias_sums)
+                     out_dtype: torch.dtype = torch.bfloat16, bias_sums: bool = False,
+                     path: Optional[int] = None):
+    """The bf16 path's nn (C = A W, A (M, K), W (K, N)) and tn (C = (A *
+    ascale)^T W, A (R, M), W (R, N), fp32, with the column sums of the
+    scaled A when ``bias_sums``) layouts (`gemm_bf16_general`)."""
     if layout not in ("nn", "tn"):
         raise ValueError(f"gemm_bf16_layout: layout nn or tn, not {layout!r} (nt: gemm_bf16)")
-    dev = A.device
-    for name, t in (("A", A), ("W", W)):
-        if t.dim() != 2 or t.dtype != torch.bfloat16 or t.device != dev or not t.is_contiguous():
-            raise ValueError(f"gemm_bf16_layout: {name} must be a contiguous bfloat16 matrix "
-                             f"on {dev}")
-    for name, t in (("ascale", ascale), ("bias", bias), ("pre", pre), ("rmask", rmask),
-                    ("post32", post32)):
-        if t is not None and (t.dtype != torch.float32 or t.device != dev
-                              or not t.is_contiguous()):
-            raise ValueError(f"gemm_bf16_layout: {name} must be contiguous float32 on {dev}")
-    if A.shape[0] != W.shape[0] if layout == "tn" else A.shape[1] != W.shape[0]:
-        raise ValueError(f"gemm_bf16_layout: A {tuple(A.shape)} and W {tuple(W.shape)} "
-                         f"do not meet in layout {layout}")
-    lib = _library()
-    nul = ctypes.c_void_p(0)
-    p = lambda t: ptr(t) if t is not None else nul   # noqa: E731
-    N = W.shape[1]
-    if layout == "tn":
-        R, M = A.shape
-        K, out_dtype = R, torch.float32
-        partial = torch.empty(tn_partial_floats(M, N, R), device=dev, dtype=torch.float32)
-        colsum = torch.empty(M, device=dev, dtype=torch.float32) if bias_sums else None
-    else:
-        M, K = A.shape
-        partial = colsum = None
-    out = torch.empty((M, N), device=dev, dtype=out_dtype)
-    with torch.cuda.device(dev):
-        err = lib.vml_gemm_bf16_layout(
-            stream_of(A), LAYOUTS[layout], M, N, K, ptr(A), A.shape[1], p(ascale), adiv, ptr(W),
-            N, ptr(out), N, int(out_dtype == torch.float32), p(bias), p(pre), N, p(rmask),
-            mask_div, p(post32), N, p(partial), p(colsum))
-    check(lib, "vml_gemm_bf16_layout", err)
-    gemm_bf16_layout.launches += 1
-    return (out, colsum) if bias_sums else out
+    return gemm_bf16_general(layout, A, W, ascale=ascale, adiv=adiv, bias=bias, pre=pre,
+                             rmask=rmask, mask_div=mask_div, post32=post32, out_dtype=out_dtype,
+                             bias_sums=bias_sums, path=path)
 
-
-gemm_bf16_layout.launches = 0
