@@ -121,7 +121,9 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
     inputs a layer's content unit makes: forward and backward against the
     plain version, the backward bit for bit
     against a second launch, times (one call and back to back), the plain
-    version's, the bound (its bytes) and the share of it;
+    version's, the bound (its bytes) and the share of it; the same for the
+    bf16 backward (bf16 rows, its plain version the fp32 VJP on the same
+    values, by `K23_BF16_CARD`);
 16. where the redesigned kernels had not been held: K4 at the ActivityNet
     width at B=512 (4,259,840 clip rows, past 65,535 GEMM row tiles along
     y) against K4 on slices of 8 of the same batch, and K2 / K3 at L=64 at
@@ -177,7 +179,9 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
     plain bf16 versions; times of the new kernels (one call, back to back),
     their plain versions, bounds (bf16 contractions at 989 TFLOP/s, the rest
     at 67, bf16 elements at 2 bytes) and for K1 one bf16 ``torch.matmul``
-    with Wc; the GEMM's bf16 nn and tn layouts on K3's largest products
+    with Wc, and K3-bf16's device split under ``torch.profiler`` (its
+    launches a call, their device time, the GEMM's share and the part of a
+    call back to back that no kernel covers); the GEMM's bf16 nn and tn layouts on K3's largest products
     beside ``torch.matmul``; the bf16 and the fp32 train step in ms; bf16
     training from feature files: one epoch of the CLI at ``--compute_dtype
     bfloat16`` on the Charades config and ``--test`` at bf16, and one epoch
@@ -197,7 +201,8 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
     ActivityNet bf16 eval step; ``fused_smi: False`` serving at bf16 on both
     configs (K6-bf16 -> K7-bf16, K1-bf16 -> K2-bf16, without a graph); times
     of the new kernels (one call, back to back), their plain versions,
-    bounds and for K6 one bf16 ``torch.matmul`` with Wc; the ActivityNet
+    bounds and for K6 one bf16 ``torch.matmul`` with Wc, and K10-bf16's
+    device split as K3-bf16's in phase 20; the ActivityNet
     bf16 step in ms and under the profiler; the route fork: the three-layer
     stack of one ActivityNet B=64 step, forward and backward, through
     K1 -> K2 / K3 and through K6 -> K7, at fp32 and bf16 (`route_fork_ms`);
@@ -1966,18 +1971,21 @@ def phase_plans(configs):
         N = cfg.L * (cfg.L + 1) // 2
         for B in PLAN_BATCHES:
             for Nq in range(1, cfg.max_query_length + 1):
-                for backward in (False, True):
-                    args = (B, N, cfg.C, Nq, cfg.dl, backward)
+                # fp32 (and the bf16 forward, which stages fp32 rows) and the
+                # bf16 backward's own layout.
+                for backward, bf16 in ((False, False), (True, False), (True, True)):
+                    args = (B, N, cfg.C, Nq, cfg.dl, backward, bf16)
                     got = content_attn_cuda.card_plan(*args)
                     want = content_attn_cuda.plan(*args)
                     if got != want or not want["smem"]:
-                        fail(f"pair plan {name} B={B} Nq={Nq} backward={backward}: C {got}, "
-                             f"Python mirror {want}")
+                        fail(f"pair plan {name} B={B} Nq={Nq} backward={backward} bf16={bf16}: "
+                             f"C {got}, Python mirror {want}")
                     pair_held += 1
-                got = content_attn_cuda.card_partial_floats(*args[:5])
-                if got != content_attn_cuda.partial_floats(*args[:5]):
-                    fail(f"pair partial floats {name} B={B} Nq={Nq}: C {got}, Python mirror "
-                         f"{content_attn_cuda.partial_floats(*args[:5])}")
+                for bf16 in (False, True):
+                    got = content_attn_cuda.card_partial_floats(*args[:5], bf16)
+                    if got != content_attn_cuda.partial_floats(*args[:5], bf16):
+                        fail(f"pair partial floats {name} B={B} Nq={Nq} bf16={bf16}: C {got}, "
+                             f"Python mirror {content_attn_cuda.partial_floats(*args[:5], bf16)}")
             for kernel, prod, layout, M, N, K, groups in gemm_cuda.model_gemm_shapes(cfg, B):
                 got = gemm_cuda.card_plan(layout, M, N, K, groups, prod)
                 want = gemm_cuda.plan(layout, M, N, K, groups, prod)
@@ -2222,7 +2230,43 @@ def phase_pair(configs, rng, device):
                   f"{r['ms']:.4f} ms, back to back {r['device_ms']:.4f} ms, plain "
                   f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
                   f"{r['bound_share'] * 100:.1f} % of the bound back to back")
-        del ins, dfcc
+        # The bf16 backward (K3-bf16's, K7-bf16's and K10-bf16's) on the same
+        # values in bf16: its plain version by the bulk criterion, twice bit
+        # for bit, its time beside its bytes bound at 2-byte rows.
+        bf = torch.bfloat16
+        ins16 = [t.to(bf) for t in ins[:4]] + list(ins[4:])
+        dfcc16 = dfcc.to(bf)
+        got = ca.content_attn_backward(*ins16, dfcc16)
+        again = ca.content_attn_backward(*ins16, dfcc16)
+        want = ca.content_attn_backward_plain(*ins16, dfcc16)
+        torch.cuda.synchronize()
+        for k, (g, a, w, out) in enumerate(zip(got, again, want,
+                                               ("dh", "dq", "dfwh", "dkhat", "dfsh"))):
+            if not torch.equal(g, a) or g.dtype != w.dtype:
+                fail(f"pair bf16 backward {name} B={B}: {out} differs between two launches "
+                     f"or is {g.dtype}")
+            st = bulk_rel(g, w, K23_BF16_CARD, f"pair bf16 backward {name} B={B} {out}")
+            errs["CAb16"] = max(errs.get("CAb16", 0.0), st["mean"])
+        print(f"parity pair bf16 backward {name} B={B}: 5 gradients within {K23_BF16_CARD} of "
+              f"the plain version (worst mean {errs['CAb16']:.2e} of the magnitude), a second "
+              f"launch equal bit for bit")
+        del got, again, want
+        N, Nq, dl = cfg.L * (cfg.L + 1) // 2, cfg.max_query_length, cfg.dl
+        rows = B * N * cfg.C
+        b_ms, b_by = bound(rows * (12 * Nq * dl + 8 * cfg.C * dl),
+                           (2 * 3 + 4 + 2) * rows * dl + 2 * 4 * B * (2 * Nq * dl + dl + Nq + N))
+        fn = lambda: ca.content_attn_backward(*ins16, dfcc16)  # noqa: E731
+        r = cell["b16"] = dict(
+            ms=cuda_ms(fn, iters=9), device_ms=cuda_ms_back_to_back(fn, launches=10, reps=3),
+            plain_ms=cuda_ms(lambda: ca.content_attn_backward_plain(*ins16, dfcc16), warmup=1,
+                             iters=3),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        r["bound_share"] = b_ms / r["device_ms"]
+        print(f"time pair bf16 backward {name} B={B}: kernel {r['ms']:.4f} ms, back to back "
+              f"{r['device_ms']:.4f} ms (fp32 {cell['b']['device_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{r['bound_share'] * 100:.1f} % of the bound back to back")
+        del ins, dfcc, ins16, dfcc16
         torch.cuda.empty_cache()
     return res, errs
 
@@ -3386,12 +3430,14 @@ def phase_bf16_train(config, seed, rng, device):
             launches=5, reps=3),
         plain_ms=cuda_ms(lambda: smin_train_cuda.smi_layer_backward_plain(
             weights, *ins, L, dcu, dmu, dbu), warmup=1, iters=3),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        split=device_split(
+            lambda: smin_train_cuda.smi_layer_backward(weights, *ins, L, dcu, dmu, dbu)))
     for k in ("K1f", "K1b", "K2", "K3"):
         r = res[k]
         print(f"time {k}-bf16 B={B}: kernel {r['ms']:.4f} ms (back to back "
               f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library {r['library_ms']} "
-              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}){b2b_note(r)}")
+              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}){b2b_note(r)}{split_note(r)}")
 
     # The GEMM's bf16 nn and tn layouts on K3's largest products.
     gemm_rows = []
@@ -3401,7 +3447,7 @@ def phase_bf16_train(config, seed, rng, device):
                                    ("dx1 dx2 (one)", "nn", B * N, D, D),
                                    ("dW c_out", "tn", D, cfg16.dl, B * NC),
                                    ("dW c_hat", "tn", cfg16.dl, D, B * NC),
-                                   ("dW conv_fb", "tn", D, D, B * N)):
+                                   ("dW conv_fb + conv_fc", "tn", D, 2 * D, B * N)):
         if layout == "nn":
             A = torch.randn(M, K, device=device).to(bf)
             W = torch.randn(K, Nn, device=device).to(bf)
@@ -3767,7 +3813,9 @@ def phase_bf16_content(anet, config, seed, rng, device):
         device_ms=cuda_ms_back_to_back(
             lambda: content_cuda.content_unit_forward(k10_w, *k10_ins, workspace)),
         plain_ms=cuda_ms(lambda: content_cuda.content_unit_plain(k10_w, *k10_ins)),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        split=device_split(lambda: content_cuda.content_unit_forward(k10_w, *k10_ins,
+                                                                     workspace)))
     contractions = gemm_flops(c16, B, "K10b") + 3 * B * unit_rest(c16, c16.max_query_length)
     b_ms, b_by = bound_bf16(contractions, 3 * urows + 2 * side_bytes + uw_bytes
                             + sum(4 * w.numel() for w in k10_w), contractions)
@@ -3779,13 +3827,15 @@ def phase_bf16_content(anet, config, seed, rng, device):
             launches=10, reps=3),
         plain_ms=cuda_ms(lambda: content_cuda.content_unit_backward_plain(
             k10_w, *k10_ins, k10_dcu), iters=5),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        split=device_split(lambda: content_cuda.content_unit_backward(k10_w, *k10_ins, k10_dcu,
+                                                                      workspace)))
     del workspace, k10_ins, k10_dcu
     for k in ("K6f", "K6b", "K7f", "K7b", "K10f", "K10b"):
         r = res[k]
         print(f"time {k}-bf16 B={B}: kernel {r['ms']:.4f} ms (back to back "
               f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library {r['library_ms']} "
-              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}){b2b_note(r)}")
+              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}){b2b_note(r)}{split_note(r)}")
 
     # The ActivityNet bf16 step: wall time, and its device time and busy
     # share under the profiler.
@@ -4244,9 +4294,50 @@ def phase_bf16_dense(anet, config, seed, rng, device):
                 fused_err=fused_err, anet_steps=anet_steps)
 
 
+def device_split(fn, calls: int = 10) -> dict:
+    """What one call of fn() runs on the card, from torch.profiler over
+    ``calls`` calls (utils/profile_serving.py's report) after two calls
+    traced and dropped (the tracer loses kernels of the first calls it
+    sees): its kernel launches and their device time, and the shared GEMM's
+    share of both (its products and split-K reductions)."""
+    import torch
+
+    from video_moment_localization_tpu_torch.utils.profile_serving import device_rows, is_product
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    sched = torch.profiler.schedule(wait=0, warmup=2, active=calls, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        for _ in range(2 + calls):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    rows = device_rows(prof.key_averages())
+    prods = [r for r in rows if is_product(r[0])]
+    return dict(launches=sum(r[1] for r in rows) // calls,
+                kernel_ms=sum(r[2] for r in rows) / calls,
+                product_launches=sum(r[1] for r in prods) // calls,
+                product_ms=sum(r[2] for r in prods) / calls)
+
+
+def split_note(r):
+    """A timed row's device split (`device_split`) for its line: launches,
+    kernel time, the products' share and the part of a call back to back
+    that no kernel covers."""
+    sp = r.get("split")
+    if not sp:
+        return ""
+    return (f"; a call {sp['launches']} launches, {sp['kernel_ms']:.4f} ms of kernels (products "
+            f"{sp['product_ms']:.4f} ms in {sp['product_launches']}), no kernel "
+            f"{r['device_ms'] - sp['kernel_ms']:.4f} ms of the back-to-back time")
+
+
 def back_to_back(r):
-    """The back-to-back device times of a timed row, where it has them."""
-    return {k: r[k] for k in ("device_ms", "library_device_ms") if k in r}
+    """The back-to-back device times of a timed row, and its device split
+    (`device_split`: launches per call and their device time), where it has
+    them."""
+    return {k: r[k] for k in ("device_ms", "library_device_ms", "split") if k in r}
 
 
 def b2b_note(r):
@@ -4358,7 +4449,8 @@ def main(argv=None) -> int:
     # torch.matmul, each against its bound (utils/bench_gemm_bf16.py).
     from video_moment_localization_tpu_torch.utils import bench_gemm_bf16
 
-    gemm_bf16_rows = bench_gemm_bf16.run(launches=10, seed=args.seed, quick=False)
+    gemm_bf16_rows = bench_gemm_bf16.run(launches=10, seed=args.seed, quick=False,
+                                         kernels=("K7f-bf16", "K7b-bf16", "K4-bf16"))
     lap(14)
     pair_times, pair_errs = phase_pair({"charadessta": cfg, "activitynet": anet.model}, rng,
                                        device)
@@ -4446,6 +4538,8 @@ def main(argv=None) -> int:
         })
     kernels[-2]["launches_serving"] = launches["CAf"]
     kernels[-1]["max_err_of_magnitude"] = pair_errs["CAb_rel"]
+    kernels[-1]["bf16"] = {c: r["b16"] for c, r in pair_times.items()}
+    kernels[-1]["bf16_worst_mean_of_magnitude"] = pair_errs["CAb16"]
     for key, name, src, rep in (
             ("K6f", "proposal_packed_forward", PROPOSAL_SRC, K6_FWD_REPLACES),
             ("K6b", "proposal_packed_backward", PROPOSAL_SRC, K6_BWD_REPLACES),

@@ -94,6 +94,71 @@ def test_plan_fills_the_card_at_activitynet(B, expect):
     assert sum(n1 - n0 for n0, n1 in last) == 2080 - (p["tiles"] - 1) * p["pp"] * p["passes"]
 
 
+def _arrays(layout):
+    return [(k, v) for k, v in layout.items() if k not in ("DSS", "fused", "bytes")]
+
+
+@pytest.mark.parametrize("C,Nq,dl,L", NARROW + ((4, 13, 128, 16), (4, 20, 128, 64),
+                                                (4, 13, 128, 32)))
+def test_fp32_backward_layout_is_the_floats_of_the_kernel(C, Nq, dl, L):
+    """The fp32 backward's byte layout is `smem_floats`' arrays end to end:
+    the fp32 kernel's shared memory is unchanged."""
+    p = ca.plan(2, L * (L + 1) // 2, C, Nq, dl, True)
+    lay = ca.bwd_layout(p["pp"], C, Nq, dl, False)
+    assert lay["bytes"] == p["smem"] == 4 * ca.smem_floats(p["pp"], C, Nq, dl, True)
+    assert lay["DSS"] == ca.shape(p["pp"], C, Nq, dl)["DS"]
+
+
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("config", CONFIGS)
+def test_bf16_backward_plan_is_the_fp32_plan_on_half_the_memory(config, B):
+    """The bf16 backward (its rows staged as bf16) at every shipped width
+    and query length: the fp32 backward's pairs per pass, passes and tiles
+    (the shipped widths fit one block an SM either way), less than 60 % of
+    its shared memory, no g or clip arrays on the fused path, and partials
+    for its tiles."""
+    cfg = _cfg(config)
+    N = cfg.L * (cfg.L + 1) // 2
+    for Nq in range(1, cfg.max_query_length + 1):
+        p = ca.plan(B, N, cfg.C, Nq, cfg.dl, True, bf16=True)
+        f32 = ca.plan(B, N, cfg.C, Nq, cfg.dl, True)
+        lay = ca.bwd_layout(p["pp"], cfg.C, Nq, cfg.dl, True)
+        assert (p["pp"], p["passes"], p["tiles"]) == (f32["pp"], f32["passes"], f32["tiles"])
+        assert lay["fused"] and p["smem"] == lay["bytes"] < 0.6 * f32["smem"]
+        assert lay["G"] == lay["As"] == lay["dAs"] == 0
+    q = cfg.max_query_length
+    assert ca.partial_floats(B, N, cfg.C, q, cfg.dl, bf16=True) == ca.partial_floats(
+        B, N, cfg.C, q, cfg.dl)
+
+
+def test_bf16_backward_shared_memory_at_the_charades_width():
+    """Charades (C 4, Nq 13, dl 128, 16 pairs a pass): khat and fwh (16
+    staged words) and the pass's q, h and dfcc (64 rows each) as bf16 rows
+    of 136 values (272 bytes); fsh, the masks, da (64 fp32 rows of 132), p
+    and ds (64 x 16 floats) and the tile's dfwh and dkhat (16 x 128 floats):
+    119,952 bytes against the fp32 backward's 213,136."""
+    lay = ca.bwd_layout(16, 4, 13, 128, True)
+    assert lay["DSS"] == 136
+    assert lay["bytes"] == (2 * 16 * 272 + 528 + 64 + 64 + 3 * 64 * 272 + 64 * 528
+                            + 2 * 64 * 16 * 4 + 2 * 16 * 128 * 4) == 119952
+    assert ca.plan(64, 136, 4, 13, 128, True)["smem"] == 213136
+    assert ca.plan(64, 136, 4, 13, 128, True, bf16=True)["smem"] == 119952
+
+
+@pytest.mark.parametrize("C,Nq,dl,L", NARROW)
+def test_bf16_backward_layout_at_the_narrow_widths(C, Nq, dl, L):
+    """The narrow test widths: staged rows at 8-byte chunks, arrays 16-byte
+    aligned and apart; off the fused path (C != 4) g and the clip arrays are
+    there too."""
+    p = ca.plan(3, L * (L + 1) // 2, C, Nq, dl, True, bf16=True)
+    assert p["smem"]
+    lay = ca.bwd_layout(p["pp"], C, Nq, dl, True)
+    assert (2 * lay["DSS"]) % 8 == 0 and lay["DSS"] >= dl
+    present = sorted(off for name, off in _arrays(lay) if off or name == "K")
+    assert all(off % 16 == 0 for off in present) and len(set(present)) == len(present)
+    assert lay["fused"] == (C == 4) and (lay["G"] > 0) == (C != 4)
+
+
 def test_plan_refuses_what_the_kernels_do_not_take():
     assert ca.plan(4, 10, 4, 33, 128, False)["smem"] == 0      # Nq past 32
     assert ca.plan(4, 10, 65, 6, 32, False)["smem"] == 0       # C past a pass's rows

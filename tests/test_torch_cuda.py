@@ -1046,12 +1046,13 @@ def test_content_attn_plan_matches_its_mirror(card):
     for cfg in (CHARADES, ACTIVITYNET, TACOS, TINY, ODD, ROUTED):
         N = cfg.L * (cfg.L + 1) // 2
         for B in (1, 16, 64, 512):
-            for backward in (False, True):
+            for backward, bf16 in ((False, False), (True, False), (True, True)):
                 args = (B, N, cfg.C, cfg.max_query_length, cfg.dl)
-                assert content_attn_cuda.card_plan(*args, backward) == \
-                    content_attn_cuda.plan(*args, backward)
-            assert content_attn_cuda.card_partial_floats(*args) == \
-                content_attn_cuda.partial_floats(*args)
+                assert content_attn_cuda.card_plan(*args, backward, bf16) == \
+                    content_attn_cuda.plan(*args, backward, bf16)
+            for bf16 in (False, True):
+                assert content_attn_cuda.card_partial_floats(*args, bf16) == \
+                    content_attn_cuda.partial_floats(*args, bf16)
 
 
 @pytest.mark.parametrize("cfg", [CHARADES, ACTIVITYNET])
@@ -1350,7 +1351,8 @@ def _bulk_rel(got, want, name, scale=None):
     assert float(d.max()) < K23_BF16["max"] * scale, (name, float(d.max()) / scale)
 
 
-@pytest.mark.parametrize("cfg,B", [(TINY, 1), (TINY, 9), (ODD, 7), (CHARADES, 5)])
+@pytest.mark.parametrize("cfg,B", [(TINY, 1), (TINY, 9), (ODD, 7), (CHARADES, 5),
+                                   (CHARADES, 64), (ACTIVITYNET, 2), (TACOS, 64)])
 @pytest.mark.parametrize("has_dcu", [True, False])
 def test_smi_layer_bf16_kernels_match_plain(card, cfg, B, has_dcu):
     torch.manual_seed(0)
@@ -1377,13 +1379,55 @@ def test_smi_layer_bf16_kernels_match_plain(card, cfg, B, has_dcu):
             smin_train_cuda.smi_layer_backward.launches_bf16) == (before[0] + 1, before[1] + 2)
     for x, y in zip(list(a[:5]) + a[5], list(b[:5]) + b[5]):
         assert torch.equal(x, y)
-    for g, w, name in zip(a[:5], p[:5], ("dfc", "dfm", "dfb", "dfw", "dfs")):
+    # At L=64 (2,080 pairs a word's gradient sums over) one last-bit flip of
+    # a bf16 rounding in 2 % of dfw's values reaches the criterion's p98
+    # (1.17e-2 of the mean, the kernel and its plain version summing in other
+    # orders): there the p98 of each gradient is held to float64 instead, no
+    # farther from it than 1.5 times the plain version's, as K7-bf16's dfs is.
+    f64 = _layer_grads_f64(weights, ins, cfg.L, dcu, cots[1], cots[2]) if cfg.L >= 64 else None
+    for k, (g, w, name) in enumerate(zip(a[:5], p[:5], ("dfc", "dfm", "dfb", "dfw", "dfs"))):
         assert g.dtype == torch.bfloat16
-        _bulk_rel(g, w, name)
+        if f64 is None:
+            _bulk_rel(g, w, name)
+        else:
+            _bulk_rel_witnessed(g, w, f64[k], name)
     scale = max(float(w.abs().max()) for w in p[5])
     for k, (g, w) in enumerate(zip(a[5], p[5])):
         assert g.dtype == torch.float32
         _bulk_rel(g, w, f"weight gradient {k}", scale)
+
+
+def _layer_grads_f64(weights, ins, L, dcu, dmu, dbu):
+    """The input gradients of the layer in float64 on the same bf16 values
+    of the carry, the weights and the cotangents (the fp32 layer's
+    function, no rounding)."""
+    with torch.enable_grad():
+        leaves = [t.detach().double().requires_grad_(True) for t in ins[:5]]
+        cu, mu, bu = smin_train_cuda.smi_layer_plain([w.double() for w in weights], *leaves,
+                                                     *(t.double() for t in ins[5:]), L)
+        outs, cts = [mu, bu], [dmu.double(), dbu.double()]
+        if dcu is not None:
+            outs.append(cu)
+            cts.append(dcu.double())
+        return torch.autograd.grad(outs, leaves, cts)
+
+
+def _bulk_rel_witnessed(got, want, exact, name):
+    """The bulk criterion's mean and max against the plain version; its p98
+    there, or else mean and p98 against float64 (``exact``) within 1.5 times
+    the plain version's own."""
+    w = want.float()
+    d = (got.float() - w).abs().flatten()
+    scale = float(w.abs().mean())
+    assert bool(torch.isfinite(got.float()).all()), name
+    assert float(d.mean()) < K23_BF16["mean"] * scale, (name, float(d.mean()) / scale)
+    assert float(d.max()) < K23_BF16["max"] * scale, (name, float(d.max()) / scale)
+    p98 = float(torch.quantile(d[:: max(1, d.numel() // 1_000_000)], 0.98))
+    if p98 < K23_BF16["p98"] * scale:
+        return
+    s64 = float(exact.abs().mean())
+    kern, plain = _rel_stats(got, exact, s64), _rel_stats(want, exact, s64)
+    assert kern[0] <= 1.5 * plain[0] and kern[1] <= 1.5 * plain[1], (name, kern, plain)
 
 
 @pytest.mark.parametrize("layout", ["nn", "tn"])
@@ -2327,3 +2371,120 @@ def test_profiled_device_time_counts_no_annotation_span(card):
     rows = device_rows(events)
     assert rows and not any(k.startswith("Optimizer.step") for k, _, _ in rows)
     assert sum(ms for _, _, ms in rows) <= wall_ms
+
+
+def test_gate_bwd_splits_match_their_mirror(card):
+    """The moment gate's backward split (K10 and K3) as the library computes
+    it, against `ops/content_cuda.py::gate_bwd_splits`."""
+    for B in (1, 2, 8, 64, 512):
+        for N in (1, 3, 36, 136, 528, 2080):
+            for cols in (8, 128, 130, 520):
+                assert content_cuda.card_gate_bwd_splits(B, N, cols) == \
+                    content_cuda.gate_bwd_splits(B, N, cols), (B, N, cols)
+
+
+def _two_bytes_off(t):
+    """A copy of ``t`` one bf16 element into its storage: rows 2 bytes off
+    every 8- and 16-byte boundary, which the kernels' static plans send to
+    their scalar routes (the GEMM's mma.sync kernel, the pair's scalar
+    copies, one column a thread in the row walks)."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("cfg,B", [(TINY, 3), (ODD, 7)])
+def test_layer_and_unit_bf16_on_views_two_bytes_off(card, cfg, B):
+    """K3-bf16 and K10-bf16 on activations and cotangents 2 bytes off their
+    boundaries (ODD's widths are no multiple of 4 either) against their
+    plain bf16 versions, twice bit for bit."""
+    torch.manual_seed(B)
+    block = SMIN(cfg).to(card).smis[1]
+    weights = smin_train_cuda.layer_weights_for([w.detach() for w in block_weights(block)],
+                                                torch.bfloat16)
+    ins = _layer_inputs(cfg, B, seed=B, device=card)
+    ins[:5] = [_two_bytes_off(t.bfloat16()) for t in ins[:5]]
+    gen = torch.Generator().manual_seed(5)
+    cots = [_two_bytes_off(torch.randn(tuple(t.shape), generator=gen).bfloat16().to(card))
+            for t in ins[:3]]
+    for dcu in (cots[0], None):
+        a = smin_train_cuda.smi_layer_backward(weights, *ins, cfg.L, dcu, cots[1], cots[2])
+        b = smin_train_cuda.smi_layer_backward(weights, *ins, cfg.L, dcu, cots[1], cots[2])
+        p = smin_train_cuda.smi_layer_backward_plain(weights, *ins, cfg.L, dcu, cots[1],
+                                                     cots[2])
+        torch.cuda.synchronize()
+        for x, y in zip(list(a[:5]) + a[5], list(b[:5]) + b[5]):
+            assert torch.equal(x, y)
+        for g, w, name in zip(a[:5], p[:5], ("dfc", "dfm", "dfb", "dfw", "dfs")):
+            _bulk_rel_bf16(g, w, f"K3-bf16 {name}")
+        scale = max(float(w.abs().max()) for w in p[5])
+        for k, (g, w) in enumerate(zip(a[5], p[5])):
+            _bulk_rel(g, w, f"K3-bf16 weight gradient {k}", scale)
+
+    uw = smin_train_cuda.layer_weights_for(
+        [w.detach() for w in content_cuda.unit_weights(block.content_unit)], torch.bfloat16)
+    fc, fm, _, fw, fs, qmask, _, vmask = ins
+    uins = [fc, fm, fw, fs, qmask, vmask]
+    a = content_cuda.content_unit_backward(uw, *uins, cots[0])
+    b = content_cuda.content_unit_backward(uw, *uins, cots[0])
+    p = content_cuda.content_unit_backward_plain(uw, *uins, cots[0])
+    torch.cuda.synchronize()
+    for x, y in zip(list(a[:4]) + a[4], list(b[:4]) + b[4]):
+        assert torch.equal(x, y)
+    for g, w, name in zip(a[:4], p[:4], ("dfc", "dfm", "dfw", "dfs")):
+        _bulk_rel_bf16(g, w, f"K10-bf16 {name}")
+    scale = max(float(w.abs().max()) for w in p[4])
+    for k, (g, w) in enumerate(zip(a[4], p[4])):
+        _bulk_rel(g, w, f"K10-bf16 weight gradient {k}", scale)
+
+
+@pytest.mark.parametrize("R,D,path", [(8704, 512, gemm_cuda.BF16), (8704, 512, gemm_cuda.BF16_WG),
+                                      (45, 30, gemm_cuda.BF16)])
+def test_gemm_bf16_tn_split_is_the_two_products(card, R, D, path):
+    """K3-bf16's moment weights' gradients as one tn product over [x1 | x2]
+    (R pairs, 2D columns) split into two outputs, on both kernels at
+    Charades B=64 and on the mma.sync kernel at an odd width (rows of 120
+    bytes, which TMA cannot read), against the two products one by one and
+    float64: each within fp32 rounding of float64's sums of |a||x|, the
+    column sums too."""
+    g = torch.Generator().manual_seed(R)
+    A = torch.randn(R, D, generator=g).bfloat16().to(card)
+    X = torch.randn(R, 2 * D, generator=g).bfloat16().to(card)
+    sc = (torch.rand(R, generator=g) > 0.3).float().to(card)
+    (left, right), cols = gemm_cuda.gemm_bf16_general("tn", A, X, ascale=sc, bias_sums=True,
+                                                      split=D, path=path)
+    again = gemm_cuda.gemm_bf16_general("tn", A, X, ascale=sc, bias_sums=True, split=D,
+                                        path=path)
+    assert torch.equal(left, again[0][0]) and torch.equal(right, again[0][1])
+    As = A.double() * sc.double()[:, None]
+    want, scale = As.t() @ X.double(), As.abs().t() @ X.double().abs() + 1e-30
+    for got, lo in ((left, 0), (right, D)):
+        assert got.shape == (D, D) and got.dtype == torch.float32
+        err = (got.double() - want[:, lo:lo + D]).abs() / scale[:, lo:lo + D]
+        assert float(err.max()) < 1e-6
+        alone = gemm_cuda.gemm_bf16_general("tn", A, X[:, lo:lo + D], ascale=sc, path=path)
+        assert float(((alone.double() - want[:, lo:lo + D]).abs()
+                      / scale[:, lo:lo + D]).max()) < 1e-6
+    assert float((cols.double() - As.sum(0)).abs().max()) <= 1e-6 * float(As.abs().sum(0).max())
+
+
+@pytest.mark.parametrize("cfg,B", [(TINY, 3), (ODD, 7), (ROUTED, 2), (CHARADES, 5),
+                                   (CHARADES, 64), (ACTIVITYNET, 2)])
+def test_content_attn_bf16_backward_matches_plain(card, cfg, B):
+    """The pair's bf16 backward (its own layout: bf16 rows, h and dfcc from
+    global memory on the fused path; ODD's scalar copies, ROUTED's C=9 off
+    the fused path) against the fp32 VJP on the same bf16 values, by the
+    bulk criterion, twice bit for bit."""
+    ins = _pair_inputs(cfg, B, seed=B, device=card)
+    bf = torch.bfloat16
+    ins16 = [t.to(bf) for t in ins[:4]] + ins[4:]
+    dfcc = torch.randn(ins[0].shape, generator=torch.Generator().manual_seed(7)).to(card).to(bf)
+    before = content_attn_cuda.content_attn_backward.launches
+    got = content_attn_cuda.content_attn_backward(*ins16, dfcc)
+    again = content_attn_cuda.content_attn_backward(*ins16, dfcc)
+    want = content_attn_cuda.content_attn_backward_plain(*ins16, dfcc)
+    torch.cuda.synchronize()
+    assert content_attn_cuda.content_attn_backward.launches == before + 2
+    for g_, a_, w_, name in zip(got, again, want, ("dh", "dq", "dfwh", "dkhat", "dfsh")):
+        assert g_.dtype == w_.dtype and torch.equal(g_, a_), name
+        _bulk_rel_bf16(g_, w_, name)

@@ -173,3 +173,36 @@ def test_general_plain_two_problems_and_tn():
     As = (A.double() * sc.double()[:, None]).float().bfloat16().double()
     torch.testing.assert_close(out.double(), As.t() @ W0.double(), rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(cols.double(), As.sum(0), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("R,M,N,split", [(40, 16, 24, 8), (7, 5, 9, 4), (8704 // 64, 32, 64, 32)])
+def test_general_plain_tn_split_is_two_products(R, M, N, split):
+    """K3's moment weights' gradients as one tn product over [x1 | x2]: the
+    split outputs are the two separate products, bit for bit, and the
+    column sums are the one product's."""
+    g = torch.Generator().manual_seed(R + N)
+    A = torch.randn(R, M, generator=g).bfloat16()
+    X = torch.randn(R, N, generator=g).bfloat16()
+    sc = (torch.rand(R, generator=g) > 0.3).float()
+    (left, right), cols = gemm_cuda.gemm_bf16_general("tn", A, X, ascale=sc, bias_sums=True,
+                                                      split=split)
+    one, cols1 = gemm_cuda.gemm_bf16_general("tn", A, X[:, :split], ascale=sc, bias_sums=True)
+    two = gemm_cuda.gemm_bf16_general("tn", A, X[:, split:], ascale=sc)
+    assert left.shape == (M, split) and right.shape == (M, N - split)
+    assert torch.equal(left, one) and torch.equal(right, two) and torch.equal(cols, cols1)
+
+
+@pytest.mark.parametrize("config", CONFIGS)
+def test_k3_reduces_both_moment_weights_in_one_product(config):
+    """K3's tn products (model_gemm_shapes): the moment unit's two weight
+    gradients are one product of width 2D over the pairs, on the epilogue
+    of both (the row mask as a row scale and the bias gradient)."""
+    cfg = _cfg(config)
+    N = cfg.L * (cfg.L + 1) // 2
+    k3 = [s for s in gemm_cuda.model_gemm_shapes_bf16(cfg, 64) if s[0] == "K3-bf16"]
+    names = [s[1] for s in k3]
+    assert "dW conv_fb" not in names and "dW conv_fc" not in names
+    (merged,) = [s for s in k3 if s[1] == "dW conv_fb + conv_fc"]
+    assert merged[2:] == ("tn", cfg.D, 2 * cfg.D, 64 * N, 1)
+    assert gemm_cuda.epilogue_bf16("K3-bf16", merged[1]) == (("ascale", "colsum"), "fp32")
+    assert sum(s[2] == "tn" for s in k3) == 9

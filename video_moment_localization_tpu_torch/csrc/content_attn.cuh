@@ -53,8 +53,16 @@
 // multiple of 4 (or unaligned pointers) take the same kernels with scalar
 // copies (kVec false). Both have a bf16 variant (`content_attn_forward` and
 // `content_attn_backward` on bf16 rows; K4-bf16 and K2-bf16 run the forward,
-// K3-bf16 both): the bf16 rows are converted to fp32 as they are staged, so
-// the plan, the shared memory and the arithmetic are the fp32 kernels'. The
+// K3-bf16, K7-bf16 and K10-bf16 both), with the fp32 kernels' arithmetic on
+// the bf16 values. The forward converts the rows to fp32 as it stages them,
+// so its plan and shared memory are the fp32 forward's. The backward keeps
+// them bf16 (`ca_bwd_layout`), staged by 8-byte cp.async, at half the fp32
+// rows' bytes (a block's shared memory 120 KB against 213 KB at the
+// Charades width); its passes, tiles and arithmetic are the fp32
+// backward's. (Two blocks an SM on passes of 32 rows, and the next pass
+// staged behind the current one, were each measured no faster, PERF.md §6:
+// the kernel is held by its phases' latency at one block an SM, and at two
+// by the 128-register cap.) The
 // forward writes fcc in bf16; the backward writes dq and dkhat (the operands
 // of K3-bf16's next products) and dfsh in bf16, and dh and dfwh in fp32,
 // since the layer's projections add to them before they are rounded.
@@ -64,6 +72,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "gemm.cuh"
 
@@ -118,6 +127,61 @@ __host__ __device__ inline size_t ca_smem_floats(int pp, int C, int Nq, int dl, 
 __host__ __device__ inline int ca_row_groups(int RP) { return RP / 4; }
 __host__ __device__ inline int ca_chunk_threads(int RP) { return kCaThreads / (RP / 4); }
 
+// With C = 4 a pass's row group of 4 rows is one pair, and its DG threads
+// (a power of two up to a warp) are consecutive lanes: the clip attention
+// of the pair then runs in their registers, its sums over dl added across
+// the DG lanes with shuffles (`ca_fused_pairs`).
+__host__ __device__ inline bool ca_fused_pairs(int C, int DG) {
+    return C == 4 && DG <= 32 && (DG & (DG - 1)) == 0;
+}
+
+// The backward's shared memory, byte offsets of its arrays (each 16-byte
+// aligned). fp32 rows: the arrays of `ca_smem_floats`, in its order. bf16
+// rows (the bf16 backward): khat, fwh, q, h and dfcc staged as bf16 rows of
+// DSH = 4 * dl4 + 8 elements (8-byte cp.async chunks; consecutive rows 4
+// banks apart), and on the fused path (`ca_fused_pairs`) neither g nor the
+// clip attention's arrays (registers): 120 KB at the Charades and TACoS
+// widths where the fp32 rows take 213 KB.
+struct CaBwdLayout {
+    size_t K, V, fsh, qm, vm, Q, H, O, G, U, Pr, Dr, As, dAs, Fw, Fk, bytes;
+    int DSS;      // the stride of the staged rows K, V, Q, H, O, in elements
+    bool fused;
+};
+
+__host__ __device__ inline CaBwdLayout ca_bwd_layout(int pp, int C, int Nq, int dl, bool bf16) {
+    const CaShape s = ca_shape(pp, C, Nq, dl);
+    CaBwdLayout l{};
+    l.fused = ca_fused_pairs(C, ca_chunk_threads(s.RP));
+    l.DSS = bf16 ? s.dl4 * 4 + 8 : s.DS;
+    const size_t row = (size_t)l.DSS * (bf16 ? 2 : 4);   // bytes of a staged row
+    const size_t row32 = (size_t)s.DS * 4;
+    const bool all = !bf16 || !l.fused;
+    size_t off = 0;
+    auto take = [&off](size_t bytes) {
+        const size_t at = off;
+        off += (bytes + 15) / 16 * 16;
+        return at;
+    };
+    l.K = take(s.NQ4 * row);
+    l.V = take(s.NQ4 * row);
+    l.fsh = take(row32);
+    l.qm = take((size_t)s.NQ4 * 4);
+    l.vm = take((size_t)s.PP4 * 4);
+    l.Q = take(s.RP * row);
+    l.H = take(s.RP * row);
+    l.O = take(s.RP * row);
+    l.G = all ? take(s.RP * row32) : 0;
+    l.U = take(s.RP * row32);
+    l.Pr = take((size_t)s.RP * s.NQ4 * 4);
+    l.Dr = take((size_t)s.RP * s.NQ4 * 4);
+    l.As = all ? take((size_t)s.RP * C * 4) : 0;
+    l.dAs = all ? take((size_t)s.RP * C * 4) : 0;
+    l.Fw = take((size_t)s.NQ4 * s.dl4 * 16);
+    l.Fk = take((size_t)s.NQ4 * s.dl4 * 16);
+    l.bytes = off;
+    return l;
+}
+
 struct ContentAttnPlan {
     int pp;        // pairs per pass
     int passes;    // passes per block
@@ -125,24 +189,35 @@ struct ContentAttnPlan {
     size_t smem;   // dynamic shared memory of a block, bytes; 0: shape not taken
 };
 
-// The tile plan of the forward or the backward for B elements of N pairs.
-// Mirrored in ops/content_attn_cuda.py::plan; change both together.
-inline ContentAttnPlan content_attn_plan(int B, int N, int C, int Nq, int dl, bool backward) {
+// The tile plan of the forward or the backward (fp32 rows, or with `bf16`
+// the bf16 backward's shared memory; the bf16 forward stages fp32 rows) for
+// B elements of N pairs. Mirrored in ops/content_attn_cuda.py::plan; change
+// both together.
+inline ContentAttnPlan content_attn_plan(int B, int N, int C, int Nq, int dl, bool backward,
+                                         bool bf16 = false) {
     ContentAttnPlan p{0, 0, 0, 0};
     if (B < 1 || N < 1 || C < 1 || C > kCaRows || Nq < 1 || Nq > 32 || dl < 1) return p;
+    const bool bf16_bwd = backward && bf16;
+    auto smem_of = [&](int pp) {
+        return bf16_bwd ? ca_bwd_layout(pp, C, Nq, dl, true).bytes
+                        : sizeof(float) * ca_smem_floats(pp, C, Nq, dl, backward);
+    };
     int pp = kCaRows / C;
     // The backward keeps dfsh for at most two chunks per thread in registers.
     while (backward && pp > 1 && ca_shape(pp, C, Nq, dl).dl4 >
                                      2 * ca_chunk_threads(ca_shape(pp, C, Nq, dl).RP))
         pp = (pp + 1) / 2;
-    size_t smem = sizeof(float) * ca_smem_floats(pp, C, Nq, dl, backward);
+    size_t smem = smem_of(pp);
     while (smem > kCaMaxSmem && pp > 1) {
         pp = (pp + 1) / 2;
-        smem = sizeof(float) * ca_smem_floats(pp, C, Nq, dl, backward);
+        smem = smem_of(pp);
     }
     const CaShape s = ca_shape(pp, C, Nq, dl);
     if (smem > kCaMaxSmem || (backward && s.dl4 > 2 * ca_chunk_threads(s.RP))) return p;
-    const long long per_sm = (long long)(kCaSmemPerSm / (smem + kCaReservedPerBlock));
+    // Blocks an SM holds: by shared memory, but the bf16 backward's registers
+    // (about 220 a thread) allow one whatever its shared memory.
+    const long long per_sm =
+        bf16_bwd ? 1 : (long long)(kCaSmemPerSm / (smem + kCaReservedPerBlock));
     const long long target = 4LL * kCaSms * (per_sm < 1 ? 1 : per_sm);
     const int pass_tiles = (N + pp - 1) / pp;
     int passes = 1;
@@ -159,15 +234,17 @@ inline ContentAttnPlan content_attn_plan(int B, int N, int C, int Nq, int dl, bo
 // A block's dynamic shared memory for the admission checks of the entry
 // points, past the 227 KB a block may have when the plan does not take the
 // shape.
-inline size_t content_attn_smem_bytes(int N, int C, int Nq, int dl, bool backward) {
-    const ContentAttnPlan p = content_attn_plan(1, N, C, Nq, dl, backward);
+inline size_t content_attn_smem_bytes(int N, int C, int Nq, int dl, bool backward,
+                                      bool bf16 = false) {
+    const ContentAttnPlan p = content_attn_plan(1, N, C, Nq, dl, backward, bf16);
     return p.smem ? p.smem : kCaMaxSmem + 1;
 }
 
 // Floats of the backward's per-tile partials: B * tiles tiles of
 // (dfwh (Nq, dl), dkhat (Nq, dl), dfsh (dl)).
-inline size_t content_attn_partial_floats(int B, int N, int C, int Nq, int dl) {
-    const ContentAttnPlan p = content_attn_plan(B, N, C, Nq, dl, true);
+inline size_t content_attn_partial_floats(int B, int N, int C, int Nq, int dl,
+                                          bool bf16 = false) {
+    const ContentAttnPlan p = content_attn_plan(B, N, C, Nq, dl, true, bf16);
     return (size_t)B * p.tiles * ((size_t)2 * Nq * dl + dl);
 }
 
@@ -255,6 +332,36 @@ __device__ __forceinline__ void ca_stage_rows_bf16(float* dst, const bf16* __res
     }
 }
 
+// ca_stage_rows for bf16 rows kept as bf16 (the bf16 backward): shared rows
+// of stride DSH elements, 8-byte cp.async of 4 values when kVec.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src),
+                 "r"(valid ? 8 : 0));
+}
+
+template <bool kVec>
+__device__ __forceinline__ void ca_stage_rows16(bf16* dst, const bf16* __restrict__ src,
+                                                int rows, int rows_pad, int dl, int dl4,
+                                                int DSH) {
+    const int total = rows_pad * dl4;
+    for (int e = threadIdx.x; e < total; e += kCaThreads) {
+        const int r = e / dl4;
+        const int c4 = e - r * dl4;
+        bf16* d = dst + r * DSH + c4 * 4;
+        if constexpr (kVec) {
+            const bool ok = r < rows;
+            cp_async8(d, ok ? src + (size_t)r * dl + c4 * 4 : src, ok);
+        } else {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                const int col = c4 * 4 + k;
+                d[k] = (r < rows && col < dl) ? src[(size_t)r * dl + col] : __float2bfloat16(0.f);
+            }
+        }
+    }
+}
+
 // Stages rows of an activation of the forward, fp32 or (kBf16) bf16, from
 // element offset `off`.
 template <bool kVec, bool kBf16>
@@ -269,6 +376,13 @@ __device__ __forceinline__ void ca_stage_act(float* dst, const float* src32, con
 
 __device__ __forceinline__ float4 ld4(const float* p) {
     return *reinterpret_cast<const float4*>(p);
+}
+// Four bf16 values (8 bytes) as fp32.
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(a.x, a.y, b.x, b.y);
 }
 __device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
@@ -339,7 +453,8 @@ struct CaWordSums {
     bool live;           // the lane's rows are rows of the pass
 };
 
-__device__ __forceinline__ CaWordSums ca_word_dots(const float* X, const float* Ks,
+template <typename XT, typename KT>
+__device__ __forceinline__ CaWordSums ca_word_dots(const XT* X, int ldx, const KT* Ks, int ldk,
                                                    const CaShape& s, int group_base) {
     constexpr int V = 4 * kCaMaxTW, H = V / 2, Q = V / 4;
     const int TW = s.NQ4 / 4;
@@ -355,11 +470,11 @@ __device__ __forceinline__ CaWordSums ca_word_dots(const float* X, const float* 
     for (int c4 = ds; c4 < s.dl4; c4 += 4) {
         float4 x[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) x[i] = ld4(X + (g * 4 + i) * s.DS + c4 * 4);
+        for (int i = 0; i < 4; ++i) x[i] = ld4(X + (g * 4 + i) * ldx + c4 * 4);
 #pragma unroll
         for (int t = 0; t < kCaMaxTW; ++t) {
             if (t < TW) {
-                const float4 k = ld4(Ks + (wg * TW + t) * s.DS + c4 * 4);
+                const float4 k = ld4(Ks + (wg * TW + t) * ldk + c4 * 4);
 #pragma unroll
                 for (int i = 0; i < 4; ++i) acc[i * kCaMaxTW + t] += dot4(x[i], k);
             }
@@ -405,13 +520,15 @@ __device__ __forceinline__ float ca_row_sum(float v) {
 }
 
 // Word attention of the pass's rows into Pr (RP, NQ4): the softmax of the
-// -1e9-masked logits q khat^T / sqrt(dl), 0 past Nq.
-__device__ __forceinline__ void ca_word_softmax(const CaArgs& a, const CaShape& s,
-                                                const float* Qs, const float* Ks,
-                                                const float* qms, float* Pr) {
+// -1e9-masked logits q khat^T / sqrt(dl), 0 past Nq. Qs and Ks: rows of
+// stride ld (fp32, or bf16 in the bf16 backward).
+template <typename ST>
+__device__ __forceinline__ void ca_word_softmax(const CaArgs& a, const CaShape& s, const ST* Qs,
+                                                const ST* Ks, int ld, const float* qms,
+                                                float* Pr) {
     const int TW = s.NQ4 / 4;
     for (int gb = 0; gb < s.RP / 4; gb += kCaThreads / 16) {
-        CaWordSums w = ca_word_dots(Qs, Ks, s, gb);
+        CaWordSums w = ca_word_dots(Qs, ld, Ks, ld, s, gb);
         float mx = -INFINITY;
 #pragma unroll
         for (int t = 0; t < kCaMaxTW; ++t) {
@@ -439,13 +556,15 @@ __device__ __forceinline__ void ca_word_softmax(const CaArgs& a, const CaShape& 
 }
 
 // The word logits' gradient into Dr (RP, NQ4): dp = da fwh^T, ds = p * (dp
-// - sum_m p dp) / sqrt(dl), 0 at a masked word and past Nq.
+// - sum_m p dp) / sqrt(dl), 0 at a masked word and past Nq. DAs: fp32 rows
+// of stride DS; Vs: rows of stride ldv.
+template <typename VT>
 __device__ __forceinline__ void ca_word_grad(const CaArgs& a, const CaShape& s, const float* DAs,
-                                             const float* Vs, const float* qms, const float* Pr,
-                                             float* Dr) {
+                                             const VT* Vs, int ldv, const float* qms,
+                                             const float* Pr, float* Dr) {
     const int TW = s.NQ4 / 4;
     for (int gb = 0; gb < s.RP / 4; gb += kCaThreads / 16) {
-        const CaWordSums w = ca_word_dots(DAs, Vs, s, gb);
+        const CaWordSums w = ca_word_dots(DAs, s.DS, Vs, ldv, s, gb);
         float pv[kCaMaxTW];
         float dot = 0.f;
 #pragma unroll
@@ -466,36 +585,30 @@ __device__ __forceinline__ void ca_word_grad(const CaArgs& a, const CaShape& s, 
 }
 
 // acc[i][j] = sum_m W[r0 + i][m] * V[m][chunk j] for the thread's 4 rows
-// (W row-major RP x NQ4) and its chunks c4 = c0 + dgi + DG * j.
-__device__ __forceinline__ void ca_mix_words(const float* Wr, const float* Vs, const CaShape& s,
-                                             int r0, int dgi, int DG, int c0,
-                                             float4 (&acc)[4][2]) {
+// (W row-major RP x NQ4) and its chunks c4 = c0 + dgi + DG * j; V's rows of
+// stride ldv.
+template <int kJ, typename VT>
+__device__ __forceinline__ void ca_mix_words(const float* Wr, const VT* Vs, int ldv,
+                                             const CaShape& s, int r0, int dgi, int DG, int c0,
+                                             float4 (&acc)[4][kJ]) {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) acc[i][j] = f4(0.f);
+        for (int j = 0; j < kJ; ++j) acc[i][j] = f4(0.f);
     for (int m = 0; m < s.NQ4; ++m) {
         float w[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) w[i] = Wr[(r0 + i) * s.NQ4 + m];
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
+        for (int j = 0; j < kJ; ++j) {
             const int c4 = c0 + dgi + DG * j;
             if (c4 < s.dl4) {
-                const float4 v = ld4(Vs + m * s.DS + c4 * 4);
+                const float4 v = ld4(Vs + m * ldv + c4 * 4);
 #pragma unroll
                 for (int i = 0; i < 4; ++i) fma4(acc[i][j], w[i], v);
             }
         }
     }
-}
-
-// With C = 4 a pass's row group of 4 rows is one pair, and its DG threads
-// (a power of two up to a warp) are consecutive lanes: the clip attention
-// of the pair then runs in their registers, its sums over dl added across
-// the DG lanes with shuffles (`ca_fused_pairs`).
-__device__ __forceinline__ bool ca_fused_pairs(int C, int DG) {
-    return C == 4 && DG <= 32 && (DG & (DG - 1)) == 0;
 }
 
 template <int K>
@@ -590,7 +703,7 @@ __global__ void __launch_bounds__(kCaThreads, 2) content_attn_fwd_kernel(CaArgs 
             vms[j] = j < npair ? a.vmask[(size_t)b * a.N + n0 + j] : 0.f;
         ca_wait_all();
 
-        ca_word_softmax(a, s, Qs, Ks, qms, Pr);
+        ca_word_softmax(a, s, Qs, Ks, s.DS, qms, Pr);
         __syncthreads();
 
         if (ca_fused_pairs(C, DG)) {
@@ -602,7 +715,7 @@ __global__ void __launch_bounds__(kCaThreads, 2) content_attn_fwd_kernel(CaArgs 
             for (int k = 0; k < 10; ++k) gram[k] = 0.f;
             for (int c0 = 0; c0 < s.dl4; c0 += 2 * DG) {
                 float4 acc[4][2];
-                ca_mix_words(Pr, Vs, s, r0, dgi, DG, c0, acc);
+                ca_mix_words(Pr, Vs, s.DS, s, r0, dgi, DG, c0, acc);
 #pragma unroll
                 for (int j = 0; j < 2; ++j) {
                     const int c4 = c0 + dgi + DG * j;
@@ -646,7 +759,7 @@ __global__ void __launch_bounds__(kCaThreads, 2) content_attn_fwd_kernel(CaArgs 
         if (rg < RG) {
             for (int c0 = 0; c0 < s.dl4; c0 += 2 * DG) {
                 float4 acc[4][2];
-                ca_mix_words(Pr, Vs, s, r0, dgi, DG, c0, acc);
+                ca_mix_words(Pr, Vs, s.DS, s, r0, dgi, DG, c0, acc);
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
                     const float vm = vms[min((r0 + i) / C, s.PP4 - 1)];
@@ -712,29 +825,31 @@ __global__ void __launch_bounds__(kCaThreads, 2) content_attn_fwd_kernel(CaArgs 
 // The backward. Grid: B * tiles blocks of kCaThreads; writes dh, dq and the
 // block's partial sums part[b * tiles + tile] = (dfwh, dkhat, dfsh). kBf16:
 // the bf16 variant (CaArgs' h16, q16, khat16, fwh16, dfcc16 and dq16; dh
-// fp32).
-template <bool kVec, bool kBf16 = false>
+// fp32), with the bf16 layout of `ca_bwd_layout`: the rows staged as bf16
+// by 8-byte cp.async. Its arithmetic is the fp32 kernel's on the bf16
+// values: a bf16 value's fp32 is exact wherever it is read. kJ: the chunks
+// of dl a lane of a row group holds in registers (1 or 2; `ca_bwd_kernel_for`).
+template <bool kVec, bool kBf16, int kJ>
 __global__ void __launch_bounds__(kCaThreads, 1) content_attn_bwd_kernel(CaArgs a) {
-    extern __shared__ __align__(16) float smem[];
+    using S = typename std::conditional<kBf16, bf16, float>::type;   // staged rows
+    extern __shared__ __align__(16) unsigned char smem_bytes[];
     const CaShape s = ca_shape(a.pp, a.C, a.Nq, a.dl);
+    const CaBwdLayout l = ca_bwd_layout(a.pp, a.C, a.Nq, a.dl, kBf16);
     const int C = a.C;
     const int dlp = s.dl4 * 4;
-    float* Ks = smem;
-    float* Vs = Ks + s.NQ4 * s.DS;
-    float* fshs = Vs + s.NQ4 * s.DS;
-    float* qms = fshs + s.DS;
-    float* vms = qms + s.NQ4;
-    float* Qs = vms + s.PP4;
-    float* Hs = Qs + s.RP * s.DS;
-    float* Os = Hs + s.RP * s.DS;     // dfcc
-    float* Gs = Os + s.RP * s.DS;     // g
-    float* Us = Gs + s.RP * s.DS;     // p fwh * vm + fsh, then da
-    float* Pr = Us + s.RP * s.DS;     // p (RP, NQ4)
-    float* Dr = Pr + s.RP * s.NQ4;    // ds (RP, NQ4)
-    float* As = Dr + s.RP * s.NQ4;    // (RP, C): clip logits, then their softmax
-    float* dAs = As + s.RP * C;       // (RP, C): dfcc . h, then the logits' gradient
-    float* Fw = dAs + s.RP * C;       // the tile's dfwh (NQ4, dlp)
-    float* Fk = Fw + s.NQ4 * dlp;     // and dkhat
+    const int DSS = l.DSS;
+    S* Ks = reinterpret_cast<S*>(smem_bytes + l.K);
+    S* Vs = reinterpret_cast<S*>(smem_bytes + l.V);
+    float* fshs = reinterpret_cast<float*>(smem_bytes + l.fsh);
+    float* qms = reinterpret_cast<float*>(smem_bytes + l.qm);
+    float* Gs = reinterpret_cast<float*>(smem_bytes + l.G);    // g (off the bf16 fused path)
+    float* Us = reinterpret_cast<float*>(smem_bytes + l.U);    // p fwh * vm + fsh, then da
+    float* Pr = reinterpret_cast<float*>(smem_bytes + l.Pr);   // p (RP, NQ4)
+    float* Dr = reinterpret_cast<float*>(smem_bytes + l.Dr);   // ds (RP, NQ4)
+    float* As = reinterpret_cast<float*>(smem_bytes + l.As);   // (RP, C): clip logits, softmax
+    float* dAs = reinterpret_cast<float*>(smem_bytes + l.dAs); // (RP, C): dfcc . h, dS
+    float* Fw = reinterpret_cast<float*>(smem_bytes + l.Fw);   // the tile's dfwh (NQ4, dlp)
+    float* Fk = reinterpret_cast<float*>(smem_bytes + l.Fk);   // and dkhat
 
     const int b = blockIdx.x / a.tiles;
     const int tile = blockIdx.x - b * a.tiles;
@@ -747,49 +862,78 @@ __global__ void __launch_bounds__(kCaThreads, 1) content_attn_bwd_kernel(CaArgs 
     const int r0 = rg * 4;
     const int items = (s.NQ4 / 4) * s.dl4;   // (4 words, one chunk) of dfwh / dkhat
 
+    float* vms = reinterpret_cast<float*>(smem_bytes + l.vm);
+    S* Qs = reinterpret_cast<S*>(smem_bytes + l.Q);
+    S* Hs = reinterpret_cast<S*>(smem_bytes + l.H);
+    S* Os = reinterpret_cast<S*>(smem_bytes + l.O);      // dfcc
+
     for (int e = threadIdx.x; e < 2 * s.NQ4 * dlp; e += kCaThreads) Fw[e] = 0.f;
-    float4 fsh_acc[2] = {f4(0.f), f4(0.f)};
-    ca_stage_element<kVec, kBf16>(a, s, b, Ks, Vs, fshs, qms);
+    float4 fsh_acc[kJ];
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) fsh_acc[j] = f4(0.f);
+    {
+        const size_t off = (size_t)b * a.Nq * a.dl;
+        if constexpr (kBf16) {
+            ca_stage_rows16<kVec>(Ks, a.khat16 + off, a.Nq, s.NQ4, a.dl, s.dl4, DSS);
+            ca_stage_rows16<kVec>(Vs, a.fwh16 + off, a.Nq, s.NQ4, a.dl, s.dl4, DSS);
+        } else {
+            ca_stage_rows<kVec>(Ks, a.khat + off, a.Nq, s.NQ4, a.dl, s.dl4, DSS);
+            ca_stage_rows<kVec>(Vs, a.fwh + off, a.Nq, s.NQ4, a.dl, s.dl4, DSS);
+        }
+        ca_stage_rows<kVec>(fshs, a.fsh + (size_t)b * a.dl, 1, 1, a.dl, s.dl4, s.DS);
+        for (int m = threadIdx.x; m < s.NQ4; m += kCaThreads)
+            qms[m] = m < a.Nq ? a.qmask[(size_t)b * a.Nq + m] : 0.f;
+    }
     for (int n0 = n_begin; n0 < n_end; n0 += a.pp) {
         const int npair = min(a.pp, n_end - n0);
         const int rows = npair * C;
         const size_t row0 = ((size_t)b * a.N + n0) * C;
-        ca_stage_act<kVec, kBf16>(Qs, a.q, a.q16, row0 * a.dl, rows, s.RP, a.dl, s.dl4, s.DS);
-        ca_stage_act<kVec, kBf16>(Hs, a.h, a.h16, row0 * a.dl, rows, s.RP, a.dl, s.dl4, s.DS);
-        ca_stage_act<kVec, kBf16>(Os, a.dfcc, a.dfcc16, row0 * a.dl, rows, s.RP, a.dl, s.dl4,
-                                  s.DS);
+        if constexpr (kBf16) {
+            ca_stage_rows16<kVec>(Qs, a.q16 + row0 * a.dl, rows, s.RP, a.dl, s.dl4, DSS);
+            ca_stage_rows16<kVec>(Hs, a.h16 + row0 * a.dl, rows, s.RP, a.dl, s.dl4, DSS);
+            ca_stage_rows16<kVec>(Os, a.dfcc16 + row0 * a.dl, rows, s.RP, a.dl, s.dl4, DSS);
+        } else {
+            ca_stage_rows<kVec>(Qs, a.q + row0 * a.dl, rows, s.RP, a.dl, s.dl4, DSS);
+            ca_stage_rows<kVec>(Hs, a.h + row0 * a.dl, rows, s.RP, a.dl, s.dl4, DSS);
+            ca_stage_rows<kVec>(Os, a.dfcc + row0 * a.dl, rows, s.RP, a.dl, s.dl4, DSS);
+        }
         for (int j = threadIdx.x; j < s.PP4; j += kCaThreads)
             vms[j] = j < npair ? a.vmask[(size_t)b * a.N + n0 + j] : 0.f;
         ca_wait_all();
 
         // Recompute p, u = p fwh * vm + fsh and g = h * u.
-        ca_word_softmax(a, s, Qs, Ks, qms, Pr);
+        ca_word_softmax(a, s, Qs, Ks, DSS, qms, Pr);
         __syncthreads();
         if (ca_fused_pairs(C, DG)) {
             // The pair's u, g, Gram sums g g^T and dA = dfcc h^T in registers
             // of its DG lanes, then the clip softmax's backward and the rows'
             // gradients (the same as the phases below, without their
             // barriers and shared buffers).
+            auto h_at = [&](int i, int c4) { return ld4(Hs + (r0 + i) * DSS + c4 * 4); };
+            auto o_at = [&](int i, int c4) { return ld4(Os + (r0 + i) * DSS + c4 * 4); };
             const float vm = vms[rg];
-            float4 u[2][4], g[2][4];
+            float4 u[kJ][4], g[kJ][4];
             float gram[10], dA[16];
 #pragma unroll
             for (int k = 0; k < 10; ++k) gram[k] = 0.f;
 #pragma unroll
             for (int k = 0; k < 16; ++k) dA[k] = 0.f;
             {
-                float4 acc[4][2];
-                ca_mix_words(Pr, Vs, s, r0, dgi, DG, 0, acc);
+                float4 acc[4][kJ];
+                ca_mix_words(Pr, Vs, DSS, s, r0, dgi, DG, 0, acc);
 #pragma unroll
-                for (int j = 0; j < 2; ++j) {
+                for (int j = 0; j < kJ; ++j) {
                     const int c4 = dgi + DG * j;
                     if (c4 >= s.dl4) continue;
                     const float4 f = ld4(fshs + c4 * 4);
                     float4 hv[4], ov[4];
 #pragma unroll
                     for (int i = 0; i < 4; ++i) {
-                        hv[i] = ld4(Hs + (r0 + i) * s.DS + c4 * 4);
-                        ov[i] = ld4(Os + (r0 + i) * s.DS + c4 * 4);
+                        hv[i] = h_at(i, c4);
+                        ov[i] = o_at(i, c4);
+                    }
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) {
                         const float4 o = acc[i][j];
                         u[j][i] = make_float4(o.x * vm + f.x, o.y * vm + f.y, o.z * vm + f.z,
                                               o.w * vm + f.w);
@@ -819,12 +963,12 @@ __global__ void __launch_bounds__(kCaThreads, 1) content_attn_bwd_kernel(CaArgs 
                     dS[c][e] = P[c][e] * (dA[c * 4 + e] * vm - dot) * a.inv_sdl;
             }
 #pragma unroll
-            for (int j = 0; j < 2; ++j) {
+            for (int j = 0; j < kJ; ++j) {
                 const int c4 = dgi + DG * j;
                 if (c4 >= s.dl4) continue;
                 float4 ov[4];
 #pragma unroll
-                for (int e = 0; e < 4; ++e) ov[e] = ld4(Os + (r0 + e) * s.DS + c4 * 4);
+                for (int e = 0; e < 4; ++e) ov[e] = o_at(e, c4);
 #pragma unroll
                 for (int c = 0; c < 4; ++c) {
                     const int r = r0 + c;
@@ -834,7 +978,7 @@ __global__ void __launch_bounds__(kCaThreads, 1) content_attn_bwd_kernel(CaArgs 
                         fma4(mix, P[e][c], ov[e]);
                         fma4(dg, dS[c][e] + dS[e][c], g[j][e]);
                     }
-                    const float4 hv = ld4(Hs + r * s.DS + c4 * 4);
+                    const float4 hv = h_at(c, c4);
                     const float4 uu = u[j][c];
                     if (r < rows)
                         ca_store<kVec>(a.dh + (row0 + r) * a.dl, c4, a.dl,
@@ -854,17 +998,17 @@ __global__ void __launch_bounds__(kCaThreads, 1) content_attn_bwd_kernel(CaArgs 
             }
         } else {
             if (rg < RG) {
-                float4 acc[4][2];
-                ca_mix_words(Pr, Vs, s, r0, dgi, DG, 0, acc);
+                float4 acc[4][kJ];
+                ca_mix_words(Pr, Vs, DSS, s, r0, dgi, DG, 0, acc);
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
                     const float vm = vms[min((r0 + i) / C, s.PP4 - 1)];
 #pragma unroll
-                    for (int j = 0; j < 2; ++j) {
+                    for (int j = 0; j < kJ; ++j) {
                         const int c4 = dgi + DG * j;
                         if (c4 >= s.dl4) continue;
                         const float4 f = ld4(fshs + c4 * 4);
-                        const float4 hv = ld4(Hs + (r0 + i) * s.DS + c4 * 4);
+                        const float4 hv = ld4(Hs + (r0 + i) * DSS + c4 * 4);
                         const float4 o = acc[i][j];
                         const float4 u = make_float4(o.x * vm + f.x, o.y * vm + f.y, o.z * vm + f.z,
                                                      o.w * vm + f.w);
@@ -883,7 +1027,7 @@ __global__ void __launch_bounds__(kCaThreads, 1) content_attn_bwd_kernel(CaArgs 
                 float t = 0.f, u = 0.f;
                 for (int c4 = 0; c4 < s.dl4; ++c4) {
                     t += dot4(ld4(Gs + r * s.DS + c4 * 4), ld4(Gs + e * s.DS + c4 * 4));
-                    u += dot4(ld4(Os + r * s.DS + c4 * 4), ld4(Hs + e * s.DS + c4 * 4));
+                    u += dot4(ld4(Os + r * DSS + c4 * 4), ld4(Hs + e * DSS + c4 * 4));
                 }
                 As[idx] = t * a.inv_sdl;
                 dAs[idx] = u;
@@ -892,23 +1036,23 @@ __global__ void __launch_bounds__(kCaThreads, 1) content_attn_bwd_kernel(CaArgs 
             // The clip softmax (A = P * vm) and its backward: dP = dA * vm, dS =
             // P * (dP - sum P dP) / sqrt(dl).
             for (int r = threadIdx.x; r < rows; r += kCaThreads) {
-                float* l = As + r * C;
+                float* l_ = As + r * C;
                 float* dl_ = dAs + r * C;
                 const float vm = vms[r / C];
-                float mx = l[0];
-                for (int e = 1; e < C; ++e) mx = fmaxf(mx, l[e]);
+                float mx = l_[0];
+                for (int e = 1; e < C; ++e) mx = fmaxf(mx, l_[e]);
                 float sum = 0.f;
                 for (int e = 0; e < C; ++e) {
-                    l[e] = expf(l[e] - mx);
-                    sum += l[e];
+                    l_[e] = expf(l_[e] - mx);
+                    sum += l_[e];
                 }
                 float dot = 0.f;
                 for (int e = 0; e < C; ++e) {
-                    l[e] /= sum;
+                    l_[e] /= sum;
                     dl_[e] *= vm;
-                    dot += l[e] * dl_[e];
+                    dot += l_[e] * dl_[e];
                 }
-                for (int e = 0; e < C; ++e) dl_[e] = l[e] * (dl_[e] - dot) * a.inv_sdl;
+                for (int e = 0; e < C; ++e) dl_[e] = l_[e] * (dl_[e] - dot) * a.inv_sdl;
             }
             __syncthreads();
 
@@ -922,17 +1066,17 @@ __global__ void __launch_bounds__(kCaThreads, 1) content_attn_bwd_kernel(CaArgs 
                     const int c = r - base;
                     const float vm = vms[r / C];
 #pragma unroll
-                    for (int j = 0; j < 2; ++j) {
+                    for (int j = 0; j < kJ; ++j) {
                         const int c4 = dgi + DG * j;
                         if (c4 >= s.dl4) continue;
                         float4 mix = f4(0.f), dg = f4(0.f);
                         for (int e = 0; e < C; ++e) {
-                            fma4(mix, As[(base + e) * C + c], ld4(Os + (base + e) * s.DS + c4 * 4));
+                            fma4(mix, As[(base + e) * C + c], ld4(Os + (base + e) * DSS + c4 * 4));
                             fma4(dg, dAs[r * C + e] + dAs[(base + e) * C + c],
                                  ld4(Gs + (base + e) * s.DS + c4 * 4));
                         }
                         const float4 u = ld4(Us + r * s.DS + c4 * 4);
-                        const float4 hv = ld4(Hs + r * s.DS + c4 * 4);
+                        const float4 hv = ld4(Hs + r * DSS + c4 * 4);
                         ca_store<kVec>(
                             a.dh + (row0 + r) * a.dl, c4, a.dl,
                             make_float4(mix.x * vm + dg.x * u.x, mix.y * vm + dg.y * u.y,
@@ -953,18 +1097,18 @@ __global__ void __launch_bounds__(kCaThreads, 1) content_attn_bwd_kernel(CaArgs 
 
         // The word logits' gradient: dp = da fwh^T, ds = p * (dp - sum p dp) /
         // sqrt(dl), 0 at a masked word.
-        ca_word_grad(a, s, Us, Vs, qms, Pr, Dr);
+        ca_word_grad(a, s, Us, Vs, DSS, qms, Pr, Dr);
         __syncthreads();
 
         // dq = ds khat.
         if (rg < RG) {
-            float4 acc[4][2];
-            ca_mix_words(Dr, Ks, s, r0, dgi, DG, 0, acc);
+            float4 acc[4][kJ];
+            ca_mix_words(Dr, Ks, DSS, s, r0, dgi, DG, 0, acc);
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
                 if (r0 + i >= rows) break;
 #pragma unroll
-                for (int j = 0; j < 2; ++j) {
+                for (int j = 0; j < kJ; ++j) {
                     const int c4 = dgi + DG * j;
                     if (c4 >= s.dl4) continue;
                     if constexpr (kBf16)
@@ -989,7 +1133,7 @@ __global__ void __launch_bounds__(kCaThreads, 1) content_attn_bwd_kernel(CaArgs 
                 const float4 pw = ld4(Pr + r * s.NQ4 + m0);
                 const float4 pk = ld4(Dr + r * s.NQ4 + m0);
                 const float4 dav = ld4(Us + r * s.DS + c4 * 4);
-                const float4 qv = ld4(Qs + r * s.DS + c4 * 4);
+                const float4 qv = ld4(Qs + r * DSS + c4 * 4);
                 fma4(fw[0], pw.x, dav);
                 fma4(fw[1], pw.y, dav);
                 fma4(fw[2], pw.z, dav);
@@ -1009,19 +1153,21 @@ __global__ void __launch_bounds__(kCaThreads, 1) content_attn_bwd_kernel(CaArgs 
     }
 
     // The block's partials: dfwh, dkhat from shared memory; dfsh summed over
-    // the row groups in order.
+    // the row groups in order (through Q's space, which holds RG rows of dlp
+    // floats at either type).
     float* part = a.part + (size_t)blockIdx.x * ((size_t)2 * a.Nq * a.dl + a.dl);
+    float* red = reinterpret_cast<float*>(Qs);
     if (rg < RG) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
+        for (int j = 0; j < kJ; ++j) {
             const int c4 = dgi + DG * j;
-            if (c4 < s.dl4) st4(Qs + rg * dlp + c4 * 4, fsh_acc[j]);
+            if (c4 < s.dl4) st4(red + rg * dlp + c4 * 4, fsh_acc[j]);
         }
     }
     __syncthreads();
     for (int d = threadIdx.x; d < a.dl; d += kCaThreads) {
         float t = 0.f;
-        for (int g = 0; g < RG; ++g) t += Qs[g * dlp + d];
+        for (int g = 0; g < RG; ++g) t += red[g * dlp + d];
         part[2 * a.Nq * a.dl + d] = t;
     }
     for (int e = threadIdx.x; e < a.Nq * a.dl; e += kCaThreads) {
@@ -1130,6 +1276,19 @@ inline cudaError_t content_attn_forward(cudaStream_t st, int B, int N, int C, in
     return cudaGetLastError();
 }
 
+// The backward kernel for a plan: kJ, the chunks of dl a lane of a row
+// group takes, 1 or 2 (the plan keeps dl4 <= 2 DG), sizes its registers.
+using CaBwdKernel = void (*)(CaArgs);
+
+template <bool kBf16>
+inline CaBwdKernel ca_bwd_kernel_for(const ContentAttnPlan& p, int C, int Nq, int dl, bool vec) {
+    const CaShape s = ca_shape(p.pp, C, Nq, dl);
+    const bool one = s.dl4 <= ca_chunk_threads(s.RP);
+    if (vec)
+        return one ? content_attn_bwd_kernel<true, kBf16, 1> : content_attn_bwd_kernel<true, kBf16, 2>;
+    return one ? content_attn_bwd_kernel<false, kBf16, 1> : content_attn_bwd_kernel<false, kBf16, 2>;
+}
+
 // The backward from dfcc: dh, dq (B*N*C, dl), and dfwh, dkhat (B*Nq, dl),
 // dfsh (B, dl) through the per-tile partials `part`
 // (content_attn_partial_floats floats). Returns the first CUDA error.
@@ -1156,7 +1315,7 @@ inline cudaError_t content_attn_backward(cudaStream_t st, int B, int N, int C, i
     const bool vec = dl % 4 == 0 && aligned16(h) && aligned16(q) && aligned16(khat) &&
                      aligned16(fwh) && aligned16(fsh) && aligned16(dfcc) && aligned16(dh) &&
                      aligned16(dq);
-    auto kernel = vec ? content_attn_bwd_kernel<true> : content_attn_bwd_kernel<false>;
+    auto kernel = ca_bwd_kernel_for<false>(p, C, Nq, dl, vec);
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
     if (err != cudaSuccess) return err;
@@ -1171,15 +1330,16 @@ inline cudaError_t content_attn_backward(cudaStream_t st, int B, int N, int C, i
 
 // The backward's bf16 variant: h, q, dfcc (B*N*C, dl), khat, fwh (B*Nq, dl)
 // bf16 and fsh fp32 in; dh (B*N*C, dl) and dfwh (B*Nq, dl) fp32 out, dq,
-// dkhat and dfsh rounded once to bf16. Same plan and shared memory as the
-// fp32 backward (the rows are staged in fp32). Returns the first CUDA error.
+// dkhat and dfsh rounded once to bf16. Its plan (`content_attn_plan` with
+// bf16) is the fp32 backward's with the shared memory of the bf16 layout
+// (`ca_bwd_layout`). Returns the first CUDA error.
 inline cudaError_t content_attn_backward(cudaStream_t st, int B, int N, int C, int Nq, int dl,
                                          const bf16* h, const bf16* q, const bf16* khat,
                                          const bf16* fwh, const float* fsh,
                                          const float* qmask, const float* vmask,
                                          const bf16* dfcc, float* dh, bf16* dq, float* part,
                                          float* dfwh, bf16* dkhat, bf16* dfsh) {
-    const ContentAttnPlan p = content_attn_plan(B, N, C, Nq, dl, true);
+    const ContentAttnPlan p = content_attn_plan(B, N, C, Nq, dl, true, true);
     if (!p.smem) return cudaErrorInvalidValue;
     CaArgs a = ca_args(p, N, C, Nq, dl);
     a.h16 = h;
@@ -1196,7 +1356,7 @@ inline cudaError_t content_attn_backward(cudaStream_t st, int B, int N, int C, i
     const bool vec = dl % 4 == 0 && aligned8(h) && aligned8(q) && aligned8(khat) &&
                      aligned8(fwh) && aligned16(fsh) && aligned8(dfcc) && aligned16(dh) &&
                      aligned8(dq);
-    auto kernel = vec ? content_attn_bwd_kernel<true, true> : content_attn_bwd_kernel<false, true>;
+    auto kernel = ca_bwd_kernel_for<true>(p, C, Nq, dl, vec);
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
     if (err != cudaSuccess) return err;

@@ -65,50 +65,6 @@ namespace {
 
 using vml::bf16;
 
-// dfbar[n, d] = sum_c dcut[n, c, d] over the B * N pairs, in fp32, rounded
-// once to T (fbar is a stored value of T).
-template <typename T>
-__global__ void clip_sum_kernel(size_t total, int C, int D, const T* __restrict__ dcut,
-                                T* __restrict__ dfbar) {
-    for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total;
-         e += (size_t)gridDim.x * blockDim.x) {
-        const size_t n = e / D;
-        const int d = (int)(e % D);
-        float s = 0.f;
-        for (int c = 0; c < C; ++c) s += vml::to_f(dcut[(n * C + c) * D + d]);
-        dfbar[e] = vml::from_f<T>(s);
-    }
-}
-
-// K10's gate: grid (B, ceil(D / blockDim)), one thread per (element, d)
-// over the pairs, with dfbar[n] = sum_c dcu[n, c] (cu = ... + fbar[n] on
-// every clip row), rounded to T as fbar is stored:
-//   dfm[n] = dfbar[n] * (s + z * s * (1 - s)),  z = fm[n] * fs, s = sigmoid(z)
-//   dfs    = sum_n dfbar[n] * fm[n]^2 * s * (1 - s)   (fp32)
-// (the s_hat path of dfs is added by `content_input_grads`).
-template <typename T>
-__global__ void unit_gate_bwd_kernel(int N, int C, int D, const T* __restrict__ fm,
-                                     const T* __restrict__ fs, const T* __restrict__ dcu,
-                                     T* __restrict__ dfm, float* __restrict__ dfs) {
-    const int b = blockIdx.x;
-    const int d = blockIdx.y * blockDim.x + threadIdx.x;
-    if (d >= D) return;
-    const float fsv = vml::to_f(fs[(size_t)b * D + d]);
-    float acc = 0.f;
-    for (size_t n = (size_t)b * N; n < (size_t)(b + 1) * N; ++n) {
-        float dfbar = 0.f;
-        for (int c = 0; c < C; ++c) dfbar += vml::to_f(dcu[(n * C + c) * D + d]);
-        dfbar = vml::to_f(vml::from_f<T>(dfbar));
-        const float x = vml::to_f(fm[n * D + d]);
-        const float z = x * fsv;
-        const float sg = vml::sigmoidf_(z);
-        const float t = sg * (1.f - sg);
-        dfm[n * D + d] = vml::from_f<T>(dfbar * (sg + z * t));
-        acc += dfbar * x * x * t;
-    }
-    dfs[(size_t)b * D + d] = acc;
-}
-
 // The scratch of K7 and K10 in the element type T: the content section of
 // the layer's (h, q, fcc, fwh, khat of T, fsh fp32), x2 (K7's clip mean,
 // K10's fbar) and dx2 of T, the backward's content buffers, the split
@@ -122,10 +78,15 @@ struct Workspace {
     float *partial, *dfs32;
 };
 
+// The split reductions' partials, which K10's gate backward also uses
+// before the unit's products do.
 size_t partial_floats(int B, int N, int C, int Nq, int D, int dl) {
-    const size_t a = vml::content_partial_floats(B, N, C, Nq, D, dl);
-    const size_t b = vml::gemm_tn_partial_floats(D, D, B * N);   // conv_fc's weight
-    return a > b ? a : b;
+    const size_t sizes[3] = {vml::content_partial_floats(B, N, C, Nq, D, dl),
+                             vml::gemm_tn_partial_floats(D, D, B * N),   // conv_fc's weight
+                             vml::gate_part_floats(B, D)};
+    size_t most = 0;
+    for (size_t f : sizes) most = f > most ? f : most;
+    return most;
 }
 
 // Carves the byte workspace `ws` (null: only measure); returns its size in
@@ -215,13 +176,7 @@ int rows_backward(cudaStream_t st, int B, int N, int C, int Nq, int D, int dl, c
     VML_CHECK();
 
     // dcut = dcu + dx2 / C into dfc, and dfbar = sum_c dcut.
-    const size_t ncd = (size_t)B * N * C * D;
-    const int dcu_blocks = (int)((ncd + 255) / 256 < 8192 ? (ncd + 255) / 256 : 8192);
-    vml::dcu_total_kernel<T><<<dcu_blocks, 256, 0, st>>>(ncd, C, D, dcu, k.dx2, dfc);
-    VML_CHECK();
-    const size_t nd = (size_t)B * N * D;
-    const int sum_blocks = (int)((nd + 255) / 256 < 8192 ? (nd + 255) / 256 : 8192);
-    clip_sum_kernel<T><<<sum_blocks, 256, 0, st>>>(nd, C, D, dfc, dfbar);
+    vml::launch_dcut<T>(st, B * N, C, D, dcu, k.dx2, dfc, dfbar);
     VML_CHECK();
 #undef VML_CHECK
 
@@ -229,7 +184,7 @@ int rows_backward(cudaStream_t st, int B, int N, int C, int Nq, int D, int dl, c
                                 k.partial, dfc, dw);
     if (err != cudaSuccess) return (int)err;
     return (int)vml::content_input_grads(st, B, N, C, Nq, D, dl, p, k.w, nullptr, nullptr, dfc,
-                                         dfw, dfs);
+                                         dfc, dfw, dfs);
 }
 
 }  // namespace
@@ -248,9 +203,14 @@ size_t vml_content_rows_workspace_bytes(int B, int N, int C, int Nq, int D, int 
     return carve<float>(nullptr, B, N, C, Nq, D, dl, backward != 0, &k);
 }
 
+// The splits of an element's N pairs in the moment gate's backward
+// (vml::gate_bwd_splits; mirrored by ops/content_cuda.py::gate_bwd_splits).
+int vml_gate_bwd_splits(int B, int N, int cols) { return vml::gate_bwd_splits(B, N, cols); }
+
 // Largest dynamic shared memory of the forward and backward kernels, for the
-// wrapper's admission check against the 227 KB a block may have (the same at
-// either type: the pair stages bf16 rows in fp32).
+// wrapper's admission check against the 227 KB a block may have (the fp32
+// kernels': the bf16 forward stages fp32 rows, the bf16 backward bf16 rows
+// in less).
 size_t vml_content_rows_smem_bytes(int C, int Nq, int dl) {
     const size_t a = vml::content_attn_smem_bytes(1, C, Nq, dl, false);
     const size_t b = vml::content_attn_smem_bytes(1, C, Nq, dl, true);
@@ -331,9 +291,12 @@ int vml_content_rows_bwd_bf16(void* stream, int B, int N, int C, int Nq, int D, 
 //
 // Design. The forward is the gate (`vml::gate_kernel`) and
 // `vml::content_forward`, the content section of the layer that K4, K2 and
-// K7 run. The backward is K7's with no conv_fc cotangent, so dcut = dcu;
-// `unit_gate_bwd_kernel` then turns dfbar = sum_c dcu into dfm and the
-// gate's share of dfs. The workspace is K7's, its clip-mean slot holding
+// K7 run. The backward recomputes the unit without the gate and the c_out
+// product (fbar and cu have no reader there), then runs K7's with no
+// conv_fc cotangent, reading dcut = dcu in place (no copy);
+// `vml::gate_backward` (content_bwd.cuh, K3's gate without its boundary and
+// moment terms, split along the pairs) turns dfbar = sum_c dcu into dfm and
+// the gate's share of dfs. The workspace is K7's, its clip-mean slot holding
 // fbar instead. No atomics: a run is deterministic.
 //
 // The bf16 variant (K10-bf16, the JAX kernel at bf16) runs it on bf16
@@ -348,14 +311,17 @@ int vml_content_rows_bwd_bf16(void* stream, int B, int N, int C, int Nq, int D, 
 namespace {
 
 // fbar in the x2 slot, then the unit with its residual added in T;
-// intermediates left in k.s.
+// intermediates left in k.s. cu null (the backward's recompute): neither
+// the gate nor the c_out product, whose only reader is cu.
 template <typename T, typename P>
 cudaError_t unit_forward(cudaStream_t st, int B, int N, int C, int Nq, int D, int dl,
                          const T* fc, const T* fm, const T* fw, const T* fs, const float* qmask,
                          const float* vmask, const P* const* p, const Workspace<T>& k, T* cu) {
-    vml::launch_gate(st, B, N, D, fm, fs, k.x2);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+    if (cu) {
+        vml::launch_gate(st, B, N, D, fm, fs, k.x2);
+        cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return err;
+    }
     return vml::content_forward(st, B, N, C, Nq, D, dl, fc, k.x2, fw, fs, qmask, vmask, p, k.s,
                                 cu, true);
 }
@@ -367,21 +333,20 @@ int unit_backward(cudaStream_t st, int B, int N, int C, int Nq, int D, int dl, c
                   T* dfs, float* const* dw) {
     Workspace<T> k;
     carve(ws, B, N, C, Nq, D, dl, true, &k);
-    cudaError_t err = unit_forward(st, B, N, C, Nq, D, dl, fc, fm, fw, fs, qmask, vmask, p, k, dfc);
+    cudaError_t err = unit_forward(st, B, N, C, Nq, D, dl, fc, fm, fw, fs, qmask, vmask, p, k,
+                                   static_cast<T*>(nullptr));
     if (err != cudaSuccess) return (int)err;
-    // dcut = dcu into dfc; the gate's gradients (its share of dfs in fp32);
-    // then the unit's.
-    err = cudaMemcpyAsync(dfc, dcu, sizeof(T) * B * N * C * D, cudaMemcpyDeviceToDevice, st);
-    if (err != cudaSuccess) return (int)err;
+    // dcut = dcu: the gate's gradients (its share of dfs in fp32), then the
+    // unit's, reading dcu where K3 and K7 read their dcut.
     float* dfs32 = vml::f32_sum(dfs, k.dfs32);
-    unit_gate_bwd_kernel<T><<<dim3(B, (D + 127) / 128), 128, 0, st>>>(N, C, D, fm, fs, dcu, dfm,
-                                                                       dfs32);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    err = vml::content_backward(st, B, N, C, Nq, D, dl, fc, fw, fs, qmask, vmask, p, k.s, k.w,
-                                k.partial, dfc, dw);
+    err = vml::gate_backward<false>(st, B, N, 0, C, D, fm, fs, static_cast<const T*>(nullptr),
+                                    dcu, nullptr, nullptr, nullptr, dfm, k.partial, dfs32);
     if (err != cudaSuccess) return (int)err;
-    return (int)vml::content_input_grads(st, B, N, C, Nq, D, dl, p, k.w, nullptr, dfs32, dfc,
-                                         dfw, dfs);
+    err = vml::content_backward(st, B, N, C, Nq, D, dl, fc, fw, fs, qmask, vmask, p, k.s, k.w,
+                                k.partial, dcu, dw);
+    if (err != cudaSuccess) return (int)err;
+    return (int)vml::content_input_grads(st, B, N, C, Nq, D, dl, p, k.w, nullptr, dfs32, dcu,
+                                         dfc, dfw, dfs);
 }
 
 }  // namespace
@@ -403,7 +368,7 @@ int vml_content_unit_fwd_f32(void* stream, int B, int N, int C, int Nq, int D, i
 
 // K10 backward. dw: host array of 12 device pointers to the weight-gradient
 // outputs, in p's order. ws: vml_content_rows_workspace_bytes(..., 1, 0)
-// bytes. dfc doubles as the recompute's cu buffer before it is written.
+// bytes.
 int vml_content_unit_bwd_f32(void* stream, int B, int N, int C, int Nq, int D, int dl,
                              const float* fc, const float* fm, const float* fw, const float* fs,
                              const float* qmask, const float* vmask, const float* const* p,

@@ -114,9 +114,10 @@ void vml_gemm_bf16_wg_plan(int layout, int M, int N, int K, int groups, int spli
 // out_f32 choosing the output type; layout 2 (tn): C0 (M, N) fp32 = (A *
 // ascale)^T @ W0, A (K, M), W0 (K, N), through `partial`
 // (vml_gemm_tn_partial_floats floats), bias_out (M,) the column sums of the
-// scaled A when not null. path: -1 by the plan, else vml::kPathBf16
-// (mma.sync) or vml::kPathBf16Wg (wgmma). Returns the launch's CUDA error,
-// 0 if none.
+// scaled A when not null; with C1 the product's columns split at ldc
+// (`vml::product_tn2`): C0 (M, ldc) and C1 (M, N - ldc). path: -1 by the
+// plan, else vml::kPathBf16 (mma.sync) or vml::kPathBf16Wg (wgmma). Returns
+// the launch's CUDA error, 0 if none.
 int vml_gemm_bf16_general(void* stream, int layout, int M, int N, int K, const vml::bf16* A,
                           int lda, const float* ascale, int adiv, const vml::bf16* W0,
                           const vml::bf16* W1, int ldw, void* C0, void* C1, int ldc, int out_f32,
@@ -128,7 +129,8 @@ int vml_gemm_bf16_general(void* stream, int layout, int M, int N, int K, const v
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (layout == 2) {
         vml::gemm_tn_bf16(st, M, N, K, A, lda, ascale, adiv, W0, ldw, partial,
-                          static_cast<float*>(C0), bias_out, path);
+                          static_cast<float*>(C0), bias_out, path, C1 ? ldc : 0,
+                          static_cast<float*>(C1));
         return (int)cudaGetLastError();
     }
     vml::EpilogueBf16 ep;

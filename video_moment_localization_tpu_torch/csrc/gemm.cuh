@@ -1072,11 +1072,16 @@ inline void gemm_nn2(cudaStream_t stream, int M, int N, int K, const float* A, i
 }
 
 // out[e] = sum_z partial[z * count + e] and bout[m] = sum_z bpartial[z * bcount
-// + m], z ascending (bcount 0: no column sums).
+// + m], z ascending (bcount 0: no column sums). With out2 (two products of
+// one A side by side, `gemm_tn2`): the (count / N, N) sums are split at
+// column N0, the first N0 columns to out (rows of N0), the rest to out2
+// (rows of N - N0), and the column sums go to bout and bout2 both.
 __global__ void reduce_partials_kernel(int Z, size_t count, const float* __restrict__ partial,
                                        float* __restrict__ out, size_t bcount,
                                        const float* __restrict__ bpartial,
-                                       float* __restrict__ bout) {
+                                       float* __restrict__ bout, int N = 0, int N0 = 0,
+                                       float* __restrict__ out2 = nullptr,
+                                       float* __restrict__ bout2 = nullptr) {
     for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < count + bcount;
          e += (size_t)gridDim.x * blockDim.x) {
         const bool b = e >= count;
@@ -1085,8 +1090,35 @@ __global__ void reduce_partials_kernel(int Z, size_t count, const float* __restr
         const float* src = b ? bpartial : partial;
         float s = 0.f;
         for (int z = 0; z < Z; ++z) s += src[(size_t)z * n + i];
-        (b ? bout : out)[i] = s;
+        if (b) {
+            bout[i] = s;
+            if (bout2) bout2[i] = s;
+        } else if (out2) {
+            const size_t row = i / N;
+            const int col = (int)(i - row * N);
+            if (col < N0)
+                out[row * N0 + col] = s;
+            else
+                out2[row * (N - N0) + col - N0] = s;
+        } else {
+            out[i] = s;
+        }
     }
+}
+
+// The reduction of a split gemm_tn's partials (`reduce_partials_kernel`);
+// `split` > 0 splits the (M, N) sums at that column into out and out2.
+inline void launch_reduce_partials(cudaStream_t stream, int splits, int M, int N,
+                                   const float* partial, float* out, const float* colsum,
+                                   float* bias_out, int split = 0, float* out2 = nullptr,
+                                   float* bias_out2 = nullptr) {
+    const size_t count = (size_t)M * N;
+    const size_t bcount = bias_out ? (size_t)M : 0;
+    const size_t total = count + bcount;
+    const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
+    reduce_partials_kernel<<<blocks, 256, 0, stream>>>(splits, count, partial, out, bcount,
+                                                       colsum, bias_out, N, split, out2,
+                                                       bias_out2);
 }
 
 // Floats of the partial-sum buffer gemm_tn needs: the split products and
@@ -1098,23 +1130,22 @@ inline size_t gemm_tn_partial_floats(int M, int N, int R) {
 // out (M, N) = (A * ascale[row / adiv])^T @ B, A (R, M), B (R, N), reduced
 // over the R rows through `partial`; bias_out (M,) (optional) = the column
 // sums of the scaled A, a bias gradient, from the same pass over A. The
-// split, and so `partial`'s size, is the same on both paths.
+// split, and so `partial`'s size, is the same on both paths. `split` > 0
+// (`gemm_tn2`): out gets B's first `split` columns' products, out2 the
+// rest's, bias_out2 the column sums too.
 inline void gemm_tn(cudaStream_t stream, int M, int N, int R, const float* A, int lda,
                     const float* ascale, int adiv, const float* B, int ldb, float* partial,
-                    float* out, float* bias_out = nullptr, int path = -1) {
+                    float* out, float* bias_out = nullptr, int path = -1, int split = 0,
+                    float* out2 = nullptr, float* bias_out2 = nullptr) {
     const SplitK s = splitk_for(M, N, R);
     GemmParams p = gemm_params(M, N, R, A, lda, ascale, adiv, ldb, N);
     p.kchunk = s.kchunk;
     p.W[0] = B;
     p.C[0] = partial;
-    const size_t count = (size_t)M * N;
-    p.colsum = bias_out ? partial + (size_t)s.splits * count : nullptr;
+    p.colsum = bias_out ? partial + (size_t)s.splits * M * N : nullptr;
     gemm_launch<true, true>(stream, p, 1, s.splits, kTile128x128, path);
-    const size_t bcount = bias_out ? (size_t)M : 0;
-    const size_t total = count + bcount;
-    const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-    reduce_partials_kernel<<<blocks, 256, 0, stream>>>(s.splits, count, partial, out, bcount,
-                                                       p.colsum, bias_out);
+    launch_reduce_partials(stream, s.splits, M, N, partial, out, p.colsum, bias_out, split, out2,
+                           bias_out2);
 }
 
 // C = A @ W^T + bias, the epilogue of a plain nn.Linear.
@@ -1130,6 +1161,12 @@ __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
     return v;
 }
 
@@ -2250,7 +2287,8 @@ inline void gemm_nn2_bf16(cudaStream_t stream, int M, int N, int K, const bf16* 
 // column sums of the scaled A from the same pass.
 inline void gemm_tn_bf16(cudaStream_t stream, int M, int N, int R, const bf16* A, int lda,
                          const float* ascale, int adiv, const bf16* B, int ldb, float* partial,
-                         float* out, float* bias_out = nullptr, int path = -1) {
+                         float* out, float* bias_out = nullptr, int path = -1, int split = 0,
+                         float* out2 = nullptr, float* bias_out2 = nullptr) {
     const SplitK s = splitk_for(M, N, R);
     GemmBf16Params p = gemm_bf16_params(M, N, R, A, lda, ldb, N, true);
     p.kchunk = s.kchunk;
@@ -2258,14 +2296,10 @@ inline void gemm_tn_bf16(cudaStream_t stream, int M, int N, int R, const bf16* A
     p.adiv = adiv;
     p.W[0] = B;
     p.C[0] = partial;
-    const size_t count = (size_t)M * N;
-    p.colsum = bias_out ? partial + (size_t)s.splits * count : nullptr;
+    p.colsum = bias_out ? partial + (size_t)s.splits * M * N : nullptr;
     gemm_bf16_launch<true, true>(stream, p, 1, s.splits, kTile128x128, path);
-    const size_t bcount = bias_out ? (size_t)M : 0;
-    const size_t total = count + bcount;
-    const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-    reduce_partials_kernel<<<blocks, 256, 0, stream>>>(s.splits, count, partial, out, bcount,
-                                                       p.colsum, bias_out);
+    launch_reduce_partials(stream, s.splits, M, N, partial, out, p.colsum, bias_out, split, out2,
+                           bias_out2);
 }
 
 // C = A @ W^T + bias in bf16 operands (a plain nn.Linear), C bf16 or fp32

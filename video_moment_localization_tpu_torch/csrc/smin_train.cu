@@ -33,11 +33,12 @@
 //
 //   MomentUnit  mu = (conv_fb(x1) + conv_fc(x2)) * vm + fm, x1[n] = bu[i_n] *
 //     bu[j_n], x2[n] = mean_c cu[n, c]. With dz = dmu * vm: dx1 = dz Wfb,
-//     dx2 = dz Wfc (one nn product, the mask on its rows); G[i] = dbu[i] +
-//     sum_{n: i_n = i} dx1[n] bu[j_n] + sum_{n: j_n = i} dx1[n] bu[i_n]
-//     (moment_bwd_kernel gathers per snippet row; the pair (i, i) counts in
-//     both sums); dcut[n, c] = dcu[n, c] + dx2[n] / C (dcu_total_kernel; a
-//     null dcu is the top layer's zero cotangent); dfm = dmu.
+//     dx2 = dz Wfc (one nn product, the mask on its rows; dW_fb and dW_fc
+//     one tn product over [x1 | x2]); G[i] = dbu[i] + sum_{n: i_n = i}
+//     dx1[n] bu[j_n] + sum_{n: j_n = i} dx1[n] bu[i_n] (gathered per
+//     snippet row by boundary_attn_bwd_kernel below; the pair (i, i) counts in
+//     both sums); dcut[n, c] = dcu[n, c] + dx2[n] / C (dcut_kernel; a null
+//     dcu is the top layer's zero cotangent); dfm = dmu.
 //   ContentUnit  cu = c_out(fcc) * vm + fc + fbar. dfcc = (dcut * vm) Wco.
 //     content_attn_bwd_kernel (content_attn.cuh; a block per tile of an
 //     element's pairs) recomputes the word attention p, f_cq = g and the
@@ -53,16 +54,18 @@
 //   BoundaryUnit  bu[i] = (A[i] fb) * lm[i] + fb[i] + sum_{j >= i} A[i, j]
 //     fbar[(i, j)], A = softmax_j(fbq fbq^T / sqrt(D), -1e9 on invalid j) *
 //     lm[i], fbq[i] = fb[i] * (a[i] * lm[i] + fs), a = p fw.
-//     boundary_attn_bwd_kernel (one block per snippet row) writes A and the
-//     logit gradients dS; boundary_query_bwd_kernel turns them into dfbq[i] =
-//     sum_j (dS[i, j] + dS[j, i]) fbq[j], the direct part of dfb, da, the
-//     row's share of dfs and the word-logit gradients; boundary_proj_bwd_kernel
-//     reduces dbq, dbk and the value-path share of dfw over rows / words;
-//     then dfb += dbq Wbq, dfw += dbk Wbk.
+//     boundary_attn_bwd_kernel (a block per snippet row) gathers G and
+//     writes A and the logit gradients dS; boundary_query_bwd_kernel turns
+//     them into dfbq[i] = sum_j (dS[i, j] + dS[j, i]) fbq[j], the direct
+//     part of dfb, da, the row's share of dfs, the word-logit gradients and
+//     dbq; boundary_proj_bwd_kernel reduces dbk and the value-path share of
+//     dfw over rows (dot products a warp each, softmaxes across a warp's
+//     lanes, four columns a thread); then dfb += dbq Wbq, dfw += dbk Wbk.
 //   Gate  fbar = sigmoid(fm * fs) * fm, dfbar[n] = A[i_n, j_n] G[i_n] +
-//     sum_c dcut[n, c]. gate_bwd_kernel (a thread per 4 columns of an
-//     element and a split of its pairs) writes dfm and its split's share of
-//     dfs; gate_dfs_kernel adds the splits in order.
+//     sum_c dcut[n, c]. gate_bwd_kernel (content_bwd.cuh, shared with K10; a
+//     thread per 4 columns of an element and a split of its pairs) writes
+//     dfm and its split's share of dfs; gate_dfs_kernel adds the splits in
+//     order.
 //   The ContentUnit's kernels and their sequence are in content_bwd.cuh,
 //   shared with the content-unit backward of content_train.cu.
 //   Weight gradients dW = dY^T X (gemm_tn) reduce over up to B * N * C rows
@@ -103,6 +106,7 @@ using vml::from_f;
 using vml::kNegInf;
 using vml::pair_index;
 using vml::to_f;
+using vml::warp_max;
 using vml::warp_sum;
 
 // A gradient of a stored value rounded as it is stored: to bf16 and back for
@@ -112,120 +116,163 @@ __device__ __forceinline__ float stored(float x) {
     return to_f(from_f<T>(x));
 }
 
-// grid B * L. G[i] = dbu[i] + sum_{j >= i} dx1[(i, j)] * bu[j]
-//                          + sum_{k <= i} dx1[(k, i)] * bu[k].
-// T: the type of dbu, dx1 and bu; G is fp32. At bf16 the sums over the
-// pairs (bu's gradient inside the layer) are rounded to bf16 before dbu
-// (its gradient from outside) is added, and G is rounded again: bu is a
-// stored bf16 value that its layer also reads.
-template <typename T>
-__global__ void moment_bwd_kernel(int L, int D, const T* __restrict__ dbu,
-                                  const T* __restrict__ dx1,
-                                  const T* __restrict__ bu, float* __restrict__ G) {
-    constexpr bool f32 = std::is_same<T, float>::value;
-    const int N = L * (L + 1) / 2;
-    const int row = blockIdx.x;   // b * L + i
-    const int b = row / L;
-    const int i = row % L;
-    const T* bue = bu + (size_t)b * L * D;
-    const T* dxe = dx1 + (size_t)b * N * D;
-    for (int d = threadIdx.x; d < D; d += blockDim.x) {
-        float acc = f32 ? to_f(dbu[(size_t)row * D + d]) : 0.f;
-        for (int j = i; j < L; ++j)
-            acc += to_f(dxe[(size_t)pair_index(i, j, L) * D + d]) * to_f(bue[(size_t)j * D + d]);
-        for (int k = 0; k <= i; ++k)
-            acc += to_f(dxe[(size_t)pair_index(k, i, L) * D + d]) * to_f(bue[(size_t)k * D + d]);
-        if (!f32) acc = stored<T>(to_f(dbu[(size_t)row * D + d]) + stored<T>(acc));
-        G[(size_t)row * D + d] = acc;
-    }
+// The moment unit's scatter to the snippets and the boundary unit's
+// backward, in three kernels of kBbThreads (4 warps): a thread takes V
+// consecutive columns (16-byte loads of fp32 rows, 8-byte of bf16, when V is
+// 4), a row's dot products run a warp each, and its softmaxes across warp
+// 0's lanes. T: the type of dbu, dx1, bu, fbq, fb, fbar, bq, bk, fw and fs;
+// at bf16 every stored value's gradient is rounded once where K3's plain
+// version rounds it.
+constexpr int kBbThreads = 128;
+
+// The softmax of the n logits in p (shared), in place, across warp 0's
+// lanes; the caller syncs before and after.
+__device__ __forceinline__ void warp_softmax(float* p, int n) {
+    if (threadIdx.x >= 32) return;
+    float mx = -INFINITY;
+    for (int k = threadIdx.x; k < n; k += 32) mx = fmaxf(mx, p[k]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int k = threadIdx.x; k < n; k += 32) sum += expf(p[k] - mx);
+    sum = warp_sum(sum);
+    for (int k = threadIdx.x; k < n; k += 32) p[k] = expf(p[k] - mx) / sum;
 }
 
-// grid B * L, one block per snippet row i: recomputes the boundary attention
-// row P[i] and writes A[i, j] = P[i, j] * lm[i] (B, L, L) and the logit
-// gradients dS[i, j] (B, L, L; 0 at a masked key j), from
-//   dA[i, j] = lm[i] * (G[i] . fb[j]) + [j >= i] G[i] . fbar[(i, j)].
-// T: the type of fbq, fb and fbar.
-template <typename T>
-__global__ void boundary_attn_bwd_kernel(int L, int D, const T* __restrict__ fbq,
-                                         const T* __restrict__ fb,
-                                         const T* __restrict__ fbar,
-                                         const float* __restrict__ lmask,
-                                         const float* __restrict__ G, float* __restrict__ Ab,
-                                         float* __restrict__ dSb) {
+// boundary_attn_bwd_kernel, grid B * L, block (b, i):
+//   G[i] = dbu[i] + sum_{j >= i} dx1[(i, j)] bu[j] + sum_{k <= i} dx1[(k, i)]
+//   bu[k] (the pairs' sum rounded to bf16 before dbu is added, and G again,
+//   at bf16: bu is a stored value its layer reads), kept in shared memory
+//   and written to G; then the boundary attention row P[i] recomputed, A[i,
+//   j] = P[i, j] lm[i] (to Ab, for the gate too) and the logit gradients
+//   dS[i, j] (0 at a masked key) from dA[i, j] = lm[i] (G[i] . fb[j]) + [j >=
+//   i] G[i] . fbar[(i, j)]. Shared memory: G's row (D floats), P and dA.
+template <int V, typename T>
+__global__ void __launch_bounds__(kBbThreads) boundary_attn_bwd_kernel(
+    int L, int D, const T* __restrict__ dbu, const T* __restrict__ dx1,
+    const T* __restrict__ bu, const T* __restrict__ fbq, const T* __restrict__ fb,
+    const T* __restrict__ fbar, const float* __restrict__ lmask, float* __restrict__ G,
+    float* __restrict__ Ab, float* __restrict__ dSb) {
+    constexpr bool f32 = std::is_same<T, float>::value;
     extern __shared__ float smem[];
-    float* P = smem;                  // (L,)
-    float* dA = smem + L;             // (L,)
+    float* gs = smem;                 // (D,): G[i]
+    float* P = gs + D;                // (L,)
+    float* dA = P + L;                // (L,)
     const int row = blockIdx.x;       // b * L + i
     const int b = row / L;
     const int i = row % L;
     const int N = L * (L + 1) / 2;
-    const int tid = threadIdx.x;
-    const int lane = tid % 32;
-    const int warp = tid / 32;
-    const int nwarps = blockDim.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int warp = threadIdx.x / 32;
+    constexpr int nwarps = kBbThreads / 32;
+    const int cols = D / V;
     const float inv_sd = 1.f / sqrtf((float)D);
     const float* lm = lmask + (size_t)b * L;
-    const T* x = fbq + (size_t)row * D;
-    const float* g = G + (size_t)row * D;
+    const T* bue = bu + (size_t)b * L * D;
+    const T* dxe = dx1 + (size_t)b * N * D;
 
+    for (int c = threadIdx.x; c < cols; c += kBbThreads) {
+        const int d = c * V;
+        float acc[V], db[V];
+        vml::load_vec<V>(dbu + (size_t)row * D + d, db);
+#pragma unroll
+        for (int k = 0; k < V; ++k) acc[k] = f32 ? db[k] : 0.f;
+#pragma unroll 4
+        for (int j = i; j < L; ++j) {
+            float x[V], u[V];
+            vml::load_vec<V>(dxe + (size_t)pair_index(i, j, L) * D + d, x);
+            vml::load_vec<V>(bue + (size_t)j * D + d, u);
+#pragma unroll
+            for (int k = 0; k < V; ++k) acc[k] += x[k] * u[k];
+        }
+#pragma unroll 4
+        for (int m = 0; m <= i; ++m) {
+            float x[V], u[V];
+            vml::load_vec<V>(dxe + (size_t)pair_index(m, i, L) * D + d, x);
+            vml::load_vec<V>(bue + (size_t)m * D + d, u);
+#pragma unroll
+            for (int k = 0; k < V; ++k) acc[k] += x[k] * u[k];
+        }
+        if (!f32) {
+#pragma unroll
+            for (int k = 0; k < V; ++k) acc[k] = stored<T>(db[k] + stored<T>(acc[k]));
+        }
+#pragma unroll
+        for (int k = 0; k < V; ++k) gs[d + k] = acc[k];
+        vml::store_vec<V>(G + (size_t)row * D + d, acc);
+    }
+    __syncthreads();
+
+    const T* x = fbq + (size_t)row * D;
     for (int j = warp; j < L; j += nwarps) {
         const T* y = fbq + ((size_t)b * L + j) * D;
-        const T* fbj = fb + ((size_t)b * L + j) * D;
-        const T* fbar_ij = j >= i ? fbar + ((size_t)b * N + pair_index(i, j, L)) * D : nullptr;
-        float s = 0.f, t = 0.f, u = 0.f;
-        for (int d = lane; d < D; d += 32) {
-            s += to_f(x[d]) * to_f(y[d]);
-            t += g[d] * to_f(fbj[d]);
-            if (fbar_ij) u += g[d] * to_f(fbar_ij[d]);
+        const T* f = fb + ((size_t)b * L + j) * D;
+        const T* h = j >= i ? fbar + ((size_t)b * N + pair_index(i, j, L)) * D : nullptr;
+        float sdot = 0.f, tdot = 0.f, udot = 0.f;
+        for (int c = lane; c < cols; c += 32) {
+            const int d = c * V;
+            float xv[V], yv[V], fv[V];
+            vml::load_vec<V>(x + d, xv);
+            vml::load_vec<V>(y + d, yv);
+            vml::load_vec<V>(f + d, fv);
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+                sdot += xv[k] * yv[k];
+                tdot += gs[d + k] * fv[k];
+            }
+            if (h) {
+                float hv[V];
+                vml::load_vec<V>(h + d, hv);
+#pragma unroll
+                for (int k = 0; k < V; ++k) udot += gs[d + k] * hv[k];
+            }
         }
-        s = warp_sum(s);
-        t = warp_sum(t);
-        u = warp_sum(u);
+        sdot = warp_sum(sdot);
+        tdot = warp_sum(tdot);
+        udot = warp_sum(udot);
         if (lane == 0) {
-            P[j] = lm[j] > 0.f ? s * inv_sd : kNegInf;
-            dA[j] = lm[i] * t + u;
+            P[j] = lm[j] > 0.f ? sdot * inv_sd : kNegInf;
+            dA[j] = lm[i] * tdot + udot;
         }
     }
     __syncthreads();
-    if (tid == 0) {
-        float mx = P[0];
-        for (int j = 1; j < L; ++j) mx = fmaxf(mx, P[j]);
+    // The row's softmax and its backward across warp 0's lanes: dP = dA
+    // lm[i], dS = P (dP - sum_j P dP) / sqrt(D).
+    if (warp == 0) {
+        float mx = -INFINITY;
+        for (int j = lane; j < L; j += 32) mx = fmaxf(mx, P[j]);
+        mx = warp_max(mx);
         float sum = 0.f;
-        for (int j = 0; j < L; ++j) {
-            P[j] = expf(P[j] - mx);
-            sum += P[j];
-        }
+        for (int j = lane; j < L; j += 32) sum += expf(P[j] - mx);
+        sum = warp_sum(sum);
         float dot = 0.f;
-        for (int j = 0; j < L; ++j) {
-            P[j] /= sum;
-            dA[j] *= lm[i];              // dP = dA * lm[i]
-            dot += P[j] * dA[j];
-        }
-        for (int j = 0; j < L; ++j) {
-            Ab[(size_t)row * L + j] = P[j] * lm[i];
-            dSb[(size_t)row * L + j] = lm[j] > 0.f ? P[j] * (dA[j] - dot) * inv_sd : 0.f;
+        for (int j = lane; j < L; j += 32) dot += expf(P[j] - mx) / sum * (dA[j] * lm[i]);
+        dot = warp_sum(dot);
+        for (int j = lane; j < L; j += 32) {
+            const float pj = expf(P[j] - mx) / sum;
+            Ab[(size_t)row * L + j] = pj * lm[i];
+            dSb[(size_t)row * L + j] = lm[j] > 0.f ? pj * (dA[j] * lm[i] - dot) * inv_sd : 0.f;
         }
     }
 }
 
-// grid B * L, one block per snippet row i: dfbq[i] = sum_j (dS[i, j] +
-// dS[j, i]) fbq[j], then through fbq[i] = fb[i] * (a[i] * lm[i] + fs):
-//   dfb[i]   = G[i] + sum_j A[j, i] lm[j] G[j] + dfbq[i] * (a[i] lm[i] + fs)
-//              (the attn_q path is added by the caller's GEMM)
-//   da[i]    = dfbq[i] * fb[i] * lm[i];   dfs_b[i] = dfbq[i] * fb[i]
-// and through the word attention a[i] = p[i] fw: p (B, L, Nq) and the logit
-// gradients ds (B, L, Nq; 0 at a masked word). T: the type of bq, bk, fw,
-// fb, fs and fbq; at bf16 dfbq (the gradient of the stored fbq) is rounded
-// to bf16 before it is used. dfb, da, dfs_b are fp32 at either type.
-template <typename T>
-__global__ void boundary_query_bwd_kernel(
+// boundary_query_bwd_kernel, grid B * L, block (b, i): dfbq[i] = sum_j
+// (dS[i, j] + dS[j, i]) fbq[j] (rounded at bf16), then through fbq[i] =
+// fb[i] * (a[i] lm[i] + fs), a = p fw:
+//   dfb[i] = G[i] + sum_j A[j, i] lm[j] G[j] + dfbq[i] (a[i] lm[i] + fs)
+//   da[i]  = dfbq[i] fb[i] lm[i] (to dab),  dfs_b[i] = dfbq[i] fb[i]
+// (the attn_q path of dfb is the caller's product), the word attention's
+// p[i] and logit gradients ds[i] (0 at a masked word; both to pb / dsb) from
+// dp = da fw^T, and dbq[i] = sum_m ds[i, m] bk[m]. Shared memory: the
+// coefficients of row i and column i, p, dp and da's row.
+template <int V, typename T>
+__global__ void __launch_bounds__(kBbThreads) boundary_query_bwd_kernel(
     int L, int Nq, int D, const T* __restrict__ bq, const T* __restrict__ bk,
     const T* __restrict__ fw, const T* __restrict__ fb, const T* __restrict__ fs,
     const T* __restrict__ fbq, const float* __restrict__ qmask,
     const float* __restrict__ lmask, const float* __restrict__ G,
     const float* __restrict__ Ab, const float* __restrict__ dSb, float* __restrict__ dfb,
     float* __restrict__ dab, float* __restrict__ dfs_b, float* __restrict__ pb,
-    float* __restrict__ dsb) {
+    float* __restrict__ dsb, T* __restrict__ dbq) {
     extern __shared__ float smem[];
     float* p = smem;                  // (Nq,)
     float* dp = p + Nq;               // (Nq,)
@@ -235,201 +282,151 @@ __global__ void boundary_query_bwd_kernel(
     const int row = blockIdx.x;       // b * L + i
     const int b = row / L;
     const int i = row % L;
-    const int tid = threadIdx.x;
-    const int lane = tid % 32;
-    const int warp = tid / 32;
-    const int nwarps = blockDim.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int warp = threadIdx.x / 32;
+    constexpr int nwarps = kBbThreads / 32;
+    const int cols = D / V;
     const float inv_sd = 1.f / sqrtf((float)D);
+    const float lmi = lmask[row];
+    const float* qm = qmask + (size_t)b * Nq;
     const T* x = bq + (size_t)row * D;
+    const T* bke = bk + (size_t)b * Nq * D;
     const T* fwe = fw + (size_t)b * Nq * D;
-    const float lm = lmask[row];
 
     for (int m = warp; m < Nq; m += nwarps) {
-        const T* y = bk + ((size_t)b * Nq + m) * D;
-        float s = 0.f;
-        for (int d = lane; d < D; d += 32) s += to_f(x[d]) * to_f(y[d]);
-        s = warp_sum(s);
-        if (lane == 0) p[m] = qmask[(size_t)b * Nq + m] > 0.f ? s * inv_sd : kNegInf;
+        float sdot = 0.f;
+        for (int c = lane; c < cols; c += 32) {
+            float xv[V], yv[V];
+            vml::load_vec<V>(x + c * V, xv);
+            vml::load_vec<V>(bke + (size_t)m * D + c * V, yv);
+#pragma unroll
+            for (int k = 0; k < V; ++k) sdot += xv[k] * yv[k];
+        }
+        sdot = warp_sum(sdot);
+        if (lane == 0) p[m] = qm[m] > 0.f ? sdot * inv_sd : kNegInf;
     }
-    for (int j = tid; j < L; j += blockDim.x) {
+    for (int j = threadIdx.x; j < L; j += kBbThreads) {
         coef[j] = dSb[(size_t)row * L + j] + dSb[((size_t)b * L + j) * L + i];
         coefA[j] = Ab[((size_t)b * L + j) * L + i] * lmask[(size_t)b * L + j];
     }
     __syncthreads();
-    if (tid == 0) {
-        float mx = p[0];
-        for (int m = 1; m < Nq; ++m) mx = fmaxf(mx, p[m]);
-        float sum = 0.f;
-        for (int m = 0; m < Nq; ++m) {
-            p[m] = expf(p[m] - mx);
-            sum += p[m];
-        }
-        for (int m = 0; m < Nq; ++m) p[m] /= sum;
-    }
+    warp_softmax(p, Nq);
     __syncthreads();
-    for (int d = tid; d < D; d += blockDim.x) {
-        float dfbq = 0.f, gsum = G[(size_t)row * D + d];
+    for (int c = threadIdx.x; c < cols; c += kBbThreads) {
+        const int d = c * V;
+        float dfbq[V], gsum[V], a[V], t[V];
+        vml::load_vec<V>(G + (size_t)row * D + d, gsum);
+#pragma unroll
+        for (int k = 0; k < V; ++k) dfbq[k] = a[k] = 0.f;
+#pragma unroll 4
         for (int j = 0; j < L; ++j) {
-            dfbq += coef[j] * to_f(fbq[((size_t)b * L + j) * D + d]);
-            gsum += coefA[j] * G[((size_t)b * L + j) * D + d];
+            float y[V], g[V];
+            vml::load_vec<V>(fbq + ((size_t)b * L + j) * D + d, y);
+            vml::load_vec<V>(G + ((size_t)b * L + j) * D + d, g);
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+                dfbq[k] += coef[j] * y[k];
+                gsum[k] += coefA[j] * g[k];
+            }
         }
-        dfbq = stored<T>(dfbq);
-        float a = 0.f;
-        for (int m = 0; m < Nq; ++m) a += p[m] * to_f(fwe[(size_t)m * D + d]);
-        const float fbv = to_f(fb[(size_t)row * D + d]);
-        const float dav = dfbq * fbv * lm;
-        darow[d] = dav;
-        dfb[(size_t)row * D + d] = gsum + dfbq * (a * lm + to_f(fs[(size_t)b * D + d]));
-        dab[(size_t)row * D + d] = dav;
-        dfs_b[(size_t)row * D + d] = dfbq * fbv;
+#pragma unroll 4
+        for (int m = 0; m < Nq; ++m) {
+            vml::load_vec<V>(fwe + (size_t)m * D + d, t);
+#pragma unroll
+            for (int k = 0; k < V; ++k) a[k] += p[m] * t[k];
+        }
+        float fbv[V], fsv[V], out[V], da[V], dsv[V];
+        vml::load_vec<V>(fb + (size_t)row * D + d, fbv);
+        vml::load_vec<V>(fs + (size_t)b * D + d, fsv);
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+            const float q = stored<T>(dfbq[k]);
+            da[k] = q * fbv[k] * lmi;
+            out[k] = gsum[k] + q * (a[k] * lmi + fsv[k]);
+            dsv[k] = q * fbv[k];
+            darow[d + k] = da[k];
+        }
+        vml::store_vec<V>(dfb + (size_t)row * D + d, out);
+        vml::store_vec<V>(dab + (size_t)row * D + d, da);
+        vml::store_vec<V>(dfs_b + (size_t)row * D + d, dsv);
     }
     __syncthreads();
     for (int m = warp; m < Nq; m += nwarps) {
-        float s = 0.f;
-        for (int d = lane; d < D; d += 32) s += darow[d] * to_f(fwe[(size_t)m * D + d]);
-        s = warp_sum(s);
-        if (lane == 0) dp[m] = s;
+        float sdot = 0.f;
+        for (int c = lane; c < cols; c += 32) {
+            float yv[V];
+            vml::load_vec<V>(fwe + (size_t)m * D + c * V, yv);
+#pragma unroll
+            for (int k = 0; k < V; ++k) sdot += darow[c * V + k] * yv[k];
+        }
+        sdot = warp_sum(sdot);
+        if (lane == 0) dp[m] = sdot;
     }
     __syncthreads();
-    if (tid == 0) {
+    if (warp == 0) {
         float dot = 0.f;
-        for (int m = 0; m < Nq; ++m) dot += p[m] * dp[m];
-        for (int m = 0; m < Nq; ++m) {
+        for (int m = lane; m < Nq; m += 32) dot += p[m] * dp[m];
+        dot = warp_sum(dot);
+        for (int m = lane; m < Nq; m += 32) {
+            const float ds = qm[m] > 0.f ? p[m] * (dp[m] - dot) * inv_sd : 0.f;
+            dp[m] = ds;
             pb[(size_t)row * Nq + m] = p[m];
-            dsb[(size_t)row * Nq + m] =
-                qmask[(size_t)b * Nq + m] > 0.f ? p[m] * (dp[m] - dot) * inv_sd : 0.f;
+            dsb[(size_t)row * Nq + m] = ds;
         }
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < cols; c += kBbThreads) {
+        float acc[V], y[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k) acc[k] = 0.f;
+#pragma unroll 4
+        for (int m = 0; m < Nq; ++m) {
+            vml::load_vec<V>(bke + (size_t)m * D + c * V, y);
+#pragma unroll
+            for (int k = 0; k < V; ++k) acc[k] += dp[m] * y[k];
+        }
+        vml::store_vec<V>(dbq + (size_t)row * D + c * V, acc);
     }
 }
 
-// grid B * (L + Nq): block (b, i < L) writes dbq[i] = sum_m ds[i, m] bk[m];
-// block (b, L + m) writes dbk[m] = sum_i ds[i, m] bq[i] and the value-path
-// share of dfw[m] = sum_i p[i, m] da[i]. T: the type of bq, bk, dbq and dbk
-// (the operands of the next products; dfw is fp32).
-template <typename T>
-__global__ void boundary_proj_bwd_kernel(int L, int Nq, int D, const float* __restrict__ dsb,
-                                         const float* __restrict__ pb,
-                                         const float* __restrict__ dab,
-                                         const T* __restrict__ bq,
-                                         const T* __restrict__ bk,
-                                         T* __restrict__ dbq, T* __restrict__ dbk,
-                                         float* __restrict__ dfw) {
-    const int b = blockIdx.x / (L + Nq);
-    const int r = blockIdx.x % (L + Nq);
-    for (int d = threadIdx.x; d < D; d += blockDim.x) {
-        if (r < L) {
-            float s = 0.f;
-            for (int m = 0; m < Nq; ++m)
-                s += dsb[((size_t)b * L + r) * Nq + m] * to_f(bk[((size_t)b * Nq + m) * D + d]);
-            dbq[((size_t)b * L + r) * D + d] = from_f<T>(s);
-        } else {
-            const int m = r - L;
-            float s1 = 0.f, s2 = 0.f;
-            for (int i = 0; i < L; ++i) {
-                const size_t row = (size_t)b * L + i;
-                s1 += dsb[row * Nq + m] * to_f(bq[row * D + d]);
-                s2 += pb[row * Nq + m] * dab[row * D + d];
-            }
-            dbk[((size_t)b * Nq + m) * D + d] = from_f<T>(s1);
-            dfw[((size_t)b * Nq + m) * D + d] = s2;
-        }
-    }
-}
-
-// The gate's backward over an element's pairs, split along the pairs so
-// that the card fills (`gate_bwd_splits`): block (column block, split) of
-// element b gives a thread V consecutive columns d (16-byte loads when V is
-// 4) and the pairs [n_begin, n_end) of its split, in order:
-//   dfbar[n] = A[i_n, j_n] * G[i_n] + sum_c dcut[n, c]
-//   dfm[n]   = dmu[n] + dfbar[n] * (s + z * s * (1 - s)),  z = fm * fs,
-//                                                          s = sigmoid(z)
-// and writes its split's share of dfs, sum_n dfbar[n] * fm[n]^2 * s * (1 -
-// s), to part[split, b]; gate_dfs_kernel adds the splits in order. T: the
-// type of fm, fs, dmu, dcut and dfm; at bf16 dfbar (the gradient of the
-// stored fbar) is rounded to bf16 before it is used.
-constexpr int kGateThreads = 128;
-constexpr int kGateMaxSplits = 32;
-
+// boundary_proj_bwd_kernel, grid B * Nq, block (b, m): dbk[m] = sum_i ds[i,
+// m] bq[i] and the value path's dfw[m] = sum_i p[i, m] da[i] (fp32), rows in
+// order.
 template <int V, typename T>
-__global__ void __launch_bounds__(kGateThreads) gate_bwd_kernel(
-    int L, int C, int D, int splits, const T* __restrict__ fm, const T* __restrict__ fs,
-    const T* __restrict__ dmu, const T* __restrict__ dcut, const float* __restrict__ Ab,
-    const float* __restrict__ G, T* __restrict__ dfm, float* __restrict__ part) {
-    const int N = L * (L + 1) / 2;
-    const int cols = D / V;
-    const int col_blocks = (cols + kGateThreads - 1) / kGateThreads;
-    const int b = blockIdx.y;
-    const int split = blockIdx.x / col_blocks;
-    const int col = (blockIdx.x - split * col_blocks) * kGateThreads + threadIdx.x;
-    if (col >= cols) return;
-    const int d = col * V;
-    const int per = (N + splits - 1) / splits;
-    const int n_begin = split * per;
-    const int n_end = min(N, n_begin + per);
-    float fsv[V], acc[V];
-    vml::load_vec<V>(fs + (size_t)b * D + d, fsv);
+__global__ void __launch_bounds__(kBbThreads) boundary_proj_bwd_kernel(
+    int L, int Nq, int D, const float* __restrict__ dsb, const float* __restrict__ pb,
+    const float* __restrict__ dab, const T* __restrict__ bq, T* __restrict__ dbk,
+    float* __restrict__ dfw) {
+    const int b = blockIdx.x / Nq;
+    const int m = blockIdx.x % Nq;
+    for (int c = threadIdx.x; c < D / V; c += kBbThreads) {
+        const int d = c * V;
+        float s1[V], s2[V];
 #pragma unroll
-    for (int k = 0; k < V; ++k) acc[k] = 0.f;
-    if (n_begin < n_end) {
-        int i, j;
-        vml::pair_of(n_begin, L, i, j);
-        float g[V];
-        vml::load_vec<V>(G + ((size_t)b * L + i) * D + d, g);
-        for (int n = n_begin; n < n_end; ++n) {
-            const size_t pn = (size_t)b * N + n;
-            const float a = Ab[((size_t)b * L + i) * L + j];
-            float dfbar[V], x[V], dm[V], out[V];
-#pragma unroll
-            for (int k = 0; k < V; ++k) dfbar[k] = a * g[k];
-            for (int c = 0; c < C; ++c) {
-                float t[V];
-                vml::load_vec<V>(dcut + (pn * C + c) * D + d, t);
-#pragma unroll
-                for (int k = 0; k < V; ++k) dfbar[k] += t[k];
-            }
-            vml::load_vec<V>(fm + pn * D + d, x);
-            vml::load_vec<V>(dmu + pn * D + d, dm);
+        for (int k = 0; k < V; ++k) s1[k] = s2[k] = 0.f;
+#pragma unroll 4
+        for (int i = 0; i < L; ++i) {
+            const size_t r = (size_t)b * L + i;
+            const float w1 = dsb[r * Nq + m], w2 = pb[r * Nq + m];
+            float x[V], y[V];
+            vml::load_vec<V>(bq + r * D + d, x);
+            vml::load_vec<V>(dab + r * D + d, y);
 #pragma unroll
             for (int k = 0; k < V; ++k) {
-                dfbar[k] = stored<T>(dfbar[k]);
-                const float z = x[k] * fsv[k];
-                const float sg = vml::sigmoidf_(z);
-                const float t = sg * (1.f - sg);
-                out[k] = dm[k] + dfbar[k] * (sg + z * t);
-                acc[k] += dfbar[k] * x[k] * x[k] * t;
-            }
-            vml::store_vec<V>(dfm + pn * D + d, out);
-            if (++j == L && n + 1 < n_end) {
-                ++i;
-                j = i;
-                vml::load_vec<V>(G + ((size_t)b * L + i) * D + d, g);
+                s1[k] += w1 * x[k];
+                s2[k] += w2 * y[k];
             }
         }
+        vml::store_vec<V>(dbk + ((size_t)b * Nq + m) * D + d, s1);
+        vml::store_vec<V>(dfw + ((size_t)b * Nq + m) * D + d, s2);
     }
-    vml::store_vec<V>(part + ((size_t)split * gridDim.y + b) * D + d, acc);
 }
 
-// dfs[b, d] = sum over the splits, in order, of part[split, b, d] + sum_i
-// dfs_b[b, i, d] (the s_hat path of dfs is added by the caller's GEMM).
-__global__ void gate_dfs_kernel(int B, int L, int D, int splits, const float* __restrict__ part,
-                                const float* __restrict__ dfs_b, float* __restrict__ dfs) {
-    const size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
-    if (e >= (size_t)B * D) return;
-    const size_t b = e / D;
-    const int d = (int)(e % D);
-    float acc = 0.f;
-    for (int k = 0; k < splits; ++k) acc += part[(size_t)k * B * D + e];
-    for (int i = 0; i < L; ++i) acc += dfs_b[(b * L + i) * D + d];
-    dfs[e] = acc;
+size_t boundary_attn_bwd_smem_bytes(int L, int D) {
+    return sizeof(float) * ((size_t)D + 2 * L);
 }
-
-// Splits of an element's pairs for gate_bwd_kernel: about four blocks per SM
-// in all, at most kGateMaxSplits, at most N.
-int gate_bwd_splits(int B, int N, int cols) {
-    const long long col_blocks = (cols + kGateThreads - 1) / kGateThreads;
-    long long splits = (4LL * 132 + B * col_blocks - 1) / (B * col_blocks);
-    splits = splits < 1 ? 1 : (splits > kGateMaxSplits ? kGateMaxSplits : splits);
-    return (int)(splits > N ? N : splits);
+size_t boundary_query_bwd_smem_bytes(int L, int Nq, int D) {
+    return sizeof(float) * ((size_t)2 * Nq + (size_t)2 * L + D);
 }
 
 // The backward's buffers beyond the recomputed layer's own intermediates,
@@ -449,7 +446,7 @@ constexpr int kBackwardSlots = 17;
 
 size_t max_partial_floats(int B, int L, int C, int Nq, int D, int dl) {
     const int N = L * (L + 1) / 2;
-    const int shapes[][3] = {{D, D, B * N}, {D, D, B * L}, {D, D, B * Nq}};
+    const int shapes[][3] = {{D, 2 * D, B * N}, {D, D, B * L}, {D, D, B * Nq}};
     size_t most = vml::content_partial_floats(B, N, C, Nq, D, dl);
     for (const auto& s : shapes) {
         const size_t f = vml::gemm_tn_partial_floats(s[0], s[1], s[2]);
@@ -474,7 +471,7 @@ size_t carve(unsigned char* ws, int B, int L, int C, int Nq, int D, int dl, bool
         t * BL * D, t * B * N * D, t * B * N * D, t * BL * D, t * BQ * D,   // bu dx1 dx2 dbq dbk
         f * BL * D, f * BL * L, f * BL * L, f * BL * Nq, f * BL * Nq,       // G Ab dSb pb dsb
         f * BL * D, f * BL * D,                                             // dab dfs_b
-        f * kGateMaxSplits * B * D,                                         // gate_part
+        f * vml::gate_part_floats(B, D),                                    // gate_part
         f * max_partial_floats(B, L, C, Nq, D, dl),                         // partial
         f32 ? 0 : f * BL * D, f32 ? 0 : f * BQ * D, f32 ? 0 : f * B * D,    // dfb32 dfw32 dfs32
     };
@@ -486,10 +483,6 @@ size_t carve(unsigned char* ws, int B, int L, int C, int Nq, int D, int dl, bool
                         &w->gate_part, &w->partial, &w->dfb32, &w->dfw32, &w->dfs32};
     for (int k = 0; k < 12; ++k) *full[k] = static_cast<float*>(slots[5 + k]);
     return off;
-}
-
-size_t boundary_query_bwd_smem_bytes(int L, int Nq, int D) {
-    return sizeof(float) * ((size_t)2 * Nq + (size_t)2 * L + D);
 }
 
 // K3 in the layer's element type T (fp32, or bf16 for K3-bf16): recompute
@@ -508,7 +501,6 @@ int layer_backward(cudaStream_t st, int B, int L, int C, int Nq, int D, int dl, 
                    const T* dmu, const T* dbu, unsigned char* ws, T* dfc, T* dfm, T* dfb,
                    T* dfw, T* dfs, float* const* dw) {
     const int N = L * (L + 1) / 2;
-    const int NC = N * C;
     vml::LayerScratchT<T> s;
     BackwardScratchT<T> w;
     carve(ws, B, L, C, Nq, D, dl, true, &s, &w);
@@ -532,19 +524,13 @@ int layer_backward(cudaStream_t st, int B, int L, int C, int Nq, int D, int dl, 
     ep.rmask = vmask;
     vml::product_nn2(st, B * N, D, D, dmu, D, W(16), W(18), D, w.dx1, w.dx2, D, ep);
     VML_CHECK();
-    // x1 and x2 are the two halves of the forward's [x1 | x2] (B * N, 2D).
-    vml::product_tn(st, D, D, B * N, dmu, D, vmask, 1, s.x12, 2 * D, w.partial, dw[16], dw[17]);
+    // x1 and x2 are the two halves of the forward's [x1 | x2] (B * N, 2D):
+    // one product over both gives dW_fb and dW_fc, and the two biases'
+    // gradients (both the column sums of dmu * vm).
+    vml::product_tn2(st, D, 2 * D, B * N, dmu, D, vmask, 1, s.x12, 2 * D, D, w.partial, dw[16],
+                     dw[18], dw[17], dw[19]);
     VML_CHECK();
-    vml::product_tn(st, D, D, B * N, dmu, D, vmask, 1, s.x12 + D, 2 * D, w.partial, dw[18]);
-    VML_CHECK();
-    if ((err = cudaMemcpyAsync(dw[19], dw[17], sizeof(float) * D, cudaMemcpyDeviceToDevice,
-                               st)) != cudaSuccess)
-        return (int)err;
-    moment_bwd_kernel<T><<<B * L, 128, 0, st>>>(L, D, dbu, w.dx1, w.bu, w.G);
-    VML_CHECK();
-    const size_t ncd = (size_t)B * NC * D;
-    const int dcu_blocks = (int)((ncd + 255) / 256 < 8192 ? (ncd + 255) / 256 : 8192);
-    vml::dcu_total_kernel<T><<<dcu_blocks, 256, 0, st>>>(ncd, C, D, dcu, w.dx2, dfc);
+    vml::launch_dcut<T>(st, B * N, C, D, dcu, w.dx2, dfc, nullptr);
     VML_CHECK();
 
     // ContentUnit. dfc holds dcut from here to the last product.
@@ -552,17 +538,30 @@ int layer_backward(cudaStream_t st, int B, int L, int C, int Nq, int D, int dl, 
                                 w.partial, dfc, dw);
     if (err != cudaSuccess) return (int)err;
 
-    // BoundaryUnit: dfb32 and dfw32 gather their shares in fp32.
-    boundary_attn_bwd_kernel<T><<<B * L, 128, 2 * L * sizeof(float), st>>>(
-        L, D, s.fbq, fb, s.fbar, lmask, w.G, w.Ab, w.dSb);
-    VML_CHECK();
-    boundary_query_bwd_kernel<T><<<B * L, 128, boundary_query_bwd_smem_bytes(L, Nq, D), st>>>(
-        L, Nq, D, s.bq, s.bk, fw, fb, fs, s.fbq, qmask, lmask, w.G, w.Ab, w.dSb, dfb32, w.dab,
-        w.dfs_b, w.pb, w.dsb);
-    VML_CHECK();
-    boundary_proj_bwd_kernel<T><<<B * (L + Nq), 128, 0, st>>>(
-        L, Nq, D, w.dsb, w.pb, w.dab, s.bq, s.bk, w.dbq, w.dbk, dfw32);
-    VML_CHECK();
+    // The moment unit's G and the BoundaryUnit: dfb32 and dfw32 gather their
+    // shares in fp32.
+    {
+        // Four columns a thread: a block's 128 threads then cover D = 512.
+        constexpr int V = 4;
+        const void* rows[] = {dbu,  w.dx1, w.bu,  s.fbq,   fb,      s.fbar, s.bq,  s.bk, fw,
+                              fs,   w.G,   dfb32, w.dab,   w.dfs_b, w.dbq,  w.dbk, dfw32};
+        bool vec = D % V == 0;
+        for (const void* q : rows) vec = vec && vml::aligned16(q);
+        const size_t a_smem = boundary_attn_bwd_smem_bytes(L, D);
+        const size_t q_smem = boundary_query_bwd_smem_bytes(L, Nq, D);
+        auto attn = vec ? boundary_attn_bwd_kernel<V, T> : boundary_attn_bwd_kernel<1, T>;
+        auto query = vec ? boundary_query_bwd_kernel<V, T> : boundary_query_bwd_kernel<1, T>;
+        auto proj = vec ? boundary_proj_bwd_kernel<V, T> : boundary_proj_bwd_kernel<1, T>;
+        attn<<<B * L, kBbThreads, a_smem, st>>>(L, D, dbu, w.dx1, w.bu, s.fbq, fb, s.fbar, lmask,
+                                                 w.G, w.Ab, w.dSb);
+        VML_CHECK();
+        query<<<B * L, kBbThreads, q_smem, st>>>(L, Nq, D, s.bq, s.bk, fw, fb, fs, s.fbq, qmask,
+                                                  lmask, w.G, w.Ab, w.dSb, dfb32, w.dab, w.dfs_b,
+                                                  w.pb, w.dsb, w.dbq);
+        VML_CHECK();
+        proj<<<B * Nq, kBbThreads, 0, st>>>(L, Nq, D, w.dsb, w.pb, w.dab, s.bq, w.dbk, dfw32);
+        VML_CHECK();
+    }
     ep = vml::EpilogueOf<T>();
     vml::add_f32(ep, dfb32, D);
     vml::product_nn(st, B * L, D, D, w.dbq, D, W(12), D, dfb, D, ep);
@@ -577,25 +576,11 @@ int layer_backward(cudaStream_t st, int B, int L, int C, int Nq, int D, int dl, 
 
     // Gate (reads dcut from dfc), then the content unit's shares of dfw and
     // dfs, and dfc = dcut + dh_t Wch.
-    {
-        const bool vec = vml::rows_vec4(D, {fm, fs, dmu, dfc, dfm}, 4 * sizeof(T));
-        const int cols = vec ? D / 4 : D;
-        const int splits = gate_bwd_splits(B, N, cols);
-        const dim3 grid(splits * ((cols + kGateThreads - 1) / kGateThreads), B);
-        if (vec)
-            gate_bwd_kernel<4, T><<<grid, kGateThreads, 0, st>>>(
-                L, C, D, splits, fm, fs, dmu, dfc, w.Ab, w.G, dfm, w.gate_part);
-        else
-            gate_bwd_kernel<1, T><<<grid, kGateThreads, 0, st>>>(
-                L, C, D, splits, fm, fs, dmu, dfc, w.Ab, w.G, dfm, w.gate_part);
-        VML_CHECK();
-        const size_t bd = (size_t)B * D;
-        gate_dfs_kernel<<<(unsigned)((bd + 255) / 256), 256, 0, st>>>(B, L, D, splits,
-                                                                       w.gate_part, w.dfs_b,
-                                                                       dfs32);
-        VML_CHECK();
-    }
-    err = vml::content_input_grads(st, B, N, C, Nq, D, dl, p, w.c, dfw32, dfs32, dfc, dfw, dfs);
+    err = vml::gate_backward<true>(st, B, N, L, C, D, fm, fs, dmu, dfc, w.Ab, w.G, w.dfs_b, dfm,
+                                   w.gate_part, dfs32);
+    if (err != cudaSuccess) return (int)err;
+    err = vml::content_input_grads(st, B, N, C, Nq, D, dl, p, w.c, dfw32, dfs32, dfc, dfc, dfw,
+                                   dfs);
 #undef VML_CHECK
     return (int)err;
 }
@@ -646,6 +631,7 @@ size_t vml_smi_layer_workspace_floats(int B, int L, int C, int Nq, int D, int dl
 size_t vml_smi_layer_smem_bytes(int L, int C, int Nq, int D, int dl) {
     size_t most = vml::layer_forward_smem_bytes(L, C, Nq, dl);
     const size_t others[] = {vml::content_attn_smem_bytes(L * (L + 1) / 2, C, Nq, dl, true),
+                             boundary_attn_bwd_smem_bytes(L, D),
                              boundary_query_bwd_smem_bytes(L, Nq, D)};
     for (size_t o : others)
         if (o > most) most = o;

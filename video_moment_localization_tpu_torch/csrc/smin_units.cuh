@@ -66,20 +66,29 @@ inline int row_walk_blocks(long long rows, int cols) {
     const long long blocks = (rows + per - 1) / per;
     return (int)(blocks < 8192 ? blocks : 8192);
 }
-// V = 4 when every row of every operand starts aligned to 4 elements
-// (`align` bytes: 16 for fp32, 8 for bf16).
-inline bool rows_vec4(int D, std::initializer_list<const void*> ptrs, int align = 16) {
-    if (D % 4) return false;
+// Whether rows of D elements take V-wide accesses: D a multiple of V and
+// every operand's start aligned to `align` bytes (V elements).
+inline bool rows_vec(int D, int V, std::initializer_list<const void*> ptrs, int align) {
+    if (D % V) return false;
     for (const void* p : ptrs)
         if (p && reinterpret_cast<uintptr_t>(p) % align) return false;
     return true;
 }
+// V = 4 when every row of every operand starts aligned to 4 elements
+// (`align` bytes: 16 for fp32, 8 for bf16).
+inline bool rows_vec4(int D, std::initializer_list<const void*> ptrs, int align = 16) {
+    return rows_vec(D, 4, ptrs, align);
+}
 
+// V consecutive values of a row: 16-byte accesses when V is a multiple of 4.
 template <int V>
 __device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&v)[V]) {
-    if constexpr (V == 4) {
-        const float4 t = *reinterpret_cast<const float4*>(p);
-        v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    if constexpr (V % 4 == 0) {
+#pragma unroll
+        for (int k = 0; k < V; k += 4) {
+            const float4 t = *reinterpret_cast<const float4*>(p + k);
+            v[k] = t.x; v[k + 1] = t.y; v[k + 2] = t.z; v[k + 3] = t.w;
+        }
     } else {
 #pragma unroll
         for (int k = 0; k < V; ++k) v[k] = p[k];
@@ -87,22 +96,34 @@ __device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&v)
 }
 template <int V>
 __device__ __forceinline__ void store_vec(float* __restrict__ p, const float (&v)[V]) {
-    if constexpr (V == 4) {
-        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    if constexpr (V % 4 == 0) {
+#pragma unroll
+        for (int k = 0; k < V; k += 4)
+            *reinterpret_cast<float4*>(p + k) = make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
     } else {
 #pragma unroll
         for (int k = 0; k < V; ++k) p[k] = v[k];
     }
 }
-// The same for bf16 rows (8-byte accesses when V is 4), converted to and
-// from fp32.
+// The same for bf16 rows (8-byte accesses when V is 4, 16-byte when 8),
+// converted to and from fp32.
 template <int V>
 __device__ __forceinline__ void load_vec(const bf16* __restrict__ p, float (&v)[V]) {
-    if constexpr (V == 4) {
-        const uint2 u = *reinterpret_cast<const uint2*>(p);
-        const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-        const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-        v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+    if constexpr (V == 4 || V == 8) {
+        unsigned u[V / 2];
+        if constexpr (V == 4) {
+            const uint2 t = *reinterpret_cast<const uint2*>(p);
+            u[0] = t.x; u[1] = t.y;
+        } else {
+            const uint4 t = *reinterpret_cast<const uint4*>(p);
+            u[0] = t.x; u[1] = t.y; u[2] = t.z; u[3] = t.w;
+        }
+#pragma unroll
+        for (int k = 0; k < V / 2; ++k) {
+            const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[k]));
+            v[2 * k] = f.x;
+            v[2 * k + 1] = f.y;
+        }
     } else {
 #pragma unroll
         for (int k = 0; k < V; ++k) v[k] = __bfloat162float(p[k]);
@@ -110,13 +131,17 @@ __device__ __forceinline__ void load_vec(const bf16* __restrict__ p, float (&v)[
 }
 template <int V>
 __device__ __forceinline__ void store_vec(bf16* __restrict__ p, const float (&v)[V]) {
-    if constexpr (V == 4) {
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-        uint2 u;
-        u.x = *reinterpret_cast<const unsigned*>(&lo);
-        u.y = *reinterpret_cast<const unsigned*>(&hi);
-        *reinterpret_cast<uint2*>(p) = u;
+    if constexpr (V == 4 || V == 8) {
+        unsigned u[V / 2];
+#pragma unroll
+        for (int k = 0; k < V / 2; ++k) {
+            const __nv_bfloat162 t = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+            u[k] = *reinterpret_cast<const unsigned*>(&t);
+        }
+        if constexpr (V == 4)
+            *reinterpret_cast<uint2*>(p) = make_uint2(u[0], u[1]);
+        else
+            *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
     } else {
 #pragma unroll
         for (int k = 0; k < V; ++k) p[k] = __float2bfloat16(v[k]);
@@ -164,28 +189,45 @@ inline void launch_gate(cudaStream_t st, int B, int N, int D, const T* fm, const
 
 // The boundary unit between its projections, in two kernels of one block
 // per (element, snippet row i). bq (B*L, D) = attn_q(fb), bk (B*Nq, D) =
-// attn_k(fw); fw (B, Nq, D), fb (B, L, D), fs (B, D), fbar (B, N, D).
+// attn_k(fw); fw (B, Nq, D), fb (B, L, D), fs (B, D), fbar (B, N, D). A
+// row's dot products run a warp each (a lane every 32nd column) and its
+// softmax in one thread, in the order the serving stack's results are held
+// to; the sums over rows that make the outputs give a thread V consecutive
+// columns (16-byte loads of fp32 rows, 8-byte of bf16, when V is 4:
+// `launch_boundary`), each column summed in the same order.
 //
 // boundary_query_kernel: word attention of row i (-1e9 key mask), then
 // f_bq[i] = fb[i] * (f_baq[i] * lmask[i] + fs).
 // T: the element type of bq, bk, fw, fb, fs and fbq (fp32 math).
-template <typename T = float>
-static __global__ void boundary_query_kernel(int L, int Nq, int D, const T* __restrict__ bq,
-                                      const T* __restrict__ bk,
-                                      const T* __restrict__ fw,
-                                      const T* __restrict__ fb,
-                                      const T* __restrict__ fs,
-                                      const float* __restrict__ qmask,
-                                      const float* __restrict__ lmask,
-                                      T* __restrict__ fbq) {
+constexpr int kBoundaryThreads = 128;
+
+// The softmax of the n logits in p (shared), in place, by thread 0 in
+// order; the caller syncs before and after.
+__device__ __forceinline__ void serial_softmax(float* p, int n) {
+    if (threadIdx.x != 0) return;
+    float mx = p[0];
+    for (int k = 1; k < n; ++k) mx = fmaxf(mx, p[k]);
+    float sum = 0.f;
+    for (int k = 0; k < n; ++k) {
+        p[k] = expf(p[k] - mx);
+        sum += p[k];
+    }
+    for (int k = 0; k < n; ++k) p[k] /= sum;
+}
+
+template <int V, typename T = float>
+static __global__ void __launch_bounds__(kBoundaryThreads) boundary_query_kernel(
+    int L, int Nq, int D, const T* __restrict__ bq, const T* __restrict__ bk,
+    const T* __restrict__ fw, const T* __restrict__ fb, const T* __restrict__ fs,
+    const float* __restrict__ qmask, const float* __restrict__ lmask, T* __restrict__ fbq) {
     extern __shared__ float smem[];
     float* p = smem;                  // (Nq,): word attention of row i
     const int row = blockIdx.x;       // b * L + i
     const int b = row / L;
-    const int tid = threadIdx.x;
-    const int lane = tid % 32;
-    const int warp = tid / 32;
-    const int nwarps = blockDim.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int warp = threadIdx.x / 32;
+    constexpr int nwarps = kBoundaryThreads / 32;
+    const int cols = D / V;
     const float inv_sd = 1.f / sqrtf((float)D);
     const T* x = bq + (size_t)row * D;
 
@@ -197,24 +239,25 @@ static __global__ void boundary_query_kernel(int L, int Nq, int D, const T* __re
         if (lane == 0) p[m] = qmask[(size_t)b * Nq + m] > 0.f ? s * inv_sd : kNegInf;
     }
     __syncthreads();
-    if (tid == 0) {
-        float mx = p[0];
-        for (int m = 1; m < Nq; ++m) mx = fmaxf(mx, p[m]);
-        float sum = 0.f;
-        for (int m = 0; m < Nq; ++m) {
-            p[m] = expf(p[m] - mx);
-            sum += p[m];
-        }
-        for (int m = 0; m < Nq; ++m) p[m] /= sum;
-    }
+    serial_softmax(p, Nq);
     __syncthreads();
     const float lm = lmask[row];
     const T* fwe = fw + (size_t)b * Nq * D;
-    for (int d = tid; d < D; d += blockDim.x) {
-        float a = 0.f;
-        for (int m = 0; m < Nq; ++m) a += p[m] * to_f(fwe[(size_t)m * D + d]);
-        fbq[(size_t)row * D + d] = from_f<T>(to_f(fb[(size_t)row * D + d]) *
-                                             (a * lm + to_f(fs[(size_t)b * D + d])));
+    for (int c = threadIdx.x; c < cols; c += kBoundaryThreads) {
+        const int d = c * V;
+        float a[V], t[V], f[V], sv[V], out[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k) a[k] = 0.f;
+        for (int m = 0; m < Nq; ++m) {
+            load_vec<V>(fwe + (size_t)m * D + d, t);
+#pragma unroll
+            for (int k = 0; k < V; ++k) a[k] += p[m] * t[k];
+        }
+        load_vec<V>(fb + (size_t)row * D + d, f);
+        load_vec<V>(fs + (size_t)b * D + d, sv);
+#pragma unroll
+        for (int k = 0; k < V; ++k) out[k] = f[k] * (a[k] * lm + sv[k]);
+        store_vec<V>(fbq + (size_t)row * D + d, out);
     }
 }
 
@@ -223,22 +266,20 @@ static __global__ void boundary_query_kernel(int L, int Nq, int D, const T* __re
 // f_bb[i] = (A_b[i] @ fb) * lmask[i] and f_bm[i] = sum over pairs n = (i, j)
 // of A_b[i, j] * fbar[n].
 // T: the element type of fbq, fb, fbar and bu (fp32 math).
-template <typename T = float>
-static __global__ void boundary_unit_kernel(int L, int D, const T* __restrict__ fbq,
-                                     const T* __restrict__ fb,
-                                     const T* __restrict__ fbar,
-                                     const float* __restrict__ lmask,
-                                     T* __restrict__ bu) {
+template <int V, typename T = float>
+static __global__ void __launch_bounds__(kBoundaryThreads) boundary_unit_kernel(
+    int L, int D, const T* __restrict__ fbq, const T* __restrict__ fb,
+    const T* __restrict__ fbar, const float* __restrict__ lmask, T* __restrict__ bu) {
     extern __shared__ float smem[];
     float* a = smem;                  // (L,): A_b row i
     const int row = blockIdx.x;       // b * L + i
     const int b = row / L;
     const int i = row % L;
     const int N = L * (L + 1) / 2;
-    const int tid = threadIdx.x;
-    const int lane = tid % 32;
-    const int warp = tid / 32;
-    const int nwarps = blockDim.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int warp = threadIdx.x / 32;
+    constexpr int nwarps = kBoundaryThreads / 32;
+    const int cols = D / V;
     const float inv_sd = 1.f / sqrtf((float)D);
     const float* lm = lmask + (size_t)b * L;
     const T* x = fbq + (size_t)row * D;
@@ -251,25 +292,53 @@ static __global__ void boundary_unit_kernel(int L, int D, const T* __restrict__ 
         if (lane == 0) a[j] = lm[j] > 0.f ? s * inv_sd : kNegInf;
     }
     __syncthreads();
-    if (tid == 0) {
-        float mx = a[0];
-        for (int j = 1; j < L; ++j) mx = fmaxf(mx, a[j]);
-        float sum = 0.f;
-        for (int j = 0; j < L; ++j) {
-            a[j] = expf(a[j] - mx);
-            sum += a[j];
-        }
-        for (int j = 0; j < L; ++j) a[j] = a[j] / sum * lm[i];
-    }
+    serial_softmax(a, L);
     __syncthreads();
+    const float lmi = lm[i];
     const T* fbe = fb + (size_t)b * L * D;
     const T* fbar_i = fbar + ((size_t)b * N + pair_index(i, i, L)) * D;
-    for (int d = tid; d < D; d += blockDim.x) {
-        float bb = 0.f;
-        for (int j = 0; j < L; ++j) bb += a[j] * to_f(fbe[(size_t)j * D + d]);
-        float bm = 0.f;
-        for (int j = i; j < L; ++j) bm += a[j] * to_f(fbar_i[(size_t)(j - i) * D + d]);
-        bu[(size_t)row * D + d] = from_f<T>(bb * lm[i] + to_f(fbe[(size_t)i * D + d]) + bm);
+    for (int c = threadIdx.x; c < cols; c += kBoundaryThreads) {
+        const int d = c * V;
+        float bb[V], bm[V], t[V], out[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k) bb[k] = bm[k] = 0.f;
+        for (int j = 0; j < L; ++j) {
+            const float w = a[j] * lmi;
+            load_vec<V>(fbe + (size_t)j * D + d, t);
+#pragma unroll
+            for (int k = 0; k < V; ++k) bb[k] += w * t[k];
+        }
+        for (int j = i; j < L; ++j) {
+            const float w = a[j] * lmi;
+            load_vec<V>(fbar_i + (size_t)(j - i) * D + d, t);
+#pragma unroll
+            for (int k = 0; k < V; ++k) bm[k] += w * t[k];
+        }
+        load_vec<V>(fbe + (size_t)i * D + d, t);
+#pragma unroll
+        for (int k = 0; k < V; ++k) out[k] = bb[k] * lmi + t[k] + bm[k];
+        store_vec<V>(bu + (size_t)row * D + d, out);
+    }
+}
+
+// The boundary unit's two kernels, V = 4 where every row allows it.
+template <typename T>
+inline void launch_boundary(cudaStream_t st, int B, int L, int Nq, int D, const T* bq,
+                            const T* bk, const T* fw, const T* fb, const T* fs,
+                            const float* qmask, const float* lmask, T* fbq, const T* fbar,
+                            T* bu) {
+    const bool v4 = rows_vec4(D, {bq, bk, fw, fb, fs, fbq, fbar, bu}, 4 * (int)sizeof(T));
+    const size_t q_smem = Nq * sizeof(float), u_smem = L * sizeof(float);
+    if (v4) {
+        boundary_query_kernel<4, T><<<B * L, kBoundaryThreads, q_smem, st>>>(
+            L, Nq, D, bq, bk, fw, fb, fs, qmask, lmask, fbq);
+        boundary_unit_kernel<4, T><<<B * L, kBoundaryThreads, u_smem, st>>>(L, D, fbq, fb, fbar,
+                                                                           lmask, bu);
+    } else {
+        boundary_query_kernel<1, T><<<B * L, kBoundaryThreads, q_smem, st>>>(
+            L, Nq, D, bq, bk, fw, fb, fs, qmask, lmask, fbq);
+        boundary_unit_kernel<1, T><<<B * L, kBoundaryThreads, u_smem, st>>>(L, D, fbq, fb, fbar,
+                                                                           lmask, bu);
     }
 }
 
@@ -497,6 +566,23 @@ inline void product_tn(cudaStream_t st, int M, int N, int R, const bf16* A, int 
     gemm_tn_bf16(st, M, N, R, A, lda, ascale, adiv, B, ldb, partial, out, bias_out);
 }
 
+// Two weight gradients of one cotangent A whose inputs lie side by side in
+// B (R, N), one product_tn over all N columns: out (M, split) takes B's
+// first `split` columns, out2 (M, N - split) the rest; bias_out and
+// bias_out2 both the column sums of the scaled A.
+template <typename T>
+inline void product_tn2(cudaStream_t st, int M, int N, int R, const T* A, int lda,
+                        const float* ascale, int adiv, const T* B, int ldb, int split,
+                        float* partial, float* out, float* out2, float* bias_out,
+                        float* bias_out2) {
+    if constexpr (std::is_same<T, float>::value)
+        gemm_tn(st, M, N, R, A, lda, ascale, adiv, B, ldb, partial, out, bias_out, -1, split,
+                out2, bias_out2);
+    else
+        gemm_tn_bf16(st, M, N, R, A, lda, ascale, adiv, B, ldb, partial, out, bias_out, -1,
+                     split, out2, bias_out2);
+}
+
 // Adds the fp32 rows `acc` (M, ld) after the mask, or nothing when it is
 // null: Epilogue's post, EpilogueBf16's post32.
 inline void add_f32(Epilogue& ep, const float* acc, int ld) {
@@ -531,7 +617,9 @@ inline float* f32_sum(bf16* /*grad*/, float* scratch) { return scratch; }
 // unit's 12 device pointers, the first 12 of `layer_forward`'s order (the
 // matrices of type T, the biases fp32). The residual sum is fp32, rounded
 // once to T; with `residual_in_t` (K10) it is added in T, each term rounded,
-// as the JAX package's fused unit adds it.
+// as the JAX package's fused unit adds it. cu may be null (K10's backward
+// recompute, which reads only the intermediates): the c_out product is then
+// skipped.
 template <typename T, typename P>
 inline cudaError_t content_forward(cudaStream_t st, int B, int N, int C, int Nq, int D, int dl,
                                    const T* fc, const T* fbar, const T* fw, const T* fs,
@@ -560,7 +648,7 @@ inline cudaError_t content_forward(cudaStream_t st, int B, int N, int C, int Nq,
     VML_CHECK_LAUNCH();
     cudaError_t err = content_attn_forward(st, B, N, C, Nq, dl, s.h, s.q, s.khat, s.fwh, s.fsh,
                                            qmask, vmask, s.fcc);
-    if (err != cudaSuccess) return err;
+    if (err != cudaSuccess || !cu) return err;
     ep = EpilogueOf<T>();     // cu = c_out(f_cc_hat) * vmask + fc + fbar
     ep.bias = bias(7);
     ep.rmask = vmask;
@@ -611,11 +699,7 @@ inline cudaError_t layer_forward(cudaStream_t st, int B, int L, int C, int Nq, i
     VML_CHECK_LAUNCH();
     linear(st, B * Nq, D, D, fw, W(14), bias(15), s.bk);
     VML_CHECK_LAUNCH();
-    boundary_query_kernel<T><<<B * L, 128, Nq * sizeof(float), st>>>(
-        L, Nq, D, s.bq, s.bk, fw, fb, fs, qmask, lmask, s.fbq);
-    VML_CHECK_LAUNCH();
-    boundary_unit_kernel<T><<<B * L, 128, L * sizeof(float), st>>>(L, D, s.fbq, fb, s.fbar,
-                                                                   lmask, bu);
+    launch_boundary<T>(st, B, L, Nq, D, s.bq, s.bk, fw, fb, fs, qmask, lmask, s.fbq, s.fbar, bu);
     VML_CHECK_LAUNCH();
 
     // MomentUnit: mu = (conv_fb(outer) + conv_fc(mean_c cu)) * vmask + fm, one

@@ -20,11 +20,13 @@ card.
 
 The forward has a bf16 variant (K4, K2 at bf16): h, q, khat, fwh and fcc
 bf16, fsh and the masks fp32 (`content_attn_forward` on bf16 tensors; its
-plain version is `content_attn_plain_bf16`). The backward has one inside
-K3-bf16 (csrc/content_attn.cuh: dq, dkhat and dfsh bf16, dh and dfwh fp32),
-which this module does not call alone. Both convert the rows to fp32 as
-they stage them, so their shared memory, plans and arithmetic are the fp32
-kernels': `plan` is the plan of either type.
+plain version is `content_attn_plain_bf16`). It converts the rows to fp32
+as it stages them, so its plan is the fp32 forward's. The backward has one
+(K3-bf16, K7-bf16, K10-bf16; `content_attn_backward` on bf16 tensors: dq,
+dkhat and dfsh bf16, dh and dfwh fp32; plain version
+`content_attn_backward_plain_bf16`): it stages the rows as bf16 by
+cp.async (`bwd_layout`), so its plan (`plan(..., bf16=True)`) is the fp32
+backward's with about half the shared memory.
 """
 
 from __future__ import annotations
@@ -81,29 +83,71 @@ def chunk_threads(RP: int) -> int:
     return THREADS // (RP // 4)
 
 
-def plan(B: int, N: int, C: int, Nq: int, dl: int, backward: bool) -> Dict[str, int]:
+def fused_pairs(C: int, DG: int) -> bool:
+    """content_attn.cuh::ca_fused_pairs: a pair's clip attention in the
+    registers of its row group's lanes."""
+    return C == 4 and DG <= 32 and DG & (DG - 1) == 0
+
+
+def bwd_layout(pp: int, C: int, Nq: int, dl: int, bf16: bool) -> Dict[str, int]:
+    """content_attn.cuh::ca_bwd_layout: the backward's shared-memory arrays,
+    byte offsets (each 16-byte aligned; absent arrays at 0), ``DSS`` the
+    staged rows' stride in elements, ``fused`` and ``bytes``. fp32 rows:
+    `smem_floats`' arrays; bf16: khat, fwh, q, h, dfcc as bf16 rows of 4 dl4
+    + 8, and on the fused path neither g nor the clip arrays."""
+    s = shape(pp, C, Nq, dl)
+    fused = fused_pairs(C, chunk_threads(s["RP"]))
+    DSS = s["dl4"] * 4 + 8 if bf16 else s["DS"]
+    row, row32 = DSS * (2 if bf16 else 4), 4 * s["DS"]
+    every = not bf16 or not fused
+    sizes = [("K", s["NQ4"] * row), ("V", s["NQ4"] * row), ("fsh", row32),
+             ("qm", 4 * s["NQ4"]), ("vm", 4 * s["PP4"]), ("Q", s["RP"] * row),
+             ("H", s["RP"] * row), ("O", s["RP"] * row),
+             ("G", s["RP"] * row32 if every else None), ("U", s["RP"] * row32),
+             ("Pr", 4 * s["RP"] * s["NQ4"]), ("Dr", 4 * s["RP"] * s["NQ4"]),
+             ("As", 4 * s["RP"] * C if every else None),
+             ("dAs", 4 * s["RP"] * C if every else None),
+             ("Fw", 16 * s["NQ4"] * s["dl4"]), ("Fk", 16 * s["NQ4"] * s["dl4"])]
+    out, off = dict(DSS=DSS, fused=fused), 0
+    for name, size in sizes:
+        out[name] = 0 if size is None else off
+        off += 0 if size is None else _ceil(size, 16) * 16
+    out["bytes"] = off
+    return out
+
+
+def plan(B: int, N: int, C: int, Nq: int, dl: int, backward: bool,
+         bf16: bool = False) -> Dict[str, int]:
     """content_attn.cuh::content_attn_plan: pairs per pass ``pp``, passes
     per block, blocks (tiles) per element and a block's shared memory in
-    bytes (all 0: the shape is not taken), for fp32 or bf16 rows (the bf16
-    rows are staged in fp32)."""
+    bytes (all 0: the shape is not taken), for fp32 rows, the bf16 forward
+    (which stages fp32 rows) or, with ``bf16`` and ``backward``, the bf16
+    backward (the fp32 backward's plan with `bwd_layout`'s shared memory)."""
     none = dict(pp=0, passes=0, tiles=0, smem=0)
     if B < 1 or N < 1 or C < 1 or C > ROWS or Nq < 1 or Nq > 32 or dl < 1:
         return none
+    bf16_bwd = backward and bf16
     pp = ROWS // C
 
     def too_wide(pp):
         s = shape(pp, C, Nq, dl)
         return backward and s["dl4"] > 2 * chunk_threads(s["RP"])
 
+    def smem_of(pp):
+        if bf16_bwd:
+            return bwd_layout(pp, C, Nq, dl, True)["bytes"]
+        return 4 * smem_floats(pp, C, Nq, dl, backward)
+
     while pp > 1 and too_wide(pp):
         pp = (pp + 1) // 2
-    smem = 4 * smem_floats(pp, C, Nq, dl, backward)
+    smem = smem_of(pp)
     while smem > MAX_SMEM and pp > 1:
         pp = (pp + 1) // 2
-        smem = 4 * smem_floats(pp, C, Nq, dl, backward)
+        smem = smem_of(pp)
     if smem > MAX_SMEM or too_wide(pp):
         return none
-    per_sm = SMEM_PER_SM // (smem + RESERVED_PER_BLOCK)
+    # The bf16 backward's registers allow one block an SM.
+    per_sm = 1 if bf16_bwd else SMEM_PER_SM // (smem + RESERVED_PER_BLOCK)
     target = 4 * SMS * max(per_sm, 1)
     pass_tiles = _ceil(N, pp)
     passes = 1
@@ -113,9 +157,9 @@ def plan(B: int, N: int, C: int, Nq: int, dl: int, backward: bool) -> Dict[str, 
     return dict(pp=pp, passes=passes, tiles=_ceil(N, pp * passes), smem=smem)
 
 
-def partial_floats(B: int, N: int, C: int, Nq: int, dl: int) -> int:
+def partial_floats(B: int, N: int, C: int, Nq: int, dl: int, bf16: bool = False) -> int:
     """The backward's per-tile partials: B * tiles of (2 Nq dl + dl) floats."""
-    return B * plan(B, N, C, Nq, dl, True)["tiles"] * (2 * Nq * dl + dl)
+    return B * plan(B, N, C, Nq, dl, True, bf16)["tiles"] * (2 * Nq * dl + dl)
 
 
 def tile_bounds(p: Dict[str, int], N: int) -> List[List[Tuple[int, int]]]:
@@ -168,12 +212,26 @@ def unit_projections(unit, fc, fw, fs, query_mask, vmask):
 
 def content_attn_backward_plain(h, q, khat, fwh, fsh, query_mask, vmask, dfcc):
     """The plain version of the backward: the VJP of `content_attn_plain`.
-    Returns (dh, dq, dfwh, dkhat, dfsh)."""
+    Returns (dh, dq, dfwh, dkhat, dfsh); on bf16 rows
+    `content_attn_backward_plain_bf16`."""
+    if h.dtype == torch.bfloat16:
+        return content_attn_backward_plain_bf16(h, q, khat, fwh, fsh, query_mask, vmask, dfcc)
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in (h, q, khat, fwh, fsh)]
         out = content_attn_plain(*leaves, query_mask, vmask)
         dh, dq, dkhat, dfwh, dfsh = torch.autograd.grad(out, leaves, dfcc)
     return dh, dq, dfwh, dkhat, dfsh
+
+
+def content_attn_backward_plain_bf16(h, q, khat, fwh, fsh, query_mask, vmask, dfcc):
+    """The plain version of the bf16 backward: the fp32 VJP on the bf16
+    values, dq, dkhat and dfsh rounded once to bf16, dh and dfwh fp32 (the
+    kernel's types)."""
+    dh, dq, dfwh, dkhat, dfsh = content_attn_backward_plain(
+        h.float(), q.float(), khat.float(), fwh.float(), fsh.float(), query_mask, vmask,
+        dfcc.float())
+    bf = torch.bfloat16
+    return dh, dq.to(bf), dfwh, dkhat.to(bf), dfsh.to(bf)
 
 
 def _library() -> ctypes.CDLL:
@@ -182,27 +240,30 @@ def _library() -> ctypes.CDLL:
         fwd = getattr(lib, name)
         fwd.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8
         fwd.restype = ctypes.c_int
-    bwd = lib.vml_content_attn_bwd_f32
-    bwd.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 14
-    bwd.restype = ctypes.c_int
-    lib.vml_content_attn_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    for name in ("vml_content_attn_bwd_f32", "vml_content_attn_bwd_bf16"):
+        bwd = getattr(lib, name)
+        bwd.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 14
+        bwd.restype = ctypes.c_int
+    lib.vml_content_attn_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
     lib.vml_content_attn_plan.restype = None
-    lib.vml_content_attn_partial_floats.argtypes = [ctypes.c_int] * 5
+    lib.vml_content_attn_partial_floats.argtypes = [ctypes.c_int] * 6
     lib.vml_content_attn_partial_floats.restype = ctypes.c_size_t
     return lib
 
 
-def card_plan(B: int, N: int, C: int, Nq: int, dl: int, backward: bool) -> Dict[str, int]:
+def card_plan(B: int, N: int, C: int, Nq: int, dl: int, backward: bool,
+              bf16: bool = False) -> Dict[str, int]:
     """The C host code's plan, in `plan`'s form."""
     lib = _library()
     out = (ctypes.c_int * 3)()
     smem = ctypes.c_size_t()
-    lib.vml_content_attn_plan(B, N, C, Nq, dl, int(backward), out, ctypes.byref(smem))
+    lib.vml_content_attn_plan(B, N, C, Nq, dl, int(backward), int(bf16), out,
+                              ctypes.byref(smem))
     return dict(pp=out[0], passes=out[1], tiles=out[2], smem=smem.value)
 
 
-def card_partial_floats(B: int, N: int, C: int, Nq: int, dl: int) -> int:
-    return _library().vml_content_attn_partial_floats(B, N, C, Nq, dl)
+def card_partial_floats(B: int, N: int, C: int, Nq: int, dl: int, bf16: bool = False) -> int:
+    return _library().vml_content_attn_partial_floats(B, N, C, Nq, dl, int(bf16))
 
 
 def _check(fn: str, backward: bool, h, q, khat, fwh, fsh, query_mask, vmask, extra=()):
@@ -214,8 +275,10 @@ def _check(fn: str, backward: bool, h, q, khat, fwh, fsh, query_mask, vmask, ext
     B, N, C, dl = h.shape
     Nq = khat.shape[1]
     rows = [("h", h, (B, N, C, dl)), ("q", q, (B, N, C, dl)), ("khat", khat, (B, Nq, dl)),
-            ("fwh", fwh, (B, Nq, dl))]
-    if h.dtype == torch.bfloat16 and not backward:
+            ("fwh", fwh, (B, Nq, dl))] + [e for e in extra if e[0] == "dfcc"]
+    extra = [e for e in extra if e[0] != "dfcc"]
+    bf16 = h.dtype == torch.bfloat16
+    if bf16:
         for name, t, want in rows:
             if (tuple(t.shape) != want or t.dtype != torch.bfloat16 or t.device != h.device
                     or not t.is_contiguous()):
@@ -225,7 +288,7 @@ def _check(fn: str, backward: bool, h, q, khat, fwh, fsh, query_mask, vmask, ext
     check_tensors(fn, h.device, rows + [("fsh", fsh, (B, dl)),
                                         ("query_mask", query_mask, (B, Nq, 1)),
                                         ("vmask", vmask, (B, N))] + list(extra))
-    if not plan(B, N, C, Nq, dl, backward)["smem"]:
+    if not plan(B, N, C, Nq, dl, backward, bf16)["smem"]:
         raise ValueError(f"{fn}: C={C}, Nq={Nq}, dl={dl} are not taken by the kernel's plan")
     return B, N, C, Nq, dl
 
@@ -252,21 +315,27 @@ def content_attn_forward(h, q, khat, fwh, fsh, query_mask, vmask):
 
 def content_attn_backward(h, q, khat, fwh, fsh, query_mask, vmask, dfcc):
     """The pair's backward from dfcc: (dh, dq, dfwh, dkhat, dfsh), the paths
-    through the attention only (the projections' are their callers')."""
+    through the attention only (the projections' are their callers'). On
+    bf16 h, q, khat, fwh and dfcc the bf16 variant: dh and dfwh fp32, dq,
+    dkhat and dfsh bf16 (fsh and the masks fp32)."""
     if h.device.type == "cpu":
         return content_attn_backward_plain(h, q, khat, fwh, fsh, query_mask, vmask, dfcc)
     dims = _check("content_attn_backward", True, h, q, khat, fwh, fsh, query_mask, vmask,
                   [("dfcc", dfcc, tuple(h.shape))])
+    bf16 = h.dtype == torch.bfloat16
     lib = _library()
-    part = torch.empty(partial_floats(*dims), device=h.device, dtype=torch.float32)
-    dh, dq = torch.empty_like(h), torch.empty_like(h)
-    dfwh, dkhat, dfsh = torch.empty_like(fwh), torch.empty_like(khat), torch.empty_like(fsh)
+    part = torch.empty(partial_floats(*dims, bf16), device=h.device, dtype=torch.float32)
+    f32 = torch.float32
+    dh, dq = torch.empty_like(h, dtype=f32), torch.empty_like(h)
+    dfwh, dkhat = torch.empty_like(fwh, dtype=f32), torch.empty_like(khat)
+    dfsh = torch.empty_like(fsh, dtype=h.dtype)
+    entry = "vml_content_attn_bwd_bf16" if bf16 else "vml_content_attn_bwd_f32"
     with torch.cuda.device(h.device):
-        err = lib.vml_content_attn_bwd_f32(
+        err = getattr(lib, entry)(
             stream_of(h), *dims, ptr(h), ptr(q), ptr(khat), ptr(fwh), ptr(fsh),
             ptr(query_mask), ptr(vmask), ptr(dfcc), ptr(part), ptr(dh), ptr(dq), ptr(dfwh),
             ptr(dkhat), ptr(dfsh))
-    check(lib, "vml_content_attn_bwd_f32", err)
+    check(lib, entry, err)
     content_attn_backward.launches += 1
     return dh, dq, dfwh, dkhat, dfsh
 

@@ -37,6 +37,7 @@ counts it.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -64,6 +65,30 @@ from video_moment_localization_tpu_torch.ops.cuda_build import (
 from video_moment_localization_tpu_torch.ops.smin_train_cuda import layer_weights_for
 
 WEIGHTS = 12   # weight and bias of c_hat, w_hat, s_hat, c_out, attn W_q, W_k
+
+# The moment gate's backward (csrc/content_bwd.cuh `gate_bwd_kernel`, K10's
+# and K3's): blocks of GATE_THREADS threads, a thread per 4 columns (per
+# column where D or a pointer does not allow 16-byte rows), an element's
+# pairs cut into `gate_bwd_splits` contiguous ranges, about four blocks per
+# SM in all. Mirrors of the C code; change both together.
+GATE_THREADS = 128
+GATE_MAX_SPLITS = 32
+SMS = 132
+
+
+def gate_bwd_splits(B: int, N: int, cols: int) -> int:
+    """Splits of an element's N pairs for B elements of ``cols`` column
+    groups (`vml::gate_bwd_splits`)."""
+    col_blocks = -(-cols // GATE_THREADS)
+    splits = -(-4 * SMS // (B * col_blocks))
+    return min(max(splits, 1), GATE_MAX_SPLITS, N)
+
+
+def gate_bwd_ranges(N: int, splits: int):
+    """The [begin, end) pair range of each split, in the order its share of
+    dfs is added; a range may be empty."""
+    per = -(-N // splits)
+    return [(k * per, min(N, (k + 1) * per)) for k in range(splits)]
 
 
 def unit_weights(unit: ContentUnit):
@@ -113,9 +138,13 @@ def content_unit_backward_plain(weights, fc, fm, fw, fs, query_mask, vmask, dcu)
     return (*grads[:4], list(grads[4:]))
 
 
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    """K7's library (its workspace queries are K10's too) with K10's entries."""
+    """K7's library (its workspace queries are K10's too) with K10's entries,
+    their argument types set once."""
     lib = _rows_library()
+    lib.vml_gate_bwd_splits.argtypes = [ctypes.c_int] * 3
+    lib.vml_gate_bwd_splits.restype = ctypes.c_int
     pointers = ctypes.POINTER(ctypes.c_void_p)
     for suffix in ("f32", "bf16"):
         fwd = getattr(lib, f"vml_content_unit_fwd_{suffix}")
@@ -127,6 +156,11 @@ def _library() -> ctypes.CDLL:
                         + [pointers] + [ctypes.c_void_p] * 6 + [pointers])
         bwd.restype = ctypes.c_int
     return lib
+
+
+def card_gate_bwd_splits(B: int, N: int, cols: int) -> int:
+    """`gate_bwd_splits` as the library computes it (needs the CUDA build)."""
+    return _library().vml_gate_bwd_splits(B, N, cols)
 
 
 def _check(fn: str, weights, fc, fm, fw, fs, query_mask, vmask, cotangents=()):

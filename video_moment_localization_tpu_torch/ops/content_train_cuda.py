@@ -40,6 +40,7 @@ unit, conv_fb, the moment sum) in bf16, as the JAX stack does.
 from __future__ import annotations
 
 import ctypes
+import functools
 import types
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -146,7 +147,10 @@ def content_rows_backward_plain(weights, fc, fbar, fw, fs, query_mask, vmask, dc
     return (*grads[:4], list(grads[4:]))
 
 
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
+    """The K7 / K10 library with its entries' argument types, set once (the
+    wrappers call this on every launch)."""
     lib = load_library("content_train")
     lib.vml_content_rows_workspace_bytes.argtypes = [ctypes.c_int] * 8
     lib.vml_content_rows_workspace_bytes.restype = ctypes.c_size_t

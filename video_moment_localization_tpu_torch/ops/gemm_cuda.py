@@ -263,7 +263,7 @@ _EPILOGUES_BF16 = {
     "dW w_hat": (("colsum",), "fp32"), "dW s_hat": (("colsum",), "fp32"),
     "dW c_hat": (("colsum",), "fp32"),
     "dfw": (("post32",), "bf16"), "dfs": (("post32",), "bf16"), "dfc": (("post",), "bf16"),
-    "dx1 dx2": (("rmask",), "bf16"), "dW conv_fb": (("ascale", "colsum"), "fp32"),
+    "dx1 dx2": (("rmask",), "bf16"), "dW conv_fb + conv_fc": (("ascale", "colsum"), "fp32"),
     "dW conv_fc": (("ascale", "colsum"), "fp32"), "conv_fc dx2": (("rmask",), "bf16"),
     "dfb": (("post32",), "bf16"), "dfw bk": (("post32",), "fp32"),
     "dW bq": (("colsum",), "fp32"), "dW bk": (("colsum",), "fp32"),
@@ -272,16 +272,15 @@ _EPILOGUES_BF16 = {
 
 def epilogue_bf16(kernel: str, product: str) -> Tuple[Tuple[str, ...], str]:
     """(epilogue terms, output type) of a product of `model_gemm_shapes_bf16`:
-    K10's c_out adds its residuals in bf16 ("round_each"); K7 and K10 take
-    no other units' shares into dfw / dfs (K3 does: "post32"); K3's dW
-    conv_fc has no bias."""
+    K10's c_out adds its residuals in bf16 ("round_each"); K7 takes no other
+    units' shares into dfw / dfs and K10 only its gate's into dfs (K3 both:
+    "post32")."""
     terms, out = _EPILOGUES_BF16[product]
     if kernel.startswith("K10") and product == "c_out":
         terms += ("round_each",)
-    if not kernel.startswith("K3") and product in ("dfw", "dfs"):
+    if not kernel.startswith("K3") and product in ("dfw", "dfs") and not (
+            kernel.startswith("K10") and product == "dfs"):
         terms = ()
-    if kernel.startswith("K3") and product == "dW conv_fc":
-        terms = ("ascale",)
     return terms, out
 
 
@@ -292,7 +291,8 @@ def model_gemm_shapes(cfg, B: int) -> List[Tuple[str, str, str, int, int, int, i
     R rows it reduces). K4, K2, K3, K9 and K10 run on the packed map of L
     snippets; K7 on the same map as the content-unit route (ActivityNet).
     The moment unit is one product over [x1 | x2] (K = 2D) against [W_fb |
-    W_fc]; K9 runs K2's products once per layer."""
+    W_fc]; K3 reduces its two weights' gradients in one product over both
+    halves; K9 runs K2's products once per layer."""
     L, C, D, dl, Nq = cfg.L, cfg.C, cfg.D, cfg.dl, cfg.max_query_length
     H = cfg.lstm_hidden_size
     N = L * (L + 1) // 2
@@ -322,8 +322,9 @@ def model_gemm_shapes(cfg, B: int) -> List[Tuple[str, str, str, int, int, int, i
     shapes += layer_fwd("K4")
     shapes += layer_fwd("K2") + layer_fwd("K9")
     shapes += layer_fwd("K3", moment=False) + content_bwd("K3") + [
-        ("K3", "dx1 dx2", "nn", B * N, D, D, 2), ("K3", "dW conv_fb", "tn", D, D, B * N, 1),
-        ("K3", "dW conv_fc", "tn", D, D, B * N, 1), ("K3", "dfb", "nn", B * L, D, D, 1),
+        ("K3", "dx1 dx2", "nn", B * N, D, D, 2),
+        ("K3", "dW conv_fb + conv_fc", "tn", D, 2 * D, B * N, 1),
+        ("K3", "dfb", "nn", B * L, D, D, 1),
         ("K3", "dfw bk", "nn", B * Nq, D, D, 1), ("K3", "dW bq", "tn", D, D, B * L, 1),
         ("K3", "dW bk", "tn", D, D, B * Nq, 1)]
     shapes += content_fwd("K7f") + [("K7f", "conv_fc", "nt", B * N, D, D, 1)]
@@ -520,10 +521,12 @@ gemm.launches = 0
 def gemm_bf16_general_plain(layout: str, A, W, W1=None, ascale=None, adiv: int = 1, bias=None,
                             bias1=None, pre=None, rmask=None, mask_div: int = 1, post=None,
                             post32=None, post2=None, post2_div: int = 1, round_each: bool = False,
-                            out_dtype: torch.dtype = torch.bfloat16, bias_sums: bool = False):
+                            out_dtype: torch.dtype = torch.bfloat16, bias_sums: bool = False,
+                            split: int = 0):
     """The bf16 path's function in torch ops: the bf16 values multiplied in
     fp32. tn: the row-scaled A rounded to bf16 first, (A * ascale)^T W in
-    fp32, with the column sums of the scaled A when ``bias_sums``. nt / nn:
+    fp32, with the column sums of the scaled A when ``bias_sums``, its
+    columns cut in two at ``split`` when it is not 0. nt / nn:
     then bias, pre, the row mask, a bf16 rounding with ``round_each``, post,
     another, post32 and post2 in fp32, rounded once to ``out_dtype``; with
     W1 the second problem's output too (its own bias1, the other terms
@@ -534,6 +537,8 @@ def gemm_bf16_general_plain(layout: str, A, W, W1=None, ascale=None, adiv: int =
             A = (A * ascale[torch.arange(A.shape[0], device=A.device) // adiv][:, None]).to(
                 torch.bfloat16).float()
         out = A.t() @ W.to(torch.bfloat16).float()
+        if split:
+            out = (out[:, :split], out[:, split:])
         return (out, A.sum(dim=0)) if bias_sums else out
     rows = torch.arange(A.shape[0], device=A.device)
 
@@ -599,13 +604,15 @@ def gemm_bf16_general(layout: str, A, W, W1=None, ascale=None, adiv: int = 1, bi
                       bias1=None, pre=None, rmask=None, mask_div: int = 1, post=None, post32=None,
                       post2=None, post2_div: int = 1, round_each: bool = False,
                       out_dtype: torch.dtype = torch.bfloat16, bias_sums: bool = False,
-                      path: Optional[int] = None):
+                      path: Optional[int] = None, split: int = 0):
     """One launch of any form of a bf16 product: layout "nt" (A (M, K), W
     (N, K)) or "nn" (W (K, N)), over two problems sharing A when W1 is
     given (nt: bf16 outputs), with every epilogue term (bias, bias1, rmask
     and ascale fp32 vectors; pre, post32 fp32 and post, post2 bf16 matrices;
     ``round_each``), or "tn" (A (R, M), W (R, N) -> (M, N) fp32, with the
-    column sums of the scaled A when ``bias_sums``). Matrices may have any
+    column sums of the scaled A when ``bias_sums``; with ``split``, one
+    launch of two products of A side by side, returned as the (M, split) and
+    (M, N - split) outputs, as K3's moment weights take them). Matrices may have any
     row stride and alignment: TMA reads 16-byte-aligned ones with row
     strides of multiples of 8, and the plan sends the rest to the mma.sync
     kernel; ``path`` forces a kernel (BF16: mma.sync; BF16_WG: wgmma, which
@@ -615,7 +622,7 @@ def gemm_bf16_general(layout: str, A, W, W1=None, ascale=None, adiv: int = 1, bi
     if A.device.type == "cpu":
         return gemm_bf16_general_plain(layout, A, W, W1, ascale, adiv, bias, bias1, pre, rmask,
                                        mask_div, post, post32, post2, post2_div, round_each,
-                                       out_dtype, bias_sums)
+                                       out_dtype, bias_sums, split)
     if layout not in LAYOUTS:
         raise ValueError(f"gemm_bf16: unknown layout {layout!r}")
     if out_dtype not in (torch.bfloat16, torch.float32):
@@ -646,7 +653,11 @@ def gemm_bf16_general(layout: str, A, W, W1=None, ascale=None, adiv: int = 1, bi
                           ("post2", post2, -(-M // post2_div))):
         if t is not None and tuple(t.shape) != (rows, N):
             raise ValueError(f"gemm_bf16: {name} must be ({rows}, {N}), got {tuple(t.shape)}")
+    if split and (layout != "tn" or not 0 < split < N):
+        raise ValueError(f"gemm_bf16: split {split} needs the tn layout and 0 < split < {N}")
     outs = [torch.empty((M, N), device=dev, dtype=out_dtype) for _ in range(1 if W1 is None else 2)]
+    if split:
+        outs = [torch.empty((M, n), device=dev, dtype=out_dtype) for n in (split, N - split)]
     partial = colsum = None
     if layout == "tn":
         partial = torch.empty(tn_partial_floats(M, N, K), device=dev, dtype=torch.float32)
@@ -657,7 +668,7 @@ def gemm_bf16_general(layout: str, A, W, W1=None, ascale=None, adiv: int = 1, bi
     with torch.cuda.device(dev):
         err = lib.vml_gemm_bf16_general(
             stream_of(A), LAYOUTS[layout], M, N, K, ptr(A), lda, p(ascale), adiv, ptr(W),
-            p(W1), ldw, ptr(outs[0]), p(outs[1] if W1 is not None else None), N,
+            p(W1), ldw, ptr(outs[0]), p(outs[1] if len(outs) > 1 else None), split or N,
             int(out_dtype == torch.float32), p(bias), p(bias1), p(pre), _ld("pre", pre, dev),
             p(rmask), mask_div, p(post), _ld16("post", post, dev), p(post32),
             _ld("post32", post32, dev), p(post2), _ld16("post2", post2, dev), post2_div,
@@ -665,7 +676,8 @@ def gemm_bf16_general(layout: str, A, W, W1=None, ascale=None, adiv: int = 1, bi
     check(lib, "vml_gemm_bf16_general", err)
     gemm_bf16_general.launches += 1
     if layout == "tn":
-        return (outs[0], colsum) if bias_sums else outs[0]
+        out = tuple(outs) if split else outs[0]
+        return (out, colsum) if bias_sums else out
     return outs[0] if W1 is None else tuple(outs)
 
 

@@ -1,13 +1,15 @@
-"""Times of every bf16 product of K7-bf16 and K4-bf16 on a GPU, on both of
-the bf16 GEMM's kernels, back to back, beside one bf16 ``torch.matmul`` on
-the same operands.
+"""Times of every bf16 product of K7-bf16, K4-bf16, K3-bf16 and K10-bf16 on a
+GPU, on both of the bf16 GEMM's kernels, back to back, beside one bf16
+``torch.matmul`` on the same operands.
 
     python -m video_moment_localization_tpu_torch.utils.bench_gemm_bf16 \
-        [--launches 10] [--seed 0] [--quick] [--products c_hat,c_out]
+        [--launches 10] [--seed 0] [--quick] [--products c_hat,c_out] \
+        [--kernels K3-bf16,K10b-bf16]
 
 The products (`ops/gemm_cuda.py::model_gemm_shapes_bf16`) of K7-bf16 at the
-ActivityNet config, B=64 (forward and backward, conv_fc included), and of
-K4-bf16 at the Charades config, B=512 and B=16, each on its real epilogue
+ActivityNet config, B=64 (forward and backward, conv_fc included), of
+K4-bf16 at the Charades config, B=512 and B=16, and of K3-bf16 and K10-bf16
+(forward and backward) at the Charades config, B=64, each on its real epilogue
 (`gemm_cuda.epilogue_bf16`: bias, row mask with its divisor, pre, post,
 post32, post2, ``round_each``; bf16 or fp32 output; gemm_tn's row scale
 and column sums), with random bf16 operands from ``--seed``. Each product
@@ -15,6 +17,9 @@ runs through `gemm_cuda.gemm_bf16_general` on the wgmma kernel (BF16_WG)
 and the mma.sync kernel (BF16), ``--launches`` calls between two CUDA
 events, the median of 3, and once more as a single call timed on the host
 (the wrapper's Python and, on the wgmma kernel, the tensor maps' encoding);
+the wgmma kernel's device time a call from torch.profiler beside them (at
+small shapes the host's time per call, not the device's, sets the pace of
+calls back to back);
 ``torch.matmul`` of the same bf16 operands (one call, no epilogue) is the
 library yardstick. The bound: the larger of the bytes (operands read once,
 output and residuals moved once, at 3.35 TB/s) and the operations (at 989
@@ -43,7 +48,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CELLS = (("K7f-bf16", "activitynet", 64), ("K7b-bf16", "activitynet", 64),
-         ("K4-bf16", "charadessta", 512), ("K4-bf16", "charadessta", 16))
+         ("K4-bf16", "charadessta", 512), ("K4-bf16", "charadessta", 16),
+         ("K3-bf16", "charadessta", 64), ("K10f-bf16", "charadessta", 64),
+         ("K10b-bf16", "charadessta", 64))
 
 
 def card_line() -> str:
@@ -129,6 +136,23 @@ def back_to_back_ms(fn, launches: int, reps: int = 3) -> float:
     return statistics.median(out)
 
 
+def device_ms(fn, launches: int) -> float:
+    """The device time of one call, summed over every kernel it launches
+    (the product and, for tn, its reduction), from torch.profiler over
+    ``launches`` calls: at small shapes the host's time per call hides it
+    from `back_to_back_ms`."""
+    from video_moment_localization_tpu_torch.utils.profile_serving import device_rows
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ms for _, _, ms in device_rows(prof.key_averages())) / launches
+
+
 def host_us(fn, reps: int = 20) -> float:
     """Median host time of one call (its launch queued, not waited for)."""
     out = []
@@ -170,11 +194,13 @@ def library_call(layout, A, W, kw):
     return lambda: torch.matmul(A, Wt)
 
 
-def run(launches: int, seed: int, quick: bool, products=None):
+def run(launches: int, seed: int, quick: bool, products=None, kernels=None):
     device = torch.device("cuda")
     gen = torch.Generator(device=device).manual_seed(seed)
     rows, seen = [], set()
     for kernel, config, B in CELLS:
+        if kernels and kernel not in kernels:
+            continue
         cfg = load_config(os.path.join(REPO, "config", f"{config}.yml")).model
         for k, prod, layout, M, N, K, groups in gemm_cuda.model_gemm_shapes_bf16(cfg, B):
             if k != kernel or (quick and M * N * K < 1e9) or (products and prod not in products):
@@ -193,6 +219,7 @@ def run(launches: int, seed: int, quick: bool, products=None):
             lib = library_call(*args, kw)
             lib_ms = back_to_back_ms(lib, n)
             host = {p: host_us(fn) for p, fn in calls.items()}
+            dev = device_ms(calls[gemm_cuda.BF16_WG], n)
             flops = 2.0 * M * N * K * groups
             by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
             bound = max(by_bytes, by_ops)
@@ -203,6 +230,7 @@ def run(launches: int, seed: int, quick: bool, products=None):
                        out=gemm_cuda.epilogue_bf16(kernel, prod)[1],
                        path=gemm_cuda.path_for(layout, M, N, K, groups, torch.bfloat16),
                        wgmma_ms=wg, mma_sync_ms=mma, matmul_ms=lib_ms, bound_ms=bound,
+                       wgmma_device_ms=dev,
                        bound_by="bytes" if by_bytes >= by_ops else "operations",
                        bytes=nbytes, wgmma_share=bound / wg, mma_sync_share=bound / mma,
                        host_us_wgmma=host[gemm_cuda.BF16_WG],
@@ -212,7 +240,8 @@ def run(launches: int, seed: int, quick: bool, products=None):
                   f"({config} B={B}; {'+'.join(row['epilogue']) or 'no epilogue'} -> "
                   f"{row['out']}): wgmma {wg:.4f} ms ({row['wgmma_share'] * 100:.1f} % of the "
                   f"bound), mma.sync {mma:.4f} ({row['mma_sync_share'] * 100:.1f} %), "
-                  f"torch.matmul {lib_ms:.4f}, bound {bound:.4f} ({row['bound_by']}); host "
+                  f"torch.matmul {lib_ms:.4f}, bound {bound:.4f} ({row['bound_by']}); wgmma's "
+                  f"kernels {dev:.4f} ms of device time a call; host "
                   f"{row['host_us_wgmma']:.1f} / {row['host_us_mma_sync']:.1f} us a call",
                   flush=True)
             del args, kw, calls, lib
@@ -228,6 +257,8 @@ def main(argv=None) -> int:
                         help="only the products of at least 10^9 multiply-adds")
     parser.add_argument("--products", default="",
                         help="comma-separated product names to time (default: all)")
+    parser.add_argument("--kernels", default="",
+                        help="comma-separated cells of CELLS to time, by kernel (default: all)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_gemm_bf16: no CUDA device visible", file=sys.stderr)
@@ -235,7 +266,8 @@ def main(argv=None) -> int:
     card = card_line()
     print(card)
     rows = run(args.launches, args.seed, args.quick,
-               [p for p in args.products.split(",") if p] or None)
+               [p for p in args.products.split(",") if p] or None,
+               [k for k in args.kernels.split(",") if k] or None)
     print(json.dumps({"card": card, "products": rows}))
     return 0
 

@@ -20,6 +20,7 @@ import dataclasses
 import os
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -62,10 +63,35 @@ def device_rows(events):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def profile_and_report(fn, label: str, unit: str, iters: int, top: int = 16) -> float:
+def is_product(key: str) -> bool:
+    """Whether a kernel row is one of the shared GEMM's (csrc/gemm.cuh): its
+    product kernels and the fixed-order reduction of split-K partials."""
+    return "gemm" in key or "reduce_partials" in key
+
+
+def back_to_back_ms(fn, iters: int, reps: int = 3) -> float:
+    """The device's time per call of ``iters`` calls queued back to back
+    between two CUDA events, median of ``reps``."""
+    out = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / iters)
+    return sorted(out)[len(out) // 2]
+
+
+def profile_and_report(fn, label: str, unit: str, iters: int, top: int = 16,
+                       b2b_ms: Optional[float] = None) -> float:
     """Run ``fn`` ``iters`` times under torch.profiler and print the device
-    time per run of each kernel, its share, and the device's busy share;
-    returns the busy share."""
+    time per run of each kernel, its launches per run and share, the
+    device's busy share, and the GEMM's share (`is_product`). With
+    ``b2b_ms``, the time of one run queued back to back (`back_to_back_ms`),
+    also the part of it that no kernel covers (the gaps between dependent
+    launches). Returns the busy share."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -79,6 +105,16 @@ def profile_and_report(fn, label: str, unit: str, iters: int, top: int = 16) -> 
           f"{total / iters:.4f} ms/{unit}, busy share {total / wall_ms:.3f}")
     for key, count, ms in sorted(rows, key=lambda r: -r[2])[:top]:
         print(f"  {ms / iters:9.4f} ms  {ms / total:6.1%}  x{count // iters:<4d} {key[:90]}")
+    products = [r for r in rows if is_product(r[0])]
+    prod_ms = sum(r[2] for r in products) / iters
+    launches = sum(r[1] for r in rows) // iters
+    line = (f"  split: {launches} launches/{unit}, products {prod_ms:.4f} ms "
+            f"({sum(r[1] for r in products) // iters} launches), others "
+            f"{total / iters - prod_ms:.4f} ms")
+    if b2b_ms is not None:
+        line += (f"; back to back {b2b_ms:.4f} ms/{unit}, no kernel "
+                 f"{b2b_ms - total / iters:.4f} ms")
+    print(line)
     return total / wall_ms
 
 

@@ -3,7 +3,7 @@
     python -m video_moment_localization_tpu_torch.utils.profile_train \
         [--config config/charadessta.yml] [--batch 64] [--iters 5] [--seed 0] \
         [--packed false] [--compat] [--compute_dtype bfloat16] \
-        [--layer-forward | --layer-backward]
+        [--layer-forward | --layer-backward | --unit-backward]
 
 Builds the model of the config it is given (default: Charades,
 config/charadessta.yml; config/activitynet.yml takes the content-unit route;
@@ -18,8 +18,12 @@ share, the device's busy share of the window (summed kernel time over wall
 time) and the peak device memory of a step. ``--layer-forward`` profiles
 the SMI layer forward (K2) alone instead: the three launches of one step's
 forward; ``--layer-backward`` the SMI layer backward (K3) alone: the three
-launches of one step's backward (the top layer without a dcu cotangent).
-Both run on the carry that proposal pooling makes of random clip features
+launches of one step's backward (the top layer without a dcu cotangent);
+``--unit-backward`` the fused content unit of the compat mode (K10) alone:
+its forward's three launches, then its backward's three. Each of these
+three modes also prints the kernels' launches per call, the products'
+share, and the part of a call queued back to back that no kernel covers.
+They run on the carry that proposal pooling makes of random clip features
 with ragged lengths, the backward on random cotangents. Needs a CUDA device.
 """
 
@@ -38,7 +42,10 @@ from video_moment_localization_tpu_torch.config import ModelConfig, load_config
 from video_moment_localization_tpu_torch.data import labels
 from video_moment_localization_tpu_torch.models.smin import SMIN
 from video_moment_localization_tpu_torch.parallel.steps import build_optimizer, make_train_step
-from video_moment_localization_tpu_torch.utils.profile_serving import profile_and_report
+from video_moment_localization_tpu_torch.utils.profile_serving import (
+    back_to_back_ms,
+    profile_and_report,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -127,10 +134,7 @@ def profile_layer_backward(model: SMIN, cfg: ModelConfig, B: int, iters: int,
         for k, weights in enumerate(reversed(layers)):
             smi_layer_backward(weights, *ins, cfg.L, None if k == 0 else dcu, dmu, dbu)
 
-    for _ in range(2):
-        backward()
-    torch.cuda.synchronize()
-    profile_and_report(backward, f"K3 x{len(layers)} B={B}", "backward", iters, top=24)
+    report_alone(backward, f"K3 x{len(layers)} B={B}", "backward", iters)
 
 
 def profile_layer_forward(model: SMIN, cfg: ModelConfig, B: int, iters: int,
@@ -152,13 +156,49 @@ def profile_layer_forward(model: SMIN, cfg: ModelConfig, B: int, iters: int,
             for weights in layers:
                 smi_layer_forward(weights, *ins, cfg.L)
 
+    report_alone(forward, f"K2 x{len(layers)} B={B}", "forward", iters)
+
+
+def profile_unit_backward(model: SMIN, cfg: ModelConfig, B: int, iters: int,
+                          rng: np.random.Generator) -> None:
+    """K10 alone: one compat step's forward launches, one per layer, then its
+    backward launches, top layer first, on random cotangents dcu."""
+    from video_moment_localization_tpu_torch.ops.content_cuda import (
+        content_unit_backward,
+        content_unit_forward,
+        unit_weights,
+    )
+    from video_moment_localization_tpu_torch.ops.smin_train_cuda import layer_weights_for
+
+    model = model.cuda()
+    (fc, fm, _, fw, fs, qmask, _, vmask), (dcu, _, _) = layer_backward_inputs(cfg, B, rng)
+    units = [layer_weights_for([w.detach() for w in unit_weights(block.content_unit)],
+                               getattr(torch, cfg.compute_dtype)) for block in model.smis]
+
+    def forward():
+        for weights in units:
+            content_unit_forward(weights, fc, fm, fw, fs, qmask, vmask)
+
+    def backward():
+        for weights in reversed(units):
+            content_unit_backward(weights, fc, fm, fw, fs, qmask, vmask, dcu)
+
+    report_alone(forward, f"K10 forward x{len(units)} B={B}", "forward", iters)
+    report_alone(backward, f"K10 backward x{len(units)} B={B}", "backward", iters)
+
+
+def report_alone(fn, label: str, unit: str, iters: int) -> None:
+    """Warms ``fn`` up, times it back to back, then profiles it: every kernel
+    with its launches per call, the products' sum and the uncovered time."""
     for _ in range(2):
-        forward()
+        fn()
     torch.cuda.synchronize()
-    profile_and_report(forward, f"K2 x{len(layers)} B={B}", "forward", iters, top=24)
+    b2b = back_to_back_ms(fn, max(iters, 10))
+    profile_and_report(fn, label, unit, iters, top=64, b2b_ms=b2b)
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
+    """The command line; the three kernel modes exclude each other."""
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--config", default=os.path.join(REPO, "config", "charadessta.yml"))
     parser.add_argument("--batch", type=int, nargs="+", default=[64])
@@ -169,11 +209,18 @@ def main(argv=None) -> int:
     parser.add_argument("--compat", action="store_true",
                         help="the reference-compat mode: compat_head and fused_content")
     parser.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
-    parser.add_argument("--layer-forward", action="store_true",
-                        help="profile the SMI layer forward (K2) alone")
-    parser.add_argument("--layer-backward", action="store_true",
-                        help="profile the SMI layer backward (K3) alone")
-    args = parser.parse_args(argv)
+    alone = parser.add_mutually_exclusive_group()
+    alone.add_argument("--layer-forward", action="store_true",
+                       help="profile the SMI layer forward (K2) alone")
+    alone.add_argument("--layer-backward", action="store_true",
+                       help="profile the SMI layer backward (K3) alone")
+    alone.add_argument("--unit-backward", action="store_true",
+                       help="profile the fused content unit (K10) alone, forward and backward")
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device visible", file=sys.stderr)
         return 1
@@ -192,6 +239,9 @@ def main(argv=None) -> int:
             continue
         if args.layer_backward:
             profile_layer_backward(model, config.model, B, args.iters, rng)
+            continue
+        if args.unit_backward:
+            profile_unit_backward(model, config.model, B, args.iters, rng)
             continue
         step = make_train_step(config.model, model, build_optimizer(config, model))
         batch = {k: v.cuda() for k, v in synthetic_batch(config.model, B, rng).items()}
