@@ -156,8 +156,11 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
     close() with 300 requests queued resolving them all, and K4, K5 and
     the pair launched;
 19. bf16 serving: K5-bf16 and K4-bf16 against their plain bf16 versions at
-    B=16, 64 and 512 (each launched twice, bit for bit, as in phase 2) and
-    K4-bf16 at the ActivityNet width (L=64, B=64);
+    B=16, 64 and 512 (each launched twice, bit for bit, as in phase 2),
+    K5-bf16 also at B=8, 16, 64 and 512 at every rows-per-cluster choice of
+    its plan (the last block ragged where B is no multiple of it; padded
+    steps 0, twice bit for bit) and K4-bf16 at the ActivityNet width (L=64,
+    B=64);
     ``MomentLocalizer`` at bf16 on phase 3's 24 requests (the bf16 launch
     counters from 0 around it), its top-5 scores held to the fp32
     localizer's by the JAX package's bf16 criterion; times (one call and
@@ -168,10 +171,11 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
     with the share of 3xTF32's 165 beside it, bf16 against 989;
 20. bf16 training on the whole-layer route: K1-bf16 (forward and backward),
     K2-bf16 and K3-bf16 against their plain bf16 versions on the bf16
-    backbone's outputs at the full Charades width, B=64 and B=4 (K1-bf16
-    within one bf16 rounding of its plain version's fp32 value, K2-bf16 and
-    K3-bf16 by `K23_BF16_CARD`; K1-bf16's backward and K3-bf16 twice bit for
-    bit); 3 Adam steps of ``make_train_step`` at ``compute_dtype:
+    backbone's outputs at the full Charades width, B=64 and B=4, and the
+    TACoS width, B=64 (K1-bf16 within one bf16 rounding of its plain
+    version's fp32 value, K2-bf16 and K3-bf16 by `K23_BF16_CARD`, a K3-bf16
+    gradient past its max held to float64 beside its plain version,
+    `held_to_f64`; K1-bf16's backward and K3-bf16 twice bit for bit); 3 Adam steps of ``make_train_step`` at ``compute_dtype:
     bfloat16``, B=64, held to the same steps through the plain bf16 versions
     on the card (losses, step-1 gradients; the bf16 counters from 0 around
     the steps, no fp32 kernel launched); one TACoS step at bf16 (T=128,
@@ -2773,6 +2777,7 @@ def phase_bf16(cfg, anet_cfg, serving, fp32_e2e, rng, device):
     LSTM; device pairs/s at B=512 and the serving forward's MFU."""
     import dataclasses
 
+    import numpy as np
     import torch
 
     from video_moment_localization_tpu_torch.inference import MomentLocalizer
@@ -2835,6 +2840,31 @@ def phase_bf16(cfg, anet_cfg, serving, fp32_e2e, rng, device):
         dist = [max(float((x - r).abs().max()) for x, r in zip(out, ref)) for out in (got, want)]
         print(f"parity K4-bf16 B={B}: max abs err {err:.3e} (bounds {K4_BF16_CARD}); from the "
               f"fp32 kernel on the same inputs: kernel {dist[0]:.3e}, plain {dist[1]:.3e}")
+    # K5-bf16 at every rows-per-cluster choice of its plan, the last block
+    # ragged where B is no multiple of it: the kernel against its plain
+    # version, padded steps 0, two launches the same bits.
+    held = 0
+    for B in (8, 16, 64, 512):
+        x, mask, _ = lstm_inputs(cfg, B, rng, device)
+        x = x.to(bf)
+        want = bilstm_bf16(x, mask, layers)
+        for rows in lstm_cuda.row_choices(cfg.lstm_hidden_size, itemsize=2):
+            got = lstm_cuda.bilstm_fused(x, mask, layers, rows=rows)
+            again = lstm_cuda.bilstm_fused(x, mask, layers, rows=rows)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"K5-bf16 B={B} rows={rows}: two launches differ")
+            if bool((got[mask == 0] != 0).any()):
+                fail(f"K5-bf16 B={B} rows={rows}: output at a padded step is not 0")
+            err = float((got.float() - want.float()).abs().max())
+            if not torch.allclose(got.float(), want.float(), **K5_BF16_TOL):
+                fail(f"K5-bf16 B={B} rows={rows}: kernel disagrees with its plain version: max "
+                     f"abs err {err:.3e} ({K5_BF16_TOL})")
+            errs["K5"] = max(errs["K5"], err)
+            held += 1
+    print(f"parity K5-bf16 at every rows-per-cluster choice "
+          f"{lstm_cuda.row_choices(cfg.lstm_hidden_size, itemsize=2)}, B=8, 16, 64, 512: {held} "
+          f"plans held, max abs err {errs['K5']:.3e}, twice bit for bit, padded steps 0")
     anet16 = dataclasses.replace(anet_cfg, compute_dtype="bfloat16")
     torch.manual_seed(1)
     anet_model = SMIN(anet16).to(device).eval()
@@ -2938,9 +2968,9 @@ K1_BF16_REL = 2.0 ** -8
 BF16_TRAIN_CONFIGS = ("charadessta", "tacos")
 
 
-def bulk_rel(got, want, bounds, name, scale=None):
+def bulk_stats(got, want, name, scale=None):
     """mean, 98th percentile and max of |got - want| over ``scale`` (default
-    the mean |want|) within ``bounds``; returns the three."""
+    the mean |want|); ``got`` must be finite."""
     import torch
 
     if not torch.isfinite(got.float()).all():
@@ -2948,12 +2978,72 @@ def bulk_rel(got, want, bounds, name, scale=None):
     w = want.float()
     d = (got.float() - w).abs().flatten()
     scale = float(w.abs().mean()) if scale is None else scale
-    stats = dict(mean=float(d.mean()) / scale, max=float(d.max()) / scale,
-                 p98=float(torch.quantile(d[:: max(1, d.numel() // 1_000_000)], 0.98)) / scale)
+    return dict(mean=float(d.mean()) / scale, max=float(d.max()) / scale,
+                p98=float(torch.quantile(d[:: max(1, d.numel() // 1_000_000)], 0.98)) / scale)
+
+
+def bulk_rel(got, want, bounds, name, scale=None):
+    """`bulk_stats` of ``got`` against ``want`` within ``bounds``; returns
+    the three."""
+    scale = float(want.float().abs().mean()) if scale is None else scale
+    stats = bulk_stats(got, want, name, scale)
     if any(stats[k] > bounds[k] for k in bounds):
         fail(f"{name}: kernel disagrees with its plain version: {stats} of the scale "
              f"{scale:.3e} (bounds {bounds})")
     return stats
+
+
+# A K3-bf16 gradient within the bulk criterion's mean and 98th percentile
+# against its plain version but past its max (on a TACoS draw, dfw's max
+# reached 0.748 of its mean |value| against the criterion's 0.5: a bf16
+# rounding flip of a value far above the mean, which dfw's padded words
+# keep small) is held to the layer's gradient in float64 on the same bf16
+# values (`layer_grads_f64`): its mean, 98th percentile and max distance
+# from float64 no more than WITNESS_RATIO times the plain version's own, as
+# the card tests hold K3-bf16 at L=64 and K7-bf16's dfs. A kernel that is
+# wrong is farther from float64 than its plain version; one that only
+# rounds once elsewhere is not.
+WITNESS_RATIO = 1.5
+
+
+def layer_grads_f64(smin_train_cuda, weights, ins, L, dcu, dmu, dbu):
+    """The SMI layer's five input gradients in float64 on the same bf16
+    values of the carry, the weights and the cotangents (the layer's
+    function without rounding)."""
+    import torch
+
+    with torch.enable_grad():
+        leaves = [t.detach().double().requires_grad_(True) for t in ins[:5]]
+        cu, mu, bu = smin_train_cuda.smi_layer_plain([w.double() for w in weights], *leaves,
+                                                     *(t.double() for t in ins[5:]), L)
+        outs, cts = [mu, bu], [dmu.double(), dbu.double()]
+        if dcu is not None:
+            outs.append(cu)
+            cts.append(dcu.double())
+        return [g.detach() for g in torch.autograd.grad(outs, leaves, cts)]
+
+
+def held_to_f64(got, want, exact, stats, name):
+    """``got`` (the kernel's) and ``want`` (its plain version's) against
+    ``exact`` (float64), over exact's mean |value|: fails unless each of the
+    kernel's mean, p98 and max is within WITNESS_RATIO times the plain
+    version's. Returns both."""
+    import torch
+
+    def rel(x):
+        d = (x.double() - exact).abs().flatten()
+        q = float(torch.quantile(d[:: max(1, d.numel() // 1_000_000)], 0.98))
+        return dict(mean=float(d.mean()) / scale, p98=q / scale, max=float(d.max()) / scale)
+
+    scale = float(exact.abs().mean())
+    kern, plain = rel(got), rel(want)
+    report = (f"{name}: {stats} of the mean |reference| (bounds {K23_BF16_CARD}); against "
+              f"float64: kernel {kern}, plain version {plain}")
+    if any(kern[k] > WITNESS_RATIO * plain[k] for k in kern):
+        fail(f"{report}: the kernel is farther from float64 than {WITNESS_RATIO} times its "
+             f"plain version")
+    print(f"{report}: held to float64")
+    return dict(kernel=kern, plain=plain)
 
 
 def within_one_rounding(got, ref, name, tol=K1_TOL):
@@ -3283,6 +3373,7 @@ def phase_bf16_train(config, seed, rng, device):
         [w.detach() for w in block_weights(model.smis[1])], bf)
     errs = {"K1f": 0.0, "K1b": 0.0, "K2": 0.0, "K3": 0.0, "K3_rel": 0.0}
     stats = {}
+    witnesses = {}
     cases = {}
     # The TACoS width (N*C = 2112, Nq = 14) takes this route at bf16 only.
     tacos = load_config(os.path.join(REPO, "config", "tacos.yml"))
@@ -3297,6 +3388,9 @@ def phase_bf16_train(config, seed, rng, device):
                                         ("TACoS", tacos16.model, tmodel, tweights, TRAIN_BATCH)):
         tag = f"{name} B={B}"
         L, C, T = mcfg.L, mcfg.C, mcfg.T
+        # The generator's state before this case's draws, so that a case
+        # can be drawn again alone (tests/test_torch_cuda.py holds one so).
+        print(f"draw {tag}: generator state {json.dumps(rng.bit_generator.state)}")
         batch = {k: v.to(device) for k, v in synthetic_batch(mcfg, B, rng).items()}
         with torch.no_grad():
             f, fs, fw = backbone(mdl.backbone, mcfg, batch["video_features"].to(bf),
@@ -3336,9 +3430,18 @@ def phase_bf16_train(config, seed, rng, device):
                 check_all_repeatable(a, smin_train_cuda.smi_layer_backward(
                     weights, *ins, L, cot, dmu, dbu), f"K3-bf16 {tag}")
             b = smin_train_cuda.smi_layer_backward_plain(weights, *ins, L, cot, dmu, dbu)
-            for g, w, out in zip(a[:5], b[:5], ("dfc", "dfm", "dfb", "dfw", "dfs")):
-                s = bulk_rel(g, w, K23_BF16_CARD, f"K3-bf16 {tag} {out}")
-                stats[f"K3 {tag} {out}{'' if cot is not None else ' top'}"] = s
+            exact = []
+            for k, (g, w, out) in enumerate(zip(a[:5], b[:5], ("dfc", "dfm", "dfb", "dfw", "dfs"))):
+                key = f"K3 {tag} {out}{'' if cot is not None else ' top'}"
+                s = bulk_stats(g, w, f"K3-bf16 {tag} {out}")
+                if s["mean"] > K23_BF16_CARD["mean"] or s["p98"] > K23_BF16_CARD["p98"]:
+                    fail(f"K3-bf16 {tag} {out}: kernel disagrees with its plain version: {s} "
+                         f"of the mean |reference| (bounds {K23_BF16_CARD})")
+                if s["max"] > K23_BF16_CARD["max"]:
+                    if not exact:
+                        exact.extend(layer_grads_f64(smin_train_cuda, weights, ins, L, cot, dmu, dbu))
+                    witnesses[key] = held_to_f64(g, w, exact[k], s, f"K3-bf16 {tag} {out}")
+                stats[key] = s
                 errs["K3"] = max(errs["K3"], float((g.float() - w.float()).abs().max()))
             scale = max(float(w.abs().max()) for w in b[5])
             for k, (g, w) in enumerate(zip(a[5], b[5])):
@@ -3477,8 +3580,8 @@ def phase_bf16_train(config, seed, rng, device):
           f"{res['fp32_step_event_ms']:.4f} ms between CUDA events")
     del step32, model32, step16, model16
     torch.cuda.empty_cache()
-    return dict(errs=errs, stats=stats, launches=launches, losses=losses, times=res,
-                gemm=gemm_rows, eval_err=eval_err, step_err=step_err, tacos_losses=tlosses,
+    return dict(errs=errs, stats=stats, witnesses=witnesses, launches=launches, losses=losses,
+                times=res, gemm=gemm_rows, eval_err=eval_err, step_err=step_err, tacos_losses=tlosses,
                 tacos_launches=tlaunches, tacos_err=tacos_err, files=files)
 
 
@@ -4298,11 +4401,14 @@ def device_split(fn, calls: int = 10) -> dict:
     """What one call of fn() runs on the card, from torch.profiler over
     ``calls`` calls (utils/profile_serving.py's report) after two calls
     traced and dropped (the tracer loses kernels of the first calls it
-    sees): its kernel launches and their device time, and the shared GEMM's
-    share of both (its products and split-K reductions)."""
+    sees): its kernel launches and their device time (summed, and the time
+    some kernel runs: the union of their intervals, where kernels on two
+    streams at once count once), and the shared GEMM's share of both (its
+    products and split-K reductions)."""
     import torch
 
-    from video_moment_localization_tpu_torch.utils.profile_serving import device_rows, is_product
+    from video_moment_localization_tpu_torch.utils.profile_serving import (
+        covered_ms, device_intervals, device_rows, is_product)
 
     fn()
     torch.cuda.synchronize()
@@ -4317,6 +4423,7 @@ def device_split(fn, calls: int = 10) -> dict:
     prods = [r for r in rows if is_product(r[0])]
     return dict(launches=sum(r[1] for r in rows) // calls,
                 kernel_ms=sum(r[2] for r in rows) / calls,
+                busy_ms=covered_ms(device_intervals(prof.events())) / calls,
                 product_launches=sum(r[1] for r in prods) // calls,
                 product_ms=sum(r[2] for r in prods) / calls)
 
@@ -4329,8 +4436,8 @@ def split_note(r):
     if not sp:
         return ""
     return (f"; a call {sp['launches']} launches, {sp['kernel_ms']:.4f} ms of kernels (products "
-            f"{sp['product_ms']:.4f} ms in {sp['product_launches']}), no kernel "
-            f"{r['device_ms'] - sp['kernel_ms']:.4f} ms of the back-to-back time")
+            f"{sp['product_ms']:.4f} ms in {sp['product_launches']}), busy {sp['busy_ms']:.4f} "
+            f"ms, no kernel {r['device_ms'] - sp['busy_ms']:.4f} ms of the back-to-back time")
 
 
 def back_to_back(r):

@@ -265,9 +265,9 @@ def test_bf16_plans(B):
     K7, K9 and K10 takes the wgmma kernel (one block an SM) where TMA can
     read its operands and the mma.sync kernel with the fp32 tile rule
     (gemm_tn: 128x128, two blocks an SM) where it cannot, in all three
-    layouts; K5's rows per cluster at bf16 fit a block, with less shared
-    memory per CTA than at fp32 (the pair's plans are those of fp32 rows: it
-    stages bf16 rows in fp32)."""
+    layouts; K5's rows per cluster at bf16 fit a block and its clusters of 4
+    CTAs one wave (the pair's plans are those of fp32 rows: it stages bf16
+    rows in fp32)."""
     charades = ModelConfig()
     layouts = set()
     for kernel, name, layout, M, N, K, groups in gemm_cuda.model_gemm_shapes_bf16(charades, B):
@@ -282,12 +282,13 @@ def test_bf16_plans(B):
     assert layouts == {"nt", "nn", "tn"}
     with pytest.raises(ValueError, match="unknown layout"):
         gemm_cuda.path_for("tt", 64, 64, 64, dtype=torch.bfloat16)
+    # K5-bf16: clusters of 4 CTAs, each with 4H/4 rows of W_hh and two
+    # copies of h, rows of H + 8 bf16 (tests/test_torch_lstm_mma.py).
     for rows in lstm_cuda.row_choices(256, itemsize=2):
-        small, big = lstm_cuda.lstm_smem_bytes(256, rows, 2), lstm_cuda.lstm_smem_bytes(256, rows)
-        assert small <= lstm_cuda.MAX_SMEM_BYTES and small < big
-    assert lstm_cuda.lstm_smem_bytes(256, 16, 2) == 2 * (256 * 130 + 2 * 16 * 256)
-    rows, clusters = lstm_cuda.lstm_plan(B, 256, lambda r: 30 if r <= 32 else 15, itemsize=2)
-    assert clusters == 2 * -(-B // rows)
+        assert lstm_cuda.lstm_smem_bytes(256, rows, 2) <= lstm_cuda.MAX_SMEM_BYTES
+    assert lstm_cuda.lstm_smem_bytes(256, 16, 2) == 2 * (256 + 8) * (256 + 2 * 16)
+    rows, clusters = lstm_cuda.lstm_plan(B, 256, lambda r: 33, itemsize=2)
+    assert clusters == 2 * -(-B // rows) <= 33
 
 
 def test_cast_weights_once_per_model(shared):

@@ -1,6 +1,6 @@
 // The content-attention pair: the ContentUnit between its projections,
 // forward and backward, shared by every kernel that runs the content unit
-// (K4 and K2 through smin_units.cuh's `content_forward`, K3's recompute, K7,
+// (K4 and K2 through smin_units.cuh's `content_pair`, K3's recompute, K7,
 // K9 and K10; the backward by K3, K7 and K10 through content_bwd.cuh).
 //
 // Function (per element b, for each pair n of its N and each clip row c of

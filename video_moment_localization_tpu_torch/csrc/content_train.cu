@@ -129,7 +129,7 @@ cudaError_t forward(cudaStream_t st, int B, int N, int C, int Nq, int D, int dl,
     cudaError_t err =
         vml::content_forward(st, B, N, C, Nq, D, dl, fc, fbar, fw, fs, qmask, vmask, p, k.s, cu);
     if (err != cudaSuccess) return err;
-    vml::launch_moment_prologue<T>(st, B * N, 0, C, D, nullptr, cu, nullptr, k.x2, D);
+    vml::launch_moment_prologue<T>(st, B * N, C, D, cu, k.x2, D);
     return cudaGetLastError();
 }
 

@@ -37,15 +37,31 @@
 // projections, forward and backward, are one launch of the hand-written GEMM
 // of gemm.cuh (`gemm_nt2`, the two weights as two problems of one A).
 //
-// The bf16 variant (`vml_bilstm2_bf16`; the JAX kernel at bf16): the same
-// kernel at TE = bf16. xp, W_hh, the copies of h in shared memory (the
-// recurrent product's operand) and the outputs are bf16; each product of
-// two bf16 values is exact in fp32 and the sums, gates, c and the carried h
-// are fp32 (so are b_hh and the mask). One direction's W_hh is 512 KiB:
-// its slice of 64 KiB and the copies of h leave room for two CTAs an SM at
-// the smaller row choices, so `cudaOccupancyMaxActiveClusters` answers
-// differently and the plan's rows per cluster change with it. The layer-2
-// projections take gemm.cuh's bf16 path (`gemm_nt2_bf16`, fp32 b_ih).
+// The bf16 variant (`vml_bilstm2_bf16`; the JAX kernel at bf16) has its own
+// layer kernel, `lstm_layer_mma_kernel`: xp, W_hh, the copies of h in shared
+// memory (the recurrent product's operand) and the outputs are bf16; each
+// product of two bf16 values is exact in fp32 and the sums, gates, c and the
+// carried h are fp32 (so are b_hh and the mask). Its recurrent product runs
+// on the tensor cores: bf16 mma.sync m16n8k16 with fp32 accumulators, k in
+// order 0 .. H-1 in steps of 16, so a launch is bit for bit repeatable. One
+// direction's W_hh is 512 KiB, so a cluster of 4 CTAs holds it: CTA r keeps
+// the 4 gate rows of units [r*H/4, (r+1)*H/4) (128 KiB at H=256) n-major
+// with rows of H + 8 elements, which ldmatrix reads without bank conflicts,
+// and so is h (RB, H + 8), double-buffered. 512 threads a CTA: a warp owns
+// 8 units and m-tiles of 16 rows; the slice's rows are ordered gate by
+// gate, so the n8
+// tiles g = 0..3 of a warp's 8 units are the gates i, f, g, o and a lane's
+// accumulators hold all four gates of two units in two rows: the gate math
+// runs on the accumulators, with no gate buffer. A step then writes h (bf16)
+// to its own copy, and copies its slice of columns to the cluster's three
+// other CTAs in 16-byte stores through distributed shared memory; one
+// cluster barrier a step (arrive.release, the next step's xp and mask loads
+// and the output stores, wait.acquire) orders them. Fewer CTAs a cluster
+// than fp32's 8 mean fewer remote stores and a cheaper barrier, and about
+// twice the clusters fit the card at once: B=512 takes 32 rows a cluster in
+// one wave. What bounds a step (a %globaltimer build, PERF.md §6): the gate
+// math on the accumulators, then the product, then the barrier. The layer-2 projections take gemm.cuh's
+// bf16 path (`gemm_nt2_bf16`, fp32 b_ih).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -55,50 +71,45 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kCluster = 8;    // CTAs per (batch block, direction)
+constexpr int kCluster = 8;    // CTAs per (batch block, direction), fp32
+constexpr int kClusterBf = 4;  // the same, bf16
 constexpr int kThreads = 256;
+constexpr int kThreadsBf = 512;   // the bf16 kernel's: 16 warps an SM
 constexpr int kRowStep = 16;       // batch rows per cluster: a multiple of this
 constexpr int kMaxRows = 96;
 constexpr size_t kMaxSmem = 232448;   // dynamic shared memory of one block
 
-// Shared-memory row stride of the W_hh slice, in elements of `esize` bytes
-// (4 fp32, 2 bf16): R = 4H / kCluster gate rows padded by one fp32 or two
-// bf16.
-__host__ __device__ inline size_t wslice_ld(int H, int esize) {
-    return 4 * (size_t)H / kCluster + (esize == 4 ? 1 : 2);
-}
+// Shared-memory row stride of the fp32 W_hh slice: R = 4H / kCluster gate
+// rows padded by one float.
+__host__ __device__ inline size_t wslice_ld(int H) { return 4 * (size_t)H / kCluster + 1; }
 
-size_t wslice_bytes(int H, int esize) {   // ws (H, ld)
-    return (size_t)esize * H * wslice_ld(H, esize);
-}
+size_t wslice_bytes(int H) { return sizeof(float) * H * wslice_ld(H); }   // ws (H, ld)
 
 // Whether two copies of h (RB, H) fit beside the W_hh slice.
-bool double_buffered(int H, int RB, int esize) {
-    return wslice_bytes(H, esize) + 2 * (size_t)esize * RB * H <= kMaxSmem;
+bool double_buffered(int H, int RB) {
+    return wslice_bytes(H) + 2 * sizeof(float) * RB * H <= kMaxSmem;
 }
 
 // Bytes of one CTA's shared memory: ws, and hbuf (nbuf, RB, H).
-size_t layer_smem_bytes(int H, int RB, int esize) {
-    return wslice_bytes(H, esize) +
-           (double_buffered(H, RB, esize) ? 2 : 1) * (size_t)esize * RB * H;
+size_t layer_smem_bytes(int H, int RB) {
+    return wslice_bytes(H) + (double_buffered(H, RB) ? 2 : 1) * sizeof(float) * RB * H;
 }
 
-// The most rows per cluster: one copy of h beside W_hh, at most kMaxRows.
+// The bf16 kernel's shared memory: the W_hh slice (4H / kClusterBf, H + 8)
+// and h (2, RB, H + 8), bf16, rows of H + 8 elements.
+size_t layer_smem_bytes_bf(int H, int RB) {
+    return sizeof(vml::bf16) * (size_t)(H + 8) * (4 * H / kClusterBf + 2 * RB);
+}
+
+// The most rows per cluster (a multiple of kRowStep, at most kMaxRows) whose
+// shared memory fits a block, at an element size (4 fp32, 2 bf16).
+size_t smem_bytes(int H, int RB, int esize) {
+    return esize == 2 ? layer_smem_bytes_bf(H, RB) : layer_smem_bytes(H, RB);
+}
 int max_rows(int H, int esize) {
     int rb = kMaxRows;
-    while (rb > kRowStep && layer_smem_bytes(H, rb, esize) > kMaxSmem) rb -= kRowStep;
+    while (rb > kRowStep && smem_bytes(H, rb, esize) > kMaxSmem) rb -= kRowStep;
     return rb;
-}
-
-// Four consecutive h values of a row in shared memory, as fp32.
-__device__ __forceinline__ float4 load_h4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load_h4(const vml::bf16* p) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-    return make_float4(a.x, a.y, b.x, b.y);
 }
 
 // Rows of one thread, rounded up to the kernel's template choices.
@@ -111,32 +122,30 @@ int rows_per_thread(int H, int RB) {
 
 // One layer: xp{f,b} (B, S, 4H) input projections (b_ih included), mask
 // (B, S), w_hh{f,b} (4H, H), b_hh{f,b} (4H,) -> out (B, S, 2H), forward
-// hidden states in [0, H) and backward ones in [H, 2H).
+// hidden states in [0, H) and backward ones in [H, 2H), all fp32.
 // grid (kCluster, ceil(B / RB), 2 directions); H % 32 == 0, H <= 256.
 // Thread tid owns unit u = tid % U of this CTA and rows g + G * i (g = tid /
 // U, G = 256 / U, i < RPT) of the batch block. nbuf: copies of h (1 or 2).
-// TE: the element type of xp, W_hh, the shared copies of h and out (float
-// or bf16); b_hh, the mask and all arithmetic are fp32.
-template <int RPT, typename TE>
+template <int RPT>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
-lstm_layer_kernel(int B, int S, int H, int RB, int nbuf, const TE* __restrict__ xpf,
-                  const TE* __restrict__ xpb, const float* __restrict__ mask,
-                  const TE* __restrict__ whhf, const TE* __restrict__ whhb,
+lstm_layer_kernel(int B, int S, int H, int RB, int nbuf, const float* __restrict__ xpf,
+                  const float* __restrict__ xpb, const float* __restrict__ mask,
+                  const float* __restrict__ whhf, const float* __restrict__ whhb,
                   const float* __restrict__ bhhf, const float* __restrict__ bhhb,
-                  TE* __restrict__ out) {
+                  float* __restrict__ out) {
     cg::cluster_group cluster = cg::this_cluster();
     extern __shared__ __align__(16) unsigned char lstm_smem[];
     const int rank = (int)cluster.block_rank();
     const int U = H / kCluster;       // hidden units of this CTA
     const int R = 4 * U;              // local row g*U + u = W_hh row g*H + rank*U + u
-    const int ldw = (int)wslice_ld(H, (int)sizeof(TE));
+    const int ldw = (int)wslice_ld(H);
     const bool single = nbuf == 1;
-    TE* ws = reinterpret_cast<TE*>(lstm_smem);     // (H, ldw)
-    TE* hbuf = ws + (size_t)H * ldw;               // (nbuf, RB, H)
+    float* ws = reinterpret_cast<float*>(lstm_smem);     // (H, ldw)
+    float* hbuf = ws + (size_t)H * ldw;                   // (nbuf, RB, H)
     const int dir = blockIdx.z;
     const int b0 = blockIdx.y * RB;
-    const TE* xp = dir ? xpb : xpf;
-    const TE* whh = dir ? whhb : whhf;
+    const float* xp = dir ? xpb : xpf;
+    const float* whh = dir ? whhb : whhf;
     const float* bhh = dir ? bhhb : bhhf;
     const int tid = threadIdx.x;
     const int G = kThreads / U;
@@ -150,7 +159,7 @@ lstm_layer_kernel(int B, int S, int H, int RB, int nbuf, const TE* __restrict__ 
         const int k = e % H;
         ws[(size_t)k * ldw + lr] = whh[(size_t)((lr / U) * H + rank * U + lr % U) * H + k];
     }
-    for (int e = tid; e < nbuf * RB * H; e += kThreads) hbuf[e] = vml::from_f<TE>(0.f);
+    for (int e = tid; e < nbuf * RB * H; e += kThreads) hbuf[e] = 0.f;
     float bias[4];
 #pragma unroll
     for (int g = 0; g < 4; ++g) bias[g] = bhh[g * H + j];
@@ -167,8 +176,8 @@ lstm_layer_kernel(int B, int S, int H, int RB, int nbuf, const TE* __restrict__ 
 
     for (int t = 0; t < S; ++t) {
         const int tt = dir ? S - 1 - t : t;
-        const TE* hc = hbuf + (single ? 0 : (t & 1) * RB * H);
-        TE* hn = hbuf + (single ? 0 : ((t + 1) & 1) * RB * H);
+        const float* hc = hbuf + (single ? 0 : (t & 1) * RB * H);
+        float* hn = hbuf + (single ? 0 : ((t + 1) & 1) * RB * H);
 
         // This step's inputs, loaded while the gates are summed.
         float xg[4][RPT], m[RPT];
@@ -181,7 +190,7 @@ lstm_layer_kernel(int B, int S, int H, int RB, int nbuf, const TE* __restrict__ 
             const size_t at = (size_t)(b0 + row[i]) * S + tt;
             m[i] = mask[at];
 #pragma unroll
-            for (int g = 0; g < 4; ++g) xg[g][i] = vml::to_f(xp[at * (4 * H) + g * H + j]);
+            for (int g = 0; g < 4; ++g) xg[g][i] = xp[at * (4 * H) + g * H + j];
         }
 
         float acc[4][RPT];
@@ -190,7 +199,7 @@ lstm_layer_kernel(int B, int S, int H, int RB, int nbuf, const TE* __restrict__ 
 #pragma unroll
             for (int i = 0; i < RPT; ++i) acc[g][i] = 0.f;
         if (active) {
-            const TE* hrow[RPT];
+            const float* hrow[RPT];
 #pragma unroll
             for (int i = 0; i < RPT; ++i) hrow[i] = hc + min(grp + G * i, RB - 1) * H;
             for (int k = 0; k < H; k += 4) {
@@ -198,11 +207,10 @@ lstm_layer_kernel(int B, int S, int H, int RB, int nbuf, const TE* __restrict__ 
 #pragma unroll
                 for (int q = 0; q < 4; ++q)
 #pragma unroll
-                    for (int g = 0; g < 4; ++g)
-                        w[g][q] = vml::to_f(ws[(size_t)(k + q) * ldw + g * U + u]);
+                    for (int g = 0; g < 4; ++g) w[g][q] = ws[(size_t)(k + q) * ldw + g * U + u];
 #pragma unroll
                 for (int i = 0; i < RPT; ++i) {
-                    const float4 h4 = load_h4(hrow[i] + k);
+                    const float4 h4 = *reinterpret_cast<const float4*>(hrow[i] + k);
 #pragma unroll
                     for (int g = 0; g < 4; ++g) {
                         float a = acc[g][i];
@@ -230,11 +238,9 @@ lstm_layer_kernel(int B, int S, int H, int RB, int nbuf, const TE* __restrict__ 
             const float h = m[i] * h_new + (1.f - m[i]) * hp[i];
             c[i] = m[i] * c_new + (1.f - m[i]) * c[i];
             hp[i] = h;
-            out[((size_t)(b0 + row[i]) * S + tt) * (2 * H) + dir * H + j] =
-                vml::from_f<TE>(h * m[i]);
-            const TE hq = vml::from_f<TE>(h);
+            out[((size_t)(b0 + row[i]) * S + tt) * (2 * H) + dir * H + j] = h * m[i];
 #pragma unroll
-            for (int r = 0; r < kCluster; ++r) cluster.map_shared_rank(hn, r)[row[i] * H + j] = hq;
+            for (int r = 0; r < kCluster; ++r) cluster.map_shared_rank(hn, r)[row[i] * H + j] = h;
         }
         // Orders this step's h stores before the next step's reads (and, when
         // double-buffered, the next step's stores after this step's reads).
@@ -242,56 +248,271 @@ lstm_layer_kernel(int B, int S, int H, int RB, int nbuf, const TE* __restrict__ 
     }
 }
 
-template <typename TE>
-using LayerKernel = void (*)(int, int, int, int, int, const TE*, const TE*, const float*,
-                             const TE*, const TE*, const float*, const float*, TE*);
+using LayerKernel = void (*)(int, int, int, int, int, const float*, const float*, const float*,
+                             const float*, const float*, const float*, const float*, float*);
 
-template <typename TE>
-LayerKernel<TE> layer_kernel(int H, int RB) {
+LayerKernel layer_kernel(int H, int RB) {
     switch (rows_per_thread(H, RB)) {
-        case 1: return lstm_layer_kernel<1, TE>;
-        case 2: return lstm_layer_kernel<2, TE>;
-        case 4: return lstm_layer_kernel<4, TE>;
-        case 6: return lstm_layer_kernel<6, TE>;
-        case 8: return lstm_layer_kernel<8, TE>;
-        case 10: return lstm_layer_kernel<10, TE>;
-        default: return lstm_layer_kernel<12, TE>;
+        case 1: return lstm_layer_kernel<1>;
+        case 2: return lstm_layer_kernel<2>;
+        case 4: return lstm_layer_kernel<4>;
+        case 6: return lstm_layer_kernel<6>;
+        case 8: return lstm_layer_kernel<8>;
+        case 10: return lstm_layer_kernel<10>;
+        default: return lstm_layer_kernel<12>;
     }
 }
 
-// Clusters of the layer kernel at RB rows that the card holds at once.
-// Answers are kept per (device, element type, H / 32, RB / 16): a host-side
-// query of this file's own kernels, so this library is the only one that
-// reads them.
+// The bf16 layer (see the file's head): the same inputs and outputs as
+// lstm_layer_kernel, xp, W_hh and out bf16. grid (kClusterBf, ceil(B / RB),
+// 2 directions); H % 32 == 0, H <= 256; W_hh 16-byte aligned. U = H / 4
+// units a CTA in NUG = U / 8 groups of 8; of its 16 warps, warp w < NUG *
+// WPU (WPU = 16 / NUG warps a group) owns group w % NUG and the m-tiles w /
+// NUG + WPU * i (i < MTW) of the RB / 16. Lane l holds rows l / 4 and l / 4 + 8 of each m-tile
+// and units 2 (l % 4) and 2 (l % 4) + 1 of its group: accumulator
+// acc[i][g][2 h + v] is gate g of row l / 4 + 8 h and unit 2 (l % 4) + v.
+template <int MTW>
+__global__ void __cluster_dims__(kClusterBf, 1, 1) __launch_bounds__(kThreadsBf, 1)
+lstm_layer_mma_kernel(int B, int S, int H, int RB, const vml::bf16* __restrict__ xpf,
+                      const vml::bf16* __restrict__ xpb, const float* __restrict__ mask,
+                      const vml::bf16* __restrict__ whhf, const vml::bf16* __restrict__ whhb,
+                      const float* __restrict__ bhhf, const float* __restrict__ bhhb,
+                      vml::bf16* __restrict__ out) {
+    using vml::bf16;
+    cg::cluster_group cluster = cg::this_cluster();
+    extern __shared__ __align__(16) unsigned char lstm_smem[];
+    const int rank = (int)cluster.block_rank();
+    const int U = H / kClusterBf;     // hidden units of this CTA
+    const int ld = H + 8;             // row stride of ws and h, elements
+    bf16* ws = reinterpret_cast<bf16*>(lstm_smem);   // (4U, ld): local row g*U + u
+    bf16* hbuf = ws + (size_t)4 * U * ld;            // (2, RB, ld)
+    const int dir = blockIdx.z;
+    const int b0 = blockIdx.y * RB;
+    const bf16* xp = dir ? xpb : xpf;
+    const bf16* whh = dir ? whhb : whhf;
+    const float* bhh = dir ? bhhb : bhhf;
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int NUG = U / 8, WPU = kThreadsBf / 32 / NUG, MT = RB / 16;
+    const bool mma_warp = warp < NUG * WPU;
+    const int ug = warp % NUG, msub = warp / NUG;
+    const int ul = ug * 8 + (lane % 4) * 2;   // this lane's first local unit
+    const int j = rank * U + ul;              // its hidden unit (and j + 1)
+
+    // W_hh's slice: local row g*U + u is row g*H + rank*U + u; 16-byte copies.
+    const int kc = H / 8;
+    for (int e = tid; e < 4 * U * kc; e += kThreadsBf) {
+        const int lr = e / kc, k8 = e % kc;
+        const size_t src = (size_t)((lr / U) * H + rank * U + lr % U) * H + 8 * k8;
+        *reinterpret_cast<uint4*>(ws + (size_t)lr * ld + 8 * k8) =
+            *reinterpret_cast<const uint4*>(whh + src);
+    }
+    for (int e = tid; e < 2 * RB * ld / 8; e += kThreadsBf)
+        reinterpret_cast<uint4*>(hbuf)[e] = make_uint4(0u, 0u, 0u, 0u);
+    float bias[4][2];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+        bias[g][0] = bhh[g * H + j];
+        bias[g][1] = bhh[g * H + j + 1];
+    }
+    // Local row of each of this lane's rows, and its batch row or -1.
+    int lrow[MTW][2], brow[MTW][2];
+#pragma unroll
+    for (int i = 0; i < MTW; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int mt = msub + WPU * i;
+            lrow[i][h] = mt * 16 + lane / 4 + 8 * h;
+            brow[i][h] = (mma_warp && mt < MT && b0 + lrow[i][h] < B) ? b0 + lrow[i][h] : -1;
+        }
+    float c[MTW][2][2], hp[MTW][2][2];   // cell and carried h: [i][row h][unit v]
+    unsigned xg[MTW][2][4];              // xp of [i][h][gate] for units j, j + 1
+    float m[MTW][2];
+#pragma unroll
+    for (int i = 0; i < MTW; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            c[i][h][0] = c[i][h][1] = hp[i][h][0] = hp[i][h][1] = 0.f;
+        }
+    // The inputs of step t into xg and m (zero on rows past B).
+    auto load_inputs = [&](int t) {
+        const int tt = dir ? S - 1 - t : t;
+#pragma unroll
+        for (int i = 0; i < MTW; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                m[i][h] = 0.f;
+#pragma unroll
+                for (int g = 0; g < 4; ++g) xg[i][h][g] = 0u;
+                if (brow[i][h] < 0) continue;
+                const size_t at = (size_t)brow[i][h] * S + tt;
+                m[i][h] = mask[at];
+#pragma unroll
+                for (int g = 0; g < 4; ++g)
+                    xg[i][h][g] = *reinterpret_cast<const unsigned*>(xp + at * (4 * H) + g * H + j);
+            }
+    };
+    load_inputs(0);
+    // Distributed-shared-memory addresses of the other CTAs' h buffers.
+    bf16* peer[kClusterBf - 1];
+#pragma unroll
+    for (int q = 0; q < kClusterBf - 1; ++q)
+        peer[q] = cluster.map_shared_rank(hbuf, q < rank ? q : q + 1);
+    cluster.sync();                   // the cluster's CTAs have started and staged
+
+    for (int t = 0; t < S; ++t) {
+        const int tt = dir ? S - 1 - t : t;
+        const int cur = (t & 1) * RB * ld, nxt = ((t + 1) & 1) * RB * ld;
+        const bf16* hc = hbuf + cur;
+        bf16* hn = hbuf + nxt;
+
+        float acc[MTW][4][4];
+#pragma unroll
+        for (int i = 0; i < MTW; ++i)
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.f;
+        if (mma_warp) {
+            // ldmatrix row addresses: B's four 8 x 8 matrices are (gate 2p,
+            // k0..7), (2p, k8..15), (2p + 1, k0..7), (2p + 1, k8..15); A's are
+            // (rows 0..7, k0..7), (8..15, k0..7), (0..7, k8..15), (8..15, k8..15).
+            const int mtx = lane / 8, r8 = lane % 8;
+            const bf16* bp0 = ws + (size_t)((mtx / 2) * U + ug * 8 + r8) * ld + (mtx % 2) * 8;
+            const bf16* bp1 = bp0 + (size_t)2 * U * ld;
+            const bf16* ap = hc + (size_t)(msub * 16 + (mtx % 2) * 8 + r8) * ld + (mtx / 2) * 8;
+#pragma unroll 2
+            for (int k0 = 0; k0 < H; k0 += 16) {
+                unsigned b01[4], b23[4];
+                vml::ldmatrix_x4(b01, bp0 + k0);
+                vml::ldmatrix_x4(b23, bp1 + k0);
+#pragma unroll
+                for (int i = 0; i < MTW; ++i) {
+                    if (msub + WPU * i >= MT) continue;
+                    unsigned a[4];
+                    vml::ldmatrix_x4(a, ap + (size_t)WPU * i * 16 * ld + k0);
+                    vml::mma_bf16(acc[i][0], a, b01[0], b01[1]);
+                    vml::mma_bf16(acc[i][1], a, b01[2], b01[3]);
+                    vml::mma_bf16(acc[i][2], a, b23[0], b23[1]);
+                    vml::mma_bf16(acc[i][3], a, b23[2], b23[3]);
+                }
+            }
+        }
+
+        // The gates on the accumulators; h (bf16) into this CTA's copy.
+        unsigned hout[MTW][2];
+#pragma unroll
+        for (int i = 0; i < MTW; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                hout[i][h] = 0u;
+                if (!mma_warp || msub + WPU * i >= MT) continue;
+                float hv[2], ov[2];
+#pragma unroll
+                for (int v = 0; v < 2; ++v) {
+                    float x[4];
+#pragma unroll
+                    for (int g = 0; g < 4; ++g) {
+                        const float2 f2 = __bfloat1622float2(
+                            *reinterpret_cast<const __nv_bfloat162*>(&xg[i][h][g]));
+                        x[g] = v ? f2.y : f2.x;
+                    }
+                    const float mk = m[i][h];
+                    const float gi = vml::sigmoidf_(acc[i][0][2 * h + v] + x[0] + bias[0][v]);
+                    const float gf = vml::sigmoidf_(acc[i][1][2 * h + v] + x[1] + bias[1][v]);
+                    const float gg = tanhf(acc[i][2][2 * h + v] + x[2] + bias[2][v]);
+                    const float go = vml::sigmoidf_(acc[i][3][2 * h + v] + x[3] + bias[3][v]);
+                    const float c_new = gf * c[i][h][v] + gi * gg;
+                    const float h_new = go * tanhf(c_new);
+                    const float hh = mk * h_new + (1.f - mk) * hp[i][h][v];
+                    c[i][h][v] = mk * c_new + (1.f - mk) * c[i][h][v];
+                    hp[i][h][v] = hh;
+                    hv[v] = hh;
+                    ov[v] = hh * mk;
+                }
+                const __nv_bfloat162 hq = __floats2bfloat162_rn(hv[0], hv[1]);
+                const __nv_bfloat162 oq = __floats2bfloat162_rn(ov[0], ov[1]);
+                *reinterpret_cast<__nv_bfloat162*>(hn + (size_t)lrow[i][h] * ld + j) = hq;
+                hout[i][h] = *reinterpret_cast<const unsigned*>(&oq);
+            }
+        __syncthreads();              // this CTA's columns of h are in its copy
+        // ... and from there to the other CTAs' copies, 16 bytes a store.
+        const int cpr = U / 8;        // 16-byte chunks of a row's columns
+        for (int e = tid; e < RB * cpr; e += kThreadsBf) {
+            const size_t off = (size_t)nxt + (size_t)(e / cpr) * ld + rank * U + 8 * (e % cpr);
+            const uint4 v = *reinterpret_cast<const uint4*>(hbuf + off);
+#pragma unroll
+            for (int q = 0; q < kClusterBf - 1; ++q)
+                *reinterpret_cast<uint4*>(peer[q] + off) = v;
+        }
+        // The barrier orders this step's h stores before the next step's
+        // reads, and (two buffers) the next step's stores after this step's
+        // reads. Between its arrive and its wait: the outputs, and the next
+        // step's inputs.
+        asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int i = 0; i < MTW; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+                if (brow[i][h] >= 0)
+                    *reinterpret_cast<unsigned*>(out + ((size_t)brow[i][h] * S + tt) * (2 * H) +
+                                                 dir * H + j) = hout[i][h];
+        if (t + 1 < S) load_inputs(t + 1);
+        asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    }
+}
+
+using MmaKernel = void (*)(int, int, int, int, const vml::bf16*, const vml::bf16*, const float*,
+                           const vml::bf16*, const vml::bf16*, const float*, const float*,
+                           vml::bf16*);
+
+// M-tiles a warp walks at RB rows: ceil((RB / 16) / WPU).
+int mma_tiles_per_warp(int H, int RB) {
+    const int nug = H / kClusterBf / 8;
+    const int wpu = kThreadsBf / 32 / nug;
+    return (RB / kRowStep + wpu - 1) / wpu;
+}
+
+// At most 3 (RB = 96 at H <= 224, 80 at H = 256, two warps a unit group).
+MmaKernel mma_kernel(int H, int RB) {
+    switch (mma_tiles_per_warp(H, RB)) {
+        case 1: return lstm_layer_mma_kernel<1>;
+        case 2: return lstm_layer_mma_kernel<2>;
+        default: return lstm_layer_mma_kernel<3>;
+    }
+}
+
+// Clusters of the layer kernel at RB rows and element size esize that the
+// card holds at once. Answers are kept per (device, element type, H / 32,
+// RB / 16): a host-side query of this file's own kernels, so this library
+// is the only one that reads them.
 int g_active[16][2][9][kMaxRows / kRowStep + 1];
 
-template <typename TE>
-cudaError_t max_active_clusters(int H, int RB, int* n) {
+cudaError_t max_active_clusters(int H, int RB, int esize, int* n) {
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
-    constexpr int esize = (int)sizeof(TE);
     int* cached = dev < 16 ? &g_active[dev][esize == 2][H / 32][RB / kRowStep] : nullptr;
     if (cached && *cached > 0) {
         *n = *cached;
         return cudaSuccess;
     }
-    const LayerKernel<TE> fn = layer_kernel<TE>(H, RB);
-    const size_t smem = layer_smem_bytes(H, RB, esize);
+    const void* fn = esize == 2 ? (const void*)mma_kernel(H, RB) : (const void*)layer_kernel(H, RB);
+    const int cluster = esize == 2 ? kClusterBf : kCluster;
+    const size_t smem = smem_bytes(H, RB, esize);
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(kCluster, 1, 2);
-    cfg.blockDim = dim3(kThreads, 1, 1);
+    cfg.gridDim = dim3(cluster, 1, 2);
+    cfg.blockDim = dim3(esize == 2 ? kThreadsBf : kThreads, 1, 1);
     cfg.dynamicSmemBytes = smem;
     cudaLaunchAttribute attr;
     attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = kCluster;
+    attr.val.clusterDim.x = cluster;
     attr.val.clusterDim.y = 1;
     attr.val.clusterDim.z = 1;
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
-    err = cudaOccupancyMaxActiveClusters(n, (const void*)fn, &cfg);
+    err = cudaOccupancyMaxActiveClusters(n, fn, &cfg);
     if (err == cudaSuccess && cached) *cached = *n;
     return err;
 }
@@ -304,11 +525,10 @@ struct Plan {
 // the card holds at once; max_rows(H) when none does. The chosen RB's kernel
 // has its shared-memory limit raised: max_active_clusters did so when it
 // first asked about that RB in this process.
-template <typename TE>
-cudaError_t plan_for(int B, int H, Plan* plan) {
-    for (int rb = kRowStep; rb <= max_rows(H, (int)sizeof(TE)); rb += kRowStep) {
+cudaError_t plan_for(int B, int H, int esize, Plan* plan) {
+    for (int rb = kRowStep; rb <= max_rows(H, esize); rb += kRowStep) {
         int n = 0;
-        cudaError_t err = max_active_clusters<TE>(H, rb, &n);
+        cudaError_t err = max_active_clusters(H, rb, esize, &n);
         if (err != cudaSuccess) return err;
         *plan = {rb, 2 * ((B + rb - 1) / rb), n};
         if (plan->clusters <= n) break;
@@ -328,19 +548,18 @@ extern "C" {
 int vml_lstm_plan(int B, int H, int esize, int* rows, int* clusters, int* max_active,
                   size_t* smem) {
     Plan plan{};
-    cudaError_t err = esize == 2 ? plan_for<vml::bf16>(B, H, &plan) : plan_for<float>(B, H, &plan);
+    cudaError_t err = plan_for(B, H, esize, &plan);
     *rows = plan.rows;
     *clusters = plan.clusters;
     *max_active = plan.max_active;
-    *smem = layer_smem_bytes(H, plan.rows, esize);
+    *smem = smem_bytes(H, plan.rows, esize);
     return (int)err;
 }
 
 // Clusters of the layer kernel at `rows` rows per cluster and element size
 // esize that the card holds at once (*n). Returns a CUDA error, 0 if none.
 int vml_lstm_max_active_clusters(int H, int rows, int esize, int* n) {
-    return (int)(esize == 2 ? max_active_clusters<vml::bf16>(H, rows, n)
-                            : max_active_clusters<float>(H, rows, n));
+    return (int)max_active_clusters(H, rows, esize, n);
 }
 
 // Both layers: xp1{f,b} (B, S, 4H) layer-1 input projections with b_ih,
@@ -358,14 +577,14 @@ int vml_bilstm2_f32(void* stream, int B, int S, int H,
                     float* h1, float* xp2f, float* xp2b, float* out) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     Plan plan{};
-    cudaError_t err = plan_for<float>(B, H, &plan);
+    cudaError_t err = plan_for(B, H, 4, &plan);
     if (err != cudaSuccess) return (int)err;
     const int RB = plan.rows;
-    const LayerKernel<float> fn = layer_kernel<float>(H, RB);
-    const size_t smem = layer_smem_bytes(H, RB, 4);
+    const LayerKernel fn = layer_kernel(H, RB);
+    const size_t smem = layer_smem_bytes(H, RB);
     const dim3 grid(kCluster, (B + RB - 1) / RB, 2);
 
-    const int nbuf = double_buffered(H, RB, 4) ? 2 : 1;
+    const int nbuf = double_buffered(H, RB) ? 2 : 1;
     fn<<<grid, kThreads, smem, st>>>(B, S, H, RB, nbuf, xp1f, xp1b, mask, whh1f, whh1b, bhh1f,
                                      bhh1b, h1);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -381,9 +600,11 @@ int vml_bilstm2_f32(void* stream, int B, int S, int H,
 }
 
 // The bf16 variant: xp1{f,b} (B, S, 4H) bf16 layer-1 input projections with
-// b_ih, mask (B, S) fp32, W_ih / W_hh bf16, b_ih / b_hh fp32; scratch h1
-// (B, S, 2H) and xp2{f,b} bf16; result out (B, S, 2H) bf16.
-int vml_bilstm2_bf16(void* stream, int B, int S, int H,
+// b_ih, mask (B, S) fp32, W_ih / W_hh bf16 (W_hh 16-byte aligned), b_ih /
+// b_hh fp32; scratch h1 (B, S, 2H) and xp2{f,b} bf16; result out (B, S, 2H)
+// bf16. rows: rows per cluster, a multiple of 16 up to max_rows (the card
+// tests and chip_smoke.py hold every choice), or 0 for the plan's.
+int vml_bilstm2_bf16(void* stream, int B, int S, int H, int rows,
                      const vml::bf16* xp1f, const vml::bf16* xp1b, const float* mask,
                      const vml::bf16* whh1f, const vml::bf16* whh1b,
                      const float* bhh1f, const float* bhh1b,
@@ -393,26 +614,35 @@ int vml_bilstm2_bf16(void* stream, int B, int S, int H,
                      const float* bhh2f, const float* bhh2b,
                      vml::bf16* h1, vml::bf16* xp2f, vml::bf16* xp2b, vml::bf16* out) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    Plan plan{};
-    cudaError_t err = plan_for<vml::bf16>(B, H, &plan);
-    if (err != cudaSuccess) return (int)err;
-    const int RB = plan.rows;
-    const LayerKernel<vml::bf16> fn = layer_kernel<vml::bf16>(H, RB);
-    const size_t smem = layer_smem_bytes(H, RB, 2);
-    const dim3 grid(kCluster, (B + RB - 1) / RB, 2);
+    int RB = rows;
+    if (RB == 0) {
+        Plan plan{};
+        cudaError_t err = plan_for(B, H, 2, &plan);
+        if (err != cudaSuccess) return (int)err;
+        RB = plan.rows;
+    } else {
+        if (RB % kRowStep || RB < kRowStep || RB > max_rows(H, 2))
+            return (int)cudaErrorInvalidValue;
+        int n = 0;   // raises the kernel's shared-memory limit
+        cudaError_t err = max_active_clusters(H, RB, 2, &n);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const MmaKernel fn = mma_kernel(H, RB);
+    const size_t smem = layer_smem_bytes_bf(H, RB);
+    const dim3 grid(kClusterBf, (B + RB - 1) / RB, 2);
 
-    const int nbuf = double_buffered(H, RB, 2) ? 2 : 1;
-    fn<<<grid, kThreads, smem, st>>>(B, S, H, RB, nbuf, xp1f, xp1b, mask, whh1f, whh1b, bhh1f,
-                                     bhh1b, h1);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    fn<<<grid, kThreadsBf, smem, st>>>(B, S, H, RB, xp1f, xp1b, mask, whh1f, whh1b, bhh1f, bhh1b,
+                                     h1);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
     vml::EpilogueBf16 epf, epb;
     epf.bias = bih2f;
     epb.bias = bih2b;
     vml::gemm_nt2_bf16(st, B * S, 4 * H, 2 * H, h1, 2 * H, wih2f, wih2b, 2 * H, xp2f, xp2b,
                        4 * H, epf, epb);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    fn<<<grid, kThreads, smem, st>>>(B, S, H, RB, nbuf, xp2f, xp2b, mask, whh2f, whh2b, bhh2f,
-                                     bhh2b, out);
+    fn<<<grid, kThreadsBf, smem, st>>>(B, S, H, RB, xp2f, xp2b, mask, whh2f, whh2b, bhh2f, bhh2b,
+                                     out);
     return (int)cudaGetLastError();
 }
 

@@ -129,7 +129,7 @@ int stack_forward(void* stream, int B, int T, int L, int C, int Nq, int D, int d
     for (int layer = 0; layer < n_layers; ++layer) {
         err = vml::layer_forward(st, B, L, C, Nq, D, dl, w.fc, w.fm, w.fb, fw, fs, qmask, lmask,
                                  vmask, layer_w + (size_t)layer * vml::kWeightsPerLayer, w.s,
-                                 w.cu, w.mu, w.bu);
+                                 w.cu, w.mu, w.bu, layer == n_layers - 1);
         if (err != cudaSuccess) return (int)err;
         E* t;
         t = w.fc; w.fc = w.cu; w.cu = t;

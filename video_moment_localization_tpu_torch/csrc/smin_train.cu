@@ -587,7 +587,9 @@ int layer_backward(cudaStream_t st, int B, int L, int C, int Nq, int D, int dl, 
 
 // K9's layer loop at either element type: layer k reads the carry that
 // layer k - 1 wrote (into carry_* for the inner layers) and writes its own,
-// all through one workspace carved once, exactly as one K2 launch per layer.
+// all through one workspace carved once, exactly as one K2 launch per layer
+// (the same kernels in the same order on each stream); the caller's stream
+// joins the layers' second stream after the last (`layer_forward`'s join).
 template <typename T, typename P>
 int stack_forward(cudaStream_t st, int B, int L, int C, int Nq, int D, int dl, int n_layers,
                   const T* fc, const T* fm, const T* fb, const T* fw, const T* fs,
@@ -606,7 +608,7 @@ int stack_forward(cudaStream_t st, int B, int L, int C, int Nq, int D, int dl, i
         T* bu = top ? fb_out : carry_fb + k * nb;
         cudaError_t err = vml::layer_forward(st, B, L, C, Nq, D, dl, fc, fm, fb, fw, fs, qmask,
                                              lmask, vmask, p + (size_t)k * vml::kWeightsPerLayer,
-                                             s, cu, mu, bu);
+                                             s, cu, mu, bu, top);
         if (err != cudaSuccess) return (int)err;
         fc = cu;
         fm = mu;

@@ -5,8 +5,9 @@
 // `content_forward` alone).
 //
 // Because the ~1.1 MB of fp32 state per element does not fit a block's
-// 227 KB of shared memory, a layer is a sequence of kernels on one stream
-// with its intermediates in a device scratch:
+// 227 KB of shared memory, a layer is a sequence of kernels (on two streams
+// from kSideStreamRows content rows on, below) with its intermediates in a
+// device scratch:
 //   gate_kernel            fbar = sigmoid(fm * fs) * fm (rows, 16-byte
 //                          accesses: bound by its bytes)
 //   gemm_nt (gemm.cuh)     every projection, with bias / mask / residual
@@ -18,10 +19,23 @@
 //   boundary_query_kernel  word attention and f_bq of one snippet row
 //   boundary_unit_kernel   A_b, f_bb and the moment message f_bm of one
 //                          snippet row
-//   moment_prologue_kernel [x1 | x2]: x1[n] = bu[i_n] * bu[j_n], x2[n] =
-//                          mean_c(cu) (rows, 16-byte accesses: bytes)
+//   moment_outer_kernel    x1[n] = bu[i_n] * bu[j_n], a block per snippet
+//                          row i (its pairs' rows are consecutive)
+//   moment_prologue_kernel x2[n] = mean_c(cu) (rows, 16-byte accesses:
+//                          bytes)
 //   moment_weights_kernel  [W_fb | W_fc] and b_fb + b_fc, so the moment
 //                          unit is one product over K = 2D
+// The layer's side work (w_hat, attn_k, s_hat, the boundary unit's two
+// projections and two kernels, x1, the moment unit's weight and its
+// product) reads only the layer's inputs and weights, fbar, x2 and what it
+// wrote itself, so `layer_forward` runs it on a second stream of this host
+// thread (`SideStream`), beside the content unit's chain (c_hat, attn_q,
+// the gate, the pair, c_out, x2) on the caller's stream, joined by events:
+// the pair waits for w_hat, attn_k and s_hat; the boundary kernels for the
+// gate; the moment product for x2; the caller's stream for the moment
+// product at the layer's end, or a stack's. The kernels and their
+// arithmetic are those of one stream, so are the bits. Layers under
+// kSideStreamRows content rows keep one stream.
 // The products (gemm.cuh) bound the layer: at the Charades shapes they are
 // nearly all of its operations. They take the path `gemm_path_for` picks by
 // shape, but for the moment unit's, which takes the 3xTF32 tensor-core path
@@ -46,10 +60,11 @@ namespace vml {
 constexpr int kWeightsPerLayer = 20;
 
 // The bandwidth kernels of the layer (gate, moment prologue) walk rows of D
-// floats: a thread takes V consecutive columns (16-byte accesses when V is
-// 4), a block of 256 threads takes 256 / (D / V) whole rows at a time (D /
-// V <= 256) or one row in strides of 256, and a row's element index comes
-// from one 32-bit division per row, none per element.
+// elements: a thread takes V consecutive columns (16-byte accesses when V
+// is 4 at fp32 or 8 at bf16: `row_width`), a block of 256 threads takes 256
+// / (D / V) whole rows at a time (D / V <= 256) or one row in strides of
+// 256, and a row's element index comes from one 32-bit division per row,
+// none per element.
 constexpr int kRowThreads = 256;
 
 struct RowWalk {
@@ -175,13 +190,23 @@ static __global__ void __launch_bounds__(kRowThreads) gate_kernel(int rows, int 
     }
 }
 
+// The widest access (V elements) that rows of D elements of T take, every
+// pointer aligned to it: 16 bytes (4 fp32, 8 bf16), 8 bytes of bf16 (4),
+// else one element.
+template <typename T>
+inline int row_width(int D, std::initializer_list<const void*> ptrs) {
+    if (sizeof(T) == 2 && rows_vec(D, 8, ptrs, 16)) return 8;
+    return rows_vec(D, 4, ptrs, 4 * (int)sizeof(T)) ? 4 : 1;
+}
+
 template <typename T>
 inline void launch_gate(cudaStream_t st, int B, int N, int D, const T* fm, const T* fs,
                           T* fbar) {
-    const bool v4 = rows_vec4(D, {fm, fs, fbar}, 4 * (int)sizeof(T));
-    const int cols = v4 ? D / 4 : D;
-    const int blocks = row_walk_blocks((long long)B * N, cols);
-    if (v4)
+    const int V = row_width<T>(D, {fm, fs, fbar});
+    const int blocks = row_walk_blocks((long long)B * N, D / V);
+    if (V == 8)
+        gate_kernel<8, T><<<blocks, kRowThreads, 0, st>>>(B * N, N, D, fm, fs, fbar);
+    else if (V == 4)
         gate_kernel<4, T><<<blocks, kRowThreads, 0, st>>>(B * N, N, D, fm, fs, fbar);
     else
         gate_kernel<1, T><<<blocks, kRowThreads, 0, st>>>(B * N, N, D, fm, fs, fbar);
@@ -342,42 +367,59 @@ inline void launch_boundary(cudaStream_t st, int B, int L, int Nq, int D, const 
     }
 }
 
-// Over the B * N pairs: x1[n] = bu[i_n] * bu[j_n] and x2[n] = mean_c cu[n, c],
-// rows of x1 and x2 ldx floats apart (the layer writes them side by side as
-// [x1 | x2], the moment unit's one operand). bu and x1 may be null (L is
-// then unused): only the clip mean is written. Bound by its bytes (cu read,
-// x1 and x2 written; bu's rows come from L2).
+// The moment unit's operand [x1 | x2] (rows ldx apart; the layer writes
+// them side by side, the moment product's one operand).
+//
+// moment_outer_kernel: x1[n] = bu[i] * bu[j] for the pairs n = (i, j >= i)
+// of snippet row i of element b (block b * L + i): rows (i, i) .. (i, L - 1)
+// are consecutive, bu[i] and bu[j] come from L2, V columns a thread.
+// Bound by its bytes (x1 written).
+template <int V, typename T>
+static __global__ void __launch_bounds__(kRowThreads) moment_outer_kernel(
+    int L, int D, const T* __restrict__ bu, T* __restrict__ x1, int ldx) {
+    const int b = blockIdx.x / L, i = blockIdx.x % L;
+    const int cols = D / V;
+    const T* bi = bu + ((size_t)b * L + i) * D;
+    T* x = x1 + ((size_t)b * (L * (L + 1) / 2) + pair_index(i, i, L)) * ldx;
+    for (int e = threadIdx.x; e < (L - i) * cols; e += kRowThreads) {
+        const int jj = e / cols, d = (e % cols) * V;   // pair (i, i + jj)
+        float u[V], v[V], out[V];
+        load_vec<V>(bi + d, u);
+        load_vec<V>(bi + (size_t)jj * D + d, v);
+#pragma unroll
+        for (int k = 0; k < V; ++k) out[k] = u[k] * v[k];
+        store_vec<V>(x + (size_t)jj * ldx + d, out);
+    }
+}
+
+template <typename T>
+inline void launch_moment_outer(cudaStream_t st, int B, int L, int D, const T* bu, T* x1,
+                                int ldx) {
+    int V = row_width<T>(D, {bu, x1});
+    while (ldx % V) V /= 2;
+    if (V == 8)
+        moment_outer_kernel<8, T><<<B * L, kRowThreads, 0, st>>>(L, D, bu, x1, ldx);
+    else if (V == 4)
+        moment_outer_kernel<4, T><<<B * L, kRowThreads, 0, st>>>(L, D, bu, x1, ldx);
+    else
+        moment_outer_kernel<1, T><<<B * L, kRowThreads, 0, st>>>(L, D, bu, x1, ldx);
+}
+
+// moment_prologue_kernel: x2[n] = mean_c cu[n, c] over the pairs (the fp32
+// layer's clip mean; the bf16 layer's comes from c_out's epilogue), and
+// K10's, x2 alone). Bound by its bytes (cu read, x2 written).
 template <int V, typename T = float>
 static __global__ void __launch_bounds__(kRowThreads) moment_prologue_kernel(
-    int pairs, int L, int C, int D, const T* __restrict__ bu, const T* __restrict__ cu,
-    T* __restrict__ x1, T* __restrict__ x2, int ldx) {
+    int pairs, int C, int D, const T* __restrict__ cu, T* __restrict__ x2, int ldx) {
     const int cols = D / V;
     const RowWalk w = row_walk(cols);
     const int lr = (int)threadIdx.x / cols;
     if (lr >= w.rows_per_pass) return;
-    const int N = L * (L + 1) / 2;
     for (int pair = blockIdx.x * w.rows_per_pass + lr; pair < pairs;
          pair += gridDim.x * w.rows_per_pass) {
-        const T* bi = nullptr;
-        const T* bj = nullptr;
-        if (bu) {
-            const int b = pair / N;
-            int i, j;
-            pair_of(pair - b * N, L, i, j);
-            bi = bu + ((size_t)b * L + i) * D;
-            bj = bu + ((size_t)b * L + j) * D;
-        }
         const T* cp = cu + (size_t)pair * C * D;
         for (int c = w.first_col; c < cols; c += w.col_step) {
             const int d = c * V;
-            if (bu) {
-                float u[V], v[V], out[V];
-                load_vec<V>(bi + d, u);
-                load_vec<V>(bj + d, v);
-#pragma unroll
-                for (int k = 0; k < V; ++k) out[k] = u[k] * v[k];
-                store_vec<V>(x1 + (size_t)pair * ldx + d, out);
-            }
             float sum[V];
 #pragma unroll
             for (int k = 0; k < V; ++k) sum[k] = 0.f;
@@ -396,17 +438,17 @@ static __global__ void __launch_bounds__(kRowThreads) moment_prologue_kernel(
 }
 
 template <typename T>
-inline void launch_moment_prologue(cudaStream_t st, int pairs, int L, int C, int D,
-                                     const T* bu, const T* cu, T* x1, T* x2, int ldx) {
-    const bool v4 = ldx % 4 == 0 && rows_vec4(D, {bu, cu, x1, x2}, 4 * (int)sizeof(T));
-    const int cols = v4 ? D / 4 : D;
-    const int blocks = row_walk_blocks(pairs, cols);
-    if (v4)
-        moment_prologue_kernel<4, T><<<blocks, kRowThreads, 0, st>>>(pairs, L, C, D, bu, cu, x1,
-                                                                      x2, ldx);
+inline void launch_moment_prologue(cudaStream_t st, int pairs, int C, int D, const T* cu,
+                                   T* x2, int ldx) {
+    int V = row_width<T>(D, {cu, x2});
+    while (ldx % V) V /= 2;
+    const int blocks = row_walk_blocks(pairs, D / V);
+    if (V == 8)
+        moment_prologue_kernel<8, T><<<blocks, kRowThreads, 0, st>>>(pairs, C, D, cu, x2, ldx);
+    else if (V == 4)
+        moment_prologue_kernel<4, T><<<blocks, kRowThreads, 0, st>>>(pairs, C, D, cu, x2, ldx);
     else
-        moment_prologue_kernel<1, T><<<blocks, kRowThreads, 0, st>>>(pairs, L, C, D, bu, cu, x1,
-                                                                      x2, ldx);
+        moment_prologue_kernel<1, T><<<blocks, kRowThreads, 0, st>>>(pairs, C, D, cu, x2, ldx);
 }
 
 // The moment unit's weight [W_fb | W_fc] (D, 2D) into wm (2 D^2 values of
@@ -606,6 +648,49 @@ inline void round_residuals(EpilogueBf16& ep) { ep.round_each = true; }
 inline float* f32_sum(float* grad, float* /*scratch*/) { return grad; }
 inline float* f32_sum(bf16* /*grad*/, float* scratch) { return scratch; }
 
+// The second stream of a layer's query side, with its events, one per host
+// thread and device; created at first use and kept (internal linkage: each
+// library that includes this header has its own). The stream has the
+// highest priority, so its short kernels take SMs as the content unit's
+// long ones free them; it does not synchronise with the legacy default
+// stream, only through the events.
+struct SideStream {
+    cudaStream_t stream = nullptr;
+    cudaEvent_t fork = nullptr, gate = nullptr, query = nullptr, cout = nullptr,
+                join = nullptr;
+};
+
+static cudaError_t side_stream(SideStream** out) {
+    static thread_local SideStream per_device[16];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= 16) return cudaErrorInvalidDevice;
+    SideStream& s = per_device[dev];
+    if (!s.stream) {
+        int least = 0, greatest = 0;
+        if ((err = cudaDeviceGetStreamPriorityRange(&least, &greatest)) != cudaSuccess) return err;
+        for (cudaEvent_t* e : {&s.fork, &s.gate, &s.query, &s.cout, &s.join})
+            if ((err = cudaEventCreateWithFlags(e, cudaEventDisableTiming)) != cudaSuccess)
+                return err;
+        err = cudaStreamCreateWithPriority(&s.stream, cudaStreamNonBlocking, greatest);
+        if (err != cudaSuccess) return err;
+    }
+    *out = &s;
+    return cudaSuccess;
+}
+
+// Layers of fewer content rows (B * N * C) than this run on the caller's
+// stream alone: serving at B=16 (8,704 rows) lost more host time to the
+// second stream's event calls than its overlap saved (PERF.md §6).
+constexpr long long kSideStreamRows = 16384;
+
+// `to` waits for the work `from` has queued so far, through `ev`.
+inline cudaError_t stream_after(cudaStream_t to, cudaStream_t from, cudaEvent_t ev) {
+    cudaError_t err = cudaEventRecord(ev, from);
+    return err != cudaSuccess ? err : cudaStreamWaitEvent(to, ev, 0);
+}
+
 #define VML_CHECK_LAUNCH()                                                  \
     do {                                                                    \
         cudaError_t vml_err_ = cudaGetLastError();                          \
@@ -619,25 +704,35 @@ inline float* f32_sum(bf16* /*grad*/, float* scratch) { return scratch; }
 // once to T; with `residual_in_t` (K10) it is added in T, each term rounded,
 // as the JAX package's fused unit adds it. cu may be null (K10's backward
 // recompute, which reads only the intermediates): the c_out product is then
-// skipped.
+// skipped. Its three parts, which `content_forward` runs in order on one
+// stream and `layer_forward` on two:
+//   content_clip   c_hat * vmask and attn_q (reads fc)
+//   content_query  w_hat * qmask, attn_k and s_hat (reads fw, fs)
+//   content_pair   the pair's forward and c_out (reads both parts, fbar)
 template <typename T, typename P>
-inline cudaError_t content_forward(cudaStream_t st, int B, int N, int C, int Nq, int D, int dl,
-                                   const T* fc, const T* fbar, const T* fw, const T* fs,
-                                   const float* qmask, const float* vmask, const P* const* p,
-                                   const LayerScratchT<T>& s, T* cu,
-                                   bool residual_in_t = false) {
-    const int NC = N * C;
+inline cudaError_t content_clip(cudaStream_t st, int B, int N, int C, int D, int dl,
+                                const T* fc, const float* vmask, const P* const* p,
+                                const LayerScratchT<T>& s) {
     auto W = [p](int k) { return static_cast<const T*>(p[k]); };
     auto bias = [p](int k) { return static_cast<const float*>(p[k]); };
     EpilogueOf<T> ep;
     ep.bias = bias(1);
     ep.rmask = vmask;
     ep.mask_div = C;
-    product(st, B * NC, dl, D, fc, D, W(0), D, s.h, dl, ep);          // c_hat * vmask
+    product(st, B * N * C, dl, D, fc, D, W(0), D, s.h, dl, ep);       // c_hat * vmask
     VML_CHECK_LAUNCH();
-    linear(st, B * NC, dl, dl, s.h, W(8), bias(9), s.q);                // attn_q
+    linear(st, B * N * C, dl, dl, s.h, W(8), bias(9), s.q);             // attn_q
     VML_CHECK_LAUNCH();
-    ep = EpilogueOf<T>();
+    return cudaSuccess;
+}
+
+template <typename T, typename P>
+inline cudaError_t content_query(cudaStream_t st, int B, int Nq, int D, int dl, const T* fw,
+                                 const T* fs, const float* qmask, const P* const* p,
+                                 const LayerScratchT<T>& s) {
+    auto W = [p](int k) { return static_cast<const T*>(p[k]); };
+    auto bias = [p](int k) { return static_cast<const float*>(p[k]); };
+    EpilogueOf<T> ep;
     ep.bias = bias(3);
     ep.rmask = qmask;
     product(st, B * Nq, dl, D, fw, D, W(2), D, s.fwh, dl, ep);        // w_hat * qmask
@@ -646,10 +741,20 @@ inline cudaError_t content_forward(cudaStream_t st, int B, int N, int C, int Nq,
     VML_CHECK_LAUNCH();
     linear(st, B, dl, D, fs, W(4), bias(5), s.fsh);                     // s_hat, fp32
     VML_CHECK_LAUNCH();
+    return cudaSuccess;
+}
+
+template <typename T, typename P>
+inline cudaError_t content_pair(cudaStream_t st, int B, int N, int C, int Nq, int D, int dl,
+                                const T* fc, const T* fbar, const float* qmask,
+                                const float* vmask, const P* const* p, const LayerScratchT<T>& s,
+                                T* cu, bool residual_in_t) {
+    auto W = [p](int k) { return static_cast<const T*>(p[k]); };
+    auto bias = [p](int k) { return static_cast<const float*>(p[k]); };
     cudaError_t err = content_attn_forward(st, B, N, C, Nq, dl, s.h, s.q, s.khat, s.fwh, s.fsh,
                                            qmask, vmask, s.fcc);
     if (err != cudaSuccess || !cu) return err;
-    ep = EpilogueOf<T>();     // cu = c_out(f_cc_hat) * vmask + fc + fbar
+    EpilogueOf<T> ep;         // cu = c_out(f_cc_hat) * vmask + fc + fbar
     ep.bias = bias(7);
     ep.rmask = vmask;
     ep.mask_div = C;
@@ -659,9 +764,23 @@ inline cudaError_t content_forward(cudaStream_t st, int B, int N, int C, int Nq,
     ep.ldpost2 = D;
     ep.post2_div = C;
     if (residual_in_t) round_residuals(ep);
-    product(st, B * NC, D, dl, s.fcc, dl, W(6), dl, cu, D, ep);
+    product(st, B * N * C, D, dl, s.fcc, dl, W(6), dl, cu, D, ep);
     VML_CHECK_LAUNCH();
     return cudaSuccess;
+}
+
+template <typename T, typename P>
+inline cudaError_t content_forward(cudaStream_t st, int B, int N, int C, int Nq, int D, int dl,
+                                   const T* fc, const T* fbar, const T* fw, const T* fs,
+                                   const float* qmask, const float* vmask, const P* const* p,
+                                   const LayerScratchT<T>& s, T* cu,
+                                   bool residual_in_t = false) {
+    cudaError_t err = content_clip(st, B, N, C, D, dl, fc, vmask, p, s);
+    if (err == cudaSuccess) err = content_query(st, B, Nq, D, dl, fw, fs, qmask, p, s);
+    if (err == cudaSuccess)
+        err = content_pair(st, B, N, C, Nq, D, dl, fc, fbar, qmask, vmask, p, s, cu,
+                           residual_in_t);
+    return err;
 }
 
 // One SMI layer: (fc, fm, fb) -> (cu, mu, bu), intermediates left in `s`,
@@ -676,49 +795,83 @@ inline cudaError_t content_forward(cudaStream_t st, int B, int N, int C, int Nq,
 // (torch layouts: Linear (out, in), 1x1 conv (out, in, 1, 1)); the matrices
 // of type T, the biases fp32.
 // mu may be null: the moment product is then skipped (the backward's
-// recompute needs only its operand [x1 | x2]).
+// recompute needs only its operand [x1 | x2]). The moment product runs on
+// the query side; with `join` false the caller's stream does not wait for
+// it (nor for bu): a stack of layers joins after its last, so that the
+// next layer's c_hat and attn_q, which read only cu, overlap it; the next
+// layer's gate waits for it (side->join), its query side follows it in
+// stream order.
 // Returns the first CUDA error of the launches.
 template <typename T, typename P>
 inline cudaError_t layer_forward(cudaStream_t st, int B, int L, int C, int Nq, int D, int dl,
                                  const T* fc, const T* fm, const T* fb, const T* fw,
                                  const T* fs, const float* qmask, const float* lmask,
                                  const float* vmask, const P* const* p,
-                                 const LayerScratchT<T>& s, T* cu, T* mu, T* bu) {
+                                 const LayerScratchT<T>& s, T* cu, T* mu, T* bu,
+                                 bool join = true) {
     const int N = L * (L + 1) / 2;
     auto W = [p](int k) { return static_cast<const T*>(p[k]); };
     auto bias = [p](int k) { return static_cast<const float*>(p[k]); };
+    // The query side waits for the caller's stream (its inputs, and the
+    // scratch the stream's earlier work reads).
+    SideStream* side = nullptr;
+    cudaError_t err = cudaSuccess;
+    if ((long long)B * N * C >= kSideStreamRows) {
+        if ((err = side_stream(&side)) != cudaSuccess) return err;
+        if ((err = stream_after(side->stream, st, side->fork)) != cudaSuccess) return err;
+    }
+    const cudaStream_t qs = side ? side->stream : st;
+
+    // The content unit: its clip side and the gate here, its query side on
+    // qs. The gate waits for a stack's previous layer's side work (its mu)
+    // and comes after attn_q, so that c_hat and attn_q, which read only fc,
+    // overlap that layer's moment product.
+    if ((err = content_clip(st, B, N, C, D, dl, fc, vmask, p, s)) != cudaSuccess) return err;
+    if ((err = content_query(qs, B, Nq, D, dl, fw, fs, qmask, p, s)) != cudaSuccess) return err;
+    if (side && (err = cudaStreamWaitEvent(st, side->join, 0)) != cudaSuccess) return err;
     launch_gate(st, B, N, D, fm, fs, s.fbar);
     VML_CHECK_LAUNCH();
-
-    cudaError_t err =
-        content_forward(st, B, N, C, Nq, D, dl, fc, s.fbar, fw, fs, qmask, vmask, p, s, cu);
+    if (side) {
+        if ((err = cudaEventRecord(side->gate, st)) != cudaSuccess) return err;
+        if ((err = stream_after(st, qs, side->query)) != cudaSuccess) return err;
+    }
+    err = content_pair(st, B, N, C, Nq, D, dl, fc, s.fbar, qmask, vmask, p, s, cu, false);
     if (err != cudaSuccess) return err;
+    if (mu) {   // the moment unit's weight and bias
+        moment_weights_kernel<T><<<(2 * D * D + D + 255) / 256, 256, 0, qs>>>(
+            D, W(16), bias(17), W(18), bias(19), s.wm, s.wb);
+        VML_CHECK_LAUNCH();
+    }
 
-    // BoundaryUnit
-    linear(st, B * L, D, D, fb, W(12), bias(13), s.bq);
+    // BoundaryUnit, on the query side.
+    linear(qs, B * L, D, D, fb, W(12), bias(13), s.bq);
     VML_CHECK_LAUNCH();
-    linear(st, B * Nq, D, D, fw, W(14), bias(15), s.bk);
+    linear(qs, B * Nq, D, D, fw, W(14), bias(15), s.bk);
     VML_CHECK_LAUNCH();
-    launch_boundary<T>(st, B, L, Nq, D, s.bq, s.bk, fw, fb, fs, qmask, lmask, s.fbq, s.fbar, bu);
+    if (side && (err = cudaStreamWaitEvent(qs, side->gate, 0)) != cudaSuccess) return err;
+    launch_boundary<T>(qs, B, L, Nq, D, s.bq, s.bk, fw, fb, fs, qmask, lmask, s.fbq, s.fbar, bu);
     VML_CHECK_LAUNCH();
 
     // MomentUnit: mu = (conv_fb(outer) + conv_fc(mean_c cu)) * vmask + fm, one
-    // product [x1 | x2] [W_fb | W_fc]^T over K = 2D with b_fb + b_fc.
-    launch_moment_prologue<T>(st, B * N, L, C, D, bu, cu, s.x12, s.x12 + D, 2 * D);
+    // product [x1 | x2] [W_fb | W_fc]^T over K = 2D with b_fb + b_fc. Its
+    // operand's x1 = bu[i] * bu[j] on the query side, x2 = mean_c cu here.
+    launch_moment_outer<T>(qs, B, L, D, bu, s.x12, 2 * D);
     VML_CHECK_LAUNCH();
-    if (mu) {
-        moment_weights_kernel<T><<<(2 * D * D + D + 255) / 256, 256, 0, st>>>(
-            D, W(16), bias(17), W(18), bias(19), s.wm, s.wb);
-        VML_CHECK_LAUNCH();
+    launch_moment_prologue<T>(st, B * N, C, D, cu, s.x12 + D, 2 * D);
+    VML_CHECK_LAUNCH();
+    if (mu) {   // on the query side, once x2 is written
+        if (side && (err = stream_after(qs, st, side->cout)) != cudaSuccess) return err;
         EpilogueOf<T> ep;
         ep.bias = s.wb;
         ep.rmask = vmask;
         ep.post = fm;
         ep.ldpost = D;
-        product(st, B * N, D, 2 * D, s.x12, 2 * D, s.wm, 2 * D, mu, D, ep, kMomentProductPath);
+        product(qs, B * N, D, 2 * D, s.x12, 2 * D, s.wm, 2 * D, mu, D, ep, kMomentProductPath);
         VML_CHECK_LAUNCH();
     }
-    return cudaSuccess;
+    if (!side) return cudaSuccess;
+    if ((err = cudaEventRecord(side->join, qs)) != cudaSuccess) return err;
+    return join ? cudaStreamWaitEvent(st, side->join, 0) : cudaSuccess;
 }
 
 }  // namespace vml

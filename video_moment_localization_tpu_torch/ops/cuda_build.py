@@ -146,16 +146,26 @@ def check_tensors(fn: str, device, want, dtype=None) -> None:
     if dtype not in (None, torch.float32, torch.bfloat16):
         raise ValueError(f"{fn}: the kernel takes float32 or bfloat16, got {dtype}")
     for name, t, shape in want:
-        t_shape = tuple(t.shape)
-        if name.startswith("weight") and t.dim() == 4:
+        want_dtype, weight = _tensor_rule(name, len(shape), dtype)
+        t_shape = t.shape
+        if weight and len(t_shape) == 4:
             t_shape = t_shape[:2]
-        fp32 = (dtype in (None, torch.float32) or name.endswith("mask")
-                or (name.startswith("weight") and len(shape) == 1))
-        want_dtype = torch.float32 if fp32 else dtype
         if (t_shape != tuple(shape) or t.dtype != want_dtype or t.device != device
                 or not t.is_contiguous()):
             raise ValueError(f"{fn}: {name}: want contiguous {want_dtype} {tuple(shape)} on "
                              f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _tensor_rule(name: str, rank: int, dtype):
+    """`check_tensors`' rule for one name: (its dtype, whether it is a
+    weight), worked out once per name, rank and kernel dtype."""
+    import torch
+
+    weight = name.startswith("weight")
+    fp32 = (dtype in (None, torch.float32) or name.endswith("mask")
+            or (weight and rank == 1))
+    return (torch.float32 if fp32 else dtype), weight
 
 
 def pointer_array(tensors):

@@ -15,13 +15,17 @@ The kernel has an fp32 and a bf16 variant, chosen by ``x.dtype``. At bf16
 (the JAX kernel at bf16) x, the weight matrices and the output are bf16 and
 the biases fp32 (models/smin.py::cast_weights casts them once); gates and
 sums are fp32, and the plain version is ``models/lstm.py::bilstm_bf16``.
-Any other mix of types raises: the wrapper casts nothing.
+Any other mix of types raises: the wrapper casts nothing. The bf16
+variant's recurrence runs its product on the tensor cores, in clusters of 4
+CTAs (the fp32 one in clusters of 8 on the CUDA cores); both plans have
+Python mirrors here (`lstm_smem_bytes`, `row_choices`, `lstm_plan`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Tuple
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,25 +45,30 @@ from video_moment_localization_tpu_torch.ops.cuda_build import (
 _WEIGHTS = ("w_ih", "w_hh", "b_ih", "b_hh")
 
 
-# The recurrence kernel's batch rows per 8-CTA cluster (multiples of
-# ROW_STEP up to MAX_ROWS, csrc/lstm.cu) and its cluster size.
+# The recurrence kernels' batch rows per cluster (multiples of ROW_STEP up
+# to MAX_ROWS, csrc/lstm.cu) and their cluster sizes: 8 CTAs at fp32, 4 at
+# bf16.
 ROW_STEP = 16
 MAX_ROWS = 96
 CLUSTER = 8
+CLUSTER_BF16 = 4
 
 
-def _wslice_bytes(H: int, itemsize: int = 4) -> int:
-    """csrc/lstm.cu::wslice_bytes: the W_hh slice (H, 4H/8 + pad), padded by
-    one fp32 or two bf16 elements a row."""
-    return itemsize * H * (4 * H // CLUSTER + (1 if itemsize == 4 else 2))
+def _wslice_bytes(H: int) -> int:
+    """csrc/lstm.cu::wslice_bytes: the fp32 W_hh slice (H, 4H/8 + 1)."""
+    return 4 * H * (4 * H // CLUSTER + 1)
 
 
 def lstm_smem_bytes(H: int, rows: int, itemsize: int = 4) -> int:
-    """Shared memory of one recurrence CTA (csrc/lstm.cu::layer_smem_bytes)
-    at an element size (4 fp32, 2 bf16): its W_hh slice and h (rows, H),
-    double-buffered where two copies fit in a block's shared memory."""
-    double = _wslice_bytes(H, itemsize) + 2 * itemsize * rows * H <= MAX_SMEM_BYTES
-    return _wslice_bytes(H, itemsize) + (2 if double else 1) * itemsize * rows * H
+    """Shared memory of one recurrence CTA at an element size (4 fp32, 2
+    bf16). fp32 (csrc/lstm.cu::layer_smem_bytes): its W_hh slice and h
+    (rows, H), double-buffered where two copies fit in a block's shared
+    memory. bf16 (layer_smem_bytes_bf): the slice's 4H/4 gate rows and two
+    copies of h (rows, H), each row H + 8 bf16 elements."""
+    if itemsize == 2:
+        return 2 * (H + 8) * (4 * H // CLUSTER_BF16 + 2 * rows)
+    double = _wslice_bytes(H) + 2 * 4 * rows * H <= MAX_SMEM_BYTES
+    return _wslice_bytes(H) + (2 if double else 1) * 4 * rows * H
 
 
 def max_rows(H: int, itemsize: int = 4) -> int:
@@ -80,9 +89,8 @@ def lstm_plan(B: int, H: int, max_active_clusters: Callable[[int], int],
     batch B, the smallest row choice whose 2 * ceil(B / rows) clusters (two
     directions) the card holds at once, else the largest;
     ``max_active_clusters(rows)`` is what ``cudaOccupancyMaxActiveClusters``
-    answers at that choice and element size (at bf16 a CTA needs less than
-    half the fp32 shared memory, so the card may hold two an SM and answer
-    more)."""
+    answers at that choice and element size (a bf16 cluster has 4 CTAs
+    to fp32's 8, so the card holds about twice as many)."""
     for rows in row_choices(H, itemsize):
         clusters = 2 * -(-B // rows)
         if clusters <= max_active_clusters(rows):
@@ -90,16 +98,19 @@ def lstm_plan(B: int, H: int, max_active_clusters: Callable[[int], int],
     return rows, clusters
 
 
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
+    """The lstm library with its entries' argument types, set once (the
+    wrappers call this on every launch)."""
     lib = load_library("lstm")
     lib.vml_lstm_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
     lib.vml_lstm_plan.restype = ctypes.c_int
     lib.vml_lstm_max_active_clusters.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.vml_lstm_max_active_clusters.restype = ctypes.c_int
-    for name in ("vml_bilstm2_f32", "vml_bilstm2_bf16"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 19
-        fn.restype = ctypes.c_int
+    lib.vml_bilstm2_f32.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 19
+    lib.vml_bilstm2_f32.restype = ctypes.c_int
+    lib.vml_bilstm2_bf16.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 19
+    lib.vml_bilstm2_bf16.restype = ctypes.c_int
     return lib
 
 
@@ -132,21 +143,28 @@ def _check_inputs(x: torch.Tensor, mask: torch.Tensor, layers: Layers) -> int:
                         f"layer {k} {direction} {name}: want contiguous {dtype} "
                         f"{shapes[name]} on {x.device}, got {w.dtype} "
                         f"{tuple(w.shape)} on {w.device}")
+                if name == "w_hh" and w.data_ptr() % 16:
+                    raise ValueError(f"layer {k} {direction} w_hh: want a 16-byte-aligned start")
     return H
 
 
-def bilstm_fused(x: torch.Tensor, mask: torch.Tensor, layers: Layers) -> torch.Tensor:
+def bilstm_fused(x: torch.Tensor, mask: torch.Tensor, layers: Layers,
+                 rows: Optional[int] = None) -> torch.Tensor:
     """Fused 2-layer biLSTM forward: x (B, S, in), mask (B, S) -> (B, S, 2H).
 
     ``layers`` is `models.lstm.lstm_layers`' view of the weights, in torch's
     layout (w_ih (4H, in), w_hh (4H, H), gate order i, f, g, o). Grad-free:
     on CUDA tensors that would record a graph it raises (training runs
-    `models.lstm.bilstm` under autograd)."""
+    `models.lstm.bilstm` under autograd). ``rows``: the bf16 kernel's rows per
+    cluster, one of `row_choices(H, 2)` (the card tests hold each), in place
+    of its plan's."""
     if x.device.type == "cpu":
         with torch.no_grad():
             plain = bilstm_bf16 if x.dtype == torch.bfloat16 else bilstm_plain
             return plain(x, mask, layers)
     H = _check_inputs(x, mask, layers)
+    if rows is not None and (x.dtype != torch.bfloat16 or rows not in row_choices(H, 2)):
+        raise ValueError(f"rows={rows}: the bf16 kernel takes one of {row_choices(H, 2)}")
     refuse_grad("bilstm_fused", [x] + [w for layer in layers for d in layer.values()
                                        for w in d.values()])
     itemsize = x.element_size()
@@ -169,9 +187,10 @@ def bilstm_fused(x: torch.Tensor, mask: torch.Tensor, layers: Layers) -> torch.T
     xp2b = torch.empty_like(xp2f)
     out = torch.empty_like(h1)
     entry = "vml_bilstm2_bf16" if bf16 else "vml_bilstm2_f32"
+    dims = (B, S, H, rows or 0) if bf16 else (B, S, H)
     with torch.cuda.device(x.device):
         err = getattr(lib, entry)(
-            stream_of(x), B, S, H, ptr(xp1f), ptr(xp1b), ptr(maskf),
+            stream_of(x), *dims, ptr(xp1f), ptr(xp1b), ptr(maskf),
             ptr(p1["fwd"]["w_hh"]), ptr(p1["bwd"]["w_hh"]),
             ptr(p1["fwd"]["b_hh"]), ptr(p1["bwd"]["b_hh"]),
             ptr(p2["fwd"]["w_ih"]), ptr(p2["bwd"]["w_ih"]),

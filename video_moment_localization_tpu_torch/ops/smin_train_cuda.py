@@ -40,6 +40,7 @@ it. ``.launches_bf16`` counts them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import types
 from typing import List, Optional, Sequence, Tuple
@@ -112,7 +113,10 @@ def smi_layer_backward_plain(weights, fc, fm, fb, fw, fs, query_mask, length_mas
     return (*grads[:5], list(grads[5:]))
 
 
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
+    """The smin_train library with its entries' argument types, set once (the
+    wrappers call this on every launch)."""
     lib = load_library("smin_train")
     lib.vml_smi_layer_workspace_floats.argtypes = [ctypes.c_int] * 7
     lib.vml_smi_layer_workspace_floats.restype = ctypes.c_size_t
@@ -146,6 +150,12 @@ def _weight_shapes(D: int, dl: int):
     return [(dl, D), (dl,)] * 3 + [(D, dl), (D,)] + [(dl, dl), (dl,)] * 2 + [(D, D), (D,)] * 4
 
 
+@functools.lru_cache(maxsize=None)
+def _weight_specs(D: int, dl: int):
+    """(name, shape) of the layer's 20 weights, as `check_tensors` reads them."""
+    return tuple((f"weight {k}", s) for k, s in enumerate(_weight_shapes(D, dl)))
+
+
 def _check_inputs(fn: str, weights, fc, fm, fb, fw, fs, query_mask, length_mask, vmask,
                   L: int, cotangents=()):
     """Shapes, dtype, device and contiguity of everything the C entry reads
@@ -163,10 +173,22 @@ def _check_inputs(fn: str, weights, fc, fm, fb, fw, fs, query_mask, length_mask,
     want = [("fc", fc, (B, N, C, D)), ("fm", fm, (B, N, D)), ("fb", fb, (B, L, D)),
             ("fw", fw, (B, Nq, D)), ("fs", fs, (B, D)), ("query_mask", query_mask, (B, Nq, 1)),
             ("length_mask", length_mask, (B, L)), ("vmask", vmask, (B, N))]
-    want += [(f"weight {k}", w, s) for k, (w, s) in
-             enumerate(zip(weights, _weight_shapes(D, dl)))]
+    want += [(name, w, s) for (name, s), w in zip(_weight_specs(D, dl), weights)]
     check_tensors(fn, fc.device, want + list(cotangents), fc.dtype)
     return B, C, Nq, D, dl
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace_size(B, L, C, Nq, D, dl, backward: bool, bf16: bool) -> int:
+    """Elements of a layer launch's workspace (`_workspace`), once per shape."""
+    lib = _library()
+    smem = lib.vml_smi_layer_smem_bytes(L, C, Nq, D, dl)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"L={L}, C={C}, Nq={Nq}, dl={dl} need {smem} B of shared memory "
+                         f"per block")
+    if bf16:
+        return lib.vml_smi_layer_workspace_bytes_bf16(B, L, C, Nq, D, dl, int(backward))
+    return lib.vml_smi_layer_workspace_floats(B, L, C, Nq, D, dl, int(backward))
 
 
 def _workspace(lib, fc, B, L, C, Nq, D, dl, backward: bool,
@@ -174,16 +196,9 @@ def _workspace(lib, fc, B, L, C, Nq, D, dl, backward: bool,
     """The workspace of a layer launch: float32 elements for the fp32
     entries, bytes (uint8) for the bf16 ones; ``ws`` is checked and reused
     when given."""
-    smem = lib.vml_smi_layer_smem_bytes(L, C, Nq, D, dl)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"L={L}, C={C}, Nq={Nq}, dl={dl} need {smem} B of shared memory "
-                         f"per block")
-    if fc.dtype == torch.bfloat16:
-        n = lib.vml_smi_layer_workspace_bytes_bf16(B, L, C, Nq, D, dl, int(backward))
-        dtype = torch.uint8
-    else:
-        n = lib.vml_smi_layer_workspace_floats(B, L, C, Nq, D, dl, int(backward))
-        dtype = torch.float32
+    bf16 = fc.dtype == torch.bfloat16
+    n = _workspace_size(B, L, C, Nq, D, dl, backward, bf16)
+    dtype = torch.uint8 if bf16 else torch.float32
     if ws is None:
         return torch.empty(n, device=fc.device, dtype=dtype)
     if ws.numel() < n or ws.device != fc.device or ws.dtype != dtype:

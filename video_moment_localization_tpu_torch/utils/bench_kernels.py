@@ -12,11 +12,14 @@ the moment gate of the carry's fm), timed as ``--launches`` calls queued
 between two CUDA events, the median of 5, on a workspace kept across calls
 where the wrapper takes one:
 
-* K2-bf16, K3-bf16 (with a dcu cotangent), K3 (fp32), K9-bf16 (three
-  layers), K10 and K10-bf16 forward and backward: the Charades config at
-  B=64;
+* K2, K3 (with a dcu cotangent) and K9 (three layers) at both types, K10
+  and K10-bf16 forward and backward: the Charades config at B=64;
 * K7 and K7-bf16 forward and backward: the ActivityNet config at B=64;
-* K4-bf16: the Charades config at B=512 (bf16 serving's batch).
+* K4 and K4-bf16: the Charades config at B=512 (bf16 serving's batch), and
+  K4-bf16 at B=16 (row K4-bf16-B16);
+* K5-bf16 and K5 (`bilstm_fused`, the layer-1 projections included) at the
+  Charades config, B=16 and B=512 (rows K5-bf16-B16, ..., K5-B512): half-scale
+  word features, ragged query lengths, as the serving forward calls it.
 
 It only calls the kernels' public wrappers, so one copy of it times two
 trees of the port alike. Prints the card's name and power limit, one line
@@ -42,8 +45,9 @@ from video_moment_localization_tpu_torch.utils.bench_gemm_bf16 import card_line
 from video_moment_localization_tpu_torch.utils.profile_train import layer_backward_inputs
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-KERNELS = ("K2-bf16", "K3-bf16", "K3", "K9-bf16", "K10f", "K10b", "K10f-bf16", "K10b-bf16",
-           "K7f", "K7b", "K7f-bf16", "K7b-bf16", "K4-bf16")
+KERNELS = ("K2-bf16", "K3-bf16", "K9-bf16", "K2", "K3", "K9", "K10f", "K10b", "K10f-bf16",
+           "K10b-bf16", "K7f", "K7b", "K7f-bf16", "K7b-bf16", "K4-bf16", "K4", "K4-bf16-B16",
+           "K5-bf16-B16", "K5-bf16-B512", "K5-B16", "K5-B512")
 
 
 def back_to_back_ms(fn, launches: int, reps: int = 5) -> float:
@@ -128,36 +132,66 @@ def rows_calls(dtype: str, seed: int):
     }
 
 
-def serving_call(seed: int):
-    """K4-bf16 at the Charades config, B=512."""
+def serving_call(seed: int, dtype: str = "bfloat16", B: int = 512):
+    """K4 or K4-bf16 at the Charades config, B=512 (or B)."""
     from video_moment_localization_tpu_torch.ops import smin_cuda
     from video_moment_localization_tpu_torch.ops.packing import packed_valid_mask
 
-    cfg = _config("charadessta", "bfloat16")
+    cfg = _config("charadessta", dtype)
+    dt = getattr(torch, dtype)
     torch.manual_seed(seed)
     model = SMIN(cfg).cuda().eval()
     g = torch.Generator(device="cuda").manual_seed(seed)
-    B, Nq = 512, cfg.max_query_length
+    Nq = cfg.max_query_length
     qlen = torch.randint(1, Nq + 1, (B,), device="cuda", generator=g)
     qmask = (torch.arange(Nq, device="cuda")[None, :] < qlen[:, None]).float()[..., None]
     lmask = torch.ones(B, cfg.L, device="cuda")
-    f = torch.randn(B, cfg.T, cfg.D, device="cuda", generator=g).bfloat16()
-    fw = (torch.randn(B, Nq, cfg.D, device="cuda", generator=g) * qmask).bfloat16()
-    fs = torch.randn(B, cfg.D, device="cuda", generator=g).bfloat16()
+    f = torch.randn(B, cfg.T, cfg.D, device="cuda", generator=g).to(dt)
+    fw = (torch.randn(B, Nq, cfg.D, device="cuda", generator=g) * qmask).to(dt)
+    fs = torch.randn(B, cfg.D, device="cuda", generator=g).to(dt)
     ins = (f, fw, fs, qmask, lmask, packed_valid_mask(lmask).contiguous())
 
     def call():
         with torch.no_grad():
             smin_cuda.smin_stack_fused(model, cfg, *ins)
 
-    return {"K4-bf16": call}
+    name = "K4-bf16" if dtype == "bfloat16" else "K4"
+    return {name if B == 512 else f"{name}-B{B}": call}
+
+
+def lstm_calls(seed: int):
+    """{kernel: fn} of K5 and K5-bf16 at the Charades config, B=16 and 512."""
+    from video_moment_localization_tpu_torch.models.lstm import lstm_layers
+    from video_moment_localization_tpu_torch.models.smin import cast_weights
+    from video_moment_localization_tpu_torch.ops import lstm_cuda
+
+    cfg = _config("charadessta", "float32")
+    torch.manual_seed(seed)
+    lstm = SMIN(cfg).cuda().eval().backbone.queryencoder.lstm
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    calls = {}
+    for dtype, sfx in ((torch.bfloat16, "-bf16"), (torch.float32, "")):
+        layers = lstm_layers(lstm, cast_weights(lstm, dtype) if dtype != torch.float32 else None)
+        for B in (16, 512):
+            Nq = cfg.max_query_length
+            x = (torch.randn(B, Nq, cfg.word_dim, device="cuda", generator=g) * 0.5).to(dtype)
+            qlen = torch.randint(1, Nq + 1, (B,), device="cuda", generator=g)
+            mask = (torch.arange(Nq, device="cuda")[None, :] < qlen[:, None]).float()
+            def call(x=x, mask=mask, layers=layers):
+                with torch.no_grad():
+                    lstm_cuda.bilstm_fused(x, mask, layers)
+
+            calls[f"K5{sfx}-B{B}"] = call
+    return calls
 
 
 def run(only, seed: int, launches: int):
     ms = {}
     groups = (lambda: layer_calls("bfloat16", seed), lambda: layer_calls("float32", seed),
               lambda: rows_calls("bfloat16", seed), lambda: rows_calls("float32", seed),
-              lambda: serving_call(seed))
+              lambda: serving_call(seed), lambda: serving_call(seed, "float32"),
+              lambda: serving_call(seed, B=16),
+              lambda: lstm_calls(seed))
     for make in groups:
         calls = {k: fn for k, fn in make().items() if k in KERNELS and (not only or k in only)}
         for k, fn in calls.items():

@@ -14,8 +14,9 @@ seeded synthetic batch (`synthetic_batch`: random features, GT spans through
 the label generators, ragged lengths, one padded sample), runs
 `parallel.steps.make_train_step` under
 ``torch.profiler``, and prints the device time per step of each kernel, its
-share, the device's busy share of the window (summed kernel time over wall
-time) and the peak device memory of a step. ``--layer-forward`` profiles
+share, the device's busy share of the window (the time some kernel runs,
+the union of their intervals, over wall time) and the peak device memory
+of a step. ``--layer-forward`` profiles
 the SMI layer forward (K2) alone instead: the three launches of one step's
 forward; ``--layer-backward`` the SMI layer backward (K3) alone: the three
 launches of one step's backward (the top layer without a dcu cotangent);
