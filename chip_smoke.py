@@ -226,7 +226,30 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
     at fp32 and bf16 (ms, peak memory); times of K8 and K8-bf16 (and a
     ``torch.matmul`` with the dense Wc at their type) and K9-bf16 (beside
     three K2-bf16 launches), plain versions and bounds; the dense Charades
-    step at both types in ms and under the profiler.
+    step at both types in ms and under the profiler;
+23. data parallelism on one card (`parallel/mesh.py`): (a) two ranks
+    started by `mesh.spawn` with gloo, both on cuda:0 (NCCL puts no two
+    ranks on one card), at the full Charades width, global B=64 (32 a
+    rank): 3 Adam steps from the weights of one process's same steps on the
+    card, the global losses (step 1 within 1e-5, all within
+    TRAIN_LOSS_RTOL) and the reduced step-1 gradients (K3's tolerance)
+    held to them, the parameters equal across the ranks bit for bit after
+    every step, K1 / K2 / K3 launched 3 + 3, 9 and 9 times on each rank; a
+    global batch of 40 valid samples (32 and 8 a rank) and one ActivityNet
+    B=64 step (K6, K7) the same way; an eval step a rank (K5, K4) whose
+    summed loss and counts equal one process's; (b) `Trainer.fit` at two
+    gloo ranks, one epoch on phase 17's directory, its stats within 2e-4 of
+    phase 17's epoch 1, the stats file and the checkpoint written once, by
+    rank 0; (c) the CLI under ``--distributed`` as a one-process NCCL group
+    (the launcher's variables set here, a free port), one epoch on the same
+    directory, its stats equal to phase 17's epoch 1 bit for bit; (d)
+    ``MomentLocalizer`` with two replicas named on cuda:0 on phase 3's 24
+    requests, its top-5 equal to the single-device localizer's, and
+    ``AsyncLocalizer`` over it on 500 requests equal to its
+    ``localize_batch``; (e) the Charades step at world 1 without and with
+    the gradient reduction (a one-process NCCL group) and the reduction
+    alone, beside the two gloo ranks' step and all-reduce, labelled as
+    one-card, host-staged figures.
 
 Each phase prints its seconds.
 
@@ -259,8 +282,8 @@ K1-bf16, K2-bf16 and K3-bf16; K6-bf16, K7-bf16 and K10-bf16; K8-bf16 and
 K9-bf16), a ``{"gemm": [...]}`` line, the plans, a ``{"files_training":
 {...}}`` line (phase 17), ``{"async_serving": {...}}`` (phase 18),
 ``{"bf16_serving": {...}}`` (phase 19), ``{"bf16_training": {...}}`` (phase
-20), ``{"bf16_content": {...}}`` (phase 21) and ``{"bf16_dense": {...}}``
-(phase 22), then as the last line
+20), ``{"bf16_content": {...}}`` (phase 21), ``{"bf16_dense": {...}}``
+(phase 22) and ``{"data_parallel": {...}}`` (phase 23), then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is visible or the package is not beside this script.
 """
@@ -270,6 +293,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -2397,7 +2421,8 @@ def phase_files(config, seed, device, tmp):
     Charades width: the loader alone, 2 epochs, a resumed run equal to the
     uninterrupted one bit for bit, --test with and without --nms, the card's
     epoch-1 loss against the CPU's, and the device's busy share over an
-    epoch."""
+    epoch. Returns its results and {data: the directory, stats: the 2-epoch
+    run's stats} for phase 23."""
     import torch
 
     from video_moment_localization_tpu_torch.config import load_config
@@ -2549,7 +2574,7 @@ def phase_files(config, seed, device, tmp):
               "cpu_weight_max_abs_diff": weight_diff, "launches": launches, "test": metrics}
     del card
     torch.cuda.empty_cache()
-    return result
+    return result, dict(data=data, stats=stats)
 
 
 # ------------------------------------------------------------------------- #
@@ -4397,6 +4422,398 @@ def phase_bf16_dense(anet, config, seed, rng, device):
                 fused_err=fused_err, anet_steps=anet_steps)
 
 
+# ------------------------------------------------------------------------- #
+# Phase 23: data parallelism on one card
+# ------------------------------------------------------------------------- #
+# Two ranks share the card through gloo, which reduces CUDA tensors through
+# the host (NCCL puts no two ranks on one card); NCCL runs as a group of one.
+# The ranks' steps are held to one process's steps on the card with phase
+# 6's tolerances; a global batch of DP_TAIL_VALID valid samples leaves 32 on
+# rank 0 and 8 on rank 1. The fit's stats are held to phase 17's epoch 1
+# within DP_FIT_TOL of the value (at least of 1: the recalls are shares).
+DP_RANKS = 2
+DP_TAIL_VALID = 40
+DP_FIT_TOL = 2e-4
+DP_TIMED_STEPS = 10
+DP_ASYNC_REQUESTS = 500
+DP_TIMEOUT_S = 600
+
+
+def dp_shard(batch, rank, world, device):
+    """Rank ``rank``'s contiguous rows of a global host batch (NumPy) on the
+    card, with the global batch's valid count (`parallel.steps`)."""
+    import numpy as np
+
+    from video_moment_localization_tpu_torch.parallel import mesh
+
+    b = len(batch["sample_mask"]) // world
+    out = {k: np.ascontiguousarray(v[rank * b: (rank + 1) * b]) for k, v in batch.items()}
+    out["global_valid"] = np.asarray(batch["sample_mask"].sum(), np.float32)
+    return mesh.put_batch(out, device)
+
+
+def dp_counters():
+    from video_moment_localization_tpu_torch.ops import lstm_cuda, smin_cuda
+
+    return dict(mode_counters(), K5=lstm_cuda.bilstm_fused, K4=smin_cuda.smin_stack_fused)
+
+
+def dp_counts(counters):
+    return {k: fn.launches for k, fn in counters.items() if fn.launches}
+
+
+def dp_wall_ms(fn, iters=DP_TIMED_STEPS):
+    """Mean wall ms of fn() ending in a synchronize, after one warm-up (gloo
+    blocks the host on its collectives: CUDA events would miss that)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def dp_rank(rank, job_path, out_pattern):
+    """One rank of phase 23 (`parallel.mesh.spawn`: gloo, both ranks on
+    cuda:0). Per case of the job: the replica from the case's weights
+    (broadcast from rank 0), with "eval" the eval step on its shard of the
+    first batch, summed over the ranks (K5, K4 counted), then one data-
+    parallel train step a global batch: the global loss, the reduced
+    gradients of step 1, whether the parameters equal rank 0's bit for bit
+    after each step, the kernels' launches over the steps; with "time" the
+    step's and the gradient all-reduce's wall ms. Then `Trainer.fit` for one
+    epoch on phase 17's directory, counting the stats and checkpoint writes.
+    Saves its results to ``out_pattern % rank``."""
+    import torch
+    import torch.distributed as dist
+
+    import video_moment_localization_tpu_torch.train.trainer as trainer_mod
+    from video_moment_localization_tpu_torch.config import load_config
+    from video_moment_localization_tpu_torch.data.pipeline import BatchLoader
+    from video_moment_localization_tpu_torch.models.smin import SMIN
+    from video_moment_localization_tpu_torch.parallel import mesh
+    from video_moment_localization_tpu_torch.parallel.steps import (
+        build_optimizer,
+        make_eval_step,
+        make_train_step,
+    )
+
+    job = torch.load(job_path, weights_only=False)
+    device = torch.device("cuda:0")
+    group, world = mesh.default_group(), mesh.world_size()
+    counters = dp_counters()
+    out = {}
+    for case in job["cases"]:
+        config = case["config"]
+        cfg = config.model
+        model = SMIN(cfg)
+        model.load_state_dict(case["state"])
+        mesh.put_replicated(model.to(device), group)
+        res = {"loss": [], "equal": []}
+        for fn in counters.values():
+            fn.launches = 0
+        if case.get("eval"):
+            ev = make_eval_step(cfg, model, device=device)(
+                dp_shard(case["batches"][0], rank, world, device))
+            sums = torch.cat([ev["loss_sum"].reshape(1), ev["num_valid"].reshape(1),
+                              ev["counts"].reshape(-1)]).double()
+            res["eval"] = mesh.all_reduce_sums(sums, group).cpu()
+            res["eval_launches"] = dp_counts(counters)
+            for fn in counters.values():
+                fn.launches = 0
+        step = make_train_step(cfg, model, build_optimizer(config, model), device, group=group)
+        for k, batch in enumerate(case["batches"]):
+            m = step(dp_shard(batch, rank, world, device))
+            res["loss"].append(float(mesh.all_reduce_sums(m["loss"].clone(), group)))
+            if k == 0:
+                res["grads"] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+            flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+            first = flat.clone()
+            dist.broadcast(first, src=0)
+            res["equal"].append(bool(torch.equal(flat, first)))
+        torch.cuda.synchronize()
+        res["launches"] = dp_counts(counters)
+        if case.get("time"):
+            shard = dp_shard(case["batches"][0], rank, world, device)
+            res["step_ms"] = dp_wall_ms(lambda: step(shard))
+            res["reduce_ms"] = dp_wall_ms(
+                lambda: mesh.all_reduce_gradients(model.named_parameters(), group))
+        out[case["name"]] = res
+        del model, step
+        torch.cuda.empty_cache()
+
+    writes = {"stats": 0, "checkpoint": 0}
+
+    def counted(fn, key):
+        def wrapper(*args, **kw):
+            writes[key] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    trainer_mod.write_stats = counted(trainer_mod.write_stats, "stats")
+    trainer_mod.save_checkpoint = counted(trainer_mod.save_checkpoint, "checkpoint")
+    cfg = load_config(job["files_cfg"], num_epochs_override=1)
+    trainer = trainer_mod.Trainer(cfg, device=device)
+    train_ds, eval_ds = trainer_mod.build_datasets(cfg)
+    shard = dict(shard_id=rank, num_shards=world, num_workers=cfg.num_workers, seed=cfg.seed)
+    t0 = time.perf_counter()
+    trainer.fit(BatchLoader(train_ds, cfg.batch_size, shuffle=True, **shard),
+                BatchLoader(eval_ds, cfg.batch_size, shuffle=False, **shard))
+    out["fit"] = dict(writes=writes, seconds=time.perf_counter() - t0)
+    torch.save(out, out_pattern % rank)
+
+
+def dp_reference(config, state, batches, device, evaluate=False):
+    """The steps of a `dp_rank` case in this process without a group: the
+    losses, step 1's gradients, and with ``evaluate`` the eval step on the
+    first batch before them."""
+    import torch
+
+    from video_moment_localization_tpu_torch.models.smin import SMIN
+    from video_moment_localization_tpu_torch.parallel import mesh
+    from video_moment_localization_tpu_torch.parallel.steps import (
+        build_optimizer,
+        make_eval_step,
+        make_train_step,
+    )
+
+    model = SMIN(config.model)
+    model.load_state_dict(state)
+    res = {"loss": []}
+    if evaluate:
+        ev = make_eval_step(config.model, model, device=device)(mesh.put_batch(batches[0], device))
+        res["eval"] = (float(ev["loss"]), ev["counts"].cpu())
+    step = make_train_step(config.model, model, build_optimizer(config, model), device)
+    for k, batch in enumerate(batches):
+        res["loss"].append(float(step(mesh.put_batch(batch, device))["loss"]))
+        if k == 0:
+            res["grads"] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    del model, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def dp_hold(label, got, want, launches):
+    """A case of the ranks against one process: the global losses (step 1
+    within 1e-5, all within TRAIN_LOSS_RTOL), the reduced step-1 gradients
+    (GRAD_RTOL, GRAD_ATOL_REL of the largest), the parameters equal across
+    the ranks after every step, and ``launches`` on each rank. Returns the
+    largest gradient error relative to that magnitude."""
+    for r, rank in enumerate(got):
+        if rank["loss"] != got[0]["loss"]:
+            fail(f"{label}: rank {r}'s losses {rank['loss']} differ from rank 0's")
+        if not all(rank["equal"]):
+            fail(f"{label}: rank {r}'s parameters differ from rank 0's after a step: "
+                 f"{rank['equal']}")
+        if rank["launches"] != launches:
+            fail(f"{label}: rank {r} launched {rank['launches']}, expected {launches}")
+    loss, ref = got[0]["loss"], want["loss"]
+    first = abs(loss[0] - ref[0]) / abs(ref[0])
+    worst = max(abs(a - b) / abs(b) for a, b in zip(loss, ref))
+    if first > 1e-5 or worst > TRAIN_LOSS_RTOL:
+        fail(f"{label}: global losses {loss}, one process's {ref} (step 1 rtol 1e-5, all "
+             f"{TRAIN_LOSS_RTOL})")
+    scale = max(float(g.abs().max()) for g in want["grads"].values())
+    err = max(grad_err(got[0]["grads"][n], g, scale, f"{label} step-1 gradient of {n}")
+              for n, g in want["grads"].items()) / scale
+    print(f"dp {label}: {DP_RANKS} gloo ranks on one card, losses {loss} against one process's "
+          f"{ref} (step 1 {first:.3e}, worst {worst:.3e}); {len(want['grads'])} reduced "
+          f"gradients within {err:.3e} of the largest magnitude {scale:.3e}; parameters equal "
+          f"across the ranks after each step; launches a rank {launches}")
+    return err
+
+
+def phase_dp(config, anet, files, serving, seed, rng, device, tmp):
+    """Phase 23: data parallelism on one card (a)-(e); see the module
+    docstring."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from video_moment_localization_tpu_torch.inference import AsyncLocalizer, MomentLocalizer
+    from video_moment_localization_tpu_torch.models.smin import SMIN
+    from video_moment_localization_tpu_torch.ops import lstm_cuda, smin_cuda
+    from video_moment_localization_tpu_torch.parallel import mesh
+    from video_moment_localization_tpu_torch.parallel.steps import build_optimizer, make_train_step
+    from video_moment_localization_tpu_torch.utils.profile_train import synthetic_batch
+
+    t_phase = time.perf_counter()
+    cfg, n = config.model, config.model.num_smi_layers
+
+    def host_batch(c):
+        return {k: v.numpy() for k, v in synthetic_batch(c, TRAIN_BATCH, rng).items()}
+
+    torch.manual_seed(seed + 23)
+    initial = SMIN(cfg).state_dict()
+    batches = [host_batch(cfg) for _ in range(TRAIN_STEPS)]
+    tail = {k: v.copy() for k, v in batches[0].items()}
+    for v in tail.values():    # the loader's zero padding past the valid rows
+        v[DP_TAIL_VALID:] = 0
+    torch.manual_seed(seed + 24)
+    anet_initial = SMIN(anet.model).state_dict()
+    anet_batch = host_batch(anet.model)
+
+    # (a) one process on the card first, then the two ranks.
+    want = {"charades": dp_reference(config, initial, batches, device, evaluate=True),
+            "tail": dp_reference(config, initial, [tail], device),
+            "activitynet": dp_reference(anet, anet_initial, [anet_batch], device)}
+    fit_root = os.path.join(tmp, "dp_fit")
+    job = dict(cases=[
+        dict(name="charades", config=config, state=initial, batches=batches, eval=True,
+             time=True),
+        dict(name="tail", config=config, state=initial, batches=[tail]),
+        dict(name="activitynet", config=anet, state=anet_initial, batches=[anet_batch])],
+        files_cfg=files_config(fit_root, files["data"], resume=False))
+    job_path = os.path.join(tmp, "dp_job.pt")
+    torch.save(job, job_path)
+    pattern = os.path.join(tmp, "dp_rank%d.pt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mesh.spawn(dp_rank, DP_RANKS, ["cuda:0"] * DP_RANKS, "gloo", args=(job_path, pattern),
+               timeout_s=DP_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(pattern % r, weights_only=False) for r in range(DP_RANKS)]
+    errs = {
+        "charades": dp_hold("Charades B=64", [r["charades"] for r in ranks], want["charades"],
+                            {"K1f": TRAIN_STEPS, "K1b": TRAIN_STEPS, "K2": n * TRAIN_STEPS,
+                             "K3": n * TRAIN_STEPS}),
+        "tail": dp_hold(f"Charades, {DP_TAIL_VALID} valid of B=64 (32 and 8 a rank)",
+                        [r["tail"] for r in ranks], want["tail"],
+                        {"K1f": 1, "K1b": 1, "K2": n, "K3": n}),
+        "activitynet": dp_hold("ActivityNet B=64", [r["activitynet"] for r in ranks],
+                               want["activitynet"],
+                               {"K6f": 1, "K6b": 1, "K7f": anet.model.num_smi_layers,
+                                "K7b": anet.model.num_smi_layers})}
+    ev_loss, ev_counts = want["charades"]["eval"]
+    for r, rank in enumerate(ranks):
+        sums = rank["charades"]["eval"]
+        loss = float(sums[0] / sums[1])
+        if rank["charades"]["eval_launches"] != {"K5": 1, "K4": 1}:
+            fail(f"dp eval: rank {r} launched {rank['charades']['eval_launches']}")
+        if (abs(loss - ev_loss) > EVAL_LOSS_RTOL * abs(ev_loss)
+                or not torch.equal(sums[2:].float().reshape(ev_counts.shape), ev_counts)):
+            fail(f"dp eval: rank {r}'s summed loss {loss} and counts {sums[2:].tolist()}, one "
+                 f"process's {ev_loss} and {ev_counts.flatten().tolist()}")
+    print(f"dp eval: the ranks' summed loss {loss} and counts equal one process's ({ev_loss}, "
+          f"rtol {EVAL_LOSS_RTOL}); K5 and K4 once a rank")
+
+    # (b) Trainer.fit at two gloo ranks against phase 17's epoch 1.
+    writes = [r["fit"]["writes"] for r in ranks]
+    if writes != [{"stats": 1, "checkpoint": 1}] + [{"stats": 0, "checkpoint": 0}] * (
+            DP_RANKS - 1):
+        fail(f"dp fit: writes per rank {writes}")
+    if sorted(os.listdir(os.path.join(fit_root, "ckpt"))) != [
+            "charades_files_model.ckpt", "charades_files_stats.json"]:
+        fail(f"dp fit: checkpoint directory {os.listdir(os.path.join(fit_root, 'ckpt'))}")
+    fit_stats = read_stats(job["files_cfg"])
+    single = {k: v[0] for k, v in files["stats"].items()}
+    fit_diff = {}
+    for key, ref in single.items():
+        fit_diff[key] = abs(fit_stats[key][0] - ref)
+        if fit_diff[key] > DP_FIT_TOL * max(abs(ref), 1.0):
+            fail(f"dp fit: epoch-1 {key} {fit_stats[key][0]!r} at {DP_RANKS} ranks, "
+                 f"{ref!r} in phase 17 (tolerance {DP_FIT_TOL})")
+    print(f"dp fit: one epoch at {DP_RANKS} gloo ranks in {ranks[0]['fit']['seconds']:.1f} s; "
+          f"stats written once, by rank 0; epoch-1 stats within {max(fit_diff.values()):.3e} of "
+          f"phase 17's (train loss {fit_stats['train_loss'][0]!r} against "
+          f"{single['train_loss']!r})")
+
+    # (c) the CLI under --distributed as a one-process NCCL group.
+    cli_cfg = files_config(os.path.join(tmp, "dp_cli"), files["data"], resume=False)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "video_moment_localization_tpu_torch.main", "--config_path",
+         cli_cfg, "--num_epochs", "1", "--distributed"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"dp --distributed: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    cli_stats = read_stats(cli_cfg)
+    differ = {k: (cli_stats[k][0], v) for k, v in single.items() if cli_stats[k][0] != v}
+    if differ:
+        fail(f"dp --distributed: epoch-1 stats differ from phase 17's: {differ}")
+    print(f"dp --distributed: one epoch as a one-process NCCL group in {cli_s:.1f} s (process "
+          f"included); epoch-1 stats equal to phase 17's bit for bit")
+
+    # (d) serving over two replicas named on cuda:0.
+    one = MomentLocalizer.from_checkpoint(serving["cfg_path"], glove_path=serving["glove"],
+                                          serve_batch=16)
+    two = MomentLocalizer(one.cfg, copy.deepcopy(one.model), one.embedding, serve_batch=16,
+                          devices=[device, device])
+    lstm_cuda.bilstm_fused.launches = smin_cuda.smin_stack_fused.launches = 0
+    worst = check_answers(two.localize_batch(serving["requests"], top_k=5), serving["top5"],
+                          "dp serving")
+    served = {"K5": lstm_cuda.bilstm_fused.launches, "K4": smin_cuda.smin_stack_fused.launches}
+    if min(served.values()) < 1:
+        fail(f"dp serving: launches {served}")
+    videos = [rng.standard_normal((int(k), cfg.input_video_dim)).astype("float32")
+              for k in rng.integers(8, 201, size=32)]
+    reqs = [(videos[k], QUERIES[q], videos[k].shape[0] / 2.0) for k, q in zip(
+        rng.integers(0, len(videos), size=DP_ASYNC_REQUESTS),
+        rng.integers(0, len(QUERIES), size=DP_ASYNC_REQUESTS))]
+    with AsyncLocalizer(two, top_k=5, max_wait_ms=2.0, max_in_flight=2) as server:
+        futures = [server.submit(*r) for r in reqs]
+        answers = [f.result(timeout=300) for f in futures]
+    if server.stats.snapshot()["errors"]:
+        fail("dp serving: AsyncLocalizer errors")
+    async_worst = check_answers(answers, two.localize_batch(reqs, top_k=5), "dp async")
+    print(f"dp serving: 2 replicas on {device}, buckets {two.bucket_sizes}: phase 3's 24 "
+          f"requests' top-5 equal the single-device localizer's (scores within {worst:.3e}), "
+          f"launches {served}; AsyncLocalizer over it on {DP_ASYNC_REQUESTS} requests equal to "
+          f"localize_batch's (within {async_worst:.3e})")
+    del one, two
+
+    # (e) a step at world 1 without and with the gradient reduction (a
+    # one-process NCCL group), beside the two ranks' step and all-reduce.
+    mesh.initialize_distributed("nccl", 0, 1, "file://" + os.path.join(tmp, "dp_store"),
+                                device=device)
+    steps = {}
+    for label, group in (("no_group", None), ("nccl_world1", mesh.default_group())):
+        model = SMIN(cfg)
+        model.load_state_dict(initial)
+        steps[label] = make_train_step(cfg, model, build_optimizer(config, model), device,
+                                       group=group)
+    shard = dp_shard(batches[0], 0, 1, device)
+    world1 = {label: step_wall_ms(step, shard) for label, step in steps.items()}
+    model = SMIN(cfg).to(device)
+    for p in model.parameters():
+        p.grad = torch.ones_like(p)
+    world1["nccl_reduce"] = dp_wall_ms(
+        lambda: mesh.all_reduce_gradients(model.named_parameters(), mesh.default_group()))
+    torch.distributed.destroy_process_group()
+    del steps, model
+    torch.cuda.empty_cache()
+    two_rank = {k: statistics.mean(r["charades"][k] for r in ranks)
+                for k in ("step_ms", "reduce_ms")}
+    n_params = sum(p.numel() for p in SMIN(cfg).parameters())
+    print(f"dp times ({card_line()}): Charades B=64 step at world 1 {world1['no_group']:.3f} ms "
+          f"without a group, {world1['nccl_world1']:.3f} ms with the NCCL all-reduce of "
+          f"{n_params} gradients ({world1['nccl_reduce']:.3f} ms alone); one-card, host-staged "
+          f"figures that say nothing of NCCL across cards: {DP_RANKS} gloo ranks' step "
+          f"(B=32 a rank) {two_rank['step_ms']:.3f} ms, its gradient all-reduce "
+          f"{two_rank['reduce_ms']:.3f} ms ({two_rank['reduce_ms'] / two_rank['step_ms']:.1%} "
+          f"of the step); spawn of the ranks {spawn_s:.1f} s")
+    return dict(
+        card=card_line(), losses={k: ranks[0][k]["loss"] for k in errs},
+        one_process_losses={k: want[k]["loss"] for k in errs}, grad_err_of_magnitude=errs,
+        fit_max_abs_diff=max(fit_diff.values()), fit_seconds=ranks[0]["fit"]["seconds"],
+        cli_nccl_bit_equal=True, cli_seconds=cli_s, serving_max_score_diff=worst,
+        async_max_score_diff=async_worst, world1_step_ms=world1["no_group"],
+        world1_nccl_step_ms=world1["nccl_world1"], world1_nccl_reduce_ms=world1["nccl_reduce"],
+        gloo_two_rank_step_ms=two_rank["step_ms"],
+        gloo_two_rank_reduce_ms=two_rank["reduce_ms"], gradients=n_params,
+        spawn_seconds=spawn_s, seconds=time.perf_counter() - t_phase)
+
+
 def device_split(fn, calls: int = 10) -> dict:
     """What one call of fn() runs on the card, from torch.profiler over
     ``calls`` calls (utils/profile_serving.py's report) after two calls
@@ -4564,8 +4981,9 @@ def main(argv=None) -> int:
     lap(15)
     unheld_errs = phase_unheld(anet.model, rng, device)
     lap(16)
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-files-") as tmp:
-        files = phase_files(config, args.seed, device, tmp)
+    # Phase 17's directory and stats serve phase 23 too.
+    files_tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-files-")
+    files, files_run = phase_files(config, args.seed, device, files_tmp.name)
     lap(17)
     torch.cuda.empty_cache()
     async_runs = phase_async(cfg, serving, times["with_host_pairs_per_s"], rng)
@@ -4573,13 +4991,17 @@ def main(argv=None) -> int:
     bf16 = phase_bf16(cfg, anet.model, serving, {B: times[("e2e", B)] for B in (16, 512)}, rng,
                       device)
     lap(19)
-    serve_tmp.cleanup()
     bf16_train = phase_bf16_train(config, args.seed, rng, device)
     lap(20)
     bf16_content = phase_bf16_content(anet, config, args.seed, rng, device)
     lap(21)
     bf16_dense = phase_bf16_dense(anet, config, args.seed, rng, device)
     lap(22)
+    torch.cuda.empty_cache()
+    dp = phase_dp(config, anet, files_run, serving, args.seed, rng, device, files_tmp.name)
+    lap(23)
+    serve_tmp.cleanup()
+    files_tmp.cleanup()
 
     kernels = []
     for key, name, src, rep, err in (
@@ -4853,6 +5275,7 @@ def main(argv=None) -> int:
                       "launches": {k: v for k, v in bd["fused_launches"].items() if v},
                       "against_plain": bd["fused_err"]},
         "k9_parity": bd["k9_stats"], "errs": bd["errs"]}}))
+    print(json.dumps({"data_parallel": dp}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,20 +3,24 @@ end to end on the CPU, in process, as tests/test_cli.py drives the JAX CLI:
 train -> stats and checkpoint -> resume -> --test -> --test --nms, the
 missing-checkpoint error, GloVe from $GLOVE_PATH, --best, --compat_metrics,
 --debug_nans, --profile_dir, training and --test at bf16, the card as the
-default device, and the refusal of the flags whose paths the port does not
-have yet."""
+default device, --distributed as the one rank of a group, the refusal of
+data-parallel settings that cannot run and of the flags whose paths the port
+does not have yet."""
 
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 
 import pytest
+import torch
 
 from _torch_train_common import TINY_CFG
 from video_moment_localization_tpu_torch.data.synthetic import write_charades_style_dir
 from video_moment_localization_tpu_torch.main import main
+from video_moment_localization_tpu_torch.parallel import mesh
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -119,13 +123,45 @@ def test_debug_nans_and_profile_dir(env, capsys):
     (["--seq_devices", "2"], "Sequence and 2-D parallelism"),
     (["--compute_dtype", "bfloat16", "--compat_metrics"], "bf16"),
 ])
-def test_refuses_unported_flags(env, capsys, flags, item):
+def test_refuses_unported_flags(env, capsys, monkeypatch, flags, item):
     cfg = write_cfg(env, name="tiny5", ckpt="ckpt_refused")
+    if item == "Data parallelism":
+        # Data parallelism runs (tests/test_torch_parallel.py); the CLI
+        # refuses a global batch that the ranks do not divide, more cards
+        # than there are, and --distributed without a launcher's variables.
+        # Under a launcher's variables it trains as the one rank of a group.
+        if flags[0] == "--num_devices":
+            with pytest.raises(ValueError, match=r"batch_size \(3\) must be divisible by the "
+                                                 r"number of devices \(2\)"):
+                run(capsys, "--config_path", cfg, *flags)
+            with open(cfg, "a") as fh:
+                fh.write("batch_size: 4\n")
+            with pytest.raises(ValueError, match="requested 2 devices, only .* available"):
+                main(["--config_path", cfg, *flags])   # on the card, the default device
+        else:
+            for var in mesh.LAUNCHER_VARIABLES + ("LOCAL_RANK",):
+                monkeypatch.delenv(var, raising=False)
+            with pytest.raises(ValueError, match="RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT "
+                                                 "not set"):
+                run(capsys, "--config_path", cfg, *flags)
+            with socket.socket() as sock:   # a free port of this host for the store
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            for var, value in (("RANK", "0"), ("WORLD_SIZE", "1"), ("LOCAL_RANK", "0"),
+                               ("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", str(port))):
+                monkeypatch.setenv(var, value)
+            out = run(capsys, "--config_path", write_cfg(env, name="tiny5r", ckpt="ckpt_rank"),
+                      "--num_epochs", "1", *flags)
+            assert "Training Epoch - 1" in out and "Training Loss -" in out
+            assert os.path.exists(env / "ckpt_rank/tiny5r_model.ckpt")
+            assert not torch.distributed.is_initialized()
+        assert not os.path.exists(env / "ckpt_refused")
+        return
     if item == "bf16":
         # bf16 runs on every route: with --compat_metrics (compat_head: the
         # packed unit loop), and on the dense layout (packed: False: K8 and
         # the dense blocks), which trains an epoch and tests; only
-        # parallelism is still refused.
+        # sequence parallelism is still refused.
         out = run(capsys, "--config_path", write_cfg(env, name="tiny5c", ckpt="ckpt_bf16_compat"),
                   "--num_epochs", "1", *flags)
         assert "Training Epoch - 1" in out

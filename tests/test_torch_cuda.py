@@ -4,8 +4,10 @@ K6, K7, K8, K9, K10, the GEMM's three layouts and the content-attention
 pair's forward too), K4
 and K5 at both types launched twice bit for bit, the serving path on the
 card against the same localizer on the CPU, an AsyncLocalizer burst against
-localize_batch, and train steps (fp32 and bf16) on the card against the same
-steps on the CPU. They skip where there is no CUDA device.
+localize_batch, train steps (fp32 and bf16) on the card against the same
+steps on the CPU, and data parallelism on one card (two gloo ranks and a
+one-rank NCCL group against one process's steps, two serving replicas named on
+cuda:0). They skip where there is no CUDA device.
 
 The file imports neither JAX nor the JAX package, so the card machine runs it
 without them:
@@ -2599,3 +2601,110 @@ def test_content_attn_bf16_backward_matches_plain(card, cfg, B):
     for g_, a_, w_, name in zip(got, again, want, ("dh", "dq", "dfwh", "dkhat", "dfsh")):
         assert g_.dtype == w_.dtype and torch.equal(g_, a_), name
         _bulk_rel_bf16(g_, w_, name)
+
+
+# --------------------------------------------------------------------- #
+# Data parallelism on one card (chip_smoke.py phase 23 at the full width)
+# --------------------------------------------------------------------- #
+def _dp_ranks(tmp_path, cases, devices, backend):
+    """tests/_torch_dp_workers.py's `run_cases` on one rank a device of
+    ``devices``; returns each rank's results."""
+    import _torch_dp_workers
+    from video_moment_localization_tpu_torch.parallel import mesh
+
+    pattern = str(tmp_path / "rank%d.pt")
+    mesh.spawn(_torch_dp_workers.run_cases, len(devices), devices, backend,
+               args=(cases, pattern, devices[0]), timeout_s=300)
+    return [torch.load(pattern % r, weights_only=False) for r in range(len(devices))]
+
+
+def _one_process(cfg, state, batches, device, lr):
+    """The same steps in this process without a group: losses, step-1
+    gradients, parameters after each step."""
+    model = SMIN(cfg)
+    model.load_state_dict(state)
+    step = make_train_step(cfg, model, build_optimizer(Config(model=cfg, lr=lr), model),
+                           device=device)
+    losses, params, grads = [], [], None
+    for k, b in enumerate(batches):
+        losses.append(float(step({n: torch.from_numpy(v) for n, v in b.items()})["loss"]))
+        if k == 0:
+            grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+        params.append({n: p.detach().cpu().clone() for n, p in model.named_parameters()})
+    return losses, grads, params
+
+
+def test_two_gloo_ranks_on_one_card_match_one_process(card, tmp_path):
+    """Two gloo ranks on cuda:0 (NCCL cannot put two ranks on one card), 3
+    Adam steps of a global B=8: the global losses (step 1 within 1e-5, all
+    within 2e-4) and the reduced step-1 gradients against one process's
+    steps on the card, the parameters equal across the ranks bit for bit
+    after every step, K1 / K2 / K3 launched 3 + 3, 9 and 9 times on each
+    rank; a global batch whose shards hold 4 and 1 valid samples the same
+    way."""
+    torch.manual_seed(0)
+    state = SMIN(TINY).state_dict()
+    batches = [{k: v.numpy() for k, v in _train_batch(TINY, 8, seed=k).items()}
+               for k in range(3)]
+    tail = {k: v.copy() for k, v in batches[0].items()}
+    for v in tail.values():
+        v[5:] = 0
+    model = dataclasses.asdict(TINY)
+    cases = [dict(name="steps", model=model, state=state, batches=batches, lr=5e-4),
+             dict(name="tail", model=model, state=state, batches=[tail], lr=5e-4)]
+    ranks = _dp_ranks(tmp_path, cases, ["cuda:0", "cuda:0"], "gloo")
+    n = TINY.num_smi_layers
+    for name, bs in (("steps", batches), ("tail", [tail])):
+        losses, grads, params = _one_process(TINY, state, bs, card, 5e-4)
+        got = ranks[0][name]
+        assert ranks[1][name]["loss"] == got["loss"]
+        np.testing.assert_allclose(got["loss"][0], losses[0], rtol=1e-5)
+        np.testing.assert_allclose(got["loss"], losses, rtol=2e-4)
+        scale = max(float(g.abs().max()) for g in grads.values())
+        for p, g in grads.items():
+            _assert_grad_close(got["grads"][p], g, f"{name} {p}", scale)
+        for a, b in zip(got["params"], ranks[1][name]["params"]):
+            assert all(torch.equal(a[p], b[p]) for p in a), name
+    for r in ranks:
+        assert r["steps"]["launches"] == {"K1f": 3, "K1b": 3, "K2": 3 * n, "K3": 3 * n}
+
+
+def test_one_rank_nccl_group_step_equals_the_single_device_step(card, tmp_path):
+    """A NCCL group of one rank on cuda:0: its step (the global count from the
+    host, the gradient all-reduce over one rank) equals the step without a
+    group bit for bit, losses, gradients and parameters."""
+    torch.manual_seed(1)
+    state = SMIN(TINY).state_dict()
+    batches = [{k: v.numpy() for k, v in _train_batch(TINY, 6, seed=10 + k).items()}
+               for k in range(2)]
+    (rank,) = _dp_ranks(tmp_path, [dict(name="nccl", model=dataclasses.asdict(TINY),
+                                         state=state, batches=batches, lr=1e-3)],
+                        ["cuda:0"], "nccl")
+    losses, grads, params = _one_process(TINY, state, batches, card, 1e-3)
+    got = rank["nccl"]
+    assert got["loss"] == losses
+    assert all(torch.equal(got["grads"][p], g) for p, g in grads.items())
+    for a, b in zip(got["params"], params):
+        assert all(torch.equal(a[p], b[p]) for p in a)
+
+
+def test_replicated_serving_on_one_card(card):
+    """A localizer with two replicas named on cuda:0 (the split and the
+    gather, each slice with its own event) against one device's."""
+    torch.manual_seed(0)
+    model = SMIN(TINY)
+    emb = WordEmbedding.synthetic(["person", "opens", "the", "door", "sits"], dim=300)
+    one = MomentLocalizer(TINY, model, emb, serve_batch=8)
+    two = MomentLocalizer(TINY, SMIN(TINY), emb, serve_batch=8, devices=["cuda:0", "cuda:0"])
+    two.model.load_state_dict(model.state_dict())
+    assert two.bucket_sizes == [2, 4, 8] and two._replicas[0] is two._replicas[1]
+    rng = np.random.default_rng(2)
+    vids = [rng.standard_normal((int(n), 12)).astype(np.float32) for n in (5, 16, 40)]
+    reqs = [(vids[k % 3], ["person opens the door", "the xylophone sits"][k % 2], 9.0)
+            for k in range(13)]
+    handle = two.dispatch(reqs[:7], top_k=5)
+    assert len(handle[2]) == 2 and all(p[2] is not None for p in handle[2])
+    two.collect(handle)
+    for g, c in zip(two.localize_batch(reqs, top_k=5), one.localize_batch(reqs, top_k=5)):
+        assert [(m.start, m.end) for m in g] == [(m.start, m.end) for m in c]
+        np.testing.assert_allclose([m.score for m in g], [m.score for m in c], atol=1e-5)

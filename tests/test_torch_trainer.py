@@ -33,7 +33,7 @@ from video_moment_localization_tpu_torch.config import load_config
 from video_moment_localization_tpu_torch.data.pipeline import BatchLoader
 from video_moment_localization_tpu_torch.data.synthetic import write_charades_style_dir
 from video_moment_localization_tpu_torch.models.port import state_dict_from_jax_params
-from video_moment_localization_tpu_torch.train.trainer import Trainer, build_datasets
+from video_moment_localization_tpu_torch.train.trainer import Trainer, build_datasets, check_world
 from video_moment_localization_tpu_torch.utils import checkpoint as ckpt_mod
 from video_moment_localization_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
@@ -225,11 +225,24 @@ def test_step_error_stops_the_loader_thread(data_dir):
     (dict(model=dict(compute_dtype="bfloat16", packed=False)), "bf16"),
 ])
 def test_refuses_unported_settings(data_dir, change, item):
-    """Parallelism is refused, naming its ROADMAP item. bf16 runs on every
+    """Sequence parallelism is refused, naming its ROADMAP item. Data
+    parallelism runs one process a device (tests/test_torch_parallel.py):
+    outside a process group a Trainer is one rank, so num_devices=2 is
+    refused with how to start two ranks, as is a global batch that the
+    world does not divide; num_devices=1 trains. bf16 runs on every
     route, the dense layout included: a Trainer builds there for training
     and for ``--test`` alike, and any other compute_dtype is refused for
     both."""
     cfg = load_config(write_cfg(data_dir, "refuse"))
+    if item == "Data parallelism":
+        with pytest.raises(ValueError, match="num_devices=2, but this process is one of 1 "
+                                             "rank.*main --num_devices 2"):
+            Trainer(dataclasses.replace(cfg, **change), device="cpu")
+        with pytest.raises(ValueError, match=r"batch_size \(3\) must be divisible by the "
+                                             r"number of devices \(2\)"):
+            check_world(dataclasses.replace(cfg, **change), 2)
+        assert Trainer(dataclasses.replace(cfg, num_devices=1), device="cpu").world == 1
+        return
     if item == "bf16":
         model = dataclasses.replace(cfg.model, **change["model"])
         for test_only in (False, True):

@@ -96,6 +96,12 @@ class BatchLoader:
     def num_samples(self) -> int:
         return len(self.dataset)
 
+    def global_valid(self, index: int) -> int:
+        """The real samples of the epoch's global batch ``index``, of which
+        each shard holds its slice: the same on every rank, known without a
+        collective (a data-parallel step's loss denominator)."""
+        return max(0, min(self.batch_size, len(self.dataset) - index * self.batch_size))
+
     def _stream(self, epoch: int, counter: int) -> np.random.Generator:
         # Philox 2x64 key: (seed, epoch) in word 0, stream counter in word 1.
         key = [((self.seed & 0xFFFFFFFF) << 32) | (epoch & 0xFFFFFFFF), counter]

@@ -20,6 +20,12 @@ Repeated videos in a chunk are featurized and encoded once (the grouped
 path). Entry points run on the card unless the caller passes
 ``device="cpu"``.
 
+Replicated serving (``devices=[...]``, `MomentLocalizer.from_checkpoint(...,
+num_devices=N)`), the counterpart of the JAX localizer's ``mesh``: one
+replica of the model a device, every bucket a multiple of the device count,
+each chunk split into contiguous slices, one a replica, gathered back in
+order. The grouped path is single-device only, as in the JAX package.
+
 ``compute_dtype: bfloat16`` serves every route with bf16 activations: the
 default route (packed, ``fused_smi``, not ``compat_head``) through the bf16
 variants of the biLSTM and SMI-stack kernels, ``compat_head``, ``fused_smi:
@@ -36,6 +42,8 @@ device call, and a completer thread resolves the futures.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import queue
 import threading
@@ -76,9 +84,11 @@ class Moment:
     score: float
 
 
-def bucket_sizes(serve_batch: int) -> List[int]:
-    """The batch ladder 1, 2, 4, ... below serve_batch, then serve_batch."""
-    sizes, b = [], 1
+def bucket_sizes(serve_batch: int, smallest: int = 1) -> List[int]:
+    """The batch ladder smallest, 2 * smallest, 4 * smallest, ... below
+    serve_batch, then serve_batch: with ``smallest`` the device count of a
+    replicated localizer, every bucket splits evenly over its replicas."""
+    sizes, b = [], smallest
     while b < serve_batch:
         sizes.append(b)
         b *= 2
@@ -97,22 +107,37 @@ class MomentLocalizer:
     memory and copies them without blocking, and enqueues the copy of its
     top-k back to pinned host memory behind an event that `collect` waits
     on: neither waits for the whole stream, so chunks dispatched by one
-    thread overlap the answers collected by another (`AsyncLocalizer`)."""
+    thread overlap the answers collected by another (`AsyncLocalizer`).
+
+    ``devices``: serve replicated, one replica of the model on each device of
+    the list (``device`` is then unused); ``serve_batch`` must be a multiple
+    of their count. A device may be named twice: its replicas share one
+    copy of the weights and run one after the other on its stream. Each
+    replica's slice has its own copies and event, on its own device."""
 
     def __init__(self, model_cfg: ModelConfig, model: SMIN, embedding: WordEmbedding,
                  serve_batch: int = 16, use_nms: bool = False, nms_sigma: float = 0.5,
-                 device: str = "cuda"):
+                 device: str = "cuda", devices: Optional[Sequence[str]] = None):
         self.cfg = model_cfg
-        self.device = resolve_device(device, "MomentLocalizer")
+        self.devices = [resolve_device(d, "MomentLocalizer")
+                        for d in ([device] if devices is None else devices)]
+        if not self.devices or serve_batch % len(self.devices):
+            raise ValueError(f"serve_batch ({serve_batch}) must be a multiple of the device "
+                             f"count ({len(self.devices)})")
+        self.device = self.devices[0]
         self.model = model.to(self.device).eval()
+        copies = {self.device: self.model}
+        for d in self.devices:
+            if d not in copies:
+                copies[d] = copy.deepcopy(self.model).to(d)
+        self._replicas = [copies[d] for d in self.devices]
         self.embedding = embedding
         self.use_nms = use_nms
         self.nms_sigma = nms_sigma
         self.serve_batch = serve_batch
-        self.bucket_sizes = bucket_sizes(serve_batch)
+        self.bucket_sizes = bucket_sizes(serve_batch, len(self.devices))
         self.packed = model_cfg.packed and not model_cfg.compat_head   # pm (B, N)
         check_dtype(model_cfg)
-        self._pinned = self.device.type == "cuda"
 
     def _bucket_for(self, n: int) -> int:
         for b in self.bucket_sizes:
@@ -124,9 +149,13 @@ class MomentLocalizer:
     @classmethod
     def from_checkpoint(cls, config_path: str, glove_path: Optional[str] = None,
                         serve_batch: int = 16, use_nms: Optional[bool] = None,
-                        device: str = "cuda") -> "MomentLocalizer":
+                        device: str = "cuda", num_devices: Optional[int] = None
+                        ) -> "MomentLocalizer":
         """Load the experiment's reference-format checkpoint. use_nms=None
-        inherits the config's ``nms`` eval setting."""
+        inherits the config's ``nms`` eval setting. ``num_devices``: serve
+        replicated over the first N cards (refused past the cards there
+        are), or N replicas on the CPU under ``device="cpu"``; None or 1:
+        one device."""
         cfg: Config = load_config(config_path)
         embedding = WordEmbedding.load(glove_path)
         model_path, _ = checkpoint_paths(cfg.checkpoint_path, cfg.experiment)
@@ -135,9 +164,18 @@ class MomentLocalizer:
             raise FileNotFoundError(f"No saved model at {model_path}!")
         model = SMIN(cfg.model)
         model.load_state_dict(ckpt["model"], strict=True)
+        devices = None
+        if num_devices is not None and num_devices > 1:
+            if torch.device(device).type == "cuda":
+                if num_devices > torch.cuda.device_count():
+                    raise ValueError(f"requested {num_devices} devices, only "
+                                     f"{torch.cuda.device_count()} available")
+                devices = [f"cuda:{i}" for i in range(num_devices)]
+            else:
+                devices = [device] * num_devices
         return cls(cfg.model, model, embedding, serve_batch=serve_batch,
                    use_nms=cfg.nms if use_nms is None else use_nms,
-                   nms_sigma=cfg.nms_sigma, device=device)
+                   nms_sigma=cfg.nms_sigma, device=device, devices=devices)
 
     # ------------------------------------------------------------------ #
     def check_request(self, row: Request) -> None:
@@ -167,12 +205,14 @@ class MomentLocalizer:
         return qf, qm
 
     @torch.no_grad()
-    def _score(self, vf, vm, qf, qm, lm, mm, k: int, vidx=None):
+    def _score(self, vf, vm, qf, qm, lm, mm, k: int, vidx=None, model=None):
         """(values, indices) (B, k) of the top-k proposals: packed pair
-        indices, or flat indices i * L + j of the dense map."""
+        indices, or flat indices i * L + j of the dense map. ``model``: the
+        replica (default: the first)."""
         video_group = None if vidx is None else (vf, vm, vidx)
         pm, ps, pe, _ = smin_forward_inference(
-            self.model, self.cfg, None if vidx is not None else vf,
+            self.model if model is None else model, self.cfg,
+            None if vidx is not None else vf,
             None if vidx is not None else vm, qf, qm, lm, mm, video_group=video_group)
         if self.packed:
             score = proposal_scores_packed(pm, ps, pe, lm, self.cfg.L)
@@ -192,7 +232,9 @@ class MomentLocalizer:
         Rows that carry a 4th element ``video_key`` share one
         featurization and one device encode per key; without it the key is
         the array's identity. When the unique videos fit a bucket at most
-        half the pair bucket, the chunk takes the grouped-video path."""
+        half the pair bucket, the chunk takes the grouped-video path (on a
+        single device). A replicated localizer splits the padded chunk into
+        one contiguous slice a replica (`_score_slice`)."""
         vid_rows: dict = {}     # video key -> (g, prepared video)
         q_cache: dict = {}      # query string -> (qf, qm)
         vidx, vkeys = [], []
@@ -214,37 +256,54 @@ class MomentLocalizer:
             arr = np.stack(rows)
             if npad:
                 arr = np.concatenate([arr, np.zeros((npad,) + arr.shape[1:], arr.dtype)])
-            return self._to_device(torch.from_numpy(arr))
+            return arr
 
         per_row_v = [vid_rows[k][1] for k in vkeys]
         qf = stack([q_cache[row[1]][0] for row in chunk], pad)
         qm = stack([q_cache[row[1]][1] for row in chunk], pad)
         lm = stack([v[2] for v in per_row_v], pad)
         mm = None if self.packed else stack([v[3] for v in per_row_v], pad)
-        if self._bucket_for(len(uniq)) * 2 <= bucket:
+        if len(self.devices) == 1 and self._bucket_for(len(uniq)) * 2 <= bucket:
             gpad = self._bucket_for(len(uniq)) - len(uniq)
-            vf_g = stack([v[0] for v in uniq], gpad)
-            vm_g = stack([v[1] for v in uniq], gpad)
-            gidx = self._to_device(torch.as_tensor(vidx + [0] * pad, dtype=torch.int64))
-            vals, idxs = self._score(vf_g, vm_g, qf, qm, lm, mm, top_k, gidx)
-        else:
-            vf = stack([v[0] for v in per_row_v], pad)
-            vm = stack([v[1] for v in per_row_v], pad)
-            vals, idxs = self._score(vf, vm, qf, qm, lm, mm, top_k)
-        done = None
-        if self._pinned:
+            arrays = (stack([v[0] for v in uniq], gpad), stack([v[1] for v in uniq], gpad),
+                      qf, qm, lm, mm, np.asarray(vidx + [0] * pad, np.int64))
+            return chunk, top_k, [self._score_slice(0, arrays, top_k)]
+        arrays = (stack([v[0] for v in per_row_v], pad), stack([v[1] for v in per_row_v], pad),
+                  qf, qm, lm, mm, None)
+        rows = bucket // len(self.devices)
+        return chunk, top_k, [
+            self._score_slice(r, [None if a is None else a[r * rows: (r + 1) * rows]
+                                  for a in arrays], top_k)
+            for r in range(len(self.devices))]
+
+    def _score_slice(self, r: int, arrays, top_k: int):
+        """Replica ``r`` scores its rows (vf, vm, qf, qm, lm, mm, vidx as
+        host arrays, None where absent) on its device; returns (values,
+        indices, event): on a CUDA device the top-k in pinned host memory
+        behind the event, else on the CPU and no event."""
+        device = self.devices[r]
+        cuda = device.type == "cuda"
+        with torch.cuda.device(device) if cuda else contextlib.nullcontext():
+            vf, vm, qf, qm, lm, mm, vidx = [
+                None if a is None else self._to_device(torch.from_numpy(a), device)
+                for a in arrays]
+            vals, idxs = self._score(vf, vm, qf, qm, lm, mm, top_k, vidx,
+                                     model=self._replicas[r])
+            if not cuda:
+                return vals, idxs, None
             vals, idxs = self._to_host(vals), self._to_host(idxs)
             done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
-        return chunk, top_k, vals, idxs, done
+            done.record(torch.cuda.current_stream(device))
+        return vals, idxs, done
 
-    def _to_device(self, t: torch.Tensor) -> torch.Tensor:
-        """A host tensor on the device; on a CUDA device through pinned
+    @staticmethod
+    def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+        """A host tensor on ``device``; on a CUDA device through pinned
         memory without blocking (the caching host allocator keeps the pinned
         block until the copy has ended)."""
-        if not self._pinned:
-            return t.to(self.device)
-        return t.pin_memory().to(self.device, non_blocking=True)
+        if device.type != "cuda":
+            return t.to(device)
+        return t.pin_memory().to(device, non_blocking=True)
 
     @staticmethod
     def _to_host(t: torch.Tensor) -> torch.Tensor:
@@ -256,12 +315,15 @@ class MomentLocalizer:
 
     def collect(self, handle) -> List[List[Moment]]:
         """Wait for a :meth:`dispatch` handle and build the Moment lists: on
-        a CUDA device it waits on the handle's own event, not on the stream,
-        so chunks dispatched after this one keep running."""
-        chunk, top_k, vals, idxs, done = handle
-        if done is not None:
-            done.synchronize()
-        vals, idxs = vals.numpy(), idxs.numpy()
+        a CUDA device it waits on the handle's own events, one a replica,
+        not on the streams, so chunks dispatched after this one keep
+        running; the replicas' slices are gathered in order."""
+        chunk, top_k, parts = handle
+        for _, _, done in parts:
+            if done is not None:
+                done.synchronize()
+        vals = np.concatenate([p[0].numpy() for p in parts])
+        idxs = np.concatenate([p[1].numpy() for p in parts])
         L = self.cfg.L
         pk = triu_packing(L)
         results: List[List[Moment]] = []

@@ -3,20 +3,33 @@
     python -m video_moment_localization_tpu_torch.main \
         --config_path config/charadessta.yml [--num_epochs N] [--test [--best]] \
         [--nms] [--save_best 'R@1, IoU=0.5'] [--compat_metrics] \
-        [--profile_dir DIR] [--debug_nans] [--device cuda|cpu]
+        [--profile_dir DIR] [--debug_nans] [--device cuda|cpu] \
+        [--num_devices N | --distributed]
 
 The flags of the JAX package's ``main.py``, with the same names and meanings
 (reference main.py:13-28, 278-313), and the same stdout lines. ``--device``
 picks the device (default: the card). ``--compute_dtype bfloat16`` trains
 and tests on every route (the whole-layer route: Charades, TACoS; the
 content-unit route: ActivityNet; the unit loop of ``--compat_metrics`` and
-``fused_smi_train: False``; the dense layout of ``packed: False``);
-``--num_devices`` above 1, ``--seq_devices`` above 1 and ``--distributed``
-are refused with the ROADMAP.md item that brings them. ``--debug_nans`` reads
-each step's loss back and checks every gradient, failing at the first
-non-finite value. GloVe is found as the JAX CLI finds it: the data
-directory's ``glove/glove.6B.300d.txt``, ``$GLOVE_PATH``, then the default
-locations.
+``fused_smi_train: False``; the dense layout of ``packed: False``).
+``--debug_nans`` reads each step's loss back and checks every gradient,
+failing at the first non-finite value. GloVe is found as the JAX CLI finds
+it: the data directory's ``glove/glove.6B.300d.txt``, ``$GLOVE_PATH``, then
+the default locations.
+
+Data parallelism (`parallel.mesh`), one process per device, each loading its
+shard of every global batch, rank 0 alone printing and writing:
+
+* ``--distributed``: this process is one rank started by a launcher, which
+  set ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+  ``MASTER_PORT`` (``torchrun --nproc_per_node N -m
+  video_moment_localization_tpu_torch.main --distributed ...``); its device
+  is ``cuda:LOCAL_RANK``, the backend NCCL (gloo under ``--device cpu``);
+* ``--num_devices N`` (N > 1, no launcher): this process starts the N ranks
+  itself, on ``cuda:0`` ... ``cuda:N-1`` with NCCL (refused past the cards
+  there are), or under ``--device cpu`` as N gloo ranks on the CPU.
+
+``--seq_devices`` above 1 is refused with the ROADMAP.md item that brings it.
 """
 
 from __future__ import annotations
@@ -25,11 +38,15 @@ import argparse
 import dataclasses
 from typing import Optional, Sequence
 
-from video_moment_localization_tpu_torch.config import load_config
+import torch
+
+from video_moment_localization_tpu_torch.config import Config, load_config
 from video_moment_localization_tpu_torch.data.pipeline import BatchLoader
+from video_moment_localization_tpu_torch.parallel import mesh
 from video_moment_localization_tpu_torch.train.trainer import (
     Trainer,
     build_datasets,
+    check_world,
     refuse_unported,
 )
 
@@ -45,7 +62,8 @@ def get_parameters(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--nms", default=False, action="store_true",
                         help="Use soft-NMS proposal selection at eval.")
     parser.add_argument("--num_devices", default=None, type=int,
-                        help="Total device count (the port trains on one).")
+                        help="Data-parallel ranks, one a device; above 1 without a launcher "
+                             "this process starts them.")
     parser.add_argument("--seq_devices", default=None, type=int,
                         help="Sequence-parallel width (the port has none yet).")
     parser.add_argument("--compute_dtype", default=None, choices=["float32", "bfloat16"],
@@ -65,7 +83,9 @@ def get_parameters(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                              "bit-reproducing the reference's top-k tie quirk "
                              "(PARITY.md #16).")
     parser.add_argument("--distributed", default=False, action="store_true",
-                        help="Multi-process training (the port has none yet).")
+                        help="This process is one rank started by a launcher (RANK, "
+                             "WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT); each rank "
+                             "loads its shard of every global batch.")
     parser.add_argument("--device", default="cuda",
                         help="Device to train and test on (default: cuda).")
     return parser.parse_args(argv)
@@ -89,25 +109,56 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         cfg.model = dataclasses.replace(cfg.model, compute_dtype=args.compute_dtype)
     if args.compat_metrics:
         cfg.model = dataclasses.replace(cfg.model, compat_head=True)
-    refuse_unported(cfg, distributed=args.distributed)
+    refuse_unported(cfg)
 
+    n = cfg.num_devices or 1
+    if args.distributed:
+        mesh.initialize_distributed(device=args.device)
+        try:
+            run(args, cfg)
+        finally:
+            torch.distributed.destroy_process_group()
+    elif n > 1:
+        check_world(cfg, n)
+        if torch.device(args.device).type == "cuda":
+            if n > torch.cuda.device_count():
+                raise ValueError(f"--num_devices {n}: requested {n} devices, only "
+                                 f"{torch.cuda.device_count()} available")
+            devices = [f"cuda:{r}" for r in range(n)]
+        else:
+            devices = [args.device] * n
+        mesh.spawn(_rank_run, n, devices, args=(args, cfg))
+    else:
+        run(args, cfg)
+
+
+def _rank_run(rank: int, args: argparse.Namespace, cfg: Config) -> None:
+    """One rank started by `main` (`mesh.spawn`), in its process group."""
+    run(args, cfg)
+
+
+def run(args: argparse.Namespace, cfg: Config) -> None:
+    """Train, or test, as this process's rank (the only one outside a
+    process group): its loaders hold its shard of every global batch."""
     trainer = Trainer(cfg, device=args.device, debug_nans=args.debug_nans, test_only=args.test)
+    shard = dict(shard_id=trainer.rank, num_shards=trainer.world)
     if not args.test:
         train_ds, eval_ds = build_datasets(cfg)
         train_loader = BatchLoader(train_ds, cfg.batch_size, shuffle=True,
-                                   num_workers=cfg.num_workers, seed=cfg.seed)
+                                   num_workers=cfg.num_workers, seed=cfg.seed, **shard)
         eval_loader = BatchLoader(eval_ds, cfg.batch_size, shuffle=False,
-                                  num_workers=cfg.num_workers, seed=cfg.seed)
+                                  num_workers=cfg.num_workers, seed=cfg.seed, **shard)
         trainer.fit(train_loader, eval_loader)
     else:
         test_ds = build_datasets(cfg, test_only=True)
         test_loader = BatchLoader(test_ds, cfg.batch_size, shuffle=False,
-                                  num_workers=cfg.num_workers, seed=cfg.seed)
+                                  num_workers=cfg.num_workers, seed=cfg.seed, **shard)
         trainer.load_for_test(use_best=args.best)
         metrics = trainer.evaluate(test_loader)
-        for k, v in metrics.items():
-            print(f"{k} - {v}")
-        print(f"throughput - {trainer.timer.throughput:.1f} query-video pairs/s")
+        if trainer.is_main:   # one metrics report per job
+            for k, v in metrics.items():
+                print(f"{k} - {v}")
+            print(f"throughput - {trainer.timer.throughput:.1f} query-video pairs/s")
 
 
 if __name__ == "__main__":

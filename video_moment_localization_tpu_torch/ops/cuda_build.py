@@ -8,12 +8,17 @@ never loaded. Nothing is built when a module is imported: the CPU tests
 import every module, and the CPU has no nvcc.
 
 `build` compiles several sources at once, one nvcc process each, started
-together; `load_library` builds one source if needed and loads it.
+together; `load_library` builds one source if needed and loads it. A file
+lock in ``_build/`` makes processes that build at once (the ranks of a
+data-parallel run) take turns: the first compiles, the others find its
+library.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import glob
 import hashlib
@@ -54,13 +59,26 @@ def _library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on ``_build/`` across processes and threads."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with _lock, open(os.path.join(BUILD_DIR, ".lock"), "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        yield
+
+
 def build(names: Sequence[str]) -> Dict[str, str]:
     """Compile the named sources that have no current library, all at once.
 
     Returns {name: library path}. The compiler's report (registers, shared
     memory, spills) is kept in ``_build/<name>.log``. Raises on the first
     source that fails to compile, with nvcc's output."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    with _build_lock():
+        return _build(names)
+
+
+def _build(names: Sequence[str]) -> Dict[str, str]:
     paths = {name: _library_path(name) for name in names}
     jobs = {}
     for name, path in paths.items():
@@ -89,8 +107,7 @@ def build(names: Sequence[str]) -> Dict[str, str]:
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and load it (once per process)."""
-    with _lock:
-        path = build([name])[name]
+    path = build([name])[name]
     lib = ctypes.CDLL(path)
     lib.vml_error_string.argtypes = [ctypes.c_int]
     lib.vml_error_string.restype = ctypes.c_char_p

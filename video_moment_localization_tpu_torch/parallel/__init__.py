@@ -1,1 +1,2 @@
-"""Train and eval steps of the PyTorch port (see the package docstring)."""
+"""Data parallelism (`mesh`) and the train and eval steps (`steps`) of the PyTorch port
+(see the package docstring)."""

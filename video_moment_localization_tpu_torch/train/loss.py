@@ -43,12 +43,16 @@ def scaled_bce(p: torch.Tensor, y: torch.Tensor, s: Optional[torch.Tensor],
 
 
 def smin_loss(outputs: Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
-              batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+              batch: Dict[str, torch.Tensor], denominator: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total SMIN loss, averaged over valid samples. Packed outputs (pm
     (B, N)) take the pair-validity mask from ``length_mask``; dense ones (pm
     (B, L, L): ``packed: False`` or ``compat_head``) take
     ``batch["moment_mask"]``. Returns (loss, {"per_sample": (B,),
-    "num_valid": ()})."""
+    "num_valid": (), "loss_sum": ()}): the batch's valid samples and the sum
+    of their losses. ``denominator``: what the sum is divided by in place of
+    the batch's own valid count; a data-parallel rank passes the global
+    batch's, so that the loss is its share of the global batch's mean."""
     pm, ps, pe, pa = outputs
     length_mask = batch["length_mask"].float()
     if pm.dim() == 2:
@@ -65,5 +69,7 @@ def smin_loss(outputs: Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Ten
     if sample_mask is None:
         sample_mask = torch.ones_like(per_sample)
     num_valid = sample_mask.sum()
-    loss = (per_sample * sample_mask).sum() / num_valid.clamp(min=1.0)
-    return loss, {"per_sample": per_sample, "num_valid": num_valid}
+    loss_sum = (per_sample * sample_mask).sum()
+    denominator = num_valid if denominator is None else denominator
+    loss = loss_sum / denominator.clamp(min=1.0)
+    return loss, {"per_sample": per_sample, "num_valid": num_valid, "loss_sum": loss_sum}

@@ -1,4 +1,4 @@
-"""Training/eval/test orchestration on one device.
+"""Training/eval/test orchestration, on one device or data-parallel.
 
 Counterpart of ``video_moment_localization_tpu/train/trainer.py``, with the
 public behaviour of the reference orchestration (reference
@@ -16,15 +16,22 @@ NumPy arrays; the trainer copies each through pinned memory with a
 non-blocking transfer on the main thread, dispatches the steps with no host
 read per step, and reads the losses and counts back once per epoch.
 
-Not in this module yet: the JAX trainer's device mesh, multi-process and 2-D
-(data x sequence) paths and its automatic SMI rematerialization. A config
-that asks for the first two is refused with the ROADMAP.md item that brings
-them.
+Data parallelism, as the JAX trainer's 1-D ``data`` mesh: one process per
+device in a ``torch.distributed`` group (`parallel.mesh`). Each rank's
+loaders hold its shard of every global batch (``shard_id=rank``,
+``num_shards=world``), the train step sums the ranks' gradients, and one
+all-reduce an epoch sums the loss sums, valid counts and recall counts.
+Rank 0 alone prints and writes the stats file and the checkpoints; every
+rank resumes and loads for ``--test``. The JAX trainer's automatic SMI
+rematerialization comes with it (`maybe_enable_remat`, against this
+device's memory). Not in this module yet: the 2-D (data x sequence) mesh,
+which is refused with the ROADMAP.md item that brings it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -34,7 +41,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from video_moment_localization_tpu_torch.config import Config
+from video_moment_localization_tpu_torch.config import Config, ModelConfig
 from video_moment_localization_tpu_torch.data.datasets import get_dataset_class
 from video_moment_localization_tpu_torch.data.glove import WordEmbedding
 from video_moment_localization_tpu_torch.data.pipeline import BatchLoader
@@ -43,6 +50,7 @@ from video_moment_localization_tpu_torch.models.smin import (
     check_dtype,
 )
 from video_moment_localization_tpu_torch.ops.cuda_build import resolve_device
+from video_moment_localization_tpu_torch.parallel import mesh
 from video_moment_localization_tpu_torch.parallel.steps import (
     build_optimizer,
     make_eval_step,
@@ -59,23 +67,70 @@ from video_moment_localization_tpu_torch.utils.profiling import StepTimer, trace
 # Steps dispatched between two waits for the device: bounds the batches in
 # flight without giving up the overlap of host and device work.
 DRAIN_EVERY = 16
+# The share of this device's memory that the SMI residuals may take before
+# the trainer turns on rematerialization (`remat_budget`): half, leaving the
+# other half to the weights, Adam's moments, the kernels' workspaces and the
+# allocator's slack. On an 80 GB H100 the ActivityNet B=64 step's estimate,
+# 16.4e9 bytes packed and 32.2e9 dense (27.55 GiB measured peak), stays
+# under it; the JAX trainer's budget is a TPU chip's 6e9.
+REMAT_MEMORY_SHARE = 0.5
 
 
-def refuse_unported(cfg: Config, distributed: bool = False) -> None:
+def refuse_unported(cfg: Config) -> None:
     """Raise NotImplementedError for a setting whose path the port does not
     have yet, naming the ROADMAP.md item that brings it, instead of running
     something else. The model's compute dtype and route: what the train and
     eval steps take (`check_dtype`)."""
-    if distributed or (cfg.num_devices is not None and cfg.num_devices != 1):
-        what = "--distributed" if distributed else f"num_devices={cfg.num_devices}"
-        raise NotImplementedError(
-            f"{what}: the PyTorch port trains on one device; data parallelism is "
-            f"ROADMAP.md §1 'Data parallelism'")
     if cfg.seq_devices > 1:
         raise NotImplementedError(
             f"seq_devices={cfg.seq_devices}: sequence and 2-D parallelism are not in the "
             f"PyTorch port yet (ROADMAP.md §1 'Sequence and 2-D parallelism')")
     check_dtype(cfg.model)
+
+
+def check_world(cfg: Config, world: int) -> None:
+    """Raise ValueError unless ``cfg`` fits a data-parallel run of ``world``
+    ranks: ``num_devices`` (None: the world) equal to it and the global batch
+    divisible by it, as the JAX trainer checks its mesh."""
+    n = world if cfg.num_devices is None else cfg.num_devices
+    if n != world:
+        raise ValueError(
+            f"num_devices={n}, but this process is one of {world} rank(s): start {n} ranks "
+            f"with `main --num_devices {n}` or with a launcher and `--distributed`")
+    if cfg.batch_size % world:
+        raise ValueError(f"batch_size ({cfg.batch_size}) must be divisible by the number of "
+                         f"devices ({world})")
+
+
+def remat_budget(device) -> float:
+    """Bytes the SMI residuals may take on ``device``: REMAT_MEMORY_SHARE of
+    the card's memory, or on the CPU of the host's."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        total = torch.cuda.get_device_properties(device).total_memory
+    else:
+        total = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    return REMAT_MEMORY_SHARE * total
+
+
+def maybe_enable_remat(m: ModelConfig, batch_size: int, world: int, budget: float,
+                       verbose: bool = True) -> ModelConfig:
+    """``m`` with ``remat_smi`` on when the JAX trainer's estimate of the
+    backward's residuals for one device's batch exceeds ``budget`` bytes
+    (its ``_maybe_enable_remat``: about 5 content-unit tensors of (B, N, C,
+    D) a layer); ``m`` itself otherwise. Numerically invisible."""
+    if m.remat_smi:
+        return m
+    per_dev_b = batch_size // world
+    n_pairs = m.L * (m.L + 1) // 2 if m.packed else m.L * m.L
+    itemsize = 2 if m.compute_dtype == "bfloat16" else 4
+    est = m.num_smi_layers * 5 * per_dev_b * n_pairs * m.C * m.D * itemsize
+    if est <= budget:
+        return m
+    if verbose:
+        print(f"[trainer] enabling SMI remat: estimated residuals {est / 1e9:.1f} GB/device "
+              f"exceed the budget of {budget / 1e9:.1f} GB")
+    return dataclasses.replace(m, remat_smi=True)
 
 
 def build_datasets(cfg: Config, embedding: Optional[WordEmbedding] = None,
@@ -101,8 +156,20 @@ def build_datasets(cfg: Config, embedding: Optional[WordEmbedding] = None,
     return train, evald
 
 
+def write_stats(path: str, stats: Dict[str, list]) -> None:
+    """The cumulative ``{experiment}_stats.json``, rewritten."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(stats, f)
+
+
 class Trainer:
     """Owns the model, the optimizer, the steps and the epoch loop.
+
+    In a process group (`parallel.mesh.initialize_distributed`) the Trainer
+    is one rank of a data-parallel run: its device is `mesh.device_for_rank`
+    of ``device``, its loaders must be this rank's shards, and its replica
+    starts from rank 0's weights (`mesh.put_replicated`).
 
     ``state_dict``: initial weights (a SMIN state_dict) in place of the
     seeded initialization, for example a JAX parameter tree carried across
@@ -116,17 +183,26 @@ class Trainer:
                  state_dict: Optional[Dict[str, torch.Tensor]] = None, debug_nans: bool = False,
                  test_only: bool = False):
         refuse_unported(cfg)
+        self.world, self.rank, self.group = mesh.world_size(), mesh.rank(), mesh.default_group()
+        check_world(cfg, self.world)
+        self.is_main = self.rank == 0
         self.cfg = cfg
         self.debug_nans = debug_nans
+        if self.group is not None:
+            device = mesh.device_for_rank(device)
         self.device = resolve_device(device, "Trainer")
+        cfg.model = maybe_enable_remat(cfg.model, cfg.batch_size, self.world,
+                                       remat_budget(self.device), verbose=self.is_main)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed)
             self.model = SMIN(cfg.model)
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
+        mesh.put_replicated(self.model.to(self.device), self.group)
         self.optimizer = build_optimizer(cfg, self.model)
         self.train_step = (None if test_only else
-                           make_train_step(cfg.model, self.model, self.optimizer, self.device))
+                           make_train_step(cfg.model, self.model, self.optimizer, self.device,
+                                           group=self.group))
         self.eval_step = make_eval_step(cfg.model, self.model, device=self.device)
         self.test_step = make_eval_step(cfg.model, self.model, use_nms=cfg.nms,
                                         nms_sigma=cfg.nms_sigma, device=self.device)
@@ -140,17 +216,11 @@ class Trainer:
 
     # ------------------------------------------------------------------ #
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
-        """The batch's arrays as tensors on the device: through pinned host
-        memory and a non-blocking copy on the card. Called on the main
-        thread only; the loader's threads touch no device."""
-        out = {}
-        for k, v in batch.items():
-            if isinstance(v, np.ndarray):
-                t = torch.from_numpy(v)
-                if self.device.type == "cuda":
-                    t = t.pin_memory().to(self.device, non_blocking=True)
-                out[k] = t
-        return out
+        """The batch's arrays as tensors on the device (`mesh.put_batch`:
+        through pinned host memory and a non-blocking copy on the card).
+        Called on the main thread only; the loader's threads touch no
+        device."""
+        return mesh.put_batch(batch, self.device)
 
     def _check_finite(self, m, epoch: int, step: int, train: bool) -> None:
         """--debug_nans: one host read of the loss and, after a train step,
@@ -172,35 +242,42 @@ class Trainer:
                    step_fn=None) -> Tuple[float, Dict[str, float]]:
         """One pass over a loader; returns (avg loss, normalized metrics).
 
-        Steps are dispatched back to back with no host read (the valid-sample
-        counts come from the host-side batch), with a wait for the device
-        every DRAIN_EVERY steps; the losses and counts are read back once at
-        the end."""
+        Steps are dispatched back to back with no host read, with a wait for
+        the device every DRAIN_EVERY steps. Each step's loss sum, valid
+        count and recall counts stay on the device until the end: then one
+        float64 sum over the steps, one all-reduce over the ranks
+        (`mesh.all_reduce_sums`) and one read back. A data-parallel train
+        batch carries its global batch's valid count (`parallel.steps`)."""
+        if (loader.shard_id, loader.num_shards) != (self.rank, self.world):
+            raise ValueError(f"loader shard {loader.shard_id} of {loader.num_shards}, but this "
+                             f"Trainer is rank {self.rank} of {self.world}")
         step_fn = step_fn or (self.train_step if train else self.eval_step)
-        per_step, n_valid = [], []
+        per_step = []
         self.timer.start()
         # closing(): a step that raises stops the loader's producer thread at
         # once, not when the traceback that holds the generator is freed.
         with contextlib.closing(loader.epoch(epoch)) as batches:
             for i, batch in enumerate(batches):
+                if train and self.group is not None:
+                    batch = dict(batch, global_valid=np.asarray(loader.global_valid(i),
+                                                                np.float32))
                 m = step_fn(self._to_device(batch))
-                per_step.append(m)
-                n_valid.append(float(batch["sample_mask"].sum()))
+                per_step.append(torch.cat([m["loss_sum"].reshape(1), m["num_valid"].reshape(1),
+                                           m["counts"].reshape(-1)]).double())
                 if self.debug_nans:
                     self._check_finite(m, epoch, i + 1, train)
                 if (i + 1) % DRAIN_EVERY == 0 and self.device.type == "cuda":
                     torch.cuda.current_stream(self.device).synchronize()
-        loss_sum, counts_sum, num = 0.0, None, 0.0
-        if per_step:
-            losses = torch.stack([m["loss"] for m in per_step]).cpu().tolist()
-            counts = torch.stack([m["counts"] for m in per_step]).cpu().numpy()
-            for loss, c, n in zip(losses, counts, n_valid):
-                loss_sum += loss * n
-                counts_sum = c if counts_sum is None else counts_sum + c
-                num += n
-        self.timer.stop(int(num))
-        metrics = counts_to_dict(counts_sum / max(num, 1.0)) if counts_sum is not None else {}
-        return loss_sum / max(num, 1.0), metrics
+        if not per_step:   # the same on every rank: each emits a batch per global batch
+            self.timer.stop(0)
+            return 0.0, {}
+        sums = mesh.all_reduce_sums(torch.stack(per_step).sum(0), self.group).cpu().numpy()
+        num = max(float(sums[1]), 1.0)
+        self.timer.stop(int(sums[1]))
+        # Counts are whole numbers: float32 holds them exactly, and their
+        # shares come out in float32, as the JAX trainer's do.
+        counts = sums[2:].astype(np.float32).reshape(m["counts"].shape)
+        return float(sums[0]) / num, counts_to_dict(counts / num)
 
     # ------------------------------------------------------------------ #
     def _existing_stats(self, start_epoch: int) -> Dict[str, list]:
@@ -239,6 +316,11 @@ class Trainer:
             raise FileNotFoundError(f"No saved model at {path}!")
         self.model.load_state_dict(ckpt["model"], strict=True)
 
+    def _say(self, line: str) -> None:
+        """A stdout line, from rank 0 only."""
+        if self.is_main:
+            print(line)
+
     # ------------------------------------------------------------------ #
     def fit(self, train_loader: BatchLoader, eval_loader: BatchLoader) -> None:
         if self.train_step is None:
@@ -250,7 +332,7 @@ class Trainer:
 
         with trace_context(self.cfg.profile_dir):
             for epoch in range(start_epoch, self.cfg.num_epochs + 1):
-                print(f"Training Epoch - {epoch}")
+                self._say(f"Training Epoch - {epoch}")
                 self.timer.reset()
                 train_loss, train_metrics = self._run_epoch(train_loader, epoch, True)
                 train_tput = self.timer.throughput
@@ -258,15 +340,15 @@ class Trainer:
                 do_eval = epoch % self.cfg.eval_every == 0 or epoch == self.cfg.num_epochs
                 if do_eval:
                     eval_loss, eval_metrics = self._run_epoch(eval_loader, epoch, False)
-                    print(f"Training Loss - {train_loss:.4f}, Eval Loss - {eval_loss:.4f}")
+                    self._say(f"Training Loss - {train_loss:.4f}, Eval Loss - {eval_loss:.4f}")
                 else:
                     eval_loss, eval_metrics = None, {}
-                    print(f"Training Loss - {train_loss:.4f}")
+                    self._say(f"Training Loss - {train_loss:.4f}")
                 for k, v in train_metrics.items():
-                    print(f"train_{k} - {v}")
+                    self._say(f"train_{k} - {v}")
                 for k, v in eval_metrics.items():
-                    print(f"eval_{k} - {v}")
-                print(f"throughput - {train_tput:.1f} query-video pairs/s (train)")
+                    self._say(f"eval_{k} - {v}")
+                self._say(f"throughput - {train_tput:.1f} query-video pairs/s (train)")
 
                 stats["epoch"].append(epoch)
                 stats["train_loss"].append(train_loss)
@@ -281,17 +363,21 @@ class Trainer:
                 for k, v in eval_metrics.items():
                     stats[f"eval_{k}"].append(v)
 
-                os.makedirs(os.path.dirname(self.stats_path) or ".", exist_ok=True)
-                with open(self.stats_path, "w") as f:
-                    json.dump(stats, f)
-                save_checkpoint(self.model_path, epoch, self.model, self.optimizer)
+                # Every rank holds the same stats and weights; rank 0 writes
+                # them, as the JAX trainer's process 0 does.
+                if self.is_main:
+                    write_stats(self.stats_path, stats)
+                    save_checkpoint(self.model_path, epoch, self.model, self.optimizer)
                 if best_key is not None and self.cfg.save_best in eval_metrics:
                     current = eval_metrics[self.cfg.save_best]
                     if current > best:
                         best = current
-                        save_checkpoint(self.best_model_path, epoch, self.model,
-                                        self.optimizer)
-                        print(f"new best {best_key} - {best} (epoch {epoch})")
+                        if self.is_main:
+                            save_checkpoint(self.best_model_path, epoch, self.model,
+                                            self.optimizer)
+                        self._say(f"new best {best_key} - {best} (epoch {epoch})")
+        # No rank returns before rank 0's last checkpoint is whole on disk.
+        mesh.barrier(self.group)
 
     def evaluate(self, loader: BatchLoader) -> Dict[str, float]:
         """Metrics-only pass over a test loader (reference main.py:193-211)."""
