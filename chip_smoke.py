@@ -249,7 +249,31 @@ Phases (any failed check exits non-zero; no phase's failure is caught):
     ``localize_batch``; (e) the Charades step at world 1 without and with
     the gradient reduction (a one-process NCCL group) and the reduction
     alone, beside the two gloo ranks' step and all-reduce, labelled as
-    one-card, host-staged figures.
+    one-card, host-staged figures;
+24. sequence and 2-D parallelism on one card (`parallel.model_parallel`):
+    gloo ranks started by `mesh.spawn`, all on cuda:0, their seq
+    collectives staged through the host (the route printed); (a) the full
+    Charades config (T=64, L=16, D=512, 3 layers), global B=64, on the
+    (1 x 2) and (2 x 2) grids, packed and dense (``compat_head``): 3 Adam
+    steps from the weights of one process's `make_train_step` on the card
+    (the kernel routes), the global losses within TRAIN_LOSS_RTOL, the
+    step-1 gradients summed over the world within GRAD_RTOL / GRAD_ATOL_REL
+    of each module's largest magnitude, the counts equal each step (else
+    the tied scores printed), the parameters
+    after the last step within the JAX 2-D tests' tolerances (packed rtol
+    3e-4 / atol 3e-5, dense 5e-4 / 5e-5), equal across the ranks bit for
+    bit after every step, and no kernel of K1-K10 launched (the 2-D path is
+    plain PyTorch, as the JAX one is XLA); (b) config/activitynet.yml
+    (T=128, L=64, N=2080), packed, B=64, one step at seq 1 (this process),
+    2 and 4: the peak device memory of each rank and the step's wall time;
+    the packed pool's reduce-scatter and its backward all-gather alone on
+    the Charades B=64 buffer, per spawn; (c) the long-video configuration of tests/test_seq_packed.py
+    (T=512, L=32, D=512, dl=128), one (2 x 2) step: finite loss and
+    parameters; (d) the CLI at ``--num_devices 2 --seq_devices 2 --device
+    cuda:0`` (two gloo ranks on the card), one epoch on phase 17's directory, its epoch-1
+    stats within DP_FIT_TOL of phase 17's, stdout, stats and checkpoint
+    written once, by rank 0. Times and bytes are one-card, host-staged gloo
+    figures, printed with the card's name and power limit.
 
 Each phase prints its seconds.
 
@@ -283,7 +307,8 @@ K9-bf16), a ``{"gemm": [...]}`` line, the plans, a ``{"files_training":
 {...}}`` line (phase 17), ``{"async_serving": {...}}`` (phase 18),
 ``{"bf16_serving": {...}}`` (phase 19), ``{"bf16_training": {...}}`` (phase
 20), ``{"bf16_content": {...}}`` (phase 21), ``{"bf16_dense": {...}}``
-(phase 22) and ``{"data_parallel": {...}}`` (phase 23), then as the last line
+(phase 22), ``{"data_parallel": {...}}`` (phase 23) and ``{"seq_parallel":
+{...}}`` (phase 24), then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is visible or the package is not beside this script.
 """
@@ -4814,6 +4839,420 @@ def phase_dp(config, anet, files, serving, seed, rng, device, tmp):
         spawn_seconds=spawn_s, seconds=time.perf_counter() - t_phase)
 
 
+# ------------------------------------------------------------------------- #
+# Phase 24: sequence and 2-D parallelism on one card
+# ------------------------------------------------------------------------- #
+# The ranks share the card through gloo, as in phase 23; the seq collectives
+# stage through the host for a gloo group (`parallel.collectives.route`). The
+# 2-D steps run the plain PyTorch units (the JAX sequence-parallel forward
+# runs on XLA alone), so they launch none of K1-K10. They are held to one
+# process's steps on the card, which run the kernel routes, with the JAX 2-D
+# tests' tolerances for the parameters after 3 Adam steps (packed: rtol 3e-4
+# / atol 3e-5, tests/test_seq_packed.py:97; dense: 5e-4 / 5e-5,
+# tests/test_train_2d.py:63). The CLI's epoch is held to phase 17's epoch 1
+# as phase 23 (b) holds its fit.
+SEQ_GRIDS = ((1, 2), (2, 2))
+SEQ_PARAM_TOL = {"packed": dict(rtol=3e-4, atol=3e-5), "dense": dict(rtol=5e-4, atol=5e-5)}
+SEQ_MEMORY_WIDTHS = (1, 2, 4)
+SEQ_COLLECTIVE_REPS = 3
+# tests/test_seq_packed.py:100-124: the long-video configuration at its widths.
+SEQ_LONG = dict(T=512, L=32, C=4, D=512, dl=128, num_smi_layers=1, input_video_dim=64,
+                max_query_length=8, lstm_hidden_size=256)
+SEQ_TIMEOUT_S = 600
+
+
+def seq_data_shard(batch, grid):
+    """Data index ``grid.data``'s rows of a global host batch (NumPy), with
+    the global batch's valid count."""
+    import numpy as np
+
+    b = len(batch["sample_mask"]) // grid.nd
+    out = {k: np.ascontiguousarray(v[grid.data * b:(grid.data + 1) * b]) for k, v in batch.items()}
+    out["global_valid"] = np.asarray(batch["sample_mask"].sum(), np.float32)
+    return out
+
+
+def seq_steps(case, grid, device, counters):
+    """A case's 2-D train steps on this rank: per step the global loss, the
+    global counts, whether the parameters equal rank 0's bit for bit, the
+    wall ms (ending in a synchronize; gloo blocks the host) and, with
+    "outputs", this data shard's (pm, ps, pe) before the step from its seq
+    rank 0; the peak device memory over the steps (and what was allocated
+    before them), the kernels launched, and with "params" the parameters
+    after the last step and, on rank 0, the step-1 gradients summed over
+    the world (what the optimizer took)."""
+    import torch
+    import torch.distributed as dist
+
+    from video_moment_localization_tpu_torch.models.smin import SMIN
+    from video_moment_localization_tpu_torch.parallel import mesh
+    from video_moment_localization_tpu_torch.parallel.model_parallel import (
+        make_train_step_2d,
+        put_batch_2d,
+        seq_forward,
+    )
+    from video_moment_localization_tpu_torch.parallel.steps import build_optimizer
+
+    config = case["config"]
+    cfg = config.model
+    torch.manual_seed(case["seed"])
+    model = SMIN(cfg)
+    if case.get("state") is not None:
+        model.load_state_dict(case["state"])
+    mesh.put_replicated(model.to(device), grid.world_group)
+    step = make_train_step_2d(cfg, model, build_optimizer(config, model), grid, device)
+    res = {"loss": [], "counts": [], "equal": [], "outputs": [], "step_ms": []}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    res["start_gib"] = torch.cuda.memory_allocated(device) / 2**30
+    for batch in case["batches"]:
+        b = put_batch_2d(seq_data_shard(batch, grid), grid, device)
+        if case.get("outputs"):
+            with torch.no_grad():
+                outs = seq_forward(cfg, model, b, grid.seq_group)
+            res["outputs"].append(tuple(o.cpu() for o in outs[:3]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(b)
+        torch.cuda.synchronize()
+        res["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        if case.get("params") and not res.get("grads") and grid.data == grid.seq_index == 0:
+            res["grads"] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        res["loss"].append(float(mesh.all_reduce_sums(m["loss"].clone(), grid.data_group)))
+        res["counts"].append(mesh.all_reduce_sums(m["counts"].double(), grid.data_group).cpu())
+        flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+        first = flat.clone()
+        if grid.world_group is not None:
+            dist.broadcast(first, src=0, group=grid.world_group)
+        res["equal"].append(bool(torch.equal(flat, first)))
+    res["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    res["launches"] = dp_counts(counters)
+    res["finite"] = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    if case.get("params"):
+        res["params"] = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    del model, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def seq_rank(rank, job_path, out_pattern):
+    """One rank of phase 24 (`parallel.mesh.spawn`: gloo, every rank on
+    cuda:0): each case of the job (`seq_steps`) on the (data x seq) grid of
+    its "seq" over all the ranks. Saves the results and the collectives'
+    route to ``out_pattern % rank``."""
+    import torch
+
+    from video_moment_localization_tpu_torch.parallel import collectives, mesh
+
+    job = torch.load(job_path, weights_only=False)
+    device = torch.device(job["device"])
+    counters = dp_counters()
+    grids, out = {}, {}
+    for case in job["cases"]:
+        seq = case["seq"]
+        if seq not in grids:
+            grids[seq] = mesh.make_grid_2d(seq)
+        grid = grids[seq]
+        out["route"] = collectives.route(grid.seq_group)
+        out[case["name"]] = dict(seq_steps(case, grid, device, counters),
+                                 grid=(grid.nd, grid.seq), data=grid.data,
+                                 seq_index=grid.seq_index)
+    # The packed pool's collectives alone on the Charades step's buffer (its
+    # forward reduce-scatter, its backward all-gather), over a seq group of 2.
+    group = grids[2].seq_group
+    part = torch.randn(job["pool_shape"], device=device)
+    chunk = collectives.reduce_scatter(part, 1, group)
+    out["pool_ms"] = {}
+    for name, fn in (("reduce_scatter", lambda: collectives.reduce_scatter(part, 1, group)),
+                     ("all_gather", lambda: collectives.all_gather(chunk, 1, group))):
+        walls = []
+        for _ in range(SEQ_COLLECTIVE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out["pool_ms"][name] = statistics.median(walls)
+    torch.save(out, out_pattern % rank)
+
+
+def seq_reference(config, state, batches, device):
+    """One process's 3 steps on the card (the kernel routes): losses,
+    counts, (pm, ps, pe) before each step, step-1 gradients, parameters
+    after the last."""
+    import torch
+
+    from video_moment_localization_tpu_torch.models.smin import SMIN, smin_forward
+    from video_moment_localization_tpu_torch.parallel import mesh
+    from video_moment_localization_tpu_torch.parallel.steps import (
+        _FORWARD_KEYS,
+        build_optimizer,
+        make_train_step,
+    )
+
+    model = SMIN(config.model)
+    model.load_state_dict(state)
+    step = make_train_step(config.model, model, build_optimizer(config, model), device)
+    res = {"loss": [], "counts": [], "outputs": []}
+    for batch in batches:
+        b = mesh.put_batch(batch, device)
+        with torch.no_grad():
+            outs = smin_forward(model, config.model, *(b.get(k) for k in _FORWARD_KEYS))
+        res["outputs"].append(tuple(o.cpu() for o in outs[:3]))
+        m = step(b)
+        if "grads" not in res:
+            res["grads"] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        res["loss"].append(float(m["loss"]))
+        res["counts"].append(m["counts"].double().cpu())
+    res["params"] = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    del model, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def seq_tied_scores(cfg, got, want, batch, k=5):
+    """Where the top-k of two runs' scores differ: the first sample whose
+    top-k indices differ and the scores of both runs at those indices."""
+    import torch
+
+    from video_moment_localization_tpu_torch.train.metrics import (
+        proposal_scores,
+        proposal_scores_packed,
+        topk_lowest_index_first,
+    )
+
+    def scores(outs):
+        pm, ps, pe = outs
+        lm = torch.from_numpy(batch["length_mask"])
+        if pm.dim() == 2:
+            return proposal_scores_packed(pm, ps, pe, lm, cfg.L)
+        return proposal_scores(pm, ps, pe, torch.from_numpy(batch["moment_mask"])).reshape(
+            pm.shape[0], -1)
+
+    a, b = scores(got), scores(want)
+    ia, ib = topk_lowest_index_first(a, k)[1], topk_lowest_index_first(b, k)[1]
+    for s in range(a.shape[0]):
+        if not torch.equal(ia[s], ib[s]):
+            idx = sorted(set(ia[s].tolist()) ^ set(ib[s].tolist()))
+            return (f"sample {s}: top-{k} {ia[s].tolist()} against {ib[s].tolist()}; scores at "
+                    f"{idx}: 2-D {[float(a[s, i]) for i in idx]}, one process "
+                    f"{[float(b[s, i]) for i in idx]}")
+    return "the same top-k indices in every sample"
+
+
+def seq_hold(label, cfg, layout, ranks, want, batches):
+    """A (data x seq) case against one process's steps: the global losses
+    within TRAIN_LOSS_RTOL, the step-1 gradients summed over the world
+    against one process's (GRAD_RTOL, GRAD_ATOL_REL of each module's largest
+    magnitude: a leaf's gradient off by a uniform factor, such as a missing
+    1/seq on the replicated leaves, fails here, where Adam's update after 3
+    steps would hide it), the counts equal (else the tied scores), the
+    parameters after the last step at SEQ_PARAM_TOL[layout], every rank's
+    parameters equal to rank 0's after every step, and no kernel launched.
+    Returns the worst relative loss error, the worst gradient error against
+    its module's magnitude and the worst parameter error against its
+    tolerance's scale."""
+    import torch
+
+    got = ranks[0]
+    for r, rank in enumerate(ranks):
+        if rank["loss"] != got["loss"] or not all(rank["equal"]):
+            fail(f"seq {label}: rank {r}'s losses {rank['loss']} / parameter equality "
+                 f"{rank['equal']} against rank 0's {got['loss']}")
+        if rank["launches"]:
+            fail(f"seq {label}: rank {r} launched {rank['launches']}: the 2-D path runs no kernel")
+    worst = max(abs(a - b) / abs(b) for a, b in zip(got["loss"], want["loss"]))
+    if worst > TRAIN_LOSS_RTOL:
+        fail(f"seq {label}: global losses {got['loss']}, one process's {want['loss']} "
+             f"(rtol {TRAIN_LOSS_RTOL})")
+    scales = {}
+    for name, g in want["grads"].items():
+        key = ".".join(name.split(".")[:2])
+        scales[key] = max(scales.get(key, 0.0), float(g.abs().max()))
+    grad_worst = 0.0
+    for name, g in want["grads"].items():
+        scale = scales[".".join(name.split(".")[:2])]
+        err = grad_err(got["grads"][name], g, scale, f"seq {label} step-1 gradient of {name}")
+        grad_worst = max(grad_worst, err / scale if scale else err)
+    nd = got["grid"][0]
+    leads = sorted((r for r in ranks if r["seq_index"] == 0), key=lambda r: r["data"])
+    assert len(leads) == nd
+    for i, (c, w) in enumerate(zip(got["counts"], want["counts"])):
+        if not torch.equal(c, w):
+            outs = tuple(torch.cat([r["outputs"][i][j] for r in leads]) for j in range(3))
+            fail(f"seq {label}: step {i + 1} counts {c.flatten().tolist()}, one process's "
+                 f"{w.flatten().tolist()}: {seq_tied_scores(cfg, outs, want['outputs'][i], batches[i])}")
+    tol = SEQ_PARAM_TOL[layout]
+    ratio, bad = 0.0, []
+    for name, p in want["params"].items():
+        q = ranks[0]["params"][name]
+        excess = float(((q - p).abs() / (tol["atol"] + tol["rtol"] * p.abs())).max())
+        ratio = max(ratio, excess)
+        if excess > 1.0:
+            bad.append(f"{name} (max abs diff {float((q - p).abs().max()):.3e})")
+    if bad:
+        fail(f"seq {label}: parameters after {len(batches)} steps outside rtol {tol['rtol']} / "
+             f"atol {tol['atol']} of one process's: {bad}")
+    print(f"seq {label}: grid {got['grid']}, losses {got['loss']} against one process's "
+          f"{want['loss']} (worst {worst:.3e}); {len(want['grads'])} step-1 gradients summed "
+          f"over the world within {grad_worst:.3e} of their module's largest magnitude; counts "
+          f"equal each step; parameters within {ratio:.3f} of their tolerance; equal across the "
+          f"ranks after each step; no kernel launched; step wall ms "
+          f"{[round(t, 3) for t in got['step_ms']]}")
+    return worst, grad_worst, ratio
+
+
+def phase_seq(config, anet, files, seed, rng, device, tmp):
+    """Phase 24: sequence and 2-D parallelism on one card (a)-(d); see the
+    module docstring."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from video_moment_localization_tpu_torch.config import ModelConfig
+    from video_moment_localization_tpu_torch.models.smin import SMIN
+    from video_moment_localization_tpu_torch.parallel import mesh
+    from video_moment_localization_tpu_torch.utils.profile_train import synthetic_batch
+
+    t_phase = time.perf_counter()
+    card = f"cuda:{torch.cuda.current_device()}" if device.type == "cuda" else str(device)
+
+    def host_batch(c, B):
+        return {k: v.numpy() for k, v in synthetic_batch(c, B, rng).items()}
+
+    # (a) Charades at full width and depth, packed and dense (compat_head).
+    layouts = {"packed": config, "dense": dataclasses.replace(
+        config, model=dataclasses.replace(config.model, compat_head=True))}
+    charades = {}
+    for k, (layout, cfgx) in enumerate(layouts.items()):
+        torch.manual_seed(seed + 240 + k)
+        state = SMIN(cfgx.model).state_dict()
+        batches = [host_batch(cfgx.model, TRAIN_BATCH) for _ in range(TRAIN_STEPS)]
+        charades[layout] = (cfgx, state, batches, seq_reference(cfgx, state, batches, device))
+    # (b) ActivityNet, packed: one process's peak memory and step time at seq 1.
+    anet_batches = [host_batch(anet.model, TRAIN_BATCH)]
+    grid1 = mesh.make_grid_2d(1)
+    memory = {1: seq_steps(dict(config=anet, seed=seed + 250, batches=anet_batches), grid1,
+                           device, dp_counters())}
+    # (c) the long-video configuration.
+    long_cfg = dataclasses.replace(config, model=ModelConfig(**SEQ_LONG), lr=1e-3)
+    long_batch = host_batch(long_cfg.model, 2)
+
+    runs, route, spawn_s, pool_ms = {}, None, {}, {}
+    for world in (2, 4):
+        cases = [dict(name=f"{layout}_{nd}x{sq}", seq=sq, config=c[0], state=c[1], batches=c[2],
+                      outputs=True, params=True, seed=0)
+                 for nd, sq in SEQ_GRIDS if nd * sq == world for layout, c in charades.items()]
+        cases.append(dict(name=f"anet_seq{world}", seq=world, config=anet, seed=seed + 250,
+                          batches=anet_batches))
+        if world == 4:
+            cases.append(dict(name="long_2x2", seq=2, config=long_cfg, seed=seed + 260,
+                              batches=[long_batch]))
+        job_path = os.path.join(tmp, f"seq_job{world}.pt")
+        cfg_n = config.model.L * (config.model.L + 1) // 2
+        torch.save(dict(cases=cases, device=card, pool_shape=(
+            TRAIN_BATCH, cfg_n, config.model.C, config.model.D)), job_path)
+        pattern = os.path.join(tmp, f"seq{world}_rank%d.pt")
+        t0 = time.perf_counter()
+        mesh.spawn(seq_rank, world, [card] * world, "gloo", args=(job_path, pattern),
+                   timeout_s=SEQ_TIMEOUT_S)
+        spawn_s[world] = time.perf_counter() - t0
+        ranks = [torch.load(pattern % r, weights_only=False) for r in range(world)]
+        route = ranks[0]["route"]
+        pool_ms[world] = ranks[0]["pool_ms"]
+        for case in cases:
+            runs[case["name"]] = [r[case["name"]] for r in ranks]
+    print(f"seq collectives on the gloo groups: {route}")
+
+    parity = {}
+    for nd, sq in SEQ_GRIDS:
+        for layout, (cfgx, _, batches, want) in charades.items():
+            name = f"{layout}_{nd}x{sq}"
+            loss_err, grad_err_rel, param_ratio = seq_hold(
+                f"Charades B={TRAIN_BATCH} {name}", cfgx.model, layout, runs[name], want, batches)
+            parity[name] = dict(losses=runs[name][0]["loss"], one_process_losses=want["loss"],
+                                worst_loss_rel=loss_err, grad_err_of_module_scale=grad_err_rel,
+                                param_err_of_tolerance=param_ratio,
+                                step_ms=runs[name][0]["step_ms"])
+    for world in (2, 4):
+        memory[world] = runs[f"anet_seq{world}"]
+    mem = {}
+    for sq, res in memory.items():
+        ranks = res if isinstance(res, list) else [res]
+        for r, rank in enumerate(ranks):
+            if rank["launches"] or not rank["finite"]:
+                fail(f"seq ActivityNet seq={sq}: rank {r} launched {rank['launches']}, finite "
+                     f"parameters {rank['finite']}")
+        mem[sq] = dict(peak_gib_per_rank=[rk["peak_gib"] for rk in ranks],
+                       start_gib_per_rank=[rk["start_gib"] for rk in ranks],
+                       step_ms=ranks[0]["step_ms"][-1], loss=ranks[0]["loss"])
+        print(f"seq ActivityNet B={TRAIN_BATCH} packed, seq={sq} ({card_line()}; one-card, "
+              f"host-staged gloo figures): peak device memory per rank "
+              f"{[round(g, 3) for g in mem[sq]['peak_gib_per_rank']]} GiB (allocated before "
+              f"the steps {[round(g, 3) for g in mem[sq]['start_gib_per_rank']]}), step "
+              f"{mem[sq]['step_ms']:.1f} ms (one step), loss {mem[sq]['loss']}")
+    pool_mb = TRAIN_BATCH * config.model.L * (config.model.L + 1) // 2 * config.model.C * \
+        config.model.D * 4 / 1e6
+    for world, ms in pool_ms.items():
+        print(f"seq pool collectives alone ({card_line()}; one-card, host-staged gloo figures), "
+              f"{world} ranks on the card, a seq group of 2: the reduce-scatter of the Charades "
+              f"B={TRAIN_BATCH} partial sums ({pool_mb:.1f} MB) {ms['reduce_scatter']:.1f} ms, "
+              f"its backward all-gather {ms['all_gather']:.1f} ms")
+    losses = [m["loss"][0] for m in mem.values()]
+    if max(losses) - min(losses) > TRAIN_LOSS_RTOL * abs(losses[0]):
+        fail(f"seq ActivityNet: step-1 losses at seq 1/2/4 {losses} differ past "
+             f"{TRAIN_LOSS_RTOL}")
+    long = runs["long_2x2"]
+    if not all(np.isfinite(r["loss"][0]) and r["finite"] for r in long):
+        fail(f"seq long video: loss {long[0]['loss']}, finite parameters "
+             f"{[r['finite'] for r in long]}")
+    print(f"seq long video (T={SEQ_LONG['T']}, L={SEQ_LONG['L']}, D={SEQ_LONG['D']}, "
+          f"dl={SEQ_LONG['dl']}) 2x2: loss {long[0]['loss'][0]!r} finite, "
+          f"parameters finite; peak per rank {[round(r['peak_gib'], 3) for r in long]} GiB, step "
+          f"{long[0]['step_ms'][0]:.1f} ms")
+
+    # (d) the CLI on the 2-D grid: two gloo ranks on cuda:0.
+    cli_cfg = files_config(os.path.join(tmp, "seq_cli"), files["data"], resume=False)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "video_moment_localization_tpu_torch.main", "--config_path",
+         cli_cfg, "--num_epochs", "1", "--num_devices", "2", "--seq_devices", "2", "--device",
+         card], cwd=REPO, capture_output=True, text=True,
+        timeout=SEQ_TIMEOUT_S)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"seq CLI: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    if proc.stdout.count("Training Epoch - 1") != 1 or proc.stdout.count("throughput - ") != 1:
+        fail(f"seq CLI: stdout not written once: {proc.stdout[-2000:]}")
+    ckpt_dir = os.path.join(tmp, "seq_cli", "ckpt")
+    if sorted(os.listdir(ckpt_dir)) != ["charades_files_model.ckpt", "charades_files_stats.json"]:
+        fail(f"seq CLI: checkpoint directory {os.listdir(ckpt_dir)}")
+    cli_stats = read_stats(cli_cfg)
+    single = {k: v[0] for k, v in files["stats"].items()}
+    cli_diff = {}
+    for key, ref in single.items():
+        cli_diff[key] = abs(cli_stats[key][0] - ref)
+        if cli_diff[key] > DP_FIT_TOL * max(abs(ref), 1.0):
+            fail(f"seq CLI: epoch-1 {key} {cli_stats[key][0]!r} on the 1x2 grid, {ref!r} in "
+                 f"phase 17 (tolerance {DP_FIT_TOL})")
+    print(f"seq CLI: --num_devices 2 --seq_devices 2 --device {card} (gloo), one epoch "
+          f"in {cli_s:.1f} s (processes included); written once, by rank 0; epoch-1 stats "
+          f"within {max(cli_diff.values()):.3e} of phase 17's (train loss "
+          f"{cli_stats['train_loss'][0]!r} against {single['train_loss']!r})")
+    return dict(
+        card=card_line(), route=route, charades=parity, activitynet_memory=mem,
+        long_video=dict(loss=long[0]["loss"][0], peak_gib_per_rank=[r["peak_gib"] for r in long],
+                        step_ms=long[0]["step_ms"][0]),
+        pool_collective_ms=pool_ms, pool_mb=pool_mb,
+        cli_max_abs_diff=max(cli_diff.values()), cli_seconds=cli_s,
+        spawn_seconds=spawn_s, seconds=time.perf_counter() - t_phase,
+        note="one-card figures: every rank on cuda:0, gloo collectives staged through the host; "
+             "they say nothing of NCCL over NVLink")
+
+
 def device_split(fn, calls: int = 10) -> dict:
     """What one call of fn() runs on the card, from torch.profiler over
     ``calls`` calls (utils/profile_serving.py's report) after two calls
@@ -5000,6 +5439,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     dp = phase_dp(config, anet, files_run, serving, args.seed, rng, device, files_tmp.name)
     lap(23)
+    seq = phase_seq(config, anet, files_run, args.seed, rng, device, files_tmp.name)
+    lap(24)
     serve_tmp.cleanup()
     files_tmp.cleanup()
 
@@ -5276,6 +5717,7 @@ def main(argv=None) -> int:
                       "against_plain": bd["fused_err"]},
         "k9_parity": bd["k9_stats"], "errs": bd["errs"]}}))
     print(json.dumps({"data_parallel": dp}))
+    print(json.dumps({"seq_parallel": seq}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,9 +4,9 @@ train -> stats and checkpoint -> resume -> --test -> --test --nms, the
 missing-checkpoint error, GloVe from $GLOVE_PATH, --best, --compat_metrics,
 --debug_nans, --profile_dir, training and --test at bf16, the card as the
 default device, --distributed as the one rank of a group, the refusal of
-data-parallel settings that cannot run and of the flags whose paths the port
-does not have yet."""
+data-parallel and sequence-parallel settings that cannot run."""
 
+import functools
 import json
 import os
 import shutil
@@ -176,8 +176,25 @@ def test_refuses_unported_flags(env, capsys, monkeypatch, flags, item):
         assert [line.split(" - ")[0] for line in lines[:8]] == [
             f"R@{n}, IoU={m}" for n in (1, 5) for m in (0.1, 0.3, 0.5, 0.7)]
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 '{item}'"):
+    # Sequence parallelism runs on a group of ranks (tests/test_torch_seq_cli.py):
+    # without one it is refused with how to start them, bad widths with the
+    # JAX trainer's messages; --num_devices 2 --seq_devices 2 trains an epoch.
+    with pytest.raises(ValueError, match="seq_devices=2 runs on a group of at least 2 ranks.*"
+                                         "main --num_devices N --seq_devices 2"):
         run(capsys, "--config_path", cfg, *flags)
+    with pytest.raises(ValueError, match=r"device count \(4\) must be divisible by "
+                                         r"seq_devices \(3\)"):
+        run(capsys, "--config_path", cfg, "--num_devices", "4", "--seq_devices", "3")
+    with pytest.raises(ValueError, match=r"2-D mesh needs batch_size % 2 == 0 and T \(16\), "
+                                         r"L \(8\) divisible by seq_devices \(2\)"):
+        run(capsys, "--config_path", cfg, "--num_devices", "4", *flags)
+    assert not os.path.exists(env / "ckpt_refused")
+    monkeypatch.setattr(mesh, "spawn", functools.partial(mesh.spawn, timeout_s=240))
+    run(capsys, "--config_path", write_cfg(env, name="tiny5s", ckpt="ckpt_seq"), "--num_epochs",
+        "1", "--num_devices", "2", *flags)
+    with open(env / "ckpt_seq/tiny5s_stats.json") as fh:
+        assert json.load(fh)["epoch"] == [1]
+    assert os.path.exists(env / "ckpt_seq/tiny5s_model.ckpt")
     assert not os.path.exists(env / "ckpt_refused")
 
 

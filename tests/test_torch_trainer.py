@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_seq_workers
 from _torch_train_common import TINY_CFG, load_jax_native
 from video_moment_localization_tpu.config import load_config as j_load_config
 from video_moment_localization_tpu.data.pipeline import BatchLoader as JBatchLoader
@@ -33,6 +34,7 @@ from video_moment_localization_tpu_torch.config import load_config
 from video_moment_localization_tpu_torch.data.pipeline import BatchLoader
 from video_moment_localization_tpu_torch.data.synthetic import write_charades_style_dir
 from video_moment_localization_tpu_torch.models.port import state_dict_from_jax_params
+from video_moment_localization_tpu_torch.parallel import mesh
 from video_moment_localization_tpu_torch.train.trainer import Trainer, build_datasets, check_world
 from video_moment_localization_tpu_torch.utils import checkpoint as ckpt_mod
 from video_moment_localization_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -225,14 +227,16 @@ def test_step_error_stops_the_loader_thread(data_dir):
     (dict(model=dict(compute_dtype="bfloat16", packed=False)), "bf16"),
 ])
 def test_refuses_unported_settings(data_dir, change, item):
-    """Sequence parallelism is refused, naming its ROADMAP item. Data
-    parallelism runs one process a device (tests/test_torch_parallel.py):
+    """Data parallelism runs one process a device (tests/test_torch_parallel.py):
     outside a process group a Trainer is one rank, so num_devices=2 is
     refused with how to start two ranks, as is a global batch that the
-    world does not divide; num_devices=1 trains. bf16 runs on every
-    route, the dense layout included: a Trainer builds there for training
-    and for ``--test`` alike, and any other compute_dtype is refused for
-    both."""
+    world does not divide; num_devices=1 trains. Sequence parallelism runs
+    on a group of ranks (tests/test_torch_seq_*.py): seq_devices=2 builds
+    and fits an epoch on two gloo ranks; outside a group it is refused with
+    how to start them, and bad widths with the JAX trainer's messages. bf16
+    runs on every route, the dense layout included: a Trainer builds there
+    for training and for ``--test`` alike, and any other compute_dtype is
+    refused for both."""
     cfg = load_config(write_cfg(data_dir, "refuse"))
     if item == "Data parallelism":
         with pytest.raises(ValueError, match="num_devices=2, but this process is one of 1 "
@@ -243,17 +247,32 @@ def test_refuses_unported_settings(data_dir, change, item):
             check_world(dataclasses.replace(cfg, **change), 2)
         assert Trainer(dataclasses.replace(cfg, num_devices=1), device="cpu").world == 1
         return
-    if item == "bf16":
-        model = dataclasses.replace(cfg.model, **change["model"])
-        for test_only in (False, True):
-            Trainer(dataclasses.replace(cfg, model=model), device="cpu", test_only=test_only)
-            with pytest.raises(NotImplementedError, match="compute_dtype=float16"):
-                Trainer(dataclasses.replace(
-                    cfg, model=dataclasses.replace(model, compute_dtype="float16")),
-                    device="cpu", test_only=test_only)
+    if item == "Sequence and 2-D parallelism":
+        seq = dataclasses.replace(cfg, **change)
+        with pytest.raises(ValueError, match="seq_devices=2 runs on a group of at least 2 ranks"
+                                             ".*main --num_devices N --seq_devices 2"):
+            Trainer(seq, device="cpu")
+        with pytest.raises(ValueError, match=r"device count \(3\) must be divisible by "
+                                             r"seq_devices \(2\)"):
+            check_world(dataclasses.replace(seq, num_devices=3), 3)
+        with pytest.raises(ValueError, match=r"2-D mesh needs batch_size % 1 == 0 and T \(16\), "
+                                             r"L \(8\) divisible by seq_devices \(3\)"):
+            check_world(dataclasses.replace(cfg, seq_devices=3), 3)
+        check_world(seq, 2)
+        out = str(data_dir / "seq_fit.pt")
+        mesh.spawn(_torch_seq_workers.fit_epochs, 2, ["cpu", "cpu"], "gloo",
+                   args=(write_cfg(data_dir, "seq_fit", seq_devices=2), 1, out), timeout_s=240)
+        fit = torch.load(out, weights_only=False)
+        assert fit["grid"] == (1, 2) and fit["epochs"] == [1]
+        assert all(np.isfinite(fit["train_loss"]))
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 '{item}'"):
-        Trainer(dataclasses.replace(cfg, **change), device="cpu")
+    model = dataclasses.replace(cfg.model, **change["model"])
+    for test_only in (False, True):
+        Trainer(dataclasses.replace(cfg, model=model), device="cpu", test_only=test_only)
+        with pytest.raises(NotImplementedError, match="compute_dtype=float16"):
+            Trainer(dataclasses.replace(
+                cfg, model=dataclasses.replace(model, compute_dtype="float16")),
+                device="cpu", test_only=test_only)
 
 
 def test_trains_and_tests_at_bf16_on_the_tiny_config(data_dir, capsys):

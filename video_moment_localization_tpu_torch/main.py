@@ -3,8 +3,8 @@
     python -m video_moment_localization_tpu_torch.main \
         --config_path config/charadessta.yml [--num_epochs N] [--test [--best]] \
         [--nms] [--save_best 'R@1, IoU=0.5'] [--compat_metrics] \
-        [--profile_dir DIR] [--debug_nans] [--device cuda|cpu] \
-        [--num_devices N | --distributed]
+        [--profile_dir DIR] [--debug_nans] [--device cuda|cuda:K|cpu] \
+        [--num_devices N | --distributed] [--seq_devices S]
 
 The flags of the JAX package's ``main.py``, with the same names and meanings
 (reference main.py:13-28, 278-313), and the same stdout lines. ``--device``
@@ -27,9 +27,18 @@ shard of every global batch, rank 0 alone printing and writing:
   is ``cuda:LOCAL_RANK``, the backend NCCL (gloo under ``--device cpu``);
 * ``--num_devices N`` (N > 1, no launcher): this process starts the N ranks
   itself, on ``cuda:0`` ... ``cuda:N-1`` with NCCL (refused past the cards
-  there are), or under ``--device cpu`` as N gloo ranks on the CPU.
+  there are), under ``--device cuda:K`` all on card K, or under ``--device
+  cpu`` as N ranks on the CPU; ranks that share a device use gloo, which
+  moves CUDA tensors through the host (NCCL refuses two ranks on one card;
+  `parallel.mesh.spawn_backend`).
 
-``--seq_devices`` above 1 is refused with the ROADMAP.md item that brings it.
+``--seq_devices S`` (S > 1) trains, resumes and tests on the 2-D (data x
+seq) grid of those ranks (`parallel.model_parallel`, the JAX package's 2-D
+mesh): S contiguous ranks share each data shard's video, a T / S chunk each,
+so it needs ``--num_devices N`` (N a multiple of S) or ``--distributed``
+with such a world; outside a group of at least S ranks it is refused with
+how to start them, and bad widths with the JAX trainer's messages
+(`train.trainer.check_world`).
 """
 
 from __future__ import annotations
@@ -42,12 +51,12 @@ import torch
 
 from video_moment_localization_tpu_torch.config import Config, load_config
 from video_moment_localization_tpu_torch.data.pipeline import BatchLoader
+from video_moment_localization_tpu_torch.models.smin import check_dtype
 from video_moment_localization_tpu_torch.parallel import mesh
 from video_moment_localization_tpu_torch.train.trainer import (
     Trainer,
     build_datasets,
     check_world,
-    refuse_unported,
 )
 
 
@@ -65,9 +74,10 @@ def get_parameters(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         help="Data-parallel ranks, one a device; above 1 without a launcher "
                              "this process starts them.")
     parser.add_argument("--seq_devices", default=None, type=int,
-                        help="Sequence-parallel width (the port has none yet).")
+                        help="Sequence-parallel width: shard the clip axis and the proposal "
+                             "map over this many ranks (a 2-D data x seq grid when > 1).")
     parser.add_argument("--compute_dtype", default=None, choices=["float32", "bfloat16"],
-                        help="Activation compute dtype (the port trains in float32).")
+                        help="Activation compute dtype.")
     parser.add_argument("--profile_dir", default=None,
                         help="Write a torch.profiler Chrome trace of training to this "
                              "directory.")
@@ -87,7 +97,8 @@ def get_parameters(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                              "WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT); each rank "
                              "loads its shard of every global batch.")
     parser.add_argument("--device", default="cuda",
-                        help="Device to train and test on (default: cuda).")
+                        help="Device to train and test on (default: cuda); with "
+                             "--num_devices, cuda:K puts every rank on card K.")
     return parser.parse_args(argv)
 
 
@@ -109,7 +120,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         cfg.model = dataclasses.replace(cfg.model, compute_dtype=args.compute_dtype)
     if args.compat_metrics:
         cfg.model = dataclasses.replace(cfg.model, compat_head=True)
-    refuse_unported(cfg)
+    check_dtype(cfg.model)
 
     n = cfg.num_devices or 1
     if args.distributed:
@@ -120,7 +131,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             torch.distributed.destroy_process_group()
     elif n > 1:
         check_world(cfg, n)
-        if torch.device(args.device).type == "cuda":
+        device = torch.device(args.device)
+        if device.type == "cuda" and device.index is None:
             if n > torch.cuda.device_count():
                 raise ValueError(f"--num_devices {n}: requested {n} devices, only "
                                  f"{torch.cuda.device_count()} available")
@@ -139,9 +151,10 @@ def _rank_run(rank: int, args: argparse.Namespace, cfg: Config) -> None:
 
 def run(args: argparse.Namespace, cfg: Config) -> None:
     """Train, or test, as this process's rank (the only one outside a
-    process group): its loaders hold its shard of every global batch."""
+    process group): its loaders hold its shard of every global batch (on
+    the 2-D grid, its data index's)."""
     trainer = Trainer(cfg, device=args.device, debug_nans=args.debug_nans, test_only=args.test)
-    shard = dict(shard_id=trainer.rank, num_shards=trainer.world)
+    shard = dict(shard_id=trainer.shard_id, num_shards=trainer.num_shards)
     if not args.test:
         train_ds, eval_ds = build_datasets(cfg)
         train_loader = BatchLoader(train_ds, cfg.batch_size, shuffle=True,

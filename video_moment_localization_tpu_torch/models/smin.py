@@ -48,10 +48,15 @@ and bias). The parameters stay fp32, with differentiable bf16 casts
 routes in the backward.
 The heads are plain PyTorch. Each kernel wrapper launches its CUDA kernel on
 a CUDA tensor and runs its plain version on a CPU tensor.
+
+`attention_weights_sink` captures the softmax weights of the plain attention
+primitives (`word_attention`, `content_attention_packed`) for debugging, as
+the JAX package's sink does; a kernel records nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional, Tuple
 
@@ -202,19 +207,21 @@ def _linear(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------- #
 # Backbone: encoders + cross-modal Hadamard fusion
 # --------------------------------------------------------------------- #
-def video_encoder(ve: VideoEncoder, video_features, video_mask):
+def video_encoder(ve: VideoEncoder, video_features, video_mask, frames: slice = slice(None)):
     """Masked linear projection + learned positional embedding (reference
     models.py:7-36): (B, T, dv), (B, T, 1) -> (B, T, D), in the dtype of
     ``video_features``. At bf16 the weights are cast as the JAX package casts
-    them (`module_weights`) and the product is the library's bf16 one."""
+    them (`module_weights`) and the product is the library's bf16 one.
+    ``frames``: the rows of the positional table that the frames given take
+    (a sequence-parallel rank's clip shard)."""
     if video_features.dtype == torch.float32:
         x = _linear(ve.ve, video_features) * video_mask
-        return x + ve.pe.weight[None] * video_mask
+        return x + ve.pe.weight[frames][None] * video_mask
     dtype = video_features.dtype
     w = module_weights(ve, dtype)
     mask = video_mask.to(dtype)
     x = F.linear(video_features, w["ve.weight"], w["ve.bias"].to(dtype)) * mask
-    return x + w["pe.weight"][None] * mask
+    return x + w["pe.weight"][frames][None] * mask
 
 
 def query_encoder(qe: QueryEncoder, query_features, query_mask, hidden_size: int,
@@ -255,8 +262,39 @@ def backbone(bb: Backbone, cfg: ModelConfig, video_features, video_mask,
 
 
 # --------------------------------------------------------------------- #
-# SMI units over packed pairs
+# Attention primitives
 # --------------------------------------------------------------------- #
+# Debug introspection (JAX models/smin.py:178-207): the reference's Attention
+# module keeps its last softmax weights on ``self.attn_weights`` (reference
+# models.py:150). Inside `attention_weights_sink()` each plain attention
+# primitive appends (name, weights) in call order instead.
+_ATTN_SINK: Optional[list] = None
+
+
+@contextlib.contextmanager
+def attention_weights_sink():
+    """Capture the attention weights of the forward passes run inside the
+    block. Yields a list that fills with ``(name, weights)`` tuples:
+    ``"word"`` for the boundary unit's query-word attention (B, L, Nq)
+    (reference models.py:128-154) and ``"content"`` for the content-clip
+    attention, (B, N, C, Nq) packed or (B, L, L, C, Nq) dense
+    (models.py:198-226), per SMI layer content then word. The weights are
+    detached. Re-entrant: the previous sink is restored on exit. A CUDA
+    kernel records nothing (its plain version, which the CPU runs, does)."""
+    global _ATTN_SINK
+    prev, sink = _ATTN_SINK, []
+    _ATTN_SINK = sink
+    try:
+        yield sink
+    finally:
+        _ATTN_SINK = prev
+
+
+def _record_attn(name: str, weights: torch.Tensor) -> None:
+    if _ATTN_SINK is not None:
+        _ATTN_SINK.append((name, weights.detach()))
+
+
 def word_attention(attn: Attention, query, key, value, key_mask):
     """Scaled-dot attention, raw value passthrough, -1e9 key mask (reference
     models.py:128-154). query (B, Lq, D), key/value (B, Lk, D),
@@ -265,7 +303,9 @@ def word_attention(attn: Attention, query, key, value, key_mask):
     k = _linear(attn.W_k, key)
     logits = torch.einsum("bqd,bkd->bqk", q, k) / math.sqrt(query.shape[-1])
     logits = torch.where(key_mask[..., 0][:, None, :] > 0, logits, _NEG_INF)
-    return torch.einsum("bqk,bkd->bqd", torch.softmax(logits, dim=-1), value)
+    weights = torch.softmax(logits, dim=-1)
+    _record_attn("word", weights)
+    return torch.einsum("bqk,bkd->bqd", weights, value)
 
 
 def moment_gate(f_m, f_s):
@@ -276,21 +316,27 @@ def moment_gate(f_m, f_s):
     return torch.sigmoid(f_m * fs) * f_m
 
 
-def content_attention_packed(attn: Attention, query3, key, value, key_mask):
-    """Word attention for every packed clip row: query3 (B, N, C, dl)."""
+def content_attention_packed(attn: Attention, query3, key, value, key_mask, cells=None):
+    """Word attention for every packed clip row: query3 (B, N, C, dl).
+    ``cells``: the map's shape in place of N for the sink's record (the dense
+    units' (L, L) or a rank's row block)."""
     q = _linear(attn.W_q, query3)
     k = _linear(attn.W_k, key)
     logits = torch.einsum("bncd,bmd->bncm", q, k) / math.sqrt(query3.shape[-1])
     logits = torch.where(key_mask[..., 0][:, None, None, :] > 0, logits, _NEG_INF)
-    return torch.einsum("bncm,bmd->bncd", torch.softmax(logits, dim=-1), value)
+    weights = torch.softmax(logits, dim=-1)
+    _record_attn("content", weights if cells is None else
+                 weights.reshape(weights.shape[0], *cells, *weights.shape[2:]))
+    return torch.einsum("bncm,bmd->bncd", weights, value)
 
 
 def content_unit_packed(cu: ContentUnit, f_c, f_w, f_s, f_m, query_mask, vmask,
-                        fbar=None):
+                        fbar=None, cells=None):
     """ContentUnit (reference models.py:228-276) over packed pairs: f_c
     (B, N, C, D), f_m (B, N, D), vmask (B, N). The clip self-attention
     softmax is unmasked; the mask multiplies afterwards. Every op runs in
-    f_c's dtype, the masks cast to it, as the JAX unit runs at bf16."""
+    f_c's dtype, the masks cast to it, as the JAX unit runs at bf16.
+    ``cells``: see `content_attention_packed`."""
     dl = cu.linear_c_hat.weight.shape[0]
     f_c_mask = vmask[..., None, None].to(f_c.dtype)
     f_c_hat = _linear(cu.linear_c_hat, f_c) * f_c_mask               # (B, N, C, dl)
@@ -298,7 +344,7 @@ def content_unit_packed(cu: ContentUnit, f_c, f_w, f_s, f_m, query_mask, vmask,
     f_s_hat = _linear(cu.linear_s_hat, f_s)
 
     f_caq = content_attention_packed(cu.attn_layer, f_c_hat, f_w_hat, f_w_hat,
-                                     query_mask) * f_c_mask
+                                     query_mask, cells) * f_c_mask
     f_cq = f_c_hat * (f_caq + f_s_hat[:, None, None, :])
     A_c = torch.einsum("bncd,bned->bnce", f_cq, f_cq) / math.sqrt(dl)
     A_c = torch.softmax(A_c, dim=-1) * f_c_mask
@@ -551,16 +597,17 @@ def smin_stack_bf16(model: SMIN, cfg: ModelConfig, f, fw, fs, query_mask, length
 # --------------------------------------------------------------------- #
 def content_unit(cu: ContentUnit, f_c, f_w, f_s, f_m, query_mask, moment_mask, fbar=None):
     """ContentUnit (reference models.py:228-276) over the dense map: f_c
-    (B, L, L, C, D), f_m (B, L, L, D), moment_mask (B, L, L). The unit is
-    the same per moment in both layouts, so this is `content_unit_packed`
-    over the L * L cells as pairs, masked by the moment_mask."""
-    B, L = moment_mask.shape[:2]
+    (B, R, L, C, D), f_m (B, R, L, D), moment_mask (B, R, L), R = L or a
+    sequence-parallel rank's rows. The unit is the same per moment in both
+    layouts, so this is `content_unit_packed` over the R * L cells as pairs,
+    masked by the moment_mask."""
+    B, R, L = moment_mask.shape
 
-    def cells(x):
-        return None if x is None else x.reshape(B, L * L, *x.shape[3:])
+    def flat(x):
+        return None if x is None else x.reshape(B, R * L, *x.shape[3:])
 
-    out = content_unit_packed(cu, cells(f_c), f_w, f_s, cells(f_m), query_mask,
-                              moment_mask.reshape(B, L * L), fbar=cells(fbar))
+    out = content_unit_packed(cu, flat(f_c), f_w, f_s, flat(f_m), query_mask,
+                              moment_mask.reshape(B, R * L), fbar=flat(fbar), cells=(R, L))
     return out.reshape(f_c.shape)
 
 

@@ -19,10 +19,15 @@ rendezvous in a fresh temporary directory (no port is taken).
 Outside a process group every function here acts as the one rank of a
 group of one: `rank` is 0, `world_size` 1, and the collectives return their
 input.
+
+The 2-D (data x seq) grid of sequence parallelism (`make_grid_2d`, the JAX
+package's ``arrange_2d``): ``world = nd * seq`` ranks, data-major, so that a
+seq group is ``seq`` contiguous ranks, kept on one node.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import shutil
 import tempfile
@@ -40,6 +45,15 @@ LAUNCHER_VARIABLES = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 def default_backend(device: Device) -> str:
     """NCCL for a CUDA device, gloo for the CPU."""
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
+
+
+def spawn_backend(devices: Sequence[Device]) -> str:
+    """The backend of ranks on ``devices``: NCCL when each rank has a card of
+    its own, gloo on the CPU or when ranks share a card (NCCL refuses two
+    ranks on one card; gloo moves CUDA tensors through the host)."""
+    devices = [torch.device(d) for d in devices]
+    own_cards = all(d.type == "cuda" for d in devices) and len(set(devices)) == len(devices)
+    return "nccl" if own_cards else "gloo"
 
 
 def initialize_distributed(backend: Optional[str] = None, rank: Optional[int] = None,
@@ -181,6 +195,62 @@ def barrier(group=None) -> None:
         dist.barrier(group=group)
 
 
+@dataclasses.dataclass(frozen=True)
+class Grid2D:
+    """This rank's place on the (data x seq) grid and the groups it is in:
+    data index ``data`` of ``nd`` and seq index ``seq_index`` of ``seq``;
+    ``seq_group`` the seq ranks of its data shard (the sequence-parallel
+    collectives), ``data_group`` the ranks of its seq index (an epoch's sums
+    over the data shards), ``world_group`` every rank (the gradients)."""
+
+    nd: int
+    seq: int
+    data: int
+    seq_index: int
+    seq_group: Any
+    data_group: Any
+    world_group: Any
+
+
+def make_grid_2d(seq: int, group=None) -> Grid2D:
+    """The (data x seq) grid over the ranks of ``group`` (default: the
+    default group), as ``arrange_2d`` reshapes the devices to (total // seq,
+    seq): rank r at data index r // seq, seq index r % seq. Every rank must
+    call this together: each makes every seq group, then every data group,
+    with ``dist.new_group`` in the same order, and warms the two it is in
+    with one small all-reduce while the ranks are still together. Raises
+    ValueError when ``seq`` does not divide the world, or does not divide
+    ``LOCAL_WORLD_SIZE`` where a launcher set it (a seq group across nodes).
+    Outside a process group (a world of one, ``seq`` 1) every group is
+    None."""
+    group = group if group is not None else default_group()
+    world = 1 if group is None else dist.get_world_size(group)
+    if world % seq:
+        raise ValueError(f"device count ({world}) not divisible by seq ({seq})")
+    local = os.environ.get("LOCAL_WORLD_SIZE")
+    if seq > 1 and local is not None and int(local) % seq:
+        raise ValueError(
+            f"seq axis would span hosts ({local} ranks per node): sequence-parallel "
+            f"collectives must stay within a node. Use seq_devices that divides the per-host "
+            f"device count ({local} per host here).")
+    nd = world // seq
+    if group is None:
+        return Grid2D(nd, seq, 0, 0, None, None, None)
+    r = dist.get_rank(group)
+    ranks = [dist.get_global_rank(group, i) for i in range(world)]
+    seq_groups = [dist.new_group(ranks[d * seq:(d + 1) * seq]) for d in range(nd)]
+    data_groups = [dist.new_group(ranks[s::seq]) for s in range(seq)]
+    grid = Grid2D(nd, seq, r // seq, r % seq, seq_groups[r // seq], data_groups[r % seq], group)
+    for g in (grid.seq_group, grid.data_group):
+        warm = torch.ones(1)
+        if dist.get_backend(g) == "nccl":
+            warm = warm.to(torch.device("cuda", torch.cuda.current_device()))
+        dist.all_reduce(warm, group=g)
+        if float(warm) != dist.get_world_size(g):
+            raise RuntimeError(f"make_grid_2d: a group's first all-reduce gave {float(warm)}")
+    return grid
+
+
 # --------------------------------------------------------------------- #
 def _rank_main(index: int, fn: Callable, nprocs: int, devices: Sequence[str], backend: str,
                init_method: str, threads: int, args: tuple) -> None:
@@ -201,7 +271,7 @@ def spawn(fn: Callable, nprocs: int, devices: Sequence[Device], backend: Optiona
           args: tuple = (), timeout_s: Optional[float] = None) -> None:
     """Run ``fn(rank, *args)`` in ``nprocs`` new processes (the ``spawn``
     start method), rank r on ``devices[r]``, all in one process group
-    (``backend``: `default_backend` of the first device unless named) met
+    (``backend``: `spawn_backend` of the devices unless named) met
     through a ``file://`` store in a fresh temporary directory.
 
     Returns when every rank has returned. The first rank that raises or dies
@@ -215,7 +285,7 @@ def spawn(fn: Callable, nprocs: int, devices: Sequence[Device], backend: Optiona
     if len(devices) != nprocs:
         raise ValueError(f"spawn: {len(devices)} devices for {nprocs} ranks")
     devices = [str(torch.device(d)) for d in devices]
-    backend = backend or default_backend(devices[0])
+    backend = backend or spawn_backend(devices)
     store = tempfile.mkdtemp(prefix="vml-rendezvous-")
     try:
         ctx = mp.start_processes(

@@ -24,8 +24,16 @@ all-reduce an epoch sums the loss sums, valid counts and recall counts.
 Rank 0 alone prints and writes the stats file and the checkpoints; every
 rank resumes and loads for ``--test``. The JAX trainer's automatic SMI
 rematerialization comes with it (`maybe_enable_remat`, against this
-device's memory). Not in this module yet: the 2-D (data x sequence) mesh,
-which is refused with the ROADMAP.md item that brings it.
+device's memory).
+
+Sequence parallelism, as the JAX trainer's 2-D (data x seq) mesh
+(``seq_devices`` > 1): the ranks form the grid of `mesh.make_grid_2d`, the
+loaders are sharded by data index (``shard_id`` the data index,
+``num_shards`` nd), each rank takes its T chunk of its data shard
+(`model_parallel.put_batch_2d`), the steps are `make_train_step_2d` /
+`make_eval_step_2d`, and an epoch's sums are summed over the data group.
+``compat_head`` switches to the dense layout there, as in JAX. The checks
+and their messages are the JAX trainer's (`check_world`).
 """
 
 from __future__ import annotations
@@ -51,6 +59,11 @@ from video_moment_localization_tpu_torch.models.smin import (
 )
 from video_moment_localization_tpu_torch.ops.cuda_build import resolve_device
 from video_moment_localization_tpu_torch.parallel import mesh
+from video_moment_localization_tpu_torch.parallel.model_parallel import (
+    make_eval_step_2d,
+    make_train_step_2d,
+    put_batch_2d,
+)
 from video_moment_localization_tpu_torch.parallel.steps import (
     build_optimizer,
     make_eval_step,
@@ -76,28 +89,34 @@ DRAIN_EVERY = 16
 REMAT_MEMORY_SHARE = 0.5
 
 
-def refuse_unported(cfg: Config) -> None:
-    """Raise NotImplementedError for a setting whose path the port does not
-    have yet, naming the ROADMAP.md item that brings it, instead of running
-    something else. The model's compute dtype and route: what the train and
-    eval steps take (`check_dtype`)."""
-    if cfg.seq_devices > 1:
-        raise NotImplementedError(
-            f"seq_devices={cfg.seq_devices}: sequence and 2-D parallelism are not in the "
-            f"PyTorch port yet (ROADMAP.md §1 'Sequence and 2-D parallelism')")
-    check_dtype(cfg.model)
-
-
 def check_world(cfg: Config, world: int) -> None:
-    """Raise ValueError unless ``cfg`` fits a data-parallel run of ``world``
-    ranks: ``num_devices`` (None: the world) equal to it and the global batch
-    divisible by it, as the JAX trainer checks its mesh."""
+    """Raise ValueError unless ``cfg`` fits a run of ``world`` ranks, one a
+    device, as the JAX trainer checks its mesh: ``num_devices`` (None: the
+    world) equal to it and the global batch divisible by it; with
+    ``seq_devices`` S > 1 a group of at least S ranks (outside one, how to
+    start them), the device count divisible by S, and the batch by the data
+    shards, T and L by S (the JAX messages)."""
+    seq = max(1, int(cfg.seq_devices))
+    if seq > 1 and cfg.num_devices is None and world < seq:
+        raise ValueError(
+            f"seq_devices={seq} runs on a group of at least {seq} ranks, one a device, and this "
+            f"process is one of {world}: start them with `main --num_devices N --seq_devices "
+            f"{seq}` (N a multiple of {seq}) or with a launcher and `--distributed`")
     n = world if cfg.num_devices is None else cfg.num_devices
+    if seq > 1:
+        m = cfg.model
+        if n % seq:
+            raise ValueError(f"device count ({n}) must be divisible by seq_devices ({seq})")
+        nd = n // seq
+        if cfg.batch_size % nd or m.T % seq or m.L % seq:
+            raise ValueError(f"2-D mesh needs batch_size % {nd} == 0 and T ({m.T}), L ({m.L}) "
+                             f"divisible by seq_devices ({seq})")
     if n != world:
+        flags = f" --seq_devices {seq}" if seq > 1 else ""
         raise ValueError(
             f"num_devices={n}, but this process is one of {world} rank(s): start {n} ranks "
-            f"with `main --num_devices {n}` or with a launcher and `--distributed`")
-    if cfg.batch_size % world:
+            f"with `main --num_devices {n}{flags}` or with a launcher and `--distributed`")
+    if seq == 1 and cfg.batch_size % world:
         raise ValueError(f"batch_size ({cfg.batch_size}) must be divisible by the number of "
                          f"devices ({world})")
 
@@ -167,9 +186,11 @@ class Trainer:
     """Owns the model, the optimizer, the steps and the epoch loop.
 
     In a process group (`parallel.mesh.initialize_distributed`) the Trainer
-    is one rank of a data-parallel run: its device is `mesh.device_for_rank`
-    of ``device``, its loaders must be this rank's shards, and its replica
-    starts from rank 0's weights (`mesh.put_replicated`).
+    is one rank of a data-parallel run, or of the 2-D grid under
+    ``seq_devices``: its device is `mesh.device_for_rank` of ``device``, its
+    loaders must hold shard ``shard_id`` of ``num_shards`` (the rank and the
+    world, or on the grid the data index and nd), and its replica starts
+    from rank 0's weights (`mesh.put_replicated`).
 
     ``state_dict``: initial weights (a SMIN state_dict) in place of the
     seeded initialization, for example a JAX parameter tree carried across
@@ -182,12 +203,24 @@ class Trainer:
     def __init__(self, cfg: Config, device="cuda",
                  state_dict: Optional[Dict[str, torch.Tensor]] = None, debug_nans: bool = False,
                  test_only: bool = False):
-        refuse_unported(cfg)
+        check_dtype(cfg.model)
         self.world, self.rank, self.group = mesh.world_size(), mesh.rank(), mesh.default_group()
         check_world(cfg, self.world)
         self.is_main = self.rank == 0
         self.cfg = cfg
         self.debug_nans = debug_nans
+        seq = max(1, int(cfg.seq_devices))
+        self.grid = mesh.make_grid_2d(seq) if seq > 1 else None
+        # The loaders' shard and the group an epoch's sums are summed over.
+        self.shard_id, self.num_shards, self.sum_group = (
+            (self.grid.data, self.grid.nd, self.grid.data_group) if self.grid is not None
+            else (self.rank, self.world, self.group))
+        if self.grid is not None and cfg.model.packed and cfg.model.compat_head:
+            # The reference-compat eval quirk needs the dense pipeline; the
+            # packed pair-chunk seq path is the default otherwise.
+            cfg.model = dataclasses.replace(cfg.model, packed=False)
+            self._say("[trainer] 2-D (data x seq) mesh + compat_head: dense row-sharded layout "
+                      "(packed=False)")
         if self.group is not None:
             device = mesh.device_for_rank(device)
         self.device = resolve_device(device, "Trainer")
@@ -200,12 +233,21 @@ class Trainer:
             self.model.load_state_dict(state_dict, strict=True)
         mesh.put_replicated(self.model.to(self.device), self.group)
         self.optimizer = build_optimizer(cfg, self.model)
-        self.train_step = (None if test_only else
-                           make_train_step(cfg.model, self.model, self.optimizer, self.device,
-                                           group=self.group))
-        self.eval_step = make_eval_step(cfg.model, self.model, device=self.device)
-        self.test_step = make_eval_step(cfg.model, self.model, use_nms=cfg.nms,
-                                        nms_sigma=cfg.nms_sigma, device=self.device)
+        if self.grid is not None:
+            self.train_step = (None if test_only else
+                               make_train_step_2d(cfg.model, self.model, self.optimizer,
+                                                  self.grid, self.device))
+            self.eval_step = make_eval_step_2d(cfg.model, self.model, self.grid,
+                                               device=self.device)
+            self.test_step = make_eval_step_2d(cfg.model, self.model, self.grid, use_nms=cfg.nms,
+                                               nms_sigma=cfg.nms_sigma, device=self.device)
+        else:
+            self.train_step = (None if test_only else
+                               make_train_step(cfg.model, self.model, self.optimizer,
+                                               self.device, group=self.group))
+            self.eval_step = make_eval_step(cfg.model, self.model, device=self.device)
+            self.test_step = make_eval_step(cfg.model, self.model, use_nms=cfg.nms,
+                                            nms_sigma=cfg.nms_sigma, device=self.device)
         self.model_path, self.stats_path = checkpoint_paths(cfg.checkpoint_path,
                                                             cfg.experiment)
         self.best_model_path = self.model_path.replace("_model.ckpt", "_model_best.ckpt")
@@ -217,9 +259,11 @@ class Trainer:
     # ------------------------------------------------------------------ #
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
         """The batch's arrays as tensors on the device (`mesh.put_batch`:
-        through pinned host memory and a non-blocking copy on the card).
-        Called on the main thread only; the loader's threads touch no
-        device."""
+        through pinned host memory and a non-blocking copy on the card; on
+        the 2-D grid this rank's T chunk, `put_batch_2d`). Called on the main
+        thread only; the loader's threads touch no device."""
+        if self.grid is not None:
+            return put_batch_2d(batch, self.grid, self.device)
         return mesh.put_batch(batch, self.device)
 
     def _check_finite(self, m, epoch: int, step: int, train: bool) -> None:
@@ -248,9 +292,9 @@ class Trainer:
         float64 sum over the steps, one all-reduce over the ranks
         (`mesh.all_reduce_sums`) and one read back. A data-parallel train
         batch carries its global batch's valid count (`parallel.steps`)."""
-        if (loader.shard_id, loader.num_shards) != (self.rank, self.world):
+        if (loader.shard_id, loader.num_shards) != (self.shard_id, self.num_shards):
             raise ValueError(f"loader shard {loader.shard_id} of {loader.num_shards}, but this "
-                             f"Trainer is rank {self.rank} of {self.world}")
+                             f"Trainer loads shard {self.shard_id} of {self.num_shards}")
         step_fn = step_fn or (self.train_step if train else self.eval_step)
         per_step = []
         self.timer.start()
@@ -271,7 +315,7 @@ class Trainer:
         if not per_step:   # the same on every rank: each emits a batch per global batch
             self.timer.stop(0)
             return 0.0, {}
-        sums = mesh.all_reduce_sums(torch.stack(per_step).sum(0), self.group).cpu().numpy()
+        sums = mesh.all_reduce_sums(torch.stack(per_step).sum(0), self.sum_group).cpu().numpy()
         num = max(float(sums[1]), 1.0)
         self.timer.stop(int(sums[1]))
         # Counts are whole numbers: float32 holds them exactly, and their
